@@ -1,0 +1,59 @@
+"""Model/training-type registry (port of `finetrainers_tpu/config.py`).
+
+Only LTX-Video resolves; every other family raises NotImplementedError until
+its slice is ported (ROADMAP.md)."""
+
+from __future__ import annotations
+
+import importlib
+from enum import Enum
+from typing import Dict, Optional, Tuple
+
+
+class ModelType(str, Enum):
+    COGVIDEOX = "cogvideox"
+    COGVIEW4 = "cogview4"
+    FLUX = "flux"
+    HUNYUAN_VIDEO = "hunyuan_video"
+    LTX_VIDEO = "ltx_video"
+    WAN = "wan"
+    DUMMY = "dummy"
+
+
+class TrainingType(str, Enum):
+    LORA = "lora"
+    FULL_FINETUNE = "full-finetune"
+    CONTROL_LORA = "control-lora"
+    CONTROL_FULL_FINETUNE = "control-full-finetune"
+
+
+_SFT = (TrainingType.LORA, TrainingType.FULL_FINETUNE)
+_CONTROL = (TrainingType.CONTROL_LORA, TrainingType.CONTROL_FULL_FINETUNE)
+_LTX = ("finetrainers_tpu_torch.models.ltx_video", "LTXVideoModelSpecification")
+
+# model -> {training types}: (module path, class name), or None where the family
+# is not ported yet. The training types per family are the JAX package's.
+_REGISTRY: Dict[ModelType, Dict[TrainingType, Optional[Tuple[str, str]]]] = {
+    ModelType.COGVIDEOX: {t: None for t in _SFT},
+    ModelType.COGVIEW4: {t: None for t in _SFT + _CONTROL},
+    ModelType.FLUX: {t: None for t in _SFT},
+    ModelType.HUNYUAN_VIDEO: {t: None for t in _SFT},
+    ModelType.LTX_VIDEO: {t: _LTX for t in _SFT},
+    ModelType.WAN: {t: None for t in _SFT + _CONTROL},
+    ModelType.DUMMY: {t: None for t in _SFT},
+}
+
+
+def get_model_specification_cls(model_name: str, training_type: str):
+    model_type = ModelType(model_name)
+    tt = TrainingType(training_type)
+    if tt not in _REGISTRY[model_type]:
+        raise ValueError(
+            f"Training type {training_type!r} is not supported for model {model_name!r}. "
+            f"Supported training types: {sorted(t.value for t in _REGISTRY[model_type])}"
+        )
+    ref = _REGISTRY[model_type][tt]
+    if ref is None:
+        raise NotImplementedError(f"{model_name!r} is not ported yet; see ROADMAP.md")
+    module_path, cls_name = ref
+    return getattr(importlib.import_module(module_path), cls_name)

@@ -1,0 +1,136 @@
+"""Shared building blocks (port of the parts of `finetrainers_tpu/models/layers.py`
+that the LTX-Video serving path runs).
+
+Parameter names follow diffusers/peft: a linear layer holds `weight` (out, in)
+and `bias`; its LoRA factors are `lora_A.weight` (r, in) and `lora_B.weight`
+(out, r), so a peft state dict loads strict. Base weights are stored in the
+module's compute dtype (the JAX package keeps fp32 params and casts them at
+every call, which is the same arithmetic); LoRA factors and norm scales stay
+fp32 and are cast where the JAX package casts them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class LoRAFactor(nn.Module):
+    """One LoRA factor, kept fp32 (peft's `lora_A` / `lora_B` submodules)."""
+
+    def __init__(self, in_features: int, out_features: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=torch.float32))
+
+
+class LoRADense(nn.Module):
+    """y = x W^T + b + (alpha/r) (x A^T) B^T  (`LoRADense`, layers.py:34).
+
+    rank=0 disables LoRA. The LoRA branch runs two skinny matmuls in the
+    compute dtype, with the fp32 factors cast to it (layers.py:75-81)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, rank: int = 0,
+                 alpha: float = 1.0, dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.rank = rank
+        self.scaling = alpha / rank if rank > 0 else 0.0
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(out_features, dtype=dtype)) if bias else None
+        if rank > 0:
+            self.lora_A = LoRAFactor(in_features, rank)
+            self.lora_B = LoRAFactor(rank, out_features)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Random init: weights ~ N(0, 1/in) (the scale of flax's lecun_normal),
+        zero bias, lora_A ~ N(0, 1/r) and lora_B = 0 as in the JAX package."""
+        with torch.no_grad():
+            self.weight.normal_(0.0, self.in_features**-0.5, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+            if self.rank > 0:
+                self.lora_A.weight.normal_(0.0, 1.0 / self.rank, generator=generator)
+                self.lora_B.weight.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xc = x.to(self.weight.dtype)
+        y = F.linear(xc, self.weight, self.bias)
+        if self.rank > 0:
+            delta = F.linear(F.linear(xc, self.lora_A.weight.to(xc.dtype)), self.lora_B.weight.to(xc.dtype))
+            y = y + (self.scaling * delta).to(y.dtype)
+        return y
+
+
+def lora_proj_params(layers):
+    """Fused projection (`LoRAProjParams`, layers.py:85): concatenate several
+    LoRADense layers that read the same input into one (sum out, in) weight,
+    one bias, and one stacked lora_A, so a parent runs one wide matmul (and one
+    LoRA-A matmul) instead of several narrow ones. Returns (weight, bias,
+    lora_A or None, [lora_B, ...] or None)."""
+    weight = torch.cat([layer.weight for layer in layers], dim=0)
+    bias = torch.cat([layer.bias for layer in layers]) if layers[0].bias is not None else None
+    if layers[0].rank == 0:
+        return weight, bias, None, None
+    lora_a = torch.cat([layer.lora_A.weight for layer in layers], dim=0)
+    return weight, bias, lora_a, [layer.lora_B.weight for layer in layers]
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with fp32 statistics and an optional fp32 scale (layers.py:121)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, elementwise_affine: bool = True,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(dim, dtype=torch.float32)) if elementwise_affine else None
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.weight is not None:
+            with torch.no_grad():
+                self.weight.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        y = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
+        if self.weight is not None:
+            y = y * self.weight
+        return y.to(self.dtype)
+
+
+def sinusoidal_timestep_embedding(
+    timesteps: torch.Tensor, dim: int, max_period: float = 10000.0, flip_sin_to_cos: bool = True,
+    downscale_freq_shift: float = 0.0, scale: float = 1.0,
+) -> torch.Tensor:
+    """Standard DDPM sinusoidal embedding in fp32 (layers.py:168)."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=timesteps.device)
+    exponent = exponent / (half - downscale_freq_shift)
+    emb = torch.exp(exponent)[None, :] * timesteps.float()[:, None]
+    emb = scale * emb
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+def block_stack(blocks: nn.ModuleList, carry, *broadcast_args):
+    """Run identical blocks in order (`block_stack`, layers.py:354): a plain loop."""
+    for block in blocks:
+        carry = block(carry, *broadcast_args)
+    return carry
+
+
+def init_parameters_(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Random-init a model in place from `generator`. Every port module that
+    owns parameters defines `reset_parameters(generator)` for its own ones."""
+    for m in module.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
+    return module

@@ -1,0 +1,89 @@
+"""ModelSpecification: the per-model adapter contract (port of the serving
+part of `finetrainers_tpu/models/modeling_utils.py`).
+
+A component is a `ModelHandle`: an `nn.Module` with its config dict (the JAX
+package's handle also carries the parameter tree, which here lives inside the
+module). Every spec takes an explicit `device`; its loaders build and
+random-initialise their modules there, from `torch.Generator`s seeded with
+`seed`, and never on an implicit CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, List, Optional, Union
+
+import torch
+import torch.nn as nn
+
+
+
+@dataclasses.dataclass
+class ModelHandle:
+    """A model component: module + config dict."""
+
+    module: nn.Module
+    config: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+class ModelSpecification:
+    """Base class for model specs (reference modeling_utils.py:26-300)."""
+
+    def __init__(
+        self,
+        pretrained_model_name_or_path: Optional[str] = None,
+        text_encoder_id: Optional[str] = None,
+        transformer_id: Optional[str] = None,
+        vae_id: Optional[str] = None,
+        transformer_dtype: torch.dtype = torch.bfloat16,
+        vae_dtype: torch.dtype = torch.bfloat16,
+        *,
+        device: Union[str, torch.device],
+        seed: int = 0,
+    ) -> None:
+        self.pretrained_model_name_or_path = pretrained_model_name_or_path
+        self.text_encoder_id = text_encoder_id
+        self.transformer_id = transformer_id
+        self.vae_id = vae_id
+        self.transformer_dtype = transformer_dtype
+        self.vae_dtype = vae_dtype
+        self.device = torch.device(device)
+        self.seed = seed
+        self.transformer_config: Dict[str, Any] = {}
+
+    def generator(self) -> torch.Generator:
+        """A fresh generator on the spec's device, seeded with `seed`."""
+        return torch.Generator(device=self.device).manual_seed(self.seed)
+
+    # ------------------------------------------------------------------ loading
+    def load_condition_models(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def load_latent_models(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def load_diffusion_models(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def load_pipeline(self, **kwargs) -> Any:
+        raise NotImplementedError
+
+    # ------------------------------------------------------------ data prep
+    def prepare_conditions(self, **kwargs) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    # -------------------------------------------------------------- validation
+    def validation(self, pipeline, **kwargs) -> List[Any]:
+        raise NotImplementedError
+
+    def _component_dir(self, explicit_id: Optional[str], subfolder: str) -> Optional[str]:
+        """Resolve a local HF component directory (explicit id or
+        <pretrained_model_name_or_path>/<subfolder>) holding a config.json."""
+        for candidate in (
+            explicit_id,
+            os.path.join(self.pretrained_model_name_or_path or "", subfolder),
+        ):
+            if candidate and os.path.isdir(candidate) and os.path.exists(os.path.join(candidate, "config.json")):
+                return candidate
+        return None

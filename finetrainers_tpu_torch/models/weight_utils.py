@@ -1,0 +1,91 @@
+"""Carry JAX (flax) parameters across into the port's modules.
+
+The JAX package keeps parameters as a flax tree; the port's modules use
+diffusers/peft names. `load_flax_state` takes the flattened tree
+(`{"a.b.kernel": np.ndarray}`, keys joined by ".") and loads it strict:
+
+  - names map through `flax_key_to_torch` (copied from
+    `finetrainers_tpu/models/weight_utils.py:37-45`) or a per-model key map;
+  - linear kernels (in, out) are transposed to torch's (out, in)
+    (`weight_utils.py:80-81, 105-106`);
+  - LoRA factors `lora_a` (in, r) / `lora_b` (r, out) become peft's
+    `lora_A.weight` (r, in) / `lora_B.weight` (out, r) (`weight_utils.py:111-135`);
+  - scan-stacked blocks `<list>_scan.block[_j].*` are split along their
+    leading axis into `<list>_<i>.*` (`weight_utils.py:214-240`).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+_BLOCK_LIST_NAMES = (
+    "transformer_blocks", "single_transformer_blocks", "temporal_transformer_blocks",
+    "blocks", "layers", "down_blocks", "up_blocks", "mid_blocks", "resnets",
+)
+_BLOCK_RE = re.compile(r"\b(" + "|".join(_BLOCK_LIST_NAMES) + r")_(\d+)\.")
+_SCAN_RE = re.compile(r"^(?P<name>\w+?)_scan\.block(?:_(?P<j>\d+))?\.(?P<rest>.+)$")
+
+
+def flax_key_to_torch(flax_key: str) -> str:
+    """transformer_blocks_0.attn1.to_q.kernel -> transformer_blocks.0.attn1.to_q.weight."""
+    key = _BLOCK_RE.sub(r"\1.\2.", flax_key)
+    key = key.replace(".kernel", ".weight")
+    key = re.sub(r"\.scale$", ".weight", key)
+    return key
+
+
+def unstack_scanned(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Split `<list>_scan.block[_j].<rest>` stacks (leading layer axis) into
+    per-block `<list>_<i>.<rest>` keys, i = step * group + j."""
+    groups: Dict[str, int] = {}
+    for key in flat:
+        m = _SCAN_RE.match(key)
+        if m:
+            groups[m["name"]] = max(groups.get(m["name"], 1), int(m["j"] or 0) + 1)
+    out: Dict[str, np.ndarray] = {}
+    for key, value in flat.items():
+        m = _SCAN_RE.match(key)
+        if m is None:
+            out[key] = value
+            continue
+        group, j = groups[m["name"]], int(m["j"] or 0)
+        for step in range(value.shape[0]):
+            out[f"{m['name']}_{step * group + j}.{m['rest']}"] = value[step]
+    return out
+
+
+def flax_to_torch_state_dict(flat: Dict[str, np.ndarray],
+                             key_map: Optional[Callable[[str], str]] = None) -> Dict[str, np.ndarray]:
+    """Flat flax parameters -> torch/peft-named arrays (linear kernels transposed)."""
+    key_map = key_map or flax_key_to_torch
+    out: Dict[str, np.ndarray] = {}
+    for key, value in unstack_scanned(flat).items():
+        value = np.asarray(value)
+        base, _, leaf = key.rpartition(".")
+        if leaf in ("lora_a", "lora_b"):
+            torch_base = key_map(f"{base}.kernel")[: -len(".weight")]
+            suffix = "lora_A.weight" if leaf == "lora_a" else "lora_B.weight"
+            out[f"{torch_base}.{suffix}"] = value.T
+        elif leaf == "kernel" and value.ndim == 2:
+            out[key_map(key)] = value.T
+        else:
+            out[key_map(key)] = value
+    return out
+
+
+def load_torch_state(model: nn.Module, state: Dict[str, np.ndarray]) -> nn.Module:
+    """Strict load of numpy arrays; each is cast to its parameter's dtype and device."""
+    tensors = {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
+    model.load_state_dict(tensors, strict=True)
+    return model
+
+
+def load_flax_state(model: nn.Module, flat: Dict[str, np.ndarray],
+                    key_map: Optional[Callable[[str], str]] = None) -> nn.Module:
+    return load_torch_state(model, flax_to_torch_state_dict(flat, key_map))

@@ -1,0 +1,261 @@
+"""Attention provider registry and dispatch (port of `finetrainers_tpu/ops/attention.py`).
+
+Canonical layout is BTNH (batch, seq, heads, head_dim), as in the JAX package.
+Providers:
+
+  * "auto" (default): on a CUDA tensor, K1, the hand-written flash forward
+    (`ops/flash_attention.py`), for self-attention with fused RoPE and for
+    cross-attention with `kv_lens`, on any sequence lengths; what K1 does not
+    take (dense masks, causal, GQA, dtypes other than bf16/fp16, head dims
+    other than 64/128) raises, and never falls back to plain math on the card.
+    On a CPU tensor, K1's plain version, or `_native_math` for masks, causal
+    and GQA.
+  * "flash" / "tpu_flash": K1 only; raises where K1 does not apply.
+  * "_native_math": explicit fp32 softmax, the numerics reference.
+  * "native": torch SDPA, kept only as a comparison baseline, never the default.
+
+Every other provider name the CLI accepts (`finetrainers_tpu/args.py`) stays
+registered and raises NotImplementedError naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from enum import Enum
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..constants import FINETRAINERS_ATTN_CHECKS, FINETRAINERS_ATTN_PROVIDER
+from .flash_attention import _rope_fwd, flash_attention
+
+
+class AttentionProvider(str, Enum):
+    FLASH = "flash"
+    SPLASH = "splash"
+    RING = "ring"
+    NATIVE = "native"
+    XLA = "xla"
+    _NATIVE_MATH = "_native_math"
+
+
+class _AttentionProviderRegistry:
+    _providers: Dict[str, Callable] = {}
+    _active_provider: str = FINETRAINERS_ATTN_PROVIDER
+
+    @classmethod
+    def register(cls, name: str):
+        def decorator(fn):
+            cls._providers[name] = fn
+            return fn
+
+        return decorator
+
+    @classmethod
+    def get(cls, name: str) -> Callable:
+        if name not in cls._providers:
+            raise ValueError(f"Unknown attention provider {name!r}. Available: {sorted(cls._providers)}")
+        return cls._providers[name]
+
+
+def list_providers() -> List[str]:
+    return sorted(_AttentionProviderRegistry._providers)
+
+
+def get_active_provider() -> str:
+    return _AttentionProviderRegistry._active_provider
+
+
+@contextlib.contextmanager
+def attention_provider(name: str = "native"):
+    """Context manager switching the active provider."""
+    registry = _AttentionProviderRegistry
+    if name not in registry._providers:
+        raise ValueError(f"Unknown attention provider {name!r}. Available: {sorted(registry._providers)}")
+    old = registry._active_provider
+    registry._active_provider = name
+    try:
+        yield
+    finally:
+        registry._active_provider = old
+
+
+def _check_shapes(query, key, value) -> None:
+    if query.ndim != 4 or key.ndim != 4 or value.ndim != 4:
+        raise ValueError("attention expects BTNH tensors (batch, seq, heads, head_dim)")
+    if key.shape[1] != value.shape[1]:
+        raise ValueError("key/value sequence lengths differ")
+    if query.shape[3] != key.shape[3]:
+        raise ValueError("query/key head dims differ")
+    if query.shape[2] % key.shape[2] != 0:
+        raise ValueError("num query heads must be a multiple of num kv heads (GQA)")
+
+
+# Providers that rotate q/k inside the kernel (fused interleaved-pair RoPE);
+# everything else gets the rotation applied here before the call.
+_FUSED_ROPE_PROVIDERS = frozenset({"auto", "flash", "tpu_flash"})
+
+
+def _rotate_interleaved_4d(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotation on (B, S, N, H) with (S, N*H) full-inner-dim tables or (S, H)
+    tables shared across heads."""
+    _, s, n, h = x.shape
+    if tuple(cos.shape) == (s, h):
+        cos, sin = cos[:, None, :], sin[:, None, :]
+    else:
+        cos, sin = cos.reshape(s, n, h), sin.reshape(s, n, h)
+    return _rope_fwd(x.float(), cos, sin).to(x.dtype)
+
+
+def attention_dispatch(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    attn_mask: Optional[torch.Tensor] = None,
+    dropout_p: float = 0.0,
+    is_causal: bool = False,
+    scale: Optional[float] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    provider: Optional[str] = None,
+    rope_freqs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Single dispatch entry. query/key/value: (B, S, N, H). attn_mask: boolean
+    (True = attend) or additive, broadcastable to (B, N, Sq, Skv). kv_lens: (B,)
+    valid key lengths. rope_freqs: optional (cos, sin) fp32 tables of shape
+    (S, N*H) or (S, H), interleaved-pair RoPE on q and k."""
+    name = provider or _AttentionProviderRegistry._active_provider
+    if dropout_p:
+        raise NotImplementedError("attention dropout is not ported: no ported family trains with it")
+    fn = _AttentionProviderRegistry.get(name)
+    if FINETRAINERS_ATTN_CHECKS:
+        _check_shapes(query, key, value)
+    kwargs = {}
+    if rope_freqs is not None:
+        fusable = (
+            name in _FUSED_ROPE_PROVIDERS
+            and query.shape[1] == key.shape[1]
+            and query.shape[2] == key.shape[2]
+        )
+        if fusable:
+            kwargs["rope_freqs"] = rope_freqs
+        else:
+            query = _rotate_interleaved_4d(query, *rope_freqs)
+            key = _rotate_interleaved_4d(key, *rope_freqs)
+    return fn(query=query, key=key, value=value, attn_mask=attn_mask, is_causal=is_causal,
+              scale=scale, kv_lens=kv_lens, **kwargs)
+
+
+# ---------------------------------------------------------------------- providers
+
+
+def _mask_from_kv_lens(kv_lens: torch.Tensor, skv: int) -> torch.Tensor:
+    """(B,) -> (B, 1, 1, Skv) boolean mask."""
+    col = torch.arange(skv, device=kv_lens.device)[None, :]
+    return (col < kv_lens[:, None])[:, None, None, :]
+
+
+@_AttentionProviderRegistry.register("_native_math")
+def _math_attention(query, key, value, attn_mask, is_causal, scale, kv_lens):
+    """Explicit softmax in fp32 (numerics baseline)."""
+    b, sq, n, h = query.shape
+    skv, n_kv = key.shape[1], key.shape[2]
+    if n_kv != n:
+        key = key.repeat_interleave(n // n_kv, dim=2)
+        value = value.repeat_interleave(n // n_kv, dim=2)
+    scale = scale if scale is not None else h**-0.5
+    q = query.float() * scale
+    logits = torch.einsum("bqnh,bknh->bnqk", q, key.float())
+    if kv_lens is not None:
+        logits = logits.masked_fill(~_mask_from_kv_lens(kv_lens.to(query.device), skv), float("-inf"))
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = logits.masked_fill(~attn_mask, float("-inf"))
+        else:
+            logits = logits + attn_mask.float()
+    if is_causal:
+        causal = torch.ones((sq, skv), dtype=torch.bool, device=query.device).tril(skv - sq)
+        logits = logits.masked_fill(~causal, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bnqk,bknh->bqnh", probs, value.float())
+    return out.to(query.dtype)
+
+
+@_AttentionProviderRegistry.register("native")
+def _sdpa_attention(query, key, value, attn_mask, is_causal, scale, kv_lens):
+    """torch SDPA: a comparison baseline only, never on the default path."""
+    if kv_lens is not None and attn_mask is None:
+        attn_mask = _mask_from_kv_lens(kv_lens.to(query.device), key.shape[1])
+    out = F.scaled_dot_product_attention(
+        query.transpose(1, 2), key.transpose(1, 2), value.transpose(1, 2),
+        attn_mask=attn_mask, is_causal=is_causal, scale=scale,
+        enable_gqa=query.shape[2] != key.shape[2],
+    )
+    return out.transpose(1, 2)
+
+
+def _k1_takes(query, key, attn_mask, is_causal) -> bool:
+    """Whether K1 computes this call: no dense mask, not causal, no GQA, and on
+    the card bf16/fp16 with head dim 64 or 128."""
+    if attn_mask is not None or is_causal or query.shape[2] != key.shape[2]:
+        return False
+    if query.device.type == "cpu":
+        return True
+    return query.dtype in (torch.bfloat16, torch.float16) and query.shape[-1] in (64, 128)
+
+
+@_AttentionProviderRegistry.register("flash")
+@_AttentionProviderRegistry.register("tpu_flash")
+def _flash(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs=None):
+    """K1 only (`tpu_flash` named the JAX in-tree TPU kernel; here it maps to K1)."""
+    if not _k1_takes(query, key, attn_mask, is_causal):
+        raise NotImplementedError(
+            "K1 takes no causal, dense-mask or GQA call, and on the card only bf16/fp16 with "
+            f"head dim 64 or 128 (got {query.dtype}, head dim {query.shape[-1]}); "
+            "see ROADMAP.md (K1, still to port)"
+        )
+    cos, sin = rope_freqs if rope_freqs is not None else (None, None)
+    return flash_attention(query, key, value, kv_lens=kv_lens, scale=scale, rope_cos=cos, rope_sin=sin)
+
+
+@_AttentionProviderRegistry.register("auto")
+def _auto_attention(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs=None):
+    """Default provider. A CUDA tensor always goes to K1, which raises for what
+    it does not take; a CPU tensor goes to K1's plain version where K1 applies
+    and to fp32 math otherwise. Both LTX attentions take K1."""
+    if query.device.type != "cpu" or _k1_takes(query, key, attn_mask, is_causal):
+        return _flash(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs)
+    if rope_freqs is not None:
+        query = _rotate_interleaved_4d(query, *rope_freqs)
+        key = _rotate_interleaved_4d(key, *rope_freqs)
+    return _math_attention(query, key, value, attn_mask, is_causal, scale, kv_lens)
+
+
+def _register_unported(name: str, roadmap_item: str) -> None:
+    def _unported(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs=None):
+        raise NotImplementedError(
+            f"attention provider {name!r} is not ported to PyTorch yet; see ROADMAP.md: {roadmap_item}"
+        )
+
+    _AttentionProviderRegistry.register(name)(_unported)
+
+
+for _name, _item in {
+    "splash": "queue 1, attention dispatch (JAX alias providers)",
+    "xla": "queue 1, attention dispatch (JAX alias providers)",
+    "xformers": "queue 1, attention dispatch (JAX alias providers)",
+    "_native_cudnn": "queue 1, attention dispatch (JAX alias providers)",
+    "_native_efficient": "queue 1, attention dispatch (JAX alias providers)",
+    "_native_flash": "queue 1, attention dispatch (JAX alias providers)",
+    "flash_varlen": "queue 2, K1 segment-id branch",
+    "flex": "queue 2, K1 block-sparse mask branch",
+    "ring": "queue 1, parallel (ring attention)",
+    "ulysses": "queue 1, parallel (ulysses)",
+    "sage": "queue 2, K6 (_sage_fwd_kernel)",
+    "sage_varlen": "queue 2, K6 (_sage_fwd_kernel)",
+    "_sage_qk_int8_pv_fp16_cuda": "queue 2, K6 (_sage_fwd_kernel)",
+    "_sage_qk_int8_pv_fp16_triton": "queue 2, K6 (_sage_fwd_kernel)",
+    "_sage_qk_int8_pv_fp8_cuda": "queue 2, K6 (_sage_fwd_kernel)",
+    "_sage_qk_int8_pv_fp8_cuda_sm90": "queue 2, K6 (_sage_fwd_kernel)",
+}.items():
+    _register_unported(_name, _item)

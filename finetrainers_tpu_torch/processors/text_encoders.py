@@ -1,0 +1,62 @@
+"""Text-encoder condition processors (the parts of
+`finetrainers_tpu/processors/text_encoders.py` the LTX serving path runs).
+
+Encoders are duck-typed handles exposing `encode(captions, max_sequence_length)
+-> (embeds, mask)` as numpy arrays. The T5 tower itself is not ported yet (it
+waits for its weights; see ROADMAP.md), so the port serves with `HashEncoder`,
+the same offline stand-in the JAX package falls back to.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+
+from .base import ProcessorMixin
+
+
+class HashEncoder:
+    """Deterministic offline stand-in for a text encoder. `encode` is copied
+    from `finetrainers_tpu/processors/text_encoders.py:25-47`; its outputs are
+    the same bytes as the JAX package's."""
+
+    def __init__(self, hidden_size: int = 32, max_length: int = 16):
+        self.hidden_size = hidden_size
+        self.max_length = max_length
+
+    def encode(self, captions: List[str], max_sequence_length: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        max_len = max_sequence_length or self.max_length
+        embeds, masks = [], []
+        for caption in captions:
+            seed = int.from_bytes(hashlib.sha256(caption.encode()).digest()[:4], "little")
+            rng = np.random.RandomState(seed)
+            n_tokens = min(max(len(caption.split()), 1), max_len)
+            e = np.zeros((max_len, self.hidden_size), np.float32)
+            e[:n_tokens] = rng.randn(n_tokens, self.hidden_size) * 0.02
+            m = np.zeros((max_len,), np.int32)
+            m[:n_tokens] = 1
+            embeds.append(e)
+            masks.append(m)
+        return np.stack(embeds), np.stack(masks)
+
+
+class T5Processor(ProcessorMixin):
+    """caption -> {embeds (masked), attention mask} (copied from
+    `finetrainers_tpu/processors/text_encoders.py:111-127`)."""
+
+    def __init__(self, output_names: List[str], use_attention_mask: bool = True,
+                 input_names: Optional[dict] = None):
+        if len(output_names) != 2:
+            raise ValueError(f"T5Processor takes two output names, got {output_names}")
+        self.output_names = output_names
+        self.use_attention_mask = use_attention_mask
+        self.input_names = input_names
+
+    def forward(self, text_encoder, caption: Union[str, List[str]], max_sequence_length: int = 128, **kwargs):
+        captions = [caption] if isinstance(caption, str) else list(caption)
+        embeds, mask = text_encoder.encode(captions, max_sequence_length=max_sequence_length)
+        if self.use_attention_mask:
+            embeds = embeds * mask[..., None]
+        return {self.output_names[0]: embeds, self.output_names[1]: mask.astype(np.int32)}

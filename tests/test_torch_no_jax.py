@@ -1,0 +1,54 @@
+"""Guard: the PyTorch port imports no JAX and builds nothing at import time.
+
+A fresh interpreter blocks `jax`, `flax`, `optax`, `finetrainers_tpu` and
+`triton` (a `None` entry in `sys.modules` makes their import raise) and
+replaces `subprocess` launches with a tripwire, then imports every module of
+`finetrainers_tpu_torch`. Any import of a blocked package, any `nvcc` run and
+any kernel library loaded during import fails the test.
+"""
+
+import pathlib
+import subprocess
+import sys
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, subprocess, sys
+for name in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu", "triton"):
+    sys.modules[name] = None
+
+def _tripwire(*args, **kwargs):
+    raise AssertionError(f"a process was started while importing the port: {args[:1]}")
+
+subprocess.Popen = _tripwire
+subprocess.run = _tripwire
+
+import finetrainers_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+from finetrainers_tpu_torch.ops import _build
+assert not _build._LIBS, f"kernel libraries loaded at import: {list(_build._LIBS)}"
+assert "finetrainers_tpu_torch.ops.flash_attention" in names and len(names) > 20, names
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_and_builds_nothing():
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO_ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) > 20
+
+
+def test_no_jax_import_lines_in_port_sources():
+    bad = []
+    for path in (REPO_ROOT / "finetrainers_tpu_torch").rglob("*.py"):
+        for lineno, line in enumerate(path.read_text().splitlines(), 1):
+            words = line.split()
+            if len(words) >= 2 and words[0] in ("import", "from"):
+                root = words[1].split(".")[0].rstrip(",")
+                if root in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu"):
+                    bad.append(f"{path.relative_to(REPO_ROOT)}:{lineno}: {line.strip()}")
+    assert not bad, bad
