@@ -1,19 +1,32 @@
-"""Smoke run of the PyTorch port on one CUDA card: LTX-Video text-to-video serving.
+"""Smoke run of the PyTorch port on one CUDA card: LTX-Video text-to-video serving
+and the LTX-Video LoRA training step.
 
     python3 chip_smoke.py
 
 Phases, each printed on its own line:
   1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
-  2. the nvcc build of the hand-written kernel K1 (`csrc/flash_fwd.cu`), timed;
+  2. the nvcc builds of the hand-written kernels, one process per source, all
+     started together: K1 (`csrc/flash_fwd.cu`), and K2, K3 and their pre-pass
+     (`csrc/flash_bwd.cu`), timed, with ptxas' register and spill lines;
   3. K1 against its plain PyTorch version (`flash_attention_reference`) in bf16
-     at the main path's shapes, with errors and median CUDA-event times;
-  4. the slice through the user entry points: the full-width LTX spec (random
+     at the serving path's shapes, with errors and median CUDA-event times;
+  4. K2, K3 and the pre-pass against `flash_backward_reference` in bf16 at the
+     training path's shapes (LTX self-attention with per-head RoPE tables,
+     cross-attention with kv_lens, a ragged case with an empty row, H=128 with
+     shared tables), with errors, times and the torch SDPA backward as a
+     library yardstick;
+  5. serving through the user entry points: the full-width LTX spec (random
      weights from a seeded generator, bf16) serves 2 prompts at 49x512x768 with
      CFG 3.0; checks the videos and that K1 was launched 2*28*steps*requests times;
-  5. one denoise step with K1 against the same step with plain fp32 attention;
-  6. seconds per denoise step and per request, and peak device memory;
-  7. one denoise step under torch.profiler: device time by kernel class and
-     the card's idle share.
+     then one denoise step with K1 against plain fp32 attention, seconds per step
+     and per request, peak memory, and a torch.profiler breakdown of one step;
+  6. training through the user entry points: `SFTTrainer` on the full-width spec
+     with LoRA rank 128, one warm-up and 5 timed steps on seeded VAE moments
+     (1, 256, 7, 16, 24) -> 2688 tokens and seeded caption states with a padded
+     mask; checks finite losses, moved LoRA factors, unchanged frozen weights
+     and 2*28 launches of K1, K2 and K3 per step; then one step's loss and LoRA
+     gradient with the kernels against plain fp32 attention (both under per-block
+     "full" remat), and a torch.profiler breakdown of one train step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
 0. Without a CUDA card it raises before printing any result.
@@ -27,21 +40,48 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from finetrainers_tpu_torch import get_model_specification_cls
+from finetrainers_tpu_torch.args import BaseArgs
 from finetrainers_tpu_torch.models.ltx_video.transformer import LTXRotaryPosEmbed
 from finetrainers_tpu_torch.ops import _build, attention_dispatch, attention_provider
-from finetrainers_tpu_torch.ops.flash_attention import flash_attention_reference, flash_forward
+from finetrainers_tpu_torch.ops.flash_attention import (
+    flash_attention_reference,
+    flash_backward,
+    flash_backward_reference,
+    flash_bwd_dkdv,
+    flash_bwd_dq,
+    flash_bwd_prep,
+    flash_bwd_prep_reference,
+    flash_forward,
+)
+from finetrainers_tpu_torch.trainer import SFTTrainer
 
 NUM_STEPS = 8  # cut from the pipeline's default 50 to keep the run short
 NUM_LAYERS = 28
+BASE_PARAMS = 1_923_385_472  # the published LTX-Video transformer (jax.eval_shape on the JAX model)
 PROMPTS = ("a red fox runs through fresh snow at dawn", "waves break on a rocky shore under a grey sky")
 REQUEST = dict(num_frames=49, height=512, width=768, guidance_scale=3.0, num_inference_steps=NUM_STEPS)
 # K1 (bf16 output) against the fp32 reference: |out - ref| <= K1_TOL * max(1, |ref|) elementwise,
 # i.e. about two units in the last place of a bf16 value.
 K1_TOL = 2e-2
 LSE_TOL = 1e-2
+# K2/K3 (bf16 gradients) against the reference on the same bf16 inputs: the kernels' exp2 and fp32
+# sums round a p or a ds to the neighbouring bf16 value now and then.
+BWD_REL_L2_TOL = 1e-2
+BWD_MAX_RATIO_TOL = 2e-2
 STEP_REL_L2_TOL = 5e-2
+TRAIN_LOSS_REL_TOL = 1e-2
+# Training: LoRA rank and alpha as bench.py trains, B=1, the VAE moments of a 49x512x768 clip at
+# the LTX VAE's 32x spatial / 8x temporal compression, 128 caption tokens of which 37 are valid.
+TRAIN_RANK = 128
+TRAIN_TIMED_STEPS = 5
+MOMENTS_SHAPE = (1, 256, 7, 16, 24)
+CAPTION_LEN, CAPTION_VALID = 128, 37
+# H100 SXM dense peaks (NVIDIA data sheet, at the 700 W limit).
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def phase(name, **fields):
@@ -63,58 +103,118 @@ def cuda_ms(fn, iters=10, warmup=2):
     return statistics.median(times)
 
 
-def profile_step(step):
-    """Device time of one denoise step by kernel class, from torch.profiler."""
+def bound(flops, nbytes):
+    """The least time the card could take: (ms, "operations" or "bytes")."""
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def rel_errors(got, ref):
+    """(relative L2 error, max |error| / max |ref|, max |error|)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    return ((got - ref).norm() / ref.norm()).item(), (err.max() / ref.abs().max()).item(), err.max().item()
+
+
+def ltx_train_step_flops(cfg: dict, lora_rank: int, remat_factor: float, B: int, S: int, L_CTX: int) -> float:
+    """Analytic matmul FLOPs for one LoRA train step on the LTX transformer
+    (copied from bench.py's `ltx_train_step_flops`, with its shape constants as
+    arguments). fwd counted exactly (matmul terms only); bwd for LoRA training
+    needs dL/dx through every base matmul (~1x fwd) plus LoRA factor grads;
+    remat recomputes `remat_factor` of the fwd."""
+    d = cfg["num_attention_heads"] * cfg["attention_head_dim"]
+    nl = cfg["num_layers"]
+    cap = cfg["caption_channels"]
+    cin = cfg["in_channels"]
+
+    per_layer = 0.0
+    per_layer += 4 * 2 * S * d * d            # attn1 q,k,v,out projections
+    per_layer += 2 * 2 * S * S * d            # attn1 scores + weighted sum
+    per_layer += 2 * 2 * S * d * d            # attn2 q,out
+    per_layer += 2 * 2 * L_CTX * d * d        # attn2 k,v
+    per_layer += 2 * 2 * S * L_CTX * d        # attn2 scores + out
+    per_layer += 2 * 2 * S * d * 4 * d        # ff in + out
+    per_layer += 6 * 2 * S * (d * lora_rank + lora_rank * d)
+
+    fwd = nl * per_layer
+    fwd += B * S * 2 * (256 * d + d * d + d * 6 * d)
+    fwd += B * L_CTX * 2 * (cap * d + d * d)
+    fwd += B * S * 2 * (cin * d + d * cin)
+
+    fwd *= B
+    return fwd * (2.0 + remat_factor)
+
+
+_KERNEL_CLASSES = (("k1", "flash_fwd_kernel"), ("k2", "bwd_dkdv_kernel"), ("k3", "bwd_dq_kernel"),
+                   ("bwd_prep", "rope_prep_kernel"))
+
+
+def profile_device(fn):
+    """Device time of one call of `fn` by class from torch.profiler: the port's
+    kernels (each launch kept in launch order), cuBLAS GEMMs, everything else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
-        step()
+        fn()
         end.record()
         end.synchronize()
     wall_ms = start.elapsed_time(end)
-    classes, kernels, k1 = {}, {}, []
+    classes, kernels, launches = {"gemm": 0.0, "other": 0.0}, {}, {cls: [] for cls, _ in _KERNEL_CLASSES}
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+        # A user annotation (e.g. "Optimizer.step#AdamW.step") spans the kernels it encloses.
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         ms = evt.time_range.elapsed_us() / 1e3
         name = evt.name.lower()
         kernels[evt.name[:90]] = kernels.get(evt.name[:90], 0.0) + ms
-        if "flash_fwd_kernel" in name:
-            k1.append((evt.time_range.start, ms))
-            continue
-        cls = "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")) else "other"
-        classes[cls] = classes.get(cls, 0.0) + ms
-    # Every block launches K1 twice, self-attention then cross-attention, so in
-    # launch order the even K1 launches are self-attention and the odd ones cross.
-    k1.sort()
-    k1_self, k1_cross = [ms for _, ms in k1[0::2]], [ms for _, ms in k1[1::2]]
-    classes["k1_self_attention"], classes["k1_cross_attention"] = sum(k1_self), sum(k1_cross)
-    busy = sum(classes.values())
+        cls = next((c for c, pattern in _KERNEL_CLASSES if pattern in name), None)
+        if cls is not None:
+            launches[cls].append((evt.time_range.start, ms))
+        elif any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+            classes["gemm"] += ms
+        else:
+            classes["other"] += ms
+    launches = {cls: [ms for _, ms in sorted(v)] for cls, v in launches.items()}
+    busy = sum(classes.values()) + sum(sum(v) for v in launches.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    return dict(step_wall_ms=wall_ms, device_busy_ms=busy, idle_share=1.0 - busy / wall_ms if busy else None,
-                ms_by_class=classes, k1_launches=[len(k1_self), len(k1_cross)],
-                k1_ms_per_launch={"self_attention": statistics.median(k1_self) if k1_self else None,
-                                  "cross_attention": statistics.median(k1_cross) if k1_cross else None},
-                top_kernels_ms=top, device_events=len(kernels))
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1.0 - busy / wall_ms if busy else None,
+                classes=classes, launches=launches, top_kernels_ms=top, device_events=len(kernels))
+
+
+def _split(ms_list, by_order):
+    """Self- and cross-attention launches of one kernel: by launch order (each
+    block runs self, then cross) or, where the order is autograd's, by size
+    (self-attention over 2688 keys costs ~20x cross-attention over 128)."""
+    if by_order:
+        return ms_list[0::2], ms_list[1::2]
+    ranked = sorted(ms_list, reverse=True)
+    return ranked[:len(ranked) // 2], ranked[len(ranked) // 2:]
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else None
+
+
+def ltx_tables(n, h):
+    rope = LTXRotaryPosEmbed(n * h)
+    cos, sin = rope.numpy_tables(7, 16, 24, (8 / 25, 32.0, 32.0))
+    return tuple(torch.from_numpy(t).cuda().reshape(2688, n, h).transpose(0, 1).contiguous() for t in (cos, sin))
 
 
 def check_k1(card):
-    """K1 against its reference at the main path's shapes; returns the worst error
-    and the self-attention times."""
+    """K1 against its reference at the serving path's shapes; returns the worst
+    error and the self-attention record."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    rope = LTXRotaryPosEmbed(32 * 64)
-    cos, sin = rope.numpy_tables(7, 16, 24, (8 / 25, 32.0, 32.0))
-    cos_t = torch.from_numpy(cos).cuda().reshape(2688, 32, 64).transpose(0, 1).contiguous()
-    sin_t = torch.from_numpy(sin).cuda().reshape(2688, 32, 64).transpose(0, 1).contiguous()
+    cos_t, sin_t = ltx_tables(32, 64)
     cases = {
         "self_rope": dict(b=2, n=32, sq=2688, skv=2688, lens=None, rope=(cos_t, sin_t)),
         "cross_kv_lens": dict(b=2, n=32, sq=2688, skv=128, lens=[1, 12], rope=None),
         "ragged": dict(b=2, n=32, sq=1000, skv=77, lens=[77, 30], rope=None),
     }
-    worst, timing = 0.0, {}
+    worst, records = 0.0, {}
     for name, c in cases.items():
         # BTNH buffers viewed as BNSH, the layout the model hands the kernel.
         q, k, v = (torch.randn(c["b"], s, c["n"], 64, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
@@ -134,35 +234,108 @@ def check_k1(card):
         # The "native" provider (torch SDPA), a library baseline without the fused rotation, for comparison only.
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa_ms = cuda_ms(lambda: attention_dispatch(qt, kt, vt, kv_lens=lens, provider="native"))
-        flops = 4 * c["b"] * c["n"] * c["sq"] * c["skv"] * 64
+        kv_eff = sum(c["lens"]) if c["lens"] else c["b"] * c["skv"]
+        flops = 4 * c["n"] * c["sq"] * kv_eff * 64
+        q_bytes, kv_bytes = c["b"] * c["n"] * c["sq"] * 64 * 2, c["n"] * kv_eff * 64 * 2
+        table_bytes = 2 * cs.numel() * 4 if cs is not None else 0
+        bound_ms, bound_by = bound(flops, 2 * q_bytes + 2 * kv_bytes + c["b"] * c["n"] * c["sq"] * 4 + table_bytes)
         phase("k1_check", case=name, shape=[c["b"], c["n"], c["sq"], c["skv"], 64], kv_lens=c["lens"],
               max_abs_err=max_abs, rel_err=rel, err_over_max1_ref=norm_err, lse_max_abs_err=lse_err,
-              ms=ms, plain_ms=plain_ms, sdpa_baseline_ms=sdpa_ms, tflops=flops / ms / 1e9, card=card)
+              ms=ms, plain_ms=plain_ms, sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
+              tflops=flops / ms / 1e9, card=card)
         if not (norm_err <= K1_TOL and lse_err <= LSE_TOL):
             raise AssertionError(f"K1 disagrees with its reference on {name}: {norm_err} > {K1_TOL} or "
                                  f"LSE {lse_err} > {LSE_TOL}")
         worst = max(worst, max_abs)
-        timing[name] = (ms, plain_ms)
-    return worst, timing["self_rope"]
+        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return worst, records["self_rope"]
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA card visible (torch.cuda.is_available() is False)")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    phase("device", card=card, torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def check_k2k3(card):
+    """The pre-pass, K2 and K3 against their plain versions at the training
+    path's shapes; returns the worst errors and the self-attention records."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases = {
+        "self_rope": dict(b=1, n=32, sq=2688, skv=2688, h=64, lens=None, rope="ltx"),
+        "cross_kv_lens": dict(b=1, n=32, sq=2688, skv=128, h=64, lens=[37], rope=None),
+        "ragged_empty_row": dict(b=2, n=32, sq=1000, skv=77, h=64, lens=[77, 0], rope=None),
+        "h128_shared_rope": dict(b=1, n=12, sq=4096, skv=4096, h=128, lens=None, rope="shared"),
+    }
+    worst = {"prep": 0.0, "k2": 0.0, "k3": 0.0}
+    records = {}
+    for name, c in cases.items():
+        b, n, sq, skv, h = c["b"], c["n"], c["sq"], c["skv"], c["h"]
+        q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
+                   for s in (sq, skv, skv))
+        do = torch.randn(b, sq, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
+        lens = None if c["lens"] is None else torch.tensor(c["lens"], dtype=torch.int32, device="cuda")
+        cos = sin = None
+        if c["rope"] == "ltx":
+            cos, sin = ltx_tables(n, h)
+        elif c["rope"] == "shared":
+            ang = torch.rand(1, sq, h // 2, generator=g, device="cuda") * 6.3
+            cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
+        rope_sn = 0 if cos is None or cos.shape[0] == 1 else sq * h
+        scale = h**-0.5
+        out, lse = flash_forward(q, k, v, lens, cos, sin)
+        delta = (do.float() * out.float()).sum(-1)
 
-    t0 = time.perf_counter()
-    _build.load_library("flash_fwd")
-    ptxas = [line.strip() for line in _build.BUILD_LOG["flash_fwd"]["log"].splitlines() if "Used" in line]
-    phase("build", kernel="flash_fwd", seconds=time.perf_counter() - t0, ptxas=ptxas)
+        grads = flash_backward(q, k, v, out, lse, do, lens, cos, sin)
+        q_s, k_r = flash_bwd_prep(q, k, cos, sin, rope_sn, scale)
+        torch.cuda.synchronize()
+        refs = flash_backward_reference(q, k, v, out, lse, do, lens, cos, sin)
+        ref_qs, ref_kr = flash_bwd_prep_reference(q, k, cos, sin, scale)
+        errors = {gname: rel_errors(got, ref) for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs)}
+        errors["q_s"] = rel_errors(q_s, ref_qs)
+        if cos is not None:
+            errors["k_r"] = rel_errors(k_r, ref_kr)
+        finite = all(bool(torch.isfinite(x).all()) for x in (*grads, q_s, k_r))
 
-    k1_err, (k1_ms, k1_plain_ms) = check_k1(card)
+        prep_ms = cuda_ms(lambda: flash_bwd_prep(q, k, cos, sin, rope_sn, scale))
+        prep_plain_ms = cuda_ms(lambda: flash_bwd_prep_reference(q, k, cos, sin, scale))
+        k2_ms = cuda_ms(lambda: flash_bwd_dkdv(q_s, k_r, v, do, lse, delta, lens, cos, sin, rope_sn))
+        k3_ms = cuda_ms(lambda: flash_bwd_dq(q_s, k_r, v, do, lse, delta, lens, cos, sin, rope_sn, scale))
+        backward_ms = cuda_ms(lambda: flash_backward(q, k, v, out, lse, do, lens, cos, sin))
+        plain_ms = cuda_ms(lambda: flash_backward_reference(q, k, v, out, lse, do, lens, cos, sin), iters=3)
+        # torch SDPA's backward (dq, dk, dv in one call, no fused rotation): a library yardstick only.
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        mask = None if lens is None else (torch.arange(skv, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True))
 
+        kv_eff = sum(c["lens"]) if c["lens"] else b * skv
+        q_bytes, kv_eff_bytes, kv_bytes = b * n * sq * h * 2, n * kv_eff * h * 2, b * n * skv * h * 2
+        row_bytes = b * n * sq * 4
+        table_bytes = 2 * cos.numel() * 4 if cos is not None else 0
+        k2_bound = bound(8 * n * sq * kv_eff * h, 2 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + 2 * kv_bytes
+                         + table_bytes)
+        k3_bound = bound(6 * n * sq * kv_eff * h, 3 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + table_bytes)
+        prep_bound = bound(0, 2 * q_bytes + (2 * kv_bytes + table_bytes if cos is not None else 0))
+        phase("k2k3_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
+              rel_l2={k_: e[0] for k_, e in errors.items()}, max_err_over_max_ref={k_: e[1] for k_, e in errors.items()},
+              max_abs_err={k_: e[2] for k_, e in errors.items()}, finite=finite,
+              prep_ms=prep_ms, prep_plain_ms=prep_plain_ms, k2_ms=k2_ms, k3_ms=k3_ms, flash_backward_ms=backward_ms, plain_ms=plain_ms,
+              sdpa_backward_ms=sdpa_bwd_ms, k2_bound_ms=k2_bound[0], k3_bound_ms=k3_bound[0],
+              prep_bound_ms=prep_bound[0], k2_tflops=8 * n * sq * kv_eff * h / k2_ms / 1e9,
+              k3_tflops=6 * n * sq * kv_eff * h / k3_ms / 1e9, card=card)
+        bad = [k_ for k_, e in errors.items() if not (e[0] <= BWD_REL_L2_TOL and e[1] <= BWD_MAX_RATIO_TOL)]
+        if bad or not finite:
+            raise AssertionError(f"the backward kernels disagree with their reference on {name}: {bad}, "
+                                 f"finite={finite}")
+        if c["lens"] is not None and 0 in c["lens"]:
+            empty = c["lens"].index(0)
+            if any(x[empty].any() for x in grads):
+                raise AssertionError(f"{name}: a batch with no valid key got a nonzero gradient")
+        worst["prep"] = max(worst["prep"], errors["q_s"][2], errors.get("k_r", (0, 0, 0))[2])
+        worst["k2"] = max(worst["k2"], errors["dk"][2], errors["dv"][2])
+        worst["k3"] = max(worst["k3"], errors["dq"][2])
+        records[name] = dict(prep=(prep_ms, prep_plain_ms, None, *prep_bound), k2=(k2_ms, plain_ms, sdpa_bwd_ms, *k2_bound),
+                             k3=(k3_ms, plain_ms, sdpa_bwd_ms, *k3_bound))
+    return worst, records["self_rope"]
+
+
+def serve(card):
+    """The serving path; returns K1's launches there."""
     t0 = time.perf_counter()
     spec = get_model_specification_cls("ltx_video", "lora")(device=torch.device("cuda"), seed=0)
     pipe = spec.load_pipeline()
@@ -170,7 +343,7 @@ def main():
     n_params = sum(p.numel() for p in pipe.transformer.module.parameters())
     phase("load", seconds=time.perf_counter() - t0, transformer_params=n_params,
           layers=len(pipe.transformer.module.transformer_blocks))
-    if n_params != 1_923_385_472 or len(pipe.transformer.module.transformer_blocks) != NUM_LAYERS:
+    if n_params != BASE_PARAMS or len(pipe.transformer.module.transformer_blocks) != NUM_LAYERS:
         raise AssertionError("the spec did not build the published LTX-Video width and depth")
 
     phase("serve_config", steps=NUM_STEPS, steps_note="cut from the default 50", **REQUEST)
@@ -210,7 +383,7 @@ def main():
             sdpa_out = step()
             sdpa_step_ms = cuda_ms(step, iters=5, warmup=1)
         step_ms = cuda_ms(step, iters=5, warmup=1)
-        breakdown = profile_step(step)
+        prof = profile_device(step)
     rel_l2 = ((kernel_out - plain_out).norm() / plain_out.norm()).item()
     sdpa_rel_l2 = ((sdpa_out - plain_out).norm() / plain_out.norm()).item()
     phase("step_vs_plain_attention", rel_l2=rel_l2, bound=STEP_REL_L2_TOL, sdpa_baseline_rel_l2=sdpa_rel_l2,
@@ -220,20 +393,194 @@ def main():
 
     phase("timing", card=card, denoise_step_s=step_ms / 1e3, denoise_step_plain_attention_s=plain_step_ms / 1e3,
           request_s=statistics.mean(request_s), requests_s=request_s, steps_per_request=NUM_STEPS,
-          peak_memory_gb=peak_gb, k1_self_attention_ms=k1_ms, k1_plain_ms=k1_plain_ms,
-          denoise_step_sdpa_baseline_s=sdpa_step_ms / 1e3)
-    phase("profile", card=card, **breakdown)
+          peak_memory_gb=peak_gb, denoise_step_sdpa_baseline_s=sdpa_step_ms / 1e3)
+    # Every block launches K1 twice, self-attention then cross-attention.
+    k1_self, k1_cross = _split(prof["launches"]["k1"], by_order=True)
+    classes = dict(prof["classes"], k1_self_attention=sum(k1_self), k1_cross_attention=sum(k1_cross))
+    phase("profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"], ms_by_class=classes, k1_launches=[len(k1_self), len(k1_cross)],
+          k1_ms_per_launch={"self_attention": _median(k1_self), "cross_attention": _median(k1_cross)},
+          top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
+    return launches
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd (K1)",
-        "route": "cuda",
-        "source": "finetrainers_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "finetrainers_tpu/ops/flash_attention.py:106",
-        "launches": launches,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": k1_plain_ms,
-    }]}), flush=True)
+
+def _counts():
+    return dict(k1=flash_forward.launches, prep=flash_bwd_prep.launches, k2=flash_bwd_dkdv.launches,
+                k3=flash_bwd_dq.launches)
+
+
+def _zero_counts():
+    flash_forward.launches = flash_bwd_prep.launches = flash_bwd_dkdv.launches = flash_bwd_dq.launches = 0
+
+
+def train_batch():
+    """Seeded VAE moments of one 49x512x768 clip and seeded caption states with a padded mask."""
+    g = torch.Generator("cuda").manual_seed(11)
+    moments = torch.randn(MOMENTS_SHAPE, generator=g, device="cuda")
+    moments[:, MOMENTS_SHAPE[1] // 2:] = 0.5 * moments[:, MOMENTS_SHAPE[1] // 2:] - 2.0  # log-variance
+    channels = MOMENTS_SHAPE[1] // 2
+    conditions = {
+        "encoder_hidden_states": torch.randn(1, CAPTION_LEN, 4096, generator=g, device="cuda").to(torch.bfloat16),
+        "encoder_attention_mask": (torch.arange(CAPTION_LEN, device="cuda") < CAPTION_VALID).to(torch.int32)[None],
+    }
+    latents = {"latents": moments, "latents_mean": torch.zeros(channels, device="cuda"),
+               "latents_std": torch.ones(channels, device="cuda")}
+    return conditions, latents
+
+
+def train(card):
+    """The training path; returns the kernels' launches there."""
+    t0 = time.perf_counter()
+    args = BaseArgs(training_type="lora", rank=TRAIN_RANK, lora_alpha=TRAIN_RANK, seed=0,
+                    train_steps=1 + TRAIN_TIMED_STEPS)
+    spec = get_model_specification_cls("ltx_video", "lora")(device=torch.device("cuda"), seed=0)
+    trainer = SFTTrainer(args, spec)
+    trainer.prepare()
+    module = trainer.transformer.module
+    torch.cuda.synchronize()
+    frozen = [p for n, p in module.named_parameters() if n not in trainer._trainable]
+    base_params = sum(p.numel() for p in frozen)
+    lora_params = sum(p.numel() for p in trainer._trainable.values())
+    phase("train_load", seconds=time.perf_counter() - t0, base_params=base_params, lora_params=lora_params,
+          layers=len(module.transformer_blocks), rank=TRAIN_RANK, lora_alpha=TRAIN_RANK)
+    if base_params != BASE_PARAMS or len(module.transformer_blocks) != NUM_LAYERS:
+        raise AssertionError("the trainer did not build the published LTX-Video width and depth")
+
+    def frozen_checksum():
+        return torch.stack([torch.stack([p.float().sum(), p.float().abs().sum()]) for p in frozen]).double().sum(0)
+
+    frozen_before = frozen_checksum()
+    lora_before = {n: p.detach().clone() for n, p in trainer._trainable.items()}
+    batch = train_batch()
+
+    trainer.train([batch])  # warm-up step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    step_s = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        trainer.train([batch])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = trainer.state.train_state.global_avg_losses
+    finite = all(np.isfinite(losses))
+    moved = all(not torch.equal(p, lora_before[n]) for n, p in trainer._trainable.items())
+    frozen_same = bool(torch.equal(frozen_checksum(), frozen_before))
+    expected = 2 * NUM_LAYERS * TRAIN_TIMED_STEPS
+    flops = ltx_train_step_flops(spec.transformer_config, TRAIN_RANK, 0.0, B=1, S=2688, L_CTX=CAPTION_LEN)
+    median_s = statistics.median(step_s)
+    phase("train", card=card, steps=trainer.state.train_state.step, timed_steps=TRAIN_TIMED_STEPS,
+          step_seconds=step_s, median_step_s=median_s, losses=losses, losses_finite=finite,
+          lora_factors_moved=moved, frozen_weights_unchanged=frozen_same, launches=launches,
+          launches_expected_each=expected, max_memory_allocated_gb=peak_gb, model_flops_per_step=flops,
+          model_tflops=flops / median_s / 1e12, bf16_peak_tflops=PEAK_BF16_FLOPS / 1e12,
+          share_of_peak=flops / median_s / PEAK_BF16_FLOPS)
+    if not (finite and moved and frozen_same and all(v == expected for v in launches.values())):
+        raise AssertionError("training check failed")
+
+    # One step's loss and LoRA gradient with the kernels against plain fp32
+    # attention, both under per-block full remat (plain attention keeps fp32
+    # (1, 32, 2688, 2688) scores per layer; remat frees them block by block).
+    module.gradient_checkpointing = "full"
+
+    def loss_and_grad(provider):
+        trainer.optimizer.zero_grad()
+        with attention_provider(provider):
+            loss, _ = trainer.forward_backward(*batch, generator=torch.Generator("cuda").manual_seed(5))
+        return loss.item(), torch.cat([p.grad.float().flatten() for p in trainer._trainable.values()])
+
+    _zero_counts()
+    kernel_loss, kernel_grad = loss_and_grad("auto")
+    torch.cuda.synchronize()
+    remat_launches = _counts()
+    plain_loss, plain_grad = loss_and_grad("_native_math")
+    trainer.optimizer.zero_grad()
+    module.gradient_checkpointing = None
+    loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    grad_rel_l2 = ((kernel_grad - plain_grad).norm() / plain_grad.norm()).item()
+    grad_finite = bool(torch.isfinite(kernel_grad).all())
+    del kernel_grad, plain_grad
+    phase("train_step_vs_plain_attention", remat="full", kernel_loss=kernel_loss, plain_loss=plain_loss,
+          loss_rel_diff=loss_rel, loss_bound=TRAIN_LOSS_REL_TOL, grad_rel_l2=grad_rel_l2,
+          grad_bound=STEP_REL_L2_TOL, grad_finite=grad_finite, launches=remat_launches,
+          k1_launches_expected=4 * NUM_LAYERS, k2_k3_launches_expected=2 * NUM_LAYERS)
+    if not (loss_rel <= TRAIN_LOSS_REL_TOL and grad_rel_l2 <= STEP_REL_L2_TOL and grad_finite
+            and remat_launches["k1"] == 4 * NUM_LAYERS
+            and remat_launches["k2"] == remat_launches["k3"] == 2 * NUM_LAYERS):
+        raise AssertionError("a train step with the kernels differs from the one with plain attention")
+
+    # Where the host spends a step: issuing forward and backward, issuing the
+    # update, then waiting for the card. A wait near 0 means the host bounds the step.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.optimizer.zero_grad()
+    trainer.forward_backward(*batch)
+    t1 = time.perf_counter()
+    trainer.optimizer.step()
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    host = dict(forward_backward_issue_s=t1 - t0, optimizer_issue_s=t2 - t1, wait_for_card_s=t3 - t2,
+                step_s=t3 - t0)
+
+    prof = profile_device(lambda: trainer.train_step(*batch))
+    k1_self, k1_cross = _split(prof["launches"]["k1"], by_order=True)
+    per_launch = {"k1": {"self_attention": _median(k1_self), "cross_attention": _median(k1_cross)}}
+    for cls in ("k2", "k3", "bwd_prep"):
+        self_ms, cross_ms = _split(prof["launches"][cls], by_order=False)
+        per_launch[cls] = {"self_attention": _median(self_ms), "cross_attention": _median(cross_ms)}
+    classes = dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()})
+    phase("train_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"], ms_by_class=classes, host_seconds=host,
+          launches={cls: len(v) for cls, v in prof["launches"].items()}, ms_per_launch=per_launch,
+          top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
+    return launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA card visible (torch.cuda.is_available() is False)")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    phase("device", card=card, torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    _build.load_libraries(["flash_fwd", "flash_bwd"])
+    builds = {name: {"seconds": _build.BUILD_LOG[name]["seconds"],
+                     "ptxas": [line.strip() for line in _build.BUILD_LOG[name]["log"].splitlines()
+                               if "Used" in line or "spill" in line]}
+              for name in ("flash_fwd", "flash_bwd")}
+    phase("build", seconds=time.perf_counter() - t0, kernels=builds)
+
+    k1_err, k1 = check_k1(card)
+    bwd_err, bwd = check_k2k3(card)
+    serve_launches = serve(card)
+    torch.cuda.empty_cache()
+    train_launches = train(card)
+
+    def entry(name, source, replaces, launches, err, record, **extra):
+        ms, plain_ms, library_ms, bound_ms, bound_by = record
+        return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, **extra)
+
+    print(json.dumps({"kernels": [
+        entry("flash_fwd (K1)", "finetrainers_tpu_torch/csrc/flash_fwd.cu",
+              "finetrainers_tpu/ops/flash_attention.py:106", serve_launches, k1_err,
+              (k1["ms"], k1["plain_ms"], k1["library_ms"], k1["bound_ms"], k1["bound_by"]),
+              launches_by_path={"serve": serve_launches, "train": train_launches["k1"]}),
+        entry("flash_bwd_prep (K2/K3 RoPE and scale pre-pass)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
+              "finetrainers_tpu/ops/flash_attention.py:961", train_launches["prep"], bwd_err["prep"], bwd["prep"]),
+        entry("bwd_dkdv (K2)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
+              "finetrainers_tpu/ops/flash_attention.py:888", train_launches["k2"], bwd_err["k2"], bwd["k2"]),
+        entry("bwd_dq (K3)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
+              "finetrainers_tpu/ops/flash_attention.py:1199", train_launches["k3"], bwd_err["k3"], bwd["k3"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

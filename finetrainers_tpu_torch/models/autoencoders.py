@@ -257,6 +257,18 @@ class AutoencoderKL3D(nn.Module):
         return self.decode(mean)
 
 
+def sample_from_moments(moments: torch.Tensor, generator: Optional[torch.Generator] = None,
+                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DiagonalGaussian sample (JAX :289-293): moments (B, 2C, ...) split into
+    mean and log-variance on the channel axis; `noise` is the standard normal
+    draw of the mean's shape, if given, else it comes from `generator`."""
+    mean, logvar = moments.chunk(2, dim=1)
+    logvar = logvar.clamp(-30.0, 20.0)
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    return mean + torch.exp(0.5 * logvar) * noise.to(device=mean.device, dtype=mean.dtype)
+
+
 def load_flax_vae_params(model: AutoencoderKL3D, flat_params: Dict[str, np.ndarray]) -> AutoencoderKL3D:
     """Load the JAX package's flattened `AutoencoderKL3D` parameters strict:
     conv kernels (kt, kh, kw, in, out) -> (out, in, kt, kh, kw), GroupNorm

@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.activation_checkpoint import apply_activation_checkpointing, should_checkpoint_block
+
 
 class LoRAFactor(nn.Module):
     """One LoRA factor, kept fp32 (peft's `lora_A` / `lora_B` submodules)."""
@@ -120,10 +122,17 @@ def sinusoidal_timestep_embedding(
     return emb
 
 
-def block_stack(blocks: nn.ModuleList, carry, *broadcast_args):
-    """Run identical blocks in order (`block_stack`, layers.py:354): a plain loop."""
-    for block in blocks:
-        carry = block(carry, *broadcast_args)
+def block_stack(blocks: nn.ModuleList, carry, *broadcast_args, checkpoint: Optional[str] = None):
+    """Run identical blocks in order (`block_stack`, layers.py:354): a plain
+    loop. checkpoint: None | "full" | "block_skip" recomputes each block (every
+    second block for "block_skip") in the backward, through a non-reentrant
+    `torch.utils.checkpoint`; it has no effect where autograd records nothing."""
+    for i, block in enumerate(blocks):
+        if checkpoint is not None and torch.is_grad_enabled() and should_checkpoint_block(i, checkpoint):
+            carry = apply_activation_checkpointing(block, "full" if checkpoint == "block_skip" else checkpoint)(
+                carry, *broadcast_args)
+        else:
+            carry = block(carry, *broadcast_args)
     return carry
 
 

@@ -1,28 +1,30 @@
-"""LTX-Video model specification, serving part (port of
+"""LTX-Video model specification: serving and the training forward (port of
 `finetrainers_tpu/models/ltx_video/base_specification.py`).
 
 Random weights only: neither a T5 nor an LTX VAE checkpoint exists for the
 port yet, so it serves with the same offline components the JAX package falls
 back to — `HashEncoder` for text and the generic `AutoencoderKL3D` with
 `LTX_VAE_CONFIG`. A local checkpoint directory for any component raises
-NotImplementedError instead of being ignored. The training `forward` comes
-with the training slice (ROADMAP.md).
+NotImplementedError instead of being ignored. `forward` trains on
+precomputed VAE moments; encoding media (`prepare_latents`) is not ported yet
+(ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...functional.diffusion import flow_match_target, flow_match_xt
 from ...logging import get_logger
 from ...processors import CaptionTextDropoutProcessor, HashEncoder, T5Processor
 from ...schedulers import FlowMatchEulerScheduler, load_scheduler
-from ..autoencoders import LTX_VAE_CONFIG, AutoencoderConfig, AutoencoderKL3D
+from ..autoencoders import LTX_VAE_CONFIG, AutoencoderConfig, AutoencoderKL3D, sample_from_moments
 from ..layers import init_parameters_
 from ..modeling_utils import ModelHandle, ModelSpecification
-from .transformer import LTXVideoTransformer3DModel
+from .transformer import LTXVideoTransformer3DModel, pack_latents
 
 
 logger = get_logger(__name__)
@@ -35,6 +37,10 @@ LTX_TRANSFORMER_CONFIG = dict(
 
 
 class LTXVideoModelSpecification(ModelSpecification):
+    first_frame_conditioning_p = 0.1
+    min_first_frame_sigma = 0.25
+    frame_rate = 25
+
     def __init__(
         self,
         pretrained_model_name_or_path: str = "Lightricks/LTX-Video",
@@ -91,7 +97,7 @@ class LTXVideoModelSpecification(ModelSpecification):
         with torch.device(self.device):
             module = LTXVideoTransformer3DModel(
                 **self.transformer_config, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
-                dtype=self.transformer_dtype,
+                dtype=self.transformer_dtype, gradient_checkpointing=self.gradient_checkpointing,
             )
         init_parameters_(module, self.generator()).eval()
         return {
@@ -125,6 +131,77 @@ class LTXVideoModelSpecification(ModelSpecification):
             "encoder_hidden_states": data["encoder_hidden_states"],
             "encoder_attention_mask": data["encoder_attention_mask"],
         }
+
+    # ---------------------------------------------------------------- training
+    def forward(
+        self,
+        transformer: ModelHandle,
+        condition_model_conditions: Dict[str, torch.Tensor],
+        latent_model_conditions: Dict[str, torch.Tensor],
+        sigmas: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Dict[str, Any]] = None,
+        **kwargs,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Flow-matching training forward (JAX :196-256) -> (pred, target, sigmas).
+
+        latent_model_conditions: "latents" (VAE moments (B, 2C, F, H, W)),
+        "latents_mean"/"latents_std" (C,).
+        condition_model_conditions: "encoder_hidden_states", optional
+        "encoder_attention_mask". The four random draws of the JAX forward are
+        taken from `draws` where given, else from `generator`: "posterior" and
+        "noise" (standard normal, latent shape), "first_frame" (the one coin of
+        stochastic first-frame conditioning, p = 0.1) and "first_frame_u"
+        (uniform (B,)). With the coin up, the first latent frame is noised to
+        min(u * sigma, 0.25) instead of sigma; timesteps are per token."""
+        draws = draws or {}
+        device = sigmas.device
+
+        def draw(name, make):
+            value = draws.get(name)
+            return make() if value is None else torch.as_tensor(value).to(device)
+
+        moments = latent_model_conditions["latents"].to(device)
+        shape = (moments.shape[0], moments.shape[1] // 2, *moments.shape[2:])
+        latents = sample_from_moments(moments, noise=draw(
+            "posterior", lambda: torch.randn(shape, generator=generator, device=device, dtype=moments.dtype)))
+        mean = latent_model_conditions["latents_mean"].to(device).reshape(1, -1, 1, 1, 1)
+        std = latent_model_conditions["latents_std"].to(device).reshape(1, -1, 1, 1, 1)
+        latents = (latents.float() - mean) / std
+
+        noise = draw("noise", lambda: torch.randn(latents.shape, generator=generator, device=device)).float()
+        sigmas_e = sigmas.reshape(-1, 1, 1, 1, 1)
+        use_ff = draw("first_frame", lambda: torch.rand((), generator=generator, device=device)
+                      < self.first_frame_conditioning_p).bool()
+        ff_u = draw("first_frame_u", lambda: torch.rand(sigmas.shape, generator=generator, device=device))
+        ff_sigma = torch.clamp(ff_u.float() * sigmas, max=self.min_first_frame_sigma)
+        first_frame_sigma = torch.where(use_ff, ff_sigma.reshape(-1, 1, 1, 1, 1), sigmas_e)
+        frame_idx = torch.arange(latents.shape[2], device=device).reshape(1, 1, -1, 1, 1)
+        sigma_map = torch.where(frame_idx == 0, first_frame_sigma, sigmas_e)
+
+        noisy = flow_match_xt(latents, noise, sigma_map)
+
+        cfg = self.transformer_config
+        p, pt = cfg["patch_size"], cfg["patch_size_t"]
+        num_frames, height, width = latents.shape[2], latents.shape[3], latents.shape[4]
+        token_sigmas = pack_latents(sigma_map.expand(latents.shape), p, pt)[..., 0]
+        latent_frame_rate = self.frame_rate / self.vae_temporal_compression_ratio
+        rope_interpolation_scale = (
+            1.0 / latent_frame_rate,
+            float(self.vae_spatial_compression_ratio),
+            float(self.vae_spatial_compression_ratio),
+        )
+        mask = condition_model_conditions.get("encoder_attention_mask")
+        pred = transformer.module(
+            pack_latents(noisy, p, pt).to(self.transformer_dtype),
+            condition_model_conditions["encoder_hidden_states"].to(device),
+            token_sigmas * 1000.0,
+            encoder_attention_mask=None if mask is None else mask.to(device),
+            num_frames=num_frames, height=height, width=width,
+            rope_interpolation_scale=rope_interpolation_scale,
+        )
+        target = flow_match_target(pack_latents(noise, p, pt), pack_latents(latents, p, pt))
+        return pred, target, sigmas
 
     # -------------------------------------------------------------- validation
     def validation(self, pipeline, prompt: str, image=None, height: int = 512, width: int = 704,

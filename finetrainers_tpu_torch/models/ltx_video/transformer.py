@@ -224,10 +224,13 @@ class LTXVideoTransformer3DModel(nn.Module):
     def __init__(self, in_channels: int = 128, out_channels: int = 128, patch_size: int = 1,
                  patch_size_t: int = 1, num_attention_heads: int = 32, attention_head_dim: int = 64,
                  cross_attention_dim: int = 2048, num_layers: int = 28, caption_channels: int = 4096,
-                 lora_rank: int = 0, lora_alpha: float = 1.0, dtype: torch.dtype = torch.bfloat16) -> None:
+                 lora_rank: int = 0, lora_alpha: float = 1.0, dtype: torch.dtype = torch.bfloat16,
+                 gradient_checkpointing: Optional[str] = None) -> None:
         super().__init__()
         inner = num_attention_heads * attention_head_dim
         self.inner = inner
+        # Per-block remat policy for training (None | "full" | "block_skip"), read by block_stack.
+        self.gradient_checkpointing = gradient_checkpointing
         self.dtype = dtype
         self.out_channels = out_channels
         self.patch_size = patch_size
@@ -267,7 +270,8 @@ class LTXVideoTransformer3DModel(nn.Module):
             mask = encoder_attention_mask.to(torch.int32)
             kv_lens = mask.sum(dim=1, dtype=torch.int32) if mask.ndim == 2 else mask
         freqs = self.rope(num_frames, height, width, rope_interpolation_scale, x.device)
-        x = block_stack(self.transformer_blocks, x, context, temb, freqs, kv_lens)
+        x = block_stack(self.transformer_blocks, x, context, temb, freqs, kv_lens,
+                        checkpoint=self.gradient_checkpointing)
         emb_t = embedded_timestep.reshape(embedded_timestep.shape[0], -1, self.inner).float()
         shift = (self.scale_shift_table[0][None, None] + emb_t).to(self.dtype)
         scale = (self.scale_shift_table[1][None, None] + emb_t).to(self.dtype)

@@ -1,5 +1,5 @@
 """ModelSpecification: the per-model adapter contract (port of the serving
-part of `finetrainers_tpu/models/modeling_utils.py`).
+and training-step parts of `finetrainers_tpu/models/modeling_utils.py`).
 
 A component is a `ModelHandle`: an `nn.Module` with its config dict (the JAX
 package's handle also carries the parameter tree, which here lives inside the
@@ -16,7 +16,6 @@ from typing import Any, Dict, List, Optional, Union
 
 import torch
 import torch.nn as nn
-
 
 
 @dataclasses.dataclass
@@ -51,6 +50,9 @@ class ModelSpecification:
         self.device = torch.device(device)
         self.seed = seed
         self.transformer_config: Dict[str, Any] = {}
+        # Per-block remat policy (None | "full" | "block_skip"), set by the
+        # trainer before load_diffusion_models.
+        self.gradient_checkpointing: Optional[str] = None
 
     def generator(self) -> torch.Generator:
         """A fresh generator on the spec's device, seeded with `seed`."""
@@ -71,6 +73,12 @@ class ModelSpecification:
 
     # ------------------------------------------------------------ data prep
     def prepare_conditions(self, **kwargs) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    # ---------------------------------------------------------------- training
+    def forward(self, transformer: ModelHandle, condition_model_conditions: Dict[str, torch.Tensor],
+                latent_model_conditions: Dict[str, torch.Tensor], sigmas: torch.Tensor, **kwargs):
+        """One training forward -> (pred, target, sigmas)."""
         raise NotImplementedError
 
     # -------------------------------------------------------------- validation

@@ -2,8 +2,10 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into a shared library under `_build/` (listed in `.gitignore`) at first use,
-then loaded with `ctypes`. The library name carries a hash of the source and
-the flags, so an edited source is rebuilt and a stale library is never loaded.
+then loaded with `ctypes`. The library name carries a hash of the source, of
+every header in `csrc/` and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. `load_libraries` starts one nvcc
+per source at once.
 Nothing here runs at import time.
 """
 
@@ -17,7 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Iterable
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -44,27 +46,50 @@ def _find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH to build the CUDA kernels")
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` if needed and return the loaded library."""
+def _lib_path(name: str) -> pathlib.Path:
+    """The library's path, named by a hash of its source, every header of
+    csrc/ (a shared header may change either kernel) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh")), *sorted(CSRC_DIR.glob("*.h"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load_libraries(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """Build each `csrc/<name>.cu` that is not built yet, one nvcc process per
+    source, all started together, and return the loaded libraries by name."""
     with _LOCK:
-        if name in _LIBS:
-            return _LIBS[name]
-        src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-        if lib_path.exists():
-            BUILD_LOG[name] = {"seconds": 0.0, "log": ""}
-        else:
+        names = list(names)
+        builds = {}
+        for name in names:
+            if name in _LIBS:
+                continue
+            lib_path = _lib_path(name)
+            if lib_path.exists():
+                BUILD_LOG[name] = {"seconds": 0.0, "log": ""}
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(src)]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            cmd = [_find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            builds[name] = (proc, tmp, lib_path, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, lib_path, t0) in builds.items():
+            _, stderr = proc.communicate()  # waits for every build, failed or not
             seconds = time.perf_counter() - t0
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {src} (exit {res.returncode}):\n{res.stderr}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build csrc/{name}.cu (exit {proc.returncode}):\n{stderr}")
+                continue
             os.replace(tmp, lib_path)
-            BUILD_LOG[name] = {"seconds": seconds, "log": res.stderr}
-        lib = ctypes.CDLL(str(lib_path))
-        _LIBS[name] = lib
-        return lib
+            BUILD_LOG[name] = {"seconds": seconds, "log": stderr}
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _LIBS:
+                _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+        return {name: _LIBS[name] for name in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build `csrc/<name>.cu` if needed and return the loaded library."""
+    return load_libraries([name])[name]

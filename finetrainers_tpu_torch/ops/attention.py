@@ -3,15 +3,17 @@
 Canonical layout is BTNH (batch, seq, heads, head_dim), as in the JAX package.
 Providers:
 
-  * "auto" (default): on a CUDA tensor, K1, the hand-written flash forward
-    (`ops/flash_attention.py`), for self-attention with fused RoPE and for
-    cross-attention with `kv_lens`, on any sequence lengths; what K1 does not
-    take (dense masks, causal, GQA, dtypes other than bf16/fp16, head dims
-    other than 64/128) raises, and never falls back to plain math on the card.
-    On a CPU tensor, K1's plain version, or `_native_math` for masks, causal
-    and GQA.
-  * "flash" / "tpu_flash": K1 only; raises where K1 does not apply.
-  * "_native_math": explicit fp32 softmax, the numerics reference.
+  * "auto" (default): on a CUDA tensor, the hand-written flash kernels
+    (`ops/flash_attention.py`) through the autograd function K4: K1 forward,
+    K2/K3 backward, for self-attention with fused RoPE and for cross-attention
+    with `kv_lens`, on any sequence lengths; what they do not take (dense
+    masks, causal, GQA, dtypes other than bf16/fp16, head dims other than
+    64/128) raises, and never falls back to plain math on the card. On a CPU
+    tensor, the kernels' plain versions through K4, or `_native_math` for
+    masks, causal and GQA.
+  * "flash" / "tpu_flash": K4 only; raises where the kernels do not apply.
+  * "_native_math": explicit fp32 softmax, the numerics reference;
+    differentiable by autograd through its math.
   * "native": torch SDPA, kept only as a comparison baseline, never the default.
 
 Every other provider name the CLI accepts (`finetrainers_tpu/args.py`) stays

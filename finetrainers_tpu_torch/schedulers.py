@@ -1,8 +1,9 @@
 """Flow-matching Euler scheduler (port of the parts of `finetrainers_tpu/schedulers.py`
-the serving path runs).
+that serving and the training step run).
 
-Sigma grids are computed on the host in numpy, as in the JAX package, so the
-two packages produce identical grids; the per-step update runs on tensors.
+Inference sigma grids are computed on the host in numpy, as in the JAX
+package, so the two packages produce identical grids; the per-step update and
+the training sigmas run on tensors.
 The multistep samplers (UniPC, DPM-Solver++) and the DDIM scheduler are not
 ported yet (ROADMAP.md); `load_scheduler` raises for a checkpoint naming one.
 """
@@ -17,10 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-
-def default_flow_shift(sigmas, shift: float = 1.0):
-    """Timestep shift: sigma' = s*sigma / (1 + (s-1)*sigma)."""
-    return (sigmas * shift) / (1.0 + (shift - 1.0) * sigmas)
+from .functional.diffusion import compute_density_for_timestep_sampling, default_flow_shift
 
 
 @dataclasses.dataclass
@@ -39,6 +37,27 @@ class FlowMatchEulerScheduler:
         if not self.use_dynamic_shifting:
             sigmas = default_flow_shift(sigmas, self.shift)
         return sigmas
+
+    def training_sigmas(
+        self,
+        batch_size: int,
+        flow_weighting_scheme: str = "none",
+        flow_logit_mean: float = 0.0,
+        flow_logit_std: float = 1.0,
+        flow_mode_scale: float = 1.29,
+        generator: Optional[torch.Generator] = None,
+        draw: Optional[torch.Tensor] = None,
+        device=None,
+    ) -> torch.Tensor:
+        """Per-example training sigmas (`training_sigmas`, JAX :62-77): the
+        sigma table at index floor(u * N), u from the weighting scheme's density
+        with the raw `draw` given or taken from `generator`."""
+        u = compute_density_for_timestep_sampling(
+            flow_weighting_scheme, batch_size, flow_logit_mean, flow_logit_std, flow_mode_scale,
+            generator=generator, draw=draw, device=device,
+        )
+        indices = (u * self.num_train_timesteps).to(torch.int32).clamp(0, self.num_train_timesteps - 1)
+        return self.sigmas.to(u.device)[indices.long()]
 
     def inference_sigmas(self, num_steps: int, shift: Optional[float] = None, mu: Optional[float] = None) -> np.ndarray:
         sigmas = np.linspace(1.0, 1.0 / num_steps, num_steps, dtype=np.float32)

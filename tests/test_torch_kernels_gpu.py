@@ -10,7 +10,16 @@ import pytest
 import torch
 
 from finetrainers_tpu_torch.ops import attention_dispatch
-from finetrainers_tpu_torch.ops.flash_attention import flash_attention_reference, flash_forward
+from finetrainers_tpu_torch.ops.flash_attention import (
+    FlashAttentionFunction,
+    flash_attention_reference,
+    flash_backward,
+    flash_backward_reference,
+    flash_bwd_dkdv,
+    flash_bwd_dq,
+    flash_bwd_prep,
+    flash_forward,
+)
 
 # (B, N, Sq, Skv, H, rope, kv_lens): fused RoPE with per-head and shared tables,
 # kv_lens with an empty row, sequence lengths off every tile boundary, H = 64 and 128.
@@ -72,3 +81,99 @@ def test_default_provider_raises_on_the_card_where_k1_does_not_apply(provider):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             attention_dispatch(q, q, q, provider=provider)
     assert flash_forward.launches == before
+
+
+def _rel_errors(got, ref):
+    """Relative L2 error and max error over max |ref|."""
+    got, ref = got.float(), ref.float()
+    scale = ref.abs().max().clamp_min(1e-30)
+    return ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item(), ((got - ref).abs().max() / scale).item()
+
+
+def _tables(rope, n, s, h, g):
+    if not rope:
+        return None, None
+    ang = torch.rand(1 if rope == "shared" else n, s, h // 2, device="cuda", generator=g) * 6.3
+    return tuple(f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_backward_kernels_match_reference(dtype):
+    """K2 and K3 (after the pre-pass) against `flash_backward_reference` on the
+    same inputs and the same K1 `out`/LSE. The inputs are BNSH views of BTNH
+    buffers, as the model hands them over. Bound: relative L2 <= 1e-2 and max
+    error <= 2e-2 of max |ref| (the kernels' exp2 and fp32 sums round a p or a
+    ds to the neighbouring bf16 value now and then)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for b, n, sq, skv, h, rope, lens in CASES:
+        q, k, v = (torch.randn(b, s, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   for s in (sq, skv, skv))
+        kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cos, sin = _tables(rope, n, sq, h, g)
+        out, lse = flash_forward(q, k, v, kv_lens, cos, sin)
+        do = torch.randn(b, sq, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2)
+        before = (flash_bwd_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches)
+        grads = flash_backward(q, k, v, out, lse, do, kv_lens, cos, sin)
+        torch.cuda.synchronize()
+        assert (flash_bwd_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches) == tuple(
+            c + 1 for c in before)
+        refs = flash_backward_reference(q, k, v, out, lse, do, kv_lens, cos, sin)
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            assert got.dtype == dtype and got.shape == ref.shape
+            assert torch.isfinite(got).all(), (name, b, n, sq, skv, h, rope, lens)
+            rel_l2, max_ratio = _rel_errors(got, ref)
+            assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, b, n, sq, skv, h, rope, lens, rel_l2, max_ratio)
+        if lens is not None and 0 in lens:  # an empty row: no gradient at all
+            empty = lens.index(0)
+            assert not grads[0][empty].any() and not grads[1][empty].any() and not grads[2][empty].any()
+
+
+@pytest.mark.gpu
+def test_auto_is_differentiable_through_k4_on_the_card():
+    """A requires_grad call through `auto` has K4's grad_fn, and its gradients
+    are K4's, launched once per K2 and K3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, s, n, h = 2, 96, 4, 64
+    q, k, v = (torch.randn(b, s, n, h, device="cuda", generator=g, dtype=torch.bfloat16) for _ in range(3))
+    ang = torch.rand(s, n * h // 2, device="cuda", generator=g) * 6.3
+    cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
+    do = torch.randn(b, s, n, h, device="cuda", generator=g, dtype=torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = attention_dispatch(*leaves, provider="auto", rope_freqs=(cos, sin))
+    assert "FlashAttentionFunction" in type(out.grad_fn.next_functions[0][0]).__name__
+    before = (flash_bwd_dkdv.launches, flash_bwd_dq.launches)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert (flash_bwd_dkdv.launches, flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    tables = tuple(t.reshape(s, n, h).transpose(0, 1).contiguous() for t in (cos, sin))
+    out = FlashAttentionFunction.apply(*(x.transpose(1, 2) for x in leaves), None, *tables, h**-0.5)
+    direct = torch.autograd.grad(out, leaves, do.transpose(1, 2))
+    for got, ref in zip(grads, direct):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_flash_backward_rejects_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    lse = torch.zeros(1, 2, 16, device="cuda")
+    before = (flash_bwd_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches)
+    q = torch.zeros(1, 2, 16, 32, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_backward(q, q, q, q, lse, q)
+    q = torch.zeros(1, 2, 16, 64, device="cuda", dtype=torch.float32)
+    with pytest.raises(ValueError, match="bf16 or fp16"):
+        flash_backward(q, q, q, q, lse, q)
+    q = torch.zeros(1, 2, 16, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="do must match q"):
+        flash_backward(q, q, q, q, lse, q[:, :, :8])
+    k = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.bfloat16)
+    cos = torch.ones(1, 16, 64, device="cuda")
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        flash_backward(q, k, k, q, lse, q, rope_cos=cos, rope_sin=cos)
+    assert (flash_bwd_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches) == before
