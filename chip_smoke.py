@@ -1,26 +1,44 @@
-"""Smoke run of the PyTorch port on one CUDA card: LTX-Video text-to-video serving
-and the LTX-Video LoRA training step.
+"""Smoke run of the PyTorch port on one CUDA card: LTX-Video text-to-video serving,
+the LTX-Video LoRA training step and Wan 2.1 T2V-1.3B serving under the int8
+`sage` attention provider.
 
     python3 chip_smoke.py
 
 Phases, each printed on its own line:
   1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
   2. the nvcc builds of the hand-written kernels, one process per source, all
-     started together: K1 (`csrc/flash_fwd.cu`), and K2, K3 and their pre-pass
-     (`csrc/flash_bwd.cu`), timed, with ptxas' register and spill lines;
+     started together: K1 (`csrc/flash_fwd.cu`), K2, K3 and their pre-pass
+     (`csrc/flash_bwd.cu`) and K6 (`csrc/sage_fwd.cu`), timed, with ptxas'
+     register and spill lines;
   3. K1 against its plain PyTorch version (`flash_attention_reference`) in bf16
-     at the serving path's shapes, with errors and median CUDA-event times;
+     at the LTX serving path's shapes, with errors and median CUDA-event times;
   4. K2, K3 and the pre-pass against `flash_backward_reference` in bf16 at the
      training path's shapes (LTX self-attention with per-head RoPE tables,
      cross-attention with kv_lens, a ragged case with an empty row, H=128 with
      shared tables), with errors, times and the torch SDPA backward as a
      library yardstick;
-  5. serving through the user entry points: the full-width LTX spec (random
+  5. K6 against `sage_attention_reference` on the same int8 codes and scales
+     (Wan self-attention with rotated q/k, Wan cross-attention over 512 text
+     keys with kv_lens, LTX's self-attention shape, a ragged case with an empty
+     row), and the quantization pre-pass on the card against the same torch ops
+     on the CPU; times of K6, the pre-pass and the plain version, the bound and
+     torch SDPA as a yardstick; then K1 at Wan's self-attention shape (H=128,
+     one (S, H) table pair shared by every head) against its plain version,
+     run head by head;
+  6. LTX serving through the user entry points: the full-width LTX spec (random
      weights from a seeded generator, bf16) serves 2 prompts at 49x512x768 with
      CFG 3.0; checks the videos and that K1 was launched 2*28*steps*requests times;
      then one denoise step with K1 against plain fp32 attention, seconds per step
      and per request, peak memory, and a torch.profiler breakdown of one step;
-  6. training through the user entry points: `SFTTrainer` on the full-width spec
+  7. Wan serving through the user entry points: the full-width Wan 2.1
+     T2V-1.3B spec (random weights, bf16, 30 blocks) serves 2 prompts at
+     49x512x768 with CFG 5.0 and 4 steps under `attention_provider("sage")`:
+     checks the videos and that K6 was launched 2*30*steps*requests times and
+     K1 never; one request under the default provider (K1, 2*30*steps
+     launches); one denoise step with K6 against the same step with K1;
+     seconds per step and per request, peak memory, and a torch.profiler
+     breakdown of one sage step (K6, pre-pass, rotation, GEMMs, the rest);
+  8. training through the user entry points: `SFTTrainer` on the full-width spec
      with LoRA rank 128, one warm-up and 5 timed steps on seeded VAE moments
      (1, 256, 7, 16, 24) -> 2688 tokens and seeded caption states with a padded
      mask; checks finite losses, moved LoRA factors, unchanged frozen weights
@@ -32,6 +50,7 @@ The line before the last is the kernels' JSON record; the last line is
 0. Without a CUDA card it raises before printing any result.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -45,7 +64,10 @@ import torch.nn.functional as F
 from finetrainers_tpu_torch import get_model_specification_cls
 from finetrainers_tpu_torch.args import BaseArgs
 from finetrainers_tpu_torch.models.ltx_video.transformer import LTXRotaryPosEmbed
+from finetrainers_tpu_torch.models.wan.transformer import WanRotaryPosEmbed
 from finetrainers_tpu_torch.ops import _build, attention_dispatch, attention_provider
+from finetrainers_tpu_torch.ops import attention as attention_ops
+from finetrainers_tpu_torch.ops import sage_attention as sage_ops
 from finetrainers_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
     flash_backward,
@@ -56,6 +78,7 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_bwd_prep_reference,
     flash_forward,
 )
+from finetrainers_tpu_torch.ops.sage_attention import sage_attention_reference, sage_forward, sage_quantize
 from finetrainers_tpu_torch.trainer import SFTTrainer
 
 NUM_STEPS = 8  # cut from the pipeline's default 50 to keep the run short
@@ -67,6 +90,9 @@ REQUEST = dict(num_frames=49, height=512, width=768, guidance_scale=3.0, num_inf
 # i.e. about two units in the last place of a bf16 value.
 K1_TOL = 2e-2
 LSE_TOL = 1e-2
+# At Wan's 19968 keys a typical output value is ~1e-2, so the elementwise limit above is as large as
+# the values: K1's Wan check also holds the relative L2 against the plain version to this limit.
+K1_REL_L2_TOL = 1e-2
 # K2/K3 (bf16 gradients) against the reference on the same bf16 inputs: the kernels' exp2 and fp32
 # sums round a p or a ds to the neighbouring bf16 value now and then.
 BWD_REL_L2_TOL = 1e-2
@@ -79,8 +105,23 @@ TRAIN_RANK = 128
 TRAIN_TIMED_STEPS = 5
 MOMENTS_SHAPE = (1, 256, 7, 16, 24)
 CAPTION_LEN, CAPTION_VALID = 128, 37
+# Wan 2.1 T2V-1.3B serving: the repo's own Wan shape (tools/wan_attn_bench.py), 49x512x768 ->
+# 13x64x96 latents -> 13x32x48 = 19968 tokens after the (1, 2, 2) patch; text padded to 512 tokens.
+WAN_STEPS = 4  # cut from the pipeline's default 50 to keep the run short
+WAN_LAYERS = 30
+WAN_PARAMS = 1_418_996_800  # WAN_T2V_1_3B_CONFIG (jax.eval_shape on the JAX model)
+WAN_REQUEST = dict(num_frames=49, height=512, width=768, guidance_scale=5.0, num_inference_steps=WAN_STEPS)
+WAN_GRID = (13, 32, 48)
+WAN_TOKENS = 19968
+# K6 (bf16 output) against its plain version on the same codes: |out - ref| <= K6_TOL * max(1, |ref|)
+# elementwise and relative L2 <= K6_REL_L2_TOL (the kernel rounds p to bf16 before P V).
+K6_TOL = 2e-2
+K6_REL_L2_TOL = 1e-2
+# A denoise step with K6 against the same step with K1: int8 q/k against bf16, through 30 blocks.
+K6_STEP_REL_L2_TOL = 0.1
 # H100 SXM dense peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -146,12 +187,31 @@ def ltx_train_step_flops(cfg: dict, lora_rank: int, remat_factor: float, B: int,
 
 
 _KERNEL_CLASSES = (("k1", "flash_fwd_kernel"), ("k2", "bwd_dkdv_kernel"), ("k3", "bwd_dq_kernel"),
-                   ("bwd_prep", "rope_prep_kernel"))
+                   ("bwd_prep", "rope_prep_kernel"), ("k6", "sage_fwd_kernel"))
 
 
-def profile_device(fn):
+@contextlib.contextmanager
+def annotated(module, name, label):
+    """Wrap `module.name` in a torch.profiler range `label` for the duration,
+    so the kernels a torch-ops stage launches can be told apart in a trace."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def profile_device(fn, ranges=()):
     """Device time of one call of `fn` by class from torch.profiler: the port's
-    kernels (each launch kept in launch order), cuBLAS GEMMs, everything else."""
+    kernels (each launch kept in launch order), the kernels inside each of the
+    user ranges named in `ranges` (by the range's device-side span), cuBLAS
+    GEMMs, everything else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -163,16 +223,23 @@ def profile_device(fn):
         end.synchronize()
     wall_ms = start.elapsed_time(end)
     classes, kernels, launches = {"gemm": 0.0, "other": 0.0}, {}, {cls: [] for cls, _ in _KERNEL_CLASSES}
-    for evt in prof.events():
-        # A user annotation (e.g. "Optimizer.step#AdamW.step") spans the kernels it encloses.
-        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+    classes.update({label: 0.0 for label in ranges})
+    events = [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA]
+    # A user annotation (e.g. "Optimizer.step#AdamW.step") spans the kernels it encloses.
+    spans = [(evt.name, evt.time_range.start, evt.time_range.end) for evt in events
+             if getattr(evt, "is_user_annotation", False) and evt.name in ranges]
+    for evt in events:
+        if getattr(evt, "is_user_annotation", False):
             continue
         ms = evt.time_range.elapsed_us() / 1e3
         name = evt.name.lower()
         kernels[evt.name[:90]] = kernels.get(evt.name[:90], 0.0) + ms
         cls = next((c for c, pattern in _KERNEL_CLASSES if pattern in name), None)
+        span = next((label for label, t0, t1 in spans if t0 <= evt.time_range.start < t1), None)
         if cls is not None:
             launches[cls].append((evt.time_range.start, ms))
+        elif span is not None:
+            classes[span] += ms
         elif any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
             classes["gemm"] += ms
         else:
@@ -181,7 +248,8 @@ def profile_device(fn):
     busy = sum(classes.values()) + sum(sum(v) for v in launches.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1.0 - busy / wall_ms if busy else None,
-                classes=classes, launches=launches, top_kernels_ms=top, device_events=len(kernels))
+                classes=classes, launches=launches, top_kernels_ms=top, device_events=len(kernels),
+                annotated_ranges=len(spans))
 
 
 def _split(ms_list, by_order):
@@ -334,6 +402,138 @@ def check_k2k3(card):
     return worst, records["self_rope"]
 
 
+def wan_tables():
+    """Wan's expanded (S, 128) fp32 RoPE tables at the serving grid, as the model builds them."""
+    return WanRotaryPosEmbed(128)(*WAN_GRID, torch.device("cuda"))
+
+
+def k6_bound(n, sq, kv_eff, h, q_rows):
+    """K6's least time: QK^T at the int8 peak plus P V at the bf16 peak, against
+    the bytes of codes, scales, v and out read or written once."""
+    ops_ms = (2 * n * sq * kv_eff * h / PEAK_INT8_OPS + 2 * n * sq * kv_eff * h / PEAK_BF16_FLOPS) * 1e3
+    nbytes = q_rows * n * h * (1 + 2) + q_rows * n * 4 + n * kv_eff * (h + 4 + 2 * h)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def check_prepass(q, k, lens, codes):
+    """The pre-pass on the card against the same torch ops on the CPU: q codes
+    and scales equal, k codes within one and different in at most 0.1% of
+    entries (the smoothed k's mean is summed in another order), k scales
+    within rtol 1e-5. Returns (share of k codes that differ, max k scale error)."""
+    cpu = sage_quantize(q.cpu(), k.cpu(), lens.cpu())
+    if not (torch.equal(codes[0].cpu(), cpu[0]) and torch.equal(codes[2].cpu(), cpu[2])):
+        raise AssertionError("the pre-pass's q codes or scales differ between the card and the CPU")
+    diff = (codes[1].cpu().int() - cpu[1].int()).abs()
+    share = (diff > 0).float().mean().item()
+    scale_err = ((codes[3].cpu() - cpu[3]).abs() / cpu[3]).max().item()
+    if diff.max() > 1 or share > 1e-3 or scale_err > 1e-5:
+        raise AssertionError(f"the pre-pass's k codes differ: max {diff.max().item()}, share {share}, "
+                             f"scale rel err {scale_err}")
+    return share, scale_err
+
+
+def check_k6(card):
+    """K6 against its plain version on the same codes and scales; returns the
+    worst error and the records of the Wan self-attention case (K6, pre-pass)."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cases = {
+        "wan_self_rope": dict(b=2, n=12, sq=WAN_TOKENS, skv=WAN_TOKENS, h=128, lens=None, rope=True),
+        "wan_cross_kv_lens": dict(b=2, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[1, 9], rope=False),
+        "ltx_self": dict(b=2, n=32, sq=2688, skv=2688, h=64, lens=None, rope=False),
+        "ragged_empty_row": dict(b=2, n=4, sq=1000, skv=77, h=128, lens=[77, 0], rope=False),
+    }
+    worst, records = 0.0, {}
+    for name, c in cases.items():
+        b, n, sq, skv, h = c["b"], c["n"], c["sq"], c["skv"], c["h"]
+        # BTNH, as the model hands them over; k with a per-channel offset, which smooth-K removes.
+        q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16) for s in (sq, skv, skv))
+        k = k + torch.randn(1, 1, n, h, generator=g, device="cuda").to(torch.bfloat16)
+        if c["rope"]:  # the dispatcher's rotation of q and k before K6
+            cos, sin = wan_tables()
+            q, k = (attention_ops._rotate_interleaved_4d(x, cos, sin) for x in (q, k))
+        lens = torch.tensor(c["lens"] or [skv] * b, dtype=torch.int32, device="cuda")
+        vt = v.transpose(1, 2)
+        codes = sage_quantize(q, k, lens)
+        out = sage_forward(*codes, vt, lens)
+        torch.cuda.synchronize()
+        ref = sage_attention_reference(*codes, vt, lens)
+        err = (out.float() - ref.float()).abs()
+        max_abs = err.max().item()
+        norm_err = (err / ref.float().abs().clamp_min(1.0)).max().item()
+        rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        empty_zero = all(not out[i].any() for i, length in enumerate(c["lens"] or []) if length == 0)
+        code_share, scale_err = check_prepass(q, k, lens, codes)
+        ms = cuda_ms(lambda: sage_forward(*codes, vt, lens))
+        prepass_ms = cuda_ms(lambda: sage_quantize(q, k, lens))
+        plain_ms = cuda_ms(lambda: sage_attention_reference(*codes, vt, lens), iters=1, warmup=0)
+        # torch SDPA on the bf16 inputs (no quantization): a library yardstick only, never called by the port.
+        mask = (torch.arange(skv, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        qt, kt = q.transpose(1, 2), k.transpose(1, 2)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=None if c["lens"] is None
+                                                                 else mask))
+        kv_eff = int(lens.sum())
+        bound_ms, bound_by = k6_bound(n, sq, kv_eff, h, b * sq)
+        elems = b * n * (sq + skv) * h
+        prepass_bound_ms = (elems * 2 + elems + b * n * (sq + skv) * 4) / PEAK_BYTES_PER_S * 1e3
+        phase("k6_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
+              max_abs_err=max_abs, err_over_max1_ref=norm_err, rel_l2=rel_l2, empty_rows_zero=empty_zero,
+              prepass_k_codes_differing=code_share, prepass_k_scale_rel_err=scale_err,
+              ms=ms, prepass_ms=prepass_ms, plain_ms=plain_ms, sdpa_yardstick_ms=sdpa_ms, bound_ms=bound_ms,
+              bound_by=bound_by, prepass_bound_ms=prepass_bound_ms,
+              tops_equivalent=4 * n * sq * kv_eff * h / ms / 1e9, card=card)
+        if not (norm_err <= K6_TOL and rel_l2 <= K6_REL_L2_TOL and empty_zero):
+            raise AssertionError(f"K6 disagrees with its reference on {name}: {norm_err} > {K6_TOL}, "
+                                 f"rel L2 {rel_l2} > {K6_REL_L2_TOL} or an empty row is not zero")
+        worst = max(worst, max_abs)
+        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             prepass_ms=prepass_ms, prepass_bound_ms=prepass_bound_ms)
+        del q, k, v, vt, codes, out, ref, err
+    return worst, records["wan_self_rope"]
+
+
+def check_k1_wan(card):
+    """K1 at Wan's self-attention shape (B=2, N=12, S=19968, H=128, one (S, H)
+    table pair shared by every head) against its plain version, run one head
+    at a time (all heads at once would need ~100 GB of fp32 scores)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    b, n, s, h = 2, 12, WAN_TOKENS, 128
+    q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    cos, sin = (t[None].contiguous() for t in wan_tables())
+    out, lse = flash_forward(q, k, v, None, cos, sin)
+    torch.cuda.synchronize()
+
+    def plain():
+        ref, ref_lse = torch.empty_like(out), torch.empty_like(lse)
+        for bi in range(b):
+            for ni in range(n):
+                o, l_ = flash_attention_reference(q[bi:bi + 1, ni:ni + 1], k[bi:bi + 1, ni:ni + 1],
+                                                  v[bi:bi + 1, ni:ni + 1], None, cos, sin)
+                ref[bi, ni], ref_lse[bi, ni] = o[0, 0], l_[0, 0]
+        return ref, ref_lse
+
+    ref, ref_lse = plain()
+    err = (out.float() - ref.float()).abs()
+    max_abs = err.max().item()
+    norm_err = (err / ref.float().abs().clamp_min(1.0)).max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    ms = cuda_ms(lambda: flash_forward(q, k, v, None, cos, sin))
+    plain_ms = cuda_ms(plain, iters=1, warmup=0)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_ms = cuda_ms(lambda: attention_dispatch(qt, kt, vt, provider="native"))
+    flops = 4 * b * n * s * s * h
+    bound_ms, bound_by = bound(flops, 4 * b * n * s * h * 2 + b * n * s * 4 + 2 * cos.numel() * 4)
+    phase("k1_check", case="wan_self_rope_shared_tables", shape=[b, n, s, s, h], max_abs_err=max_abs,
+          err_over_max1_ref=norm_err, rel_l2=rel_l2, lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
+          sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9, card=card)
+    if not (norm_err <= K1_TOL and rel_l2 <= K1_REL_L2_TOL and lse_err <= LSE_TOL):
+        raise AssertionError(f"K1 disagrees with its reference at Wan's shape: {norm_err}, rel L2 {rel_l2} "
+                             f"or LSE {lse_err}")
+    return max_abs, dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def serve(card):
     """The serving path; returns K1's launches there."""
     t0 = time.perf_counter()
@@ -404,13 +604,100 @@ def serve(card):
     return launches
 
 
+def wan_serve(card):
+    """The Wan serving path under `sage`, then under the default provider;
+    returns K6's and K1's launches in those runs."""
+    t0 = time.perf_counter()
+    spec = get_model_specification_cls("wan", "lora")(device=torch.device("cuda"), seed=0)
+    pipe = spec.load_pipeline()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pipe.transformer.module.parameters())
+    phase("wan_load", seconds=time.perf_counter() - t0, transformer_params=n_params,
+          layers=len(pipe.transformer.module.blocks))
+    if n_params != WAN_PARAMS or len(pipe.transformer.module.blocks) != WAN_LAYERS:
+        raise AssertionError("the spec did not build the published Wan 2.1 T2V-1.3B width and depth")
+
+    def run(provider, prompts):
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        videos, request_s = [], []
+        with attention_provider(provider):
+            for seed, prompt in enumerate(prompts):
+                t0 = time.perf_counter()
+                videos.append(pipe(prompt=prompt, seed=seed, **WAN_REQUEST))
+                torch.cuda.synchronize()
+                request_s.append(time.perf_counter() - t0)
+        return videos, request_s, _counts(), torch.cuda.max_memory_allocated() / 1e9
+
+    phase("wan_serve_config", steps=WAN_STEPS, steps_note="cut from the default 50", tokens=WAN_TOKENS,
+          text_tokens=512, **WAN_REQUEST)
+    videos, request_s, launches, peak_gb = run("sage", PROMPTS)
+    per_request = 2 * WAN_LAYERS * WAN_STEPS
+    shape_ok = all(v.shape == (49, 512, 768, 3) and v.dtype == np.uint8 for v in videos)
+    differ = not np.array_equal(videos[0], videos[1])
+    phase("wan_serve", provider="sage", requests=len(PROMPTS), video_shape=list(videos[0].shape),
+          dtype=str(videos[0].dtype), videos_differ=differ, launches=launches,
+          k6_launches_expected=per_request * len(PROMPTS), request_seconds=request_s, peak_memory_gb=peak_gb,
+          card=card)
+    if not (shape_ok and differ and launches["k6"] == per_request * len(PROMPTS) and launches["k1"] == 0):
+        raise AssertionError("Wan serving under sage failed its checks")
+    sage_launches = launches["k6"]
+    del videos
+
+    videos, auto_request_s, launches, auto_peak_gb = run("auto", PROMPTS[:1])
+    phase("wan_serve", provider="auto", requests=1, video_shape=list(videos[0].shape), launches=launches,
+          k1_launches_expected=per_request, request_seconds=auto_request_s, peak_memory_gb=auto_peak_gb, card=card)
+    if not (videos[0].shape == (49, 512, 768, 3) and launches["k1"] == per_request and launches["k6"] == 0):
+        raise AssertionError("Wan serving under the default provider failed its checks")
+    auto_launches = launches["k1"]
+    del videos
+
+    ehs, mask = pipe.encode_prompt(PROMPTS[0], None, True)
+    latents = torch.randn(pipe.latent_shape(49, 512, 768), generator=torch.Generator("cuda").manual_seed(7),
+                          device="cuda")
+    sigma = float(pipe.scheduler.inference_sigmas(WAN_STEPS)[1])
+    with torch.inference_mode():
+        step = lambda: pipe.denoise_step(latents, ehs, mask, WAN_REQUEST["guidance_scale"], sigma)  # noqa: E731
+        k1_out = step()
+        k1_step_ms = cuda_ms(step, iters=3, warmup=1)
+        with attention_provider("sage"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            k6_out = step()
+            step_peak_gb = torch.cuda.max_memory_allocated() / 1e9  # the transformer alone, without the decode
+            k6_step_ms = cuda_ms(step, iters=3, warmup=1)
+            with annotated(sage_ops, "sage_quantize", "sage_prepass"), \
+                    annotated(attention_ops, "_rotate_interleaved_4d", "rope_rotate"):
+                prof = profile_device(step, ranges=("sage_prepass", "rope_rotate"))
+    rel_l2 = ((k6_out - k1_out).norm() / k1_out.norm()).item()
+    finite = bool(torch.isfinite(k6_out).all())
+    phase("wan_step_k6_vs_k1", rel_l2=rel_l2, bound=K6_STEP_REL_L2_TOL, finite=finite,
+          shape=list(k6_out.shape))
+    if not (rel_l2 <= K6_STEP_REL_L2_TOL and finite):
+        raise AssertionError(f"a denoise step with K6 differs from the one with K1: rel L2 {rel_l2}")
+    phase("wan_timing", card=card, denoise_step_sage_s=k6_step_ms / 1e3, denoise_step_k1_s=k1_step_ms / 1e3,
+          request_sage_s=statistics.mean(request_s), requests_sage_s=request_s, request_k1_s=auto_request_s[0],
+          steps_per_request=WAN_STEPS, peak_memory_sage_gb=peak_gb, peak_memory_k1_gb=auto_peak_gb,
+          peak_memory_sage_step_gb=step_peak_gb)
+    # Every block launches K6 twice, self-attention then cross-attention.
+    k6_self, k6_cross = _split(prof["launches"]["k6"], by_order=True)
+    classes = dict(prof["classes"], k6_self_attention=sum(k6_self), k6_cross_attention=sum(k6_cross))
+    phase("wan_profile", card=card, provider="sage", step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"], ms_by_class=classes, k6_launches=[len(k6_self), len(k6_cross)],
+          k6_ms_per_launch={"self_attention": _median(k6_self), "cross_attention": _median(k6_cross)},
+          annotated_ranges=prof["annotated_ranges"], top_kernels_ms=prof["top_kernels_ms"],
+          device_events=prof["device_events"])
+    return sage_launches, auto_launches
+
+
 def _counts():
     return dict(k1=flash_forward.launches, prep=flash_bwd_prep.launches, k2=flash_bwd_dkdv.launches,
-                k3=flash_bwd_dq.launches)
+                k3=flash_bwd_dq.launches, k6=sage_forward.launches)
 
 
 def _zero_counts():
     flash_forward.launches = flash_bwd_prep.launches = flash_bwd_dkdv.launches = flash_bwd_dq.launches = 0
+    sage_forward.launches = 0
 
 
 def train_batch():
@@ -478,7 +765,8 @@ def train(card):
           launches_expected_each=expected, max_memory_allocated_gb=peak_gb, model_flops_per_step=flops,
           model_tflops=flops / median_s / 1e12, bf16_peak_tflops=PEAK_BF16_FLOPS / 1e12,
           share_of_peak=flops / median_s / PEAK_BF16_FLOPS)
-    if not (finite and moved and frozen_same and all(v == expected for v in launches.values())):
+    if not (finite and moved and frozen_same and launches["k6"] == 0
+            and all(v == expected for k_, v in launches.items() if k_ != "k6")):
         raise AssertionError("training check failed")
 
     # One step's loss and LoRA gradient with the kernels against plain fp32
@@ -551,16 +839,22 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.load_libraries(["flash_fwd", "flash_bwd"])
+    sources = ("flash_fwd", "flash_bwd", "sage_fwd")
+    _build.load_libraries(sources)
     builds = {name: {"seconds": _build.BUILD_LOG[name]["seconds"],
                      "ptxas": [line.strip() for line in _build.BUILD_LOG[name]["log"].splitlines()
                                if "Used" in line or "spill" in line]}
-              for name in ("flash_fwd", "flash_bwd")}
+              for name in sources}
     phase("build", seconds=time.perf_counter() - t0, kernels=builds)
 
     k1_err, k1 = check_k1(card)
     bwd_err, bwd = check_k2k3(card)
+    k6_err, k6 = check_k6(card)
+    k1_wan_err, k1_wan = check_k1_wan(card)
+    torch.cuda.empty_cache()
     serve_launches = serve(card)
+    torch.cuda.empty_cache()
+    wan_k6_launches, wan_k1_launches = wan_serve(card)
     torch.cuda.empty_cache()
     train_launches = train(card)
 
@@ -571,15 +865,22 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("flash_fwd (K1)", "finetrainers_tpu_torch/csrc/flash_fwd.cu",
-              "finetrainers_tpu/ops/flash_attention.py:106", serve_launches, k1_err,
+              "finetrainers_tpu/ops/flash_attention.py:106", serve_launches, max(k1_err, k1_wan_err),
               (k1["ms"], k1["plain_ms"], k1["library_ms"], k1["bound_ms"], k1["bound_by"]),
-              launches_by_path={"serve": serve_launches, "train": train_launches["k1"]}),
+              launches_by_path={"serve": serve_launches, "train": train_launches["k1"],
+                                "wan_serve_default_provider": wan_k1_launches},
+              wan_self_attention=k1_wan),
         entry("flash_bwd_prep (K2/K3 RoPE and scale pre-pass)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
               "finetrainers_tpu/ops/flash_attention.py:961", train_launches["prep"], bwd_err["prep"], bwd["prep"]),
         entry("bwd_dkdv (K2)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
               "finetrainers_tpu/ops/flash_attention.py:888", train_launches["k2"], bwd_err["k2"], bwd["k2"]),
         entry("bwd_dq (K3)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
               "finetrainers_tpu/ops/flash_attention.py:1199", train_launches["k3"], bwd_err["k3"], bwd["k3"]),
+        entry("sage_fwd (K6)", "finetrainers_tpu_torch/csrc/sage_fwd.cu",
+              "finetrainers_tpu/ops/sage_attention.py:36", wan_k6_launches, k6_err,
+              (k6["ms"], k6["plain_ms"], k6["library_ms"], k6["bound_ms"], k6["bound_by"]),
+              prepass_ms=k6["prepass_ms"], prepass_bound_ms=k6["prepass_bound_ms"],
+              library_note="torch SDPA on the unquantized bf16 inputs: a yardstick only"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

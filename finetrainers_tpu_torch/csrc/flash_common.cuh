@@ -1,8 +1,8 @@
-// Device helpers shared by the flash-attention kernels (flash_fwd.cu: K1,
-// flash_bwd.cu: K2, K3): the bf16/fp16 mma.sync m16n8k16 wrappers, ldmatrix,
-// cp.async, the base-2 exponential and the fused interleaved-pair RoPE.
-// `ops/_build.py` hashes every header of csrc/ into each library's name, so an
-// edit here rebuilds both.
+// Device helpers shared by the attention kernels (flash_fwd.cu: K1,
+// flash_bwd.cu: K2, K3, sage_fwd.cu: K6): the bf16/fp16 mma.sync m16n8k16
+// wrappers, ldmatrix, cp.async, the base-2 exponential and the fused
+// interleaved-pair RoPE. `ops/_build.py` hashes every header of csrc/ into each
+// library's name, so an edit here rebuilds them all.
 
 #pragma once
 

@@ -19,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import init_parameters_
+from .modeling_utils import ModelHandle, ModelSpecification
 from .weight_utils import load_torch_state
 
 
@@ -48,6 +50,15 @@ LTX_VAE_CONFIG = AutoencoderConfig(
     layers_per_block=2,
     spatial_downsample=(True, True, True, True, True),
     temporal_downsample=(False, True, True, True, False),
+)
+
+# Copied from `finetrainers_tpu/models/autoencoders.py:306-312`.
+WAN_VAE_CONFIG = AutoencoderConfig(
+    latent_channels=16,
+    block_out_channels=(96, 192, 384, 384),
+    layers_per_block=2,
+    spatial_downsample=(True, True, True),  # 8x spatial
+    temporal_downsample=(False, True, True),  # 4x temporal
 )
 
 
@@ -267,6 +278,25 @@ def sample_from_moments(moments: torch.Tensor, generator: Optional[torch.Generat
     if noise is None:
         noise = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
     return mean + torch.exp(0.5 * logvar) * noise.to(device=mean.device, dtype=mean.dtype)
+
+
+def generic_vae(spec: ModelSpecification, config: AutoencoderConfig, what: str) -> ModelHandle:
+    """The generic `AutoencoderKL3D` with `config` on `spec`'s device, random
+    weights from `spec.generator()`, identity latent statistics: the VAE the
+    JAX package serves with when no checkpoint of the family's real VAE
+    (`what`) exists."""
+    spec._refuse_checkpoint(spec.vae_id, "vae", what)
+    with torch.device(spec.device):
+        module = AutoencoderKL3D(config, dtype=spec.vae_dtype)
+    init_parameters_(module, spec.generator()).eval()
+    return ModelHandle(module, {
+        "latent_channels": config.latent_channels,
+        "spatial_compression_ratio": config.spatial_compression_ratio,
+        "temporal_compression_ratio": config.temporal_compression_ratio,
+        # Per-channel stats (real values come with a checkpoint; identity here).
+        "latents_mean": np.zeros((config.latent_channels,), np.float32),
+        "latents_std": np.ones((config.latent_channels,), np.float32),
+    })
 
 
 def load_flax_vae_params(model: AutoencoderKL3D, flat_params: Dict[str, np.ndarray]) -> AutoencoderKL3D:

@@ -1,5 +1,5 @@
 """Shared building blocks (port of the parts of `finetrainers_tpu/models/layers.py`
-that the LTX-Video serving path runs).
+that the LTX-Video and Wan 2.1 paths run).
 
 Parameter names follow diffusers/peft: a linear layer holds `weight` (out, in)
 and `bias`; its LoRA factors are `lora_A.weight` (r, in) and `lora_B.weight`
@@ -12,7 +12,7 @@ fp32 and are cast where the JAX package casts them.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -82,6 +82,28 @@ def lora_proj_params(layers):
     return weight, bias, lora_a, [layer.lora_B.weight for layer in layers]
 
 
+class _GELUProjection(nn.Module):
+    def __init__(self, dim: int, inner: int, **kw) -> None:
+        super().__init__()
+        self.proj = LoRADense(dim, inner, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(self.proj(x), approximate="tanh")
+
+
+class FeedForward(nn.Module):
+    """diffusers FeedForward layout: net.0.proj -> gelu(tanh) -> net.2 (the
+    `ff_net_0_proj` / `ff_net_2` (LTX) and `ffn_net_*` (Wan) dense pairs of
+    the JAX blocks). `kw` goes to both LoRADense layers."""
+
+    def __init__(self, dim: int, inner: int, **kw) -> None:
+        super().__init__()
+        self.net = nn.ModuleList([_GELUProjection(dim, inner, **kw), nn.Identity(), LoRADense(inner, dim, **kw)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net[2](self.net[0](x))
+
+
 class RMSNorm(nn.Module):
     """RMSNorm with fp32 statistics and an optional fp32 scale (layers.py:121)."""
 
@@ -105,6 +127,37 @@ class RMSNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm with fp32 statistics and a two-pass variance (layers.py:143);
+    without affine parameters by default (DiT blocks follow it with adaLN
+    modulation), else an fp32 scale and optional fp32 bias."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, elementwise_affine: bool = False, use_bias: bool = True,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(dim, dtype=torch.float32)) if elementwise_affine else None
+        self.bias = nn.Parameter(torch.empty(dim, dtype=torch.float32)) if elementwise_affine and use_bias else None
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            if self.weight is not None:
+                self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        centred = x32 - x32.mean(dim=-1, keepdim=True)
+        y = centred * torch.rsqrt(centred.square().mean(dim=-1, keepdim=True) + self.eps)
+        if self.weight is not None:
+            y = y * self.weight
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(self.dtype)
+
+
 def sinusoidal_timestep_embedding(
     timesteps: torch.Tensor, dim: int, max_period: float = 10000.0, flip_sin_to_cos: bool = True,
     downscale_freq_shift: float = 0.0, scale: float = 1.0,
@@ -120,6 +173,29 @@ def sinusoidal_timestep_embedding(
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
+
+
+ROPE_THETA = 10000.0
+
+
+def axial_rope_freqs(head_dim: int, sizes: Sequence[int], fractions: Sequence[float],
+                     device: Optional[torch.device] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """N-axis RoPE angles with exact frequency-slot allocation (layers.py:596):
+    the head_dim/2 slots go to the axes in proportion to `fractions`, the last
+    axis taking the remainder; tokens are row-major over `sizes`. Returns fp32
+    (cos, sin) of shape (prod(sizes), head_dim/2), computed in fp32 as the JAX
+    package does, so the tables match its own."""
+    total_slots = head_dim // 2
+    slots = [max(int(total_slots * frac), 1) for frac in fractions[:-1]]
+    slots.append(total_slots - sum(slots))
+    grids = torch.meshgrid(*[torch.arange(size, dtype=torch.float32, device=device) for size in sizes],
+                           indexing="ij")
+    parts = []
+    for pos, n_slots in zip(grids, slots):
+        inv = 1.0 / torch.pow(ROPE_THETA, torch.arange(n_slots, dtype=torch.float32, device=device) / max(n_slots, 1))
+        parts.append(pos.reshape(-1, 1) * inv[None, :])
+    freqs = torch.cat(parts, dim=-1)
+    return torch.cos(freqs), torch.sin(freqs)
 
 
 def block_stack(blocks: nn.ModuleList, carry, *broadcast_args, checkpoint: Optional[str] = None):

@@ -14,14 +14,13 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ...functional.diffusion import flow_match_target, flow_match_xt
 from ...logging import get_logger
 from ...processors import CaptionTextDropoutProcessor, HashEncoder, T5Processor
 from ...schedulers import FlowMatchEulerScheduler, load_scheduler
-from ..autoencoders import LTX_VAE_CONFIG, AutoencoderConfig, AutoencoderKL3D, sample_from_moments
+from ..autoencoders import LTX_VAE_CONFIG, AutoencoderConfig, generic_vae, sample_from_moments
 from ..layers import init_parameters_
 from ..modeling_utils import ModelHandle, ModelSpecification
 from .transformer import LTXVideoTransformer3DModel, pack_latents
@@ -65,11 +64,6 @@ class LTXVideoModelSpecification(ModelSpecification):
         ]
 
     # ------------------------------------------------------------------ loading
-    def _refuse_checkpoint(self, explicit_id: Optional[str], subfolder: str, what: str) -> None:
-        path = self._component_dir(explicit_id, subfolder)
-        if path is not None:
-            raise NotImplementedError(f"loading {what} from {path} is not ported yet; see ROADMAP.md")
-
     def load_condition_models(self) -> Dict[str, Any]:
         self._refuse_checkpoint(self.text_encoder_id, "text_encoder", "the T5 text encoder")
         logger.warning("T5 is not ported; using the offline hash encoder")
@@ -77,20 +71,7 @@ class LTXVideoModelSpecification(ModelSpecification):
         return {"tokenizer": None, "text_encoder": encoder}
 
     def load_latent_models(self) -> Dict[str, Any]:
-        self._refuse_checkpoint(self.vae_id, "vae", "the LTX VAE")
-        with torch.device(self.device):
-            module = AutoencoderKL3D(self.vae_autoencoder_config, dtype=self.vae_dtype)
-        init_parameters_(module, self.generator()).eval()
-        latent_ch = self.vae_autoencoder_config.latent_channels
-        config = {
-            "latent_channels": latent_ch,
-            "spatial_compression_ratio": self.vae_autoencoder_config.spatial_compression_ratio,
-            "temporal_compression_ratio": self.vae_autoencoder_config.temporal_compression_ratio,
-            # Per-channel stats (real values come with a checkpoint; identity here).
-            "latents_mean": np.zeros((latent_ch,), np.float32),
-            "latents_std": np.ones((latent_ch,), np.float32),
-        }
-        return {"vae": ModelHandle(module, config)}
+        return {"vae": generic_vae(self, self.vae_autoencoder_config, "the LTX VAE")}
 
     def load_diffusion_models(self) -> Dict[str, Any]:
         self._refuse_checkpoint(self.transformer_id, "transformer", "transformer weights")

@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import attention_dispatch
-from ..layers import LoRADense, RMSNorm, block_stack, lora_proj_params, sinusoidal_timestep_embedding
+from ..layers import FeedForward, LoRADense, RMSNorm, block_stack, lora_proj_params, sinusoidal_timestep_embedding
 
 
 class _TimestepEmbedding(nn.Module):
@@ -159,26 +159,6 @@ class LTXAttention(nn.Module):
         return self.to_out[0](out.reshape(b, sq, self.num_heads * self.head_dim))
 
 
-class _GELUProjection(nn.Module):
-    def __init__(self, dim: int, inner: int, **kw) -> None:
-        super().__init__()
-        self.proj = LoRADense(dim, inner, **kw)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.gelu(self.proj(x), approximate="tanh")
-
-
-class _FeedForward(nn.Module):
-    """diffusers FeedForward layout: net.0.proj -> gelu(tanh) -> net.2."""
-
-    def __init__(self, dim: int, **kw) -> None:
-        super().__init__()
-        self.net = nn.ModuleList([_GELUProjection(dim, 4 * dim, **kw), nn.Identity(), LoRADense(4 * dim, dim, **kw)])
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
-
-
 class LTXTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, head_dim: int, lora_rank: int = 0, lora_alpha: float = 1.0,
                  dtype: torch.dtype = torch.bfloat16) -> None:
@@ -190,7 +170,7 @@ class LTXTransformerBlock(nn.Module):
         self.attn1 = LTXAttention(dim, num_heads, head_dim, lora_rank, lora_alpha, dtype)
         self.attn2 = LTXAttention(dim, num_heads, head_dim, lora_rank, lora_alpha, dtype)
         self.norm2 = RMSNorm(dim, elementwise_affine=False, dtype=dtype)
-        self.ff = _FeedForward(dim, rank=lora_rank, alpha=lora_alpha, dtype=dtype)
+        self.ff = FeedForward(dim, 4 * dim, rank=lora_rank, alpha=lora_alpha, dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         with torch.no_grad():

@@ -85,6 +85,13 @@ class ModelSpecification:
     def validation(self, pipeline, **kwargs) -> List[Any]:
         raise NotImplementedError
 
+    def _refuse_checkpoint(self, explicit_id: Optional[str], subfolder: str, what: str) -> None:
+        """Raise where a local checkpoint of a component exists: loading one is
+        not ported yet, and random weights must not stand in for it silently."""
+        path = self._component_dir(explicit_id, subfolder)
+        if path is not None:
+            raise NotImplementedError(f"loading {what} from {path} is not ported yet; see ROADMAP.md")
+
     def _component_dir(self, explicit_id: Optional[str], subfolder: str) -> Optional[str]:
         """Resolve a local HF component directory (explicit id or
         <pretrained_model_name_or_path>/<subfolder>) holding a config.json."""

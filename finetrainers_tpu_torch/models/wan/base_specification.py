@@ -1,0 +1,136 @@
+"""Wan 2.1 model specification: text-to-video serving (port of the T2V parts
+of `finetrainers_tpu/models/wan/base_specification.py`).
+
+Random weights only: no UMT5, Wan VAE or Wan transformer checkpoint exists
+for the port yet, so it serves with the offline components the JAX package
+falls back to: `HashEncoder(4096, max_length=128)` for text (:85-88), the
+generic `AutoencoderKL3D` with `WAN_VAE_CONFIG` and identity latent statistics
+(:106-120), and flow-match Euler with shift 3 (:143, :161-163). A local
+checkpoint directory for any component raises NotImplementedError instead of
+being ignored. Image-to-video (`image_dim`, the CLIP-vision encoder) and the
+training `forward` are not ported yet (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ...logging import get_logger
+from ...processors import CaptionTextDropoutProcessor, HashEncoder, T5Processor
+from ...schedulers import FlowMatchEulerScheduler, load_scheduler
+from ..autoencoders import WAN_VAE_CONFIG, AutoencoderConfig, generic_vae
+from ..layers import init_parameters_
+from ..modeling_utils import ModelHandle, ModelSpecification
+from .transformer import WanTransformer3DModel
+
+
+logger = get_logger(__name__)
+
+# Copied from `finetrainers_tpu/models/wan/base_specification.py:31-40`.
+WAN_T2V_1_3B_CONFIG = dict(
+    in_channels=16, out_channels=16, patch_size=(1, 2, 2), num_attention_heads=12,
+    attention_head_dim=128, num_layers=30, ffn_dim=8960, text_dim=4096, freq_dim=256,
+    image_dim=None,
+)
+WAN_I2V_14B_CONFIG = dict(
+    in_channels=36, out_channels=16, patch_size=(1, 2, 2), num_attention_heads=40,
+    attention_head_dim=128, num_layers=40, ffn_dim=13824, text_dim=4096, freq_dim=256,
+    image_dim=1280,
+)
+
+
+class WanModelSpecification(ModelSpecification):
+    def __init__(
+        self,
+        pretrained_model_name_or_path: str = "Wan-AI/Wan2.1-T2V-1.3B-Diffusers",
+        transformer_config: Optional[Dict[str, Any]] = None,
+        vae_config: Optional[AutoencoderConfig] = None,
+        caption_dropout_p: float = 0.0,
+        lora_rank: int = 0,
+        lora_alpha: float = 1.0,
+        **kwargs,
+    ) -> None:
+        super().__init__(pretrained_model_name_or_path=pretrained_model_name_or_path, **kwargs)
+        self.transformer_config = {**WAN_T2V_1_3B_CONFIG, **(transformer_config or {})}
+        self.vae_autoencoder_config = vae_config or WAN_VAE_CONFIG
+        self.caption_dropout_p = caption_dropout_p
+        self.lora_rank = lora_rank
+        self.lora_alpha = lora_alpha
+        self.condition_model_processors = [
+            CaptionTextDropoutProcessor(caption_dropout_p),
+            T5Processor(["encoder_hidden_states", "encoder_attention_mask"]),
+        ]
+
+    @property
+    def is_i2v(self) -> bool:
+        return self.transformer_config.get("image_dim") is not None
+
+    # ------------------------------------------------------------------ loading
+    def load_condition_models(self) -> Dict[str, Any]:
+        self._refuse_checkpoint(self.text_encoder_id, "text_encoder", "the UMT5 text encoder")
+        if self.is_i2v:
+            raise NotImplementedError("the Wan image encoder is not ported yet; see ROADMAP.md queue 1 (Wan I2V)")
+        logger.warning("UMT5 is not ported; using the offline hash encoder")
+        encoder = HashEncoder(hidden_size=self.transformer_config["text_dim"], max_length=128)
+        return {"tokenizer": None, "text_encoder": encoder}
+
+    def load_latent_models(self) -> Dict[str, Any]:
+        return {"vae": generic_vae(self, self.vae_autoencoder_config, "the Wan VAE")}
+
+    def load_diffusion_models(self) -> Dict[str, Any]:
+        self._refuse_checkpoint(self.transformer_id, "transformer", "transformer weights")
+        with torch.device(self.device):
+            module = WanTransformer3DModel(
+                **self.transformer_config, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
+                dtype=self.transformer_dtype, gradient_checkpointing=self.gradient_checkpointing,
+            )
+        init_parameters_(module, self.generator()).eval()
+        return {
+            "transformer": ModelHandle(module, dict(self.transformer_config)),
+            "scheduler": FlowMatchEulerScheduler(shift=3.0),
+        }
+
+    def load_pipeline(self, transformer: ModelHandle = None, vae: ModelHandle = None,
+                      text_encoder=None, **kwargs):
+        from .pipeline import WanPipeline
+
+        if transformer is None:
+            transformer = self.load_diffusion_models()["transformer"]
+        if vae is None:
+            vae = self.load_latent_models()["vae"]
+        if text_encoder is None:
+            text_encoder = self.load_condition_models()["text_encoder"]
+        # Wan 2.1 checkpoints ship UniPC in their scheduler config (not ported:
+        # load_scheduler raises for it); flow-match Euler with shift 3 is the fallback.
+        return WanPipeline(
+            spec=self, transformer=transformer, vae=vae, text_encoder=text_encoder,
+            scheduler=load_scheduler(self.pretrained_model_name_or_path, default=FlowMatchEulerScheduler(shift=3.0)),
+        )
+
+    # ------------------------------------------------------------- data prep
+    def prepare_conditions(self, caption: str, text_encoder=None, max_sequence_length: int = 512,
+                           **kwargs) -> Dict[str, Any]:
+        """caption -> numpy {encoder_hidden_states (1, L, C), encoder_attention_mask (1, L)}."""
+        data = {"caption": caption, "text_encoder": text_encoder, "max_sequence_length": max_sequence_length}
+        for processor in self.condition_model_processors:
+            data.update(processor(**data))
+        return {
+            "encoder_hidden_states": data["encoder_hidden_states"],
+            "encoder_attention_mask": data["encoder_attention_mask"],
+        }
+
+    # ---------------------------------------------------------------- training
+    def forward(self, transformer: ModelHandle, condition_model_conditions: Dict[str, torch.Tensor],
+                latent_model_conditions: Dict[str, torch.Tensor], sigmas: torch.Tensor, **kwargs):
+        raise NotImplementedError("Wan training is not ported yet; see ROADMAP.md queue 1 (Wan LoRA training)")
+
+    # -------------------------------------------------------------- validation
+    def validation(self, pipeline, prompt: str, image=None, height: int = 480, width: int = 832,
+                   num_frames: int = 81, num_inference_steps: int = 50, **kwargs) -> List[Any]:
+        from ...data import VideoArtifact
+
+        video = pipeline(prompt=prompt, image=image, height=height, width=width, num_frames=num_frames,
+                         num_inference_steps=num_inference_steps)
+        return [VideoArtifact(value=video)]

@@ -12,6 +12,11 @@ Providers:
     tensor, the kernels' plain versions through K4, or `_native_math` for
     masks, causal and GQA.
   * "flash" / "tpu_flash": K4 only; raises where the kernels do not apply.
+  * "sage" and its five variant names: the int8 kernel K6
+    (`ops/sage_attention.py`), forward-only, for serving. A padding mask
+    becomes `kv_lens`; a dense mask or a causal call takes `_native_math` on a
+    CPU tensor and raises on a CUDA tensor. Not a fused-RoPE provider: the
+    dispatcher rotates q/k in fp32 and casts them back before the call.
   * "_native_math": explicit fp32 softmax, the numerics reference;
     differentiable by autograd through its math.
   * "native": torch SDPA, kept only as a comparison baseline, never the default.
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 
 from ..constants import FINETRAINERS_ATTN_CHECKS, FINETRAINERS_ATTN_PROVIDER
 from .flash_attention import _rope_fwd, flash_attention
+from .sage_attention import sage_attention
 
 
 class AttentionProvider(str, Enum):
@@ -233,6 +239,36 @@ def _auto_attention(query, key, value, attn_mask, is_causal, scale, kv_lens, rop
     return _math_attention(query, key, value, attn_mask, is_causal, scale, kv_lens)
 
 
+def _kv_lens_from_padding_mask(attn_mask: torch.Tensor, skv: int) -> torch.Tensor:
+    """Boolean (True = attend) or additive padding mask -> (B,) valid key
+    counts (copied from `finetrainers_tpu/ops/attention.py:238-247`): masks are
+    taken as prefix masks, each batch row attending to a prefix of the keys."""
+    mask = attn_mask if attn_mask.dtype == torch.bool else attn_mask > -1.0
+    return mask.reshape(mask.shape[0], -1, skv).any(dim=1).sum(dim=-1, dtype=torch.int32)
+
+
+@_AttentionProviderRegistry.register("sage")
+@_AttentionProviderRegistry.register("sage_varlen")
+@_AttentionProviderRegistry.register("_sage_qk_int8_pv_fp16_cuda")
+@_AttentionProviderRegistry.register("_sage_qk_int8_pv_fp16_triton")
+@_AttentionProviderRegistry.register("_sage_qk_int8_pv_fp8_cuda")
+@_AttentionProviderRegistry.register("_sage_qk_int8_pv_fp8_cuda_sm90")
+def _sage(query, key, value, attn_mask, is_causal, scale, kv_lens):
+    """INT8 QK^T attention (`_sage`, JAX :574-588): every sage variant name maps
+    to K6. A CUDA tensor goes to K6, which raises for what it does not take."""
+    if attn_mask is not None and kv_lens is None:
+        kv_lens = _kv_lens_from_padding_mask(attn_mask, key.shape[1])
+        attn_mask = None
+    if attn_mask is not None or is_causal:
+        if query.device.type != "cpu":
+            raise NotImplementedError(
+                "K6 takes no causal or dense-mask call and the port never falls back to plain math on the card; "
+                "see ROADMAP.md (K6)"
+            )
+        return _math_attention(query, key, value, attn_mask, is_causal, scale, kv_lens)
+    return sage_attention(query, key, value, kv_lens=kv_lens, scale=scale)
+
+
 def _register_unported(name: str, roadmap_item: str) -> None:
     def _unported(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs=None):
         raise NotImplementedError(
@@ -253,11 +289,5 @@ for _name, _item in {
     "flex": "queue 2, K1 block-sparse mask branch",
     "ring": "queue 1, parallel (ring attention)",
     "ulysses": "queue 1, parallel (ulysses)",
-    "sage": "queue 2, K6 (_sage_fwd_kernel)",
-    "sage_varlen": "queue 2, K6 (_sage_fwd_kernel)",
-    "_sage_qk_int8_pv_fp16_cuda": "queue 2, K6 (_sage_fwd_kernel)",
-    "_sage_qk_int8_pv_fp16_triton": "queue 2, K6 (_sage_fwd_kernel)",
-    "_sage_qk_int8_pv_fp8_cuda": "queue 2, K6 (_sage_fwd_kernel)",
-    "_sage_qk_int8_pv_fp8_cuda_sm90": "queue 2, K6 (_sage_fwd_kernel)",
 }.items():
     _register_unported(_name, _item)

@@ -19,7 +19,9 @@ from finetrainers_tpu_torch.ops import attention_dispatch, attention_provider, g
 torch.set_num_threads(1)
 
 ATOL, RTOL = 2e-5, 1e-5
-PORTED = ("auto", "flash", "tpu_flash", "_native_math", "native")
+SAGE = ("sage", "sage_varlen", "_sage_qk_int8_pv_fp16_cuda", "_sage_qk_int8_pv_fp16_triton",
+        "_sage_qk_int8_pv_fp8_cuda", "_sage_qk_int8_pv_fp8_cuda_sm90")
+PORTED = ("auto", "flash", "tpu_flash", "_native_math", "native", *SAGE)
 UNPORTED = sorted(set(AttentionProviderValidation) - set(PORTED))
 
 

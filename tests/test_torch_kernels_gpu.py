@@ -9,7 +9,7 @@ imports no JAX. On the card:
 import pytest
 import torch
 
-from finetrainers_tpu_torch.ops import attention_dispatch
+from finetrainers_tpu_torch.ops import attention_dispatch, list_providers
 from finetrainers_tpu_torch.ops.flash_attention import (
     FlashAttentionFunction,
     flash_attention_reference,
@@ -20,6 +20,7 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_bwd_prep,
     flash_forward,
 )
+from finetrainers_tpu_torch.ops.sage_attention import sage_attention_reference, sage_forward, sage_quantize
 
 # (B, N, Sq, Skv, H, rope, kv_lens): fused RoPE with per-head and shared tables,
 # kv_lens with an empty row, sequence lengths off every tile boundary, H = 64 and 128.
@@ -177,3 +178,88 @@ def test_flash_backward_rejects_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="Sq == Skv"):
         flash_backward(q, k, k, q, lse, q, rope_cos=cos, rope_sin=cos)
     assert (flash_bwd_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches) == before
+
+
+# (B, N, Sq, Skv, H, kv_lens): Wan-like H=128 self-attention, cross-attention over
+# padded text with few valid keys, LTX's H=64, lengths off every tile boundary, an empty row.
+SAGE_CASES = [
+    (2, 2, 300, 300, 128, None),
+    (1, 3, 129, 520, 128, [9]),
+    (2, 4, 256, 256, 64, None),
+    (3, 2, 100, 77, 64, [77, 30, 0]),
+]
+SAGE_NAMES = ("sage", "sage_varlen", "_sage_qk_int8_pv_fp16_cuda", "_sage_qk_int8_pv_fp16_triton",
+              "_sage_qk_int8_pv_fp8_cuda", "_sage_qk_int8_pv_fp8_cuda_sm90")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_sage_kernel_matches_reference(dtype):
+    """K6 against `sage_attention_reference` on the same codes and scales. q/k/v
+    are BNSH views of BTNH buffers and the codes come from the pre-pass on the
+    card. Bound: |out - ref| <= 2e-2 * max(1, |ref|) elementwise and relative L2
+    <= 1e-2 (the kernel rounds p to v's dtype before P V; the reference keeps
+    it fp32); a row with no valid key gives exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for b, n, sq, skv, h, lens in SAGE_CASES:
+        q, k, v = (torch.randn(b, s, n, h, device="cuda", generator=g).to(dtype) for s in (sq, skv, skv))
+        k = k + 1.5  # a channel offset, which smooth-K removes
+        kv_lens = torch.tensor(lens if lens else [skv] * b, dtype=torch.int32, device="cuda")
+        codes = sage_quantize(q, k, kv_lens)
+        before = sage_forward.launches
+        out = sage_forward(*codes, v.transpose(1, 2), kv_lens)
+        torch.cuda.synchronize()
+        assert sage_forward.launches == before + 1
+        ref = sage_attention_reference(*codes, v.transpose(1, 2), kv_lens)
+        assert out.dtype == dtype and out.shape == ref.shape
+        err = (out.float() - ref.float()).abs()
+        assert (err / ref.float().abs().clamp_min(1.0)).max().item() <= 2e-2, (b, n, sq, skv, h, lens)
+        assert _rel_errors(out, ref)[0] <= 1e-2, (b, n, sq, skv, h, lens)
+        if lens and 0 in lens:
+            assert not out[lens.index(0)].any()
+
+
+@pytest.mark.gpu
+def test_sage_prepass_on_the_card_matches_the_cpu():
+    """The pre-pass (torch ops) on the card against the same ops on the CPU:
+    q codes and scales equal; the smoothed k's mean is summed in another order,
+    so at most 0.1% of k codes may differ, by one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator().manual_seed(4)
+    q, k = (torch.randn(2, 500, 4, 128, generator=g).to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([500, 123], dtype=torch.int32)
+    cpu = sage_quantize(q, k, lens)
+    gpu = sage_quantize(q.cuda(), k.cuda(), lens.cuda())
+    assert torch.equal(gpu[0].cpu(), cpu[0]) and torch.equal(gpu[2].cpu(), cpu[2])
+    diff = (gpu[1].cpu().int() - cpu[1].int()).abs()
+    assert diff.max() <= 1 and (diff > 0).float().mean() <= 1e-3
+    torch.testing.assert_close(gpu[3].cpu(), cpu[3], rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_every_sage_name_reaches_k6_or_raises_on_the_card():
+    """Each sage provider name launches K6 once for a bf16 call with a padding
+    mask, and raises (launching nothing) for fp32, a causal call and a dense
+    mask beside kv_lens: no sage name falls to plain math on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    assert set(SAGE_NAMES) <= set(list_providers())
+    q = torch.randn(2, 40, 2, 64, device="cuda").to(torch.bfloat16)
+    mask = (torch.arange(40, device="cuda")[None, :] < torch.tensor([[40], [11]], device="cuda"))[:, None, None, :]
+    lens = torch.tensor([40, 11], dtype=torch.int32, device="cuda")
+    for name in SAGE_NAMES:
+        before = sage_forward.launches
+        out = attention_dispatch(q, q, q, attn_mask=mask, provider=name)
+        assert sage_forward.launches == before + 1 and out.shape == q.shape
+        ref = attention_dispatch(q, q, q, kv_lens=lens, provider=name)
+        assert torch.equal(out, ref)
+        with pytest.raises(ValueError, match="bf16 or fp16"):
+            attention_dispatch(q.float(), q.float(), q.float(), provider=name)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            attention_dispatch(q, q, q, is_causal=True, provider=name)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            attention_dispatch(q, q, q, attn_mask=mask, kv_lens=lens, provider=name)
+        assert sage_forward.launches == before + 2

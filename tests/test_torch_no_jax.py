@@ -4,7 +4,8 @@ A fresh interpreter blocks `jax`, `flax`, `optax`, `finetrainers_tpu` and
 `triton` (a `None` entry in `sys.modules` makes their import raise) and
 replaces `subprocess` launches with a tripwire, then imports every module of
 `finetrainers_tpu_torch`, the training slice's (trainer, optimizer, LoRA,
-remat, diffusion math) among them. Any import of a blocked package, any `nvcc` run and
+remat, diffusion math) and the Wan serving slice's (int8 attention, Wan
+transformer, spec, pipeline) among them. Any import of a blocked package, any `nvcc` run and
 any kernel library loaded during import fails the test.
 """
 
@@ -33,7 +34,8 @@ from finetrainers_tpu_torch.ops import _build
 assert not _build._LIBS, f"kernel libraries loaded at import: {list(_build._LIBS)}"
 training = {"finetrainers_tpu_torch." + m for m in (
     "ops.flash_attention", "trainer.sft_trainer.trainer", "trainer.base", "optimizer", "lora", "args", "state",
-    "utils.activation_checkpoint", "functional.diffusion")}
+    "utils.activation_checkpoint", "functional.diffusion", "ops.sage_attention", "models.wan.transformer",
+    "models.wan.base_specification", "models.wan.pipeline")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
 print(len(names))
 """
