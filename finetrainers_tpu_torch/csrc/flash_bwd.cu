@@ -41,8 +41,21 @@
 // and measured ~20% for it), so the kernels read plain tiles; only the
 // transpose rotation of dk and dq touches the tables, once per output element.
 // The inner tile is 64 rows at H=64 and 32 at H=128, which keeps the
-// accumulators, s and dp within the register file. Not yet used: wgmma, TMA,
-// warp specialisation, and the fused single-kernel backward (K5).
+// accumulators, s and dp within the register file. Not yet used: wgmma, TMA
+// and warp specialisation.
+//
+// K5 (replaces ::_bwd_fused_kernel, picked there by FINETRAINERS_FLASH_FUSED_BWD)
+// computes the same dq, dk and dv in one pass: K2's CTA, which also adds each
+// q tile's ds k_r into an fp32 (B, N, Sq, H) dq accumulator in device memory,
+// so s, p, dp and ds are computed once per (kv tile, q tile) pair instead of
+// twice. The TPU kernel keeps that accumulator in VMEM; here CTAs of other kv
+// tiles add into the same rows, so each addition is an atomic add (fp32, in an
+// order that varies from run to run). A warp holds ds^T for its 16 kv rows,
+// but kv is the contraction dim of ds k_r: ds^T is staged in shared memory and
+// each warp computes a 16-row x 64-column piece of the dq tile from there in
+// 32-column chunks, adding each chunk before the next, so no second full
+// accumulator lives in registers. A small emit kernel then applies the scale,
+// the transpose rotation with q's tables and the cast, as K3 does at its end.
 
 #include "flash_common.cuh"
 
@@ -83,6 +96,7 @@ struct BwdParams {
   void* dq;
   void* dk;
   void* dv;
+  float* dq_acc;  // K5: (B, N, Sq, H) contiguous fp32, zeroed by the caller
   int heads, seq_q, seq_kv;
   int64_t q_sb, q_sn, q_ss;
   int64_t k_sb, k_sn, k_ss;
@@ -214,10 +228,63 @@ __device__ __forceinline__ void zero(float (*acc)[4]) {
   for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 }
 
-// K2: one CTA per (kv tile of kBlockM rows, head, batch); loops over q tiles.
-// Each warp owns 16 kv rows and computes s^T, dp^T and ds^T for them, so p^T
-// and ds^T are A operands of dv += p^T dO and dk += ds^T q_s as they stand.
-template <typename T, int HD>
+// K5's share of one q tile of dq: dq_acc[q0 + r, :] += sum_kv ds[r, kv] k_r[kv, :]
+// for the CTA's kBlockM kv rows, with ds^T staged in shared memory ([kv][q],
+// row stride kN + 8) and k_r in the CTA's k tile. The kN x HD tile is split
+// into 16-row x 64-column pieces, one per warp, computed and added to device
+// memory (red.global.add.f32) 32 columns at a time; rows at or past seq_q are skipped.
+template <typename T, int HD, int kN>
+__device__ __forceinline__ void add_dq_tile(float* dq_acc, const T* s_ds, const T* s_k, int q0, int seq_q) {
+  constexpr int kLdsK = HD + 8;
+  constexpr int kLdsD = kN + 8;
+  constexpr int kRowGroups = kN / 16;
+  constexpr int kCols = HD * kRowGroups / kWarps;  // 64 at both head dims
+  constexpr int kChunk = 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int mi = lane / 8;
+  const int r0 = (warp % kRowGroups) * 16;
+  const int c0 = (warp / kRowGroups) * kCols;
+  // A fragments of ds (q rows r0.., kv columns): transposed loads of ds^T.
+  // matrices: (q lo, kv lo), (q hi, kv lo), (q lo, kv hi), (q hi, kv hi)
+  uint32_t af[kBlockM / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kBlockM / 16; ++kk)
+    ldmatrix_x4_trans(af[kk], s_ds + (kk * 16 + (mi / 2) * 8 + lane % 8) * kLdsD + r0 + (mi % 2) * 8);
+#pragma unroll
+  for (int c = 0; c < kCols; c += kChunk) {
+    float acc[kChunk / 8][4];
+    zero<kChunk / 8>(acc);
+#pragma unroll
+    for (int kk = 0; kk < kBlockM / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < kChunk / 8; i += 2) {
+        // matrices: (kv lo, h i*8..), (kv hi, h i*8..), (kv lo, h (i+1)*8..), (kv hi, h (i+1)*8..)
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, s_k + (kk * 16 + (mi % 2) * 8 + lane % 8) * kLdsK + c0 + c + i * 8 + (mi / 2) * 8);
+        Ops<T>::mma(acc[i], af[kk], bf);
+        Ops<T>::mma(acc[i + 1], af[kk], bf + 2);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + r0 + lane / 4 + r * 8;
+      if (row >= seq_q) continue;
+      float* dst = dq_acc + (int64_t)row * HD + c0 + c + 2 * (lane % 4);
+#pragma unroll
+      for (int i = 0; i < kChunk / 8; ++i) {
+        atomicAdd(dst + i * 8, acc[i][2 * r]);
+        atomicAdd(dst + i * 8 + 1, acc[i][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// K2 (FUSED false) and K5 (true): one CTA per (kv tile of kBlockM rows, head,
+// batch); loops over q tiles. Each warp owns 16 kv rows and computes s^T, dp^T
+// and ds^T for them, so p^T and ds^T are A operands of dv += p^T dO and
+// dk += ds^T q_s as they stand. K5 also adds each q tile's ds k_r into dq_acc.
+template <typename T, int HD, bool FUSED>
 __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(const BwdParams p) {
   constexpr int kN = block_n<HD>();
   constexpr int kLds = HD + 8;
@@ -231,6 +298,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(const BwdParams p) {
   T* s_do = s_q + 2 * kN * kLds;   // two dO tiles
   float* s_lse = reinterpret_cast<float*>(s_do + 2 * kN * kLds);  // two tiles' LSE
   float* s_delta = s_lse + 2 * kN;                                // two tiles' delta
+  T* s_ds = reinterpret_cast<T*>(s_delta + 2 * kN);                // K5: ds^T, kBlockM x (kN + 8)
 
   const int kv0 = blockIdx.x * kBlockM;
   const int n = blockIdx.y;
@@ -333,6 +401,19 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(const BwdParams p) {
     }
     // dk += ds^T q_s
     mma_pb<T, HD, kN / 16>(acc_dk, dp, q_tile);
+    if constexpr (FUSED) {
+      // Stage ds^T (already rounded to T) for the dq product; the top of the
+      // next iteration syncs before anyone writes it again.
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(s_ds + (warp * 16 + lane / 4 + r * 8) * (kN + 8) + j * 8 + 2 * (lane % 4)) =
+              Ops<T>::pack(dp[j][2 * r], dp[j][2 * r + 1]);
+      }
+      __syncthreads();
+      add_dq_tile<T, HD, kN>(p.dq_acc + ((int64_t)b * p.heads + n) * p.seq_q * HD, s_ds, s_k, q0, p.seq_q);
+    }
   }
 
   // dk carries a surplus log2(e) (the scale*log2e folded into q_s, less the
@@ -448,15 +529,46 @@ cudaError_t launch_prep(const PrepParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// K5's emit: dq = T(rope^T(scale * dq_acc)) with q's tables, one column pair
+// per thread, grid-stride.
 template <typename T, int HD>
+__global__ void __launch_bounds__(256) dq_emit_kernel(const BwdParams p, int batch) {
+  const int64_t total = (int64_t)batch * p.heads * p.seq_q * (HD / 2);
+  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (int64_t)gridDim.x * blockDim.x) {
+    const int col = (int)(idx % (HD / 2)) * 2;
+    const int64_t row = idx / (HD / 2);  // (b, n, s) flattened
+    const int s = (int)(row % p.seq_q);
+    const int n = (int)((row / p.seq_q) % p.heads);
+    const int b = (int)(row / ((int64_t)p.seq_q * p.heads));
+    const float2 acc = *reinterpret_cast<const float2*>(p.dq_acc + row * HD + col);
+    float2 g = make_float2(acc.x * p.scale, acc.y * p.scale);
+    if (p.rope_cos != nullptr) {
+      const int64_t t = n * p.rope_sn + (int64_t)s * HD + col;
+      g = rope_bwd_pair(g.x, g.y, p.rope_cos + t, p.rope_sin + t);
+    }
+    *reinterpret_cast<uint32_t*>(static_cast<T*>(p.dq) + b * p.dq_sb + n * p.dq_sn + s * p.dq_ss + col) =
+        Ops<T>::pack(g.x, g.y);
+  }
+}
+
+template <typename T, int HD, bool FUSED>
 cudaError_t launch_dkdv(const BwdParams& p, int batch, cudaStream_t stream) {
   constexpr int kN = block_n<HD>();
-  const size_t smem = (2 * kBlockM + 4 * kN) * (HD + 8) * sizeof(T) + 4 * kN * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const size_t smem = (2 * kBlockM + 4 * kN) * (HD + 8) * sizeof(T) + 4 * kN * sizeof(float) +
+                      (FUSED ? kBlockM * (kN + 8) * sizeof(T) : 0);
+  cudaError_t err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, HD, FUSED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seq_kv + kBlockM - 1) / kBlockM, p.heads, batch);
-  bwd_dkdv_kernel<T, HD><<<grid, kThreads, smem, stream>>>(p);
+  bwd_dkdv_kernel<T, HD, FUSED><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_dq_emit(const BwdParams& p, int batch, cudaStream_t stream) {
+  const int64_t blocks = ((int64_t)batch * p.heads * p.seq_q * (HD / 2) + 255) / 256;
+  dq_emit_kernel<T, HD><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(p, batch);
   return cudaGetLastError();
 }
 
@@ -542,10 +654,54 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v, const
   p.dk_sb = strides[12]; p.dk_sn = strides[13]; p.dk_ss = strides[14];
   p.dv_sb = strides[15]; p.dv_sn = strides[16]; p.dv_ss = strides[17];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_dkdv<__nv_bfloat16, 64>(p, batch, s);
-  if (dtype == 0 && head_dim == 128) return launch_dkdv<__nv_bfloat16, 128>(p, batch, s);
-  if (dtype == 1 && head_dim == 64) return launch_dkdv<__half, 64>(p, batch, s);
-  if (dtype == 1 && head_dim == 128) return launch_dkdv<__half, 128>(p, batch, s);
+  if (dtype == 0 && head_dim == 64) return launch_dkdv<__nv_bfloat16, 64, false>(p, batch, s);
+  if (dtype == 0 && head_dim == 128) return launch_dkdv<__nv_bfloat16, 128, false>(p, batch, s);
+  if (dtype == 1 && head_dim == 64) return launch_dkdv<__half, 64, false>(p, batch, s);
+  if (dtype == 1 && head_dim == 128) return launch_dkdv<__half, 128, false>(p, batch, s);
+  return cudaErrorInvalidValue;
+}
+
+// K5. strides: q, k, v, dO, dk, dv, each (batch, head, seq). dq_acc is an fp32
+// (B, N, Sq, H) contiguous buffer of zeros, which K5 adds into.
+extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                               const void* delta, const void* kv_lens, const void* rope_cos, const void* rope_sin,
+                               void* dk, void* dv, void* dq_acc, int batch, int heads, int seq_q, int seq_kv,
+                               int head_dim, int dtype, const int64_t* strides, int64_t rope_sn, void* stream) {
+  BwdParams p = make_params(q, k, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, heads, seq_q, seq_kv, strides,
+                            rope_sn);
+  p.dk = dk;
+  p.dv = dv;
+  p.dq_acc = static_cast<float*>(dq_acc);
+  p.dk_sb = strides[12]; p.dk_sn = strides[13]; p.dk_ss = strides[14];
+  p.dv_sb = strides[15]; p.dv_sn = strides[16]; p.dv_ss = strides[17];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && head_dim == 64) return launch_dkdv<__nv_bfloat16, 64, true>(p, batch, s);
+  if (dtype == 0 && head_dim == 128) return launch_dkdv<__nv_bfloat16, 128, true>(p, batch, s);
+  if (dtype == 1 && head_dim == 64) return launch_dkdv<__half, 64, true>(p, batch, s);
+  if (dtype == 1 && head_dim == 128) return launch_dkdv<__half, 128, true>(p, batch, s);
+  return cudaErrorInvalidValue;
+}
+
+// K5's emit: dq (strides of dq: batch, head, seq) = T(rope^T(scale * dq_acc))
+// with the (N or 1, Sq, H) tables when given.
+extern "C" int flash_bwd_dq_emit(const void* dq_acc, const void* rope_cos, const void* rope_sin, void* dq, int batch,
+                                 int heads, int seq_q, int head_dim, int dtype, int64_t dq_sb, int64_t dq_sn,
+                                 int64_t dq_ss, int64_t rope_sn, float scale, void* stream) {
+  BwdParams p = {};
+  p.dq_acc = static_cast<float*>(const_cast<void*>(dq_acc));
+  p.rope_cos = static_cast<const float*>(rope_cos);
+  p.rope_sin = static_cast<const float*>(rope_sin);
+  p.dq = dq;
+  p.heads = heads;
+  p.seq_q = seq_q;
+  p.dq_sb = dq_sb; p.dq_sn = dq_sn; p.dq_ss = dq_ss;
+  p.rope_sn = rope_sn;
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && head_dim == 64) return launch_dq_emit<__nv_bfloat16, 64>(p, batch, s);
+  if (dtype == 0 && head_dim == 128) return launch_dq_emit<__nv_bfloat16, 128>(p, batch, s);
+  if (dtype == 1 && head_dim == 64) return launch_dq_emit<__half, 64>(p, batch, s);
+  if (dtype == 1 && head_dim == 128) return launch_dq_emit<__half, 128>(p, batch, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,5 @@
-// Device helpers shared by the attention kernels (flash_fwd.cu: K1,
-// flash_bwd.cu: K2, K3, sage_fwd.cu: K6): the bf16/fp16 mma.sync m16n8k16
+// Device helpers shared by the attention kernels (flash_fwd.cu: K1, K7a-c,
+// flash_bwd.cu: K2, K3, K5, sage_fwd.cu: K6): the bf16/fp16 mma.sync m16n8k16
 // wrappers, ldmatrix, cp.async, the base-2 exponential and the fused
 // interleaved-pair RoPE. `ops/_build.py` hashes every header of csrc/ into each
 // library's name, so an edit here rebuilds them all.

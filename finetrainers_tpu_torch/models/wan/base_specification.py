@@ -1,5 +1,5 @@
-"""Wan 2.1 model specification: text-to-video serving (port of the T2V parts
-of `finetrainers_tpu/models/wan/base_specification.py`).
+"""Wan 2.1 model specification: text-to-video serving and the training forward
+(port of the T2V parts of `finetrainers_tpu/models/wan/base_specification.py`).
 
 Random weights only: no UMT5, Wan VAE or Wan transformer checkpoint exists
 for the port yet, so it serves with the offline components the JAX package
@@ -7,20 +7,22 @@ falls back to: `HashEncoder(4096, max_length=128)` for text (:85-88), the
 generic `AutoencoderKL3D` with `WAN_VAE_CONFIG` and identity latent statistics
 (:106-120), and flow-match Euler with shift 3 (:143, :161-163). A local
 checkpoint directory for any component raises NotImplementedError instead of
-being ignored. Image-to-video (`image_dim`, the CLIP-vision encoder) and the
-training `forward` are not ported yet (ROADMAP.md queue 1).
+being ignored. `forward` trains on precomputed VAE moments. Image-to-video
+(`image_dim`, the CLIP-vision encoder) and encoding media (`prepare_latents`)
+are not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ...functional.diffusion import flow_match_target, flow_match_xt
 from ...logging import get_logger
 from ...processors import CaptionTextDropoutProcessor, HashEncoder, T5Processor
 from ...schedulers import FlowMatchEulerScheduler, load_scheduler
-from ..autoencoders import WAN_VAE_CONFIG, AutoencoderConfig, generic_vae
+from ..autoencoders import WAN_VAE_CONFIG, AutoencoderConfig, generic_vae, sample_from_moments
 from ..layers import init_parameters_
 from ..modeling_utils import ModelHandle, ModelSpecification
 from .transformer import WanTransformer3DModel
@@ -122,9 +124,61 @@ class WanModelSpecification(ModelSpecification):
         }
 
     # ---------------------------------------------------------------- training
-    def forward(self, transformer: ModelHandle, condition_model_conditions: Dict[str, torch.Tensor],
-                latent_model_conditions: Dict[str, torch.Tensor], sigmas: torch.Tensor, **kwargs):
-        raise NotImplementedError("Wan training is not ported yet; see ROADMAP.md queue 1 (Wan LoRA training)")
+    @staticmethod
+    def _normalize_moments(moments: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+        """(x - mean) / std per channel on BOTH halves of the moments, mean and
+        log-variance alike (JAX :222-228, a quirk of the reference trainer)."""
+        mean, std = mean.reshape(1, -1, 1, 1, 1), std.reshape(1, -1, 1, 1, 1)
+        mu, logvar = moments.float().chunk(2, dim=1)
+        return torch.cat([(mu - mean) / std, (logvar - mean) / std], dim=1)
+
+    def forward(
+        self,
+        transformer: ModelHandle,
+        condition_model_conditions: Dict[str, torch.Tensor],
+        latent_model_conditions: Dict[str, torch.Tensor],
+        sigmas: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Dict[str, Any]] = None,
+        **kwargs,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Flow-matching training forward, text-to-video (JAX :230-266) -> (pred,
+        target, sigmas).
+
+        latent_model_conditions: "latents" (VAE moments (B, 2C, F, H, W)),
+        "latents_mean"/"latents_std" (C,). condition_model_conditions:
+        "encoder_hidden_states", optional "encoder_attention_mask". The moments
+        are normalised, then sampled; the two random draws of the JAX forward
+        are taken from `draws` where given, else from `generator`: "posterior"
+        and "noise" (standard normal, latent shape). One timestep per sample,
+        sigmas * 1000; the posterior is always sampled (`compute_posterior` is
+        forced False in the reference)."""
+        if self.is_i2v:
+            raise NotImplementedError("Wan image-to-video training is not ported yet; see ROADMAP.md queue 1 (Wan I2V)")
+        draws = draws or {}
+        device = sigmas.device
+
+        def draw(name, shape):
+            value = draws.get(name)
+            if value is None:
+                return torch.randn(shape, generator=generator, device=device)
+            return torch.as_tensor(value).to(device).float()
+
+        moments = self._normalize_moments(latent_model_conditions["latents"].to(device),
+                                          latent_model_conditions["latents_mean"].to(device),
+                                          latent_model_conditions["latents_std"].to(device))
+        shape = (moments.shape[0], moments.shape[1] // 2, *moments.shape[2:])
+        latents = sample_from_moments(moments, noise=draw("posterior", shape))
+        noise = draw("noise", latents.shape)
+        noisy = flow_match_xt(latents, noise, sigmas.reshape(-1, 1, 1, 1, 1))
+        mask = condition_model_conditions.get("encoder_attention_mask")
+        pred = transformer.module(
+            noisy.to(self.transformer_dtype),
+            condition_model_conditions["encoder_hidden_states"].to(device),
+            sigmas * 1000.0,
+            encoder_attention_mask=None if mask is None else mask.to(device),
+        )
+        return pred, flow_match_target(noise, latents), sigmas
 
     # -------------------------------------------------------------- validation
     def validation(self, pipeline, prompt: str, image=None, height: int = 480, width: int = 832,

@@ -1,38 +1,56 @@
-"""Flash attention on the H100: K1 (forward), K2/K3 (backward) and the autograd
-glue K4, each beside its plain PyTorch version.
+"""Flash attention on the H100: K1 (forward) and its variants K7a-c, K2/K3
+(backward) and the fused backward K5, and the autograd glue K4, each kernel
+beside its plain PyTorch version.
 
 Counterpart of `finetrainers_tpu/ops/flash_attention.py`: the Pallas
-`_fwd_kernel` becomes the CUDA kernel in `csrc/flash_fwd.cu`; `_bwd_dkdv_kernel`
-and `_bwd_dq_kernel` become the CUDA kernels in `csrc/flash_bwd.cu`, with a
-pre-pass there that rotates and scales q and k once per call; all are built by
-`ops/_build.py`.
+`_fwd_kernel` (with its `two_level` branch), `_fwd_kernel_twopass` and
+`_fwd_kernel_skew` become the CUDA kernels in `csrc/flash_fwd.cu`;
+`_bwd_dkdv_kernel`, `_bwd_dq_kernel` and `_bwd_fused_kernel` become the CUDA
+kernels in `csrc/flash_bwd.cu`, with a pre-pass there that rotates and scales q
+and k once per call; all are built by `ops/_build.py`.
 
   - `flash_forward(q, k, v, ...)` works on BNSH tensors and returns
     `(out, lse)`, like `_flash_forward`. On a CUDA tensor it launches K1,
     after checking device, dtype, shape and strides, or raises; on a CPU
-    tensor it computes `flash_attention_reference`.
+    tensor it computes `flash_attention_reference`. Like `_flash_forward`, it
+    reads three switches at call time, with the JAX package's precedence:
+    FINETRAINERS_FLASH_SKEW=1 takes K7b (`flash_forward_skew`) for calls
+    without RoPE tables, else FINETRAINERS_FLASH_TWOPASS=1 takes K7a
+    (`flash_forward_twopass`), else FINETRAINERS_FLASH_TWOLEVEL=1 takes K7c
+    (`flash_forward_two_level`).
   - `flash_backward(q, k, v, out, lse, do, ...)` returns `(dq, dk, dv)`, like
     `_flash_backward`, from a caller-given LSE. On a CUDA tensor it launches
     the pre-pass, K2 and K3 after the same checks, or raises; on a CPU tensor
-    it computes `flash_backward_reference`.
+    it computes `flash_backward_reference`. With
+    FINETRAINERS_FLASH_FUSED_BWD=1 it launches the pre-pass, K5
+    (`flash_bwd_fused`) and its dq emit instead, or computes
+    `flash_backward_fused_reference` on a CPU tensor. The JAX package takes K5
+    only while its full-length dq accumulator fits VMEM
+    (`q_pad * head_dim * 6 <= 3 MB`); K5's accumulator lives in device memory
+    here, so the switch alone decides.
   - `FlashAttentionFunction` (K4) is the `torch.autograd.Function` joining
     them, the counterpart of the `jax.custom_vjp` `_flash_mha`.
   - `flash_attention(query, key, value, ...)` is the BTNH interface of the JAX
     package's `flash_attention`, including its RoPE table conventions; it goes
-    through K4 on every device, so its backward is K2/K3 (or their plain
-    version on the CPU), never autograd through the forward's math.
+    through K4 on every device, so its backward is K2/K3 or K5 (or their plain
+    versions on the CPU), never autograd through the forward's math.
   - `flash_attention_reference` / `flash_backward_reference` are the plain
     fp32 math of the kernels: the same base-2 softmax, cast points, masking and
-    natural-log LSE.
+    natural-log LSE. The `*_twopass`, `*_skew`, `*_two_level` and
+    `flash_backward_fused_reference` versions follow their kernel's recurrence
+    over kv tiles of the kernel's width (64 keys).
 
-Each kernel wrapper keeps a `launches` count (`flash_forward`, `flash_bwd_prep`,
-`flash_bwd_dkdv`, `flash_bwd_dq`) of kernel launches, never of reference calls,
-so a run can show that its attention went through the kernels.
+Each kernel wrapper keeps a `launches` count (`flash_forward`,
+`flash_forward_two_level`, `flash_forward_twopass`, `flash_forward_skew`,
+`flash_bwd_prep`, `flash_bwd_dkdv`, `flash_bwd_dq`, `flash_bwd_fused`,
+`flash_bwd_dq_emit`) of kernel launches, never of reference calls, so a run can
+show that its attention went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -44,6 +62,25 @@ _LN2 = 0.6931471805599453
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
+_BLOCK_KV = 64  # the kv tile of every kernel here: K1/K7's inner loop, K2/K5's CTA
+
+
+def _switch(name: str) -> bool:
+    """Whether the JAX package's switch `name` is set to "1", read per call."""
+    return os.environ.get(name, "0") == "1"
+
+
+def forward_variant(has_rope: bool):
+    """The forward variant the switches pick for a call (`_flash_forward`'s gates,
+    :724-733, :816): `flash_forward_skew` (never with RoPE tables), then
+    `flash_forward_twopass`, then `flash_forward_two_level`, else None (K1)."""
+    if _switch("FINETRAINERS_FLASH_SKEW") and not has_rope:
+        return flash_forward_skew
+    if _switch("FINETRAINERS_FLASH_TWOPASS"):
+        return flash_forward_twopass
+    if _switch("FINETRAINERS_FLASH_TWOLEVEL"):
+        return flash_forward_two_level
+    return None
 
 
 def _rotate_pairs(x: torch.Tensor) -> torch.Tensor:
@@ -83,6 +120,12 @@ def flash_bwd_prep_reference(q, k, rope_cos, rope_sin, scale):
     return (qf * (scale * _LOG2E)).to(q.dtype).float(), kf.to(k.dtype).float()
 
 
+def _finish(acc, m, l, dtype):
+    """(acc / l in `dtype`, natural-log LSE m*ln2 + log l); a row with l == 0 gives 0."""
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l_safe).to(dtype), (m * _LN2 + torch.log(l_safe)).squeeze(-1)
+
+
 def flash_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -104,11 +147,7 @@ def flash_attention_reference(
     s = s.masked_fill(~valid, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m) * valid
-    l = p.sum(dim=-1, keepdim=True)
-    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    out = (p @ v.float()) / l_safe
-    lse = (m * _LN2 + torch.log(l_safe)).squeeze(-1)
-    return out.to(q.dtype), lse
+    return _finish(p @ v.float(), m, p.sum(dim=-1, keepdim=True), q.dtype)
 
 
 def flash_backward_reference(
@@ -147,6 +186,125 @@ def flash_backward_reference(
     ds = (p * (dp - delta[..., None]).to(dtype).float()).to(dtype).float()
     dk = (ds.transpose(-1, -2) @ qs) * _LN2
     dq = (ds @ kr) * scale
+    if rope_cos is not None:
+        dk = _rope_bwd(dk, rope_cos, rope_sin)
+        dq = _rope_bwd(dq, rope_cos, rope_sin)
+    return dq.to(dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale):
+    """(q_s, [(k_r tile, v tile, valid-key tile) for each 64-key tile]) for the
+    tiled plain versions; the tiles are fp32 except v, kept in its dtype."""
+    batch, _, _, head_dim = q.shape
+    scale = head_dim**-0.5 if scale is None else scale
+    qs, kr = flash_bwd_prep_reference(q, k, rope_cos, rope_sin, scale)
+    valid = _valid_keys(kv_lens, batch, k.shape[2], q.device)
+    return qs, [(kr[:, :, k0:k0 + _BLOCK_KV], v[:, :, k0:k0 + _BLOCK_KV], valid[..., k0:k0 + _BLOCK_KV])
+                for k0 in range(0, k.shape[2], _BLOCK_KV)]
+
+
+def _pv(p: torch.Tensor, v_tile: torch.Tensor) -> torch.Tensor:
+    """p v with p rounded to v's dtype first, as the kernels feed their P V product."""
+    return p.to(v_tile.dtype).float() @ v_tile.float()
+
+
+def _running_state(q):
+    batch, heads, seq_q, head_dim = q.shape
+    m = torch.full((batch, heads, seq_q, 1), _NEG_INF, device=q.device)
+    return m, torch.zeros_like(m), torch.zeros((batch, heads, seq_q, head_dim), device=q.device)
+
+
+def flash_forward_two_level_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
+    """Plain version of K7c (`_fwd_kernel`'s `two_level` branch): per 64-key
+    tile, p = exp2(s - m_cur) against the tile's own max, beta = exp2(m_cur -
+    m_new), l = l*alpha + rowsum(p)*beta, acc = acc*alpha + (p v)*beta.
+    Arguments and result as `flash_attention_reference`."""
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+    m, l, acc = _running_state(q)
+    for kr, vt, valid in tiles:
+        s = (qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF)
+        m_cur = s.amax(dim=-1, keepdim=True)
+        m_new = torch.maximum(m, m_cur)
+        alpha, beta = torch.exp2(m - m_new), torch.exp2(m_cur - m_new)
+        p = torch.where(valid, torch.exp2(s - m_cur), torch.zeros_like(s))
+        l = l * alpha + p.sum(dim=-1, keepdim=True) * beta
+        acc = acc * alpha + _pv(p, vt) * beta
+        m = m_new
+    return _finish(acc, m, l, q.dtype)
+
+
+def flash_forward_twopass_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
+    """Plain version of K7a (`_fwd_kernel_twopass`): a first sweep over the
+    64-key tiles takes the row max; a second accumulates p = exp2(s - m) against
+    that final max with no rescale (a row with no valid key selects p to 0).
+    Arguments and result as `flash_attention_reference`."""
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+    m, l, acc = _running_state(q)
+    for kr, _, valid in tiles:
+        m = torch.maximum(m, (qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF).amax(dim=-1, keepdim=True))
+    for kr, vt, valid in tiles:
+        s = (qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF)
+        p = torch.where(valid, torch.exp2(s - m), torch.zeros_like(s))
+        l = l + p.sum(dim=-1, keepdim=True)
+        acc = acc + _pv(p, vt)
+    return _finish(acc, m, l, q.dtype)
+
+
+def flash_forward_skew_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
+    """Plain version of K7b (`_fwd_kernel_skew`): K1's online-softmax step on
+    each 64-key tile in turn, after a first step on a dummy tile of 2*(-1e30)
+    (p = 0, alpha = 1); masked entries are recovered from the stored scores
+    (`s > 0.5 * -1e30`). Arguments and result as `flash_attention_reference`."""
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+    m, l, acc = _running_state(q)
+    dummy = torch.full(qs.shape[:-1] + (1,), 2.0 * _NEG_INF, device=q.device)
+    steps = [(dummy, None)] + [((qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF), vt)
+                               for kr, vt, valid in tiles]
+    for s, vt in steps:
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(s > 0.5 * _NEG_INF, torch.exp2(s - m_new), torch.zeros_like(s))
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + (0.0 if vt is None else _pv(p, vt))
+        m = m_new
+    return _finish(acc, m, l, q.dtype)
+
+
+def flash_backward_fused_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    kv_lens: Optional[torch.Tensor] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    delta: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K5 (`_bwd_fused_kernel`): `flash_backward_reference`'s
+    quantities at its rounding points, computed once per 64-key tile, with each
+    tile's ds k_r added into an fp32 dq accumulator, as K5 adds them. Arguments
+    and result as `flash_backward_reference`."""
+    dtype = q.dtype
+    scale = q.shape[-1]**-0.5 if scale is None else scale
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+    dof = do.float()
+    if delta is None:
+        delta = (dof * out.float()).sum(-1)
+    lse2 = (lse * _LOG2E)[..., None]
+    dq_acc = torch.zeros(qs.shape, device=q.device)
+    dks, dvs = [], []
+    for kr, vt, valid in tiles:
+        p = torch.exp2(qs @ kr.transpose(-1, -2) - lse2).to(dtype).float()
+        p = torch.where(valid, p, torch.zeros_like(p))
+        dvs.append(p.transpose(-1, -2) @ dof)
+        dp = dof @ vt.float().transpose(-1, -2)
+        ds = (p * (dp - delta[..., None]).to(dtype).float()).to(dtype).float()
+        dks.append((ds.transpose(-1, -2) @ qs) * _LN2)
+        dq_acc = dq_acc + ds @ kr
+    dk, dv, dq = torch.cat(dks, dim=2), torch.cat(dvs, dim=2), dq_acc * scale
     if rope_cos is not None:
         dk = _rope_bwd(dk, rope_cos, rope_sin)
         dq = _rope_bwd(dq, rope_cos, rope_sin)
@@ -248,14 +406,29 @@ def flash_forward(
     rope_sin: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 on BNSH tensors -> (out (B, N, Sq, H) in q's dtype, lse (B, N, Sq) fp32).
+    """K1 on BNSH tensors -> (out (B, N, Sq, H) in q's dtype, lse (B, N, Sq) fp32),
+    or K7a/b/c where a switch picks them (`forward_variant`).
 
     The kernel takes bf16 or fp16 with H in {64, 128} and any sequence lengths;
     fused RoPE needs Sq == Skv and (N or 1, S, H) fp32 tables. `out` is a BNSH
     view of a BTNH-contiguous buffer, so `out.transpose(1, 2)` is contiguous."""
+    variant = forward_variant(rope_cos is not None)
+    if variant is not None:
+        return variant(q, k, v, kv_lens, rope_cos, rope_sin, scale)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_lens, rope_cos, rope_sin, scale)
-    kv_lens, rope_sn = _check_kernel_call("flash_forward", q, k, v, kv_lens, rope_cos, rope_sin)
+    out = _forward_kernel("flash_forward", 0, q, k, v, kv_lens, rope_cos, rope_sin, scale)
+    flash_forward.launches += 1
+    return out
+
+
+flash_forward.launches = 0
+
+
+def _forward_kernel(fn_name, variant, q, k, v, kv_lens, rope_cos, rope_sin, scale):
+    """Check a forward call and launch kernel `variant` of `csrc/flash_fwd.cu`
+    (the C entry point's code: 0 K1, 1 K7c, 2 K7a, 3 K7b)."""
+    kv_lens, rope_sn = _check_kernel_call(fn_name, q, k, v, kv_lens, rope_cos, rope_sin)
     batch, heads, seq_q, head_dim = q.shape
     seq_kv = k.shape[2]
     scale = head_dim**-0.5 if scale is None else float(scale)
@@ -263,20 +436,48 @@ def flash_forward(
     out = _btnh_like(q)
     lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q.device)
     fn = _kernel("flash_fwd", "flash_fwd",
-                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 13 + [ctypes.c_float, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 13 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         _launch(
             fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _ptr(kv_lens), _ptr(rope_cos), _ptr(rope_sin),
-            batch, heads, seq_q, seq_kv, head_dim, _DTYPE_CODES[q.dtype],
+            batch, heads, seq_q, seq_kv, head_dim, _DTYPE_CODES[q.dtype], variant,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             rope_sn, scale * _LOG2E, _stream(q.device),
         )
-    flash_forward.launches += 1
     return out, lse
 
 
-flash_forward.launches = 0
+def _forward_variant(name: str, variant: int, plain: str, takes_rope: bool, doc: str):
+    """A K7 wrapper: on a CPU tensor the plain version named `plain` (looked up
+    per call), else kernel `variant` of `csrc/flash_fwd.cu`, counted in its own
+    `launches`. Without `takes_rope` it refuses RoPE tables."""
+
+    def wrapper(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
+        if rope_cos is not None and not takes_rope:
+            raise ValueError(f"{name}: this kernel takes no RoPE tables")
+        if q.device.type == "cpu":
+            return globals()[plain](q, k, v, kv_lens, rope_cos, rope_sin, scale)
+        out = _forward_kernel(name, variant, q, k, v, kv_lens, rope_cos, rope_sin, scale)
+        wrapper.launches += 1
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = doc
+    wrapper.launches = 0
+    return wrapper
+
+
+flash_forward_two_level = _forward_variant(
+    "flash_forward_two_level", 1, "flash_forward_two_level_reference", True,
+    "K7c: `flash_forward`'s function through the two-level recurrence. Takes what K1 takes.")
+flash_forward_twopass = _forward_variant(
+    "flash_forward_twopass", 2, "flash_forward_twopass_reference", True,
+    "K7a: `flash_forward`'s function in two passes (max, then accumulate). Takes what K1 takes.")
+flash_forward_skew = _forward_variant(
+    "flash_forward_skew", 3, "flash_forward_skew_reference", False,
+    "K7b: `flash_forward`'s function, software-pipelined. Takes what K1 takes except RoPE tables "
+    "(the JAX package gates the skewed kernel off RoPE; `flash_forward` sends such calls to K1).")
 
 
 def flash_bwd_prep(q, k, rope_cos, rope_sin, rope_sn: int, scale: float):
@@ -349,6 +550,51 @@ def flash_bwd_dq(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_
 flash_bwd_dq.launches = 0
 
 
+def flash_bwd_fused(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn: int):
+    """K5 on operands `flash_backward` has checked, with q_s/k_r from
+    `flash_bwd_prep`: (dq_acc, dk, dv), dq_acc the fp32 (B, N, Sq, H) sum of
+    ds k_r before the scale and the transpose rotation (`flash_bwd_dq_emit`),
+    dk and dv BNSH views of BTNH-contiguous buffers."""
+    batch, heads, seq_q, head_dim = q_s.shape
+    dk, dv = _btnh_like(k_r), _btnh_like(v)
+    dq_acc = torch.zeros((batch, heads, seq_q, head_dim), dtype=torch.float32, device=q_s.device)
+    fn = _kernel("flash_bwd", "flash_bwd_fused",
+                 _BWD_ARGTYPES + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_void_p])
+    strides = _strides(q_s, k_r, v, do, dk, dv)
+    with torch.cuda.device(q_s.device):
+        _launch(
+            fn, q_s.data_ptr(), k_r.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _ptr(kv_lens), _ptr(rope_cos), _ptr(rope_sin), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
+            batch, heads, seq_q, k_r.shape[2], head_dim, _DTYPE_CODES[q_s.dtype], strides, rope_sn,
+            _stream(q_s.device),
+        )
+    flash_bwd_fused.launches += 1
+    return dq_acc, dk, dv
+
+
+flash_bwd_fused.launches = 0
+
+
+def flash_bwd_dq_emit(dq_acc, rope_cos, rope_sin, rope_sn: int, scale: float, dtype: torch.dtype):
+    """K5's emit: dq = rope^T(scale * dq_acc) in `dtype`, a BNSH view of a
+    BTNH-contiguous buffer."""
+    batch, heads, seq_q, head_dim = dq_acc.shape
+    dq = torch.empty((batch, seq_q, heads, head_dim), dtype=dtype, device=dq_acc.device).transpose(1, 2)
+    fn = _kernel("flash_bwd", "flash_bwd_dq_emit",
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(dq_acc.device):
+        _launch(
+            fn, dq_acc.data_ptr(), _ptr(rope_cos), _ptr(rope_sin), dq.data_ptr(), batch, heads, seq_q, head_dim,
+            _DTYPE_CODES[dtype], *dq.stride()[:3], rope_sn, scale, _stream(dq_acc.device),
+        )
+    flash_bwd_dq_emit.launches += 1
+    return dq
+
+
+flash_bwd_dq_emit.launches = 0
+
+
 def flash_backward(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -363,14 +609,17 @@ def flash_backward(
     delta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2 and K3 on BNSH tensors -> (dq, dk, dv), from the forward's `out`, a
-    caller-given natural-log `lse` (B, N, Sq) fp32 and the output gradient `do`.
+    caller-given natural-log `lse` (B, N, Sq) fp32 and the output gradient `do`;
+    with FINETRAINERS_FLASH_FUSED_BWD=1, K5 and its dq emit instead.
 
     Takes what K1 takes (bf16/fp16, H in {64, 128}, any sequence lengths,
     `kv_lens`, fused RoPE from (N or 1, S, H) fp32 tables with Sq == Skv).
     delta = rowsum(dO * out) in fp32 is computed here in plain PyTorch unless
     given. dq, dk, dv are BNSH views of BTNH-contiguous buffers."""
+    fused = _switch("FINETRAINERS_FLASH_FUSED_BWD")
     if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, out, lse, do, kv_lens, rope_cos, rope_sin, scale, delta)
+        reference = flash_backward_fused_reference if fused else flash_backward_reference
+        return reference(q, k, v, out, lse, do, kv_lens, rope_cos, rope_sin, scale, delta)
     kv_lens, rope_sn = _check_kernel_call("flash_backward", q, k, v, kv_lens, rope_cos, rope_sin)
     if tuple(do.shape) != tuple(q.shape) or do.device != q.device or do.dtype != q.dtype:
         raise ValueError(f"flash_backward: do must match q, got {tuple(do.shape)} {do.dtype} on {do.device}")
@@ -387,6 +636,9 @@ def flash_backward(
     if delta is None:
         delta = (do.float() * out.float()).sum(-1)
     q_s, k_r = flash_bwd_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
+    if fused:
+        dq_acc, dk, dv = flash_bwd_fused(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn)
+        return flash_bwd_dq_emit(dq_acc, rope_cos, rope_sin, rope_sn, scale, q.dtype), dk, dv
     dk, dv = flash_bwd_dkdv(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn)
     dq = flash_bwd_dq(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn, scale)
     return dq, dk, dv

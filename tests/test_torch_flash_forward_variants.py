@@ -1,0 +1,121 @@
+"""K7a/b/c parity: the port's plain versions of the forward variants against the
+JAX Pallas kernels under the same switch.
+
+FINETRAINERS_FLASH_TWOPASS, _SKEW and _TWOLEVEL make the JAX `flash_attention`
+run `_fwd_kernel_twopass`, `_fwd_kernel_skew` or `_fwd_kernel`'s `two_level`
+branch in interpret mode on the CPU (called unjitted, with the switch set by
+`monkeypatch`); under the same switch the port's `flash_attention` takes
+`flash_forward_twopass_reference`, `..._skew_reference` or
+`..._two_level_reference` for CPU tensors. Cases as the JAX package's
+`TestForwardKernelVariants`: plain, `kv_lens`, H=128, H=128 with `kv_lens`,
+over 150 keys (three of the port's 64-key tiles, the last ragged; 32-key
+blocks on the JAX side); then RoPE with per-head and shared tables for the
+two-pass and two-level kernels, and the skew gate. fp32, compared at atol 2e-5,
+rtol 1e-5, as K1 (the variants reorder fp32 arithmetic: block-local maxima,
+no rescale, another tiling).
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_flash_attention import _j, _ltx_tables, _shared_tables, _t
+
+from finetrainers_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+from finetrainers_tpu_torch.ops.flash_attention import flash_attention, forward_variant
+
+torch.set_num_threads(1)
+port_flash_ops = importlib.import_module("finetrainers_tpu_torch.ops.flash_attention")
+
+ATOL, RTOL = 2e-5, 1e-5
+# switch -> the plain version the port's CPU calls take under it
+VARIANTS = {
+    "FINETRAINERS_FLASH_SKEW": "flash_forward_skew_reference",
+    "FINETRAINERS_FLASH_TWOLEVEL": "flash_forward_two_level_reference",
+    "FINETRAINERS_FLASH_TWOPASS": "flash_forward_twopass_reference",
+}
+
+
+@pytest.fixture
+def switch(monkeypatch):
+    """Set one switch (clearing the others) and count the calls of the plain
+    version it picks."""
+    calls = []
+
+    def set_switch(env):
+        for name in VARIANTS:
+            monkeypatch.delenv(name, raising=False)
+        if env is not None:
+            monkeypatch.setenv(env, "1")
+            plain = getattr(port_flash_ops, VARIANTS[env])
+            monkeypatch.setattr(port_flash_ops, VARIANTS[env], lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+        return calls
+
+    return set_switch
+
+
+def _run_both(h=64, kv_lens=None, rope=None, s=150):
+    rng = np.random.RandomState(7)
+    b, n = 2, 3
+    q, k, v = (rng.randn(b, s, n, h).astype(np.float32) for _ in range(3))
+    cos = sin = None
+    if rope == "per_head":
+        cos, sin = _ltx_tables(n, h, (2, 3, s // 6))
+    elif rope == "shared":
+        cos, sin = _shared_tables(s, h, rng)
+    lens = None if kv_lens is None else np.asarray(kv_lens, np.int32)
+    ref = jax_flash_attention(_j(q), _j(k), _j(v), kv_lens=_j(lens), rope_cos=_j(cos), rope_sin=_j(sin),
+                              block_q=32, block_kv=32)
+    out = flash_attention(_t(q), _t(k), _t(v), kv_lens=_t(lens), rope_cos=_t(cos), rope_sin=_t(sin))
+    return out.numpy(), np.asarray(ref)
+
+
+@pytest.mark.parametrize("env", sorted(VARIANTS))
+@pytest.mark.parametrize("kw", [{}, {"kv_lens": [133, 17]}, {"h": 128}, {"h": 128, "kv_lens": [133, 0]}],
+                         ids=["plain", "kv_lens", "h128", "h128_kv_lens"])
+def test_variant_matches_jax(env, kw, switch):
+    calls = switch(env)
+    out, ref = _run_both(**kw)
+    assert calls == [1], f"{env} did not take {VARIANTS[env]}"
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+    if kw.get("kv_lens") and 0 in kw["kv_lens"]:
+        assert not out[kw["kv_lens"].index(0)].any()
+
+
+@pytest.mark.parametrize("env", ["FINETRAINERS_FLASH_TWOPASS", "FINETRAINERS_FLASH_TWOLEVEL"])
+@pytest.mark.parametrize("rope,h", [("per_head", 64), ("shared", 128)], ids=["per_head_tables", "shared_tables"])
+def test_variant_with_rope_matches_jax(env, rope, h, switch):
+    calls = switch(env)
+    out, ref = _run_both(h=h, rope=rope)
+    assert calls == [1]
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("rope", ["per_head", "shared"])
+def test_skew_is_gated_off_rope(rope, switch):
+    """With RoPE tables the skew switch leaves the straight kernel (K1's plain
+    version) in place, bit-equal to the unswitched call, as in JAX."""
+    calls = switch("FINETRAINERS_FLASH_SKEW")
+    assert forward_variant(has_rope=True) is None
+    assert forward_variant(has_rope=False) is port_flash_ops.flash_forward_skew
+    skewed, ref = _run_both(rope=rope, s=96)
+    assert calls == []
+    switch(None)
+    straight, _ = _run_both(rope=rope, s=96)
+    np.testing.assert_array_equal(skewed, straight)
+    np.testing.assert_allclose(skewed, ref, atol=ATOL, rtol=RTOL)
+
+
+def test_switch_precedence(switch, monkeypatch):
+    """Skew, then two-pass, then two-level, as `_flash_forward` reads them."""
+    switch(None)
+    assert forward_variant(False) is None
+    monkeypatch.setenv("FINETRAINERS_FLASH_TWOLEVEL", "1")
+    assert forward_variant(False) is port_flash_ops.flash_forward_two_level
+    monkeypatch.setenv("FINETRAINERS_FLASH_TWOPASS", "1")
+    assert forward_variant(False) is port_flash_ops.flash_forward_twopass
+    monkeypatch.setenv("FINETRAINERS_FLASH_SKEW", "1")
+    assert forward_variant(False) is port_flash_ops.flash_forward_skew
+    assert forward_variant(True) is port_flash_ops.flash_forward_twopass

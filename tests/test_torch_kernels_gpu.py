@@ -14,11 +14,20 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     FlashAttentionFunction,
     flash_attention_reference,
     flash_backward,
+    flash_backward_fused_reference,
     flash_backward_reference,
     flash_bwd_dkdv,
     flash_bwd_dq,
+    flash_bwd_dq_emit,
+    flash_bwd_fused,
     flash_bwd_prep,
     flash_forward,
+    flash_forward_skew,
+    flash_forward_skew_reference,
+    flash_forward_two_level,
+    flash_forward_two_level_reference,
+    flash_forward_twopass,
+    flash_forward_twopass_reference,
 )
 from finetrainers_tpu_torch.ops.sage_attention import sage_attention_reference, sage_forward, sage_quantize
 
@@ -178,6 +187,98 @@ def test_flash_backward_rejects_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="Sq == Skv"):
         flash_backward(q, k, k, q, lse, q, rope_cos=cos, rope_sin=cos)
     assert (flash_bwd_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches) == before
+
+
+_VARIANTS = {
+    "two_level": (flash_forward_two_level, flash_forward_two_level_reference),
+    "twopass": (flash_forward_twopass, flash_forward_twopass_reference),
+    "skew": (flash_forward_skew, flash_forward_skew_reference),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", sorted(_VARIANTS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_forward_variant_kernels_match_reference(variant, dtype):
+    """K7a/b/c against their own plain versions and against K1's, with K1's
+    bounds (the skewed kernel takes no RoPE tables: its cases drop them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    kernel, reference = _VARIANTS[variant]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for b, n, sq, skv, h, rope, lens in CASES:
+        if variant == "skew":
+            rope = None
+        q, k, v = (torch.randn(b, s, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   for s in (sq, skv, skv))
+        kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cos, sin = _tables(rope, n, sq, h, g)
+        before = kernel.launches
+        out, lse = kernel(q, k, v, kv_lens, cos, sin)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for ref_out, ref_lse in (reference(q, k, v, kv_lens, cos, sin), flash_attention_reference(q, k, v, kv_lens,
+                                                                                                  cos, sin)):
+            torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2, rtol=2e-2)
+            torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+        if lens is not None and 0 in lens:
+            assert not out[lens.index(0)].any()
+
+
+@pytest.mark.gpu
+def test_forward_switches_pick_the_kernel(monkeypatch):
+    """Each switch sends `flash_forward` to its kernel, with the JAX package's
+    precedence; FINETRAINERS_FLASH_SKEW with RoPE tables stays on K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q = torch.randn(1, 2, 100, 64, device="cuda").to(torch.bfloat16)
+    cos = torch.ones(1, 100, 64, device="cuda")
+    sin = torch.zeros(1, 100, 64, device="cuda")
+    counters = (flash_forward, flash_forward_two_level, flash_forward_twopass, flash_forward_skew)
+    for env, tables, launched in (
+        ("FINETRAINERS_FLASH_TWOLEVEL", False, flash_forward_two_level),
+        ("FINETRAINERS_FLASH_TWOPASS", True, flash_forward_twopass),
+        ("FINETRAINERS_FLASH_SKEW", False, flash_forward_skew),
+        ("FINETRAINERS_FLASH_SKEW", True, flash_forward),
+    ):
+        monkeypatch.setenv(env, "1")
+        before = [c.launches for c in counters]
+        flash_forward(q, q, q, None, *((cos, sin) if tables else (None, None)))
+        assert [c.launches - n for c, n in zip(counters, before)] == [int(c is launched) for c in counters], env
+        monkeypatch.delenv(env)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fused_backward_kernel_matches_reference(dtype, monkeypatch):
+    """K5 and its dq emit (after the pre-pass) against
+    `flash_backward_fused_reference`, with K2/K3's bounds; K5 adds dq with
+    atomics, so dq's fp32 sum order varies from run to run within them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    monkeypatch.setenv("FINETRAINERS_FLASH_FUSED_BWD", "1")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for b, n, sq, skv, h, rope, lens in CASES:
+        q, k, v = (torch.randn(b, s, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   for s in (sq, skv, skv))
+        kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cos, sin = _tables(rope, n, sq, h, g)
+        out, lse = flash_forward(q, k, v, kv_lens, cos, sin)
+        do = torch.randn(b, sq, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2)
+        counters = (flash_bwd_prep, flash_bwd_dkdv, flash_bwd_dq, flash_bwd_fused, flash_bwd_dq_emit)
+        before = [c.launches for c in counters]
+        grads = flash_backward(q, k, v, out, lse, do, kv_lens, cos, sin)
+        torch.cuda.synchronize()
+        assert [c.launches - n_ for c, n_ in zip(counters, before)] == [1, 0, 0, 1, 1]
+        refs = flash_backward_fused_reference(q, k, v, out, lse, do, kv_lens, cos, sin)
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            assert got.dtype == dtype and got.shape == ref.shape
+            assert torch.isfinite(got).all(), (name, b, n, sq, skv, h, rope, lens)
+            rel_l2, max_ratio = _rel_errors(got, ref)
+            assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, b, n, sq, skv, h, rope, lens, rel_l2, max_ratio)
+        if lens is not None and 0 in lens:
+            empty = lens.index(0)
+            assert not grads[0][empty].any() and not grads[1][empty].any() and not grads[2][empty].any()
 
 
 # (B, N, Sq, Skv, H, kv_lens): Wan-like H=128 self-attention, cross-attention over

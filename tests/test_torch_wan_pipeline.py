@@ -120,8 +120,9 @@ def test_image_to_video_and_control_are_not_ported(pipelines):
     for extra in (dict(image=np.zeros((16, 24, 3), np.uint8)), dict(control_video=np.zeros((5, 16, 24, 3), np.uint8))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_pipe(**REQUEST, **extra)
+    i2v_spec = WanModelSpecification(transformer_config={**TINY, "image_dim": 32}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_pipe.spec.forward(None, {}, {}, torch.zeros(1))
+        i2v_spec.forward(None, {}, {}, torch.zeros(1))
 
 
 def test_registry_resolves_wan_and_spec_serves_offline():
