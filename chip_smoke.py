@@ -8,11 +8,18 @@ every kernel switch of the flash attention.
 Phases, each printed on its own line:
   1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
   2. the nvcc builds of the hand-written kernels, one process per source, all
-     started together: K1 and K7a/b/c (`csrc/flash_fwd.cu`), K2, K3, K5, K5's
-     dq emit and their pre-pass (`csrc/flash_bwd.cu`) and K6
-     (`csrc/sage_fwd.cu`), timed, with ptxas' register and spill lines;
-  3. K1 against its plain PyTorch version (`flash_attention_reference`) in bf16
-     at the LTX serving path's shapes, with errors and median CUDA-event times;
+     started together: K1 (`csrc/flash_fwd_sm90.cu`, wgmma and TMA), K7a/b/c
+     (`csrc/flash_fwd.cu`), K2, K3, K5, K5's dq emit and the pre-pass that
+     every forward but K7b and every backward runs first
+     (`csrc/flash_bwd.cu`) and K6 (`csrc/sage_fwd.cu`), timed, with ptxas'
+     register, spill and warning lines;
+  3. K1 against its plain PyTorch version (`flash_forward_core_reference` on
+     the pre-pass's operands) and the pre-pass plus K1 (`flash_forward`)
+     against `flash_attention_reference`, in bf16, at the LTX serving path's
+     shapes (self-attention with per-head tables, cross-attention with
+     kv_lens, a ragged case with an empty row whose k/v rows past kv_lens hold
+     large values) and Wan's cross-attention shapes, with errors and median
+     CUDA-event times of K1 alone and of the pre-pass;
   4. K2, K3 and the pre-pass against `flash_backward_reference` in bf16 at the
      training path's shapes (LTX self-attention with per-head RoPE tables,
      cross-attention with kv_lens, a ragged case with an empty row, H=128 with
@@ -25,7 +32,7 @@ Phases, each printed on its own line:
      on the CPU; times of K6, the pre-pass and the plain version, the bound and
      torch SDPA as a yardstick; then K1 at Wan's self-attention shape (H=128,
      one (S, H) table pair shared by every head) against its plain version,
-     run head by head;
+     run head by head, timed alone and with its pre-pass;
   5b. K5 and its dq emit against K5's plain version and against K2+K3 (pre-pass
      included) at LTX's train self-attention with per-head tables, LTX's
      cross-attention, a ragged case with an empty row and Wan's training
@@ -37,22 +44,26 @@ Phases, each printed on its own line:
      cross-attention (512 keys, kv_lens) and a ragged case with an empty row;
   6. LTX serving through the user entry points: the full-width LTX spec (random
      weights from a seeded generator, bf16) serves 2 prompts at 49x512x768 with
-     CFG 3.0; checks the videos and that K1 was launched 2*28*steps*requests times;
+     CFG 3.0; checks the videos and that K1 and the pre-pass were each launched
+     2*28*steps*requests times and no other kernel;
      then one denoise step with K1 against plain fp32 attention, seconds per step
      and per request, peak memory, and a torch.profiler breakdown of one step;
   7. Wan serving through the user entry points: the full-width Wan 2.1
      T2V-1.3B spec (random weights, bf16, 30 blocks) serves 2 prompts at
      49x512x768 with CFG 5.0 and 4 steps under `attention_provider("sage")`:
      checks the videos and that K6 was launched 2*30*steps*requests times and
-     K1 never; one request under the default provider (K1, 2*30*steps
-     launches); one denoise step with K6 against the same step with K1;
+     K1 never; one request under the default provider (K1 and the pre-pass,
+     2*30*steps launches each); one denoise step with K6 against the same step
+     with K1;
      seconds per step and per request, peak memory, and a torch.profiler
-     breakdown of one sage step (K6, pre-pass, rotation, GEMMs, the rest);
+     breakdown of one sage step (K6, pre-pass, rotation, GEMMs, the rest) and
+     of one K1 step (K1 and its pre-pass, self and cross, GEMMs, the rest);
   8. training through the user entry points: `SFTTrainer` on the full-width spec
      with LoRA rank 128, one warm-up and 5 timed steps on seeded VAE moments
      (1, 256, 7, 16, 24) -> 2688 tokens and seeded caption states with a padded
      mask; checks finite losses, moved LoRA factors, unchanged frozen weights
-     and 2*28 launches of K1, K2 and K3 per step; then one step's loss and LoRA
+     and 2*28 launches of K1, K2 and K3 and 4*28 of the pre-pass (forward and
+     backward) per step; then one step's loss and LoRA
      gradient with the kernels against plain fp32 attention (both under per-block
      "full" remat), and a torch.profiler breakdown of one train step;
   9. Wan LoRA training through the user entry points: `SFTTrainer` on the
@@ -61,7 +72,8 @@ Phases, each printed on its own line:
      weighting, per-block "full" remat) on seeded VAE moments (1, 32, 13, 64,
      96) -> 19968 tokens and 512 valid caption tokens: one warm-up and 3 timed
      steps (finite losses, moved LoRA factors, unchanged frozen weights, K1
-     4*30 and the pre-pass, K2, K3 2*30 launches per step, model TFLOP/s by
+     4*30, the pre-pass 4*30 + 2*30, K2 and K3 2*30 launches per step, model
+     TFLOP/s by
      tools/floor_bench.py's formula); the same step under
      FINETRAINERS_FLASH_FUSED_BWD (K5: bit-equal loss, LoRA gradient within
      1e-2, 2*30 K5 launches, its step time) and under each forward switch
@@ -76,6 +88,7 @@ The line before the last is the kernels' JSON record; the last line is
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -102,15 +115,17 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_bwd_dq,
     flash_bwd_dq_emit,
     flash_bwd_fused,
-    flash_bwd_prep,
-    flash_bwd_prep_reference,
     flash_forward,
+    flash_forward_core,
+    flash_forward_core_reference,
     flash_forward_skew,
     flash_forward_skew_reference,
     flash_forward_two_level,
     flash_forward_two_level_reference,
     flash_forward_twopass,
     flash_forward_twopass_reference,
+    flash_qk_prep,
+    flash_qk_prep_reference,
 )
 from finetrainers_tpu_torch.ops.sage_attention import sage_attention_reference, sage_forward, sage_quantize
 from finetrainers_tpu_torch.trainer import SFTTrainer
@@ -241,8 +256,9 @@ def ltx_train_step_flops(cfg: dict, lora_rank: int, remat_factor: float, B: int,
     return fwd * (2.0 + remat_factor)
 
 
-_KERNEL_CLASSES = (("k1", "flash_fwd_kernel"), ("k2", "bwd_dkdv_kernel"), ("k3", "bwd_dq_kernel"),
-                   ("bwd_prep", "rope_prep_kernel"), ("k6", "sage_fwd_kernel"))
+# Profile classes by kernel name; the pre-pass's class counts its forward and backward launches.
+_KERNEL_CLASSES = (("k1", "flash_fwd_sm90_kernel"), ("k2", "bwd_dkdv_kernel"), ("k3", "bwd_dq_kernel"),
+                   ("prep", "rope_prep_kernel"), ("k6", "sage_fwd_kernel"))
 
 
 @contextlib.contextmanager
@@ -321,57 +337,115 @@ def _median(xs):
     return statistics.median(xs) if xs else None
 
 
+def forward_classes(prof):
+    """A forward step's device ms by class, with K1 and the pre-pass split into
+    self- and cross-attention (every block runs self, then cross), and their
+    launch counts and median ms per launch."""
+    classes, per_launch = dict(prof["classes"]), {}
+    for cls in ("k1", "prep"):
+        self_ms, cross_ms = _split(prof["launches"][cls], by_order=True)
+        classes[f"{cls}_self_attention"], classes[f"{cls}_cross_attention"] = sum(self_ms), sum(cross_ms)
+        per_launch[cls] = {"launches": [len(self_ms), len(cross_ms)], "self_attention": _median(self_ms),
+                           "cross_attention": _median(cross_ms)}
+    return classes, per_launch
+
+
 def ltx_tables(n, h):
     rope = LTXRotaryPosEmbed(n * h)
     cos, sin = rope.numpy_tables(7, 16, 24, (8 / 25, 32.0, 32.0))
     return tuple(torch.from_numpy(t).cuda().reshape(2688, n, h).transpose(0, 1).contiguous() for t in (cos, sin))
 
 
+def k1_bound(b, n, sq, kv_eff, h):
+    """K1's least time on the pre-pass's operands: its two products against q_s,
+    k_r and v read once (the valid keys), out and the LSE written once."""
+    return bound(4 * n * sq * kv_eff * h, 2 * b * n * sq * h * 2 + 2 * n * kv_eff * h * 2 + b * n * sq * 4)
+
+
+def qk_prep_bound(q, k, cos):
+    """The pre-pass's least time: q read and q_s written, and with tables k read,
+    k_r written and the tables read."""
+    q_bytes, k_bytes = q.numel() * 2, k.numel() * 2
+    return bound(0, 2 * q_bytes + (2 * k_bytes + 2 * cos.numel() * 4 if cos is not None else 0))
+
+
+def _fill_past_kv_lens(x, lens, value):
+    """A copy of the BNSH `x` whose rows at or past lens[b] hold `value`."""
+    y = x.clone()
+    for bi, length in enumerate(lens):
+        y[bi, :, length:] = value
+    return y
+
+
 def check_k1(card):
-    """K1 against its reference at the serving path's shapes; returns the worst
-    error and the self-attention record."""
+    """K1 against its plain version on the pre-pass's operands, and the pre-pass
+    plus K1 (`flash_forward`) against `flash_attention_reference`, at the LTX
+    serving path's shapes and Wan's cross-attention shapes (training B=1,
+    serving B=2); in the ragged case the k/v rows past kv_lens are also filled
+    with large values, which must leave out and LSE bit-equal (TMA reads those
+    rows). Returns the worst error and the records by case."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cos_t, sin_t = ltx_tables(32, 64)
     cases = {
-        "self_rope": dict(b=2, n=32, sq=2688, skv=2688, lens=None, rope=(cos_t, sin_t)),
-        "cross_kv_lens": dict(b=2, n=32, sq=2688, skv=128, lens=[1, 12], rope=None),
-        "ragged": dict(b=2, n=32, sq=1000, skv=77, lens=[77, 30], rope=None),
+        "self_rope": dict(b=2, n=32, sq=2688, skv=2688, h=64, lens=None, rope=(cos_t, sin_t)),
+        "cross_kv_lens": dict(b=2, n=32, sq=2688, skv=128, h=64, lens=[1, 12], rope=None),
+        "ragged_empty_row": dict(b=2, n=32, sq=1000, skv=77, h=64, lens=[50, 0], rope=None),
+        "wan_train_cross_kv_lens": dict(b=1, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[512], rope=None),
+        "wan_serve_cross_kv_lens": dict(b=2, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[512, 9], rope=None),
     }
     worst, records = 0.0, {}
     for name, c in cases.items():
+        b, n, sq, skv, h = c["b"], c["n"], c["sq"], c["skv"], c["h"]
         # BTNH buffers viewed as BNSH, the layout the model hands the kernel.
-        q, k, v = (torch.randn(c["b"], s, c["n"], 64, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
-                   for s in (c["sq"], c["skv"], c["skv"]))
+        q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
+                   for s in (sq, skv, skv))
         lens = None if c["lens"] is None else torch.tensor(c["lens"], dtype=torch.int32, device="cuda")
         cs, sn = c["rope"] or (None, None)
+        rope_sn = 0 if cs is None or cs.shape[0] == 1 else sq * h
+        scale = h**-0.5
         out, lse = flash_forward(q, k, v, lens, cs, sn)
+        q_s, k_r = flash_qk_prep(q, k, cs, sn, rope_sn, scale)
+        core_out, core_lse = flash_forward_core(q_s, k_r, v, lens)
         torch.cuda.synchronize()
-        ref, ref_lse = flash_attention_reference(q, k, v, lens, cs, sn)
-        err = (out.float() - ref.float()).abs()
-        max_abs = err.max().item()
-        norm_err = (err / ref.float().abs().clamp_min(1.0)).max().item()
-        rel = max_abs / ref.float().abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        ms = cuda_ms(lambda: flash_forward(q, k, v, lens, cs, sn))
-        plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, lens, cs, sn), iters=5)
+        errs = {}
+        for against, (got, got_lse), (ref, ref_lse) in (
+                ("plain", (core_out, core_lse), flash_forward_core_reference(q_s, k_r, v, lens)),
+                ("flash_attention_reference", (out, lse), flash_attention_reference(q, k, v, lens, cs, sn))):
+            err = (got.float() - ref.float()).abs()
+            errs[against] = dict(max_abs_err=err.max().item(),
+                                 err_over_max1_ref=(err / ref.float().abs().clamp_min(1.0)).max().item(),
+                                 lse_max_abs_err=(got_lse - ref_lse).abs().max().item())
+        empty_zero = all(not out[i].any() for i, length in enumerate(c["lens"] or []) if length == 0)
+        past_lens_ok = None
+        if c["lens"] is not None and any(length < skv for length in c["lens"]):
+            big = flash_forward_core(q_s, _fill_past_kv_lens(k_r, c["lens"], 3e4), _fill_past_kv_lens(v, c["lens"], -3e4),
+                                     lens)
+            zeroed = flash_forward_core(q_s, _fill_past_kv_lens(k_r, c["lens"], 0.0), _fill_past_kv_lens(v, c["lens"], 0.0),
+                                        lens)
+            past_lens_ok = torch.equal(big[0], zeroed[0]) and torch.equal(big[1], zeroed[1])
+        ms = cuda_ms(lambda: flash_forward_core(q_s, k_r, v, lens))
+        prep_ms = cuda_ms(lambda: flash_qk_prep(q, k, cs, sn, rope_sn, scale))
+        forward_ms = cuda_ms(lambda: flash_forward(q, k, v, lens, cs, sn))
+        plain_ms = cuda_ms(lambda: flash_forward_core_reference(q_s, k_r, v, lens), iters=5)
         # The "native" provider (torch SDPA), a library baseline without the fused rotation, for comparison only.
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa_ms = cuda_ms(lambda: attention_dispatch(qt, kt, vt, kv_lens=lens, provider="native"))
-        kv_eff = sum(c["lens"]) if c["lens"] else c["b"] * c["skv"]
-        flops = 4 * c["n"] * c["sq"] * kv_eff * 64
-        q_bytes, kv_bytes = c["b"] * c["n"] * c["sq"] * 64 * 2, c["n"] * kv_eff * 64 * 2
-        table_bytes = 2 * cs.numel() * 4 if cs is not None else 0
-        bound_ms, bound_by = bound(flops, 2 * q_bytes + 2 * kv_bytes + c["b"] * c["n"] * c["sq"] * 4 + table_bytes)
-        phase("k1_check", case=name, shape=[c["b"], c["n"], c["sq"], c["skv"], 64], kv_lens=c["lens"],
-              max_abs_err=max_abs, rel_err=rel, err_over_max1_ref=norm_err, lse_max_abs_err=lse_err,
-              ms=ms, plain_ms=plain_ms, sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
-              tflops=flops / ms / 1e9, card=card)
-        if not (norm_err <= K1_TOL and lse_err <= LSE_TOL):
-            raise AssertionError(f"K1 disagrees with its reference on {name}: {norm_err} > {K1_TOL} or "
-                                 f"LSE {lse_err} > {LSE_TOL}")
-        worst = max(worst, max_abs)
-        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by)
-    return worst, records["self_rope"]
+        kv_eff = sum(c["lens"]) if c["lens"] else b * skv
+        bound_ms, bound_by = k1_bound(b, n, sq, kv_eff, h)
+        phase("k1_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], vs_plain=errs["plain"],
+              vs_flash_attention_reference=errs["flash_attention_reference"], empty_rows_zero=empty_zero,
+              rows_past_kv_lens_ignored=past_lens_ok, ms=ms, prep_ms=prep_ms, flash_forward_ms=forward_ms,
+              plain_ms=plain_ms, sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
+              prep_bound_ms=qk_prep_bound(q, k, cs)[0], tflops=4 * n * sq * kv_eff * h / ms / 1e9, card=card)
+        if not (all(e["err_over_max1_ref"] <= K1_TOL and e["lse_max_abs_err"] <= LSE_TOL for e in errs.values())
+                and empty_zero and past_lens_ok is not False):
+            raise AssertionError(f"K1 disagrees with its reference on {name}: {errs}, empty rows zero {empty_zero}, "
+                                 f"rows past kv_lens ignored {past_lens_ok}")
+        worst = max(worst, errs["plain"]["max_abs_err"], errs["flash_attention_reference"]["max_abs_err"])
+        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             prep_ms=prep_ms, flash_forward_ms=forward_ms)
+        del q, k, v, q_s, k_r, out, core_out
+    return worst, records
 
 
 def check_k2k3(card):
@@ -404,18 +478,18 @@ def check_k2k3(card):
         delta = (do.float() * out.float()).sum(-1)
 
         grads = flash_backward(q, k, v, out, lse, do, lens, cos, sin)
-        q_s, k_r = flash_bwd_prep(q, k, cos, sin, rope_sn, scale)
+        q_s, k_r = flash_qk_prep(q, k, cos, sin, rope_sn, scale)
         torch.cuda.synchronize()
         refs = flash_backward_reference(q, k, v, out, lse, do, lens, cos, sin)
-        ref_qs, ref_kr = flash_bwd_prep_reference(q, k, cos, sin, scale)
+        ref_qs, ref_kr = flash_qk_prep_reference(q, k, cos, sin, scale)
         errors = {gname: rel_errors(got, ref) for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs)}
         errors["q_s"] = rel_errors(q_s, ref_qs)
         if cos is not None:
             errors["k_r"] = rel_errors(k_r, ref_kr)
         finite = all(bool(torch.isfinite(x).all()) for x in (*grads, q_s, k_r))
 
-        prep_ms = cuda_ms(lambda: flash_bwd_prep(q, k, cos, sin, rope_sn, scale))
-        prep_plain_ms = cuda_ms(lambda: flash_bwd_prep_reference(q, k, cos, sin, scale))
+        prep_ms = cuda_ms(lambda: flash_qk_prep(q, k, cos, sin, rope_sn, scale))
+        prep_plain_ms = cuda_ms(lambda: flash_qk_prep_reference(q, k, cos, sin, scale))
         k2_ms = cuda_ms(lambda: flash_bwd_dkdv(q_s, k_r, v, do, lse, delta, lens, cos, sin, rope_sn))
         k3_ms = cuda_ms(lambda: flash_bwd_dq(q_s, k_r, v, do, lse, delta, lens, cos, sin, rope_sn, scale))
         backward_ms = cuda_ms(lambda: flash_backward(q, k, v, out, lse, do, lens, cos, sin))
@@ -548,9 +622,10 @@ def check_k6(card):
 
 
 def check_k1_wan(card):
-    """K1 at Wan's self-attention shape (B=2, N=12, S=19968, H=128, one (S, H)
-    table pair shared by every head) against its plain version, run one head
-    at a time (all heads at once would need ~100 GB of fp32 scores)."""
+    """The pre-pass and K1 at Wan's self-attention shape (B=2, N=12, S=19968,
+    H=128, one (S, H) table pair shared by every head) against their plain
+    version, run one head at a time (all heads at once would need ~100 GB of
+    fp32 scores); K1 is timed alone and with its pre-pass."""
     g = torch.Generator(device="cuda").manual_seed(8)
     b, n, s, h = 2, 12, WAN_TOKENS, 128
     q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
@@ -574,19 +649,24 @@ def check_k1_wan(card):
     norm_err = (err / ref.float().abs().clamp_min(1.0)).max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
-    ms = cuda_ms(lambda: flash_forward(q, k, v, None, cos, sin))
+    q_s, k_r = flash_qk_prep(q, k, cos, sin, 0, h**-0.5)
+    ms = cuda_ms(lambda: flash_forward_core(q_s, k_r, v))
+    prep_ms = cuda_ms(lambda: flash_qk_prep(q, k, cos, sin, 0, h**-0.5))
+    forward_ms = cuda_ms(lambda: flash_forward(q, k, v, None, cos, sin))
     plain_ms = cuda_ms(plain, iters=1, warmup=0)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa_ms = cuda_ms(lambda: attention_dispatch(qt, kt, vt, provider="native"))
     flops = 4 * b * n * s * s * h
-    bound_ms, bound_by = bound(flops, 4 * b * n * s * h * 2 + b * n * s * 4 + 2 * cos.numel() * 4)
+    bound_ms, bound_by = k1_bound(b, n, s, b * s, h)
     phase("k1_check", case="wan_self_rope_shared_tables", shape=[b, n, s, s, h], max_abs_err=max_abs,
-          err_over_max1_ref=norm_err, rel_l2=rel_l2, lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
-          sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9, card=card)
+          err_over_max1_ref=norm_err, rel_l2=rel_l2, lse_max_abs_err=lse_err, ms=ms, prep_ms=prep_ms,
+          flash_forward_ms=forward_ms, plain_ms=plain_ms, sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms,
+          bound_by=bound_by, prep_bound_ms=qk_prep_bound(q, k, cos)[0], tflops=flops / ms / 1e9, card=card)
     if not (norm_err <= K1_TOL and rel_l2 <= K1_REL_L2_TOL and lse_err <= LSE_TOL):
         raise AssertionError(f"K1 disagrees with its reference at Wan's shape: {norm_err}, rel L2 {rel_l2} "
                              f"or LSE {lse_err}")
-    return max_abs, dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return max_abs, dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         prep_ms=prep_ms, flash_forward_ms=forward_ms)
 
 
 def _bwd_case_inputs(c, g):
@@ -628,7 +708,7 @@ def check_k5(card):
         with switch("FINETRAINERS_FLASH_FUSED_BWD"):
             fused = flash_backward(q, k, v, out, lse, do, lens, cos, sin)
         split = flash_backward(q, k, v, out, lse, do, lens, cos, sin)
-        q_s, k_r = flash_bwd_prep(q, k, cos, sin, rope_sn, scale)
+        q_s, k_r = flash_qk_prep(q, k, cos, sin, rope_sn, scale)
         dq_acc, _, _ = flash_bwd_fused(q_s, k_r, v, do, lse, delta, lens, cos, sin, rope_sn)
         emitted = flash_bwd_dq_emit(dq_acc, cos, sin, rope_sn, scale, q.dtype)
         torch.cuda.synchronize()
@@ -651,7 +731,7 @@ def check_k5(card):
         split_backward_ms = cuda_ms(lambda: flash_backward(q, k, v, out, lse, do, lens, cos, sin))
         k2_ms = cuda_ms(lambda: flash_bwd_dkdv(q_s, k_r, v, do, lse, delta, lens, cos, sin, rope_sn))
         k3_ms = cuda_ms(lambda: flash_bwd_dq(q_s, k_r, v, do, lse, delta, lens, cos, sin, rope_sn, scale))
-        k1_ms = cuda_ms(lambda: flash_forward(q, k, v, lens, cos, sin))
+        k1_ms = cuda_ms(lambda: flash_forward_core(q_s, k_r, v, lens))
         plain_ms = cuda_ms(lambda: flash_backward_fused_reference(q, k, v, out, lse, do, lens, cos, sin),
                            iters=1, warmup=0)
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
@@ -673,7 +753,7 @@ def check_k5(card):
         k2_bound = bound(8 * n * sq * kv_eff * h, 2 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + 2 * kv_bytes
                          + table_bytes)
         k3_bound = bound(6 * n * sq * kv_eff * h, 3 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + table_bytes)
-        k1_bound = bound(4 * n * sq * kv_eff * h, 2 * q_bytes + 2 * kv_eff_bytes + row_bytes + table_bytes)
+        k1_b = k1_bound(b, n, sq, kv_eff, h)
         phase("k5_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
               rel_l2={k_: e[0] for k_, e in errors.items()}, max_err_over_max_ref={k_: e[1] for k_, e in errors.items()},
               max_abs_err={k_: e[2] for k_, e in errors.items()},
@@ -683,7 +763,7 @@ def check_k5(card):
               fused_backward_ms=fused_backward_ms, k2k3_backward_ms=split_backward_ms, k2_ms=k2_ms, k3_ms=k3_ms,
               k1_ms=k1_ms, plain_ms=plain_ms, sdpa_backward_ms=sdpa_bwd_ms, sdpa_forward_ms=sdpa_fwd_ms,
               k5_bound_ms=k5_bound[0], emit_bound_ms=emit_bound[0], k2_bound_ms=k2_bound[0],
-              k3_bound_ms=k3_bound[0], k1_bound_ms=k1_bound[0],
+              k3_bound_ms=k3_bound[0], k1_bound_ms=k1_b[0],
               k5_tflops=10 * n * sq * kv_eff * h / k5_ms / 1e9, card=card)
         bad = [k_ for k_, e in {**errors, **{f"{k_}_vs_k2k3": e for k_, e in vs_split.items()},
                                  "emit": emit_errors}.items()
@@ -698,7 +778,7 @@ def check_k5(card):
         worst["k5_emit"] = max(worst["k5_emit"], emit_errors[2])
         records[name] = dict(
             k5=(k5_ms, plain_ms, sdpa_bwd_ms, *k5_bound), k5_emit=(emit_ms, emit_plain_ms, None, *emit_bound),
-            k1=(k1_ms, None, sdpa_fwd_ms, *k1_bound), k2=(k2_ms, None, sdpa_bwd_ms, *k2_bound),
+            k1=(k1_ms, None, sdpa_fwd_ms, *k1_b), k2=(k2_ms, None, sdpa_bwd_ms, *k2_bound),
             k3=(k3_ms, None, sdpa_bwd_ms, *k3_bound), k2k3_backward_ms=split_backward_ms,
             fused_backward_ms=fused_backward_ms)
         del q, k, v, do, out, lse, fused, split, q_s, k_r, dq_acc, emitted, refs
@@ -795,14 +875,15 @@ def serve(card):
 
     phase("serve_config", steps=NUM_STEPS, steps_note="cut from the default 50", **REQUEST)
     torch.cuda.reset_peak_memory_stats()
-    flash_forward.launches = 0
+    _zero_counts()
     videos, request_s = [], []
     for seed, prompt in enumerate(PROMPTS):
         t0 = time.perf_counter()
         videos.append(pipe(prompt=prompt, seed=seed, **REQUEST))
         torch.cuda.synchronize()
         request_s.append(time.perf_counter() - t0)
-    launches = flash_forward.launches
+    counts = _counts()
+    launches = counts["k1"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = 2 * NUM_LAYERS * NUM_STEPS * len(PROMPTS)
     # LTX_VAE_CONFIG's decoder uses four of its five spatial flags, so a 49x512x768
@@ -810,9 +891,9 @@ def serve(card):
     shape_ok = all(v.shape == (49, 256, 384, 3) and v.dtype == np.uint8 for v in videos)
     differ = not np.array_equal(videos[0], videos[1])
     phase("serve", requests=len(PROMPTS), video_shape=list(videos[0].shape), dtype=str(videos[0].dtype),
-          videos_differ=differ, k1_launches=launches, k1_launches_expected=expected,
+          videos_differ=differ, launches=counts, k1_and_prep_launches_expected=expected,
           request_seconds=request_s, peak_memory_gb=peak_gb, card=card)
-    if not (shape_ok and differ and launches == expected):
+    if not (shape_ok and differ and counts == {k_: expected if k_ in ("k1", "prep") else 0 for k_ in counts}):
         raise AssertionError("serving check failed")
 
     ehs, mask = pipe.encode_prompt(PROMPTS[0], None, True)
@@ -841,14 +922,11 @@ def serve(card):
     phase("timing", card=card, denoise_step_s=step_ms / 1e3, denoise_step_plain_attention_s=plain_step_ms / 1e3,
           request_s=statistics.mean(request_s), requests_s=request_s, steps_per_request=NUM_STEPS,
           peak_memory_gb=peak_gb, denoise_step_sdpa_baseline_s=sdpa_step_ms / 1e3)
-    # Every block launches K1 twice, self-attention then cross-attention.
-    k1_self, k1_cross = _split(prof["launches"]["k1"], by_order=True)
-    classes = dict(prof["classes"], k1_self_attention=sum(k1_self), k1_cross_attention=sum(k1_cross))
+    classes, per_launch = forward_classes(prof)
     phase("profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
-          idle_share=prof["idle_share"], ms_by_class=classes, k1_launches=[len(k1_self), len(k1_cross)],
-          k1_ms_per_launch={"self_attention": _median(k1_self), "cross_attention": _median(k1_cross)},
+          idle_share=prof["idle_share"], ms_by_class=classes, ms_per_launch=per_launch,
           top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
-    return launches
+    return counts
 
 
 def wan_serve(card):
@@ -886,7 +964,8 @@ def wan_serve(card):
           dtype=str(videos[0].dtype), videos_differ=differ, launches=launches,
           k6_launches_expected=per_request * len(PROMPTS), request_seconds=request_s, peak_memory_gb=peak_gb,
           card=card)
-    if not (shape_ok and differ and launches["k6"] == per_request * len(PROMPTS) and launches["k1"] == 0):
+    if not (shape_ok and differ
+            and launches == {k_: per_request * len(PROMPTS) if k_ == "k6" else 0 for k_ in launches}):
         raise AssertionError("Wan serving under sage failed its checks")
     sage_launches = launches["k6"]
     del videos
@@ -894,9 +973,10 @@ def wan_serve(card):
     videos, auto_request_s, launches, auto_peak_gb = run("auto", PROMPTS[:1])
     phase("wan_serve", provider="auto", requests=1, video_shape=list(videos[0].shape), launches=launches,
           k1_launches_expected=per_request, request_seconds=auto_request_s, peak_memory_gb=auto_peak_gb, card=card)
-    if not (videos[0].shape == (49, 512, 768, 3) and launches["k1"] == per_request and launches["k6"] == 0):
+    if not (videos[0].shape == (49, 512, 768, 3)
+            and launches == {k_: per_request if k_ in ("k1", "prep") else 0 for k_ in launches}):
         raise AssertionError("Wan serving under the default provider failed its checks")
-    auto_launches = launches["k1"]
+    auto_launches = launches
     del videos
 
     ehs, mask = pipe.encode_prompt(PROMPTS[0], None, True)
@@ -907,6 +987,7 @@ def wan_serve(card):
         step = lambda: pipe.denoise_step(latents, ehs, mask, WAN_REQUEST["guidance_scale"], sigma)  # noqa: E731
         k1_out = step()
         k1_step_ms = cuda_ms(step, iters=3, warmup=1)
+        k1_prof = profile_device(step)
         with attention_provider("sage"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -934,10 +1015,14 @@ def wan_serve(card):
           k6_ms_per_launch={"self_attention": _median(k6_self), "cross_attention": _median(k6_cross)},
           annotated_ranges=prof["annotated_ranges"], top_kernels_ms=prof["top_kernels_ms"],
           device_events=prof["device_events"])
+    classes, per_launch = forward_classes(k1_prof)
+    phase("wan_profile", card=card, provider="auto", step_wall_ms=k1_prof["wall_ms"],
+          device_busy_ms=k1_prof["busy_ms"], idle_share=k1_prof["idle_share"], ms_by_class=classes,
+          ms_per_launch=per_launch, top_kernels_ms=k1_prof["top_kernels_ms"], device_events=k1_prof["device_events"])
     return sage_launches, auto_launches
 
 
-_COUNTED = dict(k1=flash_forward, prep=flash_bwd_prep, k2=flash_bwd_dkdv, k3=flash_bwd_dq, k5=flash_bwd_fused,
+_COUNTED = dict(k1=flash_forward, prep=flash_qk_prep, k2=flash_bwd_dkdv, k3=flash_bwd_dq, k5=flash_bwd_fused,
                 k5_emit=flash_bwd_dq_emit, k6=sage_forward, k7a=flash_forward_twopass, k7b=flash_forward_skew,
                 k7c=flash_forward_two_level)
 
@@ -1023,17 +1108,19 @@ def train(card):
     finite = all(np.isfinite(losses))
     moved = all(not torch.equal(p, lora_before[n]) for n, p in trainer._trainable.items())
     frozen_same = bool(torch.equal(frozen_checksum(), frozen_before))
-    expected = 2 * NUM_LAYERS * TRAIN_TIMED_STEPS
+    expected = 2 * NUM_LAYERS * TRAIN_TIMED_STEPS  # K1, K2, K3; the pre-pass runs before K1 and before K2/K3
     flops = ltx_train_step_flops(spec.transformer_config, TRAIN_RANK, 0.0, B=1, S=2688, L_CTX=CAPTION_LEN)
     median_s = statistics.median(step_s)
     phase("train", card=card, steps=trainer.state.train_state.step, timed_steps=TRAIN_TIMED_STEPS,
           step_seconds=step_s, median_step_s=median_s, losses=losses, losses_finite=finite,
           lora_factors_moved=moved, frozen_weights_unchanged=frozen_same, launches=launches,
-          launches_expected_each=expected, max_memory_allocated_gb=peak_gb, model_flops_per_step=flops,
+          launches_expected_each=expected, prep_launches_expected=2 * expected, max_memory_allocated_gb=peak_gb,
+          model_flops_per_step=flops,
           model_tflops=flops / median_s / 1e12, bf16_peak_tflops=PEAK_BF16_FLOPS / 1e12,
           share_of_peak=flops / median_s / PEAK_BF16_FLOPS)
     if not (finite and moved and frozen_same
-            and all(v == (expected if k_ in ("k1", "prep", "k2", "k3") else 0) for k_, v in launches.items())):
+            and launches == {k_: {"k1": expected, "prep": 2 * expected, "k2": expected, "k3": expected}.get(k_, 0)
+                             for k_ in launches}):
         raise AssertionError("training check failed")
 
     # One step's loss and LoRA gradient with the kernels against plain fp32
@@ -1061,9 +1148,10 @@ def train(card):
     phase("train_step_vs_plain_attention", remat="full", kernel_loss=kernel_loss, plain_loss=plain_loss,
           loss_rel_diff=loss_rel, loss_bound=TRAIN_LOSS_REL_TOL, grad_rel_l2=grad_rel_l2,
           grad_bound=STEP_REL_L2_TOL, grad_finite=grad_finite, launches=remat_launches,
-          k1_launches_expected=4 * NUM_LAYERS, k2_k3_launches_expected=2 * NUM_LAYERS)
+          k1_launches_expected=4 * NUM_LAYERS, k2_k3_launches_expected=2 * NUM_LAYERS,
+          prep_launches_expected=6 * NUM_LAYERS)
     if not (loss_rel <= TRAIN_LOSS_REL_TOL and grad_rel_l2 <= STEP_REL_L2_TOL and grad_finite
-            and remat_launches["k1"] == 4 * NUM_LAYERS
+            and remat_launches["k1"] == 4 * NUM_LAYERS and remat_launches["prep"] == 6 * NUM_LAYERS
             and remat_launches["k2"] == remat_launches["k3"] == 2 * NUM_LAYERS):
         raise AssertionError("a train step with the kernels differs from the one with plain attention")
 
@@ -1084,7 +1172,7 @@ def train(card):
     prof = profile_device(lambda: trainer.train_step(*batch))
     k1_self, k1_cross = _split(prof["launches"]["k1"], by_order=True)
     per_launch = {"k1": {"self_attention": _median(k1_self), "cross_attention": _median(k1_cross)}}
-    for cls in ("k2", "k3", "bwd_prep"):
+    for cls in ("k2", "k3", "prep"):
         self_ms, cross_ms = _split(prof["launches"][cls], by_order=False)
         per_launch[cls] = {"self_attention": _median(self_ms), "cross_attention": _median(cross_ms)}
     classes = dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()})
@@ -1171,7 +1259,8 @@ def wan_train(card):
     moved = all(not torch.equal(p, lora_before[n]) for n, p in trainer._trainable.items())
     frozen_same = bool(torch.equal(frozen_checksum(), frozen_before))
     del lora_before
-    per_step = dict(k1=4 * WAN_LAYERS, prep=2 * WAN_LAYERS, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS)
+    # The pre-pass runs before each of K1's 4*30 launches (forward and recompute) and each of the 2*30 backwards.
+    per_step = dict(k1=4 * WAN_LAYERS, prep=6 * WAN_LAYERS, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS)
     expected = {k_: per_step.get(k_, 0) * WAN_TRAIN_TIMED_STEPS for k_ in launches}
     flops = wan_train_step_flops(spec.transformer_config, WAN_TRAIN_RANK, 1.0, B=1, S=WAN_TOKENS,
                                  L_CTX=WAN_CAPTION_LEN)
@@ -1205,14 +1294,18 @@ def wan_train(card):
     del fused_grad
 
     # K7a/b/c: one forward_backward under each forward switch, against the K1 step above, at the
-    # same weights (before the fused-backward timed steps update them).
+    # same weights (before the fused-backward timed steps update them). K7a and K7c run the pre-pass
+    # first, as K1 does; K7b (cross-attention only: the self-attention calls carry tables and stay on
+    # K1) does not.
     for env, key, expected_k1, count in (("FINETRAINERS_FLASH_TWOPASS", "k7a", 0, 4 * WAN_LAYERS),
                                           ("FINETRAINERS_FLASH_SKEW", "k7b", 2 * WAN_LAYERS, 2 * WAN_LAYERS),
                                           ("FINETRAINERS_FLASH_TWOLEVEL", "k7c", 0, 4 * WAN_LAYERS)):
         loss, grad, variant_launches = loss_and_grad(env)
         loss_rel, grad_rel = abs(loss - split_loss) / abs(split_loss), rel_l2(grad, split_grad)
         del grad
-        want = dict(k1=expected_k1, prep=2 * WAN_LAYERS, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS, **{key: count})
+        forwards_with_prep = 4 * WAN_LAYERS if key != "k7b" else expected_k1
+        want = dict(k1=expected_k1, prep=forwards_with_prep + 2 * WAN_LAYERS, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS,
+                    **{key: count})
         want = {k_: want.get(k_, 0) for k_ in variant_launches}
         phase("wan_train_fwd_variants", card=card, switch=env, kernel=key, loss=loss, k1_loss=split_loss,
               loss_rel_diff=loss_rel, loss_bound=VARIANT_LOSS_REL_TOL, lora_grad_rel_l2=grad_rel,
@@ -1224,7 +1317,7 @@ def wan_train(card):
 
     with switch("FINETRAINERS_FLASH_FUSED_BWD"):
         fused_step_s, fused_timed_launches, fused_peak_gb = timed_steps(WAN_TRAIN_TIMED_STEPS)
-    fused_expected = dict(k1=4 * WAN_LAYERS, prep=2 * WAN_LAYERS, k5=2 * WAN_LAYERS, k5_emit=2 * WAN_LAYERS)
+    fused_expected = dict(k1=4 * WAN_LAYERS, prep=6 * WAN_LAYERS, k5=2 * WAN_LAYERS, k5_emit=2 * WAN_LAYERS)
     fused_expected = {k_: fused_expected.get(k_, 0) for k_ in fused_launches}
     phase("wan_train_fused_bwd", card=card, split_loss=split_loss, fused_loss=fused_loss,
           loss_bit_equal=fused_loss == split_loss, lora_grad_rel_l2=fused_rel, grad_bound=FUSED_GRAD_REL_L2_TOL,
@@ -1248,7 +1341,7 @@ def wan_train(card):
           plain_loss=plain_loss, loss_rel_diff=loss_rel, loss_bound=TRAIN_LOSS_REL_TOL, grad_rel_l2=grad_rel,
           grad_bound=STEP_REL_L2_TOL, grad_finite=grad_finite, launches=small_launches)
     if not (loss_rel <= TRAIN_LOSS_REL_TOL and grad_rel <= STEP_REL_L2_TOL and grad_finite
-            and small_launches["k1"] == 4 * WAN_LAYERS and small_launches["k2"] == 2 * WAN_LAYERS):
+            and small_launches == {k_: per_step.get(k_, 0) for k_ in small_launches}):
         raise AssertionError("a Wan train step with the kernels differs from the one with plain attention")
 
     # Where the host spends a step: issuing forward and backward, issuing the update, waiting for the card.
@@ -1265,7 +1358,7 @@ def wan_train(card):
 
     prof = profile_device(lambda: trainer.train_step(*batch))
     per_launch = {}
-    for cls in ("k1", "k2", "k3", "bwd_prep"):
+    for cls in ("k1", "k2", "k3", "prep"):
         self_ms, cross_ms = _split(prof["launches"][cls], by_order=False)
         per_launch[cls] = {"self_attention": _median(self_ms), "cross_attention": _median(cross_ms)}
     classes = dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()})
@@ -1274,6 +1367,43 @@ def wan_train(card):
           launches={cls: len(v) for cls, v in prof["launches"].items()}, ms_per_launch=per_launch,
           top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
     return paths
+
+
+def _kernel_name(mangled):
+    """`name<args>` of a mangled kernel, namespaces dropped, e.g.
+    `flash_fwd_sm90_kernel<__nv_bfloat16, 128>`; else the mangled name."""
+    rest, name, args = mangled[3:] if mangled.startswith("_ZN") else "", None, []
+    while m := re.match(r"(\d+)", rest):  # the nested names, each <length><name>; the last is the kernel's
+        end = m.end() + int(m.group(1))
+        name, rest = rest[m.end():end], rest[end:]
+    if name is None:
+        return mangled
+    if rest.startswith("I"):
+        rest = rest[1:]
+        while m := re.match(r"L[a-z](\d+)E|(\d+)", rest):
+            if m.group(1) is not None:
+                args.append(m.group(1))
+                rest = rest[m.end():]
+            else:
+                end = m.end() + int(m.group(2))
+                args.append(rest[m.end():end])
+                rest = rest[end:]
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def ptxas_summary(log):
+    """Registers and spill bytes of each kernel from nvcc's `-Xptxas=-v` log,
+    and its warning lines."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = _kernel_name(m.group(1))
+            kernels[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            kernels[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[name]["registers"] = int(m.group(1))
+    return {"ptxas": kernels, "warnings": [line.strip() for line in log.splitlines() if "warning" in line.lower()]}
 
 
 def main():
@@ -1287,11 +1417,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    sources = ("flash_fwd", "flash_bwd", "sage_fwd")
+    sources = ("flash_fwd_sm90", "flash_fwd", "flash_bwd", "sage_fwd")
     _build.load_libraries(sources)
-    builds = {name: {"seconds": _build.BUILD_LOG[name]["seconds"],
-                     "ptxas": [line.strip() for line in _build.BUILD_LOG[name]["log"].splitlines()
-                               if "Used" in line or "spill" in line]}
+    builds = {name: {"seconds": _build.BUILD_LOG[name]["seconds"], **ptxas_summary(_build.BUILD_LOG[name]["log"])}
               for name in sources}
     phase("build", seconds=time.perf_counter() - t0, kernels=builds)
 
@@ -1304,7 +1432,7 @@ def main():
     torch.cuda.empty_cache()
     serve_launches = serve(card)
     torch.cuda.empty_cache()
-    wan_k6_launches, wan_k1_launches = wan_serve(card)
+    wan_k6_launches, wan_auto_launches = wan_serve(card)
     torch.cuda.empty_cache()
     train_launches = train(card)
     torch.cuda.empty_cache()
@@ -1328,17 +1456,30 @@ def main():
                      by_case=r["by_case"], library_note="torch SDPA forward, without the fused rotation")
 
     wan = wan_paths["wan_train"]
+    ltx_self = k1["self_rope"]
     print(json.dumps({"kernels": [
-        entry("flash_fwd (K1)", "finetrainers_tpu_torch/csrc/flash_fwd.cu",
-              "finetrainers_tpu/ops/flash_attention.py:106", serve_launches, max(k1_err, k1_wan_err),
-              (k1["ms"], k1["plain_ms"], k1["library_ms"], k1["bound_ms"], k1["bound_by"]),
-              launches_by_path={"serve": serve_launches, "train": train_launches["k1"],
-                                "wan_serve_default_provider": wan_k1_launches, "wan_train": wan["k1"]},
-              wan_self_attention=k1_wan, wan_train_self_attention=wan_shape(k5_wan["k1"])),
-        entry("flash_bwd_prep (K2/K3 RoPE and scale pre-pass)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
-              "finetrainers_tpu/ops/flash_attention.py:961", train_launches["prep"], bwd_err["prep"], bwd["prep"],
-              launches_by_path={"train": train_launches["prep"], "wan_train": wan["prep"],
-                                "wan_train_fused_bwd": wan_paths["wan_train_fused_bwd"]["prep"]}),
+        entry("flash_fwd_sm90 (K1, wgmma + TMA, on the pre-pass's operands)",
+              "finetrainers_tpu_torch/csrc/flash_fwd_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:106",
+              serve_launches["k1"], max(k1_err, k1_wan_err),
+              (ltx_self["ms"], ltx_self["plain_ms"], ltx_self["library_ms"], ltx_self["bound_ms"],
+               ltx_self["bound_by"]),
+              launches_by_path={"serve": serve_launches["k1"], "train": train_launches["k1"],
+                                "wan_serve_default_provider": wan_auto_launches["k1"], "wan_train": wan["k1"],
+                                **{f"wan_train_{key}": wan_paths[f"wan_train_{key}"]["k1"]
+                                   for key in ("k7a", "k7b", "k7c", "fused_bwd")}},
+              shape=[2, 32, 2688, 2688, 64], by_case=k1, wan_self_attention=k1_wan,
+              wan_train_self_attention=wan_shape(k5_wan["k1"]),
+              library_note="torch SDPA forward, without the fused rotation"),
+        entry("flash_qk_prep (the RoPE and q-scale pre-pass before K1, K7a, K7c, K2/K3 and K5)",
+              "finetrainers_tpu_torch/csrc/flash_bwd.cu", "finetrainers_tpu/ops/flash_attention.py:189",
+              serve_launches["prep"], bwd_err["prep"], bwd["prep"],
+              also_replaces=["finetrainers_tpu/ops/flash_attention.py:961",
+                             "finetrainers_tpu/ops/flash_attention.py:1268"],
+              launches_by_path={"serve": serve_launches["prep"], "train": train_launches["prep"],
+                                "wan_serve_default_provider": wan_auto_launches["prep"], "wan_train": wan["prep"],
+                                **{f"wan_train_{key}": wan_paths[f"wan_train_{key}"]["prep"]
+                                   for key in ("k7a", "k7b", "k7c", "fused_bwd")}},
+              shape_note="timed at LTX's train self-attention (1, 32, 2688, 64) with per-head tables"),
         entry("bwd_dkdv (K2)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
               "finetrainers_tpu/ops/flash_attention.py:888", train_launches["k2"], bwd_err["k2"], bwd["k2"],
               launches_by_path={"train": train_launches["k2"], "wan_train": wan["k2"]},

@@ -1,5 +1,6 @@
 // Flash attention backward (K2: dk/dv, K3: dq) for Hopper (sm_90a), CUDA C++
-// with mma.sync, and the pre-pass that rotates and scales q and k once per call.
+// with mma.sync, and the pre-pass that rotates and scales q and k once per call
+// for the backward and for the forwards (K1, K7a, K7c) alike.
 //
 // Replaces: finetrainers_tpu/ops/flash_attention.py::_bwd_dkdv_kernel (K2) and
 // ::_bwd_dq_kernel (K3) (Pallas, TPU), driven there by _flash_backward. They
@@ -37,9 +38,10 @@
 // loops over kv tiles up to kv_lens[b]. The streamed tiles (q, dO, LSE, delta
 // in K2; k, v in K3) are double-buffered with cp.async, fetched while the
 // current tile is computed. The RoPE rotation and the q scaling run once per
-// call in the pre-pass instead of once per CTA (K1 re-rotates k in every CTA
-// and measured ~20% for it), so the kernels read plain tiles; only the
-// transpose rotation of dk and dq touches the tables, once per output element.
+// call in the pre-pass instead of once per CTA (re-rotating k in every CTA
+// cost the first K1 ~42% of its time at Wan's shape), so the kernels read
+// plain tiles; only the transpose rotation of dk and dq touches the tables,
+// once per output element.
 // The inner tile is 64 rows at H=64 and 32 at H=128, which keeps the
 // accumulators, s and dp within the register file. Not yet used: wgmma, TMA
 // and warp specialisation.
@@ -613,12 +615,12 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* d
 // Plain C entry points, loaded with ctypes. dtype: 0 = bf16, 1 = fp16. Strides
 // are in elements; the head dim is contiguous. Each returns a cudaError_t.
 
-// q_out = T(rope(q) * qscale), and k_out = T(rope(k)) when k_out is given
-// (then the tables must be too); both written (B, N, S, H) contiguous.
-extern "C" int flash_bwd_prep(const void* q, const void* k, void* q_out, void* k_out, const void* rope_cos,
-                              const void* rope_sin, int batch, int heads, int seq_q, int seq_kv, int head_dim,
-                              int dtype, int64_t q_sb, int64_t q_sn, int64_t q_ss, int64_t k_sb, int64_t k_sn,
-                              int64_t k_ss, int64_t rope_sn, float qscale, void* stream) {
+// The pre-pass: q_out = T(rope(q) * qscale), and k_out = T(rope(k)) when k_out
+// is given (then the tables must be too); both written (B, N, S, H) contiguous.
+extern "C" int flash_qk_prep(const void* q, const void* k, void* q_out, void* k_out, const void* rope_cos,
+                             const void* rope_sin, int batch, int heads, int seq_q, int seq_kv, int head_dim,
+                             int dtype, int64_t q_sb, int64_t q_sn, int64_t q_ss, int64_t k_sb, int64_t k_sn,
+                             int64_t k_ss, int64_t rope_sn, float qscale, void* stream) {
   PrepParams p = {};
   p.q = q;
   p.k = k;

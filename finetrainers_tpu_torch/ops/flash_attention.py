@@ -1,18 +1,24 @@
 """Flash attention on the H100: K1 (forward) and its variants K7a-c, K2/K3
-(backward) and the fused backward K5, and the autograd glue K4, each kernel
-beside its plain PyTorch version.
+(backward) and the fused backward K5, the pre-pass they share, and the
+autograd glue K4, each kernel beside its plain PyTorch version.
 
 Counterpart of `finetrainers_tpu/ops/flash_attention.py`: the Pallas
-`_fwd_kernel` (with its `two_level` branch), `_fwd_kernel_twopass` and
-`_fwd_kernel_skew` become the CUDA kernels in `csrc/flash_fwd.cu`;
-`_bwd_dkdv_kernel`, `_bwd_dq_kernel` and `_bwd_fused_kernel` become the CUDA
-kernels in `csrc/flash_bwd.cu`, with a pre-pass there that rotates and scales q
-and k once per call; all are built by `ops/_build.py`.
+`_fwd_kernel` becomes the wgmma/TMA kernel in `csrc/flash_fwd_sm90.cu` (K1);
+its `two_level` branch, `_fwd_kernel_twopass` and `_fwd_kernel_skew` become
+the CUDA kernels in `csrc/flash_fwd.cu`; `_bwd_dkdv_kernel`, `_bwd_dq_kernel`
+and `_bwd_fused_kernel` become the CUDA kernels in `csrc/flash_bwd.cu`, with
+the pre-pass there that rotates and scales q and k once per call for every
+kernel but K7b; all are built by `ops/_build.py`.
 
+  - `flash_qk_prep` is the pre-pass: q_s = T(rope(q) * scale * log2e) and,
+    with tables, k_r = T(rope(k)) (T() rounds to the input dtype), the
+    operands K1, K7a, K7c, K2, K3 and K5 read instead of rotating and scaling
+    per CTA.
   - `flash_forward(q, k, v, ...)` works on BNSH tensors and returns
-    `(out, lse)`, like `_flash_forward`. On a CUDA tensor it launches K1,
-    after checking device, dtype, shape and strides, or raises; on a CPU
-    tensor it computes `flash_attention_reference`. Like `_flash_forward`, it
+    `(out, lse)`, like `_flash_forward`. On a CUDA tensor it launches the
+    pre-pass and then K1 (`flash_forward_core`, on q_s and k_r), after checking
+    device, dtype, shape and strides, or raises; on a CPU tensor it computes
+    `flash_attention_reference`. Like `_flash_forward`, it
     reads three switches at call time, with the JAX package's precedence:
     FINETRAINERS_FLASH_SKEW=1 takes K7b (`flash_forward_skew`) for calls
     without RoPE tables, else FINETRAINERS_FLASH_TWOPASS=1 takes K7a
@@ -36,14 +42,17 @@ and k once per call; all are built by `ops/_build.py`.
     versions on the CPU), never autograd through the forward's math.
   - `flash_attention_reference` / `flash_backward_reference` are the plain
     fp32 math of the kernels: the same base-2 softmax, cast points, masking and
-    natural-log LSE. The `*_twopass`, `*_skew`, `*_two_level` and
-    `flash_backward_fused_reference` versions follow their kernel's recurrence
-    over kv tiles of the kernel's width (64 keys).
+    natural-log LSE. `flash_attention_reference` is the plain pre-pass
+    (`flash_qk_prep_reference`) followed by K1's plain version
+    (`flash_forward_core_reference`). The `*_twopass`, `*_skew`, `*_two_level`
+    and `flash_backward_fused_reference` versions follow their kernel's
+    recurrence over kv tiles of the kernel's width (64 keys).
 
-Each kernel wrapper keeps a `launches` count (`flash_forward`,
+Each kernel wrapper keeps a `launches` count (`flash_qk_prep`,
 `flash_forward_two_level`, `flash_forward_twopass`, `flash_forward_skew`,
-`flash_bwd_prep`, `flash_bwd_dkdv`, `flash_bwd_dq`, `flash_bwd_fused`,
-`flash_bwd_dq_emit`) of kernel launches, never of reference calls, so a run can
+`flash_bwd_dkdv`, `flash_bwd_dq`, `flash_bwd_fused`, `flash_bwd_dq_emit`; K1's
+launches, from `flash_forward` or `flash_forward_core`, count on
+`flash_forward`) of kernel launches, never of reference calls, so a run can
 show that its attention went through the kernels.
 """
 
@@ -62,7 +71,7 @@ _LN2 = 0.6931471805599453
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
-_BLOCK_KV = 64  # the kv tile of every kernel here: K1/K7's inner loop, K2/K5's CTA
+_BLOCK_KV = 64  # the kv tile of the mma.sync kernels: K7's inner loop, K2/K5's CTA
 
 
 def _switch(name: str) -> bool:
@@ -109,10 +118,10 @@ def _valid_keys(kv_lens: Optional[torch.Tensor], batch: int, kv_len: int, device
     return (torch.arange(kv_len, device=device)[None, :] < lens[:, None])[:, None, None, :]
 
 
-def flash_bwd_prep_reference(q, k, rope_cos, rope_sin, scale):
-    """Plain version of the backward's pre-pass (and of K1's own q/k
-    preparation): q_s = T(rope(q) * scale * log2e) and k_r = T(rope(k)), where
-    T() rounds to the input dtype, returned as fp32."""
+def flash_qk_prep_reference(q, k, rope_cos, rope_sin, scale):
+    """Plain version of the pre-pass (`flash_qk_prep`): q_s = T(rope(q) *
+    scale * log2e) and k_r = T(rope(k)), where T() rounds to the input dtype,
+    returned as fp32."""
     qf, kf = q.float(), k.float()
     if rope_cos is not None:
         qf = _rope_fwd(qf, rope_cos, rope_sin)
@@ -126,6 +135,31 @@ def _finish(acc, m, l, dtype):
     return (acc / l_safe).to(dtype), (m * _LN2 + torch.log(l_safe)).squeeze(-1)
 
 
+def flash_forward_core_reference(
+    q_s: torch.Tensor,
+    k_r: torch.Tensor,
+    v: torch.Tensor,
+    kv_lens: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain fp32 version of K1 (`flash_forward_core`) on the pre-pass's
+    operands: q_s (B, N, Sq, H) already rotated, scaled by scale * log2e and
+    rounded; k_r (B, N, Skv, H) rotated and rounded; v (B, N, Skv, H) in the
+    output dtype; kv_lens (B,) ints. Base-2 softmax with keys at or past
+    kv_lens[b] selected out. Returns out in v's dtype and the (B, N, Sq) fp32
+    natural-log LSE; a row with no valid key gives 0 and -1e30*ln2."""
+    return _attend(q_s, k_r, v, kv_lens, v.dtype)
+
+
+def _attend(q_s, k_r, v, kv_lens, dtype):
+    """K1's plain math on the pre-pass's operands, the output rounded to `dtype`."""
+    s = q_s.float() @ k_r.float().transpose(-1, -2)  # base-2 logits
+    valid = _valid_keys(kv_lens, q_s.shape[0], k_r.shape[2], q_s.device)
+    s = s.masked_fill(~valid, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m) * valid
+    return _finish(p @ v.float(), m, p.sum(dim=-1, keepdim=True), dtype)
+
+
 def flash_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -135,19 +169,14 @@ def flash_attention_reference(
     rope_sin: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain fp32 version of K1. q: (B, N, Sq, H); k, v: (B, N, Skv, H);
-    kv_lens: (B,) ints; rope tables: (N or 1, S, H) fp32. Returns out in q's
-    dtype and the (B, N, Sq) fp32 natural-log LSE. Like the kernel, the rotated
-    and scaled q and the rotated k are rounded to the input dtype before QK^T."""
-    batch, _, _, head_dim = q.shape
-    scale = head_dim**-0.5 if scale is None else scale
-    qs, kr = flash_bwd_prep_reference(q, k, rope_cos, rope_sin, scale)
-    s = qs @ kr.transpose(-1, -2)  # base-2 logits
-    valid = _valid_keys(kv_lens, batch, k.shape[2], q.device)
-    s = s.masked_fill(~valid, _NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp2(s - m) * valid
-    return _finish(p @ v.float(), m, p.sum(dim=-1, keepdim=True), q.dtype)
+    """Plain fp32 version of `flash_forward` (the pre-pass, then K1). q: (B, N,
+    Sq, H); k, v: (B, N, Skv, H); kv_lens: (B,) ints; rope tables: (N or 1, S,
+    H) fp32. Returns out in q's dtype and the (B, N, Sq) fp32 natural-log LSE.
+    Like the kernels, the rotated and scaled q and the rotated k are rounded to
+    the input dtype before QK^T."""
+    scale = q.shape[-1]**-0.5 if scale is None else scale
+    qs, kr = flash_qk_prep_reference(q, k, rope_cos, rope_sin, scale)
+    return _attend(qs, kr, v, kv_lens, q.dtype)
 
 
 def flash_backward_reference(
@@ -174,7 +203,7 @@ def flash_backward_reference(
     batch, _, _, head_dim = q.shape
     scale = head_dim**-0.5 if scale is None else scale
     dtype = q.dtype
-    qs, kr = flash_bwd_prep_reference(q, k, rope_cos, rope_sin, scale)
+    qs, kr = flash_qk_prep_reference(q, k, rope_cos, rope_sin, scale)
     dof = do.float()
     if delta is None:
         delta = (dof * out.float()).sum(-1)
@@ -197,7 +226,7 @@ def _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale):
     tiled plain versions; the tiles are fp32 except v, kept in its dtype."""
     batch, _, _, head_dim = q.shape
     scale = head_dim**-0.5 if scale is None else scale
-    qs, kr = flash_bwd_prep_reference(q, k, rope_cos, rope_sin, scale)
+    qs, kr = flash_qk_prep_reference(q, k, rope_cos, rope_sin, scale)
     valid = _valid_keys(kv_lens, batch, k.shape[2], q.device)
     return qs, [(kr[:, :, k0:k0 + _BLOCK_KV], v[:, :, k0:k0 + _BLOCK_KV], valid[..., k0:k0 + _BLOCK_KV])
                 for k0 in range(0, k.shape[2], _BLOCK_KV)]
@@ -397,6 +426,63 @@ def _check_kernel_call(fn: str, q, k, v, kv_lens, rope_cos, rope_sin):
     return kv_lens, rope_sn
 
 
+def flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn: int, scale: float):
+    """The pre-pass, on operands the caller has checked: q_s = T(rope(q) *
+    scale * log2e) and, with tables, k_r = T(rope(k)), both (B, N, S, H)
+    contiguous. Without tables k_r is k itself. Every forward but K7b and every
+    backward launches it once."""
+    batch, heads, seq_q, head_dim = q.shape
+    q_s = torch.empty((batch, heads, seq_q, head_dim), dtype=q.dtype, device=q.device)
+    k_r = k if rope_cos is None else torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    fn = _kernel("flash_bwd", "flash_qk_prep",
+                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        _launch(
+            fn, q.data_ptr(), k.data_ptr(), q_s.data_ptr(), None if rope_cos is None else k_r.data_ptr(),
+            _ptr(rope_cos), _ptr(rope_sin), batch, heads, seq_q, k.shape[2], head_dim, _DTYPE_CODES[q.dtype],
+            *q.stride()[:3], *k.stride()[:3], rope_sn, scale * _LOG2E, _stream(q.device),
+        )
+    flash_qk_prep.launches += 1
+    return q_s, k_r
+
+
+flash_qk_prep.launches = 0
+
+
+def _k1(q_s, k_r, v, kv_lens):
+    """Launch K1 (`csrc/flash_fwd_sm90.cu`) on checked operands; counted on
+    `flash_forward.launches`."""
+    batch, heads, seq_q, head_dim = q_s.shape
+    out = _btnh_like(q_s)
+    lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q_s.device)
+    fn = _kernel("flash_fwd_sm90", "flash_fwd_sm90",
+                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
+    with torch.cuda.device(q_s.device):
+        _launch(
+            fn, q_s.data_ptr(), k_r.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(kv_lens),
+            batch, heads, seq_q, k_r.shape[2], head_dim, _DTYPE_CODES[q_s.dtype], _strides(q_s, k_r, v, out),
+            _stream(q_s.device),
+        )
+    flash_forward.launches += 1
+    return out, lse
+
+
+def flash_forward_core(
+    q_s: torch.Tensor,
+    k_r: torch.Tensor,
+    v: torch.Tensor,
+    kv_lens: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 alone, on the pre-pass's operands (see `flash_forward_core_reference`)
+    -> (out, lse); `flash_forward` is the pre-pass followed by this. On a CPU
+    tensor the plain version; on a CUDA tensor the kernel, after the checks of
+    `flash_forward`, or it raises. Launches count on `flash_forward.launches`."""
+    if q_s.device.type == "cpu":
+        return flash_forward_core_reference(q_s, k_r, v, kv_lens)
+    kv_lens, _ = _check_kernel_call("flash_forward_core", q_s, k_r, v, kv_lens, None, None)
+    return _k1(q_s, k_r, v, kv_lens)
+
+
 def flash_forward(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -406,8 +492,8 @@ def flash_forward(
     rope_sin: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 on BNSH tensors -> (out (B, N, Sq, H) in q's dtype, lse (B, N, Sq) fp32),
-    or K7a/b/c where a switch picks them (`forward_variant`).
+    """The pre-pass and K1 on BNSH tensors -> (out (B, N, Sq, H) in q's dtype,
+    lse (B, N, Sq) fp32), or K7a/b/c where a switch picks them (`forward_variant`).
 
     The kernel takes bf16 or fp16 with H in {64, 128} and any sequence lengths;
     fused RoPE needs Sq == Skv and (N or 1, S, H) fp32 tables. `out` is a BNSH
@@ -417,9 +503,10 @@ def flash_forward(
         return variant(q, k, v, kv_lens, rope_cos, rope_sin, scale)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_lens, rope_cos, rope_sin, scale)
-    out = _forward_kernel("flash_forward", 0, q, k, v, kv_lens, rope_cos, rope_sin, scale)
-    flash_forward.launches += 1
-    return out
+    kv_lens, rope_sn = _check_kernel_call("flash_forward", q, k, v, kv_lens, rope_cos, rope_sin)
+    scale = q.shape[-1]**-0.5 if scale is None else float(scale)
+    q_s, k_r = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
+    return _k1(q_s, k_r, v, kv_lens)
 
 
 flash_forward.launches = 0
@@ -427,23 +514,27 @@ flash_forward.launches = 0
 
 def _forward_kernel(fn_name, variant, q, k, v, kv_lens, rope_cos, rope_sin, scale):
     """Check a forward call and launch kernel `variant` of `csrc/flash_fwd.cu`
-    (the C entry point's code: 0 K1, 1 K7c, 2 K7a, 3 K7b)."""
+    (the C entry point's code: 1 K7c, 2 K7a, 3 K7b; 0, K1, is
+    `flash_fwd_sm90.cu`'s). K7a and K7c run on the pre-pass's operands; K7b,
+    which takes no tables, scales q itself."""
     kv_lens, rope_sn = _check_kernel_call(fn_name, q, k, v, kv_lens, rope_cos, rope_sin)
     batch, heads, seq_q, head_dim = q.shape
     seq_kv = k.shape[2]
     scale = head_dim**-0.5 if scale is None else float(scale)
+    qscale = scale * _LOG2E
+    if variant != 3:
+        q, k = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
+        qscale = 1.0
 
     out = _btnh_like(q)
     lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q.device)
     fn = _kernel("flash_fwd", "flash_fwd",
-                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 13 + [ctypes.c_float, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 12 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         _launch(
-            fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _ptr(kv_lens), _ptr(rope_cos), _ptr(rope_sin),
+            fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(kv_lens),
             batch, heads, seq_q, seq_kv, head_dim, _DTYPE_CODES[q.dtype], variant,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            rope_sn, scale * _LOG2E, _stream(q.device),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], qscale, _stream(q.device),
         )
     return out, lse
 
@@ -470,43 +561,23 @@ def _forward_variant(name: str, variant: int, plain: str, takes_rope: bool, doc:
 
 flash_forward_two_level = _forward_variant(
     "flash_forward_two_level", 1, "flash_forward_two_level_reference", True,
-    "K7c: `flash_forward`'s function through the two-level recurrence. Takes what K1 takes.")
+    "K7c: `flash_forward`'s function through the two-level recurrence, after the pre-pass. Takes what K1 takes.")
 flash_forward_twopass = _forward_variant(
     "flash_forward_twopass", 2, "flash_forward_twopass_reference", True,
-    "K7a: `flash_forward`'s function in two passes (max, then accumulate). Takes what K1 takes.")
+    "K7a: `flash_forward`'s function in two passes (max, then accumulate), after the pre-pass. Takes what K1 "
+    "takes.")
 flash_forward_skew = _forward_variant(
     "flash_forward_skew", 3, "flash_forward_skew_reference", False,
     "K7b: `flash_forward`'s function, software-pipelined. Takes what K1 takes except RoPE tables "
     "(the JAX package gates the skewed kernel off RoPE; `flash_forward` sends such calls to K1).")
 
 
-def flash_bwd_prep(q, k, rope_cos, rope_sin, rope_sn: int, scale: float):
-    """The backward's pre-pass, on operands `flash_backward` has checked:
-    q_s = T(rope(q) * scale * log2e) and, with tables, k_r = T(rope(k)), both
-    (B, N, S, H) contiguous. Without tables k_r is k itself."""
-    batch, heads, seq_q, head_dim = q.shape
-    q_s = torch.empty((batch, heads, seq_q, head_dim), dtype=q.dtype, device=q.device)
-    k_r = k if rope_cos is None else torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    fn = _kernel("flash_bwd", "flash_bwd_prep",
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 7 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        _launch(
-            fn, q.data_ptr(), k.data_ptr(), q_s.data_ptr(), None if rope_cos is None else k_r.data_ptr(),
-            _ptr(rope_cos), _ptr(rope_sin), batch, heads, seq_q, k.shape[2], head_dim, _DTYPE_CODES[q.dtype],
-            *q.stride()[:3], *k.stride()[:3], rope_sn, scale * _LOG2E, _stream(q.device),
-        )
-    flash_bwd_prep.launches += 1
-    return q_s, k_r
-
-
-flash_bwd_prep.launches = 0
-
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9
 
 
 def flash_bwd_dkdv(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn: int):
     """K2 on operands `flash_backward` has checked, with q_s/k_r from
-    `flash_bwd_prep`: (dk, dv), BNSH views of BTNH-contiguous buffers."""
+    `flash_qk_prep`: (dk, dv), BNSH views of BTNH-contiguous buffers."""
     batch, heads, seq_q, head_dim = q_s.shape
     dk, dv = _btnh_like(k_r), _btnh_like(v)
     fn = _kernel("flash_bwd", "flash_bwd_dkdv",
@@ -529,7 +600,7 @@ flash_bwd_dkdv.launches = 0
 
 def flash_bwd_dq(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn: int, scale: float):
     """K3 on operands `flash_backward` has checked, with q_s/k_r from
-    `flash_bwd_prep`: dq, a BNSH view of a BTNH-contiguous buffer."""
+    `flash_qk_prep`: dq, a BNSH view of a BTNH-contiguous buffer."""
     batch, heads, seq_q, head_dim = q_s.shape
     dq = _btnh_like(q_s)
     fn = _kernel("flash_bwd", "flash_bwd_dq",
@@ -552,7 +623,7 @@ flash_bwd_dq.launches = 0
 
 def flash_bwd_fused(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn: int):
     """K5 on operands `flash_backward` has checked, with q_s/k_r from
-    `flash_bwd_prep`: (dq_acc, dk, dv), dq_acc the fp32 (B, N, Sq, H) sum of
+    `flash_qk_prep`: (dq_acc, dk, dv), dq_acc the fp32 (B, N, Sq, H) sum of
     ds k_r before the scale and the transpose rotation (`flash_bwd_dq_emit`),
     dk and dv BNSH views of BTNH-contiguous buffers."""
     batch, heads, seq_q, head_dim = q_s.shape
@@ -635,7 +706,7 @@ def flash_backward(
     scale = head_dim**-0.5 if scale is None else float(scale)
     if delta is None:
         delta = (do.float() * out.float()).sum(-1)
-    q_s, k_r = flash_bwd_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
+    q_s, k_r = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
     if fused:
         dq_acc, dk, dv = flash_bwd_fused(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn)
         return flash_bwd_dq_emit(dq_acc, rope_cos, rope_sin, rope_sn, scale, q.dtype), dk, dv

@@ -27,7 +27,7 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_backward,
     flash_bwd_dkdv,
     flash_bwd_dq,
-    flash_bwd_prep,
+    flash_qk_prep,
     flash_forward,
 )
 
@@ -37,7 +37,7 @@ ATOL, RTOL = 2e-5, 1e-5
 
 
 def _counters():
-    return (flash_forward.launches, flash_bwd_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches)
+    return (flash_forward.launches, flash_qk_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches)
 
 
 @functools.partial(jax.jit, static_argnames=("scale",))

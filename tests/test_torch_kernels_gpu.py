@@ -20,14 +20,16 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_bwd_dq,
     flash_bwd_dq_emit,
     flash_bwd_fused,
-    flash_bwd_prep,
     flash_forward,
+    flash_forward_core,
+    flash_forward_core_reference,
     flash_forward_skew,
     flash_forward_skew_reference,
     flash_forward_two_level,
     flash_forward_two_level_reference,
     flash_forward_twopass,
     flash_forward_twopass_reference,
+    flash_qk_prep,
 )
 from finetrainers_tpu_torch.ops.sage_attention import sage_attention_reference, sage_forward, sage_quantize
 
@@ -56,14 +58,97 @@ def test_flash_forward_kernel_matches_reference(dtype):
         if rope:
             ang = torch.rand(1 if rope == "shared" else n, sq, h // 2, device="cuda", generator=g) * 6.3
             cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
-        before = flash_forward.launches
+        before = _forward_counts()
         out, lse = flash_forward(q, k, v, kv_lens, cos, sin)
         torch.cuda.synchronize()
-        assert flash_forward.launches == before + 1
+        assert _forward_counts() == tuple(c + d for c, d in zip(before, (1, 1, 0, 0)))
         ref_out, ref_lse = flash_attention_reference(q, k, v, kv_lens, cos, sin)
         # bf16/fp16 output against an fp32 reference: about two units in the last place.
         torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2, rtol=2e-2)
         torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+def _forward_counts():
+    """Launches of the pre-pass, K1, K2 and K3."""
+    return flash_qk_prep.launches, flash_forward.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches
+
+
+# (B, N, Sq, Skv, H, rope, kv_lens) for K1 on BNSH views of BTNH buffers, as the model hands them
+# over: lengths of 1000 and 77 (off every 128-row tile), an empty row, per-head and shared tables.
+K1_VIEW_CASES = [
+    (2, 3, 1000, 1000, 64, "per_head", None),
+    (1, 2, 1000, 1000, 128, "shared", None),
+    (2, 4, 1000, 77, 64, None, [77, 0]),
+    (2, 2, 77, 1000, 128, None, [77, 0]),
+    (2, 2, 77, 77, 128, "per_head", [77, 0]),
+    (2, 2, 77, 77, 64, "shared", [30, 0]),
+]
+# chip_smoke.py's K1 bounds: |out - ref| <= K1_TOL * max(1, |ref|) elementwise (about two units in
+# the last place of a bf16 value) and the LSE within LSE_TOL.
+K1_TOL, LSE_TOL = 2e-2, 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_on_btnh_views_matches_reference(dtype, head_dim):
+    """The pre-pass and the wgmma K1 against `flash_attention_reference`, and K1
+    alone against its plain version on the same q_s/k_r; each call launches the
+    pre-pass once and K1 once, and neither K2 nor K3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for b, n, sq, skv, _, rope, lens in [c for c in K1_VIEW_CASES if c[4] == head_dim]:
+        q, k, v = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   for s in (sq, skv, skv))
+        kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cos, sin = _tables(rope, n, sq, head_dim, g)
+        before = _forward_counts()
+        out, lse = flash_forward(q, k, v, kv_lens, cos, sin)
+        torch.cuda.synchronize()
+        assert _forward_counts() == tuple(c + d for c, d in zip(before, (1, 1, 0, 0)))
+        assert out.dtype == dtype and out.transpose(1, 2).is_contiguous()
+        ref, ref_lse = flash_attention_reference(q, k, v, kv_lens, cos, sin)
+        err = (out.float() - ref.float()).abs() / ref.float().abs().clamp_min(1.0)
+        assert err.max().item() <= K1_TOL, (b, n, sq, skv, head_dim, rope, lens, err.max().item())
+        assert (lse - ref_lse).abs().max().item() <= LSE_TOL, (b, n, sq, skv, head_dim, rope, lens)
+        rope_sn = 0 if cos is None or cos.shape[0] == 1 else sq * head_dim
+        q_s, k_r = flash_qk_prep(q, k, cos, sin, rope_sn, head_dim**-0.5)
+        core, core_lse = flash_forward_core(q_s, k_r, v, kv_lens)
+        assert torch.equal(core, out) and torch.equal(core_lse, lse)
+        plain, plain_lse = flash_forward_core_reference(q_s, k_r, v, kv_lens)
+        assert ((core.float() - plain.float()).abs() / plain.float().abs().clamp_min(1.0)).max().item() <= K1_TOL
+        assert (core_lse - plain_lse).abs().max().item() <= LSE_TOL
+        if lens is not None and 0 in lens:
+            empty = lens.index(0)
+            assert not out[empty].any()
+            torch.testing.assert_close(lse[empty], torch.full_like(lse[empty], -1e30 * 0.6931471805599453),
+                                       rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_k1_ignores_k_and_v_rows_past_kv_lens(head_dim):
+    """TMA reads the rows of k and v between kv_lens[b] and Skv: filled with large
+    finite values, they must leave out and LSE bit-equal to the same call with
+    those rows zeroed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    b, n, sq, skv, lens = 3, 2, 300, 333, [1, 200, 0]
+    q, k, v = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(torch.bfloat16).transpose(1, 2)
+               for s in (sq, skv, skv))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    runs = []
+    for k_fill, v_fill in ((3e4, -3e4), (0.0, 0.0)):
+        k_f, v_f = k.clone(), v.clone()
+        for bi, length in enumerate(lens):
+            k_f[bi, :, length:] = k_fill
+            v_f[bi, :, length:] = v_fill
+        runs.append(flash_forward(q, k_f, v_f, kv_lens))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert torch.isfinite(runs[0][0]).all()
 
 
 @pytest.mark.gpu
@@ -125,10 +210,10 @@ def test_flash_backward_kernels_match_reference(dtype):
         cos, sin = _tables(rope, n, sq, h, g)
         out, lse = flash_forward(q, k, v, kv_lens, cos, sin)
         do = torch.randn(b, sq, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2)
-        before = (flash_bwd_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches)
+        before = (flash_qk_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches)
         grads = flash_backward(q, k, v, out, lse, do, kv_lens, cos, sin)
         torch.cuda.synchronize()
-        assert (flash_bwd_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches) == tuple(
+        assert (flash_qk_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches) == tuple(
             c + 1 for c in before)
         refs = flash_backward_reference(q, k, v, out, lse, do, kv_lens, cos, sin)
         for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
@@ -172,7 +257,7 @@ def test_flash_backward_rejects_what_the_kernels_do_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     lse = torch.zeros(1, 2, 16, device="cuda")
-    before = (flash_bwd_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches)
+    before = (flash_qk_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches)
     q = torch.zeros(1, 2, 16, 32, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_backward(q, q, q, q, lse, q)
@@ -186,7 +271,7 @@ def test_flash_backward_rejects_what_the_kernels_do_not_take():
     cos = torch.ones(1, 16, 64, device="cuda")
     with pytest.raises(ValueError, match="Sq == Skv"):
         flash_backward(q, k, k, q, lse, q, rope_cos=cos, rope_sin=cos)
-    assert (flash_bwd_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches) == before
+    assert (flash_qk_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches) == before
 
 
 _VARIANTS = {
@@ -243,8 +328,11 @@ def test_forward_switches_pick_the_kernel(monkeypatch):
     ):
         monkeypatch.setenv(env, "1")
         before = [c.launches for c in counters]
+        prep_before = flash_qk_prep.launches
         flash_forward(q, q, q, None, *((cos, sin) if tables else (None, None)))
         assert [c.launches - n for c, n in zip(counters, before)] == [int(c is launched) for c in counters], env
+        # Every forward but K7b runs the pre-pass first.
+        assert flash_qk_prep.launches - prep_before == int(launched is not flash_forward_skew), env
         monkeypatch.delenv(env)
 
 
@@ -265,7 +353,7 @@ def test_fused_backward_kernel_matches_reference(dtype, monkeypatch):
         cos, sin = _tables(rope, n, sq, h, g)
         out, lse = flash_forward(q, k, v, kv_lens, cos, sin)
         do = torch.randn(b, sq, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2)
-        counters = (flash_bwd_prep, flash_bwd_dkdv, flash_bwd_dq, flash_bwd_fused, flash_bwd_dq_emit)
+        counters = (flash_qk_prep, flash_bwd_dkdv, flash_bwd_dq, flash_bwd_fused, flash_bwd_dq_emit)
         before = [c.launches for c in counters]
         grads = flash_backward(q, k, v, out, lse, do, kv_lens, cos, sin)
         torch.cuda.synchronize()
