@@ -8,9 +8,10 @@ every kernel switch of the flash attention.
 Phases, each printed on its own line:
   1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
   2. the nvcc builds of the hand-written kernels, one process per source, all
-     started together: K1 (`csrc/flash_fwd_sm90.cu`, wgmma and TMA), K7a/b/c
-     (`csrc/flash_fwd.cu`), K2, K3, K5, K5's dq emit and the pre-pass that
-     every forward but K7b and every backward runs first
+     started together: K1 (`csrc/flash_fwd_sm90.cu`, wgmma and TMA), K2 and K3
+     (`csrc/flash_bwd_sm90.cu`, wgmma and TMA, with K2's reduce pass for a
+     split q loop), K7a/b/c (`csrc/flash_fwd.cu`), K5, K5's dq emit and the
+     pre-pass that every forward but K7b and every backward runs first
      (`csrc/flash_bwd.cu`) and K6 (`csrc/sage_fwd.cu`), timed, with ptxas'
      register, spill and warning lines;
   3. K1 against its plain PyTorch version (`flash_forward_core_reference` on
@@ -21,9 +22,13 @@ Phases, each printed on its own line:
      large values) and Wan's cross-attention shapes, with errors and median
      CUDA-event times of K1 alone and of the pre-pass;
   4. K2, K3 and the pre-pass against `flash_backward_reference` in bf16 at the
-     training path's shapes (LTX self-attention with per-head RoPE tables,
+     training paths' shapes (LTX self-attention with per-head RoPE tables,
      cross-attention with kv_lens, a ragged case with an empty row, H=128 with
-     shared tables), with errors, times and the torch SDPA backward as a
+     shared tables, and Wan's training self-attention (1, 12, 19968, 128) with
+     the shared Wan tables and cross-attention over 512 keys at full width,
+     held one head at a time), with errors, CUDA-event and device times of K2
+     and K3 and of their plain versions (`flash_bwd_dkdv_reference`,
+     `flash_bwd_dq_reference`), bounds and the torch SDPA backward as a
      library yardstick;
   5. K6 against `sage_attention_reference` on the same int8 codes and scales
      (Wan self-attention with rotated q/k, Wan cross-attention over 512 text
@@ -107,13 +112,16 @@ from finetrainers_tpu_torch.ops import attention as attention_ops
 from finetrainers_tpu_torch.ops import sage_attention as sage_ops
 from finetrainers_tpu_torch.ops.flash_attention import (
     _rope_bwd,
+    dkdv_splits,
     flash_attention_reference,
     flash_backward,
     flash_backward_fused_reference,
     flash_backward_reference,
     flash_bwd_dkdv,
+    flash_bwd_dkdv_reference,
     flash_bwd_dq,
     flash_bwd_dq_emit,
+    flash_bwd_dq_reference,
     flash_bwd_fused,
     flash_forward,
     flash_forward_core,
@@ -214,6 +222,30 @@ def cuda_ms(fn, iters=10, warmup=2):
     return statistics.median(times)
 
 
+def device_ms(fn, kernels, calls=5):
+    """Device time of one call of `fn` from torch.profiler: over `calls` calls
+    (after one warm-up), the durations of the kernels whose names contain one
+    of `kernels`, summed and divided by the launches of the first (None if
+    no trace holds one). Unlike `cuda_ms` it leaves out the host's time to
+    issue them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the trace now and then comes back without the kernels' events: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA
+                  and not getattr(evt, "is_user_annotation", False) and any(k in evt.name for k in kernels)]
+        launches = sum(kernels[0] in evt.name for evt in events)
+        if launches:
+            return sum(evt.time_range.elapsed_us() for evt in events) / launches / 1e3
+    return None
+
+
 def bound(flops, nbytes):
     """The least time the card could take: (ms, "operations" or "bytes")."""
     ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
@@ -256,9 +288,12 @@ def ltx_train_step_flops(cfg: dict, lora_rank: int, remat_factor: float, B: int,
     return fwd * (2.0 + remat_factor)
 
 
+# Kernel names of K2 (with its reduce pass) and K3, for `device_ms`.
+K2_KERNELS = ("bwd_dkdv_sm90_kernel", "dkdv_reduce_kernel")
+K3_KERNELS = ("bwd_dq_sm90_kernel",)
 # Profile classes by kernel name; the pre-pass's class counts its forward and backward launches.
-_KERNEL_CLASSES = (("k1", "flash_fwd_sm90_kernel"), ("k2", "bwd_dkdv_kernel"), ("k3", "bwd_dq_kernel"),
-                   ("prep", "rope_prep_kernel"), ("k6", "sage_fwd_kernel"))
+_KERNEL_CLASSES = (("k1", "flash_fwd_sm90_kernel"), ("k2", K2_KERNELS[0]), ("k2_reduce", K2_KERNELS[1]),
+                   ("k3", K3_KERNELS[0]), ("prep", "rope_prep_kernel"), ("k6", "sage_fwd_kernel"))
 
 
 @contextlib.contextmanager
@@ -362,6 +397,20 @@ def k1_bound(b, n, sq, kv_eff, h):
     return bound(4 * n * sq * kv_eff * h, 2 * b * n * sq * h * 2 + 2 * n * kv_eff * h * 2 + b * n * sq * 4)
 
 
+def bwd_bounds(b, n, sq, skv, kv_eff, h, cos):
+    """K2's and K3's least times, (ms, "operations" or "bytes") each, on the
+    pre-pass's operands: K2's four products against q_s, dO, LSE and delta
+    read once, k_r and v of the valid keys read once, dk and dv written once
+    and k's tables read; K3's three products against q_s, dO, LSE, delta and
+    the valid keys read once, dq written once and q's tables read."""
+    q_bytes, kv_eff_bytes, kv_bytes = b * n * sq * h * 2, n * kv_eff * h * 2, b * n * skv * h * 2
+    row_bytes = b * n * sq * 4
+    table_bytes = 2 * cos.numel() * 4 if cos is not None else 0
+    k2_bytes = 2 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + 2 * kv_bytes + table_bytes
+    return (bound(8 * n * sq * kv_eff * h, k2_bytes),
+            bound(6 * n * sq * kv_eff * h, 3 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + table_bytes))
+
+
 def qk_prep_bound(q, k, cos):
     """The pre-pass's least time: q read and q_s written, and with tables k read,
     k_r written and the tables read."""
@@ -448,73 +497,107 @@ def check_k1(card):
     return worst, records
 
 
+def _by_head(fn, n, tensors, tables):
+    """`fn(*tensors, *tables)` one head at a time, the results joined along the
+    head dim: `tensors` are BNSH or (B, N, S) and are cut on dim 1, `tables`
+    (N or 1, S, H) on dim 0 unless shared. The plain backward at Wan's shape
+    would need ~80 GB of fp32 scores for all heads at once."""
+    def table(t, i):
+        return t if t is None or t.shape[0] == 1 else t[i:i + 1]
+
+    outs = [fn(*(x[:, i:i + 1] for x in tensors), *(table(t, i) for t in tables)) for i in range(n)]
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
 def check_k2k3(card):
     """The pre-pass, K2 and K3 against their plain versions at the training
-    path's shapes; returns the worst errors and the self-attention records."""
+    paths' shapes: LTX's self-attention with per-head tables, LTX's
+    cross-attention with kv_lens, a ragged case with an empty row, H=128 with
+    shared tables, and Wan's training self-attention (shared Wan tables) and
+    cross-attention (kv_lens [512]) at full width, the Wan cases held against
+    `flash_backward_reference` one head at a time. Returns the worst errors and
+    the records by case."""
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = {
         "self_rope": dict(b=1, n=32, sq=2688, skv=2688, h=64, lens=None, rope="ltx"),
         "cross_kv_lens": dict(b=1, n=32, sq=2688, skv=128, h=64, lens=[37], rope=None),
         "ragged_empty_row": dict(b=2, n=32, sq=1000, skv=77, h=64, lens=[77, 0], rope=None),
         "h128_shared_rope": dict(b=1, n=12, sq=4096, skv=4096, h=128, lens=None, rope="shared"),
+        "wan_train_self_shared_rope": dict(b=1, n=12, sq=WAN_TOKENS, skv=WAN_TOKENS, h=128, lens=None, rope="wan"),
+        "wan_train_cross_kv_lens": dict(b=1, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[512], rope=None),
     }
     worst = {"prep": 0.0, "k2": 0.0, "k3": 0.0}
     records = {}
     for name, c in cases.items():
         b, n, sq, skv, h = c["b"], c["n"], c["sq"], c["skv"], c["h"]
-        q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
-                   for s in (sq, skv, skv))
-        do = torch.randn(b, sq, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
-        lens = None if c["lens"] is None else torch.tensor(c["lens"], dtype=torch.int32, device="cuda")
-        cos = sin = None
-        if c["rope"] == "ltx":
-            cos, sin = ltx_tables(n, h)
-        elif c["rope"] == "shared":
-            ang = torch.rand(1, sq, h // 2, generator=g, device="cuda") * 6.3
-            cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
+        q, k, v, do, lens, cos, sin = _bwd_case_inputs(c, g)
         rope_sn = 0 if cos is None or cos.shape[0] == 1 else sq * h
         scale = h**-0.5
+        by_head = sq * skv > 4096 * 4096
         out, lse = flash_forward(q, k, v, lens, cos, sin)
         delta = (do.float() * out.float()).sum(-1)
 
         grads = flash_backward(q, k, v, out, lse, do, lens, cos, sin)
         q_s, k_r = flash_qk_prep(q, k, cos, sin, rope_sn, scale)
         torch.cuda.synchronize()
-        refs = flash_backward_reference(q, k, v, out, lse, do, lens, cos, sin)
+        if by_head:
+            refs = _by_head(lambda *a: flash_backward_reference(*a[:6], lens, *a[6:]), n, (q, k, v, out, lse, do),
+                            (cos, sin))
+        else:
+            refs = flash_backward_reference(q, k, v, out, lse, do, lens, cos, sin)
         ref_qs, ref_kr = flash_qk_prep_reference(q, k, cos, sin, scale)
         errors = {gname: rel_errors(got, ref) for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs)}
         errors["q_s"] = rel_errors(q_s, ref_qs)
         if cos is not None:
             errors["k_r"] = rel_errors(k_r, ref_kr)
         finite = all(bool(torch.isfinite(x).all()) for x in (*grads, q_s, k_r))
+        del refs, ref_qs, ref_kr
 
+        operands = (q_s, k_r, v, do, lse, delta, lens, cos, sin)
+
+        def plain_k2():
+            if by_head:
+                return _by_head(lambda *a: flash_bwd_dkdv_reference(*a[:6], lens, *a[6:]), n, operands[:6], (cos, sin))
+            return flash_bwd_dkdv_reference(*operands)
+
+        def plain_k3():
+            if by_head:
+                return _by_head(lambda *a: (flash_bwd_dq_reference(*a[:6], lens, *a[6:], scale),), n,
+                                operands[:6], (cos, sin))
+            return flash_bwd_dq_reference(*operands, scale)
+
+        plain_iters = 1 if by_head else 3
         prep_ms = cuda_ms(lambda: flash_qk_prep(q, k, cos, sin, rope_sn, scale))
         prep_plain_ms = cuda_ms(lambda: flash_qk_prep_reference(q, k, cos, sin, scale))
-        k2_ms = cuda_ms(lambda: flash_bwd_dkdv(q_s, k_r, v, do, lse, delta, lens, cos, sin, rope_sn))
-        k3_ms = cuda_ms(lambda: flash_bwd_dq(q_s, k_r, v, do, lse, delta, lens, cos, sin, rope_sn, scale))
+        k2_ms = cuda_ms(lambda: flash_bwd_dkdv(*operands, rope_sn))
+        k3_ms = cuda_ms(lambda: flash_bwd_dq(*operands, rope_sn, scale))
+        k2_device_ms = device_ms(lambda: flash_bwd_dkdv(*operands, rope_sn), K2_KERNELS)
+        k3_device_ms = device_ms(lambda: flash_bwd_dq(*operands, rope_sn, scale), K3_KERNELS)
         backward_ms = cuda_ms(lambda: flash_backward(q, k, v, out, lse, do, lens, cos, sin))
-        plain_ms = cuda_ms(lambda: flash_backward_reference(q, k, v, out, lse, do, lens, cos, sin), iters=3)
+        k2_plain_ms = cuda_ms(plain_k2, iters=plain_iters, warmup=plain_iters - 1)
+        k3_plain_ms = cuda_ms(plain_k3, iters=plain_iters, warmup=plain_iters - 1)
         # torch SDPA's backward (dq, dk, dv in one call, no fused rotation): a library yardstick only.
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
         mask = None if lens is None else (torch.arange(skv, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
         sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
         sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True))
+        del sdpa_out, leaves
 
         kv_eff = sum(c["lens"]) if c["lens"] else b * skv
-        q_bytes, kv_eff_bytes, kv_bytes = b * n * sq * h * 2, n * kv_eff * h * 2, b * n * skv * h * 2
-        row_bytes = b * n * sq * 4
-        table_bytes = 2 * cos.numel() * 4 if cos is not None else 0
-        k2_bound = bound(8 * n * sq * kv_eff * h, 2 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + 2 * kv_bytes
-                         + table_bytes)
-        k3_bound = bound(6 * n * sq * kv_eff * h, 3 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + table_bytes)
-        prep_bound = bound(0, 2 * q_bytes + (2 * kv_bytes + table_bytes if cos is not None else 0))
+        k2_bound, k3_bound = bwd_bounds(b, n, sq, skv, kv_eff, h, cos)
+        prep_bound = bound(0, 2 * b * n * sq * h * 2 + (2 * b * n * skv * h * 2 + 2 * cos.numel() * 4
+                                                        if cos is not None else 0))
+        splits = dkdv_splits(b, n, sq, skv, torch.cuda.get_device_properties(0).multi_processor_count)
         phase("k2k3_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
-              rel_l2={k_: e[0] for k_, e in errors.items()}, max_err_over_max_ref={k_: e[1] for k_, e in errors.items()},
+              plain_by_head=by_head, k2_splits=splits[0], rel_l2={k_: e[0] for k_, e in errors.items()},
+              max_err_over_max_ref={k_: e[1] for k_, e in errors.items()},
               max_abs_err={k_: e[2] for k_, e in errors.items()}, finite=finite,
-              prep_ms=prep_ms, prep_plain_ms=prep_plain_ms, k2_ms=k2_ms, k3_ms=k3_ms, flash_backward_ms=backward_ms, plain_ms=plain_ms,
-              sdpa_backward_ms=sdpa_bwd_ms, k2_bound_ms=k2_bound[0], k3_bound_ms=k3_bound[0],
-              prep_bound_ms=prep_bound[0], k2_tflops=8 * n * sq * kv_eff * h / k2_ms / 1e9,
-              k3_tflops=6 * n * sq * kv_eff * h / k3_ms / 1e9, card=card)
+              prep_ms=prep_ms, prep_plain_ms=prep_plain_ms, k2_ms=k2_ms, k3_ms=k3_ms, k2_device_ms=k2_device_ms,
+              k3_device_ms=k3_device_ms, flash_backward_ms=backward_ms, k2_plain_ms=k2_plain_ms,
+              k3_plain_ms=k3_plain_ms, sdpa_backward_ms=sdpa_bwd_ms, k2_bound_ms=k2_bound[0], k3_bound_ms=k3_bound[0],
+              k2_bound_by=k2_bound[1], k3_bound_by=k3_bound[1], prep_bound_ms=prep_bound[0],
+              k2_tflops=8 * n * sq * kv_eff * h / k2_ms / 1e9, k3_tflops=6 * n * sq * kv_eff * h / k3_ms / 1e9,
+              card=card)
         bad = [k_ for k_, e in errors.items() if not (e[0] <= BWD_REL_L2_TOL and e[1] <= BWD_MAX_RATIO_TOL)]
         if bad or not finite:
             raise AssertionError(f"the backward kernels disagree with their reference on {name}: {bad}, "
@@ -526,9 +609,12 @@ def check_k2k3(card):
         worst["prep"] = max(worst["prep"], errors["q_s"][2], errors.get("k_r", (0, 0, 0))[2])
         worst["k2"] = max(worst["k2"], errors["dk"][2], errors["dv"][2])
         worst["k3"] = max(worst["k3"], errors["dq"][2])
-        records[name] = dict(prep=(prep_ms, prep_plain_ms, None, *prep_bound), k2=(k2_ms, plain_ms, sdpa_bwd_ms, *k2_bound),
-                             k3=(k3_ms, plain_ms, sdpa_bwd_ms, *k3_bound))
-    return worst, records["self_rope"]
+        records[name] = dict(prep=(prep_ms, prep_plain_ms, None, *prep_bound),
+                             k2=(k2_ms, k2_plain_ms, sdpa_bwd_ms, *k2_bound),
+                             k3=(k3_ms, k3_plain_ms, sdpa_bwd_ms, *k3_bound),
+                             k2_device_ms=k2_device_ms, k3_device_ms=k3_device_ms)
+        del q, k, v, do, out, lse, delta, grads, q_s, k_r, operands
+    return worst, records
 
 
 def wan_tables():
@@ -681,14 +767,17 @@ def _bwd_case_inputs(c, g):
         cos, sin = ltx_tables(n, h)
     elif c["rope"] == "wan":
         cos, sin = (t[None].contiguous() for t in wan_tables())
+    elif c["rope"] == "shared":
+        ang = torch.rand(1, sq, h // 2, generator=g, device="cuda") * 6.3
+        cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
     return q, k, v, do, lens, cos, sin
 
 
 def check_k5(card):
     """K5 and its dq emit (after the pre-pass) against K5's plain version and
     against K2+K3 at the training paths' shapes, including Wan's; returns the
-    worst errors and the records of the Wan case (K5, emit, and K1/K2/K3 at
-    Wan's training shape) and of LTX's self-attention."""
+    worst errors and the records of the Wan case (K5, emit, and K1 at Wan's
+    training shape) and of LTX's self-attention."""
     g = torch.Generator(device="cuda").manual_seed(9)
     cases = {
         "ltx_self_rope": dict(b=1, n=32, sq=2688, skv=2688, h=64, lens=None, rope="ltx"),
@@ -750,9 +839,7 @@ def check_k5(card):
         k5_bound = bound(10 * n * sq * kv_eff * h, 2 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + 2 * kv_bytes
                          + 2 * q_bytes + table_bytes)
         emit_bound = bound(0, 2 * q_bytes + q_bytes + table_bytes)
-        k2_bound = bound(8 * n * sq * kv_eff * h, 2 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + 2 * kv_bytes
-                         + table_bytes)
-        k3_bound = bound(6 * n * sq * kv_eff * h, 3 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + table_bytes)
+        k2_bound, k3_bound = bwd_bounds(b, n, sq, skv, kv_eff, h, cos)
         k1_b = k1_bound(b, n, sq, kv_eff, h)
         phase("k5_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
               rel_l2={k_: e[0] for k_, e in errors.items()}, max_err_over_max_ref={k_: e[1] for k_, e in errors.items()},
@@ -778,9 +865,7 @@ def check_k5(card):
         worst["k5_emit"] = max(worst["k5_emit"], emit_errors[2])
         records[name] = dict(
             k5=(k5_ms, plain_ms, sdpa_bwd_ms, *k5_bound), k5_emit=(emit_ms, emit_plain_ms, None, *emit_bound),
-            k1=(k1_ms, None, sdpa_fwd_ms, *k1_b), k2=(k2_ms, None, sdpa_bwd_ms, *k2_bound),
-            k3=(k3_ms, None, sdpa_bwd_ms, *k3_bound), k2k3_backward_ms=split_backward_ms,
-            fused_backward_ms=fused_backward_ms)
+            k1=(k1_ms, None, sdpa_fwd_ms, *k1_b), fused_backward_ms=fused_backward_ms)
         del q, k, v, do, out, lse, fused, split, q_s, k_r, dq_acc, emitted, refs
     return worst, records["wan_self_shared_rope"], records["ltx_self_rope"]
 
@@ -1175,6 +1260,7 @@ def train(card):
     for cls in ("k2", "k3", "prep"):
         self_ms, cross_ms = _split(prof["launches"][cls], by_order=False)
         per_launch[cls] = {"self_attention": _median(self_ms), "cross_attention": _median(cross_ms)}
+    per_launch["k2_reduce"] = {"cross_attention": _median(prof["launches"]["k2_reduce"])}  # split q loops only
     classes = dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()})
     phase("train_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
           idle_share=prof["idle_share"], ms_by_class=classes, host_seconds=host,
@@ -1361,6 +1447,7 @@ def wan_train(card):
     for cls in ("k1", "k2", "k3", "prep"):
         self_ms, cross_ms = _split(prof["launches"][cls], by_order=False)
         per_launch[cls] = {"self_attention": _median(self_ms), "cross_attention": _median(cross_ms)}
+    per_launch["k2_reduce"] = {"cross_attention": _median(prof["launches"]["k2_reduce"])}  # split q loops only
     classes = dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()})
     phase("wan_train_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
           idle_share=prof["idle_share"], ms_by_class=classes, host_seconds=host,
@@ -1417,7 +1504,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    sources = ("flash_fwd_sm90", "flash_fwd", "flash_bwd", "sage_fwd")
+    sources = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd", "flash_bwd", "sage_fwd")
     _build.load_libraries(sources)
     builds = {name: {"seconds": _build.BUILD_LOG[name]["seconds"], **ptxas_summary(_build.BUILD_LOG[name]["log"])}
               for name in sources}
@@ -1443,7 +1530,7 @@ def main():
         return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches, max_abs_err=err,
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, **extra)
 
-    def wan_shape(record):  # a K1/K2/K3 record of check_k5 at Wan's training shape (no plain version timed there)
+    def wan_shape(record):  # a K1 record of check_k5 at Wan's training shape (no plain version timed there)
         ms, _, library_ms, bound_ms, bound_by = record
         return dict(shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128], ms=ms, library_ms=library_ms, bound_ms=bound_ms,
                     bound_by=bound_by)
@@ -1454,6 +1541,17 @@ def main():
                      k7_err[key], (r["ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"]),
                      launches_by_path={f"wan_train_{key}": wan_paths[f"wan_train_{key}"][key]},
                      by_case=r["by_case"], library_note="torch SDPA forward, without the fused rotation")
+
+    def bwd_entry(key, name, replaces):  # K2 or K3: the Wan training self-attention case, the others by case
+        fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        return entry(name, "finetrainers_tpu_torch/csrc/flash_bwd_sm90.cu", replaces, wan[key], bwd_err[key],
+                     bwd["wan_train_self_shared_rope"][key],
+                     launches_by_path={"train": train_launches[key], "wan_train": wan[key]},
+                     shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128],
+                     device_ms=bwd["wan_train_self_shared_rope"][f"{key}_device_ms"],
+                     by_case={case: dict(zip(fields, r[key]), device_ms=r[f"{key}_device_ms"])
+                              for case, r in bwd.items()},
+                     library_note="torch SDPA backward (dq, dk, dv in one call), without the fused rotation")
 
     wan = wan_paths["wan_train"]
     ltx_self = k1["self_rope"]
@@ -1472,7 +1570,7 @@ def main():
               library_note="torch SDPA forward, without the fused rotation"),
         entry("flash_qk_prep (the RoPE and q-scale pre-pass before K1, K7a, K7c, K2/K3 and K5)",
               "finetrainers_tpu_torch/csrc/flash_bwd.cu", "finetrainers_tpu/ops/flash_attention.py:189",
-              serve_launches["prep"], bwd_err["prep"], bwd["prep"],
+              serve_launches["prep"], bwd_err["prep"], bwd["self_rope"]["prep"],
               also_replaces=["finetrainers_tpu/ops/flash_attention.py:961",
                              "finetrainers_tpu/ops/flash_attention.py:1268"],
               launches_by_path={"serve": serve_launches["prep"], "train": train_launches["prep"],
@@ -1480,15 +1578,9 @@ def main():
                                 **{f"wan_train_{key}": wan_paths[f"wan_train_{key}"]["prep"]
                                    for key in ("k7a", "k7b", "k7c", "fused_bwd")}},
               shape_note="timed at LTX's train self-attention (1, 32, 2688, 64) with per-head tables"),
-        entry("bwd_dkdv (K2)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
-              "finetrainers_tpu/ops/flash_attention.py:888", train_launches["k2"], bwd_err["k2"], bwd["k2"],
-              launches_by_path={"train": train_launches["k2"], "wan_train": wan["k2"]},
-              wan_train_self_attention=wan_shape(k5_wan["k2"])),
-        entry("bwd_dq (K3)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
-              "finetrainers_tpu/ops/flash_attention.py:1199", train_launches["k3"], bwd_err["k3"], bwd["k3"],
-              launches_by_path={"train": train_launches["k3"], "wan_train": wan["k3"]},
-              wan_train_self_attention=wan_shape(k5_wan["k3"]),
-              k2_k3_backward_ms_at_wan_shape=k5_wan["k2k3_backward_ms"]),
+        bwd_entry("k2", "bwd_dkdv_sm90 (K2, wgmma + TMA, with its reduce pass where the q loop is split)",
+                  "finetrainers_tpu/ops/flash_attention.py:888"),
+        bwd_entry("k3", "bwd_dq_sm90 (K3, wgmma + TMA)", "finetrainers_tpu/ops/flash_attention.py:1199"),
         entry("bwd_fused (K5)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
               "finetrainers_tpu/ops/flash_attention.py:1038", wan_paths["wan_train_fused_bwd"]["k5"], k5_err["k5"],
               k5_wan["k5"], launches_by_path={"wan_train_fused_bwd": wan_paths["wan_train_fused_bwd"]["k5"]},

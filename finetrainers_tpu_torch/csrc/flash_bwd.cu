@@ -1,55 +1,40 @@
-// Flash attention backward (K2: dk/dv, K3: dq) for Hopper (sm_90a), CUDA C++
-// with mma.sync, and the pre-pass that rotates and scales q and k once per call
-// for the backward and for the forwards (K1, K7a, K7c) alike.
+// The fused flash attention backward K5 for Hopper (sm_90a), CUDA C++ with
+// mma.sync, its dq emit, and the pre-pass that rotates and scales q and k once
+// per call for every backward (K2/K3 in flash_bwd_sm90.cu, K5 here) and for the
+// forwards K1, K7a and K7c.
 //
-// Replaces: finetrainers_tpu/ops/flash_attention.py::_bwd_dkdv_kernel (K2) and
-// ::_bwd_dq_kernel (K3) (Pallas, TPU), driven there by _flash_backward. They
-// compute the same functions, at the same rounding points, in base 2:
-//   q_s = T(rope(q) * scale * log2(e)),  k_r = T(rope(k))      (pre-pass)
+// The pre-pass computes q_s = T(rope(q) * scale * log2(e)) and k_r = T(rope(k)),
+// T() rounding to the input dtype, in place of the JAX kernels' per-tile
+// rotation and q scaling.
+//
+// K5 replaces finetrainers_tpu/ops/flash_attention.py::_bwd_fused_kernel
+// (Pallas, TPU; picked there by FINETRAINERS_FLASH_FUSED_BWD). It computes K2's
+// and K3's functions (flash_bwd_sm90.cu) at the same rounding points, in base 2:
 //   s   = q_s k_r^T                     (fp32 accumulate, base-2 logits)
 //   p   = T(exp2(s - lse * log2(e)))    selected to 0 at kv >= kv_lens[b]
 //   dv  = sum_q p^T dO                  (fp32) -> T
 //   ds  = T(p * T(dO v^T - delta))      delta = rowsum(dO * out), given
 //   dk  = rope^T(ln2 * sum_q ds^T q_s)  -> T
 //   dq  = rope^T(scale * sum_kv ds k_r) -> T
-// where T() rounds to the input dtype and rope^T is the transpose rotation
-// g*cos - rotate(g)*sin (`_rope_bwd`), applied with the tables of k (dk) or of
-// q (dq). Rows with no valid key (kv_lens[b] == 0) get dq = 0; keys at or past
-// kv_lens[b] get dk = dv = 0. The mask is a select, never a multiply: for an
-// empty row the LSE is -1e30*ln2 and exp2 overflows to +inf, which a select
-// discards and a 0/1 product would turn into NaN. Kv tiles at or past
-// kv_lens[b] are skipped altogether.
+// where rope^T is the transpose rotation g*cos - rotate(g)*sin (`_rope_bwd`),
+// applied with the tables of k (dk) or of q (dq). Rows with no valid key
+// (kv_lens[b] == 0) get dq = 0; keys at or past kv_lens[b] get dk = dv = 0. The
+// mask is a select, never a multiply: for an empty row the LSE is -1e30*ln2
+// and exp2 overflows to +inf, which a select discards and a 0/1 product would
+// turn into NaN. Kv tiles at or past kv_lens[b] are skipped altogether.
 //
-// What bounds them on this card: at the LTX self-attention shape (B=1, N=32,
-// S=2688, H=64) K2 does four products, 8*B*N*S*S*H = 118 GFLOP, and K3 three,
-// 89 GFLOP, against ~50 MB of q/k/v/dO/dq/dk/dv: over 2000 operations per byte,
-// far above the H100's ~295 FLOP/byte ridge. So both are compute-bound and the
-// tensor cores are the resource to feed. With cross-attention (128 keys) the
-// products shrink 21-fold and both become bound by reading q and dO.
+// What bounds it on this card: at Wan's training shape (B=1, N=12, S=19,968,
+// H=128) its five products are 10*N*S*S*H = 6.1 TFLOP against ~0.5 GB moved,
+// far above the H100's ~295 FLOP/byte ridge: bound by operations.
 //
-// What this design does about it: every product runs on the tensor cores
-// (mma.sync m16n8k16, bf16/fp16 in, fp32 accumulate); s, p, dp and ds never
-// leave registers (the accumulator fragments are re-packed as A operands); the
-// dk/dv (K2) and dq (K3) accumulators stay in fp32 registers for the whole
-// loop. K2 gives one CTA of 4 warps to a 64-row kv tile of one (batch, head),
-// each warp owning 16 kv rows, so every product is computed in the transposed
-// form (kv rows as the M dimension) and no fragment needs a transpose in
-// registers; it loops over q tiles. K3 gives one CTA to a 64-row q tile and
-// loops over kv tiles up to kv_lens[b]. The streamed tiles (q, dO, LSE, delta
-// in K2; k, v in K3) are double-buffered with cp.async, fetched while the
-// current tile is computed. The RoPE rotation and the q scaling run once per
-// call in the pre-pass instead of once per CTA (re-rotating k in every CTA
-// cost the first K1 ~42% of its time at Wan's shape), so the kernels read
-// plain tiles; only the transpose rotation of dk and dq touches the tables,
-// once per output element.
-// The inner tile is 64 rows at H=64 and 32 at H=128, which keeps the
-// accumulators, s and dp within the register file. Not yet used: wgmma, TMA
-// and warp specialisation.
-//
-// K5 (replaces ::_bwd_fused_kernel, picked there by FINETRAINERS_FLASH_FUSED_BWD)
-// computes the same dq, dk and dv in one pass: K2's CTA, which also adds each
-// q tile's ds k_r into an fp32 (B, N, Sq, H) dq accumulator in device memory,
-// so s, p, dp and ds are computed once per (kv tile, q tile) pair instead of
+// What this design does about it: one CTA of 4 warps owns a 64-row kv tile of
+// one (batch, head), each warp owning 16 kv rows, and loops over q tiles
+// (64 rows at H=64, 32 at H=128), double-buffered with cp.async. Every
+// product is computed in the transposed form (kv rows as the M dimension) on
+// mma.sync m16n8k16, so s, p, dp and ds never leave registers and the dk/dv
+// accumulators stay in fp32 registers for the whole loop. It also adds each q
+// tile's ds k_r into an fp32 (B, N, Sq, H) dq accumulator in device memory, so
+// s, p, dp and ds are computed once per (kv tile, q tile) pair instead of
 // twice. The TPU kernel keeps that accumulator in VMEM; here CTAs of other kv
 // tiles add into the same rows, so each addition is an atomic add (fp32, in an
 // order that varies from run to run). A warp holds ds^T for its 16 kv rows,
@@ -57,7 +42,8 @@
 // each warp computes a 16-row x 64-column piece of the dq tile from there in
 // 32-column chunks, adding each chunk before the next, so no second full
 // accumulator lives in registers. A small emit kernel then applies the scale,
-// the transpose rotation with q's tables and the cast, as K3 does at its end.
+// the transpose rotation with q's tables and the cast. Not yet used: wgmma,
+// TMA and warp specialisation (K2/K3 have them).
 
 #include "flash_common.cuh"
 
@@ -65,9 +51,9 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kBlockM = 16 * kWarps;  // rows a CTA owns: kv rows in K2, q rows in K3
+constexpr int kBlockM = 16 * kWarps;  // kv rows a CTA owns
 
-// Rows of the streamed tile (q rows in K2, kv rows in K3).
+// Rows of the streamed q tile.
 template <int HD>
 __host__ __device__ constexpr int block_n() { return HD == 64 ? 64 : 32; }
 
@@ -140,15 +126,6 @@ __global__ void __launch_bounds__(256) rope_prep_kernel(const PrepParams p) {
     }
     *reinterpret_cast<uint4*>(dst + row * HD + c) = rope_scale_8<T>(val, cos, sin, mul);
   }
-}
-
-// The transpose rotation of one (even, odd) column pair of a gradient, in
-// fp32: y[2i] = g[2i]*c + g[2i+1]*s, y[2i+1] = g[2i+1]*c' - g[2i]*s'
-// (`_rope_bwd`: g*cos - rotate(g)*sin). `cos`/`sin` point at the pair's entries.
-__device__ __forceinline__ float2 rope_bwd_pair(float g0, float g1, const float* cos, const float* sin) {
-  const float2 c = *reinterpret_cast<const float2*>(cos);
-  const float2 s = *reinterpret_cast<const float2*>(sin);
-  return make_float2(g0 * c.x + g1 * s.x, g1 * c.y - g0 * s.y);
 }
 
 // Write a warp's 16 x HD fp32 accumulator (mma C layout) times `mul`, rotated
@@ -282,12 +259,12 @@ __device__ __forceinline__ void add_dq_tile(float* dq_acc, const T* s_ds, const 
   }
 }
 
-// K2 (FUSED false) and K5 (true): one CTA per (kv tile of kBlockM rows, head,
-// batch); loops over q tiles. Each warp owns 16 kv rows and computes s^T, dp^T
-// and ds^T for them, so p^T and ds^T are A operands of dv += p^T dO and
-// dk += ds^T q_s as they stand. K5 also adds each q tile's ds k_r into dq_acc.
-template <typename T, int HD, bool FUSED>
-__global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(const BwdParams p) {
+// K5: one CTA per (kv tile of kBlockM rows, head, batch); loops over q tiles.
+// Each warp owns 16 kv rows and computes s^T, dp^T and ds^T for them, so p^T
+// and ds^T are A operands of dv += p^T dO and dk += ds^T q_s as they stand;
+// each q tile's ds k_r is also added into dq_acc.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) bwd_fused_kernel(const BwdParams p) {
   constexpr int kN = block_n<HD>();
   constexpr int kLds = HD + 8;
   constexpr int kSTiles = kN / 8;
@@ -403,123 +380,23 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(const BwdParams p) {
     }
     // dk += ds^T q_s
     mma_pb<T, HD, kN / 16>(acc_dk, dp, q_tile);
-    if constexpr (FUSED) {
-      // Stage ds^T (already rounded to T) for the dq product; the top of the
-      // next iteration syncs before anyone writes it again.
+    // Stage ds^T (already rounded to T) for the dq product; the top of the
+    // next iteration syncs before anyone writes it again.
 #pragma unroll
-      for (int j = 0; j < kSTiles; ++j) {
+    for (int j = 0; j < kSTiles; ++j) {
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<uint32_t*>(s_ds + (warp * 16 + lane / 4 + r * 8) * (kN + 8) + j * 8 + 2 * (lane % 4)) =
-              Ops<T>::pack(dp[j][2 * r], dp[j][2 * r + 1]);
-      }
-      __syncthreads();
-      add_dq_tile<T, HD, kN>(p.dq_acc + ((int64_t)b * p.heads + n) * p.seq_q * HD, s_ds, s_k, q0, p.seq_q);
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(s_ds + (warp * 16 + lane / 4 + r * 8) * (kN + 8) + j * 8 + 2 * (lane % 4)) =
+            Ops<T>::pack(dp[j][2 * r], dp[j][2 * r + 1]);
     }
+    __syncthreads();
+    add_dq_tile<T, HD, kN>(p.dq_acc + ((int64_t)b * p.heads + n) * p.seq_q * HD, s_ds, s_k, q0, p.seq_q);
   }
 
   // dk carries a surplus log2(e) (the scale*log2e folded into q_s, less the
   // scale ds lacks): ln2 undoes it. Then the transpose rotation, with k's rows.
   store_rows<T, HD>(dk, p.dk_ss, acc_dk, row0, p.seq_kv, kLn2, cos, sin);
   store_rows<T, HD>(dv, p.dv_ss, acc_dv, row0, p.seq_kv, 1.f, nullptr, nullptr);
-}
-
-// K3: one CTA per (q tile of kBlockM rows, head, batch); loops over kv tiles up
-// to kv_lens[b]. Each warp owns 16 q rows.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) bwd_dq_kernel(const BwdParams p) {
-  constexpr int kN = block_n<HD>();
-  constexpr int kLds = HD + 8;
-  constexpr int kSTiles = kN / 8;
-  constexpr int kOTiles = HD / 8;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_q = reinterpret_cast<T*>(smem);
-  T* s_do = s_q + kBlockM * kLds;
-  T* s_k = s_do + kBlockM * kLds;  // two k tiles
-  T* s_v = s_k + 2 * kN * kLds;    // two v tiles
-
-  const int q0 = blockIdx.x * kBlockM;
-  const int n = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  int kv_len = p.seq_kv;
-  if (p.kv_lens != nullptr) kv_len = min(max(p.kv_lens[b], 0), p.seq_kv);
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + n * p.q_sn;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + n * p.k_sn;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + n * p.v_sn;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + n * p.do_sn;
-  T* dq = static_cast<T*>(p.dq) + b * p.dq_sb + n * p.dq_sn;
-  const float* cos = p.rope_cos != nullptr ? p.rope_cos + n * p.rope_sn : nullptr;
-  const float* sin = p.rope_sin != nullptr ? p.rope_sin + n * p.rope_sn : nullptr;
-  const int num_tiles = (kv_len + kN - 1) / kN;
-
-  copy_tile_async<T, HD, kBlockM, kThreads>(s_q, q + q0 * p.q_ss, p.q_ss, p.seq_q - q0);
-  copy_tile_async<T, HD, kBlockM, kThreads>(s_do, dout + q0 * p.do_ss, p.do_ss, p.seq_q - q0);
-  if (num_tiles > 0) {
-    copy_tile_async<T, HD, kN, kThreads>(s_k, k, p.k_ss, p.seq_kv);
-    copy_tile_async<T, HD, kN, kThreads>(s_v, v, p.v_ss, p.seq_kv);
-  }
-  cp_async_commit();
-
-  // This thread's two q rows: base-2 LSE and delta (padded rows read 0; their
-  // results are never stored).
-  const int row0 = q0 + warp * 16;
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + lane / 4 + r * 8;
-    const int64_t at = ((int64_t)b * p.heads + n) * p.seq_q + row;
-    lse2[r] = row < p.seq_q ? p.lse[at] * kLog2e : 0.f;
-    dl[r] = row < p.seq_q ? p.delta[at] : 0.f;
-  }
-
-  float acc[kOTiles][4];
-  zero<kOTiles>(acc);
-  for (int t = 0; t < num_tiles; ++t) {
-    const int k0 = t * kN;
-    const T* k_tile = s_k + (t & 1) * kN * kLds;
-    const T* v_tile = s_v + (t & 1) * kN * kLds;
-    cp_async_wait_all();
-    __syncthreads();
-    if (t + 1 < num_tiles) {
-      const int k1 = k0 + kN;
-      copy_tile_async<T, HD, kN, kThreads>(s_k + ((t + 1) & 1) * kN * kLds, k + k1 * p.k_ss, p.k_ss, p.seq_kv - k1);
-      copy_tile_async<T, HD, kN, kThreads>(s_v + ((t + 1) & 1) * kN * kLds, v + k1 * p.v_ss, p.v_ss, p.seq_kv - k1);
-      cp_async_commit();
-    }
-
-    // s = q_s k_r^T for this warp's 16 q rows x kN kv columns.
-    float s[kSTiles][4];
-    zero<kSTiles>(s);
-    mma_abt<T, HD, HD / 16, kSTiles>(s, s_q + warp * 16 * kLds, k_tile);
-#pragma unroll
-    for (int j = 0; j < kSTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * (lane % 4) + (e & 1);
-        const float pv = Ops<T>::round(fast_exp2(s[j][e] - lse2[e / 2]));
-        s[j][e] = col < kv_len ? pv : 0.f;
-      }
-    }
-    // dp = dO v^T
-    float dp[kSTiles][4];
-    zero<kSTiles>(dp);
-    mma_abt<T, HD, HD / 16, kSTiles>(dp, s_do + warp * 16 * kLds, v_tile);
-#pragma unroll
-    for (int j = 0; j < kSTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[j][e] = Ops<T>::round(s[j][e] * Ops<T>::round(dp[j][e] - dl[e / 2]));
-    }
-    // dq += ds k_r
-    mma_pb<T, HD, kN / 16>(acc, dp, k_tile);
-  }
-
-  // ds lacked the softmax scale (it was folded into q_s): apply it, then the
-  // transpose rotation with q's rows.
-  store_rows<T, HD>(dq, p.dq_ss, acc, row0, p.seq_q, p.scale, cos, sin);
 }
 
 template <typename T, int HD>
@@ -554,16 +431,16 @@ __global__ void __launch_bounds__(256) dq_emit_kernel(const BwdParams p, int bat
   }
 }
 
-template <typename T, int HD, bool FUSED>
-cudaError_t launch_dkdv(const BwdParams& p, int batch, cudaStream_t stream) {
+template <typename T, int HD>
+cudaError_t launch_fused(const BwdParams& p, int batch, cudaStream_t stream) {
   constexpr int kN = block_n<HD>();
   const size_t smem = (2 * kBlockM + 4 * kN) * (HD + 8) * sizeof(T) + 4 * kN * sizeof(float) +
-                      (FUSED ? kBlockM * (kN + 8) * sizeof(T) : 0);
-  cudaError_t err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, HD, FUSED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                      kBlockM * (kN + 8) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(bwd_fused_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seq_kv + kBlockM - 1) / kBlockM, p.heads, batch);
-  bwd_dkdv_kernel<T, HD, FUSED><<<grid, kThreads, smem, stream>>>(p);
+  bwd_fused_kernel<T, HD><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -571,18 +448,6 @@ template <typename T, int HD>
 cudaError_t launch_dq_emit(const BwdParams& p, int batch, cudaStream_t stream) {
   const int64_t blocks = ((int64_t)batch * p.heads * p.seq_q * (HD / 2) + 255) / 256;
   dq_emit_kernel<T, HD><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(p, batch);
-  return cudaGetLastError();
-}
-
-template <typename T, int HD>
-cudaError_t launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr int kN = block_n<HD>();
-  const size_t smem = (2 * kBlockM + 4 * kN) * (HD + 8) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(bwd_dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.seq_q + kBlockM - 1) / kBlockM, p.heads, batch);
-  bwd_dq_kernel<T, HD><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -644,25 +509,6 @@ extern "C" int flash_qk_prep(const void* q, const void* k, void* q_out, void* k_
   return cudaErrorInvalidValue;
 }
 
-// K2. strides: q, k, v, dO, dk, dv, each (batch, head, seq).
-extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                              const void* delta, const void* kv_lens, const void* rope_cos, const void* rope_sin,
-                              void* dk, void* dv, int batch, int heads, int seq_q, int seq_kv, int head_dim,
-                              int dtype, const int64_t* strides, int64_t rope_sn, void* stream) {
-  BwdParams p = make_params(q, k, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, heads, seq_q, seq_kv, strides,
-                            rope_sn);
-  p.dk = dk;
-  p.dv = dv;
-  p.dk_sb = strides[12]; p.dk_sn = strides[13]; p.dk_ss = strides[14];
-  p.dv_sb = strides[15]; p.dv_sn = strides[16]; p.dv_ss = strides[17];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_dkdv<__nv_bfloat16, 64, false>(p, batch, s);
-  if (dtype == 0 && head_dim == 128) return launch_dkdv<__nv_bfloat16, 128, false>(p, batch, s);
-  if (dtype == 1 && head_dim == 64) return launch_dkdv<__half, 64, false>(p, batch, s);
-  if (dtype == 1 && head_dim == 128) return launch_dkdv<__half, 128, false>(p, batch, s);
-  return cudaErrorInvalidValue;
-}
-
 // K5. strides: q, k, v, dO, dk, dv, each (batch, head, seq). dq_acc is an fp32
 // (B, N, Sq, H) contiguous buffer of zeros, which K5 adds into.
 extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -677,10 +523,10 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, cons
   p.dk_sb = strides[12]; p.dk_sn = strides[13]; p.dk_ss = strides[14];
   p.dv_sb = strides[15]; p.dv_sn = strides[16]; p.dv_ss = strides[17];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_dkdv<__nv_bfloat16, 64, true>(p, batch, s);
-  if (dtype == 0 && head_dim == 128) return launch_dkdv<__nv_bfloat16, 128, true>(p, batch, s);
-  if (dtype == 1 && head_dim == 64) return launch_dkdv<__half, 64, true>(p, batch, s);
-  if (dtype == 1 && head_dim == 128) return launch_dkdv<__half, 128, true>(p, batch, s);
+  if (dtype == 0 && head_dim == 64) return launch_fused<__nv_bfloat16, 64>(p, batch, s);
+  if (dtype == 0 && head_dim == 128) return launch_fused<__nv_bfloat16, 128>(p, batch, s);
+  if (dtype == 1 && head_dim == 64) return launch_fused<__half, 64>(p, batch, s);
+  if (dtype == 1 && head_dim == 128) return launch_fused<__half, 128>(p, batch, s);
   return cudaErrorInvalidValue;
 }
 
@@ -704,23 +550,5 @@ extern "C" int flash_bwd_dq_emit(const void* dq_acc, const void* rope_cos, const
   if (dtype == 0 && head_dim == 128) return launch_dq_emit<__nv_bfloat16, 128>(p, batch, s);
   if (dtype == 1 && head_dim == 64) return launch_dq_emit<__half, 64>(p, batch, s);
   if (dtype == 1 && head_dim == 128) return launch_dq_emit<__half, 128>(p, batch, s);
-  return cudaErrorInvalidValue;
-}
-
-// K3. strides: q, k, v, dO, dq, each (batch, head, seq).
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                            const void* delta, const void* kv_lens, const void* rope_cos, const void* rope_sin,
-                            void* dq, int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype,
-                            const int64_t* strides, int64_t rope_sn, float scale, void* stream) {
-  BwdParams p = make_params(q, k, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, heads, seq_q, seq_kv, strides,
-                            rope_sn);
-  p.dq = dq;
-  p.dq_sb = strides[12]; p.dq_sn = strides[13]; p.dq_ss = strides[14];
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_dq<__nv_bfloat16, 64>(p, batch, s);
-  if (dtype == 0 && head_dim == 128) return launch_dq<__nv_bfloat16, 128>(p, batch, s);
-  if (dtype == 1 && head_dim == 64) return launch_dq<__half, 64>(p, batch, s);
-  if (dtype == 1 && head_dim == 128) return launch_dq<__half, 128>(p, batch, s);
   return cudaErrorInvalidValue;
 }

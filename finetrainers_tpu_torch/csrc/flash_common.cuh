@@ -1,8 +1,9 @@
 // Device helpers shared by the attention kernels (flash_fwd_sm90.cu: K1,
-// flash_fwd.cu: K7a-c, flash_bwd.cu: the pre-pass, K2, K3, K5, sage_fwd.cu:
-// K6): the bf16/fp16 mma.sync m16n8k16 wrappers, ldmatrix, cp.async, the
-// base-2 exponential and the fused interleaved-pair RoPE. `ops/_build.py` hashes every header of csrc/ into each
-// library's name, so an edit here rebuilds them all.
+// flash_bwd_sm90.cu: K2, K3, flash_fwd.cu: K7a-c, flash_bwd.cu: the pre-pass,
+// K5, sage_fwd.cu: K6): the bf16/fp16 mma.sync m16n8k16 wrappers, ldmatrix,
+// cp.async, the base-2 exponential, the fused interleaved-pair RoPE and its
+// transpose. `ops/_build.py` hashes every header of csrc/ into each library's
+// name, so an edit here rebuilds them all.
 
 #pragma once
 
@@ -125,6 +126,15 @@ __device__ __forceinline__ uint4 rope_scale_8(uint4 val, const float* cos, const
 #pragma unroll
   for (int i = 0; i < 4; ++i) w[i] = Ops<T>::pack(x[2 * i] * mul, x[2 * i + 1] * mul);
   return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The transpose rotation of one (even, odd) column pair of a gradient, in
+// fp32: y[2i] = g[2i]*c + g[2i+1]*s, y[2i+1] = g[2i+1]*c' - g[2i]*s'
+// (`_rope_bwd`: g*cos - rotate(g)*sin). `cos`/`sin` point at the pair's entries.
+__device__ __forceinline__ float2 rope_bwd_pair(float g0, float g1, const float* cos, const float* sin) {
+  const float2 c = *reinterpret_cast<const float2*>(cos);
+  const float2 s = *reinterpret_cast<const float2*>(sin);
+  return make_float2(g0 * c.x + g1 * s.x, g1 * c.y - g0 * s.y);
 }
 
 // Start the asynchronous copy of a ROWS-row tile of a (S, HD) slice with row

@@ -49,12 +49,11 @@
 //    and they add nothing; the producer and the consumers stop at the last tile
 //    that holds a valid key.
 // Not yet used: an enforced ping-pong between the two warpgroups, a persistent
-// grid, or a TMA store of the output.
+// grid, or a TMA store of the output. The Hopper helpers (barriers, TMA,
+// wgmma wrappers, descriptors, tensor maps) are in sm90_common.cuh, shared
+// with K2 and K3 (flash_bwd_sm90.cu).
 
-#include <cuda.h>
-#include <dlfcn.h>
-
-#include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -110,147 +109,6 @@ struct Params {
   int64_t o_sb, o_sn, o_ss;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 64-column box (128 k/v rows, or the q tile's rows) of a rank-4 (H, S, N,
-// B) tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int h, int s, int n,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
-      "[%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(h), "r"(s), "r"(n), "r"(b)
-      : "memory");
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// Wait until at most the last committed group is still running.
-__device__ __forceinline__ void wgmma_wait_one() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
-
-// Keep the compiler from moving reads or writes of accumulator registers
-// across an asynchronous wgmma (it does not see that the wait is what defines
-// them), and from reusing the registers of an A fragment before the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (*a)[4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]), "+r"(a[i][3])::"memory");
-}
-
-// A wgmma shared-memory descriptor with the 128-byte swizzle: start address,
-// leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
-}
-
-// K-major tile (q, k: rows of 64-column halves, 128 bytes each): 8-row groups
-// are 1024 bytes apart; a k-step of 16 columns moves the start 32 bytes inside
-// the swizzle row, a 64-column half moves it by kHalfBytes.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) { return smem_desc(addr, 16, 1024); }
-__device__ __forceinline__ uint32_t kmajor_step(int kk) { return ((kk / 4) * kHalfBytes + (kk % 4) * 32) >> 4; }
-
-// MN-major tile (v as the B operand of P V: keys are the contraction dim, H
-// contiguous): 8-key groups are 1024 bytes apart (SBO), 64-column halves
-// kHalfBytes apart (LBO); a k-step of 16 keys moves the start 2048 bytes.
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) { return smem_desc(addr, kHalfBytes, 1024); }
-
-#define ACC8(i)                                                                                                    \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
-      "+f"(d[i + 7])
-#define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-#define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-#define REGS32                                                                   \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define REGS64                                                                         \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-// The three wgmma shapes, for one input type TY ("bf16" or "f16"), fp32 accumulate:
-//  ss128: d (64 x 128) (+)= A (64 x 16, smem) B (16 x 128, smem), both K-major;
-//         scale_d 0 overwrites d.
-//  rs64 / rs128: d (64 x 64 / 128) += A (64 x 16, registers) B (16 x N, smem, MN-major).
-#define DEFINE_WGMMA(TY)                                                                                         \
-  static __device__ __forceinline__ void ss128(float* d, uint64_t a, uint64_t b, int scale_d) {                 \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                    \
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n" \
-                 : ACC64                                                                                         \
-                 : "l"(a), "l"(b), "r"(scale_d));                                                                \
-  }                                                                                                              \
-  static __device__ __forceinline__ void rs64(float* d, const uint32_t* a, uint64_t b) {                        \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                    \
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " REGS32                              \
-                 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                                 \
-                 : ACC32                                                                                         \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                 \
-  }                                                                                                              \
-  static __device__ __forceinline__ void rs128(float* d, const uint32_t* a, uint64_t b) {                       \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                                    \
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " REGS64                             \
-                 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                                 \
-                 : ACC64                                                                                         \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                 \
-  }
-
-template <typename T>
-struct Wgmma;
-
-template <>
-struct Wgmma<__nv_bfloat16> {
-  DEFINE_WGMMA("bf16")
-};
-
-template <>
-struct Wgmma<__half> {
-  DEFINE_WGMMA("f16")
-};
-
 // The producer: one thread of warpgroup 0 loads the q tile once, then k and v
 // tile t into stage t % kStages once the consumers have released it.
 template <int HD>
@@ -276,28 +134,6 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map, const CUtensor
 #pragma unroll
     for (int h = 0; h < HD / 64; ++h)
       tma_load(base + L::kV + st * L::kTileBytes + h * kHalfBytes, v_map, v_full, h * 64, t * kBlockN, n, b);
-  }
-}
-
-// S = q_s k_r^T for one 128-key tile, issued (not waited for).
-template <typename T, int HD>
-__device__ __forceinline__ void issue_qk(float* s, uint64_t q_desc, uint32_t k_addr) {
-  const uint64_t k_desc = kmajor_desc(k_addr);
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) Wgmma<T>::ss128(s, q_desc + kmajor_step(kk), k_desc + kmajor_step(kk), kk);
-}
-
-// o += P V for one tile, P from registers, issued (not waited for).
-template <typename T, int HD>
-__device__ __forceinline__ void issue_pv(float* o, uint32_t (*pa)[4], uint32_t v_addr) {
-  const uint64_t v_desc = mnmajor_desc(v_addr);
-#pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) {
-    if constexpr (HD == 64) {
-      Wgmma<T>::rs64(o, pa[kk], v_desc + ((kk * 2048) >> 4));
-    } else {
-      Wgmma<T>::rs128(o, pa[kk], v_desc + ((kk * 2048) >> 4));
-    }
   }
 }
 
@@ -334,17 +170,6 @@ __device__ __forceinline__ void softmax_step(float* s, float* m, float* alpha, f
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* s) {
-#pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) {
-    pa[kk][0] = Ops<T>::pack(s[8 * kk], s[8 * kk + 1]);
-    pa[kk][1] = Ops<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[kk][2] = Ops<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[kk][3] = Ops<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
 // A consumer warpgroup (`cwg` 0, 1 or 2) owning q rows q0 + 64*cwg ... Each thread
 // holds two rows, (thread % 128) / 4 % 8 + 16 * warp and 8 below it, in the
 // wgmma accumulator layout: element 4j+e of a fragment is at column
@@ -370,14 +195,14 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg,
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // this thread's partial row sums; reduced over the quad at the end
 
-  const uint64_t q_desc = kmajor_desc(base + L::kQ + cwg * 64 * 128);
+  const uint32_t q_addr = base + L::kQ + cwg * 64 * 128;
   mbar_wait(q_full, 0);
   if (num_tiles > 0) {
     float s[64], alpha[2], rowsum[2];
     uint32_t pa[kBlockN / 16][4];
     mbar_wait(k_full(0), 0);
     wgmma_fence();
-    issue_qk<T, HD>(s, q_desc, base + L::kK);
+    issue_ss<T, HD, kBlockN, kHalfBytes, kHalfBytes>(s, q_addr, base + L::kK);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<64>(s);
@@ -386,16 +211,16 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg,
     softmax_step(s, m, alpha, rowsum, 0, kv_len, lane);
     l[0] = rowsum[0];
     l[1] = rowsum[1];
-    pack_p<T>(pa, s);
+    pack_a<T, kBlockN>(pa, s);
     for (int t = 1; t < num_tiles; ++t) {
       const int st = t % kStages, prev = (t - 1) % kStages;
       mbar_wait(k_full(st), (t / kStages) & 1);
       fence_regs<kOut>(o);
       wgmma_fence();
-      issue_qk<T, HD>(s, q_desc, base + L::kK + st * L::kTileBytes);
+      issue_ss<T, HD, kBlockN, kHalfBytes, kHalfBytes>(s, q_addr, base + L::kK + st * L::kTileBytes);
       wgmma_commit();
       mbar_wait(v_full(prev), ((t - 1) / kStages) & 1);
-      issue_pv<T, HD>(o, pa, base + L::kV + prev * L::kTileBytes);
+      issue_rs<T, HD, kBlockN, kHalfBytes>(o, pa, base + L::kV + prev * L::kTileBytes);
       wgmma_commit();
       wgmma_wait_one();  // QK^T of tile t has landed; P V of tile t-1 may still run
       fence_regs<64>(s);
@@ -411,13 +236,13 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg,
       for (int i = 0; i < kOut; ++i) o[i] *= alpha[(i >> 1) & 1];
       l[0] = l[0] * alpha[0] + rowsum[0];
       l[1] = l[1] * alpha[1] + rowsum[1];
-      pack_p<T>(pa, s);
+      pack_a<T, kBlockN>(pa, s);
     }
     const int last = (num_tiles - 1) % kStages;
     mbar_wait(v_full(last), ((num_tiles - 1) / kStages) & 1);
     fence_regs<kOut>(o);
     wgmma_fence();
-    issue_pv<T, HD>(o, pa, base + L::kV + last * L::kTileBytes);
+    issue_rs<T, HD, kBlockN, kHalfBytes>(o, pa, base + L::kV + last * L::kTileBytes);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<kOut>(o);
@@ -465,7 +290,7 @@ __global__ void __launch_bounds__(threads<HD>(), 1)
       mbar_init(q_full + 8 * (1 + 2 * kStages + st), 4 * consumer_wgs<HD>());  // k_empty: one arrival a warp
       mbar_init(q_full + 8 * (1 + 3 * kStages + st), 4 * consumer_wgs<HD>());  // v_empty
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -479,50 +304,14 @@ __global__ void __launch_bounds__(threads<HD>(), 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the process has loaded (no link to libcuda).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// A rank-4 (H, S, N, B) tensor map of 64 x box_rows boxes with the 128-byte
-// swizzle over a (B, N, S, H) operand with element strides (sb, sn, ss) and a
-// contiguous H. A size-1 dim's stride is never used; it is given a packed one.
-bool encode_operand(CUtensorMap* map, const void* ptr, int dtype, int head_dim, int seq, int heads, int batch,
-                    int box_rows, int64_t sb, int64_t sn, int64_t ss) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || seq < 1) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)seq, (cuuint64_t)heads, (cuuint64_t)batch};
-  const int64_t elem_strides[3] = {seq > 1 ? ss : head_dim, heads > 1 ? sn : (int64_t)seq * head_dim,
-                                   batch > 1 ? sb : (int64_t)heads * seq * head_dim};
-  const cuuint64_t strides[3] = {(cuuint64_t)elem_strides[0] * 2, (cuuint64_t)elem_strides[1] * 2,
-                                 (cuuint64_t)elem_strides[2] * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
-            const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int HD>
 cudaError_t launch(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map, const Params& p,
                    int batch, cudaStream_t stream) {
-  auto kernel = flash_fwd_sm90_kernel<T, HD>;
-  const int smem = Layout<HD>::kBytes + 1024;  // + the slack to align the base to 1024 bytes
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((p.seq_q + block_m<HD>() - 1) / block_m<HD>(), p.heads, batch);
-  kernel<<<grid, threads<HD>(), smem, stream>>>(q_map, k_map, v_map, p);
-  return cudaGetLastError();
+  static std::atomic<uint64_t> attribute_set{0};
+  // + 1024 bytes of slack to align the base to 1024 bytes
+  return launch_sm90(flash_fwd_sm90_kernel<T, HD>, attribute_set, grid, threads<HD>(), Layout<HD>::kBytes + 1024,
+                     stream, q_map, k_map, v_map, p);
 }
 
 }  // namespace

@@ -1,0 +1,316 @@
+// Hopper (sm_90a) building blocks shared by the wgmma kernels: K1
+// (flash_fwd_sm90.cu) and K2/K3 (flash_bwd_sm90.cu). Device side: the mbarrier
+// helpers, TMA tile loads, setmaxnreg, the wgmma fence/commit/wait, the register
+// fences, the shared-memory descriptors for the 128-byte swizzle and the wgmma
+// shape wrappers. Host side: cuTensorMapEncodeTiled from the loaded driver and
+// the rank-4 (H, S, N, B) tensor maps over BNSH views of BTNH buffers.
+
+#pragma once
+
+#include <cuda.h>
+#include <dlfcn.h>
+
+#include <atomic>
+#include <cstring>
+#include <mutex>
+
+#include "flash_common.cuh"
+
+namespace {
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+// One arrival that also expects `bytes` of TMA writes before the phase completes.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One 64-column box (box_rows rows of the map) of a rank-4 (H, S, N, B) tensor
+// map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int h, int s, int n,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(h), "r"(s), "r"(n), "r"(b)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Wait until at most the last committed group is still running.
+__device__ __forceinline__ void wgmma_wait_one() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma (it does not see that the wait is what defines
+// them), and from reusing the registers of an A fragment before the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (*a)[4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]), "+r"(a[i][3])::"memory");
+}
+
+// A wgmma shared-memory descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+// The tiles TMA writes are 64-column halves, each `rows` rows of 128 bytes
+// (one box), a half's bytes apart.
+//
+// K-major operand (rows are M or N, the 64 columns are the contraction dim):
+// 8-row groups are 1024 bytes apart; a k-step of 16 columns moves the start 32
+// bytes inside the swizzle row, a 64-column half moves it by HALF bytes.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) { return smem_desc(addr, 16, 1024); }
+template <int HALF>
+__device__ __forceinline__ uint32_t kmajor_step(int kk) {
+  return ((kk / 4) * HALF + (kk % 4) * 32) >> 4;
+}
+
+// MN-major operand (the B of a register-A product: rows are the contraction
+// dim, the columns N): 8-row groups are 1024 bytes apart (SBO), 64-column
+// halves `half` bytes apart (LBO); a k-step of 16 rows moves the start 2048 bytes.
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t half) { return smem_desc(addr, half, 1024); }
+__device__ __forceinline__ uint32_t mnmajor_step(int kk) { return (kk * 2048) >> 4; }
+
+#define ACC8(i)                                                                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
+      "+f"(d[i + 7])
+#define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+#define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+#define REGS32                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define REGS64                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// The wgmma shapes, for one input type TY ("bf16" or "f16"), fp32 accumulate:
+//  ss64 / ss128: d (64 x 64 / 128) (+)= A (64 x 16, smem) B (16 x N, smem),
+//         both K-major; scale_d 0 overwrites d.
+//  rs64 / rs128: d (64 x 64 / 128) += A (64 x 16, registers) B (16 x N, smem, MN-major).
+#define DEFINE_WGMMA(TY)                                                                                         \
+  static __device__ __forceinline__ void ss64(float* d, uint64_t a, uint64_t b, int scale_d) {                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                    \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n" \
+                 : ACC32                                                                                         \
+                 : "l"(a), "l"(b), "r"(scale_d));                                                                \
+  }                                                                                                              \
+  static __device__ __forceinline__ void ss128(float* d, uint64_t a, uint64_t b, int scale_d) {                 \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                    \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n" \
+                 : ACC64                                                                                         \
+                 : "l"(a), "l"(b), "r"(scale_d));                                                                \
+  }                                                                                                              \
+  static __device__ __forceinline__ void rs64(float* d, const uint32_t* a, uint64_t b) {                        \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                    \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " REGS32                              \
+                 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                                 \
+                 : ACC32                                                                                         \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                 \
+  }                                                                                                              \
+  static __device__ __forceinline__ void rs128(float* d, const uint32_t* a, uint64_t b) {                       \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                                    \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " REGS64                             \
+                 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                                 \
+                 : ACC64                                                                                         \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                 \
+  }
+
+template <typename T>
+struct Wgmma;
+
+template <>
+struct Wgmma<__nv_bfloat16> {
+  DEFINE_WGMMA("bf16")
+};
+
+template <>
+struct Wgmma<__half> {
+  DEFINE_WGMMA("f16")
+};
+
+// d (64 x N) = A B^T over the contraction dim HD, both operands K-major in
+// shared memory: A's 64 rows at `a_addr` in a tile whose halves are A_HALF
+// bytes apart, B's N rows at `b_addr` in a tile whose halves are B_HALF bytes
+// apart. Issued, not waited for.
+template <typename T, int HD, int N, int A_HALF, int B_HALF>
+__device__ __forceinline__ void issue_ss(float* d, uint32_t a_addr, uint32_t b_addr) {
+  const uint64_t a_desc = kmajor_desc(a_addr), b_desc = kmajor_desc(b_addr);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if constexpr (N == 64) {
+      Wgmma<T>::ss64(d, a_desc + kmajor_step<A_HALF>(kk), b_desc + kmajor_step<B_HALF>(kk), kk);
+    } else {
+      Wgmma<T>::ss128(d, a_desc + kmajor_step<A_HALF>(kk), b_desc + kmajor_step<B_HALF>(kk), kk);
+    }
+  }
+}
+
+// d (64 x HD) += A B over a contraction dim of K rows, A in registers (the
+// packed accumulator of a 64 x K product), B's K rows at `b_addr`, MN-major, in
+// a tile whose 64-column halves are B_HALF bytes apart. Issued, not waited for.
+template <typename T, int HD, int K, int B_HALF>
+__device__ __forceinline__ void issue_rs(float* d, uint32_t (*a)[4], uint32_t b_addr) {
+  const uint64_t b_desc = mnmajor_desc(b_addr, B_HALF);
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    if constexpr (HD == 64) {
+      Wgmma<T>::rs64(d, a[kk], b_desc + mnmajor_step(kk));
+    } else {
+      Wgmma<T>::rs128(d, a[kk], b_desc + mnmajor_step(kk));
+    }
+  }
+}
+
+// A 64 x K accumulator fragment (values in fp32) as the A operand of a
+// register-A product over K: round to T and pack, 16 columns per k-step.
+template <typename T, int K>
+__device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float* s) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    a[kk][0] = Ops<T>::pack(s[8 * kk], s[8 * kk + 1]);
+    a[kk][1] = Ops<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = Ops<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = Ops<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Two fp32 values rounded to T as one packed conversion rounds them (the same
+// round-to-nearest-even as a cast), and back to fp32.
+template <typename T>
+__device__ __forceinline__ float2 round_pair(float a, float b) {
+  return Ops<T>::unpack(Ops<T>::pack(a, b));
+}
+
+// Barrier initialisation made visible to the async proxy (TMA) and the CTA.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the process has loaded (no link to libcuda).
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// A rank-4 (H, S, N, B) tensor map of 64 x box_rows boxes with the 128-byte
+// swizzle over a (B, N, S, H) operand with element strides (sb, sn, ss) and a
+// contiguous H; TMA fills rows past S with 0. A size-1 dim's stride is never
+// used; it is given a packed one. The last maps encoded are kept: a map
+// depends on nothing but these arguments, and the caching allocator hands the
+// same addresses back step after step, so most calls skip the driver.
+inline bool encode_operand(CUtensorMap* map, const void* ptr, int dtype, int head_dim, int seq, int heads, int batch,
+                           int box_rows, int64_t sb, int64_t sn, int64_t ss) {
+  struct Key {
+    const void* ptr;
+    int64_t args[9];
+  };
+  constexpr int kCached = 64;
+  static std::mutex mutex;
+  static Key keys[kCached];
+  static CUtensorMap maps[kCached];
+  static int count = 0, next = 0;
+  Key key = {ptr, {dtype, head_dim, seq, heads, batch, box_rows, sb, sn, ss}};
+  {
+    std::lock_guard<std::mutex> lock(mutex);
+    for (int j = 1; j <= count; ++j) {  // newest first
+      const int i = (next - j + kCached) % kCached;
+      if (keys[i].ptr == key.ptr && std::memcmp(keys[i].args, key.args, sizeof(key.args)) == 0) {
+        *map = maps[i];
+        return true;
+      }
+    }
+  }
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || seq < 1) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)seq, (cuuint64_t)heads, (cuuint64_t)batch};
+  const int64_t elem_strides[3] = {seq > 1 ? ss : head_dim, heads > 1 ? sn : (int64_t)seq * head_dim,
+                                   batch > 1 ? sb : (int64_t)heads * seq * head_dim};
+  const cuuint64_t strides[3] = {(cuuint64_t)elem_strides[0] * 2, (cuuint64_t)elem_strides[1] * 2,
+                                 (cuuint64_t)elem_strides[2] * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (fn(map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
+         const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  std::lock_guard<std::mutex> lock(mutex);
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % kCached;
+  count = count < kCached ? count + 1 : kCached;
+  return true;
+}
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory and return
+// `cudaGetLastError`. The caller keeps one `attribute_set` per kernel (bit d:
+// the shared-memory attribute is set on device d), so it is set once.
+template <typename Kernel, typename... Args>
+cudaError_t launch_sm90(Kernel kernel, std::atomic<uint64_t>& attribute_set, dim3 grid, int threads, int smem,
+                        cudaStream_t stream, const Args&... args) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = device < 64 ? uint64_t(1) << device : 0;
+  if (bit == 0 || !(attribute_set.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attribute_set.fetch_or(bit);
+  }
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace

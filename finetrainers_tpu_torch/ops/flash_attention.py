@@ -5,8 +5,9 @@ autograd glue K4, each kernel beside its plain PyTorch version.
 Counterpart of `finetrainers_tpu/ops/flash_attention.py`: the Pallas
 `_fwd_kernel` becomes the wgmma/TMA kernel in `csrc/flash_fwd_sm90.cu` (K1);
 its `two_level` branch, `_fwd_kernel_twopass` and `_fwd_kernel_skew` become
-the CUDA kernels in `csrc/flash_fwd.cu`; `_bwd_dkdv_kernel`, `_bwd_dq_kernel`
-and `_bwd_fused_kernel` become the CUDA kernels in `csrc/flash_bwd.cu`, with
+the CUDA kernels in `csrc/flash_fwd.cu`; `_bwd_dkdv_kernel` and
+`_bwd_dq_kernel` become the wgmma/TMA kernels in `csrc/flash_bwd_sm90.cu` (K2,
+K3) and `_bwd_fused_kernel` the CUDA kernel in `csrc/flash_bwd.cu` (K5), with
 the pre-pass there that rotates and scales q and k once per call for every
 kernel but K7b; all are built by `ops/_build.py`.
 
@@ -44,7 +45,9 @@ kernel but K7b; all are built by `ops/_build.py`.
     fp32 math of the kernels: the same base-2 softmax, cast points, masking and
     natural-log LSE. `flash_attention_reference` is the plain pre-pass
     (`flash_qk_prep_reference`) followed by K1's plain version
-    (`flash_forward_core_reference`). The `*_twopass`, `*_skew`, `*_two_level`
+    (`flash_forward_core_reference`); `flash_backward_reference` is the plain
+    pre-pass followed by K2's and K3's (`flash_bwd_dkdv_reference`,
+    `flash_bwd_dq_reference`). The `*_twopass`, `*_skew`, `*_two_level`
     and `flash_backward_fused_reference` versions follow their kernel's
     recurrence over kv tiles of the kernel's width (64 keys).
 
@@ -59,6 +62,7 @@ show that its attention went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -71,7 +75,10 @@ _LN2 = 0.6931471805599453
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
-_BLOCK_KV = 64  # the kv tile of the mma.sync kernels: K7's inner loop, K2/K5's CTA
+_BLOCK_KV = 64  # the kv tile of the mma.sync kernels: K7's inner loop, K5's CTA
+_BWD_ROWS = 128  # kv rows of a K2 CTA (csrc/flash_bwd_sm90.cu)
+_BWD_BLOCK_Q = 64  # K2's streamed q tile
+_MAX_DKDV_SPLITS = 8
 
 
 def _switch(name: str) -> bool:
@@ -192,33 +199,72 @@ def flash_backward_reference(
     scale: Optional[float] = None,
     delta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain fp32 version of K2 and K3 (BNSH, shapes as `flash_forward`; lse
-    natural-log (B, N, Sq) fp32). Rounds where the kernels and `_flash_backward`
-    round: q_s and k_r as in the forward; p to the input dtype before the dv
-    product; ds = T(p * T(dp - delta)); delta = rowsum(dO * out) in fp32 over
-    the rounded `out` unless given; dk = rope^T(ln2 * ds^T q_s) and
-    dq = rope^T(scale * ds k_r) in fp32, then rounded. Masked keys are selected
-    to p = 0 (a row with no valid key has an LSE of -1e30*ln2, where exp2
-    overflows). Returns (dq, dk, dv) in the input dtypes."""
-    batch, _, _, head_dim = q.shape
-    scale = head_dim**-0.5 if scale is None else scale
-    dtype = q.dtype
+    """Plain fp32 version of `flash_backward` (the pre-pass, then K2 and K3;
+    BNSH, shapes as `flash_forward`; lse natural-log (B, N, Sq) fp32). Rounds
+    where the kernels and `_flash_backward` round: q_s and k_r as in the
+    forward; p to the input dtype before the dv product; ds = T(p * T(dp -
+    delta)); delta = rowsum(dO * out) in fp32 over the rounded `out` unless
+    given; dk = rope^T(ln2 * ds^T q_s) and dq = rope^T(scale * ds k_r) in fp32,
+    then rounded. Masked keys are selected to p = ds = 0 (a row with no valid
+    key has an LSE of -1e30*ln2, where exp2 overflows). Returns (dq, dk, dv) in
+    the input dtypes."""
+    scale = q.shape[-1]**-0.5 if scale is None else scale
     qs, kr = flash_qk_prep_reference(q, k, rope_cos, rope_sin, scale)
-    dof = do.float()
     if delta is None:
-        delta = (dof * out.float()).sum(-1)
-    s = qs @ kr.transpose(-1, -2)
+        delta = (do.float() * out.float()).sum(-1)
+    dk, dv = flash_bwd_dkdv_reference(qs, kr, v, do, lse, delta, kv_lens, rope_cos, rope_sin)
+    return flash_bwd_dq_reference(qs, kr, v, do, lse, delta, kv_lens, rope_cos, rope_sin, scale), dk, dv
+
+
+def _bwd_scores(q_s, k_r, v, do, lse, delta, valid):
+    """(p, ds) of the backward for q rows `q_s`/`do`/`lse`/`delta` against all
+    keys, (B, N, Sq, Skv) fp32 at the kernels' rounding points (T = v's dtype),
+    both selected to 0 where `valid` (B, 1, 1, Skv) is False."""
+    dtype = v.dtype
+    s = q_s.float() @ k_r.float().transpose(-1, -2)
     p = torch.exp2(s - (lse * _LOG2E)[..., None]).to(dtype).float()
-    p = torch.where(_valid_keys(kv_lens, batch, k.shape[2], q.device), p, torch.zeros_like(p))
-    dv = p.transpose(-1, -2) @ dof
-    dp = dof @ v.float().transpose(-1, -2)
+    p = torch.where(valid, p, torch.zeros_like(p))
+    dp = do.float() @ v.float().transpose(-1, -2)
     ds = (p * (dp - delta[..., None]).to(dtype).float()).to(dtype).float()
-    dk = (ds.transpose(-1, -2) @ qs) * _LN2
-    dq = (ds @ kr) * scale
+    return p, torch.where(valid, ds, torch.zeros_like(ds))
+
+
+def flash_bwd_dkdv_reference(q_s, k_r, v, do, lse, delta, kv_lens=None, rope_cos=None, rope_sin=None, splits=1):
+    """Plain version of K2 (`flash_bwd_dkdv`) on the pre-pass's operands (q_s,
+    k_r as `flash_forward_core_reference` takes them; v, do in the input dtype;
+    lse, delta (B, N, Sq) fp32): dk = T(rope^T(ln2 * ds^T q_s)) with k's tables
+    and dv = T(p^T dO), 0 at keys >= kv_lens[b]. With `splits` > 1 the q rows
+    are cut as K2 cuts its q loop for cross-attention (whole q tiles,
+    `dkdv_splits`): each range's fp32 partial sums are taken alone and then
+    added, as K2's reduce pass adds them."""
+    dtype = v.dtype
+    seq_q = q_s.shape[2]
+    valid = _valid_keys(kv_lens, q_s.shape[0], k_r.shape[2], q_s.device)
+    q_tiles = -(-seq_q // _BWD_BLOCK_Q)
+    rows = -(-q_tiles // splits) * _BWD_BLOCK_Q  # whole q tiles per range
+    dk = dv = 0.0
+    for q0 in range(0, seq_q, rows):
+        part = slice(q0, q0 + rows)
+        p, ds = _bwd_scores(q_s[:, :, part], k_r, v, do[:, :, part], lse[:, :, part], delta[:, :, part], valid)
+        dv = dv + p.transpose(-1, -2) @ do[:, :, part].float()
+        dk = dk + ds.transpose(-1, -2) @ q_s[:, :, part].float()
+    dk = dk * _LN2
     if rope_cos is not None:
         dk = _rope_bwd(dk, rope_cos, rope_sin)
+    return dk.to(dtype), dv.to(dtype)
+
+
+def flash_bwd_dq_reference(q_s, k_r, v, do, lse, delta, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
+    """Plain version of K3 (`flash_bwd_dq`) on the pre-pass's operands
+    (arguments as `flash_bwd_dkdv_reference`): dq = T(rope^T(scale * ds k_r))
+    with q's tables; a batch row with no valid key gets 0."""
+    scale = q_s.shape[-1]**-0.5 if scale is None else scale
+    valid = _valid_keys(kv_lens, q_s.shape[0], k_r.shape[2], q_s.device)
+    _, ds = _bwd_scores(q_s, k_r, v, do, lse, delta, valid)
+    dq = (ds @ k_r.float()) * scale
+    if rope_cos is not None:
         dq = _rope_bwd(dq, rope_cos, rope_sin)
-    return dq.to(dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq.to(v.dtype)
 
 
 def _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale):
@@ -340,10 +386,17 @@ def flash_backward_fused_reference(
     return dq.to(dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+_KERNELS = {}
+
+
 def _kernel(library: str, fn_name: str, argtypes):
-    fn = getattr(load_library(library), fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    """The C entry point `fn_name` of `csrc/<library>.cu`, built and typed on first use."""
+    fn = _KERNELS.get(fn_name)
+    if fn is None:
+        fn = getattr(load_library(library), fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _KERNELS[fn_name] = fn
     return fn
 
 
@@ -575,21 +628,54 @@ flash_forward_skew = _forward_variant(
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9
 
 
+def dkdv_splits(batch: int, heads: int, seq_q: int, seq_kv: int, sms: int) -> Tuple[int, int]:
+    """(splits, q tiles per split) for K2. K2 runs one CTA per 128-row kv tile
+    of a (batch, head), looping over the q tiles; where those CTAs are fewer
+    than the card's `sms` (cross-attention over a few hundred keys), the loop
+    is cut into up to 8 ranges of whole q tiles, one CTA each, picking the cut
+    that leaves the fewest waves of CTAs per unit of work. Each range is at
+    least 2 q tiles."""
+    kv_ctas = batch * heads * -(-seq_kv // _BWD_ROWS)
+    q_tiles = -(-seq_q // _BWD_BLOCK_Q)
+    splits, best = 1, 1.0
+    if kv_ctas < sms:
+        for count in range(2, min(_MAX_DKDV_SPLITS, q_tiles // 2) + 1):
+            waves = -(-kv_ctas * count // sms) / count
+            if waves < best:
+                splits, best = count, waves
+    per = -(-q_tiles // splits)
+    return -(-q_tiles // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flash_bwd_dkdv(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn: int):
     """K2 on operands `flash_backward` has checked, with q_s/k_r from
-    `flash_qk_prep`: (dk, dv), BNSH views of BTNH-contiguous buffers."""
+    `flash_qk_prep`: (dk, dv), BNSH views of BTNH-contiguous buffers. On a CUDA
+    tensor it launches the wgmma kernel of `csrc/flash_bwd_sm90.cu` and, where
+    `dkdv_splits` cuts its q loop, the reduce pass that sums the fp32 partials;
+    on a CPU tensor it computes `flash_bwd_dkdv_reference`."""
+    if q_s.device.type == "cpu":
+        return flash_bwd_dkdv_reference(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin)
     batch, heads, seq_q, head_dim = q_s.shape
+    seq_kv = k_r.shape[2]
     dk, dv = _btnh_like(k_r), _btnh_like(v)
-    fn = _kernel("flash_bwd", "flash_bwd_dkdv",
-                 _BWD_ARGTYPES + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_void_p])
-    strides = _strides(q_s, k_r, v, do, dk, dv)
+    splits, per = dkdv_splits(batch, heads, seq_q, seq_kv, _sm_count(q_s.device.index or 0))
+    partials = None
+    if splits > 1:  # fp32 partial dk and dv of each split, summed by the reduce pass
+        partials = torch.empty((2, splits, batch, heads, seq_kv, head_dim), dtype=torch.float32, device=q_s.device)
+    fn = _kernel("flash_bwd_sm90", "flash_bwd_dkdv_sm90",
+                 _BWD_ARGTYPES + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q_s.device):
         _launch(
             fn, q_s.data_ptr(), k_r.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            _ptr(kv_lens), _ptr(rope_cos), _ptr(rope_sin), dk.data_ptr(), dv.data_ptr(),
-            batch, heads, seq_q, k_r.shape[2], head_dim, _DTYPE_CODES[q_s.dtype], strides, rope_sn,
-            _stream(q_s.device),
+            _ptr(kv_lens), _ptr(rope_cos), _ptr(rope_sin), dk.data_ptr(), dv.data_ptr(), _ptr(partials),
+            batch, heads, seq_q, seq_kv, head_dim, _DTYPE_CODES[q_s.dtype], _strides(q_s, k_r, v, do, dk, dv),
+            rope_sn, splits, per, _stream(q_s.device),
         )
     flash_bwd_dkdv.launches += 1
     return dk, dv
@@ -600,10 +686,14 @@ flash_bwd_dkdv.launches = 0
 
 def flash_bwd_dq(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn: int, scale: float):
     """K3 on operands `flash_backward` has checked, with q_s/k_r from
-    `flash_qk_prep`: dq, a BNSH view of a BTNH-contiguous buffer."""
+    `flash_qk_prep`: dq, a BNSH view of a BTNH-contiguous buffer. On a CUDA
+    tensor it launches the wgmma kernel of `csrc/flash_bwd_sm90.cu`; on a CPU
+    tensor it computes `flash_bwd_dq_reference`."""
+    if q_s.device.type == "cpu":
+        return flash_bwd_dq_reference(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, scale)
     batch, heads, seq_q, head_dim = q_s.shape
     dq = _btnh_like(q_s)
-    fn = _kernel("flash_bwd", "flash_bwd_dq",
+    fn = _kernel("flash_bwd_sm90", "flash_bwd_dq_sm90",
                  _BWD_ARGTYPES + [ctypes.c_void_p] + [ctypes.c_int] * 6
                  + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_float, ctypes.c_void_p])
     strides = _strides(q_s, k_r, v, do, dq)

@@ -12,13 +12,16 @@ import torch
 from finetrainers_tpu_torch.ops import attention_dispatch, list_providers
 from finetrainers_tpu_torch.ops.flash_attention import (
     FlashAttentionFunction,
+    dkdv_splits,
     flash_attention_reference,
     flash_backward,
     flash_backward_fused_reference,
     flash_backward_reference,
     flash_bwd_dkdv,
+    flash_bwd_dkdv_reference,
     flash_bwd_dq,
     flash_bwd_dq_emit,
+    flash_bwd_dq_reference,
     flash_bwd_fused,
     flash_forward,
     flash_forward_core,
@@ -367,6 +370,94 @@ def test_fused_backward_kernel_matches_reference(dtype, monkeypatch):
         if lens is not None and 0 in lens:
             empty = lens.index(0)
             assert not grads[0][empty].any() and not grads[1][empty].any() and not grads[2][empty].any()
+
+
+# (B, N, Sq, Skv, rope, kv_lens) for the wgmma K2 and K3, run at H=64 and H=128 on BNSH views of
+# BTNH buffers: per-head (LTX) and shared (Wan) tables, lengths off every tile boundary (1000 q rows
+# over 77 keys; 4100), an empty row, and cross-attention shapes whose q loop K2 splits over CTAs.
+K2K3_CASES = [
+    (1, 2, 4100, 4100, "per_head", None),
+    (1, 3, 4100, 4100, "shared", None),
+    (2, 4, 1000, 77, None, [77, 0]),
+    (2, 3, 1000, 1000, "shared", None),
+    (1, 4, 4100, 512, None, [300]),
+    (3, 2, 200, 333, None, [1, 200, 0]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k2_k3_match_their_plain_versions(dtype, head_dim):
+    """K2 (`flash_bwd_dkdv`, with its reduce pass where `dkdv_splits` cuts the
+    q loop) and K3 (`flash_bwd_dq`) on the pre-pass's operands against
+    `flash_bwd_dkdv_reference` (cut at the same q rows) and
+    `flash_bwd_dq_reference`, with `chip_smoke.py`'s backward bounds: relative
+    L2 <= 1e-2 and max error <= 2e-2 of max |ref|. A batch row with no valid key
+    gets exactly zero gradients; each call launches its kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, n, sq, skv, rope, lens in K2K3_CASES:
+        q, k, v = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   for s in (sq, skv, skv))
+        do = torch.randn(b, sq, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+        kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cos, sin = _tables(rope, n, sq, head_dim, g)
+        rope_sn = 0 if cos is None or cos.shape[0] == 1 else sq * head_dim
+        scale = head_dim**-0.5
+        out, lse = flash_forward(q, k, v, kv_lens, cos, sin)
+        delta = (do.float() * out.float()).sum(-1)
+        q_s, k_r = flash_qk_prep(q, k, cos, sin, rope_sn, scale)
+        operands = (q_s, k_r, v, do, lse, delta, kv_lens, cos, sin)
+        before = (flash_bwd_dkdv.launches, flash_bwd_dq.launches)
+        dk, dv = flash_bwd_dkdv(*operands, rope_sn)
+        dq = flash_bwd_dq(*operands, rope_sn, scale)
+        torch.cuda.synchronize()
+        assert (flash_bwd_dkdv.launches, flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+        splits = dkdv_splits(b, n, sq, skv, sms)[0]
+        refs = (dq, flash_bwd_dq_reference(*operands, scale)), *zip((dk, dv), flash_bwd_dkdv_reference(*operands,
+                                                                                                          splits))
+        case = (b, n, sq, skv, head_dim, rope, lens, splits)
+        for name, (got, ref) in zip(("dq", "dk", "dv"), refs):
+            assert got.dtype == dtype and got.shape == ref.shape and got.transpose(1, 2).is_contiguous()
+            assert torch.isfinite(got).all(), (name, case)
+            rel_l2, max_ratio = _rel_errors(got, ref)
+            assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, case, rel_l2, max_ratio)
+        if lens is not None and 0 in lens:
+            empty = lens.index(0)
+            assert not dq[empty].any() and not dk[empty].any() and not dv[empty].any(), case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k2_k3_ignore_k_and_v_rows_past_kv_lens(dtype, head_dim):
+    """TMA reads the rows of k and v between kv_lens[b] and Skv: filled with
+    +-3e4, they must leave dq, dk and dv bit-equal to the same call with those
+    rows zeroed (self-attention lengths, and a cross-attention shape whose K2 q
+    loop is split)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for b, n, sq, skv, lens in ((3, 2, 300, 333, [1, 200, 0]), (1, 4, 4100, 512, [300])):
+        q, k, v = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   for s in (sq, skv, skv))
+        do = torch.randn(b, sq, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        runs = []
+        for k_fill, v_fill in ((3e4, -3e4), (0.0, 0.0)):
+            k_f, v_f = k.clone(), v.clone()
+            for bi, length in enumerate(lens):
+                k_f[bi, :, length:] = k_fill
+                v_f[bi, :, length:] = v_fill
+            out, lse = flash_forward(q, k_f, v_f, kv_lens)
+            runs.append((out, lse, flash_backward(q, k_f, v_f, out, lse, do, kv_lens)))
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+        for name, big, zeroed in zip(("dq", "dk", "dv"), runs[0][2], runs[1][2]):
+            assert torch.isfinite(big).all() and torch.equal(big, zeroed), (name, b, n, sq, skv, lens)
 
 
 # (B, N, Sq, Skv, H, kv_lens): Wan-like H=128 self-attention, cross-attention over
