@@ -12,8 +12,8 @@ Phases, each printed on its own line:
      (`csrc/flash_bwd_sm90.cu`, wgmma and TMA, with K2's reduce pass for a
      split q loop), K7a/b/c (`csrc/flash_fwd.cu`), K5, K5's dq emit and the
      pre-pass that every forward but K7b and every backward runs first
-     (`csrc/flash_bwd.cu`) and K6 (`csrc/sage_fwd.cu`), timed, with ptxas'
-     register, spill and warning lines;
+     (`csrc/flash_bwd.cu`) and K6 with its pre-pass (`csrc/sage_fwd_sm90.cu`,
+     int8 wgmma and TMA), timed, with ptxas' register, spill and warning lines;
   3. K1 against its plain PyTorch version (`flash_forward_core_reference` on
      the pre-pass's operands) and the pre-pass plus K1 (`flash_forward`)
      against `flash_attention_reference`, in bf16, at the LTX serving path's
@@ -30,12 +30,14 @@ Phases, each printed on its own line:
      and K3 and of their plain versions (`flash_bwd_dkdv_reference`,
      `flash_bwd_dq_reference`), bounds and the torch SDPA backward as a
      library yardstick;
-  5. K6 against `sage_attention_reference` on the same int8 codes and scales
-     (Wan self-attention with rotated q/k, Wan cross-attention over 512 text
-     keys with kv_lens, LTX's self-attention shape, a ragged case with an empty
-     row), and the quantization pre-pass on the card against the same torch ops
-     on the CPU; times of K6, the pre-pass and the plain version, the bound and
-     torch SDPA as a yardstick; then K1 at Wan's self-attention shape (H=128,
+  5. the sage pre-pass kernel (`sage_prep`: rotation with Wan's tables,
+     smooth-K, int8 codes) against the plain pre-pass on the CPU, and K6 against
+     `sage_attention_reference` on the same int8 codes and scales (Wan
+     self-attention with the tables, Wan cross-attention over 512 text keys
+     with kv_lens, LTX's self-attention shape, ragged cases with an empty row
+     at H=128 and H=64); times of K6, the pre-pass, the plain pre-pass (torch's
+     rotation and quantization on the card) and K6's plain version, the bounds
+     and torch SDPA as a yardstick; then K1 at Wan's self-attention shape (H=128,
      one (S, H) table pair shared by every head) against its plain version,
      run head by head, timed alone and with its pre-pass;
   5b. K5 and its dq emit against K5's plain version and against K2+K3 (pre-pass
@@ -56,13 +58,15 @@ Phases, each printed on its own line:
   7. Wan serving through the user entry points: the full-width Wan 2.1
      T2V-1.3B spec (random weights, bf16, 30 blocks) serves 2 prompts at
      49x512x768 with CFG 5.0 and 4 steps under `attention_provider("sage")`:
-     checks the videos and that K6 was launched 2*30*steps*requests times and
-     K1 never; one request under the default provider (K1 and the pre-pass,
+     checks the videos, that the sage pre-pass and K6 were each launched
+     2*30*steps*requests times, K1 never, and that nothing rotated q or k in
+     torch; one request under the default provider (K1 and the pre-pass,
      2*30*steps launches each); one denoise step with K6 against the same step
      with K1;
      seconds per step and per request, peak memory, and a torch.profiler
-     breakdown of one sage step (K6, pre-pass, rotation, GEMMs, the rest) and
-     of one K1 step (K1 and its pre-pass, self and cross, GEMMs, the rest);
+     breakdown of one sage step (K6 and its pre-pass, self and cross, GEMMs,
+     the rest) and of one K1 step (K1 and its pre-pass, self and cross, GEMMs,
+     the rest);
   8. training through the user entry points: `SFTTrainer` on the full-width spec
      with LoRA rank 128, one warm-up and 5 timed steps on seeded VAE moments
      (1, 256, 7, 16, 24) -> 2688 tokens and seeded caption states with a padded
@@ -109,7 +113,6 @@ from finetrainers_tpu_torch.models.ltx_video.transformer import LTXRotaryPosEmbe
 from finetrainers_tpu_torch.models.wan.transformer import WanRotaryPosEmbed
 from finetrainers_tpu_torch.ops import _build, attention_dispatch, attention_provider
 from finetrainers_tpu_torch.ops import attention as attention_ops
-from finetrainers_tpu_torch.ops import sage_attention as sage_ops
 from finetrainers_tpu_torch.ops.flash_attention import (
     _rope_bwd,
     dkdv_splits,
@@ -135,7 +138,7 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_qk_prep,
     flash_qk_prep_reference,
 )
-from finetrainers_tpu_torch.ops.sage_attention import sage_attention_reference, sage_forward, sage_quantize
+from finetrainers_tpu_torch.ops.sage_attention import sage_attention_reference, sage_forward, sage_prep, sage_quantize
 from finetrainers_tpu_torch.trainer import SFTTrainer
 
 NUM_STEPS = 8  # cut from the pipeline's default 50 to keep the run short
@@ -293,31 +296,32 @@ K2_KERNELS = ("bwd_dkdv_sm90_kernel", "dkdv_reduce_kernel")
 K3_KERNELS = ("bwd_dq_sm90_kernel",)
 # Profile classes by kernel name; the pre-pass's class counts its forward and backward launches.
 _KERNEL_CLASSES = (("k1", "flash_fwd_sm90_kernel"), ("k2", K2_KERNELS[0]), ("k2_reduce", K2_KERNELS[1]),
-                   ("k3", K3_KERNELS[0]), ("prep", "rope_prep_kernel"), ("k6", "sage_fwd_kernel"))
+                   ("k3", K3_KERNELS[0]), ("prep", "rope_prep_kernel"), ("k6", "sage_fwd_sm90_kernel"),
+                   ("sage_prep", "sage_prep_quant_kernel"), ("sage_prep_sum", "sage_prep_sum_kernel"),
+                   ("sage_prep_mean", "sage_prep_mean_kernel"))
+# The sage pre-pass's three kernels, one launch of `sage_prep` each.
+SAGE_PREP_KERNELS = ("sage_prep_quant_kernel", "sage_prep_sum_kernel", "sage_prep_mean_kernel")
 
 
 @contextlib.contextmanager
-def annotated(module, name, label):
-    """Wrap `module.name` in a torch.profiler range `label` for the duration,
-    so the kernels a torch-ops stage launches can be told apart in a trace."""
-    fn = getattr(module, name)
+def counted(module, name):
+    """Count the calls of `module.name` for the duration, in the yielded one-item list."""
+    fn, calls = getattr(module, name), [0]
 
     def wrapper(*args, **kwargs):
-        with torch.profiler.record_function(label):
-            return fn(*args, **kwargs)
+        calls[0] += 1
+        return fn(*args, **kwargs)
 
     setattr(module, name, wrapper)
     try:
-        yield
+        yield calls
     finally:
         setattr(module, name, fn)
 
 
-def profile_device(fn, ranges=()):
+def profile_device(fn):
     """Device time of one call of `fn` by class from torch.profiler: the port's
-    kernels (each launch kept in launch order), the kernels inside each of the
-    user ranges named in `ranges` (by the range's device-side span), cuBLAS
-    GEMMs, everything else."""
+    kernels (each launch kept in launch order), cuBLAS GEMMs, everything else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -329,23 +333,16 @@ def profile_device(fn, ranges=()):
         end.synchronize()
     wall_ms = start.elapsed_time(end)
     classes, kernels, launches = {"gemm": 0.0, "other": 0.0}, {}, {cls: [] for cls, _ in _KERNEL_CLASSES}
-    classes.update({label: 0.0 for label in ranges})
     events = [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA]
-    # A user annotation (e.g. "Optimizer.step#AdamW.step") spans the kernels it encloses.
-    spans = [(evt.name, evt.time_range.start, evt.time_range.end) for evt in events
-             if getattr(evt, "is_user_annotation", False) and evt.name in ranges]
     for evt in events:
-        if getattr(evt, "is_user_annotation", False):
+        if getattr(evt, "is_user_annotation", False):  # e.g. "Optimizer.step#AdamW.step", spanning other kernels
             continue
         ms = evt.time_range.elapsed_us() / 1e3
         name = evt.name.lower()
         kernels[evt.name[:90]] = kernels.get(evt.name[:90], 0.0) + ms
         cls = next((c for c, pattern in _KERNEL_CLASSES if pattern in name), None)
-        span = next((label for label, t0, t1 in spans if t0 <= evt.time_range.start < t1), None)
         if cls is not None:
             launches[cls].append((evt.time_range.start, ms))
-        elif span is not None:
-            classes[span] += ms
         elif any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
             classes["gemm"] += ms
         else:
@@ -354,8 +351,7 @@ def profile_device(fn, ranges=()):
     busy = sum(classes.values()) + sum(sum(v) for v in launches.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1.0 - busy / wall_ms if busy else None,
-                classes=classes, launches=launches, top_kernels_ms=top, device_events=len(kernels),
-                annotated_ranges=len(spans))
+                classes=classes, launches=launches, top_kernels_ms=top, device_events=len(kernels))
 
 
 def _split(ms_list, by_order):
@@ -631,12 +627,13 @@ def k6_bound(n, sq, kv_eff, h, q_rows):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def check_prepass(q, k, lens, codes):
-    """The pre-pass on the card against the same torch ops on the CPU: q codes
-    and scales equal, k codes within one and different in at most 0.1% of
-    entries (the smoothed k's mean is summed in another order), k scales
-    within rtol 1e-5. Returns (share of k codes that differ, max k scale error)."""
-    cpu = sage_quantize(q.cpu(), k.cpu(), lens.cpu())
+def check_prepass(q, k, lens, codes, cos=None, sin=None):
+    """The pre-pass kernel's codes and scales against the plain pre-pass on the
+    CPU copy: q codes and scales equal, k codes within one and different in at
+    most 0.1% of entries (the smoothed k's mean is summed in another order), k
+    scales within rtol 1e-5. Returns (largest code difference, share of k codes
+    that differ, max k scale relative error)."""
+    cpu = sage_quantize(q.cpu(), k.cpu(), lens.cpu(), *(None if t is None else t.cpu() for t in (cos, sin)))
     if not (torch.equal(codes[0].cpu(), cpu[0]) and torch.equal(codes[2].cpu(), cpu[2])):
         raise AssertionError("the pre-pass's q codes or scales differ between the card and the CPU")
     diff = (codes[1].cpu().int() - cpu[1].int()).abs()
@@ -645,31 +642,42 @@ def check_prepass(q, k, lens, codes):
     if diff.max() > 1 or share > 1e-3 or scale_err > 1e-5:
         raise AssertionError(f"the pre-pass's k codes differ: max {diff.max().item()}, share {share}, "
                              f"scale rel err {scale_err}")
-    return share, scale_err
+    return diff.max().item(), share, scale_err
+
+
+def prepass_bound(q, k, cos):
+    """The pre-pass's least time (ms, "bytes"): q and k read, their int8 codes
+    and fp32 per-token scales written, and the tables read, once each."""
+    elems = q.numel() + k.numel()
+    tokens = elems // q.shape[-1]
+    table_bytes = 2 * cos.numel() * 4 if cos is not None else 0
+    return bound(0, elems * 2 + elems + tokens * 4 + table_bytes)
 
 
 def check_k6(card):
-    """K6 against its plain version on the same codes and scales; returns the
-    worst error and the records of the Wan self-attention case (K6, pre-pass)."""
+    """The pre-pass kernel and K6 against their plain versions: the codes
+    `sage_prep` writes on the card against `sage_quantize` on the CPU copy, and
+    K6 against `sage_attention_reference` on the same codes and scales. Returns
+    the worst K6 error, the worst code difference and the Wan self-attention
+    case's records."""
     g = torch.Generator(device="cuda").manual_seed(6)
     cases = {
         "wan_self_rope": dict(b=2, n=12, sq=WAN_TOKENS, skv=WAN_TOKENS, h=128, lens=None, rope=True),
         "wan_cross_kv_lens": dict(b=2, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[1, 9], rope=False),
         "ltx_self": dict(b=2, n=32, sq=2688, skv=2688, h=64, lens=None, rope=False),
         "ragged_empty_row": dict(b=2, n=4, sq=1000, skv=77, h=128, lens=[77, 0], rope=False),
+        "ragged_empty_row_h64": dict(b=2, n=4, sq=1000, skv=333, h=64, lens=[200, 0], rope=False),
     }
-    worst, records = 0.0, {}
+    worst, worst_code, records = 0.0, 0, {}
     for name, c in cases.items():
         b, n, sq, skv, h = c["b"], c["n"], c["sq"], c["skv"], c["h"]
         # BTNH, as the model hands them over; k with a per-channel offset, which smooth-K removes.
         q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16) for s in (sq, skv, skv))
         k = k + torch.randn(1, 1, n, h, generator=g, device="cuda").to(torch.bfloat16)
-        if c["rope"]:  # the dispatcher's rotation of q and k before K6
-            cos, sin = wan_tables()
-            q, k = (attention_ops._rotate_interleaved_4d(x, cos, sin) for x in (q, k))
+        cos, sin = (t[None].contiguous() for t in wan_tables()) if c["rope"] else (None, None)
         lens = torch.tensor(c["lens"] or [skv] * b, dtype=torch.int32, device="cuda")
         vt = v.transpose(1, 2)
-        codes = sage_quantize(q, k, lens)
+        codes = sage_prep(q, k, lens, cos, sin)
         out = sage_forward(*codes, vt, lens)
         torch.cuda.synchronize()
         ref = sage_attention_reference(*codes, vt, lens)
@@ -678,33 +686,35 @@ def check_k6(card):
         norm_err = (err / ref.float().abs().clamp_min(1.0)).max().item()
         rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
         empty_zero = all(not out[i].any() for i, length in enumerate(c["lens"] or []) if length == 0)
-        code_share, scale_err = check_prepass(q, k, lens, codes)
+        code_diff, code_share, scale_err = check_prepass(q, k, lens, codes, cos, sin)
         ms = cuda_ms(lambda: sage_forward(*codes, vt, lens))
-        prepass_ms = cuda_ms(lambda: sage_quantize(q, k, lens))
+        prep_ms = cuda_ms(lambda: sage_prep(q, k, lens, cos, sin))
+        # The plain pre-pass on the card: the torch rotation and quantization the parent ran before K6.
+        prep_plain_ms = cuda_ms(lambda: sage_quantize(q, k, lens, cos, sin))
         plain_ms = cuda_ms(lambda: sage_attention_reference(*codes, vt, lens), iters=1, warmup=0)
-        # torch SDPA on the bf16 inputs (no quantization): a library yardstick only, never called by the port.
+        # torch SDPA on the bf16 inputs (no quantization, no rotation): a library yardstick only, never called
+        # by the port.
         mask = (torch.arange(skv, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
         qt, kt = q.transpose(1, 2), k.transpose(1, 2)
         sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=None if c["lens"] is None
                                                                  else mask))
         kv_eff = int(lens.sum())
         bound_ms, bound_by = k6_bound(n, sq, kv_eff, h, b * sq)
-        elems = b * n * (sq + skv) * h
-        prepass_bound_ms = (elems * 2 + elems + b * n * (sq + skv) * 4) / PEAK_BYTES_PER_S * 1e3
+        prep_bound_ms, _ = prepass_bound(q, k, cos)
         phase("k6_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
               max_abs_err=max_abs, err_over_max1_ref=norm_err, rel_l2=rel_l2, empty_rows_zero=empty_zero,
-              prepass_k_codes_differing=code_share, prepass_k_scale_rel_err=scale_err,
-              ms=ms, prepass_ms=prepass_ms, plain_ms=plain_ms, sdpa_yardstick_ms=sdpa_ms, bound_ms=bound_ms,
-              bound_by=bound_by, prepass_bound_ms=prepass_bound_ms,
-              tops_equivalent=4 * n * sq * kv_eff * h / ms / 1e9, card=card)
+              prep_max_code_diff=code_diff, prep_k_codes_differing=code_share, prep_k_scale_rel_err=scale_err,
+              ms=ms, plain_ms=plain_ms, sdpa_yardstick_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
+              tops_equivalent=4 * n * sq * kv_eff * h / ms / 1e9, prep_ms=prep_ms, prep_plain_ms=prep_plain_ms,
+              prep_bound_ms=prep_bound_ms, card=card)
         if not (norm_err <= K6_TOL and rel_l2 <= K6_REL_L2_TOL and empty_zero):
             raise AssertionError(f"K6 disagrees with its reference on {name}: {norm_err} > {K6_TOL}, "
                                  f"rel L2 {rel_l2} > {K6_REL_L2_TOL} or an empty row is not zero")
-        worst = max(worst, max_abs)
-        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             prepass_ms=prepass_ms, prepass_bound_ms=prepass_bound_ms)
+        worst, worst_code = max(worst, max_abs), max(worst_code, code_diff)
+        records[name] = dict(k6=(ms, plain_ms, sdpa_ms, bound_ms, bound_by),
+                             prep=(prep_ms, prep_plain_ms, None, prep_bound_ms, "bytes"))
         del q, k, v, vt, codes, out, ref, err
-    return worst, records["wan_self_rope"]
+    return worst, worst_code, records
 
 
 def check_k1_wan(card):
@@ -1016,7 +1026,7 @@ def serve(card):
 
 def wan_serve(card):
     """The Wan serving path under `sage`, then under the default provider;
-    returns K6's and K1's launches in those runs."""
+    returns the kernel launches of those runs."""
     t0 = time.perf_counter()
     spec = get_model_specification_cls("wan", "lora")(device=torch.device("cuda"), seed=0)
     pipe = spec.load_pipeline()
@@ -1041,18 +1051,21 @@ def wan_serve(card):
 
     phase("wan_serve_config", steps=WAN_STEPS, steps_note="cut from the default 50", tokens=WAN_TOKENS,
           text_tokens=512, **WAN_REQUEST)
-    videos, request_s, launches, peak_gb = run("sage", PROMPTS)
+    with counted(attention_ops, "_rotate_interleaved_4d") as rotations:
+        videos, request_s, launches, peak_gb = run("sage", PROMPTS)
     per_request = 2 * WAN_LAYERS * WAN_STEPS
     shape_ok = all(v.shape == (49, 512, 768, 3) and v.dtype == np.uint8 for v in videos)
     differ = not np.array_equal(videos[0], videos[1])
+    # Every attention call launches the pre-pass, then K6; nothing rotates q or k in torch.
     phase("wan_serve", provider="sage", requests=len(PROMPTS), video_shape=list(videos[0].shape),
           dtype=str(videos[0].dtype), videos_differ=differ, launches=launches,
-          k6_launches_expected=per_request * len(PROMPTS), request_seconds=request_s, peak_memory_gb=peak_gb,
-          card=card)
-    if not (shape_ok and differ
-            and launches == {k_: per_request * len(PROMPTS) if k_ == "k6" else 0 for k_ in launches}):
+          k6_and_sage_prep_launches_expected=per_request * len(PROMPTS), torch_rotations=rotations[0],
+          request_seconds=request_s, peak_memory_gb=peak_gb, card=card)
+    if not (shape_ok and differ and rotations[0] == 0
+            and launches == {k_: per_request * len(PROMPTS) if k_ in ("k6", "sage_prep") else 0
+                             for k_ in launches}):
         raise AssertionError("Wan serving under sage failed its checks")
-    sage_launches = launches["k6"]
+    sage_launches = launches
     del videos
 
     videos, auto_request_s, launches, auto_peak_gb = run("auto", PROMPTS[:1])
@@ -1079,9 +1092,8 @@ def wan_serve(card):
             k6_out = step()
             step_peak_gb = torch.cuda.max_memory_allocated() / 1e9  # the transformer alone, without the decode
             k6_step_ms = cuda_ms(step, iters=3, warmup=1)
-            with annotated(sage_ops, "sage_quantize", "sage_prepass"), \
-                    annotated(attention_ops, "_rotate_interleaved_4d", "rope_rotate"):
-                prof = profile_device(step, ranges=("sage_prepass", "rope_rotate"))
+            with counted(attention_ops, "_rotate_interleaved_4d") as step_rotations:
+                prof = profile_device(step)
     rel_l2 = ((k6_out - k1_out).norm() / k1_out.norm()).item()
     finite = bool(torch.isfinite(k6_out).all())
     phase("wan_step_k6_vs_k1", rel_l2=rel_l2, bound=K6_STEP_REL_L2_TOL, finite=finite,
@@ -1092,14 +1104,24 @@ def wan_serve(card):
           request_sage_s=statistics.mean(request_s), requests_sage_s=request_s, request_k1_s=auto_request_s[0],
           steps_per_request=WAN_STEPS, peak_memory_sage_gb=peak_gb, peak_memory_k1_gb=auto_peak_gb,
           peak_memory_sage_step_gb=step_peak_gb)
-    # Every block launches K6 twice, self-attention then cross-attention.
+    # Every block runs the pre-pass and K6 twice, self-attention then cross-attention; the pre-pass is three
+    # kernels, counted as one launch.
     k6_self, k6_cross = _split(prof["launches"]["k6"], by_order=True)
-    classes = dict(prof["classes"], k6_self_attention=sum(k6_self), k6_cross_attention=sum(k6_cross))
+    prep = [sum(ms) for ms in zip(*(prof["launches"][cls] for cls in ("sage_prep_sum", "sage_prep_mean",
+                                                                      "sage_prep")))]
+    prep_self, prep_cross = _split(prep, by_order=True)
+    classes = dict(prof["classes"], k6_self_attention=sum(k6_self), k6_cross_attention=sum(k6_cross),
+                   sage_prep_self_attention=sum(prep_self), sage_prep_cross_attention=sum(prep_cross))
     phase("wan_profile", card=card, provider="sage", step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
           idle_share=prof["idle_share"], ms_by_class=classes, k6_launches=[len(k6_self), len(k6_cross)],
           k6_ms_per_launch={"self_attention": _median(k6_self), "cross_attention": _median(k6_cross)},
-          annotated_ranges=prof["annotated_ranges"], top_kernels_ms=prof["top_kernels_ms"],
+          sage_prep_launches=[len(prep_self), len(prep_cross)],
+          sage_prep_ms_per_launch={"self_attention": _median(prep_self), "cross_attention": _median(prep_cross)},
+          torch_rotations=step_rotations[0], top_kernels_ms=prof["top_kernels_ms"],
           device_events=prof["device_events"])
+    if step_rotations[0] or len(k6_self) + len(k6_cross) != 2 * WAN_LAYERS or len(prep) != 2 * WAN_LAYERS:
+        raise AssertionError("a profiled sage step did not launch the pre-pass and K6 once per attention, or "
+                             "rotated q or k in torch")
     classes, per_launch = forward_classes(k1_prof)
     phase("wan_profile", card=card, provider="auto", step_wall_ms=k1_prof["wall_ms"],
           device_busy_ms=k1_prof["busy_ms"], idle_share=k1_prof["idle_share"], ms_by_class=classes,
@@ -1108,8 +1130,8 @@ def wan_serve(card):
 
 
 _COUNTED = dict(k1=flash_forward, prep=flash_qk_prep, k2=flash_bwd_dkdv, k3=flash_bwd_dq, k5=flash_bwd_fused,
-                k5_emit=flash_bwd_dq_emit, k6=sage_forward, k7a=flash_forward_twopass, k7b=flash_forward_skew,
-                k7c=flash_forward_two_level)
+                k5_emit=flash_bwd_dq_emit, k6=sage_forward, sage_prep=sage_prep, k7a=flash_forward_twopass,
+                k7b=flash_forward_skew, k7c=flash_forward_two_level)
 
 
 def _counts():
@@ -1504,7 +1526,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    sources = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd", "flash_bwd", "sage_fwd")
+    sources = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd", "flash_bwd", "sage_fwd_sm90")
     _build.load_libraries(sources)
     builds = {name: {"seconds": _build.BUILD_LOG[name]["seconds"], **ptxas_summary(_build.BUILD_LOG[name]["log"])}
               for name in sources}
@@ -1512,14 +1534,14 @@ def main():
 
     k1_err, k1 = check_k1(card)
     bwd_err, bwd = check_k2k3(card)
-    k6_err, k6 = check_k6(card)
+    k6_err, prep_err, k6 = check_k6(card)
     k1_wan_err, k1_wan = check_k1_wan(card)
     k5_err, k5_wan, k5_ltx = check_k5(card)
     k7_err, k7 = check_k7(card)
     torch.cuda.empty_cache()
     serve_launches = serve(card)
     torch.cuda.empty_cache()
-    wan_k6_launches, wan_auto_launches = wan_serve(card)
+    wan_sage_launches, wan_auto_launches = wan_serve(card)
     torch.cuda.empty_cache()
     train_launches = train(card)
     torch.cuda.empty_cache()
@@ -1595,11 +1617,20 @@ def main():
         k7_entry("k7a", "fwd_twopass (K7a)", "finetrainers_tpu/ops/flash_attention.py:337"),
         k7_entry("k7b", "fwd_skew (K7b)", "finetrainers_tpu/ops/flash_attention.py:491"),
         k7_entry("k7c", "fwd two-level (K7c)", "finetrainers_tpu/ops/flash_attention.py:229"),
-        entry("sage_fwd (K6)", "finetrainers_tpu_torch/csrc/sage_fwd.cu",
-              "finetrainers_tpu/ops/sage_attention.py:36", wan_k6_launches, k6_err,
-              (k6["ms"], k6["plain_ms"], k6["library_ms"], k6["bound_ms"], k6["bound_by"]),
-              prepass_ms=k6["prepass_ms"], prepass_bound_ms=k6["prepass_bound_ms"],
-              library_note="torch SDPA on the unquantized bf16 inputs: a yardstick only"),
+        entry("sage_fwd_sm90 (K6, int8 wgmma + TMA, on the pre-pass's codes)",
+              "finetrainers_tpu_torch/csrc/sage_fwd_sm90.cu", "finetrainers_tpu/ops/sage_attention.py:36",
+              wan_sage_launches["k6"], k6_err, k6["wan_self_rope"]["k6"], shape=[2, 12, WAN_TOKENS, WAN_TOKENS, 128],
+              by_case={case: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r["k6"]))
+                       for case, r in k6.items()},
+              library_note="torch SDPA on the unquantized, unrotated bf16 inputs: a yardstick only"),
+        entry("sage_prep (rotation, smooth-K and int8 quantization of q and k before K6)",
+              "finetrainers_tpu_torch/csrc/sage_fwd_sm90.cu", "finetrainers_tpu/ops/sage_attention.py:112",
+              wan_sage_launches["sage_prep"], prep_err, k6["wan_self_rope"]["prep"],
+              also_replaces=["finetrainers_tpu/ops/attention.py:121"], shape=[2, 12, WAN_TOKENS, WAN_TOKENS, 128],
+              by_case={case: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r["prep"]))
+                       for case, r in k6.items()},
+              max_abs_err_note="the largest difference of an int8 code from the plain pre-pass on the CPU",
+              plain_note="the plain pre-pass on the card: torch's rotation and quantization, the path before it"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

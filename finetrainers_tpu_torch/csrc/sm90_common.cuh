@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels: K1
-// (flash_fwd_sm90.cu) and K2/K3 (flash_bwd_sm90.cu). Device side: the mbarrier
-// helpers, TMA tile loads, setmaxnreg, the wgmma fence/commit/wait, the register
-// fences, the shared-memory descriptors for the 128-byte swizzle and the wgmma
-// shape wrappers. Host side: cuTensorMapEncodeTiled from the loaded driver and
-// the rank-4 (H, S, N, B) tensor maps over BNSH views of BTNH buffers.
+// (flash_fwd_sm90.cu), K2/K3 (flash_bwd_sm90.cu) and K6 (sage_fwd_sm90.cu).
+// Device side: the mbarrier helpers, TMA tile loads, setmaxnreg, the wgmma
+// fence/commit/wait, the register fences, the shared-memory descriptors for the
+// 128- and 64-byte swizzles and the bf16/fp16 and int8 wgmma shape wrappers. Host side:
+// cuTensorMapEncodeTiled from the loaded driver and the rank-4 (H, S, N, B)
+// tensor maps over BNSH views of BTNH buffers.
 
 #pragma once
 
@@ -84,16 +85,23 @@ __device__ __forceinline__ void fence_regs(float* d) {
 }
 
 template <int N>
+__device__ __forceinline__ void fence_regs(int32_t* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (*a)[4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]), "+r"(a[i][3])::"memory");
 }
 
-// A wgmma shared-memory descriptor with the 128-byte swizzle: start address,
-// leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, each in 16-byte units, and the layout (1: the 128-byte swizzle, 2:
+// the 64-byte one).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout = 1) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
 }
 
 // The tiles TMA writes are 64-column halves, each `rows` rows of 128 bytes
@@ -173,6 +181,20 @@ struct Wgmma<__half> {
   DEFINE_WGMMA("f16")
 };
 
+#define IACC8(i)                                                                                                   \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), \
+      "+r"(d[i + 7])
+#define IACC64 IACC8(0), IACC8(8), IACC8(16), IACC8(24), IACC8(32), IACC8(40), IACC8(48), IACC8(56)
+
+// d (64 x 128, s32) (+)= A (64 x 32, s8, smem) B (32 x 128, s8, smem), both
+// K-major (8-bit wgmma has no transpose); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_s8_n128(int32_t* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " REGS64 ", %64, %65, p;\n}\n"
+               : IACC64
+               : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x N) = A B^T over the contraction dim HD, both operands K-major in
 // shared memory: A's 64 rows at `a_addr` in a tile whose halves are A_HALF
 // bytes apart, B's N rows at `b_addr` in a tile whose halves are B_HALF bytes
@@ -245,24 +267,26 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A rank-4 (H, S, N, B) tensor map of 64 x box_rows boxes with the 128-byte
-// swizzle over a (B, N, S, H) operand with element strides (sb, sn, ss) and a
-// contiguous H; TMA fills rows past S with 0. A size-1 dim's stride is never
-// used; it is given a packed one. The last maps encoded are kept: a map
+// A rank-4 (H, S, N, B) tensor map of box_cols x box_rows boxes over a (B, N,
+// S, H) operand of `type` (elem_bytes each) with element strides (sb, sn, ss)
+// and a contiguous H; TMA fills rows past S with 0. A size-1 dim's stride is
+// never used; it is given a packed one. The last maps encoded are kept: a map
 // depends on nothing but these arguments, and the caching allocator hands the
 // same addresses back step after step, so most calls skip the driver.
-inline bool encode_operand(CUtensorMap* map, const void* ptr, int dtype, int head_dim, int seq, int heads, int batch,
-                           int box_rows, int64_t sb, int64_t sn, int64_t ss) {
+inline bool encode_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem_bytes, int box_cols,
+                       CUtensorMapSwizzle swizzle, int head_dim, int seq, int heads, int batch, int box_rows,
+                       int64_t sb, int64_t sn, int64_t ss) {
   struct Key {
     const void* ptr;
-    int64_t args[9];
+    int64_t args[12];
   };
   constexpr int kCached = 64;
   static std::mutex mutex;
   static Key keys[kCached];
   static CUtensorMap maps[kCached];
   static int count = 0, next = 0;
-  Key key = {ptr, {dtype, head_dim, seq, heads, batch, box_rows, sb, sn, ss}};
+  Key key = {ptr, {(int64_t)type, elem_bytes, box_cols, (int64_t)swizzle, head_dim, seq, heads, batch, box_rows, sb,
+                   sn, ss}};
   {
     std::lock_guard<std::mutex> lock(mutex);
     for (int j = 1; j <= count; ++j) {  // newest first
@@ -278,12 +302,11 @@ inline bool encode_operand(CUtensorMap* map, const void* ptr, int dtype, int hea
   const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)seq, (cuuint64_t)heads, (cuuint64_t)batch};
   const int64_t elem_strides[3] = {seq > 1 ? ss : head_dim, heads > 1 ? sn : (int64_t)seq * head_dim,
                                    batch > 1 ? sb : (int64_t)heads * seq * head_dim};
-  const cuuint64_t strides[3] = {(cuuint64_t)elem_strides[0] * 2, (cuuint64_t)elem_strides[1] * 2,
-                                 (cuuint64_t)elem_strides[2] * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(elem_strides[0] * elem_bytes), (cuuint64_t)(elem_strides[1] * elem_bytes),
+                                 (cuuint64_t)(elem_strides[2] * elem_bytes)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (fn(map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
-         const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  if (fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
   std::lock_guard<std::mutex> lock(mutex);
@@ -292,6 +315,14 @@ inline bool encode_operand(CUtensorMap* map, const void* ptr, int dtype, int hea
   next = (next + 1) % kCached;
   count = count < kCached ? count + 1 : kCached;
   return true;
+}
+
+// A bf16 (dtype 0) or fp16 (1) operand's map of 64 x box_rows boxes with the
+// 128-byte swizzle (64 columns of 2 bytes: one swizzle row).
+inline bool encode_operand(CUtensorMap* map, const void* ptr, int dtype, int head_dim, int seq, int heads, int batch,
+                           int box_rows, int64_t sb, int64_t sn, int64_t ss) {
+  return encode_map(map, ptr, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, 64,
+                    CU_TENSOR_MAP_SWIZZLE_128B, head_dim, seq, heads, batch, box_rows, sb, sn, ss);
 }
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory and return

@@ -60,8 +60,8 @@ class WanRotaryPosEmbed(nn.Module):
 class WanAttention(nn.Module):
     """Wan attention: q/k/v/out with biases, RMS norm of q and k over the
     inner dim, heads of `head_dim`. Self-attention passes the expanded tables
-    to `attention_dispatch`: `auto` fuses the rotation into K1, `sage` has the
-    dispatcher rotate q and k before K6."""
+    to `attention_dispatch`: `auto` fuses the rotation into K1's pre-pass,
+    `sage` into K6's."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, has_image_kv: bool = False, lora_rank: int = 0,
                  lora_alpha: float = 1.0, dtype: torch.dtype = torch.bfloat16, eps: float = 1e-6) -> None:

@@ -12,11 +12,12 @@ Providers:
     tensor, the kernels' plain versions through K4, or `_native_math` for
     masks, causal and GQA.
   * "flash" / "tpu_flash": K4 only; raises where the kernels do not apply.
-  * "sage" and its five variant names: the int8 kernel K6
-    (`ops/sage_attention.py`), forward-only, for serving. A padding mask
-    becomes `kv_lens`; a dense mask or a causal call takes `_native_math` on a
-    CPU tensor and raises on a CUDA tensor. Not a fused-RoPE provider: the
-    dispatcher rotates q/k in fp32 and casts them back before the call.
+  * "sage" and its five variant names: the int8 kernel K6 after its
+    pre-pass (`ops/sage_attention.py`), forward-only, for serving. A padding
+    mask becomes `kv_lens`; a dense mask or a causal call takes `_native_math`
+    on a CPU tensor and raises on a CUDA tensor. A fused-RoPE provider: the
+    pre-pass rotates q and k (in fp32, rounded back to their dtype, as the JAX
+    dispatcher rotates them before its kernel) as it quantizes them.
   * "_native_math": explicit fp32 softmax, the numerics reference;
     differentiable by autograd through its math.
   * "native": torch SDPA, kept only as a comparison baseline, never the default.
@@ -100,9 +101,11 @@ def _check_shapes(query, key, value) -> None:
         raise ValueError("num query heads must be a multiple of num kv heads (GQA)")
 
 
-# Providers that rotate q/k inside the kernel (fused interleaved-pair RoPE);
-# everything else gets the rotation applied here before the call.
-_FUSED_ROPE_PROVIDERS = frozenset({"auto", "flash", "tpu_flash"})
+_SAGE_NAMES = ("sage", "sage_varlen", "_sage_qk_int8_pv_fp16_cuda", "_sage_qk_int8_pv_fp16_triton",
+               "_sage_qk_int8_pv_fp8_cuda", "_sage_qk_int8_pv_fp8_cuda_sm90")
+# Providers that rotate q/k in a kernel (fused interleaved-pair RoPE): K1's and
+# K6's pre-passes; everything else gets the rotation applied here before the call.
+_FUSED_ROPE_PROVIDERS = frozenset({"auto", "flash", "tpu_flash", *_SAGE_NAMES})
 
 
 def _rotate_interleaved_4d(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -247,15 +250,10 @@ def _kv_lens_from_padding_mask(attn_mask: torch.Tensor, skv: int) -> torch.Tenso
     return mask.reshape(mask.shape[0], -1, skv).any(dim=1).sum(dim=-1, dtype=torch.int32)
 
 
-@_AttentionProviderRegistry.register("sage")
-@_AttentionProviderRegistry.register("sage_varlen")
-@_AttentionProviderRegistry.register("_sage_qk_int8_pv_fp16_cuda")
-@_AttentionProviderRegistry.register("_sage_qk_int8_pv_fp16_triton")
-@_AttentionProviderRegistry.register("_sage_qk_int8_pv_fp8_cuda")
-@_AttentionProviderRegistry.register("_sage_qk_int8_pv_fp8_cuda_sm90")
-def _sage(query, key, value, attn_mask, is_causal, scale, kv_lens):
+def _sage(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs=None):
     """INT8 QK^T attention (`_sage`, JAX :574-588): every sage variant name maps
-    to K6. A CUDA tensor goes to K6, which raises for what it does not take."""
+    to the pre-pass and K6, which rotate q and k with `rope_freqs`. A CUDA
+    tensor goes to the kernels, which raise for what they do not take."""
     if attn_mask is not None and kv_lens is None:
         kv_lens = _kv_lens_from_padding_mask(attn_mask, key.shape[1])
         attn_mask = None
@@ -265,8 +263,16 @@ def _sage(query, key, value, attn_mask, is_causal, scale, kv_lens):
                 "K6 takes no causal or dense-mask call and the port never falls back to plain math on the card; "
                 "see ROADMAP.md (K6)"
             )
+        if rope_freqs is not None:
+            query = _rotate_interleaved_4d(query, *rope_freqs)
+            key = _rotate_interleaved_4d(key, *rope_freqs)
         return _math_attention(query, key, value, attn_mask, is_causal, scale, kv_lens)
-    return sage_attention(query, key, value, kv_lens=kv_lens, scale=scale)
+    cos, sin = rope_freqs if rope_freqs is not None else (None, None)
+    return sage_attention(query, key, value, kv_lens=kv_lens, scale=scale, rope_cos=cos, rope_sin=sin)
+
+
+for _name in _SAGE_NAMES:
+    _AttentionProviderRegistry.register(_name)(_sage)
 
 
 def _register_unported(name: str, roadmap_item: str) -> None:

@@ -462,21 +462,27 @@ def _check_kernel_call(fn: str, q, k, v, kv_lens, rope_cos, rope_sin):
         if tuple(kv_lens.shape) != (batch,) or kv_lens.device != q.device:
             raise ValueError(f"{fn}: kv_lens must be ({batch},) on {q.device}")
         kv_lens = kv_lens.to(torch.int32).contiguous()
-    rope_sn = 0
-    if rope_cos is not None:
-        if seq_q != seq_kv:
-            raise ValueError(f"{fn}: fused RoPE needs self-attention shapes (Sq == Skv)")
-        for name, t in (("rope_cos", rope_cos), ("rope_sin", rope_sin)):
-            if (t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16
-                    or t.ndim != 3 or t.shape[0] not in (1, heads) or tuple(t.shape[1:]) != (seq_q, head_dim)):
-                raise ValueError(
-                    f"{fn}: {name} must be contiguous, 16-byte aligned fp32 (N or 1, S, H) on {q.device}, "
-                    f"got {tuple(t.shape)} {t.dtype}"
-                )
-        if rope_sin.shape != rope_cos.shape:
-            raise ValueError(f"{fn}: rope_cos and rope_sin shapes differ")
-        rope_sn = 0 if rope_cos.shape[0] == 1 else seq_q * head_dim
-    return kv_lens, rope_sn
+    return kv_lens, _check_tables(fn, rope_cos, rope_sin, heads, seq_q, seq_kv, head_dim, q.device)
+
+
+def _check_tables(fn, rope_cos, rope_sin, heads, seq_q, seq_kv, head_dim, device) -> int:
+    """The checks of a kernel's RoPE tables, (N or 1, S, H) contiguous fp32 on
+    `device`, for self-attention shapes; returns their per-head stride (0 for
+    one table shared by every head, and without tables)."""
+    if rope_cos is None:
+        return 0
+    if seq_q != seq_kv:
+        raise ValueError(f"{fn}: fused RoPE needs self-attention shapes (Sq == Skv)")
+    for name, t in (("rope_cos", rope_cos), ("rope_sin", rope_sin)):
+        if (t.dtype != torch.float32 or not t.is_contiguous() or t.device != device or t.data_ptr() % 16
+                or t.ndim != 3 or t.shape[0] not in (1, heads) or tuple(t.shape[1:]) != (seq_q, head_dim)):
+            raise ValueError(
+                f"{fn}: {name} must be contiguous, 16-byte aligned fp32 (N or 1, S, H) on {device}, "
+                f"got {tuple(t.shape)} {t.dtype}"
+            )
+    if rope_sin.shape != rope_cos.shape:
+        raise ValueError(f"{fn}: rope_cos and rope_sin shapes differ")
+    return 0 if rope_cos.shape[0] == 1 else seq_q * head_dim
 
 
 def flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn: int, scale: float):
@@ -825,6 +831,25 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def kernel_tables(query, key, rope_cos, rope_sin):
+    """BTNH entry points' RoPE tables, (S, N*H) full-inner-dim (LTX) or (S, H)
+    shared across heads, as the kernels take them: (N, S, H) or (1, S, H)
+    contiguous. They need Sq == Skv. (None, None) passes through."""
+    if rope_cos is None:
+        return None, None
+    _, q_len, num_heads, head_dim = query.shape
+    if q_len != key.shape[1]:
+        raise ValueError("fused RoPE requires self-attention shapes")
+    if tuple(rope_cos.shape) == (q_len, num_heads * head_dim):
+        return tuple(t.reshape(q_len, num_heads, head_dim).transpose(0, 1).contiguous() for t in (rope_cos, rope_sin))
+    if tuple(rope_cos.shape) == (q_len, head_dim):
+        return rope_cos[None].contiguous(), rope_sin[None].contiguous()
+    raise ValueError(
+        f"rope tables must be (S, N*H) or (S, H); got {tuple(rope_cos.shape)} "
+        f"for S={q_len}, N={num_heads}, H={head_dim}"
+    )
+
+
 def flash_attention(
     query: torch.Tensor,
     key: torch.Tensor,
@@ -839,23 +864,8 @@ def flash_attention(
     query: (B, Sq, N, H); key/value: (B, Skv, N, H). rope_cos/rope_sin:
     optional fp32 tables for fused interleaved-pair RoPE, either (S, N*H)
     full-inner-dim (LTX) or (S, H) shared across heads; they need Sq == Skv."""
-    batch, q_len, num_heads, head_dim = query.shape
-    kv_len = key.shape[1]
-    if rope_cos is not None:
-        if q_len != kv_len:
-            raise ValueError("fused RoPE requires self-attention shapes")
-        if tuple(rope_cos.shape) == (q_len, num_heads * head_dim):
-            rope_cos = rope_cos.reshape(q_len, num_heads, head_dim).transpose(0, 1).contiguous()
-            rope_sin = rope_sin.reshape(q_len, num_heads, head_dim).transpose(0, 1).contiguous()
-        elif tuple(rope_cos.shape) == (q_len, head_dim):
-            rope_cos = rope_cos[None].contiguous()
-            rope_sin = rope_sin[None].contiguous()
-        else:
-            raise ValueError(
-                f"rope tables must be (S, N*H) or (S, H); got {tuple(rope_cos.shape)} "
-                f"for S={q_len}, N={num_heads}, H={head_dim}"
-            )
-    scale = head_dim**-0.5 if scale is None else float(scale)
+    rope_cos, rope_sin = kernel_tables(query, key, rope_cos, rope_sin)
+    scale = query.shape[-1]**-0.5 if scale is None else float(scale)
     out = FlashAttentionFunction.apply(query.transpose(1, 2), key.transpose(1, 2), value.transpose(1, 2), kv_lens,
                                        rope_cos, rope_sin, scale)
     return out.transpose(1, 2)

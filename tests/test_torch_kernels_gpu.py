@@ -9,6 +9,7 @@ imports no JAX. On the card:
 import pytest
 import torch
 
+from finetrainers_tpu_torch.ops import attention as attention_ops
 from finetrainers_tpu_torch.ops import attention_dispatch, list_providers
 from finetrainers_tpu_torch.ops.flash_attention import (
     FlashAttentionFunction,
@@ -33,8 +34,14 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_forward_twopass,
     flash_forward_twopass_reference,
     flash_qk_prep,
+    kernel_tables,
 )
-from finetrainers_tpu_torch.ops.sage_attention import sage_attention_reference, sage_forward, sage_quantize
+from finetrainers_tpu_torch.ops.sage_attention import (
+    sage_attention_reference,
+    sage_forward,
+    sage_prep,
+    sage_quantize,
+)
 
 # (B, N, Sq, Skv, H, rope, kv_lens): fused RoPE with per-head and shared tables,
 # kv_lens with an empty row, sequence lengths off every tile boundary, H = 64 and 128.
@@ -467,19 +474,40 @@ SAGE_CASES = [
     (1, 3, 129, 520, 128, [9]),
     (2, 4, 256, 256, 64, None),
     (3, 2, 100, 77, 64, [77, 30, 0]),
+    (2, 3, 200, 333, 128, [333, 0]),
 ]
 SAGE_NAMES = ("sage", "sage_varlen", "_sage_qk_int8_pv_fp16_cuda", "_sage_qk_int8_pv_fp16_triton",
               "_sage_qk_int8_pv_fp8_cuda", "_sage_qk_int8_pv_fp8_cuda_sm90")
+# K6 against its plain version on the same codes: |out - ref| <= 2e-2 * max(1, |ref|)
+# elementwise and relative L2 <= 1e-2 (chip_smoke.py's K6_TOL and K6_REL_L2_TOL: the
+# kernel rounds p to v's dtype before P V; the reference keeps it fp32).
+K6_TOL, K6_REL_L2_TOL = 2e-2, 1e-2
+
+
+def _assert_k6_close(out, ref, case):
+    err = (out.float() - ref.float()).abs()
+    assert (err / ref.float().abs().clamp_min(1.0)).max().item() <= K6_TOL, case
+    assert _rel_errors(out, ref)[0] <= K6_REL_L2_TOL, case
+
+
+def _assert_prep_matches_cpu(got, cpu, case):
+    """q codes and scales equal; the smoothed k's mean is summed in another
+    order, so k codes within one, different in at most 0.1% of entries, and k
+    scales within rtol 1e-5."""
+    got = [x.cpu() for x in got]
+    assert torch.equal(got[0], cpu[0]) and torch.equal(got[2], cpu[2]), case
+    diff = (got[1].int() - cpu[1].int()).abs()
+    assert diff.max() <= 1 and (diff > 0).float().mean() <= 1e-3, case
+    torch.testing.assert_close(got[3], cpu[3], rtol=1e-5, atol=0)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_sage_kernel_matches_reference(dtype):
-    """K6 against `sage_attention_reference` on the same codes and scales. q/k/v
-    are BNSH views of BTNH buffers and the codes come from the pre-pass on the
-    card. Bound: |out - ref| <= 2e-2 * max(1, |ref|) elementwise and relative L2
-    <= 1e-2 (the kernel rounds p to v's dtype before P V; the reference keeps
-    it fp32); a row with no valid key gives exact zeros."""
+    """K6 against `sage_attention_reference` on the same codes and scales, at
+    H=64 and 128, Skv off the 128-key tile, kv_lens with an empty row. q/k/v
+    are BNSH views of BTNH buffers and the codes come from the pre-pass kernel
+    on the card; a row with no valid key gives exact zeros."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -487,25 +515,84 @@ def test_sage_kernel_matches_reference(dtype):
         q, k, v = (torch.randn(b, s, n, h, device="cuda", generator=g).to(dtype) for s in (sq, skv, skv))
         k = k + 1.5  # a channel offset, which smooth-K removes
         kv_lens = torch.tensor(lens if lens else [skv] * b, dtype=torch.int32, device="cuda")
-        codes = sage_quantize(q, k, kv_lens)
+        codes = sage_prep(q, k, kv_lens)
         before = sage_forward.launches
         out = sage_forward(*codes, v.transpose(1, 2), kv_lens)
         torch.cuda.synchronize()
         assert sage_forward.launches == before + 1
         ref = sage_attention_reference(*codes, v.transpose(1, 2), kv_lens)
         assert out.dtype == dtype and out.shape == ref.shape
-        err = (out.float() - ref.float()).abs()
-        assert (err / ref.float().abs().clamp_min(1.0)).max().item() <= 2e-2, (b, n, sq, skv, h, lens)
-        assert _rel_errors(out, ref)[0] <= 1e-2, (b, n, sq, skv, h, lens)
+        _assert_k6_close(out, ref, (b, n, sq, skv, h, lens))
         if lens and 0 in lens:
             assert not out[lens.index(0)].any()
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k6_ignores_codes_scales_and_v_past_kv_lens(dtype, head_dim):
+    """TMA reads the k codes, k scales and v rows between kv_lens[b] and Skv:
+    filled with codes of +-127, scales of 1e4 and v of +-3e4, they must leave
+    the output bit-equal to the same call with those rows zeroed, and within
+    K6's tolerance of the plain version; an empty row stays exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    b, n, sq, skv, lens = 3, 2, 300, 333, [1, 200, 0]
+    q, k, v = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(dtype) for s in (sq, skv, skv))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q_codes, k_codes, q_scales, k_scales = sage_prep(q, k, kv_lens)
+    vt = v.transpose(1, 2)
+    runs = []
+    for code, scale, v_fill in ((127, 1e4, 3e4), (0, 0.0, 0.0)):
+        kc, ks, vf = k_codes.clone(), k_scales.clone(), vt.clone()
+        for bi, length in enumerate(lens):
+            kc[bi, :, length:] = code
+            kc[bi, :, length:, ::2] = -code
+            ks[bi, :, length:] = scale
+            vf[bi, :, length:] = v_fill
+        runs.append(sage_forward(q_codes, kc, q_scales, ks, vf, kv_lens))
+    torch.cuda.synchronize()
+    assert torch.isfinite(runs[0]).all() and torch.equal(runs[0], runs[1])
+    _assert_k6_close(runs[0], sage_attention_reference(q_codes, k_codes, q_scales, k_scales, vt, kv_lens),
+                     (dtype, head_dim))
+    assert not runs[0][2].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [None, "shared", "per_head"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_sage_prep_matches_the_cpu_plain_prepass(dtype, head_dim, rope):
+    """The pre-pass kernel against `sage_quantize` on the CPU copy: q codes and
+    scales equal (the rotation's products and sum are rounded one at a time on
+    both), k codes within one in at most 0.1% of entries and k scales within
+    rtol 1e-5 (the smoothed k's mean is summed in another order); BTNH inputs
+    as views of a larger buffer, kv_lens of Skv, of part of it and of 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(14)
+    b, n, s = 3, 3, 300
+    qkv = torch.randn(b, s, 3, n, head_dim, device="cuda", generator=g).to(dtype)
+    qkv[:, :, 1] += 2.0 * qkv[:1, :1, 2].clone()  # a channel offset, which smooth-K removes
+    q, k = qkv[:, :, 0], qkv[:, :, 1]  # strided views
+    cos, sin = _tables(rope, n, s, head_dim, g)
+    kv_lens = torch.tensor([s, 123, 0], dtype=torch.int32, device="cuda")
+    before = sage_prep.launches
+    got = sage_prep(q, k, kv_lens, cos, sin)
+    torch.cuda.synchronize()
+    assert sage_prep.launches == before + 1
+    assert [tuple(x.shape) for x in got] == [(b, n, s, head_dim)] * 2 + [(b, n, s)] * 2
+    assert all(x.is_contiguous() for x in got)
+    cpu = sage_quantize(q.cpu(), k.cpu(), kv_lens.cpu(), *(None if t is None else t.cpu() for t in (cos, sin)))
+    _assert_prep_matches_cpu(got, cpu, (dtype, head_dim, rope))
+
+
+@pytest.mark.gpu
 def test_sage_prepass_on_the_card_matches_the_cpu():
-    """The pre-pass (torch ops) on the card against the same ops on the CPU:
-    q codes and scales equal; the smoothed k's mean is summed in another order,
-    so at most 0.1% of k codes may differ, by one."""
+    """The plain pre-pass (torch ops) on the card against the same ops on the
+    CPU: q codes and scales equal; the smoothed k's mean is summed in another
+    order, so at most 0.1% of k codes may differ, by one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     g = torch.Generator().manual_seed(4)
@@ -521,9 +608,10 @@ def test_sage_prepass_on_the_card_matches_the_cpu():
 
 @pytest.mark.gpu
 def test_every_sage_name_reaches_k6_or_raises_on_the_card():
-    """Each sage provider name launches K6 once for a bf16 call with a padding
-    mask, and raises (launching nothing) for fp32, a causal call and a dense
-    mask beside kv_lens: no sage name falls to plain math on the card."""
+    """Each sage provider name launches the pre-pass and K6 once for a bf16
+    call with a padding mask, and raises (launching nothing) for fp32, a causal
+    call and a dense mask beside kv_lens: no sage name falls to plain math on
+    the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     assert set(SAGE_NAMES) <= set(list_providers())
@@ -531,9 +619,10 @@ def test_every_sage_name_reaches_k6_or_raises_on_the_card():
     mask = (torch.arange(40, device="cuda")[None, :] < torch.tensor([[40], [11]], device="cuda"))[:, None, None, :]
     lens = torch.tensor([40, 11], dtype=torch.int32, device="cuda")
     for name in SAGE_NAMES:
-        before = sage_forward.launches
+        before, prep_before = sage_forward.launches, sage_prep.launches
         out = attention_dispatch(q, q, q, attn_mask=mask, provider=name)
-        assert sage_forward.launches == before + 1 and out.shape == q.shape
+        assert sage_forward.launches == before + 1 and sage_prep.launches == prep_before + 1
+        assert out.shape == q.shape
         ref = attention_dispatch(q, q, q, kv_lens=lens, provider=name)
         assert torch.equal(out, ref)
         with pytest.raises(ValueError, match="bf16 or fp16"):
@@ -542,4 +631,34 @@ def test_every_sage_name_reaches_k6_or_raises_on_the_card():
             attention_dispatch(q, q, q, is_causal=True, provider=name)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             attention_dispatch(q, q, q, attn_mask=mask, kv_lens=lens, provider=name)
-        assert sage_forward.launches == before + 2
+        assert sage_forward.launches == before + 2 and sage_prep.launches == prep_before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tables", ["shared", "full_inner_dim"])
+def test_sage_dispatch_on_the_card_never_rotates_in_torch(tables, monkeypatch):
+    """Under every sage name a CUDA call with RoPE tables hands them to the
+    pre-pass kernel: the dispatcher's torch rotation is never reached, and the
+    result is K6 on the codes of the CPU's plain pre-pass with the same tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+    def no_rotation(*args):
+        raise AssertionError("the sage path rotated q or k in torch")
+
+    monkeypatch.setattr(attention_ops, "_rotate_interleaved_4d", no_rotation)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    b, s, n, h = 2, 260, 3, 128
+    q, k, v = (torch.randn(b, s, n, h, device="cuda", generator=g).to(torch.bfloat16) for _ in range(3))
+    ang = torch.rand(s, h // 2 if tables == "shared" else n * h // 2, device="cuda", generator=g) * 6.3
+    cos, sin = (f(ang).repeat_interleave(2, -1) for f in (torch.cos, torch.sin))
+    lens = torch.tensor([s, 77], dtype=torch.int32, device="cuda")
+    kernel_cos, kernel_sin = kernel_tables(q, k, cos, sin)
+    cpu = sage_quantize(q.cpu(), k.cpu(), lens.cpu(), kernel_cos.cpu(), kernel_sin.cpu())
+    ref = sage_forward(*(x.cuda() for x in cpu), v.transpose(1, 2), lens).transpose(1, 2)
+    for name in SAGE_NAMES:
+        before = sage_prep.launches
+        out = attention_dispatch(q, k, v, kv_lens=lens, provider=name, rope_freqs=(cos, sin))
+        torch.cuda.synchronize()
+        assert sage_prep.launches == before + 1
+        _assert_k6_close(out, ref, name)
