@@ -8,12 +8,13 @@ every kernel switch of the flash attention.
 Phases, each printed on its own line:
   1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
   2. the nvcc builds of the hand-written kernels, one process per source, all
-     started together: K1 (`csrc/flash_fwd_sm90.cu`, wgmma and TMA), K2 and K3
-     (`csrc/flash_bwd_sm90.cu`, wgmma and TMA, with K2's reduce pass for a
-     split q loop), K7a/b/c (`csrc/flash_fwd.cu`), K5, K5's dq emit and the
-     pre-pass that every forward but K7b and every backward runs first
-     (`csrc/flash_bwd.cu`) and K6 with its pre-pass (`csrc/sage_fwd_sm90.cu`,
-     int8 wgmma and TMA), timed, with ptxas' register, spill and warning lines;
+     started together: K1 and K7a (`csrc/flash_fwd_sm90.cu`, wgmma and TMA),
+     K2, K3 and K5 (`csrc/flash_bwd_sm90.cu`, wgmma and TMA, with K2's reduce
+     pass for a split q loop, which K5 shares), K7b/c (`csrc/flash_fwd.cu`),
+     K5's dq emit and the pre-pass that every forward but K7b and every
+     backward runs first (`csrc/flash_bwd.cu`) and K6 with its pre-pass
+     (`csrc/sage_fwd_sm90.cu`, int8 wgmma and TMA), timed, with ptxas'
+     register, spill and warning lines; a spill in K5 or K7a fails the run;
   3. K1 against its plain PyTorch version (`flash_forward_core_reference` on
      the pre-pass's operands) and the pre-pass plus K1 (`flash_forward`)
      against `flash_attention_reference`, in bf16, at the LTX serving path's
@@ -87,7 +88,8 @@ Phases, each printed on its own line:
      FINETRAINERS_FLASH_FUSED_BWD (K5: bit-equal loss, LoRA gradient within
      1e-2, 2*30 K5 launches, its step time) and under each forward switch
      (K7a/b/c launch counts, loss within 1e-3 and gradient within 2e-2 of the
-     K1 step); the kernel step against plain fp32 attention at 4992 tokens;
+     K1 step), then 3 timed steps under FINETRAINERS_FLASH_TWOPASS (K7a);
+     the kernel step against plain fp32 attention at 4992 tokens;
      host issue time and a torch.profiler breakdown of one step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
@@ -200,6 +202,8 @@ VARIANT_GRAD_REL_L2_TOL = 2e-2
 FUSED_GRAD_REL_L2_TOL = 1e-2
 SWITCHES = ("FINETRAINERS_FLASH_FUSED_BWD", "FINETRAINERS_FLASH_TWOPASS", "FINETRAINERS_FLASH_SKEW",
             "FINETRAINERS_FLASH_TWOLEVEL")
+# The kernels whose ptxas record must show no spill: K5 and K7a (their consumers run at 240 and 160 registers).
+NO_SPILL_KERNELS = ("bwd_fused_sm90_kernel", "flash_fwd_twopass_sm90_kernel")
 # H100 SXM dense peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -405,6 +409,15 @@ def bwd_bounds(b, n, sq, skv, kv_eff, h, cos):
     k2_bytes = 2 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + 2 * kv_bytes + table_bytes
     return (bound(8 * n * sq * kv_eff * h, k2_bytes),
             bound(6 * n * sq * kv_eff * h, 3 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + table_bytes))
+
+
+def k5_bound(b, n, sq, skv, kv_eff, h, cos):
+    """K5's least time: five products against q_s, dO, LSE and delta read once, k_r and v of the valid
+    keys read once, k's tables read, dk, dv and the fp32 dq accumulator written once."""
+    q_bytes, kv_eff_bytes, kv_bytes = b * n * sq * h * 2, n * kv_eff * h * 2, b * n * skv * h * 2
+    table_bytes = 2 * cos.numel() * 4 if cos is not None else 0
+    return bound(10 * n * sq * kv_eff * h, 4 * q_bytes + 2 * kv_eff_bytes + 2 * b * n * sq * 4 + 2 * kv_bytes
+                 + table_bytes)
 
 
 def qk_prep_bound(q, k, cos):
@@ -841,13 +854,8 @@ def check_k5(card):
         del sdpa_out, leaves
 
         kv_eff = sum(c["lens"]) if c["lens"] else b * skv
-        q_bytes, kv_eff_bytes, kv_bytes = b * n * sq * h * 2, n * kv_eff * h * 2, b * n * skv * h * 2
-        row_bytes = b * n * sq * 4
-        table_bytes = 2 * cos.numel() * 4 if cos is not None else 0
-        # K5: five products; reads q_s, dO, k_r, v, LSE, delta (and k's tables for dk), writes dk, dv and the
-        # fp32 dq accumulator once each.
-        k5_bound = bound(10 * n * sq * kv_eff * h, 2 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + 2 * kv_bytes
-                         + 2 * q_bytes + table_bytes)
+        q_bytes, table_bytes = b * n * sq * h * 2, 2 * cos.numel() * 4 if cos is not None else 0
+        k5_b = k5_bound(b, n, sq, skv, kv_eff, h, cos)
         emit_bound = bound(0, 2 * q_bytes + q_bytes + table_bytes)
         k2_bound, k3_bound = bwd_bounds(b, n, sq, skv, kv_eff, h, cos)
         k1_b = k1_bound(b, n, sq, kv_eff, h)
@@ -859,7 +867,7 @@ def check_k5(card):
               emit_rel_l2=emit_errors[0], emit_max_abs_err=emit_errors[2], finite=finite, k5_ms=k5_ms, emit_ms=emit_ms, emit_plain_ms=emit_plain_ms,
               fused_backward_ms=fused_backward_ms, k2k3_backward_ms=split_backward_ms, k2_ms=k2_ms, k3_ms=k3_ms,
               k1_ms=k1_ms, plain_ms=plain_ms, sdpa_backward_ms=sdpa_bwd_ms, sdpa_forward_ms=sdpa_fwd_ms,
-              k5_bound_ms=k5_bound[0], emit_bound_ms=emit_bound[0], k2_bound_ms=k2_bound[0],
+              k5_bound_ms=k5_b[0], emit_bound_ms=emit_bound[0], k2_bound_ms=k2_bound[0],
               k3_bound_ms=k3_bound[0], k1_bound_ms=k1_b[0],
               k5_tflops=10 * n * sq * kv_eff * h / k5_ms / 1e9, card=card)
         bad = [k_ for k_, e in {**errors, **{f"{k_}_vs_k2k3": e for k_, e in vs_split.items()},
@@ -874,7 +882,7 @@ def check_k5(card):
         worst["k5"] = max(worst["k5"], *(e[2] for e in errors.values()))
         worst["k5_emit"] = max(worst["k5_emit"], emit_errors[2])
         records[name] = dict(
-            k5=(k5_ms, plain_ms, sdpa_bwd_ms, *k5_bound), k5_emit=(emit_ms, emit_plain_ms, None, *emit_bound),
+            k5=(k5_ms, plain_ms, sdpa_bwd_ms, *k5_b), k5_emit=(emit_ms, emit_plain_ms, None, *emit_bound),
             k1=(k1_ms, None, sdpa_fwd_ms, *k1_b), fused_backward_ms=fused_backward_ms)
         del q, k, v, do, out, lse, fused, split, q_s, k_r, dq_acc, emitted, refs
     return worst, records["wan_self_shared_rope"], records["ltx_self_rope"]
@@ -1437,6 +1445,18 @@ def wan_train(card):
         raise AssertionError("the Wan step under the fused-backward switch failed its checks")
     paths["wan_train_fused_bwd"] = fused_launches
 
+    # K7a: timed steps under the two-pass switch, beside the fused-backward ones above.
+    with switch("FINETRAINERS_FLASH_TWOPASS"):
+        twopass_step_s, twopass_launches, twopass_peak_gb = timed_steps(WAN_TRAIN_TIMED_STEPS)
+    twopass_expected = dict(k7a=4 * WAN_LAYERS, prep=6 * WAN_LAYERS, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS)
+    twopass_expected = {k_: twopass_expected.get(k_, 0) * WAN_TRAIN_TIMED_STEPS for k_ in twopass_launches}
+    phase("wan_train_fwd_variants", card=card, switch="FINETRAINERS_FLASH_TWOPASS", kernel="k7a", timed=True,
+          step_seconds=twopass_step_s, median_step_s=statistics.median(twopass_step_s), split_median_step_s=median_s,
+          fused_bwd_median_step_s=statistics.median(fused_step_s), launches=twopass_launches,
+          launches_expected=twopass_expected, max_memory_allocated_gb=twopass_peak_gb)
+    if twopass_launches != twopass_expected:
+        raise AssertionError("the timed Wan steps under the two-pass switch launched other kernels")
+
     # The kernel step against plain fp32 attention at 4992 tokens (plain scores are 1.2 GB per layer).
     small = wan_train_batch(WAN_SMALL_MOMENTS)
     kernel_loss, kernel_grad, small_launches = loss_and_grad(None, small)
@@ -1531,6 +1551,10 @@ def main():
     builds = {name: {"seconds": _build.BUILD_LOG[name]["seconds"], **ptxas_summary(_build.BUILD_LOG[name]["log"])}
               for name in sources}
     phase("build", seconds=time.perf_counter() - t0, kernels=builds)
+    spilled = {name: rec for src in builds.values() for name, rec in src["ptxas"].items()
+               if name.startswith(NO_SPILL_KERNELS) and (rec.get("spill_stores") or rec.get("spill_loads"))}
+    if spilled:
+        raise AssertionError(f"K5 or K7a spills registers: {spilled}")
 
     k1_err, k1 = check_k1(card)
     bwd_err, bwd = check_k2k3(card)
@@ -1557,12 +1581,15 @@ def main():
         return dict(shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128], ms=ms, library_ms=library_ms, bound_ms=bound_ms,
                     bound_by=bound_by)
 
-    def k7_entry(key, name, replaces):
+    def ptxas(source, kernel):  # the registers and spill bytes of `kernel`'s instantiations
+        return {name: rec for name, rec in builds[source]["ptxas"].items() if name.startswith(kernel + "<")}
+
+    def k7_entry(key, name, replaces, source="flash_fwd", **extra):
         r = k7[key]
-        return entry(name, "finetrainers_tpu_torch/csrc/flash_fwd.cu", replaces, wan_paths[f"wan_train_{key}"][key],
+        return entry(name, f"finetrainers_tpu_torch/csrc/{source}.cu", replaces, wan_paths[f"wan_train_{key}"][key],
                      k7_err[key], (r["ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"]),
                      launches_by_path={f"wan_train_{key}": wan_paths[f"wan_train_{key}"][key]},
-                     by_case=r["by_case"], library_note="torch SDPA forward, without the fused rotation")
+                     by_case=r["by_case"], library_note="torch SDPA forward, without the fused rotation", **extra)
 
     def bwd_entry(key, name, replaces):  # K2 or K3: the Wan training self-attention case, the others by case
         fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -1603,10 +1630,12 @@ def main():
         bwd_entry("k2", "bwd_dkdv_sm90 (K2, wgmma + TMA, with its reduce pass where the q loop is split)",
                   "finetrainers_tpu/ops/flash_attention.py:888"),
         bwd_entry("k3", "bwd_dq_sm90 (K3, wgmma + TMA)", "finetrainers_tpu/ops/flash_attention.py:1199"),
-        entry("bwd_fused (K5)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
+        entry("bwd_fused_sm90 (K5, wgmma + TMA, dq added by TMA reduces)",
+              "finetrainers_tpu_torch/csrc/flash_bwd_sm90.cu",
               "finetrainers_tpu/ops/flash_attention.py:1038", wan_paths["wan_train_fused_bwd"]["k5"], k5_err["k5"],
               k5_wan["k5"], launches_by_path={"wan_train_fused_bwd": wan_paths["wan_train_fused_bwd"]["k5"]},
               shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128], fused_backward_ms=k5_wan["fused_backward_ms"],
+              ptxas=ptxas("flash_bwd_sm90", "bwd_fused_sm90_kernel"),
               ltx_train_self_attention=dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                                                 k5_ltx["k5"])),
               library_note="torch SDPA backward (dq, dk, dv), without the fused rotation"),
@@ -1614,7 +1643,9 @@ def main():
               "finetrainers_tpu_torch/csrc/flash_bwd.cu", "finetrainers_tpu/ops/flash_attention.py:1191",
               wan_paths["wan_train_fused_bwd"]["k5_emit"], k5_err["k5_emit"], k5_wan["k5_emit"],
               launches_by_path={"wan_train_fused_bwd": wan_paths["wan_train_fused_bwd"]["k5_emit"]}),
-        k7_entry("k7a", "fwd_twopass (K7a)", "finetrainers_tpu/ops/flash_attention.py:337"),
+        k7_entry("k7a", "flash_fwd_twopass_sm90 (K7a, wgmma + TMA, on the pre-pass's operands)",
+                 "finetrainers_tpu/ops/flash_attention.py:337", source="flash_fwd_sm90",
+                 ptxas=ptxas("flash_fwd_sm90", "flash_fwd_twopass_sm90_kernel")),
         k7_entry("k7b", "fwd_skew (K7b)", "finetrainers_tpu/ops/flash_attention.py:491"),
         k7_entry("k7c", "fwd two-level (K7c)", "finetrainers_tpu/ops/flash_attention.py:229"),
         entry("sage_fwd_sm90 (K6, int8 wgmma + TMA, on the pre-pass's codes)",

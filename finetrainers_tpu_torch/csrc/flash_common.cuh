@@ -1,6 +1,7 @@
-// Device helpers shared by the attention kernels (flash_fwd_sm90.cu: K1,
-// flash_bwd_sm90.cu: K2, K3, flash_fwd.cu: K7a-c, flash_bwd.cu: the pre-pass,
-// K5, sage_fwd_sm90.cu: K6 and its pre-pass): the bf16/fp16 mma.sync m16n8k16 wrappers, ldmatrix,
+// Device helpers shared by the attention kernels (flash_fwd_sm90.cu: K1, K7a,
+// flash_bwd_sm90.cu: K2, K3, K5, flash_fwd.cu: K7b, K7c, flash_bwd.cu: the
+// pre-pass, K5's dq emit, sage_fwd_sm90.cu: K6 and its pre-pass): the
+// bf16/fp16 mma.sync m16n8k16 wrappers, ldmatrix,
 // cp.async, the base-2 exponential, the fused interleaved-pair RoPE and its
 // transpose. `ops/_build.py` hashes every header of csrc/ into each library's
 // name, so an edit here rebuilds them all.

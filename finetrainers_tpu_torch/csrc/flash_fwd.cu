@@ -1,36 +1,32 @@
 // Flash attention forward variants for Hopper (sm_90a), CUDA C++ with
-// mma.sync: K7a (two-pass), K7b (skewed) and K7c (two-level). K1 itself is the
-// wgmma kernel in flash_fwd_sm90.cu.
+// mma.sync: K7b (skewed) and K7c (two-level). K1 and K7a (two-pass) are the
+// wgmma kernels in flash_fwd_sm90.cu.
 //
 // Replaces: the `two_level` branch of finetrainers_tpu/ops/flash_attention.py::
-// _fwd_kernel (K7c), ::_fwd_kernel_twopass (K7a) and ::_fwd_kernel_skew (K7b)
-// (Pallas, TPU), picked there by _flash_forward from the
-// FINETRAINERS_FLASH_SKEW / _TWOPASS / _TWOLEVEL switches. They compute K1's
-// function: online-softmax attention in base 2 with scale*log2(e) folded into
-// q, an optional per-batch kv_lens padding mask, the output in the input dtype
-// and the natural-log LSE (m*ln2 + log l); rows with no valid key give 0
-// output. K7a and K7c read the pre-pass's operands (`rope_prep_kernel` in
-// flash_bwd.cu, run first by the wrapper): q_s = T(rope(q)*scale*log2e) and
-// k_r = T(rope(k)), with a q scale of 1 here. K7b takes no RoPE tables (as the
-// JAX package gates it) and scales q as its tile lands. They differ only in the
-// order of the softmax arithmetic:
+// _fwd_kernel (K7c) and ::_fwd_kernel_skew (K7b) (Pallas, TPU), picked there by
+// _flash_forward from the FINETRAINERS_FLASH_TWOLEVEL / _SKEW switches. They
+// compute K1's function: online-softmax attention in base 2 with
+// scale*log2(e) folded into q, an optional per-batch kv_lens padding mask, the
+// output in the input dtype and the natural-log LSE (m*ln2 + log l); rows with
+// no valid key give 0 output. K7c reads the pre-pass's operands
+// (`rope_prep_kernel` in flash_bwd.cu, run first by the wrapper): q_s =
+// T(rope(q)*scale*log2e) and k_r = T(rope(k)), with a q scale of 1 here. K7b
+// takes no RoPE tables (as the JAX package gates it) and scales q as its tile
+// lands. They differ only in the order of the softmax arithmetic:
 //   K7c  p = exp2(s - m_cur) against the tile's own max m_cur, so p and p v do
 //        not wait for the running max; beta = exp2(m_cur - m_new);
 //        l = l*alpha + rowsum(p)*beta; acc = acc*alpha + (p v)*beta
-//   K7a  pass A sweeps every kv tile for the row max only; pass B recomputes
-//        s and accumulates p = exp2(s - m) with no rescale (1.5x the QK^T
-//        products)
 //   K7b  iteration j issues tile j's QK^T, then runs K1's softmax step on tile
 //        j-1's scores from the previous iteration (two score fragments live);
 //        the first step processes a dummy tile of 2*(-1e30), a last one drains
-// Every kernel exponentiates and sums in fp32 and rounds p to the input dtype
-// only as the A operand of P V (as K1 does; the TPU's two-level kernel
-// exponentiates in v's dtype at H < 128).
+// Both exponentiate and sum in fp32 and round p to the input dtype only as the
+// A operand of P V (as K1 does; the TPU's two-level kernel exponentiates in
+// v's dtype at H < 128).
 //
-// What bounds them on this card: K1's work, 4*B*N*Sq*Skv*H operations (K7a
-// 6*...) against the bytes of q, k, v and out: about 1,340 operations per byte
-// at LTX's self-attention shape, far above the H100's ~295 FLOP/byte ridge, so
-// they are compute-bound.
+// What bounds them on this card: K1's work, 4*B*N*Sq*Skv*H operations against
+// the bytes of q, k, v and out: about 1,340 operations per byte at LTX's
+// self-attention shape, far above the H100's ~295 FLOP/byte ridge, so they are
+// compute-bound.
 //
 // What this design does about it: both products run on the tensor cores
 // (mma.sync m16n8k16, bf16/fp16 in, fp32 accumulate); the S tile never leaves
@@ -41,7 +37,7 @@
 // cp.async into a second buffer while the current tile is computed. K7c folds
 // each 32-column chunk of P V into acc as soon as it is computed, so no second
 // full accumulator lives in registers. Not used: wgmma, TMA and warp
-// specialisation (K1 has them).
+// specialisation (K1 and K7a have them).
 
 #include "flash_common.cuh"
 
@@ -63,8 +59,9 @@ constexpr int min_ctas_per_sm() {
   return HD == 64 ? 2 : 1;
 }
 
-// The `variant` argument of the C entry point (0, K1, is flash_fwd_sm90.cu's).
-enum Variant { kTwoLevel = 1, kTwoPass = 2, kSkew = 3 };
+// The `variant` argument of the C entry point (0, K1, and 2, K7a, are
+// flash_fwd_sm90.cu's).
+enum Variant { kTwoLevel = 1, kSkew = 3 };
 
 struct Params {
   const void* q;
@@ -78,7 +75,7 @@ struct Params {
   int64_t k_sb, k_sn, k_ss;
   int64_t v_sb, v_sn, v_ss;
   int64_t o_sb, o_sn, o_ss;
-  float qscale;  // softmax scale * log2(e) (K7b), or 1 on the pre-pass's q_s
+  float qscale;  // softmax scale * log2(e) (K7b), or 1 on the pre-pass's q_s (K7c)
 };
 
 // The q tile: rows row0.. of a (S, HD) slice with row stride `ss`, scaled by
@@ -358,74 +355,6 @@ __global__ void __launch_bounds__(kThreads, min_ctas_per_sm<HD>()) flash_fwd_two
   emit<T, HD>(p, acc, m, l, tl.b, tl.n, tl.q0);
 }
 
-// K7a: iteration `it` of 2 * num_tiles runs pass A (row max only) on tile it,
-// then pass B (accumulate against the final max) on tile it - num_tiles. k is
-// fetched in both passes, v in pass B only.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, min_ctas_per_sm<HD>()) flash_fwd_twopass_kernel(const Params p) {
-  constexpr int kLds = HD + 8;
-  constexpr int kOTiles = HD / 8;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_q = reinterpret_cast<T*>(smem);
-  T* s_k = s_q + kBlockQ * kLds;
-  T* s_v = s_k + 2 * kBlockKV * kLds;
-
-  const Tile tl = tile_of<T>(p);
-  const T* k = static_cast<const T*>(tl.k);
-  const T* v = static_cast<const T*>(tl.v);
-  const int kv_len = tl.kv_len, num_tiles = tl.num_tiles, total = 2 * num_tiles;
-  if (num_tiles > 0) copy_tile_async<T, HD, kBlockKV, kThreads>(s_k, k, p.k_ss, kv_len);
-  cp_async_commit();
-  load_q_tile<T, HD>(s_q, static_cast<const T*>(tl.q), p.q_ss, tl.q0, p.seq_q, p.qscale);
-  __syncthreads();
-
-  uint32_t qf[HD / 16][4];
-  q_fragments<T, HD>(qf, s_q);
-
-  float acc[kOTiles][4];
-#pragma unroll
-  for (int i = 0; i < kOTiles; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-
-  for (int it = 0; it < total; ++it) {
-    const bool accumulate = it >= num_tiles;
-    const int k0 = (accumulate ? it - num_tiles : it) * kBlockKV;
-    T* k_tile = s_k + (it & 1) * kBlockKV * kLds;
-    T* v_tile = s_v + (it & 1) * kBlockKV * kLds;
-    cp_async_wait_all();
-    __syncthreads();
-    if (it + 1 < total) {
-      const int k1 = (it + 1 >= num_tiles ? it + 1 - num_tiles : it + 1) * kBlockKV;
-      const int slot = ((it + 1) & 1) * kBlockKV * kLds;
-      copy_tile_async<T, HD, kBlockKV, kThreads>(s_k + slot, k + k1 * p.k_ss, p.k_ss, kv_len - k1);
-      if (it + 1 >= num_tiles)
-        copy_tile_async<T, HD, kBlockKV, kThreads>(s_v + slot, v + k1 * p.v_ss, p.v_ss, kv_len - k1);
-      cp_async_commit();
-    }
-
-    float s[kSTiles][4];
-    scores<T, HD>(s, qf, k_tile, k0, kv_len);
-    if (!accumulate) {
-      float tmax[2];
-      tile_row_max(s, tmax);
-      m[0] = fmaxf(m[0], tmax[0]);
-      m[1] = fmaxf(m[1], tmax[1]);
-      continue;
-    }
-    // m is final and finite (the row has a valid key), so masked entries give p = 0.
-    float rowsum[2];
-    exp2_rows(s, m, rowsum);
-    l[0] += rowsum[0];
-    l[1] += rowsum[1];
-    uint32_t pa[kPSteps][4];
-    pack_p<T>(s, pa);
-    pv_mma<T, HD, kOTiles>(acc, pa, v_tile, 0);
-  }
-  emit<T, HD>(p, acc, m, l, tl.b, tl.n, tl.q0);
-}
-
 // K7b (no RoPE): iteration t issues tile t's QK^T, then runs K1's softmax
 // step on the previous iteration's scores with v tile t-1. k tile t+1 and v
 // tile t are fetched during iteration t; iteration num_tiles only drains.
@@ -525,7 +454,6 @@ cudaError_t launch(const Params& p, int batch, int variant, cudaStream_t stream)
   void (*kernel)(const Params) = nullptr;
   switch (variant) {
     case kTwoLevel: kernel = flash_fwd_two_level_kernel<T, HD>; break;
-    case kTwoPass: kernel = flash_fwd_twopass_kernel<T, HD>; break;
     case kSkew: kernel = flash_fwd_skew_kernel<T, HD>; break;
   }
   if (kernel == nullptr) return cudaErrorInvalidValue;
@@ -540,9 +468,9 @@ cudaError_t launch(const Params& p, int batch, int variant, cudaStream_t stream)
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. dtype: 0 = bf16, 1 = fp16.
-// variant: 1 = K7c (two-level), 2 = K7a (two-pass), 3 = K7b (skewed); 0 (K1)
-// is refused here. K7a and K7c take the pre-pass's q_s and k_r with qscale 1,
-// K7b the raw q and k with qscale = scale * log2(e). Strides are in elements;
+// variant: 1 = K7c (two-level), 3 = K7b (skewed); 0 (K1) and 2 (K7a) are
+// refused here. K7c takes the pre-pass's q_s and k_r with qscale 1, K7b the
+// raw q and k with qscale = scale * log2(e). Strides are in elements;
 // the head dim is contiguous. Returns a cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse, const void* kv_lens,
                          int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype, int variant,

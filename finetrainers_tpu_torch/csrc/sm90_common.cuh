@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels: K1
-// (flash_fwd_sm90.cu), K2/K3 (flash_bwd_sm90.cu) and K6 (sage_fwd_sm90.cu).
-// Device side: the mbarrier helpers, TMA tile loads, setmaxnreg, the wgmma
+// Hopper (sm_90a) building blocks shared by the wgmma kernels: K1 and K7a
+// (flash_fwd_sm90.cu), K2/K3 and K5 (flash_bwd_sm90.cu) and K6 (sage_fwd_sm90.cu).
+// Device side: the mbarrier helpers, TMA tile loads and reduces, setmaxnreg,
+// named barriers, shared stores, the generic-to-async proxy fence, the wgmma
 // fence/commit/wait, the register fences, the shared-memory descriptors for the
-// 128- and 64-byte swizzles and the bf16/fp16 and int8 wgmma shape wrappers. Host side:
+// 128- and 64-byte swizzles and the bf16/fp16 and int8 wgmma shape wrappers.
+// Host side:
 // cuTensorMapEncodeTiled from the loaded driver and the rank-4 (H, S, N, B)
 // tensor maps over BNSH views of BTNH buffers.
 
@@ -59,6 +61,20 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Add a box of fp32 shared memory at `src` into the rank-4 (H, S, N, B) map's
+// box at (h, s, n, b) in device memory (TMA reduce; rows past S are dropped),
+// in this thread's current bulk group.
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t src, int h, int s, int n, int b) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(h), "r"(s), "r"(n), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Wait until this thread's bulk groups have finished reading shared memory.
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -67,6 +83,36 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a multiple of 32.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Shared-memory stores at a 32-bit shared address.
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
+}
+
+// Make this thread's shared-memory writes visible to the async proxy (wgmma
+// operand reads, TMA), and order them before the proxy's later writes.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// Zero the rows [row_begin, row_end) of a 128-row tile of HD / 64 halves (each
+// 128 rows of 128 bytes, kHalf bytes apart): the swizzle permutes 16-byte
+// chunks inside a row, so whole rows are zeroed wherever they lie. `tid` and
+// `threads` spread the 16-byte stores.
+template <int HD, int HALF>
+__device__ __forceinline__ void zero_tile_rows(unsigned char* tile, int row_begin, int row_end, int tid, int threads) {
+  constexpr int kChunks = 8 * (HD / 64);  // 16-byte chunks of a row
+  for (int idx = row_begin * kChunks + tid; idx < row_end * kChunks; idx += threads) {
+    const int row = idx / kChunks, chunk = idx % kChunks;
+    *reinterpret_cast<uint4*>(tile + (chunk / 8) * HALF + row * 128 + (chunk % 8) * 16) = make_uint4(0, 0, 0, 0);
+  }
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -140,6 +186,8 @@ __device__ __forceinline__ uint32_t mnmajor_step(int kk) { return (kk * 2048) >>
 //  ss64 / ss128: d (64 x 64 / 128) (+)= A (64 x 16, smem) B (16 x N, smem),
 //         both K-major; scale_d 0 overwrites d.
 //  rs64 / rs128: d (64 x 64 / 128) += A (64 x 16, registers) B (16 x N, smem, MN-major).
+//  ss64_mn: d (64 x 64) (+)= A (64 x 16, smem) B (16 x 64, smem), both MN-major
+//         (A's 64 rows contiguous along each contraction row).
 #define DEFINE_WGMMA(TY)                                                                                         \
   static __device__ __forceinline__ void ss64(float* d, uint64_t a, uint64_t b, int scale_d) {                  \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                    \
@@ -151,6 +199,12 @@ __device__ __forceinline__ uint32_t mnmajor_step(int kk) { return (kk * 2048) >>
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                    \
                  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n" \
                  : ACC64                                                                                         \
+                 : "l"(a), "l"(b), "r"(scale_d));                                                                \
+  }                                                                                                              \
+  static __device__ __forceinline__ void ss64_mn(float* d, uint64_t a, uint64_t b, int scale_d) {               \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                    \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " REGS32 ", %32, %33, p, 1, 1, 1, 1;\n}\n" \
+                 : ACC32                                                                                         \
                  : "l"(a), "l"(b), "r"(scale_d));                                                                \
   }                                                                                                              \
   static __device__ __forceinline__ void rs64(float* d, const uint32_t* a, uint64_t b) {                        \

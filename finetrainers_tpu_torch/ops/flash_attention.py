@@ -3,13 +3,14 @@
 autograd glue K4, each kernel beside its plain PyTorch version.
 
 Counterpart of `finetrainers_tpu/ops/flash_attention.py`: the Pallas
-`_fwd_kernel` becomes the wgmma/TMA kernel in `csrc/flash_fwd_sm90.cu` (K1);
-its `two_level` branch, `_fwd_kernel_twopass` and `_fwd_kernel_skew` become
-the CUDA kernels in `csrc/flash_fwd.cu`; `_bwd_dkdv_kernel` and
-`_bwd_dq_kernel` become the wgmma/TMA kernels in `csrc/flash_bwd_sm90.cu` (K2,
-K3) and `_bwd_fused_kernel` the CUDA kernel in `csrc/flash_bwd.cu` (K5), with
-the pre-pass there that rotates and scales q and k once per call for every
-kernel but K7b; all are built by `ops/_build.py`.
+`_fwd_kernel` and `_fwd_kernel_twopass` become the wgmma/TMA kernels in
+`csrc/flash_fwd_sm90.cu` (K1, K7a); `_fwd_kernel`'s `two_level` branch and
+`_fwd_kernel_skew` become the mma.sync kernels in `csrc/flash_fwd.cu` (K7c,
+K7b); `_bwd_dkdv_kernel`, `_bwd_dq_kernel` and `_bwd_fused_kernel` become the
+wgmma/TMA kernels in `csrc/flash_bwd_sm90.cu` (K2, K3, K5), and
+`csrc/flash_bwd.cu` holds K5's dq emit and the pre-pass that rotates and
+scales q and k once per call for every kernel but K7b; all are built by
+`ops/_build.py`.
 
   - `flash_qk_prep` is the pre-pass: q_s = T(rope(q) * scale * log2e) and,
     with tables, k_r = T(rope(k)) (T() rounds to the input dtype), the
@@ -49,7 +50,8 @@ kernel but K7b; all are built by `ops/_build.py`.
     pre-pass followed by K2's and K3's (`flash_bwd_dkdv_reference`,
     `flash_bwd_dq_reference`). The `*_twopass`, `*_skew`, `*_two_level`
     and `flash_backward_fused_reference` versions follow their kernel's
-    recurrence over kv tiles of the kernel's width (64 keys).
+    recurrence over kv tiles of the kernel's width (128 keys for K7a and K5,
+    64 for K7b and K7c), so their fp32 sums run in the kernel's tile order.
 
 Each kernel wrapper keeps a `launches` count (`flash_qk_prep`,
 `flash_forward_two_level`, `flash_forward_twopass`, `flash_forward_skew`,
@@ -75,7 +77,8 @@ _LN2 = 0.6931471805599453
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
-_BLOCK_KV = 64  # the kv tile of the mma.sync kernels: K7's inner loop, K5's CTA
+_BLOCK_KV = 64  # the kv tile of the mma.sync K7b and K7c (csrc/flash_fwd.cu)
+_SM90_BLOCK_KV = 128  # the kv tile of the wgmma K7a and K5 (a K5 CTA's kv rows)
 _BWD_ROWS = 128  # kv rows of a K2 CTA (csrc/flash_bwd_sm90.cu)
 _BWD_BLOCK_Q = 64  # K2's streamed q tile
 _MAX_DKDV_SPLITS = 8
@@ -267,15 +270,15 @@ def flash_bwd_dq_reference(q_s, k_r, v, do, lse, delta, kv_lens=None, rope_cos=N
     return dq.to(v.dtype)
 
 
-def _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale):
-    """(q_s, [(k_r tile, v tile, valid-key tile) for each 64-key tile]) for the
-    tiled plain versions; the tiles are fp32 except v, kept in its dtype."""
+def _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, block):
+    """(q_s, [(k_r tile, v tile, valid-key tile) for each `block`-key tile]) for
+    the tiled plain versions; the tiles are fp32 except v, kept in its dtype."""
     batch, _, _, head_dim = q.shape
     scale = head_dim**-0.5 if scale is None else scale
     qs, kr = flash_qk_prep_reference(q, k, rope_cos, rope_sin, scale)
     valid = _valid_keys(kv_lens, batch, k.shape[2], q.device)
-    return qs, [(kr[:, :, k0:k0 + _BLOCK_KV], v[:, :, k0:k0 + _BLOCK_KV], valid[..., k0:k0 + _BLOCK_KV])
-                for k0 in range(0, k.shape[2], _BLOCK_KV)]
+    return qs, [(kr[:, :, k0:k0 + block], v[:, :, k0:k0 + block], valid[..., k0:k0 + block])
+                for k0 in range(0, k.shape[2], block)]
 
 
 def _pv(p: torch.Tensor, v_tile: torch.Tensor) -> torch.Tensor:
@@ -294,7 +297,7 @@ def flash_forward_two_level_reference(q, k, v, kv_lens=None, rope_cos=None, rope
     tile, p = exp2(s - m_cur) against the tile's own max, beta = exp2(m_cur -
     m_new), l = l*alpha + rowsum(p)*beta, acc = acc*alpha + (p v)*beta.
     Arguments and result as `flash_attention_reference`."""
-    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _BLOCK_KV)
     m, l, acc = _running_state(q)
     for kr, vt, valid in tiles:
         s = (qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF)
@@ -310,10 +313,10 @@ def flash_forward_two_level_reference(q, k, v, kv_lens=None, rope_cos=None, rope
 
 def flash_forward_twopass_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
     """Plain version of K7a (`_fwd_kernel_twopass`): a first sweep over the
-    64-key tiles takes the row max; a second accumulates p = exp2(s - m) against
+    128-key tiles takes the row max; a second accumulates p = exp2(s - m) against
     that final max with no rescale (a row with no valid key selects p to 0).
     Arguments and result as `flash_attention_reference`."""
-    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SM90_BLOCK_KV)
     m, l, acc = _running_state(q)
     for kr, _, valid in tiles:
         m = torch.maximum(m, (qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF).amax(dim=-1, keepdim=True))
@@ -330,7 +333,7 @@ def flash_forward_skew_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=
     each 64-key tile in turn, after a first step on a dummy tile of 2*(-1e30)
     (p = 0, alpha = 1); masked entries are recovered from the stored scores
     (`s > 0.5 * -1e30`). Arguments and result as `flash_attention_reference`."""
-    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _BLOCK_KV)
     m, l, acc = _running_state(q)
     dummy = torch.full(qs.shape[:-1] + (1,), 2.0 * _NEG_INF, device=q.device)
     steps = [(dummy, None)] + [((qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF), vt)
@@ -359,12 +362,12 @@ def flash_backward_fused_reference(
     delta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K5 (`_bwd_fused_kernel`): `flash_backward_reference`'s
-    quantities at its rounding points, computed once per 64-key tile, with each
-    tile's ds k_r added into an fp32 dq accumulator, as K5 adds them. Arguments
-    and result as `flash_backward_reference`."""
+    quantities at its rounding points, computed once per 128-key tile (a K5
+    CTA's kv rows), with each tile's ds k_r added into an fp32 dq accumulator,
+    as K5 adds them. Arguments and result as `flash_backward_reference`."""
     dtype = q.dtype
     scale = q.shape[-1]**-0.5 if scale is None else scale
-    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SM90_BLOCK_KV)
     dof = do.float()
     if delta is None:
         delta = (dof * out.float()).sum(-1)
@@ -508,13 +511,14 @@ def flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn: int, scale: float):
 flash_qk_prep.launches = 0
 
 
-def _k1(q_s, k_r, v, kv_lens):
-    """Launch K1 (`csrc/flash_fwd_sm90.cu`) on checked operands; counted on
-    `flash_forward.launches`."""
+def _sm90_forward(entry, q_s, k_r, v, kv_lens):
+    """Launch `entry` of `csrc/flash_fwd_sm90.cu` (`flash_fwd_sm90`, K1, or
+    `flash_fwd_twopass_sm90`, K7a) on checked operands -> (out, lse); the
+    caller counts the launch."""
     batch, heads, seq_q, head_dim = q_s.shape
     out = _btnh_like(q_s)
     lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q_s.device)
-    fn = _kernel("flash_fwd_sm90", "flash_fwd_sm90",
+    fn = _kernel("flash_fwd_sm90", entry,
                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
     with torch.cuda.device(q_s.device):
         _launch(
@@ -522,8 +526,14 @@ def _k1(q_s, k_r, v, kv_lens):
             batch, heads, seq_q, k_r.shape[2], head_dim, _DTYPE_CODES[q_s.dtype], _strides(q_s, k_r, v, out),
             _stream(q_s.device),
         )
-    flash_forward.launches += 1
     return out, lse
+
+
+def _k1(q_s, k_r, v, kv_lens):
+    """Launch K1 on checked operands; counted on `flash_forward.launches`."""
+    out = _sm90_forward("flash_fwd_sm90", q_s, k_r, v, kv_lens)
+    flash_forward.launches += 1
+    return out
 
 
 def flash_forward_core(
@@ -572,8 +582,9 @@ flash_forward.launches = 0
 
 
 def _forward_kernel(fn_name, variant, q, k, v, kv_lens, rope_cos, rope_sin, scale):
-    """Check a forward call and launch kernel `variant` of `csrc/flash_fwd.cu`
-    (the C entry point's code: 1 K7c, 2 K7a, 3 K7b; 0, K1, is
+    """Check a forward call and launch variant `variant`: 2, K7a, is
+    `flash_fwd_twopass_sm90` of `csrc/flash_fwd_sm90.cu`; 1, K7c, and 3, K7b,
+    are the C entry point's codes in `csrc/flash_fwd.cu` (0, K1, is
     `flash_fwd_sm90.cu`'s). K7a and K7c run on the pre-pass's operands; K7b,
     which takes no tables, scales q itself."""
     kv_lens, rope_sn = _check_kernel_call(fn_name, q, k, v, kv_lens, rope_cos, rope_sin)
@@ -584,6 +595,8 @@ def _forward_kernel(fn_name, variant, q, k, v, kv_lens, rope_cos, rope_sin, scal
     if variant != 3:
         q, k = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
         qscale = 1.0
+    if variant == 2:
+        return _sm90_forward("flash_fwd_twopass_sm90", q, k, v, kv_lens)
 
     out = _btnh_like(q)
     lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q.device)
@@ -600,7 +613,7 @@ def _forward_kernel(fn_name, variant, q, k, v, kv_lens, rope_cos, rope_sin, scal
 
 def _forward_variant(name: str, variant: int, plain: str, takes_rope: bool, doc: str):
     """A K7 wrapper: on a CPU tensor the plain version named `plain` (looked up
-    per call), else kernel `variant` of `csrc/flash_fwd.cu`, counted in its own
+    per call), else kernel `variant` (`_forward_kernel`), counted in its own
     `launches`. Without `takes_rope` it refuses RoPE tables."""
 
     def wrapper(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
@@ -658,6 +671,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _split_q_loop(q_s, k_r):
+    """(splits, q tiles per split, fp32 partials or None) for K2's or K5's q
+    loop (`dkdv_splits`): with splits > 1, the (2, splits, B, N, Skv, H) partial
+    dk and dv the reduce pass sums."""
+    batch, heads, seq_q, head_dim = q_s.shape
+    seq_kv = k_r.shape[2]
+    splits, per = dkdv_splits(batch, heads, seq_q, seq_kv, _sm_count(q_s.device.index or 0))
+    partials = None
+    if splits > 1:
+        partials = torch.empty((2, splits, batch, heads, seq_kv, head_dim), dtype=torch.float32, device=q_s.device)
+    return splits, per, partials
+
+
 def flash_bwd_dkdv(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn: int):
     """K2 on operands `flash_backward` has checked, with q_s/k_r from
     `flash_qk_prep`: (dk, dv), BNSH views of BTNH-contiguous buffers. On a CUDA
@@ -669,10 +695,7 @@ def flash_bwd_dkdv(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rop
     batch, heads, seq_q, head_dim = q_s.shape
     seq_kv = k_r.shape[2]
     dk, dv = _btnh_like(k_r), _btnh_like(v)
-    splits, per = dkdv_splits(batch, heads, seq_q, seq_kv, _sm_count(q_s.device.index or 0))
-    partials = None
-    if splits > 1:  # fp32 partial dk and dv of each split, summed by the reduce pass
-        partials = torch.empty((2, splits, batch, heads, seq_kv, head_dim), dtype=torch.float32, device=q_s.device)
+    splits, per, partials = _split_q_loop(q_s, k_r)
     fn = _kernel("flash_bwd_sm90", "flash_bwd_dkdv_sm90",
                  _BWD_ARGTYPES + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                  + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -721,20 +744,24 @@ def flash_bwd_fused(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, ro
     """K5 on operands `flash_backward` has checked, with q_s/k_r from
     `flash_qk_prep`: (dq_acc, dk, dv), dq_acc the fp32 (B, N, Sq, H) sum of
     ds k_r before the scale and the transpose rotation (`flash_bwd_dq_emit`),
-    dk and dv BNSH views of BTNH-contiguous buffers."""
+    dk and dv BNSH views of BTNH-contiguous buffers. It launches the wgmma
+    kernel of `csrc/flash_bwd_sm90.cu` and, where `dkdv_splits` cuts its q loop
+    as it cuts K2's, K2's reduce pass; dq_acc is zeroed here, and the kernel
+    adds into it in an order that varies from run to run."""
     batch, heads, seq_q, head_dim = q_s.shape
+    seq_kv = k_r.shape[2]
     dk, dv = _btnh_like(k_r), _btnh_like(v)
     dq_acc = torch.zeros((batch, heads, seq_q, head_dim), dtype=torch.float32, device=q_s.device)
-    fn = _kernel("flash_bwd", "flash_bwd_fused",
-                 _BWD_ARGTYPES + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_void_p])
-    strides = _strides(q_s, k_r, v, do, dk, dv)
+    splits, per, partials = _split_q_loop(q_s, k_r)
+    fn = _kernel("flash_bwd_sm90", "flash_bwd_fused_sm90",
+                 _BWD_ARGTYPES + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q_s.device):
         _launch(
             fn, q_s.data_ptr(), k_r.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            _ptr(kv_lens), _ptr(rope_cos), _ptr(rope_sin), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
-            batch, heads, seq_q, k_r.shape[2], head_dim, _DTYPE_CODES[q_s.dtype], strides, rope_sn,
-            _stream(q_s.device),
+            _ptr(kv_lens), _ptr(rope_cos), _ptr(rope_sin), dk.data_ptr(), dv.data_ptr(), _ptr(partials),
+            dq_acc.data_ptr(), batch, heads, seq_q, seq_kv, head_dim, _DTYPE_CODES[q_s.dtype],
+            _strides(q_s, k_r, v, do, dk, dv), rope_sn, splits, per, _stream(q_s.device),
         )
     flash_bwd_fused.launches += 1
     return dq_acc, dk, dv

@@ -8,11 +8,12 @@ branch in interpret mode on the CPU (called unjitted, with the switch set by
 `flash_forward_twopass_reference`, `..._skew_reference` or
 `..._two_level_reference` for CPU tensors. Cases as the JAX package's
 `TestForwardKernelVariants`: plain, `kv_lens`, H=128, H=128 with `kv_lens`,
-over 150 keys (three of the port's 64-key tiles, the last ragged; 32-key
-blocks on the JAX side); then RoPE with per-head and shared tables for the
-two-pass and two-level kernels, and the skew gate. fp32, compared at atol 2e-5,
-rtol 1e-5, as K1 (the variants reorder fp32 arithmetic: block-local maxima,
-no rescale, another tiling).
+over 150 keys (two of K7a's 128-key tiles and three of K7b's and K7c's 64-key
+tiles, the last ragged; 32-key blocks on the JAX side); then RoPE with
+per-head and shared tables for the two-pass and two-level kernels, the skew
+gate, and K7a over several 128-key tiles against JAX at 32- and 128-key
+blocks. fp32, compared at atol 2e-5, rtol 1e-5, as K1 (the variants reorder
+fp32 arithmetic: block-local maxima, no rescale, another tiling).
 """
 
 import importlib
@@ -56,9 +57,9 @@ def switch(monkeypatch):
     return set_switch
 
 
-def _run_both(h=64, kv_lens=None, rope=None, s=150):
+def _run_both(h=64, kv_lens=None, rope=None, s=150, jax_block_kv=32, b=2):
     rng = np.random.RandomState(7)
-    b, n = 2, 3
+    n = 3
     q, k, v = (rng.randn(b, s, n, h).astype(np.float32) for _ in range(3))
     cos = sin = None
     if rope == "per_head":
@@ -67,7 +68,7 @@ def _run_both(h=64, kv_lens=None, rope=None, s=150):
         cos, sin = _shared_tables(s, h, rng)
     lens = None if kv_lens is None else np.asarray(kv_lens, np.int32)
     ref = jax_flash_attention(_j(q), _j(k), _j(v), kv_lens=_j(lens), rope_cos=_j(cos), rope_sin=_j(sin),
-                              block_q=32, block_kv=32)
+                              block_q=32, block_kv=jax_block_kv)
     out = flash_attention(_t(q), _t(k), _t(v), kv_lens=_t(lens), rope_cos=_t(cos), rope_sin=_t(sin))
     return out.numpy(), np.asarray(ref)
 
@@ -91,6 +92,30 @@ def test_variant_with_rope_matches_jax(env, rope, h, switch):
     out, ref = _run_both(h=h, rope=rope)
     assert calls == [1]
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+
+
+# K7a over several of its 128-key tiles: a ragged last tile (300 = 2*128 + 44;
+# 264 with per-head tables), kv_lens inside the second tile (150) and at a tile
+# boundary (256), an empty row; H 64 and 128.
+TWOPASS_OVER_128 = {
+    "ragged_last_tile_h128": dict(h=128, s=300),
+    "kv_lens_across_tiles_empty_row_h64": dict(s=300, kv_lens=[150, 256, 0], b=3),
+    "per_head_tables_ragged_h64": dict(s=264, rope="per_head"),
+}
+
+
+@pytest.mark.parametrize("jax_block_kv", [32, 128])
+@pytest.mark.parametrize("case", sorted(TWOPASS_OVER_128))
+def test_twopass_over_128_key_tiles_matches_jax(case, jax_block_kv, switch):
+    """K7a's plain version takes its max and sums over 128-key tiles in turn;
+    JAX's two-pass kernel at 32- and 128-key blocks."""
+    calls = switch("FINETRAINERS_FLASH_TWOPASS")
+    kw = TWOPASS_OVER_128[case]
+    out, ref = _run_both(jax_block_kv=jax_block_kv, **kw)
+    assert calls == [1]
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+    if kw.get("kv_lens") and 0 in kw["kv_lens"]:
+        assert not out[kw["kv_lens"].index(0)].any()
 
 
 @pytest.mark.parametrize("rope", ["per_head", "shared"])

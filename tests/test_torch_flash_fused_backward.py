@@ -6,7 +6,8 @@ switch set by `monkeypatch`, so no cached trace ignores it); the port's
 `flash_backward` then takes K5's plain version, `flash_backward_fused_reference`,
 for CPU tensors. Same numpy inputs and the same `out`/LSE from the JAX forward;
 fp32, dq/dk/dv compared at atol 2e-5, rtol 1e-5 (fp32 sums in another order:
-64-key tiles here, the kernel's blocks there), as for K2/K3. The K4 glue under
+128-key tiles here, the Pallas kernel's blocks there), as for K2/K3. The cases
+over 128 keys run JAX at 32- and 128-key blocks. The K4 glue under
 the switch is held against `jax.grad` of the JAX `flash_attention`. The on-card
 check of the CUDA kernel against the plain version is in
 `test_torch_kernels_gpu.py`.
@@ -41,14 +42,22 @@ jax_flash_ops = importlib.import_module("finetrainers_tpu.ops.flash_attention")
 ATOL, RTOL = 2e-5, 1e-5
 SWITCH = "FINETRAINERS_FLASH_FUSED_BWD"
 
-# name: (B, N, Sq, Skv, H, rope, kv_lens); Skv > 64 where it matters, so K5's
-# plain version adds dq over more than one kv tile.
+# name: (B, N, Sq, Skv, H, rope, kv_lens).
 CASES = {
     "per_head_tables_h64": (2, 2, 96, 96, 64, "ltx", None),
     "shared_tables_h128": (1, 2, 80, 80, 128, "shared", None),
     "kv_lens_with_empty_row": (3, 2, 40, 90, 64, None, [90, 7, 0]),
     "cross_sq_ne_skv": (2, 2, 50, 140, 64, None, None),
 }
+# Over 128 keys, so K5's plain version adds dq over more than one of its 128-key
+# tiles: ragged last tiles (300 = 2*128 + 44, 333, 260), kv_lens inside the
+# second tile (150) and an empty row.
+CASES_OVER_128 = {
+    "ragged_last_tile_h64": (1, 2, 70, 300, 64, None, None),
+    "kv_lens_across_tiles_empty_row_h128": (3, 2, 50, 333, 128, None, [333, 150, 0]),
+    "shared_tables_ragged_h64": (1, 2, 260, 260, 64, "shared", None),
+}
+CASES.update(CASES_OVER_128)
 
 
 def _inputs(case):
@@ -74,8 +83,7 @@ def fused_kernel_traces(monkeypatch):
     return traces
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_fused_backward_matches_jax(case, fused_kernel_traces):
+def _check_against_jax(case, jax_block_kv, traces):
     q, k, v, kv_lens, cos, sin = _inputs(case)
     n, h = q.shape[2], q.shape[3]
     qb, kb, vb = (x.transpose(0, 2, 1, 3).copy() for x in (q, k, v))
@@ -83,8 +91,9 @@ def test_fused_backward_matches_jax(case, fused_kernel_traces):
     cos_b, sin_b = _bnsh_tables(cos, sin, n, h)
     args = (_j(qb), _j(kb), _j(vb), _j(kv_lens), None, None, None)
     out, lse = jax_flash_forward(*args, h**-0.5, False, 32, 32, rope_cos=_j(cos_b), rope_sin=_j(sin_b))
-    ref = jax_flash_backward(*args, out, lse, _j(do), h**-0.5, False, 32, 32, rope_cos=_j(cos_b), rope_sin=_j(sin_b))
-    assert fused_kernel_traces, "the JAX backward did not take its fused kernel"
+    ref = jax_flash_backward(*args, out, lse, _j(do), h**-0.5, False, 32, jax_block_kv, rope_cos=_j(cos_b),
+                             rope_sin=_j(sin_b))
+    assert traces, "the JAX backward did not take its fused kernel"
     before = (flash_bwd_fused.launches, flash_bwd_dq_emit.launches)
     grads = flash_backward(_t(qb), _t(kb), _t(vb), _t(np.asarray(out)), _t(np.asarray(lse)), _t(do),
                            kv_lens=_t(kv_lens), rope_cos=_t(cos_b), rope_sin=_t(sin_b))
@@ -94,6 +103,19 @@ def test_fused_backward_matches_jax(case, fused_kernel_traces):
     if kv_lens is not None and 0 in kv_lens:
         empty = list(kv_lens).index(0)
         assert all(torch.isfinite(g).all() and not g[empty].any() for g in grads)
+
+
+@pytest.mark.parametrize("case", sorted(set(CASES) - set(CASES_OVER_128)))
+def test_fused_backward_matches_jax(case, fused_kernel_traces):
+    _check_against_jax(case, 32, fused_kernel_traces)
+
+
+@pytest.mark.parametrize("jax_block_kv", [32, 128])
+@pytest.mark.parametrize("case", sorted(CASES_OVER_128))
+def test_fused_backward_over_128_key_tiles_matches_jax(case, jax_block_kv, fused_kernel_traces):
+    """K5's plain version sums dq over its 128-key tiles in turn; JAX's fused
+    kernel at 32- and 128-key blocks."""
+    _check_against_jax(case, jax_block_kv, fused_kernel_traces)
 
 
 @pytest.mark.parametrize("case", ["kv_lens_with_empty_row", "per_head_tables_h64"])

@@ -291,17 +291,32 @@ _VARIANTS = {
 }
 
 
+# Further cases for the wgmma K7a and K5 (B, N, Sq, Skv, H, rope, kv_lens): several 128-key tiles
+# with a ragged last one, kv_lens inside a tile and an empty row, cross-attention over 512 keys whose
+# K5 q loop `dkdv_splits` cuts over CTAs, and a single key tile.
+SM90_VARIANT_CASES = [
+    (2, 2, 300, 300, 128, "shared", None),
+    (2, 3, 333, 333, 64, "per_head", None),
+    (3, 2, 200, 333, 128, None, [333, 150, 0]),
+    (1, 4, 4100, 512, 128, None, [300]),
+    (3, 2, 200, 333, 64, None, [1, 200, 0]),
+    (1, 2, 129, 129, 64, None, [129]),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", sorted(_VARIANTS))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_forward_variant_kernels_match_reference(variant, dtype):
     """K7a/b/c against their own plain versions and against K1's, with K1's
-    bounds (the skewed kernel takes no RoPE tables: its cases drop them)."""
+    bounds (the skewed kernel takes no RoPE tables: its cases drop them), on
+    BNSH views of BTNH buffers; K7a also at the cases over several 128-key
+    tiles."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     kernel, reference = _VARIANTS[variant]
     g = torch.Generator(device="cuda").manual_seed(5)
-    for b, n, sq, skv, h, rope, lens in CASES:
+    for b, n, sq, skv, h, rope, lens in CASES + (SM90_VARIANT_CASES if variant == "twopass" else []):
         if variant == "skew":
             rope = None
         q, k, v = (torch.randn(b, s, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2)
@@ -350,13 +365,15 @@ def test_forward_switches_pick_the_kernel(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_fused_backward_kernel_matches_reference(dtype, monkeypatch):
     """K5 and its dq emit (after the pre-pass) against
-    `flash_backward_fused_reference`, with K2/K3's bounds; K5 adds dq with
-    atomics, so dq's fp32 sum order varies from run to run within them."""
+    `flash_backward_fused_reference`, with K2/K3's bounds, on BNSH views of
+    BTNH buffers, H 64 and 128, Skv off the 128-key tile and a cross-attention
+    case whose q loop is split over CTAs; K5 adds dq with TMA reduces, so dq's
+    fp32 sum order varies from run to run within them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     monkeypatch.setenv("FINETRAINERS_FLASH_FUSED_BWD", "1")
     g = torch.Generator(device="cuda").manual_seed(6)
-    for b, n, sq, skv, h, rope, lens in CASES:
+    for b, n, sq, skv, h, rope, lens in CASES + SM90_VARIANT_CASES:
         q, k, v = (torch.randn(b, s, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2)
                    for s in (sq, skv, skv))
         kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -465,6 +482,44 @@ def test_k2_k3_ignore_k_and_v_rows_past_kv_lens(dtype, head_dim):
         assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
         for name, big, zeroed in zip(("dq", "dk", "dv"), runs[0][2], runs[1][2]):
             assert torch.isfinite(big).all() and torch.equal(big, zeroed), (name, b, n, sq, skv, lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k5_k7a_ignore_k_and_v_rows_past_kv_lens(dtype, head_dim, monkeypatch):
+    """TMA reads the rows of k and v between kv_lens[b] and the end of their
+    128-key tile. Filled with NaN, they must leave K7a's out and LSE, and K5's
+    dk and dv, bit-equal to the same call with those rows zeroed; K5's dq
+    differs only by the order of its fp32 sums (K2/K3's bounds), and all are
+    finite. Self-attention lengths, and a cross-attention shape whose K5 q loop
+    is split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    monkeypatch.setenv("FINETRAINERS_FLASH_FUSED_BWD", "1")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for b, n, sq, skv, lens in ((3, 2, 300, 333, [1, 200, 0]), (1, 4, 4100, 512, [300])):
+        q, k, v = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   for s in (sq, skv, skv))
+        do = torch.randn(b, sq, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out, lse = flash_forward(q, k, v, kv_lens)  # K1 on finite rows: the backward's out and LSE
+        runs = []
+        for fill in (float("nan"), 0.0):
+            k_f, v_f = k.clone(), v.clone()
+            for bi, length in enumerate(lens):
+                k_f[bi, :, length:] = fill
+                v_f[bi, :, length:] = fill
+            runs.append((flash_forward_twopass(q, k_f, v_f, kv_lens), flash_backward(q, k_f, v_f, out, lse, do,
+                                                                                       kv_lens)))
+        torch.cuda.synchronize()
+        case = (b, n, sq, skv, lens)
+        (nan_fwd, nan_grads), (zero_fwd, zero_grads) = runs
+        assert all(torch.equal(x, y) for x, y in zip(nan_fwd, zero_fwd)), case
+        assert all(torch.isfinite(x).all() for x in nan_grads), case
+        assert torch.equal(nan_grads[1], zero_grads[1]) and torch.equal(nan_grads[2], zero_grads[2]), case
+        rel_l2, max_ratio = _rel_errors(nan_grads[0], zero_grads[0])
+        assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (case, rel_l2, max_ratio)
 
 
 # (B, N, Sq, Skv, H, kv_lens): Wan-like H=128 self-attention, cross-attention over
