@@ -8,13 +8,13 @@ every kernel switch of the flash attention.
 Phases, each printed on its own line:
   1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
   2. the nvcc builds of the hand-written kernels, one process per source, all
-     started together: K1 and K7a (`csrc/flash_fwd_sm90.cu`, wgmma and TMA),
-     K2, K3 and K5 (`csrc/flash_bwd_sm90.cu`, wgmma and TMA, with K2's reduce
-     pass for a split q loop, which K5 shares), K7b/c (`csrc/flash_fwd.cu`),
-     K5's dq emit and the pre-pass that every forward but K7b and every
-     backward runs first (`csrc/flash_bwd.cu`) and K6 with its pre-pass
-     (`csrc/sage_fwd_sm90.cu`, int8 wgmma and TMA), timed, with ptxas'
-     register, spill and warning lines; a spill in K5 or K7a fails the run;
+     started together: K1 and K7a/b/c (`csrc/flash_fwd_sm90.cu`, wgmma and
+     TMA), K2, K3 and K5 (`csrc/flash_bwd_sm90.cu`, wgmma and TMA, with K2's
+     reduce pass for a split q loop, which K5 shares), K5's dq emit and the
+     pre-pass that every forward but K7b and every backward runs first
+     (`csrc/flash_bwd.cu`) and K6 with its pre-pass (`csrc/sage_fwd_sm90.cu`,
+     int8 wgmma and TMA), timed, with ptxas' register, spill and warning
+     lines; a spill in K5, K7a, K7b or K7c fails the run;
   3. K1 against its plain PyTorch version (`flash_forward_core_reference` on
      the pre-pass's operands) and the pre-pass plus K1 (`flash_forward`)
      against `flash_attention_reference`, in bf16, at the LTX serving path's
@@ -48,8 +48,10 @@ Phases, each printed on its own line:
      K5, the emit, K1, K2, K3 and both whole backwards, bounds, and the torch
      SDPA backward as the library yardstick; then K7a, K7b and K7c each
      against its plain version and against K1 at LTX's serving self-attention,
-     Wan's self-attention (B=2, shared tables; K7b without tables), Wan's
-     cross-attention (512 keys, kv_lens) and a ragged case with an empty row;
+     Wan's self-attention (B=1 and 2, shared tables; K7b without tables),
+     Wan's cross-attention (512 keys, kv_lens, B=1 and 2) and a ragged case
+     with an empty row, where k/v rows past kv_lens holding large values must
+     leave out and LSE bit-equal;
   6. LTX serving through the user entry points: the full-width LTX spec (random
      weights from a seeded generator, bf16) serves 2 prompts at 49x512x768 with
      CFG 3.0; checks the videos and that K1 and the pre-pass were each launched
@@ -88,7 +90,8 @@ Phases, each printed on its own line:
      FINETRAINERS_FLASH_FUSED_BWD (K5: bit-equal loss, LoRA gradient within
      1e-2, 2*30 K5 launches, its step time) and under each forward switch
      (K7a/b/c launch counts, loss within 1e-3 and gradient within 2e-2 of the
-     K1 step), then 3 timed steps under FINETRAINERS_FLASH_TWOPASS (K7a);
+     K1 step), then 3 timed steps under each of FINETRAINERS_FLASH_TWOPASS
+     (K7a), _TWOLEVEL (K7c) and _SKEW (K7b), with exact launch counts;
      the kernel step against plain fp32 attention at 4992 tokens;
      host issue time and a torch.profiler breakdown of one step.
 The line before the last is the kernels' JSON record; the last line is
@@ -202,8 +205,9 @@ VARIANT_GRAD_REL_L2_TOL = 2e-2
 FUSED_GRAD_REL_L2_TOL = 1e-2
 SWITCHES = ("FINETRAINERS_FLASH_FUSED_BWD", "FINETRAINERS_FLASH_TWOPASS", "FINETRAINERS_FLASH_SKEW",
             "FINETRAINERS_FLASH_TWOLEVEL")
-# The kernels whose ptxas record must show no spill: K5 and K7a (their consumers run at 240 and 160 registers).
-NO_SPILL_KERNELS = ("bwd_fused_sm90_kernel", "flash_fwd_twopass_sm90_kernel")
+# The kernels whose ptxas record must show no spill: K5 and K7a-c (their consumers run at 240 and 160 registers).
+NO_SPILL_KERNELS = ("bwd_fused_sm90_kernel", "flash_fwd_twopass_sm90_kernel", "flash_fwd_two_level_sm90_kernel",
+                    "flash_fwd_skew_sm90_kernel")
 # H100 SXM dense peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -902,9 +906,11 @@ def check_k7(card):
     at LTX's serving self-attention, Wan's self- and cross-attention at the
     training path's batch (1) and the serving batch (2), and a ragged case with
     an empty row (K7b takes no RoPE tables: its self-attention cases run
-    without them, as does the K1 it is held against). Returns the worst errors
-    and the records of each kernel at the shape the Wan training path gives it
-    (self-attention; cross-attention for K7b)."""
+    without them, as does the K1 it is held against). Where kv_lens leaves k/v
+    rows out, filling them with large values must leave out and LSE bit-equal
+    to the call with them zeroed (TMA reads those rows). Returns the worst
+    errors and the records of each kernel at the shape the Wan training path
+    gives it (self-attention; cross-attention for K7b)."""
     g = torch.Generator(device="cuda").manual_seed(10)
     cases = {
         "ltx_self_rope": dict(b=2, n=32, sq=2688, skv=2688, h=64, lens=None, rope="ltx"),
@@ -940,6 +946,14 @@ def check_k7(card):
                                      rel_l2=((out.float() - r_out.float()).norm() / r_out.float().norm()).item(),
                                      lse_max_abs_err=(lse - r_lse).abs().max().item())
             empty_zero = all(not out[i].any() for i, length in enumerate(c["lens"] or []) if length == 0)
+            past_lens_ok = None
+            if c["lens"] is not None and any(length < skv for length in c["lens"]):
+                big = kernel(q, _fill_past_kv_lens(k, c["lens"], 3e4), _fill_past_kv_lens(v, c["lens"], -3e4), lens,
+                             cos, sin)
+                zeroed = kernel(q, _fill_past_kv_lens(k, c["lens"], 0.0), _fill_past_kv_lens(v, c["lens"], 0.0), lens,
+                                cos, sin)
+                past_lens_ok = torch.equal(big[0], zeroed[0]) and torch.equal(big[1], zeroed[1])
+                del big, zeroed
             ms = cuda_ms(lambda: kernel(q, k, v, lens, cos, sin))
             plain_ms = cuda_ms(lambda: reference(q, k, v, lens, cos, sin), iters=1, warmup=0)
             flops = 4 * n * sq * kv_eff * h
@@ -948,13 +962,15 @@ def check_k7(card):
                                        + table_bytes)
             phase("k7_check", kernel=name, case=case, shape=[b, n, sq, skv, h], kv_lens=c["lens"],
                   rope=None if cos is None else c["rope"], vs_plain=errs["plain"], vs_k1=errs["k1"],
-                  empty_rows_zero=empty_zero, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, sdpa_forward_ms=sdpa_ms,
+                  empty_rows_zero=empty_zero, rows_past_kv_lens_ignored=past_lens_ok, ms=ms, k1_ms=k1_ms,
+                  plain_ms=plain_ms, sdpa_forward_ms=sdpa_ms,
                   bound_ms=bound_ms,
                   bound_by=bound_by, tflops=flops / ms / 1e9, card=card)
             ok = all(e["err_over_max1_ref"] <= K1_TOL and e["lse_max_abs_err"] <= LSE_TOL
                      and e["rel_l2"] <= K1_REL_L2_TOL for e in errs.values())
-            if not (ok and empty_zero):
-                raise AssertionError(f"{name} disagrees on {case}: {errs}, empty rows zero: {empty_zero}")
+            if not (ok and empty_zero and past_lens_ok is not False):
+                raise AssertionError(f"{name} disagrees on {case}: {errs}, empty rows zero: {empty_zero}, "
+                                     f"rows past kv_lens ignored: {past_lens_ok}")
             worst[name] = max(worst[name], errs["plain"]["max_abs_err"])
             records[name][case] = dict(ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms,
                                        bound_by=bound_by)
@@ -1445,17 +1461,23 @@ def wan_train(card):
         raise AssertionError("the Wan step under the fused-backward switch failed its checks")
     paths["wan_train_fused_bwd"] = fused_launches
 
-    # K7a: timed steps under the two-pass switch, beside the fused-backward ones above.
-    with switch("FINETRAINERS_FLASH_TWOPASS"):
-        twopass_step_s, twopass_launches, twopass_peak_gb = timed_steps(WAN_TRAIN_TIMED_STEPS)
-    twopass_expected = dict(k7a=4 * WAN_LAYERS, prep=6 * WAN_LAYERS, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS)
-    twopass_expected = {k_: twopass_expected.get(k_, 0) * WAN_TRAIN_TIMED_STEPS for k_ in twopass_launches}
-    phase("wan_train_fwd_variants", card=card, switch="FINETRAINERS_FLASH_TWOPASS", kernel="k7a", timed=True,
-          step_seconds=twopass_step_s, median_step_s=statistics.median(twopass_step_s), split_median_step_s=median_s,
-          fused_bwd_median_step_s=statistics.median(fused_step_s), launches=twopass_launches,
-          launches_expected=twopass_expected, max_memory_allocated_gb=twopass_peak_gb)
-    if twopass_launches != twopass_expected:
-        raise AssertionError("the timed Wan steps under the two-pass switch launched other kernels")
+    # K7a, K7c and K7b: timed steps under each forward switch, beside the fused-backward ones above. Per
+    # step, K7a and K7c take all 4*30 forwards (self and cross, forward and recompute), each after the
+    # pre-pass; K7b takes the 2*30 cross-attention forwards without it, K1 the 2*30 self-attention ones.
+    for env, key, per_step_launches in (
+            ("FINETRAINERS_FLASH_TWOPASS", "k7a", dict(k7a=4 * WAN_LAYERS, prep=6 * WAN_LAYERS)),
+            ("FINETRAINERS_FLASH_TWOLEVEL", "k7c", dict(k7c=4 * WAN_LAYERS, prep=6 * WAN_LAYERS)),
+            ("FINETRAINERS_FLASH_SKEW", "k7b", dict(k7b=2 * WAN_LAYERS, k1=2 * WAN_LAYERS, prep=4 * WAN_LAYERS))):
+        with switch(env):
+            variant_step_s, variant_launches, variant_peak_gb = timed_steps(WAN_TRAIN_TIMED_STEPS)
+        want = dict(per_step_launches, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS)
+        want = {k_: want.get(k_, 0) * WAN_TRAIN_TIMED_STEPS for k_ in variant_launches}
+        phase("wan_train_fwd_variants", card=card, switch=env, kernel=key, timed=True, step_seconds=variant_step_s,
+              median_step_s=statistics.median(variant_step_s), split_median_step_s=median_s,
+              fused_bwd_median_step_s=statistics.median(fused_step_s), launches=variant_launches,
+              launches_expected=want, max_memory_allocated_gb=variant_peak_gb)
+        if variant_launches != want:
+            raise AssertionError(f"the timed Wan steps under {env} launched other kernels")
 
     # The kernel step against plain fp32 attention at 4992 tokens (plain scores are 1.2 GB per layer).
     small = wan_train_batch(WAN_SMALL_MOMENTS)
@@ -1522,7 +1544,8 @@ def _kernel_name(mangled):
 
 def ptxas_summary(log):
     """Registers and spill bytes of each kernel from nvcc's `-Xptxas=-v` log,
-    and its warning lines."""
+    and its warning lines and notes of a performance loss (such as wgmma
+    serialized for want of registers)."""
     kernels, name = {}, None
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
@@ -1532,7 +1555,8 @@ def ptxas_summary(log):
             kernels[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             kernels[name]["registers"] = int(m.group(1))
-    return {"ptxas": kernels, "warnings": [line.strip() for line in log.splitlines() if "warning" in line.lower()]}
+    return {"ptxas": kernels, "warnings": [line.strip() for line in log.splitlines()
+                                           if "warning" in line.lower() or "performance loss" in line.lower()]}
 
 
 def main():
@@ -1546,7 +1570,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    sources = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd", "flash_bwd", "sage_fwd_sm90")
+    sources = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd", "sage_fwd_sm90")
     _build.load_libraries(sources)
     builds = {name: {"seconds": _build.BUILD_LOG[name]["seconds"], **ptxas_summary(_build.BUILD_LOG[name]["log"])}
               for name in sources}
@@ -1554,7 +1578,7 @@ def main():
     spilled = {name: rec for src in builds.values() for name, rec in src["ptxas"].items()
                if name.startswith(NO_SPILL_KERNELS) and (rec.get("spill_stores") or rec.get("spill_loads"))}
     if spilled:
-        raise AssertionError(f"K5 or K7a spills registers: {spilled}")
+        raise AssertionError(f"a kernel of NO_SPILL_KERNELS spills registers: {spilled}")
 
     k1_err, k1 = check_k1(card)
     bwd_err, bwd = check_k2k3(card)
@@ -1584,12 +1608,13 @@ def main():
     def ptxas(source, kernel):  # the registers and spill bytes of `kernel`'s instantiations
         return {name: rec for name, rec in builds[source]["ptxas"].items() if name.startswith(kernel + "<")}
 
-    def k7_entry(key, name, replaces, source="flash_fwd", **extra):
-        r = k7[key]
-        return entry(name, f"finetrainers_tpu_torch/csrc/{source}.cu", replaces, wan_paths[f"wan_train_{key}"][key],
-                     k7_err[key], (r["ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"]),
-                     launches_by_path={f"wan_train_{key}": wan_paths[f"wan_train_{key}"][key]},
-                     by_case=r["by_case"], library_note="torch SDPA forward, without the fused rotation", **extra)
+    def k7_entry(key, name, replaces, kernel, c_entry):
+        r, launches = k7[key], wan_paths[f"wan_train_{key}"][key]
+        return entry(name, "finetrainers_tpu_torch/csrc/flash_fwd_sm90.cu", replaces, launches, k7_err[key],
+                     (r["ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"]),
+                     launches_by_path={f"wan_train_{key}": launches},
+                     by_case=r["by_case"], library_note="torch SDPA forward, without the fused rotation",
+                     entry_point=c_entry, ptxas=ptxas("flash_fwd_sm90", kernel))
 
     def bwd_entry(key, name, replaces):  # K2 or K3: the Wan training self-attention case, the others by case
         fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -1644,10 +1669,13 @@ def main():
               wan_paths["wan_train_fused_bwd"]["k5_emit"], k5_err["k5_emit"], k5_wan["k5_emit"],
               launches_by_path={"wan_train_fused_bwd": wan_paths["wan_train_fused_bwd"]["k5_emit"]}),
         k7_entry("k7a", "flash_fwd_twopass_sm90 (K7a, wgmma + TMA, on the pre-pass's operands)",
-                 "finetrainers_tpu/ops/flash_attention.py:337", source="flash_fwd_sm90",
-                 ptxas=ptxas("flash_fwd_sm90", "flash_fwd_twopass_sm90_kernel")),
-        k7_entry("k7b", "fwd_skew (K7b)", "finetrainers_tpu/ops/flash_attention.py:491"),
-        k7_entry("k7c", "fwd two-level (K7c)", "finetrainers_tpu/ops/flash_attention.py:229"),
+                 "finetrainers_tpu/ops/flash_attention.py:337", "flash_fwd_twopass_sm90_kernel",
+                 "flash_fwd_twopass_sm90"),
+        k7_entry("k7b", "flash_fwd_skew_sm90 (K7b, wgmma + TMA, q scaled in shared memory, 64-key score tiles)",
+                 "finetrainers_tpu/ops/flash_attention.py:491", "flash_fwd_skew_sm90_kernel", "flash_fwd_skew_sm90"),
+        k7_entry("k7c", "flash_fwd_two_level_sm90 (K7c, wgmma + TMA, on the pre-pass's operands)",
+                 "finetrainers_tpu/ops/flash_attention.py:229", "flash_fwd_two_level_sm90_kernel",
+                 "flash_fwd_two_level_sm90"),
         entry("sage_fwd_sm90 (K6, int8 wgmma + TMA, on the pre-pass's codes)",
               "finetrainers_tpu_torch/csrc/sage_fwd_sm90.cu", "finetrainers_tpu/ops/sage_attention.py:36",
               wan_sage_launches["k6"], k6_err, k6["wan_self_rope"]["k6"], shape=[2, 12, WAN_TOKENS, WAN_TOKENS, 128],

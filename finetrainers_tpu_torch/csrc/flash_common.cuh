@@ -1,10 +1,9 @@
-// Device helpers shared by the attention kernels (flash_fwd_sm90.cu: K1, K7a,
-// flash_bwd_sm90.cu: K2, K3, K5, flash_fwd.cu: K7b, K7c, flash_bwd.cu: the
-// pre-pass, K5's dq emit, sage_fwd_sm90.cu: K6 and its pre-pass): the
-// bf16/fp16 mma.sync m16n8k16 wrappers, ldmatrix,
-// cp.async, the base-2 exponential, the fused interleaved-pair RoPE and its
-// transpose. `ops/_build.py` hashes every header of csrc/ into each library's
-// name, so an edit here rebuilds them all.
+// Device helpers shared by the attention kernels (flash_fwd_sm90.cu: K1 and
+// K7a-c, flash_bwd_sm90.cu: K2, K3, K5, flash_bwd.cu: the pre-pass, K5's dq
+// emit, sage_fwd_sm90.cu: K6 and its pre-pass): bf16/fp16 packing and rounding,
+// the base-2 exponential, the fused interleaved-pair RoPE and its transpose.
+// `ops/_build.py` hashes every header of csrc/ into each library's name, so an
+// edit here rebuilds them all.
 
 #pragma once
 
@@ -33,13 +32,6 @@ struct Ops<__nv_bfloat16> {
   }
   // x rounded to bf16 and back: the rounding point of a cast to the input dtype.
   static __device__ __forceinline__ float round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
 };
 
 template <>
@@ -52,45 +44,11 @@ struct Ops<__half> {
     return __half22float2(*reinterpret_cast<__half2*>(&u));
   }
   static __device__ __forceinline__ float round(float x) { return __half2float(__float2half_rn(x)); }
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  // src-size 0 zero-fills the 16 bytes without reading `src`.
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -136,20 +94,6 @@ __device__ __forceinline__ float2 rope_bwd_pair(float g0, float g1, const float*
   const float2 c = *reinterpret_cast<const float2*>(cos);
   const float2 s = *reinterpret_cast<const float2*>(sin);
   return make_float2(g0 * c.x + g1 * s.x, g1 * c.y - g0 * s.y);
-}
-
-// Start the asynchronous copy of a ROWS-row tile of a (S, HD) slice with row
-// stride `ss` into shared memory with row stride HD + 8; rows at or past
-// `rows_valid` are zero-filled.
-template <typename T, int HD, int ROWS, int THREADS>
-__device__ __forceinline__ void copy_tile_async(T* dst, const T* src, int64_t ss, int rows_valid) {
-  constexpr int kVecPerRow = HD / 8;
-  for (int idx = threadIdx.x; idx < ROWS * kVecPerRow; idx += THREADS) {
-    const int r = idx / kVecPerRow;
-    const int c = (idx % kVecPerRow) * 8;
-    const bool valid = r < rows_valid;
-    cp_async_16(dst + r * (HD + 8) + c, valid ? src + r * ss + c : src, valid);
-  }
 }
 
 }  // namespace

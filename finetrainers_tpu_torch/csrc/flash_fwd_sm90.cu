@@ -1,11 +1,14 @@
-// Flash attention forward K1 and its two-pass variant K7a for Hopper (sm_90a),
-// CUDA C++: warp-specialised kernels whose products run on wgmma, fed by TMA
-// through a ring of shared-memory stages.
+// Flash attention forward K1 and its variants K7a (two-pass), K7c (two-level)
+// and K7b (skewed) for Hopper (sm_90a), CUDA C++: warp-specialised kernels
+// whose products run on wgmma, fed by TMA through a ring of shared-memory
+// stages.
 //
 // Replaces: finetrainers_tpu/ops/flash_attention.py::_fwd_kernel (:106; Pallas,
-// TPU), driven there by _flash_forward (:689) through pallas_call (:852), and
-// ::_fwd_kernel_twopass (K7a, :337), which _flash_forward picks under
-// FINETRAINERS_FLASH_TWOPASS=1. K1 computes that function on the operands of the pre-pass (`rope_prep_kernel` in
+// TPU), driven there by _flash_forward (:689) through pallas_call (:852);
+// ::_fwd_kernel_twopass (K7a, :337), _fwd_kernel's `two_level` branch (K7c,
+// :229-246, :266-285) and ::_fwd_kernel_skew (K7b, :491), which _flash_forward
+// picks under FINETRAINERS_FLASH_TWOPASS, _TWOLEVEL and _SKEW. K1 computes that
+// function on the operands of the pre-pass (`rope_prep_kernel` in
 // flash_bwd.cu, which the wrapper launches first): q_s = T(rope(q) * scale *
 // log2(e)) and k_r = T(rope(k)), T() rounding to the input dtype. Then, in base 2:
 //   s = q_s k_r^T (fp32), selected to -1e30 at keys >= kv_lens[b];
@@ -17,13 +20,22 @@
 // takes the row max m of s only; pass B recomputes s with the same products,
 // so s - m <= 0 exactly, and accumulates p = exp2(s - m) (selected to 0 at
 // keys >= kv_lens[b]) into l and acc with no rescale; out and lse as K1.
+// K7c (on the pre-pass's operands) takes p against each 128-key tile's own max:
+//   m_cur = rowmax(s); p = exp2(s - m_cur); m_new = max(m, m_cur);
+//   alpha = exp2(m - m_new); beta = exp2(m_cur - m_new);
+//   l = l*alpha + rowsum(p)*beta; acc = acc*alpha + (T(p) v)*beta.
+// K7b takes no RoPE tables and no pre-pass: q_s = T(q * scale * log2(e)) is
+// made in shared memory, then K1's step runs on each tile (the TPU kernel runs
+// it on tile j-1 while tile j's QK^T is issued; so does this one).
 //
-// What bounds it on this card: at LTX's self-attention shape (B=2, N=32,
+// What bounds them on this card: at LTX's self-attention shape (B=2, N=32,
 // S=2688, H=64) QK^T plus PV is 4*B*N*S*S*H = 118 GFLOP per call, against ~88
 // MB of q_s, k_r, v and out (~132 MB with the fp32 RoPE tables the pre-pass
 // reads): 900-1,340 operations per byte, far above the H100's ~295 FLOP/byte
-// ridge; Wan's shape (S=19,968, H=128) is further above it. So it is bound by
-// operations, and the tensor cores are the resource to feed.
+// ridge; Wan's shape (S=19,968, H=128) is further above it, and Wan's
+// cross-attention (Skv = 512) still at ~500. So they are bound by operations,
+// and the tensor cores are the resource to feed. K7a does 1.5x K1's score
+// products; K7c's and K7b's products are K1's.
 //
 // What this design does about it:
 //  - The rotation and the q scaling run once per call, in the pre-pass, not
@@ -32,8 +44,9 @@
 //  - One CTA owns a q tile of one (batch, head): warpgroup 0 gives up its
 //    registers (setmaxnreg) and one of its threads issues every TMA load; the
 //    consumer warpgroups own 64 q rows each and run both products as wgmma,
-//    the only path to the tensor cores' full rate. At H=128 two consumers
-//    (128 rows, 240 registers each); at H=64 three (192 rows, 160 each).
+//    the only path to the tensor cores' full rate. K1 and K7a: at H=128 two
+//    consumers (128 rows, 240 registers each); at H=64 three (192 rows, 160
+//    each). K7c and K7b: two at both.
 //  - Shared memory holds the q tile, loaded once, and a ring of kStages k/v
 //    stages of 128 keys, each with a full and an empty mbarrier, so the next
 //    tiles load while the current one is computed. TMA writes them with the
@@ -64,16 +77,53 @@
 //    (twopass_pv_step): written inline in the consumer with lambdas for the
 //    slots, pass B alone ran slower than K1; as it stands, faster. Only
 //    the last tile can hold keys past kv_lens[b], so only its steps carry the
-//    mask. K7a does 1.5x K1's score products. tools/torch_k5_k7a_variants.py
-//    times the choices against their alternatives.
+//    mask. tools/torch_k5_k7a_variants.py times the choices against their
+//    alternatives.
 //  - TMA reads the rows of v between kv_lens[b] and the tile's end; K7a zeroes
 //    them in shared memory before its last P V, so a NaN there is not
-//    multiplied by p = 0 (K1 gives those keys p = 0, which a finite v leaves
-//    out).
+//    multiplied by p = 0 (K1, K7c and K7b give those keys p = 0, which a finite
+//    v leaves out).
+//  - K7c is K1's kernel (producer, ring, q_s/k_r, store_out) with a product of
+//    its own for each tile's p v: acc takes it scaled by beta, so p v cannot
+//    accumulate into acc. Its loop is K1's: tile t+1's QK^T is issued with
+//    tile t's P V (into pv, 64 floats a thread at H=128, overwritten by its
+//    first k-step: wgmma's scale-d = 0, no zeroing pass), tile t+1's max and
+//    exponentials run while the P V is on the tensor cores (they need only
+//    that tile's max, not m_new), and pv is folded into acc (acc*alpha +
+//    pv*beta) after the wait. s (64), pv (64), the packed p (32) and acc (64)
+//    fit 240 registers without a spill once the loop's last tile is peeled
+//    off into its own instance of the step (two_level_pv_step): with the
+//    issues and waits of tile t+1 under a runtime `if`, the same loop spilled
+//    28 bytes and ran 1.4x slower. Two consumers at both head dims.
+//  - K7b is K1's kernel on the raw q and k. Each consumer warpgroup scales and
+//    rounds its own 64 rows of the q tile once, in shared memory, fences them
+//    to the async proxy and meets only its own 128 threads at a named barrier;
+//    the producer has issued the first k and v tiles with q, so they land
+//    meanwhile (at Wan's cross shape a CTA sees only 4 stages, so the prologue
+//    is short: one pass over 16 KB of shared memory, then the first QK^T).
+//    Its score tiles are 64 keys, half a stage (m64n64, 32 floats a thread).
+//    Step u issues tile u's QK^T into one score array, runs K1's softmax step
+//    on tile u-1's scores in the other while it is on the tensor cores,
+//    rescales acc, packs p, issues tile u-1's P V and waits for both. Two
+//    128-key score arrays (128 floats) beside acc (64) do not fit: ptxas
+//    spilled 288 bytes and serialized the wgmmas (C7512). The TPU kernel's
+//    mask recovery (s > -0.5e30) and its first step on a dummy tile (p = 0,
+//    alpha = 1) are identities here and are left out. Two consumers at both
+//    head dims.
 // Tried for K7a and left out, both slower at Wan's training shape: clusters of
 // two CTAs that each load half of every k and v tile and multicast it to both
 // (though the pair then reads each tile from L2 once), and q's A fragments in
-// registers for QK^T. Not yet used: an enforced ping-pong between the two warpgroups, a
+// registers for QK^T. Tried for K7c and K7b and left out (CUDA-event ms, this
+// layout's in brackets, tools/torch_k7bc_variants.py on an H100 80GB HBM3 at
+// 700 W; PERF.md): K7c's P V in two m64n64 halves into a 32-float pv, the
+// first folded while tile t+1's scores are computed, 4.60-4.77 ms at Wan's
+// training shape [3.77-3.88]; three consumers at 160 registers at H=64
+// (spills 140 bytes; 0.32 ms at LTX's shape [0.37-0.38]); K7b's 128-key score
+// tiles (spills 288 bytes; 4.90-5.09 ms at Wan's training shape [4.74-4.78]),
+// three consumers at H=64 (spills 44 bytes; 0.33 ms at LTX's shape
+// [0.38]), and its P V left in flight into the next step (ptxas serializes
+// the wgmmas, C7515; 5.37-5.38 ms [4.74-4.78]).
+// Not yet used: an enforced ping-pong between the two warpgroups, a
 // persistent grid, or a TMA store of the output. The Hopper helpers (barriers, TMA,
 // wgmma wrappers, descriptors, tensor maps) are in sm90_common.cuh, shared
 // with K2, K3 and K5 (flash_bwd_sm90.cu).
@@ -85,27 +135,33 @@ namespace {
 constexpr int kBlockN = 128;  // keys per stage
 constexpr int kStages = 2;
 constexpr int kProducerRegs = 24;
-// Consumer warpgroups per CTA, each owning 64 q rows: three at H=64, where the
-// softmax is a larger share of a tile's work and a third warpgroup hides more
-// of it (measured ~13% faster at LTX's shape than two); two at H=128, where
-// three sets of accumulators would not fit the register file.
-template <int HD>
+// The kernels of this file: K1, K7a (two-pass), K7c (two-level), K7b (skewed).
+enum Variant { kStraight, kTwoPass, kTwoLevel, kSkew };
+// Consumer warpgroups per CTA, each owning 64 q rows. K1 and K7a: three at
+// H=64, where the softmax is a larger share of a tile's work and a third
+// warpgroup hides more of it (measured ~13% faster at LTX's shape than two);
+// two at H=128, where three sets of accumulators would not fit the register
+// file. K7c and K7b: two at both, as each holds a second score or product
+// fragment that three consumers' 160 registers cannot (see the note above).
+template <int HD, int V = kStraight>
 __host__ __device__ constexpr int consumer_wgs() {
+  if (V == kTwoLevel) return 2;
+  if (V == kSkew) return 2;
   return HD == 64 ? 3 : 2;
 }
-template <int HD>
+template <int HD, int V = kStraight>
 __host__ __device__ constexpr int block_m() {  // q rows per CTA
-  return 64 * consumer_wgs<HD>();
+  return 64 * consumer_wgs<HD, V>();
 }
-template <int HD>
+template <int HD, int V = kStraight>
 __host__ __device__ constexpr int threads() {  // warpgroup 0 loads; the others compute
-  return 128 * (1 + consumer_wgs<HD>());
+  return 128 * (1 + consumer_wgs<HD, V>());
 }
 // The consumers' registers after setmaxnreg: what the producer's 128 threads
 // give up, shared among them (a multiple of 8).
-template <int HD>
+template <int HD, int V = kStraight>
 __host__ __device__ constexpr int consumer_regs() {
-  return HD == 64 ? 160 : 240;
+  return consumer_wgs<HD, V>() == 3 ? 160 : 240;
 }
 // A 64-column half of a 128-row tile: 128 rows of 128 bytes, one TMA box.
 constexpr int kHalfBytes = 128 * 128;
@@ -114,11 +170,11 @@ constexpr int kHalfBytes = 128 * 128;
 // 128-byte swizzle needs): the q tile, kStages k tiles, kStages v tiles, then
 // the barriers q_full, k_full[kStages], v_full[kStages], k_empty[kStages],
 // v_empty[kStages].
-template <int HD>
+template <int HD, int WGS = consumer_wgs<HD>()>
 struct Layout {
   static constexpr int kTileBytes = HD / 64 * kHalfBytes;
-  static constexpr int kQBytes = block_m<HD>() * HD * 2;
-  static_assert(HD == 64 || block_m<HD>() == 128, "the q tile's 64-column halves must be kHalfBytes apart");
+  static constexpr int kQBytes = 64 * WGS * HD * 2;
+  static_assert(HD == 64 || WGS == 2, "the q tile's 64-column halves must be kHalfBytes apart");
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
@@ -132,14 +188,15 @@ struct Params {
   const int* kv_lens;  // (B,) or nullptr
   int heads, seq_q, seq_kv;
   int64_t o_sb, o_sn, o_ss;
+  float q_scale;  // K7b: the scale * log2(e) it applies to q itself
 };
 
 // The producer: one thread of warpgroup 0 loads the q tile once, then k and v
 // tile t into stage t % kStages once the consumers have released it.
-template <int HD>
+template <int HD, int WGS = consumer_wgs<HD>()>
 __device__ __forceinline__ void produce(const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map,
                                         uint32_t base, int q0, int n, int b, int num_tiles) {
-  using L = Layout<HD>;
+  using L = Layout<HD, WGS>;
   const uint32_t q_full = base + L::kBars;
   mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
@@ -162,20 +219,21 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map, const CUtensor
   }
 }
 
-// The softmax step on a landed score tile: keys at or past kv_len selected
-// out, the running max m moved on, s overwritten by p = exp2(s - m), and the
-// rescale alpha and this tile's row sums returned.
+// The softmax step on a landed score tile of N keys: keys at or past kv_len
+// selected out, the running max m moved on, s overwritten by p = exp2(s - m),
+// and the rescale alpha and this tile's row sums returned.
+template <int N = kBlockN>
 __device__ __forceinline__ void softmax_step(float* s, float* m, float* alpha, float* rowsum, int k0, int kv_len,
                                              int lane) {
-  if (k0 + kBlockN > kv_len) {
+  if (k0 + N > kv_len) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < N / 2; ++i) {
       if (k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1) >= kv_len) s[i] = kNegInf;
     }
   }
   float tmax[2] = {2.f * kNegInf, 2.f * kNegInf};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     tmax[0] = fmaxf(tmax[0], fmaxf(s[4 * j], s[4 * j + 1]));
     tmax[1] = fmaxf(tmax[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
@@ -189,7 +247,7 @@ __device__ __forceinline__ void softmax_step(float* s, float* m, float* alpha, f
     rowsum[r] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     s[i] = fast_exp2(s[i] - m[(i >> 1) & 1]);
     rowsum[(i >> 1) & 1] += s[i];
   }
@@ -527,13 +585,275 @@ __device__ __forceinline__ void consume_twopass(const Params& p, uint32_t base, 
   store_out<T, HD>(p, o, m, l, q0 + cwg * 64, n, b);
 }
 
-// K1 and (TWOPASS) K7a: one CTA per (q tile of block_m rows, head, batch).
-template <typename T, int HD, bool TWOPASS>
+// K7c's step on a landed score tile: keys at or past kv_len selected out, s
+// overwritten by p = exp2(s - m_cur) against the tile's own row max m_cur (the
+// tile holds a valid key, so m_cur is finite and those keys' p is exactly 0),
+// the running max m moved on to m_new, alpha = exp2(m - m_new) and beta =
+// exp2(m_cur - m_new) returned, and this thread's partial row sums moved on to
+// l*alpha + rowsum(p)*beta.
+__device__ __forceinline__ void two_level_step(float* s, float* m, float* l, float* alpha, float* beta, int k0,
+                                               int kv_len, int lane) {
+  if (k0 + kBlockN > kv_len) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1) >= kv_len) s[i] = kNegInf;
+    }
+  }
+  float m_cur[2] = {2.f * kNegInf, 2.f * kNegInf};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    m_cur[0] = fmaxf(m_cur[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    m_cur[1] = fmaxf(m_cur[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float rowsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m_cur[r] = fmaxf(m_cur[r], __shfl_xor_sync(0xffffffffu, m_cur[r], 1));
+    m_cur[r] = fmaxf(m_cur[r], __shfl_xor_sync(0xffffffffu, m_cur[r], 2));
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = fast_exp2(s[i] - m_cur[(i >> 1) & 1]);
+    rowsum[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], m_cur[r]);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    beta[r] = fast_exp2(m_cur[r] - m_new);
+    m[r] = m_new;
+    l[r] = l[r] * alpha[r] + rowsum[r] * beta[r];
+  }
+}
+
+// acc = acc*alpha + pv*beta over N accumulator floats (a chunk of acc's
+// columns and its product, in the same fragment layout).
+template <int N>
+__device__ __forceinline__ void two_level_fold(float* acc, const float* pv, const float* alpha, const float* beta) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = acc[i] * alpha[(i >> 1) & 1] + pv[i] * beta[(i >> 1) & 1];
+}
+
+// K7c's step on tile t, whose p is packed in pa (LAST: t is the last tile):
+// tile t's P V issued into pv (overwritten by its first k-step) and, once it
+// lands, folded into acc with tile t's alpha and beta; unless LAST, tile t+1's
+// QK^T is issued first and tile t+1's step runs while the P V is on the tensor
+// cores, then its p is packed into pa and its alpha and beta replace tile t's.
+template <typename T, int HD, bool LAST>
+__device__ __forceinline__ void two_level_pv_step(float* s, float* pv, uint32_t (*pa)[4], float* o, float* m, float* l,
+                                                  float* alpha, float* beta, uint32_t base, uint32_t q_addr, int t,
+                                                  int kv_len, int lane) {
+  using L = Layout<HD, consumer_wgs<HD, kTwoLevel>()>;
+  const uint32_t q_full = base + L::kBars;
+  const int st = t % kStages, next = (t + 1) % kStages;
+  const uint32_t k_full = q_full + 8 * (1 + next), v_full = q_full + 8 * (1 + kStages + st);
+  const uint32_t k_empty = q_full + 8 * (1 + 2 * kStages + next), v_empty = q_full + 8 * (1 + 3 * kStages + st);
+  const uint32_t k_tile = base + L::kK + next * L::kTileBytes, v_tile = base + L::kV + st * L::kTileBytes;
+  if constexpr (!LAST) mbar_wait(k_full, ((t + 1) / kStages) & 1);
+  wgmma_fence();
+  if constexpr (!LAST) {
+    issue_ss<T, HD, kBlockN, kHalfBytes, kHalfBytes>(s, q_addr, k_tile);
+    wgmma_commit();
+  }
+  mbar_wait(v_full, (t / kStages) & 1);
+  issue_rs<T, HD, kBlockN, kHalfBytes>(pv, pa, v_tile, true);
+  wgmma_commit();
+  float alpha_next[2], beta_next[2];
+  if constexpr (!LAST) {
+    wgmma_wait_one();  // QK^T of tile t+1 has landed; tile t's P V may still run
+    fence_regs<64>(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty);
+    two_level_step(s, m, l, alpha_next, beta_next, (t + 1) * kBlockN, kv_len, lane);
+  }
+  wgmma_wait_all();
+  fence_regs<HD / 2>(pv);
+  fence_regs<kBlockN / 16>(pa);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(v_empty);
+  two_level_fold<HD / 2>(o, pv, alpha, beta);
+  if constexpr (!LAST) {
+    pack_a<T, kBlockN>(pa, s);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      alpha[r] = alpha_next[r];
+      beta[r] = beta_next[r];
+    }
+  }
+}
+
+// A consumer warpgroup of K7c (rows and fragments as K1's consumer): tile 0's
+// QK^T and step, then two_level_pv_step on each tile. Tile t's p v is a product
+// of its own (pv, overwritten by its first k-step), so it never accumulates
+// into acc.
+template <typename T, int HD>
+__device__ __forceinline__ void consume_two_level(const Params& p, uint32_t base, int cwg, int q0, int n, int b,
+                                                  int kv_len, int num_tiles) {
+  using L = Layout<HD, consumer_wgs<HD, kTwoLevel>()>;
+  constexpr int kOut = HD / 2;
+  const int lane = threadIdx.x % 32;
+  const uint32_t q_full = base + L::kBars;
+
+  float o[kOut];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's partial row sums; reduced over the quad at the end
+
+  const uint32_t q_addr = base + L::kQ + cwg * 64 * 128;
+  mbar_wait(q_full, 0);
+  if (num_tiles > 0) {
+    float s[64], pv[kOut], alpha[2], beta[2];
+    uint32_t pa[kBlockN / 16][4];
+    mbar_wait(q_full + 8, 0);  // k_full of stage 0
+    wgmma_fence();
+    issue_ss<T, HD, kBlockN, kHalfBytes, kHalfBytes>(s, q_addr, base + L::kK);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<64>(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_full + 8 * (1 + 2 * kStages));  // k_empty of stage 0
+    two_level_step(s, m, l, alpha, beta, 0, kv_len, lane);
+    pack_a<T, kBlockN>(pa, s);
+#pragma unroll
+    for (int i = 0; i < kOut; ++i) pv[i] = 0.f;  // overwritten by each product's first k-step
+    for (int t = 0; t + 1 < num_tiles; ++t)
+      two_level_pv_step<T, HD, false>(s, pv, pa, o, m, l, alpha, beta, base, q_addr, t, kv_len, lane);
+    two_level_pv_step<T, HD, true>(s, pv, pa, o, m, l, alpha, beta, base, q_addr, num_tiles - 1, kv_len, lane);
+  }
+  store_out<T, HD>(p, o, m, l, q0 + cwg * 64, n, b);
+}
+
+// K7b's score tile: 64 keys, half a ring stage (m64n64 scores, 32 floats a
+// thread), at both head dims (see the note at the top).
+constexpr int kSkewKeys = 64;
+
+// Scale this consumer warpgroup's 64 rows of the q tile (`q_tile`, a generic
+// pointer to shared memory) by `mul` and round them to T, in place, as
+// `rope_scale_8` rounds the pre-pass's q_s; the swizzle permutes 16-byte
+// chunks inside a row, which an elementwise scale does not see.
+template <typename T, int HD>
+__device__ __forceinline__ void scale_q_rows(unsigned char* q_tile, int cwg, float mul) {
+  for (int i = threadIdx.x % 128; i < HD / 64 * 64 * 8; i += 128) {  // (half, row, 16-byte chunk)
+    uint4* at = reinterpret_cast<uint4*>(q_tile + i / 512 * kHalfBytes + (64 * cwg + i / 8 % 64) * 128 + i % 8 * 16);
+    *at = rope_scale_8<T>(*at, nullptr, nullptr, mul);
+  }
+}
+
+// K7b's ring, in score tiles of kSkewKeys keys: tile w lies in stage (w /
+// kPer) % kStages at row (w % kPer) * kSkewKeys; a stage is released after
+// its last tile.
+struct SkewRing {
+  static constexpr int kPer = kBlockN / kSkewKeys;  // score tiles per stage
+  uint32_t base, q_full;
+  int num_sub;
+  __device__ __forceinline__ int stage(int w) const { return w / kPer % kStages; }
+  __device__ __forceinline__ uint32_t parity(int w) const { return (w / kPer / kStages) & 1; }
+  __device__ __forceinline__ uint32_t row(int w) const { return w % kPer * kSkewKeys * 128; }
+  __device__ __forceinline__ bool last_in_stage(int w) const { return w % kPer == kPer - 1 || w == num_sub - 1; }
+  __device__ __forceinline__ uint32_t k_full(int w) const { return q_full + 8 * (1 + stage(w)); }
+  __device__ __forceinline__ uint32_t v_full(int w) const { return q_full + 8 * (1 + kStages + stage(w)); }
+  __device__ __forceinline__ uint32_t k_empty(int w) const { return q_full + 8 * (1 + 2 * kStages + stage(w)); }
+  __device__ __forceinline__ uint32_t v_empty(int w) const { return q_full + 8 * (1 + 3 * kStages + stage(w)); }
+};
+
+// K7b's step u >= 1, with tile u-1's scores landed in `prev`: tile u's QK^T
+// is issued into `cur` (unless LAST: u-1 is the last tile), K1's softmax step
+// runs on `prev` while it is on the tensor cores, acc is rescaled, p packed and
+// tile u-1's P V issued; then both are waited for and their stages released.
+template <typename T, int HD, bool LAST>
+__device__ __forceinline__ void skew_step(float* cur, float* prev, uint32_t (*pa)[4], float* o, float* m, float* l,
+                                          const SkewRing& ring, uint32_t q_addr, int u, int kv_len, int lane) {
+  using L = Layout<HD, consumer_wgs<HD, kSkew>()>;
+  constexpr int kSub = kSkewKeys;
+  const int w = u - 1;
+  if constexpr (!LAST) {
+    mbar_wait(ring.k_full(u), ring.parity(u));
+    wgmma_fence();
+    issue_ss<T, HD, kSub, kHalfBytes, kHalfBytes, true>(
+        cur, q_addr, ring.base + L::kK + ring.stage(u) * L::kTileBytes + ring.row(u));
+    wgmma_commit();
+  }
+  float alpha[2], rowsum[2];
+  softmax_step<kSub>(prev, m, alpha, rowsum, w * kSub, kv_len, lane);
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+  l[0] = l[0] * alpha[0] + rowsum[0];
+  l[1] = l[1] * alpha[1] + rowsum[1];
+  pack_a<T, kSub>(pa, prev);
+  mbar_wait(ring.v_full(w), ring.parity(w));
+  wgmma_fence();
+  issue_rs<T, HD, kSub, kHalfBytes>(o, pa, ring.base + L::kV + ring.stage(w) * L::kTileBytes + ring.row(w));
+  wgmma_commit();
+  wgmma_wait_all();  // tile u's scores and tile u-1's P V have landed
+  if constexpr (!LAST) fence_regs<kSub / 2>(cur);
+  fence_regs<HD / 2>(o);
+  fence_regs<kSub / 16>(pa);
+  __syncwarp();
+  if (lane == 0) {
+    if (!LAST && ring.last_in_stage(u)) mbar_arrive(ring.k_empty(u));
+    if (ring.last_in_stage(w)) mbar_arrive(ring.v_empty(w));
+  }
+}
+
+// A consumer warpgroup of K7b (rows and fragments as K1's consumer): q scaled
+// in place, then tile 0's QK^T, then the skewed steps over two score arrays
+// used in turn (tile u-1's scores are in `sa` at the top of a trip). The
+// TPU kernel's first step, on a dummy tile of 2*(-1e30), is an identity (p =
+// 0, alpha = 1) and is left out.
+template <typename T, int HD>
+__device__ __forceinline__ void consume_skew(const Params& p, uint32_t base, unsigned char* smem, int cwg, int q0,
+                                             int n, int b, int kv_len) {
+  using L = Layout<HD, consumer_wgs<HD, kSkew>()>;
+  constexpr int kSub = kSkewKeys;
+  const int lane = threadIdx.x % 32;
+  const SkewRing ring{base, base + L::kBars, (kv_len + kSub - 1) / kSub};
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  const uint32_t q_addr = base + L::kQ + cwg * 64 * 128;
+  mbar_wait(ring.q_full, 0);
+  scale_q_rows<T, HD>(smem + L::kQ, cwg, p.q_scale);
+  fence_proxy_async();  // the scaled rows, visible to wgmma
+  named_barrier_sync(1 + cwg, 128);
+  const int num_sub = ring.num_sub;
+  if (num_sub > 0) {
+    float sa[kSub / 2], sb[kSub / 2];
+    uint32_t pa[kSub / 16][4];
+    mbar_wait(ring.k_full(0), 0);
+    wgmma_fence();
+    issue_ss<T, HD, kSub, kHalfBytes, kHalfBytes, true>(sa, q_addr, base + L::kK);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<kSub / 2>(sa);
+    __syncwarp();
+    if (lane == 0 && ring.last_in_stage(0)) mbar_arrive(ring.k_empty(0));
+    int u = 1;
+    for (; u + 1 < num_sub; u += 2) {
+      skew_step<T, HD, false>(sb, sa, pa, o, m, l, ring, q_addr, u, kv_len, lane);
+      skew_step<T, HD, false>(sa, sb, pa, o, m, l, ring, q_addr, u + 1, kv_len, lane);
+    }
+    if (u < num_sub) {
+      skew_step<T, HD, false>(sb, sa, pa, o, m, l, ring, q_addr, u, kv_len, lane);
+      skew_step<T, HD, true>(sa, sb, pa, o, m, l, ring, q_addr, u + 1, kv_len, lane);
+    } else {
+      skew_step<T, HD, true>(sb, sa, pa, o, m, l, ring, q_addr, u, kv_len, lane);
+    }
+  }
+  store_out<T, HD>(p, o, m, l, q0 + cwg * 64, n, b);
+}
+
+// K1, K7a, K7c or K7b: one CTA per (q tile of block_m rows, head, batch).
+template <typename T, int HD, int V>
 __device__ __forceinline__ void fwd_cta(const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map,
                                         const Params& p, unsigned char* smem_raw) {
+  constexpr int kWgs = consumer_wgs<HD, V>();
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_full = base + Layout<HD>::kBars;
-  const int q0 = blockIdx.x * block_m<HD>(), n = blockIdx.y, b = blockIdx.z;
+  const uint32_t q_full = base + Layout<HD, kWgs>::kBars;
+  const int q0 = blockIdx.x * block_m<HD, V>(), n = blockIdx.y, b = blockIdx.z;
   int kv_len = p.seq_kv;
   if (p.kv_lens != nullptr) kv_len = min(max(p.kv_lens[b], 0), p.seq_kv);
   const int num_tiles = (kv_len + kBlockN - 1) / kBlockN;
@@ -541,10 +861,10 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* q_map, const CUtensor
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(q_full + 8 * (1 + st), 1);                                     // k_full
-      mbar_init(q_full + 8 * (1 + kStages + st), 1);                           // v_full
-      mbar_init(q_full + 8 * (1 + 2 * kStages + st), 4 * consumer_wgs<HD>());  // k_empty: one arrival a warp
-      mbar_init(q_full + 8 * (1 + 3 * kStages + st), 4 * consumer_wgs<HD>());  // v_empty
+      mbar_init(q_full + 8 * (1 + st), 1);                          // k_full
+      mbar_init(q_full + 8 * (1 + kStages + st), 1);                // v_full
+      mbar_init(q_full + 8 * (1 + 2 * kStages + st), 4 * kWgs);  // k_empty: one arrival a warp
+      mbar_init(q_full + 8 * (1 + 3 * kStages + st), 4 * kWgs);  // v_empty
     }
     mbar_init_fence();
   }
@@ -554,56 +874,64 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* q_map, const CUtensor
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      if constexpr (TWOPASS) {
+      if constexpr (V == kTwoPass) {
         produce_twopass<HD>(q_map, k_map, v_map, base, q0, n, b, num_tiles);
       } else {
-        produce<HD>(q_map, k_map, v_map, base, q0, n, b, num_tiles);
+        produce<HD, kWgs>(q_map, k_map, v_map, base, q0, n, b, num_tiles);
       }
     }
   } else {
-    setmaxnreg_inc<consumer_regs<HD>()>();
-    if constexpr (TWOPASS) {
-      consume_twopass<T, HD>(p, base, smem_raw + (base - smem_addr(smem_raw)), threadIdx.x / 128 - 1, q0, n, b,
-                             kv_len, num_tiles);
+    setmaxnreg_inc<consumer_regs<HD, V>()>();
+    const int cwg = threadIdx.x / 128 - 1;
+    unsigned char* smem = smem_raw + (base - smem_addr(smem_raw));
+    if constexpr (V == kTwoPass) {
+      consume_twopass<T, HD>(p, base, smem, cwg, q0, n, b, kv_len, num_tiles);
+    } else if constexpr (V == kTwoLevel) {
+      consume_two_level<T, HD>(p, base, cwg, q0, n, b, kv_len, num_tiles);
+    } else if constexpr (V == kSkew) {
+      consume_skew<T, HD>(p, base, smem, cwg, q0, n, b, kv_len);
     } else {
-      consume<T, HD>(p, base, threadIdx.x / 128 - 1, q0, n, b, kv_len, num_tiles);
+      consume<T, HD>(p, base, cwg, q0, n, b, kv_len, num_tiles);
     }
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(threads<HD>(), 1)
-    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-                          const __grid_constant__ CUtensorMap v_map, const Params p) {
-  extern __shared__ unsigned char smem_raw[];
-  fwd_cta<T, HD, false>(&q_map, &k_map, &v_map, p, smem_raw);
-}
+#define FWD_KERNEL(NAME, V)                                                                                    \
+  template <typename T, int HD>                                                                                \
+  __global__ void __launch_bounds__(threads<HD, V>(), 1)                                                       \
+      NAME(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,               \
+           const __grid_constant__ CUtensorMap v_map, const Params p) {                                        \
+    extern __shared__ unsigned char smem_raw[];                                                                \
+    fwd_cta<T, HD, V>(&q_map, &k_map, &v_map, p, smem_raw);                                                    \
+  }
+FWD_KERNEL(flash_fwd_sm90_kernel, kStraight)
+FWD_KERNEL(flash_fwd_twopass_sm90_kernel, kTwoPass)
+FWD_KERNEL(flash_fwd_two_level_sm90_kernel, kTwoLevel)
+FWD_KERNEL(flash_fwd_skew_sm90_kernel, kSkew)
+#undef FWD_KERNEL
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(threads<HD>(), 1)
-    flash_fwd_twopass_sm90_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-                                  const __grid_constant__ CUtensorMap v_map, const Params p) {
-  extern __shared__ unsigned char smem_raw[];
-  fwd_cta<T, HD, true>(&q_map, &k_map, &v_map, p, smem_raw);
-}
-
-// K1, or with TWOPASS K7a.
-template <typename T, int HD, bool TWOPASS>
+// Variant V's kernel at (T, HD).
+template <typename T, int HD, int V>
 cudaError_t launch(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map, const Params& p,
                    int batch, cudaStream_t stream) {
-  const dim3 grid((p.seq_q + block_m<HD>() - 1) / block_m<HD>(), p.heads, batch);
+  auto kernel = flash_fwd_sm90_kernel<T, HD>;
+  if constexpr (V == kTwoPass) kernel = flash_fwd_twopass_sm90_kernel<T, HD>;
+  if constexpr (V == kTwoLevel) kernel = flash_fwd_two_level_sm90_kernel<T, HD>;
+  if constexpr (V == kSkew) kernel = flash_fwd_skew_sm90_kernel<T, HD>;
+  const dim3 grid((p.seq_q + block_m<HD, V>() - 1) / block_m<HD, V>(), p.heads, batch);
   static std::atomic<uint64_t> attribute_set{0};
   // + 1024 bytes of slack to align the base to 1024 bytes
-  return launch_sm90(TWOPASS ? flash_fwd_twopass_sm90_kernel<T, HD> : flash_fwd_sm90_kernel<T, HD>, attribute_set,
-                     grid, threads<HD>(), Layout<HD>::kBytes + 1024, stream, q_map, k_map, v_map, p);
+  return launch_sm90(kernel, attribute_set, grid, threads<HD, V>(), Layout<HD, consumer_wgs<HD, V>()>::kBytes + 1024,
+                     stream, q_map, k_map, v_map, p);
 }
 
-template <bool TWOPASS>
+template <int V>
 int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, int batch,
-              int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, void* stream) {
+              int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, float q_scale,
+              void* stream) {
   if ((head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
-  const int q_rows = head_dim == 64 ? block_m<64>() : block_m<128>();
+  const int q_rows = head_dim == 64 ? block_m<64, V>() : block_m<128, V>();
   if (!encode_operand(&q_map, q_s, dtype, head_dim, seq_q, heads, batch, q_rows, strides[0], strides[1], strides[2]) ||
       !encode_operand(&k_map, k_r, dtype, head_dim, seq_kv, heads, batch, kBlockN, strides[3], strides[4],
                       strides[5]) ||
@@ -617,31 +945,38 @@ int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* 
   p.seq_q = seq_q;
   p.seq_kv = seq_kv;
   p.o_sb = strides[9]; p.o_sn = strides[10]; p.o_ss = strides[11];
+  p.q_scale = q_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch<__nv_bfloat16, 64, TWOPASS>(q_map, k_map, v_map, p, batch, s);
-  if (dtype == 0) return launch<__nv_bfloat16, 128, TWOPASS>(q_map, k_map, v_map, p, batch, s);
-  if (head_dim == 64) return launch<__half, 64, TWOPASS>(q_map, k_map, v_map, p, batch, s);
-  return launch<__half, 128, TWOPASS>(q_map, k_map, v_map, p, batch, s);
+  if (dtype == 0 && head_dim == 64) return launch<__nv_bfloat16, 64, V>(q_map, k_map, v_map, p, batch, s);
+  if (dtype == 0) return launch<__nv_bfloat16, 128, V>(q_map, k_map, v_map, p, batch, s);
+  if (head_dim == 64) return launch<__half, 64, V>(q_map, k_map, v_map, p, batch, s);
+  return launch<__half, 128, V>(q_map, k_map, v_map, p, batch, s);
 }
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes: K1 and K7a. q_s and k_r are the
-// pre-pass's operands (k itself when there are no RoPE tables); dtype: 0 =
-// bf16, 1 = fp16; strides: q_s, k_r, v, out, each (batch, head, seq), in
-// elements; the head dim is contiguous and every operand 16-byte aligned. Each
-// returns a cudaError_t (cudaErrorInvalidValue also when a tensor map cannot be
-// encoded).
-extern "C" int flash_fwd_sm90(const void* q_s, const void* k_r, const void* v, void* out, void* lse,
-                              const void* kv_lens, int batch, int heads, int seq_q, int seq_kv, int head_dim,
-                              int dtype, const int64_t* strides, void* stream) {
-  return fwd_entry<false>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides,
-                          stream);
-}
+// Plain C entry points, loaded with ctypes: K1, K7a, K7c and K7b. q_s and k_r
+// are the pre-pass's operands (k itself when there are no RoPE tables); K7b
+// takes the raw q and k and scales q by `q_scale` (scale * log2(e)) itself.
+// dtype: 0 = bf16, 1 = fp16; strides: q_s, k_r, v, out, each (batch, head,
+// seq), in elements; the head dim is contiguous and every operand 16-byte
+// aligned. Each returns a cudaError_t (cudaErrorInvalidValue also when a tensor
+// map cannot be encoded).
+#define FWD_ENTRY(NAME, V)                                                                                      \
+  extern "C" int NAME(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, \
+                      int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, \
+                      void* stream) {                                                                           \
+    return fwd_entry<V>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides,  \
+                        1.f, stream);                                                                           \
+  }
+FWD_ENTRY(flash_fwd_sm90, kStraight)
+FWD_ENTRY(flash_fwd_twopass_sm90, kTwoPass)
+FWD_ENTRY(flash_fwd_two_level_sm90, kTwoLevel)
+#undef FWD_ENTRY
 
-extern "C" int flash_fwd_twopass_sm90(const void* q_s, const void* k_r, const void* v, void* out, void* lse,
-                                      const void* kv_lens, int batch, int heads, int seq_q, int seq_kv, int head_dim,
-                                      int dtype, const int64_t* strides, void* stream) {
-  return fwd_entry<true>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides,
-                         stream);
+extern "C" int flash_fwd_skew_sm90(const void* q, const void* k, const void* v, void* out, void* lse,
+                                   const void* kv_lens, int batch, int heads, int seq_q, int seq_kv, int head_dim,
+                                   int dtype, const int64_t* strides, float q_scale, void* stream) {
+  return fwd_entry<kSkew>(q, k, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides, q_scale,
+                          stream);
 }

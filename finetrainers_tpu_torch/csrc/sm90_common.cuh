@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels: K1 and K7a
+// Hopper (sm_90a) building blocks shared by the wgmma kernels: K1 and K7a-c
 // (flash_fwd_sm90.cu), K2/K3 and K5 (flash_bwd_sm90.cu) and K6 (sage_fwd_sm90.cu).
 // Device side: the mbarrier helpers, TMA tile loads and reduces, setmaxnreg,
 // named barriers, shared stores, the generic-to-async proxy fence, the wgmma
@@ -173,6 +173,11 @@ __device__ __forceinline__ uint32_t mnmajor_step(int kk) { return (kk * 2048) >>
       "+f"(d[i + 7])
 #define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
 #define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+#define OUT8(i)                                                                                                    \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]), "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), \
+      "=f"(d[i + 7])
+#define OUT32 OUT8(0), OUT8(8), OUT8(16), OUT8(24)
+#define OUT64 OUT32, OUT8(32), OUT8(40), OUT8(48), OUT8(56)
 #define REGS32                                                                   \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -185,7 +190,10 @@ __device__ __forceinline__ uint32_t mnmajor_step(int kk) { return (kk * 2048) >>
 // The wgmma shapes, for one input type TY ("bf16" or "f16"), fp32 accumulate:
 //  ss64 / ss128: d (64 x 64 / 128) (+)= A (64 x 16, smem) B (16 x N, smem),
 //         both K-major; scale_d 0 overwrites d.
-//  rs64 / rs128: d (64 x 64 / 128) += A (64 x 16, registers) B (16 x N, smem, MN-major).
+//  ss64_new / ss128_new: d = A B, as ss64 / ss128 with scale_d 0, but d's
+//         registers are outputs only, so their old values need not stay live.
+//  rs64 / rs128: d (64 x 64 / 128) (+)= A (64 x 16, registers) B (16 x N, smem, MN-major);
+//         scale_d 0 overwrites d.
 //  ss64_mn: d (64 x 64) (+)= A (64 x 16, smem) B (16 x 64, smem), both MN-major
 //         (A's 64 rows contiguous along each contraction row).
 #define DEFINE_WGMMA(TY)                                                                                         \
@@ -201,25 +209,37 @@ __device__ __forceinline__ uint32_t mnmajor_step(int kk) { return (kk * 2048) >>
                  : ACC64                                                                                         \
                  : "l"(a), "l"(b), "r"(scale_d));                                                                \
   }                                                                                                              \
+  static __device__ __forceinline__ void ss64_new(float* d, uint64_t a, uint64_t b) {                          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                    \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n" \
+                 : OUT32                                                                                         \
+                 : "l"(a), "l"(b), "r"(0));                                                                      \
+  }                                                                                                              \
+  static __device__ __forceinline__ void ss128_new(float* d, uint64_t a, uint64_t b) {                         \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                    \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n" \
+                 : OUT64                                                                                         \
+                 : "l"(a), "l"(b), "r"(0));                                                                      \
+  }                                                                                                              \
   static __device__ __forceinline__ void ss64_mn(float* d, uint64_t a, uint64_t b, int scale_d) {               \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                    \
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " REGS32 ", %32, %33, p, 1, 1, 1, 1;\n}\n" \
                  : ACC32                                                                                         \
                  : "l"(a), "l"(b), "r"(scale_d));                                                                \
   }                                                                                                              \
-  static __device__ __forceinline__ void rs64(float* d, const uint32_t* a, uint64_t b) {                        \
+  static __device__ __forceinline__ void rs64(float* d, const uint32_t* a, uint64_t b, int scale_d = 1) {       \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                    \
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " REGS32                              \
                  ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                                 \
                  : ACC32                                                                                         \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                 \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));                           \
   }                                                                                                              \
-  static __device__ __forceinline__ void rs128(float* d, const uint32_t* a, uint64_t b) {                       \
+  static __device__ __forceinline__ void rs128(float* d, const uint32_t* a, uint64_t b, int scale_d = 1) {      \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                                    \
                  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " REGS64                             \
                  ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                                 \
                  : ACC64                                                                                         \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                 \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));                           \
   }
 
 template <typename T>
@@ -252,12 +272,24 @@ __device__ __forceinline__ void wgmma_s8_n128(int32_t* d, uint64_t a, uint64_t b
 // d (64 x N) = A B^T over the contraction dim HD, both operands K-major in
 // shared memory: A's 64 rows at `a_addr` in a tile whose halves are A_HALF
 // bytes apart, B's N rows at `b_addr` in a tile whose halves are B_HALF bytes
-// apart. Issued, not waited for.
-template <typename T, int HD, int N, int A_HALF, int B_HALF>
+// apart. Issued, not waited for. NEW: the first k-step takes d's registers as
+// outputs only (`ss*_new`), so d's old values die before the issue.
+template <typename T, int HD, int N, int A_HALF, int B_HALF, bool NEW = false>
 __device__ __forceinline__ void issue_ss(float* d, uint32_t a_addr, uint32_t b_addr) {
   const uint64_t a_desc = kmajor_desc(a_addr), b_desc = kmajor_desc(b_addr);
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
+    if constexpr (NEW && N == 64) {
+      if (kk == 0) {
+        Wgmma<T>::ss64_new(d, a_desc, b_desc);
+        continue;
+      }
+    } else if constexpr (NEW) {
+      if (kk == 0) {
+        Wgmma<T>::ss128_new(d, a_desc, b_desc);
+        continue;
+      }
+    }
     if constexpr (N == 64) {
       Wgmma<T>::ss64(d, a_desc + kmajor_step<A_HALF>(kk), b_desc + kmajor_step<B_HALF>(kk), kk);
     } else {
@@ -266,18 +298,20 @@ __device__ __forceinline__ void issue_ss(float* d, uint32_t a_addr, uint32_t b_a
   }
 }
 
-// d (64 x HD) += A B over a contraction dim of K rows, A in registers (the
-// packed accumulator of a 64 x K product), B's K rows at `b_addr`, MN-major, in
-// a tile whose 64-column halves are B_HALF bytes apart. Issued, not waited for.
+// d (64 x HD) += A B over a contraction dim of K rows (d = A B with
+// `overwrite`), A in registers (the packed accumulator of a 64 x K product), B's
+// K rows at `b_addr`, MN-major, in a tile whose 64-column halves are B_HALF
+// bytes apart. Issued, not waited for.
 template <typename T, int HD, int K, int B_HALF>
-__device__ __forceinline__ void issue_rs(float* d, uint32_t (*a)[4], uint32_t b_addr) {
+__device__ __forceinline__ void issue_rs(float* d, uint32_t (*a)[4], uint32_t b_addr, bool overwrite = false) {
   const uint64_t b_desc = mnmajor_desc(b_addr, B_HALF);
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
+    const int scale_d = overwrite && kk == 0 ? 0 : 1;
     if constexpr (HD == 64) {
-      Wgmma<T>::rs64(d, a[kk], b_desc + mnmajor_step(kk));
+      Wgmma<T>::rs64(d, a[kk], b_desc + mnmajor_step(kk), scale_d);
     } else {
-      Wgmma<T>::rs128(d, a[kk], b_desc + mnmajor_step(kk));
+      Wgmma<T>::rs128(d, a[kk], b_desc + mnmajor_step(kk), scale_d);
     }
   }
 }

@@ -3,14 +3,13 @@
 autograd glue K4, each kernel beside its plain PyTorch version.
 
 Counterpart of `finetrainers_tpu/ops/flash_attention.py`: the Pallas
-`_fwd_kernel` and `_fwd_kernel_twopass` become the wgmma/TMA kernels in
-`csrc/flash_fwd_sm90.cu` (K1, K7a); `_fwd_kernel`'s `two_level` branch and
-`_fwd_kernel_skew` become the mma.sync kernels in `csrc/flash_fwd.cu` (K7c,
-K7b); `_bwd_dkdv_kernel`, `_bwd_dq_kernel` and `_bwd_fused_kernel` become the
-wgmma/TMA kernels in `csrc/flash_bwd_sm90.cu` (K2, K3, K5), and
-`csrc/flash_bwd.cu` holds K5's dq emit and the pre-pass that rotates and
-scales q and k once per call for every kernel but K7b; all are built by
-`ops/_build.py`.
+`_fwd_kernel`, `_fwd_kernel_twopass`, `_fwd_kernel`'s `two_level` branch and
+`_fwd_kernel_skew` become the wgmma/TMA kernels in `csrc/flash_fwd_sm90.cu`
+(K1, K7a, K7c, K7b); `_bwd_dkdv_kernel`, `_bwd_dq_kernel` and
+`_bwd_fused_kernel` become the wgmma/TMA kernels in `csrc/flash_bwd_sm90.cu`
+(K2, K3, K5), and `csrc/flash_bwd.cu` holds K5's dq emit and the pre-pass
+that rotates and scales q and k once per call for every kernel but K7b; all
+are built by `ops/_build.py`.
 
   - `flash_qk_prep` is the pre-pass: q_s = T(rope(q) * scale * log2e) and,
     with tables, k_r = T(rope(k)) (T() rounds to the input dtype), the
@@ -50,8 +49,8 @@ scales q and k once per call for every kernel but K7b; all are built by
     pre-pass followed by K2's and K3's (`flash_bwd_dkdv_reference`,
     `flash_bwd_dq_reference`). The `*_twopass`, `*_skew`, `*_two_level`
     and `flash_backward_fused_reference` versions follow their kernel's
-    recurrence over kv tiles of the kernel's width (128 keys for K7a and K5,
-    64 for K7b and K7c), so their fp32 sums run in the kernel's tile order.
+    recurrence over kv tiles of the kernel's width (128 keys; K7b's score
+    tiles are 64), so their fp32 sums run in the kernel's tile order.
 
 Each kernel wrapper keeps a `launches` count (`flash_qk_prep`,
 `flash_forward_two_level`, `flash_forward_twopass`, `flash_forward_skew`,
@@ -77,8 +76,8 @@ _LN2 = 0.6931471805599453
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
-_BLOCK_KV = 64  # the kv tile of the mma.sync K7b and K7c (csrc/flash_fwd.cu)
-_SM90_BLOCK_KV = 128  # the kv tile of the wgmma K7a and K5 (a K5 CTA's kv rows)
+_SM90_BLOCK_KV = 128  # the kv tile of the wgmma K7a, K7c and K5 (a K5 CTA's kv rows)
+_SKEW_BLOCK_KV = 64  # K7b's score tile, half a stage of its 128-key ring
 _BWD_ROWS = 128  # kv rows of a K2 CTA (csrc/flash_bwd_sm90.cu)
 _BWD_BLOCK_Q = 64  # K2's streamed q tile
 _MAX_DKDV_SPLITS = 8
@@ -293,11 +292,11 @@ def _running_state(q):
 
 
 def flash_forward_two_level_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
-    """Plain version of K7c (`_fwd_kernel`'s `two_level` branch): per 64-key
+    """Plain version of K7c (`_fwd_kernel`'s `two_level` branch): per 128-key
     tile, p = exp2(s - m_cur) against the tile's own max, beta = exp2(m_cur -
     m_new), l = l*alpha + rowsum(p)*beta, acc = acc*alpha + (p v)*beta.
     Arguments and result as `flash_attention_reference`."""
-    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _BLOCK_KV)
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SM90_BLOCK_KV)
     m, l, acc = _running_state(q)
     for kr, vt, valid in tiles:
         s = (qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF)
@@ -333,7 +332,7 @@ def flash_forward_skew_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=
     each 64-key tile in turn, after a first step on a dummy tile of 2*(-1e30)
     (p = 0, alpha = 1); masked entries are recovered from the stored scores
     (`s > 0.5 * -1e30`). Arguments and result as `flash_attention_reference`."""
-    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _BLOCK_KV)
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SKEW_BLOCK_KV)
     m, l, acc = _running_state(q)
     dummy = torch.full(qs.shape[:-1] + (1,), 2.0 * _NEG_INF, device=q.device)
     steps = [(dummy, None)] + [((qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF), vt)
@@ -511,20 +510,23 @@ def flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn: int, scale: float):
 flash_qk_prep.launches = 0
 
 
-def _sm90_forward(entry, q_s, k_r, v, kv_lens):
-    """Launch `entry` of `csrc/flash_fwd_sm90.cu` (`flash_fwd_sm90`, K1, or
-    `flash_fwd_twopass_sm90`, K7a) on checked operands -> (out, lse); the
-    caller counts the launch."""
+def _sm90_forward(entry, q_s, k_r, v, kv_lens, q_scale=None):
+    """Launch `entry` of `csrc/flash_fwd_sm90.cu` on checked operands -> (out,
+    lse): `flash_fwd_sm90` (K1), `flash_fwd_twopass_sm90` (K7a) or
+    `flash_fwd_two_level_sm90` (K7c) on the pre-pass's q_s and k_r, or
+    `flash_fwd_skew_sm90` (K7b) on the raw q and k with its `q_scale` (scale *
+    log2e). The caller counts the launch."""
     batch, heads, seq_q, head_dim = q_s.shape
     out = _btnh_like(q_s)
     lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q_s.device)
-    fn = _kernel("flash_fwd_sm90", entry,
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
+    scale_arg = [] if q_scale is None else [ctypes.c_float]
+    fn = _kernel("flash_fwd_sm90", entry, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                 + [ctypes.POINTER(ctypes.c_int64)] + scale_arg + [ctypes.c_void_p])
     with torch.cuda.device(q_s.device):
         _launch(
             fn, q_s.data_ptr(), k_r.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(kv_lens),
             batch, heads, seq_q, k_r.shape[2], head_dim, _DTYPE_CODES[q_s.dtype], _strides(q_s, k_r, v, out),
-            _stream(q_s.device),
+            *([] if q_scale is None else [q_scale]), _stream(q_s.device),
         )
     return out, lse
 
@@ -581,47 +583,29 @@ def flash_forward(
 flash_forward.launches = 0
 
 
-def _forward_kernel(fn_name, variant, q, k, v, kv_lens, rope_cos, rope_sin, scale):
-    """Check a forward call and launch variant `variant`: 2, K7a, is
-    `flash_fwd_twopass_sm90` of `csrc/flash_fwd_sm90.cu`; 1, K7c, and 3, K7b,
-    are the C entry point's codes in `csrc/flash_fwd.cu` (0, K1, is
-    `flash_fwd_sm90.cu`'s). K7a and K7c run on the pre-pass's operands; K7b,
-    which takes no tables, scales q itself."""
+def _forward_kernel(fn_name, entry, q, k, v, kv_lens, rope_cos, rope_sin, scale):
+    """Check a forward call and launch `entry` of `csrc/flash_fwd_sm90.cu`
+    (`_sm90_forward`): K7a and K7c after the pre-pass, on its operands; K7b,
+    which takes no tables, on q and k themselves, scaling q in the kernel."""
     kv_lens, rope_sn = _check_kernel_call(fn_name, q, k, v, kv_lens, rope_cos, rope_sin)
-    batch, heads, seq_q, head_dim = q.shape
-    seq_kv = k.shape[2]
-    scale = head_dim**-0.5 if scale is None else float(scale)
-    qscale = scale * _LOG2E
-    if variant != 3:
-        q, k = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
-        qscale = 1.0
-    if variant == 2:
-        return _sm90_forward("flash_fwd_twopass_sm90", q, k, v, kv_lens)
-
-    out = _btnh_like(q)
-    lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q.device)
-    fn = _kernel("flash_fwd", "flash_fwd",
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 12 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        _launch(
-            fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(kv_lens),
-            batch, heads, seq_q, seq_kv, head_dim, _DTYPE_CODES[q.dtype], variant,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], qscale, _stream(q.device),
-        )
-    return out, lse
+    scale = q.shape[-1]**-0.5 if scale is None else float(scale)
+    if entry == "flash_fwd_skew_sm90":
+        return _sm90_forward(entry, q, k, v, kv_lens, scale * _LOG2E)
+    q_s, k_r = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
+    return _sm90_forward(entry, q_s, k_r, v, kv_lens)
 
 
-def _forward_variant(name: str, variant: int, plain: str, takes_rope: bool, doc: str):
+def _forward_variant(name: str, entry: str, plain: str, takes_rope: bool, doc: str):
     """A K7 wrapper: on a CPU tensor the plain version named `plain` (looked up
-    per call), else kernel `variant` (`_forward_kernel`), counted in its own
-    `launches`. Without `takes_rope` it refuses RoPE tables."""
+    per call), else the kernel at C entry `entry` (`_forward_kernel`), counted
+    in its own `launches`. Without `takes_rope` it refuses RoPE tables."""
 
     def wrapper(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
         if rope_cos is not None and not takes_rope:
             raise ValueError(f"{name}: this kernel takes no RoPE tables")
         if q.device.type == "cpu":
             return globals()[plain](q, k, v, kv_lens, rope_cos, rope_sin, scale)
-        out = _forward_kernel(name, variant, q, k, v, kv_lens, rope_cos, rope_sin, scale)
+        out = _forward_kernel(name, entry, q, k, v, kv_lens, rope_cos, rope_sin, scale)
         wrapper.launches += 1
         return out
 
@@ -632,14 +616,14 @@ def _forward_variant(name: str, variant: int, plain: str, takes_rope: bool, doc:
 
 
 flash_forward_two_level = _forward_variant(
-    "flash_forward_two_level", 1, "flash_forward_two_level_reference", True,
+    "flash_forward_two_level", "flash_fwd_two_level_sm90", "flash_forward_two_level_reference", True,
     "K7c: `flash_forward`'s function through the two-level recurrence, after the pre-pass. Takes what K1 takes.")
 flash_forward_twopass = _forward_variant(
-    "flash_forward_twopass", 2, "flash_forward_twopass_reference", True,
+    "flash_forward_twopass", "flash_fwd_twopass_sm90", "flash_forward_twopass_reference", True,
     "K7a: `flash_forward`'s function in two passes (max, then accumulate), after the pre-pass. Takes what K1 "
     "takes.")
 flash_forward_skew = _forward_variant(
-    "flash_forward_skew", 3, "flash_forward_skew_reference", False,
+    "flash_forward_skew", "flash_fwd_skew_sm90", "flash_forward_skew_reference", False,
     "K7b: `flash_forward`'s function, software-pipelined. Takes what K1 takes except RoPE tables "
     "(the JAX package gates the skewed kernel off RoPE; `flash_forward` sends such calls to K1).")
 

@@ -8,12 +8,14 @@ branch in interpret mode on the CPU (called unjitted, with the switch set by
 `flash_forward_twopass_reference`, `..._skew_reference` or
 `..._two_level_reference` for CPU tensors. Cases as the JAX package's
 `TestForwardKernelVariants`: plain, `kv_lens`, H=128, H=128 with `kv_lens`,
-over 150 keys (two of K7a's 128-key tiles and three of K7b's and K7c's 64-key
-tiles, the last ragged; 32-key blocks on the JAX side); then RoPE with
+over 150 keys (two of K7a's and K7c's 128-key tiles and three of K7b's 64-key
+score tiles, the last ragged; 32-key blocks on the JAX side); then RoPE with
 per-head and shared tables for the two-pass and two-level kernels, the skew
-gate, and K7a over several 128-key tiles against JAX at 32- and 128-key
-blocks. fp32, compared at atol 2e-5, rtol 1e-5, as K1 (the variants reorder
-fp32 arithmetic: block-local maxima, no rescale, another tiling).
+gate, and each variant over several of its tiles (ragged last tiles,
+`kv_lens` inside a tile and at a tile boundary with an empty row, per-head
+tables, cross-attention) against JAX at 32- and 128-key blocks. fp32, compared at atol 2e-5, rtol 1e-5, as K1 (the
+variants reorder fp32 arithmetic: block-local maxima, no rescale, another
+tiling).
 """
 
 import importlib
@@ -57,10 +59,12 @@ def switch(monkeypatch):
     return set_switch
 
 
-def _run_both(h=64, kv_lens=None, rope=None, s=150, jax_block_kv=32, b=2):
+def _run_both(h=64, kv_lens=None, rope=None, s=150, jax_block_kv=32, b=2, s_kv=None):
+    """(port, JAX) outputs for one seeded BTNH call: `s` query rows and `s_kv`
+    keys (`s` unless given)."""
     rng = np.random.RandomState(7)
     n = 3
-    q, k, v = (rng.randn(b, s, n, h).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.randn(b, length, n, h).astype(np.float32) for length in (s, s_kv or s, s_kv or s))
     cos = sin = None
     if rope == "per_head":
         cos, sin = _ltx_tables(n, h, (2, 3, s // 6))
@@ -111,6 +115,41 @@ def test_twopass_over_128_key_tiles_matches_jax(case, jax_block_kv, switch):
     JAX's two-pass kernel at 32- and 128-key blocks."""
     calls = switch("FINETRAINERS_FLASH_TWOPASS")
     kw = TWOPASS_OVER_128[case]
+    out, ref = _run_both(jax_block_kv=jax_block_kv, **kw)
+    assert calls == [1]
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+    if kw.get("kv_lens") and 0 in kw["kv_lens"]:
+        assert not out[kw["kv_lens"].index(0)].any()
+
+
+# K7c and K7b over several of their tiles (128 keys; K7b's score tiles are 64),
+# as K7a above: a ragged last tile, kv_lens inside a tile (150) and at a tile
+# boundary (256) with an empty row, per-head tables for K7c (RoPE gates K7b
+# off), and cross-attention (Sq != Skv) for both.
+OVER_128 = {
+    "FINETRAINERS_FLASH_TWOLEVEL": {
+        "ragged_last_tile_h128": dict(h=128, s=300),
+        "kv_lens_across_tiles_empty_row_h64": dict(s=300, kv_lens=[150, 256, 0], b=3),
+        "per_head_tables_ragged_h64": dict(s=264, rope="per_head"),
+        "cross_attention_empty_row_h64": dict(s=100, s_kv=300, kv_lens=[300, 0]),
+    },
+    "FINETRAINERS_FLASH_SKEW": {
+        "ragged_last_tile_h128": dict(h=128, s=300),
+        "kv_lens_across_tiles_empty_row_h64": dict(s=300, kv_lens=[150, 256, 0], b=3),
+        "cross_attention_kv_lens_h128": dict(h=128, s=200, s_kv=300, kv_lens=[300, 129]),
+        "cross_attention_h64": dict(s=300, s_kv=140),
+    },
+}
+
+
+@pytest.mark.parametrize("jax_block_kv", [32, 128])
+@pytest.mark.parametrize("env,case", [(env, case) for env in sorted(OVER_128) for case in sorted(OVER_128[env])])
+def test_skew_and_two_level_over_128_key_tiles_match_jax(env, case, jax_block_kv, switch):
+    """K7c's and K7b's plain versions run their recurrences over their
+    kernels' tiles in turn (128 and 64 keys); JAX's two-level and skewed
+    kernels at 32- and 128-key blocks."""
+    calls = switch(env)
+    kw = OVER_128[env][case]
     out, ref = _run_both(jax_block_kv=jax_block_kv, **kw)
     assert calls == [1]
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)

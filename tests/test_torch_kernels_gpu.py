@@ -291,7 +291,7 @@ _VARIANTS = {
 }
 
 
-# Further cases for the wgmma K7a and K5 (B, N, Sq, Skv, H, rope, kv_lens): several 128-key tiles
+# Further cases for the wgmma K7a-c and K5 (B, N, Sq, Skv, H, rope, kv_lens): several 128-key tiles
 # with a ragged last one, kv_lens inside a tile and an empty row, cross-attention over 512 keys whose
 # K5 q loop `dkdv_splits` cuts over CTAs, and a single key tile.
 SM90_VARIANT_CASES = [
@@ -310,13 +310,12 @@ SM90_VARIANT_CASES = [
 def test_forward_variant_kernels_match_reference(variant, dtype):
     """K7a/b/c against their own plain versions and against K1's, with K1's
     bounds (the skewed kernel takes no RoPE tables: its cases drop them), on
-    BNSH views of BTNH buffers; K7a also at the cases over several 128-key
-    tiles."""
+    BNSH views of BTNH buffers, also at the cases over several 128-key tiles."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     kernel, reference = _VARIANTS[variant]
     g = torch.Generator(device="cuda").manual_seed(5)
-    for b, n, sq, skv, h, rope, lens in CASES + (SM90_VARIANT_CASES if variant == "twopass" else []):
+    for b, n, sq, skv, h, rope, lens in CASES + SM90_VARIANT_CASES:
         if variant == "skew":
             rope = None
         q, k, v = (torch.randn(b, s, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2)
@@ -333,6 +332,35 @@ def test_forward_variant_kernels_match_reference(variant, dtype):
             torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
         if lens is not None and 0 in lens:
             assert not out[lens.index(0)].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["two_level", "skew"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_k7b_k7c_ignore_k_and_v_rows_past_kv_lens(variant, head_dim):
+    """TMA reads the rows of k and v between kv_lens[b] and the end of their
+    128-key tile: filled with large finite values, they must leave K7c's and
+    K7b's out and LSE bit-equal to the same call with those rows zeroed, as
+    K1's (self-attention lengths, and cross-attention over 512 keys)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    kernel = _VARIANTS[variant][0]
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for b, n, sq, skv, lens in ((3, 2, 300, 333, [1, 200, 0]), (2, 4, 1000, 512, [300, 9])):
+        q, k, v = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(torch.bfloat16).transpose(1, 2)
+                   for s in (sq, skv, skv))
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        runs = []
+        for k_fill, v_fill in ((3e4, -3e4), (0.0, 0.0)):
+            k_f, v_f = k.clone(), v.clone()
+            for bi, length in enumerate(lens):
+                k_f[bi, :, length:] = k_fill
+                v_f[bi, :, length:] = v_fill
+            runs.append(kernel(q, k_f, v_f, kv_lens))
+        torch.cuda.synchronize()
+        case = (b, n, sq, skv, lens)
+        assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1]), case
+        assert torch.isfinite(runs[0][0]).all(), case
 
 
 @pytest.mark.gpu
