@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one CUDA card: LTX-Video text-to-video serving,
 the LTX-Video LoRA training step, Wan 2.1 T2V-1.3B serving under the int8
 `sage` attention provider and the Wan 2.1 T2V-1.3B LoRA training step, with
-every kernel switch of the flash attention.
+every kernel switch of the flash attention, every remat policy, gradient
+accumulation, checkpoint/resume and the LoRA export.
 
     python3 chip_smoke.py
 
@@ -70,43 +71,65 @@ Phases, each printed on its own line:
      breakdown of one sage step (K6 and its pre-pass, self and cross, GEMMs,
      the rest) and of one K1 step (K1 and its pre-pass, self and cross, GEMMs,
      the rest);
-  8. training through the user entry points: `SFTTrainer` on the full-width spec
-     with LoRA rank 128, one warm-up and 5 timed steps on seeded VAE moments
-     (1, 256, 7, 16, 24) -> 2688 tokens and seeded caption states with a padded
-     mask; checks finite losses, moved LoRA factors, unchanged frozen weights
-     and 2*28 launches of K1, K2 and K3 and 4*28 of the pre-pass (forward and
-     backward) per step; then one step's loss and LoRA
-     gradient with the kernels against plain fp32 attention (both under per-block
-     "full" remat), and a torch.profiler breakdown of one train step;
+  8. training through the user entry points: `SFTTrainer.train` on the full-width
+     spec with LoRA rank 128, one warm-up and 5 timed steps on seeded VAE
+     moments (1, 256, 7, 16, 24) -> 2688 tokens and seeded caption states with
+     a padded mask, then its final checkpoint and adapter export; checks finite
+     losses, moved LoRA factors, unchanged frozen weights, the checkpoint and
+     2*28 launches of K1, K2 and K3 and 4*28 of the pre-pass (forward and
+     backward) per step; K4's host cost (`train_k4_host_cost`: train steps
+     and one host-bound call with the port's K4, with PRs 2-9's
+     autograd.Function and with a torch.library.custom_op, all over the same
+     kernels, interleaved); then one step's loss and LoRA gradient with the
+     kernels against plain fp32 attention (both under per-block "full" remat),
+     and a torch.profiler breakdown of one train step;
   9. Wan LoRA training through the user entry points: `SFTTrainer` on the
      full-width Wan 2.1 T2V-1.3B spec (rank 32, the optimizer of
      examples/training/sft/wan/crush_smol_lora/train.sh, logit-normal
      weighting, per-block "full" remat) on seeded VAE moments (1, 32, 13, 64,
      96) -> 19968 tokens and 512 valid caption tokens: one warm-up and 3 timed
-     steps (finite losses, moved LoRA factors, unchanged frozen weights, K1
-     4*30, the pre-pass 4*30 + 2*30, K2 and K3 2*30 launches per step, model
-     TFLOP/s by
-     tools/floor_bench.py's formula); the same step under
+     steps through `train` (finite losses, moved LoRA factors, unchanged frozen
+     weights, K1 4*30, the pre-pass 4*30 + 2*30, K2 and K3 2*30 launches per
+     step, model TFLOP/s by tools/floor_bench.py's formula); the same step under
      FINETRAINERS_FLASH_FUSED_BWD (K5: bit-equal loss, LoRA gradient within
      1e-2, 2*30 K5 launches, its step time) and under each forward switch
      (K7a/b/c launch counts, loss within 1e-3 and gradient within 2e-2 of the
      K1 step), then 3 timed steps under each of FINETRAINERS_FLASH_TWOPASS
      (K7a), _TWOLEVEL (K7c) and _SKEW (K7b), with exact launch counts;
-     the kernel step against plain fp32 attention at 4992 tokens;
-     host issue time and a torch.profiler breakdown of one step.
+     the kernel step against plain fp32 attention at 4992 tokens; the step
+     under each remat policy, "full", "ops", "ops_attn" and "ops_narrow"
+     (`wan_train_remat`: loss bit-equal and LoRA gradient within 2e-2 of
+     "full"'s at the same weights, K1 2*30 launches under the selective
+     policies, one warm-up and 3 timed steps each with peak memory and model
+     TFLOP/s at the policy's remat factor, a profile of the "ops" step); host
+     issue time and a torch.profiler breakdown of one "full" step;
+  10. the Wan example's run (`wan_train_accum_resume`): "ops" remat, gradient
+     accumulation over 2 micro-steps, a checkpoint every 2 with the 2 newest
+     kept, 6 seeded batches: an unbroken run against one broken after 3
+     micro-steps (a forced save in the middle of an accumulation) and resumed
+     from "latest" by a fresh trainer and model: LoRA factors and AdamW moments
+     bit-equal, equal loss histories, 3 applied updates each; then
+     (`wan_lora_export`) the unbroken run's exported adapter in a fresh model
+     with the same base weights reproduces the resumed model's forward,
+     bit-equal;
+  11. `env`: whether `cv2` and `PIL` import on this machine (information only).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
 0. Without a CUDA card it raises before printing any result.
 """
 
 import contextlib
+import importlib
 import json
 import os
+import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,6 +166,7 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_qk_prep,
     flash_qk_prep_reference,
 )
+from finetrainers_tpu_torch.lora import LORA_WEIGHTS_NAME, apply_lora_state_dict, load_lora_weights
 from finetrainers_tpu_torch.ops.sage_attention import sage_attention_reference, sage_forward, sage_prep, sage_quantize
 from finetrainers_tpu_torch.trainer import SFTTrainer
 
@@ -203,6 +227,20 @@ WAN_TRAIN_ARGS = dict(training_type="lora", rank=WAN_TRAIN_RANK, lora_alpha=WAN_
 VARIANT_LOSS_REL_TOL = 1e-3
 VARIANT_GRAD_REL_L2_TOL = 2e-2
 FUSED_GRAD_REL_L2_TOL = 1e-2
+# The remat policies of the Wan step (examples/training/sft/wan/crush_smol_lora/train.sh trains under "ops"). A
+# selective policy saves K4's outputs and products that "full" recomputes with the same kernels on the same
+# inputs: the loss must be bit-equal to "full"'s and the LoRA gradient within REMAT_GRAD_REL_L2_TOL.
+REMAT_POLICIES = ("full", "ops", "ops_attn", "ops_narrow")
+REMAT_GRAD_REL_L2_TOL = 2e-2
+# Gradient accumulation, checkpoints and resume as the example configures them, cut to 6 micro-steps with
+# a checkpoint every 2 and a forced one after 3, in the middle of an accumulation.
+ACCUM_ARGS = dict(gradient_checkpointing_type="ops", gradient_accumulation_steps=2, checkpointing_steps=2,
+                  checkpointing_limit=2)
+ACCUM_MICRO_STEPS, ACCUM_BROKEN_AT = 6, 3
+# The training phases' checkpoints and exports, in the gitignored build/, removed when the run ends.
+SMOKE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+# The Wan training paths besides the default one, each driven with the counts zeroed just before it.
+WAN_PATH_KEYS = ("k7a", "k7b", "k7c", "fused_bwd", "ops", "ops_attn", "ops_narrow", "accum")
 SWITCHES = ("FINETRAINERS_FLASH_FUSED_BWD", "FINETRAINERS_FLASH_TWOPASS", "FINETRAINERS_FLASH_SKEW",
             "FINETRAINERS_FLASH_TWOLEVEL")
 # The kernels whose ptxas record must show no spill: K5 and K7a-c (their consumers run at 240 and 160 registers).
@@ -429,6 +467,30 @@ def qk_prep_bound(q, k, cos):
     k_r written and the tables read."""
     q_bytes, k_bytes = q.numel() * 2, k.numel() * 2
     return bound(0, 2 * q_bytes + (2 * k_bytes + 2 * cos.numel() * 4 if cos is not None else 0))
+
+
+def dkdv_reduce_bound(b, n, sq, skv, h, sms):
+    """K2's reduce pass's least time where `dkdv_splits` cuts the q loop over
+    `splits` CTAs: the (2, splits, B, N, Skv, H) fp32 partials read once, dk and
+    dv written once in bf16; no products (it also scales by ln2 and applies k's
+    transpose rotation) -> ((ms, "bytes"), splits)."""
+    splits, _ = dkdv_splits(b, n, sq, skv, sms)
+    return bound(0, 2 * splits * b * n * skv * h * 4 + 2 * b * n * skv * h * 2), splits
+
+
+def host_split(trainer, batch):
+    """Where the host spends a step: issuing forward and backward, issuing the
+    update, then waiting for the card. A wait near 0 means the host bounds the step."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.optimizer.zero_grad()
+    trainer.forward_backward(*batch)
+    t1 = time.perf_counter()
+    trainer.optimizer.step()
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return dict(forward_backward_issue_s=t1 - t0, optimizer_issue_s=t2 - t1, wait_for_card_s=t3 - t2, step_s=t3 - t0)
 
 
 def _fill_past_kv_lens(x, lens, value):
@@ -1183,6 +1245,163 @@ def switch(name):
                 os.environ[name] = old
 
 
+def timed_batches(batch, timed, record):
+    """Yield `batch` to `SFTTrainer.train` 1 + `timed` times: after the first
+    (warm-up) step, zero the launch counts and reset the peak memory; record
+    each later step's seconds (host clock, synced) in record["step_s"], and
+    the counts and the peak after the last step, before `train` saves."""
+    yield batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    record["step_s"] = []
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        yield batch
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        record["step_s"].append(t1 - t0)
+        t0 = t1
+    record["launches"], record["peak_gb"] = _counts(), torch.cuda.max_memory_allocated() / 1e9
+
+
+def timed_train_steps(trainer, batch, count):
+    """`count` calls of `trainer.train_step` on `batch` (no checkpoint), each
+    timed on the host clock up to a sync -> (seconds, launches, peak GB), the
+    counts zeroed and the peak reset before the first."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    seconds = []
+    for _ in range(count):
+        t0 = time.perf_counter()
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return seconds, _counts(), torch.cuda.max_memory_allocated() / 1e9
+
+
+def step_loss_and_grad(trainer, batch, env=None, provider="auto"):
+    """One `forward_backward` with fixed draws under switch `env` and
+    `provider` -> (loss, the LoRA gradient flattened in fp32, launches)."""
+    trainer.optimizer.zero_grad()
+    _zero_counts()
+    with switch(env), attention_provider(provider):
+        loss, _ = trainer.forward_backward(*batch, generator=torch.Generator("cuda").manual_seed(5))
+    grad = torch.cat([p.grad.float().flatten() for p in trainer._trainable.values()])
+    torch.cuda.synchronize()
+    return loss.item(), grad, _counts()
+
+
+def rel_l2(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+class FunctionK4(torch.autograd.Function):
+    """K4 as PRs 2-9 glued it: an `autograd.Function` that calls
+    `flash_forward` itself, never the op `finetrainers_torch::flash_mha`. A
+    yardstick of host cost only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, rope_cos, rope_sin, scale):
+        out, lse = flash_forward(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens, rope_cos, rope_sin)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, kv_lens, rope_cos, rope_sin = ctx.saved_tensors
+        return (*flash_backward(q, k, v, out, lse, do, kv_lens, rope_cos, rope_sin, ctx.scale),
+                None, None, None, None)
+
+
+class CustomOpK4:
+    """K4 as a `torch.library.custom_op` with `register_autograd` over the
+    same forward and backward, the design the dispatcher op inside an
+    `autograd.Function` replaced. A yardstick of its host cost only."""
+
+    _op = None
+
+    @classmethod
+    def apply(cls, q, k, v, kv_lens, rope_cos, rope_sin, scale):
+        if cls._op is None:
+            cls._op = _register_custom_op_k4()
+        return cls._op(q, k, v, kv_lens, rope_cos, rope_sin, scale)[0]
+
+
+def _register_custom_op_k4():
+    name = "finetrainers_smoke::flash_mha_custom_op"
+
+    @torch.library.custom_op(name, mutates_args=())
+    def op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_lens: Optional[torch.Tensor],
+           rope_cos: Optional[torch.Tensor], rope_sin: Optional[torch.Tensor],
+           scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        return flash_forward(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+
+    def setup_context(ctx, inputs, output):
+        q, k, v, kv_lens, rope_cos, rope_sin, scale = inputs
+        ctx.save_for_backward(q, k, v, *output, kv_lens, rope_cos, rope_sin)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(output[1])
+        ctx.set_materialize_grads(False)
+
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse, kv_lens, rope_cos, rope_sin = ctx.saved_tensors
+        return (*flash_backward(q, k, v, out, lse, do, kv_lens, rope_cos, rope_sin, ctx.scale),
+                None, None, None, None)
+
+    torch.library.register_autograd(name, backward, setup_context=setup_context)
+    return op
+
+
+K4_GLUES = ("op", "function", "custom_op")
+
+
+def k4_host_cost(trainer, batch, rounds, calls=50):
+    """K4's glue, interleaved: the port's `FlashAttentionFunction` (outside a
+    dispatch mode, as here, it calls `flash_forward` itself), `FunctionK4` and
+    `CustomOpK4`, all over the same kernels. Each of `rounds` rounds times one
+    train step, then `calls` host-bound forward and backward calls at LTX's
+    cross-attention shape (1, 32, 2688, 128, 64; kv_lens [37]; kernels of
+    tens of µs, so the host's issue time sets it), under each glue in an
+    order that rotates by one every round, so the host's drift reaches every
+    glue alike. Returns {glue: step seconds}, {glue: µs a call}."""
+    flash_ops = importlib.import_module("finetrainers_tpu_torch.ops.flash_attention")
+    port = flash_ops.FlashAttentionFunction
+    glues = {"op": port, "function": FunctionK4, "custom_op": CustomOpK4}
+    g = torch.Generator("cuda").manual_seed(21)
+    q = torch.randn(1, 2688, 32, 64, generator=g, device="cuda").to(torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(1, CAPTION_LEN, 32, 64, generator=g, device="cuda").to(torch.bfloat16).requires_grad_()
+            for _ in range(2))
+    do = torch.randn(1, 2688, 32, 64, generator=g, device="cuda").to(torch.bfloat16)
+    lens = torch.tensor([CAPTION_VALID], dtype=torch.int32, device="cuda")
+
+    def call_us():
+        flash_ops.flash_attention(q, k, v, kv_lens=lens).backward(do)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            flash_ops.flash_attention(q, k, v, kv_lens=lens).backward(do)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    seconds, micros = {glue: [] for glue in K4_GLUES}, {glue: [] for glue in K4_GLUES}
+    try:
+        for glue in K4_GLUES:  # one warm-up step and call each
+            flash_ops.FlashAttentionFunction = glues[glue]
+            timed_train_steps(trainer, batch, 1)
+            call_us()
+        for r in range(rounds):
+            for glue in K4_GLUES[r % 3:] + K4_GLUES[:r % 3]:
+                flash_ops.FlashAttentionFunction = glues[glue]
+                seconds[glue] += timed_train_steps(trainer, batch, 1)[0]
+                micros[glue].append(call_us())
+    finally:
+        flash_ops.FlashAttentionFunction = port
+    return seconds, micros
+
+
 def train_batch():
     """Seeded VAE moments of one 49x512x768 clip and seeded caption states with a padded mask."""
     g = torch.Generator("cuda").manual_seed(11)
@@ -1202,7 +1421,7 @@ def train(card):
     """The training path; returns the kernels' launches there."""
     t0 = time.perf_counter()
     args = BaseArgs(training_type="lora", rank=TRAIN_RANK, lora_alpha=TRAIN_RANK, seed=0,
-                    train_steps=1 + TRAIN_TIMED_STEPS)
+                    train_steps=1 + TRAIN_TIMED_STEPS, output_dir=str(SMOKE_DIR / "ltx_train"))
     spec = get_model_specification_cls("ltx_video", "lora")(device=torch.device("cuda"), seed=0)
     trainer = SFTTrainer(args, spec)
     trainer.prepare()
@@ -1223,18 +1442,10 @@ def train(card):
     lora_before = {n: p.detach().clone() for n, p in trainer._trainable.items()}
     batch = train_batch()
 
-    trainer.train([batch])  # warm-up step
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
-    step_s = []
-    for _ in range(TRAIN_TIMED_STEPS):
-        t0 = time.perf_counter()
-        trainer.train([batch])
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    launches = _counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    record = {}
+    trainer.train(timed_batches(batch, TRAIN_TIMED_STEPS, record))  # a warm-up step, the timed ones, the final save
+    step_s, launches, peak_gb = record["step_s"], record["launches"], record["peak_gb"]
+    saved = trainer.checkpointer.all_steps()
     losses = trainer.state.train_state.global_avg_losses
     finite = all(np.isfinite(losses))
     moved = all(not torch.equal(p, lora_before[n]) for n, p in trainer._trainable.items())
@@ -1248,11 +1459,18 @@ def train(card):
           launches_expected_each=expected, prep_launches_expected=2 * expected, max_memory_allocated_gb=peak_gb,
           model_flops_per_step=flops,
           model_tflops=flops / median_s / 1e12, bf16_peak_tflops=PEAK_BF16_FLOPS / 1e12,
-          share_of_peak=flops / median_s / PEAK_BF16_FLOPS)
-    if not (finite and moved and frozen_same
+          share_of_peak=flops / median_s / PEAK_BF16_FLOPS, checkpoints_saved=saved)
+    if not (finite and moved and frozen_same and saved == [1 + TRAIN_TIMED_STEPS]
             and launches == {k_: {"k1": expected, "prep": 2 * expected, "k2": expected, "k3": expected}.get(k_, 0)
                              for k_ in launches}):
         raise AssertionError("training check failed")
+
+    # K4's host cost in this host-bound step: the op against an autograd.Function around the same kernels.
+    k4_s, k4_us = k4_host_cost(trainer, batch, rounds=12)
+    phase("train_k4_host_cost", card=card, order="interleaved, rotating by one each round",
+          step_seconds=k4_s, median_step_s={glue: statistics.median(k4_s[glue]) for glue in K4_GLUES},
+          call_us=k4_us, median_call_us={glue: statistics.median(k4_us[glue]) for glue in K4_GLUES},
+          call_shape="LTX cross-attention (1, 32, 2688, 128, 64), kv_lens [37], forward and backward")
 
     # One step's loss and LoRA gradient with the kernels against plain fp32
     # attention, both under per-block full remat (plain attention keeps fp32
@@ -1286,19 +1504,7 @@ def train(card):
             and remat_launches["k2"] == remat_launches["k3"] == 2 * NUM_LAYERS):
         raise AssertionError("a train step with the kernels differs from the one with plain attention")
 
-    # Where the host spends a step: issuing forward and backward, issuing the
-    # update, then waiting for the card. A wait near 0 means the host bounds the step.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.optimizer.zero_grad()
-    trainer.forward_backward(*batch)
-    t1 = time.perf_counter()
-    trainer.optimizer.step()
-    t2 = time.perf_counter()
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    host = dict(forward_backward_issue_s=t1 - t0, optimizer_issue_s=t2 - t1, wait_for_card_s=t3 - t2,
-                step_s=t3 - t0)
+    host = host_split(trainer, batch)
 
     prof = profile_device(lambda: trainer.train_step(*batch))
     k1_self, k1_cross = _split(prof["launches"]["k1"], by_order=True)
@@ -1315,10 +1521,10 @@ def train(card):
     return launches
 
 
-def wan_train_batch(moments_shape):
+def wan_train_batch(moments_shape, seed=12):
     """Seeded VAE moments of one clip (identity latent statistics, 16 channels)
     and seeded caption states with all 512 tokens valid."""
-    g = torch.Generator("cuda").manual_seed(12)
+    g = torch.Generator("cuda").manual_seed(seed)
     moments = torch.randn(moments_shape, generator=g, device="cuda")
     channels = moments_shape[1] // 2
     moments[:, channels:] = 0.5 * moments[:, channels:] - 2.0  # log-variance
@@ -1331,17 +1537,34 @@ def wan_train_batch(moments_shape):
     return conditions, latents
 
 
-def wan_train_step_flops(cfg: dict, lora_rank: int, remat_factor: float, B: int, S: int, L_CTX: int) -> float:
-    """Analytic matmul FLOPs of one Wan LoRA train step (copied from
+def wan_block_flops(cfg: dict, lora_rank: int, S: int, L_CTX: int) -> dict:
+    """Matmul FLOPs of one Wan block's forward by kind (the terms of
     tools/floor_bench.py's `setup_wan` `flops`, with its shape constants as arguments)."""
     d = cfg["num_attention_heads"] * cfg["attention_head_dim"]
-    fl = 4 * 2 * S * d * d
-    fl += 2 * 2 * S * S * d  # self-attention scores+values
-    fl += 2 * 2 * S * L_CTX * d  # cross-attention scores+values
-    fl += 2 * 2 * L_CTX * d * d  # cross k/v projections
-    fl += 2 * 2 * S * d * cfg["ffn_dim"]
-    fl += 8 * 2 * S * (d * lora_rank + lora_rank * d)
-    return cfg["num_layers"] * fl * B * (2.0 + remat_factor)
+    return dict(
+        projections=4 * 2 * S * d * d + 2 * 2 * L_CTX * d * d,  # q, k, v, out of self-attention, q, out and k, v
+        attention=2 * 2 * S * S * d + 2 * 2 * S * L_CTX * d,  # self- and cross-attention scores and values
+        ff1=2 * S * d * cfg["ffn_dim"],  # the MLP's first product, ffn_dim (8960) wide
+        ff2=2 * S * d * cfg["ffn_dim"],
+        lora=8 * 2 * S * (d * lora_rank + lora_rank * d),
+    )
+
+
+def wan_train_step_flops(cfg: dict, lora_rank: int, remat_factor: float, B: int, S: int, L_CTX: int) -> float:
+    """Analytic matmul FLOPs of one Wan LoRA train step (copied from
+    tools/floor_bench.py's `setup_wan` `flops`): the forward, about as much
+    again for the backward, and `remat_factor` of the forward recomputed."""
+    return cfg["num_layers"] * sum(wan_block_flops(cfg, lora_rank, S, L_CTX).values()) * B * (2.0 + remat_factor)
+
+
+def wan_remat_factor(cfg: dict, lora_rank: int, S: int, L_CTX: int, policy: str) -> float:
+    """The share of the forward's matmul FLOPs that `policy` recomputes: all of
+    it under "full", none under "ops" (K4 and every product saved), all but
+    attention under "ops_attn", the MLP's first product under "ops_narrow"
+    (the only product over 4096 wide but its LoRA B, counted in "lora")."""
+    terms = wan_block_flops(cfg, lora_rank, S, L_CTX)
+    total = sum(terms.values())
+    return {"full": total, "ops": 0.0, "ops_attn": total - terms["attention"], "ops_narrow": terms["ff1"]}[policy] / total
 
 
 def wan_train(card):
@@ -1351,7 +1574,7 @@ def wan_train(card):
     4992 tokens and a profile. Returns the launches of each path."""
     t0 = time.perf_counter()
     spec = get_model_specification_cls("wan", "lora")(device=torch.device("cuda"), seed=0)
-    trainer = SFTTrainer(BaseArgs(**WAN_TRAIN_ARGS), spec)
+    trainer = SFTTrainer(BaseArgs(**WAN_TRAIN_ARGS, output_dir=str(SMOKE_DIR / "wan_train")), spec)
     trainer.prepare()
     module = trainer.transformer.module
     torch.cuda.synchronize()
@@ -1372,20 +1595,10 @@ def wan_train(card):
     lora_before = {n: p.detach().clone() for n, p in trainer._trainable.items()}
     batch = wan_train_batch(WAN_MOMENTS)
 
-    def timed_steps(count):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counts()
-        seconds = []
-        for _ in range(count):
-            t0 = time.perf_counter()
-            trainer.train([batch])
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-        return seconds, _counts(), torch.cuda.max_memory_allocated() / 1e9
-
-    trainer.train([batch])  # warm-up step
-    step_s, launches, peak_gb = timed_steps(WAN_TRAIN_TIMED_STEPS)
+    record = {}
+    trainer.train(timed_batches(batch, WAN_TRAIN_TIMED_STEPS, record))  # a warm-up step, the timed ones, a save
+    step_s, launches, peak_gb = record["step_s"], record["launches"], record["peak_gb"]
+    saved = trainer.checkpointer.all_steps()
     losses = trainer.state.train_state.global_avg_losses
     finite = all(np.isfinite(losses))
     moved = all(not torch.equal(p, lora_before[n]) for n, p in trainer._trainable.items())
@@ -1402,26 +1615,14 @@ def wan_train(card):
           losses_finite=finite, lora_factors_moved=moved, frozen_weights_unchanged=frozen_same, launches=launches,
           launches_expected=expected, max_memory_allocated_gb=peak_gb, model_flops_per_step=flops,
           model_tflops=flops / median_s / 1e12, bf16_peak_tflops=PEAK_BF16_FLOPS / 1e12,
-          share_of_peak=flops / median_s / PEAK_BF16_FLOPS)
-    if not (finite and moved and frozen_same and launches == expected):
+          share_of_peak=flops / median_s / PEAK_BF16_FLOPS, checkpoints_saved=saved)
+    if not (finite and moved and frozen_same and launches == expected and saved == [1 + WAN_TRAIN_TIMED_STEPS]):
         raise AssertionError("Wan training check failed")
     paths = {"wan_train": launches}
 
-    def loss_and_grad(env, step_batch=batch, provider="auto"):
-        trainer.optimizer.zero_grad()
-        _zero_counts()
-        with switch(env), attention_provider(provider):
-            loss, _ = trainer.forward_backward(*step_batch, generator=torch.Generator("cuda").manual_seed(5))
-        grad = torch.cat([p.grad.float().flatten() for p in trainer._trainable.values()])
-        torch.cuda.synchronize()
-        return loss.item(), grad, _counts()
-
-    def rel_l2(a, b):
-        return ((a - b).norm() / b.norm()).item()
-
     # K5: the same step under the fused-backward switch.
-    split_loss, split_grad, split_launches = loss_and_grad(None)
-    fused_loss, fused_grad, fused_launches = loss_and_grad("FINETRAINERS_FLASH_FUSED_BWD")
+    split_loss, split_grad, split_launches = step_loss_and_grad(trainer, batch)
+    fused_loss, fused_grad, fused_launches = step_loss_and_grad(trainer, batch, "FINETRAINERS_FLASH_FUSED_BWD")
     fused_rel = rel_l2(fused_grad, split_grad)
     del fused_grad
 
@@ -1432,7 +1633,7 @@ def wan_train(card):
     for env, key, expected_k1, count in (("FINETRAINERS_FLASH_TWOPASS", "k7a", 0, 4 * WAN_LAYERS),
                                           ("FINETRAINERS_FLASH_SKEW", "k7b", 2 * WAN_LAYERS, 2 * WAN_LAYERS),
                                           ("FINETRAINERS_FLASH_TWOLEVEL", "k7c", 0, 4 * WAN_LAYERS)):
-        loss, grad, variant_launches = loss_and_grad(env)
+        loss, grad, variant_launches = step_loss_and_grad(trainer, batch, env)
         loss_rel, grad_rel = abs(loss - split_loss) / abs(split_loss), rel_l2(grad, split_grad)
         del grad
         forwards_with_prep = 4 * WAN_LAYERS if key != "k7b" else expected_k1
@@ -1448,7 +1649,7 @@ def wan_train(card):
     del split_grad
 
     with switch("FINETRAINERS_FLASH_FUSED_BWD"):
-        fused_step_s, fused_timed_launches, fused_peak_gb = timed_steps(WAN_TRAIN_TIMED_STEPS)
+        fused_step_s, fused_timed_launches, fused_peak_gb = timed_train_steps(trainer, batch, WAN_TRAIN_TIMED_STEPS)
     fused_expected = dict(k1=4 * WAN_LAYERS, prep=6 * WAN_LAYERS, k5=2 * WAN_LAYERS, k5_emit=2 * WAN_LAYERS)
     fused_expected = {k_: fused_expected.get(k_, 0) for k_ in fused_launches}
     phase("wan_train_fused_bwd", card=card, split_loss=split_loss, fused_loss=fused_loss,
@@ -1469,7 +1670,8 @@ def wan_train(card):
             ("FINETRAINERS_FLASH_TWOLEVEL", "k7c", dict(k7c=4 * WAN_LAYERS, prep=6 * WAN_LAYERS)),
             ("FINETRAINERS_FLASH_SKEW", "k7b", dict(k7b=2 * WAN_LAYERS, k1=2 * WAN_LAYERS, prep=4 * WAN_LAYERS))):
         with switch(env):
-            variant_step_s, variant_launches, variant_peak_gb = timed_steps(WAN_TRAIN_TIMED_STEPS)
+            variant_step_s, variant_launches, variant_peak_gb = timed_train_steps(trainer, batch,
+                                                                                  WAN_TRAIN_TIMED_STEPS)
         want = dict(per_step_launches, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS)
         want = {k_: want.get(k_, 0) * WAN_TRAIN_TIMED_STEPS for k_ in variant_launches}
         phase("wan_train_fwd_variants", card=card, switch=env, kernel=key, timed=True, step_seconds=variant_step_s,
@@ -1481,8 +1683,8 @@ def wan_train(card):
 
     # The kernel step against plain fp32 attention at 4992 tokens (plain scores are 1.2 GB per layer).
     small = wan_train_batch(WAN_SMALL_MOMENTS)
-    kernel_loss, kernel_grad, small_launches = loss_and_grad(None, small)
-    plain_loss, plain_grad, _ = loss_and_grad(None, small, provider="_native_math")
+    kernel_loss, kernel_grad, small_launches = step_loss_and_grad(trainer, small)
+    plain_loss, plain_grad, _ = step_loss_and_grad(trainer, small, provider="_native_math")
     trainer.optimizer.zero_grad()
     loss_rel, grad_rel = abs(kernel_loss - plain_loss) / abs(plain_loss), rel_l2(kernel_grad, plain_grad)
     grad_finite = bool(torch.isfinite(kernel_grad).all())
@@ -1494,17 +1696,9 @@ def wan_train(card):
             and small_launches == {k_: per_step.get(k_, 0) for k_ in small_launches}):
         raise AssertionError("a Wan train step with the kernels differs from the one with plain attention")
 
-    # Where the host spends a step: issuing forward and backward, issuing the update, waiting for the card.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.optimizer.zero_grad()
-    trainer.forward_backward(*batch)
-    t1 = time.perf_counter()
-    trainer.optimizer.step()
-    t2 = time.perf_counter()
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    host = dict(forward_backward_issue_s=t1 - t0, optimizer_issue_s=t2 - t1, wait_for_card_s=t3 - t2, step_s=t3 - t0)
+    paths.update(wan_train_remat(card, trainer, batch))
+
+    host = host_split(trainer, batch)
 
     prof = profile_device(lambda: trainer.train_step(*batch))
     per_launch = {}
@@ -1513,11 +1707,170 @@ def wan_train(card):
         per_launch[cls] = {"self_attention": _median(self_ms), "cross_attention": _median(cross_ms)}
     per_launch["k2_reduce"] = {"cross_attention": _median(prof["launches"]["k2_reduce"])}  # split q loops only
     classes = dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()})
+    (reduce_ms, reduce_by), splits = dkdv_reduce_bound(1, 12, WAN_TOKENS, WAN_CAPTION_LEN, 128,
+                                                       torch.cuda.get_device_properties(0).multi_processor_count)
     phase("wan_train_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
           idle_share=prof["idle_share"], ms_by_class=classes, host_seconds=host,
+          k2_reduce_bound=dict(ms=reduce_ms, bound_by=reduce_by, splits=splits),
           launches={cls: len(v) for cls, v in prof["launches"].items()}, ms_per_launch=per_launch,
           top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
     return paths
+
+
+def wan_train_remat(card, trainer, batch):
+    """The Wan step under each remat policy on the trainer of `wan_train`:
+    one `forward_backward` per policy at the same weights and draws (loss and
+    LoRA gradient against "full", launches), then one warm-up and the timed
+    steps per policy (seconds, peak memory, model TFLOP/s with the policy's
+    remat factor). Returns each selective policy's launches."""
+    module, cfg = trainer.transformer.module, trainer.transformer.config
+    per_step = {"full": dict(k1=4 * WAN_LAYERS, prep=6 * WAN_LAYERS, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS)}
+    for policy in REMAT_POLICIES[1:]:  # K4 saved: K1 runs in the forward only, the pre-pass before it and each backward
+        per_step[policy] = dict(k1=2 * WAN_LAYERS, prep=4 * WAN_LAYERS, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS)
+    checked = {}
+    for policy in REMAT_POLICIES:
+        module.gradient_checkpointing = policy
+        checked[policy] = step_loss_and_grad(trainer, batch)
+    full_loss, full_grad, _ = checked["full"]
+    paths, failed = {}, []
+    for policy in REMAT_POLICIES:
+        module.gradient_checkpointing = policy
+        loss, grad, launches = checked[policy]
+        trainer.train_step(*batch)  # warm-up
+        step_s, timed_launches, peak_gb = timed_train_steps(trainer, batch, WAN_TRAIN_TIMED_STEPS)
+        want = {k_: per_step[policy].get(k_, 0) for k_ in launches}
+        remat = wan_remat_factor(cfg, WAN_TRAIN_RANK, WAN_TOKENS, WAN_CAPTION_LEN, policy)
+        flops = wan_train_step_flops(cfg, WAN_TRAIN_RANK, remat, B=1, S=WAN_TOKENS, L_CTX=WAN_CAPTION_LEN)
+        median_s = statistics.median(step_s)
+        grad_rel = rel_l2(grad, full_grad)
+        phase("wan_train_remat", card=card, policy=policy, loss=loss, full_loss=full_loss,
+              loss_bit_equal=loss == full_loss, lora_grad_rel_l2=grad_rel, grad_bound=REMAT_GRAD_REL_L2_TOL,
+              launches=launches, launches_expected=want, timed_launches=timed_launches, step_seconds=step_s,
+              median_step_s=median_s, max_memory_allocated_gb=peak_gb, remat_factor=remat,
+              model_flops_per_step=flops, model_tflops=flops / median_s / 1e12,
+              share_of_peak=flops / median_s / PEAK_BF16_FLOPS)
+        if not (loss == full_loss and grad_rel <= REMAT_GRAD_REL_L2_TOL and launches == want
+                and timed_launches == {k_: v * WAN_TRAIN_TIMED_STEPS for k_, v in want.items()} and peak_gb < 80):
+            failed.append(policy)
+        if policy != "full":
+            paths[f"wan_train_{policy}"] = launches
+    # The example's policy: where its step's time goes, beside wan_train_profile's "full" step.
+    module.gradient_checkpointing = "ops"
+    host = host_split(trainer, batch)
+    prof = profile_device(lambda: trainer.train_step(*batch))
+    phase("wan_train_remat_profile", card=card, policy="ops", step_wall_ms=prof["wall_ms"],
+          device_busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+          ms_by_class=dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()}),
+          launches={cls: len(v) for cls, v in prof["launches"].items()}, host_seconds=host,
+          top_kernels_ms=prof["top_kernels_ms"])
+    module.gradient_checkpointing = "full"
+    del checked, full_grad
+    if failed:
+        raise AssertionError(f"the Wan step under remat {failed} failed its checks")
+    return paths
+
+
+def wan_trainer(output_dir, **args):
+    """A fresh full-width Wan LoRA trainer (seeded base weights) with the
+    example's optimizer and `args`, checkpointing to `output_dir`."""
+    spec = get_model_specification_cls("wan", "lora")(device=torch.device("cuda"), seed=0)
+    trainer = SFTTrainer(BaseArgs(**{**WAN_TRAIN_ARGS, **args}, output_dir=str(output_dir)), spec)
+    trainer.prepare()
+    return trainer
+
+
+def wan_train_accum_resume(card):
+    """Gradient accumulation over 2 micro-steps under "ops" remat, with a
+    checkpoint every 2 micro-steps and the 2 newest kept, on 6 seeded batches:
+    an unbroken run against a run broken after 3 micro-steps (its final save in
+    the middle of an accumulation) and resumed from "latest" by a fresh
+    trainer and model. Then the unbroken run's exported adapter, loaded into
+    a fresh model, against the resumed model's forward. Returns the
+    launches of the unbroken run and the resumed model."""
+    batches = [wan_train_batch(WAN_MOMENTS, seed=100 + i) for i in range(ACCUM_MICRO_STEPS)]
+    unbroken_dir, broken_dir = SMOKE_DIR / "accum_unbroken", SMOKE_DIR / "accum_broken"
+
+    def snapshot(trainer):
+        state = trainer.optimizer.state_dict()
+        moments = [(m["exp_avg"], m["exp_avg_sq"]) for m in state["inner"]["inner"]["state"].values()]
+        return dict(lora={n: p.detach().clone() for n, p in trainer._trainable.items()}, moments=moments,
+                    losses=list(trainer.state.train_state.global_avg_losses), count=trainer.optimizer.count,
+                    mini_step=trainer.optimizer.mini_step, saved=trainer.checkpointer.all_steps())
+
+    t0 = time.perf_counter()
+    trainer = wan_trainer(unbroken_dir, **ACCUM_ARGS)
+    _zero_counts()
+    trainer.train(batches)
+    torch.cuda.synchronize()
+    launches = _counts()
+    unbroken, unbroken_s = snapshot(trainer), time.perf_counter() - t0
+    del trainer
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    trainer = wan_trainer(broken_dir, **ACCUM_ARGS)
+    trainer.train(batches[:ACCUM_BROKEN_AT])
+    first = snapshot(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    trainer = wan_trainer(broken_dir, **ACCUM_ARGS, resume_from_checkpoint="latest")
+    resumed_at = (trainer.state.train_state.step, trainer.optimizer.mini_step, trainer.optimizer.count)
+    trainer.train(batches[ACCUM_BROKEN_AT:])
+    torch.cuda.synchronize()
+    resumed, broken_s = snapshot(trainer), time.perf_counter() - t0
+    lora_equal = all(torch.equal(p, unbroken["lora"][n]) for n, p in resumed["lora"].items())
+    moments_equal = len(resumed["moments"]) == len(unbroken["moments"]) == len(resumed["lora"]) and all(
+        torch.equal(a, b) for pair, ref in zip(resumed["moments"], unbroken["moments"]) for a, b in zip(pair, ref))
+    want_saved = [ACCUM_MICRO_STEPS - ACCUM_ARGS["checkpointing_steps"], ACCUM_MICRO_STEPS]
+    phase("wan_train_accum_resume", card=card, remat="ops", gradient_accumulation_steps=2, micro_steps=6,
+          broken_after=ACCUM_BROKEN_AT, unbroken_seconds=unbroken_s, broken_and_resumed_seconds=broken_s,
+          unbroken_checkpoints=unbroken["saved"], broken_checkpoints_before_resume=first["saved"],
+          resumed_checkpoints=resumed["saved"], resumed_at=dict(step=resumed_at[0], mini_step=resumed_at[1],
+                                                                applied_updates=resumed_at[2]),
+          lora_bit_equal=lora_equal, adamw_moments_bit_equal=moments_equal, unbroken_losses=unbroken["losses"],
+          resumed_losses=resumed["losses"], applied_updates=[unbroken["count"], resumed["count"]],
+          launches=launches)
+    if not (lora_equal and moments_equal and resumed["losses"] == unbroken["losses"]
+            and unbroken["count"] == resumed["count"] == ACCUM_MICRO_STEPS // 2
+            and unbroken["saved"] == resumed["saved"] == want_saved and first["saved"] == [2, ACCUM_BROKEN_AT]
+            and resumed_at == (ACCUM_BROKEN_AT, 1, 1) and all(np.isfinite(unbroken["losses"]))
+            and launches["k1"] == ACCUM_MICRO_STEPS * 2 * WAN_LAYERS):
+        raise AssertionError("the resumed Wan run differs from the unbroken one")
+    del unbroken, first, resumed
+
+    # The unbroken run's last export in a fresh model with the same base weights, against the resumed model.
+    path = unbroken_dir / "lora_weights" / f"{ACCUM_MICRO_STEPS:06d}" / LORA_WEIGHTS_NAME
+    state, config = load_lora_weights(str(path))
+    spec = get_model_specification_cls("wan", "lora")(device=torch.device("cuda"), seed=0)
+    spec.lora_rank, spec.lora_alpha = WAN_TRAIN_RANK, WAN_TRAIN_RANK
+    fresh = spec.load_diffusion_models()["transformer"].module
+    apply_lora_state_dict(fresh, state)
+    conditions, latents = batches[0]
+    inputs = (latents["latents"][:, :16], conditions["encoder_hidden_states"],
+              torch.tensor([500.0], device="cuda"), conditions["encoder_attention_mask"])
+    with torch.no_grad():
+        exported_out = fresh(*inputs)
+        trained_out = trainer.transformer.module(*inputs)
+    out_equal = torch.equal(exported_out, trained_out)
+    phase("wan_lora_export", card=card, file=str(path.relative_to(SMOKE_DIR.parent.parent)),
+          bytes=path.stat().st_size, keys=len(state), lora_config=config,
+          forward_bit_equal=out_equal, output_shape=list(trained_out.shape))
+    if not (out_equal and len(state) == len(trainer._trainable) and torch.isfinite(trained_out).all()
+            and config == {"r": WAN_TRAIN_RANK, "lora_alpha": WAN_TRAIN_RANK, "target_modules": BaseArgs.target_modules}):
+        raise AssertionError("the exported adapter does not reproduce the trained forward")
+    return {"wan_train_accum": launches}
+
+
+def env_phase():
+    """Whether the media codecs the data stage decodes with import here (information, not a check)."""
+    found = {}
+    for name in ("cv2", "PIL"):
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    phase("env", imports=found)
 
 
 def _kernel_name(mangled):
@@ -1568,6 +1921,7 @@ def main():
     phase("device", card=card, torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 
     t0 = time.perf_counter()
     sources = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd", "sage_fwd_sm90")
@@ -1594,6 +1948,10 @@ def main():
     train_launches = train(card)
     torch.cuda.empty_cache()
     wan_paths = wan_train(card)
+    torch.cuda.empty_cache()
+    wan_paths.update(wan_train_accum_resume(card))
+    shutil.rmtree(SMOKE_DIR)
+    env_phase()
 
     def entry(name, source, replaces, launches, err, record, **extra):
         ms, plain_ms, library_ms, bound_ms, bound_by = record
@@ -1620,7 +1978,9 @@ def main():
         fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
         return entry(name, "finetrainers_tpu_torch/csrc/flash_bwd_sm90.cu", replaces, wan[key], bwd_err[key],
                      bwd["wan_train_self_shared_rope"][key],
-                     launches_by_path={"train": train_launches[key], "wan_train": wan[key]},
+                     launches_by_path={"train": train_launches[key], "wan_train": wan[key],
+                                       **{f"wan_train_{p}": wan_paths[f"wan_train_{p}"][key]
+                                          for p in ("ops", "ops_attn", "ops_narrow", "accum")}},
                      shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128],
                      device_ms=bwd["wan_train_self_shared_rope"][f"{key}_device_ms"],
                      by_case={case: dict(zip(fields, r[key]), device_ms=r[f"{key}_device_ms"])
@@ -1638,7 +1998,7 @@ def main():
               launches_by_path={"serve": serve_launches["k1"], "train": train_launches["k1"],
                                 "wan_serve_default_provider": wan_auto_launches["k1"], "wan_train": wan["k1"],
                                 **{f"wan_train_{key}": wan_paths[f"wan_train_{key}"]["k1"]
-                                   for key in ("k7a", "k7b", "k7c", "fused_bwd")}},
+                                   for key in WAN_PATH_KEYS}},
               shape=[2, 32, 2688, 2688, 64], by_case=k1, wan_self_attention=k1_wan,
               wan_train_self_attention=wan_shape(k5_wan["k1"]),
               library_note="torch SDPA forward, without the fused rotation"),
@@ -1650,7 +2010,7 @@ def main():
               launches_by_path={"serve": serve_launches["prep"], "train": train_launches["prep"],
                                 "wan_serve_default_provider": wan_auto_launches["prep"], "wan_train": wan["prep"],
                                 **{f"wan_train_{key}": wan_paths[f"wan_train_{key}"]["prep"]
-                                   for key in ("k7a", "k7b", "k7c", "fused_bwd")}},
+                                   for key in WAN_PATH_KEYS}},
               shape_note="timed at LTX's train self-attention (1, 32, 2688, 64) with per-head tables"),
         bwd_entry("k2", "bwd_dkdv_sm90 (K2, wgmma + TMA, with its reduce pass where the q loop is split)",
                   "finetrainers_tpu/ops/flash_attention.py:888"),

@@ -1,7 +1,8 @@
 """Training arguments (port of the fields of `finetrainers_tpu/args.py` and
-`trainer/sft_trainer/config.py` that the train step reads, with their
-defaults). Parsing a command line (`train.py`) is not ported yet
-(ROADMAP.md queue 1 item 7); a caller sets the fields directly.
+`trainer/sft_trainer/config.py` that the train step, the checkpoints and the
+LoRA export read, with their defaults). Parsing a command line (`train.py`)
+is not ported yet (ROADMAP.md queue 1 item 7); a caller sets the fields
+directly.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ class BaseArgs:
     # LoRA (SFTLowRankConfig)
     rank: int = 64
     lora_alpha: int = 64
+    # Written into the exported adapter's metadata (the JAX trainer's LoRA mask trains every LoRA factor)
+    target_modules: str = "(transformer_blocks|blocks).*(to_q|to_k|to_v|to_out)"
     # Attention providers in training, per module: "module:provider" or "provider" (transformer)
     attn_provider_training: List[str] = dataclasses.field(default_factory=list)
     # Diffusion
@@ -31,6 +34,11 @@ class BaseArgs:
     gradient_checkpointing: bool = False
     gradient_checkpointing_type: str = "full"
     logging_steps: int = 1
+    # Checkpoints (`output_dir/checkpoints/finetrainers_step_<step>`) and exports (`output_dir/lora_weights/`)
+    output_dir: str = "finetrainers-training"
+    checkpointing_steps: int = 500
+    checkpointing_limit: Optional[int] = None
+    resume_from_checkpoint: Optional[str] = None  # "latest" or a step
     # Optimizer
     optimizer: str = "adamw"
     lr: float = 1e-4

@@ -200,13 +200,15 @@ def axial_rope_freqs(head_dim: int, sizes: Sequence[int], fractions: Sequence[fl
 
 def block_stack(blocks: nn.ModuleList, carry, *broadcast_args, checkpoint: Optional[str] = None):
     """Run identical blocks in order (`block_stack`, layers.py:354): a plain
-    loop. checkpoint: None | "full" | "block_skip" recomputes each block (every
-    second block for "block_skip") in the backward, through a non-reentrant
-    `torch.utils.checkpoint`; it has no effect where autograd records nothing."""
+    loop. checkpoint: None or a type of `CHECKPOINT_TYPES` wraps each block
+    (every second block for "block_skip") in a non-reentrant
+    `torch.utils.checkpoint` with that type's policy, as the JAX `block_stack`
+    remats each block with `get_checkpoint_policy` (:419, :452, :577): "full"
+    recomputes the block in the backward, "ops"/"ops_attn"/"ops_narrow" save
+    what their policy names. It has no effect where autograd records nothing."""
     for i, block in enumerate(blocks):
         if checkpoint is not None and torch.is_grad_enabled() and should_checkpoint_block(i, checkpoint):
-            carry = apply_activation_checkpointing(block, "full" if checkpoint == "block_skip" else checkpoint)(
-                carry, *broadcast_args)
+            carry = apply_activation_checkpointing(block, checkpoint)(carry, *broadcast_args)
         else:
             carry = block(carry, *broadcast_args)
     return carry

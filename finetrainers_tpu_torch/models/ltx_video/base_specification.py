@@ -36,6 +36,8 @@ LTX_TRANSFORMER_CONFIG = dict(
 
 
 class LTXVideoModelSpecification(ModelSpecification):
+    transformer_class_name = "LTXVideoTransformer3DModel"
+
     first_frame_conditioning_p = 0.1
     min_first_frame_sigma = 0.25
     frame_rate = 25

@@ -209,7 +209,7 @@ class LTXVideoTransformer3DModel(nn.Module):
         super().__init__()
         inner = num_attention_heads * attention_head_dim
         self.inner = inner
-        # Per-block remat policy for training (None | "full" | "block_skip"), read by block_stack.
+        # Per-block remat policy for training (None or a type of CHECKPOINT_TYPES), read by block_stack.
         self.gradient_checkpointing = gradient_checkpointing
         self.dtype = dtype
         self.out_channels = out_channels

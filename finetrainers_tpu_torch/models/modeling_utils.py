@@ -11,6 +11,7 @@ random-initialise their modules there, from `torch.Generator`s seeded with
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Any, Dict, List, Optional, Union
 
@@ -28,6 +29,8 @@ class ModelHandle:
 
 class ModelSpecification:
     """Base class for model specs (reference modeling_utils.py:26-300)."""
+
+    transformer_class_name: Optional[str] = None
 
     def __init__(
         self,
@@ -50,7 +53,7 @@ class ModelSpecification:
         self.device = torch.device(device)
         self.seed = seed
         self.transformer_config: Dict[str, Any] = {}
-        # Per-block remat policy (None | "full" | "block_skip"), set by the
+        # Per-block remat policy (None or a type of CHECKPOINT_TYPES), set by the
         # trainer before load_diffusion_models.
         self.gradient_checkpointing: Optional[str] = None
 
@@ -84,6 +87,32 @@ class ModelSpecification:
     # -------------------------------------------------------------- validation
     def validation(self, pipeline, **kwargs) -> List[Any]:
         raise NotImplementedError
+
+    # ------------------------------------------------------------------ export
+    def _save_lora_weights(self, directory: str, lora_state, lora_config: Dict[str, Any]) -> None:
+        """Write an inference-ready adapter (`lora.save_lora_weights`; JAX
+        modeling_utils.py:167-177). The module's parameter names are already
+        diffusers' (JAX maps its flax names through the family's key map here)."""
+        from ..lora import save_lora_weights
+
+        save_lora_weights(directory, lora_state, lora_config)
+
+    def _save_model(self, directory: str, transformer: ModelHandle) -> None:
+        """The transformer in diffusers format: config.json and
+        diffusion_pytorch_model.safetensors without the LoRA factors (JAX
+        modeling_utils.py:179-200)."""
+        from ..lora import LORA_KEYS
+        from ..utils.serialization import safetensors_save_dict
+
+        os.makedirs(directory, exist_ok=True)
+        state = {name: value for name, value in transformer.module.state_dict().items()
+                 if not any(f".{key}." in f".{name}" for key in LORA_KEYS)}
+        safetensors_save_dict(state, os.path.join(directory, "diffusion_pytorch_model.safetensors"))
+        config = dict(transformer.config or {})
+        if self.transformer_class_name:
+            config["_class_name"] = self.transformer_class_name
+        with open(os.path.join(directory, "config.json"), "w") as f:
+            json.dump(config, f, indent=2)
 
     def _refuse_checkpoint(self, explicit_id: Optional[str], subfolder: str, what: str) -> None:
         """Raise where a local checkpoint of a component exists: loading one is

@@ -44,6 +44,8 @@ WAN_I2V_14B_CONFIG = dict(
 
 
 class WanModelSpecification(ModelSpecification):
+    transformer_class_name = "WanTransformer3DModel"
+
     def __init__(
         self,
         pretrained_model_name_or_path: str = "Wan-AI/Wan2.1-T2V-1.3B-Diffusers",

@@ -157,7 +157,7 @@ class WanTransformer3DModel(nn.Module):
         self.out_channels = out_channels
         self.patch_size = tuple(patch_size)
         self.freq_dim = freq_dim
-        # Per-block remat policy (None | "full" | "block_skip"), read by block_stack.
+        # Per-block remat policy (None or a type of CHECKPOINT_TYPES), read by block_stack.
         self.gradient_checkpointing = gradient_checkpointing
         pt, ph, pw = self.patch_size
         self.patch_embedding = LoRADense(in_channels * pt * ph * pw, inner, dtype=dtype)

@@ -36,7 +36,10 @@ are built by `ops/_build.py`.
     (`q_pad * head_dim * 6 <= 3 MB`); K5's accumulator lives in device memory
     here, so the switch alone decides.
   - `FlashAttentionFunction` (K4) is the `torch.autograd.Function` joining
-    them, the counterpart of the `jax.custom_vjp` `_flash_mha`.
+    them, the counterpart of the `jax.custom_vjp` `_flash_mha`. Under a
+    dispatch mode its forward is the dispatcher op
+    `finetrainers_torch::flash_mha`, so a selective checkpointing policy can
+    save its outputs.
   - `flash_attention(query, key, value, ...)` is the BTNH interface of the JAX
     package's `flash_attention`, including its RoPE table conventions; it goes
     through K4 on every device, so its backward is K2/K3 or K5 (or their plain
@@ -822,15 +825,33 @@ def flash_backward(
     return dq, dk, dv
 
 
+# K4's forward as one dispatcher op, so that a selective checkpointing policy
+# sees it: a kernel launched through ctypes inside an `autograd.Function` is
+# invisible at the dispatcher. It is defined with `torch.library.Library` and
+# called from `FlashAttentionFunction`, which holds the backward, and only
+# while a dispatch mode (the policies') is active: a `torch.library.custom_op`
+# with `register_autograd` costs host time on every call, and the dispatcher's
+# round trip into Python costs some where nothing looks.
+_LIBRARY = torch.library.Library("finetrainers_torch", "DEF")
+_LIBRARY.define("flash_mha(Tensor q, Tensor k, Tensor v, Tensor? kv_lens, Tensor? rope_cos, Tensor? rope_sin, "
+                "float scale) -> (Tensor, Tensor)")
+_LIBRARY.impl("flash_mha", flash_forward, "CompositeExplicitAutograd")
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """K4: flash attention with a kernel backward (the `jax.custom_vjp`
-    `_flash_mha`). The forward is `flash_forward` and saves q, k, v, out and
-    the LSE; the backward is `flash_backward` on them. BNSH tensors; kv_lens,
-    the RoPE tables and the scale get no gradient."""
+    `_flash_mha`). The forward is `flash_forward` (out and the LSE are fresh
+    tensors), through the op `finetrainers_torch::flash_mha` under a dispatch
+    mode, and saves q, k, v, out and the LSE; the backward is
+    `flash_backward` on them. BNSH tensors; kv_lens, the RoPE tables and the
+    scale get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, rope_cos, rope_sin, scale):
-        out, lse = flash_forward(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+        if torch._C._len_torch_dispatch_stack():
+            out, lse = torch.ops.finetrainers_torch.flash_mha.default(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+        else:
+            out, lse = flash_forward(q, k, v, kv_lens, rope_cos, rope_sin, scale)
         ctx.save_for_backward(q, k, v, out, lse, kv_lens, rope_cos, rope_sin)
         ctx.scale = scale
         return out

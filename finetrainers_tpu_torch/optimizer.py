@@ -11,13 +11,17 @@ The JAX package builds optax chains; this port keeps their arithmetic:
     in adamw a weight decay decoupled from the gradient. As in optax, the
     learning rate of an update is the schedule at the number of updates made
     before it.
+  - `MultiSteps` is `optax.MultiSteps` over it (gradient accumulation, the
+    JAX trainer's `--gradient_accumulation_steps`): each `step` is one
+    micro-step whose gradients join a running mean; the k-th clips, updates
+    and advances the schedule's count, the others change no parameter.
 The 8-bit optimizers (`optim8bit.py`) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import torch
 
@@ -118,6 +122,11 @@ def get_lr_scheduler(
     raise ValueError(f"Unsupported scheduler {name}; choose from {SUPPORTED_SCHEDULERS}")
 
 
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: the L2 norm of all gradients together (a device scalar)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
 class ClippedOptimizer:
     """[clip_by_global_norm] -> adam(w) over a list of parameters, with the
     learning rate from a schedule (the optax chain `get_optimizer` builds)."""
@@ -133,7 +142,7 @@ class ClippedOptimizer:
         """Clip the gradients by their global norm, update, and return the
         norm before clipping (a device scalar; nothing here waits for the device)."""
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = global_norm(grads)
         if self.max_grad_norm is not None:
             scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm), self.max_grad_norm / norm)
             torch._foreach_mul_(grads, scale)
@@ -146,6 +155,65 @@ class ClippedOptimizer:
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The moments, their step and the schedule's count."""
+        return {"inner": self.inner.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        self.inner.load_state_dict(state_dict["inner"])
+        self.count = state_dict["count"]
+
+
+class MultiSteps:
+    """`optax.MultiSteps(optimizer, every_k)` with its default gradient mean.
+
+    `step` takes the micro-batch's gradients from `.grad`: they join the
+    running mean acc + (g - acc) / (n + 1) of the n micro-steps before (a
+    parameter without a gradient adds zeros). On the k-th micro-step the mean
+    goes to the wrapped optimizer (clip, update, the schedule's count) and the
+    accumulator restarts at zero; on the others no parameter changes."""
+
+    def __init__(self, inner: ClippedOptimizer, every_k: int) -> None:
+        self.inner = inner
+        self.every_k = every_k
+        self.params = inner.params
+        self.mini_step = 0
+        self.acc_grads = [torch.zeros_like(p) for p in self.params]
+
+    @property
+    def count(self) -> int:
+        """Updates applied so far (the wrapped optimizer's count)."""
+        return self.inner.count
+
+    def step(self) -> torch.Tensor:
+        """One micro-step; returns the micro-batch's gradient norm (a device scalar)."""
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        norm = global_norm(grads)
+        torch._foreach_add_(self.acc_grads,
+                            torch._foreach_div(torch._foreach_sub(grads, self.acc_grads), self.mini_step + 1))
+        if self.mini_step == self.every_k - 1:
+            for param, acc in zip(self.params, self.acc_grads):
+                param.grad = acc
+            self.inner.step()
+            self.acc_grads = [torch.zeros_like(p) for p in self.params]
+            self.mini_step = 0
+        else:
+            self.mini_step += 1
+        return norm
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad()
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The wrapped optimizer's state, the micro-step count and the running mean."""
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step, "acc_grads": self.acc_grads}
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        self.inner.load_state_dict(state_dict["inner"])
+        self.mini_step = state_dict["mini_step"]
+        for acc, saved in zip(self.acc_grads, state_dict["acc_grads"]):
+            acc.copy_(saved)
 
 
 def get_optimizer(

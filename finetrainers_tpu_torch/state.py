@@ -1,10 +1,10 @@
 """Train-state bookkeeping (port of the fields of `finetrainers_tpu/state.py`
-that the train loop records; checkpointing them is not ported yet)."""
+that the train loop records, with their checkpoint round trip)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 
 @dataclasses.dataclass
@@ -14,6 +14,14 @@ class TrainState:
     global_avg_losses: List[float] = dataclasses.field(default_factory=list)
     global_max_losses: List[float] = dataclasses.field(default_factory=list)
     log_steps: List[int] = dataclasses.field(default_factory=list)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        for key, value in state_dict.items():
+            if hasattr(self, key):
+                setattr(self, key, value)
 
 
 @dataclasses.dataclass

@@ -1,0 +1,87 @@
+"""Safetensors files in plain Python with torch (port of
+`finetrainers_tpu/utils/serialization.py`, which calls the `safetensors`
+package; the port does not depend on it).
+
+The format: an 8-byte little-endian header length, a JSON header that maps
+each tensor name to its `dtype`, `shape` and `data_offsets` (begin and end in
+the byte buffer after the header) and holds the string-to-string
+`__metadata__`, then the tensors' little-endian bytes, back to back. The
+header is padded with spaces to a multiple of 8 bytes, as the reference
+writer pads it. F32, F16 and BF16 tensors are supported.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import struct
+from typing import Dict, Optional
+
+import torch
+
+_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
+_NAMES = {dtype: name for name, dtype in _DTYPES.items()}
+
+
+def safetensors_save_dict(tensors: Dict[str, torch.Tensor], path: str,
+                          metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write `tensors` (any device, any layout) and `metadata` to `path`."""
+    header, chunks, offset = {}, [], 0
+    for name in sorted(tensors):
+        tensor = tensors[name].detach()
+        if tensor.dtype not in _NAMES:
+            raise ValueError(f"{name}: dtype {tensor.dtype} is not one of {sorted(_DTYPES)}")
+        data = tensor.to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _NAMES[tensor.dtype], "shape": list(tensor.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        chunks.append(data)
+        offset += len(data)
+    if metadata is not None:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    encoded = json.dumps(header, separators=(",", ":")).encode()
+    encoded += b" " * (-len(encoded) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(encoded)))
+        f.write(encoded)
+        for data in chunks:
+            f.write(data)
+
+
+def _read_header(f, path: str) -> dict:
+    raw = f.read(8)
+    if len(raw) < 8:
+        raise ValueError(f"{path}: not a safetensors file (shorter than its header length)")
+    (header_len,) = struct.unpack("<Q", raw)
+    header = f.read(header_len)
+    if len(header) != header_len:
+        raise ValueError(f"{path}: header length {header_len} exceeds the file")
+    return json.loads(header)
+
+
+def safetensors_load_dict(path: str) -> Dict[str, torch.Tensor]:
+    """{name: CPU tensor} of a safetensors file with F32, F16 or BF16 tensors."""
+    with open(path, "rb") as f:
+        header = _read_header(f, path)
+        buffer = f.read()
+    entries = sorted((item for item in header.items() if item[0] != "__metadata__"),
+                     key=lambda item: item[1]["data_offsets"][0])
+    out, end = {}, 0
+    for name, info in entries:
+        dtype = _DTYPES.get(info["dtype"])
+        begin, stop = info["data_offsets"]
+        shape = tuple(info["shape"])
+        if dtype is None or begin != end or stop > len(buffer) or stop - begin != math.prod(shape) * dtype.itemsize:
+            raise ValueError(f"{path}: tensor {name!r} has a bad dtype or offsets: {info}")
+        data = torch.frombuffer(bytearray(buffer[begin:stop]), dtype=torch.uint8) if stop > begin else \
+            torch.empty(0, dtype=torch.uint8)
+        out[name] = data.view(dtype).reshape(shape)
+        end = stop
+    if end != len(buffer):
+        raise ValueError(f"{path}: the tensors do not cover the data ({end} of {len(buffer)} bytes)")
+    return out
+
+
+def safetensors_load_metadata(path: str) -> Dict[str, str]:
+    """The `__metadata__` of a safetensors file ({} if it has none)."""
+    with open(path, "rb") as f:
+        return _read_header(f, path).get("__metadata__", {}) or {}

@@ -9,6 +9,8 @@ imports no JAX. On the card:
 import pytest
 import torch
 
+from finetrainers_tpu_torch import get_model_specification_cls
+from finetrainers_tpu_torch.args import BaseArgs
 from finetrainers_tpu_torch.ops import attention as attention_ops
 from finetrainers_tpu_torch.ops import attention_dispatch, list_providers
 from finetrainers_tpu_torch.ops.flash_attention import (
@@ -42,6 +44,7 @@ from finetrainers_tpu_torch.ops.sage_attention import (
     sage_prep,
     sage_quantize,
 )
+from finetrainers_tpu_torch.trainer import SFTTrainer
 
 # (B, N, Sq, Skv, H, rope, kv_lens): fused RoPE with per-head and shared tables,
 # kv_lens with an empty row, sequence lengths off every tile boundary, H = 64 and 128.
@@ -745,3 +748,41 @@ def test_sage_dispatch_on_the_card_never_rotates_in_torch(tables, monkeypatch):
         torch.cuda.synchronize()
         assert sage_prep.launches == before + 1
         _assert_k6_close(out, ref, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy,k1_per_block", [("full", 4), ("ops", 2), ("ops_attn", 2), ("ops_narrow", 2)])
+def test_k1_launches_per_block_under_each_remat_policy(policy, k1_per_block):
+    """A small bf16 Wan train step on the card (3 blocks, 2 heads of 128): K1
+    runs for self- and cross-attention in the forward, and again in the
+    recompute only under `full`; the selective policies save the K4 op. K2
+    and K3 run once per attention call, the pre-pass before each K1 and each
+    backward. Loss and LoRA gradient equal `full`'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    layers = 3
+    config = dict(num_attention_heads=2, attention_head_dim=128, num_layers=layers, ffn_dim=512, text_dim=64,
+                  freq_dim=32)
+    spec = get_model_specification_cls("wan", "lora")(device="cuda", transformer_config=config, seed=0)
+    trainer = SFTTrainer(BaseArgs(training_type="lora", rank=8, lora_alpha=8, seed=0, gradient_checkpointing=True,
+                                  gradient_checkpointing_type=policy), spec)
+    trainer.prepare()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    moments = torch.randn(1, 32, 3, 16, 16, device="cuda", generator=g)
+    conditions = {"encoder_hidden_states": torch.randn(1, 40, 64, device="cuda", generator=g),
+                  "encoder_attention_mask": (torch.arange(40, device="cuda") < 33).to(torch.int32)[None]}
+    latents = {"latents": moments, "latents_mean": torch.zeros(16, device="cuda"),
+               "latents_std": torch.ones(16, device="cuda")}
+    counters = (flash_forward, flash_qk_prep, flash_bwd_dkdv, flash_bwd_dq)
+    before = [c.launches for c in counters]
+    loss, _ = trainer.forward_backward(conditions, latents, generator=torch.Generator("cuda").manual_seed(5))
+    torch.cuda.synchronize()
+    launches = [c.launches - n for c, n in zip(counters, before)]
+    assert launches == [k1_per_block * layers, (k1_per_block + 2) * layers, 2 * layers, 2 * layers], launches
+    grad = torch.cat([p.grad.float().flatten() for p in trainer._trainable.values()])
+    trainer.optimizer.zero_grad()
+    trainer.transformer.module.gradient_checkpointing = "full"
+    full_loss, _ = trainer.forward_backward(conditions, latents, generator=torch.Generator("cuda").manual_seed(5))
+    full_grad = torch.cat([p.grad.float().flatten() for p in trainer._trainable.values()])
+    assert torch.equal(loss, full_loss)
+    assert ((grad - full_grad).norm() / full_grad.norm()).item() <= 2e-2

@@ -1,11 +1,13 @@
 """Guard: the PyTorch port imports no JAX and builds nothing at import time.
 
-A fresh interpreter blocks `jax`, `flax`, `optax`, `finetrainers_tpu` and
-`triton` (a `None` entry in `sys.modules` makes their import raise) and
-replaces `subprocess` launches with a tripwire, then imports every module of
+A fresh interpreter blocks `jax`, `flax`, `optax`, `finetrainers_tpu`,
+`triton` and `safetensors` (a `None` entry in `sys.modules` makes their
+import raise; the port writes safetensors files itself) and replaces
+`subprocess` launches with a tripwire, then imports every module of
 `finetrainers_tpu_torch`, the training slice's (trainer, optimizer, LoRA,
-remat, diffusion math) and the Wan serving slice's (int8 attention, Wan
-transformer, spec, pipeline) among them. Any import of a blocked package, any `nvcc` run and
+remat, diffusion math, the K4 op, checkpoints, the safetensors writer) and
+the Wan serving slice's (int8 attention, Wan transformer, spec, pipeline)
+among them. Any import of a blocked package, any `nvcc` run and
 any kernel library loaded during import fails the test.
 """
 
@@ -17,7 +19,7 @@ REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
 import importlib, pkgutil, subprocess, sys
-for name in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu", "triton"):
+for name in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu", "triton", "safetensors"):
     sys.modules[name] = None
 
 def _tripwire(*args, **kwargs):
@@ -35,7 +37,7 @@ assert not _build._LIBS, f"kernel libraries loaded at import: {list(_build._LIBS
 training = {"finetrainers_tpu_torch." + m for m in (
     "ops.flash_attention", "trainer.sft_trainer.trainer", "trainer.base", "optimizer", "lora", "args", "state",
     "utils.activation_checkpoint", "functional.diffusion", "ops.sage_attention", "models.wan.transformer",
-    "models.wan.base_specification", "models.wan.pipeline")}
+    "models.wan.base_specification", "models.wan.pipeline", "checkpoint", "utils.serialization")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
 print(len(names))
 """
@@ -55,6 +57,6 @@ def test_no_jax_import_lines_in_port_sources():
             words = line.split()
             if len(words) >= 2 and words[0] in ("import", "from"):
                 root = words[1].split(".")[0].rstrip(",")
-                if root in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu"):
+                if root in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu", "safetensors"):
                     bad.append(f"{path.relative_to(REPO_ROOT)}:{lineno}: {line.strip()}")
     assert not bad, bad

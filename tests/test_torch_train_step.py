@@ -169,12 +169,12 @@ def _jax_reference():
             lora_state(updated), lora_state(params))
 
 
-def _port_trainer(flat, remat):
+def _port_trainer(flat, remat, **kw):
     spec = get_model_specification_cls("ltx_video", "lora")(
         device="cpu", transformer_config=TINY, vae_config=AutoencoderConfig(**VAE_KW),
         transformer_dtype=torch.float32, vae_dtype=torch.float32)
     args = BaseArgs(training_type="lora", rank=RANK, lora_alpha=ALPHA, seed=0,
-                    gradient_checkpointing=remat is not None, gradient_checkpointing_type=remat or "full")
+                    gradient_checkpointing=remat is not None, gradient_checkpointing_type=remat or "full", **kw)
     trainer = SFTTrainer(args, spec)
     trainer.prepare()
     load_flax_params(trainer.transformer.module, flat)
@@ -205,9 +205,9 @@ def test_train_step_matches_jax(remat):
             assert not param.requires_grad and param.grad is None, name
 
 
-def test_train_loop_advances_the_state():
+def test_train_loop_advances_the_state(tmp_path):
     flat, conditions, latents, draws, *_ = _jax_reference()
-    trainer = _port_trainer(flat, None)
+    trainer = _port_trainer(flat, None, output_dir=str(tmp_path))
     trainer.args.train_steps = 2
     batch = ({k: torch.from_numpy(v) for k, v in conditions.items()},
              {k: torch.from_numpy(v) for k, v in latents.items()})
@@ -215,6 +215,7 @@ def test_train_loop_advances_the_state():
     assert state.step == 2 and state.observed_data_samples == 2 * MOMENTS[0] and state.log_steps == [1, 2]
     assert all(np.isfinite(state.global_avg_losses)) and len(state.global_max_losses) == 2
     assert trainer.optimizer.count == 2
+    assert trainer.checkpointer.all_steps() == [2]  # the save at the end of the run
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
         trainer.run()
 
