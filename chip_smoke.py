@@ -2,7 +2,8 @@
 the LTX-Video LoRA training step, Wan 2.1 T2V-1.3B serving under the int8
 `sage` attention provider and the Wan 2.1 T2V-1.3B LoRA training step, with
 every kernel switch of the flash attention, every remat policy, gradient
-accumulation, checkpoint/resume and the LoRA export.
+accumulation, checkpoint/resume and the LoRA export, and the Wan example's
+run through its command line, from videos on disk.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,8 @@ Phases, each printed on its own line:
      pre-pass that every forward but K7b and every backward runs first
      (`csrc/flash_bwd.cu`) and K6 with its pre-pass (`csrc/sage_fwd_sm90.cu`,
      int8 wgmma and TMA), timed, with ptxas' register, spill and warning
-     lines; a spill in K5, K7a, K7b or K7c fails the run;
+     lines; a spill in any of the eight wgmma kernels (K1, K2, K3, K5, K6,
+     K7a, K7b, K7c) fails the run;
   3. K1 against its plain PyTorch version (`flash_forward_core_reference` on
      the pre-pass's operands) and the pre-pass plus K1 (`flash_forward`)
      against `flash_attention_reference`, in bf16, at the LTX serving path's
@@ -28,7 +30,8 @@ Phases, each printed on its own line:
      cross-attention with kv_lens, a ragged case with an empty row, H=128 with
      shared tables, and Wan's training self-attention (1, 12, 19968, 128) with
      the shared Wan tables and cross-attention over 512 keys at full width,
-     held one head at a time), with errors, CUDA-event and device times of K2
+     held one head at a time, and the same two at the example's 20280
+     tokens), with errors, CUDA-event and device times of K2
      and K3 and of their plain versions (`flash_bwd_dkdv_reference`,
      `flash_bwd_dq_reference`), bounds and the torch SDPA backward as a
      library yardstick;
@@ -39,8 +42,9 @@ Phases, each printed on its own line:
      with kv_lens, LTX's self-attention shape, ragged cases with an empty row
      at H=128 and H=64); times of K6, the pre-pass, the plain pre-pass (torch's
      rotation and quantization on the card) and K6's plain version, the bounds
-     and torch SDPA as a yardstick; then K1 at Wan's self-attention shape (H=128,
-     one (S, H) table pair shared by every head) against its plain version,
+     and torch SDPA as a yardstick; then K1 at Wan's self-attention shapes (H=128,
+     one (S, H) table pair shared by every head; serving, and the example's
+     20280 tokens whose last tiles hold 56 rows) against its plain version,
      run head by head, timed alone and with its pre-pass;
   5b. K5 and its dq emit against K5's plain version and against K2+K3 (pre-pass
      included) at LTX's train self-attention with per-head tables, LTX's
@@ -112,7 +116,22 @@ Phases, each printed on its own line:
      (`wan_lora_export`) the unbroken run's exported adapter in a fresh model
      with the same base weights reproduces the resumed model's forward,
      bit-equal;
-  11. `env`: whether `cv2` and `PIL` import on this machine (information only).
+  11. the Wan example's run through its command line (`wan_run`):
+     `finetrainers_tpu_torch.train.main` with train.sh's own flags (one card's
+     parallel layout, `--report_to jsonl`, 4 steps with a checkpoint every 2
+     and validation at 4, 4 precomputed items, the output under build/) on 4
+     seeded videos it writes with cv2 at the example's 49x480x832 bucket
+     (20280 tokens): precompute once (decode, bucket, tiled and sliced VAE
+     encode, text states), `transformer:ring`, "ops" remat, validation through
+     `WanPipeline` (2 denoising steps, cut from 50). The same run broken after
+     2 steps and resumed from "latest" must end with LoRA factors and AdamW
+     moments bit-equal to the unbroken one's, after the same sample ids each
+     step. Each step launches K1 60 times, the pre-pass 120, K2 and K3 60, K2's
+     reduce pass 30, and no other kernel; each validation K1 and the pre-pass
+     120 times. Precompute seconds per item, step seconds, peak memory,
+     validation seconds, a profile of one step (idle share) and steps under
+     `transformer:ring` and `transformer:auto` in turns;
+  12. `env`: whether `cv2` and `PIL` import on this machine (information only).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
 0. Without a CUDA card it raises before printing any result.
@@ -137,6 +156,8 @@ import torch.nn.functional as F
 
 from finetrainers_tpu_torch import get_model_specification_cls
 from finetrainers_tpu_torch.args import BaseArgs
+from finetrainers_tpu_torch.constants import PRECOMPUTED_DIR_NAME
+from finetrainers_tpu_torch.data import to_device
 from finetrainers_tpu_torch.models.ltx_video.transformer import LTXRotaryPosEmbed
 from finetrainers_tpu_torch.models.wan.transformer import WanRotaryPosEmbed
 from finetrainers_tpu_torch.ops import _build, attention_dispatch, attention_provider
@@ -202,6 +223,11 @@ WAN_PARAMS = 1_418_996_800  # WAN_T2V_1_3B_CONFIG (jax.eval_shape on the JAX mod
 WAN_REQUEST = dict(num_frames=49, height=512, width=768, guidance_scale=5.0, num_inference_steps=WAN_STEPS)
 WAN_GRID = (13, 32, 48)
 WAN_TOKENS = 19968
+# The Wan example's own bucket (examples/training/sft/wan/crush_smol_lora/training.json): 49x480x832 ->
+# 13x60x104 latents -> 13x30x52 = 20280 tokens, 158 full 128-row tiles and a ragged one of 56 rows.
+WAN_RUN_BUCKET = (49, 480, 832)
+WAN_RUN_GRID = (13, 30, 52)
+WAN_RUN_TOKENS = 20280
 # K6 (bf16 output) against its plain version on the same codes: |out - ref| <= K6_TOL * max(1, |ref|)
 # elementwise and relative L2 <= K6_REL_L2_TOL (the kernel rounds p to bf16 before P V).
 K6_TOL = 2e-2
@@ -243,8 +269,10 @@ SMOKE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
 WAN_PATH_KEYS = ("k7a", "k7b", "k7c", "fused_bwd", "ops", "ops_attn", "ops_narrow", "accum")
 SWITCHES = ("FINETRAINERS_FLASH_FUSED_BWD", "FINETRAINERS_FLASH_TWOPASS", "FINETRAINERS_FLASH_SKEW",
             "FINETRAINERS_FLASH_TWOLEVEL")
-# The kernels whose ptxas record must show no spill: K5 and K7a-c (their consumers run at 240 and 160 registers).
-NO_SPILL_KERNELS = ("bwd_fused_sm90_kernel", "flash_fwd_twopass_sm90_kernel", "flash_fwd_two_level_sm90_kernel",
+# The kernels whose ptxas record must show no spill: the eight wgmma kernels K1, K2, K3, K5, K6 and K7a-c
+# (their consumers run at 240 and 160 registers).
+NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "bwd_dkdv_sm90_kernel", "bwd_dq_sm90_kernel", "sage_fwd_sm90_kernel",
+                    "bwd_fused_sm90_kernel", "flash_fwd_twopass_sm90_kernel", "flash_fwd_two_level_sm90_kernel",
                     "flash_fwd_skew_sm90_kernel")
 # H100 SXM dense peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
@@ -516,6 +544,7 @@ def check_k1(card):
         "ragged_empty_row": dict(b=2, n=32, sq=1000, skv=77, h=64, lens=[50, 0], rope=None),
         "wan_train_cross_kv_lens": dict(b=1, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[512], rope=None),
         "wan_serve_cross_kv_lens": dict(b=2, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[512, 9], rope=None),
+        "wan_run_cross_kv_lens": dict(b=1, n=12, sq=WAN_RUN_TOKENS, skv=512, h=128, lens=[512], rope=None),
     }
     worst, records = 0.0, {}
     for name, c in cases.items():
@@ -600,6 +629,9 @@ def check_k2k3(card):
         "h128_shared_rope": dict(b=1, n=12, sq=4096, skv=4096, h=128, lens=None, rope="shared"),
         "wan_train_self_shared_rope": dict(b=1, n=12, sq=WAN_TOKENS, skv=WAN_TOKENS, h=128, lens=None, rope="wan"),
         "wan_train_cross_kv_lens": dict(b=1, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[512], rope=None),
+        "wan_run_self_shared_rope": dict(b=1, n=12, sq=WAN_RUN_TOKENS, skv=WAN_RUN_TOKENS, h=128, lens=None,
+                                         rope="wan_run"),
+        "wan_run_cross_kv_lens": dict(b=1, n=12, sq=WAN_RUN_TOKENS, skv=512, h=128, lens=[512], rope=None),
     }
     worst = {"prep": 0.0, "k2": 0.0, "k3": 0.0}
     records = {}
@@ -692,9 +724,9 @@ def check_k2k3(card):
     return worst, records
 
 
-def wan_tables():
-    """Wan's expanded (S, 128) fp32 RoPE tables at the serving grid, as the model builds them."""
-    return WanRotaryPosEmbed(128)(*WAN_GRID, torch.device("cuda"))
+def wan_tables(grid=WAN_GRID):
+    """Wan's expanded (S, 128) fp32 RoPE tables at `grid` (the serving grid by default), as the model builds them."""
+    return WanRotaryPosEmbed(128)(*grid, torch.device("cuda"))
 
 
 def k6_bound(n, sq, kv_eff, h, q_rows):
@@ -797,51 +829,59 @@ def check_k6(card):
 
 
 def check_k1_wan(card):
-    """The pre-pass and K1 at Wan's self-attention shape (B=2, N=12, S=19968,
-    H=128, one (S, H) table pair shared by every head) against their plain
-    version, run one head at a time (all heads at once would need ~100 GB of
-    fp32 scores); K1 is timed alone and with its pre-pass."""
+    """The pre-pass and K1 at Wan's self-attention shapes with one (S, H)
+    table pair shared by every head, against their plain version run one head
+    at a time (all heads at once would need ~100 GB of fp32 scores): serving
+    (B=2, S=19968) and the example's bucket (B=1, S=20280, whose last q and kv
+    tiles hold 56 rows); K1 is timed alone and with its pre-pass. Returns the
+    worst error and the records by case."""
     g = torch.Generator(device="cuda").manual_seed(8)
-    b, n, s, h = 2, 12, WAN_TOKENS, 128
-    q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
-               for _ in range(3))
-    cos, sin = (t[None].contiguous() for t in wan_tables())
-    out, lse = flash_forward(q, k, v, None, cos, sin)
-    torch.cuda.synchronize()
+    cases = {"wan_self_rope_shared_tables": (2, WAN_GRID), "wan_run_self_rope_shared_tables": (1, WAN_RUN_GRID)}
+    worst, records = 0.0, {}
+    for name, (b, grid) in cases.items():
+        n, s, h = 12, grid[0] * grid[1] * grid[2], 128
+        q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
+                   for _ in range(3))
+        cos, sin = (t[None].contiguous() for t in wan_tables(grid))
+        out, lse = flash_forward(q, k, v, None, cos, sin)
+        torch.cuda.synchronize()
 
-    def plain():
-        ref, ref_lse = torch.empty_like(out), torch.empty_like(lse)
-        for bi in range(b):
-            for ni in range(n):
-                o, l_ = flash_attention_reference(q[bi:bi + 1, ni:ni + 1], k[bi:bi + 1, ni:ni + 1],
-                                                  v[bi:bi + 1, ni:ni + 1], None, cos, sin)
-                ref[bi, ni], ref_lse[bi, ni] = o[0, 0], l_[0, 0]
-        return ref, ref_lse
+        def plain():
+            ref, ref_lse = torch.empty_like(out), torch.empty_like(lse)
+            for bi in range(b):
+                for ni in range(n):
+                    o, l_ = flash_attention_reference(q[bi:bi + 1, ni:ni + 1], k[bi:bi + 1, ni:ni + 1],
+                                                      v[bi:bi + 1, ni:ni + 1], None, cos, sin)
+                    ref[bi, ni], ref_lse[bi, ni] = o[0, 0], l_[0, 0]
+            return ref, ref_lse
 
-    ref, ref_lse = plain()
-    err = (out.float() - ref.float()).abs()
-    max_abs = err.max().item()
-    norm_err = (err / ref.float().abs().clamp_min(1.0)).max().item()
-    lse_err = (lse - ref_lse).abs().max().item()
-    rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
-    q_s, k_r = flash_qk_prep(q, k, cos, sin, 0, h**-0.5)
-    ms = cuda_ms(lambda: flash_forward_core(q_s, k_r, v))
-    prep_ms = cuda_ms(lambda: flash_qk_prep(q, k, cos, sin, 0, h**-0.5))
-    forward_ms = cuda_ms(lambda: flash_forward(q, k, v, None, cos, sin))
-    plain_ms = cuda_ms(plain, iters=1, warmup=0)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa_ms = cuda_ms(lambda: attention_dispatch(qt, kt, vt, provider="native"))
-    flops = 4 * b * n * s * s * h
-    bound_ms, bound_by = k1_bound(b, n, s, b * s, h)
-    phase("k1_check", case="wan_self_rope_shared_tables", shape=[b, n, s, s, h], max_abs_err=max_abs,
-          err_over_max1_ref=norm_err, rel_l2=rel_l2, lse_max_abs_err=lse_err, ms=ms, prep_ms=prep_ms,
-          flash_forward_ms=forward_ms, plain_ms=plain_ms, sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms,
-          bound_by=bound_by, prep_bound_ms=qk_prep_bound(q, k, cos)[0], tflops=flops / ms / 1e9, card=card)
-    if not (norm_err <= K1_TOL and rel_l2 <= K1_REL_L2_TOL and lse_err <= LSE_TOL):
-        raise AssertionError(f"K1 disagrees with its reference at Wan's shape: {norm_err}, rel L2 {rel_l2} "
-                             f"or LSE {lse_err}")
-    return max_abs, dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         prep_ms=prep_ms, flash_forward_ms=forward_ms)
+        ref, ref_lse = plain()
+        err = (out.float() - ref.float()).abs()
+        max_abs = err.max().item()
+        norm_err = (err / ref.float().abs().clamp_min(1.0)).max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        q_s, k_r = flash_qk_prep(q, k, cos, sin, 0, h**-0.5)
+        ms = cuda_ms(lambda: flash_forward_core(q_s, k_r, v))
+        prep_ms = cuda_ms(lambda: flash_qk_prep(q, k, cos, sin, 0, h**-0.5))
+        forward_ms = cuda_ms(lambda: flash_forward(q, k, v, None, cos, sin))
+        plain_ms = cuda_ms(plain, iters=1, warmup=0)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_ms = cuda_ms(lambda: attention_dispatch(qt, kt, vt, provider="native"))
+        flops = 4 * b * n * s * s * h
+        bound_ms, bound_by = k1_bound(b, n, s, b * s, h)
+        phase("k1_check", case=name, shape=[b, n, s, s, h], max_abs_err=max_abs, err_over_max1_ref=norm_err,
+              rel_l2=rel_l2, lse_max_abs_err=lse_err, ms=ms, prep_ms=prep_ms, flash_forward_ms=forward_ms,
+              plain_ms=plain_ms, sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
+              prep_bound_ms=qk_prep_bound(q, k, cos)[0], tflops=flops / ms / 1e9, card=card)
+        if not (norm_err <= K1_TOL and rel_l2 <= K1_REL_L2_TOL and lse_err <= LSE_TOL):
+            raise AssertionError(f"K1 disagrees with its reference on {name}: {norm_err}, rel L2 {rel_l2} "
+                                 f"or LSE {lse_err}")
+        worst = max(worst, max_abs)
+        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             prep_ms=prep_ms, flash_forward_ms=forward_ms)
+        del q, k, v, q_s, k_r, out, ref, err, qt, kt, vt
+    return worst, records
 
 
 def _bwd_case_inputs(c, g):
@@ -854,8 +894,8 @@ def _bwd_case_inputs(c, g):
     cos = sin = None
     if c["rope"] == "ltx":
         cos, sin = ltx_tables(n, h)
-    elif c["rope"] == "wan":
-        cos, sin = (t[None].contiguous() for t in wan_tables())
+    elif c["rope"] in ("wan", "wan_run"):
+        cos, sin = (t[None].contiguous() for t in wan_tables(WAN_GRID if c["rope"] == "wan" else WAN_RUN_GRID))
     elif c["rope"] == "shared":
         ang = torch.rand(1, sq, h // 2, generator=g, device="cuda") * 6.3
         cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
@@ -1465,8 +1505,9 @@ def train(card):
                              for k_ in launches}):
         raise AssertionError("training check failed")
 
-    # K4's host cost in this host-bound step: the op against an autograd.Function around the same kernels.
-    k4_s, k4_us = k4_host_cost(trainer, batch, rounds=12)
+    # K4's host cost in this host-bound step: the op against an autograd.Function around the same kernels
+    # (6 rounds, cut from 12 to make room for the example's run).
+    k4_s, k4_us = k4_host_cost(trainer, batch, rounds=6)
     phase("train_k4_host_cost", card=card, order="interleaved, rotating by one each round",
           step_seconds=k4_s, median_step_s={glue: statistics.median(k4_s[glue]) for glue in K4_GLUES},
           call_us=k4_us, median_call_us={glue: statistics.median(k4_us[glue]) for glue in K4_GLUES},
@@ -1861,6 +1902,230 @@ def wan_train_accum_resume(card):
     return {"wan_train_accum": launches}
 
 
+# The Wan example's run through its command line (`python -m finetrainers_tpu_torch.train` with train.sh's flags):
+# 4 seeded videos at the example's bucket, 4 steps (cut from 3000) with a checkpoint every 2 and validation at 4
+# (one request of 2 denoising steps, cut from 50), against a run broken after 2 steps and resumed from "latest".
+TRAIN_SH = pathlib.Path(__file__).resolve().parent / "examples" / "training" / "sft" / "wan" / "crush_smol_lora"
+WAN_RUN_VIDEOS, WAN_RUN_STEPS, WAN_RUN_BROKEN_AT = 4, 4, 2
+WAN_RUN_SINGLE_CARD = ["--parallel_backend", "jax", "--pp_degree", "1", "--dp_degree", "1", "--dp_shards", "1",
+                       "--cp_degree", "1", "--tp_degree", "1"]
+# A train step at the example's bucket under "ops": K4 saved, so K1 runs in the forward only (30 self, 30 cross),
+# the pre-pass before each forward and backward, K2 and K3 in each backward, K2's reduce pass for cross-attention.
+WAN_RUN_STEP_LAUNCHES = dict(k1=2 * WAN_LAYERS, prep=4 * WAN_LAYERS, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS)
+WAN_RUN_REDUCE = WAN_LAYERS
+WAN_RUN_PATHS = ("wan_run", "wan_run_resumed")
+
+
+def train_sh_argv(**overrides):
+    """The flags train.sh passes to the trainer, its `*_cmd` arrays in the
+    order of its command, with the parallel layout replaced by one card's and
+    each flag of `overrides` set to its value (a list for several)."""
+    import shlex
+
+    text = (TRAIN_SH / "train.sh").read_text()
+    arrays = {name: shlex.split(" ".join(line.split("#")[0] for line in body.splitlines()))
+              for name, body in re.findall(r"^(\w+_cmd)=\(\n(.*?)^\)", text, re.M | re.S)}
+    argv = []
+    for name in re.findall(r'"\$\{(\w+_cmd)\[@\]\}"', text):
+        argv += WAN_RUN_SINGLE_CARD if name == "parallel_cmd" else arrays[name]
+    for flag, value in overrides.items():
+        values = [str(v) for v in (value if isinstance(value, list) else [value])]
+        if f"--{flag}" in argv:
+            i = argv.index(f"--{flag}")
+            argv[i + 1:i + 2] = values
+        else:
+            argv += [f"--{flag}", *values]
+    return argv
+
+
+def wan_run_data(root):
+    """4 seeded videos at 49x480x832 (mp4v, as the JAX package's tests write
+    them) with captions that start with a common LLM prefix, their
+    `metadata.csv`, the example's training.json pointing at them, and the
+    example's first validation prompt at 480x832x49 with 2 denoising steps.
+    Returns (training.json, validation.json)."""
+    import csv
+
+    import cv2
+
+    root.mkdir(parents=True, exist_ok=True)
+    frames, height, width = WAN_RUN_BUCKET
+    rng = np.random.RandomState(0)
+    rows = []
+    for i in range(WAN_RUN_VIDEOS):
+        writer = cv2.VideoWriter(str(root / f"clip{i}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 25, (width, height))
+        coarse = (rng.rand(frames, height // 32, width // 32, 3) * 255).astype(np.uint8)
+        for frame in coarse:
+            writer.write(cv2.resize(frame, (width, height), interpolation=cv2.INTER_LINEAR))
+        writer.release()
+        rows.append({"file_name": f"clip{i}.mp4", "caption": f"The video shows a hydraulic press crushing object {i}."})
+    with open(root / "metadata.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["file_name", "caption"])
+        w.writeheader()
+        w.writerows(rows)
+    training = json.loads((TRAIN_SH / "training.json").read_text())
+    training["datasets"][0]["data_root"] = str(root)
+    validation = json.loads((TRAIN_SH / "validation.json").read_text())
+    validation["data"] = [dict(validation["data"][0], num_inference_steps=2)]
+    (root / "training.json").write_text(json.dumps(training))
+    (root / "validation.json").write_text(json.dumps(validation))
+    return root / "training.json", root / "validation.json"
+
+
+def _jsonl(output_dir):
+    path = pathlib.Path(output_dir) / "logs" / "finetrainers-tpu-wan.jsonl"
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def _lora_and_moments(trainer):
+    state = trainer.optimizer.state_dict()["inner"]["state"]
+    return ({n: p.detach().clone() for n, p in trainer._trainable.items()},
+            [(m["exp_avg"].clone(), m["exp_avg_sq"].clone()) for m in state.values()])
+
+
+def wan_run(card):
+    """The Wan example's run through `finetrainers_tpu_torch.train.main` with
+    train.sh's flags (precompute once, "ops" remat, `transformer:ring`,
+    slicing and tiling, rank 32, the example's optimizer, bf16) at its own
+    49x480x832 bucket (20280 tokens): an unbroken 4-step run against one broken
+    after 2 steps and resumed from "latest" (LoRA factors and AdamW moments
+    bit-equal, the same sample ids each step). Each step's seconds, launches
+    and peak memory, the precompute and validation seconds, one step's
+    profile, and steps under `transformer:ring` and `transformer:auto` in
+    turns. Returns the launches of the unbroken and the resumed runs."""
+    from finetrainers_tpu_torch import train as train_cli
+
+    t0 = time.perf_counter()
+    training_json, validation_json = wan_run_data(SMOKE_DIR / "wan_run_data")
+    data_s = time.perf_counter() - t0
+    unbroken_dir, broken_dir = SMOKE_DIR / "wan_run_unbroken", SMOKE_DIR / "wan_run_broken"
+
+    def argv(output_dir, steps, *extra):
+        return train_sh_argv(dataset_config=training_json, validation_dataset_file=validation_json,
+                             output_dir=output_dir, report_to="jsonl", train_steps=steps, checkpointing_steps=2,
+                             precomputation_items=WAN_RUN_VIDEOS, validation_steps=4) + list(extra)
+
+    steps, validations, profiles = [], [], []
+    orig_step, orig_validate = SFTTrainer.train_step, SFTTrainer._validate
+
+    def counted_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        before, reduce_before, t = _counts(), flash_bwd_dkdv.reduce_launches, time.perf_counter()
+        if run[0] not in precompute_peaks:  # the peak of the model loads and the precompute before the first step
+            precompute_peaks[run[0]] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        out, profiled = [], run[0] == "resumed" and self.state.train_state.step == WAN_RUN_STEPS - 1
+        if profiled:  # the last step of the resumed run
+            profiles.append(profile_device(lambda: out.append(orig_step(self, *args, **kwargs))))
+        else:
+            out.append(orig_step(self, *args, **kwargs))
+        torch.cuda.synchronize()
+        after = _counts()
+        steps.append(dict(run=run[0], seconds=time.perf_counter() - t, profiled=profiled,
+                          launches={k_: after[k_] - before[k_] for k_ in after}, reduce=flash_bwd_dkdv.reduce_launches - reduce_before,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        return out[0]
+
+    def timed_validate(self, step, final=False):
+        torch.cuda.synchronize()
+        before, t = _counts(), time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        orig_validate(self, step, final)
+        torch.cuda.synchronize()
+        after = _counts()
+        validations.append(dict(run=run[0], step=step, final=final, seconds=time.perf_counter() - t,
+                                launches={k_: after[k_] - before[k_] for k_ in after if after[k_] != before[k_]},
+                                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+
+    run, precompute_peaks, launches = ["unbroken"], {}, {}
+    SFTTrainer.train_step, SFTTrainer._validate = counted_step, timed_validate
+    try:
+        torch.cuda.reset_peak_memory_stats()  # before each run: its model loads and precompute have their own peak
+        _zero_counts()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv(unbroken_dir, WAN_RUN_STEPS))
+        torch.cuda.synchronize()
+        unbroken_s, launches["wan_run"] = time.perf_counter() - t0, _counts()
+        unbroken = _lora_and_moments(trainer)
+        module = trainer.transformer.module
+        shape_ok = (sum(p.numel() for n, p in module.named_parameters() if n not in trainer._trainable) == WAN_PARAMS
+                    and len(module.blocks) == WAN_LAYERS and module.gradient_checkpointing == "ops")
+        SFTTrainer.train_step = orig_step
+        # One batch of the run's precomputed items, then steps under the example's provider and under "auto",
+        # in turns.
+        spec = trainer.model_specification
+        precomputed = unbroken_dir / "precomputed" / PRECOMPUTED_DIR_NAME
+        items = [dict(np.load(precomputed / f"{kind}-0.npz")) for kind in ("condition", "latent")]
+        batch = to_device((spec.collate_conditions([items[0]]), spec.collate_latents([items[1]])),
+                          torch.device("cuda"))
+        provider_s = {"ring": [], "auto": []}
+        for provider in ("ring", "auto") * 3:
+            trainer.attn_provider_training = {"transformer": provider}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trainer.train_step(*batch)
+            torch.cuda.synchronize()
+            provider_s[provider].append(time.perf_counter() - t)
+        latent_shape = list(batch[1]["latents"].shape)
+        del trainer, batch, module, spec
+        torch.cuda.empty_cache()
+
+        SFTTrainer.train_step = counted_step
+        run[0] = "broken"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.main(argv(broken_dir, WAN_RUN_BROKEN_AT))
+        torch.cuda.empty_cache()
+        run[0] = "resumed"
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        trainer = train_cli.main(argv(broken_dir, WAN_RUN_STEPS, "--resume_from_checkpoint", "latest"))
+        torch.cuda.synchronize()
+        broken_s, launches["wan_run_resumed"] = time.perf_counter() - t0, _counts()
+        resumed = _lora_and_moments(trainer)
+        resumed_saved = trainer.checkpointer.all_steps()
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        SFTTrainer.train_step, SFTTrainer._validate = orig_step, orig_validate
+
+    unbroken_log, broken_log = _jsonl(unbroken_dir), _jsonl(broken_dir)
+    ids = [[e["train/sample_ids"] for e in log if "train/sample_ids" in e] for log in (unbroken_log, broken_log)]
+    lora_equal = all(torch.equal(p, unbroken[0][n]) for n, p in resumed[0].items())
+    moments_equal = len(resumed[1]) == len(unbroken[1]) == len(resumed[0]) and all(
+        torch.equal(a, b) for pair, ref in zip(resumed[1], unbroken[1]) for a, b in zip(pair, ref))
+    want = {k_: WAN_RUN_STEP_LAUNCHES.get(k_, 0) for k_ in _COUNTED}
+    step_launches_ok = all(st["launches"] == want and st["reduce"] == WAN_RUN_REDUCE for st in steps)
+    validation_want = 2 * WAN_LAYERS * 2  # self and cross a block, 2 denoising steps, CFG in one batch
+    validations_ok = all(v["launches"] == {"k1": validation_want, "prep": validation_want} for v in validations)
+    timed = [st["seconds"] for st in steps if st["run"] == "unbroken"][1:]
+    prof = profiles[0]
+    precompute_s = next(e["timing/precompute"] for e in unbroken_log if "timing/precompute" in e)
+    phase("wan_run", card=card, entry="python -m finetrainers_tpu_torch.train", argv=argv(unbroken_dir,
+          WAN_RUN_STEPS), bucket=list(WAN_RUN_BUCKET), tokens=WAN_RUN_TOKENS, latents_shape=latent_shape,
+          published_shape=shape_ok, data_write_s=data_s, precompute_s=precompute_s,
+          precompute_s_per_item=precompute_s / WAN_RUN_VIDEOS, load_and_precompute_peak_gb=precompute_peaks,
+          step_seconds={r: [st["seconds"] for st in steps if st["run"] == r] for r in ("unbroken", "broken", "resumed")},
+          median_step_s=statistics.median(timed), step_peak_gb=max(st["peak_gb"] for st in steps),
+          step_peaks_gb={r: [st["peak_gb"] for st in steps if st["run"] == r] for r in ("unbroken", "broken", "resumed")},
+          step_launches=steps[0]["launches"], step_reduce_passes=steps[0]["reduce"],
+          step_launches_all_exact=step_launches_ok,
+          profiled_step=dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+                             ms_by_class=dict(prof["classes"], **{c: sum(v) for c, v in prof["launches"].items()}),
+                             launches={c: len(v) for c, v in prof["launches"].items()}),
+          validations=validations, validations_launches_exact=validations_ok,
+          provider_step_s=provider_s, provider_median_s={p_: statistics.median(v) for p_, v in provider_s.items()},
+          unbroken_run_s=unbroken_s, broken_and_resumed_s=broken_s, sample_ids=ids[0],
+          resumed_sample_ids=ids[1], lora_bit_equal=lora_equal, adamw_moments_bit_equal=moments_equal,
+          resumed_checkpoints=resumed_saved, launches=launches)
+    losses = [e["train/global_avg_loss"] for e in unbroken_log if "train/global_avg_loss" in e]
+    if not (shape_ok and lora_equal and moments_equal and ids[0] == ids[1] and len(ids[0]) == WAN_RUN_STEPS
+            and step_launches_ok and validations_ok and all(np.isfinite(losses)) and len(validations) == 5
+            and resumed_saved == [2, 4] and latent_shape == [1, 32, *WAN_RUN_GRID[:1], 60, 104]):
+        raise AssertionError("the Wan example's run failed its checks")
+    return launches
+
+
 def env_phase():
     """Whether the media codecs the data stage decodes with import here (information, not a check)."""
     found = {}
@@ -1950,6 +2215,8 @@ def main():
     wan_paths = wan_train(card)
     torch.cuda.empty_cache()
     wan_paths.update(wan_train_accum_resume(card))
+    torch.cuda.empty_cache()
+    wan_paths.update(wan_run(card))
     shutil.rmtree(SMOKE_DIR)
     env_phase()
 
@@ -1980,7 +2247,8 @@ def main():
                      bwd["wan_train_self_shared_rope"][key],
                      launches_by_path={"train": train_launches[key], "wan_train": wan[key],
                                        **{f"wan_train_{p}": wan_paths[f"wan_train_{p}"][key]
-                                          for p in ("ops", "ops_attn", "ops_narrow", "accum")}},
+                                          for p in ("ops", "ops_attn", "ops_narrow", "accum")},
+                                       **{path: wan_paths[path][key] for path in WAN_RUN_PATHS}},
                      shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128],
                      device_ms=bwd["wan_train_self_shared_rope"][f"{key}_device_ms"],
                      by_case={case: dict(zip(fields, r[key]), device_ms=r[f"{key}_device_ms"])
@@ -1998,8 +2266,9 @@ def main():
               launches_by_path={"serve": serve_launches["k1"], "train": train_launches["k1"],
                                 "wan_serve_default_provider": wan_auto_launches["k1"], "wan_train": wan["k1"],
                                 **{f"wan_train_{key}": wan_paths[f"wan_train_{key}"]["k1"]
-                                   for key in WAN_PATH_KEYS}},
-              shape=[2, 32, 2688, 2688, 64], by_case=k1, wan_self_attention=k1_wan,
+                                   for key in WAN_PATH_KEYS},
+                                **{path: wan_paths[path]["k1"] for path in WAN_RUN_PATHS}},
+              shape=[2, 32, 2688, 2688, 64], by_case={**k1, **k1_wan},
               wan_train_self_attention=wan_shape(k5_wan["k1"]),
               library_note="torch SDPA forward, without the fused rotation"),
         entry("flash_qk_prep (the RoPE and q-scale pre-pass before K1, K7a, K7c, K2/K3 and K5)",
@@ -2010,7 +2279,8 @@ def main():
               launches_by_path={"serve": serve_launches["prep"], "train": train_launches["prep"],
                                 "wan_serve_default_provider": wan_auto_launches["prep"], "wan_train": wan["prep"],
                                 **{f"wan_train_{key}": wan_paths[f"wan_train_{key}"]["prep"]
-                                   for key in WAN_PATH_KEYS}},
+                                   for key in WAN_PATH_KEYS},
+                                **{path: wan_paths[path]["prep"] for path in WAN_RUN_PATHS}},
               shape_note="timed at LTX's train self-attention (1, 32, 2688, 64) with per-head tables"),
         bwd_entry("k2", "bwd_dkdv_sm90 (K2, wgmma + TMA, with its reduce pass where the q loop is split)",
                   "finetrainers_tpu/ops/flash_attention.py:888"),

@@ -1,4 +1,4 @@
-"""Validation artifacts (subset of `finetrainers_tpu/data/_artifact.py`)."""
+"""Validation artifacts (copied from `finetrainers_tpu/data/_artifact.py`)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,12 @@ class Artifact:
     value: Any = None
     file_extension: str = "bin"
     caption: Any = None  # prompt the sample was generated from
+
+
+@dataclasses.dataclass
+class ImageArtifact(Artifact):
+    type: str = "image"
+    file_extension: str = "png"
 
 
 @dataclasses.dataclass

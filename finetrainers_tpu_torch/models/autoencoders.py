@@ -196,7 +196,7 @@ class Encoder3d(nn.Module):
                 if hasattr(self, f"down_{i}_first_frame"):
                     # Causal temporal stride: frame 0 keeps its own (1, s, s) conv.
                     first = getattr(self, f"down_{i}_first_frame")(h[:, :, :1])
-                    h = torch.cat([first, down(h[:, :, 1:])], dim=2)
+                    h = torch.cat([first, down(h[:, :, 1:])], dim=2) if h.shape[2] > 1 else first
                 else:
                     h = down(h)
         for j in range(cfg.layers_per_block):
@@ -266,6 +266,59 @@ class AutoencoderKL3D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, _ = self.encode(x).chunk(2, dim=1)
         return self.decode(mean)
+
+
+def _encode(vae_handle: ModelHandle, x: torch.Tensor) -> torch.Tensor:
+    return vae_handle.module.encode(x)
+
+
+def encode_sliced(vae_handle: ModelHandle, x: torch.Tensor, slice_size: int = 1) -> torch.Tensor:
+    """Batch-sliced encode (--enable_slicing): `slice_size` samples at a time
+    (JAX autoencoders.py:212-221)."""
+    if x.shape[0] <= slice_size:
+        return _encode(vae_handle, x)
+    return torch.cat([_encode(vae_handle, x[i:i + slice_size]) for i in range(0, x.shape[0], slice_size)])
+
+
+def encode_tiled(vae_handle: ModelHandle, x: torch.Tensor, tile: int = 256, overlap: int = 32) -> torch.Tensor:
+    """Spatially tiled encode (--enable_tiling; JAX autoencoders.py:224-249):
+    `tile`-square patches every `tile - overlap` pixels, each encoded alone,
+    their moments summed where they overlap and divided by the count."""
+    b, _, _, h, w = x.shape
+    if h <= tile and w <= tile:
+        return _encode(vae_handle, x)
+    ratio = vae_handle.config.get("spatial_compression_ratio", 8)
+    stride = tile - overlap
+    out = weight = None
+    for y0 in range(0, max(h - overlap, 1), stride):
+        for x0 in range(0, max(w - overlap, 1), stride):
+            enc = _encode(vae_handle, x[:, :, :, y0:min(y0 + tile, h), x0:min(x0 + tile, w)])
+            if out is None:
+                lh, lw = h // ratio, w // ratio
+                out = torch.zeros((b, enc.shape[1], enc.shape[2], lh, lw), dtype=enc.dtype, device=enc.device)
+                weight = torch.zeros((1, 1, 1, lh, lw), dtype=enc.dtype, device=enc.device)
+            ly0, lx0 = y0 // ratio, x0 // ratio
+            out[:, :, :, ly0:ly0 + enc.shape[3], lx0:lx0 + enc.shape[4]] += enc
+            weight[:, :, :, ly0:ly0 + enc.shape[3], lx0:lx0 + enc.shape[4]] += 1.0
+    return out / weight.clamp_min(1.0)
+
+
+@torch.no_grad()
+def encode_media(vae_handle: ModelHandle, x: torch.Tensor, tile: int = 256, overlap: int = 32) -> torch.Tensor:
+    """Encode (B, C, T, H, W) media in [-1, 1] -> fp32 moments, honouring the
+    handle's `use_tiling` and `use_slicing` (JAX autoencoders.py:252-260)."""
+    if vae_handle.use_tiling and (x.shape[-2] > tile or x.shape[-1] > tile):
+        return encode_tiled(vae_handle, x, tile=tile, overlap=overlap)
+    if vae_handle.use_slicing and x.shape[0] > 1:
+        return encode_sliced(vae_handle, x)
+    return _encode(vae_handle, x)
+
+
+def media_to_vae_input(image, video, device: torch.device) -> torch.Tensor:
+    """An image (C, H, W) or video (T, C, H, W) in [-1, 1] (numpy or tensor)
+    -> the VAE's (1, C, T, H, W) fp32 input on `device`."""
+    media = torch.as_tensor(video if video is not None else image[None])
+    return media.to(device=device, dtype=torch.float32)[None].permute(0, 2, 1, 3, 4).contiguous()
 
 
 def sample_from_moments(moments: torch.Tensor, generator: Optional[torch.Generator] = None,

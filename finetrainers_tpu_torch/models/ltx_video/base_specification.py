@@ -5,22 +5,23 @@ Random weights only: neither a T5 nor an LTX VAE checkpoint exists for the
 port yet, so it serves with the same offline components the JAX package falls
 back to — `HashEncoder` for text and the generic `AutoencoderKL3D` with
 `LTX_VAE_CONFIG`. A local checkpoint directory for any component raises
-NotImplementedError instead of being ignored. `forward` trains on
-precomputed VAE moments; encoding media (`prepare_latents`) is not ported yet
-(ROADMAP.md queue 1 item 7).
+NotImplementedError instead of being ignored. `prepare_latents` encodes media
+into VAE moments, and `forward` trains on them.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...functional.diffusion import flow_match_target, flow_match_xt
 from ...logging import get_logger
 from ...processors import CaptionTextDropoutProcessor, HashEncoder, T5Processor
 from ...schedulers import FlowMatchEulerScheduler, load_scheduler
-from ..autoencoders import LTX_VAE_CONFIG, AutoencoderConfig, generic_vae, sample_from_moments
+from ..autoencoders import (LTX_VAE_CONFIG, AutoencoderConfig, encode_media, generic_vae, media_to_vae_input,
+                            sample_from_moments)
 from ..layers import init_parameters_
 from ..modeling_utils import ModelHandle, ModelSpecification
 from .transformer import LTXVideoTransformer3DModel, pack_latents
@@ -114,6 +115,31 @@ class LTXVideoModelSpecification(ModelSpecification):
             "encoder_hidden_states": data["encoder_hidden_states"],
             "encoder_attention_mask": data["encoder_attention_mask"],
         }
+
+    def prepare_latents(self, vae: ModelHandle, image: Optional[np.ndarray] = None,
+                        video: Optional[np.ndarray] = None, compute_posterior: bool = False,
+                        **kwargs) -> Dict[str, Any]:
+        """Media -> {"latents": the VAE's moments (1, 2C, F', H', W'), fp32 on
+        the VAE's device; "latents_mean"/"latents_std" (C,) numpy}: an image
+        (C, H, W) or a video (T, C, H, W) in [-1, 1] through `encode_media`
+        (JAX base_specification.py, `prepare_latents`). The trainer samples
+        the posterior in `forward`, so `compute_posterior` must stay False."""
+        if compute_posterior:
+            raise NotImplementedError("the port precomputes VAE moments only (compute_posterior=False)")
+        device = next(vae.module.parameters()).device
+        return {
+            "latents": encode_media(vae, media_to_vae_input(image, video, device)),
+            "latents_mean": vae.config["latents_mean"],
+            "latents_std": vae.config["latents_std"],
+        }
+
+    def collate_latents(self, data: List[Dict[str, Any]]) -> Dict[str, Any]:
+        """The moments joined on the batch dim; the channel statistics, equal
+        across samples, stay (C,)."""
+        out = super().collate_latents(data)
+        out["latents_mean"] = np.asarray(data[0]["latents_mean"]).reshape(-1)
+        out["latents_std"] = np.asarray(data[0]["latents_std"]).reshape(-1)
+        return out
 
     # ---------------------------------------------------------------- training
     def forward(

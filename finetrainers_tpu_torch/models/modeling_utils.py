@@ -13,18 +13,33 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
 
 import torch
 import torch.nn as nn
 
 
+# Keys that collation takes from the first sample instead of stacking.
+IGNORE_KEYS_FOR_COLLATION = ["height", "width", "num_frames", "frame_rate", "rope_interpolation_scale"]
+
+
 @dataclasses.dataclass
 class ModelHandle:
-    """A model component: module + config dict."""
+    """A model component: module + config dict, with the VAE's memory-bounded
+    encode modes (`autoencoders.encode_media`; JAX modeling_utils.py:48-60)."""
 
     module: nn.Module
     config: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    use_slicing: bool = False
+    use_tiling: bool = False
+
+    def enable_slicing(self) -> None:
+        self.use_slicing = True
+
+    def enable_tiling(self) -> None:
+        self.use_tiling = True
 
 
 class ModelSpecification:
@@ -77,6 +92,20 @@ class ModelSpecification:
     # ------------------------------------------------------------ data prep
     def prepare_conditions(self, **kwargs) -> Dict[str, Any]:
         raise NotImplementedError
+
+    def prepare_latents(self, **kwargs) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def collate_conditions(self, data: List[Dict[str, Any]]) -> Dict[str, Any]:
+        return _default_collate(data)
+
+    def collate_latents(self, data: List[Dict[str, Any]]) -> Dict[str, Any]:
+        return _default_collate(data)
+
+    @property
+    def _resolution_dim_keys(self) -> Dict[str, Tuple[int, ...]]:
+        """The leader tensor and the dims the resolution sampler buckets by."""
+        return {"latents": (2, 3, 4)}
 
     # ---------------------------------------------------------------- training
     def forward(self, transformer: ModelHandle, condition_model_conditions: Dict[str, torch.Tensor],
@@ -131,3 +160,22 @@ class ModelSpecification:
             if candidate and os.path.isdir(candidate) and os.path.exists(os.path.join(candidate, "config.json")):
                 return candidate
         return None
+
+
+def _default_collate(data: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Join the samples' arrays (numpy or tensors) on the batch dim, except
+    IGNORE_KEYS_FOR_COLLATION and scalars, which come from the first sample
+    (copied from `finetrainers_tpu/models/modeling_utils.py:406-427`): arrays
+    with a leading batch dim of 1 are concatenated, others stacked."""
+    out: Dict[str, Any] = {}
+    for key in (data[0] if data else {}):
+        values = [d[key] for d in data]
+        first = values[0]
+        if key in IGNORE_KEYS_FOR_COLLATION or getattr(first, "ndim", 0) == 0:
+            out[key] = first
+        elif isinstance(first, torch.Tensor):
+            out[key] = torch.cat(values) if first.shape[0] == 1 else torch.stack(values)
+        else:
+            arrays = [np.asarray(v) for v in values]
+            out[key] = np.concatenate(arrays) if arrays[0].shape[0] == 1 else np.stack(arrays)
+    return out

@@ -21,6 +21,11 @@ Providers:
   * "_native_math": explicit fp32 softmax, the numerics reference;
     differentiable by autograd through its math.
   * "native": torch SDPA, kept only as a comparison baseline, never the default.
+  * "ring" and "ulysses": their single-device branches, K4 and "auto" (one
+    card has no context-parallel region, and the parallel degrees above 1
+    raise at the command line; queue 1 item 10). Neither rotates in a
+    kernel, so the dispatcher rotates q and k before the call, as the JAX
+    dispatcher does.
 
 Every other provider name the CLI accepts (`finetrainers_tpu/args.py`) stays
 registered and raises NotImplementedError naming its ROADMAP.md item.
@@ -275,6 +280,22 @@ for _name in _SAGE_NAMES:
     _AttentionProviderRegistry.register(_name)(_sage)
 
 
+@_AttentionProviderRegistry.register("ring")
+def _ring(query, key, value, attn_mask, is_causal, scale, kv_lens):
+    """Ring attention on one card, where no context-parallel region exists: the
+    JAX provider's branch outside one (`flash_attention`, JAX :620-622), so K4.
+    Not a fused-RoPE provider: the dispatcher has rotated q and k already."""
+    return _flash(query, key, value, attn_mask, is_causal, scale, kv_lens)
+
+
+@_AttentionProviderRegistry.register("ulysses")
+def _ulysses(query, key, value, attn_mask, is_causal, scale, kv_lens):
+    """Ulysses on one card: the JAX provider's branch outside a
+    context-parallel region (`_auto_attention`, JAX :679-680). q and k arrive
+    rotated, as for `ring`."""
+    return _auto_attention(query, key, value, attn_mask, is_causal, scale, kv_lens)
+
+
 def _register_unported(name: str, roadmap_item: str) -> None:
     def _unported(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs=None):
         raise NotImplementedError(
@@ -293,7 +314,5 @@ for _name, _item in {
     "_native_flash": "queue 1, attention dispatch (JAX alias providers)",
     "flash_varlen": "queue 2, K1 segment-id branch",
     "flex": "queue 2, K1 block-sparse mask branch",
-    "ring": "queue 1, parallel (ring attention)",
-    "ulysses": "queue 1, parallel (ulysses)",
 }.items():
     _register_unported(_name, _item)

@@ -60,7 +60,8 @@ Each kernel wrapper keeps a `launches` count (`flash_qk_prep`,
 `flash_bwd_dkdv`, `flash_bwd_dq`, `flash_bwd_fused`, `flash_bwd_dq_emit`; K1's
 launches, from `flash_forward` or `flash_forward_core`, count on
 `flash_forward`) of kernel launches, never of reference calls, so a run can
-show that its attention went through the kernels.
+show that its attention went through the kernels; `flash_bwd_dkdv` also counts
+the launches that ran its reduce pass (`reduce_launches`).
 """
 
 from __future__ import annotations
@@ -694,10 +695,12 @@ def flash_bwd_dkdv(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rop
             rope_sn, splits, per, _stream(q_s.device),
         )
     flash_bwd_dkdv.launches += 1
+    flash_bwd_dkdv.reduce_launches += splits > 1
     return dk, dv
 
 
 flash_bwd_dkdv.launches = 0
+flash_bwd_dkdv.reduce_launches = 0  # the launches that also ran the reduce pass
 
 
 def flash_bwd_dq(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn: int, scale: float):

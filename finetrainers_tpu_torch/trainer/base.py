@@ -1,6 +1,7 @@
 """Trainer base (port of `finetrainers_tpu/trainer/base.py`): train state,
-seeded randomness and the attention-provider context. One card, so no mesh
-or process group (the parallel modes are ROADMAP.md queue 1 item 14)."""
+seeded randomness, the matmul precision knobs and the attention-provider
+context. One card, so no mesh or process group (the parallel modes are
+ROADMAP.md queue 1 item 10)."""
 
 from __future__ import annotations
 
@@ -19,8 +20,11 @@ class Trainer:
         self.args = args
         self.model_specification = model_specification
         self.state = State()
+        args.check_ported()
         self.attn_provider_training = self._parse_attention_providers(args.attn_provider_training)
+        self.attn_provider_inference = self._parse_attention_providers(args.attn_provider_inference)
         self._init_determinism()
+        self._init_config_options()
 
     def _init_determinism(self) -> None:
         """The trainer's draws (sigmas, posterior samples, noise) come from one
@@ -28,6 +32,14 @@ class Trainer:
         seed = self.args.seed if self.args.seed is not None else 0
         self.state.generator_seed = seed
         self.generator = torch.Generator(device=self.model_specification.device).manual_seed(seed)
+
+    def _init_config_options(self) -> None:
+        """`--allow_tf32` and `--float32_matmul_precision` (JAX trainer/base.py:91-100)."""
+        if self.args.allow_tf32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+        if self.args.float32_matmul_precision != "highest":
+            torch.set_float32_matmul_precision(self.args.float32_matmul_precision)
 
     @staticmethod
     def _parse_attention_providers(mapping: Optional[List[str]]) -> Dict[str, str]:
@@ -39,9 +51,10 @@ class Trainer:
         return out
 
     @contextlib.contextmanager
-    def attention_provider_ctx(self, module: str = "transformer"):
-        """Activate the provider configured for training a module, if any."""
-        provider = self.attn_provider_training.get(module)
+    def attention_provider_ctx(self, module: str = "transformer", training: bool = True):
+        """Activate the provider configured for a module in training (or, with
+        `training=False`, in inference), if any."""
+        provider = (self.attn_provider_training if training else self.attn_provider_inference).get(module)
         if provider is None:
             yield
         else:

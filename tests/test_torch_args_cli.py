@@ -1,0 +1,165 @@
+"""The port's command line against the JAX package's.
+
+- `examples/training/sft/wan/crush_smol_lora/train.sh`'s argv, as bash expands
+  it, parses into the same value for every field the two `BaseArgs` share
+  (with the example's parallel layout replaced by one card's; dtypes by name),
+  with JAX's `train.py` registration (`SFTLowRankConfig`,
+  `AttentionProviderArgs`); the port also parses every default the same;
+- the example's own layout (FSDP x CP over 8 chips) and every other flag whose
+  feature the port lacks raise NotImplementedError naming a ROADMAP.md item
+  when given a value other than its default; none is ignored;
+- `--list_models` prints the registry and exits 0; unknown flags, LoRA flags
+  under full-rank training and a bad `--training_type` fail as in JAX;
+- the LoRA target regex: every LoRA layer trains (as in the JAX trainer), and
+  the trainer warns once where an explicit `--target_modules` selects fewer
+  layers (train.sh's leaves the feed-forward layers out), not for the default.
+"""
+
+import logging
+import os
+import pathlib
+import subprocess
+
+import pytest
+import torch
+
+from finetrainers_tpu.args import AttentionProviderArgs as JaxAttentionArgs
+from finetrainers_tpu.args import BaseArgs as JaxArgs
+from finetrainers_tpu.trainer.sft_trainer import SFTFullRankConfig, SFTLowRankConfig
+from finetrainers_tpu_torch import get_model_specification_cls, train
+from finetrainers_tpu_torch.args import DTYPES, BaseArgs
+from finetrainers_tpu_torch.trainer import SFTTrainer
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+TRAIN_SH = REPO / "examples" / "training" / "sft" / "wan" / "crush_smol_lora" / "train.sh"
+REQUIRED = ["--pretrained_model_name_or_path", "x", "--dataset_config", "d.json"]
+TINY = dict(in_channels=4, out_channels=4, patch_size=(1, 2, 2), num_attention_heads=2, attention_head_dim=64,
+            num_layers=1, ffn_dim=64, text_dim=32, freq_dim=16)
+
+
+def _train_sh_argv(tmp_path):
+    """The arguments train.sh passes to `python train.py`, expanded by bash."""
+    script = 'python() { shift; printf "%s\\0" "$@"; }; source "$0"'
+    res = subprocess.run(["bash", "-c", script, str(TRAIN_SH)], capture_output=True, text=True, cwd=REPO,
+                         env={**os.environ, "HOME": str(tmp_path)}, timeout=60)
+    assert res.returncode == 0, res.stderr
+    return res.stdout.split("\0")[:-1]
+
+
+def _one_card(argv):
+    argv = list(argv)
+    for flag in ("--pp_degree", "--dp_degree", "--dp_shards", "--cp_degree", "--tp_degree"):
+        argv[argv.index(flag) + 1] = "1"
+    return argv
+
+
+def _jax_args(argv, training_type="lora"):
+    args = JaxArgs()
+    args.register_args(JaxAttentionArgs())
+    args.register_args(SFTLowRankConfig() if training_type == "lora" else SFTFullRankConfig())
+    return args.parse_args(argv)
+
+
+def _dtype_name(value):
+    for name, dtype in DTYPES.items():
+        if value == dtype:
+            return name
+    from finetrainers_tpu.args import _DTYPE_MAP
+
+    for name, dtype in _DTYPE_MAP.items():
+        if value == dtype:
+            return name
+    return value
+
+
+def _assert_same_fields(ours, ref):
+    shared = [name for name in vars(BaseArgs()) if name != "device" and hasattr(ref, name)]
+    assert len(shared) >= 97, len(shared)  # 100 under LoRA training
+    for name in shared:
+        got, want = getattr(ours, name), getattr(ref, name)
+        if isinstance(got, torch.dtype):
+            got, want = _dtype_name(got), _dtype_name(want)
+        assert got == want, (name, got, want)
+
+
+def test_train_sh_parses_as_jax_parses_it(tmp_path):
+    argv = _train_sh_argv(tmp_path)
+    assert "--attn_provider_training" in argv and argv[argv.index("--cp_degree") + 1] == "2"
+    ours = BaseArgs().parse_args(_one_card(argv))
+    _assert_same_fields(ours, _jax_args(_one_card(argv)))
+    assert ours.attn_provider_training == ["transformer:ring"] and ours.device == "cuda"
+    assert ours.target_modules == "blocks.*(to_q|to_k|to_v|to_out.0)" and ours.transformer_dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1 item 10"):
+        BaseArgs().parse_args(argv)  # the example's 8-chip FSDP x CP layout
+
+
+@pytest.mark.parametrize("training_type", ["lora", "full-finetune"])
+def test_defaults_parse_as_jax(training_type):
+    argv = REQUIRED + ["--training_type", training_type]
+    _assert_same_fields(BaseArgs().parse_args(argv), _jax_args(argv, training_type))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--steps_per_dispatch", "2"], ["--cp_degree", "2"], ["--dp_shards", "8"], ["--pp_degree", "2"],
+    ["--pp_microbatches", "4"], ["--nccl_timeout", "60"], ["--optimizer", "adamw-bnb-8bit"],
+    ["--layerwise_upcasting_modules", "transformer"], ["--layerwise_upcasting_storage_dtype", "int8"],
+    ["--compile_modules", "transformer"], ["--compile_scopes", "regional"], ["--precomputation_reuse"],
+    ["--push_to_hub"], ["--hub_model_id", "me/model"], ["--tokenizer_id", "t5"], ["--revision", "main"],
+    ["--cache_dir", "c"], ["--flow_resolution_shifting"], ["--beta3", "0.9"], ["--enable_model_cpu_offload"],
+], ids=lambda flags: flags[0].lstrip("-"))
+def test_unported_flag_raises_naming_its_roadmap_item(flags):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item \d+"):
+        BaseArgs().parse_args(REQUIRED + ["--training_type", "lora"] + flags)
+    _jax_args(REQUIRED + flags)  # the JAX package takes each of them
+
+
+def test_control_training_raises_and_list_models_exits(capsys):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.main(REQUIRED + ["--model_name", "wan", "--training_type", "control-lora", "--device", "cpu"])
+    with pytest.raises(ValueError, match="--training_type"):
+        train.main(REQUIRED + ["--model_name", "wan", "--training_type", "sft"])
+    with pytest.raises(SystemExit) as exit_info:
+        train.main(["--list_models"])
+    assert exit_info.value.code == 0
+    out = capsys.readouterr().out
+    assert "wan: ['full-finetune', 'lora']" in out and "ltx_video" in out
+    with pytest.raises(SystemExit):
+        BaseArgs().parse_args(REQUIRED + ["--training_type", "full-finetune", "--rank", "4"])
+    with pytest.raises(SystemExit):
+        BaseArgs().parse_args(REQUIRED + ["--no_such_flag"])
+    with pytest.raises(ValueError, match="not supported for training"):
+        BaseArgs().parse_args(REQUIRED + ["--attn_provider_training", "transformer:sage"])
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+@pytest.mark.parametrize("regex,warns", [("blocks.*(to_q|to_k|to_v|to_out.0)", True), (None, False)],
+                         ids=["train_sh", "default"])
+def test_target_modules_warning(regex, warns):
+    spec = get_model_specification_cls("wan", "lora")(device="cpu", transformer_config=TINY,
+                                                      transformer_dtype=torch.float32)
+    args = BaseArgs(training_type="lora", rank=4, lora_alpha=4, **({} if regex is None else {"target_modules": regex}))
+    trainer = SFTTrainer(args, spec)
+    records = _Records()
+    logger = logging.getLogger("finetrainers_tpu_torch.trainer.sft_trainer.trainer")
+    logger.addHandler(records)
+    try:
+        trainer.prepare()
+    finally:
+        logger.removeHandler(records)
+    warnings = [m for m in records.messages if "--target_modules" in m]
+    assert len(warnings) == int(warns), records.messages
+    assert len(trainer._trainable) == 10 * 2  # every LoRA layer of the block trains, the feed-forward ones too
+    if warns:
+        trained = sum(p.numel() for p in trainer._trainable.values())
+        attention = sum(p.numel() for n, p in trainer._trainable.items() if ".ffn." not in n)
+        assert f"{trained:,} parameters trained against {attention:,} selected" in warnings[0]

@@ -4,7 +4,9 @@ Same numpy inputs through the JAX package's `attention_dispatch(provider=
 "_native_math")` and the port's `attention_dispatch` under `auto`, `flash` and
 `_native_math`, with and without fused RoPE tables, in fp32 at atol 2e-5 and
 rtol 1e-5 (fp32 sums in another order). Also: every provider name the CLI
-accepts is registered, and the unported ones raise NotImplementedError.
+accepts is registered, and the unported ones raise NotImplementedError (for
+`ring` and `ulysses`, which run their single-device branches, the
+context-parallel degree that would need their other branch).
 """
 
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import torch
 
 from finetrainers_tpu.args import AttentionProviderTraining, AttentionProviderValidation
 from finetrainers_tpu.ops import attention_dispatch as jax_attention_dispatch
+from finetrainers_tpu_torch.args import BaseArgs
 from finetrainers_tpu_torch.ops import attention_dispatch, attention_provider, get_active_provider, list_providers
 
 torch.set_num_threads(1)
@@ -23,6 +26,8 @@ SAGE = ("sage", "sage_varlen", "_sage_qk_int8_pv_fp16_cuda", "_sage_qk_int8_pv_f
         "_sage_qk_int8_pv_fp8_cuda", "_sage_qk_int8_pv_fp8_cuda_sm90")
 PORTED = ("auto", "flash", "tpu_flash", "_native_math", "native", *SAGE)
 UNPORTED = sorted(set(AttentionProviderValidation) - set(PORTED))
+# Their single-device branches are ported; their context-parallel branches are not.
+CP_PROVIDERS = ("ring", "ulysses")
 
 
 def _qkv(b, sq, skv, n, h, seed=0):
@@ -86,6 +91,12 @@ def test_every_cli_provider_is_registered():
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_provider_raises(name):
+    if name in CP_PROVIDERS:
+        # Ported outside a context-parallel region (tests/test_torch_ring_ulysses.py); the degree that would
+        # open one is what raises.
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            BaseArgs(cp_degree=2, attn_provider_training=[f"transformer:{name}"]).check_ported()
+        return
     q = torch.zeros(1, 8, 2, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         attention_dispatch(q, q, q, provider=name)

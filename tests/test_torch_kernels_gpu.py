@@ -786,3 +786,43 @@ def test_k1_launches_per_block_under_each_remat_policy(policy, k1_per_block):
     full_grad = torch.cat([p.grad.float().flatten() for p in trainer._trainable.values()])
     assert torch.equal(loss, full_loss)
     assert ((grad - full_grad).norm() / full_grad.norm()).item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [None, "shared"])
+def test_k1_k2_k3_ragged_last_tile_at_h128(rope):
+    """K1, the pre-pass, K2 and K3 at H=128 where Sq = Skv = 1080 = 8 * 128 + 56,
+    so the last q tile and the last kv tile hold 56 rows (the Wan example's
+    bucket, 20280 tokens, leaves the same 56): self-attention without kv_lens,
+    against `flash_attention_reference` and `flash_backward_reference` on the
+    same inputs, with K1's and the backward's bounds (out within 2e-2 *
+    max(1, |ref|), LSE within 1e-2; gradients relative L2 <= 1e-2 and max error
+    <= 2e-2 of max |ref|), the last tile's rows also on their own. Each input
+    is a view into a buffer whose rows past the sequence hold large values,
+    which no kernel may read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    b, n, s, h, pad = 1, 4, 1080, 128, 72
+    # BTNH buffers with `pad` rows past the sequence holding large values, viewed as BNSH [:s].
+    bufs = [torch.randn(b, s + pad, n, h, device="cuda", generator=g).to(torch.bfloat16) for _ in range(4)]
+    for buf in bufs:
+        buf[:, s:] = 3e4
+    q, k, v, do = (buf[:, :s].transpose(1, 2) for buf in bufs)
+    cos, sin = _tables(rope, n, s, h, g)
+    out, lse = flash_forward(q, k, v, None, cos, sin)
+    ref, ref_lse = flash_attention_reference(q, k, v, None, cos, sin)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    assert torch.isfinite(out).all() and (err / ref.float().abs().clamp_min(1.0)).max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-2
+    grads = flash_backward(q, k, v, out, lse, do, None, cos, sin)
+    refs = flash_backward_reference(q, k, v, out, lse, do, None, cos, sin)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        assert torch.isfinite(got).all(), name
+        rel_l2, max_ratio = _rel_errors(got, want)
+        assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, rope, rel_l2, max_ratio)
+        # The last tile's 56 rows on their own: a store or a load past the sequence would show here first.
+        rel_l2, max_ratio = _rel_errors(got[:, :, 1024:], want[:, :, 1024:])
+        assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, rope, "last tile", rel_l2, max_ratio)

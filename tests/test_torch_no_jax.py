@@ -7,8 +7,12 @@ import raise; the port writes safetensors files itself) and replaces
 `finetrainers_tpu_torch`, the training slice's (trainer, optimizer, LoRA,
 remat, diffusion math, the K4 op, checkpoints, the safetensors writer) and
 the Wan serving slice's (int8 attention, Wan transformer, spec, pipeline)
-among them. Any import of a blocked package, any `nvcc` run and
-any kernel library loaded during import fails the test.
+and the data stage's (datasets, loader, sampler, precompute, prefetch,
+trackers, the command line `finetrainers_tpu_torch.train`) among them. Any
+import of a blocked package, any `nvcc` run and any kernel library loaded
+during import fails the test. A second fresh interpreter blocks nothing,
+imports every module and finds neither `jax` nor `finetrainers_tpu` in
+`sys.modules` afterwards.
 """
 
 import pathlib
@@ -37,7 +41,10 @@ assert not _build._LIBS, f"kernel libraries loaded at import: {list(_build._LIBS
 training = {"finetrainers_tpu_torch." + m for m in (
     "ops.flash_attention", "trainer.sft_trainer.trainer", "trainer.base", "optimizer", "lora", "args", "state",
     "utils.activation_checkpoint", "functional.diffusion", "ops.sage_attention", "models.wan.transformer",
-    "models.wan.base_specification", "models.wan.pipeline", "checkpoint", "utils.serialization")}
+    "models.wan.base_specification", "models.wan.pipeline", "checkpoint", "utils.serialization",
+    "train", "constants", "trackers", "functional.text", "functional.image", "functional.video", "data.utils",
+    "data.dataset", "data.sampler", "data.precomputation", "data.dataloader", "data.prefetch",
+    "models.autoencoders", "utils.memory", "utils.timing", "utils.hub")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
 print(len(names))
 """
@@ -48,6 +55,24 @@ def test_port_imports_without_jax_and_builds_nothing():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) > 20
+
+
+_UNBLOCKED_PROBE = r"""
+import importlib, pkgutil, sys
+import finetrainers_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+import finetrainers_tpu_torch.train
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu"))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_port_leaves_jax_and_the_jax_package_out_of_sys_modules():
+    res = subprocess.run([sys.executable, "-c", _UNBLOCKED_PROBE], cwd=REPO_ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0 and res.stdout.split()[-1] == "ok", res.stderr
 
 
 def test_no_jax_import_lines_in_port_sources():

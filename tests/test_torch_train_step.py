@@ -216,7 +216,7 @@ def test_train_loop_advances_the_state(tmp_path):
     assert all(np.isfinite(state.global_avg_losses)) and len(state.global_max_losses) == 2
     assert trainer.optimizer.count == 2
     assert trainer.checkpointer.all_steps() == [2]  # the save at the end of the run
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+    with pytest.raises(ValueError, match="dataset_config"):  # run() trains from a dataset, train() from batches
         trainer.run()
 
 
