@@ -2,8 +2,10 @@
 the LTX-Video LoRA training step, Wan 2.1 T2V-1.3B serving under the int8
 `sage` attention provider and the Wan 2.1 T2V-1.3B LoRA training step, with
 every kernel switch of the flash attention, every remat policy, gradient
-accumulation, checkpoint/resume and the LoRA export, and the Wan example's
-run through its command line, from videos on disk.
+accumulation, checkpoint/resume and the LoRA export, the Wan example's
+run through its command line, from videos on disk, and Wan 2.1 I2V-14B at
+full width: LoRA training, then image-to-video serving through the inference
+runner with the exported adapter and UniPC at 81x480x832.
 
     python3 chip_smoke.py
 
@@ -131,13 +133,40 @@ Phases, each printed on its own line:
      120 times. Precompute seconds per item, step seconds, peak memory,
      validation seconds, a profile of one step (idle share) and steps under
      `transformer:ring` and `transformer:auto` in turns;
-  12. `env`: whether `cv2` and `PIL` import on this machine (information only).
+  12. Wan 2.1 I2V-14B at full width (`WAN_I2V_14B_CONFIG`: 40 blocks, 40 heads
+     x 128, ffn 13824, in_channels 36, image_dim 1280; 16,419,458,624
+     parameters, built on the card in bf16): `wan_i2v_train`, LoRA rank 32
+     (179,568,640 trainable) with the example's optimizer and "full" remat on
+     seeded moments, condition moments and mask at 49x480x832 (20280 tokens)
+     and 512 caption tokens, one warm-up and 3 timed steps through `train`
+     (K1 160, the pre-pass 240, K2 and K3 80 launches a step and no reduce
+     pass: K2 splits its q loop only where a call's kv-tile CTAs are fewer
+     than the SMs, and 40 heads give 160), the adapter export and a profiled
+     step; then
+     `wan_i2v_serve`, one image-to-video request through
+     `finetrainers_tpu_torch.inference.main` (a PNG first frame written with
+     cv2, CFG 5.0, 2 UniPC steps of 50 read from a scheduler config written
+     as the public I2V-14B-480P checkpoint names it, the exported adapter):
+     a finite (81, 480, 832, 3) video, K1 and the pre-pass 80 times a step
+     (the image branch is not wired, as in JAX), request, step, VAE encode and
+     decode seconds and the peak; then `wan_i2v_image_branch`, a `WanPipeline`
+     built with the image encoder: one step under `auto` (K1 120 a step, 40 of
+     them over the 257 image keys) and one under `sage` (K6 120), each timed
+     and profiled, the sage step within 0.1 of the auto step. The kernel
+     checks above include the new shapes: K1 and K6 at (2, 40, 32760, 32760,
+     128) (the sage pre-pass's codes there held against the plain pre-pass
+     on the first and last heads) and (2, 40, 32760, 257, 128) with no
+     kv_lens, K1 at the text cross shape with 40 heads, and K1, K2 and K3 at
+     (1, 40, 20280, 20280, 128) and its 512-key cross shape;
+  13. `env`: whether `cv2` and `PIL` import on this machine (information only).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
 0. Without a CUDA card it raises before printing any result.
 """
 
 import contextlib
+import dataclasses
+import gc
 import importlib
 import json
 import os
@@ -159,6 +188,7 @@ from finetrainers_tpu_torch.args import BaseArgs
 from finetrainers_tpu_torch.constants import PRECOMPUTED_DIR_NAME
 from finetrainers_tpu_torch.data import to_device
 from finetrainers_tpu_torch.models.ltx_video.transformer import LTXRotaryPosEmbed
+from finetrainers_tpu_torch.models.wan import WAN_I2V_14B_CONFIG
 from finetrainers_tpu_torch.models.wan.transformer import WanRotaryPosEmbed
 from finetrainers_tpu_torch.ops import _build, attention_dispatch, attention_provider
 from finetrainers_tpu_torch.ops import attention as attention_ops
@@ -234,6 +264,27 @@ K6_TOL = 2e-2
 K6_REL_L2_TOL = 1e-2
 # A denoise step with K6 against the same step with K1: int8 q/k against bf16, through 30 blocks.
 K6_STEP_REL_L2_TOL = 0.1
+# Wan 2.1 I2V-14B (WAN_I2V_14B_CONFIG, JAX models/wan/base_specification.py:35-39): 40 blocks, 40 heads x 128,
+# ffn 13824, in_channels 36 (16 noisy + 4 mask + 16 condition latents), image_dim 1280; 16,419,458,624
+# parameters and 179,568,640 more at LoRA rank 32 (jax.eval_shape on the JAX model). Serving at the pipeline's
+# default 81x480x832 (21x60x104 latents -> 32760 tokens, 255 full 128-row tiles and one of 120; the image
+# branch attends to 257 CLIP tokens, 2 full tiles and one key); training at the example's 49x480x832 bucket.
+I2V_PARAMS = 16_419_458_624
+I2V_LORA_PARAMS = 179_568_640
+I2V_LAYERS = 40
+I2V_HEADS = 40
+I2V_SERVE_GRID = (21, 30, 52)
+I2V_SERVE_TOKENS = 32760
+I2V_IMAGE_TOKENS = 257
+I2V_STEPS = 2  # cut from the pipeline's default 50
+I2V_REQUEST = dict(num_frames=81, height=480, width=832, guidance_scale=5.0, num_inference_steps=I2V_STEPS)
+I2V_TRAIN_MOMENTS = (1, 32, 13, 60, 104)
+I2V_TRAIN_TIMED_STEPS = 3
+# The scheduler config of the public Wan-AI/Wan2.1-I2V-14B-480P-Diffusers checkpoint, the keys JAX
+# `load_scheduler` reads (and the rest of its sampler settings).
+I2V_SCHEDULER_CONFIG = {"_class_name": "UniPCMultistepScheduler", "num_train_timesteps": 1000, "flow_shift": 3.0,
+                        "solver_order": 2, "solver_type": "bh2", "lower_order_final": True, "disable_corrector": [],
+                        "prediction_type": "flow_prediction", "use_flow_sigmas": True}
 # Wan 2.1 T2V-1.3B LoRA training (tools/floor_bench.py's setup_wan with the optimizer of
 # examples/training/sft/wan/crush_smol_lora/train.sh): rank 32, B=1, the VAE moments of a 49x512x768 clip
 # (13x64x96 latents -> 19968 tokens), 512 caption tokens, all valid; per-block "full" remat.
@@ -535,7 +586,9 @@ def check_k1(card):
     serving path's shapes and Wan's cross-attention shapes (training B=1,
     serving B=2); in the ragged case the k/v rows past kv_lens are also filled
     with large values, which must leave out and LSE bit-equal (TMA reads those
-    rows). Returns the worst error and the records by case."""
+    rows), and Wan I2V-14B's cross shapes (40 heads): training's text at 20280
+    tokens, and serving's at 32760 tokens, the text with kv_lens and the 257
+    image keys without. Returns the worst error and the records by case."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cos_t, sin_t = ltx_tables(32, 64)
     cases = {
@@ -545,6 +598,11 @@ def check_k1(card):
         "wan_train_cross_kv_lens": dict(b=1, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[512], rope=None),
         "wan_serve_cross_kv_lens": dict(b=2, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[512, 9], rope=None),
         "wan_run_cross_kv_lens": dict(b=1, n=12, sq=WAN_RUN_TOKENS, skv=512, h=128, lens=[512], rope=None),
+        "i2v_train_cross_kv_lens": dict(b=1, n=I2V_HEADS, sq=WAN_RUN_TOKENS, skv=512, h=128, lens=[512], rope=None),
+        "i2v_serve_cross_kv_lens": dict(b=2, n=I2V_HEADS, sq=I2V_SERVE_TOKENS, skv=512, h=128, lens=[512, 9],
+                                        rope=None),
+        "i2v_image_cross": dict(b=2, n=I2V_HEADS, sq=I2V_SERVE_TOKENS, skv=I2V_IMAGE_TOKENS, h=128, lens=None,
+                                rope=None),
     }
     worst, records = 0.0, {}
     for name, c in cases.items():
@@ -632,6 +690,9 @@ def check_k2k3(card):
         "wan_run_self_shared_rope": dict(b=1, n=12, sq=WAN_RUN_TOKENS, skv=WAN_RUN_TOKENS, h=128, lens=None,
                                          rope="wan_run"),
         "wan_run_cross_kv_lens": dict(b=1, n=12, sq=WAN_RUN_TOKENS, skv=512, h=128, lens=[512], rope=None),
+        "i2v_train_self_shared_rope": dict(b=1, n=I2V_HEADS, sq=WAN_RUN_TOKENS, skv=WAN_RUN_TOKENS, h=128, lens=None,
+                                           rope="wan_run"),
+        "i2v_train_cross_kv_lens": dict(b=1, n=I2V_HEADS, sq=WAN_RUN_TOKENS, skv=512, h=128, lens=[512], rope=None),
     }
     worst = {"prep": 0.0, "k2": 0.0, "k3": 0.0}
     records = {}
@@ -738,12 +799,20 @@ def k6_bound(n, sq, kv_eff, h, q_rows):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def check_prepass(q, k, lens, codes, cos=None, sin=None):
+def check_prepass(q, k, lens, codes, cos=None, sin=None, heads=None):
     """The pre-pass kernel's codes and scales against the plain pre-pass on the
     CPU copy: q codes and scales equal, k codes within one and different in at
     most 0.1% of entries (the smoothed k's mean is summed in another order), k
-    scales within rtol 1e-5. Returns (largest code difference, share of k codes
-    that differ, max k scale relative error)."""
+    scales within rtol 1e-5. With `heads` (a list of head indices) only those
+    heads are compared: quantization is per token and smooth-K's mean per
+    (batch, head), so a head's codes depend on that head's q and k alone.
+    Returns (largest code difference, share of k codes that differ, max k
+    scale relative error)."""
+    if heads is not None:
+        q, k = q[:, :, heads], k[:, :, heads]
+        codes = tuple(x[:, heads] for x in codes)
+        if cos is not None and cos.shape[0] > 1:
+            cos, sin = cos[heads], sin[heads]
     cpu = sage_quantize(q.cpu(), k.cpu(), lens.cpu(), *(None if t is None else t.cpu() for t in (cos, sin)))
     if not (torch.equal(codes[0].cpu(), cpu[0]) and torch.equal(codes[2].cpu(), cpu[2])):
         raise AssertionError("the pre-pass's q codes or scales differ between the card and the CPU")
@@ -778,6 +847,13 @@ def check_k6(card):
         "ltx_self": dict(b=2, n=32, sq=2688, skv=2688, h=64, lens=None, rope=False),
         "ragged_empty_row": dict(b=2, n=4, sq=1000, skv=77, h=128, lens=[77, 0], rope=False),
         "ragged_empty_row_h64": dict(b=2, n=4, sq=1000, skv=333, h=64, lens=[200, 0], rope=False),
+        # Wan I2V serving: self-attention at 81x480x832 (the pre-pass's codes held against the plain pre-pass
+        # on the first and last heads, not on all of its 2 x 335M values) and the image branch, 257 keys, no
+        # kv_lens.
+        "i2v_self_rope": dict(b=2, n=I2V_HEADS, sq=I2V_SERVE_TOKENS, skv=I2V_SERVE_TOKENS, h=128, lens=None,
+                              rope=True, grid=I2V_SERVE_GRID, prep_heads=[0, I2V_HEADS - 1]),
+        "i2v_image_cross": dict(b=2, n=I2V_HEADS, sq=I2V_SERVE_TOKENS, skv=I2V_IMAGE_TOKENS, h=128, lens=None,
+                                rope=False),
     }
     worst, worst_code, records = 0.0, 0, {}
     for name, c in cases.items():
@@ -785,7 +861,7 @@ def check_k6(card):
         # BTNH, as the model hands them over; k with a per-channel offset, which smooth-K removes.
         q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16) for s in (sq, skv, skv))
         k = k + torch.randn(1, 1, n, h, generator=g, device="cuda").to(torch.bfloat16)
-        cos, sin = (t[None].contiguous() for t in wan_tables()) if c["rope"] else (None, None)
+        cos, sin = (t[None].contiguous() for t in wan_tables(c.get("grid", WAN_GRID))) if c["rope"] else (None, None)
         lens = torch.tensor(c["lens"] or [skv] * b, dtype=torch.int32, device="cuda")
         vt = v.transpose(1, 2)
         codes = sage_prep(q, k, lens, cos, sin)
@@ -797,7 +873,7 @@ def check_k6(card):
         norm_err = (err / ref.float().abs().clamp_min(1.0)).max().item()
         rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
         empty_zero = all(not out[i].any() for i, length in enumerate(c["lens"] or []) if length == 0)
-        code_diff, code_share, scale_err = check_prepass(q, k, lens, codes, cos, sin)
+        code_diff, code_share, scale_err = check_prepass(q, k, lens, codes, cos, sin, c.get("prep_heads"))
         ms = cuda_ms(lambda: sage_forward(*codes, vt, lens))
         prep_ms = cuda_ms(lambda: sage_prep(q, k, lens, cos, sin))
         # The plain pre-pass on the card: the torch rotation and quantization the parent ran before K6.
@@ -815,6 +891,7 @@ def check_k6(card):
         phase("k6_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
               max_abs_err=max_abs, err_over_max1_ref=norm_err, rel_l2=rel_l2, empty_rows_zero=empty_zero,
               prep_max_code_diff=code_diff, prep_k_codes_differing=code_share, prep_k_scale_rel_err=scale_err,
+              prep_heads_checked=c.get("prep_heads", "all"),
               ms=ms, plain_ms=plain_ms, sdpa_yardstick_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
               tops_equivalent=4 * n * sq * kv_eff * h / ms / 1e9, prep_ms=prep_ms, prep_plain_ms=prep_plain_ms,
               prep_bound_ms=prep_bound_ms, card=card)
@@ -832,14 +909,18 @@ def check_k1_wan(card):
     """The pre-pass and K1 at Wan's self-attention shapes with one (S, H)
     table pair shared by every head, against their plain version run one head
     at a time (all heads at once would need ~100 GB of fp32 scores): serving
-    (B=2, S=19968) and the example's bucket (B=1, S=20280, whose last q and kv
-    tiles hold 56 rows); K1 is timed alone and with its pre-pass. Returns the
-    worst error and the records by case."""
+    (B=2, S=19968), the example's bucket (B=1, S=20280, whose last q and kv
+    tiles hold 56 rows), I2V-14B training at that bucket (B=1, 40 heads) and
+    I2V-14B serving (B=2, 40 heads, S=32760, last tiles of 120 rows); K1 is
+    timed alone and with its pre-pass. Returns the worst error and the records
+    by case."""
     g = torch.Generator(device="cuda").manual_seed(8)
-    cases = {"wan_self_rope_shared_tables": (2, WAN_GRID), "wan_run_self_rope_shared_tables": (1, WAN_RUN_GRID)}
+    cases = {"wan_self_rope_shared_tables": (2, 12, WAN_GRID), "wan_run_self_rope_shared_tables": (1, 12, WAN_RUN_GRID),
+             "i2v_train_self_rope_shared_tables": (1, I2V_HEADS, WAN_RUN_GRID),
+             "i2v_serve_self_rope_shared_tables": (2, I2V_HEADS, I2V_SERVE_GRID)}
     worst, records = 0.0, {}
-    for name, (b, grid) in cases.items():
-        n, s, h = 12, grid[0] * grid[1] * grid[2], 128
+    for name, (b, n, grid) in cases.items():
+        s, h = grid[0] * grid[1] * grid[2], 128
         q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
                    for _ in range(3))
         cos, sin = (t[None].contiguous() for t in wan_tables(grid))
@@ -864,6 +945,7 @@ def check_k1_wan(card):
         q_s, k_r = flash_qk_prep(q, k, cos, sin, 0, h**-0.5)
         ms = cuda_ms(lambda: flash_forward_core(q_s, k_r, v))
         prep_ms = cuda_ms(lambda: flash_qk_prep(q, k, cos, sin, 0, h**-0.5))
+        prep_plain_ms = cuda_ms(lambda: flash_qk_prep_reference(q, k, cos, sin, h**-0.5), iters=3)
         forward_ms = cuda_ms(lambda: flash_forward(q, k, v, None, cos, sin))
         plain_ms = cuda_ms(plain, iters=1, warmup=0)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -873,13 +955,14 @@ def check_k1_wan(card):
         phase("k1_check", case=name, shape=[b, n, s, s, h], max_abs_err=max_abs, err_over_max1_ref=norm_err,
               rel_l2=rel_l2, lse_max_abs_err=lse_err, ms=ms, prep_ms=prep_ms, flash_forward_ms=forward_ms,
               plain_ms=plain_ms, sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
-              prep_bound_ms=qk_prep_bound(q, k, cos)[0], tflops=flops / ms / 1e9, card=card)
+              prep_plain_ms=prep_plain_ms, prep_bound_ms=qk_prep_bound(q, k, cos)[0], tflops=flops / ms / 1e9,
+              card=card)
         if not (norm_err <= K1_TOL and rel_l2 <= K1_REL_L2_TOL and lse_err <= LSE_TOL):
             raise AssertionError(f"K1 disagrees with its reference on {name}: {norm_err}, rel L2 {rel_l2} "
                                  f"or LSE {lse_err}")
         worst = max(worst, max_abs)
         records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             prep_ms=prep_ms, flash_forward_ms=forward_ms)
+                             prep_ms=prep_ms, prep_plain_ms=prep_plain_ms, flash_forward_ms=forward_ms)
         del q, k, v, q_s, k_r, out, ref, err, qt, kt, vt
     return worst, records
 
@@ -1203,7 +1286,7 @@ def wan_serve(card):
     auto_launches = launches
     del videos
 
-    ehs, mask = pipe.encode_prompt(PROMPTS[0], None, True)
+    ehs, mask, _ = pipe.encode_prompt(PROMPTS[0], None, True)
     latents = torch.randn(pipe.latent_shape(49, 512, 768), generator=torch.Generator("cuda").manual_seed(7),
                           device="cuda")
     sigma = float(pipe.scheduler.inference_sigmas(WAN_STEPS)[1])
@@ -1289,11 +1372,13 @@ def timed_batches(batch, timed, record):
     """Yield `batch` to `SFTTrainer.train` 1 + `timed` times: after the first
     (warm-up) step, zero the launch counts and reset the peak memory; record
     each later step's seconds (host clock, synced) in record["step_s"], and
-    the counts and the peak after the last step, before `train` saves."""
+    the counts, K2's reduce passes and the peak after the last step, before
+    `train` saves."""
     yield batch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
+    reduce_before = flash_bwd_dkdv.reduce_launches
     record["step_s"] = []
     t0 = time.perf_counter()
     for _ in range(timed):
@@ -1303,6 +1388,7 @@ def timed_batches(batch, timed, record):
         record["step_s"].append(t1 - t0)
         t0 = t1
     record["launches"], record["peak_gb"] = _counts(), torch.cuda.max_memory_allocated() / 1e9
+    record["reduce"] = flash_bwd_dkdv.reduce_launches - reduce_before
 
 
 def timed_train_steps(trainer, batch, count):
@@ -2126,6 +2212,291 @@ def wan_run(card):
     return launches
 
 
+# Wan 2.1 I2V-14B at full width: LoRA training at the example's bucket, then image-to-video serving through the
+# port's inference runner at 81x480x832 with the exported adapter and UniPC, then the image-KV branch.
+
+
+def _free_cuda():
+    """Drop what a finished phase left to the collector and return the card's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def i2v_train_batch(seed=40):
+    """`wan_train_batch` at the example's bucket, with seeded condition moments
+    and the first-frame mask (1, 4, 13, 60, 104) that `prepare_latents` gives
+    an I2V clip."""
+    conditions, latents = wan_train_batch(I2V_TRAIN_MOMENTS, seed=seed)
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    cond = torch.randn(I2V_TRAIN_MOMENTS, generator=g, device="cuda")
+    channels = I2V_TRAIN_MOMENTS[1] // 2
+    cond[:, channels:] = 0.5 * cond[:, channels:] - 2.0
+    mask = torch.zeros((1, 4, *I2V_TRAIN_MOMENTS[2:]), device="cuda")
+    mask[:, :, 0] = 1.0
+    latents.update(latent_condition=cond, latent_condition_mask=mask)
+    return conditions, latents
+
+
+def _third_split(ms_list):
+    """Per-block launches in order (self, text cross, image cross) -> the three lists."""
+    return ms_list[0::3], ms_list[1::3], ms_list[2::3]
+
+
+def wan_i2v_train(card):
+    """Full-width Wan 2.1 I2V-14B LoRA training (rank 32, the example's
+    optimizer, per-block "full" remat) on seeded VAE moments at 49x480x832
+    (20280 tokens) with condition latents and 512 valid caption tokens: one
+    warm-up and 3 timed steps through `train`, which then saves and exports
+    the adapter; a profiled step. The image-KV branch does not run (the
+    trainer passes no image, as in JAX), so its LoRA B factors stay zero.
+    Returns the launches, the adapter's directory and the profile."""
+    t0 = time.perf_counter()
+    spec = get_model_specification_cls("wan", "lora")(device=torch.device("cuda"), seed=0,
+                                                        transformer_config=WAN_I2V_14B_CONFIG)
+    trainer = SFTTrainer(BaseArgs(**WAN_TRAIN_ARGS, output_dir=str(SMOKE_DIR / "wan_i2v_train")), spec)
+    trainer.prepare()
+    module = trainer.transformer.module
+    torch.cuda.synchronize()
+    base_params = sum(p.numel() for n, p in module.named_parameters() if n not in trainer._trainable)
+    lora_params = sum(p.numel() for p in trainer._trainable.values())
+    phase("wan_i2v_train_load", seconds=time.perf_counter() - t0, base_params=base_params, lora_params=lora_params,
+          layers=len(module.blocks), remat=module.gradient_checkpointing, config=WAN_I2V_14B_CONFIG,
+          memory_allocated_gb=torch.cuda.memory_allocated() / 1e9, card=card)
+    if (base_params != I2V_PARAMS or lora_params != I2V_LORA_PARAMS or len(module.blocks) != I2V_LAYERS
+            or module.gradient_checkpointing != "full"):
+        raise AssertionError("the trainer did not build the published Wan 2.1 I2V-14B width and depth under remat")
+    image_branch = [n for n in trainer._trainable if ".add_k_proj." in n or ".add_v_proj." in n]
+    lora_before = {n: p.detach().clone() for n, p in trainer._trainable.items() if n not in image_branch}
+    batch = i2v_train_batch()
+
+    record = {}
+    trainer.train(timed_batches(batch, I2V_TRAIN_TIMED_STEPS, record))  # a warm-up step, the timed ones, a save
+    step_s, launches, peak_gb = record["step_s"], record["launches"], record["peak_gb"]
+    losses = trainer.state.train_state.global_avg_losses
+    finite = all(np.isfinite(losses))
+    moved = all(not torch.equal(trainer._trainable[n], p) for n, p in lora_before.items())
+    image_b_zero = all(not trainer._trainable[n].any() for n in image_branch if n.endswith("lora_B.weight"))
+    del lora_before
+    per_step = dict(k1=4 * I2V_LAYERS, prep=6 * I2V_LAYERS, k2=2 * I2V_LAYERS, k3=2 * I2V_LAYERS)
+    expected = {k_: per_step.get(k_, 0) * I2V_TRAIN_TIMED_STEPS for k_ in launches}
+    # No reduce pass: K2 splits its q loop only where a call's kv-tile CTAs are fewer than the H100's 132 SMs, and
+    # the text cross-attention here has 40 heads x 4 tiles of 128 keys = 160 (T2V-1.3B's has 12 x 4 = 48).
+    expected_reduce = 0
+    adapter = SMOKE_DIR / "wan_i2v_train" / "lora_weights" / f"{1 + I2V_TRAIN_TIMED_STEPS:06d}"
+    state, config = load_lora_weights(str(adapter))
+    flops = wan_train_step_flops(spec.transformer_config, WAN_TRAIN_RANK, 1.0, B=1, S=WAN_RUN_TOKENS,
+                                 L_CTX=WAN_CAPTION_LEN)
+    median_s = statistics.median(step_s)
+    phase("wan_i2v_train", card=card, steps=trainer.state.train_state.step, timed_steps=I2V_TRAIN_TIMED_STEPS,
+          tokens=WAN_RUN_TOKENS, text_tokens=WAN_CAPTION_LEN, step_seconds=step_s, median_step_s=median_s,
+          losses=losses, losses_finite=finite, lora_factors_moved=moved, image_branch_lora_b_zero=image_b_zero,
+          launches=launches, launches_expected=expected, k2_reduce_launches=record["reduce"],
+          k2_reduce_expected=expected_reduce, max_memory_allocated_gb=peak_gb, model_flops_per_step=flops,
+          model_tflops=flops / median_s / 1e12, share_of_peak=flops / median_s / PEAK_BF16_FLOPS,
+          export=str(adapter.relative_to(SMOKE_DIR.parent.parent)), export_keys=len(state),
+          export_bytes=(adapter / LORA_WEIGHTS_NAME).stat().st_size, export_lora_config=config)
+    if not (finite and moved and image_b_zero and launches == expected and record["reduce"] == expected_reduce
+            and len(state) == len(trainer._trainable) and config.get("r") == WAN_TRAIN_RANK):
+        raise AssertionError("Wan I2V training check failed")
+    del state
+
+    prof = profile_device(lambda: trainer.train_step(*batch))
+    k2_self, k2_cross = _split(prof["launches"]["k2"], by_order=False)
+    k3_self, k3_cross = _split(prof["launches"]["k3"], by_order=False)
+    k1_self, k1_cross = _split(prof["launches"]["k1"], by_order=False)
+    in_step = dict(k1_self=_median(k1_self), k1_cross=_median(k1_cross), k2_self=_median(k2_self),
+                   k2_cross=_median(k2_cross), k3_self=_median(k3_self), k3_cross=_median(k3_cross),
+                   prep=_median(prof["launches"]["prep"]), k2_reduce=_median(prof["launches"]["k2_reduce"]))
+    classes = dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()})
+    phase("wan_i2v_train_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"], ms_by_class=classes, ms_per_launch=in_step,
+          launches={cls: len(v) for cls, v in prof["launches"].items()}, top_kernels_ms=prof["top_kernels_ms"],
+          device_events=prof["device_events"])
+    del trainer, module, batch, spec
+    phase("wan_i2v_train_freed", memory_allocated_gb=_free_cuda())
+    return dict(launches=launches, reduce=record["reduce"], adapter=adapter, in_step=in_step)
+
+
+def i2v_first_frame():
+    """A seeded 480x832 RGB first frame written as PNG with cv2 (smooth colour
+    blobs, so the VAE sees structure), and its path."""
+    import cv2
+
+    path = SMOKE_DIR / "i2v_first_frame.png"
+    coarse = (np.random.RandomState(3).rand(480 // 32, 832 // 32, 3) * 255).astype(np.uint8)
+    cv2.imwrite(str(path), cv2.resize(coarse, (832, 480), interpolation=cv2.INTER_LINEAR))
+    return path
+
+
+def i2v_checkpoint_dir():
+    """A model directory that holds only `scheduler/scheduler_config.json`, as
+    the public I2V-14B-480P checkpoint names its scheduler."""
+    root = SMOKE_DIR / "wan_i2v_checkpoint"
+    (root / "scheduler").mkdir(parents=True, exist_ok=True)
+    (root / "scheduler" / "scheduler_config.json").write_text(json.dumps(I2V_SCHEDULER_CONFIG))
+    return root
+
+
+def wan_i2v_serve(card, adapter):
+    """One image-to-video request at 81x480x832 through the port's runner,
+    `inference.main`, with CFG 5.0 and 2 UniPC steps read from the scheduler
+    config, the adapter `wan_i2v_train` exported, and a first frame from a PNG.
+    The VAE's encode and decode, each denoise step and the request are timed
+    by wrappers (synced); the video must be finite, (81, 480, 832, 3), the
+    scheduler UniPC and the transformer's LoRA factors the adapter's. K1 and the
+    pre-pass run 80 times a step: the image branch is not wired, as in JAX."""
+    from finetrainers_tpu_torch import inference
+    from finetrainers_tpu_torch.models.autoencoders import AutoencoderKL3D
+    from finetrainers_tpu_torch.models.wan.pipeline import WanPipeline
+
+    import cv2
+
+    image_path, root, out_dir = i2v_first_frame(), i2v_checkpoint_dir(), SMOKE_DIR / "wan_i2v_serve"
+    argv = ["--model_name", "wan", "--pretrained_model_name_or_path", str(root), "--inference_type",
+            "image_to_video", "--image_path", str(image_path), "--prompt", PROMPTS[0], "--height", "480", "--width",
+            "832", "--num_frames", "81", "--num_inference_steps", str(I2V_STEPS), "--guidance_scale", "5.0",
+            "--lora_weights", str(adapter), "--output_dir", str(out_dir), "--seed", "0"]
+    adapter_state, _ = load_lora_weights(str(adapter))
+    probe_key = "transformer.blocks.0.attn1.to_q.lora_B.weight"
+    probe = adapter_state[probe_key]
+    del adapter_state
+    seconds, facts = {"encode": [], "decode": [], "step": [], "request": []}, {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    originals = {name: getattr(cls, name) for cls, name in ((AutoencoderKL3D, "encode"), (AutoencoderKL3D, "decode"),
+                                                            (WanPipeline, "denoise_step"), (WanPipeline, "__call__"))}
+    request = timed("request", originals["__call__"])
+
+    def call(self, *args, **kwargs):
+        facts["scheduler"] = type(self.scheduler).__name__
+        facts["image_encoder_wired"] = self.image_encoder is not None
+        lora_b = dict(self.transformer.module.named_parameters())[probe_key[len("transformer."):]]
+        facts["lora_loaded"] = bool(torch.equal(lora_b.detach().cpu(), probe.to(lora_b.dtype)))
+        facts["lora_scaling"] = self.transformer.module.blocks[0].attn1.to_q.scaling
+        video = request(self, *args, **kwargs)
+        facts["video_shape"], facts["video_dtype"] = list(video.shape), str(video.dtype)
+        return video
+
+    AutoencoderKL3D.encode = timed("encode", originals["encode"])
+    AutoencoderKL3D.decode = timed("decode", originals["decode"])
+    WanPipeline.denoise_step = timed("step", originals["denoise_step"])
+    WanPipeline.__call__ = call
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        paths = inference.main(argv, transformer_config=WAN_I2V_14B_CONFIG)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches, peak_gb = _counts(), torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        for (cls, name) in ((AutoencoderKL3D, "encode"), (AutoencoderKL3D, "decode"), (WanPipeline, "denoise_step"),
+                            (WanPipeline, "__call__")):
+            setattr(cls, name, originals[name])
+    cap = cv2.VideoCapture(paths[0])
+    frames_written = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    expected = {k_: 2 * I2V_LAYERS * I2V_STEPS if k_ in ("k1", "prep") else 0 for k_ in launches}
+    phase("wan_i2v_serve", card=card, entry="python -m finetrainers_tpu_torch.inference", argv=argv[:-6],
+          steps=I2V_STEPS, steps_note="cut from the default 50", tokens=I2V_SERVE_TOKENS, text_tokens=512,
+          request_s=seconds["request"], step_s=seconds["step"], vae_encode_s=seconds["encode"],
+          vae_decode_s=seconds["decode"], main_wall_s=wall_s, peak_memory_gb=peak_gb, launches=launches,
+          launches_expected=expected, written=[str(pathlib.Path(p).relative_to(SMOKE_DIR.parent.parent))
+                                               for p in paths], frames_written=frames_written, **facts)
+    if not (facts.get("video_shape") == [81, 480, 832, 3] and facts.get("video_dtype") == "uint8"
+            and facts.get("scheduler") == "UniPCFlowScheduler" and facts.get("lora_loaded")
+            and not facts.get("image_encoder_wired") and launches == expected and len(seconds["step"]) == I2V_STEPS
+            and len(seconds["encode"]) == 1 and len(seconds["decode"]) == 1 and frames_written == 81):
+        raise AssertionError("Wan I2V serving through the runner failed its checks")
+    phase("wan_i2v_serve_freed", memory_allocated_gb=_free_cuda())
+    return launches, seconds
+
+
+def wan_i2v_image_branch(card):
+    """The image-KV branch, as a JAX caller runs it: `WanPipeline` built with
+    the spec's image encoder (the offline CLIP-vision stand-in), one denoise
+    step at 81x480x832 with CFG over the image embeds, under `auto` (K1 and
+    the pre-pass 120 times: self, text and the 257 image keys in each block)
+    and under `sage` (the sage pre-pass and K6 120 times), each timed on the
+    host clock up to a sync and then profiled. The sage step must fall within
+    K6_STEP_REL_L2_TOL of the auto step."""
+    from finetrainers_tpu_torch.data.utils import load_image
+
+    t0 = time.perf_counter()
+    spec = get_model_specification_cls("wan", "lora")(device=torch.device("cuda"), seed=0,
+                                                        transformer_config=WAN_I2V_14B_CONFIG,
+                                                        pretrained_model_name_or_path=str(i2v_checkpoint_dir()))
+    pipe = spec.load_pipeline()
+    pipe = dataclasses.replace(pipe, image_encoder=spec.load_condition_models()["image_encoder"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    image = load_image(str(SMOKE_DIR / "i2v_first_frame.png"), to_float=False)
+    with torch.inference_mode():
+        ehs, mask, img_embeds = pipe.encode_prompt(PROMPTS[0], None, True, image)
+        cond = pipe.image_condition(image, *(I2V_REQUEST[k_] for k_ in ("num_frames", "height", "width")))
+        latents = torch.randn(pipe.latent_shape(81, 480, 832), generator=torch.Generator("cuda").manual_seed(9),
+                              device="cuda")
+        sigma = float(pipe.scheduler.inference_sigmas(50)[1])
+        step = lambda: pipe.denoise_step(latents, ehs, mask, 5.0, sigma, img_embeds, cond)  # noqa: E731
+        runs = {}
+        for provider in ("auto", "sage"):
+            with attention_provider(provider):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_counts()
+                t1 = time.perf_counter()
+                out = step()
+                torch.cuda.synchronize()
+                runs[provider] = dict(step_s=time.perf_counter() - t1, launches=_counts(),
+                                      peak_gb=torch.cuda.max_memory_allocated() / 1e9, out=out)
+                runs[provider]["profile"] = profile_device(step)
+    rel = rel_l2(runs["sage"]["out"], runs["auto"]["out"])
+    finite = all(bool(torch.isfinite(r["out"]).all()) for r in runs.values())
+    per_step = 3 * I2V_LAYERS
+    want = {"auto": dict(k1=per_step, prep=per_step), "sage": dict(k6=per_step, sage_prep=per_step)}
+    in_step = {}
+    for provider, r in runs.items():
+        prof = r["profile"]
+        if provider == "auto":
+            parts = dict(zip(("self", "text", "image"), _third_split(prof["launches"]["k1"])))
+            prep = prof["launches"]["prep"]
+        else:
+            parts = dict(zip(("self", "text", "image"), _third_split(prof["launches"]["k6"])))
+            prep = [sum(ms) for ms in zip(*(prof["launches"][cls] for cls in ("sage_prep_sum", "sage_prep_mean",
+                                                                              "sage_prep")))]
+        kernel = "k1" if provider == "auto" else "k6"
+        in_step[provider] = {f"{kernel}_{part}": _median(ms) for part, ms in parts.items()}
+        in_step[provider].update({f"prep_{part}": _median(ms) for part, ms in
+                                  zip(("self", "text", "image"), _third_split(prep))})
+        r["expected"] = {k_: want[provider].get(k_, 0) for k_ in r["launches"]}
+        classes = dict(prof["classes"], **{f"{kernel}_{part}": sum(ms) for part, ms in parts.items()})
+        phase("wan_i2v_image_branch", card=card, provider=provider, load_s=load_s, step_s=r["step_s"],
+              peak_memory_gb=r["peak_gb"], launches=r["launches"], launches_expected=r["expected"],
+              image_tokens=int(img_embeds.shape[1]), step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+              idle_share=prof["idle_share"], ms_by_class=classes, ms_per_launch=in_step[provider],
+              top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
+    phase("wan_i2v_image_branch_k6_vs_k1", rel_l2=rel, bound=K6_STEP_REL_L2_TOL, finite=finite,
+          shape=list(runs["auto"]["out"].shape))
+    if not (rel <= K6_STEP_REL_L2_TOL and finite and img_embeds.shape[1] == I2V_IMAGE_TOKENS
+            and all(r["launches"] == r["expected"] for r in runs.values())):
+        raise AssertionError("the Wan I2V image branch failed its checks")
+    launches = {provider: r["launches"] for provider, r in runs.items()}
+    del pipe, spec, runs, ehs, mask, img_embeds, cond, latents, step
+    phase("wan_i2v_image_branch_freed", memory_allocated_gb=_free_cuda())
+    return launches, in_step
+
+
 def env_phase():
     """Whether the media codecs the data stage decodes with import here (information, not a check)."""
     found = {}
@@ -2217,6 +2588,10 @@ def main():
     wan_paths.update(wan_train_accum_resume(card))
     torch.cuda.empty_cache()
     wan_paths.update(wan_run(card))
+    _free_cuda()
+    i2v_train = wan_i2v_train(card)
+    i2v_serve_launches, _ = wan_i2v_serve(card, i2v_train["adapter"])
+    i2v_branch_launches, i2v_branch_in_step = wan_i2v_image_branch(card)
     shutil.rmtree(SMOKE_DIR)
     env_phase()
 
@@ -2248,8 +2623,10 @@ def main():
                      launches_by_path={"train": train_launches[key], "wan_train": wan[key],
                                        **{f"wan_train_{p}": wan_paths[f"wan_train_{p}"][key]
                                           for p in ("ops", "ops_attn", "ops_narrow", "accum")},
-                                       **{path: wan_paths[path][key] for path in WAN_RUN_PATHS}},
+                                       **{path: wan_paths[path][key] for path in WAN_RUN_PATHS},
+                                       "wan_i2v_train": i2v_train["launches"][key]},
                      shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128],
+                     i2v_train_in_step_ms={part: i2v_train["in_step"][f"{key}_{part}"] for part in ("self", "cross")},
                      device_ms=bwd["wan_train_self_shared_rope"][f"{key}_device_ms"],
                      by_case={case: dict(zip(fields, r[key]), device_ms=r[f"{key}_device_ms"])
                               for case, r in bwd.items()},
@@ -2267,8 +2644,13 @@ def main():
                                 "wan_serve_default_provider": wan_auto_launches["k1"], "wan_train": wan["k1"],
                                 **{f"wan_train_{key}": wan_paths[f"wan_train_{key}"]["k1"]
                                    for key in WAN_PATH_KEYS},
-                                **{path: wan_paths[path]["k1"] for path in WAN_RUN_PATHS}},
+                                **{path: wan_paths[path]["k1"] for path in WAN_RUN_PATHS},
+                                "wan_i2v_train": i2v_train["launches"]["k1"],
+                                "wan_i2v_serve": i2v_serve_launches["k1"],
+                                "wan_i2v_image_branch": i2v_branch_launches["auto"]["k1"]},
               shape=[2, 32, 2688, 2688, 64], by_case={**k1, **k1_wan},
+              i2v_in_step_ms=dict(i2v_branch_in_step["auto"], train_self=i2v_train["in_step"]["k1_self"],
+                                  train_cross=i2v_train["in_step"]["k1_cross"]),
               wan_train_self_attention=wan_shape(k5_wan["k1"]),
               library_note="torch SDPA forward, without the fused rotation"),
         entry("flash_qk_prep (the RoPE and q-scale pre-pass before K1, K7a, K7c, K2/K3 and K5)",
@@ -2280,7 +2662,10 @@ def main():
                                 "wan_serve_default_provider": wan_auto_launches["prep"], "wan_train": wan["prep"],
                                 **{f"wan_train_{key}": wan_paths[f"wan_train_{key}"]["prep"]
                                    for key in WAN_PATH_KEYS},
-                                **{path: wan_paths[path]["prep"] for path in WAN_RUN_PATHS}},
+                                **{path: wan_paths[path]["prep"] for path in WAN_RUN_PATHS},
+                                "wan_i2v_train": i2v_train["launches"]["prep"],
+                                "wan_i2v_serve": i2v_serve_launches["prep"],
+                                "wan_i2v_image_branch": i2v_branch_launches["auto"]["prep"]},
               shape_note="timed at LTX's train self-attention (1, 32, 2688, 64) with per-head tables"),
         bwd_entry("k2", "bwd_dkdv_sm90 (K2, wgmma + TMA, with its reduce pass where the q loop is split)",
                   "finetrainers_tpu/ops/flash_attention.py:888"),
@@ -2309,12 +2694,17 @@ def main():
         entry("sage_fwd_sm90 (K6, int8 wgmma + TMA, on the pre-pass's codes)",
               "finetrainers_tpu_torch/csrc/sage_fwd_sm90.cu", "finetrainers_tpu/ops/sage_attention.py:36",
               wan_sage_launches["k6"], k6_err, k6["wan_self_rope"]["k6"], shape=[2, 12, WAN_TOKENS, WAN_TOKENS, 128],
+              launches_by_path={"wan_serve": wan_sage_launches["k6"],
+                                "wan_i2v_image_branch": i2v_branch_launches["sage"]["k6"]},
+              i2v_in_step_ms=i2v_branch_in_step["sage"],
               by_case={case: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r["k6"]))
                        for case, r in k6.items()},
               library_note="torch SDPA on the unquantized, unrotated bf16 inputs: a yardstick only"),
         entry("sage_prep (rotation, smooth-K and int8 quantization of q and k before K6)",
               "finetrainers_tpu_torch/csrc/sage_fwd_sm90.cu", "finetrainers_tpu/ops/sage_attention.py:112",
               wan_sage_launches["sage_prep"], prep_err, k6["wan_self_rope"]["prep"],
+              launches_by_path={"wan_serve": wan_sage_launches["sage_prep"],
+                                "wan_i2v_image_branch": i2v_branch_launches["sage"]["sage_prep"]},
               also_replaces=["finetrainers_tpu/ops/attention.py:121"], shape=[2, 12, WAN_TOKENS, WAN_TOKENS, 128],
               by_case={case: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r["prep"]))
                        for case, r in k6.items()},

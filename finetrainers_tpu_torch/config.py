@@ -56,6 +56,7 @@ def get_model_specification_cls(model_name: str, training_type: str):
         )
     ref = _REGISTRY[model_type][tt]
     if ref is None:
-        raise NotImplementedError(f"{model_name!r} is not ported yet; see ROADMAP.md")
+        item = "item 9 (control trainer)" if tt in _CONTROL else "item 8 (the other families)"
+        raise NotImplementedError(f"{model_name!r} ({training_type}) is not ported yet; see ROADMAP.md queue 1 {item}")
     module_path, cls_name = ref
     return getattr(importlib.import_module(module_path), cls_name)

@@ -7,14 +7,16 @@ module's named parameters; the frozen rest gets `requires_grad_(False)`.
 An adapter is `pytorch_lora_weights.safetensors`: peft names under the
 `transformer.` prefix, torch layouts ((r, in) and (out, r)), and the LoRA
 config as JSON under the `lora_config` metadata key, as the JAX trainer
-writes it (`trainer/sft_trainer/trainer.py:403-412`).
+writes it (`trainer/sft_trainer/trainer.py:403-412`). The inference runner
+loads one back (`load_lora_weights`, `apply_lora_to_module_params`,
+`scale_lora_b`), as JAX `examples/inference/inference.py:177-215` does.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -85,4 +87,36 @@ def apply_lora_state_dict(module: nn.Module, state_dict: Mapping[str, torch.Tens
             if tuple(params[name].shape) != tuple(value.shape):
                 raise ValueError(f"{key}: shape {tuple(value.shape)} does not match {tuple(params[name].shape)}")
             params[name].copy_(value)
+    return module
+
+
+def scale_lora_b(state_dict: Mapping[str, torch.Tensor], scale: float) -> Dict[str, torch.Tensor]:
+    """peft's `lora_scale` folded into the B factors (peft or flax names; JAX
+    runner :192-197)."""
+    return {k: v * scale if ".lora_B." in k or k.endswith("lora_b") else v for k, v in state_dict.items()}
+
+
+def apply_lora_to_module_params(module: nn.Module, state_dict: Mapping[str, Any],
+                                key_map: Optional[Callable[[str], str]] = None) -> nn.Module:
+    """Load an adapter into the module's LoRA factors (JAX `lora.py:140-155`):
+    peft names (`transformer.blocks.0.attn1.to_q.lora_A.weight`) as they are,
+    or the JAX package's flat flax names (`blocks_0.attn1.to_q.lora_a`, (in, r)
+    layout) through the family's `key_map` and transposed. A key that names no
+    LoRA factor of the module raises (JAX's peft path drops it unread)."""
+    from .models.weight_utils import flax_to_torch_state_dict
+
+    if not any(".lora_A." in k or ".lora_B." in k for k in state_dict):
+        state_dict = {k: torch.from_numpy(v) for k, v in flax_to_torch_state_dict(
+            {k: (v.float().numpy() if isinstance(v, torch.Tensor) else v) for k, v in state_dict.items()},
+            key_map).items()}
+    return apply_lora_state_dict(module, state_dict)
+
+
+def apply_auxiliary_weights(module: nn.Module, aux_path: str) -> nn.Module:
+    """The non-LoRA weights a control adapter exports beside itself
+    (`control_aux_weights.safetensors`; JAX `lora.py:115-128`): none is a
+    no-op, as in JAX; a file raises, since the control trainer is not ported."""
+    if os.path.exists(aux_path):
+        raise NotImplementedError(f"{aux_path}: control adapters' auxiliary weights need the control trainer, "
+                                  "which is not ported yet; see ROADMAP.md queue 1 item 9")
     return module

@@ -7,6 +7,19 @@ GroupNorm, and first-frame-preserving temporal down/upsampling. Layout is
 NCDHW throughout (the JAX package runs NDHWC inside and NCDHW at its public
 boundary). Module names equal the flax names, so `load_flax_vae_params` maps
 a flattened flax tree onto the state dict by renaming only the leaves.
+
+Large activations. At 81x480x832 the Wan config's full-resolution stage holds
+96 channels of 81x480x832 (3.1e9 elements, past 2^31). On the H100 (torch
+2.11, cuDNN 9.2) no op fails there, but one bf16 conv3d of that size
+allocates 25 GB beside its input and the whole decode 54 GB
+(`tools/torch_vae_large.py`), so it would not fit beside a 14B transformer's
+33 GB. Past
+`SPLIT_ELEMENTS`, a causal conv therefore runs in strips of output rows, each
+from its input rows and a halo of kh - 1 (upsampling its own rows first where
+the decoder upsamples into the conv), and a GroupNorm in runs of frames. Both
+are exact: a SAME-padded conv's output row depends only on those input rows,
+and the GroupNorm's statistics are per frame. Spatial tiles of the whole
+decoder would not be (its statistics span the frame).
 """
 
 from __future__ import annotations
@@ -62,6 +75,27 @@ WAN_VAE_CONFIG = AutoencoderConfig(
 )
 
 
+# A convolution whose input or output, or a GroupNorm whose input, holds more
+# elements than this runs in pieces (see the module's docstring). The tests
+# lower it to force the split at small sizes.
+SPLIT_ELEMENTS = 1 << 30
+
+
+def _pieces(size: int, elements: int) -> int:
+    """The length of a piece along a dim of `size` that keeps `elements` under SPLIT_ELEMENTS."""
+    return size if elements <= SPLIT_ELEMENTS else max(1, size * SPLIT_ELEMENTS // elements)
+
+
+def _upsample(x: torch.Tensor, temporal: bool, spatial: bool) -> torch.Tensor:
+    """The decoder's nearest upsampling: frames after the first repeated twice
+    (the first stays single, keeping the VAE causal), rows and columns twice."""
+    if temporal:
+        x = torch.cat([x[:, :, :1], x[:, :, 1:].repeat_interleave(2, dim=2)], dim=2)
+    if spatial:
+        x = x.repeat_interleave(2, dim=3).repeat_interleave(2, dim=4)
+    return x
+
+
 def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     """flax "SAME" padding: output ceil(size/stride), the extra pixel at the end."""
     out = -(-size // stride)
@@ -97,18 +131,49 @@ class Conv3d(nn.Module):
 
 
 class CausalConv3d(nn.Module):
-    """Temporal: causal (front padded with copies of frame 0); spatial: SAME."""
+    """Temporal: causal (front padded with copies of frame 0); spatial: SAME.
+    `temporal_up`/`spatial_up` upsample the input first (`_upsample`). Past
+    SPLIT_ELEMENTS the conv runs in strips of output rows (`_rows`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=(3, 3, 3), stride=(1, 1, 1),
                  dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.conv = Conv3d(in_channels, out_channels, kernel_size, stride, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temporal_up: bool = False, spatial_up: bool = False) -> torch.Tensor:
         kt, kh, kw = self.conv.kernel_size
+        st, sh, sw = self.conv.stride
+        b, _, t, h, w = x.shape
+        t_in, h_in, w_in = (2 * t - 1 if temporal_up else t), h * (1 + spatial_up), w * (1 + spatial_up)
+        out_shape = (b, self.conv.weight.shape[0], (t_in - 1) // st + 1, (h_in - 1) // sh + 1, (w_in - 1) // sw + 1)
+        elements = max(b * x.shape[1] * (t_in + kt - 1) * (h_in + kh - 1) * (w_in + kw - 1), int(np.prod(out_shape)))
+        strip = _pieces(out_shape[3], elements)
+        if strip >= out_shape[3]:
+            return self._rows(x, 0, out_shape[3], h_in, temporal_up, spatial_up)
+        out = torch.empty(out_shape, dtype=self.conv.weight.dtype, device=x.device)
+        for r0 in range(0, out_shape[3], strip):
+            r1 = min(r0 + strip, out_shape[3])
+            out[:, :, :, r0:r1] = self._rows(x, r0, r1, h_in, temporal_up, spatial_up)
+        return out
+
+    def _rows(self, x: torch.Tensor, r0: int, r1: int, h_in: int, temporal_up: bool,
+              spatial_up: bool) -> torch.Tensor:
+        """Output rows [r0, r1) (all of them for an unsplit conv): the
+        (upsampled) input rows they read, with zero rows where they reach into
+        the SAME padding."""
+        kt, kh, kw = self.conv.kernel_size
+        sh = self.conv.stride[1]
+        lo = r0 * sh - (kh - 1) // 2
+        hi = (r1 - 1) * sh + kh - (kh - 1) // 2
+        lo_in, hi_in = max(lo, 0), min(hi, h_in)
+        if spatial_up:
+            src = lo_in // 2
+            rows = _upsample(x[:, :, :, src:(hi_in + 1) // 2], temporal_up, True)[:, :, :, lo_in - 2 * src:hi_in - 2 * src]
+        else:
+            rows = _upsample(x[:, :, :, lo_in:hi_in], temporal_up, False)
         if kt > 1:
-            x = torch.cat([x[:, :, :1].expand(-1, -1, kt - 1, -1, -1), x], dim=2)
-        return self.conv(F.pad(x, ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2)))
+            rows = torch.cat([rows[:, :, :1].expand(-1, -1, kt - 1, -1, -1), rows], dim=2)
+        return self.conv(F.pad(rows, ((kw - 1) // 2, kw // 2, lo_in - lo, hi - hi_in)))
 
 
 class _GroupNormParams(nn.Module):
@@ -134,6 +199,15 @@ class GroupNorm(nn.Module):
         self.norm = _GroupNormParams(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        frames = _pieces(x.shape[2], x.numel())
+        if frames >= x.shape[2]:
+            return self._frames(x)
+        out = torch.empty_like(x)
+        for t0 in range(0, x.shape[2], frames):
+            out[:, :, t0:t0 + frames] = self._frames(x[:, :, t0:t0 + frames])
+        return out
+
+    def _frames(self, x: torch.Tensor) -> torch.Tensor:
         b, c, t, h, w = x.shape
         flat = x.transpose(1, 2).reshape(b * t, c, h, w).float()
         out = F.group_norm(flat, self.num_groups, self.norm.weight, self.norm.bias, self.eps)
@@ -237,12 +311,10 @@ class Decoder3d(nn.Module):
             for j in range(cfg.layers_per_block):
                 h = getattr(self, f"up_{i}_block_{j}")(h)
             if hasattr(self, f"up_{i}_upsample"):
-                if self.up_temporal[i]:
-                    # Causal temporal upsample: the first frame stays single.
-                    h = torch.cat([h[:, :, :1], h[:, :, 1:].repeat_interleave(2, dim=2)], dim=2)
-                if self.up_spatial[i]:
-                    h = h.repeat_interleave(2, dim=3).repeat_interleave(2, dim=4)
-                h = getattr(self, f"up_{i}_upsample")(h)
+                # Causal temporal upsample (the first frame stays single) and
+                # spatial, inside the conv so a split conv upsamples its strips only.
+                h = getattr(self, f"up_{i}_upsample")(h, temporal_up=self.up_temporal[i],
+                                                      spatial_up=self.up_spatial[i])
         return self.conv_out(F.silu(self.norm_out(h)))
 
 

@@ -94,11 +94,13 @@ class _GELUProjection(nn.Module):
 class FeedForward(nn.Module):
     """diffusers FeedForward layout: net.0.proj -> gelu(tanh) -> net.2 (the
     `ff_net_0_proj` / `ff_net_2` (LTX) and `ffn_net_*` (Wan) dense pairs of
-    the JAX blocks). `kw` goes to both LoRADense layers."""
+    the JAX blocks), `dim` -> `inner` -> `out_features` (default `dim`). `kw`
+    goes to both LoRADense layers."""
 
-    def __init__(self, dim: int, inner: int, **kw) -> None:
+    def __init__(self, dim: int, inner: int, out_features: Optional[int] = None, **kw) -> None:
         super().__init__()
-        self.net = nn.ModuleList([_GELUProjection(dim, inner, **kw), nn.Identity(), LoRADense(inner, dim, **kw)])
+        self.net = nn.ModuleList([_GELUProjection(dim, inner, **kw), nn.Identity(),
+                                  LoRADense(inner, out_features or dim, **kw)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))

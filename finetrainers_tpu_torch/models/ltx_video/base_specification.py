@@ -39,6 +39,14 @@ LTX_TRANSFORMER_CONFIG = dict(
 class LTXVideoModelSpecification(ModelSpecification):
     transformer_class_name = "LTXVideoTransformer3DModel"
 
+    @staticmethod
+    def transformer_key_map(flax_key: str) -> str:
+        """The JAX package's flat parameter name -> this module's (an adapter
+        saved with flax names loads through it)."""
+        from .weights import ltx_key_map
+
+        return ltx_key_map(flax_key)
+
     first_frame_conditioning_p = 0.1
     min_first_frame_sigma = 0.25
     frame_rate = 25

@@ -1,19 +1,29 @@
-"""Wan 2.1 model specification: text-to-video serving and the training forward
-(port of the T2V parts of `finetrainers_tpu/models/wan/base_specification.py`).
+"""Wan 2.1 model specification, T2V and I2V/FLF2V: serving and the training
+forward (port of `finetrainers_tpu/models/wan/base_specification.py`).
 
-Random weights only: no UMT5, Wan VAE or Wan transformer checkpoint exists
-for the port yet, so it serves with the offline components the JAX package
-falls back to: `HashEncoder(4096, max_length=128)` for text (:85-88), the
-generic `AutoencoderKL3D` with `WAN_VAE_CONFIG` and identity latent statistics
-(:106-120), and flow-match Euler with shift 3 (:143, :161-163). A local
-checkpoint directory for any component raises NotImplementedError instead of
-being ignored. `prepare_latents` encodes media into VAE moments, and `forward`
-trains on them. Image-to-video (`image_dim`, the CLIP-vision encoder) is not
-ported yet (ROADMAP.md queue 1 item 4).
+Random weights only: no UMT5, CLIP-vision, Wan VAE or Wan transformer
+checkpoint exists for the port yet, so it serves with the offline components
+the JAX package falls back to: `HashEncoder(4096, max_length=128)` for text
+(:85-88), for I2V the `_OfflineImageEncoder` stand-in for CLIP-vision
+(:90-97, :294-305), the generic `AutoencoderKL3D` with `WAN_VAE_CONFIG` and
+identity latent statistics (:106-120), and flow-match Euler with shift 3
+(:143, :161-163) unless the checkpoint directory's scheduler config names
+another. A local checkpoint directory for any component raises
+NotImplementedError instead of being ignored. `prepare_latents` encodes media
+into VAE moments (for I2V also the masked conditioning video's), and
+`forward` trains on them. The mode is I2V where the transformer config has an
+`image_dim` (`WAN_I2V_14B_CONFIG`).
+
+As in the JAX package, the image encoder is loaded but never wired in: the
+trainer passes no image to `prepare_conditions`, and `load_pipeline` builds
+`WanPipeline` without it, so through these entry points I2V runs the
+masked-latent conditioning but not the image-KV branch (a JAX bug the port
+reproduces; ROADMAP.md section 3). `load_condition_models` logs it.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -48,6 +58,14 @@ WAN_I2V_14B_CONFIG = dict(
 class WanModelSpecification(ModelSpecification):
     transformer_class_name = "WanTransformer3DModel"
 
+    @staticmethod
+    def transformer_key_map(flax_key: str) -> str:
+        """The JAX package's flat parameter name -> this module's (an adapter
+        saved with flax names loads through it)."""
+        from .weights import wan_key_map
+
+        return wan_key_map(flax_key)
+
     def __init__(
         self,
         pretrained_model_name_or_path: str = "Wan-AI/Wan2.1-T2V-1.3B-Diffusers",
@@ -76,11 +94,17 @@ class WanModelSpecification(ModelSpecification):
     # ------------------------------------------------------------------ loading
     def load_condition_models(self) -> Dict[str, Any]:
         self._refuse_checkpoint(self.text_encoder_id, "text_encoder", "the UMT5 text encoder")
-        if self.is_i2v:
-            raise NotImplementedError("the Wan image encoder is not ported yet; see ROADMAP.md queue 1 (Wan I2V)")
         logger.warning("UMT5 is not ported; using the offline hash encoder")
         encoder = HashEncoder(hidden_size=self.transformer_config["text_dim"], max_length=128)
-        return {"tokenizer": None, "text_encoder": encoder}
+        out = {"tokenizer": None, "text_encoder": encoder}
+        if self.is_i2v:
+            self._refuse_checkpoint(None, "image_encoder", "the CLIP-vision image encoder")
+            out["image_encoder"] = _OfflineImageEncoder(self.transformer_config["image_dim"])
+            logger.warning(
+                "Wan I2V: the image encoder is loaded but, as in the JAX package, neither the trainer nor "
+                "load_pipeline passes it on, so the image-KV branch does not run (only the masked-latent "
+                "conditioning does); build WanPipeline(..., image_encoder=...) to run it")
+        return out
 
     def load_latent_models(self) -> Dict[str, Any]:
         return {"vae": generic_vae(self, self.vae_autoencoder_config, "the Wan VAE")}
@@ -108,8 +132,8 @@ class WanModelSpecification(ModelSpecification):
             vae = self.load_latent_models()["vae"]
         if text_encoder is None:
             text_encoder = self.load_condition_models()["text_encoder"]
-        # Wan 2.1 checkpoints ship UniPC in their scheduler config (not ported:
-        # load_scheduler raises for it); flow-match Euler with shift 3 is the fallback.
+        # Wan 2.1 checkpoints ship UniPC in their scheduler config; flow-match
+        # Euler with shift 3 is the fallback. No image encoder, as in JAX (:146-159).
         return WanPipeline(
             spec=self, transformer=transformer, vae=vae, text_encoder=text_encoder,
             scheduler=load_scheduler(self.pretrained_model_name_or_path, default=FlowMatchEulerScheduler(shift=3.0)),
@@ -117,32 +141,57 @@ class WanModelSpecification(ModelSpecification):
 
     # ------------------------------------------------------------- data prep
     def prepare_conditions(self, caption: str, text_encoder=None, max_sequence_length: int = 512,
-                           **kwargs) -> Dict[str, Any]:
-        """caption -> numpy {encoder_hidden_states (1, L, C), encoder_attention_mask (1, L)}."""
+                           image=None, image_encoder=None, **kwargs) -> Dict[str, Any]:
+        """caption -> numpy {encoder_hidden_states (1, L, C), encoder_attention_mask (1, L)};
+        for I2V with both an image and an image encoder also
+        "encoder_hidden_states_image" (1, 257, image_dim) (JAX :166-177)."""
         data = {"caption": caption, "text_encoder": text_encoder, "max_sequence_length": max_sequence_length}
         for processor in self.condition_model_processors:
             data.update(processor(**data))
-        return {
+        out = {
             "encoder_hidden_states": data["encoder_hidden_states"],
             "encoder_attention_mask": data["encoder_attention_mask"],
         }
+        if self.is_i2v and image is not None and image_encoder is not None:
+            out["encoder_hidden_states_image"] = image_encoder.encode_image(np.asarray(image))
+        return out
 
     def prepare_latents(self, vae: ModelHandle, image: Optional[np.ndarray] = None,
                         video: Optional[np.ndarray] = None, compute_posterior: bool = False,
-                        **kwargs) -> Dict[str, Any]:
+                        last_image: Optional[np.ndarray] = None, **kwargs) -> Dict[str, Any]:
         """Media -> {"latents": the VAE's moments (1, 2C, F', H', W'), fp32 on
         the VAE's device; "latents_mean"/"latents_std" (C,) numpy}: an image
         (C, H, W) or a video (T, C, H, W) in [-1, 1] through `encode_media`
-        (JAX base_specification.py, `prepare_latents`). The trainer samples
-        the posterior in `forward`, so `compute_posterior` must stay False."""
+        (JAX :179-213). The trainer samples the posterior in `forward`, so
+        `compute_posterior` must stay False.
+
+        For I2V also "latent_condition", the moments of the conditioning video
+        (the first frame kept, the rest zeroed; with `last_image` (C, H, W), FLF2V,
+        the last frame set to it), and "latent_condition_mask" (1, t_down, F',
+        H', W'): ones on the first latent frame, and with `last_image` on the
+        last frame's first channel."""
         if compute_posterior:
             raise NotImplementedError("the port precomputes VAE moments only (compute_posterior=False)")
         device = next(vae.module.parameters()).device
-        return {
-            "latents": encode_media(vae, media_to_vae_input(image, video, device)),
+        x = media_to_vae_input(image, video, device)
+        moments = encode_media(vae, x)
+        out = {
+            "latents": moments,
             "latents_mean": vae.config["latents_mean"],
             "latents_std": vae.config["latents_std"],
         }
+        if self.is_i2v:
+            cond_video = x.clone()
+            cond_video[:, :, 1:] = 0.0
+            if last_image is not None:
+                cond_video[:, :, -1:] = torch.as_tensor(np.asarray(last_image, np.float32), device=device)[None, :, None]
+            mask = torch.zeros((1, vae.config["temporal_compression_ratio"], *moments.shape[2:]), device=device)
+            mask[:, :, 0] = 1.0
+            if last_image is not None:
+                mask[:, 0, -1] = 1.0
+            out["latent_condition"] = encode_media(vae, cond_video)
+            out["latent_condition_mask"] = mask
+        return out
 
     def collate_latents(self, data: List[Dict[str, Any]]) -> Dict[str, Any]:
         """The moments joined on the batch dim; the channel statistics, equal
@@ -171,8 +220,7 @@ class WanModelSpecification(ModelSpecification):
         draws: Optional[Dict[str, Any]] = None,
         **kwargs,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Flow-matching training forward, text-to-video (JAX :230-266) -> (pred,
-        target, sigmas).
+        """Flow-matching training forward (JAX :230-266) -> (pred, target, sigmas).
 
         latent_model_conditions: "latents" (VAE moments (B, 2C, F, H, W)),
         "latents_mean"/"latents_std" (C,). condition_model_conditions:
@@ -181,9 +229,11 @@ class WanModelSpecification(ModelSpecification):
         are taken from `draws` where given, else from `generator`: "posterior"
         and "noise" (standard normal, latent shape). One timestep per sample,
         sigmas * 1000; the posterior is always sampled (`compute_posterior` is
-        forced False in the reference)."""
-        if self.is_i2v:
-            raise NotImplementedError("Wan image-to-video training is not ported yet; see ROADMAP.md queue 1 (Wan I2V)")
+        forced False in the reference). For I2V the noisy latents are joined on
+        the channel axis by "latent_condition_mask" and the normalised
+        "latent_condition"'s mean (its posterior mode), and
+        "encoder_hidden_states_image", where the conditions hold it, reaches
+        the image-KV branch."""
         draws = draws or {}
         device = sigmas.device
 
@@ -200,12 +250,20 @@ class WanModelSpecification(ModelSpecification):
         latents = sample_from_moments(moments, noise=draw("posterior", shape))
         noise = draw("noise", latents.shape)
         noisy = flow_match_xt(latents, noise, sigmas.reshape(-1, 1, 1, 1, 1))
+        if self.is_i2v:
+            cond = self._normalize_moments(latent_model_conditions["latent_condition"].to(device),
+                                           latent_model_conditions["latents_mean"].to(device),
+                                           latent_model_conditions["latents_std"].to(device))
+            noisy = torch.cat([noisy, latent_model_conditions["latent_condition_mask"].to(device).float(),
+                               cond.chunk(2, dim=1)[0]], dim=1)
         mask = condition_model_conditions.get("encoder_attention_mask")
+        image_embeds = condition_model_conditions.get("encoder_hidden_states_image")
         pred = transformer.module(
             noisy.to(self.transformer_dtype),
             condition_model_conditions["encoder_hidden_states"].to(device),
             sigmas * 1000.0,
             encoder_attention_mask=None if mask is None else mask.to(device),
+            encoder_hidden_states_image=None if image_embeds is None else image_embeds.to(device),
         )
         return pred, flow_match_target(noise, latents), sigmas
 
@@ -217,3 +275,17 @@ class WanModelSpecification(ModelSpecification):
         video = pipeline(prompt=prompt, image=image, height=height, width=width, num_frames=num_frames,
                          num_inference_steps=num_inference_steps)
         return [VideoArtifact(value=video)]
+
+
+class _OfflineImageEncoder:
+    """The JAX package's deterministic CLIP-vision stand-in (:294-305): (1, 257,
+    dim) normal * 0.02 embeds from a RandomState seeded with the image bytes'
+    sha256, so both packages give the same bytes for the same image array."""
+
+    def __init__(self, dim: int):
+        self.dim = dim
+
+    def encode_image(self, image: np.ndarray) -> np.ndarray:
+        digest = hashlib.sha256(np.ascontiguousarray(image).tobytes()).digest()
+        seed = int.from_bytes(digest[:4], "little")
+        return np.random.RandomState(seed).randn(1, 257, self.dim).astype(np.float32) * 0.02

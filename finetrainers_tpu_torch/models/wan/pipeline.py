@@ -1,6 +1,15 @@
-"""Wan 2.1 text-to-video pipeline, flow-match Euler (port of the T2V path of
-`finetrainers_tpu/models/wan/pipeline.py`). Image-to-video and control
-conditioning are not ported yet."""
+"""Wan 2.1 text- and image-to-video pipeline (port of
+`finetrainers_tpu/models/wan/pipeline.py`), with the scheduler the spec
+loads (the checkpoint's UniPC, or flow-match Euler with shift 3).
+
+Image-to-video (JAX :48-75, :118-130): the image is placed as the first frame
+of an otherwise zero video at the request's size, encoded whole by the VAE
+(its raw posterior mean, not normalised: a JAX bug the port reproduces,
+ROADMAP.md section 3), and joined with the first-frame mask to the latents on
+the channel axis in every denoise step. Where the pipeline has an
+`image_encoder`, its embeds reach the image-KV branch, repeated over the CFG
+batch; `load_pipeline` leaves it unset, as JAX does. Control conditioning is
+not ported (ROADMAP.md queue 1 item 9)."""
 
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ class WanPipeline:
     vae: ModelHandle
     text_encoder: Any
     scheduler: FlowMatchEulerScheduler
+    image_encoder: Any = None
 
     def latent_shape(self, num_frames: int, height: int, width: int):
         """(1, C, F', H', W') of the latents for a video of the given size."""
@@ -28,29 +38,55 @@ class WanPipeline:
         tr = self.vae.config["temporal_compression_ratio"]
         return (1, self.vae.config["latent_channels"], (num_frames - 1) // tr + 1, height // sr, width // sr)
 
-    def encode_prompt(self, prompt: str, negative_prompt: Optional[str], do_cfg: bool):
-        """Text path -> (encoder_hidden_states, mask) on the device; with CFG the
-        batch is [uncond, cond]."""
+    def encode_prompt(self, prompt: str, negative_prompt: Optional[str], do_cfg: bool, image=None):
+        """Text path -> (encoder_hidden_states, mask, image embeds or None) on
+        the device; with CFG the batch is [uncond, cond], and the image embeds
+        (where an image and the pipeline's image encoder give them) repeat."""
         spec = self.spec
-        conds = spec.prepare_conditions(caption=prompt, text_encoder=self.text_encoder)
+        conds = spec.prepare_conditions(caption=prompt, text_encoder=self.text_encoder, image=image,
+                                        image_encoder=self.image_encoder)
         ehs, mask = conds["encoder_hidden_states"], conds["encoder_attention_mask"]
+        img_embeds = conds.get("encoder_hidden_states_image")
         if do_cfg:
             neg = spec.prepare_conditions(caption=negative_prompt or "", text_encoder=self.text_encoder)
             ehs = np.concatenate([neg["encoder_hidden_states"], ehs])
             mask = np.concatenate([neg["encoder_attention_mask"], mask])
-        return torch.from_numpy(ehs).to(spec.device), torch.from_numpy(mask).to(spec.device)
+            if img_embeds is not None:
+                img_embeds = np.concatenate([img_embeds, img_embeds])
+        if img_embeds is not None:
+            img_embeds = torch.from_numpy(img_embeds).to(spec.device)
+        return torch.from_numpy(ehs).to(spec.device), torch.from_numpy(mask).to(spec.device), img_embeds
+
+    def image_condition(self, image, num_frames: int, height: int, width: int) -> torch.Tensor:
+        """The I2V channels (1, t_down + C, F', H', W'): the first-frame mask and
+        the VAE's raw posterior mean of the image placed as frame 0 of a zero
+        video at the request's size (a uint8 (H, W, 3) image is mapped to [-1, 1]
+        first; JAX :63-75)."""
+        img = np.asarray(image, np.float32)
+        if img.ndim == 3 and img.shape[-1] == 3:
+            img = np.moveaxis(img / 127.5 - 1.0, -1, 0)
+        frames = torch.zeros((1, 3, num_frames, height, width), dtype=torch.float32, device=self.spec.device)
+        frames[:, :, 0] = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(self.spec.device)
+        cond_latents = self.vae.module.encode(frames).chunk(2, dim=1)[0]
+        mask = torch.zeros((1, self.vae.config["temporal_compression_ratio"], *cond_latents.shape[2:]),
+                           dtype=torch.float32, device=self.spec.device)
+        mask[:, :, 0] = 1.0
+        return torch.cat([mask, cond_latents], dim=1)
 
     def denoise_step(self, latents: torch.Tensor, ehs: torch.Tensor, mask: torch.Tensor, guidance_scale: float,
-                     sigma: float) -> torch.Tensor:
+                     sigma: float, img_embeds: Optional[torch.Tensor] = None,
+                     cond_channels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One transformer evaluation (CFG as one batch of 2 when `ehs` holds two
-        rows): the guided velocity in the latents' (1, C, F', H', W') layout."""
+        rows): the guided velocity in the latents' (1, C, F', H', W') layout.
+        I2V's `cond_channels` join the latents on the channel axis first."""
         do_cfg = ehs.shape[0] == 2
-        model_in = torch.cat([latents] * 2) if do_cfg else latents
+        model_in = latents if cond_channels is None else torch.cat([latents, cond_channels], dim=1)
+        model_in = torch.cat([model_in] * 2) if do_cfg else model_in
         # sigma * 1000 and the guidance are formed in fp32, as the jitted JAX step does.
         t = float(np.float32(sigma) * np.float32(1000.0))
         timestep = torch.full((model_in.shape[0],), t, dtype=torch.float32, device=latents.device)
         pred = self.transformer.module(model_in.to(self.spec.transformer_dtype), ehs, timestep,
-                                       encoder_attention_mask=mask)
+                                       encoder_attention_mask=mask, encoder_hidden_states_image=img_embeds)
         if do_cfg:
             uncond, cond = pred.chunk(2)
             pred = uncond + float(np.float32(guidance_scale)) * (cond - uncond)
@@ -75,14 +111,15 @@ class WanPipeline:
     ) -> np.ndarray:
         """Generate one video -> uint8 (F, H, W, 3). `latents` is an optional
         explicit initial draw of `latent_shape(...)`; without it the draw comes
-        from `torch.Generator(device).manual_seed(seed)`."""
-        if image is not None or self.spec.is_i2v:
-            raise NotImplementedError("Wan image-to-video is not ported yet; see ROADMAP.md queue 1 (Wan I2V)")
+        from `torch.Generator(device).manual_seed(seed)`. `image` (uint8 (H, W,
+        3) or float (3, H, W) in [-1, 1], at the request's size) conditions an
+        I2V model; a T2V model ignores it, as in JAX."""
         if control_image is not None or control_video is not None:
-            raise NotImplementedError("Wan control conditioning is not ported yet; see ROADMAP.md queue 1 (control trainer)")
+            raise NotImplementedError("Wan control conditioning is not ported yet; see ROADMAP.md queue 1 item 9 "
+                                      "(control trainer)")
         device = self.spec.device
         shape = self.latent_shape(num_frames, height, width)
-        ehs, mask = self.encode_prompt(prompt, negative_prompt, guidance_scale > 1.0)
+        ehs, mask, img_embeds = self.encode_prompt(prompt, negative_prompt, guidance_scale > 1.0, image)
         if latents is None:
             generator = torch.Generator(device=device).manual_seed(seed)
             latents = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
@@ -91,11 +128,15 @@ class WanPipeline:
             if tuple(latents.shape) != shape:
                 raise ValueError(f"latents must have shape {shape}, got {tuple(latents.shape)}")
 
+        cond_channels = None
+        if self.spec.is_i2v and image is not None:
+            cond_channels = self.image_condition(image, num_frames, height, width)
+
         sigmas = self.scheduler.inference_sigmas(num_inference_steps)
         sampler = self.scheduler.make_sampler(sigmas)
         for i in range(num_inference_steps):
-            pred = self.denoise_step(latents, ehs, mask, guidance_scale, float(sigmas[i]))
-            latents = sampler.update(pred, i, latents)
+            pred = self.denoise_step(latents, ehs, mask, guidance_scale, float(sigmas[i]), img_embeds, cond_channels)
+            latents = sampler.update(pred, i, latents)  # the guided prediction: UniPC's history takes it
 
         mean = torch.as_tensor(self.vae.config["latents_mean"], device=device).reshape(1, -1, 1, 1, 1)
         std = torch.as_tensor(self.vae.config["latents_std"], device=device).reshape(1, -1, 1, 1, 1)

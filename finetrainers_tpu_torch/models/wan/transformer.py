@@ -2,12 +2,16 @@
 
 Structure: 3D patch embed (1, 2, 2) -> [N x block: adaLN(self-attention with
 3D axial RoPE and per-head-shared tables, RMS QK norm over the inner dim) ->
-LayerNorm cross-attention to the text (`kv_lens` from its mask) ->
+LayerNorm cross-attention to the text (`kv_lens` from its mask), plus for
+image-to-video a separate image-KV branch over the image embeds ->
 adaLN(GELU-tanh MLP)] -> norm_out + table modulation -> proj_out, fp32 out.
 The modulation is a per-sample (B, 6, dim) table, not per token (unlike LTX).
 Module and parameter names are diffusers' `WanTransformer3DModel` names, except
 the patch embedding, a linear layer over flattened patches as in the JAX
-package. Image-to-video (the image-KV branch, `image_dim`) is not ported yet.
+package. With `image_dim` set (I2V) every block's cross-attention carries
+`add_k_proj`/`add_v_proj`/`norm_added_k`, and the image embedder maps the
+CLIP-vision embeds to the model width; without image embeds in the call the
+branch is skipped, as in JAX.
 """
 
 from __future__ import annotations
@@ -28,9 +32,6 @@ from ..layers import (
     block_stack,
     sinusoidal_timestep_embedding,
 )
-
-_I2V_ITEM = "ROADMAP.md queue 1 (Wan I2V: the image-KV branch)"
-
 
 def wan_rope_freqs(head_dim: int, num_frames: int, height: int, width: int,
                    device: Optional[torch.device] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -61,13 +62,13 @@ class WanAttention(nn.Module):
     """Wan attention: q/k/v/out with biases, RMS norm of q and k over the
     inner dim, heads of `head_dim`. Self-attention passes the expanded tables
     to `attention_dispatch`: `auto` fuses the rotation into K1's pre-pass,
-    `sage` into K6's."""
+    `sage` into K6's. With `has_image_kv` (I2V cross-attention), q also
+    attends to the image keys in a second call, without RoPE or `kv_lens`,
+    and the two outputs add (JAX transformer.py:83-92)."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, has_image_kv: bool = False, lora_rank: int = 0,
                  lora_alpha: float = 1.0, dtype: torch.dtype = torch.bfloat16, eps: float = 1e-6) -> None:
         super().__init__()
-        if has_image_kv:
-            raise NotImplementedError(f"Wan image-to-video attention is not ported yet; see {_I2V_ITEM}")
         inner = num_heads * head_dim
         self.num_heads = num_heads
         self.head_dim = head_dim
@@ -78,16 +79,27 @@ class WanAttention(nn.Module):
         self.norm_q = RMSNorm(inner, eps=eps, dtype=dtype)
         self.norm_k = RMSNorm(inner, eps=eps, dtype=dtype)
         self.to_out = nn.ModuleList([LoRADense(inner, dim, **kw)])
+        self.has_image_kv = has_image_kv
+        if has_image_kv:
+            self.add_k_proj = LoRADense(dim, inner, **kw)
+            self.add_v_proj = LoRADense(dim, inner, **kw)
+            self.norm_added_k = RMSNorm(inner, eps=eps, dtype=dtype)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kv_lens: Optional[torch.Tensor] = None,
+                image_context: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx = x if context is None else context
         b, sq, skv = x.shape[0], x.shape[1], ctx.shape[1]
         q = self.norm_q(self.to_q(x)).reshape(b, sq, self.num_heads, self.head_dim)
         k = self.norm_k(self.to_k(ctx)).reshape(b, skv, self.num_heads, self.head_dim)
         v = self.to_v(ctx).reshape(b, skv, self.num_heads, self.head_dim)
         out = attention_dispatch(q, k, v, kv_lens=kv_lens, rope_freqs=rope)
+        if self.has_image_kv and image_context is not None:
+            s_img = image_context.shape[1]
+            k_img = self.norm_added_k(self.add_k_proj(image_context)).reshape(b, s_img, self.num_heads, self.head_dim)
+            v_img = self.add_v_proj(image_context).reshape(b, s_img, self.num_heads, self.head_dim)
+            out = out + attention_dispatch(q, k_img, v_img)
         return self.to_out[0](out.reshape(b, sq, self.num_heads * self.head_dim))
 
 
@@ -110,7 +122,7 @@ class WanTransformerBlock(nn.Module):
         with torch.no_grad():
             self.scale_shift_table.normal_(0.0, self.dim**-0.5, generator=generator)
 
-    def forward(self, x, context, temb, rope, encoder_kv_lens=None):
+    def forward(self, x, context, temb, rope, encoder_kv_lens=None, image_context=None):
         # scale_shift_table (1, 6, dim) + temb (B, 6, dim), added in fp32, then
         # each (B, 1, dim) slice cast (transformer.py:110-113).
         ada = self.scale_shift_table + temb.float()
@@ -119,7 +131,7 @@ class WanTransformerBlock(nn.Module):
         ]
         h = self.norm1(x) * (1.0 + scale_msa) + shift_msa
         x = x + self.attn1(h, rope=rope) * gate_msa
-        x = x + self.attn2(self.norm2(x), context=context, kv_lens=encoder_kv_lens)
+        x = x + self.attn2(self.norm2(x), context=context, kv_lens=encoder_kv_lens, image_context=image_context)
         h = self.norm3(x) * (1.0 + c_scale) + c_shift
         return x + self.ffn(h) * c_gate
 
@@ -134,12 +146,28 @@ class _LinearPair(nn.Module):
         self.linear_2 = LoRADense(dim, dim, dtype=dtype)
 
 
+class _ImageEmbedder(nn.Module):
+    """norm1 -> ff (GELU-tanh) -> norm2 over the image embeds, diffusers'
+    `WanImageEmbedding` names (JAX transformer.py:194-203)."""
+
+    def __init__(self, image_dim: int, dim: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.norm1 = LayerNorm(image_dim, elementwise_affine=True, dtype=dtype)
+        self.ff = FeedForward(image_dim, dim, out_features=dim, dtype=dtype)
+        self.norm2 = LayerNorm(dim, elementwise_affine=True, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm2(self.ff(self.norm1(x)))
+
+
 class _ConditionEmbedder(nn.Module):
-    def __init__(self, dim: int, freq_dim: int, text_dim: int, dtype: torch.dtype) -> None:
+    def __init__(self, dim: int, freq_dim: int, text_dim: int, image_dim: Optional[int], dtype: torch.dtype) -> None:
         super().__init__()
         self.time_embedder = _LinearPair(freq_dim, dim, dtype)
         self.time_proj = LoRADense(dim, 6 * dim, dtype=dtype)
         self.text_embedder = _LinearPair(text_dim, dim, dtype)
+        if image_dim is not None:
+            self.image_embedder = _ImageEmbedder(image_dim, dim, dtype)
 
 
 class WanTransformer3DModel(nn.Module):
@@ -149,23 +177,23 @@ class WanTransformer3DModel(nn.Module):
                  lora_rank: int = 0, lora_alpha: float = 1.0, dtype: torch.dtype = torch.bfloat16,
                  gradient_checkpointing: Optional[str] = None) -> None:
         super().__init__()
-        if image_dim is not None:
-            raise NotImplementedError(f"Wan image-to-video (image_dim={image_dim}) is not ported yet; see {_I2V_ITEM}")
         inner = num_attention_heads * attention_head_dim
         self.inner = inner
         self.dtype = dtype
         self.out_channels = out_channels
         self.patch_size = tuple(patch_size)
         self.freq_dim = freq_dim
+        self.image_dim = image_dim
         # Per-block remat policy (None or a type of CHECKPOINT_TYPES), read by block_stack.
         self.gradient_checkpointing = gradient_checkpointing
         pt, ph, pw = self.patch_size
         self.patch_embedding = LoRADense(in_channels * pt * ph * pw, inner, dtype=dtype)
-        self.condition_embedder = _ConditionEmbedder(inner, freq_dim, text_dim, dtype)
+        self.condition_embedder = _ConditionEmbedder(inner, freq_dim, text_dim, image_dim, dtype)
         self.rope = WanRotaryPosEmbed(attention_head_dim)
         self.blocks = nn.ModuleList([
-            WanTransformerBlock(inner, num_attention_heads, attention_head_dim, ffn_dim, lora_rank=lora_rank,
-                                lora_alpha=lora_alpha, dtype=dtype)
+            WanTransformerBlock(inner, num_attention_heads, attention_head_dim, ffn_dim,
+                                has_image_kv=image_dim is not None, lora_rank=lora_rank, lora_alpha=lora_alpha,
+                                dtype=dtype)
             for _ in range(num_layers)
         ])
         self.scale_shift_table = nn.Parameter(torch.empty(1, 2, inner, dtype=torch.float32))
@@ -182,6 +210,7 @@ class WanTransformer3DModel(nn.Module):
         encoder_hidden_states: torch.Tensor,  # (B, L, text_dim)
         timestep: torch.Tensor,  # (B,)
         encoder_attention_mask: Optional[torch.Tensor] = None,  # (B, L) mask or (B,) kv_lens
+        encoder_hidden_states_image: Optional[torch.Tensor] = None,  # (B, Li, image_dim), I2V
     ) -> torch.Tensor:
         b, c, f, h, w = hidden_states.shape
         pt, ph, pw = self.patch_size
@@ -196,6 +225,9 @@ class WanTransformer3DModel(nn.Module):
         temb_proj = cond.time_proj(F.silu(temb)).reshape(b, 6, self.inner)
         context = cond.text_embedder.linear_2(
             F.gelu(cond.text_embedder.linear_1(encoder_hidden_states.to(self.dtype)), approximate="tanh"))
+        image_context = None
+        if self.image_dim is not None and encoder_hidden_states_image is not None:
+            image_context = cond.image_embedder(encoder_hidden_states_image.to(self.dtype))
 
         kv_lens = None
         if encoder_attention_mask is not None:
@@ -203,7 +235,8 @@ class WanTransformer3DModel(nn.Module):
             kv_lens = mask.sum(dim=1, dtype=torch.int32) if mask.ndim == 2 else mask
 
         rope = self.rope(pf, phh, pww, x.device)
-        x = block_stack(self.blocks, x, context, temb_proj, rope, kv_lens, checkpoint=self.gradient_checkpointing)
+        x = block_stack(self.blocks, x, context, temb_proj, rope, kv_lens, image_context,
+                        checkpoint=self.gradient_checkpointing)
 
         mod = self.scale_shift_table + temb[:, None].float()  # (B, 2, inner)
         shift, scale = mod[:, 0][:, None].to(self.dtype), mod[:, 1][:, None].to(self.dtype)

@@ -141,7 +141,10 @@ class ClippedOptimizer:
     def step(self) -> torch.Tensor:
         """Clip the gradients by their global norm, update, and return the
         norm before clipping (a device scalar; nothing here waits for the device)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
+        for param in self.params:
+            if param.grad is None:  # optax's gradient tree holds zeros there: the moments and the decay still apply
+                param.grad = torch.zeros_like(param)
+        grads = [p.grad for p in self.params]
         norm = global_norm(grads)
         if self.max_grad_norm is not None:
             scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm), self.max_grad_norm / norm)

@@ -826,3 +826,80 @@ def test_k1_k2_k3_ragged_last_tile_at_h128(rope):
         # The last tile's 56 rows on their own: a store or a load past the sequence would show here first.
         rel_l2, max_ratio = _rel_errors(got[:, :, 1024:], want[:, :, 1024:])
         assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, rope, "last tile", rel_l2, max_ratio)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("provider", ["auto", "sage"])
+def test_image_cross_attention_with_one_key_in_the_last_tile(provider):
+    """Wan I2V's image branch: q over 376 = 2 * 128 + 120 tokens attends to 257
+    = 2 * 128 + 1 image keys at N=40, H=128, with no kv_lens, so K1's and K6's
+    last kv tile holds a single key. Through `attention_dispatch` (BTNH, as the
+    model calls it): under `auto` the pre-pass and K1 against
+    `flash_attention_reference` (out within 2e-2 * max(1, |ref|); the LSE from
+    `flash_forward` within 1e-2), under `sage` the pre-pass and K6 against
+    `sage_attention_reference` on the pre-pass's codes (K6's bounds). k and v
+    are views into buffers whose rows past 257 hold 3e4, which no kernel may
+    read (a row over the one-key tile must not take exp2(-inf - -inf) either)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    b, n, sq, skv, h, pad = 2, 40, 376, 257, 128, 63
+    q = torch.randn(b, sq, n, h, device="cuda", generator=g).to(torch.bfloat16)
+    bufs = [torch.randn(b, skv + pad, n, h, device="cuda", generator=g).to(torch.bfloat16) for _ in range(2)]
+    for buf in bufs:
+        buf[:, skv:] = 3e4
+    k, v = (buf[:, :skv] for buf in bufs)
+    before = (flash_forward.launches, sage_forward.launches)
+    out = attention_dispatch(q, k, v, provider=provider)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and out.shape == (b, sq, n, h)
+    if provider == "auto":
+        assert (flash_forward.launches, sage_forward.launches) == (before[0] + 1, before[1])
+        ref, ref_lse = flash_attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        err = (out.transpose(1, 2).float() - ref.float()).abs()
+        assert (err / ref.float().abs().clamp_min(1.0)).max().item() <= 2e-2
+        _, lse = flash_forward(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        assert (lse - ref_lse).abs().max().item() <= 1e-2
+    else:
+        assert (flash_forward.launches, sage_forward.launches) == (before[0], before[1] + 1)
+        lens = torch.full((b,), skv, dtype=torch.int32, device="cuda")
+        codes = sage_prep(q, k, lens)
+        ref = sage_attention_reference(*codes, v.transpose(1, 2), lens)
+        _assert_k6_close(out.transpose(1, 2), ref, provider)
+        # The last query tile's 120 rows on their own.
+        _assert_k6_close(out.transpose(1, 2)[:, :, 256:], ref[:, :, 256:], (provider, "last q tile"))
+
+
+@pytest.mark.gpu
+def test_k1_k2_k3_at_40_heads_with_a_120_row_last_tile():
+    """K1, the pre-pass, K2 and K3 at N=40, H=128 (Wan I2V-14B's heads) where
+    Sq = Skv = 1016 = 7 * 128 + 120, the last tile's fill at 81x480x832
+    (32,760 tokens), with shared Wan-style tables: against
+    `flash_attention_reference` and `flash_backward_reference`, with the bounds
+    of `test_k1_k2_k3_ragged_last_tile_at_h128`, the last tile's rows also on
+    their own. Each input is a view into a buffer whose rows past the sequence
+    hold 3e4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(32)
+    b, n, s, h, pad = 1, 40, 1016, 128, 8
+    bufs = [torch.randn(b, s + pad, n, h, device="cuda", generator=g).to(torch.bfloat16) for _ in range(4)]
+    for buf in bufs:
+        buf[:, s:] = 3e4
+    q, k, v, do = (buf[:, :s].transpose(1, 2) for buf in bufs)
+    cos, sin = _tables("shared", n, s, h, g)
+    out, lse = flash_forward(q, k, v, None, cos, sin)
+    ref, ref_lse = flash_attention_reference(q, k, v, None, cos, sin)
+    torch.cuda.synchronize()
+    for rows in (slice(None), slice(896, None)):
+        err = (out[:, :, rows].float() - ref[:, :, rows].float()).abs()
+        assert torch.isfinite(out).all() and (err / ref[:, :, rows].float().abs().clamp_min(1.0)).max() <= 2e-2
+        assert (lse[:, :, rows] - ref_lse[:, :, rows]).abs().max().item() <= 1e-2
+    grads = flash_backward(q, k, v, out, lse, do, None, cos, sin)
+    refs = flash_backward_reference(q, k, v, out, lse, do, None, cos, sin)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        assert torch.isfinite(got).all(), name
+        for rows in (slice(None), slice(896, None)):
+            rel_l2, max_ratio = _rel_errors(got[:, :, rows], want[:, :, rows])
+            assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, rows, rel_l2, max_ratio)

@@ -8,7 +8,9 @@ import raise; the port writes safetensors files itself) and replaces
 remat, diffusion math, the K4 op, checkpoints, the safetensors writer) and
 the Wan serving slice's (int8 attention, Wan transformer, spec, pipeline)
 and the data stage's (datasets, loader, sampler, precompute, prefetch,
-trackers, the command line `finetrainers_tpu_torch.train`) among them. Any
+trackers, the command line `finetrainers_tpu_torch.train`) and the Wan I2V
+slice's (the multistep schedulers, the weight bridge, the inference runner
+`finetrainers_tpu_torch.inference`) among them. Any
 import of a blocked package, any `nvcc` run and any kernel library loaded
 during import fails the test. A second fresh interpreter blocks nothing,
 imports every module and finds neither `jax` nor `finetrainers_tpu` in
@@ -44,7 +46,8 @@ training = {"finetrainers_tpu_torch." + m for m in (
     "models.wan.base_specification", "models.wan.pipeline", "checkpoint", "utils.serialization",
     "train", "constants", "trackers", "functional.text", "functional.image", "functional.video", "data.utils",
     "data.dataset", "data.sampler", "data.precomputation", "data.dataloader", "data.prefetch",
-    "models.autoencoders", "utils.memory", "utils.timing", "utils.hub")}
+    "models.autoencoders", "utils.memory", "utils.timing", "utils.hub", "inference", "schedulers", "config",
+    "models.wan.weights", "models.weight_utils", "models.layers")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
 print(len(names))
 """
@@ -63,6 +66,7 @@ import finetrainers_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import finetrainers_tpu_torch.train
+import finetrainers_tpu_torch.inference
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu"))
 assert not bad, bad
 print("ok")

@@ -116,13 +116,23 @@ def test_prepare_conditions_pad_to_512_text_tokens(pipelines):
 
 
 def test_image_to_video_and_control_are_not_ported(pipelines):
+    """Control conditioning still raises naming ROADMAP.md. Image-to-video is
+    ported (the name is kept from when both raised): a T2V pipeline ignores
+    an image, as JAX's does, and a tiny I2V model serves an image request
+    whose video depends on the image."""
     port_pipe = pipelines[2]
-    for extra in (dict(image=np.zeros((16, 24, 3), np.uint8)), dict(control_video=np.zeros((5, 16, 24, 3), np.uint8))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_pipe(**REQUEST, **extra)
-    i2v_spec = WanModelSpecification(transformer_config={**TINY, "image_dim": 32}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        i2v_spec.forward(None, {}, {}, torch.zeros(1))
+        port_pipe(**REQUEST, control_video=np.zeros((5, 16, 24, 3), np.uint8))
+    request = {**REQUEST, "num_inference_steps": 1}
+    image = np.random.RandomState(2).randint(0, 256, (16, 24, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(port_pipe(**request, image=image), port_pipe(**request))
+    i2v_spec = WanModelSpecification(transformer_config={**TINY, "in_channels": 4 + 2 + 4, "image_dim": 32},
+                                     vae_config=AutoencoderConfig(**VAE_KW), device="cpu",
+                                     transformer_dtype=torch.float32, vae_dtype=torch.float32)
+    i2v_pipe = i2v_spec.load_pipeline(text_encoder=HashEncoder(hidden_size=32, max_length=16))
+    videos = [i2v_pipe(**request, image=img) for img in (image, 255 - image)]
+    assert all(v.shape == (5, 16, 24, 3) and v.dtype == np.uint8 for v in videos)
+    assert not np.array_equal(*videos)
 
 
 def test_registry_resolves_wan_and_spec_serves_offline():
