@@ -5,7 +5,10 @@ every kernel switch of the flash attention, every remat policy, gradient
 accumulation, checkpoint/resume and the LoRA export, the Wan example's
 run through its command line, from videos on disk, and Wan 2.1 I2V-14B at
 full width: LoRA training, then image-to-video serving through the inference
-runner with the exported adapter and UniPC at 81x480x832.
+runner with the exported adapter and UniPC at 81x480x832, and FLUX.1-dev at
+full width: the flux_dev example's LoRA run through its command line at its
+own 1280x720 bucket, then 1024x1024 text-to-image serving through the runner
+with the exported adapter.
 
     python3 chip_smoke.py
 
@@ -158,7 +161,30 @@ Phases, each printed on its own line:
      on the first and last heads) and (2, 40, 32760, 257, 128) with no
      kv_lens, K1 at the text cross shape with 40 heads, and K1, K2 and K3 at
      (1, 40, 20280, 20280, 128) and its 512-key cross shape;
-  13. `env`: whether `cv2` and `PIL` import on this machine (information only).
+  13. FLUX.1-dev at full width (`FLUX_TRANSFORMER_CONFIG`: 19 dual and 38
+     single blocks, 24 heads x 128, 11,901,408,320 parameters, bf16):
+     `flux_kernel_checks`, K1 and the pre-pass at the serving self-attention
+     (1, 24, 4608, 4608, 128) and K1, the pre-pass, K2 and K3 at the
+     training one (1, 24, 4112, 4112, 128, a last tile of 16 rows), with
+     Flux's per-token tables (identity text rows), against their plain
+     versions head by head, timed, with bounds and SDPA; `flux_run`,
+     `python -m finetrainers_tpu_torch.train` with the flux_dev train.sh's
+     flags (one card, `ops` remat, `transformer:auto`, rank 32) from 4 PNG
+     images written with cv2 and bucketed to 1280x720 (4112 tokens): 4
+     steps, K1 57, the pre-pass 114, K2 57 and K3 57 launches each and no
+     reduce pass (24 heads x 33 kv tiles = 792 CTAs, over the 132 SMs), the
+     final validation from the exported adapter (1 request, 2 steps of 50: K1
+     and the pre-pass 114), step seconds, model TFLOP/s, peaks, precompute
+     seconds per image, a profiled step after the run, then the step under
+     `ops` and under `full` in turns (`flux_run_policies`); `flux_serve`, one
+     1024x1024 request through `inference.main` with guidance 3.5, 4 Euler
+     steps of 28 with dynamic shifting from a scheduler config written as the
+     public FLUX.1-dev checkpoint names it, and that adapter: a finite (1024,
+     1024, 3) image written as .png, the adapter's factors in the served
+     model, K1 and the pre-pass 57 times a step and no other kernel, the
+     VAE's largest activation under SPLIT_ELEMENTS (no strips), request,
+     step and decode seconds, the peak and a profiled step;
+  14. `env`: whether `cv2` and `PIL` import on this machine (information only).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
 0. Without a CUDA card it raises before printing any result.
@@ -188,6 +214,7 @@ from finetrainers_tpu_torch.args import BaseArgs
 from finetrainers_tpu_torch.constants import PRECOMPUTED_DIR_NAME
 from finetrainers_tpu_torch.data import to_device
 from finetrainers_tpu_torch.models.ltx_video.transformer import LTXRotaryPosEmbed
+from finetrainers_tpu_torch.models.flux import FLUX_TRANSFORMER_CONFIG
 from finetrainers_tpu_torch.models.wan import WAN_I2V_14B_CONFIG
 from finetrainers_tpu_torch.models.wan.transformer import WanRotaryPosEmbed
 from finetrainers_tpu_torch.ops import _build, attention_dispatch, attention_provider
@@ -285,6 +312,32 @@ I2V_TRAIN_TIMED_STEPS = 3
 I2V_SCHEDULER_CONFIG = {"_class_name": "UniPCMultistepScheduler", "num_train_timesteps": 1000, "flow_shift": 3.0,
                         "solver_order": 2, "solver_type": "bh2", "lower_order_final": True, "disable_corrector": [],
                         "prediction_type": "flow_prediction", "use_flow_sigmas": True}
+# FLUX.1-dev (FLUX_TRANSFORMER_CONFIG, JAX models/flux/base_specification.py:34-38): 19 dual and 38 single blocks,
+# 24 heads x 128, joint dim 4096, pooled 768, guidance embeds; 11,901,408,320 parameters (jax.eval_shape on the JAX
+# model). Each block runs one joint attention over [512 text, image] tokens with per-token RoPE tables whose text
+# rows are the identity. Serving at 1024x1024: 128x128 latents -> 64x64 = 4096 image tokens, 4608 in all (36 full
+# 128-row tiles). Training at the flux_dev example's own 1280x720 bucket (height x width,
+# examples/training/sft/flux_dev/raider_white_tarot/training.json): 160x90 latents -> 80x45 = 3600 image tokens,
+# 4112 in all (32 full tiles and one of 16 rows).
+FLUX_PARAMS = 11_901_408_320
+FLUX_LAYERS = 57  # 19 dual + 38 single, one attention each
+FLUX_HEADS = 24
+FLUX_TEXT = 512
+FLUX_AXES = (16, 56, 56)
+FLUX_SERVE_LATENT = (128, 128)
+FLUX_SERVE_TOKENS = 4608
+FLUX_RUN_BUCKET = (1280, 720)
+FLUX_RUN_LATENT = (160, 90)
+FLUX_RUN_TOKENS = 4112
+FLUX_SERVE_STEPS = 4  # cut from the pipeline's default 28
+FLUX_EXAMPLE = (pathlib.Path(__file__).resolve().parent / "examples" / "training" / "sft" / "flux_dev"
+                / "raider_white_tarot")
+FLUX_RUN_IMAGES, FLUX_RUN_STEPS = 4, 4  # cut from the example's 50 precomputed items and 1000 steps
+FLUX_RANK = 32
+# The scheduler config of the public black-forest-labs/FLUX.1-dev checkpoint.
+FLUX_SCHEDULER_CONFIG = {"_class_name": "FlowMatchEulerDiscreteScheduler", "num_train_timesteps": 1000, "shift": 3.0,
+                         "use_dynamic_shifting": True, "base_shift": 0.5, "max_shift": 1.15,
+                         "base_image_seq_len": 256, "max_image_seq_len": 4096}
 # Wan 2.1 T2V-1.3B LoRA training (tools/floor_bench.py's setup_wan with the optimizer of
 # examples/training/sft/wan/crush_smol_lora/train.sh): rank 32, B=1, the VAE moments of a 49x512x768 clip
 # (13x64x96 latents -> 19968 tokens), 512 caption tokens, all valid; per-block "full" remat.
@@ -671,16 +724,16 @@ def _by_head(fn, n, tensors, tables):
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
-def check_k2k3(card):
+def check_k2k3(card, cases=None, phase_name="k2k3_check"):
     """The pre-pass, K2 and K3 against their plain versions at the training
-    paths' shapes: LTX's self-attention with per-head tables, LTX's
-    cross-attention with kv_lens, a ragged case with an empty row, H=128 with
-    shared tables, and Wan's training self-attention (shared Wan tables) and
-    cross-attention (kv_lens [512]) at full width, the Wan cases held against
-    `flash_backward_reference` one head at a time. Returns the worst errors and
-    the records by case."""
+    paths' shapes (by default: LTX's self-attention with per-head tables,
+    LTX's cross-attention with kv_lens, a ragged case with an empty row, H=128
+    with shared tables, and Wan's training self-attention (shared Wan tables)
+    and cross-attention (kv_lens [512]) at full width), the cases over 4096^2
+    held against `flash_backward_reference` one head at a time. Returns the
+    worst errors and the records by case."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    cases = {
+    cases = cases or {
         "self_rope": dict(b=1, n=32, sq=2688, skv=2688, h=64, lens=None, rope="ltx"),
         "cross_kv_lens": dict(b=1, n=32, sq=2688, skv=128, h=64, lens=[37], rope=None),
         "ragged_empty_row": dict(b=2, n=32, sq=1000, skv=77, h=64, lens=[77, 0], rope=None),
@@ -756,7 +809,7 @@ def check_k2k3(card):
         prep_bound = bound(0, 2 * b * n * sq * h * 2 + (2 * b * n * skv * h * 2 + 2 * cos.numel() * 4
                                                         if cos is not None else 0))
         splits = dkdv_splits(b, n, sq, skv, torch.cuda.get_device_properties(0).multi_processor_count)
-        phase("k2k3_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
+        phase(phase_name, case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
               plain_by_head=by_head, k2_splits=splits[0], rel_l2={k_: e[0] for k_, e in errors.items()},
               max_err_over_max_ref={k_: e[1] for k_, e in errors.items()},
               max_abs_err={k_: e[2] for k_, e in errors.items()}, finite=finite,
@@ -905,25 +958,31 @@ def check_k6(card):
     return worst, worst_code, records
 
 
-def check_k1_wan(card):
-    """The pre-pass and K1 at Wan's self-attention shapes with one (S, H)
-    table pair shared by every head, against their plain version run one head
-    at a time (all heads at once would need ~100 GB of fp32 scores): serving
-    (B=2, S=19968), the example's bucket (B=1, S=20280, whose last q and kv
-    tiles hold 56 rows), I2V-14B training at that bucket (B=1, 40 heads) and
-    I2V-14B serving (B=2, 40 heads, S=32760, last tiles of 120 rows); K1 is
-    timed alone and with its pre-pass. Returns the worst error and the records
-    by case."""
+def check_k1_wan(card, cases=None, phase_name="k1_check"):
+    """The pre-pass and K1 at self-attention shapes with one (S, H) table pair
+    shared by every head, against their plain version run one head at a time
+    (all heads at once would need ~100 GB of fp32 scores). By default Wan's:
+    serving (B=2, S=19968), the example's bucket (B=1, S=20280, whose last q
+    and kv tiles hold 56 rows), I2V-14B training at that bucket (B=1, 40
+    heads) and I2V-14B serving (B=2, 40 heads, S=32760, last tiles of 120
+    rows); `cases` maps a name to (B, N, a function giving the (1, S, H)
+    tables). K1 is timed alone and with its pre-pass. Returns the worst error
+    and the records by case."""
     g = torch.Generator(device="cuda").manual_seed(8)
-    cases = {"wan_self_rope_shared_tables": (2, 12, WAN_GRID), "wan_run_self_rope_shared_tables": (1, 12, WAN_RUN_GRID),
-             "i2v_train_self_rope_shared_tables": (1, I2V_HEADS, WAN_RUN_GRID),
-             "i2v_serve_self_rope_shared_tables": (2, I2V_HEADS, I2V_SERVE_GRID)}
+
+    def wan(grid):
+        return lambda: tuple(t[None].contiguous() for t in wan_tables(grid))
+
+    cases = cases or {"wan_self_rope_shared_tables": (2, 12, wan(WAN_GRID)),
+                      "wan_run_self_rope_shared_tables": (1, 12, wan(WAN_RUN_GRID)),
+                      "i2v_train_self_rope_shared_tables": (1, I2V_HEADS, wan(WAN_RUN_GRID)),
+                      "i2v_serve_self_rope_shared_tables": (2, I2V_HEADS, wan(I2V_SERVE_GRID))}
     worst, records = 0.0, {}
-    for name, (b, n, grid) in cases.items():
-        s, h = grid[0] * grid[1] * grid[2], 128
+    for name, (b, n, tables) in cases.items():
+        cos, sin = tables()
+        s, h = cos.shape[1], 128
         q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
                    for _ in range(3))
-        cos, sin = (t[None].contiguous() for t in wan_tables(grid))
         out, lse = flash_forward(q, k, v, None, cos, sin)
         torch.cuda.synchronize()
 
@@ -952,7 +1011,7 @@ def check_k1_wan(card):
         sdpa_ms = cuda_ms(lambda: attention_dispatch(qt, kt, vt, provider="native"))
         flops = 4 * b * n * s * s * h
         bound_ms, bound_by = k1_bound(b, n, s, b * s, h)
-        phase("k1_check", case=name, shape=[b, n, s, s, h], max_abs_err=max_abs, err_over_max1_ref=norm_err,
+        phase(phase_name, case=name, shape=[b, n, s, s, h], max_abs_err=max_abs, err_over_max1_ref=norm_err,
               rel_l2=rel_l2, lse_max_abs_err=lse_err, ms=ms, prep_ms=prep_ms, flash_forward_ms=forward_ms,
               plain_ms=plain_ms, sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
               prep_plain_ms=prep_plain_ms, prep_bound_ms=qk_prep_bound(q, k, cos)[0], tflops=flops / ms / 1e9,
@@ -979,6 +1038,8 @@ def _bwd_case_inputs(c, g):
         cos, sin = ltx_tables(n, h)
     elif c["rope"] in ("wan", "wan_run"):
         cos, sin = (t[None].contiguous() for t in wan_tables(WAN_GRID if c["rope"] == "wan" else WAN_RUN_GRID))
+    elif c["rope"] == "flux":
+        cos, sin = flux_tables(*c["latent"])
     elif c["rope"] == "shared":
         ang = torch.rand(1, sq, h // 2, generator=g, device="cuda") * 6.3
         cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
@@ -2002,13 +2063,14 @@ WAN_RUN_REDUCE = WAN_LAYERS
 WAN_RUN_PATHS = ("wan_run", "wan_run_resumed")
 
 
-def train_sh_argv(**overrides):
-    """The flags train.sh passes to the trainer, its `*_cmd` arrays in the
-    order of its command, with the parallel layout replaced by one card's and
-    each flag of `overrides` set to its value (a list for several)."""
+def train_sh_argv(example=TRAIN_SH, **overrides):
+    """The flags the `example` directory's train.sh passes to the trainer, its
+    `*_cmd` arrays in the order of its command, with the parallel layout
+    replaced by one card's and each flag of `overrides` set to its value (a
+    list for several)."""
     import shlex
 
-    text = (TRAIN_SH / "train.sh").read_text()
+    text = (example / "train.sh").read_text()
     arrays = {name: shlex.split(" ".join(line.split("#")[0] for line in body.splitlines()))
               for name, body in re.findall(r"^(\w+_cmd)=\(\n(.*?)^\)", text, re.M | re.S)}
     argv = []
@@ -2497,6 +2559,336 @@ def wan_i2v_image_branch(card):
     return launches, in_step
 
 
+# FLUX.1-dev at full width: its kernels at its shapes, the flux_dev example's run through the command line at its own
+# 1280x720 bucket, then a 1024x1024 text-to-image request through the inference runner with the exported adapter.
+
+
+def flux_tables(latent_h, latent_w):
+    """Flux's (1, S, 128) fp32 tables for 512 text tokens (zero ids: identity
+    rows) and a latent_h x latent_w latent's packed image tokens, as the model
+    builds them."""
+    from finetrainers_tpu_torch.models.flux import flux_rope_freqs, prepare_latent_image_ids, rope_tables
+
+    ids = torch.cat([torch.zeros(FLUX_TEXT, 3, device="cuda"),
+                     prepare_latent_image_ids(latent_h, latent_w, torch.device("cuda"))])
+    return tuple(t[None].contiguous() for t in rope_tables(*flux_rope_freqs(ids, FLUX_AXES)))
+
+
+def check_flux_kernels(card):
+    """K1 and the pre-pass at Flux's serving self-attention (1, 24, 4608, 4608,
+    128) and at the example's training shape (1, 24, 4112, 4112, 128, a last
+    tile of 16 rows), with the per-token tables, against their plain version
+    head by head; then the pre-pass, K2 and K3 at the training shape against
+    `flash_backward_reference` head by head. Returns the worst errors and the
+    records by case."""
+    cases = {"flux_serve_self_tables": (1, FLUX_HEADS, lambda: flux_tables(*FLUX_SERVE_LATENT)),
+             "flux_train_self_tables": (1, FLUX_HEADS, lambda: flux_tables(*FLUX_RUN_LATENT))}
+    k1_err, k1 = check_k1_wan(card, cases, phase_name="flux_kernel_checks")
+    bwd_err, bwd = check_k2k3(card, {"flux_train_self_tables": dict(
+        b=1, n=FLUX_HEADS, sq=FLUX_RUN_TOKENS, skv=FLUX_RUN_TOKENS, h=128, lens=None, rope="flux",
+        latent=FLUX_RUN_LATENT)}, phase_name="flux_kernel_checks")
+    return k1_err, k1, bwd_err, bwd
+
+
+def flux_train_step_flops(cfg: dict, lora_rank: int, remat_factor: float, B: int, S: int) -> float:
+    """Analytic matmul FLOPs of one Flux LoRA train step (copied from
+    tools/floor_bench.py's `setup_flux` `flops` and `_attn_ff_flops`, with its
+    shape constants as arguments): per layer q, k, v, out, the joint scores,
+    the 4x GELU MLP and six LoRA pairs; a dual block counts twice."""
+    d = cfg["num_attention_heads"] * cfg["attention_head_dim"]
+    per_layer = 4 * 2 * S * d * d + 2 * 2 * S * S * d + 2 * 2 * S * d * 4 * d + 6 * 2 * S * (2 * d * lora_rank)
+    fwd = cfg["num_layers"] * 2 * per_layer + cfg["num_single_layers"] * per_layer
+    return fwd * B * (2.0 + remat_factor)
+
+
+def flux_run_data(root):
+    """4 seeded 1440x810 PNG images (smooth colour blobs, the example's
+    portrait aspect, bucketed down to 1280x720 by the data stage) written with
+    cv2, their `metadata.csv`, the example's training.json pointing at them,
+    and its first validation prompt at 1280x720 with 2 denoising steps.
+    Returns (training.json, validation.json)."""
+    import csv
+
+    import cv2
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(5)
+    with open(root / "metadata.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["file_name", "caption"])
+        w.writeheader()
+        for i in range(FLUX_RUN_IMAGES):
+            coarse = (rng.rand(1440 // 90, 810 // 90, 3) * 255).astype(np.uint8)
+            cv2.imwrite(str(root / f"card{i}.png"), cv2.resize(coarse, (810, 1440), interpolation=cv2.INTER_LINEAR))
+            w.writerow({"file_name": f"card{i}.png", "caption": f"a trtcrd of the card number {i}, tarot style"})
+    training = json.loads((FLUX_EXAMPLE / "training.json").read_text())
+    training["datasets"][0]["data_root"] = str(root)
+    validation = json.loads((FLUX_EXAMPLE / "validation.json").read_text())
+    validation["data"] = [dict(validation["data"][0], num_inference_steps=2)]
+    (root / "training.json").write_text(json.dumps(training))
+    (root / "validation.json").write_text(json.dumps(validation))
+    return root / "training.json", root / "validation.json"
+
+
+def flux_run(card):
+    """The flux_dev example's run through `finetrainers_tpu_torch.train.main`
+    with its train.sh flags (precompute once, "ops" remat, `transformer:auto`,
+    slicing and tiling, rank 32, the example's AdamW, logit-normal weighting,
+    bf16) on one card, from 4 images on disk at its own 1280x720 bucket (4112
+    tokens): 4 steps, then the final validation from the exported adapter in a
+    fresh model (one request, 2 steps of 50). Each step's seconds, launches,
+    K2 reduce passes and peak memory, model TFLOP/s by floor_bench's formula
+    with `ops`' remat factor 0, precompute seconds per item, the validation's
+    seconds and launches; after the run, one more step profiled, then steps
+    under "ops" and "full" in turns and a profiled "full" step. Returns the
+    run's launches, the adapter's directory and the in-step times."""
+    from finetrainers_tpu_torch import train as train_cli
+
+    t0 = time.perf_counter()
+    training_json, validation_json = flux_run_data(SMOKE_DIR / "flux_run_data")
+    data_s = time.perf_counter() - t0
+    out_dir = SMOKE_DIR / "flux_run"
+    argv = train_sh_argv(FLUX_EXAMPLE, dataset_config=training_json, validation_dataset_file=validation_json,
+                         output_dir=out_dir, report_to="jsonl", train_steps=FLUX_RUN_STEPS,
+                         precomputation_items=FLUX_RUN_IMAGES)
+    steps, validations, peaks = [], [], {}
+    orig_step, orig_validate = SFTTrainer.train_step, SFTTrainer._validate
+
+    def counted_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        before, reduce_before, t = _counts(), flash_bwd_dkdv.reduce_launches, time.perf_counter()
+        if not steps:  # the peak of the model load and the precompute before the first step
+            peaks["load_and_precompute_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        out = orig_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        after = _counts()
+        steps.append(dict(seconds=time.perf_counter() - t, launches={k_: after[k_] - before[k_] for k_ in after},
+                          reduce=flash_bwd_dkdv.reduce_launches - reduce_before,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        return out
+
+    def timed_validate(self, step, final=False):
+        torch.cuda.synchronize()
+        before, t = _counts(), time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        orig_validate(self, step, final)
+        torch.cuda.synchronize()
+        after = _counts()
+        validations.append(dict(step=step, final=final, seconds=time.perf_counter() - t,
+                                launches={k_: after[k_] - before[k_] for k_ in after if after[k_] != before[k_]},
+                                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+
+    SFTTrainer.train_step, SFTTrainer._validate = counted_step, timed_validate
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv)
+        torch.cuda.synchronize()
+        run_s, launches = time.perf_counter() - t0, _counts()
+    finally:
+        SFTTrainer.train_step, SFTTrainer._validate = orig_step, orig_validate
+    module = trainer.transformer.module
+    base_params = sum(p.numel() for n, p in module.named_parameters() if n not in trainer._trainable)
+    lora_params = sum(p.numel() for p in trainer._trainable.values())
+    shape_ok = (base_params == FLUX_PARAMS and len(module.transformer_blocks) + len(module.single_transformer_blocks)
+                == FLUX_LAYERS and module.gradient_checkpointing == "ops"
+                and trainer.attn_provider_training == {"transformer": "auto"})
+    # After the run and its export: one more step on the run's first precomputed item, profiled.
+    spec = trainer.model_specification
+    precomputed = out_dir / "precomputed" / PRECOMPUTED_DIR_NAME
+    items = [dict(np.load(precomputed / f"{kind}-0.npz")) for kind in ("condition", "latent")]
+    latent_shape = list(items[1]["latents"].shape)
+    batch = to_device((spec.collate_conditions([items[0]]), spec.collate_latents([items[1]])), torch.device("cuda"))
+    prof = profile_device(lambda: trainer.train_step(*batch))
+    # The same step under the example's "ops" and under "full", in turns, and a profiled "full" step: how much of
+    # the host's time is the selective policy's dispatch mode.
+    policy_s, policy_peak = {"ops": [], "full": []}, {}
+    for policy in ("full", "ops") * 3:
+        module.gradient_checkpointing = policy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        policy_s[policy].append(time.perf_counter() - t)
+        policy_peak[policy] = torch.cuda.max_memory_allocated() / 1e9
+    module.gradient_checkpointing = "full"
+    full_prof = profile_device(lambda: trainer.train_step(*batch))
+    del trainer, module, spec, batch
+    _free_cuda()
+
+    log = [json.loads(line) for line in (out_dir / "logs" / "finetrainers-tpu-flux.jsonl").read_text().splitlines()]
+    losses = [e["train/global_avg_loss"] for e in log if "train/global_avg_loss" in e]
+    precompute_s = next(e["timing/precompute"] for e in log if "timing/precompute" in e)
+    adapter = out_dir / "lora_weights" / f"{FLUX_RUN_STEPS:06d}"
+    state, config = load_lora_weights(str(adapter))
+    images = sorted((out_dir / "validation").rglob("*.png"))
+    step_want = dict(k1=FLUX_LAYERS, prep=2 * FLUX_LAYERS, k2=FLUX_LAYERS, k3=FLUX_LAYERS)
+    want = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
+    # No reduce pass: K2 splits its q loop only where a call's kv-tile CTAs are fewer than the H100's 132 SMs, and
+    # Flux's joint attention has 24 heads x 33 tiles of 128 keys = 792.
+    steps_ok = all(st["launches"] == want and st["reduce"] == 0 for st in steps)
+    validation_want = {"k1": 2 * FLUX_LAYERS, "prep": 2 * FLUX_LAYERS}  # 2 denoising steps, no CFG
+    validations_ok = (len(validations) == 1 and validations[0]["final"]
+                      and validations[0]["launches"] == validation_want)
+    timed = [st["seconds"] for st in steps][1:]
+    flops = flux_train_step_flops(FLUX_TRANSFORMER_CONFIG, FLUX_RANK, 0.0, B=1, S=FLUX_RUN_TOKENS)
+    median_s = statistics.median(timed)
+    in_step = {cls: _median(prof["launches"][cls]) for cls in ("k1", "prep", "k2", "k3")}
+    phase("flux_run", card=card, entry="python -m finetrainers_tpu_torch.train", argv=[str(a) for a in argv],
+          bucket=list(FLUX_RUN_BUCKET), tokens=FLUX_RUN_TOKENS, latents_shape=latent_shape,
+          published_shape=shape_ok, base_params=base_params, lora_params=lora_params, data_write_s=data_s,
+          precompute_s=precompute_s, precompute_s_per_item=precompute_s / FLUX_RUN_IMAGES, peaks_gb=peaks,
+          step_seconds=[st["seconds"] for st in steps], median_step_s_2_to_4=median_s,
+          step_peaks_gb=[st["peak_gb"] for st in steps], step_launches=steps[0]["launches"],
+          step_reduce_passes=[st["reduce"] for st in steps], step_launches_all_exact=steps_ok,
+          model_flops_per_step=flops, model_tflops=flops / median_s / 1e12,
+          share_of_peak=flops / median_s / PEAK_BF16_FLOPS, losses=losses, validations=validations,
+          validations_launches_exact=validations_ok, validation_images=[str(i.relative_to(SMOKE_DIR)) for i in images],
+          run_s=run_s, launches=launches, export=str(adapter.relative_to(SMOKE_DIR.parent.parent)),
+          export_keys=len(state), export_lora_config=config)
+    phase("flux_run_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"],
+          ms_by_class=dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()}),
+          ms_per_launch=in_step, launches={cls: len(v) for cls, v in prof["launches"].items()},
+          top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
+    phase("flux_run_policies", card=card, step_s=policy_s,
+          median_step_s={policy: statistics.median(v) for policy, v in policy_s.items()}, peak_gb=policy_peak,
+          full_model_tflops=flux_train_step_flops(FLUX_TRANSFORMER_CONFIG, FLUX_RANK, 1.0, B=1, S=FLUX_RUN_TOKENS)
+          / statistics.median(policy_s["full"]) / 1e12,
+          full_profile=dict(step_wall_ms=full_prof["wall_ms"], device_busy_ms=full_prof["busy_ms"],
+                            idle_share=full_prof["idle_share"],
+                            ms_by_class=dict(full_prof["classes"], **{cls: sum(v) for cls, v in
+                                                                      full_prof["launches"].items()}),
+                            launches={cls: len(v) for cls, v in full_prof["launches"].items()}))
+    if not (shape_ok and steps_ok and validations_ok and len(steps) == FLUX_RUN_STEPS and all(np.isfinite(losses))
+            and len(losses) == FLUX_RUN_STEPS and len(state) == 2 * (19 * 12 + 38 * 5) and config.get("r") == FLUX_RANK
+            and latent_shape == [1, 32, *FLUX_RUN_LATENT] and len(images) == 1):
+        raise AssertionError("the flux_dev example's run failed its checks")
+    del state
+    return dict(launches=launches, adapter=adapter, in_step=in_step)
+
+
+def flux_checkpoint_dir():
+    """A model directory that holds only `scheduler/scheduler_config.json`, as the
+    public FLUX.1-dev checkpoint names its scheduler."""
+    root = SMOKE_DIR / "flux_checkpoint"
+    (root / "scheduler").mkdir(parents=True, exist_ok=True)
+    (root / "scheduler" / "scheduler_config.json").write_text(json.dumps(FLUX_SCHEDULER_CONFIG))
+    return root
+
+
+def flux_serve(card, adapter):
+    """One 1024x1024 text-to-image request of full-width FLUX.1-dev through the
+    port's runner, `inference.main`, with guidance 3.5 embedded, 4 flow-match
+    Euler steps of 28 with dynamic shifting read from the scheduler config,
+    and the adapter `flux_run` exported. The VAE decode, each denoise step and
+    the request are timed by synced wrappers; the image must be finite, (1024,
+    1024, 3) uint8, the served model's LoRA factors the adapter's, K1 and the
+    pre-pass 57 times a step and no other kernel, and the VAE unsplit (its
+    largest activation under SPLIT_ELEMENTS). Then one denoise step profiled."""
+    from finetrainers_tpu_torch import inference
+    from finetrainers_tpu_torch.models import autoencoders
+    from finetrainers_tpu_torch.models.autoencoders import AutoencoderKL3D
+    from finetrainers_tpu_torch.models.flux import FluxPipeline
+
+    import cv2
+
+    out_dir = SMOKE_DIR / "flux_serve"
+    argv = ["--model_name", "flux", "--pretrained_model_name_or_path", str(flux_checkpoint_dir()),
+            "--inference_type", "text_to_image", "--prompt", "a trtcrd of a fox holding a lantern, tarot style",
+            "--height", "1024", "--width", "1024", "--num_inference_steps", str(FLUX_SERVE_STEPS),
+            "--guidance_scale", "3.5", "--lora_weights", str(adapter), "--output_dir", str(out_dir), "--seed", "0"]
+    adapter_state, _ = load_lora_weights(str(adapter))
+    probes = ("transformer.transformer_blocks.0.attn.to_q.lora_B.weight",
+              "transformer.single_transformer_blocks.0.proj_mlp.lora_B.weight")
+    probe = {key: adapter_state[key] for key in probes}
+    del adapter_state
+    seconds, facts, last, vae = {"decode": [], "step": [], "request": []}, {}, [], {"max_elements": 0}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    wrapped = ((AutoencoderKL3D, "decode"), (FluxPipeline, "denoise_step"), (FluxPipeline, "__call__"))
+    originals = {name: getattr(cls, name) for cls, name in wrapped}
+    pieces = autoencoders._pieces
+    request = timed("request", originals["__call__"])
+    step = timed("step", originals["denoise_step"])
+
+    def call(self, *args, **kwargs):
+        facts["scheduler"] = type(self.scheduler).__name__
+        facts["dynamic_shifting"] = self.scheduler.use_dynamic_shifting
+        params = dict(self.transformer.module.named_parameters())
+        facts["lora_loaded"] = all(bool(torch.equal(params[key[len("transformer."):]].detach().cpu(),
+                                                    value.to(params[key[len("transformer."):]].dtype)))
+                                   for key, value in probe.items())
+        facts["lora_b_nonzero"] = all(bool(value.any()) for value in probe.values())
+        image = request(self, *args, **kwargs)
+        facts["image_shape"], facts["image_dtype"] = list(image.shape), str(image.dtype)
+        return image
+
+    def denoise(self, *args, **kwargs):
+        last[:] = [self, args, kwargs]
+        return step(self, *args, **kwargs)
+
+    def counted_pieces(size, elements):
+        vae["max_elements"] = max(vae["max_elements"], elements)
+        return pieces(size, elements)
+
+    AutoencoderKL3D.decode = timed("decode", originals["decode"])
+    FluxPipeline.denoise_step, FluxPipeline.__call__ = denoise, call
+    autoencoders._pieces = counted_pieces
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        paths = inference.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches, peak_gb = _counts(), torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        autoencoders._pieces = pieces
+        for cls, name in wrapped:
+            setattr(cls, name, originals[name])
+    with torch.inference_mode():
+        prof = profile_device(lambda: originals["denoise_step"](last[0], *last[1], **last[2]))
+    del last[:]
+    written = cv2.imread(paths[0])
+    expected = {k_: FLUX_LAYERS * FLUX_SERVE_STEPS if k_ in ("k1", "prep") else 0 for k_ in launches}
+    in_step = {cls: _median(prof["launches"][cls]) for cls in ("k1", "prep")}
+    phase("flux_serve", card=card, entry="python -m finetrainers_tpu_torch.inference", argv=argv[:-6],
+          steps=FLUX_SERVE_STEPS, steps_note="cut from the default 28", tokens=FLUX_SERVE_TOKENS,
+          text_tokens=FLUX_TEXT, request_s=seconds["request"], step_s=seconds["step"],
+          vae_decode_s=seconds["decode"], main_wall_s=wall_s, peak_memory_gb=peak_gb, launches=launches,
+          launches_expected=expected, vae_max_elements=vae["max_elements"],
+          vae_split_elements=autoencoders.SPLIT_ELEMENTS,
+          written=[str(pathlib.Path(p).relative_to(SMOKE_DIR.parent.parent)) for p in paths],
+          written_shape=list(written.shape) if written is not None else None, **facts)
+    phase("flux_serve_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"],
+          ms_by_class=dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()}),
+          ms_per_launch=in_step, launches={cls: len(v) for cls, v in prof["launches"].items()},
+          top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
+    if not (facts.get("image_shape") == [1024, 1024, 3] and facts.get("image_dtype") == "uint8"
+            and facts.get("scheduler") == "FlowMatchEulerScheduler" and facts.get("dynamic_shifting")
+            and facts.get("lora_loaded") and facts.get("lora_b_nonzero") and launches == expected
+            and len(seconds["step"]) == FLUX_SERVE_STEPS and len(seconds["decode"]) == 1
+            and vae["max_elements"] <= autoencoders.SPLIT_ELEMENTS and written is not None
+            and list(written.shape) == [1024, 1024, 3] and paths[0].endswith(".png")):
+        raise AssertionError("Flux serving through the runner failed its checks")
+    phase("flux_serve_freed", memory_allocated_gb=_free_cuda())
+    return launches, in_step
+
+
 def env_phase():
     """Whether the media codecs the data stage decodes with import here (information, not a check)."""
     found = {}
@@ -2592,6 +2984,9 @@ def main():
     i2v_train = wan_i2v_train(card)
     i2v_serve_launches, _ = wan_i2v_serve(card, i2v_train["adapter"])
     i2v_branch_launches, i2v_branch_in_step = wan_i2v_image_branch(card)
+    flux_k1_err, flux_k1, flux_bwd_err, flux_bwd = check_flux_kernels(card)
+    flux = flux_run(card)
+    flux_serve_launches, flux_serve_in_step = flux_serve(card, flux["adapter"])
     shutil.rmtree(SMOKE_DIR)
     env_phase()
 
@@ -2618,18 +3013,19 @@ def main():
 
     def bwd_entry(key, name, replaces):  # K2 or K3: the Wan training self-attention case, the others by case
         fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-        return entry(name, "finetrainers_tpu_torch/csrc/flash_bwd_sm90.cu", replaces, wan[key], bwd_err[key],
-                     bwd["wan_train_self_shared_rope"][key],
+        return entry(name, "finetrainers_tpu_torch/csrc/flash_bwd_sm90.cu", replaces, wan[key],
+                     max(bwd_err[key], flux_bwd_err[key]), bwd["wan_train_self_shared_rope"][key],
                      launches_by_path={"train": train_launches[key], "wan_train": wan[key],
                                        **{f"wan_train_{p}": wan_paths[f"wan_train_{p}"][key]
                                           for p in ("ops", "ops_attn", "ops_narrow", "accum")},
                                        **{path: wan_paths[path][key] for path in WAN_RUN_PATHS},
-                                       "wan_i2v_train": i2v_train["launches"][key]},
+                                       "wan_i2v_train": i2v_train["launches"][key], "flux_run": flux["launches"][key]},
                      shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128],
                      i2v_train_in_step_ms={part: i2v_train["in_step"][f"{key}_{part}"] for part in ("self", "cross")},
+                     flux_train_in_step_ms=flux["in_step"][key],
                      device_ms=bwd["wan_train_self_shared_rope"][f"{key}_device_ms"],
                      by_case={case: dict(zip(fields, r[key]), device_ms=r[f"{key}_device_ms"])
-                              for case, r in bwd.items()},
+                              for case, r in {**bwd, **flux_bwd}.items()},
                      library_note="torch SDPA backward (dq, dk, dv in one call), without the fused rotation")
 
     wan = wan_paths["wan_train"]
@@ -2637,7 +3033,7 @@ def main():
     print(json.dumps({"kernels": [
         entry("flash_fwd_sm90 (K1, wgmma + TMA, on the pre-pass's operands)",
               "finetrainers_tpu_torch/csrc/flash_fwd_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:106",
-              serve_launches["k1"], max(k1_err, k1_wan_err),
+              serve_launches["k1"], max(k1_err, k1_wan_err, flux_k1_err),
               (ltx_self["ms"], ltx_self["plain_ms"], ltx_self["library_ms"], ltx_self["bound_ms"],
                ltx_self["bound_by"]),
               launches_by_path={"serve": serve_launches["k1"], "train": train_launches["k1"],
@@ -2647,15 +3043,17 @@ def main():
                                 **{path: wan_paths[path]["k1"] for path in WAN_RUN_PATHS},
                                 "wan_i2v_train": i2v_train["launches"]["k1"],
                                 "wan_i2v_serve": i2v_serve_launches["k1"],
-                                "wan_i2v_image_branch": i2v_branch_launches["auto"]["k1"]},
-              shape=[2, 32, 2688, 2688, 64], by_case={**k1, **k1_wan},
+                                "wan_i2v_image_branch": i2v_branch_launches["auto"]["k1"],
+                                "flux_run": flux["launches"]["k1"], "flux_serve": flux_serve_launches["k1"]},
+              shape=[2, 32, 2688, 2688, 64], by_case={**k1, **k1_wan, **flux_k1},
+              flux_in_step_ms=dict(serve_self=flux_serve_in_step["k1"], train_self=flux["in_step"]["k1"]),
               i2v_in_step_ms=dict(i2v_branch_in_step["auto"], train_self=i2v_train["in_step"]["k1_self"],
                                   train_cross=i2v_train["in_step"]["k1_cross"]),
               wan_train_self_attention=wan_shape(k5_wan["k1"]),
               library_note="torch SDPA forward, without the fused rotation"),
         entry("flash_qk_prep (the RoPE and q-scale pre-pass before K1, K7a, K7c, K2/K3 and K5)",
               "finetrainers_tpu_torch/csrc/flash_bwd.cu", "finetrainers_tpu/ops/flash_attention.py:189",
-              serve_launches["prep"], bwd_err["prep"], bwd["self_rope"]["prep"],
+              serve_launches["prep"], max(bwd_err["prep"], flux_bwd_err["prep"]), bwd["self_rope"]["prep"],
               also_replaces=["finetrainers_tpu/ops/flash_attention.py:961",
                              "finetrainers_tpu/ops/flash_attention.py:1268"],
               launches_by_path={"serve": serve_launches["prep"], "train": train_launches["prep"],
@@ -2665,7 +3063,10 @@ def main():
                                 **{path: wan_paths[path]["prep"] for path in WAN_RUN_PATHS},
                                 "wan_i2v_train": i2v_train["launches"]["prep"],
                                 "wan_i2v_serve": i2v_serve_launches["prep"],
-                                "wan_i2v_image_branch": i2v_branch_launches["auto"]["prep"]},
+                                "wan_i2v_image_branch": i2v_branch_launches["auto"]["prep"],
+                                "flux_run": flux["launches"]["prep"], "flux_serve": flux_serve_launches["prep"]},
+              flux_by_case={case: dict(ms=r["prep_ms"], plain_ms=r["prep_plain_ms"]) for case, r in flux_k1.items()},
+              flux_in_step_ms=dict(serve=flux_serve_in_step["prep"], train=flux["in_step"]["prep"]),
               shape_note="timed at LTX's train self-attention (1, 32, 2688, 64) with per-head tables"),
         bwd_entry("k2", "bwd_dkdv_sm90 (K2, wgmma + TMA, with its reduce pass where the q loop is split)",
                   "finetrainers_tpu/ops/flash_attention.py:888"),

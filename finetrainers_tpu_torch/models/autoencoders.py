@@ -74,6 +74,19 @@ WAN_VAE_CONFIG = AutoencoderConfig(
     temporal_downsample=(False, True, True),  # 4x temporal
 )
 
+# 2D image VAEs (Flux): the temporal-degenerate config, copied from
+# `finetrainers_tpu/models/autoencoders.py:330-337`. At 1024x1024 its largest
+# operand, the last upsampling conv's causally padded 256-channel input
+# (256 x 3 x 1026 x 1026 = 8.08e8 elements), stays under SPLIT_ELEMENTS, so
+# it runs unsplit (`chip_smoke.py`'s flux_serve checks this).
+SD_VAE_CONFIG = AutoencoderConfig(
+    latent_channels=16,
+    block_out_channels=(128, 256, 512, 512),
+    layers_per_block=2,
+    spatial_downsample=(True, True, True),  # 8x spatial
+    temporal_downsample=(False, False, False),
+)
+
 
 # A convolution whose input or output, or a GroupNorm whose input, holds more
 # elements than this runs in pieces (see the module's docstring). The tests
@@ -384,6 +397,28 @@ def encode_media(vae_handle: ModelHandle, x: torch.Tensor, tile: int = 256, over
     if vae_handle.use_slicing and x.shape[0] > 1:
         return encode_sliced(vae_handle, x)
     return _encode(vae_handle, x)
+
+
+def _check_3d(vae_handle: ModelHandle) -> None:
+    if not isinstance(vae_handle.module, AutoencoderKL3D):
+        raise NotImplementedError(f"{type(vae_handle.module).__name__}: the 2D AutoencoderKL is not ported yet; "
+                                  "see ROADMAP.md queue 1 item 5 (loading diffusers checkpoints)")
+
+
+@torch.no_grad()
+def encode_image_vae(vae_handle: ModelHandle, x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) images in [-1, 1] -> moments (B, 2C, H', W') through the 3D
+    VAE as single-frame videos (JAX autoencoders.py:264-274). Neither slicing
+    nor tiling applies, as in JAX."""
+    _check_3d(vae_handle)
+    return vae_handle.module.encode(x[:, :, None])[:, :, 0]
+
+
+@torch.no_grad()
+def decode_image_vae(vae_handle: ModelHandle, z: torch.Tensor) -> torch.Tensor:
+    """(B, C, H', W') latents -> (B, 3, H, W) fp32 (JAX autoencoders.py:277-286)."""
+    _check_3d(vae_handle)
+    return vae_handle.module.decode(z[:, :, None])[:, :, 0]
 
 
 def media_to_vae_input(image, video, device: torch.device) -> torch.Tensor:

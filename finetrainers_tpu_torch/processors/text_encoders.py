@@ -1,10 +1,11 @@
 """Text-encoder condition processors (the parts of
-`finetrainers_tpu/processors/text_encoders.py` the LTX serving path runs).
+`finetrainers_tpu/processors/text_encoders.py` the ported families run).
 
 Encoders are duck-typed handles exposing `encode(captions, max_sequence_length)
--> (embeds, mask)` as numpy arrays. The T5 tower itself is not ported yet (it
-waits for its weights; see ROADMAP.md), so the port serves with `HashEncoder`,
-the same offline stand-in the JAX package falls back to.
+-> (embeds, mask)` as numpy arrays, and for a CLIP slot `encode_pooled(captions)
+-> (B, pooled_dim)`. The T5 and CLIP towers are not ported yet (they wait for
+their weights; see ROADMAP.md queue 1 item 7), so the port serves with
+`HashEncoder`, the same offline stand-in the JAX package falls back to.
 """
 
 from __future__ import annotations
@@ -18,13 +19,14 @@ from .base import ProcessorMixin
 
 
 class HashEncoder:
-    """Deterministic offline stand-in for a text encoder. `encode` is copied
-    from `finetrainers_tpu/processors/text_encoders.py:25-47`; its outputs are
-    the same bytes as the JAX package's."""
+    """Deterministic offline stand-in for a text encoder. `encode` and
+    `encode_pooled` are copied from `finetrainers_tpu/processors/text_encoders.py:25-55`;
+    their outputs are the same bytes as the JAX package's."""
 
-    def __init__(self, hidden_size: int = 32, max_length: int = 16):
+    def __init__(self, hidden_size: int = 32, max_length: int = 16, pooled_dim: Optional[int] = None):
         self.hidden_size = hidden_size
         self.max_length = max_length
+        self.pooled_dim = pooled_dim
 
     def encode(self, captions: List[str], max_sequence_length: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
         max_len = max_sequence_length or self.max_length
@@ -40,6 +42,14 @@ class HashEncoder:
             embeds.append(e)
             masks.append(m)
         return np.stack(embeds), np.stack(masks)
+
+    def encode_pooled(self, captions: List[str]) -> np.ndarray:
+        dim = self.pooled_dim or self.hidden_size
+        out = []
+        for caption in captions:
+            seed = int.from_bytes(hashlib.sha256(("pool" + caption).encode()).digest()[:4], "little")
+            out.append(np.random.RandomState(seed).randn(dim).astype(np.float32) * 0.02)
+        return np.stack(out)
 
 
 class T5Processor(ProcessorMixin):
@@ -60,3 +70,18 @@ class T5Processor(ProcessorMixin):
         if self.use_attention_mask:
             embeds = embeds * mask[..., None]
         return {self.output_names[0]: embeds, self.output_names[1]: mask.astype(np.int32)}
+
+
+class CLIPPooledProcessor(ProcessorMixin):
+    """caption -> {pooled projection embeds} (copied from
+    `finetrainers_tpu/processors/text_encoders.py:119-131`)."""
+
+    def __init__(self, output_names: List[str], input_names: Optional[dict] = None):
+        if len(output_names) != 1:
+            raise ValueError(f"CLIPPooledProcessor takes one output name, got {output_names}")
+        self.output_names = output_names
+        self.input_names = input_names
+
+    def forward(self, text_encoder, caption: Union[str, List[str]], **kwargs):
+        captions = [caption] if isinstance(caption, str) else list(caption)
+        return {self.output_names[0]: text_encoder.encode_pooled(captions)}

@@ -486,6 +486,48 @@ def test_k2_k3_match_their_plain_versions(dtype, head_dim):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,axes", [(64, (16, 24, 24)), (128, (16, 56, 56))], ids=["h64", "h128"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_k2_k3_at_a_16_row_last_tile_with_flux_tables(dtype, head_dim, axes):
+    """Flux's joint attention: 32 text rows (zero ids, so identity rows in the
+    tables) and a 30x32 latent's 15x16 image rows, 272 = 2 x 128 + 16 rows, so
+    the last q and kv tiles hold 16 (the flux_dev example's 4112 tokens end
+    the same way). K1 after the pre-pass against `flash_attention_reference`
+    (|out - ref| <= 2e-2 max(1, |ref|), LSE within 1e-2), then K2 and K3
+    against `flash_backward_reference` (relative L2 <= 1e-2, max error <=
+    2e-2 of max |ref|), one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from finetrainers_tpu_torch.models.flux import flux_rope_freqs, prepare_latent_image_ids, rope_tables
+
+    text, b, n = 32, 1, 3
+    ids = torch.cat([torch.zeros(text, 3, device="cuda"), prepare_latent_image_ids(30, 32, torch.device("cuda"))])
+    s = ids.shape[0]
+    assert s % 128 == 16
+    cos, sin = (t[None].contiguous() for t in rope_tables(*flux_rope_freqs(ids, axes)))
+    assert torch.equal(cos[0, :text], torch.ones(text, head_dim, device="cuda")) and not sin[0, :text].any()
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, do = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   for _ in range(4))
+    before = (flash_forward.launches, flash_qk_prep.launches)
+    out, lse = flash_forward(q, k, v, None, cos, sin)
+    torch.cuda.synchronize()
+    assert (flash_forward.launches, flash_qk_prep.launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_lse = flash_attention_reference(q, k, v, None, cos, sin)
+    assert ((out.float() - ref.float()).abs() / ref.float().abs().clamp_min(1.0)).max() <= 2e-2
+    assert (lse - ref_lse).abs().max() <= 1e-2
+    before = (flash_bwd_dkdv.launches, flash_bwd_dq.launches)
+    grads = flash_backward(q, k, v, out, lse, do, None, cos, sin)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dkdv.launches, flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, flash_backward_reference(q, k, v, out, lse, do, None, cos,
+                                                                                     sin)):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        rel_l2, max_ratio = _rel_errors(got, want)
+        assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, head_dim, rel_l2, max_ratio)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_k2_k3_ignore_k_and_v_rows_past_kv_lens(dtype, head_dim):

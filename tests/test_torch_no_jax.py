@@ -10,7 +10,8 @@ the Wan serving slice's (int8 attention, Wan transformer, spec, pipeline)
 and the data stage's (datasets, loader, sampler, precompute, prefetch,
 trackers, the command line `finetrainers_tpu_torch.train`) and the Wan I2V
 slice's (the multistep schedulers, the weight bridge, the inference runner
-`finetrainers_tpu_torch.inference`) among them. Any
+`finetrainers_tpu_torch.inference`) and the Flux slice's (transformer,
+weights, spec, pipeline, the text processors) among them. Any
 import of a blocked package, any `nvcc` run and any kernel library loaded
 during import fails the test. A second fresh interpreter blocks nothing,
 imports every module and finds neither `jax` nor `finetrainers_tpu` in
@@ -47,7 +48,8 @@ training = {"finetrainers_tpu_torch." + m for m in (
     "train", "constants", "trackers", "functional.text", "functional.image", "functional.video", "data.utils",
     "data.dataset", "data.sampler", "data.precomputation", "data.dataloader", "data.prefetch",
     "models.autoencoders", "utils.memory", "utils.timing", "utils.hub", "inference", "schedulers", "config",
-    "models.wan.weights", "models.weight_utils", "models.layers")}
+    "models.wan.weights", "models.weight_utils", "models.layers", "models.flux", "models.flux.transformer",
+    "models.flux.weights", "models.flux.base_specification", "models.flux.pipeline", "processors.text_encoders")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
 print(len(names))
 """
