@@ -5,9 +5,12 @@ every kernel switch of the flash attention, every remat policy, gradient
 accumulation, checkpoint/resume and the LoRA export, the Wan example's
 run through its command line, from videos on disk, and Wan 2.1 I2V-14B at
 full width: LoRA training, then image-to-video serving through the inference
-runner with the exported adapter and UniPC at 81x480x832, and FLUX.1-dev at
+runner with the exported adapter and UniPC at 81x480x832, FLUX.1-dev at
 full width: the flux_dev example's LoRA run through its command line at its
 own 1280x720 bucket, then 1024x1024 text-to-image serving through the runner
+with the exported adapter, and HunyuanVideo at full width: the
+modal_labs_dissolve example's LoRA run through its command line at its own
+49x480x768 bucket, then 49x480x768 text-to-video serving through the runner
 with the exported adapter.
 
     python3 chip_smoke.py
@@ -101,15 +104,15 @@ Phases, each printed on its own line:
      weights, K1 4*30, the pre-pass 4*30 + 2*30, K2 and K3 2*30 launches per
      step, model TFLOP/s by tools/floor_bench.py's formula); the same step under
      FINETRAINERS_FLASH_FUSED_BWD (K5: bit-equal loss, LoRA gradient within
-     1e-2, 2*30 K5 launches, its step time) and under each forward switch
+     1e-2, 2*30 K5 launches, 2 timed steps) and under each forward switch
      (K7a/b/c launch counts, loss within 1e-3 and gradient within 2e-2 of the
-     K1 step), then 3 timed steps under each of FINETRAINERS_FLASH_TWOPASS
+     K1 step), then 2 timed steps under each of FINETRAINERS_FLASH_TWOPASS
      (K7a), _TWOLEVEL (K7c) and _SKEW (K7b), with exact launch counts;
      the kernel step against plain fp32 attention at 4992 tokens; the step
      under each remat policy, "full", "ops", "ops_attn" and "ops_narrow"
      (`wan_train_remat`: loss bit-equal and LoRA gradient within 2e-2 of
      "full"'s at the same weights, K1 2*30 launches under the selective
-     policies, one warm-up and 3 timed steps each with peak memory and model
+     policies, one warm-up and 2 timed steps each with peak memory and model
      TFLOP/s at the policy's remat factor, a profile of the "ops" step); host
      issue time and a torch.profiler breakdown of one "full" step;
   10. the Wan example's run (`wan_train_accum_resume`): "ops" remat, gradient
@@ -176,15 +179,40 @@ Phases, each printed on its own line:
      final validation from the exported adapter (1 request, 2 steps of 50: K1
      and the pre-pass 114), step seconds, model TFLOP/s, peaks, precompute
      seconds per image, a profiled step after the run, then the step under
-     `ops` and under `full` in turns (`flux_run_policies`); `flux_serve`, one
-     1024x1024 request through `inference.main` with guidance 3.5, 4 Euler
-     steps of 28 with dynamic shifting from a scheduler config written as the
+     `ops` and under `full` in turns, 2 each (`flux_run_policies`);
+     `flux_serve`, one 1024x1024 request through `inference.main` with
+     guidance 3.5, 4 Euler steps of 28 with dynamic shifting from a
+     scheduler config written as the
      public FLUX.1-dev checkpoint names it, and that adapter: a finite (1024,
      1024, 3) image written as .png, the adapter's factors in the served
      model, K1 and the pre-pass 57 times a step and no other kernel, the
      VAE's largest activation under SPLIT_ELEMENTS (no strips), request,
      step and decode seconds, the peak and a profiled step;
-  14. `env`: whether `cv2` and `PIL` import on this machine (information only).
+  14. HunyuanVideo at full width (`HUNYUAN_VIDEO_CONFIG`: 20 dual and 40
+     single blocks, the Flux blocks, 2 token-refiner blocks, 24 heads x 128,
+     12,817,866,816 parameters, bf16): `hunyuan_kernel_checks`, K1 and the
+     pre-pass, K2 and K3 at the joint self-attention (1, 24, 18976, 18976, 128,
+     a last tile of 32 rows) with the frame-axis tables (identity text rows),
+     head by head against their plain versions, and at the refiner's
+     self-attention (1, 24, 256, 256, 128) with kv_lens [65] and (2, ...) with
+     [65, 256], a dead second kv tile: K1 on every row, K2 with its q loop
+     split in 2 and the reduce pass (B=1), dk = dv = 0 exactly past kv_lens,
+     with bounds and SDPA; `hunyuan_run`, `python -m finetrainers_tpu_torch.train`
+     with the modal_labs_dissolve train.sh's flags (one card, `ops_attn` for
+     the example's `ops`, which does not fit, `transformer:ring`, rank 32) from
+     4 videos written with cv2 at 49x480x768 (18,976 tokens): 4 steps, K1 62,
+     the pre-pass 124, K2 62, K3 62 and the reduce pass 2 a step, the final
+     validation from the exported adapter (1 request, 2 steps of 50: K1 and
+     the pre-pass 124), whether the VAE ran in strips, step seconds, model
+     TFLOP/s, peaks, precompute seconds per video and a profiled step;
+     `hunyuan_serve`, one 49x480x768 request through `inference.main` with
+     `--attn_provider flash`, the runner's guidance 5.0, 3 Euler steps of 50
+     with shift 7 from a scheduler config, and that adapter: a finite (49,
+     480, 768, 3) video written as .mp4, every LoRA factor of the served model
+     the adapter's, K1 and the pre-pass 62 times a step and no other kernel,
+     request, step and decode seconds, whether the decode ran in strips, the
+     peak and a profiled step;
+  15. `env`: whether `cv2` and `PIL` import on this machine (information only).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
 0. Without a CUDA card it raises before printing any result.
@@ -338,11 +366,46 @@ FLUX_RANK = 32
 FLUX_SCHEDULER_CONFIG = {"_class_name": "FlowMatchEulerDiscreteScheduler", "num_train_timesteps": 1000, "shift": 3.0,
                          "use_dynamic_shifting": True, "base_shift": 0.5, "max_shift": 1.15,
                          "base_image_seq_len": 256, "max_image_seq_len": 4096}
+# HunyuanVideo (HUNYUAN_VIDEO_CONFIG, JAX models/hunyuan_video/base_specification.py:28-32): 20 dual and 40 single
+# blocks (Flux's), 2 token-refiner blocks, 24 heads x 128, text 4096, pooled 768, guidance embeds;
+# 12,817,866,816 parameters and 141,164,544 more at LoRA rank 32 (jax.eval_shape on the JAX model). Each of the 60
+# blocks runs one joint attention over [256 text, video] tokens with per-token RoPE tables over (frame, row, col)
+# ids, identity rows for the text; each refiner block a self-attention over the 256 text slots with kv_lens and no
+# tables. The modal_labs_dissolve example's bucket (and the serving example's size) 49x480x768: 13x60x96 latents ->
+# 13x30x48 = 18,720 video tokens, 18,976 in all (148 full 128-row tiles and one of 32 rows).
+HUNYUAN_PARAMS = 12_817_866_816
+HUNYUAN_LORA_PARAMS = 141_164_544
+HUNYUAN_LAYERS = 60  # 20 dual + 40 single, one joint attention each
+HUNYUAN_REFINER_LAYERS = 2
+HUNYUAN_HEADS = 24
+HUNYUAN_TEXT = 256
+HUNYUAN_AXES = (16, 56, 56)
+HUNYUAN_BUCKET = (49, 480, 768)
+HUNYUAN_RUN_GRID = (13, 30, 48)
+HUNYUAN_TOKENS = 18976
+# The offline hash encoder fills the 256 slots with the Llama template's 58 words and the caption's: 65 valid is
+# the refiner's shape in the kernel checks, so its second kv tile (keys 128-255) holds no valid key.
+HUNYUAN_REFINER_VALID = 65
+HUNYUAN_EXAMPLE = (pathlib.Path(__file__).resolve().parent / "examples" / "training" / "sft" / "hunyuan_video"
+                   / "modal_labs_dissolve")
+HUNYUAN_RUN_VIDEOS, HUNYUAN_RUN_STEPS = 4, 4  # cut from the example's 50 precomputed items and 3000 steps
+HUNYUAN_RANK = 32
+# The example trains under "ops", which keeps every product of the 60 blocks: at 18,976 tokens it, and "ops_narrow"
+# too, runs out of the card's 80 GB (`python3 tools/torch_hunyuan_phases.py OUT.jsonl policies`). The run uses
+# "ops_attn".
+HUNYUAN_RUN_POLICY = "ops_attn"
+HUNYUAN_SERVE_STEPS = 3  # cut from the request's 50
+# The scheduler config of the public hunyuanvideo-community/HunyuanVideo checkpoint.
+HUNYUAN_SCHEDULER_CONFIG = {"_class_name": "FlowMatchEulerDiscreteScheduler", "num_train_timesteps": 1000,
+                            "shift": 7.0}
 # Wan 2.1 T2V-1.3B LoRA training (tools/floor_bench.py's setup_wan with the optimizer of
 # examples/training/sft/wan/crush_smol_lora/train.sh): rank 32, B=1, the VAE moments of a 49x512x768 clip
 # (13x64x96 latents -> 19968 tokens), 512 caption tokens, all valid; per-block "full" remat.
 WAN_TRAIN_RANK = 32
 WAN_TRAIN_TIMED_STEPS = 3
+# The timed steps of the same Wan step under each kernel switch and each remat policy: fewer than the default
+# path's, to keep the script's run within half its limit as its paths grow.
+WAN_SWITCH_TIMED_STEPS = 2
 WAN_MOMENTS = (1, 32, 13, 64, 96)
 WAN_SMALL_MOMENTS = (1, 32, 13, 32, 48)  # 4992 tokens: plain fp32 attention's scores fit under remat
 WAN_CAPTION_LEN = 512
@@ -610,6 +673,18 @@ def dkdv_reduce_bound(b, n, sq, skv, h, sms):
     return bound(0, 2 * splits * b * n * skv * h * 4 + 2 * b * n * skv * h * 2), splits
 
 
+def plain_dkdv_reduce(partials, lens, dtype):
+    """The plain version of K2's reduce pass without tables: the (2, splits, B,
+    N, Skv, H) fp32 partials summed over the splits, dk scaled by ln 2, both 0
+    at keys at or past kv_lens[b], cast to `dtype`."""
+    dk, dv = partials.sum(dim=1).unbind(0)
+    dk = dk * float(np.log(2.0))
+    if lens is not None:
+        valid = (torch.arange(dk.shape[2], device=dk.device)[None, :] < lens[:, None])[:, None, :, None]
+        dk, dv = torch.where(valid, dk, 0.0), torch.where(valid, dv, 0.0)
+    return dk.to(dtype), dv.to(dtype)
+
+
 def host_split(trainer, batch):
     """Where the host spends a step: issuing forward and backward, issuing the
     update, then waiting for the card. A wait near 0 means the host bounds the step."""
@@ -633,18 +708,19 @@ def _fill_past_kv_lens(x, lens, value):
     return y
 
 
-def check_k1(card):
+def check_k1(card, cases=None, phase_name="k1_check"):
     """K1 against its plain version on the pre-pass's operands, and the pre-pass
-    plus K1 (`flash_forward`) against `flash_attention_reference`, at the LTX
-    serving path's shapes and Wan's cross-attention shapes (training B=1,
-    serving B=2); in the ragged case the k/v rows past kv_lens are also filled
-    with large values, which must leave out and LSE bit-equal (TMA reads those
-    rows), and Wan I2V-14B's cross shapes (40 heads): training's text at 20280
-    tokens, and serving's at 32760 tokens, the text with kv_lens and the 257
-    image keys without. Returns the worst error and the records by case."""
+    plus K1 (`flash_forward`) against `flash_attention_reference`, by default
+    at the LTX serving path's shapes and Wan's cross-attention shapes
+    (training B=1, serving B=2), and Wan I2V-14B's cross shapes (40 heads):
+    training's text at 20280 tokens, and serving's at 32760 tokens, the text
+    with kv_lens and the 257 image keys without. Wherever kv_lens < Skv the k/v
+    rows past kv_lens are also filled with large values, which must leave out
+    and LSE bit-equal (TMA reads those rows). Returns the worst error and the
+    records by case."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cos_t, sin_t = ltx_tables(32, 64)
-    cases = {
+    cases = cases or {
         "self_rope": dict(b=2, n=32, sq=2688, skv=2688, h=64, lens=None, rope=(cos_t, sin_t)),
         "cross_kv_lens": dict(b=2, n=32, sq=2688, skv=128, h=64, lens=[1, 12], rope=None),
         "ragged_empty_row": dict(b=2, n=32, sq=1000, skv=77, h=64, lens=[50, 0], rope=None),
@@ -696,7 +772,7 @@ def check_k1(card):
         sdpa_ms = cuda_ms(lambda: attention_dispatch(qt, kt, vt, kv_lens=lens, provider="native"))
         kv_eff = sum(c["lens"]) if c["lens"] else b * skv
         bound_ms, bound_by = k1_bound(b, n, sq, kv_eff, h)
-        phase("k1_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], vs_plain=errs["plain"],
+        phase(phase_name, case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], vs_plain=errs["plain"],
               vs_flash_attention_reference=errs["flash_attention_reference"], empty_rows_zero=empty_zero,
               rows_past_kv_lens_ignored=past_lens_ok, ms=ms, prep_ms=prep_ms, flash_forward_ms=forward_ms,
               plain_ms=plain_ms, sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -808,8 +884,26 @@ def check_k2k3(card, cases=None, phase_name="k2k3_check"):
         k2_bound, k3_bound = bwd_bounds(b, n, sq, skv, kv_eff, h, cos)
         prep_bound = bound(0, 2 * b * n * sq * h * 2 + (2 * b * n * skv * h * 2 + 2 * cos.numel() * 4
                                                         if cos is not None else 0))
-        splits = dkdv_splits(b, n, sq, skv, torch.cuda.get_device_properties(0).multi_processor_count)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = dkdv_splits(b, n, sq, skv, sms)
+        # Where a kv tile lies wholly past kv_lens (HunyuanVideo's refiner), dk and dv are exactly 0 at every key
+        # at or past kv_lens[b]: under a split q loop the reduce pass writes them.
+        zero_past_lens = None
+        if c.get("dead_tile"):
+            zero_past_lens = all(not x[bi, :, length:].any() for x in grads[1:] for bi, length in enumerate(c["lens"]))
+        reduce = None
+        if splits[0] > 1:  # the reduce pass alone: its device time in a K2 call, its plain version and bound
+            partial_gen = torch.Generator(device="cuda").manual_seed(2)  # `g`'s draws for later cases stay as they were
+            partials = torch.randn((2, splits[0], b, n, skv, h), generator=partial_gen, device="cuda")
+            reduce_plain_ms = cuda_ms(lambda: plain_dkdv_reduce(partials, lens, q.dtype))
+            reduce_device_ms = device_ms(lambda: flash_bwd_dkdv(*operands, rope_sn), K2_KERNELS[1:])
+            (reduce_bound_ms, reduce_by), _ = dkdv_reduce_bound(b, n, sq, skv, h, sms)
+            reduce = (reduce_device_ms, reduce_plain_ms, None, reduce_bound_ms, reduce_by)
+            del partials
         phase(phase_name, case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
+              zero_past_kv_lens=zero_past_lens,
+              reduce_pass=None if reduce is None else dict(zip(("device_ms", "plain_ms", "library_ms", "bound_ms",
+                                                                "bound_by"), reduce)),
               plain_by_head=by_head, k2_splits=splits[0], rel_l2={k_: e[0] for k_, e in errors.items()},
               max_err_over_max_ref={k_: e[1] for k_, e in errors.items()},
               max_abs_err={k_: e[2] for k_, e in errors.items()}, finite=finite,
@@ -827,13 +921,15 @@ def check_k2k3(card, cases=None, phase_name="k2k3_check"):
             empty = c["lens"].index(0)
             if any(x[empty].any() for x in grads):
                 raise AssertionError(f"{name}: a batch with no valid key got a nonzero gradient")
+        if zero_past_lens is False:
+            raise AssertionError(f"{name}: dk or dv is nonzero at a key past kv_lens")
         worst["prep"] = max(worst["prep"], errors["q_s"][2], errors.get("k_r", (0, 0, 0))[2])
         worst["k2"] = max(worst["k2"], errors["dk"][2], errors["dv"][2])
         worst["k3"] = max(worst["k3"], errors["dq"][2])
         records[name] = dict(prep=(prep_ms, prep_plain_ms, None, *prep_bound),
                              k2=(k2_ms, k2_plain_ms, sdpa_bwd_ms, *k2_bound),
                              k3=(k3_ms, k3_plain_ms, sdpa_bwd_ms, *k3_bound),
-                             k2_device_ms=k2_device_ms, k3_device_ms=k3_device_ms)
+                             k2_device_ms=k2_device_ms, k3_device_ms=k3_device_ms, reduce=reduce)
         del q, k, v, do, out, lse, delta, grads, q_s, k_r, operands
     return worst, records
 
@@ -1040,6 +1136,8 @@ def _bwd_case_inputs(c, g):
         cos, sin = (t[None].contiguous() for t in wan_tables(WAN_GRID if c["rope"] == "wan" else WAN_RUN_GRID))
     elif c["rope"] == "flux":
         cos, sin = flux_tables(*c["latent"])
+    elif c["rope"] == "hunyuan":
+        cos, sin = hunyuan_tables(HUNYUAN_RUN_GRID)
     elif c["rope"] == "shared":
         ang = torch.rand(1, sq, h // 2, generator=g, device="cuda") * 6.3
         cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
@@ -1837,7 +1935,7 @@ def wan_train(card):
     del split_grad
 
     with switch("FINETRAINERS_FLASH_FUSED_BWD"):
-        fused_step_s, fused_timed_launches, fused_peak_gb = timed_train_steps(trainer, batch, WAN_TRAIN_TIMED_STEPS)
+        fused_step_s, fused_timed_launches, fused_peak_gb = timed_train_steps(trainer, batch, WAN_SWITCH_TIMED_STEPS)
     fused_expected = dict(k1=4 * WAN_LAYERS, prep=6 * WAN_LAYERS, k5=2 * WAN_LAYERS, k5_emit=2 * WAN_LAYERS)
     fused_expected = {k_: fused_expected.get(k_, 0) for k_ in fused_launches}
     phase("wan_train_fused_bwd", card=card, split_loss=split_loss, fused_loss=fused_loss,
@@ -1846,7 +1944,7 @@ def wan_train(card):
           step_seconds=fused_step_s, median_step_s=statistics.median(fused_step_s),
           split_median_step_s=median_s, max_memory_allocated_gb=fused_peak_gb)
     if not (fused_loss == split_loss and fused_rel <= FUSED_GRAD_REL_L2_TOL and fused_launches == fused_expected
-            and all(v == fused_expected[k_] * WAN_TRAIN_TIMED_STEPS for k_, v in fused_timed_launches.items())):
+            and all(v == fused_expected[k_] * WAN_SWITCH_TIMED_STEPS for k_, v in fused_timed_launches.items())):
         raise AssertionError("the Wan step under the fused-backward switch failed its checks")
     paths["wan_train_fused_bwd"] = fused_launches
 
@@ -1859,9 +1957,9 @@ def wan_train(card):
             ("FINETRAINERS_FLASH_SKEW", "k7b", dict(k7b=2 * WAN_LAYERS, k1=2 * WAN_LAYERS, prep=4 * WAN_LAYERS))):
         with switch(env):
             variant_step_s, variant_launches, variant_peak_gb = timed_train_steps(trainer, batch,
-                                                                                  WAN_TRAIN_TIMED_STEPS)
+                                                                                  WAN_SWITCH_TIMED_STEPS)
         want = dict(per_step_launches, k2=2 * WAN_LAYERS, k3=2 * WAN_LAYERS)
-        want = {k_: want.get(k_, 0) * WAN_TRAIN_TIMED_STEPS for k_ in variant_launches}
+        want = {k_: want.get(k_, 0) * WAN_SWITCH_TIMED_STEPS for k_ in variant_launches}
         phase("wan_train_fwd_variants", card=card, switch=env, kernel=key, timed=True, step_seconds=variant_step_s,
               median_step_s=statistics.median(variant_step_s), split_median_step_s=median_s,
               fused_bwd_median_step_s=statistics.median(fused_step_s), launches=variant_launches,
@@ -1925,7 +2023,7 @@ def wan_train_remat(card, trainer, batch):
         module.gradient_checkpointing = policy
         loss, grad, launches = checked[policy]
         trainer.train_step(*batch)  # warm-up
-        step_s, timed_launches, peak_gb = timed_train_steps(trainer, batch, WAN_TRAIN_TIMED_STEPS)
+        step_s, timed_launches, peak_gb = timed_train_steps(trainer, batch, WAN_SWITCH_TIMED_STEPS)
         want = {k_: per_step[policy].get(k_, 0) for k_ in launches}
         remat = wan_remat_factor(cfg, WAN_TRAIN_RANK, WAN_TOKENS, WAN_CAPTION_LEN, policy)
         flops = wan_train_step_flops(cfg, WAN_TRAIN_RANK, remat, B=1, S=WAN_TOKENS, L_CTX=WAN_CAPTION_LEN)
@@ -1938,7 +2036,7 @@ def wan_train_remat(card, trainer, batch):
               model_flops_per_step=flops, model_tflops=flops / median_s / 1e12,
               share_of_peak=flops / median_s / PEAK_BF16_FLOPS)
         if not (loss == full_loss and grad_rel <= REMAT_GRAD_REL_L2_TOL and launches == want
-                and timed_launches == {k_: v * WAN_TRAIN_TIMED_STEPS for k_, v in want.items()} and peak_gb < 80):
+                and timed_launches == {k_: v * WAN_SWITCH_TIMED_STEPS for k_, v in want.items()} and peak_gb < 80):
             failed.append(policy)
         if policy != "full":
             paths[f"wan_train_{policy}"] = launches
@@ -2704,7 +2802,7 @@ def flux_run(card):
     # The same step under the example's "ops" and under "full", in turns, and a profiled "full" step: how much of
     # the host's time is the selective policy's dispatch mode.
     policy_s, policy_peak = {"ops": [], "full": []}, {}
-    for policy in ("full", "ops") * 3:
+    for policy in ("full", "ops") * 2:
         module.gradient_checkpointing = policy
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2889,6 +2987,374 @@ def flux_serve(card, adapter):
     return launches, in_step
 
 
+# HunyuanVideo at full width: its kernels at its shapes (the joint attention and the token refiner's), the
+# modal_labs_dissolve example's run through the command line at its own 49x480x768 bucket, then a 49x480x768
+# text-to-video request through the inference runner with the exported adapter.
+
+
+def hunyuan_tables(grid):
+    """HunyuanVideo's (1, S, 128) fp32 tables for 256 text tokens (zero ids:
+    identity rows) and a `grid` (frames, rows, cols) of patches whose ids
+    move the frame axis too, as the model builds them."""
+    from finetrainers_tpu_torch.models.flux import flux_rope_freqs, rope_tables
+    from finetrainers_tpu_torch.models.hunyuan_video import video_ids
+
+    ids = torch.cat([torch.zeros(HUNYUAN_TEXT, 3, device="cuda"), video_ids(*grid, torch.device("cuda"))])
+    return tuple(t[None].contiguous() for t in rope_tables(*flux_rope_freqs(ids, HUNYUAN_AXES)))
+
+
+def check_hunyuan_kernels(card):
+    """K1 and the pre-pass at the joint self-attention (1, 24, 18976, 18976,
+    128, a last tile of 32 rows) with the frame-axis tables, head by head
+    against their plain version; the pre-pass, K2 and K3 there against
+    `flash_backward_reference` head by head; then the refiner's
+    self-attention over 256 text slots, (1, 24, 256, 256, 128) with kv_lens
+    [65] and (2, ...) with [65, 256], whose second kv tile holds no valid key:
+    K1 (every row, the padded query rows too, against its plain version; k/v
+    past kv_lens ignored), K2 with its q loop split in 2 and the reduce pass
+    (B=1; 48 kv CTAs are fewer than the 132 SMs), K3, and dk = dv = 0 exactly
+    past kv_lens. Returns the worst errors and the records by case."""
+    k1_err, k1 = check_k1_wan(card, {"hunyuan_joint_self_tables": (
+        1, HUNYUAN_HEADS, lambda: hunyuan_tables(HUNYUAN_RUN_GRID))}, phase_name="hunyuan_kernel_checks")
+    refiner = {"hunyuan_refiner_self_kv_lens": dict(b=1, lens=[HUNYUAN_REFINER_VALID]),
+               "hunyuan_refiner_self_kv_lens_b2": dict(b=2, lens=[HUNYUAN_REFINER_VALID, HUNYUAN_TEXT])}
+    refiner = {name: dict(c, n=HUNYUAN_HEADS, sq=HUNYUAN_TEXT, skv=HUNYUAN_TEXT, h=128, rope=None)
+               for name, c in refiner.items()}
+    refiner_err, refiner_k1 = check_k1(card, refiner, phase_name="hunyuan_kernel_checks")
+    bwd_err, bwd = check_k2k3(card, {
+        "hunyuan_joint_self_tables": dict(b=1, n=HUNYUAN_HEADS, sq=HUNYUAN_TOKENS, skv=HUNYUAN_TOKENS, h=128,
+                                          lens=None, rope="hunyuan"),
+        **{name: dict(c, dead_tile=True) for name, c in refiner.items()}}, phase_name="hunyuan_kernel_checks")
+    return max(k1_err, refiner_err), {**k1, **refiner_k1}, bwd_err, bwd
+
+
+def ops_attn_remat_factor(cfg: dict, lora_rank: int, S: int) -> float:
+    """The share of the forward's matmul FLOPs (floor_bench's per-layer terms,
+    as `flux_train_step_flops` counts them) that "ops_attn" recomputes: all
+    but the attention scores and values."""
+    d = cfg["num_attention_heads"] * cfg["attention_head_dim"]
+    per_layer = flux_train_step_flops(cfg, lora_rank, 0.0, B=1, S=S) / 2.0 / (2 * cfg["num_layers"]
+                                                                               + cfg["num_single_layers"])
+    return 1.0 - 2 * 2 * S * S * d / per_layer
+
+
+def hunyuan_run_data(root):
+    """4 seeded videos at the example's 49x480x768 bucket (mp4v, smooth colour
+    blobs), their `metadata.csv` with DISSOLVE captions, the example's
+    training.json pointing at them, and its first validation prompt at
+    49x480x768 with 2 denoising steps. Returns (training.json, validation.json)."""
+    import csv
+
+    import cv2
+
+    root.mkdir(parents=True, exist_ok=True)
+    frames, height, width = HUNYUAN_BUCKET
+    rng = np.random.RandomState(14)
+    with open(root / "metadata.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["file_name", "caption"])
+        w.writeheader()
+        for i in range(HUNYUAN_RUN_VIDEOS):
+            writer = cv2.VideoWriter(str(root / f"clip{i}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 25, (width, height))
+            coarse = (rng.rand(frames, height // 32, width // 32, 3) * 255).astype(np.uint8)
+            for frame in coarse:
+                writer.write(cv2.resize(frame, (width, height), interpolation=cv2.INTER_LINEAR))
+            writer.release()
+            w.writerow({"file_name": f"clip{i}.mp4",
+                        "caption": f"DISSOLVE A figurine number {i} dissolves into a cloud of particles."})
+    training = json.loads((HUNYUAN_EXAMPLE / "training.json").read_text())
+    training["datasets"][0]["data_root"] = str(root)
+    validation = json.loads((HUNYUAN_EXAMPLE / "validation.json").read_text())
+    validation["data"] = [dict(validation["data"][0], num_inference_steps=2)]
+    (root / "training.json").write_text(json.dumps(training))
+    (root / "validation.json").write_text(json.dumps(validation))
+    return root / "training.json", root / "validation.json"
+
+
+@contextlib.contextmanager
+def vae_pieces_seen():
+    """Record the largest element count the VAE's convs and GroupNorms meet
+    (`autoencoders._pieces`): past SPLIT_ELEMENTS they run in pieces."""
+    from finetrainers_tpu_torch.models import autoencoders
+
+    pieces, seen = autoencoders._pieces, {"max_elements": 0}
+
+    def counted_pieces(size, elements):
+        seen["max_elements"] = max(seen["max_elements"], elements)
+        return pieces(size, elements)
+
+    autoencoders._pieces = counted_pieces
+    try:
+        yield seen
+    finally:
+        autoencoders._pieces = pieces
+
+
+def _refiner_and_joint(ms_list, refiner):
+    """Launch times of one kernel class in a step split into the refiner's
+    (its `refiner` shortest: 256 slots against 18,976 tokens) and the joint
+    attention's: (median joint ms, median refiner ms)."""
+    ranked = sorted(ms_list)
+    return _median(ranked[refiner:]), _median(ranked[:refiner])
+
+
+def hunyuan_run(card):
+    """The modal_labs_dissolve example's run through
+    `finetrainers_tpu_torch.train.main` with its train.sh flags on one card
+    (precompute once, `transformer:ring`, slicing and tiling, rank 32, the
+    example's AdamW, logit-normal weighting, bf16), with "ops_attn" for the
+    example's "ops" (which needs ~120 GB at this size), from 4 videos on disk
+    at its own 49x480x768 bucket (18,976 tokens): 4 steps, then the final
+    validation from the exported adapter in a fresh model (one request, 2
+    steps of 50, 49x480x768). Each step's seconds, launches, K2 reduce passes
+    and peak memory, model TFLOP/s by floor_bench's formula with "ops_attn"'s
+    remat factor, precompute seconds per item, whether the VAE ran in pieces,
+    the validation's seconds and launches; after the run, one more step
+    profiled. Returns the run's launches, reduce passes, the adapter's
+    directory and the in-step times."""
+    from finetrainers_tpu_torch import train as train_cli
+    from finetrainers_tpu_torch.models import autoencoders
+    from finetrainers_tpu_torch.models.hunyuan_video import HUNYUAN_VIDEO_CONFIG
+
+    t0 = time.perf_counter()
+    training_json, validation_json = hunyuan_run_data(SMOKE_DIR / "hunyuan_run_data")
+    data_s = time.perf_counter() - t0
+    out_dir = SMOKE_DIR / "hunyuan_run"
+    argv = train_sh_argv(HUNYUAN_EXAMPLE, dataset_config=training_json, validation_dataset_file=validation_json,
+                         output_dir=out_dir, report_to="jsonl", train_steps=HUNYUAN_RUN_STEPS,
+                         precomputation_items=HUNYUAN_RUN_VIDEOS, gradient_checkpointing_type=HUNYUAN_RUN_POLICY)
+    steps, validations, peaks = [], [], {}
+    orig_step, orig_validate = SFTTrainer.train_step, SFTTrainer._validate
+
+    def counted_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        before, reduce_before, t = _counts(), flash_bwd_dkdv.reduce_launches, time.perf_counter()
+        if not steps:  # the peak of the model load and the precompute before the first step
+            peaks["load_and_precompute_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        out = orig_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        after = _counts()
+        steps.append(dict(seconds=time.perf_counter() - t, launches={k_: after[k_] - before[k_] for k_ in after},
+                          reduce=flash_bwd_dkdv.reduce_launches - reduce_before,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        return out
+
+    def timed_validate(self, step, final=False):
+        torch.cuda.synchronize()
+        before, t = _counts(), time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        orig_validate(self, step, final)
+        torch.cuda.synchronize()
+        after = _counts()
+        validations.append(dict(step=step, final=final, seconds=time.perf_counter() - t,
+                                launches={k_: after[k_] - before[k_] for k_ in after if after[k_] != before[k_]},
+                                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+
+    SFTTrainer.train_step, SFTTrainer._validate = counted_step, timed_validate
+    try:
+        with vae_pieces_seen() as vae:
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            reduce_before = flash_bwd_dkdv.reduce_launches
+            t0 = time.perf_counter()
+            trainer = train_cli.main(argv)
+            torch.cuda.synchronize()
+            run_s, launches = time.perf_counter() - t0, _counts()
+            reduce = flash_bwd_dkdv.reduce_launches - reduce_before
+    finally:
+        SFTTrainer.train_step, SFTTrainer._validate = orig_step, orig_validate
+    module = trainer.transformer.module
+    base_params = sum(p.numel() for n, p in module.named_parameters() if n not in trainer._trainable)
+    lora_params = sum(p.numel() for p in trainer._trainable.values())
+    shape_ok = (base_params == HUNYUAN_PARAMS and lora_params == HUNYUAN_LORA_PARAMS
+                and len(module.transformer_blocks) + len(module.single_transformer_blocks) == HUNYUAN_LAYERS
+                and module.context_embedder.token_refiner.num_layers == HUNYUAN_REFINER_LAYERS
+                and module.gradient_checkpointing == HUNYUAN_RUN_POLICY
+                and trainer.attn_provider_training == {"transformer": "ring"})
+    # After the run and its export: one more step on the run's first precomputed item, profiled.
+    spec = trainer.model_specification
+    precomputed = out_dir / "precomputed" / PRECOMPUTED_DIR_NAME
+    items = [dict(np.load(precomputed / f"{kind}-0.npz")) for kind in ("condition", "latent")]
+    latent_shape = list(items[1]["latents"].shape)
+    text_valid = int(items[0]["encoder_attention_mask"].sum())
+    batch = to_device((spec.collate_conditions([items[0]]), spec.collate_latents([items[1]])), torch.device("cuda"))
+    prof = profile_device(lambda: trainer.train_step(*batch))
+    del trainer, module, spec, batch
+    freed_gb = _free_cuda()
+
+    log = [json.loads(line) for line in (out_dir / "logs" / "finetrainers-tpu-hunyuan_video.jsonl").read_text()
+           .splitlines()]
+    losses = [e["train/global_avg_loss"] for e in log if "train/global_avg_loss" in e]
+    precompute_s = next(e["timing/precompute"] for e in log if "timing/precompute" in e)
+    adapter = out_dir / "lora_weights" / f"{HUNYUAN_RUN_STEPS:06d}"
+    state, config = load_lora_weights(str(adapter))
+    videos = sorted((out_dir / "validation").rglob("*.mp4"))
+    layers = HUNYUAN_LAYERS + HUNYUAN_REFINER_LAYERS
+    # A step under "ops_attn": K4's outputs saved, so K1 runs in the forward only (60 joint, 2 refiner), the
+    # pre-pass before each forward and each backward, K2 and K3 in each backward. The reduce pass: the refiner's
+    # K2 has 24 heads x 2 kv tiles = 48 CTAs, fewer than the H100's 132 SMs, and 4 q tiles of 64 rows, so its q
+    # loop is cut in 2 and the reduce pass runs once a refiner block; the joint attention's 24 x 149 = 3576 CTAs
+    # are not cut.
+    step_want = dict(k1=layers, prep=2 * layers, k2=layers, k3=layers)
+    want = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
+    steps_ok = all(st["launches"] == want and st["reduce"] == HUNYUAN_REFINER_LAYERS for st in steps)
+    validation_want = {"k1": 2 * layers, "prep": 2 * layers}  # 2 denoising steps, no CFG
+    validations_ok = (len(validations) == 1 and validations[0]["final"]
+                      and validations[0]["launches"] == validation_want)
+    timed = [st["seconds"] for st in steps][1:]
+    remat = ops_attn_remat_factor(HUNYUAN_VIDEO_CONFIG, HUNYUAN_RANK, HUNYUAN_TOKENS)
+    flops = flux_train_step_flops(HUNYUAN_VIDEO_CONFIG, HUNYUAN_RANK, remat, B=1, S=HUNYUAN_TOKENS)
+    median_s = statistics.median(timed)
+    in_step = {cls: _refiner_and_joint(prof["launches"][cls], 2 * HUNYUAN_REFINER_LAYERS if cls == "prep"
+                                       else HUNYUAN_REFINER_LAYERS) for cls in ("k1", "prep", "k2", "k3")}
+    in_step["k2_reduce"] = _median(prof["launches"]["k2_reduce"])
+    phase("hunyuan_run", card=card, entry="python -m finetrainers_tpu_torch.train", argv=[str(a) for a in argv],
+          policy_note=f"{HUNYUAN_RUN_POLICY} for the example's ops, which does not fit one card at this bucket",
+          bucket=list(HUNYUAN_BUCKET), tokens=HUNYUAN_TOKENS, latents_shape=latent_shape, text_valid=text_valid,
+          published_shape=shape_ok, base_params=base_params, lora_params=lora_params, data_write_s=data_s,
+          precompute_s=precompute_s, precompute_s_per_item=precompute_s / HUNYUAN_RUN_VIDEOS, peaks_gb=peaks,
+          step_seconds=[st["seconds"] for st in steps], median_step_s_2_to_4=median_s,
+          step_peaks_gb=[st["peak_gb"] for st in steps], step_launches=steps[0]["launches"],
+          step_reduce_passes=[st["reduce"] for st in steps], step_launches_all_exact=steps_ok,
+          remat_factor=remat, model_flops_per_step=flops, model_tflops=flops / median_s / 1e12,
+          share_of_peak=flops / median_s / PEAK_BF16_FLOPS, losses=losses, validations=validations,
+          validations_launches_exact=validations_ok, validation_videos=[str(v.relative_to(SMOKE_DIR)) for v in videos],
+          vae_max_elements=vae["max_elements"], vae_split_elements=autoencoders.SPLIT_ELEMENTS,
+          vae_split=vae["max_elements"] > autoencoders.SPLIT_ELEMENTS, run_s=run_s, launches=launches,
+          reduce_passes=reduce, export=str(adapter.relative_to(SMOKE_DIR.parent.parent)), export_keys=len(state),
+          export_lora_config=config, memory_after_free_gb=freed_gb)
+    phase("hunyuan_run_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"],
+          ms_by_class=dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()}),
+          ms_per_launch_joint_and_refiner=in_step, launches={cls: len(v) for cls, v in prof["launches"].items()},
+          top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
+    if not (shape_ok and steps_ok and validations_ok and len(steps) == HUNYUAN_RUN_STEPS and all(np.isfinite(losses))
+            and len(losses) == HUNYUAN_RUN_STEPS and len(state) == 2 * (20 * 12 + 40 * 5 + 2 * 6)
+            and config.get("r") == HUNYUAN_RANK and latent_shape == [1, 32, 13, 60, 96] and len(videos) == 1
+            and reduce == HUNYUAN_REFINER_LAYERS * HUNYUAN_RUN_STEPS):
+        raise AssertionError("the modal_labs_dissolve example's run failed its checks")
+    del state
+    return dict(launches=launches, reduce=reduce, adapter=adapter, in_step=in_step)
+
+
+def hunyuan_checkpoint_dir():
+    """A model directory that holds only `scheduler/scheduler_config.json`, as the
+    public HunyuanVideo checkpoint names its scheduler."""
+    root = SMOKE_DIR / "hunyuan_checkpoint"
+    (root / "scheduler").mkdir(parents=True, exist_ok=True)
+    (root / "scheduler" / "scheduler_config.json").write_text(json.dumps(HUNYUAN_SCHEDULER_CONFIG))
+    return root
+
+
+def hunyuan_serve(card, adapter):
+    """One 49x480x768 text-to-video request of full-width HunyuanVideo through
+    the port's runner, `inference.main`, with `--attn_provider flash` as the
+    example passes it, the runner's default guidance 5.0 embedded, 3
+    flow-match Euler steps of 50 with shift 7 read from the scheduler config,
+    and the adapter `hunyuan_run` exported. The VAE decode, each denoise step
+    and the request are timed by synced wrappers; the video must be finite,
+    (49, 480, 768, 3) uint8, every LoRA factor of the served model the
+    adapter's, K1 and the pre-pass 62 times a step (60 joint, 2 refiner) and no
+    other kernel. Then one denoise step profiled."""
+    from finetrainers_tpu_torch import inference
+    from finetrainers_tpu_torch.models import autoencoders
+    from finetrainers_tpu_torch.models.autoencoders import AutoencoderKL3D
+    from finetrainers_tpu_torch.models.hunyuan_video import HunyuanVideoPipeline
+
+    out_dir = SMOKE_DIR / "hunyuan_serve"
+    frames, height, width = HUNYUAN_BUCKET
+    argv = ["--model_name", "hunyuan_video", "--pretrained_model_name_or_path", str(hunyuan_checkpoint_dir()),
+            "--inference_type", "text_to_video", "--prompt", "DISSOLVE A chess piece crumbles into glowing embers "
+            "that scatter upward.", "--num_frames", str(frames), "--height", str(height), "--width", str(width),
+            "--num_inference_steps", str(HUNYUAN_SERVE_STEPS), "--attn_provider", "flash", "--enable_slicing",
+            "--enable_tiling", "--lora_weights", str(adapter), "--output_dir", str(out_dir), "--seed", "0"]
+    seconds, facts, last = {"decode": [], "step": [], "request": []}, {}, []
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    wrapped = ((AutoencoderKL3D, "decode"), (HunyuanVideoPipeline, "denoise_step"), (HunyuanVideoPipeline, "__call__"))
+    originals = {name: getattr(cls, name) for cls, name in wrapped}
+    request = timed("request", originals["__call__"])
+    step = timed("step", originals["denoise_step"])
+
+    def call(self, *args, **kwargs):
+        facts["scheduler"] = type(self.scheduler).__name__
+        facts["shift"] = self.scheduler.shift
+        facts["guidance_scale"] = kwargs.get("guidance_scale")
+        params = dict(self.transformer.module.named_parameters())
+        adapter_state, _ = load_lora_weights(str(adapter))
+        facts["lora_factors"] = len(adapter_state)
+        facts["lora_loaded"] = all(bool(torch.equal(params[key[len("transformer."):]].detach(),
+                                                    value.to(params[key[len("transformer."):]].device)))
+                                   for key, value in adapter_state.items())
+        facts["lora_b_nonzero"] = all(bool(adapter_state[f"transformer.{name}.lora_B.weight"].any()) for name in (
+            "transformer_blocks.0.attn.to_q", "single_transformer_blocks.0.proj_mlp",
+            "context_embedder.token_refiner.refiner_blocks_0.attn.to_q"))
+        del adapter_state
+        video = request(self, *args, **kwargs)
+        facts["video_shape"], facts["video_dtype"] = list(video.shape), str(video.dtype)
+        return video
+
+    def denoise(self, *args, **kwargs):
+        last[:] = [self, args, kwargs]
+        return step(self, *args, **kwargs)
+
+    AutoencoderKL3D.decode = timed("decode", originals["decode"])
+    HunyuanVideoPipeline.denoise_step, HunyuanVideoPipeline.__call__ = denoise, call
+    try:
+        with vae_pieces_seen() as vae:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            paths = inference.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches, peak_gb = _counts(), torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        for cls, name in wrapped:
+            setattr(cls, name, originals[name])
+    with torch.inference_mode():
+        prof = profile_device(lambda: originals["denoise_step"](last[0], *last[1], **last[2]))
+    del last[:]
+    from finetrainers_tpu_torch.data.utils import load_video
+
+    written = load_video(paths[0], to_float=False)
+    layers = HUNYUAN_LAYERS + HUNYUAN_REFINER_LAYERS
+    expected = {k_: layers * HUNYUAN_SERVE_STEPS if k_ in ("k1", "prep") else 0 for k_ in launches}
+    in_step = {cls: _refiner_and_joint(prof["launches"][cls], HUNYUAN_REFINER_LAYERS) for cls in ("k1", "prep")}
+    phase("hunyuan_serve", card=card, entry="python -m finetrainers_tpu_torch.inference", argv=argv[:-6],
+          steps=HUNYUAN_SERVE_STEPS, steps_note="cut from the request's 50", tokens=HUNYUAN_TOKENS,
+          text_tokens=HUNYUAN_TEXT, request_s=seconds["request"], step_s=seconds["step"],
+          vae_decode_s=seconds["decode"], main_wall_s=wall_s, peak_memory_gb=peak_gb, launches=launches,
+          launches_expected=expected, vae_max_elements=vae["max_elements"],
+          vae_split_elements=autoencoders.SPLIT_ELEMENTS, vae_split=vae["max_elements"] > autoencoders.SPLIT_ELEMENTS,
+          written=[str(pathlib.Path(p).relative_to(SMOKE_DIR.parent.parent)) for p in paths],
+          written_shape=list(written.shape), **facts)
+    phase("hunyuan_serve_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"],
+          ms_by_class=dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()}),
+          ms_per_launch_joint_and_refiner=in_step, launches={cls: len(v) for cls, v in prof["launches"].items()},
+          top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
+    if not (facts.get("video_shape") == [frames, height, width, 3] and facts.get("video_dtype") == "uint8"
+            and facts.get("scheduler") == "FlowMatchEulerScheduler" and facts.get("shift") == 7.0
+            and facts.get("guidance_scale") == 5.0 and facts.get("lora_loaded") and facts.get("lora_b_nonzero")
+            and facts.get("lora_factors") == 2 * (20 * 12 + 40 * 5 + 2 * 6) and launches == expected
+            and len(seconds["step"]) == HUNYUAN_SERVE_STEPS and len(seconds["decode"]) == 1
+            and list(written.shape) == [frames, height, width, 3] and paths[0].endswith(".mp4")):
+        raise AssertionError("HunyuanVideo serving through the runner failed its checks")
+    phase("hunyuan_serve_freed", memory_allocated_gb=_free_cuda())
+    return launches, in_step
+
+
 def env_phase():
     """Whether the media codecs the data stage decodes with import here (information, not a check)."""
     found = {}
@@ -2987,6 +3453,9 @@ def main():
     flux_k1_err, flux_k1, flux_bwd_err, flux_bwd = check_flux_kernels(card)
     flux = flux_run(card)
     flux_serve_launches, flux_serve_in_step = flux_serve(card, flux["adapter"])
+    hy_k1_err, hy_k1, hy_bwd_err, hy_bwd = check_hunyuan_kernels(card)
+    hunyuan = hunyuan_run(card)
+    hy_serve_launches, hy_serve_in_step = hunyuan_serve(card, hunyuan["adapter"])
     shutil.rmtree(SMOKE_DIR)
     env_phase()
 
@@ -3013,27 +3482,35 @@ def main():
 
     def bwd_entry(key, name, replaces):  # K2 or K3: the Wan training self-attention case, the others by case
         fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        extra = {}
+        if key == "k2":  # the reduce pass: its launches on the paths that count them, its records where it ran
+            extra = dict(reduce_launches_by_path={"hunyuan_run": hunyuan["reduce"]},
+                         reduce_in_step_ms={"hunyuan_run": hunyuan["in_step"]["k2_reduce"]},
+                         reduce_by_case={case: dict(zip(fields, r["reduce"])) for case, r in
+                                         {**bwd, **flux_bwd, **hy_bwd}.items() if r["reduce"] is not None})
         return entry(name, "finetrainers_tpu_torch/csrc/flash_bwd_sm90.cu", replaces, wan[key],
-                     max(bwd_err[key], flux_bwd_err[key]), bwd["wan_train_self_shared_rope"][key],
+                     max(bwd_err[key], flux_bwd_err[key], hy_bwd_err[key]), bwd["wan_train_self_shared_rope"][key],
                      launches_by_path={"train": train_launches[key], "wan_train": wan[key],
                                        **{f"wan_train_{p}": wan_paths[f"wan_train_{p}"][key]
                                           for p in ("ops", "ops_attn", "ops_narrow", "accum")},
                                        **{path: wan_paths[path][key] for path in WAN_RUN_PATHS},
-                                       "wan_i2v_train": i2v_train["launches"][key], "flux_run": flux["launches"][key]},
+                                       "wan_i2v_train": i2v_train["launches"][key], "flux_run": flux["launches"][key],
+                                       "hunyuan_run": hunyuan["launches"][key]},
                      shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128],
                      i2v_train_in_step_ms={part: i2v_train["in_step"][f"{key}_{part}"] for part in ("self", "cross")},
                      flux_train_in_step_ms=flux["in_step"][key],
+                     hunyuan_train_in_step_ms=dict(zip(("joint", "refiner"), hunyuan["in_step"][key])),
                      device_ms=bwd["wan_train_self_shared_rope"][f"{key}_device_ms"],
                      by_case={case: dict(zip(fields, r[key]), device_ms=r[f"{key}_device_ms"])
-                              for case, r in {**bwd, **flux_bwd}.items()},
-                     library_note="torch SDPA backward (dq, dk, dv in one call), without the fused rotation")
+                              for case, r in {**bwd, **flux_bwd, **hy_bwd}.items()},
+                     library_note="torch SDPA backward (dq, dk, dv in one call), without the fused rotation", **extra)
 
     wan = wan_paths["wan_train"]
     ltx_self = k1["self_rope"]
     print(json.dumps({"kernels": [
         entry("flash_fwd_sm90 (K1, wgmma + TMA, on the pre-pass's operands)",
               "finetrainers_tpu_torch/csrc/flash_fwd_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:106",
-              serve_launches["k1"], max(k1_err, k1_wan_err, flux_k1_err),
+              serve_launches["k1"], max(k1_err, k1_wan_err, flux_k1_err, hy_k1_err),
               (ltx_self["ms"], ltx_self["plain_ms"], ltx_self["library_ms"], ltx_self["bound_ms"],
                ltx_self["bound_by"]),
               launches_by_path={"serve": serve_launches["k1"], "train": train_launches["k1"],
@@ -3044,16 +3521,20 @@ def main():
                                 "wan_i2v_train": i2v_train["launches"]["k1"],
                                 "wan_i2v_serve": i2v_serve_launches["k1"],
                                 "wan_i2v_image_branch": i2v_branch_launches["auto"]["k1"],
-                                "flux_run": flux["launches"]["k1"], "flux_serve": flux_serve_launches["k1"]},
-              shape=[2, 32, 2688, 2688, 64], by_case={**k1, **k1_wan, **flux_k1},
+                                "flux_run": flux["launches"]["k1"], "flux_serve": flux_serve_launches["k1"],
+                                "hunyuan_run": hunyuan["launches"]["k1"], "hunyuan_serve": hy_serve_launches["k1"]},
+              shape=[2, 32, 2688, 2688, 64], by_case={**k1, **k1_wan, **flux_k1, **hy_k1},
               flux_in_step_ms=dict(serve_self=flux_serve_in_step["k1"], train_self=flux["in_step"]["k1"]),
+              hunyuan_in_step_ms=dict(serve=dict(zip(("joint", "refiner"), hy_serve_in_step["k1"])),
+                                      train=dict(zip(("joint", "refiner"), hunyuan["in_step"]["k1"]))),
               i2v_in_step_ms=dict(i2v_branch_in_step["auto"], train_self=i2v_train["in_step"]["k1_self"],
                                   train_cross=i2v_train["in_step"]["k1_cross"]),
               wan_train_self_attention=wan_shape(k5_wan["k1"]),
               library_note="torch SDPA forward, without the fused rotation"),
         entry("flash_qk_prep (the RoPE and q-scale pre-pass before K1, K7a, K7c, K2/K3 and K5)",
               "finetrainers_tpu_torch/csrc/flash_bwd.cu", "finetrainers_tpu/ops/flash_attention.py:189",
-              serve_launches["prep"], max(bwd_err["prep"], flux_bwd_err["prep"]), bwd["self_rope"]["prep"],
+              serve_launches["prep"], max(bwd_err["prep"], flux_bwd_err["prep"], hy_bwd_err["prep"]),
+              bwd["self_rope"]["prep"],
               also_replaces=["finetrainers_tpu/ops/flash_attention.py:961",
                              "finetrainers_tpu/ops/flash_attention.py:1268"],
               launches_by_path={"serve": serve_launches["prep"], "train": train_launches["prep"],
@@ -3064,9 +3545,15 @@ def main():
                                 "wan_i2v_train": i2v_train["launches"]["prep"],
                                 "wan_i2v_serve": i2v_serve_launches["prep"],
                                 "wan_i2v_image_branch": i2v_branch_launches["auto"]["prep"],
-                                "flux_run": flux["launches"]["prep"], "flux_serve": flux_serve_launches["prep"]},
+                                "flux_run": flux["launches"]["prep"], "flux_serve": flux_serve_launches["prep"],
+                                "hunyuan_run": hunyuan["launches"]["prep"],
+                                "hunyuan_serve": hy_serve_launches["prep"]},
               flux_by_case={case: dict(ms=r["prep_ms"], plain_ms=r["prep_plain_ms"]) for case, r in flux_k1.items()},
               flux_in_step_ms=dict(serve=flux_serve_in_step["prep"], train=flux["in_step"]["prep"]),
+              hunyuan_by_case={case: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r["prep"]))
+                               for case, r in hy_bwd.items()},
+              hunyuan_in_step_ms=dict(serve=dict(zip(("joint", "refiner"), hy_serve_in_step["prep"])),
+                                      train=dict(zip(("joint", "refiner"), hunyuan["in_step"]["prep"]))),
               shape_note="timed at LTX's train self-attention (1, 32, 2688, 64) with per-head tables"),
         bwd_entry("k2", "bwd_dkdv_sm90 (K2, wgmma + TMA, with its reduce pass where the q loop is split)",
                   "finetrainers_tpu/ops/flash_attention.py:888"),

@@ -1,8 +1,8 @@
 """Model/training-type registry (port of `finetrainers_tpu/config.py`).
 
-LTX-Video, Wan 2.1 and Flux resolve for `lora` and `full-finetune`; every
-other family, and Wan's control training types, raise NotImplementedError
-until their slice is ported (ROADMAP.md)."""
+LTX-Video, Wan 2.1, Flux and HunyuanVideo resolve for `lora` and
+`full-finetune`; every other family, and Wan's control training types, raise
+NotImplementedError until their slice is ported (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ _CONTROL = (TrainingType.CONTROL_LORA, TrainingType.CONTROL_FULL_FINETUNE)
 _LTX = ("finetrainers_tpu_torch.models.ltx_video", "LTXVideoModelSpecification")
 _WAN = ("finetrainers_tpu_torch.models.wan", "WanModelSpecification")
 _FLUX = ("finetrainers_tpu_torch.models.flux", "FluxModelSpecification")
+_HUNYUAN = ("finetrainers_tpu_torch.models.hunyuan_video", "HunyuanVideoModelSpecification")
 
 # model -> {training types}: (module path, class name), or None where the family
 # is not ported yet. The training types per family are the JAX package's.
@@ -40,7 +41,7 @@ _REGISTRY: Dict[ModelType, Dict[TrainingType, Optional[Tuple[str, str]]]] = {
     ModelType.COGVIDEOX: {t: None for t in _SFT},
     ModelType.COGVIEW4: {t: None for t in _SFT + _CONTROL},
     ModelType.FLUX: {t: _FLUX for t in _SFT},
-    ModelType.HUNYUAN_VIDEO: {t: None for t in _SFT},
+    ModelType.HUNYUAN_VIDEO: {t: _HUNYUAN for t in _SFT},
     ModelType.LTX_VIDEO: {t: _LTX for t in _SFT},
     ModelType.WAN: {**{t: _WAN for t in _SFT}, **{t: None for t in _CONTROL}},
     ModelType.DUMMY: {t: None for t in _SFT},

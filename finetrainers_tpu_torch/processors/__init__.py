@@ -1,3 +1,3 @@
 from .base import ProcessorMixin
 from .text import CaptionTextDropoutProcessor
-from .text_encoders import CLIPPooledProcessor, HashEncoder, T5Processor
+from .text_encoders import CLIPPooledProcessor, HashEncoder, LlamaProcessor, T5Processor

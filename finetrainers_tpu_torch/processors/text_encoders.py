@@ -3,9 +3,9 @@
 
 Encoders are duck-typed handles exposing `encode(captions, max_sequence_length)
 -> (embeds, mask)` as numpy arrays, and for a CLIP slot `encode_pooled(captions)
--> (B, pooled_dim)`. The T5 and CLIP towers are not ported yet (they wait for
-their weights; see ROADMAP.md queue 1 item 7), so the port serves with
-`HashEncoder`, the same offline stand-in the JAX package falls back to.
+-> (B, pooled_dim)`. The T5, CLIP and Llama towers are not ported yet (they
+wait for their weights; see ROADMAP.md queue 1 item 7), so the port serves
+with `HashEncoder`, the same offline stand-in the JAX package falls back to.
 """
 
 from __future__ import annotations
@@ -85,3 +85,38 @@ class CLIPPooledProcessor(ProcessorMixin):
     def forward(self, text_encoder, caption: Union[str, List[str]], **kwargs):
         captions = [caption] if isinstance(caption, str) else list(caption)
         return {self.output_names[0]: text_encoder.encode_pooled(captions)}
+
+
+# Copied from `finetrainers_tpu/processors/text_encoders.py:134-141`.
+DEFAULT_HUNYUAN_PROMPT_TEMPLATE = (
+    "<|start_header_id|>system<|end_header_id|>\n\nDescribe the video by detailing the following aspects: "
+    "1. The main content and theme of the video."
+    "2. The color, shape, size, texture, quantity, text, and spatial relationships of the objects."
+    "3. Actions, events, behaviors temporal relationships, physical movement changes of the objects."
+    "4. background environment, light, style and atmosphere."
+    "5. camera angles, movements, and transitions used in the video:<|eot_id|>"
+    "<|start_header_id|>user<|end_header_id|>\n\n{}<|eot_id|>"
+)
+
+
+class LlamaProcessor(ProcessorMixin):
+    """HunyuanVideo's Llama prompt-template processor (copied from
+    `finetrainers_tpu/processors/text_encoders.py:144-162`): the caption is
+    wrapped in the system template and encoded at `max_sequence_length` plus
+    the crop, and the template prefix's `crop_start` states are cut off. An
+    encoder whose `supports_template_crop` is False (the offline stand-in)
+    is cut by 0."""
+
+    def __init__(self, output_names: List[str], prompt_template: Optional[str] = None, crop_start: int = 95):
+        if len(output_names) != 2:
+            raise ValueError(f"LlamaProcessor takes two output names, got {output_names}")
+        self.output_names = output_names
+        self.prompt_template = prompt_template or DEFAULT_HUNYUAN_PROMPT_TEMPLATE
+        self.crop_start = crop_start
+
+    def forward(self, text_encoder, caption: Union[str, List[str]], max_sequence_length: int = 256, **kwargs):
+        captions = [caption] if isinstance(caption, str) else list(caption)
+        templated = [self.prompt_template.format(c) for c in captions]
+        crop = self.crop_start if getattr(text_encoder, "supports_template_crop", True) else 0
+        embeds, mask = text_encoder.encode(templated, max_sequence_length=max_sequence_length + crop)
+        return {self.output_names[0]: embeds[:, crop:], self.output_names[1]: mask[:, crop:].astype(np.int32)}

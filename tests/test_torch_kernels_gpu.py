@@ -528,6 +528,91 @@ def test_k1_k2_k3_at_a_16_row_last_tile_with_flux_tables(dtype, head_dim, axes):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,axes", [(64, (16, 24, 24)), (128, (16, 56, 56))], ids=["h64", "h128"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_k2_k3_at_a_32_row_last_tile_with_frame_axis_tables(dtype, head_dim, axes):
+    """HunyuanVideo's joint attention: 32 text rows (zero ids, identity rows in
+    the tables) and 2 latent frames of 8 x 8 patches whose (frame, row, col)
+    ids move the frame axis too, 160 = 128 + 32 rows, so the last q and kv
+    tiles hold 32 (the example's 256 + 18,720 = 18,976 tokens end the same
+    way). K1 after the pre-pass, K2 and K3 against their references, as for
+    Flux's tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from finetrainers_tpu_torch.models.flux import flux_rope_freqs, rope_tables
+    from finetrainers_tpu_torch.models.hunyuan_video import video_ids
+
+    text, b, n = 32, 1, 3
+    ids = torch.cat([torch.zeros(text, 3, device="cuda"), video_ids(2, 8, 8, torch.device("cuda"))])
+    s = ids.shape[0]
+    assert s % 128 == 32 and ids[:, 0].max() == 1
+    cos, sin = (t[None].contiguous() for t in rope_tables(*flux_rope_freqs(ids, axes)))
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, do = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   for _ in range(4))
+    before = (flash_forward.launches, flash_qk_prep.launches)
+    out, lse = flash_forward(q, k, v, None, cos, sin)
+    torch.cuda.synchronize()
+    assert (flash_forward.launches, flash_qk_prep.launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_lse = flash_attention_reference(q, k, v, None, cos, sin)
+    assert ((out.float() - ref.float()).abs() / ref.float().abs().clamp_min(1.0)).max() <= 2e-2
+    assert (lse - ref_lse).abs().max() <= 1e-2
+    grads = flash_backward(q, k, v, out, lse, do, None, cos, sin)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), grads, flash_backward_reference(q, k, v, out, lse, do, None, cos,
+                                                                                     sin)):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        rel_l2, max_ratio = _rel_errors(got, want)
+        assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, head_dim, rel_l2, max_ratio)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lens", [[65], [65, 256]], ids=["b1", "b2"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_k2_k3_at_a_256_key_self_attention_with_a_dead_kv_tile(dtype, head_dim, lens):
+    """HunyuanVideo's token refiner: self-attention over 256 text slots of
+    which 65 are valid, so the kv tile of keys 128-255 holds no valid key. K1
+    skips it: every row, the padded query rows too, matches
+    `flash_attention_reference` (those rows go on to the joint blocks, so
+    they are attended, not zeroed). K2's q loop is split (4 q tiles of 64
+    rows, 2 or 4 kv CTAs per head, fewer than the SMs: 2 splits) and the
+    reduce pass runs once; dk and dv are exactly 0 at the keys past kv_lens
+    and match `flash_bwd_dkdv_reference`, dq `flash_bwd_dq_reference`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    b, n, s = len(lens), 2, 256
+    g = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v, do = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   for _ in range(4))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out, lse = flash_forward(q, k, v, kv_lens)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_reference(q, k, v, kv_lens)
+    assert ((out.float() - ref.float()).abs() / ref.float().abs().clamp_min(1.0)).max() <= 2e-2
+    assert (lse - ref_lse).abs().max() <= 1e-2
+    assert out[0, :, lens[0]:].abs().amax() > 0
+    splits = dkdv_splits(b, n, s, s, torch.cuda.get_device_properties(0).multi_processor_count)[0]
+    assert splits == 2
+    scale = head_dim**-0.5
+    delta = (do.float() * out.float()).sum(-1)
+    q_s, k_r = flash_qk_prep(q, k, None, None, 0, scale)
+    operands = (q_s, k_r, v, do, lse, delta, kv_lens, None, None)
+    reduce_before = flash_bwd_dkdv.reduce_launches
+    dk, dv = flash_bwd_dkdv(*operands, 0)
+    dq = flash_bwd_dq(*operands, 0, scale)
+    torch.cuda.synchronize()
+    assert flash_bwd_dkdv.reduce_launches == reduce_before + 1
+    for bi, length in enumerate(lens):
+        assert not dk[bi, :, length:].any() and not dv[bi, :, length:].any(), (bi, length)
+    refs = (dq, flash_bwd_dq_reference(*operands, scale)), *zip((dk, dv), flash_bwd_dkdv_reference(*operands, splits))
+    for name, (got, want) in zip(("dq", "dk", "dv"), refs):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        rel_l2, max_ratio = _rel_errors(got, want)
+        assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, head_dim, lens, rel_l2, max_ratio)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_k2_k3_ignore_k_and_v_rows_past_kv_lens(dtype, head_dim):

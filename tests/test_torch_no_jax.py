@@ -11,7 +11,8 @@ and the data stage's (datasets, loader, sampler, precompute, prefetch,
 trackers, the command line `finetrainers_tpu_torch.train`) and the Wan I2V
 slice's (the multistep schedulers, the weight bridge, the inference runner
 `finetrainers_tpu_torch.inference`) and the Flux slice's (transformer,
-weights, spec, pipeline, the text processors) among them. Any
+weights, spec, pipeline, the text processors) and the HunyuanVideo slice's
+(transformer, weights, spec, pipeline) among them. Any
 import of a blocked package, any `nvcc` run and any kernel library loaded
 during import fails the test. A second fresh interpreter blocks nothing,
 imports every module and finds neither `jax` nor `finetrainers_tpu` in
@@ -49,7 +50,9 @@ training = {"finetrainers_tpu_torch." + m for m in (
     "data.dataset", "data.sampler", "data.precomputation", "data.dataloader", "data.prefetch",
     "models.autoencoders", "utils.memory", "utils.timing", "utils.hub", "inference", "schedulers", "config",
     "models.wan.weights", "models.weight_utils", "models.layers", "models.flux", "models.flux.transformer",
-    "models.flux.weights", "models.flux.base_specification", "models.flux.pipeline", "processors.text_encoders")}
+    "models.flux.weights", "models.flux.base_specification", "models.flux.pipeline", "processors.text_encoders",
+    "models.hunyuan_video", "models.hunyuan_video.transformer", "models.hunyuan_video.weights",
+    "models.hunyuan_video.base_specification", "models.hunyuan_video.pipeline")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
 print(len(names))
 """
