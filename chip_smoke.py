@@ -8,10 +8,13 @@ full width: LoRA training, then image-to-video serving through the inference
 runner with the exported adapter and UniPC at 81x480x832, FLUX.1-dev at
 full width: the flux_dev example's LoRA run through its command line at its
 own 1280x720 bucket, then 1024x1024 text-to-image serving through the runner
-with the exported adapter, and HunyuanVideo at full width: the
+with the exported adapter, HunyuanVideo at full width: the
 modal_labs_dissolve example's LoRA run through its command line at its own
 49x480x768 bucket, then 49x480x768 text-to-video serving through the runner
-with the exported adapter.
+with the exported adapter, and CogView4-6B at full width with the control
+trainer: the canny control-LoRA example's run through its command line at
+1024x1024, a control-conditioned and a plain 1024x1024 request through the
+runner, and the Wan image_condition control example's run.
 
     python3 chip_smoke.py
 
@@ -104,17 +107,17 @@ Phases, each printed on its own line:
      weights, K1 4*30, the pre-pass 4*30 + 2*30, K2 and K3 2*30 launches per
      step, model TFLOP/s by tools/floor_bench.py's formula); the same step under
      FINETRAINERS_FLASH_FUSED_BWD (K5: bit-equal loss, LoRA gradient within
-     1e-2, 2*30 K5 launches, 2 timed steps) and under each forward switch
+     1e-2, 2*30 K5 launches, 1 timed step) and under each forward switch
      (K7a/b/c launch counts, loss within 1e-3 and gradient within 2e-2 of the
-     K1 step), then 2 timed steps under each of FINETRAINERS_FLASH_TWOPASS
+     K1 step), then 1 timed step under each of FINETRAINERS_FLASH_TWOPASS
      (K7a), _TWOLEVEL (K7c) and _SKEW (K7b), with exact launch counts;
      the kernel step against plain fp32 attention at 4992 tokens; the step
      under each remat policy, "full", "ops", "ops_attn" and "ops_narrow"
      (`wan_train_remat`: loss bit-equal and LoRA gradient within 2e-2 of
      "full"'s at the same weights, K1 2*30 launches under the selective
-     policies, one warm-up and 2 timed steps each with peak memory and model
-     TFLOP/s at the policy's remat factor, a profile of the "ops" step); host
-     issue time and a torch.profiler breakdown of one "full" step;
+     policies, one warm-up and 1 timed step each with peak memory and model
+     TFLOP/s at the policy's remat factor); host issue time and a
+     torch.profiler breakdown of one "full" step;
   10. the Wan example's run (`wan_train_accum_resume`): "ops" remat, gradient
      accumulation over 2 micro-steps, a checkpoint every 2 with the 2 newest
      kept, 6 seeded batches: an unbroken run against one broken after 3
@@ -179,7 +182,7 @@ Phases, each printed on its own line:
      final validation from the exported adapter (1 request, 2 steps of 50: K1
      and the pre-pass 114), step seconds, model TFLOP/s, peaks, precompute
      seconds per image, a profiled step after the run, then the step under
-     `ops` and under `full` in turns, 2 each (`flux_run_policies`);
+     `ops` and under `full` in turns, 1 each (`flux_run_policies`);
      `flux_serve`, one 1024x1024 request through `inference.main` with
      guidance 3.5, 4 Euler steps of 28 with dynamic shifting from a
      scheduler config written as the
@@ -212,7 +215,31 @@ Phases, each printed on its own line:
      the adapter's, K1 and the pre-pass 62 times a step and no other kernel,
      request, step and decode seconds, whether the decode ran in strips, the
      peak and a profiled step;
-  15. `env`: whether `cv2` and `PIL` import on this machine (information only).
+  15. CogView4-6B at full width with the control trainer
+     (`COGVIEW4_TRANSFORMER_CONFIG` widened to 32 input channels, LoRA rank
+     128: 6,631,406,656 parameters, 264,769,536 trained, bf16):
+     `cogview4_kernel_checks`, K1 and the pre-pass at the joint
+     self-attention (1, 32, 5120, 5120, 128; 1024 text slots with identity
+     rows and 64x64 patches' 2D RoPE) and at the CFG batch (2, ...), and the
+     pre-pass, K2 and K3 at the training shape, head by head against their
+     plain versions, with bounds and SDPA; `cogview4_control_run`, `python -m
+     finetrainers_tpu_torch.train` with the canny train.sh's flags (one card,
+     `ops`, `transformer:auto`, `--control_type canny`) from 4 photos written
+     with cv2 at 1024x1024: 4 steps, K1 28, the pre-pass 56, K2 28 and K3 28
+     a step and no reduce pass, the final validation with a control image
+     from the exports in a fresh widened model (2 steps, CFG: K1 and the
+     pre-pass 56), the adapter and `control_aux_weights.safetensors`
+     reloaded bit-equal, step seconds, model TFLOP/s, peaks and a profiled
+     step; `cogview4_serve`, a control-lora request with that adapter and a
+     Canny map and a plain text-to-image request, each 1024x1024 through
+     `inference.main` with `--attn_provider flash`, 4 Euler steps of 50, CFG
+     5.0: finite (1024, 1024, 3) PNGs, K1 and the pre-pass 28 a step and no
+     other kernel, request, step and decode seconds, peaks and a profiled
+     step; `wan_control_run`, the Wan image_condition train.sh's flags
+     (`--control_type none`, `index` 0, `transformer:ring`) from 4 videos
+     with paired control videos at 49x480x832: 4 steps launching as
+     `wan_run`'s, the final validation through the pipeline's control branch;
+  16. `env`: whether `cv2` and `PIL` import on this machine (information only).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
 0. Without a CUDA card it raises before printing any result.
@@ -398,6 +425,28 @@ HUNYUAN_SERVE_STEPS = 3  # cut from the request's 50
 # The scheduler config of the public hunyuanvideo-community/HunyuanVideo checkpoint.
 HUNYUAN_SCHEDULER_CONFIG = {"_class_name": "FlowMatchEulerDiscreteScheduler", "num_train_timesteps": 1000,
                             "shift": 7.0}
+# CogView4-6B at full width with the control trainer (the canny control-LoRA example): the transformer widened
+# to 32 input channels (2x the 16 latent channels) with LoRA rank 128 (jax.eval_shape on the JAX model), one
+# joint self-attention a block over 1024 GLM slots (the offline encoder's states padded to 1024) and 64x64 image
+# patches of a 1024x1024 image.
+COGVIEW4_EXAMPLE = (pathlib.Path(__file__).resolve().parent / "examples" / "training" / "control" / "cogview4"
+                    / "canny")
+COGVIEW4_PARAMS = 6_631_406_656
+COGVIEW4_TRAINED = 264_769_536  # the LoRA factors (264,241,152) and the injection layer `patch_embed.proj`
+COGVIEW4_LAYERS = 28
+COGVIEW4_HEADS = 32
+COGVIEW4_TEXT = 1024
+COGVIEW4_BUCKET = (1024, 1024)
+COGVIEW4_GRID = (64, 64)
+COGVIEW4_TOKENS = 5120
+COGVIEW4_RANK = 128
+COGVIEW4_RUN_IMAGES, COGVIEW4_RUN_STEPS = 4, 4  # cut from 50 precomputed items and 10000 steps
+COGVIEW4_SERVE_STEPS = 4  # cut from the request's 50
+# The Wan image_condition control example: Wan 2.1 T2V-1.3B widened to 32 input channels, LoRA rank 128.
+WAN_CONTROL_EXAMPLE = (pathlib.Path(__file__).resolve().parent / "examples" / "training" / "control" / "wan"
+                       / "image_condition")
+WAN_CONTROL_PARAMS = 1_594_076_224
+WAN_CONTROL_TRAINED = 175_179_264  # the LoRA factors (174,981,120) and the injection layer `patch_embedding`
 # Wan 2.1 T2V-1.3B LoRA training (tools/floor_bench.py's setup_wan with the optimizer of
 # examples/training/sft/wan/crush_smol_lora/train.sh): rank 32, B=1, the VAE moments of a 49x512x768 clip
 # (13x64x96 latents -> 19968 tokens), 512 caption tokens, all valid; per-block "full" remat.
@@ -405,7 +454,7 @@ WAN_TRAIN_RANK = 32
 WAN_TRAIN_TIMED_STEPS = 3
 # The timed steps of the same Wan step under each kernel switch and each remat policy: fewer than the default
 # path's, to keep the script's run within half its limit as its paths grow.
-WAN_SWITCH_TIMED_STEPS = 2
+WAN_SWITCH_TIMED_STEPS = 1
 WAN_MOMENTS = (1, 32, 13, 64, 96)
 WAN_SMALL_MOMENTS = (1, 32, 13, 32, 48)  # 4992 tokens: plain fp32 attention's scores fit under remat
 WAN_CAPTION_LEN = 512
@@ -447,8 +496,12 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name, **fields):
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """Print one phase line, with the seconds since the script started (`t_s`)."""
+    print(json.dumps({"phase": name, **fields, "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -562,12 +615,16 @@ def counted(module, name):
 
 def profile_device(fn):
     """Device time of one call of `fn` by class from torch.profiler: the port's
-    kernels (each launch kept in launch order), cuBLAS GEMMs, everything else."""
+    kernels (each launch kept in launch order), cuBLAS GEMMs, everything else.
+    Only the card's activity is traced: tracing the host's ops as well slows
+    their issue, which inflates the idle share of a host-bound step, and
+    parsing their events takes seconds at full width
+    (`tools/torch_profiler_probe.py`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
         fn()
         end.record()
@@ -1138,6 +1195,8 @@ def _bwd_case_inputs(c, g):
         cos, sin = flux_tables(*c["latent"])
     elif c["rope"] == "hunyuan":
         cos, sin = hunyuan_tables(HUNYUAN_RUN_GRID)
+    elif c["rope"] == "cogview4":
+        cos, sin = cogview4_tables()
     elif c["rope"] == "shared":
         ang = torch.rand(1, sq, h // 2, generator=g, device="cuda") * 6.3
         cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
@@ -1751,8 +1810,8 @@ def train(card):
         raise AssertionError("training check failed")
 
     # K4's host cost in this host-bound step: the op against an autograd.Function around the same kernels
-    # (6 rounds, cut from 12 to make room for the example's run).
-    k4_s, k4_us = k4_host_cost(trainer, batch, rounds=6)
+    # (3 rounds, cut from 12 to make room for the example's runs).
+    k4_s, k4_us = k4_host_cost(trainer, batch, rounds=3)
     phase("train_k4_host_cost", card=card, order="interleaved, rotating by one each round",
           step_seconds=k4_s, median_step_s={glue: statistics.median(k4_s[glue]) for glue in K4_GLUES},
           call_us=k4_us, median_call_us={glue: statistics.median(k4_us[glue]) for glue in K4_GLUES},
@@ -2040,15 +2099,8 @@ def wan_train_remat(card, trainer, batch):
             failed.append(policy)
         if policy != "full":
             paths[f"wan_train_{policy}"] = launches
-    # The example's policy: where its step's time goes, beside wan_train_profile's "full" step.
-    module.gradient_checkpointing = "ops"
-    host = host_split(trainer, batch)
-    prof = profile_device(lambda: trainer.train_step(*batch))
-    phase("wan_train_remat_profile", card=card, policy="ops", step_wall_ms=prof["wall_ms"],
-          device_busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
-          ms_by_class=dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()}),
-          launches={cls: len(v) for cls, v in prof["launches"].items()}, host_seconds=host,
-          top_kernels_ms=prof["top_kernels_ms"])
+    # The example's policy's profile is `wan_run`'s (an "ops" step at the example's bucket); this phase's was cut
+    # to make room for the control runs.
     module.gradient_checkpointing = "full"
     del checked, full_grad
     if failed:
@@ -2305,7 +2357,7 @@ def wan_run(card):
         batch = to_device((spec.collate_conditions([items[0]]), spec.collate_latents([items[1]])),
                           torch.device("cuda"))
         provider_s = {"ring": [], "auto": []}
-        for provider in ("ring", "auto") * 3:
+        for provider in ("ring", "auto"):  # one step each, cut from three to make room for the control runs
             trainer.attn_provider_training = {"transformer": provider}
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -2688,15 +2740,21 @@ def check_flux_kernels(card):
     return k1_err, k1, bwd_err, bwd
 
 
-def flux_train_step_flops(cfg: dict, lora_rank: int, remat_factor: float, B: int, S: int) -> float:
-    """Analytic matmul FLOPs of one Flux LoRA train step (copied from
-    tools/floor_bench.py's `setup_flux` `flops` and `_attn_ff_flops`, with its
-    shape constants as arguments): per layer q, k, v, out, the joint scores,
-    the 4x GELU MLP and six LoRA pairs; a dual block counts twice."""
-    d = cfg["num_attention_heads"] * cfg["attention_head_dim"]
+def joint_train_step_flops(layers: int, d: int, lora_rank: int, remat_factor: float, B: int, S: int) -> float:
+    """Analytic matmul FLOPs of one LoRA train step of a joint-stream DiT
+    (tools/floor_bench.py's `_attn_ff_flops` with its shape constants as
+    arguments): per layer q, k, v, out, the joint scores, the 4x GELU
+    feed-forward and six LoRA pairs."""
     per_layer = 4 * 2 * S * d * d + 2 * 2 * S * S * d + 2 * 2 * S * d * 4 * d + 6 * 2 * S * (2 * d * lora_rank)
-    fwd = cfg["num_layers"] * 2 * per_layer + cfg["num_single_layers"] * per_layer
-    return fwd * B * (2.0 + remat_factor)
+    return layers * per_layer * B * (2.0 + remat_factor)
+
+
+def flux_train_step_flops(cfg: dict, lora_rank: int, remat_factor: float, B: int, S: int) -> float:
+    """floor_bench's `setup_flux` `flops`: the joint formula, a dual block
+    counting twice."""
+    return joint_train_step_flops(2 * cfg["num_layers"] + cfg["num_single_layers"],
+                                  cfg["num_attention_heads"] * cfg["attention_head_dim"], lora_rank, remat_factor,
+                                  B, S)
 
 
 def flux_run_data(root):
@@ -2748,44 +2806,10 @@ def flux_run(card):
     argv = train_sh_argv(FLUX_EXAMPLE, dataset_config=training_json, validation_dataset_file=validation_json,
                          output_dir=out_dir, report_to="jsonl", train_steps=FLUX_RUN_STEPS,
                          precomputation_items=FLUX_RUN_IMAGES)
-    steps, validations, peaks = [], [], {}
-    orig_step, orig_validate = SFTTrainer.train_step, SFTTrainer._validate
-
-    def counted_step(self, *args, **kwargs):
-        torch.cuda.synchronize()
-        before, reduce_before, t = _counts(), flash_bwd_dkdv.reduce_launches, time.perf_counter()
-        if not steps:  # the peak of the model load and the precompute before the first step
-            peaks["load_and_precompute_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        torch.cuda.reset_peak_memory_stats()
-        out = orig_step(self, *args, **kwargs)
-        torch.cuda.synchronize()
-        after = _counts()
-        steps.append(dict(seconds=time.perf_counter() - t, launches={k_: after[k_] - before[k_] for k_ in after},
-                          reduce=flash_bwd_dkdv.reduce_launches - reduce_before,
-                          peak_gb=torch.cuda.max_memory_allocated() / 1e9))
-        return out
-
-    def timed_validate(self, step, final=False):
-        torch.cuda.synchronize()
-        before, t = _counts(), time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        orig_validate(self, step, final)
-        torch.cuda.synchronize()
-        after = _counts()
-        validations.append(dict(step=step, final=final, seconds=time.perf_counter() - t,
-                                launches={k_: after[k_] - before[k_] for k_ in after if after[k_] != before[k_]},
-                                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
-
-    SFTTrainer.train_step, SFTTrainer._validate = counted_step, timed_validate
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counts()
-        t0 = time.perf_counter()
+    with counted_run() as rec:
         trainer = train_cli.main(argv)
-        torch.cuda.synchronize()
-        run_s, launches = time.perf_counter() - t0, _counts()
-    finally:
-        SFTTrainer.train_step, SFTTrainer._validate = orig_step, orig_validate
+    steps, validations, peaks, run_s, launches = (rec[k_] for k_ in ("steps", "validations", "peaks", "run_s",
+                                                                      "launches"))
     module = trainer.transformer.module
     base_params = sum(p.numel() for n, p in module.named_parameters() if n not in trainer._trainable)
     lora_params = sum(p.numel() for p in trainer._trainable.values())
@@ -2802,7 +2826,7 @@ def flux_run(card):
     # The same step under the example's "ops" and under "full", in turns, and a profiled "full" step: how much of
     # the host's time is the selective policy's dispatch mode.
     policy_s, policy_peak = {"ops": [], "full": []}, {}
-    for policy in ("full", "ops") * 2:
+    for policy in ("full", "ops"):  # one step each, cut from two to make room for the control runs
         module.gradient_checkpointing = policy
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3122,47 +3146,10 @@ def hunyuan_run(card):
     argv = train_sh_argv(HUNYUAN_EXAMPLE, dataset_config=training_json, validation_dataset_file=validation_json,
                          output_dir=out_dir, report_to="jsonl", train_steps=HUNYUAN_RUN_STEPS,
                          precomputation_items=HUNYUAN_RUN_VIDEOS, gradient_checkpointing_type=HUNYUAN_RUN_POLICY)
-    steps, validations, peaks = [], [], {}
-    orig_step, orig_validate = SFTTrainer.train_step, SFTTrainer._validate
-
-    def counted_step(self, *args, **kwargs):
-        torch.cuda.synchronize()
-        before, reduce_before, t = _counts(), flash_bwd_dkdv.reduce_launches, time.perf_counter()
-        if not steps:  # the peak of the model load and the precompute before the first step
-            peaks["load_and_precompute_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        torch.cuda.reset_peak_memory_stats()
-        out = orig_step(self, *args, **kwargs)
-        torch.cuda.synchronize()
-        after = _counts()
-        steps.append(dict(seconds=time.perf_counter() - t, launches={k_: after[k_] - before[k_] for k_ in after},
-                          reduce=flash_bwd_dkdv.reduce_launches - reduce_before,
-                          peak_gb=torch.cuda.max_memory_allocated() / 1e9))
-        return out
-
-    def timed_validate(self, step, final=False):
-        torch.cuda.synchronize()
-        before, t = _counts(), time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        orig_validate(self, step, final)
-        torch.cuda.synchronize()
-        after = _counts()
-        validations.append(dict(step=step, final=final, seconds=time.perf_counter() - t,
-                                launches={k_: after[k_] - before[k_] for k_ in after if after[k_] != before[k_]},
-                                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
-
-    SFTTrainer.train_step, SFTTrainer._validate = counted_step, timed_validate
-    try:
-        with vae_pieces_seen() as vae:
-            torch.cuda.reset_peak_memory_stats()
-            _zero_counts()
-            reduce_before = flash_bwd_dkdv.reduce_launches
-            t0 = time.perf_counter()
-            trainer = train_cli.main(argv)
-            torch.cuda.synchronize()
-            run_s, launches = time.perf_counter() - t0, _counts()
-            reduce = flash_bwd_dkdv.reduce_launches - reduce_before
-    finally:
-        SFTTrainer.train_step, SFTTrainer._validate = orig_step, orig_validate
+    with vae_pieces_seen() as vae, counted_run() as rec:
+        trainer = train_cli.main(argv)
+    steps, validations, peaks, run_s, launches, reduce = (rec[k_] for k_ in ("steps", "validations", "peaks", "run_s",
+                                                                              "launches", "reduce"))
     module = trainer.transformer.module
     base_params = sum(p.numel() for n, p in module.named_parameters() if n not in trainer._trainable)
     lora_params = sum(p.numel() for p in trainer._trainable.values())
@@ -3355,6 +3342,454 @@ def hunyuan_serve(card, adapter):
     return launches, in_step
 
 
+# CogView4-6B at full width with the control trainer: its kernels at its joint self-attention shape, the canny
+# control-LoRA example's run through the command line at 1024x1024, then a control-conditioned and a plain
+# 1024x1024 request through the inference runner; then the Wan image_condition control example's run.
+
+
+def cogview4_tables():
+    """CogView4's (1, 5120, 128) fp32 tables: the identity on the 1024 text
+    rows, then the 64x64 patches' 2D RoPE, as the model builds them."""
+    from finetrainers_tpu_torch.models.cogview4 import cogview4_rope_tables
+
+    return tuple(t[None].contiguous() for t in cogview4_rope_tables(COGVIEW4_TEXT, *COGVIEW4_GRID, 128,
+                                                                    torch.device("cuda")))
+
+
+def check_cogview4_kernels(card):
+    """K1 and the pre-pass at CogView4's joint self-attention (1, 32, 5120,
+    5120, 128; 40 full tiles) and at the CFG batch (2, ...), with the tables,
+    against their plain version head by head; the pre-pass, K2 and K3 at the
+    training shape against `flash_backward_reference` head by head (32 heads x
+    40 kv tiles = 1280 CTAs: no split, no reduce pass). Returns the worst
+    errors and the records by case."""
+    k1_err, k1 = check_k1_wan(card, {"cogview4_joint_self_tables": (1, COGVIEW4_HEADS, cogview4_tables),
+                                     "cogview4_joint_self_tables_b2": (2, COGVIEW4_HEADS, cogview4_tables)},
+                              phase_name="cogview4_kernel_checks")
+    bwd_err, bwd = check_k2k3(card, {"cogview4_joint_self_tables": dict(
+        b=1, n=COGVIEW4_HEADS, sq=COGVIEW4_TOKENS, skv=COGVIEW4_TOKENS, h=128, lens=None, rope="cogview4")},
+        phase_name="cogview4_kernel_checks")
+    return k1_err, k1, bwd_err, bwd
+
+
+@contextlib.contextmanager
+def counted_run():
+    """Count a run through the trainer (the SFT trainer's `train_step` and
+    `_validate`, which the control trainer inherits): per step its seconds,
+    launches, K2 reduce passes and peak memory; per validation its seconds,
+    launches and peak; the peak of the model load and precompute before the
+    first step; and the run's seconds, launches and reduce passes."""
+    rec = dict(steps=[], validations=[], peaks={})
+    orig_step, orig_validate = SFTTrainer.train_step, SFTTrainer._validate
+
+    def counted_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        before, reduce_before, t = _counts(), flash_bwd_dkdv.reduce_launches, time.perf_counter()
+        if not rec["steps"]:
+            rec["peaks"]["load_and_precompute_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        out = orig_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        after = _counts()
+        rec["steps"].append(dict(seconds=time.perf_counter() - t,
+                                 launches={k_: after[k_] - before[k_] for k_ in after},
+                                 reduce=flash_bwd_dkdv.reduce_launches - reduce_before,
+                                 peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        return out
+
+    def timed_validate(self, step, final=False):
+        torch.cuda.synchronize()
+        before, t = _counts(), time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        orig_validate(self, step, final)
+        torch.cuda.synchronize()
+        after = _counts()
+        rec["validations"].append(dict(step=step, final=final, seconds=time.perf_counter() - t,
+                                       launches={k_: after[k_] - before[k_] for k_ in after
+                                                 if after[k_] != before[k_]},
+                                       peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+
+    SFTTrainer.train_step, SFTTrainer._validate = counted_step, timed_validate
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        reduce_before, t0 = flash_bwd_dkdv.reduce_launches, time.perf_counter()
+        yield rec
+        torch.cuda.synchronize()
+        rec.update(run_s=time.perf_counter() - t0, launches=_counts(),
+                   reduce=flash_bwd_dkdv.reduce_launches - reduce_before)
+    finally:
+        SFTTrainer.train_step, SFTTrainer._validate = orig_step, orig_validate
+
+
+def cogview4_run_data(root):
+    """4 seeded 1024x1024 PNG photos (64-pixel colour blocks, so Canny finds
+    edges) written with cv2, their `metadata.csv`, the example's training.json
+    pointing at them, the Canny map of the first photo made by the ported
+    processor and written as a PNG, and the example's validation prompt at
+    1024x1024 with 2 denoising steps and that map as its control image.
+    Returns (training.json, validation.json, the map's path)."""
+    import csv
+
+    import cv2
+
+    from finetrainers_tpu_torch.processors import CannyProcessor
+
+    root.mkdir(parents=True, exist_ok=True)
+    height, width = COGVIEW4_BUCKET
+    rng = np.random.RandomState(15)
+    with open(root / "metadata.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["file_name", "caption"])
+        w.writeheader()
+        for i in range(COGVIEW4_RUN_IMAGES):
+            coarse = (rng.rand(height // 64, width // 64, 3) * 255).astype(np.uint8)
+            cv2.imwrite(str(root / f"photo{i}.png"),
+                        cv2.resize(coarse, (width, height), interpolation=cv2.INTER_NEAREST))
+            w.writerow({"file_name": f"photo{i}.png", "caption": f"a photo of a mountain lake at dawn, number {i}"})
+    first = cv2.cvtColor(cv2.imread(str(root / "photo0.png")), cv2.COLOR_BGR2RGB)
+    edges = CannyProcessor(["control"])(input=np.moveaxis(first.astype(np.float32) / 127.5 - 1.0, -1, 0))["control"]
+    edge_map = root / "edge_map.png"
+    cv2.imwrite(str(edge_map), ((np.moveaxis(edges, 0, -1) + 1.0) * 127.5).astype(np.uint8))
+    training = json.loads((COGVIEW4_EXAMPLE / "training.json").read_text())
+    training["datasets"][0]["data_root"] = str(root)
+    validation = json.loads((COGVIEW4_EXAMPLE / "validation.json").read_text())
+    validation["data"] = [dict(validation["data"][0], num_inference_steps=2, control_image_path=str(edge_map))]
+    (root / "training.json").write_text(json.dumps(training))
+    (root / "validation.json").write_text(json.dumps(validation))
+    return root / "training.json", root / "validation.json", edge_map
+
+
+def cogview4_control_run(card):
+    """The canny control-LoRA example's run through
+    `finetrainers_tpu_torch.train.main` with its train.sh flags on one card
+    (control-lora rank 128, `--control_type canny`, precompute once, "ops"
+    remat, `transformer:auto`, slicing and tiling, AdamW with
+    `constant_with_warmup`, logit-normal weighting, bf16) from 4 photos on
+    disk at its own 1024x1024 bucket (5120 tokens): 4 steps, then the final
+    validation from the exports in a fresh widened model (one request with
+    the control image, 2 steps of 50, CFG in one batch of 2). Each step's
+    seconds, launches, reduce passes and peak memory, model TFLOP/s by
+    floor_bench's formula, precompute seconds per item, the validation's
+    seconds and launches; the exported adapter plus
+    `control_aux_weights.safetensors` reloaded into a fresh widened model
+    must give the trained model's forward bit for bit; then one more step
+    profiled. Returns the run's launches, the adapter's directory, the
+    control image's path and the in-step times."""
+    from finetrainers_tpu_torch import train as train_cli
+    from finetrainers_tpu_torch.trainer.control_trainer import AUX_WEIGHTS_NAME
+    from finetrainers_tpu_torch.utils.serialization import safetensors_load_dict
+
+    t0 = time.perf_counter()
+    training_json, validation_json, edge_map = cogview4_run_data(SMOKE_DIR / "cogview4_run_data")
+    data_s = time.perf_counter() - t0
+    out_dir = SMOKE_DIR / "cogview4_run"
+    argv = train_sh_argv(COGVIEW4_EXAMPLE, dataset_config=training_json, validation_dataset_file=validation_json,
+                         output_dir=out_dir, report_to="jsonl", train_steps=COGVIEW4_RUN_STEPS,
+                         precomputation_items=COGVIEW4_RUN_IMAGES)
+    with counted_run() as rec:
+        trainer = train_cli.main(argv)
+    steps, validations = rec["steps"], rec["validations"]
+    module = trainer.transformer.module
+    n_params = sum(p.numel() for p in module.parameters())
+    n_trained = sum(p.numel() for p in trainer._trainable.values())
+    shape_ok = (n_params == COGVIEW4_PARAMS and n_trained == COGVIEW4_TRAINED
+                and len(module.transformer_blocks) == COGVIEW4_LAYERS
+                and trainer.transformer.config["in_channels"] == 32 and module.gradient_checkpointing == "ops"
+                and module.patch_embed.proj.weight.dtype == torch.float32
+                and trainer.attn_provider_training == {"transformer": "auto"})
+    spec = trainer.model_specification
+    precomputed = out_dir / "precomputed" / PRECOMPUTED_DIR_NAME
+    items = [dict(np.load(precomputed / f"{kind}-0.npz")) for kind in ("condition", "latent")]
+    latent_shape, control_shape = list(items[1]["latents"].shape), list(items[1]["control_latents"].shape)
+    batch = to_device((spec.collate_conditions([items[0]]), spec.collate_latents([items[1]])), torch.device("cuda"))
+    # The exports reloaded into a fresh widened model (the final validation's path) against the trained model.
+    fresh = trainer._load_exported_transformer()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((1, 32, 128, 128), generator=g, device="cuda").to(torch.bfloat16)
+    ehs, sizes = batch[0]["encoder_hidden_states"], batch[1]["original_size"]
+    with torch.no_grad():
+        outs = [m(x, ehs, torch.tensor([500.0], device="cuda"), original_size=sizes, target_size=sizes,
+                  crop_coords=torch.zeros_like(sizes)) for m in (fresh.module, module)]
+    reload_bit_equal = bool(torch.equal(*outs)) and bool(torch.isfinite(outs[0]).all())
+    del fresh, outs, x
+    torch.cuda.empty_cache()
+    prof = profile_device(lambda: trainer.train_step(*batch))
+    del trainer, module, spec, batch
+    _free_cuda()
+
+    log = [json.loads(line) for line in (out_dir / "logs" / "finetrainers-tpu-cogview4.jsonl").read_text()
+           .splitlines()]
+    losses = [e["train/global_avg_loss"] for e in log if "train/global_avg_loss" in e]
+    precompute_s = next(e["timing/precompute"] for e in log if "timing/precompute" in e)
+    adapter = out_dir / "lora_weights" / f"{COGVIEW4_RUN_STEPS:06d}"
+    state, config = load_lora_weights(str(adapter))
+    aux = safetensors_load_dict(str(adapter / AUX_WEIGHTS_NAME))
+    aux_shapes = {k: list(v.shape) for k, v in aux.items()}
+    images = sorted((out_dir / "validation").rglob("*.png"))
+    # A step under "ops": K4 saved, so K1 runs in the forward only, the pre-pass before each forward and backward,
+    # K2 and K3 in each backward; no reduce pass (32 heads x 40 kv tiles = 1280 CTAs, over the 132 SMs).
+    step_want = dict(k1=COGVIEW4_LAYERS, prep=2 * COGVIEW4_LAYERS, k2=COGVIEW4_LAYERS, k3=COGVIEW4_LAYERS)
+    want = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
+    steps_ok = all(st["launches"] == want and st["reduce"] == 0 for st in steps)
+    validation_want = {"k1": 2 * COGVIEW4_LAYERS, "prep": 2 * COGVIEW4_LAYERS}  # 2 steps, CFG in one batch
+    validations_ok = (len(validations) == 1 and validations[0]["final"]
+                      and validations[0]["launches"] == validation_want)
+    median_s = statistics.median([st["seconds"] for st in steps][1:])
+    flops = joint_train_step_flops(COGVIEW4_LAYERS, 4096, COGVIEW4_RANK, 0.0, B=1, S=COGVIEW4_TOKENS)
+    in_step = {cls: _median(prof["launches"][cls]) for cls in ("k1", "prep", "k2", "k3")}
+    phase("cogview4_control_run", card=card, entry="python -m finetrainers_tpu_torch.train",
+          argv=[str(a) for a in argv], bucket=list(COGVIEW4_BUCKET), tokens=COGVIEW4_TOKENS,
+          latents_shape=latent_shape, control_latents_shape=control_shape, published_shape=shape_ok,
+          params=n_params, trained_params=n_trained, data_write_s=data_s, precompute_s=precompute_s,
+          precompute_s_per_item=precompute_s / COGVIEW4_RUN_IMAGES, peaks_gb=rec["peaks"],
+          step_seconds=[st["seconds"] for st in steps], median_step_s_2_to_4=median_s,
+          step_peaks_gb=[st["peak_gb"] for st in steps], step_launches=steps[0]["launches"],
+          step_reduce_passes=[st["reduce"] for st in steps], step_launches_all_exact=steps_ok,
+          model_flops_per_step=flops, model_tflops=flops / median_s / 1e12,
+          share_of_peak=flops / median_s / PEAK_BF16_FLOPS, losses=losses, validations=validations,
+          validations_launches_exact=validations_ok, validation_images=[str(i.relative_to(SMOKE_DIR)) for i in images],
+          run_s=rec["run_s"], launches=rec["launches"], reduce_passes=rec["reduce"],
+          export=str(adapter.relative_to(SMOKE_DIR.parent.parent)), export_keys=len(state),
+          export_lora_config=config, aux_weights=aux_shapes, reload_forward_bit_equal=reload_bit_equal)
+    phase("cogview4_control_run_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"],
+          ms_by_class=dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()}),
+          ms_per_launch=in_step, launches={cls: len(v) for cls, v in prof["launches"].items()},
+          top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
+    if not (shape_ok and steps_ok and validations_ok and reload_bit_equal and len(steps) == COGVIEW4_RUN_STEPS
+            and len(losses) == COGVIEW4_RUN_STEPS and all(np.isfinite(losses))
+            and len(state) == 2 * 6 * COGVIEW4_LAYERS and config.get("r") == COGVIEW4_RANK
+            and aux_shapes == {"patch_embed_proj.bias": [4096], "patch_embed_proj.kernel": [128, 4096]}
+            and latent_shape == control_shape == [1, 32, 128, 128] and len(images) == 1 and rec["reduce"] == 0):
+        raise AssertionError("the canny control example's run failed its checks")
+    del state, aux
+    return dict(launches=rec["launches"], reduce=rec["reduce"], adapter=adapter, edge_map=edge_map,
+                in_step=in_step)
+
+
+def cogview4_serve(card, adapter, edge_map):
+    """Two 1024x1024 requests through the port's runner, `inference.main`,
+    each 4 Euler steps of 50 with the runner's guidance 5.0 (CFG in one batch
+    of 2) under `--attn_provider flash`, slicing and tiling, as
+    examples/inference/cogview4/cogview4_text_to_image.sh passes them: one
+    with `--training_type control-lora`, the adapter and aux weights
+    `cogview4_control_run` exported and its Canny map as the control image;
+    one plain text-to-image request. Per request: its seconds, each denoise
+    step's, the decode's, the peak, launches (K1 and the pre-pass 28 a step,
+    no other kernel), a finite (1024, 1024, 3) PNG; for the control one, the
+    served model's injection layer is the aux file's. Then one denoise step
+    of each profiled."""
+    from finetrainers_tpu_torch import inference
+    from finetrainers_tpu_torch.models.autoencoders import AutoencoderKL3D
+    from finetrainers_tpu_torch.models.cogview4 import CogView4Pipeline
+    from finetrainers_tpu_torch.trainer.control_trainer import AUX_WEIGHTS_NAME
+    from finetrainers_tpu_torch.utils.serialization import safetensors_load_dict
+
+    import cv2
+
+    kernel = safetensors_load_dict(str(adapter / AUX_WEIGHTS_NAME))["patch_embed_proj.kernel"]
+    base = ["--model_name", "cogview4", "--pretrained_model_name_or_path", str(SMOKE_DIR / "cogview4_checkpoint"),
+            "--inference_type", "text_to_image", "--prompt", "a photo of a mountain lake at dawn", "--height",
+            str(COGVIEW4_BUCKET[0]), "--width", str(COGVIEW4_BUCKET[1]), "--num_inference_steps",
+            str(COGVIEW4_SERVE_STEPS), "--attn_provider", "flash", "--enable_slicing", "--enable_tiling",
+            "--seed", "31337"]
+    requests = {"control": base + ["--training_type", "control-lora", "--lora_weights", str(adapter),
+                                   "--control_image_path", str(edge_map)],
+                "plain": list(base)}
+    records, expected = {}, {k_: COGVIEW4_LAYERS * COGVIEW4_SERVE_STEPS if k_ in ("k1", "prep") else 0
+                             for k_ in _COUNTED}
+    for name, argv in requests.items():
+        argv = argv + ["--output_dir", str(SMOKE_DIR / f"cogview4_serve_{name}")]
+        seconds, facts, last = {"decode": [], "step": [], "request": []}, {}, []
+
+        def timed(key, fn):
+            def wrapper(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                seconds[key].append(time.perf_counter() - t0)
+                return out
+            return wrapper
+
+        wrapped = ((AutoencoderKL3D, "decode"), (CogView4Pipeline, "denoise_step"), (CogView4Pipeline, "__call__"))
+        originals = {attr: getattr(cls, attr) for cls, attr in wrapped}
+        request, step = timed("request", originals["__call__"]), timed("step", originals["denoise_step"])
+
+        def call(self, *args, **kwargs):
+            module = self.transformer.module
+            facts.update(in_channels=self.transformer.config["in_channels"],
+                         control=kwargs.get("control_image") is not None, guidance_scale=kwargs.get("guidance_scale"),
+                         lora_rank=module.transformer_blocks[0].attn1.to_q.rank,
+                         injection_is_aux=bool(torch.equal(module.patch_embed.proj.weight.detach().cpu().float(),
+                                                           kernel.T.to(torch.bfloat16).float()))
+                         if kernel.shape[0] == module.patch_embed.proj.in_features else False)
+            image = request(self, *args, **kwargs)
+            facts["image_shape"], facts["image_dtype"] = list(image.shape), str(image.dtype)
+            return image
+
+        def denoise(self, *args, **kwargs):
+            last[:] = [self, args, kwargs]
+            return step(self, *args, **kwargs)
+
+        AutoencoderKL3D.decode = timed("decode", originals["decode"])
+        CogView4Pipeline.denoise_step, CogView4Pipeline.__call__ = denoise, call
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            paths = inference.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches, peak_gb = _counts(), torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            for cls, attr in wrapped:
+                setattr(cls, attr, originals[attr])
+        with torch.inference_mode(), attention_provider("flash"):
+            prof = profile_device(lambda: originals["denoise_step"](last[0], *last[1], **last[2]))
+        del last[:]
+        written = cv2.imread(paths[0])
+        in_step = {cls: _median(prof["launches"][cls]) for cls in ("k1", "prep")}
+        phase("cogview4_serve", card=card, request=name, entry="python -m finetrainers_tpu_torch.inference",
+              argv=argv[:-2], steps=COGVIEW4_SERVE_STEPS, steps_note="cut from the request's 50",
+              tokens=COGVIEW4_TOKENS, text_tokens=COGVIEW4_TEXT, request_s=seconds["request"], step_s=seconds["step"],
+              vae_decode_s=seconds["decode"], main_wall_s=wall_s, peak_memory_gb=peak_gb, launches=launches,
+              launches_expected=expected, written=[str(pathlib.Path(p).relative_to(SMOKE_DIR.parent.parent))
+                                                   for p in paths],
+              written_shape=list(written.shape) if written is not None else None, **facts,
+              profile=dict(step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+                           ms_by_class=dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()}),
+                           ms_per_launch=in_step, launches={cls: len(v) for cls, v in prof["launches"].items()}))
+        control = name == "control"
+        if not (facts.get("image_shape") == [1024, 1024, 3] and facts.get("image_dtype") == "uint8"
+                and facts.get("control") is control and facts.get("in_channels") == (32 if control else 16)
+                and facts.get("lora_rank") == (COGVIEW4_RANK if control else 0)
+                and facts.get("injection_is_aux") is control and facts.get("guidance_scale") == 5.0
+                and launches == expected and len(seconds["step"]) == COGVIEW4_SERVE_STEPS
+                and len(seconds["decode"]) == 1 and written is not None and list(written.shape) == [1024, 1024, 3]):
+            raise AssertionError(f"CogView4 serving ({name}) through the runner failed its checks")
+        records[name] = dict(launches=launches, in_step=in_step)
+        _free_cuda()
+    phase("cogview4_serve_freed", memory_allocated_gb=_free_cuda())
+    return records
+
+
+def wan_control_run_data(root):
+    """4 seeded videos at 49x480x832 and, for each, its paired control video
+    (another seeded clip), written with cv2; their `metadata.csv` with the
+    `control_video` column; the example's training.json pointing at them, and
+    its validation prompt at 49x480x832 with 2 denoising steps and the first
+    control video. Returns (training.json, validation.json)."""
+    import csv
+
+    import cv2
+
+    root.mkdir(parents=True, exist_ok=True)
+    frames, height, width = WAN_RUN_BUCKET
+    rng = np.random.RandomState(16)
+
+    def write(path):
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 25, (width, height))
+        coarse = (rng.rand(frames, height // 32, width // 32, 3) * 255).astype(np.uint8)
+        for frame in coarse:
+            writer.write(cv2.resize(frame, (width, height), interpolation=cv2.INTER_LINEAR))
+        writer.release()
+
+    with open(root / "metadata.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["file_name", "caption", "control_video"])
+        w.writeheader()
+        for i in range(WAN_RUN_VIDEOS):
+            write(root / f"clip{i}.mp4")
+            write(root / f"control{i}.mp4")
+            w.writerow({"file_name": f"clip{i}.mp4", "caption": f"a sailboat number {i} drifting across a calm bay",
+                        "control_video": f"control{i}.mp4"})
+    training = json.loads((WAN_CONTROL_EXAMPLE / "training.json").read_text())
+    training["datasets"][0]["data_root"] = str(root)
+    validation = json.loads((WAN_CONTROL_EXAMPLE / "validation.json").read_text())
+    validation["data"] = [dict(validation["data"][0], num_inference_steps=2,
+                               control_video_path=str(root / "control0.mp4"))]
+    (root / "training.json").write_text(json.dumps(training))
+    (root / "validation.json").write_text(json.dumps(validation))
+    return root / "training.json", root / "validation.json"
+
+
+def wan_control_run(card):
+    """The Wan image_condition example's run through
+    `finetrainers_tpu_torch.train.main` with its train.sh flags on one card
+    (control-lora rank 128, `--control_type none` with each video's paired
+    `control_video`, frame conditioning `index` 0, "ops" remat,
+    `transformer:ring`, slicing and tiling, bf16) at 49x480x832 (20,280
+    tokens): 4 steps, each launching K1 60, the pre-pass 120, K2 60 with 30
+    reduce passes and K3 60 times; then the final validation from the
+    exports in a fresh widened model through the pipeline's control branch
+    (one request with a control video, 2 steps of 50, CFG: K1 and the
+    pre-pass 120). Step seconds, peaks, precompute seconds per item, the
+    validation's seconds. Returns the run's launches and reduce passes."""
+    from finetrainers_tpu_torch import train as train_cli
+    from finetrainers_tpu_torch.models.wan import WanPipeline
+    from finetrainers_tpu_torch.trainer.control_trainer import AUX_WEIGHTS_NAME
+    from finetrainers_tpu_torch.utils.serialization import safetensors_load_dict
+
+    t0 = time.perf_counter()
+    training_json, validation_json = wan_control_run_data(SMOKE_DIR / "wan_control_run_data")
+    data_s = time.perf_counter() - t0
+    out_dir = SMOKE_DIR / "wan_control_run"
+    argv = train_sh_argv(WAN_CONTROL_EXAMPLE, dataset_config=training_json, validation_dataset_file=validation_json,
+                         output_dir=out_dir, report_to="jsonl", train_steps=WAN_RUN_STEPS,
+                         precomputation_items=WAN_RUN_VIDEOS)
+    with counted(WanPipeline, "control_channels") as control_calls, counted_run() as rec:
+        trainer = train_cli.main(argv)
+    steps, validations = rec["steps"], rec["validations"]
+    module, spec = trainer.transformer.module, trainer.model_specification
+    n_params = sum(p.numel() for p in module.parameters())
+    n_trained = sum(p.numel() for p in trainer._trainable.values())
+    shape_ok = (n_params == WAN_CONTROL_PARAMS and n_trained == WAN_CONTROL_TRAINED
+                and len(module.blocks) == WAN_LAYERS
+                and trainer.transformer.config["in_channels"] == 32 and module.gradient_checkpointing == "ops"
+                and (spec.frame_conditioning_type, spec.frame_conditioning_index) == ("index", 0)
+                and trainer.attn_provider_training == {"transformer": "ring"})
+    latent = np.load(out_dir / "precomputed" / PRECOMPUTED_DIR_NAME / "latent-0.npz")
+    latent_shape, control_shape = list(latent["latents"].shape), list(latent["control_latents"].shape)
+    del trainer, module, spec, latent
+    _free_cuda()
+    log = _jsonl(out_dir)
+    losses = [e["train/global_avg_loss"] for e in log if "train/global_avg_loss" in e]
+    precompute_s = next(e["timing/precompute"] for e in log if "timing/precompute" in e)
+    adapter = out_dir / "lora_weights" / f"{WAN_RUN_STEPS:06d}"
+    state, config = load_lora_weights(str(adapter))
+    aux_shapes = {k: list(v.shape) for k, v in safetensors_load_dict(str(adapter / AUX_WEIGHTS_NAME)).items()}
+    videos = sorted((out_dir / "validation").rglob("*.mp4"))
+    want = {k_: WAN_RUN_STEP_LAUNCHES.get(k_, 0) for k_ in _COUNTED}
+    steps_ok = all(st["launches"] == want and st["reduce"] == WAN_RUN_REDUCE for st in steps)
+    validation_want = 2 * WAN_LAYERS * 2  # self and cross a block, 2 denoising steps, CFG in one batch
+    validations_ok = (len(validations) == 1 and validations[0]["final"]
+                      and validations[0]["launches"] == {"k1": validation_want, "prep": validation_want})
+    phase("wan_control_run", card=card, entry="python -m finetrainers_tpu_torch.train", argv=[str(a) for a in argv],
+          bucket=list(WAN_RUN_BUCKET), tokens=WAN_RUN_TOKENS, latents_shape=latent_shape,
+          control_latents_shape=control_shape, published_shape=shape_ok, params=n_params, trained_params=n_trained,
+          data_write_s=data_s, precompute_s=precompute_s, precompute_s_per_item=precompute_s / WAN_RUN_VIDEOS,
+          peaks_gb=rec["peaks"], step_seconds=[st["seconds"] for st in steps],
+          median_step_s_2_to_4=statistics.median([st["seconds"] for st in steps][1:]),
+          step_peaks_gb=[st["peak_gb"] for st in steps], step_launches=steps[0]["launches"],
+          step_reduce_passes=[st["reduce"] for st in steps], step_launches_all_exact=steps_ok, losses=losses,
+          validations=validations, validations_launches_exact=validations_ok,
+          pipeline_control_branch_calls=control_calls[0], validation_videos=[str(v.relative_to(SMOKE_DIR))
+                                                                             for v in videos],
+          run_s=rec["run_s"], launches=rec["launches"], reduce_passes=rec["reduce"],
+          export=str(adapter.relative_to(SMOKE_DIR.parent.parent)), export_keys=len(state), export_lora_config=config,
+          aux_weights=aux_shapes)
+    if not (shape_ok and steps_ok and validations_ok and len(steps) == WAN_RUN_STEPS and len(losses) == WAN_RUN_STEPS
+            and all(np.isfinite(losses)) and control_calls[0] == 1 and len(videos) == 1
+            and len(state) == 2 * 10 * WAN_LAYERS and config.get("r") == 128
+            and aux_shapes == {"patch_embedding.bias": [1536], "patch_embedding.kernel": [128, 1536]}
+            and latent_shape == control_shape == [1, 32, *WAN_RUN_GRID[:1], 60, 104]
+            and rec["reduce"] == WAN_RUN_REDUCE * WAN_RUN_STEPS):
+        raise AssertionError("the Wan image_condition control example's run failed its checks")
+    del state
+    return dict(launches=rec["launches"], reduce=rec["reduce"])
+
+
 def env_phase():
     """Whether the media codecs the data stage decodes with import here (information, not a check)."""
     found = {}
@@ -3456,6 +3891,10 @@ def main():
     hy_k1_err, hy_k1, hy_bwd_err, hy_bwd = check_hunyuan_kernels(card)
     hunyuan = hunyuan_run(card)
     hy_serve_launches, hy_serve_in_step = hunyuan_serve(card, hunyuan["adapter"])
+    cv_k1_err, cv_k1, cv_bwd_err, cv_bwd = check_cogview4_kernels(card)
+    cogview4 = cogview4_control_run(card)
+    cv_serve = cogview4_serve(card, cogview4["adapter"], cogview4["edge_map"])
+    wan_control = wan_control_run(card)
     shutil.rmtree(SMOKE_DIR)
     env_phase()
 
@@ -3484,25 +3923,31 @@ def main():
         fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
         extra = {}
         if key == "k2":  # the reduce pass: its launches on the paths that count them, its records where it ran
-            extra = dict(reduce_launches_by_path={"hunyuan_run": hunyuan["reduce"]},
+            extra = dict(reduce_launches_by_path={"hunyuan_run": hunyuan["reduce"],
+                                                  "cogview4_control_run": cogview4["reduce"],
+                                                  "wan_control_run": wan_control["reduce"]},
                          reduce_in_step_ms={"hunyuan_run": hunyuan["in_step"]["k2_reduce"]},
                          reduce_by_case={case: dict(zip(fields, r["reduce"])) for case, r in
-                                         {**bwd, **flux_bwd, **hy_bwd}.items() if r["reduce"] is not None})
+                                         {**bwd, **flux_bwd, **hy_bwd, **cv_bwd}.items() if r["reduce"] is not None})
         return entry(name, "finetrainers_tpu_torch/csrc/flash_bwd_sm90.cu", replaces, wan[key],
-                     max(bwd_err[key], flux_bwd_err[key], hy_bwd_err[key]), bwd["wan_train_self_shared_rope"][key],
+                     max(bwd_err[key], flux_bwd_err[key], hy_bwd_err[key], cv_bwd_err[key]),
+                     bwd["wan_train_self_shared_rope"][key],
                      launches_by_path={"train": train_launches[key], "wan_train": wan[key],
                                        **{f"wan_train_{p}": wan_paths[f"wan_train_{p}"][key]
                                           for p in ("ops", "ops_attn", "ops_narrow", "accum")},
                                        **{path: wan_paths[path][key] for path in WAN_RUN_PATHS},
                                        "wan_i2v_train": i2v_train["launches"][key], "flux_run": flux["launches"][key],
-                                       "hunyuan_run": hunyuan["launches"][key]},
+                                       "hunyuan_run": hunyuan["launches"][key],
+                                       "cogview4_control_run": cogview4["launches"][key],
+                                       "wan_control_run": wan_control["launches"][key]},
                      shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128],
                      i2v_train_in_step_ms={part: i2v_train["in_step"][f"{key}_{part}"] for part in ("self", "cross")},
                      flux_train_in_step_ms=flux["in_step"][key],
                      hunyuan_train_in_step_ms=dict(zip(("joint", "refiner"), hunyuan["in_step"][key])),
+                     cogview4_train_in_step_ms=cogview4["in_step"][key],
                      device_ms=bwd["wan_train_self_shared_rope"][f"{key}_device_ms"],
                      by_case={case: dict(zip(fields, r[key]), device_ms=r[f"{key}_device_ms"])
-                              for case, r in {**bwd, **flux_bwd, **hy_bwd}.items()},
+                              for case, r in {**bwd, **flux_bwd, **hy_bwd, **cv_bwd}.items()},
                      library_note="torch SDPA backward (dq, dk, dv in one call), without the fused rotation", **extra)
 
     wan = wan_paths["wan_train"]
@@ -3510,7 +3955,7 @@ def main():
     print(json.dumps({"kernels": [
         entry("flash_fwd_sm90 (K1, wgmma + TMA, on the pre-pass's operands)",
               "finetrainers_tpu_torch/csrc/flash_fwd_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:106",
-              serve_launches["k1"], max(k1_err, k1_wan_err, flux_k1_err, hy_k1_err),
+              serve_launches["k1"], max(k1_err, k1_wan_err, flux_k1_err, hy_k1_err, cv_k1_err),
               (ltx_self["ms"], ltx_self["plain_ms"], ltx_self["library_ms"], ltx_self["bound_ms"],
                ltx_self["bound_by"]),
               launches_by_path={"serve": serve_launches["k1"], "train": train_launches["k1"],
@@ -3522,18 +3967,24 @@ def main():
                                 "wan_i2v_serve": i2v_serve_launches["k1"],
                                 "wan_i2v_image_branch": i2v_branch_launches["auto"]["k1"],
                                 "flux_run": flux["launches"]["k1"], "flux_serve": flux_serve_launches["k1"],
-                                "hunyuan_run": hunyuan["launches"]["k1"], "hunyuan_serve": hy_serve_launches["k1"]},
-              shape=[2, 32, 2688, 2688, 64], by_case={**k1, **k1_wan, **flux_k1, **hy_k1},
+                                "hunyuan_run": hunyuan["launches"]["k1"], "hunyuan_serve": hy_serve_launches["k1"],
+                                "cogview4_control_run": cogview4["launches"]["k1"],
+                                **{f"cogview4_serve_{name}": r["launches"]["k1"] for name, r in cv_serve.items()},
+                                "wan_control_run": wan_control["launches"]["k1"]},
+              shape=[2, 32, 2688, 2688, 64], by_case={**k1, **k1_wan, **flux_k1, **hy_k1, **cv_k1},
               flux_in_step_ms=dict(serve_self=flux_serve_in_step["k1"], train_self=flux["in_step"]["k1"]),
               hunyuan_in_step_ms=dict(serve=dict(zip(("joint", "refiner"), hy_serve_in_step["k1"])),
                                       train=dict(zip(("joint", "refiner"), hunyuan["in_step"]["k1"]))),
+              cogview4_in_step_ms=dict(train=cogview4["in_step"]["k1"],
+                                       **{f"serve_{name}": r["in_step"]["k1"] for name, r in cv_serve.items()}),
               i2v_in_step_ms=dict(i2v_branch_in_step["auto"], train_self=i2v_train["in_step"]["k1_self"],
                                   train_cross=i2v_train["in_step"]["k1_cross"]),
               wan_train_self_attention=wan_shape(k5_wan["k1"]),
               library_note="torch SDPA forward, without the fused rotation"),
         entry("flash_qk_prep (the RoPE and q-scale pre-pass before K1, K7a, K7c, K2/K3 and K5)",
               "finetrainers_tpu_torch/csrc/flash_bwd.cu", "finetrainers_tpu/ops/flash_attention.py:189",
-              serve_launches["prep"], max(bwd_err["prep"], flux_bwd_err["prep"], hy_bwd_err["prep"]),
+              serve_launches["prep"], max(bwd_err["prep"], flux_bwd_err["prep"], hy_bwd_err["prep"],
+                                          cv_bwd_err["prep"]),
               bwd["self_rope"]["prep"],
               also_replaces=["finetrainers_tpu/ops/flash_attention.py:961",
                              "finetrainers_tpu/ops/flash_attention.py:1268"],
@@ -3547,13 +3998,22 @@ def main():
                                 "wan_i2v_image_branch": i2v_branch_launches["auto"]["prep"],
                                 "flux_run": flux["launches"]["prep"], "flux_serve": flux_serve_launches["prep"],
                                 "hunyuan_run": hunyuan["launches"]["prep"],
-                                "hunyuan_serve": hy_serve_launches["prep"]},
+                                "hunyuan_serve": hy_serve_launches["prep"],
+                                "cogview4_control_run": cogview4["launches"]["prep"],
+                                **{f"cogview4_serve_{name}": r["launches"]["prep"] for name, r in cv_serve.items()},
+                                "wan_control_run": wan_control["launches"]["prep"]},
               flux_by_case={case: dict(ms=r["prep_ms"], plain_ms=r["prep_plain_ms"]) for case, r in flux_k1.items()},
               flux_in_step_ms=dict(serve=flux_serve_in_step["prep"], train=flux["in_step"]["prep"]),
               hunyuan_by_case={case: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r["prep"]))
                                for case, r in hy_bwd.items()},
               hunyuan_in_step_ms=dict(serve=dict(zip(("joint", "refiner"), hy_serve_in_step["prep"])),
                                       train=dict(zip(("joint", "refiner"), hunyuan["in_step"]["prep"]))),
+              cogview4_by_case={case: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r["prep"]))
+                                for case, r in cv_bwd.items()},
+              cogview4_forward_by_case={case: dict(ms=r["prep_ms"], plain_ms=r["prep_plain_ms"])
+                                        for case, r in cv_k1.items()},
+              cogview4_in_step_ms=dict(train=cogview4["in_step"]["prep"],
+                                       **{f"serve_{name}": r["in_step"]["prep"] for name, r in cv_serve.items()}),
               shape_note="timed at LTX's train self-attention (1, 32, 2688, 64) with per-head tables"),
         bwd_entry("k2", "bwd_dkdv_sm90 (K2, wgmma + TMA, with its reduce pass where the q loop is split)",
                   "finetrainers_tpu/ops/flash_attention.py:888"),

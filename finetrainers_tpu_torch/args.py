@@ -7,8 +7,10 @@ its defaults (dtypes are torch dtypes), the LoRA fields and the two
 provider mappings, so a caller may set fields directly. `parse_args` builds
 the same parser as the JAX package: its 96 flags with `--list_models`,
 `--attn_provider_training`/`--attn_provider_inference` as `module:provider`
-lists, and `--rank`, `--lora_alpha` and `--target_modules` for the LoRA
-training types. One flag is the port's own: `--device` (default `cuda`).
+lists, `--rank`, `--lora_alpha` and `--target_modules` for the LoRA
+training types, and the control trainer's flags (`--control_type`,
+`--train_qk_norm`, `--frame_conditioning_*`) for the control types. One flag
+is the port's own: `--device` (default `cuda`).
 
 A flag whose feature the port lacks raises NotImplementedError naming its
 ROADMAP.md item when it is given a value other than its default
@@ -52,6 +54,7 @@ DEFAULT_TARGET_MODULES = "(transformer_blocks|blocks).*(to_q|to_k|to_v|to_out)"
 DEFAULT_SKIP_MODULES_PATTERN = ["patch_embed", "pos_embed", "x_embedder", "context_embedder", "time_embed",
                                 "^proj_in$", "^proj_out$", "norm"]
 LORA_TRAINING_TYPES = ("lora", "control-lora")
+CONTROL_TRAINING_TYPES = ("control-lora", "control-full-finetune")
 
 
 @dataclasses.dataclass
@@ -94,6 +97,12 @@ class BaseArgs:
     rank: int = 64
     lora_alpha: int = 64
     target_modules: str = DEFAULT_TARGET_MODULES
+    # Control training (ControlLowRankConfig / ControlFullRankConfig), with the parser's defaults.
+    control_type: str = "canny"
+    train_qk_norm: bool = False
+    frame_conditioning_type: str = "index"
+    frame_conditioning_index: int = 0
+    frame_conditioning_concatenate_mask: bool = False
     # Attention providers, per module: "module:provider" or "provider" (transformer)
     attn_provider_training: List[str] = dataclasses.field(default_factory=list)
     attn_provider_inference: List[str] = dataclasses.field(default_factory=list)
@@ -183,7 +192,7 @@ class BaseArgs:
             _print_models()
             sys.exit(0)
         training_type = argv[argv.index("--training_type") + 1] if "--training_type" in argv else None
-        namespace = build_parser(lora=training_type in LORA_TRAINING_TYPES).parse_args(argv)
+        namespace = build_parser(training_type).parse_args(argv)
         for key, value in vars(namespace).items():
             if key == "list_models":
                 continue
@@ -265,9 +274,10 @@ _GROUPS = {
 }
 
 
-def build_parser(lora: bool = False) -> argparse.ArgumentParser:
+def build_parser(training_type: Optional[str] = None) -> argparse.ArgumentParser:
     """The JAX package's parser (copied from `finetrainers_tpu/args.py:354-462`),
-    its provider flags, the LoRA flags where `lora`, and `--device`."""
+    its provider flags, the flags `training_type` registers (JAX `train.py:42-61`:
+    the LoRA flags, and the control trainer's), and `--device`."""
     parser = argparse.ArgumentParser()
     add = parser.add_argument
     # Parallel
@@ -370,10 +380,14 @@ def build_parser(lora: bool = False) -> argparse.ArgumentParser:
     # Attention providers
     add("--attn_provider_training", type=str, default=None, nargs="+")
     add("--attn_provider_inference", type=str, default=None, nargs="+")
-    if lora:
+    if training_type == "lora":
         add("--rank", type=int, default=64)
         add("--lora_alpha", type=int, default=64)
         add("--target_modules", type=str, nargs="+", default=[DEFAULT_TARGET_MODULES])
+    elif training_type in CONTROL_TRAINING_TYPES:
+        from .trainer.control_trainer.config import ControlFullRankConfig, ControlLowRankConfig
+
+        (ControlLowRankConfig() if training_type == "control-lora" else ControlFullRankConfig()).add_args(parser)
     add("--device", type=str, default="cuda", help="where the models live and train: cuda (default) or cpu")
     return parser
 

@@ -146,7 +146,10 @@ class VideoFileCaptionFileListDataset(ImageFileCaptionFileListDataset):
 
 
 class ImageFolderDataset(StatefulIterableDataset):
-    """`metadata.{csv,jsonl,json}` beside the media files."""
+    """`metadata.{csv,jsonl,json}` beside the media files. A `control_image`
+    (`control_video`) column names each sample's paired control file, which
+    the control trainer takes as it is (the port's addition: JAX's folder
+    datasets drop the column; ROADMAP.md section 3)."""
 
     media_key = "image"
 
@@ -158,7 +161,10 @@ class ImageFolderDataset(StatefulIterableDataset):
         file_col = next((c for c in ("file_name", "file", "path", "image", "video") if c in rows[0]), None)
         if caption_col is None or file_col is None:
             raise ValueError(f"metadata in {root} must contain caption + file_name columns; got {list(rows[0])}")
-        self._data = [{"caption": r[caption_col], self.media_key: str(self.root / r[file_col])} for r in rows]
+        control_col = "control_" + self.media_key
+        self._data = [{"caption": r[caption_col], self.media_key: str(self.root / r[file_col]),
+                       **({control_col: str(self.root / r[control_col])} if r.get(control_col) else {})}
+                      for r in rows]
         self._precomputable_once = len(self._data) <= MAX_PRECOMPUTABLE_ITEMS_LIMIT
 
     def _samples(self):

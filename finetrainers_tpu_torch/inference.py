@@ -16,8 +16,16 @@ The parser has every flag and default of the JAX runner's, plus the port's
 denoise loop under that attention provider (`sage` reaches the int8 kernel).
 A flag whose feature the port lacks raises NotImplementedError naming its
 ROADMAP.md item when it is not at its default: parallel degrees above 1,
-`--quantize_int8`, control inference, `.parquet` request files, and the
-families not ported yet. `main(argv, **spec_kwargs)` returns the written
+`--quantize_int8`, `.parquet` request files, and the families not ported
+yet. A control checkpoint (`--training_type control-lora` or
+`control-full-finetune`) is served as JAX serves it (:181-187): the model
+widened to 2x the latent channels, the adapter's
+`control_aux_weights.safetensors` loaded with it, and `--control_image_path`
+or `--control_video_path` (or the request file's columns) as the control;
+there is no frame-conditioning flag, so the spec's default `full` applies
+(ROADMAP.md section 3). With `--frame_conditioning_concatenate_mask` JAX
+widens the model to 3x but its pipeline joins no mask channel, so the
+request cannot run; the port refuses it before loading anything. `main(argv, **spec_kwargs)` returns the written
 paths; keyword arguments go to the model specification, as `train.main`'s do.
 """
 
@@ -68,9 +76,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     g.add_argument("--lora_scale", type=float, default=1.0)
     g.add_argument("--training_type", type=str, default="lora",
                    choices=["lora", "full-finetune", "control-lora", "control-full-finetune"],
-                   help="Spec flavor the weights were trained with (control-* is not ported)")
+                   help="Spec flavor the weights were trained with")
     g.add_argument("--frame_conditioning_concatenate_mask", action="store_true",
-                   help="Control checkpoints trained with the concatenated mask channel (not ported)")
+                   help="Control checkpoints trained with the concatenated mask channel")
     g = parser.add_argument_group("inference")
     g.add_argument("--inference_type", type=str, default=InferenceType.T2V, choices=list(InferenceType.CHOICES))
     g.add_argument("--dataset_file", type=str, default=None,
@@ -111,8 +119,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 _UNPORTED = (
     (("pp_degree", "dp_degree", "dp_shards", "cp_degree", "tp_degree"), 1, "queue 1 item 10 (parallel)"),
     (("quantize_int8",), False, "queue 1 item 6 (fp8 and int8 weight storage)"),
-    (("control_image_path", "control_video_path"), None, "queue 1 item 9 (control trainer)"),
-    (("frame_conditioning_concatenate_mask",), False, "queue 1 item 9 (control trainer)"),
     (("revision", "cache_dir"), None, "queue 1 item 5 (loading diffusers checkpoints)"),
     (("tokenizer_id", "tokenizer_2_id", "tokenizer_3_id", "text_encoder_2_id", "text_encoder_3_id"), None,
      "queue 1 item 7 (the text towers)"),
@@ -124,9 +130,10 @@ def _check_ported(args: argparse.Namespace) -> None:
         for flag in flags:
             if getattr(args, flag) != default:
                 raise NotImplementedError(f"--{flag} {getattr(args, flag)!r} is not ported yet; see ROADMAP.md {item}")
-    if args.training_type.startswith("control"):
-        raise NotImplementedError(f"--training_type {args.training_type} (control inference) is not ported yet; "
-                                  "see ROADMAP.md queue 1 item 9 (control trainer)")
+    if args.training_type.startswith("control") and args.frame_conditioning_concatenate_mask:
+        raise ValueError("--frame_conditioning_concatenate_mask: the runner widens the model to 3x the latent "
+                         "channels, but the pipeline joins no mask channel (the spec's flag stays unset), so "
+                         "no request can run, as in JAX; see ROADMAP.md section 3 finding 16")
     if args.dataset_file and pathlib.Path(args.dataset_file).suffix.lower() in (".parquet", ".arrow"):
         raise NotImplementedError(f"{args.dataset_file}: .parquet/.arrow request files need pandas and pyarrow, "
                                   "which the port does not use; see ROADMAP.md queue 1 item 2 (the data stage)")
@@ -160,8 +167,8 @@ class Inference:
         """The transformer (with the adapter's LoRA factors at its rank and
         alpha, `--lora_scale` folded into the B factors), the VAE and the
         pipeline (JAX :167-230)."""
-        from .lora import (apply_auxiliary_weights, apply_lora_to_module_params, load_lora_weights,
-                           scale_lora_b)
+        from .lora import (AUX_WEIGHTS_NAME, apply_auxiliary_weights, apply_lora_to_module_params,
+                           load_lora_weights, scale_lora_b)
 
         args, spec = self.args, self.spec
         if args.lora_weights:
@@ -170,13 +177,18 @@ class Inference:
             if rank and getattr(spec, "lora_rank", 0) != rank:
                 spec.lora_rank = rank
                 spec.lora_alpha = float(config.get("lora_alpha", rank))
-        transformer = spec.load_diffusion_models()["transformer"]
+        if args.training_type.startswith("control"):
+            base = spec.transformer_config["in_channels"]
+            transformer = spec.load_diffusion_models(new_in_features=2 * base)["transformer"]
+        else:
+            transformer = spec.load_diffusion_models()["transformer"]
         if args.lora_weights:
             if args.lora_scale != 1.0:
                 state = scale_lora_b(state, args.lora_scale)
             apply_lora_to_module_params(transformer.module, state, key_map=getattr(spec, "transformer_key_map", None))
             lora_dir = args.lora_weights if os.path.isdir(args.lora_weights) else os.path.dirname(args.lora_weights)
-            apply_auxiliary_weights(transformer.module, os.path.join(lora_dir, "control_aux_weights.safetensors"))
+            apply_auxiliary_weights(transformer.module, os.path.join(lora_dir, AUX_WEIGHTS_NAME),
+                                    key_map=getattr(spec, "transformer_key_map", None))
             logger.info(f"Loaded LoRA from {args.lora_weights} ({len(state)} tensors)")
         vae = spec.load_latent_models()["vae"]
         if args.enable_slicing:
@@ -187,7 +199,9 @@ class Inference:
 
     def _requests(self) -> Iterator[Tuple[int, Dict[str, Any]]]:
         """(index, request kwargs): the rows of `--dataset_file`, or the one
-        request of `--prompt` (and `--image_path`, loaded as uint8 (H, W, 3))."""
+        request of `--prompt` (and `--image_path` and `--control_image_path`,
+        loaded as uint8 (H, W, 3), and `--control_video_path` as uint8 (F, H,
+        W, 3); JAX :234-261)."""
         from .data import ValidationDataset
         from .data.utils import load_image
 
@@ -203,6 +217,12 @@ class Inference:
             request["negative_prompt"] = args.negative_prompt
         if args.image_path:
             request["image"] = load_image(args.image_path, to_float=False)
+        if args.control_image_path:
+            request["control_image"] = load_image(args.control_image_path, to_float=False)
+        if args.control_video_path:
+            from .data.utils import load_video
+
+            request["control_video"] = load_video(args.control_video_path, to_float=False)
         yield 0, request
 
     def run(self) -> List[str]:

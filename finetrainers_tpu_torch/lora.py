@@ -18,6 +18,7 @@ import json
 import os
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -25,7 +26,10 @@ from .utils.serialization import safetensors_load_dict, safetensors_load_metadat
 
 LORA_KEYS = ("lora_A", "lora_B")
 LORA_WEIGHTS_NAME = "pytorch_lora_weights.safetensors"
+AUX_WEIGHTS_NAME = "control_aux_weights.safetensors"
 PREFIX = "transformer."
+# The JAX package scans a block stack deeper than this (`layers.SCAN_DEPTH_THRESHOLD`).
+SCAN_DEPTH_THRESHOLD = 8
 
 
 def _is_lora(name: str) -> bool:
@@ -112,11 +116,46 @@ def apply_lora_to_module_params(module: nn.Module, state_dict: Mapping[str, Any]
     return apply_lora_state_dict(module, state_dict)
 
 
-def apply_auxiliary_weights(module: nn.Module, aux_path: str) -> nn.Module:
-    """The non-LoRA weights a control adapter exports beside itself
-    (`control_aux_weights.safetensors`; JAX `lora.py:115-128`): none is a
-    no-op, as in JAX; a file raises, since the control trainer is not ported."""
-    if os.path.exists(aux_path):
-        raise NotImplementedError(f"{aux_path}: control adapters' auxiliary weights need the control trainer, "
-                                  "which is not ported yet; see ROADMAP.md queue 1 item 9")
+def apply_auxiliary_weights(module: nn.Module, aux_path: str,
+                            key_map: Optional[Callable[[str], str]] = None) -> nn.Module:
+    """Load the non-LoRA weights a control adapter exports beside itself
+    (`control_aux_weights.safetensors`: the full-rank injection layer and,
+    under `--train_qk_norm`, the qk norms; JAX `lora.py:113-125`) into the
+    module. The file has the JAX package's flat flax names and layouts
+    (per-block or scan-stacked); they map through the family's `key_map`.
+    No file is a no-op, as in JAX. A key that names no parameter raises
+    KeyError, as in JAX; a shape that differs raises ValueError."""
+    from .models.weight_utils import flax_to_torch_state_dict
+
+    if not os.path.exists(aux_path):
+        return module
+    flat = {k: (v.float().numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in safetensors_load_dict(aux_path).items()}
+    params = dict(module.named_parameters())
+    with torch.no_grad():
+        for name, value in flax_to_torch_state_dict(flat, key_map).items():
+            if name not in params:
+                raise KeyError(f"Auxiliary weight {name!r} not found in the module's parameters")
+            if tuple(params[name].shape) != tuple(value.shape):
+                raise ValueError(f"{name}: shape {tuple(value.shape)} does not match {tuple(params[name].shape)}")
+            params[name].copy_(torch.as_tensor(np.ascontiguousarray(value)))
     return module
+
+
+def save_control_aux_weights(directory: str, spec, trainable: Mapping[str, torch.Tensor]) -> None:
+    """The trained non-LoRA weights of a LoRA run (a control model's injection
+    layer and qk norms) to `directory/control_aux_weights.safetensors` (JAX
+    `trainer/control_trainer/trainer.py:120-135`): the JAX package's flat flax
+    names (stacked as `<list>_scan.block.*` where the JAX model scans its
+    blocks) and layouts, fp32. Nothing is written where nothing but LoRA
+    factors trains."""
+    from .models.weight_utils import torch_to_flax_flat
+
+    aux = {name: value.detach().float().cpu().numpy() for name, value in trainable.items() if not _is_lora(name)}
+    if not aux:
+        return
+    flat = torch_to_flax_flat(aux, spec.transformer_key_map, renames=getattr(spec, "flax_renames", ()),
+                              stack_blocks=spec.transformer_config["num_layers"] > SCAN_DEPTH_THRESHOLD)
+    os.makedirs(directory, exist_ok=True)
+    safetensors_save_dict({k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in flat.items()},
+                          os.path.join(directory, AUX_WEIGHTS_NAME))

@@ -33,7 +33,10 @@ class LoRADense(nn.Module):
     """y = x W^T + b + (alpha/r) (x A^T) B^T  (`LoRADense`, layers.py:34).
 
     rank=0 disables LoRA. The LoRA branch runs two skinny matmuls in the
-    compute dtype, with the fp32 factors cast to it (layers.py:75-81)."""
+    compute dtype, with the fp32 factors cast to it (layers.py:75-81). The
+    compute dtype is `dtype`; a layer whose weight and bias are later kept in
+    fp32 (the control trainer's full-rank injection layer, as JAX keeps every
+    parameter) casts them to it at each call, as JAX does."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, rank: int = 0,
                  alpha: float = 1.0, dtype: torch.dtype = torch.bfloat16) -> None:
@@ -42,6 +45,7 @@ class LoRADense(nn.Module):
         self.out_features = out_features
         self.rank = rank
         self.scaling = alpha / rank if rank > 0 else 0.0
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=dtype))
         self.bias = nn.Parameter(torch.empty(out_features, dtype=dtype)) if bias else None
         if rank > 0:
@@ -60,8 +64,8 @@ class LoRADense(nn.Module):
                 self.lora_B.weight.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xc = x.to(self.weight.dtype)
-        y = F.linear(xc, self.weight, self.bias)
+        xc = x.to(self.compute_dtype)
+        y = F.linear(xc, self.weight.to(xc.dtype), None if self.bias is None else self.bias.to(xc.dtype))
         if self.rank > 0:
             delta = F.linear(F.linear(xc, self.lora_A.weight.to(xc.dtype)), self.lora_B.weight.to(xc.dtype))
             y = y + (self.scaling * delta).to(y.dtype)

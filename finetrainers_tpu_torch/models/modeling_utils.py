@@ -162,6 +162,48 @@ class ModelSpecification:
         return None
 
 
+class ControlModelSpecification(ModelSpecification):
+    """Channel-concat control conditioning (JAX modeling_utils.py:359-386):
+    the injection layer (the patch embed) takes the control latents' channels
+    beside the latents', and trains at full rank beside the LoRA factors.
+
+    `control_injection_layer_name` and `_qk_norm_identifiers` name the port's
+    modules (JAX names its flax ones; the aux file holds JAX's names through
+    the family's key map, with `flax_renames` undone). `load_diffusion_models`
+    takes the widened channel count; the base count stays in
+    `transformer_config` (JAX writes the widened one back, so its reload for
+    the final validation widens twice: ROADMAP.md section 3)."""
+
+    # The ordered (flax, port) renames of the family's key map, undone to name
+    # the aux file's entries (`weight_utils.torch_key_to_flax`).
+    flax_renames: Tuple[Tuple[str, str], ...] = ()
+
+    @property
+    def control_injection_layer_name(self) -> str:
+        raise NotImplementedError
+
+    @property
+    def _original_control_layer_in_features(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def _original_control_layer_out_features(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def _qk_norm_identifiers(self) -> List[str]:
+        return []
+
+    def load_diffusion_models(self, new_in_features: Optional[int] = None) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def control_lora_rank_pattern(self, rank: int) -> Dict[str, int]:
+        """The injection layer trains at full rank (JAX :379-381)."""
+        return {self.control_injection_layer_name: self._original_control_layer_out_features}
+
+    def control_lora_alpha_pattern(self, alpha: float) -> Dict[str, float]:
+        return {self.control_injection_layer_name: self._original_control_layer_out_features}
+
 def _default_collate(data: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Join the samples' arrays (numpy or tensors) on the batch dim, except
     IGNORE_KEYS_FOR_COLLATION and scalars, which come from the first sample

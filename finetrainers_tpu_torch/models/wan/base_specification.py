@@ -109,18 +109,19 @@ class WanModelSpecification(ModelSpecification):
     def load_latent_models(self) -> Dict[str, Any]:
         return {"vae": generic_vae(self, self.vae_autoencoder_config, "the Wan VAE")}
 
-    def load_diffusion_models(self) -> Dict[str, Any]:
+    def _build_transformer(self, config: Dict[str, Any]) -> ModelHandle:
         self._refuse_checkpoint(self.transformer_id, "transformer", "transformer weights")
         with torch.device(self.device):
             module = WanTransformer3DModel(
-                **self.transformer_config, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
+                **config, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
                 dtype=self.transformer_dtype, gradient_checkpointing=self.gradient_checkpointing,
             )
         init_parameters_(module, self.generator()).eval()
-        return {
-            "transformer": ModelHandle(module, dict(self.transformer_config)),
-            "scheduler": FlowMatchEulerScheduler(shift=3.0),
-        }
+        return ModelHandle(module, dict(config))
+
+    def load_diffusion_models(self) -> Dict[str, Any]:
+        return {"transformer": self._build_transformer(self.transformer_config),
+                "scheduler": FlowMatchEulerScheduler(shift=3.0)}
 
     def load_pipeline(self, transformer: ModelHandle = None, vae: ModelHandle = None,
                       text_encoder=None, **kwargs):

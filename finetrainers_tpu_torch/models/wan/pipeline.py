@@ -8,8 +8,17 @@ of an otherwise zero video at the request's size, encoded whole by the VAE
 ROADMAP.md section 3), and joined with the first-frame mask to the latents on
 the channel axis in every denoise step. Where the pipeline has an
 `image_encoder`, its embeds reach the image-KV branch, repeated over the CFG
-batch; `load_pipeline` leaves it unset, as JAX does. Control conditioning is
-not ported (ROADMAP.md queue 1 item 9)."""
+batch; `load_pipeline` leaves it unset, as JAX does.
+
+Control conditioning (JAX :77-108, :116-119), for a model whose patch
+embedding the control trainer widened: a `control_video` (uint8 (F, H, W, 3)
+or float (F, 3, H, W) in [-1, 1]; a `control_image` is one frame) is resized
+and cropped to the request's size, placed in a zero video of the request's
+frames, encoded whole, normalised with the latent statistics, and its
+posterior mean masked by the spec's frame-conditioning type; these channels
+join the latents (after the I2V channels) in every denoise step. The
+`prefix` and `random` types draw from a generator seeded with the request's
+seed (JAX draws from `PRNGKey(seed)`)."""
 
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import numpy as np
 import torch
 
 from ...schedulers import FlowMatchEulerScheduler
+from ..autoencoders import encode_media
 from ..modeling_utils import ModelHandle
 
 
@@ -73,14 +83,36 @@ class WanPipeline:
         mask[:, :, 0] = 1.0
         return torch.cat([mask, cond_latents], dim=1)
 
+    def control_channels(self, control_video, num_frames: int, height: int, width: int, seed: int) -> torch.Tensor:
+        """The control channels (1, C or 2C with the mask, F', H', W') of a
+        control video (JAX :82-108)."""
+        from ...functional.video import resize_crop_video
+
+        spec, device = self.spec, self.spec.device
+        vid = np.asarray(control_video)
+        if vid.dtype == np.uint8:
+            vid = np.moveaxis(vid.astype(np.float32) / 127.5 - 1.0, -1, 1)
+        vid = resize_crop_video(np.asarray(vid, np.float32), (height, width))
+        frames = torch.zeros((1, 3, num_frames, height, width), dtype=torch.float32, device=device)
+        n = min(num_frames, vid.shape[0])
+        frames[0, :, :n] = torch.from_numpy(np.ascontiguousarray(vid[:n].transpose(1, 0, 2, 3))).to(device)
+        moments = encode_media(self.vae, frames)
+        mean = torch.as_tensor(self.vae.config["latents_mean"], dtype=torch.float32, device=device)
+        std = torch.as_tensor(self.vae.config["latents_std"], dtype=torch.float32, device=device)
+        return spec.control_channels(moments, mean, std, generator=torch.Generator(device=device).manual_seed(seed))
+
     def denoise_step(self, latents: torch.Tensor, ehs: torch.Tensor, mask: torch.Tensor, guidance_scale: float,
                      sigma: float, img_embeds: Optional[torch.Tensor] = None,
-                     cond_channels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     cond_channels: Optional[torch.Tensor] = None,
+                     control_channels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One transformer evaluation (CFG as one batch of 2 when `ehs` holds two
         rows): the guided velocity in the latents' (1, C, F', H', W') layout.
-        I2V's `cond_channels` join the latents on the channel axis first."""
+        I2V's `cond_channels`, then the control channels, join the latents on
+        the channel axis first."""
         do_cfg = ehs.shape[0] == 2
         model_in = latents if cond_channels is None else torch.cat([latents, cond_channels], dim=1)
+        if control_channels is not None:
+            model_in = torch.cat([model_in, control_channels], dim=1)
         model_in = torch.cat([model_in] * 2) if do_cfg else model_in
         # sigma * 1000 and the guidance are formed in fp32, as the jitted JAX step does.
         t = float(np.float32(sigma) * np.float32(1000.0))
@@ -114,9 +146,6 @@ class WanPipeline:
         from `torch.Generator(device).manual_seed(seed)`. `image` (uint8 (H, W,
         3) or float (3, H, W) in [-1, 1], at the request's size) conditions an
         I2V model; a T2V model ignores it, as in JAX."""
-        if control_image is not None or control_video is not None:
-            raise NotImplementedError("Wan control conditioning is not ported yet; see ROADMAP.md queue 1 item 9 "
-                                      "(control trainer)")
         device = self.spec.device
         shape = self.latent_shape(num_frames, height, width)
         ehs, mask, img_embeds = self.encode_prompt(prompt, negative_prompt, guidance_scale > 1.0, image)
@@ -131,11 +160,25 @@ class WanPipeline:
         cond_channels = None
         if self.spec.is_i2v and image is not None:
             cond_channels = self.image_condition(image, num_frames, height, width)
+        if control_video is None and control_image is not None:
+            control_video = np.asarray(control_image)[None]
+        control = None
+        if control_video is not None:
+            if not hasattr(self.spec, "control_channels"):
+                raise ValueError("a control video needs a control model (--training_type control-lora or "
+                                 "control-full-finetune)")
+            control = self.control_channels(control_video, num_frames, height, width, seed)
+        in_channels = self.transformer.config["in_channels"]
+        given = shape[1] + sum(c.shape[1] for c in (cond_channels, control) if c is not None)
+        if given != in_channels:
+            raise ValueError(f"a transformer of {in_channels} input channels takes {given} here: a control model "
+                             "needs a control video (or image) and a model without control none")
 
         sigmas = self.scheduler.inference_sigmas(num_inference_steps)
         sampler = self.scheduler.make_sampler(sigmas)
         for i in range(num_inference_steps):
-            pred = self.denoise_step(latents, ehs, mask, guidance_scale, float(sigmas[i]), img_embeds, cond_channels)
+            pred = self.denoise_step(latents, ehs, mask, guidance_scale, float(sigmas[i]), img_embeds, cond_channels,
+                                     control)
             latents = sampler.update(pred, i, latents)  # the guided prediction: UniPC's history takes it
 
         mean = torch.as_tensor(self.vae.config["latents_mean"], device=device).reshape(1, -1, 1, 1, 1)

@@ -17,7 +17,7 @@ diffusers/peft names. `load_flax_state` takes the flattened tree
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,8 @@ _BLOCK_LIST_NAMES = (
 )
 _BLOCK_RE = re.compile(r"\b(" + "|".join(_BLOCK_LIST_NAMES) + r")_(\d+)\.")
 _SCAN_RE = re.compile(r"^(?P<name>\w+?)_scan\.block(?:_(?P<j>\d+))?\.(?P<rest>.+)$")
+_TORCH_BLOCK_RE = re.compile(r"\b(" + "|".join(_BLOCK_LIST_NAMES) + r")\.(\d+)\.")
+_FLAX_BLOCK_RE = re.compile(r"^(?P<name>" + "|".join(_BLOCK_LIST_NAMES) + r")_(?P<i>\d+)\.(?P<rest>.+)$")
 
 
 def flax_key_to_torch(flax_key: str) -> str:
@@ -89,3 +91,49 @@ def load_torch_state(model: nn.Module, state: Dict[str, np.ndarray]) -> nn.Modul
 def load_flax_state(model: nn.Module, flat: Dict[str, np.ndarray],
                     key_map: Optional[Callable[[str], str]] = None) -> nn.Module:
     return load_torch_state(model, flax_to_torch_state_dict(flat, key_map))
+
+
+def torch_key_to_flax(name: str, ndim: int, key_map: Callable[[str], str],
+                      renames: Sequence[Tuple[str, str]] = ()) -> str:
+    """The JAX package's flat name of the port's parameter `name` (the inverse
+    of `key_map`, whose ordered `renames` it undoes): block lists `x.<i>.` ->
+    `x_<i>.`, `weight` -> `kernel` (2D) or `scale` (a norm's). Raises
+    KeyError where `key_map` does not give `name` back."""
+    key = _TORCH_BLOCK_RE.sub(r"\1_\2.", name)
+    for ours, theirs in reversed(renames):
+        key = key.replace(theirs, ours)
+    base, _, leaf = key.rpartition(".")
+    if leaf == "weight":
+        leaf = "kernel" if ndim == 2 else "scale"
+    key = f"{base}.{leaf}"
+    if key_map(key) != name:
+        raise KeyError(f"{name}: no flax name maps to it (tried {key!r})")
+    return key
+
+
+def torch_to_flax_flat(state: Dict[str, np.ndarray], key_map: Callable[[str], str],
+                       renames: Sequence[Tuple[str, str]] = (), stack_blocks: bool = False) -> Dict[str, np.ndarray]:
+    """Port-named arrays -> the JAX package's flat flax names and layouts
+    (linear weights transposed to (in, out)); with `stack_blocks` the
+    per-block entries are stacked along a leading layer axis under
+    `<list>_scan.block.<rest>`, as a JAX model that scans its blocks holds them."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, value in state.items():
+        value = np.asarray(value)
+        key = torch_key_to_flax(name, value.ndim, key_map, renames)
+        flat[key] = value.T if key.endswith(".kernel") and value.ndim == 2 else value
+    if not stack_blocks:
+        return flat
+    out: Dict[str, np.ndarray] = {}
+    stacks: Dict[str, Dict[int, np.ndarray]] = {}
+    for key, value in flat.items():
+        m = _FLAX_BLOCK_RE.match(key)
+        if m is None:
+            out[key] = value
+        else:
+            stacks.setdefault(f"{m['name']}_scan.block.{m['rest']}", {})[int(m["i"])] = value
+    for key, by_index in stacks.items():
+        if sorted(by_index) != list(range(len(by_index))):
+            raise ValueError(f"{key}: blocks {sorted(by_index)} are not 0..n-1, so they cannot be stacked")
+        out[key] = np.stack([by_index[i] for i in range(len(by_index))])
+    return out

@@ -120,3 +120,19 @@ class LlamaProcessor(ProcessorMixin):
         crop = self.crop_start if getattr(text_encoder, "supports_template_crop", True) else 0
         embeds, mask = text_encoder.encode(templated, max_sequence_length=max_sequence_length + crop)
         return {self.output_names[0]: embeds[:, crop:], self.output_names[1]: mask[:, crop:].astype(np.int32)}
+
+
+class CogView4GLMProcessor(ProcessorMixin):
+    """caption -> {GLM hidden states} (copied from
+    `finetrainers_tpu/processors/text_encoders.py:165-175`): the encoder's
+    states at `max_sequence_length`, padded slots and all; no mask."""
+
+    def __init__(self, output_names: List[str]):
+        if len(output_names) != 1:
+            raise ValueError(f"CogView4GLMProcessor takes one output name, got {output_names}")
+        self.output_names = output_names
+
+    def forward(self, text_encoder, caption: Union[str, List[str]], max_sequence_length: int = 1024, **kwargs):
+        captions = [caption] if isinstance(caption, str) else list(caption)
+        embeds, _ = text_encoder.encode(captions, max_sequence_length=max_sequence_length)
+        return {self.output_names[0]: embeds}

@@ -1,6 +1,7 @@
 """The command line of the port (the counterpart of the repository's
 `train.py`): peek `--training_type`, parse the arguments, resolve the model
-specification and run the SFT trainer.
+specification and run the SFT trainer, or for `control-lora` and
+`control-full-finetune` the control trainer (JAX `train.py:53-62`, :91-94).
 
     python -m finetrainers_tpu_torch.train <the flags of an example's train.sh>
 
@@ -15,7 +16,7 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
-from .args import BaseArgs
+from .args import CONTROL_TRAINING_TYPES, BaseArgs
 from .config import TrainingType, get_model_specification_cls
 
 
@@ -40,9 +41,12 @@ def main(argv: Optional[List[str]] = None, **spec_kwargs):
         device=args.device,
         **spec_kwargs,
     )
-    from .trainer import SFTTrainer
+    if args.training_type in CONTROL_TRAINING_TYPES:
+        from .trainer.control_trainer import ControlTrainer as trainer_cls
+    else:
+        from .trainer import SFTTrainer as trainer_cls
 
-    trainer = SFTTrainer(args, spec)
+    trainer = trainer_cls(args, spec)
     trainer.run()
     return trainer
 

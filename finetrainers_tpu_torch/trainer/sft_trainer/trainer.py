@@ -38,7 +38,7 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
-from ...args import DEFAULT_TARGET_MODULES
+from ...args import DEFAULT_TARGET_MODULES, LORA_TRAINING_TYPES
 from ...checkpoint import Checkpointer
 from ...data import (
     DevicePrefetcher,
@@ -54,7 +54,17 @@ from ...data import (
 from ...data.utils import save_image, save_video
 from ...functional.diffusion import compute_loss_weighting, default_flow_shift
 from ...logging import get_logger
-from ...lora import LORA_WEIGHTS_NAME, apply_lora_state_dict, load_lora_weights, lora_mask, split_params, trainable_mask
+from ...lora import (
+    AUX_WEIGHTS_NAME,
+    LORA_WEIGHTS_NAME,
+    apply_auxiliary_weights,
+    apply_lora_state_dict,
+    load_lora_weights,
+    lora_mask,
+    save_control_aux_weights,
+    split_params,
+    trainable_mask,
+)
 from ...optimizer import MultiSteps, get_lr_scheduler, get_optimizer
 from ...state import TrainState
 from ...trackers import BaseTracker, initialize_trackers
@@ -119,27 +129,33 @@ class SFTTrainer(Trainer):
         """The transformer and its scheduler. The VAE and the text encoder load
         with the data stage (`_prepare_dataset`)."""
         spec = self.model_specification
-        if self.args.training_type == "lora":
+        if self.args.training_type in LORA_TRAINING_TYPES:
             spec.lora_rank = self.args.rank
             spec.lora_alpha = self.args.lora_alpha
         if self.args.gradient_checkpointing:
             spec.gradient_checkpointing = self.args.gradient_checkpointing_type
-        diffusion = spec.load_diffusion_models()
+        diffusion = self._load_diffusion_models()
         self.transformer = diffusion["transformer"]
         self.scheduler = diffusion["scheduler"]
 
+    def _load_diffusion_models(self) -> Dict[str, Any]:
+        """The spec's transformer and scheduler (the control trainer widens the transformer)."""
+        return self.model_specification.load_diffusion_models()
+
+    def _trainable_mask(self, module) -> Dict[str, bool]:
+        """Which parameters train: the LoRA factors under `lora`, else all."""
+        if self.args.training_type == "lora":
+            return lora_mask(module)
+        return trainable_mask(module, lambda name: True)
+
     def _prepare_trainable_parameters(self) -> None:
         module = self.transformer.module
-        if self.args.training_type == "lora":
-            mask = lora_mask(module)
-        else:
-            mask = trainable_mask(module, lambda name: True)
-        self._trainable, self._frozen = split_params(module, mask)
+        self._trainable, self._frozen = split_params(module, self._trainable_mask(module))
         n_train = sum(p.numel() for p in self._trainable.values())
         n_total = n_train + sum(p.numel() for p in self._frozen.values())
         self.state.num_trainable_parameters = n_train
         logger.info(f"Trainable params: {n_train:,} / {n_total:,}")
-        if self.args.training_type == "lora":
+        if self.args.training_type in LORA_TRAINING_TYPES:
             self._check_target_modules()
 
     def _check_target_modules(self) -> None:
@@ -150,6 +166,8 @@ class SFTTrainer(Trainer):
         pattern = re.compile(self.args.target_modules)
         layers: Dict[str, int] = {}
         for name, param in self._trainable.items():
+            if ".lora_" not in name:
+                continue  # a control trainer's full-rank injection layer
             layer = name.split(".lora_")[0]
             layers[layer] = layers.get(layer, 0) + param.numel()
         selected = {layer: n for layer, n in layers.items() if pattern.search(layer)}
@@ -210,8 +228,8 @@ class SFTTrainer(Trainer):
                 "rename_columns": entry.get("rename_columns"),
                 "decode_workers": args.dataloader_num_workers,
             }))
-        self.dataset = combine_datasets(datasets, buffer_size=args.dataset_shuffle_buffer_size,
-                                        shuffle=args.dataset_shuffle_buffer_size > 1)
+        self.dataset = self._wrap_dataset(combine_datasets(datasets, buffer_size=args.dataset_shuffle_buffer_size,
+                                                           shuffle=args.dataset_shuffle_buffer_size > 1))
         self.dataloader = DPDataLoader(rank=0, dataset=self.dataset, batch_size=1,
                                        num_workers=args.dataloader_num_workers, collate_fn=lambda items: items[0])
         self._round_ids: List[Any] = []  # the sample ids of the current precompute round, in order
@@ -225,6 +243,10 @@ class SFTTrainer(Trainer):
             save_dir=args.precomputation_dir or os.path.join(args.output_dir, "precomputed"),
             enable_precomputation=args.enable_precomputation,
         )
+
+    def _wrap_dataset(self, dataset):
+        """The combined dataset as the data stage reads it (the control trainer adds control media)."""
+        return dataset
 
     def _prepare_checkpointing(self) -> None:
         args = self.args
@@ -521,17 +543,19 @@ class SFTTrainer(Trainer):
     # -------------------------------------------------------------- validation
     def _load_exported_transformer(self):
         """A fresh base transformer with the latest export applied (the LoRA
-        adapter, or the full-rank model), or None when nothing was exported."""
+        adapter and the control aux weights beside it, or the full-rank
+        model), or None when nothing was exported (JAX :821-855)."""
         args = self.args
-        spec = self.model_specification
-        lora = args.training_type == "lora"
+        lora = args.training_type in LORA_TRAINING_TYPES
         export_dir = _latest_export(os.path.join(args.output_dir, "lora_weights" if lora else "model_weights"))
         if export_dir is None:
             return None
-        handle = spec.load_diffusion_models()["transformer"]
+        handle = self._load_diffusion_models()["transformer"]
         if lora:
             state, _ = load_lora_weights(os.path.join(export_dir, LORA_WEIGHTS_NAME))
             apply_lora_state_dict(handle.module, state)
+            apply_auxiliary_weights(handle.module, os.path.join(export_dir, AUX_WEIGHTS_NAME),
+                                    key_map=self.model_specification.transformer_key_map)
         else:
             from ...utils.serialization import safetensors_load_dict
 
@@ -586,19 +610,26 @@ def _process_condition(spec, condition_models, round_ids: List[Any], **sample) -
 
 
 def _process_latent(spec, vae, **sample) -> Dict[str, Any]:
-    """A sample's VAE moments (the posterior is sampled in the spec's forward)."""
+    """A sample's VAE moments and, for a control spec, its control media's (the
+    posterior is sampled in the spec's forward; a base spec ignores the control
+    keys)."""
     return spec.prepare_latents(vae=vae, image=sample.get("image"), video=sample.get("video"),
-                                compute_posterior=False)
+                                control_image=sample.get("control_image"),
+                                control_video=sample.get("control_video"), compute_posterior=False)
 
 
 def _export(args, spec, transformer, state: Dict[str, Any]) -> None:
-    """After each save of `state`: the adapter to `output_dir/lora_weights/<step>`,
-    or for full-rank training the transformer to `output_dir/model_weights/<step>`."""
+    """After each save of `state`: the adapter (its LoRA factors) to
+    `output_dir/lora_weights/<step>` with, under `control-lora`, the trained
+    non-LoRA weights beside it, or for full-rank training the transformer to
+    `output_dir/model_weights/<step>` (JAX :386-415)."""
     step = state["train_state"]["step"]
-    if args.training_type == "lora":
+    if args.training_type in LORA_TRAINING_TYPES:
+        lora_dir = os.path.join(args.output_dir, "lora_weights", f"{step:06d}")
         lora_config = {"r": args.rank, "lora_alpha": args.lora_alpha, "target_modules": args.target_modules}
-        spec._save_lora_weights(os.path.join(args.output_dir, "lora_weights", f"{step:06d}"), state["trainable"],
-                                lora_config)
+        lora_state = {name: value for name, value in state["trainable"].items() if ".lora_" in name}
+        spec._save_lora_weights(lora_dir, lora_state, lora_config)
+        save_control_aux_weights(lora_dir, spec, state["trainable"])
     else:
         spec._save_model(os.path.join(args.output_dir, "model_weights", f"{step:06d}"), transformer)
 

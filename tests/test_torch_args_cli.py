@@ -25,6 +25,7 @@ import torch
 
 from finetrainers_tpu.args import AttentionProviderArgs as JaxAttentionArgs
 from finetrainers_tpu.args import BaseArgs as JaxArgs
+from finetrainers_tpu.trainer.control_trainer import ControlFullRankConfig, ControlLowRankConfig
 from finetrainers_tpu.trainer.sft_trainer import SFTFullRankConfig, SFTLowRankConfig
 from finetrainers_tpu_torch import get_model_specification_cls, train
 from finetrainers_tpu_torch.args import DTYPES, BaseArgs
@@ -39,10 +40,10 @@ TINY = dict(in_channels=4, out_channels=4, patch_size=(1, 2, 2), num_attention_h
             num_layers=1, ffn_dim=64, text_dim=32, freq_dim=16)
 
 
-def _train_sh_argv(tmp_path):
+def _train_sh_argv(tmp_path, train_sh=TRAIN_SH):
     """The arguments train.sh passes to `python train.py`, expanded by bash."""
     script = 'python() { shift; printf "%s\\0" "$@"; }; source "$0"'
-    res = subprocess.run(["bash", "-c", script, str(TRAIN_SH)], capture_output=True, text=True, cwd=REPO,
+    res = subprocess.run(["bash", "-c", script, str(train_sh)], capture_output=True, text=True, cwd=REPO,
                          env={**os.environ, "HOME": str(tmp_path)}, timeout=60)
     assert res.returncode == 0, res.stderr
     return res.stdout.split("\0")[:-1]
@@ -58,7 +59,9 @@ def _one_card(argv):
 def _jax_args(argv, training_type="lora"):
     args = JaxArgs()
     args.register_args(JaxAttentionArgs())
-    args.register_args(SFTLowRankConfig() if training_type == "lora" else SFTFullRankConfig())
+    args.register_args({"lora": SFTLowRankConfig, "full-finetune": SFTFullRankConfig,
+                        "control-lora": ControlLowRankConfig,
+                        "control-full-finetune": ControlFullRankConfig}[training_type]())
     return args.parse_args(argv)
 
 
@@ -95,6 +98,41 @@ def test_train_sh_parses_as_jax_parses_it(tmp_path):
         BaseArgs().parse_args(argv)  # the example's 8-chip FSDP x CP layout
 
 
+CONTROL_EXAMPLES = {"canny": ("cogview4", "canny", "transformer:auto"),
+                    "image_condition": ("wan", "none", "transformer:ring")}
+
+
+@pytest.mark.parametrize("example", sorted(CONTROL_EXAMPLES))
+def test_control_train_sh_parses_as_jax_parses_it(example, tmp_path):
+    """The control examples' train.sh (control-lora at rank 128, the control
+    and frame-conditioning flags) parse into JAX's values with JAX's
+    `ControlLowRankConfig` registration, on one card's layout."""
+    model, control_type, provider = CONTROL_EXAMPLES[example]
+    train_sh = REPO / "examples" / "training" / "control" / model / example / "train.sh"
+    argv = _one_card(_train_sh_argv(tmp_path, train_sh))
+    ours = BaseArgs().parse_args(argv)
+    ref = _jax_args(argv, "control-lora")
+    _assert_same_fields(ours, ref)
+    for name in ("control_type", "train_qk_norm", "frame_conditioning_type", "frame_conditioning_index",
+                 "frame_conditioning_concatenate_mask"):
+        assert getattr(ours, name) == getattr(ref, name), name
+    assert (ours.model_name, ours.training_type, ours.rank, ours.lora_alpha) == (model, "control-lora", 128, 128)
+    assert (ours.control_type, ours.attn_provider_training) == (control_type, [provider])
+    assert (ours.frame_conditioning_type, ours.frame_conditioning_index) == ("index", 0)
+    assert ours.gradient_checkpointing_type == "ops" and ours.enable_tiling and ours.precomputation_once
+
+
+@pytest.mark.parametrize("training_type", ["control-lora", "control-full-finetune"])
+def test_control_defaults_parse_as_jax(training_type):
+    argv = REQUIRED + ["--training_type", training_type]
+    ours, ref = BaseArgs().parse_args(argv), _jax_args(argv, training_type)
+    _assert_same_fields(ours, ref)
+    assert (ours.control_type, ours.frame_conditioning_type) == (ref.control_type, ref.frame_conditioning_type) == (
+        "canny", "index")
+    if training_type == "control-lora":
+        assert (ours.rank, ours.lora_alpha, ours.target_modules) == (64, 64, ref.target_modules)
+
+
 @pytest.mark.parametrize("training_type", ["lora", "full-finetune"])
 def test_defaults_parse_as_jax(training_type):
     argv = REQUIRED + ["--training_type", training_type]
@@ -116,15 +154,20 @@ def test_unported_flag_raises_naming_its_roadmap_item(flags):
 
 
 def test_control_training_raises_and_list_models_exits(capsys):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(REQUIRED + ["--model_name", "wan", "--training_type", "control-lora", "--device", "cpu"])
+    """The raises that remain: a family without a control specification
+    refuses the control types, as JAX's registry does, and the control flags
+    parse only under a control training type."""
+    with pytest.raises(ValueError, match="not supported for model 'ltx_video'"):
+        train.main(REQUIRED + ["--model_name", "ltx_video", "--training_type", "control-lora", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        BaseArgs().parse_args(REQUIRED + ["--training_type", "lora", "--control_type", "canny"])
     with pytest.raises(ValueError, match="--training_type"):
         train.main(REQUIRED + ["--model_name", "wan", "--training_type", "sft"])
     with pytest.raises(SystemExit) as exit_info:
         train.main(["--list_models"])
     assert exit_info.value.code == 0
     out = capsys.readouterr().out
-    assert "wan: ['full-finetune', 'lora']" in out and "ltx_video" in out
+    assert "wan: ['control-full-finetune', 'control-lora', 'full-finetune', 'lora']" in out and "ltx_video" in out
     with pytest.raises(SystemExit):
         BaseArgs().parse_args(REQUIRED + ["--training_type", "full-finetune", "--rank", "4"])
     with pytest.raises(SystemExit):

@@ -567,6 +567,50 @@ def test_k1_k2_k3_at_a_32_row_last_tile_with_frame_axis_tables(dtype, head_dim, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2], ids=["train_b1", "cfg_b2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_k2_k3_at_cogview4_joint_shape(dtype, b):
+    """CogView4's joint attention at full length: 1024 text slots (identity
+    rows in the tables) and a 1024x1024 image's 64x64 patches with the 2D
+    RoPE, 5120 = 40 full tiles; B=1 as in training, B=2 as CFG serves it; 2
+    of the 32 heads (the plain version holds 5120^2 fp32 scores a head). K1
+    after the pre-pass against `flash_attention_reference`, K2 and K3 against
+    `flash_backward_reference`, one launch each, as for Flux's tables (at 2
+    heads K2 splits its q loop and runs the reduce pass; at 32 its 1280 kv
+    CTAs need no split)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from finetrainers_tpu_torch.models.cogview4 import cogview4_rope_tables
+
+    text, n, h = 1024, 2, 128
+    cos, sin = (t[None].contiguous() for t in cogview4_rope_tables(text, 64, 64, h, torch.device("cuda")))
+    s = cos.shape[1]
+    assert s == 5120 and s % 128 == 0
+    assert torch.equal(cos[0, :text], torch.ones(text, h, device="cuda")) and not sin[0, :text].any()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert dkdv_splits(1, 32, s, s, sms)[0] == 1
+    g = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v, do = (torch.randn(b, s, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2) for _ in range(4))
+    before = (flash_forward.launches, flash_qk_prep.launches)
+    out, lse = flash_forward(q, k, v, None, cos, sin)
+    torch.cuda.synchronize()
+    assert (flash_forward.launches, flash_qk_prep.launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_lse = flash_attention_reference(q, k, v, None, cos, sin)
+    assert ((out.float() - ref.float()).abs() / ref.float().abs().clamp_min(1.0)).max() <= 2e-2
+    assert (lse - ref_lse).abs().max() <= 1e-2
+    del ref, ref_lse
+    before = (flash_bwd_dkdv.launches, flash_bwd_dq.launches)
+    grads = flash_backward(q, k, v, out, lse, do, None, cos, sin)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dkdv.launches, flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, flash_backward_reference(q, k, v, out, lse, do, None, cos,
+                                                                                     sin)):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        rel_l2, max_ratio = _rel_errors(got, want)
+        assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, b, rel_l2, max_ratio)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("lens", [[65], [65, 256]], ids=["b1", "b2"])
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

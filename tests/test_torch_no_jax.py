@@ -12,7 +12,9 @@ trackers, the command line `finetrainers_tpu_torch.train`) and the Wan I2V
 slice's (the multistep schedulers, the weight bridge, the inference runner
 `finetrainers_tpu_torch.inference`) and the Flux slice's (transformer,
 weights, spec, pipeline, the text processors) and the HunyuanVideo slice's
-(transformer, weights, spec, pipeline) among them. Any
+(transformer, weights, spec, pipeline) and the CogView4 and control slice's
+(transformer, weights, specs, pipeline, the control trainer, its data and
+config, the control processors, the Wan control spec) among them. Any
 import of a blocked package, any `nvcc` run and any kernel library loaded
 during import fails the test. A second fresh interpreter blocks nothing,
 imports every module and finds neither `jax` nor `finetrainers_tpu` in
@@ -52,7 +54,11 @@ training = {"finetrainers_tpu_torch." + m for m in (
     "models.wan.weights", "models.weight_utils", "models.layers", "models.flux", "models.flux.transformer",
     "models.flux.weights", "models.flux.base_specification", "models.flux.pipeline", "processors.text_encoders",
     "models.hunyuan_video", "models.hunyuan_video.transformer", "models.hunyuan_video.weights",
-    "models.hunyuan_video.base_specification", "models.hunyuan_video.pipeline")}
+    "models.hunyuan_video.base_specification", "models.hunyuan_video.pipeline", "models.cogview4",
+    "models.cogview4.transformer", "models.cogview4.weights", "models.cogview4.base_specification",
+    "models.cogview4.pipeline", "models.cogview4.control_specification", "models.wan.control_specification",
+    "trainer.control_trainer", "trainer.control_trainer.trainer", "trainer.control_trainer.data",
+    "trainer.control_trainer.config", "processors.control")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
 print(len(names))
 """

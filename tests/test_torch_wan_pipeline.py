@@ -26,7 +26,7 @@ from finetrainers_tpu.ops import attention_provider as jax_attention_provider
 from finetrainers_tpu.processors import HashEncoder as JaxHashEncoder
 from finetrainers_tpu_torch import get_model_specification_cls
 from finetrainers_tpu_torch.models.autoencoders import WAN_VAE_CONFIG, AutoencoderConfig, load_flax_vae_params
-from finetrainers_tpu_torch.models.wan import WanModelSpecification, load_flax_params
+from finetrainers_tpu_torch.models.wan import WanControlModelSpecification, WanModelSpecification, load_flax_params
 from finetrainers_tpu_torch.ops import attention_provider
 from finetrainers_tpu_torch.processors import HashEncoder
 
@@ -116,12 +116,13 @@ def test_prepare_conditions_pad_to_512_text_tokens(pipelines):
 
 
 def test_image_to_video_and_control_are_not_ported(pipelines):
-    """Control conditioning still raises naming ROADMAP.md. Image-to-video is
-    ported (the name is kept from when both raised): a T2V pipeline ignores
-    an image, as JAX's does, and a tiny I2V model serves an image request
-    whose video depends on the image."""
+    """Image-to-video and control conditioning are ported (the name is kept
+    from when both raised): a T2V pipeline refuses a control video, which
+    needs a control model (test_torch_control_wan.py serves one), and ignores
+    an image, as JAX's does; a tiny I2V model serves an image request whose
+    video depends on the image."""
     port_pipe = pipelines[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="control model"):
         port_pipe(**REQUEST, control_video=np.zeros((5, 16, 24, 3), np.uint8))
     request = {**REQUEST, "num_inference_steps": 1}
     image = np.random.RandomState(2).randint(0, 256, (16, 24, 3), dtype=np.uint8)
@@ -136,13 +137,12 @@ def test_image_to_video_and_control_are_not_ported(pipelines):
 
 
 def test_registry_resolves_wan_and_spec_serves_offline():
-    """`wan` resolves for lora and full-finetune, its control types stay unported;
-    the spec's offline components are the JAX package's fallbacks."""
+    """`wan` resolves for lora and full-finetune, and its control types to the
+    control spec; the spec's offline components are the JAX package's fallbacks."""
     for training_type in ("lora", "full-finetune"):
         assert get_model_specification_cls("wan", training_type) is WanModelSpecification
     for training_type in ("control-lora", "control-full-finetune"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model_specification_cls("wan", training_type)
+        assert get_model_specification_cls("wan", training_type) is WanControlModelSpecification
     spec = WanModelSpecification(device="cpu")
     assert spec.vae_autoencoder_config == WAN_VAE_CONFIG
     assert (WAN_VAE_CONFIG.spatial_compression_ratio, WAN_VAE_CONFIG.temporal_compression_ratio) == (8, 4)
