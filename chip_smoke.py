@@ -14,7 +14,11 @@ modal_labs_dissolve example's LoRA run through its command line at its own
 with the exported adapter, and CogView4-6B at full width with the control
 trainer: the canny control-LoRA example's run through its command line at
 1024x1024, a control-conditioned and a plain 1024x1024 request through the
-runner, and the Wan image_condition control example's run.
+runner, and the Wan image_condition control example's run, and CogVideoX-5B at
+full width: its kernels at 30,466 tokens of head dim 64, the crush_smol_lora
+example's DDIM LoRA run through its command line at its own 81x480x768 bucket,
+then an 81x480x768 DDIM text-to-video request through the runner with the
+exported adapter.
 
     python3 chip_smoke.py
 
@@ -87,7 +91,7 @@ Phases, each printed on its own line:
      the rest) and of one K1 step (K1 and its pre-pass, self and cross, GEMMs,
      the rest);
   8. training through the user entry points: `SFTTrainer.train` on the full-width
-     spec with LoRA rank 128, one warm-up and 5 timed steps on seeded VAE
+     spec with LoRA rank 128, one warm-up and 3 timed steps on seeded VAE
      moments (1, 256, 7, 16, 24) -> 2688 tokens and seeded caption states with
      a padded mask, then its final checkpoint and adapter export; checks finite
      losses, moved LoRA factors, unchanged frozen weights, the checkpoint and
@@ -102,7 +106,7 @@ Phases, each printed on its own line:
      full-width Wan 2.1 T2V-1.3B spec (rank 32, the optimizer of
      examples/training/sft/wan/crush_smol_lora/train.sh, logit-normal
      weighting, per-block "full" remat) on seeded VAE moments (1, 32, 13, 64,
-     96) -> 19968 tokens and 512 valid caption tokens: one warm-up and 3 timed
+     96) -> 19968 tokens and 512 valid caption tokens: one warm-up and 2 timed
      steps through `train` (finite losses, moved LoRA factors, unchanged frozen
      weights, K1 4*30, the pre-pass 4*30 + 2*30, K2 and K3 2*30 launches per
      step, model TFLOP/s by tools/floor_bench.py's formula); the same step under
@@ -147,7 +151,7 @@ Phases, each printed on its own line:
      parameters, built on the card in bf16): `wan_i2v_train`, LoRA rank 32
      (179,568,640 trainable) with the example's optimizer and "full" remat on
      seeded moments, condition moments and mask at 49x480x832 (20280 tokens)
-     and 512 caption tokens, one warm-up and 3 timed steps through `train`
+     and 512 caption tokens, one warm-up and 2 timed steps through `train`
      (K1 160, the pre-pass 240, K2 and K3 80 launches a step and no reduce
      pass: K2 splits its q loop only where a call's kv-tile CTAs are fewer
      than the SMs, and 40 heads give 160), the adapter export and a profiled
@@ -239,7 +243,27 @@ Phases, each printed on its own line:
      (`--control_type none`, `index` 0, `transformer:ring`) from 4 videos
      with paired control videos at 49x480x832: 4 steps launching as
      `wan_run`'s, the final validation through the pipeline's control branch;
-  16. `env`: whether `cv2` and `PIL` import on this machine (information only).
+  16. CogVideoX-5B at full width (`COGVIDEOX_5B_CONFIG`: 42 blocks, 48 heads
+     x 64; 5,569,760,832 parameters, 74,317,824 LoRA at rank 32, bf16):
+     `cogvideox_kernel_checks`, K1 and the pre-pass at the joint
+     self-attention (1, 48, 30466, 30466, 64; 226 T5 slots with identity rows
+     and 21x30x48 patches' 3D RoPE; K1's last q block 130 rows, the last kv
+     tile 2) and at the CFG batch (2, ...), and the pre-pass, K2 and K3 at the
+     training shape, head by head against their plain versions, with bounds
+     and SDPA; `cogvideox_run`, `python -m finetrainers_tpu_torch.train` with
+     the crush_smol_lora train.sh's flags (one card, COGVIDEOX_RUN_POLICY for
+     the example's `ops`, `transformer:auto`) from 4 videos written with cv2
+     at 81x480x768: 4 DDIM steps with weights 1 / (1 - alpha_bar[t]), K1 42,
+     the pre-pass 84, K2 42 and K3 42 a step and no reduce pass, the final
+     validation of the example's two prompts from the export in a fresh model
+     (2 steps each, CFG: K1 and the pre-pass 168), the adapter reloaded
+     bit-equal, step seconds, model TFLOP/s, peaks and a profiled step;
+     `cogvideox_serve`, one 81x480x768 request through `inference.main` with
+     cogvideox_text_to_video.sh's flags and that adapter, 2 DDIM steps of 50,
+     CFG 5.0: a finite (81, 480, 768, 3) video, K1 and the pre-pass 42 a
+     step and no other kernel, request, step and decode seconds, the peak and
+     a profiled step;
+  17. `env`: whether `cv2` and `PIL` import on this machine (information only).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
 0. Without a CUDA card it raises before printing any result.
@@ -324,7 +348,7 @@ TRAIN_LOSS_REL_TOL = 1e-2
 # Training: LoRA rank and alpha as bench.py trains, B=1, the VAE moments of a 49x512x768 clip at
 # the LTX VAE's 32x spatial / 8x temporal compression, 128 caption tokens of which 37 are valid.
 TRAIN_RANK = 128
-TRAIN_TIMED_STEPS = 5
+TRAIN_TIMED_STEPS = 3
 MOMENTS_SHAPE = (1, 256, 7, 16, 24)
 CAPTION_LEN, CAPTION_VALID = 128, 37
 # Wan 2.1 T2V-1.3B serving: the repo's own Wan shape (tools/wan_attn_bench.py), 49x512x768 ->
@@ -361,7 +385,9 @@ I2V_IMAGE_TOKENS = 257
 I2V_STEPS = 2  # cut from the pipeline's default 50
 I2V_REQUEST = dict(num_frames=81, height=480, width=832, guidance_scale=5.0, num_inference_steps=I2V_STEPS)
 I2V_TRAIN_MOMENTS = (1, 32, 13, 60, 104)
-I2V_TRAIN_TIMED_STEPS = 3
+# Two timed steps after the warm-up: the warm-up's rate is 0 (the example's warmup schedule) and lora_B starts at
+# 0, so lora_A first moves on the third step, and the check that every factor moved needs it.
+I2V_TRAIN_TIMED_STEPS = 2
 # The scheduler config of the public Wan-AI/Wan2.1-I2V-14B-480P-Diffusers checkpoint, the keys JAX
 # `load_scheduler` reads (and the rest of its sampler settings).
 I2V_SCHEDULER_CONFIG = {"_class_name": "UniPCMultistepScheduler", "num_train_timesteps": 1000, "flow_shift": 3.0,
@@ -442,6 +468,30 @@ COGVIEW4_TOKENS = 5120
 COGVIEW4_RANK = 128
 COGVIEW4_RUN_IMAGES, COGVIEW4_RUN_STEPS = 4, 4  # cut from 50 precomputed items and 10000 steps
 COGVIEW4_SERVE_STEPS = 4  # cut from the request's 50
+# CogVideoX-5B (COGVIDEOX_5B_CONFIG, JAX models/cogvideox/base_specification.py:28-32): 42 blocks of 48 heads x 64,
+# width 3072; 5,569,760,832 parameters and 74,317,824 more at the crush_smol example's LoRA rank 32 (jax.eval_shape
+# on the JAX model). Each block runs one joint attention over [226 T5 slots, video] with per-token 3D RoPE tables
+# (identity rows for the text). The example's bucket (and the serving example's size) 81x480x768: 21x60x96 latents
+# -> 21x30x48 = 30,240 video tokens, 30,466 in all: 238 full 128-row tiles and one of 2 rows, and for K1 at H=64
+# (three consumer warpgroups, 192-row q blocks) 158 full q blocks and one of 130 rows.
+COGVIDEOX_EXAMPLE = (pathlib.Path(__file__).resolve().parent / "examples" / "training" / "sft" / "cogvideox"
+                     / "crush_smol_lora")
+COGVIDEOX_SERVE_EXAMPLE = pathlib.Path(__file__).resolve().parent / "examples" / "inference" / "cogvideox"
+COGVIDEOX_PARAMS = 5_569_760_832
+COGVIDEOX_LORA_PARAMS = 74_317_824
+COGVIDEOX_LAYERS = 42
+COGVIDEOX_HEADS = 48
+COGVIDEOX_TEXT = 226
+COGVIDEOX_BUCKET = (81, 480, 768)
+COGVIDEOX_GRID = (21, 30, 48)
+COGVIDEOX_TOKENS = 30466
+COGVIDEOX_RUN_VIDEOS, COGVIDEOX_RUN_STEPS = 4, 4  # cut from the example's 50 precomputed items and 3000 steps
+COGVIDEOX_RANK = 32
+# The example trains under "ops", which keeps every product of the 42 blocks: at 30,466 tokens it, and "ops_narrow"
+# too, runs out of the card's 80 GB (`python3 tools/torch_cogvideox_phases.py OUT.jsonl policies`). The run uses
+# "ops_attn", the first policy that saves less and fits (34.8 GB).
+COGVIDEOX_RUN_POLICY = "ops_attn"
+COGVIDEOX_SERVE_STEPS = 2  # cut from the request's 50
 # The Wan image_condition control example: Wan 2.1 T2V-1.3B widened to 32 input channels, LoRA rank 128.
 WAN_CONTROL_EXAMPLE = (pathlib.Path(__file__).resolve().parent / "examples" / "training" / "control" / "wan"
                        / "image_condition")
@@ -451,7 +501,7 @@ WAN_CONTROL_TRAINED = 175_179_264  # the LoRA factors (174,981,120) and the inje
 # examples/training/sft/wan/crush_smol_lora/train.sh): rank 32, B=1, the VAE moments of a 49x512x768 clip
 # (13x64x96 latents -> 19968 tokens), 512 caption tokens, all valid; per-block "full" remat.
 WAN_TRAIN_RANK = 32
-WAN_TRAIN_TIMED_STEPS = 3
+WAN_TRAIN_TIMED_STEPS = 2
 # The timed steps of the same Wan step under each kernel switch and each remat policy: fewer than the default
 # path's, to keep the script's run within half its limit as its paths grow.
 WAN_SWITCH_TIMED_STEPS = 1
@@ -517,6 +567,18 @@ def cuda_ms(fn, iters=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_call(fn):
+    """One call of `fn`, timed with CUDA events: (its result, ms). A plain
+    version that is also the reference of a check is timed on the call the
+    check needs, as `cuda_ms(fn, iters=1, warmup=0)` would time a second one."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_ms(fn, kernels, calls=5):
@@ -1073,7 +1135,7 @@ def check_k6(card):
         codes = sage_prep(q, k, lens, cos, sin)
         out = sage_forward(*codes, vt, lens)
         torch.cuda.synchronize()
-        ref = sage_attention_reference(*codes, vt, lens)
+        ref, plain_ms = timed_call(lambda: sage_attention_reference(*codes, vt, lens))
         err = (out.float() - ref.float()).abs()
         max_abs = err.max().item()
         norm_err = (err / ref.float().abs().clamp_min(1.0)).max().item()
@@ -1084,7 +1146,6 @@ def check_k6(card):
         prep_ms = cuda_ms(lambda: sage_prep(q, k, lens, cos, sin))
         # The plain pre-pass on the card: the torch rotation and quantization the parent ran before K6.
         prep_plain_ms = cuda_ms(lambda: sage_quantize(q, k, lens, cos, sin))
-        plain_ms = cuda_ms(lambda: sage_attention_reference(*codes, vt, lens), iters=1, warmup=0)
         # torch SDPA on the bf16 inputs (no quantization, no rotation): a library yardstick only, never called
         # by the port.
         mask = (torch.arange(skv, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
@@ -1113,7 +1174,7 @@ def check_k6(card):
 
 def check_k1_wan(card, cases=None, phase_name="k1_check"):
     """The pre-pass and K1 at self-attention shapes with one (S, H) table pair
-    shared by every head, against their plain version run one head at a time
+    shared by every head (H from the tables), against their plain version run one head at a time
     (all heads at once would need ~100 GB of fp32 scores). By default Wan's:
     serving (B=2, S=19968), the example's bucket (B=1, S=20280, whose last q
     and kv tiles hold 56 rows), I2V-14B training at that bucket (B=1, 40
@@ -1133,7 +1194,7 @@ def check_k1_wan(card, cases=None, phase_name="k1_check"):
     worst, records = 0.0, {}
     for name, (b, n, tables) in cases.items():
         cos, sin = tables()
-        s, h = cos.shape[1], 128
+        s, h = cos.shape[1], cos.shape[2]
         q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
                    for _ in range(3))
         out, lse = flash_forward(q, k, v, None, cos, sin)
@@ -1148,7 +1209,7 @@ def check_k1_wan(card, cases=None, phase_name="k1_check"):
                     ref[bi, ni], ref_lse[bi, ni] = o[0, 0], l_[0, 0]
             return ref, ref_lse
 
-        ref, ref_lse = plain()
+        (ref, ref_lse), plain_ms = timed_call(plain)
         err = (out.float() - ref.float()).abs()
         max_abs = err.max().item()
         norm_err = (err / ref.float().abs().clamp_min(1.0)).max().item()
@@ -1159,7 +1220,6 @@ def check_k1_wan(card, cases=None, phase_name="k1_check"):
         prep_ms = cuda_ms(lambda: flash_qk_prep(q, k, cos, sin, 0, h**-0.5))
         prep_plain_ms = cuda_ms(lambda: flash_qk_prep_reference(q, k, cos, sin, h**-0.5), iters=3)
         forward_ms = cuda_ms(lambda: flash_forward(q, k, v, None, cos, sin))
-        plain_ms = cuda_ms(plain, iters=1, warmup=0)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa_ms = cuda_ms(lambda: attention_dispatch(qt, kt, vt, provider="native"))
         flops = 4 * b * n * s * s * h
@@ -1197,6 +1257,8 @@ def _bwd_case_inputs(c, g):
         cos, sin = hunyuan_tables(HUNYUAN_RUN_GRID)
     elif c["rope"] == "cogview4":
         cos, sin = cogview4_tables()
+    elif c["rope"] == "cogvideox":
+        cos, sin = cogvideox_tables()
     elif c["rope"] == "shared":
         ang = torch.rand(1, sq, h // 2, generator=g, device="cuda") * 6.3
         cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
@@ -2213,19 +2275,19 @@ WAN_RUN_REDUCE = WAN_LAYERS
 WAN_RUN_PATHS = ("wan_run", "wan_run_resumed")
 
 
-def train_sh_argv(example=TRAIN_SH, **overrides):
-    """The flags the `example` directory's train.sh passes to the trainer, its
+def train_sh_argv(example=TRAIN_SH, script="train.sh", single_card=WAN_RUN_SINGLE_CARD, **overrides):
+    """The flags the `example` directory's `script` passes to its program, its
     `*_cmd` arrays in the order of its command, with the parallel layout
-    replaced by one card's and each flag of `overrides` set to its value (a
+    replaced by `single_card` and each flag of `overrides` set to its value (a
     list for several)."""
     import shlex
 
-    text = (example / "train.sh").read_text()
+    text = (example / script).read_text()
     arrays = {name: shlex.split(" ".join(line.split("#")[0] for line in body.splitlines()))
               for name, body in re.findall(r"^(\w+_cmd)=\(\n(.*?)^\)", text, re.M | re.S)}
     argv = []
     for name in re.findall(r'"\$\{(\w+_cmd)\[@\]\}"', text):
-        argv += WAN_RUN_SINGLE_CARD if name == "parallel_cmd" else arrays[name]
+        argv += single_card if name == "parallel_cmd" else arrays[name]
     for flag, value in overrides.items():
         values = [str(v) for v in (value if isinstance(value, list) else [value])]
         if f"--{flag}" in argv:
@@ -2459,7 +2521,7 @@ def wan_i2v_train(card):
     """Full-width Wan 2.1 I2V-14B LoRA training (rank 32, the example's
     optimizer, per-block "full" remat) on seeded VAE moments at 49x480x832
     (20280 tokens) with condition latents and 512 valid caption tokens: one
-    warm-up and 3 timed steps through `train`, which then saves and exports
+    warm-up and 2 timed steps through `train`, which then saves and exports
     the adapter; a profiled step. The image-KV branch does not run (the
     trainer passes no image, as in JAX), so its LoRA B factors stay zero.
     Returns the launches, the adapter's directory and the profile."""
@@ -2640,9 +2702,10 @@ def wan_i2v_image_branch(card):
     the spec's image encoder (the offline CLIP-vision stand-in), one denoise
     step at 81x480x832 with CFG over the image embeds, under `auto` (K1 and
     the pre-pass 120 times: self, text and the 257 image keys in each block)
-    and under `sage` (the sage pre-pass and K6 120 times), each timed on the
-    host clock up to a sync and then profiled. The sage step must fall within
-    K6_STEP_REL_L2_TOL of the auto step."""
+    and under `sage` (the sage pre-pass and K6 120 times), each step counted
+    and profiled at once (its seconds are the traced wall time, CUDA events
+    around the call). The sage step must fall within K6_STEP_REL_L2_TOL of the
+    auto step."""
     from finetrainers_tpu_torch.data.utils import load_image
 
     t0 = time.perf_counter()
@@ -2667,12 +2730,10 @@ def wan_i2v_image_branch(card):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 _zero_counts()
-                t1 = time.perf_counter()
-                out = step()
-                torch.cuda.synchronize()
-                runs[provider] = dict(step_s=time.perf_counter() - t1, launches=_counts(),
-                                      peak_gb=torch.cuda.max_memory_allocated() / 1e9, out=out)
-                runs[provider]["profile"] = profile_device(step)
+                out = []
+                prof = profile_device(lambda: out.append(step()))  # the step counted and profiled at once
+                runs[provider] = dict(step_s=prof["wall_ms"] / 1e3, launches=_counts(),
+                                      peak_gb=torch.cuda.max_memory_allocated() / 1e9, out=out[0], profile=prof)
     rel = rel_l2(runs["sage"]["out"], runs["auto"]["out"])
     finite = all(bool(torch.isfinite(r["out"]).all()) for r in runs.values())
     per_step = 3 * I2V_LAYERS
@@ -3132,9 +3193,9 @@ def hunyuan_run(card):
     steps of 50, 49x480x768). Each step's seconds, launches, K2 reduce passes
     and peak memory, model TFLOP/s by floor_bench's formula with "ops_attn"'s
     remat factor, precompute seconds per item, whether the VAE ran in pieces,
-    the validation's seconds and launches; after the run, one more step
-    profiled. Returns the run's launches, reduce passes, the adapter's
-    directory and the in-step times."""
+    the validation's seconds and launches; the run's last step profiled.
+    Returns the run's launches, reduce passes, the adapter's directory and
+    the in-step times."""
     from finetrainers_tpu_torch import train as train_cli
     from finetrainers_tpu_torch.models import autoencoders
     from finetrainers_tpu_torch.models.hunyuan_video import HUNYUAN_VIDEO_CONFIG
@@ -3146,10 +3207,10 @@ def hunyuan_run(card):
     argv = train_sh_argv(HUNYUAN_EXAMPLE, dataset_config=training_json, validation_dataset_file=validation_json,
                          output_dir=out_dir, report_to="jsonl", train_steps=HUNYUAN_RUN_STEPS,
                          precomputation_items=HUNYUAN_RUN_VIDEOS, gradient_checkpointing_type=HUNYUAN_RUN_POLICY)
-    with vae_pieces_seen() as vae, counted_run() as rec:
+    with vae_pieces_seen() as vae, counted_run(profile_step=HUNYUAN_RUN_STEPS) as rec:
         trainer = train_cli.main(argv)
-    steps, validations, peaks, run_s, launches, reduce = (rec[k_] for k_ in ("steps", "validations", "peaks", "run_s",
-                                                                              "launches", "reduce"))
+    steps, validations, peaks, run_s, launches, reduce, prof = (
+        rec[k_] for k_ in ("steps", "validations", "peaks", "run_s", "launches", "reduce", "profile"))
     module = trainer.transformer.module
     base_params = sum(p.numel() for n, p in module.named_parameters() if n not in trainer._trainable)
     lora_params = sum(p.numel() for p in trainer._trainable.values())
@@ -3158,15 +3219,11 @@ def hunyuan_run(card):
                 and module.context_embedder.token_refiner.num_layers == HUNYUAN_REFINER_LAYERS
                 and module.gradient_checkpointing == HUNYUAN_RUN_POLICY
                 and trainer.attn_provider_training == {"transformer": "ring"})
-    # After the run and its export: one more step on the run's first precomputed item, profiled.
-    spec = trainer.model_specification
     precomputed = out_dir / "precomputed" / PRECOMPUTED_DIR_NAME
     items = [dict(np.load(precomputed / f"{kind}-0.npz")) for kind in ("condition", "latent")]
     latent_shape = list(items[1]["latents"].shape)
     text_valid = int(items[0]["encoder_attention_mask"].sum())
-    batch = to_device((spec.collate_conditions([items[0]]), spec.collate_latents([items[1]])), torch.device("cuda"))
-    prof = profile_device(lambda: trainer.train_step(*batch))
-    del trainer, module, spec, batch
+    del trainer, module
     freed_gb = _free_cuda()
 
     log = [json.loads(line) for line in (out_dir / "logs" / "finetrainers-tpu-hunyuan_video.jsonl").read_text()
@@ -3188,7 +3245,7 @@ def hunyuan_run(card):
     validation_want = {"k1": 2 * layers, "prep": 2 * layers}  # 2 denoising steps, no CFG
     validations_ok = (len(validations) == 1 and validations[0]["final"]
                       and validations[0]["launches"] == validation_want)
-    timed = [st["seconds"] for st in steps][1:]
+    timed = [st["seconds"] for st in steps[1:] if not st["profiled"]]  # steps 2-3; step 4 is profiled
     remat = ops_attn_remat_factor(HUNYUAN_VIDEO_CONFIG, HUNYUAN_RANK, HUNYUAN_TOKENS)
     flops = flux_train_step_flops(HUNYUAN_VIDEO_CONFIG, HUNYUAN_RANK, remat, B=1, S=HUNYUAN_TOKENS)
     median_s = statistics.median(timed)
@@ -3200,7 +3257,7 @@ def hunyuan_run(card):
           bucket=list(HUNYUAN_BUCKET), tokens=HUNYUAN_TOKENS, latents_shape=latent_shape, text_valid=text_valid,
           published_shape=shape_ok, base_params=base_params, lora_params=lora_params, data_write_s=data_s,
           precompute_s=precompute_s, precompute_s_per_item=precompute_s / HUNYUAN_RUN_VIDEOS, peaks_gb=peaks,
-          step_seconds=[st["seconds"] for st in steps], median_step_s_2_to_4=median_s,
+          step_seconds=[st["seconds"] for st in steps], median_step_s_2_to_3=median_s,
           step_peaks_gb=[st["peak_gb"] for st in steps], step_launches=steps[0]["launches"],
           step_reduce_passes=[st["reduce"] for st in steps], step_launches_all_exact=steps_ok,
           remat_factor=remat, model_flops_per_step=flops, model_tflops=flops / median_s / 1e12,
@@ -3373,12 +3430,15 @@ def check_cogview4_kernels(card):
 
 
 @contextlib.contextmanager
-def counted_run():
+def counted_run(profile_step=None):
     """Count a run through the trainer (the SFT trainer's `train_step` and
     `_validate`, which the control trainer inherits): per step its seconds,
     launches, K2 reduce passes and peak memory; per validation its seconds,
     launches and peak; the peak of the model load and precompute before the
-    first step; and the run's seconds, launches and reduce passes."""
+    first step; and the run's seconds, launches and reduce passes. With
+    `profile_step` k, the run's k-th step also runs under `profile_device`
+    (its trace in rec["profile"], its seconds the traced window, without the
+    trace's parsing), so no extra step is needed to profile it."""
     rec = dict(steps=[], validations=[], peaks={})
     orig_step, orig_validate = SFTTrainer.train_step, SFTTrainer._validate
 
@@ -3388,10 +3448,17 @@ def counted_run():
         if not rec["steps"]:
             rec["peaks"]["load_and_precompute_gb"] = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
-        out = orig_step(self, *args, **kwargs)
+        profiled = len(rec["steps"]) + 1 == profile_step
+        if profiled:
+            out = []
+            rec["profile"] = profile_device(lambda: out.append(orig_step(self, *args, **kwargs)))
+            out = out[0]
+        else:
+            out = orig_step(self, *args, **kwargs)
         torch.cuda.synchronize()
         after = _counts()
-        rec["steps"].append(dict(seconds=time.perf_counter() - t,
+        seconds = rec["profile"]["wall_ms"] / 1e3 if profiled else time.perf_counter() - t
+        rec["steps"].append(dict(seconds=seconds, profiled=profiled,
                                  launches={k_: after[k_] - before[k_] for k_ in after},
                                  reduce=flash_bwd_dkdv.reduce_launches - reduce_before,
                                  peak_gb=torch.cuda.max_memory_allocated() / 1e9))
@@ -3790,6 +3857,317 @@ def wan_control_run(card):
     return dict(launches=rec["launches"], reduce=rec["reduce"])
 
 
+# CogVideoX-5B at full width: its kernels at its joint self-attention shape (the first long head-dim-64 shape),
+# the crush_smol_lora example's run through the command line at its own 81x480x768 bucket, then an 81x480x768
+# text-to-video request through the inference runner with DDIM and the exported adapter.
+
+
+def cogvideox_tables():
+    """CogVideoX-5B's (1, 30466, 64) fp32 tables: the identity on the 226 text
+    rows, then the 21x30x48 patches' 3D RoPE, as the model builds them."""
+    from finetrainers_tpu_torch.models.cogvideox import cogvideox_rope_tables
+
+    return tuple(t[None].contiguous() for t in cogvideox_rope_tables(COGVIDEOX_TEXT, *COGVIDEOX_GRID, 64,
+                                                                     torch.device("cuda")))
+
+
+def check_cogvideox_kernels(card):
+    """K1 and the pre-pass at CogVideoX's joint self-attention (1, 48, 30466,
+    30466, 64: K1's last 192-row q block holds 130 rows, its last kv tile 2)
+    and at the CFG batch (2, ...), with the tables, against their plain
+    version head by head; the pre-pass, K2 and K3 at the training shape
+    against `flash_backward_reference` head by head (48 heads x 239 kv tiles
+    = 11,472 CTAs: no split, no reduce pass; the last 128-row tile of K2's kv
+    loop and K3's q loop holds 2 rows). Returns the worst errors and the
+    records by case."""
+    k1_err, k1 = check_k1_wan(card, {"cogvideox_joint_self_tables": (1, COGVIDEOX_HEADS, cogvideox_tables),
+                                     "cogvideox_joint_self_tables_b2": (2, COGVIDEOX_HEADS, cogvideox_tables)},
+                              phase_name="cogvideox_kernel_checks")
+    bwd_err, bwd = check_k2k3(card, {"cogvideox_joint_self_tables": dict(
+        b=1, n=COGVIDEOX_HEADS, sq=COGVIDEOX_TOKENS, skv=COGVIDEOX_TOKENS, h=64, lens=None, rope="cogvideox")},
+        phase_name="cogvideox_kernel_checks")
+    return k1_err, k1, bwd_err, bwd
+
+
+def cogvideox_run_data(root):
+    """4 seeded videos at the example's 81x480x768 bucket (mp4v, smooth colour
+    blobs), their `metadata.csv` with PIKA_CRUSH captions, the example's
+    training.json pointing at them, and its validation.json (two prompts at
+    81x480x768) with 2 denoising steps each. Returns (training.json, validation.json)."""
+    import csv
+
+    import cv2
+
+    root.mkdir(parents=True, exist_ok=True)
+    frames, height, width = COGVIDEOX_BUCKET
+    rng = np.random.RandomState(16)
+    with open(root / "metadata.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["file_name", "caption"])
+        w.writeheader()
+        for i in range(COGVIDEOX_RUN_VIDEOS):
+            writer = cv2.VideoWriter(str(root / f"clip{i}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 25, (width, height))
+            coarse = (rng.rand(frames, height // 32, width // 32, 3) * 255).astype(np.uint8)
+            for frame in coarse:
+                writer.write(cv2.resize(frame, (width, height), interpolation=cv2.INTER_LINEAR))
+            writer.release()
+            w.writerow({"file_name": f"clip{i}.mp4",
+                        "caption": f"PIKA_CRUSH A hydraulic press flattens toy number {i} slowly."})
+    training = json.loads((COGVIDEOX_EXAMPLE / "training.json").read_text())
+    training["datasets"][0]["data_root"] = str(root)
+    validation = json.loads((COGVIDEOX_EXAMPLE / "validation.json").read_text())
+    validation["data"] = [dict(row, num_inference_steps=2) for row in validation["data"]]
+    (root / "training.json").write_text(json.dumps(training))
+    (root / "validation.json").write_text(json.dumps(validation))
+    return root / "training.json", root / "validation.json"
+
+
+@contextlib.contextmanager
+def recorded_loss_weights():
+    """Record the loss weights the trainer forms each step, and the alpha-bar
+    values they came from (DDIM) or None (flow matching)."""
+    from finetrainers_tpu_torch.trainer.sft_trainer import trainer as sft
+
+    fn, seen = sft.compute_loss_weighting, []
+
+    def recording(scheme, sigmas=None, alphas=None):
+        weights = fn(scheme, sigmas=sigmas, alphas=alphas)
+        seen.append(dict(alphas=None if alphas is None else alphas.tolist(), weights=weights.tolist()))
+        return weights
+
+    sft.compute_loss_weighting = recording
+    try:
+        yield seen
+    finally:
+        sft.compute_loss_weighting = fn
+
+
+def cogvideox_run(card):
+    """The crush_smol_lora example's run through
+    `finetrainers_tpu_torch.train.main` with its train.sh flags on one card
+    (precompute once, `transformer:auto`, slicing and tiling, rank 32, the
+    example's AdamW, logit-normal weighting, which DDIM ignores, bf16), with
+    COGVIDEOX_RUN_POLICY for the example's "ops" (which does not fit one card
+    at this size), from 4 videos on disk at its own 81x480x768 bucket (30,466
+    tokens): 4 steps, then the final validation from the exported adapter in
+    a fresh model (the example's two prompts, 2 DDIM steps of 50 each, CFG in
+    one batch of 2). Each step's seconds, launches, reduce passes, peak memory
+    and DDIM loss weights 1 / (1 - alpha_bar[t]), model TFLOP/s by
+    floor_bench's joint formula with the policy's remat factor, precompute
+    seconds per item, whether the VAE ran in pieces, the validation's seconds
+    and launches; the exported adapter reloaded into a fresh model must give
+    the trained model's forward bit for bit; the run's last step profiled.
+    Returns the run's launches, reduce passes, the adapter's directory and
+    the in-step times."""
+    from finetrainers_tpu_torch import train as train_cli
+    from finetrainers_tpu_torch.models import autoencoders
+
+    t0 = time.perf_counter()
+    training_json, validation_json = cogvideox_run_data(SMOKE_DIR / "cogvideox_run_data")
+    data_s = time.perf_counter() - t0
+    out_dir = SMOKE_DIR / "cogvideox_run"
+    argv = train_sh_argv(COGVIDEOX_EXAMPLE, dataset_config=training_json, validation_dataset_file=validation_json,
+                         output_dir=out_dir, report_to="jsonl", train_steps=COGVIDEOX_RUN_STEPS,
+                         precomputation_items=COGVIDEOX_RUN_VIDEOS, gradient_checkpointing_type=COGVIDEOX_RUN_POLICY)
+    with vae_pieces_seen() as vae, recorded_loss_weights() as weights, \
+            counted_run(profile_step=COGVIDEOX_RUN_STEPS) as rec:
+        trainer = train_cli.main(argv)
+    steps, validations, prof = rec["steps"], rec["validations"], rec["profile"]
+    module = trainer.transformer.module
+    base_params = sum(p.numel() for n, p in module.named_parameters() if n not in trainer._trainable)
+    lora_params = sum(p.numel() for p in trainer._trainable.values())
+    scheduler = trainer.scheduler
+    shape_ok = (base_params == COGVIDEOX_PARAMS and lora_params == COGVIDEOX_LORA_PARAMS
+                and len(module.transformer_blocks) == COGVIDEOX_LAYERS
+                and module.gradient_checkpointing == COGVIDEOX_RUN_POLICY
+                and type(scheduler).__name__ == "CogVideoXDDIMScheduler"
+                and trainer.attn_provider_training == {"transformer": "auto"})
+    # Each step's weight is 1 / (1 - alpha_bar[t]) of a value of the DDIM table.
+    table = set(scheduler.alphas_cumprod.tolist())
+    weights_ok = len(weights) == COGVIDEOX_RUN_STEPS and all(
+        w["alphas"] is not None and all(a in table for a in w["alphas"])
+        and np.allclose(w["weights"], 1.0 / (1.0 - np.asarray(w["alphas"], np.float32)), rtol=1e-6, atol=0)
+        for w in weights)
+    spec = trainer.model_specification
+    precomputed = out_dir / "precomputed" / PRECOMPUTED_DIR_NAME
+    items = [dict(np.load(precomputed / f"{kind}-0.npz")) for kind in ("condition", "latent")]
+    latent_shape = list(items[1]["latents"].shape)
+    batch = to_device((spec.collate_conditions([items[0]]), spec.collate_latents([items[1]])), torch.device("cuda"))
+    # The exported adapter in a fresh model (the final validation's path) against the trained model, on 3 latent
+    # frames of the bucket's 60x96 latents (4546 tokens).
+    fresh = trainer._load_exported_transformer()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((1, 3, 16, 60, 96), generator=g, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        outs = [m(x, batch[0]["encoder_hidden_states"], torch.tensor([500.0], device="cuda"))
+                for m in (fresh.module, module)]
+    reload_bit_equal = bool(torch.equal(*outs)) and bool(torch.isfinite(outs[0]).all())
+    del fresh, outs, x, trainer, module, spec, batch, scheduler
+    freed_gb = _free_cuda()
+
+    log = [json.loads(line) for line in (out_dir / "logs" / "finetrainers-tpu-cogvideox.jsonl").read_text()
+           .splitlines()]
+    losses = [e["train/global_avg_loss"] for e in log if "train/global_avg_loss" in e]
+    precompute_s = next(e["timing/precompute"] for e in log if "timing/precompute" in e)
+    adapter = out_dir / "lora_weights" / f"{COGVIDEOX_RUN_STEPS:06d}"
+    state, config = load_lora_weights(str(adapter))
+    videos = sorted((out_dir / "validation").rglob("*.mp4"))
+    # A step under "ops_attn": K4's outputs saved, so K1 runs in the forward only, the pre-pass before each forward
+    # and each backward, K2 and K3 in each backward; 48 heads x 239 kv tiles = 11,472 CTAs, so K2's q loop is not
+    # split and no reduce pass runs. Under "full" K1 and the pre-pass run once more in the recompute.
+    recompute = 1 if COGVIDEOX_RUN_POLICY == "full" else 0
+    step_want = dict(k1=(1 + recompute) * COGVIDEOX_LAYERS, prep=(2 + recompute) * COGVIDEOX_LAYERS,
+                     k2=COGVIDEOX_LAYERS, k3=COGVIDEOX_LAYERS)
+    want = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
+    steps_ok = all(st["launches"] == want and st["reduce"] == 0 for st in steps)
+    # 2 requests x 2 DDIM steps, CFG in one batch of 2.
+    validation_want = {"k1": 4 * COGVIDEOX_LAYERS, "prep": 4 * COGVIDEOX_LAYERS}
+    validations_ok = (len(validations) == 1 and validations[0]["final"]
+                      and validations[0]["launches"] == validation_want)
+    d = COGVIDEOX_HEADS * 64
+    per_layer = joint_train_step_flops(1, d, COGVIDEOX_RANK, 0.0, B=1, S=COGVIDEOX_TOKENS) / 2.0
+    remat = {"full": 1.0, "ops_attn": 1.0 - 2 * 2 * COGVIDEOX_TOKENS**2 * d / per_layer}.get(COGVIDEOX_RUN_POLICY, 0.0)
+    flops = joint_train_step_flops(COGVIDEOX_LAYERS, d, COGVIDEOX_RANK, remat, B=1, S=COGVIDEOX_TOKENS)
+    median_s = statistics.median([st["seconds"] for st in steps[1:] if not st["profiled"]])  # steps 2-3
+    in_step = {cls: _median(prof["launches"][cls]) for cls in ("k1", "prep", "k2", "k3")}
+    phase("cogvideox_run", card=card, entry="python -m finetrainers_tpu_torch.train", argv=[str(a) for a in argv],
+          policy_note=f"{COGVIDEOX_RUN_POLICY} for the example's ops, which does not fit one card at this bucket",
+          bucket=list(COGVIDEOX_BUCKET), tokens=COGVIDEOX_TOKENS, latents_shape=latent_shape,
+          published_shape=shape_ok, base_params=base_params, lora_params=lora_params, data_write_s=data_s,
+          precompute_s=precompute_s, precompute_s_per_item=precompute_s / COGVIDEOX_RUN_VIDEOS, peaks_gb=rec["peaks"],
+          step_seconds=[st["seconds"] for st in steps], median_step_s_2_to_3=median_s,
+          step_peaks_gb=[st["peak_gb"] for st in steps], step_launches=steps[0]["launches"],
+          step_reduce_passes=[st["reduce"] for st in steps], step_launches_all_exact=steps_ok,
+          ddim_loss_weights=weights, ddim_weights_ok=weights_ok,
+          remat_factor=remat, model_flops_per_step=flops, model_tflops=flops / median_s / 1e12,
+          share_of_peak=flops / median_s / PEAK_BF16_FLOPS, losses=losses, validations=validations,
+          validations_launches_exact=validations_ok, validation_videos=[str(v.relative_to(SMOKE_DIR)) for v in videos],
+          vae_max_elements=vae["max_elements"], vae_split_elements=autoencoders.SPLIT_ELEMENTS,
+          vae_split=vae["max_elements"] > autoencoders.SPLIT_ELEMENTS, run_s=rec["run_s"], launches=rec["launches"],
+          reduce_passes=rec["reduce"], export=str(adapter.relative_to(SMOKE_DIR.parent.parent)),
+          export_keys=len(state), export_lora_config=config, reload_forward_bit_equal=reload_bit_equal,
+          memory_after_free_gb=freed_gb)
+    phase("cogvideox_run_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"],
+          ms_by_class=dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()}),
+          ms_per_launch=in_step, launches={cls: len(v) for cls, v in prof["launches"].items()},
+          top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
+    if not (shape_ok and steps_ok and validations_ok and weights_ok and reload_bit_equal
+            and len(steps) == COGVIDEOX_RUN_STEPS and len(losses) == COGVIDEOX_RUN_STEPS and all(np.isfinite(losses))
+            and len(state) == 2 * 6 * COGVIDEOX_LAYERS and config.get("r") == COGVIDEOX_RANK
+            and latent_shape == [1, 21, 32, 60, 96] and len(videos) == 2 and rec["reduce"] == 0):
+        raise AssertionError("the crush_smol_lora CogVideoX example's run failed its checks")
+    del state
+    return dict(launches=rec["launches"], reduce=rec["reduce"], adapter=adapter, in_step=in_step)
+
+
+def cogvideox_serve(card, adapter):
+    """One 81x480x768 text-to-video request of full-width CogVideoX-5B through
+    the port's runner, `inference.main`, with cogvideox_text_to_video.sh's
+    flags (`--attn_provider flash`, slicing and tiling, bf16, its request
+    file cut to 2 DDIM steps of 50), the runner's guidance 5.0 (CFG in one
+    batch of 2) and the adapter `cogvideox_run` exported. The VAE decode, each
+    denoise step and the request are timed by synced wrappers; the video must
+    be finite, (81, 480, 768, 3) uint8, every LoRA factor of the served model
+    the adapter's, K1 and the pre-pass 42 times a step and no other kernel.
+    Then one denoise step profiled."""
+    from finetrainers_tpu_torch import inference
+    from finetrainers_tpu_torch.data.utils import load_video
+    from finetrainers_tpu_torch.models import autoencoders
+    from finetrainers_tpu_torch.models.autoencoders import AutoencoderKL3D
+    from finetrainers_tpu_torch.models.cogvideox import CogVideoXPipeline
+
+    out_dir = SMOKE_DIR / "cogvideox_serve"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    requests = json.loads((COGVIDEOX_SERVE_EXAMPLE / "dummy_text_to_video.json").read_text())
+    requests["data"] = [dict(row, num_inference_steps=COGVIDEOX_SERVE_STEPS) for row in requests["data"]]
+    (out_dir / "requests.json").write_text(json.dumps(requests))
+    argv = train_sh_argv(COGVIDEOX_SERVE_EXAMPLE, script="cogvideox_text_to_video.sh",
+                         single_card=["--dp_degree", "1", "--dp_shards", "1", "--cp_degree", "1", "--tp_degree", "1"],
+                         dataset_file=out_dir / "requests.json", output_dir=out_dir, lora_weights=adapter)
+    frames, height, width = COGVIDEOX_BUCKET
+    seconds, facts, last = {"decode": [], "step": [], "request": []}, {}, []
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    wrapped = ((AutoencoderKL3D, "decode"), (CogVideoXPipeline, "denoise_step"), (CogVideoXPipeline, "__call__"))
+    originals = {name: getattr(cls, name) for cls, name in wrapped}
+    request = timed("request", originals["__call__"])
+    step = timed("step", originals["denoise_step"])
+
+    def call(self, *args, **kwargs):
+        facts["scheduler"] = type(self.scheduler).__name__
+        facts["guidance_scale"] = kwargs.get("guidance_scale")
+        facts["vae_slicing_tiling"] = [self.vae.use_slicing, self.vae.use_tiling]
+        params = dict(self.transformer.module.named_parameters())
+        adapter_state, _ = load_lora_weights(str(adapter))
+        facts["lora_factors"] = len(adapter_state)
+        facts["lora_loaded"] = all(bool(torch.equal(params[key[len("transformer."):]].detach(),
+                                                    value.to(params[key[len("transformer."):]].device)))
+                                   for key, value in adapter_state.items())
+        facts["lora_b_nonzero"] = all(bool(adapter_state[f"transformer.{name}.lora_B.weight"].any()) for name in (
+            "transformer_blocks.0.attn1.to_q", "transformer_blocks.41.ff.net.2"))
+        del adapter_state
+        video = request(self, *args, **kwargs)
+        facts["video_shape"], facts["video_dtype"] = list(video.shape), str(video.dtype)
+        return video
+
+    def denoise(self, *args, **kwargs):
+        last[:] = [self, args, kwargs]
+        return step(self, *args, **kwargs)
+
+    AutoencoderKL3D.decode = timed("decode", originals["decode"])
+    CogVideoXPipeline.denoise_step, CogVideoXPipeline.__call__ = denoise, call
+    try:
+        with vae_pieces_seen() as vae:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            paths = inference.main([str(a) for a in argv])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches, peak_gb = _counts(), torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        for cls, name in wrapped:
+            setattr(cls, name, originals[name])
+    with torch.inference_mode(), attention_provider("flash"):
+        prof = profile_device(lambda: originals["denoise_step"](last[0], *last[1], **last[2]))
+    del last[:]
+    written = load_video(paths[0], to_float=False)
+    expected = {k_: COGVIDEOX_LAYERS * COGVIDEOX_SERVE_STEPS if k_ in ("k1", "prep") else 0 for k_ in launches}
+    in_step = {cls: _median(prof["launches"][cls]) for cls in ("k1", "prep")}
+    phase("cogvideox_serve", card=card, entry="python -m finetrainers_tpu_torch.inference",
+          argv=[str(a) for a in argv[:-2]], steps=COGVIDEOX_SERVE_STEPS, steps_note="cut from the request's 50",
+          tokens=COGVIDEOX_TOKENS, text_tokens=COGVIDEOX_TEXT, request_s=seconds["request"], step_s=seconds["step"],
+          vae_decode_s=seconds["decode"], main_wall_s=wall_s, peak_memory_gb=peak_gb, launches=launches,
+          launches_expected=expected, vae_max_elements=vae["max_elements"],
+          vae_split_elements=autoencoders.SPLIT_ELEMENTS, vae_split=vae["max_elements"] > autoencoders.SPLIT_ELEMENTS,
+          written=[str(pathlib.Path(p).relative_to(SMOKE_DIR.parent.parent)) for p in paths],
+          written_shape=list(written.shape), **facts)
+    phase("cogvideox_serve_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"],
+          ms_by_class=dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()}),
+          ms_per_launch=in_step, launches={cls: len(v) for cls, v in prof["launches"].items()},
+          top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
+    if not (facts.get("video_shape") == [frames, height, width, 3] and facts.get("video_dtype") == "uint8"
+            and facts.get("scheduler") == "CogVideoXDDIMScheduler" and facts.get("guidance_scale") == 5.0
+            and facts.get("vae_slicing_tiling") == [True, True] and facts.get("lora_loaded")
+            and facts.get("lora_b_nonzero") and facts.get("lora_factors") == 2 * 6 * COGVIDEOX_LAYERS
+            and launches == expected and len(seconds["step"]) == COGVIDEOX_SERVE_STEPS and len(seconds["decode"]) == 1
+            and list(written.shape) == [frames, height, width, 3] and paths[0].endswith(".mp4")):
+        raise AssertionError("CogVideoX serving through the runner failed its checks")
+    phase("cogvideox_serve_freed", memory_allocated_gb=_free_cuda())
+    return launches, in_step
+
+
 def env_phase():
     """Whether the media codecs the data stage decodes with import here (information, not a check)."""
     found = {}
@@ -3895,6 +4273,9 @@ def main():
     cogview4 = cogview4_control_run(card)
     cv_serve = cogview4_serve(card, cogview4["adapter"], cogview4["edge_map"])
     wan_control = wan_control_run(card)
+    cx_k1_err, cx_k1, cx_bwd_err, cx_bwd = check_cogvideox_kernels(card)
+    cogvideox = cogvideox_run(card)
+    cx_serve_launches, cx_serve_in_step = cogvideox_serve(card, cogvideox["adapter"])
     shutil.rmtree(SMOKE_DIR)
     env_phase()
 
@@ -3925,12 +4306,14 @@ def main():
         if key == "k2":  # the reduce pass: its launches on the paths that count them, its records where it ran
             extra = dict(reduce_launches_by_path={"hunyuan_run": hunyuan["reduce"],
                                                   "cogview4_control_run": cogview4["reduce"],
-                                                  "wan_control_run": wan_control["reduce"]},
+                                                  "wan_control_run": wan_control["reduce"],
+                                                  "cogvideox_run": cogvideox["reduce"]},
                          reduce_in_step_ms={"hunyuan_run": hunyuan["in_step"]["k2_reduce"]},
                          reduce_by_case={case: dict(zip(fields, r["reduce"])) for case, r in
-                                         {**bwd, **flux_bwd, **hy_bwd, **cv_bwd}.items() if r["reduce"] is not None})
+                                         {**bwd, **flux_bwd, **hy_bwd, **cv_bwd, **cx_bwd}.items()
+                                         if r["reduce"] is not None})
         return entry(name, "finetrainers_tpu_torch/csrc/flash_bwd_sm90.cu", replaces, wan[key],
-                     max(bwd_err[key], flux_bwd_err[key], hy_bwd_err[key], cv_bwd_err[key]),
+                     max(bwd_err[key], flux_bwd_err[key], hy_bwd_err[key], cv_bwd_err[key], cx_bwd_err[key]),
                      bwd["wan_train_self_shared_rope"][key],
                      launches_by_path={"train": train_launches[key], "wan_train": wan[key],
                                        **{f"wan_train_{p}": wan_paths[f"wan_train_{p}"][key]
@@ -3939,15 +4322,17 @@ def main():
                                        "wan_i2v_train": i2v_train["launches"][key], "flux_run": flux["launches"][key],
                                        "hunyuan_run": hunyuan["launches"][key],
                                        "cogview4_control_run": cogview4["launches"][key],
-                                       "wan_control_run": wan_control["launches"][key]},
+                                       "wan_control_run": wan_control["launches"][key],
+                                       "cogvideox_run": cogvideox["launches"][key]},
                      shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128],
                      i2v_train_in_step_ms={part: i2v_train["in_step"][f"{key}_{part}"] for part in ("self", "cross")},
                      flux_train_in_step_ms=flux["in_step"][key],
                      hunyuan_train_in_step_ms=dict(zip(("joint", "refiner"), hunyuan["in_step"][key])),
                      cogview4_train_in_step_ms=cogview4["in_step"][key],
+                     cogvideox_train_in_step_ms=cogvideox["in_step"][key],
                      device_ms=bwd["wan_train_self_shared_rope"][f"{key}_device_ms"],
                      by_case={case: dict(zip(fields, r[key]), device_ms=r[f"{key}_device_ms"])
-                              for case, r in {**bwd, **flux_bwd, **hy_bwd, **cv_bwd}.items()},
+                              for case, r in {**bwd, **flux_bwd, **hy_bwd, **cv_bwd, **cx_bwd}.items()},
                      library_note="torch SDPA backward (dq, dk, dv in one call), without the fused rotation", **extra)
 
     wan = wan_paths["wan_train"]
@@ -3955,7 +4340,7 @@ def main():
     print(json.dumps({"kernels": [
         entry("flash_fwd_sm90 (K1, wgmma + TMA, on the pre-pass's operands)",
               "finetrainers_tpu_torch/csrc/flash_fwd_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:106",
-              serve_launches["k1"], max(k1_err, k1_wan_err, flux_k1_err, hy_k1_err, cv_k1_err),
+              serve_launches["k1"], max(k1_err, k1_wan_err, flux_k1_err, hy_k1_err, cv_k1_err, cx_k1_err),
               (ltx_self["ms"], ltx_self["plain_ms"], ltx_self["library_ms"], ltx_self["bound_ms"],
                ltx_self["bound_by"]),
               launches_by_path={"serve": serve_launches["k1"], "train": train_launches["k1"],
@@ -3970,13 +4355,15 @@ def main():
                                 "hunyuan_run": hunyuan["launches"]["k1"], "hunyuan_serve": hy_serve_launches["k1"],
                                 "cogview4_control_run": cogview4["launches"]["k1"],
                                 **{f"cogview4_serve_{name}": r["launches"]["k1"] for name, r in cv_serve.items()},
-                                "wan_control_run": wan_control["launches"]["k1"]},
-              shape=[2, 32, 2688, 2688, 64], by_case={**k1, **k1_wan, **flux_k1, **hy_k1, **cv_k1},
+                                "wan_control_run": wan_control["launches"]["k1"],
+                                "cogvideox_run": cogvideox["launches"]["k1"], "cogvideox_serve": cx_serve_launches["k1"]},
+              shape=[2, 32, 2688, 2688, 64], by_case={**k1, **k1_wan, **flux_k1, **hy_k1, **cv_k1, **cx_k1},
               flux_in_step_ms=dict(serve_self=flux_serve_in_step["k1"], train_self=flux["in_step"]["k1"]),
               hunyuan_in_step_ms=dict(serve=dict(zip(("joint", "refiner"), hy_serve_in_step["k1"])),
                                       train=dict(zip(("joint", "refiner"), hunyuan["in_step"]["k1"]))),
               cogview4_in_step_ms=dict(train=cogview4["in_step"]["k1"],
                                        **{f"serve_{name}": r["in_step"]["k1"] for name, r in cv_serve.items()}),
+              cogvideox_in_step_ms=dict(train=cogvideox["in_step"]["k1"], serve=cx_serve_in_step["k1"]),
               i2v_in_step_ms=dict(i2v_branch_in_step["auto"], train_self=i2v_train["in_step"]["k1_self"],
                                   train_cross=i2v_train["in_step"]["k1_cross"]),
               wan_train_self_attention=wan_shape(k5_wan["k1"]),
@@ -3984,7 +4371,7 @@ def main():
         entry("flash_qk_prep (the RoPE and q-scale pre-pass before K1, K7a, K7c, K2/K3 and K5)",
               "finetrainers_tpu_torch/csrc/flash_bwd.cu", "finetrainers_tpu/ops/flash_attention.py:189",
               serve_launches["prep"], max(bwd_err["prep"], flux_bwd_err["prep"], hy_bwd_err["prep"],
-                                          cv_bwd_err["prep"]),
+                                          cv_bwd_err["prep"], cx_bwd_err["prep"]),
               bwd["self_rope"]["prep"],
               also_replaces=["finetrainers_tpu/ops/flash_attention.py:961",
                              "finetrainers_tpu/ops/flash_attention.py:1268"],
@@ -4001,7 +4388,9 @@ def main():
                                 "hunyuan_serve": hy_serve_launches["prep"],
                                 "cogview4_control_run": cogview4["launches"]["prep"],
                                 **{f"cogview4_serve_{name}": r["launches"]["prep"] for name, r in cv_serve.items()},
-                                "wan_control_run": wan_control["launches"]["prep"]},
+                                "wan_control_run": wan_control["launches"]["prep"],
+                                "cogvideox_run": cogvideox["launches"]["prep"],
+                                "cogvideox_serve": cx_serve_launches["prep"]},
               flux_by_case={case: dict(ms=r["prep_ms"], plain_ms=r["prep_plain_ms"]) for case, r in flux_k1.items()},
               flux_in_step_ms=dict(serve=flux_serve_in_step["prep"], train=flux["in_step"]["prep"]),
               hunyuan_by_case={case: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r["prep"]))
@@ -4014,6 +4403,11 @@ def main():
                                         for case, r in cv_k1.items()},
               cogview4_in_step_ms=dict(train=cogview4["in_step"]["prep"],
                                        **{f"serve_{name}": r["in_step"]["prep"] for name, r in cv_serve.items()}),
+              cogvideox_by_case={case: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r["prep"]))
+                                 for case, r in cx_bwd.items()},
+              cogvideox_forward_by_case={case: dict(ms=r["prep_ms"], plain_ms=r["prep_plain_ms"])
+                                         for case, r in cx_k1.items()},
+              cogvideox_in_step_ms=dict(train=cogvideox["in_step"]["prep"], serve=cx_serve_in_step["prep"]),
               shape_note="timed at LTX's train self-attention (1, 32, 2688, 64) with per-head tables"),
         bwd_entry("k2", "bwd_dkdv_sm90 (K2, wgmma + TMA, with its reduce pass where the q loop is split)",
                   "finetrainers_tpu/ops/flash_attention.py:888"),

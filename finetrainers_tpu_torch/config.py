@@ -1,10 +1,10 @@
 """Model/training-type registry (port of `finetrainers_tpu/config.py`).
 
-LTX-Video, Wan 2.1, Flux, HunyuanVideo and CogView4 resolve for `lora` and
-`full-finetune`, and Wan and CogView4 also for `control-lora` and
-`control-full-finetune` (their control specifications); CogVideoX and the
-dummy family raise NotImplementedError until their slice is ported
-(ROADMAP.md)."""
+LTX-Video, Wan 2.1, CogVideoX, Flux, HunyuanVideo and CogView4 resolve for
+`lora` and `full-finetune`, and Wan and CogView4 also for `control-lora` and
+`control-full-finetune` (their control specifications); the dummy family
+raises NotImplementedError until its slice is ported (ROADMAP.md queue 1
+item 8)."""
 
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ _LTX = ("finetrainers_tpu_torch.models.ltx_video", "LTXVideoModelSpecification")
 _WAN = ("finetrainers_tpu_torch.models.wan", "WanModelSpecification")
 _FLUX = ("finetrainers_tpu_torch.models.flux", "FluxModelSpecification")
 _HUNYUAN = ("finetrainers_tpu_torch.models.hunyuan_video", "HunyuanVideoModelSpecification")
+_COGVIDEOX = ("finetrainers_tpu_torch.models.cogvideox", "CogVideoXModelSpecification")
 _COGVIEW4 = ("finetrainers_tpu_torch.models.cogview4", "CogView4ModelSpecification")
 _COGVIEW4_CONTROL = ("finetrainers_tpu_torch.models.cogview4", "CogView4ControlModelSpecification")
 _WAN_CONTROL = ("finetrainers_tpu_torch.models.wan", "WanControlModelSpecification")
@@ -43,7 +44,7 @@ _WAN_CONTROL = ("finetrainers_tpu_torch.models.wan", "WanControlModelSpecificati
 # model -> {training types}: (module path, class name), or None where the family
 # is not ported yet. The training types per family are the JAX package's.
 _REGISTRY: Dict[ModelType, Dict[TrainingType, Optional[Tuple[str, str]]]] = {
-    ModelType.COGVIDEOX: {t: None for t in _SFT},
+    ModelType.COGVIDEOX: {t: _COGVIDEOX for t in _SFT},
     ModelType.COGVIEW4: {**{t: _COGVIEW4 for t in _SFT}, **{t: _COGVIEW4_CONTROL for t in _CONTROL}},
     ModelType.FLUX: {t: _FLUX for t in _SFT},
     ModelType.HUNYUAN_VIDEO: {t: _HUNYUAN for t in _SFT},
@@ -64,6 +65,6 @@ def get_model_specification_cls(model_name: str, training_type: str):
     ref = _REGISTRY[model_type][tt]
     if ref is None:
         raise NotImplementedError(f"{model_name!r} ({training_type}) is not ported yet; see ROADMAP.md queue 1 "
-                                  "item 8 (the other families)")
+                                  "item 8 (the dummy family)")
     module_path, cls_name = ref
     return getattr(importlib.import_module(module_path), cls_name)

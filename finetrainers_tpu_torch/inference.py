@@ -16,7 +16,7 @@ The parser has every flag and default of the JAX runner's, plus the port's
 denoise loop under that attention provider (`sage` reaches the int8 kernel).
 A flag whose feature the port lacks raises NotImplementedError naming its
 ROADMAP.md item when it is not at its default: parallel degrees above 1,
-`--quantize_int8`, `.parquet` request files, and the families not ported
+`--quantize_int8`, `.parquet` request files, and the dummy family, not ported
 yet. A control checkpoint (`--training_type control-lora` or
 `control-full-finetune`) is served as JAX serves it (:181-187): the model
 widened to 2x the latent channels, the adapter's

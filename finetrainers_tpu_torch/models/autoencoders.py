@@ -74,6 +74,17 @@ WAN_VAE_CONFIG = AutoencoderConfig(
     temporal_downsample=(False, True, True),  # 4x temporal
 )
 
+# Copied from `finetrainers_tpu/models/autoencoders.py:314-320`: the generic VAE CogVideoX trains and serves with
+# when no `AutoencoderKLCogVideoX` checkpoint is present. At 81x480x768 its full-resolution stage holds
+# 128 x 81 x 480 x 768 = 3.82e9 elements, past SPLIT_ELEMENTS, so its convs there run in row strips.
+COGVIDEOX_VAE_CONFIG = AutoencoderConfig(
+    latent_channels=16,
+    block_out_channels=(128, 256, 256, 512),
+    layers_per_block=3,
+    spatial_downsample=(True, True, True),  # 8x spatial
+    temporal_downsample=(False, True, True),  # 4x temporal
+)
+
 # Copied from `finetrainers_tpu/models/autoencoders.py:322-328`: the generic VAE HunyuanVideo serves and trains
 # with when no `AutoencoderKLHunyuanVideo` checkpoint is present. At 49x480x768 its full-resolution stage holds
 # 128 x 49 x 480 x 768 = 2.31e9 elements, past SPLIT_ELEMENTS, so its convs there run in row strips.

@@ -1,5 +1,5 @@
-"""Flow-matching schedulers: Euler, and the UniPC and DPM-Solver++ multistep
-samplers (port of `finetrainers_tpu/schedulers.py`).
+"""Schedulers (port of `finetrainers_tpu/schedulers.py`): flow-matching Euler,
+the UniPC and DPM-Solver++ multistep samplers, and CogVideoX's DDIM.
 
 Inference sigma grids and every per-step solver coefficient are computed on
 the host in float64 numpy, copied from the JAX package, so the two packages
@@ -7,8 +7,9 @@ produce identical grids and coefficients; the device work of a step is one
 linear combination of the sample and the x0-prediction history, in fp32 with
 fp32 coefficients, as JAX's `_combine` does. A sampler is made per denoise run
 (`scheduler.make_sampler(sigmas)`) and holds that run's history itself.
-The DDIM scheduler (CogVideoX) is not ported: `load_scheduler` keeps the
-family's default for a DDIM config, as JAX does under a flow-matching family.
+`CogVideoXDDIMScheduler` is the training side of CogVideoX's DDIM (its
+alpha-bar table, computed in float64 as JAX computes it and held in fp32);
+its sampler is the pipeline's (`models/cogvideox/pipeline.py`).
 """
 
 from __future__ import annotations
@@ -82,6 +83,67 @@ class FlowMatchEulerScheduler:
         return _EulerSampler(np.asarray(sigmas, np.float64))
 
 
+@dataclasses.dataclass
+class CogVideoXDDIMScheduler:
+    """CogVideoX's DDIM training surface (JAX :102-157): scaled-linear betas,
+    the SNR shift and the zero-terminal-SNR rescale, in float64 numpy as JAX
+    computes them, then held as fp32."""
+
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    snr_shift_scale: float = 3.0
+    rescale_betas_zero_snr: bool = True
+
+    def __post_init__(self):
+        betas = np.linspace(self.beta_start**0.5, self.beta_end**0.5, self.num_train_timesteps, dtype=np.float64) ** 2
+        alphas_cumprod = np.cumprod(1.0 - betas)
+        # SNR shift: alpha' = alpha / (scale - (scale - 1) * alpha)
+        alphas_cumprod = alphas_cumprod / (self.snr_shift_scale - (self.snr_shift_scale - 1.0) * alphas_cumprod)
+        if self.rescale_betas_zero_snr:
+            # Lin et al. 2023, zero terminal SNR: rescale sqrt(alpha_bar)
+            sqrt_ac = np.sqrt(alphas_cumprod)
+            sqrt_ac_0, sqrt_ac_T = sqrt_ac[0].copy(), sqrt_ac[-1].copy()
+            sqrt_ac -= sqrt_ac_T
+            sqrt_ac *= sqrt_ac_0 / (sqrt_ac_0 - sqrt_ac_T)
+            alphas_cumprod = sqrt_ac**2
+        self._alphas_cumprod = torch.from_numpy(alphas_cumprod.astype(np.float32))
+
+    @property
+    def alphas_cumprod(self) -> torch.Tensor:
+        return self._alphas_cumprod
+
+    @property
+    def alphas(self) -> torch.Tensor:
+        return self._alphas_cumprod
+
+    @property
+    def sigmas(self) -> torch.Tensor:
+        """t / N for t = N-1..0 in fp32, so that (sigma * N) truncated gives t back (JAX :131-137)."""
+        ts = torch.arange(self.num_train_timesteps - 1, -1, -1, dtype=torch.float32)
+        return ts / self.num_train_timesteps
+
+    def timesteps(self, sigmas: torch.Tensor) -> torch.Tensor:
+        """int64 clip(int32(sigma * N), 0, N-1), the product in fp32 as JAX forms it (trainer :272-275)."""
+        t = (sigmas.float() * self.num_train_timesteps).to(torch.int32)
+        return t.clamp(0, self.num_train_timesteps - 1).long()
+
+    def training_sigmas(self, batch_size: int, generator: Optional[torch.Generator] = None,
+                        draw: Optional[torch.Tensor] = None, device=None, **_) -> torch.Tensor:
+        """Per-example sigmas at uniform indices whatever the weighting scheme
+        (JAX :142-145 ignores it): `draw` is the raw uniform (B,) draw, else it
+        comes from `generator`."""
+        if draw is None:
+            draw = torch.rand((batch_size,), generator=generator, device=device, dtype=torch.float32)
+        u = draw.to(device=device, dtype=torch.float32)
+        indices = (u * self.num_train_timesteps).to(torch.int32).clamp(0, self.num_train_timesteps - 1)
+        return self.sigmas.to(u.device)[indices.long()]
+
+    def add_noise(self, latents: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        """sqrt(a_t) x + sqrt(1 - a_t) noise, a_t broadcast per example (JAX :151-155)."""
+        a = self._alphas_cumprod.to(latents.device)[timesteps.long()]
+        a = a.reshape(a.shape + (1,) * (latents.ndim - a.ndim))
+        return torch.sqrt(a) * latents + torch.sqrt(1.0 - a) * noise
 
 
 def _combine(coeffs, *tensors: torch.Tensor) -> torch.Tensor:
@@ -319,9 +381,9 @@ def load_scheduler(pretrained_model_name_or_path: Optional[str], default):
     """The checkpoint's own scheduler from `<path>/scheduler/scheduler_config.json`,
     its `_class_name` mapped as JAX `load_scheduler` maps it (:421-470), the
     family default's shift kept where the config has none; `default` where the
-    path or the file is absent or the name unknown. A DDIM config keeps the
-    default too: the port's families are all flow-matching (JAX returns the
-    default there as well)."""
+    path or the file is absent or the name unknown. A DDIM config gives a
+    `CogVideoXDDIMScheduler` under a DDIM default (CogVideoX) and keeps a
+    flow-matching default, as JAX does (:456-468)."""
     if not pretrained_model_name_or_path:
         return default
     cfg_path = os.path.join(str(pretrained_model_name_or_path), "scheduler", "scheduler_config.json")
@@ -351,4 +413,14 @@ def load_scheduler(pretrained_model_name_or_path: Optional[str], default):
         )
     if name == "FlowMatchEulerDiscreteScheduler":
         return FlowMatchEulerScheduler(**common)
+    if name in ("CogVideoXDDIMScheduler", "DDIMScheduler"):
+        if not isinstance(default, CogVideoXDDIMScheduler):
+            return default  # a flow-matching family has no DDIM sampler
+        return CogVideoXDDIMScheduler(
+            num_train_timesteps=common["num_train_timesteps"],
+            beta_start=float(cfg.get("beta_start", 0.00085)),
+            beta_end=float(cfg.get("beta_end", 0.012)),
+            snr_shift_scale=float(cfg.get("snr_shift_scale", 3.0)),
+            rescale_betas_zero_snr=bool(cfg.get("rescale_betas_zero_snr", True)),
+        )
     return default

@@ -307,7 +307,8 @@ class SFTTrainer(Trainer):
                          generator: Optional[torch.Generator] = None,
                          draws: Optional[Dict[str, Any]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The loss of one batch and its gradients: sigmas, the spec forward,
-        the weighted flow-matching loss, `backward()` (which adds into `.grad`).
+        the weighted loss (the flow-matching weights, or DDIM's 1 / (1 - alpha_bar)
+        where the scheduler has `alphas`), `backward()` (which adds into `.grad`).
         Returns (loss, max_loss) as device scalars.
 
         Random draws come from `generator` (the trainer's by default), or from
@@ -328,14 +329,19 @@ class SFTTrainer(Trainer):
             draw=None if draws.get("sigmas") is None else torch.as_tensor(draws["sigmas"]),
             device=spec.device,
         )
-        if args.flow_shift != 1.0 and self.scheduler.shift == 1.0:
+        if args.flow_shift != 1.0 and getattr(self.scheduler, "shift", None) == 1.0:  # DDIM has no shift
             sigmas = default_flow_shift(sigmas, args.flow_shift)
 
         # The backward runs under the provider too: a remat policy recomputes the forward there.
         with self.attention_provider_ctx():
             pred, target, sigmas_out = spec.forward(self.transformer, conditions, latent_conditions, sigmas,
                                                     generator=generator, draws=draws)
-            weights = compute_loss_weighting(args.flow_weighting_scheme, sigmas=sigmas_out)
+            alphas = getattr(self.scheduler, "alphas", None)
+            if alphas is not None:  # DDIM: 1 / (1 - alpha_bar[t]) (JAX :272-277)
+                alphas = alphas.to(sigmas_out.device)[self.scheduler.timesteps(sigmas_out)]
+                weights = compute_loss_weighting(args.flow_weighting_scheme, alphas=alphas)
+            else:
+                weights = compute_loss_weighting(args.flow_weighting_scheme, sigmas=sigmas_out)
             w = weights.reshape(weights.shape + (1,) * (pred.ndim - 1))
             per_sample = w * (pred.float() - target.float()) ** 2
             loss = per_sample.mean()

@@ -611,6 +611,53 @@ def test_k1_k2_k3_at_cogview4_joint_shape(dtype, b):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("text,grid", [(2, (2, 8, 8)), (2, (2, 8, 16)), (226, (1, 8, 20))],
+                         ids=["s130_q_block_130", "s258_q_block_66", "s386_q_block_2_text_226"])
+@pytest.mark.parametrize("tables", [True, False], ids=["cogvideox_tables", "no_tables"])
+@pytest.mark.parametrize("b", [1, 2], ids=["train_b1", "cfg_b2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_k2_k3_at_a_2_row_last_tile_with_h64(dtype, b, tables, text, grid):
+    """CogVideoX's joint attention at head dim 64, whose example length 30,466
+    = 238 x 128 + 2 = 158 x 192 + 130 leaves 2 rows in the last 128-row tile
+    of K2, K3 and K1's key loop, and 130 in K1's last 192-row q block (three
+    consumer warpgroups at H=64). Lengths whose last 128-row tile holds 2:
+    130 (one q block of 130 rows, as at 30,466), 258 (a last q block of 66)
+    and 386 (226 text rows, a last q block of 2); with the 3D RoPE
+    tables (identity text rows) and without; B=1 as in training and B=2 as CFG
+    serves it. K1 after the pre-pass, K2 and K3 against their references, one
+    launch each, as for Flux's tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from finetrainers_tpu_torch.models.cogvideox import cogvideox_rope_tables
+
+    n, h = 3, 64
+    s = text + grid[0] * grid[1] * grid[2]
+    assert s % 128 == 2
+    cos = sin = None
+    if tables:
+        cos, sin = (t[None].contiguous() for t in cogvideox_rope_tables(text, *grid, h, torch.device("cuda")))
+        assert cos.shape[1] == s and torch.equal(cos[0, :text], torch.ones(text, h, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, do = (torch.randn(b, s, n, h, device="cuda", generator=g).to(dtype).transpose(1, 2) for _ in range(4))
+    before = (flash_forward.launches, flash_qk_prep.launches)
+    out, lse = flash_forward(q, k, v, None, cos, sin)
+    torch.cuda.synchronize()
+    assert (flash_forward.launches, flash_qk_prep.launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_lse = flash_attention_reference(q, k, v, None, cos, sin)
+    assert ((out.float() - ref.float()).abs() / ref.float().abs().clamp_min(1.0)).max() <= 2e-2
+    assert (lse - ref_lse).abs().max() <= 1e-2
+    before = (flash_bwd_dkdv.launches, flash_bwd_dq.launches)
+    grads = flash_backward(q, k, v, out, lse, do, None, cos, sin)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dkdv.launches, flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, flash_backward_reference(q, k, v, out, lse, do, None, cos,
+                                                                                     sin)):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        rel_l2, max_ratio = _rel_errors(got, want)
+        assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, b, s, rel_l2, max_ratio)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("lens", [[65], [65, 256]], ids=["b1", "b2"])
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

@@ -135,6 +135,6 @@ def test_prepare_conditions_identical(pipelines):
 def test_registry_resolves_ltx_and_refuses_unported_families():
     assert get_model_specification_cls("ltx_video", "lora") is LTXVideoModelSpecification
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_specification_cls("cogvideox", "lora")
+        get_model_specification_cls("dummy", "lora")
     with pytest.raises(ValueError):
         get_model_specification_cls("ltx_video", "control-lora")

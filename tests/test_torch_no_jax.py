@@ -14,7 +14,8 @@ slice's (the multistep schedulers, the weight bridge, the inference runner
 weights, spec, pipeline, the text processors) and the HunyuanVideo slice's
 (transformer, weights, spec, pipeline) and the CogView4 and control slice's
 (transformer, weights, specs, pipeline, the control trainer, its data and
-config, the control processors, the Wan control spec) among them. Any
+config, the control processors, the Wan control spec) and the CogVideoX
+slice's (transformer, weights, spec, DDIM pipeline) among them. Any
 import of a blocked package, any `nvcc` run and any kernel library loaded
 during import fails the test. A second fresh interpreter blocks nothing,
 imports every module and finds neither `jax` nor `finetrainers_tpu` in
@@ -57,6 +58,8 @@ training = {"finetrainers_tpu_torch." + m for m in (
     "models.hunyuan_video.base_specification", "models.hunyuan_video.pipeline", "models.cogview4",
     "models.cogview4.transformer", "models.cogview4.weights", "models.cogview4.base_specification",
     "models.cogview4.pipeline", "models.cogview4.control_specification", "models.wan.control_specification",
+    "models.cogvideox", "models.cogvideox.transformer", "models.cogvideox.weights",
+    "models.cogvideox.base_specification", "models.cogvideox.pipeline",
     "trainer.control_trainer", "trainer.control_trainer.trainer", "trainer.control_trainer.data",
     "trainer.control_trainer.config", "processors.control")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
