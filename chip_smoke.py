@@ -18,7 +18,10 @@ runner, and the Wan image_condition control example's run, and CogVideoX-5B at
 full width: its kernels at 30,466 tokens of head dim 64, the crush_smol_lora
 example's DDIM LoRA run through its command line at its own 81x480x768 bucket,
 then an 81x480x768 DDIM text-to-video request through the runner with the
-exported adapter.
+exported adapter, the dummy family on the head-dim-32 instances of K1, the
+pre-pass, K2 and K3 (LoRA and 8-bit-AdamW full-finetune runs, a request), and
+CogView4-6B's raider_white_tarot example trained under int8 weight storage at
+1280x720 and served with `--quantize_int8`.
 
     python3 chip_smoke.py
 
@@ -134,7 +137,7 @@ Phases, each printed on its own line:
   11. the Wan example's run through its command line (`wan_run`):
      `finetrainers_tpu_torch.train.main` with train.sh's own flags (one card's
      parallel layout, `--report_to jsonl`, 4 steps with a checkpoint every 2
-     and validation at 4, 4 precomputed items, the output under build/) on 4
+     and validation at 4, 2 precomputed items, the output under build/) on 2
      seeded videos it writes with cv2 at the example's 49x480x832 bucket
      (20280 tokens): precompute once (decode, bucket, tiled and sliced VAE
      encode, text states), `transformer:ring`, "ops" remat, validation through
@@ -207,7 +210,7 @@ Phases, each printed on its own line:
      with bounds and SDPA; `hunyuan_run`, `python -m finetrainers_tpu_torch.train`
      with the modal_labs_dissolve train.sh's flags (one card, `ops_attn` for
      the example's `ops`, which does not fit, `transformer:ring`, rank 32) from
-     4 videos written with cv2 at 49x480x768 (18,976 tokens): 4 steps, K1 62,
+     2 videos written with cv2 at 49x480x768 (18,976 tokens): 3 steps, K1 62,
      the pre-pass 124, K2 62, K3 62 and the reduce pass 2 a step, the final
      validation from the exported adapter (1 request, 2 steps of 50: K1 and
      the pre-pass 124), whether the VAE ran in strips, step seconds, model
@@ -240,7 +243,7 @@ Phases, each printed on its own line:
      5.0: finite (1024, 1024, 3) PNGs, K1 and the pre-pass 28 a step and no
      other kernel, request, step and decode seconds, peaks and a profiled
      step; `wan_control_run`, the Wan image_condition train.sh's flags
-     (`--control_type none`, `index` 0, `transformer:ring`) from 4 videos
+     (`--control_type none`, `index` 0, `transformer:ring`) from 2 videos
      with paired control videos at 49x480x832: 4 steps launching as
      `wan_run`'s, the final validation through the pipeline's control branch;
   16. CogVideoX-5B at full width (`COGVIDEOX_5B_CONFIG`: 42 blocks, 48 heads
@@ -252,18 +255,48 @@ Phases, each printed on its own line:
      training shape, head by head against their plain versions, with bounds
      and SDPA; `cogvideox_run`, `python -m finetrainers_tpu_torch.train` with
      the crush_smol_lora train.sh's flags (one card, COGVIDEOX_RUN_POLICY for
-     the example's `ops`, `transformer:auto`) from 4 videos written with cv2
-     at 81x480x768: 4 DDIM steps with weights 1 / (1 - alpha_bar[t]), K1 42,
+     the example's `ops`, `transformer:auto`) from 2 videos written with cv2
+     at 81x480x768: 3 DDIM steps with weights 1 / (1 - alpha_bar[t]), K1 42,
      the pre-pass 84, K2 42 and K3 42 a step and no reduce pass, the final
-     validation of the example's two prompts from the export in a fresh model
-     (2 steps each, CFG: K1 and the pre-pass 168), the adapter reloaded
+     validation of the example's first prompt from the export in a fresh model
+     (2 steps, CFG: K1 and the pre-pass 84), the adapter reloaded
      bit-equal, step seconds, model TFLOP/s, peaks and a profiled step;
      `cogvideox_serve`, one 81x480x768 request through `inference.main` with
      cogvideox_text_to_video.sh's flags and that adapter, 2 DDIM steps of 50,
      CFG 5.0: a finite (81, 480, 768, 3) video, K1 and the pre-pass 42 a
      step and no other kernel, request, step and decode seconds, the peak and
      a profiled step;
-  17. `env`: whether `cv2` and `PIL` import on this machine (information only).
+  17. head dim 32 and the dummy family (its own width: dim 64 in 2 heads of
+     32, 2 blocks, 16 caption slots): `h32_kernel_checks`, K1, the pre-pass,
+     K2 (split, with its reduce pass, and unsplit) and K3 at head dim 32
+     against their plain versions at the dummy's self-attention (1, 2, 4352,
+     4352, 32) and cross-attention (16 keys, kv_lens), a ragged case with an
+     empty row, per-head and shared tables and a long ragged case (1, 24,
+     16400, 16400, 32; kv_lens 16390), with bounds that count the
+     exponentials, and SDPA; `dummy_run`, `python -m finetrainers_tpu_torch.train
+     --model_name dummy` from 4 videos written with cv2 at 17x256x256 (4352
+     tokens): a LoRA run (4 steps, K1 2, the pre-pass 4, K2 2 with 2 reduce
+     passes and K3 2 a block and step, the final validation) and a
+     full-finetune run under `adamw-bnb-8bit` (int8 moments for the
+     feed-forward kernels); `dummy_serve`, one request through
+     `inference.main --model_name dummy` with the LoRA adapter (K1 and the
+     pre-pass 2 a block and step);
+  18. CogView4-6B's raider_white_tarot SFT example: `cogview4_sft_run`, its
+     train.sh's flags through `python -m finetrainers_tpu_torch.train` (LoRA
+     rank 32, `ops`, `transformer:auto`, the frozen weights stored int8 and
+     run on int8 GEMMs) from 4 photos written with cv2 at its own 1280x720
+     bucket (4624 tokens): 4 steps and the final validation, launches, the int8
+     GEMMs a step, step seconds, model TFLOP/s, peak memory, the bytes stored
+     as int8, the int8- and float8_e4m3fn-stored steps' loss and LoRA gradient
+     against a bf16-stored step's on one batch, the adapter reloaded
+     bit-equal; `cogview4_sft_int8_linear_check`, int8_linear's forward and
+     dx at the feed-forward's down projection (4624 x 16384 -> 4096) against
+     an exact emulation of its quantization, integer products and dequant,
+     with two known-wrong controls that must fail; `cogview4_sft_serve`, one 1024x1024 request through
+     `inference.main --quantize_int8` with that adapter: K1 and the pre-pass
+     28 a step, one int8 GEMM per int8 layer and step, and a denoise step
+     against the same step with the base weights in bf16;
+  19. `env`: whether `cv2` and `PIL` import on this machine (information only).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
 0. Without a CUDA card it raises before printing any result.
@@ -441,7 +474,7 @@ HUNYUAN_TOKENS = 18976
 HUNYUAN_REFINER_VALID = 65
 HUNYUAN_EXAMPLE = (pathlib.Path(__file__).resolve().parent / "examples" / "training" / "sft" / "hunyuan_video"
                    / "modal_labs_dissolve")
-HUNYUAN_RUN_VIDEOS, HUNYUAN_RUN_STEPS = 4, 4  # cut from the example's 50 precomputed items and 3000 steps
+HUNYUAN_RUN_VIDEOS, HUNYUAN_RUN_STEPS = 2, 3  # cut from the example's 50 precomputed items and 3000 steps
 HUNYUAN_RANK = 32
 # The example trains under "ops", which keeps every product of the 60 blocks: at 18,976 tokens it, and "ops_narrow"
 # too, runs out of the card's 80 GB (`python3 tools/torch_hunyuan_phases.py OUT.jsonl policies`). The run uses
@@ -485,7 +518,7 @@ COGVIDEOX_TEXT = 226
 COGVIDEOX_BUCKET = (81, 480, 768)
 COGVIDEOX_GRID = (21, 30, 48)
 COGVIDEOX_TOKENS = 30466
-COGVIDEOX_RUN_VIDEOS, COGVIDEOX_RUN_STEPS = 4, 4  # cut from the example's 50 precomputed items and 3000 steps
+COGVIDEOX_RUN_VIDEOS, COGVIDEOX_RUN_STEPS = 2, 3  # cut from the example's 50 precomputed items and 3000 steps
 COGVIDEOX_RANK = 32
 # The example trains under "ops", which keeps every product of the 42 blocks: at 30,466 tokens it, and "ops_narrow"
 # too, runs out of the card's 80 GB (`python3 tools/torch_cogvideox_phases.py OUT.jsonl policies`). The run uses
@@ -493,6 +526,50 @@ COGVIDEOX_RANK = 32
 COGVIDEOX_RUN_POLICY = "ops_attn"
 COGVIDEOX_SERVE_STEPS = 2  # cut from the request's 50
 # The Wan image_condition control example: Wan 2.1 T2V-1.3B widened to 32 input channels, LoRA rank 128.
+# The dummy family: its own full width, dim 64 in 2 heads of 32, 2 blocks, 16 caption slots; the run's
+# 17x256x256 videos give 17 x 16 x 16 = 4352 tokens after the 8x VAE and the (1, 2, 2) patches.
+DUMMY_HEADS, DUMMY_LAYERS, DUMMY_CAPTION = 2, 2, 16
+DUMMY_BUCKET = (17, 256, 256)
+DUMMY_TOKENS = 4352
+DUMMY_RANK = 16
+DUMMY_RUN_VIDEOS, DUMMY_RUN_STEPS, DUMMY_FULL_STEPS = 4, 4, 3
+DUMMY_SERVE_STEPS = 4
+# CogView4-6B's raider_white_tarot SFT example (examples/training/sft/cogview4/raider_white_tarot/train.sh): LoRA rank
+# 32 under "ops" with the transformer's frozen weights stored int8; its own 1280x720 bucket: 80 x 45 = 3600 patches
+# beside the 1024 GLM slots, 4624 tokens (36 full 128-row tiles and a 16-row one).
+RAIDER_EXAMPLE = pathlib.Path(__file__).resolve().parent / "examples" / "training" / "sft" / "cogview4" / "raider_white_tarot"
+RAIDER_BUCKET = (1280, 720)
+RAIDER_TOKENS = 4624
+RAIDER_RANK = 32
+RAIDER_RUN_IMAGES, RAIDER_RUN_STEPS = 4, 4  # cut from 50 precomputed items and 5000 steps
+RAIDER_SERVE_STEPS = 4  # cut from the request's 50
+# Bounds of a step under weight storage against the bf16-stored step on the same batch, draws and LoRA factors: each
+# int8 layer's output carries ~1.5% relative rms error (weights per output channel and activations per row quantized
+# to 127 levels of their absmax: ~0.9% and ~1% rms), e4m3fn's ~2.5% (3 mantissa bits, no activation quantization), and
+# the errors of 28 blocks add in quadrature; the loss, a mean of squares, moves by the square of the relative error
+# and its cross term averages out; the LoRA gradients are products of perturbed activations and perturbed
+# backpropagated errors. int8's input gradient also quantizes each row of the cotangent dy * s_w to 127 levels of
+# its absmax in every frozen layer (JAX's int8_linear, ops/int8_linear.py:74-90), heavy-tailed rows whose small
+# entries round to 0: its LoRA gradients carry ~2x e4m3fn's error (PERF.md: 0.45-0.47 against 0.24 at the run's
+# factors; at random factors 0.24, and 0.067 with the cotangent left unquantized, `tools/torch_dummy_phases.py
+# diagnose`).
+STORAGE_LOSS_REL_TOL = {"int8": 1e-2, "float8_e4m3fn": 2e-2}
+STORAGE_GRAD_REL_L2_TOL = {"int8": 0.6, "float8_e4m3fn": 0.35}
+# A denoise step served with --quantize_int8 against the same step with the base weights in bf16: ~1.5% relative error
+# in each of the 198 int8 layers (7 a block over 28 blocks, and the time embedding's 2), in quadrature at most
+# sqrt(198) x 1.5% ~ 0.2 (the residual stream carries part of each block's input past its errors).
+QUANTIZED_STEP_REL_L2_TOL = 0.2
+# The int8 gradient bound (0.6) and the serving bound (0.2) sit above the card's first readings (0.469 and 0.111)
+# and hold the int8 path only against another precision: they are sanity bounds. The tight check of the int8
+# products is `check_int8_linear`'s.
+# int8_linear at one frozen layer of the raider run against a plain emulation of the same quantize -> integer
+# product -> dequant: the codes and the integer products are exact, so only the epilogue's bf16 roundings remain,
+# each within a relative 2^-8: five in the forward (the int32 sum, s_x, the product, s_w, the product) and three in
+# dx (the sum, s_dy, the product), elementwise against the exact dequantized value.
+INT8_FWD_REL_TOL = (1 + 2.0**-8) ** 5 - 1
+INT8_DX_REL_TOL = (1 + 2.0**-8) ** 3 - 1
+# The long head-dim-32 case: 16400 = 128 * 128 + 16 rows, the last 16-row tile ragged under kv_lens.
+H32_LONG, H32_LONG_VALID = 16400, 16390
 WAN_CONTROL_EXAMPLE = (pathlib.Path(__file__).resolve().parent / "examples" / "training" / "control" / "wan"
                        / "image_condition")
 WAN_CONTROL_PARAMS = 1_594_076_224
@@ -544,6 +621,10 @@ NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "bwd_dkdv_sm90_kernel", "bwd_dq_sm9
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
+# The SFU's exp2 rate: 16 per SM per clock on 132 SMs at the 1.83 GHz boost clock that PEAK_BF16_FLOPS implies
+# (989e12 / (132 * 4096 flops a clock)), ~3.87e12/s. At head dim 32 a score costs 128 tensor flops but one
+# exponential, so the exponentials bound K1, K2 and K3 before the tensor cores do; at head dim 64 the two are equal.
+PEAK_EXP2_PER_S = 132 * 16 * 1.83e9
 
 
 _T0 = time.perf_counter()
@@ -747,10 +828,19 @@ def ltx_tables(n, h):
     return tuple(torch.from_numpy(t).cuda().reshape(2688, n, h).transpose(0, 1).contiguous() for t in (cos, sin))
 
 
+def exp_bound(record, exps):
+    """The larger of `record` (ms, "operations" or "bytes") and `exps`
+    exponentials at the SFU's rate (operations too)."""
+    exp_ms = exps / PEAK_EXP2_PER_S * 1e3
+    return (exp_ms, "operations") if exp_ms > record[0] else record
+
+
 def k1_bound(b, n, sq, kv_eff, h):
     """K1's least time on the pre-pass's operands: its two products against q_s,
-    k_r and v read once (the valid keys), out and the LSE written once."""
-    return bound(4 * n * sq * kv_eff * h, 2 * b * n * sq * h * 2 + 2 * n * kv_eff * h * 2 + b * n * sq * 4)
+    k_r and v read once (the valid keys), out and the LSE written once; at
+    H=32 also one exponential per score (`exp_bound`)."""
+    record = bound(4 * n * sq * kv_eff * h, 2 * b * n * sq * h * 2 + 2 * n * kv_eff * h * 2 + b * n * sq * 4)
+    return exp_bound(record, n * sq * kv_eff) if h == 32 else record
 
 
 def bwd_bounds(b, n, sq, skv, kv_eff, h, cos):
@@ -763,8 +853,11 @@ def bwd_bounds(b, n, sq, skv, kv_eff, h, cos):
     row_bytes = b * n * sq * 4
     table_bytes = 2 * cos.numel() * 4 if cos is not None else 0
     k2_bytes = 2 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + 2 * kv_bytes + table_bytes
-    return (bound(8 * n * sq * kv_eff * h, k2_bytes),
-            bound(6 * n * sq * kv_eff * h, 3 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + table_bytes))
+    k2 = bound(8 * n * sq * kv_eff * h, k2_bytes)
+    k3 = bound(6 * n * sq * kv_eff * h, 3 * q_bytes + 2 * kv_eff_bytes + 2 * row_bytes + table_bytes)
+    if h == 32:  # one exponential per score in each (p recomputed from the LSE)
+        return exp_bound(k2, n * sq * kv_eff), exp_bound(k3, n * sq * kv_eff)
+    return k2, k3
 
 
 def k5_bound(b, n, sq, skv, kv_eff, h, cos):
@@ -866,10 +959,24 @@ def check_k1(card, cases=None, phase_name="k1_check"):
         q_s, k_r = flash_qk_prep(q, k, cs, sn, rope_sn, scale)
         core_out, core_lse = flash_forward_core(q_s, k_r, v, lens)
         torch.cuda.synchronize()
+        # Past 4096^2 scores a head, the plain versions run one head at a time (all at once would not fit).
+        by_head = sq * skv > 4096 * 4096
+
+        def plain_core():
+            if by_head:
+                return _by_head(lambda *a: flash_forward_core_reference(*a, lens), n, (q_s, k_r, v), ())
+            return flash_forward_core_reference(q_s, k_r, v, lens)
+
+        def plain_full():
+            if by_head:
+                return _by_head(lambda q_, k_, v_, c_, s_: flash_attention_reference(q_, k_, v_, lens, c_, s_), n,
+                                (q, k, v), (cs, sn))
+            return flash_attention_reference(q, k, v, lens, cs, sn)
+
+        core_ref, by_head_plain_ms = timed_call(plain_core)
         errs = {}
         for against, (got, got_lse), (ref, ref_lse) in (
-                ("plain", (core_out, core_lse), flash_forward_core_reference(q_s, k_r, v, lens)),
-                ("flash_attention_reference", (out, lse), flash_attention_reference(q, k, v, lens, cs, sn))):
+                ("plain", (core_out, core_lse), core_ref), ("flash_attention_reference", (out, lse), plain_full())):
             err = (got.float() - ref.float()).abs()
             errs[against] = dict(max_abs_err=err.max().item(),
                                  err_over_max1_ref=(err / ref.float().abs().clamp_min(1.0)).max().item(),
@@ -885,13 +992,15 @@ def check_k1(card, cases=None, phase_name="k1_check"):
         ms = cuda_ms(lambda: flash_forward_core(q_s, k_r, v, lens))
         prep_ms = cuda_ms(lambda: flash_qk_prep(q, k, cs, sn, rope_sn, scale))
         forward_ms = cuda_ms(lambda: flash_forward(q, k, v, lens, cs, sn))
-        plain_ms = cuda_ms(lambda: flash_forward_core_reference(q_s, k_r, v, lens), iters=5)
+        plain_ms = by_head_plain_ms if by_head else cuda_ms(plain_core, iters=5)
+        del core_ref
         # The "native" provider (torch SDPA), a library baseline without the fused rotation, for comparison only.
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa_ms = cuda_ms(lambda: attention_dispatch(qt, kt, vt, kv_lens=lens, provider="native"))
         kv_eff = sum(c["lens"]) if c["lens"] else b * skv
         bound_ms, bound_by = k1_bound(b, n, sq, kv_eff, h)
-        phase(phase_name, case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], vs_plain=errs["plain"],
+        phase(phase_name, case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], plain_by_head=by_head,
+              vs_plain=errs["plain"],
               vs_flash_attention_reference=errs["flash_attention_reference"], empty_rows_zero=empty_zero,
               rows_past_kv_lens_ignored=past_lens_ok, ms=ms, prep_ms=prep_ms, flash_forward_ms=forward_ms,
               plain_ms=plain_ms, sdpa_baseline_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -2262,10 +2371,12 @@ def wan_train_accum_resume(card):
 
 
 # The Wan example's run through its command line (`python -m finetrainers_tpu_torch.train` with train.sh's flags):
-# 4 seeded videos at the example's bucket, 4 steps (cut from 3000) with a checkpoint every 2 and validation at 4
-# (one request of 2 denoising steps, cut from 50), against a run broken after 2 steps and resumed from "latest".
+# 2 seeded videos at the example's bucket (precomputed once, so the 4 steps cycle over them), 4 steps (cut from
+# 3000) with a checkpoint every 2, the in-loop validation at 4 on the live weights and each run's final validation
+# from its export (one request of 2 denoising steps each, cut from 50), against a run broken after 2 steps and
+# resumed from "latest".
 TRAIN_SH = pathlib.Path(__file__).resolve().parent / "examples" / "training" / "sft" / "wan" / "crush_smol_lora"
-WAN_RUN_VIDEOS, WAN_RUN_STEPS, WAN_RUN_BROKEN_AT = 4, 4, 2
+WAN_RUN_VIDEOS, WAN_RUN_STEPS, WAN_RUN_BROKEN_AT = 2, 4, 2
 WAN_RUN_SINGLE_CARD = ["--parallel_backend", "jax", "--pp_degree", "1", "--dp_degree", "1", "--dp_shards", "1",
                        "--cp_degree", "1", "--tp_degree", "1"]
 # A train step at the example's bucket under "ops": K4 saved, so K1 runs in the forward only (30 self, 30 cross),
@@ -2299,7 +2410,7 @@ def train_sh_argv(example=TRAIN_SH, script="train.sh", single_card=WAN_RUN_SINGL
 
 
 def wan_run_data(root):
-    """4 seeded videos at 49x480x832 (mp4v, as the JAX package's tests write
+    """WAN_RUN_VIDEOS seeded videos at 49x480x832 (mp4v, as the JAX package's tests write
     them) with captions that start with a common LLM prefix, their
     `metadata.csv`, the example's training.json pointing at them, and the
     example's first validation prompt at 480x832x49 with 2 denoising steps.
@@ -2457,7 +2568,12 @@ def wan_run(card):
     want = {k_: WAN_RUN_STEP_LAUNCHES.get(k_, 0) for k_ in _COUNTED}
     step_launches_ok = all(st["launches"] == want and st["reduce"] == WAN_RUN_REDUCE for st in steps)
     validation_want = 2 * WAN_LAYERS * 2  # self and cross a block, 2 denoising steps, CFG in one batch
-    validations_ok = all(v["launches"] == {"k1": validation_want, "prep": validation_want} for v in validations)
+    # The unbroken and the resumed runs validate at step 4 in the loop and again from their exports, the broken
+    # run only from its export: 5 validations, 2 of them in the loop.
+    validations_ok = (all(v["launches"] == {"k1": validation_want, "prep": validation_want} for v in validations)
+                      and [(v["run"], v["final"]) for v in validations]
+                      == [("unbroken", False), ("unbroken", True), ("broken", True), ("resumed", False),
+                          ("resumed", True)])
     timed = [st["seconds"] for st in steps if st["run"] == "unbroken"][1:]
     prof = profiles[0]
     precompute_s = next(e["timing/precompute"] for e in unbroken_log if "timing/precompute" in e)
@@ -3124,8 +3240,8 @@ def ops_attn_remat_factor(cfg: dict, lora_rank: int, S: int) -> float:
 
 
 def hunyuan_run_data(root):
-    """4 seeded videos at the example's 49x480x768 bucket (mp4v, smooth colour
-    blobs), their `metadata.csv` with DISSOLVE captions, the example's
+    """HUNYUAN_RUN_VIDEOS seeded videos at the example's 49x480x768 bucket (mp4v,
+    smooth colour blobs), their `metadata.csv` with DISSOLVE captions, the example's
     training.json pointing at them, and its first validation prompt at
     49x480x768 with 2 denoising steps. Returns (training.json, validation.json)."""
     import csv
@@ -3187,8 +3303,8 @@ def hunyuan_run(card):
     `finetrainers_tpu_torch.train.main` with its train.sh flags on one card
     (precompute once, `transformer:ring`, slicing and tiling, rank 32, the
     example's AdamW, logit-normal weighting, bf16), with "ops_attn" for the
-    example's "ops" (which needs ~120 GB at this size), from 4 videos on disk
-    at its own 49x480x768 bucket (18,976 tokens): 4 steps, then the final
+    example's "ops" (which needs ~120 GB at this size), from 2 videos on disk
+    at its own 49x480x768 bucket (18,976 tokens): 3 steps, then the final
     validation from the exported adapter in a fresh model (one request, 2
     steps of 50, 49x480x768). Each step's seconds, launches, K2 reduce passes
     and peak memory, model TFLOP/s by floor_bench's formula with "ops_attn"'s
@@ -3245,7 +3361,7 @@ def hunyuan_run(card):
     validation_want = {"k1": 2 * layers, "prep": 2 * layers}  # 2 denoising steps, no CFG
     validations_ok = (len(validations) == 1 and validations[0]["final"]
                       and validations[0]["launches"] == validation_want)
-    timed = [st["seconds"] for st in steps[1:] if not st["profiled"]]  # steps 2-3; step 4 is profiled
+    timed = [st["seconds"] for st in steps[1:] if not st["profiled"]]  # step 2; the last step is profiled
     remat = ops_attn_remat_factor(HUNYUAN_VIDEO_CONFIG, HUNYUAN_RANK, HUNYUAN_TOKENS)
     flops = flux_train_step_flops(HUNYUAN_VIDEO_CONFIG, HUNYUAN_RANK, remat, B=1, S=HUNYUAN_TOKENS)
     median_s = statistics.median(timed)
@@ -3743,7 +3859,7 @@ def cogview4_serve(card, adapter, edge_map):
 
 
 def wan_control_run_data(root):
-    """4 seeded videos at 49x480x832 and, for each, its paired control video
+    """WAN_RUN_VIDEOS seeded videos at 49x480x832 and, for each, its paired control video
     (another seeded clip), written with cv2; their `metadata.csv` with the
     `control_video` column; the example's training.json pointing at them, and
     its validation prompt at 49x480x832 with 2 denoising steps and the first
@@ -3871,6 +3987,38 @@ def cogvideox_tables():
                                                                      torch.device("cuda")))
 
 
+def check_h32_kernels(card):
+    """K1, the pre-pass, K2 (its q loop split, with the reduce pass, and
+    unsplit) and K3 at head dim 32 against their plain versions: the dummy
+    family's self-attention (1, 2, 4352, 4352, 32: 17x16x16 tokens; K2 split in
+    7, so its reduce pass runs) and cross-attention over its 16 caption slots
+    with kv_lens (K2 split in 8), a ragged case with an empty row, a case with
+    per-head RoPE tables, and a long ragged case (1, 24, 16400, 16400, 32:
+    16-row last tiles, kv_lens 16390, K2 unsplit) held one head at a time. The
+    bounds count one exponential per score at the SFU's rate beside the bytes
+    and the tensor products. Returns the worst errors and the records by case."""
+    g = torch.Generator(device="cuda").manual_seed(32)
+    ang = torch.rand(4, 1000, 16, generator=g, device="cuda") * 6.3
+    tables = tuple(f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
+    k1_err, k1 = check_k1(card, {
+        "dummy_self": dict(b=1, n=DUMMY_HEADS, sq=DUMMY_TOKENS, skv=DUMMY_TOKENS, h=32, lens=None, rope=None),
+        "dummy_cross_kv_lens": dict(b=1, n=DUMMY_HEADS, sq=DUMMY_TOKENS, skv=DUMMY_CAPTION, h=32,
+                                    lens=[DUMMY_CAPTION], rope=None),
+        "ragged_empty_row": dict(b=2, n=2, sq=1000, skv=77, h=32, lens=[50, 0], rope=None),
+        "per_head_rope": dict(b=1, n=4, sq=1000, skv=1000, h=32, lens=None, rope=tables),
+        "long_ragged_kv_lens": dict(b=1, n=24, sq=H32_LONG, skv=H32_LONG, h=32, lens=[H32_LONG_VALID], rope=None),
+    }, phase_name="h32_kernel_checks")
+    bwd_err, bwd = check_k2k3(card, {
+        "dummy_self": dict(b=1, n=DUMMY_HEADS, sq=DUMMY_TOKENS, skv=DUMMY_TOKENS, h=32, lens=None, rope=None),
+        "dummy_cross_kv_lens": dict(b=1, n=DUMMY_HEADS, sq=DUMMY_TOKENS, skv=DUMMY_CAPTION, h=32,
+                                    lens=[DUMMY_CAPTION], rope=None),
+        "ragged_empty_row": dict(b=2, n=2, sq=1000, skv=77, h=32, lens=[77, 0], rope=None),
+        "shared_rope": dict(b=1, n=4, sq=1000, skv=1000, h=32, lens=None, rope="shared"),
+        "long_ragged_kv_lens": dict(b=1, n=24, sq=H32_LONG, skv=H32_LONG, h=32, lens=[H32_LONG_VALID], rope=None),
+    }, phase_name="h32_kernel_checks")
+    return k1_err, k1, bwd_err, bwd
+
+
 def check_cogvideox_kernels(card):
     """K1 and the pre-pass at CogVideoX's joint self-attention (1, 48, 30466,
     30466, 64: K1's last 192-row q block holds 130 rows, its last kv tile 2)
@@ -3890,10 +4038,11 @@ def check_cogvideox_kernels(card):
 
 
 def cogvideox_run_data(root):
-    """4 seeded videos at the example's 81x480x768 bucket (mp4v, smooth colour
-    blobs), their `metadata.csv` with PIKA_CRUSH captions, the example's
-    training.json pointing at them, and its validation.json (two prompts at
-    81x480x768) with 2 denoising steps each. Returns (training.json, validation.json)."""
+    """COGVIDEOX_RUN_VIDEOS seeded videos at the example's 81x480x768 bucket
+    (mp4v, smooth colour blobs), their `metadata.csv` with PIKA_CRUSH captions,
+    the example's training.json pointing at them, and its validation.json's
+    first prompt at 81x480x768 with 2 denoising steps. Returns (training.json,
+    validation.json)."""
     import csv
 
     import cv2
@@ -3915,7 +4064,7 @@ def cogvideox_run_data(root):
     training = json.loads((COGVIDEOX_EXAMPLE / "training.json").read_text())
     training["datasets"][0]["data_root"] = str(root)
     validation = json.loads((COGVIDEOX_EXAMPLE / "validation.json").read_text())
-    validation["data"] = [dict(row, num_inference_steps=2) for row in validation["data"]]
+    validation["data"] = [dict(validation["data"][0], num_inference_steps=2)]  # the first prompt
     (root / "training.json").write_text(json.dumps(training))
     (root / "validation.json").write_text(json.dumps(validation))
     return root / "training.json", root / "validation.json"
@@ -3947,10 +4096,10 @@ def cogvideox_run(card):
     (precompute once, `transformer:auto`, slicing and tiling, rank 32, the
     example's AdamW, logit-normal weighting, which DDIM ignores, bf16), with
     COGVIDEOX_RUN_POLICY for the example's "ops" (which does not fit one card
-    at this size), from 4 videos on disk at its own 81x480x768 bucket (30,466
-    tokens): 4 steps, then the final validation from the exported adapter in
-    a fresh model (the example's two prompts, 2 DDIM steps of 50 each, CFG in
-    one batch of 2). Each step's seconds, launches, reduce passes, peak memory
+    at this size), from 2 videos on disk at its own 81x480x768 bucket (30,466
+    tokens): 3 steps, then the final validation from the exported adapter in
+    a fresh model (the example's first prompt, 2 DDIM steps of 50, CFG in one
+    batch of 2). Each step's seconds, launches, reduce passes, peak memory
     and DDIM loss weights 1 / (1 - alpha_bar[t]), model TFLOP/s by
     floor_bench's joint formula with the policy's remat factor, precompute
     seconds per item, whether the VAE ran in pieces, the validation's seconds
@@ -4019,15 +4168,15 @@ def cogvideox_run(card):
                      k2=COGVIDEOX_LAYERS, k3=COGVIDEOX_LAYERS)
     want = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
     steps_ok = all(st["launches"] == want and st["reduce"] == 0 for st in steps)
-    # 2 requests x 2 DDIM steps, CFG in one batch of 2.
-    validation_want = {"k1": 4 * COGVIDEOX_LAYERS, "prep": 4 * COGVIDEOX_LAYERS}
+    # 1 request x 2 DDIM steps, CFG in one batch of 2.
+    validation_want = {"k1": 2 * COGVIDEOX_LAYERS, "prep": 2 * COGVIDEOX_LAYERS}
     validations_ok = (len(validations) == 1 and validations[0]["final"]
                       and validations[0]["launches"] == validation_want)
     d = COGVIDEOX_HEADS * 64
     per_layer = joint_train_step_flops(1, d, COGVIDEOX_RANK, 0.0, B=1, S=COGVIDEOX_TOKENS) / 2.0
     remat = {"full": 1.0, "ops_attn": 1.0 - 2 * 2 * COGVIDEOX_TOKENS**2 * d / per_layer}.get(COGVIDEOX_RUN_POLICY, 0.0)
     flops = joint_train_step_flops(COGVIDEOX_LAYERS, d, COGVIDEOX_RANK, remat, B=1, S=COGVIDEOX_TOKENS)
-    median_s = statistics.median([st["seconds"] for st in steps[1:] if not st["profiled"]])  # steps 2-3
+    median_s = statistics.median([st["seconds"] for st in steps[1:] if not st["profiled"]])  # step 2
     in_step = {cls: _median(prof["launches"][cls]) for cls in ("k1", "prep", "k2", "k3")}
     phase("cogvideox_run", card=card, entry="python -m finetrainers_tpu_torch.train", argv=[str(a) for a in argv],
           policy_note=f"{COGVIDEOX_RUN_POLICY} for the example's ops, which does not fit one card at this bucket",
@@ -4054,7 +4203,7 @@ def cogvideox_run(card):
     if not (shape_ok and steps_ok and validations_ok and weights_ok and reload_bit_equal
             and len(steps) == COGVIDEOX_RUN_STEPS and len(losses) == COGVIDEOX_RUN_STEPS and all(np.isfinite(losses))
             and len(state) == 2 * 6 * COGVIDEOX_LAYERS and config.get("r") == COGVIDEOX_RANK
-            and latent_shape == [1, 21, 32, 60, 96] and len(videos) == 2 and rec["reduce"] == 0):
+            and latent_shape == [1, 21, 32, 60, 96] and len(videos) == 1 and rec["reduce"] == 0):
         raise AssertionError("the crush_smol_lora CogVideoX example's run failed its checks")
     del state
     return dict(launches=rec["launches"], reduce=rec["reduce"], adapter=adapter, in_step=in_step)
@@ -4168,6 +4317,535 @@ def cogvideox_serve(card, adapter):
     return launches, in_step
 
 
+def dummy_run_data(root):
+    """4 seeded videos at the dummy run's 17x256x256 bucket (mp4v, smooth
+    colour blobs) written with cv2, their `metadata.csv`, a training.json
+    bucketing them there and a validation.json with one prompt at the bucket,
+    2 denoising steps. Returns (training.json, validation.json)."""
+    import csv
+
+    import cv2
+
+    root.mkdir(parents=True, exist_ok=True)
+    frames, height, width = DUMMY_BUCKET
+    rng = np.random.RandomState(17)
+    with open(root / "metadata.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["file_name", "caption"])
+        w.writeheader()
+        for i in range(DUMMY_RUN_VIDEOS):
+            writer = cv2.VideoWriter(str(root / f"clip{i}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 8, (width, height))
+            coarse = (rng.rand(frames, height // 32, width // 32, 3) * 255).astype(np.uint8)
+            for frame in coarse:
+                writer.write(cv2.resize(frame, (width, height), interpolation=cv2.INTER_LINEAR))
+            writer.release()
+            w.writerow({"file_name": f"clip{i}.mp4", "caption": f"a red ball rolls past box {i}"})
+    (root / "training.json").write_text(json.dumps({"datasets": [dict(
+        data_root=str(root), dataset_type="video", video_resolution_buckets=[list(DUMMY_BUCKET)])]}))
+    (root / "validation.json").write_text(json.dumps({"data": [dict(
+        caption="a red ball rolls", num_inference_steps=2, num_frames=frames, height=height, width=width)]}))
+    return root / "training.json", root / "validation.json"
+
+
+def dummy_argv(training_json, validation_json, out_dir, training_type, steps, *extra):
+    """`python -m finetrainers_tpu_torch.train` flags of a dummy run on one card."""
+    return ["--model_name", "dummy", "--pretrained_model_name_or_path", "dummy", "--training_type", training_type,
+            "--dataset_config", str(training_json), "--validation_dataset_file", str(validation_json),
+            "--validation_steps", "1000", "--output_dir", str(out_dir), "--train_steps", str(steps),
+            "--checkpointing_steps", str(steps), "--enable_precomputation", "--precomputation_items",
+            str(DUMMY_RUN_VIDEOS), "--report_to", "jsonl", "--tracker_name", "finetrainers-tpu-dummy", "--lr", "1e-3",
+            "--seed", "0", *extra]
+
+
+def dummy_run(card):
+    """The dummy family at its own width (dim 64 in 2 heads of 32, 2 blocks)
+    through `finetrainers_tpu_torch.train.main` on the card, from 4 videos on
+    disk at 17x256x256 (17 x 16 x 16 = 4352 tokens): a LoRA run (rank 16, 4
+    steps, the final validation from the exported adapter, 2 steps) and a
+    full-finetune run under `adamw-bnb-8bit` (3 steps). Each step launches, at
+    head dim 32, K1 twice per block (self-attention and cross-attention over
+    the 16 caption slots), the pre-pass four times, K2 and K3 twice, and K2's
+    reduce pass with each K2 (2 heads x 34 kv tiles and 2 x 1 tiles are fewer
+    than the SMs, so both q loops are split); the validation 2 K1 and 2 pre-pass
+    launches per block and step. In the full-finetune run every parameter of
+    at least 4096 elements (the feed-forward kernels, 64 x 256, among them)
+    keeps int8 moments. Returns the LoRA run's adapter and the runs' launches."""
+    from finetrainers_tpu_torch import train as train_cli
+    from finetrainers_tpu_torch.optim8bit import Adam8bit
+
+    training_json, validation_json = dummy_run_data(SMOKE_DIR / "dummy_run_data")
+    step_want = dict(k1=2 * DUMMY_LAYERS, prep=4 * DUMMY_LAYERS, k2=2 * DUMMY_LAYERS, k3=2 * DUMMY_LAYERS)
+    want = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
+    records = {}
+    for name, training_type, steps, extra in (
+            ("lora", "lora", DUMMY_RUN_STEPS, ("--rank", str(DUMMY_RANK), "--lora_alpha", str(DUMMY_RANK))),
+            ("full_finetune_adamw_8bit", "full-finetune", DUMMY_FULL_STEPS, ("--optimizer", "adamw-bnb-8bit"))):
+        out_dir = SMOKE_DIR / f"dummy_{name}"
+        argv = dummy_argv(training_json, validation_json, out_dir, training_type, steps, *extra)
+        with counted_run() as rec:
+            trainer = train_cli.main(argv)
+        steps_rec, validations = rec["steps"], rec["validations"]
+        module = trainer.transformer.module
+        log = [json.loads(line) for line in (out_dir / "logs" / "finetrainers-tpu-dummy.jsonl").read_text()
+               .splitlines()]
+        losses = [e["train/global_avg_loss"] for e in log if "train/global_avg_loss" in e]
+        videos = sorted((out_dir / "validation").rglob("*.mp4"))
+        facts = dict(heads=module.blocks[0].attn1.num_heads, head_dim=module.blocks[0].attn1.head_dim,
+                     blocks=len(module.blocks), params=sum(p.numel() for p in module.parameters()),
+                     trained=sum(p.numel() for p in trainer._trainable.values()))
+        eight_bit = None
+        if name != "lora":
+            inner = trainer.optimizer.inner
+            params = dict(module.named_parameters())
+            eight_bit = {n: dict(codes=str(inner.state[p]["mu_codes"].dtype), rows=inner.state[p]["mu_scales"].numel(),
+                                 nonzero=bool(inner.state[p]["mu_codes"].any()))
+                         for n, p in params.items() if isinstance(inner, Adam8bit) and "mu_codes" in inner.state[p]}
+            facts.update(optimizer=type(inner).__name__, moment_bytes=inner.state_bytes(),
+                         fp32_moment_bytes=8 * sum(p.numel() for p in params.values()))
+        steps_ok = all(st["launches"] == want and st["reduce"] == 2 * DUMMY_LAYERS for st in steps_rec)
+        validation_want = {"k1": 2 * 2 * DUMMY_LAYERS, "prep": 2 * 2 * DUMMY_LAYERS}  # 2 steps, no CFG
+        validations_ok = (len(validations) == 1 and validations[0]["final"]
+                          and validations[0]["launches"] == validation_want)
+        phase("dummy_run", card=card, run=name, entry="python -m finetrainers_tpu_torch.train",
+              argv=[str(a) for a in argv], bucket=list(DUMMY_BUCKET), tokens=DUMMY_TOKENS, **facts,
+              step_seconds=[st["seconds"] for st in steps_rec], step_peaks_gb=[st["peak_gb"] for st in steps_rec],
+              step_launches=steps_rec[0]["launches"], step_reduce_passes=[st["reduce"] for st in steps_rec],
+              step_launches_all_exact=steps_ok, losses=losses, validations=validations,
+              validations_launches_exact=validations_ok, eight_bit_moments=eight_bit, run_s=rec["run_s"],
+              launches=rec["launches"], reduce_passes=rec["reduce"])
+        ff_8bit = eight_bit is None or all(
+            eight_bit.get(f"blocks.{i}.ff.{layer}.weight", {}).get("nonzero") for i in range(DUMMY_LAYERS)
+            for layer in ("proj_in", "proj_out"))
+        if not (steps_ok and validations_ok and len(steps_rec) == steps and len(losses) == steps
+                and all(np.isfinite(losses)) and len(videos) == 1 and ff_8bit
+                and (facts["heads"], facts["head_dim"], facts["blocks"]) == (DUMMY_HEADS, 32, DUMMY_LAYERS)):
+            raise AssertionError(f"the dummy {name} run failed its checks")
+        records[name] = dict(launches=rec["launches"], reduce=rec["reduce"],
+                             step_launches=steps_rec[0]["launches"])
+        del trainer, module
+        _free_cuda()
+    return dict(records, adapter=SMOKE_DIR / "dummy_lora" / "lora_weights" / f"{DUMMY_RUN_STEPS:06d}")
+
+
+def dummy_serve(card, adapter):
+    """One 17x256x256 text-to-video request of the dummy family through the
+    runner, `inference.main`, with the LoRA run's adapter: 4 Euler steps of K1
+    twice per block and step at head dim 32 (no CFG), the VAE decode, a
+    finite (17, 256, 256, 3) video written as .mp4; its seconds and launches."""
+    from finetrainers_tpu_torch import inference
+    from finetrainers_tpu_torch.data.utils import load_video
+
+    out_dir = SMOKE_DIR / "dummy_serve"
+    frames, height, width = DUMMY_BUCKET
+    argv = ["--model_name", "dummy", "--pretrained_model_name_or_path", "dummy", "--inference_type", "text_to_video",
+            "--prompt", "a red ball rolls", "--num_frames", str(frames), "--height", str(height), "--width", str(width),
+            "--num_inference_steps", str(DUMMY_SERVE_STEPS), "--lora_weights", str(adapter), "--output_dir",
+            str(out_dir)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    paths = inference.main(argv)
+    torch.cuda.synchronize()
+    wall_s, launches = time.perf_counter() - t0, _counts()
+    written = load_video(paths[0], to_float=False)
+    expected = {k_: 2 * DUMMY_LAYERS * DUMMY_SERVE_STEPS if k_ in ("k1", "prep") else 0 for k_ in launches}
+    phase("dummy_serve", card=card, entry="python -m finetrainers_tpu_torch.inference", argv=argv,
+          steps=DUMMY_SERVE_STEPS, tokens=DUMMY_TOKENS, main_wall_s=wall_s, launches=launches,
+          launches_expected=expected, written=[str(pathlib.Path(p).relative_to(SMOKE_DIR.parent.parent)) for p in paths],
+          written_shape=list(written.shape))
+    if not (launches == expected and list(written.shape) == [frames, height, width, 3]):
+        raise AssertionError("dummy serving through the runner failed its checks")
+    return launches
+
+
+def raider_run_data(root):
+    """4 seeded portrait photos at the raider_white_tarot bucket, 1280 high and
+    720 wide (80-pixel colour blocks), written with cv2, their `metadata.csv`,
+    the example's training.json pointing at them, and its first validation
+    prompt at 1280x720 with 2 denoising steps. Returns (training.json,
+    validation.json)."""
+    import csv
+
+    import cv2
+
+    root.mkdir(parents=True, exist_ok=True)
+    height, width = RAIDER_BUCKET
+    rng = np.random.RandomState(18)
+    with open(root / "metadata.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["file_name", "caption"])
+        w.writeheader()
+        for i in range(RAIDER_RUN_IMAGES):
+            coarse = (rng.rand(height // 80, width // 80, 3) * 255).astype(np.uint8)
+            cv2.imwrite(str(root / f"card{i}.png"), cv2.resize(coarse, (width, height), interpolation=cv2.INTER_LINEAR))
+            w.writerow({"file_name": f"card{i}.png", "caption": f"a trtcrd of the tower card, number {i}, tarot style"})
+    training = json.loads((RAIDER_EXAMPLE / "training.json").read_text())
+    training["datasets"][0]["data_root"] = str(root)
+    validation = json.loads((RAIDER_EXAMPLE / "validation.json").read_text())
+    validation["data"] = [dict(validation["data"][0], num_inference_steps=2)]
+    (root / "training.json").write_text(json.dumps(training))
+    (root / "validation.json").write_text(json.dumps(validation))
+    return root / "training.json", root / "validation.json"
+
+
+def timed_forward_backward(trainer, batch):
+    """`forward_backward` on `batch` with the draws of a generator seeded 7, twice
+    (the second timed, synced on the host clock) -> (loss, LoRA gradients, seconds)."""
+    for _ in range(2):
+        trainer.optimizer.zero_grad()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.forward_backward(*batch, generator=torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    grads = torch.cat([p.grad.float().flatten() for p in trainer._trainable.values()])
+    trainer.optimizer.zero_grad()
+    return loss.item(), grads, seconds
+
+
+def storage_step(argv, out_dir, storage, lora_state, batch):
+    """One step's loss, LoRA gradients (no update) and forward-backward seconds
+    of a fresh trainer from `argv` with the transformer's frozen weights stored
+    as `storage` ("bf16": none), the given LoRA factors and the draws of a
+    generator seeded 7 (`timed_forward_backward`), and its bytes by dtype."""
+    from finetrainers_tpu_torch.args import BaseArgs
+    from finetrainers_tpu_torch.models.cogview4 import CogView4ModelSpecification
+
+    args = [str(a) for a in argv]
+    args[args.index("--output_dir") + 1] = str(out_dir)
+    i = args.index("--layerwise_upcasting_modules")
+    if storage == "bf16":
+        del args[i:i + 2]  # no module stored apart
+    else:
+        args[args.index("--layerwise_upcasting_storage_dtype") + 1] = storage
+    parsed = BaseArgs().parse_args(args)
+    # The spec as `train.main` builds it (its default seed), so the base weights are the run's.
+    trainer = SFTTrainer(parsed, CogView4ModelSpecification(
+        pretrained_model_name_or_path=parsed.pretrained_model_name_or_path, transformer_dtype=parsed.transformer_dtype,
+        vae_dtype=parsed.vae_dtype, device="cuda"))
+    trainer.prepare()
+    with torch.no_grad():
+        for name, value in lora_state.items():
+            trainer._trainable[name].copy_(value)
+    loss, grads, seconds = timed_forward_backward(trainer, batch)
+    stored = {str(d): sum(p.numel() * p.element_size() for p in trainer.transformer.module.parameters()
+                          if p.dtype == d)
+              for d in {p.dtype for p in trainer.transformer.module.parameters()}}
+    del trainer
+    _free_cuda()
+    return loss, grads, seconds, stored
+
+
+def _plain_quantize_rows(v):
+    """Per-row int8 codes and fp32 scales of v, as float64 (the definition of
+    JAX's `quantize_rows`: absmax / 127 and v / scale as true fp32 divisions,
+    rounded half to even, clipped to 127)."""
+    v = v.float()
+    absmax = v.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    s = absmax / torch.full_like(absmax, 127.0)
+    return torch.round(v / s).clamp(-127.0, 127.0).double(), s.double()
+
+
+def _elementwise_rel(got, ref):
+    """max |got - ref| / |ref| over ref's nonzero entries (float64), and
+    whether got is 0 wherever ref is."""
+    got, nz = got.double(), ref != 0
+    return ((got - ref).abs()[nz] / ref.abs()[nz]).max().item(), bool((got[~nz] == 0).all())
+
+
+def check_int8_linear(card, layer, rows, seed=19):
+    """`int8_linear`'s forward and dx on the card at one int8-stored layer's
+    own codes and scales and `rows` tokens, against a plain float64 emulation
+    of the same quantization, integer product and dequant: the activations'
+    and the cotangent's codes and both int32 products equal, the outputs
+    within INT8_FWD_REL_TOL and INT8_DX_REL_TOL elementwise. Two known-wrong
+    controls read under the same bounds must fail them: the forward with the
+    activations left unquantized, and dx with the cotangent left unquantized.
+    Inputs are heavy-tailed bf16 from a seed."""
+    from finetrainers_tpu_torch.ops.int8_linear import int8_linear, int_mm, quantize_rows
+
+    wq, sw = layer.weight, layer.weight_qscale
+    f, k = wq.shape
+    g = torch.Generator(device=wq.device).manual_seed(seed)
+
+    def heavy(shape):
+        return (torch.randn(shape, generator=g, device=wq.device)
+                * torch.randn(shape, generator=g, device=wq.device).exp()).to(torch.bfloat16)
+
+    x, dy = heavy((rows, k)).requires_grad_(), heavy((rows, f))
+    y = int8_linear(x, wq, sw)
+    y.backward(dy)
+    w64 = wq.double()
+    xq, sx = _plain_quantize_rows(x.detach())
+    acc = xq @ w64.t()  # integer sums below 2^53: exact
+    ref_y = acc * sx * sw.double()[None]
+    dys = dy * sw.to(torch.bfloat16)  # the cotangent as the backward forms it, in dy's dtype
+    dq, sdy = _plain_quantize_rows(dys)
+    acc_dx = dq @ w64
+    ref_dx = acc_dx * sdy
+    port_xq, port_dq = quantize_rows(x.detach())[0], quantize_rows(dys)[0]
+    codes_equal = bool(torch.equal(port_xq.double(), xq)) and bool(torch.equal(port_dq.double(), dq))
+    products_equal = (bool(torch.equal(int_mm(port_xq, wq).double(), acc))
+                      and bool(torch.equal(int_mm(port_dq, wq.t().contiguous()).double(), acc_dx)))
+    y_rel, y_zeros = _elementwise_rel(y.detach(), ref_y)
+    dx_rel, dx_zeros = _elementwise_rel(x.grad, ref_dx)
+    deq = w64 * sw.double()[:, None]
+    ctrl_y_rel = _elementwise_rel((x.detach().double() @ deq.t()).to(torch.bfloat16), ref_y)[0]
+    ctrl_dx_rel = _elementwise_rel((dys.double() @ w64).to(torch.bfloat16), ref_dx)[0]
+    out = dict(card=card, shape=[rows, k, f], codes_equal=codes_equal, int32_products_equal=products_equal,
+               fwd_rel_max=y_rel, fwd_rel_tol=INT8_FWD_REL_TOL, dx_rel_max=dx_rel, dx_rel_tol=INT8_DX_REL_TOL,
+               zeros_exact=y_zeros and dx_zeros, rel_l2=dict(fwd=rel_l2(y.detach().double(), ref_y),
+                                                             dx=rel_l2(x.grad.double(), ref_dx)),
+               control_fwd_unquantized_x_rel_max=ctrl_y_rel, control_dx_unquantized_dy_rel_max=ctrl_dx_rel)
+    out["ok"] = (codes_equal and products_equal and y_zeros and dx_zeros and y_rel <= INT8_FWD_REL_TOL
+                 and dx_rel <= INT8_DX_REL_TOL and ctrl_y_rel > INT8_FWD_REL_TOL and ctrl_dx_rel > INT8_DX_REL_TOL)
+    return out
+
+
+def cogview4_sft_run(card):
+    """CogView4-6B's raider_white_tarot SFT example through
+    `finetrainers_tpu_torch.train.main` with its train.sh flags on one card
+    (LoRA rank 32, "ops" remat, `transformer:auto`, slicing and tiling, the
+    transformer's frozen weights stored int8 with `--layerwise_upcasting_storage_dtype
+    int8`, AdamW with `constant_with_warmup`, logit-normal weighting, bf16),
+    from 4 photos on disk at its own 1280x720 bucket (4624 tokens): 4 steps,
+    the final validation (the example's first prompt, 2 steps of 50, CFG in
+    one batch of 2) from the exported adapter. Each step's seconds, launches
+    (K1 once per block, the pre-pass twice, K2 and K3 once: K4 saved under
+    "ops"; no reduce pass) and the int8 GEMMs on `torch._int_mm` (the same
+    count every step), peak memory, model TFLOP/s by floor_bench's joint
+    formula at rank 32 under "ops", the bytes held as int8 against the same
+    weights in bf16. Then, on the first precomputed item with the run's LoRA
+    factors and one set of draws: the int8-stored step's loss and LoRA
+    gradient against a bf16-stored step's and a float8_e4m3fn-stored step's
+    (STORAGE_LOSS_REL_TOL, STORAGE_GRAD_REL_L2_TOL), a sanity bound; the
+    int8 products at one frozen layer's own codes against their exact
+    emulation (`check_int8_linear`), the tight check; and the exported
+    adapter in a fresh model, stored int8 as the run stored it, giving the
+    trained model's forward bit for bit. The run's last step is profiled.
+    Returns the run's launches, the adapter's directory and the in-step times."""
+    from finetrainers_tpu_torch import train as train_cli
+    from finetrainers_tpu_torch.ops.int8_linear import int_mm
+    from finetrainers_tpu_torch.utils.int8 import apply_int8_storage
+
+    t0 = time.perf_counter()
+    training_json, validation_json = raider_run_data(SMOKE_DIR / "raider_run_data")
+    data_s = time.perf_counter() - t0
+    out_dir = SMOKE_DIR / "raider_run"
+    argv = train_sh_argv(RAIDER_EXAMPLE, dataset_config=training_json, validation_dataset_file=validation_json,
+                         output_dir=out_dir, report_to="jsonl", train_steps=RAIDER_RUN_STEPS,
+                         precomputation_items=RAIDER_RUN_IMAGES)
+    int_mm_per_step = []
+    orig_step = SFTTrainer.train_step
+
+    def counting_step(self, *args, **kwargs):
+        before = int_mm.launches
+        out = orig_step(self, *args, **kwargs)
+        int_mm_per_step.append(int_mm.launches - before)
+        return out
+
+    SFTTrainer.train_step = counting_step
+    try:
+        with counted_run(profile_step=RAIDER_RUN_STEPS) as rec:
+            trainer = train_cli.main(argv)
+    finally:
+        SFTTrainer.train_step = orig_step
+    steps, validations, prof = rec["steps"], rec["validations"], rec["profile"]
+    module = trainer.transformer.module
+    int8_layers = [m for m in module.modules() if getattr(m, "weight", None) is not None
+                   and m.weight.dtype == torch.int8]
+    int8_bytes = sum(m.weight.numel() for m in int8_layers)
+    scale_bytes = sum(m.weight_qscale.numel() * 4 for m in int8_layers)
+    shape_ok = (len(module.transformer_blocks) == COGVIEW4_LAYERS and module.gradient_checkpointing == "ops"
+                and module.transformer_blocks[0].attn1.to_q.weight.dtype == torch.int8
+                and module.proj_out.weight.dtype == torch.bfloat16
+                and trainer.attn_provider_training == {"transformer": "auto"}
+                and trainer.args.layerwise_upcasting_storage_dtype == torch.int8)
+    spec = trainer.model_specification
+    precomputed = out_dir / "precomputed" / PRECOMPUTED_DIR_NAME
+    items = [dict(np.load(precomputed / f"{kind}-0.npz")) for kind in ("condition", "latent")]
+    latent_shape = list(items[1]["latents"].shape)
+    batch = to_device((spec.collate_conditions([items[0]]), spec.collate_latents([items[1]])), torch.device("cuda"))
+    lora_state = {name: p.detach().clone() for name, p in trainer._trainable.items()}
+    compare = {"int8": timed_forward_backward(trainer, batch)}
+    # The int8 products held tightly at the feed-forward's down projection (its 16384 -> 4096 codes, the run's 4624
+    # tokens); the storage bounds above hold them only against another precision.
+    int8_check = check_int8_linear(card, module.transformer_blocks[0].ff.net[2], RAIDER_TOKENS)
+    phase("cogview4_sft_int8_linear_check", **int8_check)
+    # The export reloaded into a fresh model stored int8 as the run stored it, against the trained model.
+    fresh = trainer._load_exported_transformer()
+    for name, param in fresh.module.named_parameters():
+        param.requires_grad_(name in trainer._trainable)
+    apply_int8_storage(fresh.module, trainer.args.layerwise_upcasting_skip_modules_pattern)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((1, 16, 160, 90), generator=g, device="cuda").to(torch.bfloat16)
+    ehs, sizes = batch[0]["encoder_hidden_states"], batch[1]["original_size"]
+    with torch.no_grad():
+        outs = [m(x, ehs, torch.tensor([500.0], device="cuda"), original_size=sizes, target_size=sizes,
+                  crop_coords=torch.zeros_like(sizes)) for m in (fresh.module, module)]
+    reload_bit_equal = bool(torch.equal(*outs)) and bool(torch.isfinite(outs[0]).all())
+    del fresh, outs, x, trainer, module, spec
+    _free_cuda()
+    stored_bf16 = None
+    for storage in ("bf16", "float8_e4m3fn"):
+        *compare[storage], stored = storage_step(argv, SMOKE_DIR / f"raider_{storage}", storage, lora_state, batch)
+        stored_bf16 = stored if storage == "bf16" else stored_bf16
+    loss_bf16, grads_bf16, _ = compare["bf16"]
+    forward_backward_s = {storage: r[2] for storage, r in compare.items()}
+    vs_bf16 = {}
+    for storage in ("int8", "float8_e4m3fn"):
+        loss, grads, _ = compare[storage]
+        vs_bf16[storage] = dict(loss=loss, loss_rel=abs(loss - loss_bf16) / abs(loss_bf16),
+                                grad_rel_l2=((grads - grads_bf16).norm() / grads_bf16.norm()).item(),
+                                loss_rel_tol=STORAGE_LOSS_REL_TOL[storage],
+                                grad_rel_l2_tol=STORAGE_GRAD_REL_L2_TOL[storage])
+    del lora_state, batch, compare, grads_bf16
+    _free_cuda()
+
+    log = [json.loads(line) for line in (out_dir / "logs" / "finetrainers-tpu-cogview4.jsonl").read_text()
+           .splitlines()]
+    losses = [e["train/global_avg_loss"] for e in log if "train/global_avg_loss" in e]
+    precompute_s = next(e["timing/precompute"] for e in log if "timing/precompute" in e)
+    adapter = out_dir / "lora_weights" / f"{RAIDER_RUN_STEPS:06d}"
+    state, config = load_lora_weights(str(adapter))
+    images = sorted((out_dir / "validation").rglob("*.png"))
+    step_want = dict(k1=COGVIEW4_LAYERS, prep=2 * COGVIEW4_LAYERS, k2=COGVIEW4_LAYERS, k3=COGVIEW4_LAYERS)
+    want = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
+    steps_ok = all(st["launches"] == want and st["reduce"] == 0 for st in steps)
+    validation_want = {"k1": 2 * COGVIEW4_LAYERS, "prep": 2 * COGVIEW4_LAYERS}  # 2 steps, CFG in one batch
+    validations_ok = (len(validations) == 1 and validations[0]["final"]
+                      and validations[0]["launches"] == validation_want)
+    median_s = statistics.median([st["seconds"] for st in steps[1:] if not st["profiled"]])
+    flops = joint_train_step_flops(COGVIEW4_LAYERS, 4096, RAIDER_RANK, 0.0, B=1, S=RAIDER_TOKENS)
+    in_step = {cls: _median(prof["launches"][cls]) for cls in ("k1", "prep", "k2", "k3")}
+    storage_ok = all(r["loss_rel"] <= r["loss_rel_tol"] and r["grad_rel_l2"] <= r["grad_rel_l2_tol"]
+                     for r in vs_bf16.values())
+    phase("cogview4_sft_run", card=card, entry="python -m finetrainers_tpu_torch.train",
+          argv=[str(a) for a in argv], bucket=list(RAIDER_BUCKET), tokens=RAIDER_TOKENS, latents_shape=latent_shape,
+          published_shape=shape_ok, int8_layers=len(int8_layers), int8_bytes=int8_bytes, int8_scale_bytes=scale_bytes,
+          same_weights_bf16_bytes=2 * int8_bytes, stored_bytes_by_dtype_bf16_run=stored_bf16, data_write_s=data_s,
+          precompute_s=precompute_s, precompute_s_per_item=precompute_s / RAIDER_RUN_IMAGES, peaks_gb=rec["peaks"],
+          step_seconds=[st["seconds"] for st in steps], median_step_s_2_to_3=median_s,
+          step_peaks_gb=[st["peak_gb"] for st in steps], step_launches=steps[0]["launches"],
+          step_int8_gemms=int_mm_per_step, step_reduce_passes=[st["reduce"] for st in steps],
+          step_launches_all_exact=steps_ok, model_flops_per_step=flops, model_tflops=flops / median_s / 1e12,
+          share_of_peak=flops / median_s / PEAK_BF16_FLOPS, losses=losses, validations=validations,
+          validations_launches_exact=validations_ok, validation_images=[str(i.relative_to(SMOKE_DIR)) for i in images],
+          vs_bf16_storage=vs_bf16, bf16_loss=loss_bf16, storage_within_bounds=storage_ok,
+          forward_backward_s_by_storage=forward_backward_s,
+          run_s=rec["run_s"], launches=rec["launches"], reduce_passes=rec["reduce"],
+          export=str(adapter.relative_to(SMOKE_DIR.parent.parent)), export_keys=len(state), export_lora_config=config,
+          reload_forward_bit_equal=reload_bit_equal)
+    phase("cogview4_sft_run_profile", card=card, step_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+          idle_share=prof["idle_share"],
+          ms_by_class=dict(prof["classes"], **{cls: sum(v) for cls, v in prof["launches"].items()}),
+          ms_per_launch=in_step, launches={cls: len(v) for cls, v in prof["launches"].items()},
+          top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
+    if not (shape_ok and steps_ok and validations_ok and reload_bit_equal and storage_ok and int8_check["ok"]
+            and len(steps) == RAIDER_RUN_STEPS and len(losses) == RAIDER_RUN_STEPS and all(np.isfinite(losses))
+            and len(state) == 2 * 6 * COGVIEW4_LAYERS and config.get("r") == RAIDER_RANK
+            and len(set(int_mm_per_step)) == 1 and int_mm_per_step[0] >= len(int8_layers)
+            and latent_shape == [1, 32, 160, 90] and len(images) == 1 and rec["reduce"] == 0):
+        raise AssertionError("the raider_white_tarot CogView4 example's run failed its checks")
+    del state
+    return dict(launches=rec["launches"], reduce=rec["reduce"], adapter=adapter, in_step=in_step,
+                int8_gemms=int_mm_per_step[0])
+
+
+def cogview4_sft_serve(card, adapter):
+    """One 1024x1024 text-to-image request of full-width CogView4-6B through the
+    runner, `inference.main`, with `--quantize_int8` and the adapter
+    `cogview4_sft_run` exported (4 Euler steps of 50, the runner's guidance
+    5.0 as a CFG batch of 2, `--attn_provider flash`, slicing and tiling): its
+    seconds, each step's, the decode's, the peak, K1 and the pre-pass 28 times a
+    step, one int8 GEMM per int8 layer and step, the LoRA factors kept in
+    fp32 beside int8 base weights, a (1024, 1024, 3) PNG. Then the last denoise
+    step again with the base weights in bf16 (a fresh model with the same
+    adapter): its relative L2 against the int8 step within
+    QUANTIZED_STEP_REL_L2_TOL."""
+    from finetrainers_tpu_torch import inference
+    from finetrainers_tpu_torch.lora import apply_lora_to_module_params
+    from finetrainers_tpu_torch.models.cogview4 import CogView4ModelSpecification, CogView4Pipeline
+    from finetrainers_tpu_torch.ops.int8_linear import int_mm
+
+    import cv2
+
+    out_dir = SMOKE_DIR / "raider_serve"
+    argv = ["--model_name", "cogview4", "--pretrained_model_name_or_path", str(SMOKE_DIR / "cogview4_checkpoint"),
+            "--inference_type", "text_to_image", "--prompt", "a trtcrd of a lighthouse on a cliff at night, tarot style",
+            "--height", "1024", "--width", "1024", "--num_inference_steps", str(RAIDER_SERVE_STEPS),
+            "--attn_provider", "flash", "--enable_slicing", "--enable_tiling", "--seed", "31337", "--quantize_int8",
+            "--lora_weights", str(adapter), "--output_dir", str(out_dir)]
+    seconds, facts, last = {"step": [], "request": []}, {}, []
+    originals = {attr: getattr(CogView4Pipeline, attr) for attr in ("denoise_step", "__call__")}
+
+    def call(self, *args, **kwargs):
+        module = self.transformer.module
+        layers = [m for m in module.modules() if getattr(m, "weight", None) is not None]
+        facts.update(int8_layers=sum(m.weight.dtype == torch.int8 for m in layers),
+                     lora_fp32=all(m.lora_A.weight.dtype == torch.float32 for m in layers if getattr(m, "rank", 0)),
+                     lora_rank=module.transformer_blocks[0].attn1.to_q.rank)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image = originals["__call__"](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        seconds["request"].append(time.perf_counter() - t0)
+        facts["image_shape"], facts["image_dtype"] = list(image.shape), str(image.dtype)
+        return image
+
+    def denoise(self, *args, **kwargs):
+        last[:] = [self, args, kwargs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = originals["denoise_step"](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        seconds["step"].append(time.perf_counter() - t0)
+        return out
+
+    CogView4Pipeline.denoise_step, CogView4Pipeline.__call__ = denoise, call
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        mm_before, t0 = int_mm.launches, time.perf_counter()
+        paths = inference.main(argv)
+        torch.cuda.synchronize()
+        wall_s, launches, peak_gb = time.perf_counter() - t0, _counts(), torch.cuda.max_memory_allocated() / 1e9
+        int8_gemms = int_mm.launches - mm_before
+    finally:
+        for attr, fn in originals.items():
+            setattr(CogView4Pipeline, attr, fn)
+    pipeline, args, kwargs = last
+    with torch.inference_mode(), attention_provider("flash"):
+        step_int8, int8_step_ms = timed_call(lambda: originals["denoise_step"](pipeline, *args, **kwargs).float())
+        spec = CogView4ModelSpecification(pretrained_model_name_or_path=str(SMOKE_DIR / "cogview4_checkpoint"),
+                                          device="cuda")  # as the runner builds it
+        spec.lora_rank, spec.lora_alpha = RAIDER_RANK, float(RAIDER_RANK)
+        handle = spec.load_diffusion_models()["transformer"]
+        state, _ = load_lora_weights(str(adapter))
+        apply_lora_to_module_params(handle.module, state, key_map=spec.transformer_key_map)
+        pipeline.transformer = handle
+        originals["denoise_step"](pipeline, *args, **kwargs)  # the bf16 model's first step, untimed
+        step_bf16, bf16_step_ms = timed_call(lambda: originals["denoise_step"](pipeline, *args, **kwargs).float())
+    rel_l2 = ((step_int8 - step_bf16).norm() / step_bf16.norm()).item()
+    del last[:], pipeline, handle, state, step_int8, step_bf16
+    written = cv2.imread(paths[0])
+    expected = {k_: COGVIEW4_LAYERS * RAIDER_SERVE_STEPS if k_ in ("k1", "prep") else 0 for k_ in _COUNTED}
+    phase("cogview4_sft_serve", card=card, entry="python -m finetrainers_tpu_torch.inference", argv=argv[:-2],
+          steps=RAIDER_SERVE_STEPS, steps_note="cut from the request's 50", request_s=seconds["request"],
+          step_s=seconds["step"], main_wall_s=wall_s, peak_memory_gb=peak_gb, launches=launches,
+          launches_expected=expected, int8_gemms=int8_gemms, **facts, step_rel_l2_vs_bf16=rel_l2,
+          step_ms_int8_then_bf16=[int8_step_ms, bf16_step_ms],
+          step_rel_l2_tol=QUANTIZED_STEP_REL_L2_TOL,
+          written=[str(pathlib.Path(p).relative_to(SMOKE_DIR.parent.parent)) for p in paths],
+          written_shape=list(written.shape) if written is not None else None)
+    if not (launches == expected and facts.get("image_shape") == [1024, 1024, 3] and facts.get("lora_fp32")
+            and facts.get("lora_rank") == RAIDER_RANK and facts.get("int8_layers", 0) > 0
+            and int8_gemms == facts["int8_layers"] * RAIDER_SERVE_STEPS and rel_l2 <= QUANTIZED_STEP_REL_L2_TOL
+            and written is not None and list(written.shape) == [1024, 1024, 3]):
+        raise AssertionError("CogView4 serving under --quantize_int8 through the runner failed its checks")
+    phase("cogview4_sft_serve_freed", memory_allocated_gb=_free_cuda())
+    return dict(launches=launches, int8_gemms=int8_gemms)
+
+
 def env_phase():
     """Whether the media codecs the data stage decodes with import here (information, not a check)."""
     found = {}
@@ -4276,6 +4954,11 @@ def main():
     cx_k1_err, cx_k1, cx_bwd_err, cx_bwd = check_cogvideox_kernels(card)
     cogvideox = cogvideox_run(card)
     cx_serve_launches, cx_serve_in_step = cogvideox_serve(card, cogvideox["adapter"])
+    h32_k1_err, h32_k1, h32_bwd_err, h32_bwd = check_h32_kernels(card)
+    dummy = dummy_run(card)
+    dummy_serve_launches = dummy_serve(card, dummy["adapter"])
+    raider = cogview4_sft_run(card)
+    raider_serve = cogview4_sft_serve(card, raider["adapter"])
     shutil.rmtree(SMOKE_DIR)
     env_phase()
 
@@ -4335,6 +5018,17 @@ def main():
                               for case, r in {**bwd, **flux_bwd, **hy_bwd, **cv_bwd, **cx_bwd}.items()},
                      library_note="torch SDPA backward (dq, dk, dv in one call), without the fused rotation", **extra)
 
+    def h32_entry(key, name, source, replaces, err, record, **extra):
+        """A head-dim-32 instance: its launches on the dummy paths, timed at the dummy's self-attention."""
+        launches = {"dummy_lora_run": dummy["lora"]["launches"][key],
+                    "dummy_full_finetune_run": dummy["full_finetune_adamw_8bit"]["launches"][key]}
+        if key in ("k1", "prep"):
+            launches["dummy_serve"] = dummy_serve_launches[key]
+        return entry(name, source, replaces, launches["dummy_lora_run"], err, record, head_dim=32,
+                     shape=[1, DUMMY_HEADS, DUMMY_TOKENS, DUMMY_TOKENS, 32], launches_by_path=launches, **extra)
+
+    fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    h32_self = h32_k1["dummy_self"]
     wan = wan_paths["wan_train"]
     ltx_self = k1["self_rope"]
     print(json.dumps({"kernels": [
@@ -4452,6 +5146,29 @@ def main():
                        for case, r in k6.items()},
               max_abs_err_note="the largest difference of an int8 code from the plain pre-pass on the CPU",
               plain_note="the plain pre-pass on the card: torch's rotation and quantization, the path before it"),
+        h32_entry("k1", "flash_fwd_sm90 at head dim 32 (K1, wgmma + TMA, 64-byte rows under the 64-byte swizzle)",
+                  "finetrainers_tpu_torch/csrc/flash_fwd_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:106",
+                  h32_k1_err, tuple(h32_self[f] for f in fields),
+                  by_case={case: {f: r[f] for f in fields} for case, r in h32_k1.items()},
+                  bound_note="the larger of bytes, tensor operations and exponentials (one exp2 a score at the SFU's "
+                             "3.865e12/s; at head dim 32 it is the exponentials wherever operations bound)",
+                  library_note="torch SDPA forward"),
+        h32_entry("prep", "flash_qk_prep at head dim 32 (the pre-pass)", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
+                  "finetrainers_tpu/ops/flash_attention.py:189", h32_bwd_err["prep"], h32_bwd["dummy_self"]["prep"],
+                  by_case={case: dict(zip(fields, r["prep"])) for case, r in h32_bwd.items()}),
+        h32_entry("k2", "bwd_dkdv_sm90 at head dim 32 (K2, wgmma + TMA, with its reduce pass)",
+                  "finetrainers_tpu_torch/csrc/flash_bwd_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:888",
+                  h32_bwd_err["k2"], h32_bwd["dummy_self"]["k2"],
+                  by_case={case: dict(zip(fields, r["k2"]), device_ms=r["k2_device_ms"]) for case, r in h32_bwd.items()},
+                  reduce_launches_by_path={"dummy_lora_run": dummy["lora"]["reduce"],
+                                           "dummy_full_finetune_run": dummy["full_finetune_adamw_8bit"]["reduce"]},
+                  reduce_by_case={case: dict(zip(fields, r["reduce"])) for case, r in h32_bwd.items()
+                                  if r["reduce"] is not None},
+                  library_note="torch SDPA backward (dq, dk, dv in one call)"),
+        h32_entry("k3", "bwd_dq_sm90 at head dim 32 (K3, wgmma + TMA)", "finetrainers_tpu_torch/csrc/flash_bwd_sm90.cu",
+                  "finetrainers_tpu/ops/flash_attention.py:1199", h32_bwd_err["k3"], h32_bwd["dummy_self"]["k3"],
+                  by_case={case: dict(zip(fields, r["k3"]), device_ms=r["k3_device_ms"]) for case, r in h32_bwd.items()},
+                  library_note="torch SDPA backward (dq, dk, dv in one call)"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -215,9 +215,6 @@ class BaseArgs:
                 if getattr(self, name) != getattr(defaults, name):
                     raise NotImplementedError(
                         f"--{name}={getattr(self, name)!r}: not ported to PyTorch yet; see ROADMAP.md {item}")
-        if self.optimizer in ("adam-bnb-8bit", "adamw-bnb-8bit"):
-            raise NotImplementedError(f"--optimizer {self.optimizer}: not ported to PyTorch yet; "
-                                      "see ROADMAP.md queue 1 item 6 (8-bit optimizers)")
 
     def to_dict(self) -> Dict[str, Any]:
         """The fields grouped as the JAX package's `to_dict` groups them (for
@@ -239,8 +236,6 @@ _UNPORTED = (
     (("revision", "variant", "cache_dir"), "queue 1 item 5 (loading diffusers checkpoints)"),
     (("tokenizer_id", "tokenizer_2_id", "tokenizer_3_id", "text_encoder_2_id", "text_encoder_3_id"),
      "queue 1 item 7 (the text towers)"),
-    (("layerwise_upcasting_modules", "layerwise_upcasting_storage_dtype", "layerwise_upcasting_skip_modules_pattern"),
-     "queue 1 item 6 (fp8 and int8 weight storage)"),
     (("steps_per_dispatch", "compile_modules", "compile_scopes"), "queue 1 item 3 (the work XLA fused)"),
     (("precomputation_reuse", "flow_resolution_shifting", "flow_base_seq_len", "flow_max_seq_len", "flow_base_shift",
       "flow_max_shift", "beta3", "enable_model_cpu_offload"),

@@ -1,16 +1,14 @@
 """Model/training-type registry (port of `finetrainers_tpu/config.py`).
 
-LTX-Video, Wan 2.1, CogVideoX, Flux, HunyuanVideo and CogView4 resolve for
-`lora` and `full-finetune`, and Wan and CogView4 also for `control-lora` and
-`control-full-finetune` (their control specifications); the dummy family
-raises NotImplementedError until its slice is ported (ROADMAP.md queue 1
-item 8)."""
+LTX-Video, Wan 2.1, CogVideoX, Flux, HunyuanVideo, CogView4 and the dummy
+family resolve for `lora` and `full-finetune`, and Wan and CogView4 also for
+`control-lora` and `control-full-finetune` (their control specifications)."""
 
 from __future__ import annotations
 
 import importlib
 from enum import Enum
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 
 class ModelType(str, Enum):
@@ -40,17 +38,18 @@ _COGVIDEOX = ("finetrainers_tpu_torch.models.cogvideox", "CogVideoXModelSpecific
 _COGVIEW4 = ("finetrainers_tpu_torch.models.cogview4", "CogView4ModelSpecification")
 _COGVIEW4_CONTROL = ("finetrainers_tpu_torch.models.cogview4", "CogView4ControlModelSpecification")
 _WAN_CONTROL = ("finetrainers_tpu_torch.models.wan", "WanControlModelSpecification")
+_DUMMY = ("finetrainers_tpu_torch.models.dummy", "DummyModelSpecification")
 
-# model -> {training types}: (module path, class name), or None where the family
-# is not ported yet. The training types per family are the JAX package's.
-_REGISTRY: Dict[ModelType, Dict[TrainingType, Optional[Tuple[str, str]]]] = {
+# model -> {training types}: (module path, class name). The training types per
+# family are the JAX package's.
+_REGISTRY: Dict[ModelType, Dict[TrainingType, Tuple[str, str]]] = {
     ModelType.COGVIDEOX: {t: _COGVIDEOX for t in _SFT},
     ModelType.COGVIEW4: {**{t: _COGVIEW4 for t in _SFT}, **{t: _COGVIEW4_CONTROL for t in _CONTROL}},
     ModelType.FLUX: {t: _FLUX for t in _SFT},
     ModelType.HUNYUAN_VIDEO: {t: _HUNYUAN for t in _SFT},
     ModelType.LTX_VIDEO: {t: _LTX for t in _SFT},
     ModelType.WAN: {**{t: _WAN for t in _SFT}, **{t: _WAN_CONTROL for t in _CONTROL}},
-    ModelType.DUMMY: {t: None for t in _SFT},
+    ModelType.DUMMY: {t: _DUMMY for t in _SFT},
 }
 
 
@@ -62,9 +61,5 @@ def get_model_specification_cls(model_name: str, training_type: str):
             f"Training type {training_type!r} is not supported for model {model_name!r}. "
             f"Supported training types: {sorted(t.value for t in _REGISTRY[model_type])}"
         )
-    ref = _REGISTRY[model_type][tt]
-    if ref is None:
-        raise NotImplementedError(f"{model_name!r} ({training_type}) is not ported yet; see ROADMAP.md queue 1 "
-                                  "item 8 (the dummy family)")
-    module_path, cls_name = ref
+    module_path, cls_name = _REGISTRY[model_type][tt]
     return getattr(importlib.import_module(module_path), cls_name)

@@ -119,7 +119,8 @@ cudaError_t launch_dq_emit(const EmitParams& p, cudaStream_t stream) {
 // are in elements; the head dim is contiguous. Each returns a cudaError_t.
 
 // The pre-pass: q_out = T(rope(q) * qscale), and k_out = T(rope(k)) when k_out
-// is given (then the tables must be too); both written (B, N, S, H) contiguous.
+// is given (then the tables must be too); both written (B, N, S, H) contiguous;
+// head_dim 32, 64 or 128.
 extern "C" int flash_qk_prep(const void* q, const void* k, void* q_out, void* k_out, const void* rope_cos,
                              const void* rope_sin, int batch, int heads, int seq_q, int seq_kv, int head_dim,
                              int dtype, int64_t q_sb, int64_t q_sn, int64_t q_ss, int64_t k_sb, int64_t k_sn,
@@ -140,6 +141,8 @@ extern "C" int flash_qk_prep(const void* q, const void* k, void* q_out, void* k_
   p.rope_sn = rope_sn;
   p.qscale = qscale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && head_dim == 32) return launch_prep<__nv_bfloat16, 32>(p, s);
+  if (dtype == 1 && head_dim == 32) return launch_prep<__half, 32>(p, s);
   if (dtype == 0 && head_dim == 64) return launch_prep<__nv_bfloat16, 64>(p, s);
   if (dtype == 0 && head_dim == 128) return launch_prep<__nv_bfloat16, 128>(p, s);
   if (dtype == 1 && head_dim == 64) return launch_prep<__half, 64>(p, s);

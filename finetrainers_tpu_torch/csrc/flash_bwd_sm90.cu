@@ -66,6 +66,10 @@
 //    ds are rounded to T two at a time by the packed conversion that also
 //    makes the A operand: one conversion per pair instead of one per value
 //    and rounding point.
+//  - At H=32 (K2, its reduce pass and K3; not K5) a row of every operand is
+//    64 bytes: one TMA box per tile under the 64-byte swizzle, descriptors of
+//    that layout, the score products two k16 steps, and dk, dv and dq
+//    m64n32k16 products (16 floats a thread each).
 //  - K5 is K2's kernel (producer, ring, kv-major products, split q loop for
 //    cross-attention) with a fifth product per q tile: dq (64 q x H) = ds k_r.
 //    kv is its contraction dim, and ds^T lies kv-major in registers, so each
@@ -144,9 +148,9 @@ __device__ __forceinline__ int kv_length(const BwdParams& p, int b) {
 template <int HD, bool FUSED>
 struct DkdvLayout {
   static constexpr int kBq = kBlockQ;
-  static constexpr int kKvBytes = HD / 64 * kHalf;
-  static constexpr int kQHalf = kBq * 128;  // a 64-column half of a q_s or dO tile
-  static constexpr int kQBytes = HD / 64 * kQHalf;
+  static constexpr int kKvBytes = kBlockRows * HD * 2;
+  static constexpr int kQHalf = kBq * TileRow<HD>::kBytes;  // one box of a q_s or dO tile (a 64-column half)
+  static constexpr int kQBytes = kBq * HD * 2;
   static constexpr int kDsBytes = kBlockRows * kBq * 2;  // ds^T: 128 kv rows of 64 q columns
   static constexpr int kK = 0;
   static constexpr int kV = kK + kKvBytes;
@@ -173,15 +177,16 @@ __device__ __forceinline__ void dkdv_produce(const CUtensorMap* q_map, const CUt
                                              uint32_t base, unsigned char* smem, int kv0, int n, int b, int t0,
                                              int num_tiles) {
   using L = DkdvLayout<HD, FUSED>;
+  using R = TileRow<HD>;
   constexpr int kPerLane = L::kBq / 32;
   const int lane = threadIdx.x % 32;
   const uint32_t kv_full = base + L::kBars;
   if (lane == 0) {
     mbar_expect_tx(kv_full, 2 * L::kKvBytes);
 #pragma unroll
-    for (int h = 0; h < HD / 64; ++h) {
-      tma_load(base + L::kK + h * kHalf, k_map, kv_full, h * 64, kv0, n, b);
-      tma_load(base + L::kV + h * kHalf, v_map, kv_full, h * 64, kv0, n, b);
+    for (int h = 0; h < R::kBoxes; ++h) {
+      tma_load(base + L::kK + h * kHalf, k_map, kv_full, h * R::kCols, kv0, n, b);
+      tma_load(base + L::kV + h * kHalf, v_map, kv_full, h * R::kCols, kv0, n, b);
     }
   }
   const int64_t rows = ((int64_t)b * p.heads + n) * p.seq_q;
@@ -200,9 +205,9 @@ __device__ __forceinline__ void dkdv_produce(const CUtensorMap* q_map, const CUt
     if (lane == 0) {
       mbar_expect_tx(full, 2 * L::kQBytes);
 #pragma unroll
-      for (int h = 0; h < HD / 64; ++h) {
-        tma_load(base + L::kQ + st * L::kQBytes + h * L::kQHalf, q_map, full, h * 64, q0, n, b);
-        tma_load(base + L::kDo + st * L::kQBytes + h * L::kQHalf, do_map, full, h * 64, q0, n, b);
+      for (int h = 0; h < R::kBoxes; ++h) {
+        tma_load(base + L::kQ + st * L::kQBytes + h * L::kQHalf, q_map, full, h * R::kCols, q0, n, b);
+        tma_load(base + L::kDo + st * L::kQBytes + h * L::kQHalf, do_map, full, h * R::kCols, q0, n, b);
       }
     }
     float* s_lse = reinterpret_cast<float*>(smem + L::kLse) + st * L::kBq;
@@ -323,7 +328,8 @@ __device__ __forceinline__ void dkdv_consume(const BwdParams& p, uint32_t base, 
   const int row0 = kv0 + 64 * cwg + 16 * warp + lane / 4;
   const bool row_ok[2] = {row0 < kv_len, row0 + 8 < kv_len};
   const bool rows_all_valid = kv0 + kBlockRows <= kv_len;
-  const uint32_t k_addr = base + L::kK + cwg * 64 * 128, v_addr = base + L::kV + cwg * 64 * 128;
+  const uint32_t k_addr = base + L::kK + cwg * 64 * TileRow<HD>::kBytes;
+  const uint32_t v_addr = base + L::kV + cwg * 64 * TileRow<HD>::kBytes;
 
   float dk[kAcc], dv[kAcc];
 #pragma unroll
@@ -692,7 +698,7 @@ __global__ void __launch_bounds__(256) dkdv_reduce_kernel(const float* dk_part, 
 // kDqStages v tiles, then the barriers q_full, full[kDqStages], empty[kDqStages].
 template <int HD>
 struct DqLayout {
-  static constexpr int kTileBytes = HD / 64 * kHalf;  // 128 rows
+  static constexpr int kTileBytes = kBlockKv * HD * 2;  // 128 rows
   static constexpr int kQ = 0;
   static constexpr int kDo = kQ + kTileBytes;
   static constexpr int kK = kDo + kTileBytes;
@@ -708,12 +714,13 @@ __device__ __forceinline__ void dq_produce(const CUtensorMap* q_map, const CUten
                                            const CUtensorMap* v_map, const CUtensorMap* do_map, uint32_t base, int q0,
                                            int n, int b, int num_tiles) {
   using L = DqLayout<HD>;
+  using R = TileRow<HD>;
   const uint32_t q_full = base + L::kBars;
   mbar_expect_tx(q_full, 2 * L::kTileBytes);
 #pragma unroll
-  for (int h = 0; h < HD / 64; ++h) {
-    tma_load(base + L::kQ + h * kHalf, q_map, q_full, h * 64, q0, n, b);
-    tma_load(base + L::kDo + h * kHalf, do_map, q_full, h * 64, q0, n, b);
+  for (int h = 0; h < R::kBoxes; ++h) {
+    tma_load(base + L::kQ + h * kHalf, q_map, q_full, h * R::kCols, q0, n, b);
+    tma_load(base + L::kDo + h * kHalf, do_map, q_full, h * R::kCols, q0, n, b);
   }
   for (int t = 0; t < num_tiles; ++t) {
     const int st = t % kDqStages;
@@ -721,9 +728,9 @@ __device__ __forceinline__ void dq_produce(const CUtensorMap* q_map, const CUten
     mbar_wait(empty, ((t / kDqStages) & 1) ^ 1);
     mbar_expect_tx(full, 2 * L::kTileBytes);
 #pragma unroll
-    for (int h = 0; h < HD / 64; ++h) {
-      tma_load(base + L::kK + st * L::kTileBytes + h * kHalf, k_map, full, h * 64, t * kBlockKv, n, b);
-      tma_load(base + L::kV + st * L::kTileBytes + h * kHalf, v_map, full, h * 64, t * kBlockKv, n, b);
+    for (int h = 0; h < R::kBoxes; ++h) {
+      tma_load(base + L::kK + st * L::kTileBytes + h * kHalf, k_map, full, h * R::kCols, t * kBlockKv, n, b);
+      tma_load(base + L::kV + st * L::kTileBytes + h * kHalf, v_map, full, h * R::kCols, t * kBlockKv, n, b);
     }
   }
 }
@@ -748,7 +755,8 @@ __device__ __forceinline__ void dq_consume(const BwdParams& p, uint32_t base, in
     lse2[r] = row < p.seq_q ? p.lse[at] * kLog2e : 0.f;
     dl[r] = row < p.seq_q ? p.delta[at] : 0.f;
   }
-  const uint32_t q_addr = base + L::kQ + cwg * 64 * 128, do_addr = base + L::kDo + cwg * 64 * 128;
+  const uint32_t q_addr = base + L::kQ + cwg * 64 * TileRow<HD>::kBytes;
+  const uint32_t do_addr = base + L::kDo + cwg * 64 * TileRow<HD>::kBytes;
 
   float acc[kAcc];
 #pragma unroll
@@ -933,8 +941,10 @@ int dkdv_entry(const void* q_s, const void* k_r, const void* v, const void* dout
                const void* kv_lens, const void* rope_cos, const void* rope_sin, void* dk, void* dv, void* partials,
                float* dq_acc, int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype,
                const int64_t* strides, int64_t rope_sn, int splits, int q_tiles_per_split, void* stream) {
-  if ((head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1) || splits < 1 || q_tiles_per_split < 1 ||
-      (splits > 1 && partials == nullptr) || (FUSED && dq_acc == nullptr))
+  // H=32: K2 and its reduce pass only (K5 at H=32 is still to port, ROADMAP.md queue 2 item 5).
+  const bool narrow = head_dim == 32 && !FUSED;
+  if ((head_dim != 64 && head_dim != 128 && !narrow) || (dtype != 0 && dtype != 1) || splits < 1 ||
+      q_tiles_per_split < 1 || (splits > 1 && partials == nullptr) || (FUSED && dq_acc == nullptr))
     return cudaErrorInvalidValue;
   CUtensorMap maps[5];
   if (!encode_maps(maps, q_s, k_r, v, dout, dtype, batch, heads, seq_q, seq_kv, head_dim, kBlockQ, kBlockRows,
@@ -962,6 +972,15 @@ int dkdv_entry(const void* q_s, const void* k_r, const void* v, const void* dout
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if constexpr (!FUSED) {
+    if (narrow) {
+      err = dtype == 0 ? launch_dkdv<__nv_bfloat16, 32, false>(maps, k2, s) : launch_dkdv<__half, 32, false>(maps, k2, s);
+      if (err != cudaSuccess || splits == 1) return err;
+      p.splits = splits;
+      return dtype == 0 ? launch_reduce<__nv_bfloat16, 32>(dk_part, dv_part, p, s)
+                        : launch_reduce<__half, 32>(dk_part, dv_part, p, s);
+    }
+  }
   if (dtype == 0 && head_dim == 64) err = launch_dkdv<__nv_bfloat16, 64, FUSED>(maps, k2, s);
   else if (dtype == 0) err = launch_dkdv<__nv_bfloat16, 128, FUSED>(maps, k2, s);
   else if (head_dim == 64) err = launch_dkdv<__half, 64, FUSED>(maps, k2, s);
@@ -979,7 +998,8 @@ int dkdv_entry(const void* q_s, const void* k_r, const void* v, const void* dout
 // Plain C entry points, loaded with ctypes. q_s and k_r are the pre-pass's
 // operands (k itself when there are no RoPE tables); dtype: 0 = bf16, 1 = fp16;
 // strides in elements, the head dim contiguous and every operand 16-byte
-// aligned. Each returns a cudaError_t (cudaErrorInvalidValue also when a
+// aligned; head_dim 64 or 128, and 32 for K2 (with its reduce pass) and K3.
+// Each returns a cudaError_t (cudaErrorInvalidValue also when a
 // tensor map cannot be encoded).
 
 // K2. strides: q_s, k_r, v, dO, dk, dv, each (batch, head, seq). With splits >
@@ -1015,7 +1035,8 @@ extern "C" int flash_bwd_dq_sm90(const void* q_s, const void* k_r, const void* v
                                  const void* delta, const void* kv_lens, const void* rope_cos, const void* rope_sin,
                                  void* dq, int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype,
                                  const int64_t* strides, int64_t rope_sn, float scale, void* stream) {
-  if ((head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  if ((head_dim != 32 && head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
   CUtensorMap maps[4];
   if (!encode_maps(maps, q_s, k_r, v, dout, dtype, batch, heads, seq_q, seq_kv, head_dim, kBlockRows, kBlockKv,
                    strides))
@@ -1025,6 +1046,7 @@ extern "C" int flash_bwd_dq_sm90(const void* q_s, const void* k_r, const void* v
   p.dk_sb = strides[12]; p.dk_sn = strides[13]; p.dk_ss = strides[14];
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 32) return dtype == 0 ? launch_dq<__nv_bfloat16, 32>(maps, p, s) : launch_dq<__half, 32>(maps, p, s);
   if (dtype == 0 && head_dim == 64) return launch_dq<__nv_bfloat16, 64>(maps, p, s);
   if (dtype == 0) return launch_dq<__nv_bfloat16, 128>(maps, p, s);
   if (head_dim == 64) return launch_dq<__half, 64>(maps, p, s);

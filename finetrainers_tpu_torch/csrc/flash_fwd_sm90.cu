@@ -57,6 +57,12 @@
 //    (K-major: H is contiguous). The softmax recurrence runs in fp32 registers
 //    on the accumulator fragments; p, rounded to T, stays in registers as the A
 //    operand of P V (m64nHk16, v from shared memory, MN-major).
+//  - At H=32 (K1 only) a row of q, k or v is 64 bytes: TMA writes each tile as
+//    one box under the 64-byte swizzle, the descriptors take that layout (8-row
+//    groups 512 bytes apart), QK^T is two k16 steps and P V is m64n32k16, with
+//    three consumers as at H=64. A score there costs 128 tensor flops but one
+//    exponential, so the SFU's ~16 exp2 per SM per clock, not the tensor
+//    cores, bound the kernel (PERF.md).
 //  - Inside a warpgroup, tile t's QK^T is issued together with tile t-1's P V,
 //    and tile t's softmax runs while that P V is still on the tensor cores; the
 //    two warpgroups run unsynchronised, so one's softmax also overlaps the
@@ -138,7 +144,7 @@ constexpr int kProducerRegs = 24;
 // The kernels of this file: K1, K7a (two-pass), K7c (two-level), K7b (skewed).
 enum Variant { kStraight, kTwoPass, kTwoLevel, kSkew };
 // Consumer warpgroups per CTA, each owning 64 q rows. K1 and K7a: three at
-// H=64, where the softmax is a larger share of a tile's work and a third
+// H=64 and H=32, where the softmax is a larger share of a tile's work and a third
 // warpgroup hides more of it (measured ~13% faster at LTX's shape than two);
 // two at H=128, where three sets of accumulators would not fit the register
 // file. K7c and K7b: two at both, as each holds a second score or product
@@ -147,7 +153,7 @@ template <int HD, int V = kStraight>
 __host__ __device__ constexpr int consumer_wgs() {
   if (V == kTwoLevel) return 2;
   if (V == kSkew) return 2;
-  return HD == 64 ? 3 : 2;
+  return HD <= 64 ? 3 : 2;
 }
 template <int HD, int V = kStraight>
 __host__ __device__ constexpr int block_m() {  // q rows per CTA
@@ -163,7 +169,8 @@ template <int HD, int V = kStraight>
 __host__ __device__ constexpr int consumer_regs() {
   return consumer_wgs<HD, V>() == 3 ? 160 : 240;
 }
-// A 64-column half of a 128-row tile: 128 rows of 128 bytes, one TMA box.
+// A 64-column half of a 128-row tile: 128 rows of 128 bytes, one TMA box (at
+// H=32 the whole 128 x 64-byte tile is one box).
 constexpr int kHalfBytes = 128 * 128;
 
 // Byte offsets in shared memory (from a 1024-byte aligned base, as the
@@ -172,9 +179,10 @@ constexpr int kHalfBytes = 128 * 128;
 // v_empty[kStages].
 template <int HD, int WGS = consumer_wgs<HD>()>
 struct Layout {
-  static constexpr int kTileBytes = HD / 64 * kHalfBytes;
+  static constexpr int kTileBytes = kBlockN * HD * 2;
   static constexpr int kQBytes = 64 * WGS * HD * 2;
-  static_assert(HD == 64 || WGS == 2, "the q tile's 64-column halves must be kHalfBytes apart");
+  static_assert(TileRow<HD>::kBoxes <= 2 && (TileRow<HD>::kBoxes == 1 || WGS == 2),
+                "the q tile's 64-column halves must be kHalfBytes apart");
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
@@ -198,9 +206,10 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map, const CUtensor
                                         uint32_t base, int q0, int n, int b, int num_tiles) {
   using L = Layout<HD, WGS>;
   const uint32_t q_full = base + L::kBars;
+  using R = TileRow<HD>;
   mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
-  for (int h = 0; h < HD / 64; ++h) tma_load(base + L::kQ + h * kHalfBytes, q_map, q_full, h * 64, q0, n, b);
+  for (int h = 0; h < R::kBoxes; ++h) tma_load(base + L::kQ + h * kHalfBytes, q_map, q_full, h * R::kCols, q0, n, b);
   for (int t = 0; t < num_tiles; ++t) {
     const int st = t % kStages;
     const uint32_t parity = ((t / kStages) & 1) ^ 1;  // the first round finds every stage free
@@ -209,13 +218,13 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map, const CUtensor
     mbar_wait(k_empty, parity);
     mbar_expect_tx(k_full, L::kTileBytes);
 #pragma unroll
-    for (int h = 0; h < HD / 64; ++h)
-      tma_load(base + L::kK + st * L::kTileBytes + h * kHalfBytes, k_map, k_full, h * 64, t * kBlockN, n, b);
+    for (int h = 0; h < R::kBoxes; ++h)
+      tma_load(base + L::kK + st * L::kTileBytes + h * kHalfBytes, k_map, k_full, h * R::kCols, t * kBlockN, n, b);
     mbar_wait(v_empty, parity);
     mbar_expect_tx(v_full, L::kTileBytes);
 #pragma unroll
-    for (int h = 0; h < HD / 64; ++h)
-      tma_load(base + L::kV + st * L::kTileBytes + h * kHalfBytes, v_map, v_full, h * 64, t * kBlockN, n, b);
+    for (int h = 0; h < R::kBoxes; ++h)
+      tma_load(base + L::kV + st * L::kTileBytes + h * kHalfBytes, v_map, v_full, h * R::kCols, t * kBlockN, n, b);
   }
 }
 
@@ -303,7 +312,7 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg,
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // this thread's partial row sums; reduced over the quad at the end
 
-  const uint32_t q_addr = base + L::kQ + cwg * 64 * 128;
+  const uint32_t q_addr = base + L::kQ + cwg * 64 * TileRow<HD>::kBytes;
   mbar_wait(q_full, 0);
   if (num_tiles > 0) {
     float s[64], alpha[2], rowsum[2];
@@ -929,9 +938,11 @@ template <int V>
 int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, int batch,
               int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, float q_scale,
               void* stream) {
-  if ((head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  // H=32: K1 only (K7a/b/c at H=32 are still to port, ROADMAP.md queue 2 item 5).
+  const bool narrow = head_dim == 32 && V == kStraight;
+  if ((head_dim != 64 && head_dim != 128 && !narrow) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
-  const int q_rows = head_dim == 64 ? block_m<64, V>() : block_m<128, V>();
+  const int q_rows = narrow ? block_m<32, V>() : head_dim == 64 ? block_m<64, V>() : block_m<128, V>();
   if (!encode_operand(&q_map, q_s, dtype, head_dim, seq_q, heads, batch, q_rows, strides[0], strides[1], strides[2]) ||
       !encode_operand(&k_map, k_r, dtype, head_dim, seq_kv, heads, batch, kBlockN, strides[3], strides[4],
                       strides[5]) ||
@@ -947,6 +958,10 @@ int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* 
   p.o_sb = strides[9]; p.o_sn = strides[10]; p.o_ss = strides[11];
   p.q_scale = q_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (V == kStraight) {
+    if (narrow && dtype == 0) return launch<__nv_bfloat16, 32, V>(q_map, k_map, v_map, p, batch, s);
+    if (narrow) return launch<__half, 32, V>(q_map, k_map, v_map, p, batch, s);
+  }
   if (dtype == 0 && head_dim == 64) return launch<__nv_bfloat16, 64, V>(q_map, k_map, v_map, p, batch, s);
   if (dtype == 0) return launch<__nv_bfloat16, 128, V>(q_map, k_map, v_map, p, batch, s);
   if (head_dim == 64) return launch<__half, 64, V>(q_map, k_map, v_map, p, batch, s);
@@ -960,8 +975,8 @@ int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* 
 // takes the raw q and k and scales q by `q_scale` (scale * log2(e)) itself.
 // dtype: 0 = bf16, 1 = fp16; strides: q_s, k_r, v, out, each (batch, head,
 // seq), in elements; the head dim is contiguous and every operand 16-byte
-// aligned. Each returns a cudaError_t (cudaErrorInvalidValue also when a tensor
-// map cannot be encoded).
+// aligned; head_dim 64 or 128, and 32 for K1. Each returns a cudaError_t
+// (cudaErrorInvalidValue also when a tensor map cannot be encoded).
 #define FWD_ENTRY(NAME, V)                                                                                      \
   extern "C" int NAME(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, \
                       int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, \

@@ -2,8 +2,9 @@
 // (flash_fwd_sm90.cu), K2/K3 and K5 (flash_bwd_sm90.cu) and K6 (sage_fwd_sm90.cu).
 // Device side: the mbarrier helpers, TMA tile loads and reduces, setmaxnreg,
 // named barriers, shared stores, the generic-to-async proxy fence, the wgmma
-// fence/commit/wait, the register fences, the shared-memory descriptors for the
-// 128- and 64-byte swizzles and the bf16/fp16 and int8 wgmma shape wrappers.
+// fence/commit/wait, the register fences, the tile rows and shared-memory
+// descriptors for the 128- and 64-byte swizzles (head dims 64/128 and 32) and
+// the bf16/fp16 and int8 wgmma shape wrappers.
 // Host side:
 // cuTensorMapEncodeTiled from the loaded driver and the rank-4 (H, S, N, B)
 // tensor maps over BNSH views of BTNH buffers.
@@ -150,34 +151,59 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
 }
 
-// The tiles TMA writes are 64-column halves, each `rows` rows of 128 bytes
-// (one box), a half's bytes apart.
-//
-// K-major operand (rows are M or N, the 64 columns are the contraction dim):
-// 8-row groups are 1024 bytes apart; a k-step of 16 columns moves the start 32
-// bytes inside the swizzle row, a 64-column half moves it by HALF bytes.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) { return smem_desc(addr, 16, 1024); }
-template <int HALF>
+// The row of an operand tile of HD 2-byte columns in shared memory, as TMA
+// writes it and wgmma reads it: at H >= 64 a 64-column half of the row (128
+// bytes, the 128-byte swizzle; a tile is H / 64 such halves, a half's bytes
+// apart); at H = 32 the whole row (64 bytes, the 64-byte swizzle; one box).
+// kLayout is the descriptor's swizzle field.
+template <int HD>
+struct TileRow {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "the wgmma kernels take head dims 32, 64 and 128");
+  static constexpr int kBytes = HD >= 64 ? 128 : 2 * HD;
+  static constexpr int kCols = kBytes / 2;  // columns of one TMA box
+  static constexpr int kBoxes = HD / kCols;
+  static constexpr uint64_t kLayout = HD >= 64 ? 1 : 2;
+};
+
+// K-major operand (rows are M or N, the columns the contraction dim): 8-row
+// groups are 8 rows apart (1024 bytes under the 128-byte swizzle, 512 under
+// the 64-byte one); a k-step of 16 columns moves the start 32 bytes inside the
+// swizzle row, past its end to the next 64-column half, HALF bytes on.
+template <int HD = 64>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return smem_desc(addr, 16, 8 * TileRow<HD>::kBytes, TileRow<HD>::kLayout);
+}
+template <int HALF, int HD = 64>
 __device__ __forceinline__ uint32_t kmajor_step(int kk) {
-  return ((kk / 4) * HALF + (kk % 4) * 32) >> 4;
+  constexpr int kPerRow = TileRow<HD>::kBytes / 32;  // k-steps in one swizzle row
+  return ((kk / kPerRow) * HALF + (kk % kPerRow) * 32) >> 4;
 }
 
 // MN-major operand (the B of a register-A product: rows are the contraction
-// dim, the columns N): 8-row groups are 1024 bytes apart (SBO), 64-column
-// halves `half` bytes apart (LBO); a k-step of 16 rows moves the start 2048 bytes.
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t half) { return smem_desc(addr, half, 1024); }
-__device__ __forceinline__ uint32_t mnmajor_step(int kk) { return (kk * 2048) >> 4; }
+// dim, the columns N): 8-row groups are 8 rows apart (SBO), 64-column halves
+// `half` bytes apart (LBO; at H = 32 N is one 32-column swizzle atom, so LBO
+// is never used); a k-step of 16 rows moves the start 16 rows.
+template <int HD = 64>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t half) {
+  return smem_desc(addr, half, 8 * TileRow<HD>::kBytes, TileRow<HD>::kLayout);
+}
+template <int HD = 64>
+__device__ __forceinline__ uint32_t mnmajor_step(int kk) {
+  return (kk * 16 * TileRow<HD>::kBytes) >> 4;
+}
 
 #define ACC8(i)                                                                                                    \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
       "+f"(d[i + 7])
-#define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+#define ACC16 ACC8(0), ACC8(8)
+#define ACC32 ACC16, ACC8(16), ACC8(24)
 #define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
 #define OUT8(i)                                                                                                    \
   "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]), "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), \
       "=f"(d[i + 7])
 #define OUT32 OUT8(0), OUT8(8), OUT8(16), OUT8(24)
 #define OUT64 OUT32, OUT8(32), OUT8(40), OUT8(48), OUT8(56)
+#define REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define REGS32                                                                   \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -192,7 +218,7 @@ __device__ __forceinline__ uint32_t mnmajor_step(int kk) { return (kk * 2048) >>
 //         both K-major; scale_d 0 overwrites d.
 //  ss64_new / ss128_new: d = A B, as ss64 / ss128 with scale_d 0, but d's
 //         registers are outputs only, so their old values need not stay live.
-//  rs64 / rs128: d (64 x 64 / 128) (+)= A (64 x 16, registers) B (16 x N, smem, MN-major);
+//  rs32 / rs64 / rs128: d (64 x 32 / 64 / 128) (+)= A (64 x 16, registers) B (16 x N, smem, MN-major);
 //         scale_d 0 overwrites d.
 //  ss64_mn: d (64 x 64) (+)= A (64 x 16, smem) B (16 x 64, smem), both MN-major
 //         (A's 64 rows contiguous along each contraction row).
@@ -226,6 +252,13 @@ __device__ __forceinline__ uint32_t mnmajor_step(int kk) { return (kk * 2048) >>
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " REGS32 ", %32, %33, p, 1, 1, 1, 1;\n}\n" \
                  : ACC32                                                                                         \
                  : "l"(a), "l"(b), "r"(scale_d));                                                                \
+  }                                                                                                              \
+  static __device__ __forceinline__ void rs32(float* d, const uint32_t* a, uint64_t b, int scale_d = 1) {       \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                                    \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " REGS16                              \
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                                                 \
+                 : ACC16                                                                                         \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));                           \
   }                                                                                                              \
   static __device__ __forceinline__ void rs64(float* d, const uint32_t* a, uint64_t b, int scale_d = 1) {       \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                    \
@@ -272,11 +305,12 @@ __device__ __forceinline__ void wgmma_s8_n128(int32_t* d, uint64_t a, uint64_t b
 // d (64 x N) = A B^T over the contraction dim HD, both operands K-major in
 // shared memory: A's 64 rows at `a_addr` in a tile whose halves are A_HALF
 // bytes apart, B's N rows at `b_addr` in a tile whose halves are B_HALF bytes
-// apart. Issued, not waited for. NEW: the first k-step takes d's registers as
-// outputs only (`ss*_new`), so d's old values die before the issue.
+// apart (HALF matters at H = 128 only). Issued, not waited for. NEW: the first
+// k-step takes d's registers as outputs only (`ss*_new`), so d's old values die
+// before the issue.
 template <typename T, int HD, int N, int A_HALF, int B_HALF, bool NEW = false>
 __device__ __forceinline__ void issue_ss(float* d, uint32_t a_addr, uint32_t b_addr) {
-  const uint64_t a_desc = kmajor_desc(a_addr), b_desc = kmajor_desc(b_addr);
+  const uint64_t a_desc = kmajor_desc<HD>(a_addr), b_desc = kmajor_desc<HD>(b_addr);
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     if constexpr (NEW && N == 64) {
@@ -291,9 +325,9 @@ __device__ __forceinline__ void issue_ss(float* d, uint32_t a_addr, uint32_t b_a
       }
     }
     if constexpr (N == 64) {
-      Wgmma<T>::ss64(d, a_desc + kmajor_step<A_HALF>(kk), b_desc + kmajor_step<B_HALF>(kk), kk);
+      Wgmma<T>::ss64(d, a_desc + kmajor_step<A_HALF, HD>(kk), b_desc + kmajor_step<B_HALF, HD>(kk), kk);
     } else {
-      Wgmma<T>::ss128(d, a_desc + kmajor_step<A_HALF>(kk), b_desc + kmajor_step<B_HALF>(kk), kk);
+      Wgmma<T>::ss128(d, a_desc + kmajor_step<A_HALF, HD>(kk), b_desc + kmajor_step<B_HALF, HD>(kk), kk);
     }
   }
 }
@@ -304,14 +338,16 @@ __device__ __forceinline__ void issue_ss(float* d, uint32_t a_addr, uint32_t b_a
 // bytes apart. Issued, not waited for.
 template <typename T, int HD, int K, int B_HALF>
 __device__ __forceinline__ void issue_rs(float* d, uint32_t (*a)[4], uint32_t b_addr, bool overwrite = false) {
-  const uint64_t b_desc = mnmajor_desc(b_addr, B_HALF);
+  const uint64_t b_desc = mnmajor_desc<HD>(b_addr, B_HALF);
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
     const int scale_d = overwrite && kk == 0 ? 0 : 1;
-    if constexpr (HD == 64) {
-      Wgmma<T>::rs64(d, a[kk], b_desc + mnmajor_step(kk), scale_d);
+    if constexpr (HD == 32) {
+      Wgmma<T>::rs32(d, a[kk], b_desc + mnmajor_step<HD>(kk), scale_d);
+    } else if constexpr (HD == 64) {
+      Wgmma<T>::rs64(d, a[kk], b_desc + mnmajor_step<HD>(kk), scale_d);
     } else {
-      Wgmma<T>::rs128(d, a[kk], b_desc + mnmajor_step(kk), scale_d);
+      Wgmma<T>::rs128(d, a[kk], b_desc + mnmajor_step<HD>(kk), scale_d);
     }
   }
 }
@@ -405,12 +441,15 @@ inline bool encode_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType ty
   return true;
 }
 
-// A bf16 (dtype 0) or fp16 (1) operand's map of 64 x box_rows boxes with the
-// 128-byte swizzle (64 columns of 2 bytes: one swizzle row).
+// A bf16 (dtype 0) or fp16 (1) operand's map in boxes of box_rows rows of one
+// TileRow: 64 columns under the 128-byte swizzle at H >= 64, the whole 32-column
+// row under the 64-byte swizzle at H = 32.
 inline bool encode_operand(CUtensorMap* map, const void* ptr, int dtype, int head_dim, int seq, int heads, int batch,
                            int box_rows, int64_t sb, int64_t sn, int64_t ss) {
-  return encode_map(map, ptr, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, 64,
-                    CU_TENSOR_MAP_SWIZZLE_128B, head_dim, seq, heads, batch, box_rows, sb, sn, ss);
+  const bool narrow = head_dim < 64;
+  return encode_map(map, ptr, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2,
+                    narrow ? head_dim : 64, narrow ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                    head_dim, seq, heads, batch, box_rows, sb, sn, ss);
 }
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory and return

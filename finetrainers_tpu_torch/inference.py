@@ -14,10 +14,12 @@ The parser has every flag and default of the JAX runner's, plus the port's
 `--prompt` (with `--image_path` for image-to-video) or from `--dataset_file`
 (JSON, JSONL or CSV rows of prompt/image_path/...). `--attn_provider` runs the
 denoise loop under that attention provider (`sage` reaches the int8 kernel).
-A flag whose feature the port lacks raises NotImplementedError naming its
-ROADMAP.md item when it is not at its default: parallel degrees above 1,
-`--quantize_int8`, `.parquet` request files, and the dummy family, not ported
-yet. A control checkpoint (`--training_type control-lora` or
+`--quantize_int8` stores the transformer's base weights as int8 codes
+with per-output-channel scales after the adapter is applied (its factors
+stay as they are), so its linear layers run on int8 GEMMs. A flag whose
+feature the port lacks raises NotImplementedError naming its ROADMAP.md item
+when it is not at its default: parallel degrees above 1 and `.parquet`
+request files. A control checkpoint (`--training_type control-lora` or
 `control-full-finetune`) is served as JAX serves it (:181-187): the model
 widened to 2x the latent channels, the adapter's
 `control_aux_weights.safetensors` loaded with it, and `--control_image_path`
@@ -70,7 +72,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     g.add_argument("--enable_slicing", action="store_true")
     g.add_argument("--enable_tiling", action="store_true")
     g.add_argument("--quantize_int8", action="store_true",
-                   help="int8 storage of the transformer's base weights (not ported; ROADMAP.md queue 1 item 6)")
+                   help="int8 storage of the transformer's base weights (per-output-channel scales), run on int8 "
+                        "GEMMs; the LoRA factors stay as they are")
     g.add_argument("--lora_weights", type=str, default=None,
                    help="Directory or safetensors file of exported LoRA weights")
     g.add_argument("--lora_scale", type=float, default=1.0)
@@ -118,7 +121,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 # (flags, their default, the ROADMAP.md item of their feature)
 _UNPORTED = (
     (("pp_degree", "dp_degree", "dp_shards", "cp_degree", "tp_degree"), 1, "queue 1 item 10 (parallel)"),
-    (("quantize_int8",), False, "queue 1 item 6 (fp8 and int8 weight storage)"),
     (("revision", "cache_dir"), None, "queue 1 item 5 (loading diffusers checkpoints)"),
     (("tokenizer_id", "tokenizer_2_id", "tokenizer_3_id", "text_encoder_2_id", "text_encoder_3_id"), None,
      "queue 1 item 7 (the text towers)"),
@@ -190,6 +192,14 @@ class Inference:
             apply_auxiliary_weights(transformer.module, os.path.join(lora_dir, AUX_WEIGHTS_NAME),
                                     key_map=getattr(spec, "transformer_key_map", None))
             logger.info(f"Loaded LoRA from {args.lora_weights} ({len(state)} tensors)")
+        if args.quantize_int8:
+            # JAX :217-228: the base weights' codes and scales, the adapter's factors kept as they are.
+            from .utils.int8 import apply_int8_storage, count_int8_bytes
+
+            transformer.module.requires_grad_(False)
+            apply_int8_storage(transformer.module)
+            logger.info(f"Quantized {count_int8_bytes(transformer.module):,} bytes of transformer base weights to "
+                        "int8 (the LoRA factors stay as they are)")
         vae = spec.load_latent_models()["vae"]
         if args.enable_slicing:
             vae.enable_slicing()

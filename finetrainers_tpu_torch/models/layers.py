@@ -1,5 +1,5 @@
 """Shared building blocks (port of the parts of `finetrainers_tpu/models/layers.py`
-that the LTX-Video and Wan 2.1 paths run).
+that the port's families run).
 
 Parameter names follow diffusers/peft: a linear layer holds `weight` (out, in)
 and `bias`; its LoRA factors are `lora_A.weight` (r, in) and `lora_B.weight`
@@ -65,11 +65,33 @@ class LoRADense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xc = x.to(self.compute_dtype)
-        y = F.linear(xc, self.weight.to(xc.dtype), None if self.bias is None else self.bias.to(xc.dtype))
+        bias = None if self.bias is None else self.bias.to(xc.dtype)
+        if self.weight.dtype == torch.int8:
+            # A frozen weight stored int8 (`utils.int8.apply_int8_storage`, scales in `weight_qscale`): the
+            # forward and input-gradient products run on int8 GEMMs (layers.py:54-63).
+            from ..ops.int8_linear import int8_linear
+
+            y = int8_linear(xc, self.weight, self.weight_qscale)
+            if bias is not None:
+                y = y + bias
+        else:  # fp8 storage (`utils.fp8`) is cast to the compute dtype here, as any other dtype
+            y = F.linear(xc, self.weight.to(xc.dtype), bias)
         if self.rank > 0:
             delta = F.linear(F.linear(xc, self.lora_A.weight.to(xc.dtype)), self.lora_B.weight.to(xc.dtype))
             y = y + (self.scaling * delta).to(y.dtype)
         return y
+
+
+def dense_weight(layer: "LoRADense") -> torch.Tensor:
+    """A layer's weight as a fused consumer reads it: an int8-stored weight
+    dequantized with its scales to the compute dtype (the fused matmul takes the
+    storage's memory saving, not the int8 products: layers.py:102-107), an fp8
+    one cast to it, any other as it is stored."""
+    if layer.weight.dtype == torch.int8:
+        return (layer.weight.float() * layer.weight_qscale[:, None]).to(layer.compute_dtype)
+    if layer.weight.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return layer.weight.to(layer.compute_dtype)
+    return layer.weight
 
 
 def lora_proj_params(layers):
@@ -78,7 +100,7 @@ def lora_proj_params(layers):
     one bias, and one stacked lora_A, so a parent runs one wide matmul (and one
     LoRA-A matmul) instead of several narrow ones. Returns (weight, bias,
     lora_A or None, [lora_B, ...] or None)."""
-    weight = torch.cat([layer.weight for layer in layers], dim=0)
+    weight = torch.cat([dense_weight(layer) for layer in layers], dim=0)
     bias = torch.cat([layer.bias for layer in layers]) if layers[0].bias is not None else None
     if layers[0].rank == 0:
         return weight, bias, None, None
@@ -108,6 +130,51 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))
+
+
+class DenseMLP(nn.Module):
+    """The JAX package's `FeedForward` layout (layers.py:295): `proj_in` ->
+    gelu(tanh) -> `proj_out`, `dim` -> `inner` -> `dim`; `kw` goes to both
+    LoRADense layers (the families that load diffusers' `net.0.proj` names
+    use `FeedForward` instead)."""
+
+    def __init__(self, dim: int, inner: int, **kw) -> None:
+        super().__init__()
+        self.proj_in = LoRADense(dim, inner, **kw)
+        self.proj_out = LoRADense(inner, dim, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj_out(F.gelu(self.proj_in(x), approximate="tanh"))
+
+
+class Attention(nn.Module):
+    """Multi-head self- or cross-attention with biases and LoRA on
+    to_q/to_k/to_v/to_out (`Attention`, layers.py:229, without its optional
+    qk-norm and RoPE): (B, S, dim) in, heads split to (B, S, N, H) for
+    `attention_dispatch`, with `kv_lens` for the context's valid keys."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: Optional[int] = None,
+                 lora_rank: int = 0, lora_alpha: float = 1.0, dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        inner = num_heads * head_dim
+        self.num_heads, self.head_dim = num_heads, head_dim
+        kw = dict(rank=lora_rank, alpha=lora_alpha, dtype=dtype)
+        self.to_q = LoRADense(dim, inner, **kw)
+        self.to_k = LoRADense(context_dim or dim, inner, **kw)
+        self.to_v = LoRADense(context_dim or dim, inner, **kw)
+        self.to_out = LoRADense(inner, dim, **kw)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        from ..ops import attention_dispatch
+
+        ctx = x if context is None else context
+        b, sq, skv = x.shape[0], x.shape[1], ctx.shape[1]
+        q = self.to_q(x).reshape(b, sq, self.num_heads, self.head_dim)
+        k = self.to_k(ctx).reshape(b, skv, self.num_heads, self.head_dim)
+        v = self.to_v(ctx).reshape(b, skv, self.num_heads, self.head_dim)
+        out = attention_dispatch(q, k, v, kv_lens=kv_lens)
+        return self.to_out(out.reshape(b, sq, self.num_heads * self.head_dim))
 
 
 class RMSNorm(nn.Module):
@@ -179,6 +246,26 @@ def sinusoidal_timestep_embedding(
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """Sinusoidal embedding (flip_sin_to_cos, no shift) -> `linear_1` -> silu
+    -> `linear_2` (`TimestepEmbedding`, layers.py:185)."""
+
+    def __init__(self, dim: int, freq_dim: int = 256, dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.freq_dim, self.dtype = freq_dim, dtype
+        self.linear_1 = LoRADense(freq_dim, dim, dtype=dtype)
+        self.linear_2 = LoRADense(dim, dim, dtype=dtype)
+
+    def forward(self, timesteps: torch.Tensor) -> torch.Tensor:
+        emb = sinusoidal_timestep_embedding(timesteps, self.freq_dim, flip_sin_to_cos=True, downscale_freq_shift=0.0)
+        return self.linear_2(F.silu(self.linear_1(emb.to(self.dtype))))
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """adaLN modulation (layers.py:328): shift and scale (B, D) over the sequence."""
+    return x * (1.0 + scale[:, None]) + shift[:, None]
 
 
 ROPE_THETA = 10000.0

@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import FINETRAINERS_ATTN_CHECKS, FINETRAINERS_ATTN_PROVIDER
-from .flash_attention import _rope_fwd, flash_attention
+from .flash_attention import K1_HEAD_DIMS, _rope_fwd, flash_attention
 from .sage_attention import sage_attention
 
 
@@ -212,12 +212,12 @@ def _sdpa_attention(query, key, value, attn_mask, is_causal, scale, kv_lens):
 
 def _k1_takes(query, key, attn_mask, is_causal) -> bool:
     """Whether K1 computes this call: no dense mask, not causal, no GQA, and on
-    the card bf16/fp16 with head dim 64 or 128."""
+    the card bf16/fp16 with head dim 32, 64 or 128."""
     if attn_mask is not None or is_causal or query.shape[2] != key.shape[2]:
         return False
     if query.device.type == "cpu":
         return True
-    return query.dtype in (torch.bfloat16, torch.float16) and query.shape[-1] in (64, 128)
+    return query.dtype in (torch.bfloat16, torch.float16) and query.shape[-1] in K1_HEAD_DIMS
 
 
 @_AttentionProviderRegistry.register("flash")
@@ -227,7 +227,7 @@ def _flash(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs=N
     if not _k1_takes(query, key, attn_mask, is_causal):
         raise NotImplementedError(
             "K1 takes no causal, dense-mask or GQA call, and on the card only bf16/fp16 with "
-            f"head dim 64 or 128 (got {query.dtype}, head dim {query.shape[-1]}); "
+            f"head dim 32, 64 or 128 (got {query.dtype}, head dim {query.shape[-1]}); "
             "see ROADMAP.md (K1, still to port)"
         )
     cos, sin = rope_freqs if rope_freqs is not None else (None, None)

@@ -78,7 +78,11 @@ from ._build import load_library
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128)
+# The head dims each kernel takes: K1, the pre-pass, K2 (with its reduce pass)
+# and K3 at 32, 64 and 128; K5 and K7a/b/c at 64 and 128 (at 32 they are still
+# to port, ROADMAP.md queue 2 item 5).
+K1_HEAD_DIMS = (32, 64, 128)
+WIDE_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
 _SM90_BLOCK_KV = 128  # the kv tile of the wgmma K7a, K7c and K5 (a K5 CTA's kv rows)
 _SKEW_BLOCK_KV = 64  # K7b's score tile, half a stage of its 128-key ring
@@ -447,19 +451,22 @@ def _check_operand(fn: str, name: str, x: torch.Tensor, device: torch.device, dt
                          f"(strides {x.stride()})")
 
 
-def _check_kernel_call(fn: str, q, k, v, kv_lens, rope_cos, rope_sin):
-    """The checks K1, K2 and K3 share. Returns kv_lens as contiguous int32 (or
-    None) and the tables' per-head stride (0 for one table shared by every head)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {q.device}")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{fn}: the kernel takes bf16 or fp16, got {q.dtype}")
+def _check_kernel_call(fn: str, q, k, v, kv_lens, rope_cos, rope_sin, head_dims=K1_HEAD_DIMS):
+    """The checks every flash kernel shares, with the head dims the called
+    kernel takes. Returns kv_lens as contiguous int32 (or None) and the tables'
+    per-head stride (0 for one table shared by every head)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"{fn}: q, k, v must be (B, N, S, H)")
     batch, heads, seq_q, head_dim = q.shape
     seq_kv = k.shape[2]
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {head_dim} not in {_HEAD_DIMS}")
+    if head_dim not in head_dims:
+        raise ValueError(f"{fn}: head dim {head_dim} not in {head_dims}"
+                         + ("" if head_dim not in K1_HEAD_DIMS else
+                            " (this kernel at that head dim is still to port: ROADMAP.md queue 2 item 5)"))
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{fn}: the kernel takes bf16 or fp16, got {q.dtype}")
     if tuple(k.shape) != (batch, heads, seq_kv, head_dim) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"{fn}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -570,7 +577,7 @@ def flash_forward(
     """The pre-pass and K1 on BNSH tensors -> (out (B, N, Sq, H) in q's dtype,
     lse (B, N, Sq) fp32), or K7a/b/c where a switch picks them (`forward_variant`).
 
-    The kernel takes bf16 or fp16 with H in {64, 128} and any sequence lengths;
+    The kernel takes bf16 or fp16 with H in {32, 64, 128} and any sequence lengths;
     fused RoPE needs Sq == Skv and (N or 1, S, H) fp32 tables. `out` is a BNSH
     view of a BTNH-contiguous buffer, so `out.transpose(1, 2)` is contiguous."""
     variant = forward_variant(rope_cos is not None)
@@ -591,7 +598,7 @@ def _forward_kernel(fn_name, entry, q, k, v, kv_lens, rope_cos, rope_sin, scale)
     """Check a forward call and launch `entry` of `csrc/flash_fwd_sm90.cu`
     (`_sm90_forward`): K7a and K7c after the pre-pass, on its operands; K7b,
     which takes no tables, on q and k themselves, scaling q in the kernel."""
-    kv_lens, rope_sn = _check_kernel_call(fn_name, q, k, v, kv_lens, rope_cos, rope_sin)
+    kv_lens, rope_sn = _check_kernel_call(fn_name, q, k, v, kv_lens, rope_cos, rope_sin, WIDE_HEAD_DIMS)
     scale = q.shape[-1]**-0.5 if scale is None else float(scale)
     if entry == "flash_fwd_skew_sm90":
         return _sm90_forward(entry, q, k, v, kv_lens, scale * _LOG2E)
@@ -796,7 +803,7 @@ def flash_backward(
     caller-given natural-log `lse` (B, N, Sq) fp32 and the output gradient `do`;
     with FINETRAINERS_FLASH_FUSED_BWD=1, K5 and its dq emit instead.
 
-    Takes what K1 takes (bf16/fp16, H in {64, 128}, any sequence lengths,
+    Takes what K1 takes (bf16/fp16, H in {32, 64, 128}, any sequence lengths,
     `kv_lens`, fused RoPE from (N or 1, S, H) fp32 tables with Sq == Skv).
     delta = rowsum(dO * out) in fp32 is computed here in plain PyTorch unless
     given. dq, dk, dv are BNSH views of BTNH-contiguous buffers."""
@@ -804,7 +811,8 @@ def flash_backward(
     if q.device.type == "cpu":
         reference = flash_backward_fused_reference if fused else flash_backward_reference
         return reference(q, k, v, out, lse, do, kv_lens, rope_cos, rope_sin, scale, delta)
-    kv_lens, rope_sn = _check_kernel_call("flash_backward", q, k, v, kv_lens, rope_cos, rope_sin)
+    kv_lens, rope_sn = _check_kernel_call("flash_backward", q, k, v, kv_lens, rope_cos, rope_sin,
+                                          WIDE_HEAD_DIMS if fused else K1_HEAD_DIMS)
     if tuple(do.shape) != tuple(q.shape) or do.device != q.device or do.dtype != q.dtype:
         raise ValueError(f"flash_backward: do must match q, got {tuple(do.shape)} {do.dtype} on {do.device}")
     if not _kernel_layout(do):

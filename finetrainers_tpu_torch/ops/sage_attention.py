@@ -39,7 +39,6 @@ import torch
 
 from .flash_attention import (
     _DTYPE_CODES,
-    _HEAD_DIMS,
     _LOG2E,
     _NEG_INF,
     _check_operand,
@@ -50,6 +49,7 @@ from .flash_attention import (
     _rope_fwd,
     _stream,
     _strides,
+    WIDE_HEAD_DIMS,
     kernel_tables,
 )
 
@@ -112,15 +112,16 @@ def _check_prep_call(query, key, kv_lens, rope_cos, rope_sin):
     tables' per-head stride."""
     fn = "sage_prep"
     device = query.device
+    if query.ndim != 4 or key.ndim != 4:
+        raise ValueError(f"{fn}: q and k must be (B, S, N, H)")
+    batch, seq_q, heads, head_dim = query.shape
+    if head_dim not in WIDE_HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {head_dim} not in {WIDE_HEAD_DIMS} (K6 and its pre-pass at other head "
+                         "dims are still to port: ROADMAP.md queue 2 item 5)")
     if device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {device}")
     if query.dtype not in _DTYPE_CODES:
         raise ValueError(f"{fn}: the kernel takes bf16 or fp16, got {query.dtype}")
-    if query.ndim != 4 or key.ndim != 4:
-        raise ValueError(f"{fn}: q and k must be (B, S, N, H)")
-    batch, seq_q, heads, head_dim = query.shape
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {head_dim} not in {_HEAD_DIMS}")
     if (key.shape[0], key.shape[2], key.shape[3]) != (batch, heads, head_dim):
         raise ValueError(f"{fn}: shapes q {tuple(query.shape)}, k {tuple(key.shape)}")
     for name, x in (("q", query), ("k", key)):
@@ -217,16 +218,17 @@ def _check_kernel_call(q_codes, k_codes, q_scales, k_scales, v, kv_lens):
     """K6's checks; returns kv_lens as contiguous int32 (or None)."""
     fn = "sage_forward"
     device = q_codes.device
-    if device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {device}")
-    if v.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{fn}: the kernel takes bf16 or fp16 v, got {v.dtype}")
     if q_codes.ndim != 4 or k_codes.ndim != 4 or v.ndim != 4:
         raise ValueError(f"{fn}: codes and v must be (B, N, S, H)")
     batch, heads, seq_q, head_dim = q_codes.shape
     seq_kv = k_codes.shape[2]
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {head_dim} not in {_HEAD_DIMS}")
+    if head_dim not in WIDE_HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {head_dim} not in {WIDE_HEAD_DIMS} (K6 and its pre-pass at other head "
+                         "dims are still to port: ROADMAP.md queue 2 item 5)")
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {device}")
+    if v.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{fn}: the kernel takes bf16 or fp16 v, got {v.dtype}")
     if tuple(k_codes.shape) != (batch, heads, seq_kv, head_dim) or tuple(v.shape) != tuple(k_codes.shape):
         raise ValueError(f"{fn}: shapes q {tuple(q_codes.shape)}, k {tuple(k_codes.shape)}, v {tuple(v.shape)}")
     for name, x, dtype in (("q_codes", q_codes, torch.int8), ("k_codes", k_codes, torch.int8), ("v", v, v.dtype)):

@@ -11,11 +11,12 @@ The JAX package builds optax chains; this port keeps their arithmetic:
     in adamw a weight decay decoupled from the gradient. As in optax, the
     learning rate of an update is the schedule at the number of updates made
     before it.
+  - `adam-bnb-8bit` / `adamw-bnb-8bit` keep the moments as int8 codes
+    (`optim8bit.py`) under the same clip and schedule.
   - `MultiSteps` is `optax.MultiSteps` over it (gradient accumulation, the
     JAX trainer's `--gradient_accumulation_steps`): each `step` is one
     micro-step whose gradients join a running mean; the k-th clips, updates
     and advances the schedule's count, the others change no parameter.
-The 8-bit optimizers (`optim8bit.py`) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -228,8 +229,11 @@ def get_optimizer(
     epsilon: float = 1e-8,
     weight_decay: float = 1e-4,
     max_grad_norm: Optional[float] = None,
+    quant_dims: Optional[List[int]] = None,
 ) -> ClippedOptimizer:
-    """Build [clip_by_global_norm] -> adam(w) over `params`."""
+    """Build [clip_by_global_norm] -> adam(w) over `params`; the 8-bit ones
+    quantize each parameter's moments over its entry of `quant_dims`
+    (`optim8bit.jax_row_dims`; -1 for all by default)."""
     name = (name or "adamw").lower()
     params = list(params)
     schedule = learning_rate if callable(learning_rate) else (lambda step: learning_rate)
@@ -238,8 +242,15 @@ def get_optimizer(
         inner = torch.optim.Adam(params, lr=lr0, betas=(beta1, beta2), eps=epsilon, weight_decay=0.0)
     elif name == "adamw":
         inner = torch.optim.AdamW(params, lr=lr0, betas=(beta1, beta2), eps=epsilon, weight_decay=weight_decay)
-    elif name in ("adam-bnb-8bit", "adamw-bnb-8bit"):
-        raise NotImplementedError(f"optimizer {name!r} (int8 moments, optim8bit.py) is not ported yet; see ROADMAP.md")
+    elif name == "adam-bnb-8bit":
+        from .optim8bit import adam_8bit
+
+        inner = adam_8bit(params, lr0, b1=beta1, b2=beta2, eps=epsilon, quant_dims=quant_dims)
+    elif name == "adamw-bnb-8bit":
+        from .optim8bit import adamw_8bit
+
+        inner = adamw_8bit(params, lr0, b1=beta1, b2=beta2, eps=epsilon, weight_decay=weight_decay,
+                           quant_dims=quant_dims)
     else:
         raise ValueError(f"Unsupported optimizer {name}; choose from {SUPPORTED_OPTIMIZERS}")
     return ClippedOptimizer(inner, schedule, max_grad_norm)

@@ -65,9 +65,12 @@ from ...lora import (
     split_params,
     trainable_mask,
 )
+from ...optim8bit import jax_row_dims
 from ...optimizer import MultiSteps, get_lr_scheduler, get_optimizer
 from ...state import TrainState
 from ...trackers import BaseTracker, initialize_trackers
+from ...utils.fp8 import apply_layerwise_storage_dtype, count_fp8_bytes
+from ...utils.int8 import apply_int8_storage, count_int8_bytes
 from ...utils.memory import get_memory_statistics
 from ..base import Trainer
 
@@ -151,12 +154,31 @@ class SFTTrainer(Trainer):
     def _prepare_trainable_parameters(self) -> None:
         module = self.transformer.module
         self._trainable, self._frozen = split_params(module, self._trainable_mask(module))
+        self._apply_weight_storage(module)
         n_train = sum(p.numel() for p in self._trainable.values())
         n_total = n_train + sum(p.numel() for p in self._frozen.values())
         self.state.num_trainable_parameters = n_train
         logger.info(f"Trainable params: {n_train:,} / {n_total:,}")
         if self.args.training_type in LORA_TRAINING_TYPES:
             self._check_target_modules()
+
+    def _apply_weight_storage(self, module) -> None:
+        """Under `--layerwise_upcasting_modules transformer`, store the frozen
+        linear weights as `--layerwise_upcasting_storage_dtype` says (JAX
+        :127-156): int8 codes with per-output-channel scales, whose products
+        then run on int8 GEMMs (`utils.int8`), or fp8, cast to the compute dtype
+        where used (`utils.fp8`); the skip patterns keep the rest as it is."""
+        args = self.args
+        if "transformer" not in (args.layerwise_upcasting_modules or []):
+            return
+        skip = args.layerwise_upcasting_skip_modules_pattern
+        if args.layerwise_upcasting_storage_dtype == torch.int8:
+            apply_int8_storage(module, skip)
+            logger.info(f"Stored {count_int8_bytes(module):,} bytes of frozen transformer weights as int8")
+        else:
+            apply_layerwise_storage_dtype(module, args.layerwise_upcasting_storage_dtype, skip)
+            logger.info(f"Stored {count_fp8_bytes(module):,} bytes of frozen transformer weights as fp8")
+        self._frozen = {name: p for name, p in module.named_parameters() if name not in self._trainable}
 
     def _check_target_modules(self) -> None:
         """Every LoRA layer trains, as in the JAX trainer; warn once where an
@@ -186,6 +208,7 @@ class SFTTrainer(Trainer):
         self.optimizer = get_optimizer(
             args.optimizer, self._trainable.values(), self._lr_schedule, beta1=args.beta1, beta2=args.beta2,
             epsilon=args.epsilon, weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm,
+            quant_dims=jax_row_dims(self.transformer.module, self._trainable),
         )
         if args.gradient_accumulation_steps > 1:
             self.optimizer = MultiSteps(self.optimizer, args.gradient_accumulation_steps)

@@ -5,6 +5,8 @@
   (with the example's parallel layout replaced by one card's; dtypes by name),
   with JAX's `train.py` registration (`SFTLowRankConfig`,
   `AttentionProviderArgs`); the port also parses every default the same;
+- CogView4's raider_white_tarot train.sh (int8 weight storage) parses as JAX
+  parses it, and so do the storage and 8-bit optimizer flags;
 - the example's own layout (FSDP x CP over 8 chips) and every other flag whose
   feature the port lacks raise NotImplementedError naming a ROADMAP.md item
   when given a value other than its default; none is ignored;
@@ -141,9 +143,7 @@ def test_defaults_parse_as_jax(training_type):
 
 @pytest.mark.parametrize("flags", [
     ["--steps_per_dispatch", "2"], ["--cp_degree", "2"], ["--dp_shards", "8"], ["--pp_degree", "2"],
-    ["--pp_microbatches", "4"], ["--nccl_timeout", "60"], ["--optimizer", "adamw-bnb-8bit"],
-    ["--layerwise_upcasting_modules", "transformer"], ["--layerwise_upcasting_storage_dtype", "int8"],
-    ["--compile_modules", "transformer"], ["--compile_scopes", "regional"], ["--precomputation_reuse"],
+    ["--pp_microbatches", "4"], ["--nccl_timeout", "60"], ["--compile_modules", "transformer"], ["--compile_scopes", "regional"], ["--precomputation_reuse"],
     ["--push_to_hub"], ["--hub_model_id", "me/model"], ["--tokenizer_id", "t5"], ["--revision", "main"],
     ["--cache_dir", "c"], ["--flow_resolution_shifting"], ["--beta3", "0.9"], ["--enable_model_cpu_offload"],
 ], ids=lambda flags: flags[0].lstrip("-"))
@@ -151,6 +151,30 @@ def test_unported_flag_raises_naming_its_roadmap_item(flags):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item \d+"):
         BaseArgs().parse_args(REQUIRED + ["--training_type", "lora"] + flags)
     _jax_args(REQUIRED + flags)  # the JAX package takes each of them
+
+
+@pytest.mark.parametrize("flags", [
+    ["--optimizer", "adamw-bnb-8bit"], ["--optimizer", "adam-bnb-8bit"],
+    ["--layerwise_upcasting_modules", "transformer"], ["--layerwise_upcasting_storage_dtype", "int8"],
+    ["--layerwise_upcasting_storage_dtype", "float8_e5m2"],
+    ["--layerwise_upcasting_skip_modules_pattern", "norm", "^proj_out$"],
+], ids=lambda flags: "_".join(f.lstrip("-") for f in flags[:2]))
+def test_storage_and_8bit_optimizer_flags_parse_as_jax(flags):
+    """Weight storage and the 8-bit optimizers are ported: their flags parse to JAX's values."""
+    argv = REQUIRED + ["--training_type", "lora"] + flags
+    _assert_same_fields(BaseArgs().parse_args(argv), _jax_args(argv, "lora"))
+
+
+def test_raider_white_tarot_train_sh_parses_as_jax(tmp_path):
+    """CogView4's raider_white_tarot SFT example: int8 storage of the
+    transformer under LoRA rank 32, its flags as bash expands them, one card's
+    layout; every field as JAX parses it."""
+    train_sh = REPO / "examples" / "training" / "sft" / "cogview4" / "raider_white_tarot" / "train.sh"
+    argv = _one_card(_train_sh_argv(tmp_path, train_sh))
+    ours = BaseArgs().parse_args(argv)
+    _assert_same_fields(ours, _jax_args(argv))
+    assert ours.layerwise_upcasting_modules == ["transformer"] and ours.layerwise_upcasting_storage_dtype == torch.int8
+    assert (ours.model_name, ours.rank, ours.gradient_checkpointing_type) == ("cogview4", 32, "ops")
 
 
 def test_control_training_raises_and_list_models_exits(capsys):

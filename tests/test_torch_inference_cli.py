@@ -277,20 +277,13 @@ def test_dataset_file_requests(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--dp_degree", "2"], ["--tp_degree", "2"], ["--cp_degree", "2"], ["--dp_shards", "2"], ["--pp_degree", "2"],
-    ["--quantize_int8"], ["--dataset_file", "requests.parquet"], ["--revision", "main"], ["--tokenizer_id", "t"],
+    ["--dataset_file", "requests.parquet"], ["--revision", "main"], ["--tokenizer_id", "t"],
 ], ids=lambda extra: extra[0].lstrip("-"))
 def test_unported_flags_raise_naming_roadmap(extra, monkeypatch):
     monkeypatch.setattr(WanModelSpecification, "load_diffusion_models",
                         lambda self: pytest.fail("a model was built before the flag was refused"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         inference.main(REQUIRED + ["--prompt", "p", "--device", "cpu"] + extra)
-
-
-@pytest.mark.parametrize("model_name", ["dummy"])
-def test_unported_families_raise_naming_roadmap(model_name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-        inference.main(["--model_name", model_name, "--pretrained_model_name_or_path", "x", "--prompt", "p",
-                        "--device", "cpu"])
 
 
 def test_image_to_video_needs_an_image(tmp_path):

@@ -87,7 +87,8 @@ def _forward_counts():
 
 
 # (B, N, Sq, Skv, H, rope, kv_lens) for K1 on BNSH views of BTNH buffers, as the model hands them
-# over: lengths of 1000 and 77 (off every 128-row tile), an empty row, per-head and shared tables.
+# over: lengths of 1000 and 77 (off every 128-row tile), an empty row, per-head and shared tables; at
+# H=32 also the dummy family's cross-attention over its 16 caption slots.
 K1_VIEW_CASES = [
     (2, 3, 1000, 1000, 64, "per_head", None),
     (1, 2, 1000, 1000, 128, "shared", None),
@@ -95,6 +96,9 @@ K1_VIEW_CASES = [
     (2, 2, 77, 1000, 128, None, [77, 0]),
     (2, 2, 77, 77, 128, "per_head", [77, 0]),
     (2, 2, 77, 77, 64, "shared", [30, 0]),
+    (2, 3, 1000, 1000, 32, "per_head", None),
+    (1, 2, 4352, 16, 32, None, [16]),
+    (2, 2, 77, 1000, 32, None, [77, 0]),
 ]
 # chip_smoke.py's K1 bounds: |out - ref| <= K1_TOL * max(1, |ref|) elementwise (about two units in
 # the last place of a bf16 value) and the LSE within LSE_TOL.
@@ -102,7 +106,7 @@ K1_TOL, LSE_TOL = 2e-2, 1e-2
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_k1_on_btnh_views_matches_reference(dtype, head_dim):
     """The pre-pass and the wgmma K1 against `flash_attention_reference`, and K1
@@ -140,7 +144,7 @@ def test_k1_on_btnh_views_matches_reference(dtype, head_dim):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 def test_k1_ignores_k_and_v_rows_past_kv_lens(head_dim):
     """TMA reads the rows of k and v between kv_lens[b] and Skv: filled with large
     finite values, they must leave out and LSE bit-equal to the same call with
@@ -168,7 +172,7 @@ def test_k1_ignores_k_and_v_rows_past_kv_lens(head_dim):
 def test_flash_forward_rejects_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    q = torch.zeros(1, 2, 16, 32, device="cuda", dtype=torch.bfloat16)
+    q = torch.zeros(1, 2, 16, 48, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_forward(q, q, q)
     q = torch.zeros(1, 2, 16, 64, device="cuda", dtype=torch.float32)
@@ -184,7 +188,7 @@ def test_default_provider_raises_on_the_card_where_k1_does_not_apply(provider):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     before = flash_forward.launches
-    for dtype, h in ((torch.float32, 64), (torch.bfloat16, 32)):
+    for dtype, h in ((torch.float32, 64), (torch.bfloat16, 48)):
         q = torch.zeros(1, 16, 2, h, device="cuda", dtype=dtype)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             attention_dispatch(q, q, q, provider=provider)
@@ -271,7 +275,7 @@ def test_flash_backward_rejects_what_the_kernels_do_not_take():
         pytest.skip("needs a CUDA card")
     lse = torch.zeros(1, 2, 16, device="cuda")
     before = (flash_qk_prep.launches, flash_bwd_dkdv.launches, flash_bwd_dq.launches)
-    q = torch.zeros(1, 2, 16, 32, device="cuda", dtype=torch.bfloat16)
+    q = torch.zeros(1, 2, 16, 48, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_backward(q, q, q, q, lse, q)
     q = torch.zeros(1, 2, 16, 64, device="cuda", dtype=torch.float32)
@@ -441,7 +445,7 @@ K2K3_CASES = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_k2_k3_match_their_plain_versions(dtype, head_dim):
     """K2 (`flash_bwd_dkdv`, with its reduce pass where `dkdv_splits` cuts the
@@ -659,7 +663,7 @@ def test_k1_k2_k3_at_a_2_row_last_tile_with_h64(dtype, b, tables, text, grid):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("lens", [[65], [65, 256]], ids=["b1", "b2"])
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_k1_k2_k3_at_a_256_key_self_attention_with_a_dead_kv_tile(dtype, head_dim, lens):
     """HunyuanVideo's token refiner: self-attention over 256 text slots of
@@ -704,7 +708,7 @@ def test_k1_k2_k3_at_a_256_key_self_attention_with_a_dead_kv_tile(dtype, head_di
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_k2_k3_ignore_k_and_v_rows_past_kv_lens(dtype, head_dim):
     """TMA reads the rows of k and v between kv_lens[b] and Skv: filled with
@@ -1121,3 +1125,30 @@ def test_k1_k2_k3_at_40_heads_with_a_120_row_last_tile():
         for rows in (slice(None), slice(896, None)):
             rel_l2, max_ratio = _rel_errors(got[:, :, rows], want[:, :, rows])
             assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (name, rows, rel_l2, max_ratio)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [5, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_linear_on_the_card_matches_the_cpu(dtype, rows):
+    """`int8_linear`'s forward and dx through `torch._int_mm` on the card (rows
+    padded to 17 below it) against the same call on the CPU: the int32 products
+    are exact on both, so the outputs agree to the epilogue's rounding (one unit
+    in the last place of the output dtype)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from finetrainers_tpu_torch.ops.int8_linear import int8_linear, quantize_weight
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(rows, 640, generator=g).to(dtype)
+    dy = torch.randn(rows, 1280, generator=g).to(dtype)
+    wq, sw = quantize_weight(torch.randn(1280, 640, generator=g) * 0.03)
+    results = []
+    for device in ("cpu", "cuda"):
+        leaf = x.detach().to(device).requires_grad_()
+        y = int8_linear(leaf, wq.to(device), sw.to(device))
+        y.backward(dy.to(device))
+        results.append((y.detach().cpu().float(), leaf.grad.cpu().float()))
+    ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-22
+    for got, ref in zip(results[1], results[0]):
+        assert ((got - ref).abs() <= ulp * ref.abs().clamp_min(1e-3)).all()

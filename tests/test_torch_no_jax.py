@@ -15,11 +15,15 @@ weights, spec, pipeline, the text processors) and the HunyuanVideo slice's
 (transformer, weights, spec, pipeline) and the CogView4 and control slice's
 (transformer, weights, specs, pipeline, the control trainer, its data and
 config, the control processors, the Wan control spec) and the CogVideoX
-slice's (transformer, weights, spec, DDIM pipeline) among them. Any
+slice's (transformer, weights, spec, DDIM pipeline) and the dummy and
+weight-storage slice's (the dummy family, int8 linear, int8 and fp8
+storage, the 8-bit optimizers) among them. Any
 import of a blocked package, any `nvcc` run and any kernel library loaded
 during import fails the test. A second fresh interpreter blocks nothing,
 imports every module and finds neither `jax` nor `finetrainers_tpu` in
-`sys.modules` afterwards.
+`sys.modules` afterwards. `chip_smoke.py` and the chip tools
+(`tools/torch_*.py`) import no JAX either: a third interpreter blocks it and
+imports `chip_smoke`, and no import line of theirs names it.
 """
 
 import pathlib
@@ -61,7 +65,8 @@ training = {"finetrainers_tpu_torch." + m for m in (
     "models.cogvideox", "models.cogvideox.transformer", "models.cogvideox.weights",
     "models.cogvideox.base_specification", "models.cogvideox.pipeline",
     "trainer.control_trainer", "trainer.control_trainer.trainer", "trainer.control_trainer.data",
-    "trainer.control_trainer.config", "processors.control")}
+    "trainer.control_trainer.config", "processors.control", "models.dummy", "models.dummy.base_specification",
+    "models.dummy.pipeline", "models.dummy.weights", "ops.int8_linear", "utils.int8", "utils.fp8", "optim8bit")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
 print(len(names))
 """
@@ -101,5 +106,28 @@ def test_no_jax_import_lines_in_port_sources():
             if len(words) >= 2 and words[0] in ("import", "from"):
                 root = words[1].split(".")[0].rstrip(",")
                 if root in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu", "safetensors"):
+                    bad.append(f"{path.relative_to(REPO_ROOT)}:{lineno}: {line.strip()}")
+    assert not bad, bad
+
+
+_CHIP_SMOKE_PROBE = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu"):
+    sys.modules[name] = None
+import chip_smoke
+print("ok")
+"""
+
+
+def test_chip_smoke_and_chip_tools_import_no_jax():
+    res = subprocess.run([sys.executable, "-c", _CHIP_SMOKE_PROBE], cwd=REPO_ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0 and res.stdout.split()[-1] == "ok", res.stderr
+    bad = []
+    for path in [REPO_ROOT / "chip_smoke.py", *sorted((REPO_ROOT / "tools").glob("torch_*.py"))]:
+        for lineno, line in enumerate(path.read_text().splitlines(), 1):
+            words = line.split()
+            if len(words) >= 2 and words[0] in ("import", "from"):
+                if words[1].split(".")[0].rstrip(",") in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu"):
                     bad.append(f"{path.relative_to(REPO_ROOT)}:{lineno}: {line.strip()}")
     assert not bad, bad

@@ -60,7 +60,3 @@ def test_clipped_optimizer_matches_optax(name):
     assert opt.count == len(grads)
 
 
-def test_eight_bit_optimizers_raise():
-    for name in ("adam-bnb-8bit", "adamw-bnb-8bit"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_optimizer(name, [torch.nn.Parameter(torch.zeros(2))], 1e-3)
