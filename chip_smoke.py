@@ -21,7 +21,9 @@ then an 81x480x768 DDIM text-to-video request through the runner with the
 exported adapter, the dummy family on the head-dim-32 instances of K1, the
 pre-pass, K2 and K3 (LoRA and 8-bit-AdamW full-finetune runs, a request), and
 CogView4-6B's raider_white_tarot example trained under int8 weight storage at
-1280x720 and served with `--quantize_int8`.
+1280x720 and served with `--quantize_int8`, K1's dense-mask branch, the GLM-4,
+Llama-3 and CLIP-L text towers at full width on it, and CogView4 loaded from a
+local diffusers directory (transformer, 2D AutoencoderKL, GLM-4) and served.
 
     python3 chip_smoke.py
 
@@ -296,7 +298,24 @@ Phases, each printed on its own line:
      `inference.main --quantize_int8` with that adapter: K1 and the pre-pass
      28 a step, one int8 GEMM per int8 layer and step, and a denoise step
      against the same step with the base weights in bf16;
-  19. `env`: whether `cv2` and `PIL` import on this machine (information only).
+  19. `k1_mask_check` (run with the kernel checks, after K7): K1's dense-mask
+     branch against its plain version at the towers' shapes (GLM-4's 32 heads
+     over 2 kv heads repeated, 1024 tokens, causal; Llama-3's 32 over 8, 351
+     tokens, causal and padding; CLIP-L text's 77 tokens at head dim 64) and on
+     block-sparse masks with an all-zero key tile, empty rows and ragged last
+     tiles (skipped tiles' k and v rows filled with large values leave out
+     bit-equal), times beside SDPA given the same mask; `k1_mask_long_causal`,
+     (1, 32, 4096, 4096, 128) causal against unmasked K1;
+  20. `text_towers`: GLM-4-9B, Llama-3-8B and CLIP-L's text tower at their
+     published configs, random on the card, one mask-branch launch a layer,
+     each encode against the same tower under plain fp32 attention;
+  21. `cogview4_checkpoint_serve`: a diffusers directory written here
+     (transformer 2 of 28 blocks, the 2D AutoencoderKL, GLM-4 2 of 40 layers)
+     loaded through the spec bit-equal, LoRA fresh, one 1024x1024 request of
+     2 steps through the loaded GLM and VAE, then through the runner with a
+     word-level tokenizer where `transformers` and `tokenizers` import;
+  22. `env`: whether `cv2`, `PIL`, `transformers` and `tokenizers` import on this
+     machine (information only).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
 0. Without a CUDA card it raises before printing any result.
@@ -325,11 +344,12 @@ from finetrainers_tpu_torch import get_model_specification_cls
 from finetrainers_tpu_torch.args import BaseArgs
 from finetrainers_tpu_torch.constants import PRECOMPUTED_DIR_NAME
 from finetrainers_tpu_torch.data import to_device
+from finetrainers_tpu_torch.models.layers import init_parameters_
 from finetrainers_tpu_torch.models.ltx_video.transformer import LTXRotaryPosEmbed
 from finetrainers_tpu_torch.models.flux import FLUX_TRANSFORMER_CONFIG
 from finetrainers_tpu_torch.models.wan import WAN_I2V_14B_CONFIG
 from finetrainers_tpu_torch.models.wan.transformer import WanRotaryPosEmbed
-from finetrainers_tpu_torch.ops import _build, attention_dispatch, attention_provider
+from finetrainers_tpu_torch.ops import _build, attention_dispatch, attention_provider, flash_attention
 from finetrainers_tpu_torch.ops import attention as attention_ops
 from finetrainers_tpu_torch.ops.flash_attention import (
     _rope_bwd,
@@ -347,6 +367,11 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_forward,
     flash_forward_core,
     flash_forward_core_reference,
+    flash_forward_masked,
+    flash_forward_masked_core,
+    flash_forward_masked_core_reference,
+    flash_attention_masked_reference,
+    mask_tiles,
     flash_forward_skew,
     flash_forward_skew_reference,
     flash_forward_two_level,
@@ -360,7 +385,7 @@ from finetrainers_tpu_torch.lora import LORA_WEIGHTS_NAME, apply_lora_state_dict
 from finetrainers_tpu_torch.ops.sage_attention import sage_attention_reference, sage_forward, sage_prep, sage_quantize
 from finetrainers_tpu_torch.trainer import SFTTrainer
 
-NUM_STEPS = 8  # cut from the pipeline's default 50 to keep the run short
+NUM_STEPS = 4  # cut from the pipeline's default 50 (and from 8) to keep the run short
 NUM_LAYERS = 28
 BASE_PARAMS = 1_923_385_472  # the published LTX-Video transformer (jax.eval_shape on the JAX model)
 PROMPTS = ("a red fox runs through fresh snow at dawn", "waves break on a rocky shore under a grey sky")
@@ -386,7 +411,7 @@ MOMENTS_SHAPE = (1, 256, 7, 16, 24)
 CAPTION_LEN, CAPTION_VALID = 128, 37
 # Wan 2.1 T2V-1.3B serving: the repo's own Wan shape (tools/wan_attn_bench.py), 49x512x768 ->
 # 13x64x96 latents -> 13x32x48 = 19968 tokens after the (1, 2, 2) patch; text padded to 512 tokens.
-WAN_STEPS = 4  # cut from the pipeline's default 50 to keep the run short
+WAN_STEPS = 2  # cut from the pipeline's default 50 (and from 4) to keep the run short
 WAN_LAYERS = 30
 WAN_PARAMS = 1_418_996_800  # WAN_T2V_1_3B_CONFIG (jax.eval_shape on the JAX model)
 WAN_REQUEST = dict(num_frames=49, height=512, width=768, guidance_scale=5.0, num_inference_steps=WAN_STEPS)
@@ -443,7 +468,7 @@ FLUX_SERVE_TOKENS = 4608
 FLUX_RUN_BUCKET = (1280, 720)
 FLUX_RUN_LATENT = (160, 90)
 FLUX_RUN_TOKENS = 4112
-FLUX_SERVE_STEPS = 4  # cut from the pipeline's default 28
+FLUX_SERVE_STEPS = 2  # cut from the pipeline's default 28 (and from 4)
 FLUX_EXAMPLE = (pathlib.Path(__file__).resolve().parent / "examples" / "training" / "sft" / "flux_dev"
                 / "raider_white_tarot")
 FLUX_RUN_IMAGES, FLUX_RUN_STEPS = 4, 4  # cut from the example's 50 precomputed items and 1000 steps
@@ -480,7 +505,7 @@ HUNYUAN_RANK = 32
 # too, runs out of the card's 80 GB (`python3 tools/torch_hunyuan_phases.py OUT.jsonl policies`). The run uses
 # "ops_attn".
 HUNYUAN_RUN_POLICY = "ops_attn"
-HUNYUAN_SERVE_STEPS = 3  # cut from the request's 50
+HUNYUAN_SERVE_STEPS = 2  # cut from the request's 50 (and from 3)
 # The scheduler config of the public hunyuanvideo-community/HunyuanVideo checkpoint.
 HUNYUAN_SCHEDULER_CONFIG = {"_class_name": "FlowMatchEulerDiscreteScheduler", "num_train_timesteps": 1000,
                             "shift": 7.0}
@@ -542,7 +567,7 @@ RAIDER_BUCKET = (1280, 720)
 RAIDER_TOKENS = 4624
 RAIDER_RANK = 32
 RAIDER_RUN_IMAGES, RAIDER_RUN_STEPS = 4, 4  # cut from 50 precomputed items and 5000 steps
-RAIDER_SERVE_STEPS = 4  # cut from the request's 50
+RAIDER_SERVE_STEPS = 2  # cut from the request's 50 (and from 4)
 # Bounds of a step under weight storage against the bf16-stored step on the same batch, draws and LoRA factors: each
 # int8 layer's output carries ~1.5% relative rms error (weights per output channel and activations per row quantized
 # to 127 levels of their absmax: ~0.9% and ~1% rms), e4m3fn's ~2.5% (3 mantissa bits, no activation quantization), and
@@ -616,7 +641,7 @@ SWITCHES = ("FINETRAINERS_FLASH_FUSED_BWD", "FINETRAINERS_FLASH_TWOPASS", "FINET
 # (their consumers run at 240 and 160 registers).
 NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "bwd_dkdv_sm90_kernel", "bwd_dq_sm90_kernel", "sage_fwd_sm90_kernel",
                     "bwd_fused_sm90_kernel", "flash_fwd_twopass_sm90_kernel", "flash_fwd_two_level_sm90_kernel",
-                    "flash_fwd_skew_sm90_kernel")
+                    "flash_fwd_skew_sm90_kernel", "flash_fwd_mask_sm90_kernel")
 # H100 SXM dense peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -1727,7 +1752,7 @@ def wan_serve(card):
     return sage_launches, auto_launches
 
 
-_COUNTED = dict(k1=flash_forward, prep=flash_qk_prep, k2=flash_bwd_dkdv, k3=flash_bwd_dq, k5=flash_bwd_fused,
+_COUNTED = dict(k1=flash_forward, k1_mask=flash_forward_masked, prep=flash_qk_prep, k2=flash_bwd_dkdv, k3=flash_bwd_dq, k5=flash_bwd_fused,
                 k5_emit=flash_bwd_dq_emit, k6=sage_forward, sage_prep=sage_prep, k7a=flash_forward_twopass,
                 k7b=flash_forward_skew, k7c=flash_forward_two_level)
 
@@ -1981,8 +2006,8 @@ def train(card):
         raise AssertionError("training check failed")
 
     # K4's host cost in this host-bound step: the op against an autograd.Function around the same kernels
-    # (3 rounds, cut from 12 to make room for the example's runs).
-    k4_s, k4_us = k4_host_cost(trainer, batch, rounds=3)
+    # (2 rounds, cut from 12, then from 3, to make room for later phases).
+    k4_s, k4_us = k4_host_cost(trainer, batch, rounds=2)
     phase("train_k4_host_cost", card=card, order="interleaved, rotating by one each round",
           step_seconds=k4_s, median_step_s={glue: statistics.median(k4_s[glue]) for glue in K4_GLUES},
           call_us=k4_us, median_call_us={glue: statistics.median(k4_us[glue]) for glue in K4_GLUES},
@@ -2252,7 +2277,7 @@ def wan_train_remat(card, trainer, batch):
     for policy in REMAT_POLICIES:
         module.gradient_checkpointing = policy
         loss, grad, launches = checked[policy]
-        trainer.train_step(*batch)  # warm-up
+        # No warm-up step: the checked forward-backward above ran under this policy.
         step_s, timed_launches, peak_gb = timed_train_steps(trainer, batch, WAN_SWITCH_TIMED_STEPS)
         want = {k_: per_step[policy].get(k_, 0) for k_ in launches}
         remat = wan_remat_factor(cfg, WAN_TRAIN_RANK, WAN_TOKENS, WAN_CAPTION_LEN, policy)
@@ -2331,7 +2356,8 @@ def wan_train_accum_resume(card):
     moments_equal = len(resumed["moments"]) == len(unbroken["moments"]) == len(resumed["lora"]) and all(
         torch.equal(a, b) for pair, ref in zip(resumed["moments"], unbroken["moments"]) for a, b in zip(pair, ref))
     want_saved = [ACCUM_MICRO_STEPS - ACCUM_ARGS["checkpointing_steps"], ACCUM_MICRO_STEPS]
-    phase("wan_train_accum_resume", card=card, remat="ops", gradient_accumulation_steps=2, micro_steps=6,
+    phase("wan_train_accum_resume", card=card, remat="ops", gradient_accumulation_steps=2,
+          micro_steps=ACCUM_MICRO_STEPS,
           broken_after=ACCUM_BROKEN_AT, unbroken_seconds=unbroken_s, broken_and_resumed_seconds=broken_s,
           unbroken_checkpoints=unbroken["saved"], broken_checkpoints_before_resume=first["saved"],
           resumed_checkpoints=resumed["saved"], resumed_at=dict(step=resumed_at[0], mini_step=resumed_at[1],
@@ -2462,8 +2488,7 @@ def wan_run(card):
     after 2 steps and resumed from "latest" (LoRA factors and AdamW moments
     bit-equal, the same sample ids each step). Each step's seconds, launches
     and peak memory, the precompute and validation seconds, one step's
-    profile, and steps under `transformer:ring` and `transformer:auto` in
-    turns. Returns the launches of the unbroken and the resumed runs."""
+    profile. Returns the launches of the unbroken and the resumed runs."""
     from finetrainers_tpu_torch import train as train_cli
 
     t0 = time.perf_counter()
@@ -2529,14 +2554,7 @@ def wan_run(card):
         items = [dict(np.load(precomputed / f"{kind}-0.npz")) for kind in ("condition", "latent")]
         batch = to_device((spec.collate_conditions([items[0]]), spec.collate_latents([items[1]])),
                           torch.device("cuda"))
-        provider_s = {"ring": [], "auto": []}
-        for provider in ("ring", "auto"):  # one step each, cut from three to make room for the control runs
-            trainer.attn_provider_training = {"transformer": provider}
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            trainer.train_step(*batch)
-            torch.cuda.synchronize()
-            provider_s[provider].append(time.perf_counter() - t)
+        # No steps under "ring" and "auto" in turns (cut to make room): the run's own steps run "ring".
         latent_shape = list(batch[1]["latents"].shape)
         del trainer, batch, module, spec
         torch.cuda.empty_cache()
@@ -2590,7 +2608,6 @@ def wan_run(card):
                              ms_by_class=dict(prof["classes"], **{c: sum(v) for c, v in prof["launches"].items()}),
                              launches={c: len(v) for c, v in prof["launches"].items()}),
           validations=validations, validations_launches_exact=validations_ok,
-          provider_step_s=provider_s, provider_median_s={p_: statistics.median(v) for p_, v in provider_s.items()},
           unbroken_run_s=unbroken_s, broken_and_resumed_s=broken_s, sample_ids=ids[0],
           resumed_sample_ids=ids[1], lora_bit_equal=lora_equal, adamw_moments_bit_equal=moments_equal,
           resumed_checkpoints=resumed_saved, launches=launches)
@@ -4846,10 +4863,401 @@ def cogview4_sft_serve(card, adapter):
     return dict(launches=launches, int8_gemms=int8_gemms)
 
 
+def causal_mask(b, sq, skv, lens=None, device="cuda"):
+    """(B, Sq, Skv) boolean: query i sees key j <= i (+ Skv - Sq), and with
+    `lens` only keys j < lens[b] (the decoders' causal and padding mask)."""
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=device).tril(skv - sq)[None].expand(b, sq, skv)
+    if lens is not None:
+        mask = mask & (torch.arange(skv, device=device)[None, :] < torch.tensor(lens, device=device)[:, None])[:, None]
+    return mask.contiguous()
+
+
+def block_sparse_mask(b, sq, skv, g):
+    """A random mask over 64x64 blocks (a third of them off) with a quarter of
+    the rest's keys off, all of key tile 1 off for every row (an all-zero
+    tile), row 5 of batch 0 off throughout (a row with no live key), and
+    ragged last tiles where Sq and Skv are not multiples of the tiles."""
+    blocks = torch.rand(b, -(-sq // 64), -(-skv // 64), generator=g, device="cuda") > 1 / 3
+    mask = blocks.repeat_interleave(64, 1).repeat_interleave(64, 2)[:, :sq, :skv]
+    mask = mask & (torch.rand(b, sq, skv, generator=g, device="cuda") > 0.25)
+    mask[:, :, 128:256] = False
+    mask[0, 5] = False
+    return mask.contiguous()
+
+
+def k1_mask_bound(b, n, sq, skv, h, mask):
+    """K1's mask branch's least time for this mask: its two products over the
+    mask's set entries only, q and out once, k and v of the keys some row
+    attends once, the mask's bytes and the LSE once."""
+    live_keys = int(mask.any(dim=1).sum())
+    return bound(4 * n * h * int(mask.sum()),
+                 2 * b * n * sq * h * 2 + 2 * n * live_keys * h * 2 + mask.numel() + b * n * sq * 4)
+
+
+# K1's mask branch at the towers' shapes: (name, B, N, N_kv, Sq, Skv, H, mask kind, lens).
+K1_MASK_CASES = (
+    ("glm_causal_gqa", 1, 32, 2, 1024, 1024, 128, "causal", None),
+    ("llama_causal_padding_gqa", 2, 32, 8, 351, 351, 128, "causal", [120, 351]),
+    ("clip_text_causal", 2, 12, 12, 77, 77, 64, "causal", None),
+    ("block_sparse_h128", 2, 8, 8, 700, 900, 128, "sparse", None),
+    ("block_sparse_h64", 2, 8, 8, 1000, 333, 64, "sparse", None),
+)
+
+
+def check_k1_mask(card):
+    """K1's mask branch against its plain version on the card, at the text
+    towers' shapes (GLM-4's 32 query heads over 2 kv heads, repeated, under a
+    causal mask; Llama-3's 32 over 8 under causal and padding masks; CLIP-L
+    text's causal mask at head dim 64) and random block-sparse masks with an
+    all-zero key tile, a row with no live key and ragged last tiles: the
+    branch alone (`flash_forward_masked_core`) against
+    `flash_forward_masked_core_reference` on the pre-pass's operands, the
+    pre-pass plus the branch through `flash_attention` (the GQA repeat
+    included) against `flash_attention_masked_reference`; rows with a live
+    key within K1's tolerance, rows without one exactly 0 with an LSE of
+    -1e30*ln2; k and v rows of an all-zero tile filled with large values
+    leave out and LSE bit-equal. Then standalone times at (1, 32, 4096, 4096,
+    128) under a causal mask beside unmasked K1 and SDPA given the same
+    boolean mask. Returns the worst error and the records by case."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    worst, records = 0.0, {}
+    empty_lse = float(np.float32(-1e30 * np.log(2.0)))
+    for name, b, n, n_kv, sq, skv, h, kind, lens in K1_MASK_CASES:
+        q = torch.randn(b, sq, n, h, generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, skv, n_kv, h, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        mask = causal_mask(b, sq, skv, lens) if kind == "causal" else block_sparse_mask(b, sq, skv, g)
+        with torch.no_grad():
+            out = flash_attention(q, k, v, attn_mask=mask)
+        kb, vb = (x.repeat_interleave(n // n_kv, dim=2).transpose(1, 2) for x in (k, v))
+        qb = q.transpose(1, 2)
+        q_s, k_r = flash_qk_prep(qb, kb, None, None, 0, h**-0.5)
+        core_out, core_lse = flash_forward_masked_core(q_s, k_r, vb, mask)
+        torch.cuda.synchronize()
+        (ref, ref_lse), plain_ms = timed_call(lambda: flash_forward_masked_core_reference(q_s, k_r, vb, mask))
+        full_ref, _ = flash_attention_masked_reference(qb, kb, vb, mask)
+        live_rows = mask.any(dim=-1)  # (B, Sq)
+        errs = {}
+        for against, got, want, got_lse in (("plain", core_out, ref, core_lse),
+                                             ("flash_attention_masked_reference", out.transpose(1, 2), full_ref,
+                                              None)):
+            err = (got.float() - want.float()).abs()
+            rows = live_rows[:, None, :, None].expand_as(err)
+            errs[against] = dict(max_abs_err=err[rows].max().item(),
+                                 err_over_max1_ref=(err / want.float().abs().clamp_min(1.0))[rows].max().item())
+            if got_lse is not None:
+                errs[against]["lse_max_abs_err"] = (got_lse - ref_lse).abs()[live_rows[:, None].expand_as(got_lse)].max().item()
+        empty = ~live_rows
+        empty_ok = bool(not core_out.transpose(1, 2)[empty].any()
+                        and (core_lse.transpose(1, 2)[empty] == empty_lse).all()) if empty.any() else None
+        skipped_ok = None
+        if kind == "sparse":  # key tile 1 is off for every row: its k and v rows are never read
+            big_k, big_v = k_r.clone(), vb.clone()
+            big_k[:, :, 128:256], big_v[:, :, 128:256] = 3e4, -3e4
+            big = flash_forward_masked_core(q_s, big_k, big_v, mask)
+            skipped_ok = torch.equal(big[0], core_out) and torch.equal(big[1], core_lse)
+        ms = cuda_ms(lambda: flash_forward_masked_core(q_s, k_r, vb, mask))  # the mask's tiles built once, cached
+        tiles_ms = cuda_ms(lambda: mask_tiles(mask, h))
+        attn_mask = mask[:, None]
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=attn_mask))
+        bound_ms, bound_by = k1_mask_bound(b, n, sq, skv, h, mask)
+        _, tiles, counts = mask_tiles(mask, h)
+        phase("k1_mask_check", case=name, shape=[b, n, sq, skv, h], kv_heads=n_kv, mask=kind, lens=lens,
+              live_tiles=int(counts.sum()), tiles=int(counts.numel() * tiles.shape[-1]),
+              vs_plain=errs["plain"], vs_flash_attention_masked_reference=errs["flash_attention_masked_reference"],
+              empty_rows=int(empty.sum()), empty_rows_zero_and_lse=empty_ok, skipped_tile_rows_ignored=skipped_ok,
+              ms=ms, mask_tiles_ms=tiles_ms, plain_ms=plain_ms, sdpa_same_mask_ms=sdpa_ms, bound_ms=bound_ms,
+              bound_by=bound_by, tflops=4 * n * h * int(mask.sum()) / ms / 1e9, card=card)
+        if not (all(e["err_over_max1_ref"] <= K1_TOL for e in errs.values()) and errs["plain"]["lse_max_abs_err"]
+                <= LSE_TOL and empty_ok is not False and skipped_ok is not False):
+            raise AssertionError(f"K1's mask branch disagrees with its plain version on {name}: {errs}, empty rows "
+                                 f"{empty_ok}, skipped tile {skipped_ok}")
+        worst = max(worst, errs["plain"]["max_abs_err"], errs["flash_attention_masked_reference"]["max_abs_err"])
+        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, kb, vb, q_s, k_r, out, core_out, ref, full_ref
+    # The long causal shape, timed only: masked against unmasked K1 and SDPA under the same boolean mask.
+    b, n, s, h = 1, 32, 4096, 128
+    q_s, k_r, v = (torch.randn(b, n, s, h, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    mask = causal_mask(b, s, s)
+    masked_ms = cuda_ms(lambda: flash_forward_masked_core(q_s, k_r, v, mask))
+    unmasked_ms = cuda_ms(lambda: flash_forward_core(q_s, k_r, v))
+    attn_mask = mask[:, None]
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q_s, k_r, v, attn_mask=attn_mask))
+    sdpa_causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q_s, k_r, v, is_causal=True))
+    tiles_ms = cuda_ms(lambda: mask_tiles(mask, h))
+    bound_ms, bound_by = k1_mask_bound(b, n, s, s, h, mask)
+    phase("k1_mask_long_causal", shape=[b, n, s, s, h], ms=masked_ms, unmasked_k1_ms=unmasked_ms,
+          masked_over_unmasked=masked_ms / unmasked_ms, sdpa_same_mask_ms=sdpa_ms, sdpa_is_causal_ms=sdpa_causal_ms,
+          mask_tiles_ms=tiles_ms, bound_ms=bound_ms, bound_by=bound_by,
+          tflops=4 * n * h * int(mask.sum()) / masked_ms / 1e9, card=card)
+    records["long_causal"] = dict(ms=masked_ms, plain_ms=None, library_ms=sdpa_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, unmasked_k1_ms=unmasked_ms)
+    return worst, records
+
+
+# The text towers at their published widths and depths (ROADMAP.md queue 1 item 7), random weights from a seeded
+# generator on the card, bf16, each encode held against the same tower under plain fp32 attention.
+TOWER_REL_L2_TOL = 5e-2
+# CogView4 from a local diffusers directory written here: the transformer at full width cut to 2 of 28 blocks,
+# the 2D AutoencoderKL at its default widths with 16 latent channels, GLM-4 at full width cut to 2 of 40 layers.
+CKPT_BLOCKS, CKPT_GLM_LAYERS, CKPT_SERVE_STEPS, CKPT_RANK = 2, 2, 2, 32
+
+
+class StubTokenizer:
+    """A tokenizer stand-in (neither machine has the towers' tokenizer files):
+    caption i of `lengths` tokens gets ids drawn from a seeded generator below
+    `vocab`, then `eos_id` where given, padded with `pad_id` as the call asks."""
+
+    def __init__(self, lengths, vocab, pad_id=0, eos_id=None):
+        self.lengths, self.vocab, self.pad_token_id, self.eos_id = list(lengths), vocab, pad_id, eos_id
+
+    def __call__(self, texts, padding=None, max_length=None, truncation=None, return_tensors=None, **kwargs):
+        lengths = [self.lengths[i % len(self.lengths)] for i in range(len(texts))]
+        width = max_length if padding == "max_length" else max(lengths)
+        rng = np.random.RandomState(len(texts))
+        ids = np.full((len(texts), width), self.pad_token_id, np.int64)
+        mask = np.zeros((len(texts), width), np.int64)
+        for i, n in enumerate(lengths):
+            n = min(n, width)
+            ids[i, :n] = rng.randint(3, self.vocab - 1, n)
+            if self.eos_id is not None:
+                ids[i, n - 1] = self.eos_id
+            mask[i, :n] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def _tower_handle(kind, layers=None, seed=0):
+    """(handle, layers, what the spec consumes) for a published tower, random on the card."""
+    from finetrainers_tpu_torch.models.text_encoders import (CLIP_L_TEXT_CONFIG, GLM4_9B_CONFIG, LLAMA3_8B_CONFIG,
+                                                             CLIPTextConfig, CLIPTextHandle, CLIPTextTower,
+                                                             DecoderConfig, DecoderTextModel, GlmHandle, LlamaHandle)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "clip_l_text":
+        cfg = CLIPTextConfig.from_hf(CLIP_L_TEXT_CONFIG)
+        with torch.device("cuda"):
+            module = CLIPTextTower(cfg, torch.bfloat16)
+        tokenizer = StubTokenizer([40, 77], cfg.vocab_size, pad_id=cfg.eos_token_id, eos_id=cfg.eos_token_id)
+        return CLIPTextHandle.from_tower(cfg, init_parameters_(module, g), tokenizer), cfg.num_hidden_layers
+    published = GLM4_9B_CONFIG if kind == "glm4_9b" else LLAMA3_8B_CONFIG
+    cfg = (DecoderConfig.glm if kind == "glm4_9b" else DecoderConfig.llama)(
+        dict(published, num_hidden_layers=layers or published["num_hidden_layers"]))
+    with torch.device("cuda"):
+        module = DecoderTextModel(cfg, torch.bfloat16)
+    if kind == "glm4_9b":  # 1008 ids, left-padded by 16 to 1024: K1's GLM shape
+        tokenizer = StubTokenizer([1008], cfg.vocab_size, pad_id=published["pad_token_id"])
+        return GlmHandle.from_tower(cfg, init_parameters_(module, g), tokenizer), cfg.num_hidden_layers
+    # 120 and 351 ids of the 256 + 95 template slots HunyuanVideo's processor encodes: a padding mask
+    tokenizer = StubTokenizer([120, 351], cfg.vocab_size)
+    return LlamaHandle.from_tower(cfg, init_parameters_(module, g), tokenizer), cfg.num_hidden_layers
+
+
+def _encode(kind, handle):
+    """The states the spec consumes: GLM `hidden_states[-2]`, Llama `hidden_states[-3]` at 351 slots, CLIP's
+    pooled output (and its last state)."""
+    if kind == "glm4_9b":
+        return (handle.encode(["a caption"])[0],)
+    if kind == "llama3_8b":
+        return (handle.encode(["a caption", "another caption"], max_sequence_length=351)[0],)
+    return handle.encode_pooled(["a caption", "another caption"]), handle.encode(["a", "b"])[0]
+
+
+def text_towers(card):
+    """GLM-4-9B (40 layers, 32 heads over 2 kv heads x 128, partial rotary 0.5,
+    QKV bias), HunyuanVideo's Llama-3-8B (32 layers, 32 over 8 heads) and
+    CLIP-L's text tower (12 layers, 77 positions, quick_gelu) at their published
+    configs (`models/text_encoders/towers.py`), random weights drawn on the card
+    from a seeded generator, bf16: `encode` through each handle with a stub
+    tokenizer, exactly one launch of K1's mask branch (and its pre-pass) per
+    layer and no other attention kernel, the consumed states held against the
+    same tower under `_native_math` (plain fp32 attention), seconds and peak
+    memory; each tower freed before the next. Returns the launches by tower."""
+    launches = {}
+    for kind in ("glm4_9b", "llama3_8b", "clip_l_text"):
+        t0 = time.perf_counter()
+        handle, layers = _tower_handle(kind)
+        params = sum(p.numel() for p in handle.module.parameters())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _encode(kind, handle)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        got = _encode(kind, handle)
+        torch.cuda.synchronize()
+        encode_s, counts = time.perf_counter() - t0, _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with attention_provider("_native_math"):
+            want = _encode(kind, handle)
+        errs = [float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in zip(got, want)]
+        calls = 2 if kind == "clip_l_text" else 1  # CLIP: the pooled and the last-state encodes
+        want_counts = {k_: (layers * calls if k_ in ("k1_mask", "prep") else 0) for k_ in counts}
+        finite = all(np.isfinite(x).all() for x in got)
+        phase("text_towers", tower=kind, layers=layers, params=params, shapes=[list(x.shape) for x in got],
+              build_s=build_s, encode_s=encode_s, peak_gb=peak_gb, launches=counts, launches_exact=counts == want_counts,
+              rel_l2_vs_plain_attention=errs, bound=TOWER_REL_L2_TOL, finite=finite, card=card)
+        if not (finite and counts == want_counts and max(errs) <= TOWER_REL_L2_TOL):
+            raise AssertionError(f"the {kind} tower failed its checks: launches {counts}, errors {errs}")
+        launches[kind] = counts["k1_mask"]
+        del handle
+        _free_cuda()
+    return launches
+
+
+def cogview4_checkpoint_serve(card):
+    """CogView4 from a local diffusers directory: `transformer/` at full width
+    cut to 2 of 28 blocks with its config.json, `vae/` the 2D AutoencoderKL at
+    its default widths with 16 latent channels, `text_encoder/` GLM-4 at full
+    width cut to 2 of 40 layers, all bf16 and random from a seeded generator,
+    written here, then loaded through the spec (rank-32 LoRA): base weights
+    bit-equal to the files, the LoRA factors a fresh model's, each handle the
+    tower's; one 1024x1024 CFG request of 2 steps through `CogView4Pipeline`
+    whose prompt the loaded GLM encodes (stub tokenizer) and whose latents the
+    loaded VAE decodes: K1's mask branch 2 launches per GLM encode (prompt and
+    negative), K1 2 per denoise step. The runner's tokenizer waits for
+    `transformers` and tokenizer files on the card (`env` says whether it
+    imports). Returns the launches."""
+    from finetrainers_tpu_torch.models.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
+    from finetrainers_tpu_torch.models.cogview4 import COGVIEW4_TRANSFORMER_CONFIG, CogView4ModelSpecification
+    from finetrainers_tpu_torch.models.cogview4.transformer import CogView4Transformer2DModel
+    from finetrainers_tpu_torch.models.text_encoders import GLM4_9B_CONFIG, DecoderConfig, DecoderTextModel, GlmHandle
+    from finetrainers_tpu_torch.utils.serialization import safetensors_save_dict
+
+    root = SMOKE_DIR / "cogview4_local_checkpoint"
+    config = dict(COGVIEW4_TRANSFORMER_CONFIG, num_layers=CKPT_BLOCKS)
+    vae_config = dict(latent_channels=16, scaling_factor=1.0, shift_factor=0.0)
+    glm_config = dict(GLM4_9B_CONFIG, num_hidden_layers=CKPT_GLM_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    t0 = time.perf_counter()
+    written = {}
+    for sub, cfg, build, file in (
+            ("transformer", dict(config, _class_name="CogView4Transformer2DModel"),
+             lambda: CogView4Transformer2DModel(**config, dtype=torch.bfloat16), "diffusion_pytorch_model"),
+            ("vae", dict(vae_config, _class_name="AutoencoderKL"),
+             lambda: AutoencoderKL(AutoencoderKLConfig.from_hf(vae_config), torch.bfloat16), "diffusion_pytorch_model"),
+            ("text_encoder", glm_config, lambda: DecoderTextModel(DecoderConfig.glm(glm_config), torch.bfloat16),
+             "model")):
+        with torch.device("cuda"):
+            module = init_parameters_(build(), g)
+        written[sub] = {k: v.detach().clone() for k, v in module.state_dict().items()}
+        del module
+        (root / sub).mkdir(parents=True)
+        (root / sub / "config.json").write_text(json.dumps(cfg))
+        prefix = "model." if sub == "text_encoder" else ""
+        safetensors_save_dict({prefix + k: v for k, v in written[sub].items()}, str(root / sub / f"{file}.safetensors"))
+    write_s = time.perf_counter() - t0
+
+    def spec_at(path):
+        return CogView4ModelSpecification(pretrained_model_name_or_path=str(path), transformer_config=config,
+                                          device="cuda", lora_rank=CKPT_RANK, lora_alpha=CKPT_RANK)
+
+    spec, load_s = spec_at(root), {}
+    for name, load in (("transformer", lambda: spec.load_diffusion_models()["transformer"]),
+                       ("vae", lambda: spec.load_latent_models()["vae"]),
+                       ("text_encoder", lambda: spec.load_condition_models()["text_encoder"])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_s[name] = load()
+        torch.cuda.synchronize()
+        load_s[name] = (load_s[name], time.perf_counter() - t0)
+    (transformer, _), (vae, _), (text_encoder, _) = load_s.values()
+    load_s = {name: seconds for name, (_, seconds) in load_s.items()}
+    state = transformer.module.state_dict()
+    base_equal = {"transformer": all(torch.equal(state[k], v) for k, v in written["transformer"].items()),
+                  "vae": all(torch.equal(v, written["vae"][k]) for k, v in vae.module.state_dict().items())
+                  and vae.module.state_dict().keys() == written["vae"].keys(),
+                  "text_encoder": isinstance(text_encoder, GlmHandle) and all(
+                      torch.equal(v, written["text_encoder"][k]) for k, v in text_encoder.module.state_dict().items())}
+    fresh = spec_at(root / "absent").load_diffusion_models()["transformer"].module.state_dict()
+    lora = [k for k in state if ".lora_" in k]
+    lora_fresh = bool(lora) and all(torch.equal(state[k], fresh[k]) for k in lora)
+    del fresh, written
+    torch.cuda.empty_cache()
+    handles_ok = isinstance(vae.module, AutoencoderKL) and isinstance(text_encoder, GlmHandle)
+    text_encoder.tokenizer = StubTokenizer([120], glm_config["vocab_size"], pad_id=glm_config["pad_token_id"])
+    pipe = spec.load_pipeline(transformer=transformer, vae=vae, text_encoder=text_encoder)
+    request = dict(prompt=PROMPTS[0], height=1024, width=1024, num_inference_steps=CKPT_SERVE_STEPS,
+                   guidance_scale=3.5, seed=0)
+    pipe(**dict(request, num_inference_steps=1))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    image = pipe(**request)
+    torch.cuda.synchronize()
+    request_s, counts = time.perf_counter() - t0, _counts()
+    want = {k_: 0 for k_ in counts}
+    want.update(k1_mask=2 * CKPT_GLM_LAYERS, k1=CKPT_BLOCKS * CKPT_SERVE_STEPS,
+                prep=2 * CKPT_GLM_LAYERS + CKPT_BLOCKS * CKPT_SERVE_STEPS)
+    image_ok = image.shape == (1024, 1024, 3) and image.dtype == np.uint8 and image.std() > 0
+    request_peak_gb, handles, vae_cfg = (torch.cuda.max_memory_allocated() / 1e9,
+                                         [type(text_encoder).__name__, type(vae.module).__name__], vae.config)
+    del pipe, transformer, vae, text_encoder, spec
+    _free_cuda()
+    runner = _checkpoint_runner(root, config, want)
+    phase("cogview4_checkpoint_serve", blocks=CKPT_BLOCKS, glm_layers=CKPT_GLM_LAYERS,
+          files_gb=sum(f.stat().st_size for f in root.rglob("*.safetensors")) / 1e9, write_s=write_s, load_s=load_s,
+          base_weights_bit_equal=base_equal, lora_factors_fresh=lora_fresh, lora_tensors=len(lora),
+          handles=handles, vae_config=vae_cfg,
+          request=dict(request, steps_note="cut from the request's 50"), request_s=request_s,
+          peak_gb=request_peak_gb, launches=counts, launches_exact=counts == want,
+          image_shape=list(image.shape), image_std=float(image.std()), runner=runner,
+          jax_imported="jax" in sys.modules, card=card)
+    if not (all(base_equal.values()) and lora_fresh and handles_ok and image_ok and counts == want
+            and runner.get("ok", True) and "jax" not in sys.modules):
+        raise AssertionError(f"the CogView4 checkpoint path failed its checks: {base_equal}, LoRA fresh {lora_fresh}, "
+                             f"launches {counts}, runner {runner}")
+    _free_cuda()
+    shutil.rmtree(root)
+    return counts
+
+
+def _checkpoint_runner(root, config, want):
+    """Where `transformers` and `tokenizers` import: the same request through the
+    runner (`inference.main --model_name cogview4` on the directory, its
+    guidance 5.0 as a CFG batch of 2) with `--tokenizer_id` a word-level
+    tokenizer written here (the GLM tokenizer's files are on neither machine),
+    so the runner's own `AutoTokenizer` load feeds the loaded GLM. Returns its
+    record; without those packages, why it did not run."""
+    from finetrainers_tpu_torch import inference
+
+    import cv2
+
+    try:
+        from tokenizers import Tokenizer, models, pre_tokenizers
+        import transformers  # noqa: F401
+    except ImportError as e:
+        return {"skipped": f"the runner's tokenizer waits for transformers and tokenizers ({e})"}
+    words = sorted(set(PROMPTS[0].split()))
+    tokenizer = Tokenizer(models.WordLevel({"<pad>": 0, "<unk>": 1, **{w: 2 + i for i, w in enumerate(words)}},
+                                           unk_token="<unk>"))
+    tokenizer.pre_tokenizer = pre_tokenizers.Whitespace()
+    (root / "tokenizer").mkdir()
+    tokenizer.save(str(root / "tokenizer" / "tokenizer.json"))
+    (root / "tokenizer" / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>", "unk_token": "<unk>",
+         "model_max_length": 1024}))
+    argv = ["--model_name", "cogview4", "--pretrained_model_name_or_path", str(root), "--tokenizer_id",
+            str(root / "tokenizer"), "--inference_type", "text_to_image", "--prompt", PROMPTS[0], "--height", "1024",
+            "--width", "1024", "--num_inference_steps", str(CKPT_SERVE_STEPS), "--output_dir", str(root / "served")]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    paths = inference.main(argv, transformer_config=config)
+    torch.cuda.synchronize()
+    seconds, counts = time.perf_counter() - t0, _counts()
+    written = cv2.imread(paths[0])
+    shape = None if written is None else list(written.shape)
+    _free_cuda()
+    return dict(entry="python -m finetrainers_tpu_torch.inference", argv=argv[:-2], seconds=seconds, launches=counts,
+                written_shape=shape, ok=counts == want and shape == [1024, 1024, 3])
+
+
 def env_phase():
-    """Whether the media codecs the data stage decodes with import here (information, not a check)."""
+    """Whether the media codecs the data stage decodes with, and transformers' tokenizers (the towers'
+    `AutoTokenizer`), import here (information, not a check)."""
     found = {}
-    for name in ("cv2", "PIL"):
+    for name in ("cv2", "PIL", "transformers", "tokenizers"):
         try:
             importlib.import_module(name)
             found[name] = True
@@ -4925,6 +5333,7 @@ def main():
     k1_wan_err, k1_wan = check_k1_wan(card)
     k5_err, k5_wan, k5_ltx = check_k5(card)
     k7_err, k7 = check_k7(card)
+    k1_mask_err, k1_mask = check_k1_mask(card)
     torch.cuda.empty_cache()
     serve_launches = serve(card)
     torch.cuda.empty_cache()
@@ -4959,6 +5368,8 @@ def main():
     dummy_serve_launches = dummy_serve(card, dummy["adapter"])
     raider = cogview4_sft_run(card)
     raider_serve = cogview4_sft_serve(card, raider["adapter"])
+    tower_launches = text_towers(card)
+    checkpoint_launches = cogview4_checkpoint_serve(card)
     shutil.rmtree(SMOKE_DIR)
     env_phase()
 
@@ -5169,6 +5580,18 @@ def main():
                   "finetrainers_tpu/ops/flash_attention.py:1199", h32_bwd_err["k3"], h32_bwd["dummy_self"]["k3"],
                   by_case={case: dict(zip(fields, r["k3"]), device_ms=r["k3_device_ms"]) for case, r in h32_bwd.items()},
                   library_note="torch SDPA backward (dq, dk, dv in one call)"),
+        entry("flash_fwd_mask_sm90 (K1's dense-mask branch, wgmma + TMA, over each q tile's live key tiles)",
+              "finetrainers_tpu_torch/csrc/flash_fwd_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:217",
+              checkpoint_launches["k1_mask"], k1_mask_err,
+              tuple(k1_mask["glm_causal_gqa"][f] for f in fields), shape=[1, 32, 1024, 1024, 128],
+              launches_by_path={"cogview4_checkpoint_serve": checkpoint_launches["k1_mask"],
+                                **{f"text_towers_{kind}": n for kind, n in tower_launches.items()}},
+              by_case={case: {f: r[f] for f in fields} for case, r in k1_mask.items()},
+              long_causal_unmasked_k1_ms=k1_mask["long_causal"]["unmasked_k1_ms"],
+              also_replaces=["finetrainers_tpu/ops/flash_attention.py:304"],
+              ptxas=ptxas("flash_fwd_sm90", "flash_fwd_mask_sm90_kernel"),
+              ms_note="the mask's tile lists built once and cached, as a tower's layers share them",
+              library_note="torch SDPA forward given the same boolean mask (the kv heads repeated)"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -129,6 +129,24 @@
 // three consumers at H=64 (spills 44 bytes; 0.33 ms at LTX's shape
 // [0.38]), and its P V left in flight into the next step (ptxas serializes
 // the wgmmas, C7515; 5.37-5.38 ms [4.74-4.78]).
+// K1's dense-mask branch (`flash_fwd_mask_sm90`; _fwd_kernel's `mask_ref`
+// branch, :217-222, with the block map's tile skipping, :304-307) is K1's
+// kernel with a list of live key tiles per q tile and a boolean mask:
+//  - The wrapper pads the (B, Sq, Skv) mask with zeros to whole q tiles of
+//    block_m rows (K1's own tile, not the TPU kernel's) and 128-key tiles, and
+//    lists each q tile's live key tiles in order (a tile is live where any of
+//    its mask bytes is set), flagging those whose mask is all set.
+//  - The producer loads only the listed k and v tiles, and the consumers step
+//    through the same list, so both skip the same tiles.
+//  - A consumer reads its score fragment's mask bytes (two per row and 8
+//    columns) straight from global memory and selects the masked scores to
+//    -inf, never adds -1e30 or multiplies by 0/1: a masked key's p is exactly
+//    0, and a row with no live key keeps m = -1e30 and l = 0, so it gives out 0
+//    and lse -1e30*ln2, as a row past kv_lens does. A tile flagged full reads
+//    no mask.
+//  - The CTAs take the last q tiles first, over every (batch, head): under a
+//    causal mask those have the most live tiles, so the longest CTAs start
+//    first and the short ones fill the last wave.
 // Not yet used: an enforced ping-pong between the two warpgroups, a
 // persistent grid, or a TMA store of the output. The Hopper helpers (barriers, TMA,
 // wgmma wrappers, descriptors, tensor maps) are in sm90_common.cuh, shared
@@ -141,8 +159,12 @@ namespace {
 constexpr int kBlockN = 128;  // keys per stage
 constexpr int kStages = 2;
 constexpr int kProducerRegs = 24;
-// The kernels of this file: K1, K7a (two-pass), K7c (two-level), K7b (skewed).
-enum Variant { kStraight, kTwoPass, kTwoLevel, kSkew };
+// The kernels of this file: K1, K7a (two-pass), K7c (two-level), K7b (skewed),
+// and K1's dense-mask branch.
+enum Variant { kStraight, kTwoPass, kTwoLevel, kSkew, kMasked };
+// A live key tile's entry in the mask branch's list: its index, with kFullTile
+// set where every mask byte of the (q tile, key tile) block is set.
+constexpr int kFullTile = 1 << 30;
 // Consumer warpgroups per CTA, each owning 64 q rows. K1 and K7a: three at
 // H=64 and H=32, where the softmax is a larger share of a tile's work and a third
 // warpgroup hides more of it (measured ~13% faster at LTX's shape than two);
@@ -197,34 +219,44 @@ struct Params {
   int heads, seq_q, seq_kv;
   int64_t o_sb, o_sn, o_ss;
   float q_scale;  // K7b: the scale * log2(e) it applies to q itself
+  // The mask branch: the (B, q_tiles * block_m, kv_tiles * 128) zero-padded
+  // boolean mask, and per (b, q tile) the count and list of live key tiles.
+  const unsigned char* mask;
+  const int* tiles;        // (B, q_tiles, kv_tiles)
+  const int* tile_counts;  // (B, q_tiles)
+  int q_tiles, kv_tiles;
 };
 
 // The producer: one thread of warpgroup 0 loads the q tile once, then k and v
 // tile t into stage t % kStages once the consumers have released it.
 template <int HD, int WGS = consumer_wgs<HD>()>
 __device__ __forceinline__ void produce(const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map,
-                                        uint32_t base, int q0, int n, int b, int num_tiles) {
+                                        uint32_t base, int q0, int n, int b, int num_tiles,
+                                        const int* tiles = nullptr) {
   using L = Layout<HD, WGS>;
   const uint32_t q_full = base + L::kBars;
   using R = TileRow<HD>;
   mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
   for (int h = 0; h < R::kBoxes; ++h) tma_load(base + L::kQ + h * kHalfBytes, q_map, q_full, h * R::kCols, q0, n, b);
+  int next = tiles != nullptr && num_tiles > 0 ? tiles[0] : 0;  // the mask branch's live tiles, read one ahead
   for (int t = 0; t < num_tiles; ++t) {
     const int st = t % kStages;
     const uint32_t parity = ((t / kStages) & 1) ^ 1;  // the first round finds every stage free
+    const int k0 = (tiles == nullptr ? t : next & (kFullTile - 1)) * kBlockN;
+    if (tiles != nullptr && t + 1 < num_tiles) next = tiles[t + 1];
     const uint32_t k_full = q_full + 8 * (1 + st), v_full = k_full + 8 * kStages;
     const uint32_t k_empty = v_full + 8 * kStages, v_empty = k_empty + 8 * kStages;
     mbar_wait(k_empty, parity);
     mbar_expect_tx(k_full, L::kTileBytes);
 #pragma unroll
     for (int h = 0; h < R::kBoxes; ++h)
-      tma_load(base + L::kK + st * L::kTileBytes + h * kHalfBytes, k_map, k_full, h * R::kCols, t * kBlockN, n, b);
+      tma_load(base + L::kK + st * L::kTileBytes + h * kHalfBytes, k_map, k_full, h * R::kCols, k0, n, b);
     mbar_wait(v_empty, parity);
     mbar_expect_tx(v_full, L::kTileBytes);
 #pragma unroll
     for (int h = 0; h < R::kBoxes; ++h)
-      tma_load(base + L::kV + st * L::kTileBytes + h * kHalfBytes, v_map, v_full, h * R::kCols, t * kBlockN, n, b);
+      tma_load(base + L::kV + st * L::kTileBytes + h * kHalfBytes, v_map, v_full, h * R::kCols, k0, n, b);
   }
 }
 
@@ -262,6 +294,24 @@ __device__ __forceinline__ void softmax_step(float* s, float* m, float* alpha, f
   }
 }
 
+// The mask branch's select on a landed score tile of 128 keys from k0: a score
+// whose mask byte is 0 becomes -inf, so its p = exp2(-inf - m) is exactly 0
+// and it never moves the row max (m starts at -1e30). row0/row1: this
+// thread's two mask rows (8 apart); each fragment pair is one 2-byte load.
+__device__ __forceinline__ void mask_select(float* s, const unsigned char* row0, const unsigned char* row1, int k0,
+                                            int lane) {
+  const int c0 = k0 + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < kBlockN / 8; ++j) {
+    const uint32_t a = *reinterpret_cast<const uint16_t*>(row0 + c0 + 8 * j);
+    const uint32_t c = *reinterpret_cast<const uint16_t*>(row1 + c0 + 8 * j);
+    if (!(a & 0xffu)) s[4 * j] = -INFINITY;
+    if (!(a >> 8)) s[4 * j + 1] = -INFINITY;
+    if (!(c & 0xffu)) s[4 * j + 2] = -INFINITY;
+    if (!(c >> 8)) s[4 * j + 3] = -INFINITY;
+  }
+}
+
 // out = acc / l in T, lse = m*ln2 + log(l) for a consumer warpgroup's 64 q
 // rows from row0 (l: this thread's partial row sums, reduced over the quad
 // here); a row with no valid key has l = 0: out 0, lse -1e30*ln2.
@@ -294,12 +344,32 @@ __device__ __forceinline__ void store_out(const Params& p, const float* o, const
 // 8j + 2*(lane%4) + (e&1) of row lane/4 + 8*(e>=2) of the warp's 16 rows.
 // Tile t's QK^T is issued together with tile t-1's P V, and tile t's softmax
 // runs while that P V is on the tensor cores.
-template <typename T, int HD>
+// MASKED (the mask branch): tile t is the key tile tiles[t], and its scores
+// pass mask_select first unless the tile is flagged full.
+template <typename T, int HD, bool MASKED = false>
 __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg, int q0, int n, int b, int kv_len,
-                                        int num_tiles) {
+                                        int num_tiles, const int* tiles = nullptr) {
   using L = Layout<HD>;
   constexpr int kOut = HD / 2;  // accumulator floats per thread: 64 rows x HD / 128 threads
   const int lane = threadIdx.x % 32;
+  const unsigned char* mask_row = nullptr;
+  int64_t mask_stride = 0;
+  if constexpr (MASKED) {
+    mask_stride = (int64_t)p.kv_tiles * kBlockN;
+    const int row = q0 + cwg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+    mask_row = p.mask + ((int64_t)b * p.q_tiles * block_m<HD>() + row) * mask_stride;
+  }
+  // Tile t's scores, landed: the mask branch's select (`entry`: its list entry,
+  // read before the scores were waited for), then the softmax step.
+  auto step = [&](float* s, float* m, float* alpha, float* rowsum, int t, int entry) {
+    int k0 = t * kBlockN;
+    if constexpr (MASKED) {
+      k0 = (entry & (kFullTile - 1)) * kBlockN;
+      if (!(entry & kFullTile)) mask_select(s, mask_row, mask_row + 8 * mask_stride, k0, lane);
+    }
+    softmax_step(s, m, alpha, rowsum, k0, kv_len, lane);
+  };
+  auto entry_of = [&](int t) { return MASKED ? tiles[t] : 0; };
   const uint32_t q_full = base + L::kBars;
   auto k_full = [&](int st) { return q_full + 8 * (1 + st); };
   auto v_full = [&](int st) { return q_full + 8 * (1 + kStages + st); };
@@ -317,6 +387,7 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg,
   if (num_tiles > 0) {
     float s[64], alpha[2], rowsum[2];
     uint32_t pa[kBlockN / 16][4];
+    int entry = entry_of(0);
     mbar_wait(k_full(0), 0);
     wgmma_fence();
     issue_ss<T, HD, kBlockN, kHalfBytes, kHalfBytes>(s, q_addr, base + L::kK);
@@ -325,12 +396,13 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg,
     fence_regs<64>(s);
     __syncwarp();
     if (lane == 0) mbar_arrive(k_empty(0));
-    softmax_step(s, m, alpha, rowsum, 0, kv_len, lane);
+    step(s, m, alpha, rowsum, 0, entry);
     l[0] = rowsum[0];
     l[1] = rowsum[1];
     pack_a<T, kBlockN>(pa, s);
     for (int t = 1; t < num_tiles; ++t) {
       const int st = t % kStages, prev = (t - 1) % kStages;
+      entry = entry_of(t);
       mbar_wait(k_full(st), (t / kStages) & 1);
       fence_regs<kOut>(o);
       wgmma_fence();
@@ -343,7 +415,7 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg,
       fence_regs<64>(s);
       __syncwarp();
       if (lane == 0) mbar_arrive(k_empty(st));
-      softmax_step(s, m, alpha, rowsum, t * kBlockN, kv_len, lane);
+      step(s, m, alpha, rowsum, t, entry);
       wgmma_wait_all();
       fence_regs<kOut>(o);
       fence_regs<kBlockN / 16>(pa);
@@ -862,10 +934,28 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* q_map, const CUtensor
   constexpr int kWgs = consumer_wgs<HD, V>();
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + Layout<HD, kWgs>::kBars;
-  const int q0 = blockIdx.x * block_m<HD, V>(), n = blockIdx.y, b = blockIdx.z;
+  int q_tile = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
+  if constexpr (V == kMasked) {
+    // Last q tiles first, over every (batch, head), as the CTAs are dispatched
+    // in order: under a causal mask they have the most live tiles, so the
+    // longest CTAs start first and the short ones fill the last wave.
+    const int cells = gridDim.y * gridDim.z;
+    const int linear = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    q_tile = gridDim.x - 1 - linear / cells;
+    n = linear % cells % gridDim.y;
+    b = linear % cells / gridDim.y;
+  }
+  const int q0 = q_tile * block_m<HD, V>();
   int kv_len = p.seq_kv;
   if (p.kv_lens != nullptr) kv_len = min(max(p.kv_lens[b], 0), p.seq_kv);
-  const int num_tiles = (kv_len + kBlockN - 1) / kBlockN;
+  int num_tiles = (kv_len + kBlockN - 1) / kBlockN;
+  const int* tiles = nullptr;
+  if constexpr (V == kMasked) {  // the live key tiles of this (b, q tile); the mask alone selects keys
+    const int cell = b * p.q_tiles + q_tile;
+    num_tiles = p.tile_counts[cell];
+    tiles = p.tiles + (int64_t)cell * p.kv_tiles;
+    kv_len = 0x7fffffff;
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -886,7 +976,7 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* q_map, const CUtensor
       if constexpr (V == kTwoPass) {
         produce_twopass<HD>(q_map, k_map, v_map, base, q0, n, b, num_tiles);
       } else {
-        produce<HD, kWgs>(q_map, k_map, v_map, base, q0, n, b, num_tiles);
+        produce<HD, kWgs>(q_map, k_map, v_map, base, q0, n, b, num_tiles, tiles);
       }
     }
   } else {
@@ -899,6 +989,8 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* q_map, const CUtensor
       consume_two_level<T, HD>(p, base, cwg, q0, n, b, kv_len, num_tiles);
     } else if constexpr (V == kSkew) {
       consume_skew<T, HD>(p, base, smem, cwg, q0, n, b, kv_len);
+    } else if constexpr (V == kMasked) {
+      consume<T, HD, true>(p, base, cwg, q0, n, b, kv_len, num_tiles, tiles);
     } else {
       consume<T, HD>(p, base, cwg, q0, n, b, kv_len, num_tiles);
     }
@@ -917,6 +1009,7 @@ FWD_KERNEL(flash_fwd_sm90_kernel, kStraight)
 FWD_KERNEL(flash_fwd_twopass_sm90_kernel, kTwoPass)
 FWD_KERNEL(flash_fwd_two_level_sm90_kernel, kTwoLevel)
 FWD_KERNEL(flash_fwd_skew_sm90_kernel, kSkew)
+FWD_KERNEL(flash_fwd_mask_sm90_kernel, kMasked)
 #undef FWD_KERNEL
 
 // Variant V's kernel at (T, HD).
@@ -927,6 +1020,7 @@ cudaError_t launch(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUt
   if constexpr (V == kTwoPass) kernel = flash_fwd_twopass_sm90_kernel<T, HD>;
   if constexpr (V == kTwoLevel) kernel = flash_fwd_two_level_sm90_kernel<T, HD>;
   if constexpr (V == kSkew) kernel = flash_fwd_skew_sm90_kernel<T, HD>;
+  if constexpr (V == kMasked) kernel = flash_fwd_mask_sm90_kernel<T, HD>;
   const dim3 grid((p.seq_q + block_m<HD, V>() - 1) / block_m<HD, V>(), p.heads, batch);
   static std::atomic<uint64_t> attribute_set{0};
   // + 1024 bytes of slack to align the base to 1024 bytes
@@ -937,8 +1031,9 @@ cudaError_t launch(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUt
 template <int V>
 int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, int batch,
               int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, float q_scale,
-              void* stream) {
-  // H=32: K1 only (K7a/b/c at H=32 are still to port, ROADMAP.md queue 2 item 5).
+              void* stream, const void* mask = nullptr, const void* tiles = nullptr, const void* tile_counts = nullptr,
+              int q_tiles = 0, int kv_tiles = 0) {
+  // H=32: K1 only (K7a/b/c and the mask branch at H=32 are still to port, ROADMAP.md queue 2 item 5).
   const bool narrow = head_dim == 32 && V == kStraight;
   if ((head_dim != 64 && head_dim != 128 && !narrow) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
@@ -957,6 +1052,14 @@ int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* 
   p.seq_kv = seq_kv;
   p.o_sb = strides[9]; p.o_sn = strides[10]; p.o_ss = strides[11];
   p.q_scale = q_scale;
+  p.mask = static_cast<const unsigned char*>(mask);
+  p.tiles = static_cast<const int*>(tiles);
+  p.tile_counts = static_cast<const int*>(tile_counts);
+  p.q_tiles = q_tiles;
+  p.kv_tiles = kv_tiles;
+  if (V == kMasked && (mask == nullptr || tiles == nullptr || tile_counts == nullptr || kv_lens != nullptr ||
+                       q_tiles != (seq_q + q_rows - 1) / q_rows || kv_tiles != (seq_kv + kBlockN - 1) / kBlockN))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (V == kStraight) {
     if (narrow && dtype == 0) return launch<__nv_bfloat16, 32, V>(q_map, k_map, v_map, p, batch, s);
@@ -988,6 +1091,17 @@ FWD_ENTRY(flash_fwd_sm90, kStraight)
 FWD_ENTRY(flash_fwd_twopass_sm90, kTwoPass)
 FWD_ENTRY(flash_fwd_two_level_sm90, kTwoLevel)
 #undef FWD_ENTRY
+
+// K1's mask branch: K1's arguments without kv_lens, then the padded mask, the
+// live-tile lists and counts, and the q and key tile counts (see Params; the
+// q tile is 128 rows at head dim 128, 192 at 64).
+extern "C" int flash_fwd_mask_sm90(const void* q_s, const void* k_r, const void* v, void* out, void* lse,
+                                   const void* mask, const void* tiles, const void* tile_counts, int batch, int heads,
+                                   int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, int q_tiles,
+                                   int kv_tiles, void* stream) {
+  return fwd_entry<kMasked>(q_s, k_r, v, out, lse, nullptr, batch, heads, seq_q, seq_kv, head_dim, dtype, strides, 1.f,
+                            stream, mask, tiles, tile_counts, q_tiles, kv_tiles);
+}
 
 extern "C" int flash_fwd_skew_sm90(const void* q, const void* k, const void* v, void* out, void* lse,
                                    const void* kv_lens, int batch, int heads, int seq_q, int seq_kv, int head_dim,

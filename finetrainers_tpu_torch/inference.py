@@ -42,7 +42,7 @@ import sys
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
-from .args import DTYPES
+from .args import DTYPES, TOWER_FLAGS
 from .config import get_model_specification_cls
 from .logging import get_logger
 
@@ -128,9 +128,10 @@ _UNPORTED = (
 
 
 def _check_ported(args: argparse.Namespace) -> None:
+    lifted = TOWER_FLAGS.get(args.model_name, ())
     for flags, default, item in _UNPORTED:
         for flag in flags:
-            if getattr(args, flag) != default:
+            if flag not in lifted and getattr(args, flag) != default:
                 raise NotImplementedError(f"--{flag} {getattr(args, flag)!r} is not ported yet; see ROADMAP.md {item}")
     if args.training_type.startswith("control") and args.frame_conditioning_concatenate_mask:
         raise ValueError("--frame_conditioning_concatenate_mask: the runner widens the model to 3x the latent "
@@ -154,8 +155,13 @@ class Inference:
         self.spec = spec_cls(
             pretrained_model_name_or_path=args.pretrained_model_name_or_path,
             text_encoder_id=args.text_encoder_id,
+            text_encoder_2_id=args.text_encoder_2_id,
+            tokenizer_id=args.tokenizer_id,
+            tokenizer_2_id=args.tokenizer_2_id,
             transformer_id=args.transformer_id,
             vae_id=args.vae_id,
+            text_encoder_dtype=DTYPES[args.text_encoder_dtype],
+            text_encoder_2_dtype=DTYPES[args.text_encoder_2_dtype],
             transformer_dtype=DTYPES[args.transformer_dtype],
             vae_dtype=DTYPES[args.vae_dtype],
             device=args.device,

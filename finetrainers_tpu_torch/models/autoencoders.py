@@ -421,25 +421,35 @@ def encode_media(vae_handle: ModelHandle, x: torch.Tensor, tile: int = 256, over
     return _encode(vae_handle, x)
 
 
-def _check_3d(vae_handle: ModelHandle) -> None:
+def _is_2d(vae_handle: ModelHandle) -> bool:
+    """Whether the handle holds the 2D `AutoencoderKL` (a checkpoint's image
+    VAE); else it must hold the 3D VAE, or this raises."""
+    from .autoencoder_kl import AutoencoderKL
+
+    if isinstance(vae_handle.module, AutoencoderKL):
+        return True
     if not isinstance(vae_handle.module, AutoencoderKL3D):
-        raise NotImplementedError(f"{type(vae_handle.module).__name__}: the 2D AutoencoderKL is not ported yet; "
-                                  "see ROADMAP.md queue 1 item 5 (loading diffusers checkpoints)")
+        raise NotImplementedError(f"{type(vae_handle.module).__name__}: the port's image VAEs are the 3D VAE and the "
+                                  "2D AutoencoderKL; see ROADMAP.md queue 1 item 5 (loading diffusers checkpoints)")
+    return False
 
 
 @torch.no_grad()
 def encode_image_vae(vae_handle: ModelHandle, x: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) images in [-1, 1] -> moments (B, 2C, H', W') through the 3D
-    VAE as single-frame videos (JAX autoencoders.py:264-274). Neither slicing
-    nor tiling applies, as in JAX."""
-    _check_3d(vae_handle)
+    """(B, C, H, W) images in [-1, 1] -> moments (B, 2C, H', W') through the 2D
+    `AutoencoderKL`, or the 3D VAE as single-frame videos (JAX
+    autoencoders.py:264-274). Neither slicing nor tiling applies, as in JAX."""
+    if _is_2d(vae_handle):
+        return vae_handle.module.encode(x)
     return vae_handle.module.encode(x[:, :, None])[:, :, 0]
 
 
 @torch.no_grad()
 def decode_image_vae(vae_handle: ModelHandle, z: torch.Tensor) -> torch.Tensor:
-    """(B, C, H', W') latents -> (B, 3, H, W) fp32 (JAX autoencoders.py:277-286)."""
-    _check_3d(vae_handle)
+    """(B, C, H', W') latents -> (B, 3, H, W) fp32 through either VAE (JAX
+    autoencoders.py:277-286)."""
+    if _is_2d(vae_handle):
+        return vae_handle.module.decode(z)
     return vae_handle.module.decode(z[:, :, None])[:, :, 0]
 
 

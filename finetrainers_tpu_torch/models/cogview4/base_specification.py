@@ -1,15 +1,20 @@
 """CogView4 model specification, text-to-image: serving and the training
 forward (port of `finetrainers_tpu/models/cogview4/base_specification.py`).
 
-Random weights only: no GLM-4 text tower, CogView4 VAE or transformer
-checkpoint exists for the port yet, so it runs with the offline components
-the JAX package falls back to: `HashEncoder(4096, max_length=128)` (:65-73),
-whose states `prepare_conditions` pads to 1024 slots (:124; all of them reach
-the joint attention, ROADMAP.md section 3), the generic `AutoencoderKL3D`
-with `SD_VAE_CONFIG` on single frames with latent scaling 1.0 (:75-86), and
-flow-match Euler (:99) unless the checkpoint directory's scheduler config
-names another. A local checkpoint directory for any component raises
-NotImplementedError naming its ROADMAP.md item instead of being ignored.
+Each component loads from a local diffusers directory where one exists, as
+in JAX (:65-106): the GLM-4 tower from `text_encoder/` (`GlmHandle`, in
+`text_encoder_dtype`, with `tokenizer_id`'s tokenizer where transformers
+has one), the 2D `AutoencoderKL` from `vae/` (scaling and shift from its
+config) and the transformer's base weights from `transformer/` (the LoRA
+factors stay fresh; `transformer_config` must match the checkpoint). Without
+them it runs with the offline components the JAX package falls back to:
+`HashEncoder(4096, max_length=128)`, whose states `prepare_conditions` pads
+to 1024 slots (:124; all of them reach the joint attention, ROADMAP.md
+section 3), the generic `AutoencoderKL3D` with `SD_VAE_CONFIG` on single
+frames with latent scaling 1.0, and random transformer weights; flow-match
+Euler (:99) unless the checkpoint directory's scheduler config names another.
+The control spec builds its widened transformer without a checkpoint and
+refuses a local one (ROADMAP.md section 3, finding 19).
 `prepare_latents` gives the image's VAE moments with SDXL's size and crop
 microconditioning (:128-146), and `forward` trains on them (:149-177).
 """
@@ -74,28 +79,43 @@ class CogView4ModelSpecification(ModelSpecification):
 
     # ------------------------------------------------------------------ loading
     def load_condition_models(self) -> Dict[str, Any]:
-        self._refuse_checkpoint(self.text_encoder_id, "text_encoder", "the GLM-4 text encoder (ROADMAP.md queue 1 "
-                                "item 7)")
-        logger.warning("GLM-4 is not ported; using the offline hash encoder")
-        return {"tokenizer": None,
-                "text_encoder": HashEncoder(hidden_size=self.transformer_config["text_embed_dim"], max_length=128)}
+        """GLM-4 from `text_encoder/`, else the offline hash encoder (JAX :65-73)."""
+        from ..text_encoders import GlmHandle
+
+        encoder = self._load_text_tower(
+            GlmHandle, self.text_encoder_id, "text_encoder",
+            lambda: HashEncoder(hidden_size=self.transformer_config["text_embed_dim"], max_length=128),
+            tokenizer_id=self.tokenizer_id, dtype=self.text_encoder_dtype,
+        )
+        return {"tokenizer": getattr(encoder, "tokenizer", None), "text_encoder": encoder}
 
     def load_latent_models(self) -> Dict[str, Any]:
-        return {"vae": generic_vae(self, self.vae_autoencoder_config,
-                                   "the CogView4 AutoencoderKL (ROADMAP.md queue 1 item 5)")}
+        """The 2D AutoencoderKL from `vae/`, else the generic VAE (JAX :75-86)."""
+        handle = self._load_image_vae(default_scaling=1.0)
+        if handle is not None:
+            return {"vae": handle}
+        return {"vae": generic_vae(self, self.vae_autoencoder_config, "the CogView4 AutoencoderKL")}
 
-    def _build_transformer(self, config: Dict[str, Any]) -> ModelHandle:
-        self._refuse_checkpoint(self.transformer_id, "transformer", "transformer weights (ROADMAP.md queue 1 item 5)")
+    def _build_transformer(self, config: Dict[str, Any], pretrained: bool = False) -> ModelHandle:
+        """The transformer at `config`, random from the spec's generator; with
+        `pretrained` its base weights then load from a local `transformer/`
+        (JAX :88-106), else a local one raises (the control spec's widened
+        model, ROADMAP.md section 3 finding 19)."""
+        if not pretrained:
+            self._refuse_checkpoint(self.transformer_id, "transformer", "a control model's transformer weights "
+                                    "(ROADMAP.md section 3 finding 19, queue 1 item 5)")
         with torch.device(self.device):
             module = CogView4Transformer2DModel(
                 **config, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha, dtype=self.transformer_dtype,
                 gradient_checkpointing=self.gradient_checkpointing,
             )
-        init_parameters_(module, self.generator()).eval()
-        return ModelHandle(module, dict(config))
+        init_parameters_(module, self.generator())
+        if pretrained:
+            self._maybe_load_pretrained_transformer(module)
+        return ModelHandle(module.eval(), dict(config))
 
     def load_diffusion_models(self) -> Dict[str, Any]:
-        return {"transformer": self._build_transformer(self.transformer_config),
+        return {"transformer": self._build_transformer(self.transformer_config, pretrained=True),
                 "scheduler": FlowMatchEulerScheduler()}
 
     def load_pipeline(self, transformer: ModelHandle = None, vae: ModelHandle = None,

@@ -92,7 +92,8 @@ class FluxModelSpecification(ModelSpecification):
         the offline hash encoder, as JAX falls back (:74-103)."""
         self._refuse_checkpoint(self.text_encoder_id, "text_encoder",
                                 "the CLIP-L text encoder (ROADMAP.md queue 1 item 7)")
-        self._refuse_checkpoint(None, "text_encoder_2", "the T5-XXL text encoder (ROADMAP.md queue 1 item 7)")
+        self._refuse_checkpoint(self.text_encoder_2_id, "text_encoder_2",
+                                "the T5-XXL text encoder (ROADMAP.md queue 1 item 7)")
         logger.warning("CLIP-L and T5-XXL are not ported; using the offline hash encoder in both slots")
         return {"tokenizer": None, "tokenizer_2": None, "text_encoder": self._offline_text_encoder(),
                 "text_encoder_2": self._offline_text_encoder()}

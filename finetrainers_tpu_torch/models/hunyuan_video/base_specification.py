@@ -1,15 +1,16 @@
 """HunyuanVideo model specification, text-to-video: serving and the training
 forward (port of `finetrainers_tpu/models/hunyuan_video/base_specification.py`).
 
-Random weights only: no Llama (LLaVA), CLIP-L, HunyuanVideo VAE or
-transformer checkpoint exists for the port yet, so it runs with the offline
-components the JAX package falls back to: `HashEncoder(4096, max_length=256,
-pooled_dim=768)` in both text slots with no template crop (:70-76), the
-generic `AutoencoderKL3D` with `HUNYUAN_VAE_CONFIG` and latent scaling
-0.476986 (:93-113), and flow-match Euler with shift 7 (:133) unless the
-checkpoint directory's scheduler config names another. A local checkpoint
-directory for any component raises NotImplementedError naming its ROADMAP.md
-item instead of being ignored.
+The text towers load from local checkpoint directories, as in JAX (:67-91):
+the Llama (LLaVA) tower from `text_encoder/` and CLIP-L's text tower from
+`text_encoder_2/` (`text_encoder_2_id`); without one a slot holds the offline
+`HashEncoder(4096, max_length=256, pooled_dim=768)` with no template crop
+(:70-76). The VAE and the transformer have no port of their checkpoints yet:
+the generic `AutoencoderKL3D` with `HUNYUAN_VAE_CONFIG` and latent scaling
+0.476986 (:93-113) and random weights serve, and a local directory of either
+raises NotImplementedError naming its ROADMAP.md item instead of being
+ignored. Flow-match Euler with shift 7 (:133) unless the checkpoint
+directory's scheduler config names another.
 
 As in the JAX package, `prepare_conditions` encodes the pooled CLIP slot with
 the Llama slot's encoder when none is given (:156), and `HunyuanVideoPipeline`
@@ -87,14 +88,20 @@ class HunyuanVideoModelSpecification(ModelSpecification):
         return encoder
 
     def load_condition_models(self) -> Dict[str, Any]:
-        """Llama (`text_encoder`) and CLIP-L pooled (`text_encoder_2`): both the
-        offline hash encoder, as JAX falls back (:67-91)."""
-        self._refuse_checkpoint(self.text_encoder_id, "text_encoder",
-                                "the Llama (LLaVA) text encoder (ROADMAP.md queue 1 item 7)")
-        self._refuse_checkpoint(None, "text_encoder_2", "the CLIP-L text encoder (ROADMAP.md queue 1 item 7)")
-        logger.warning("Llama and CLIP-L are not ported; using the offline hash encoder in both slots")
-        return {"tokenizer": None, "tokenizer_2": None, "text_encoder": self._offline_text_encoder(),
-                "text_encoder_2": self._offline_text_encoder()}
+        """Llama (`text_encoder`) and CLIP-L text (`text_encoder_2`, pooled)
+        from their local directories, each in its slot's dtype, else the
+        offline hash encoder in the slot, as JAX falls back (:67-91)."""
+        from ..text_encoders import CLIPTextHandle, LlamaHandle
+
+        text_encoder = self._load_text_tower(LlamaHandle, self.text_encoder_id, "text_encoder",
+                                             self._offline_text_encoder, tokenizer_id=self.tokenizer_id,
+                                             dtype=self.text_encoder_dtype)
+        text_encoder_2 = self._load_text_tower(CLIPTextHandle, self.text_encoder_2_id, "text_encoder_2",
+                                               self._offline_text_encoder, tokenizer_id=self.tokenizer_2_id,
+                                               dtype=self.text_encoder_2_dtype)
+        return {"tokenizer": getattr(text_encoder, "tokenizer", None),
+                "tokenizer_2": getattr(text_encoder_2, "tokenizer", None),
+                "text_encoder": text_encoder, "text_encoder_2": text_encoder_2}
 
     def load_latent_models(self) -> Dict[str, Any]:
         vae = generic_vae(self, self.vae_autoencoder_config,

@@ -5,7 +5,10 @@ A component is a `ModelHandle`: an `nn.Module` with its config dict (the JAX
 package's handle also carries the parameter tree, which here lives inside the
 module). Every spec takes an explicit `device`; its loaders build and
 random-initialise their modules there, from `torch.Generator`s seeded with
-`seed`, and never on an implicit CPU.
+`seed`, and never on an implicit CPU. Where a family loads a component from
+a local checkpoint directory (`_load_text_tower`, `_load_image_vae`,
+`_maybe_load_pretrained_transformer`), the module is built on the device in
+the spec's dtype and its weights are copied in by name.
 """
 
 from __future__ import annotations
@@ -13,12 +16,17 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
 import torch
 import torch.nn as nn
+
+from ..logging import get_logger
+
+
+logger = get_logger(__name__)
 
 
 # Keys that collation takes from the first sample instead of stacking.
@@ -58,9 +66,19 @@ class ModelSpecification:
         *,
         device: Union[str, torch.device],
         seed: int = 0,
+        text_encoder_2_id: Optional[str] = None,
+        tokenizer_id: Optional[str] = None,
+        tokenizer_2_id: Optional[str] = None,
+        text_encoder_dtype: torch.dtype = torch.bfloat16,
+        text_encoder_2_dtype: torch.dtype = torch.bfloat16,
     ) -> None:
         self.pretrained_model_name_or_path = pretrained_model_name_or_path
         self.text_encoder_id = text_encoder_id
+        self.text_encoder_2_id = text_encoder_2_id
+        self.tokenizer_id = tokenizer_id
+        self.tokenizer_2_id = tokenizer_2_id
+        self.text_encoder_dtype = text_encoder_dtype
+        self.text_encoder_2_dtype = text_encoder_2_dtype
         self.transformer_id = transformer_id
         self.vae_id = vae_id
         self.transformer_dtype = transformer_dtype
@@ -149,6 +167,76 @@ class ModelSpecification:
         path = self._component_dir(explicit_id, subfolder)
         if path is not None:
             raise NotImplementedError(f"loading {what} from {path} is not ported yet; see ROADMAP.md")
+
+    def _load_text_tower(self, handle_cls, explicit_id: Optional[str], subfolder: str,
+                         fallback_fn: Callable[[], Any], **kwargs):
+        """A text tower from a local checkpoint directory (`explicit_id` or
+        <pretrained>/<subfolder>), built on the spec's device; where there is
+        none, `fallback_fn()` (the offline hash encoder). A directory whose
+        files do not load (a missing or malformed config, shards or weights)
+        also falls back, with JAX's warning (JAX modeling_utils.py:217-231);
+        an error of the device or a kernel is raised."""
+        path = self._component_dir(explicit_id, subfolder)
+        if path is not None:
+            try:
+                tower = handle_cls(path, device=self.device, **kwargs)
+                logger.info(f"Loaded {handle_cls.__name__} from {path}")
+                return tower
+            except (OSError, ValueError, KeyError) as e:
+                logger.warning(f"Failed to load {handle_cls.__name__} from {path}: {e}; using offline fallback")
+        return fallback_fn()
+
+    def _load_image_vae(self, default_scaling: float = 0.18215,
+                        default_shift: Optional[float] = None) -> Optional[ModelHandle]:
+        """The 2D `AutoencoderKL` from a local diffusers `vae/` directory
+        (config.json and its safetensors), built on the spec's device in
+        `vae_dtype` and loaded strict by name, with the latent statistics of
+        its config; None where no such directory exists (the caller keeps its
+        offline VAE). A directory with a config but no weights gives a
+        random VAE with a warning, as in JAX (modeling_utils.py:233-270)."""
+        vae_dir = self._component_dir(self.vae_id, "vae")
+        if vae_dir is None:
+            return None
+        from .autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
+        from .layers import init_parameters_
+        from .weight_utils import load_diffusers_checkpoint_dir, load_diffusers_config, load_named_weights
+
+        hf_cfg = load_diffusers_config(vae_dir)
+        cfg = AutoencoderKLConfig.from_hf(hf_cfg)
+        with torch.device(self.device):
+            module = AutoencoderKL(cfg, dtype=self.vae_dtype)
+        try:
+            state = load_diffusers_checkpoint_dir(vae_dir)
+            load_named_weights(module, state)
+            logger.info(f"Loaded AutoencoderKL weights from {vae_dir} ({len(state)} tensors)")
+        except FileNotFoundError:
+            logger.warning(f"{vae_dir} has a config but no weights; using random-init VAE")
+            init_parameters_(module, self.generator())
+        return ModelHandle(module.eval(), {
+            "latent_channels": cfg.latent_channels,
+            "spatial_compression_ratio": cfg.spatial_compression_ratio,
+            "scaling_factor": hf_cfg.get("scaling_factor", default_scaling),
+            "shift_factor": hf_cfg.get("shift_factor", default_shift),
+        })
+
+    def _maybe_load_pretrained_transformer(self, module: nn.Module, subfolder: str = "transformer") -> bool:
+        """Load a local diffusers transformer directory (`transformer_id` or
+        <pretrained>/<subfolder>, holding a config.json or safetensors) into
+        `module` by name, strict on every base weight's name and shape; the
+        LoRA factors keep their fresh init (JAX modeling_utils.py:318-339).
+        Returns whether a directory was loaded; without one the module is left
+        as it is (a Hub id would need the network)."""
+        from .weight_utils import load_diffusers_checkpoint_dir, load_named_weights
+
+        for candidate in (self.transformer_id, os.path.join(self.pretrained_model_name_or_path or "", subfolder)):
+            if candidate and os.path.isdir(candidate) and (
+                    os.path.exists(os.path.join(candidate, "config.json"))
+                    or any(f.endswith(".safetensors") for f in os.listdir(candidate))):
+                state = load_diffusers_checkpoint_dir(candidate)
+                logger.info(f"Loading transformer weights from {candidate} ({len(state)} tensors)")
+                load_named_weights(module, state)
+                return True
+        return False
 
     def _component_dir(self, explicit_id: Optional[str], subfolder: str) -> Optional[str]:
         """Resolve a local HF component directory (explicit id or

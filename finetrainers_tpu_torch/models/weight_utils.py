@@ -12,12 +12,19 @@ diffusers/peft names. `load_flax_state` takes the flattened tree
     `lora_A.weight` (r, in) / `lora_B.weight` (out, r) (`weight_utils.py:111-135`);
   - scan-stacked blocks `<list>_scan.block[_j].*` are split along their
     leading axis into `<list>_<i>.*` (`weight_utils.py:214-240`).
+
+A local diffusers or Hugging Face checkpoint directory loads without the
+bridge: the port's modules carry the checkpoints' names, so
+`load_diffusers_checkpoint_dir` (JAX `weight_utils.py:300-327`) reads its
+tensors and `load_named_weights` copies them into a module built on its device.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import json
+import pathlib
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -137,3 +144,56 @@ def torch_to_flax_flat(state: Dict[str, np.ndarray], key_map: Callable[[str], st
             raise ValueError(f"{key}: blocks {sorted(by_index)} are not 0..n-1, so they cannot be stacked")
         out[key] = np.stack([by_index[i] for i in range(len(by_index))])
     return out
+
+
+def load_diffusers_checkpoint_dir(path: str) -> Dict[str, torch.Tensor]:
+    """The merged state dict of a diffusers model directory: the shards its
+    `diffusion_pytorch_model.safetensors.index.json` names, else every
+    `diffusion_pytorch_model*.safetensors` (or, without those, every
+    `*.safetensors`) in it (JAX `weight_utils.py:300-327`). CPU tensors in
+    their stored dtypes; FileNotFoundError where the directory holds none."""
+    from ..utils.serialization import safetensors_load_dict, safetensors_load_index
+
+    root = pathlib.Path(path)
+    index = root / "diffusion_pytorch_model.safetensors.index.json"
+    if index.exists():
+        return safetensors_load_index(str(index))
+    shards = sorted(root.glob("diffusion_pytorch_model*.safetensors")) or sorted(root.glob("*.safetensors"))
+    if not shards:
+        raise FileNotFoundError(f"No safetensors shards found under {path}")
+    state: Dict[str, torch.Tensor] = {}
+    for shard in shards:
+        state.update(safetensors_load_dict(str(shard)))
+    return state
+
+
+def load_diffusers_config(path: str) -> Dict[str, Any]:
+    """The `config.json` of a model directory."""
+    return json.loads((pathlib.Path(path) / "config.json").read_text())
+
+
+def load_named_weights(module: nn.Module, state: Dict[str, torch.Tensor],
+                       ignore_unexpected: bool = False) -> Tuple[str, ...]:
+    """Copy a checkpoint's tensors into `module`'s parameters and buffers of the
+    same names, each cast to its target's dtype on its target's device (the
+    module is built where it will run; no fp32 copy is made on the host).
+    Strict on every name and shape, except the LoRA factors (`lora_A`,
+    `lora_B`), which keep their fresh init, as JAX's `torch_state_dict_to_flax`
+    keeps them, and, with `ignore_unexpected`,
+    checkpoint entries the module does not hold (a Hugging Face tower's
+    `position_ids` buffer or `lm_head`, which JAX's converter skips too).
+    Returns the ignored names."""
+    targets = {**dict(module.named_parameters()), **dict(module.named_buffers())}
+    wanted = [name for name in targets if not any(f".{k}." in f".{name}." for k in ("lora_A", "lora_B"))]
+    missing = [name for name in wanted if name not in state]
+    unexpected = tuple(sorted(name for name in state if name not in targets))
+    if missing or (unexpected and not ignore_unexpected):
+        raise KeyError(f"checkpoint does not match {type(module).__name__}: {len(missing)} missing "
+                       f"(e.g. {missing[:3]}), {len(unexpected)} unexpected (e.g. {list(unexpected[:3])})")
+    with torch.no_grad():
+        for name in wanted:
+            target, value = targets[name], state[name]
+            if tuple(value.shape) != tuple(target.shape):
+                raise ValueError(f"{name}: checkpoint shape {tuple(value.shape)}, module {tuple(target.shape)}")
+            target.copy_(value)
+    return unexpected

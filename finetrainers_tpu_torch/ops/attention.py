@@ -6,11 +6,14 @@ Providers:
   * "auto" (default): on a CUDA tensor, the hand-written flash kernels
     (`ops/flash_attention.py`) through the autograd function K4: K1 forward,
     K2/K3 backward, for self-attention with fused RoPE and for cross-attention
-    with `kv_lens`, on any sequence lengths; what they do not take (dense
-    masks, causal, GQA, dtypes other than bf16/fp16, head dims other than
-    64/128) raises, and never falls back to plain math on the card. On a CPU
-    tensor, the kernels' plain versions through K4, or `_native_math` for
-    masks, causal and GQA.
+    with `kv_lens`, on any sequence lengths, with GQA's kv heads repeated
+    before K4; a boolean dense mask with no head axis (the text towers'
+    causal and padding masks) takes K1's mask branch, forward only. What they
+    do not take (causal flags, head-dependent or additive masks, dtypes other
+    than bf16/fp16, head dims other than 32/64/128, or 64/128 under a mask)
+    raises, and never falls back to plain math or a library kernel on the
+    card. On a CPU tensor, the kernels' plain versions through K4, or
+    `_native_math` for masks, causal and GQA.
   * "flash" / "tpu_flash": K4 only; raises where the kernels do not apply.
   * "sage" and its five variant names: the int8 kernel K6 after its
     pre-pass (`ops/sage_attention.py`), forward-only, for serving. A padding
@@ -41,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import FINETRAINERS_ATTN_CHECKS, FINETRAINERS_ATTN_PROVIDER
-from .flash_attention import K1_HEAD_DIMS, _rope_fwd, flash_attention
+from .flash_attention import K1_HEAD_DIMS, MASK_HEAD_DIMS, _rope_fwd, flash_attention
 from .sage_attention import sage_attention
 
 
@@ -210,35 +213,70 @@ def _sdpa_attention(query, key, value, attn_mask, is_causal, scale, kv_lens):
     return out.transpose(1, 2)
 
 
+def _k1_mask(attn_mask: torch.Tensor, batch: int, seq_q: int, seq_kv: int) -> Optional[torch.Tensor]:
+    """A boolean mask broadcastable to (B, 1, Sq, Skv) as the (B, Sq, Skv) view
+    K1's mask branch takes (a head axis of 1 squeezed, as JAX `_flex`
+    squeezes it), or None for a mask the branch does not take: additive, or
+    one that depends on the head."""
+    if attn_mask.dtype != torch.bool:
+        return None
+    mask = attn_mask
+    if mask.ndim == 4:
+        if mask.shape[1] != 1:
+            return None
+        mask = mask[:, 0]
+    if mask.ndim not in (2, 3):
+        return None
+    try:
+        return mask.expand(batch, seq_q, seq_kv)
+    except RuntimeError:
+        return None
+
+
 def _k1_takes(query, key, attn_mask, is_causal) -> bool:
-    """Whether K1 computes this call: no dense mask, not causal, no GQA, and on
-    the card bf16/fp16 with head dim 32, 64 or 128."""
-    if attn_mask is not None or is_causal or query.shape[2] != key.shape[2]:
+    """Whether K1 computes this call. On the CPU: no dense mask, not causal,
+    no GQA (the rest goes to `_native_math`, as JAX `auto` sends it to XLA).
+    On the card: not causal, bf16/fp16, head dim 32, 64 or 128, GQA allowed
+    (the kv heads are repeated before K4); with a dense mask, a boolean one
+    without a head axis (`_k1_mask`) at head dim 64 or 128."""
+    if is_causal:
         return False
     if query.device.type == "cpu":
-        return True
-    return query.dtype in (torch.bfloat16, torch.float16) and query.shape[-1] in K1_HEAD_DIMS
+        return attn_mask is None and query.shape[2] == key.shape[2]
+    if query.dtype not in (torch.bfloat16, torch.float16):
+        return False
+    if attn_mask is None:
+        return query.shape[-1] in K1_HEAD_DIMS
+    return (query.shape[-1] in MASK_HEAD_DIMS
+            and _k1_mask(attn_mask, query.shape[0], query.shape[1], key.shape[1]) is not None)
 
 
 @_AttentionProviderRegistry.register("flash")
 @_AttentionProviderRegistry.register("tpu_flash")
 def _flash(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs=None):
-    """K1 only (`tpu_flash` named the JAX in-tree TPU kernel; here it maps to K1)."""
+    """K1 only (`tpu_flash` named the JAX in-tree TPU kernel; here it maps to K1).
+    On the card a dense mask takes K1's mask branch (which refuses kv_lens and
+    RoPE tables beside it); on the CPU `_k1_takes` refuses masks and GQA,
+    which `auto` sends to fp32 math."""
     if not _k1_takes(query, key, attn_mask, is_causal):
         raise NotImplementedError(
-            "K1 takes no causal, dense-mask or GQA call, and on the card only bf16/fp16 with "
-            f"head dim 32, 64 or 128 (got {query.dtype}, head dim {query.shape[-1]}); "
-            "see ROADMAP.md (K1, still to port)"
+            "K1 takes no causal call, no head-dependent or additive mask, and on the card only bf16/fp16 with "
+            f"head dim 32, 64 or 128, and 64 or 128 under a mask (got {query.dtype}, head dim {query.shape[-1]}, "
+            f"mask {None if attn_mask is None else (attn_mask.dtype, tuple(attn_mask.shape))}); "
+            "see ROADMAP.md queue 2 item 5"
         )
     cos, sin = rope_freqs if rope_freqs is not None else (None, None)
-    return flash_attention(query, key, value, kv_lens=kv_lens, scale=scale, rope_cos=cos, rope_sin=sin)
+    mask = None if attn_mask is None else _k1_mask(attn_mask, query.shape[0], query.shape[1], key.shape[1])
+    return flash_attention(query, key, value, kv_lens=kv_lens, scale=scale, rope_cos=cos, rope_sin=sin,
+                           attn_mask=mask)
 
 
 @_AttentionProviderRegistry.register("auto")
 def _auto_attention(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs=None):
-    """Default provider. A CUDA tensor always goes to K1, which raises for what
-    it does not take; a CPU tensor goes to K1's plain version where K1 applies
-    and to fp32 math otherwise. Both LTX attentions take K1."""
+    """Default provider. A CUDA tensor always goes to K1 (a dense mask to its
+    mask branch), which raises for what it does not take; a CPU tensor goes
+    to K1's plain version where K1 applies and to fp32 math otherwise (dense
+    masks, causal, GQA). Both LTX attentions take K1."""
     if query.device.type != "cpu" or _k1_takes(query, key, attn_mask, is_causal):
         return _flash(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs)
     if rope_freqs is not None:

@@ -44,6 +44,13 @@ are built by `ops/_build.py`.
     package's `flash_attention`, including its RoPE table conventions; it goes
     through K4 on every device, so its backward is K2/K3 or K5 (or their plain
     versions on the CPU), never autograd through the forward's math.
+  - `flash_forward_masked(q, k, v, mask, ...)` is K1's dense-mask branch
+    (`_fwd_kernel`'s `mask_ref` branch with the block map's tile skipping):
+    the pre-pass, then K1 over each q tile's live key tiles only
+    (`mask_tiles`, at K1's own tile sizes), with the mask's bytes selecting
+    scores out. A row with no live key gives 0 and an LSE of -1e30*ln2.
+    Forward only: K2/K3's mask branches are still to port. On a CPU tensor it
+    computes `flash_attention_masked_reference`.
   - `flash_attention_reference` / `flash_backward_reference` are the plain
     fp32 math of the kernels: the same base-2 softmax, cast points, masking and
     natural-log LSE. `flash_attention_reference` is the plain pre-pass
@@ -59,7 +66,7 @@ Each kernel wrapper keeps a `launches` count (`flash_qk_prep`,
 `flash_forward_two_level`, `flash_forward_twopass`, `flash_forward_skew`,
 `flash_bwd_dkdv`, `flash_bwd_dq`, `flash_bwd_fused`, `flash_bwd_dq_emit`; K1's
 launches, from `flash_forward` or `flash_forward_core`, count on
-`flash_forward`) of kernel launches, never of reference calls, so a run can
+`flash_forward`, its mask branch's on `flash_forward_masked`) of kernel launches, never of reference calls, so a run can
 show that its attention went through the kernels; `flash_bwd_dkdv` also counts
 the launches that ran its reduce pass (`reduce_launches`).
 """
@@ -83,6 +90,11 @@ _NEG_INF = -1e30
 # to port, ROADMAP.md queue 2 item 5).
 K1_HEAD_DIMS = (32, 64, 128)
 WIDE_HEAD_DIMS = (64, 128)
+# K1's mask branch: 128 for the GLM and Llama towers, 64 for CLIP-L text.
+MASK_HEAD_DIMS = (64, 128)
+# A live key tile's entry in the mask branch's lists carries this bit where
+# its whole (q tile, key tile) block is unmasked (`csrc/flash_fwd_sm90.cu`).
+_MASK_FULL_TILE = 1 << 30
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
 _SM90_BLOCK_KV = 128  # the kv tile of the wgmma K7a, K7c and K5 (a K5 CTA's kv rows)
 _SKEW_BLOCK_KV = 64  # K7b's score tile, half a stage of its 128-key ring
@@ -194,6 +206,71 @@ def flash_attention_reference(
     scale = q.shape[-1]**-0.5 if scale is None else scale
     qs, kr = flash_qk_prep_reference(q, k, rope_cos, rope_sin, scale)
     return _attend(qs, kr, v, kv_lens, q.dtype)
+
+
+def k1_block_m(head_dim: int) -> int:
+    """K1's q rows per CTA: 64 per consumer warpgroup, two at H=128, three below."""
+    return 128 if head_dim == 128 else 192
+
+
+def mask_tiles(mask: torch.Tensor, head_dim: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's mask branch's operands from a (B, Sq, Skv) boolean mask, at K1's
+    tile sizes (`k1_block_m` q rows, 128 keys): the mask as uint8, zero-padded
+    to whole tiles; per (b, q tile) the live key tiles in order, each index
+    with `_MASK_FULL_TILE` set where its block is unmasked throughout, (B, nq,
+    nk) int32, the unused tail after them; and their counts, (B, nq) int32.
+    A tile is live where any byte of its block is set (the JAX block map's
+    occupancy, `_prepare_mask`, at the kernel's tiles)."""
+    batch, seq_q, seq_kv = mask.shape
+    block_m = k1_block_m(head_dim)
+    nq, nk = -(-seq_q // block_m), -(-seq_kv // _SM90_BLOCK_KV)
+    padded = torch.zeros((batch, nq * block_m, nk * _SM90_BLOCK_KV), dtype=torch.uint8, device=mask.device)
+    padded[:, :seq_q, :seq_kv] = mask
+    blocks = padded.view(batch, nq, block_m, nk, _SM90_BLOCK_KV)
+    live, full = blocks.amax(dim=(2, 4)) > 0, blocks.amin(dim=(2, 4)) > 0
+    order = torch.argsort((~live).to(torch.uint8), dim=-1, stable=True)
+    tiles = (order + full.gather(-1, order).to(order.dtype) * _MASK_FULL_TILE).to(torch.int32)
+    return padded, tiles.contiguous(), live.sum(dim=-1, dtype=torch.int32)
+
+
+def flash_forward_masked_core_reference(q_s, k_r, v, mask):
+    """Plain fp32 version of K1's mask branch (`flash_forward_masked_core`)
+    on the pre-pass's operands (as `flash_forward_core_reference` takes them)
+    and a (B, Sq, Skv) boolean mask: each q tile of `k1_block_m` rows
+    attends over its live key tiles (`mask_tiles`) only, the mask selecting
+    scores out; the running max starts at -1e30 as the kernel's does, so a
+    row with no live key gives 0 and an LSE of -1e30*ln2. Returns out in v's
+    dtype and the (B, N, Sq) fp32 natural-log LSE."""
+    batch, heads, seq_q, head_dim = q_s.shape
+    seq_kv, block_m = k_r.shape[2], k1_block_m(head_dim)
+    _, tiles, counts = mask_tiles(mask, head_dim)
+    tiles, counts = tiles.cpu(), counts.cpu()
+    out = torch.zeros((batch, heads, seq_q, head_dim), dtype=v.dtype, device=v.device)
+    lse = torch.full((batch, heads, seq_q), _NEG_INF * _LN2, device=v.device)
+    for b in range(batch):
+        for qt in range(tiles.shape[1]):
+            live = [int(e) & (_MASK_FULL_TILE - 1) for e in tiles[b, qt, :counts[b, qt]]]
+            if not live:
+                continue
+            rows = slice(qt * block_m, min((qt + 1) * block_m, seq_q))
+            keys = torch.cat([torch.arange(j * _SM90_BLOCK_KV, min((j + 1) * _SM90_BLOCK_KV, seq_kv))
+                              for j in live]).to(v.device)
+            s = q_s[b, :, rows].float() @ k_r[b, :, keys].float().transpose(-1, -2)
+            valid = mask[b, rows][:, keys]
+            m = s.masked_fill(~valid, _NEG_INF).amax(dim=-1, keepdim=True).clamp_min(_NEG_INF)
+            p = torch.where(valid, torch.exp2(s - m), torch.zeros_like(s))
+            out[b, :, rows], lse[b, :, rows] = _finish(p @ v[b, :, keys].float(), m, p.sum(dim=-1, keepdim=True),
+                                                       v.dtype)
+    return out, lse
+
+
+def flash_attention_masked_reference(q, k, v, mask, scale=None):
+    """Plain fp32 version of `flash_forward_masked` (the pre-pass without
+    tables, then K1's mask branch): q (B, N, Sq, H), k, v (B, N, Skv, H),
+    mask (B, Sq, Skv) boolean, True = attend."""
+    scale = q.shape[-1]**-0.5 if scale is None else scale
+    qs, kr = flash_qk_prep_reference(q, k, None, None, scale)
+    return flash_forward_masked_core_reference(qs, kr, v, mask)
 
 
 def flash_backward_reference(
@@ -594,6 +671,92 @@ def flash_forward(
 flash_forward.launches = 0
 
 
+def _check_mask(fn: str, mask: torch.Tensor, q: torch.Tensor, seq_kv: int) -> torch.Tensor:
+    if mask.dtype != torch.bool or tuple(mask.shape) != (q.shape[0], q.shape[2], seq_kv) or mask.device != q.device:
+        raise ValueError(f"{fn}: the mask must be boolean ({q.shape[0]}, {q.shape[2]}, {seq_kv}) on {q.device}, "
+                         f"got {mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    return mask
+
+
+# The last mask the branch was launched with and its `mask_tiles`: a text
+# tower hands every layer the same mask, so its tiles are built once per
+# forward. The entry holds the mask, so its storage cannot pass to another
+# tensor while cached; a call reuses the tiles where its mask is a view of the
+# same storage, layout and version. An inference tensor keeps no version
+# (an in-place write under inference mode bumps nothing), so one is compared
+# with a copy kept for it instead: one pass on the device and a sync, against
+# the half-dozen passes that build the tiles.
+_MASK_TILES_CACHE = []
+
+
+def _cached_mask_tiles(mask: torch.Tensor, head_dim: int):
+    inference = mask.is_inference()
+    key = (mask.data_ptr(), mask.device, tuple(mask.shape), tuple(mask.stride()), head_dim,
+           None if inference else mask._version)
+    if _MASK_TILES_CACHE and _MASK_TILES_CACHE[0][0] == key:
+        _, _, copy, tiles = _MASK_TILES_CACHE[0]
+        if copy is None or torch.equal(copy, mask):
+            return tiles
+    tiles = mask_tiles(mask, head_dim)
+    _MASK_TILES_CACHE[:] = [(key, mask, mask.clone() if inference else None, tiles)]
+    return tiles
+
+
+def _k1_masked(q_s, k_r, v, mask):
+    """Launch K1's mask branch on checked operands -> (out, lse); counted on
+    `flash_forward_masked.launches`."""
+    batch, heads, seq_q, head_dim = q_s.shape
+    padded, tiles, counts = _cached_mask_tiles(mask, head_dim)
+    out = _btnh_like(q_s)
+    lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q_s.device)
+    fn = _kernel("flash_fwd_sm90", "flash_fwd_mask_sm90", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                 + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    with torch.cuda.device(q_s.device):
+        _launch(
+            fn, q_s.data_ptr(), k_r.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), padded.data_ptr(),
+            tiles.data_ptr(), counts.data_ptr(), batch, heads, seq_q, k_r.shape[2], head_dim,
+            _DTYPE_CODES[q_s.dtype], _strides(q_s, k_r, v, out), tiles.shape[1], tiles.shape[2], _stream(q_s.device),
+        )
+    flash_forward_masked.launches += 1
+    return out, lse
+
+
+def flash_forward_masked_core(q_s, k_r, v, mask):
+    """K1's mask branch alone, on the pre-pass's operands (see
+    `flash_forward_masked_core_reference`) -> (out, lse). On a CPU tensor the
+    plain version; on a CUDA tensor the kernel, after the checks of
+    `flash_forward_masked`, or it raises."""
+    if q_s.device.type == "cpu":
+        return flash_forward_masked_core_reference(q_s, k_r, v, mask)
+    _check_kernel_call("flash_forward_masked_core", q_s, k_r, v, None, None, None, MASK_HEAD_DIMS)
+    return _k1_masked(q_s, k_r, v, _check_mask("flash_forward_masked_core", mask, q_s, k_r.shape[2]))
+
+
+def flash_forward_masked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pre-pass and K1's mask branch on BNSH tensors -> (out (B, N, Sq, H)
+    in q's dtype, lse (B, N, Sq) fp32). mask: (B, Sq, Skv) boolean, True =
+    attend; no kv_lens and no RoPE tables (fold either into the mask or
+    rotate q and k first). The kernel takes bf16 or fp16 at head dim 64 or
+    128 and any sequence lengths; key tiles whose mask is all False are not
+    read. `out` is a BNSH view of a BTNH-contiguous buffer."""
+    scale = q.shape[-1]**-0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_masked_reference(q, k, v, mask, scale)
+    _check_kernel_call("flash_forward_masked", q, k, v, None, None, None, MASK_HEAD_DIMS)
+    mask = _check_mask("flash_forward_masked", mask, q, k.shape[2])
+    q_s, k_r = flash_qk_prep(q, k, None, None, 0, scale)
+    return _k1_masked(q_s, k_r, v, mask)
+
+
+flash_forward_masked.launches = 0
+
+
 def _forward_kernel(fn_name, entry, q, k, v, kv_lens, rope_cos, rope_sin, scale):
     """Check a forward call and launch `entry` of `csrc/flash_fwd_sm90.cu`
     (`_sm90_forward`): K7a and K7c after the pre-pass, on its operands; K7b,
@@ -901,14 +1064,36 @@ def flash_attention(
     scale: Optional[float] = None,
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
+    attn_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Flash attention on BTNH tensors, differentiable through K4.
 
-    query: (B, Sq, N, H); key/value: (B, Skv, N, H). rope_cos/rope_sin:
-    optional fp32 tables for fused interleaved-pair RoPE, either (S, N*H)
-    full-inner-dim (LTX) or (S, H) shared across heads; they need Sq == Skv."""
-    rope_cos, rope_sin = kernel_tables(query, key, rope_cos, rope_sin)
+    query: (B, Sq, N, H); key/value: (B, Skv, Nkv, H) with Nkv dividing N
+    (GQA: the kv heads are repeated here, before K4, as JAX repeats them
+    outside its `custom_vjp`, so autograd sums the repeat's gradient).
+    rope_cos/rope_sin: optional fp32 tables for fused interleaved-pair RoPE,
+    either (S, N*H) full-inner-dim (LTX) or (S, H) shared across heads; they
+    need Sq == Skv and no GQA. attn_mask: optional (B, Sq, Skv) boolean (True
+    = attend), K1's mask branch (`flash_forward_masked`), forward only: a
+    call that needs its gradient raises (K2/K3's mask branches are still to
+    port, ROADMAP.md queue 2 item 5)."""
+    heads, kv_heads = query.shape[2], key.shape[2]
+    if kv_heads != heads:
+        if rope_cos is not None:
+            raise ValueError("fused RoPE requires self-attention shapes without GQA")
+        key = key.repeat_interleave(heads // kv_heads, dim=2)
+        value = value.repeat_interleave(heads // kv_heads, dim=2)
     scale = query.shape[-1]**-0.5 if scale is None else float(scale)
+    if attn_mask is not None:
+        if kv_lens is not None or rope_cos is not None:
+            raise ValueError("flash_attention: a dense mask takes no kv_lens or RoPE tables (fold them in first)")
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (query, key, value)):
+            raise NotImplementedError("K1's mask branch is forward only: K2/K3's mask branches are still to port "
+                                      "(ROADMAP.md queue 2 item 5)")
+        out, _ = flash_forward_masked(query.transpose(1, 2), key.transpose(1, 2), value.transpose(1, 2), attn_mask,
+                                      scale)
+        return out.transpose(1, 2)
+    rope_cos, rope_sin = kernel_tables(query, key, rope_cos, rope_sin)
     out = FlashAttentionFunction.apply(query.transpose(1, 2), key.transpose(1, 2), value.transpose(1, 2), kv_lens,
                                        rope_cos, rope_sin, scale)
     return out.transpose(1, 2)

@@ -3,9 +3,12 @@
 
 Encoders are duck-typed handles exposing `encode(captions, max_sequence_length)
 -> (embeds, mask)` as numpy arrays, and for a CLIP slot `encode_pooled(captions)
--> (B, pooled_dim)`. The T5, CLIP and Llama towers are not ported yet (they
-wait for their weights; see ROADMAP.md queue 1 item 7), so the port serves
-with `HashEncoder`, the same offline stand-in the JAX package falls back to.
+-> (B, pooled_dim)`: the towers loaded from a local checkpoint
+(`models/text_encoders/handles.py`: Llama, whose `supports_template_crop`
+lets `LlamaProcessor` cut the prompt template's states; GLM; CLIP text, whose
+pooled output `CLIPPooledProcessor` takes), or `HashEncoder`, the offline
+stand-in the JAX package falls back to without one. The T5 towers are not
+ported (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -34,8 +34,13 @@ def main(argv: Optional[List[str]] = None, **spec_kwargs):
     spec = spec_cls(
         pretrained_model_name_or_path=args.pretrained_model_name_or_path,
         text_encoder_id=args.text_encoder_id,
+        text_encoder_2_id=args.text_encoder_2_id,
+        tokenizer_id=args.tokenizer_id,
+        tokenizer_2_id=args.tokenizer_2_id,
         transformer_id=args.transformer_id,
         vae_id=args.vae_id,
+        text_encoder_dtype=args.text_encoder_dtype,
+        text_encoder_2_dtype=args.text_encoder_2_dtype,
         transformer_dtype=args.transformer_dtype,
         vae_dtype=args.vae_dtype,
         device=args.device,

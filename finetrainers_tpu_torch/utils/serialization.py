@@ -7,19 +7,26 @@ each tensor name to its `dtype`, `shape` and `data_offsets` (begin and end in
 the byte buffer after the header) and holds the string-to-string
 `__metadata__`, then the tensors' little-endian bytes, back to back. The
 header is padded with spaces to a multiple of 8 bytes, as the reference
-writer pads it. F32, F16 and BF16 tensors are supported.
+writer pads it. The floating, integer and boolean dtypes that Hugging Face
+checkpoints carry are supported (F64 ... BF16, the two fp8 types, I64 ... U8,
+BOOL; a text tower's checkpoint holds I64 `position_ids` buffers, which the
+JAX package's reader, the `safetensors` package, also reads), and a model
+split into shards is read through its `*.safetensors.index.json`.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import struct
 from typing import Dict, Optional
 
 import torch
 
-_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
+_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+           "F8_E4M3": torch.float8_e4m3fn, "F8_E5M2": torch.float8_e5m2, "I64": torch.int64, "I32": torch.int32,
+           "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
 _NAMES = {dtype: name for name, dtype in _DTYPES.items()}
 
 
@@ -59,10 +66,13 @@ def _read_header(f, path: str) -> dict:
 
 
 def safetensors_load_dict(path: str) -> Dict[str, torch.Tensor]:
-    """{name: CPU tensor} of a safetensors file with F32, F16 or BF16 tensors."""
+    """{name: CPU tensor} of a safetensors file, in the dtypes it stores. The
+    tensors are views of one buffer the size of the file's data (no second
+    copy of a model is made on the host)."""
     with open(path, "rb") as f:
         header = _read_header(f, path)
-        buffer = f.read()
+        buffer = bytearray(os.fstat(f.fileno()).st_size - f.tell())
+        f.readinto(buffer)
     entries = sorted((item for item in header.items() if item[0] != "__metadata__"),
                      key=lambda item: item[1]["data_offsets"][0])
     out, end = {}, 0
@@ -72,7 +82,7 @@ def safetensors_load_dict(path: str) -> Dict[str, torch.Tensor]:
         shape = tuple(info["shape"])
         if dtype is None or begin != end or stop > len(buffer) or stop - begin != math.prod(shape) * dtype.itemsize:
             raise ValueError(f"{path}: tensor {name!r} has a bad dtype or offsets: {info}")
-        data = torch.frombuffer(bytearray(buffer[begin:stop]), dtype=torch.uint8) if stop > begin else \
+        data = torch.frombuffer(buffer, dtype=torch.uint8, count=stop - begin, offset=begin) if stop > begin else \
             torch.empty(0, dtype=torch.uint8)
         out[name] = data.view(dtype).reshape(shape)
         end = stop
@@ -85,3 +95,16 @@ def safetensors_load_metadata(path: str) -> Dict[str, str]:
     """The `__metadata__` of a safetensors file ({} if it has none)."""
     with open(path, "rb") as f:
         return _read_header(f, path).get("__metadata__", {}) or {}
+
+
+def safetensors_load_index(index_path: str) -> Dict[str, torch.Tensor]:
+    """{name: CPU tensor} of a model split into shards: every shard that the
+    `*.safetensors.index.json` at `index_path` names in its `weight_map`, read
+    from its directory, each name from the shard the map gives it."""
+    with open(index_path) as f:
+        weight_map = json.load(f)["weight_map"]
+    root, out = os.path.dirname(index_path), {}
+    for shard in sorted(set(weight_map.values())):
+        tensors = safetensors_load_dict(os.path.join(root, shard))
+        out.update({name: tensors[name] for name, where in weight_map.items() if where == shard})
+    return out

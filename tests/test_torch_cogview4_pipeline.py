@@ -51,6 +51,7 @@ from finetrainers_tpu_torch.models.cogview4 import (
     CogView4Pipeline,
     load_flax_params,
 )
+from finetrainers_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from finetrainers_tpu_torch.models.cogview4 import pipeline as cogview4_pipeline
 from finetrainers_tpu_torch.processors import HashEncoder
 from finetrainers_tpu_torch.schedulers import FlowMatchEulerScheduler
@@ -341,8 +342,13 @@ def test_concatenate_mask_fails_in_jax_and_is_refused_by_the_port(tmp_path, monk
 def test_registry_resolves_cogview4_and_spec_is_offline(tmp_path):
     """`cogview4` resolves for the SFT and control training types; the
     spec's offline components are JAX's fallbacks (the hash encoder padded to
-    1024 slots, `SD_VAE_CONFIG`, Euler); a local tower, VAE or transformer
-    directory raises naming its ROADMAP.md item."""
+    1024 slots, `SD_VAE_CONFIG`, Euler). Local directories load (the
+    checkpoint itself in tests/test_torch_cogview4_checkpoint.py): a tower
+    directory that does not load falls back to the hash encoder, a VAE
+    config without weights gives a random 2D AutoencoderKL, a transformer
+    directory without shards raises FileNotFoundError, all three as in JAX;
+    the control spec refuses a local transformer (ROADMAP.md section 3,
+    finding 19)."""
     for training_type in ("lora", "full-finetune"):
         assert get_model_specification_cls("cogview4", training_type) is CogView4ModelSpecification
     for training_type in ("control-lora", "control-full-finetune"):
@@ -356,13 +362,22 @@ def test_registry_resolves_cogview4_and_spec_is_offline(tmp_path):
     assert conds["encoder_hidden_states"].tobytes() == np.asarray(ref["encoder_hidden_states"]).tobytes()
     assert spec.vae_autoencoder_config == autoencoders.SD_VAE_CONFIG
     assert isinstance(port_spec().load_diffusion_models()["scheduler"], FlowMatchEulerScheduler)
-    for sub, item in (("text_encoder", "item 7"), ("vae", "item 5"), ("transformer", "item 5")):
+    small_vae = {"block_out_channels": [8, 16], "latent_channels": 4, "norm_num_groups": 4, "layers_per_block": 1}
+    for sub, config in (("text_encoder", {}), ("vae", small_vae), ("transformer", {})):
         root = tmp_path / sub
         (root / sub).mkdir(parents=True)
-        (root / sub / "config.json").write_text("{}")
+        (root / sub / "config.json").write_text(json.dumps(config))
         local = CogView4ModelSpecification(pretrained_model_name_or_path=str(root), device="cpu",
                                            transformer_config=TINY)
-        load = {"text_encoder": local.load_condition_models, "vae": local.load_latent_models,
-                "transformer": local.load_diffusion_models}[sub]
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-            load()
+        if sub == "text_encoder":
+            assert isinstance(local.load_condition_models()["text_encoder"], HashEncoder)
+        elif sub == "vae":
+            vae = local.load_latent_models()["vae"]
+            assert isinstance(vae.module, AutoencoderKL) and vae.config["spatial_compression_ratio"] == 2
+        else:
+            with pytest.raises(FileNotFoundError):
+                local.load_diffusion_models()
+            control = CogView4ControlModelSpecification(pretrained_model_name_or_path=str(root), device="cpu",
+                                                        transformer_config=TINY)
+            with pytest.raises(NotImplementedError, match="finding 19"):
+                control.load_diffusion_models(new_in_features=8)

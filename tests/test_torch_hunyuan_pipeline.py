@@ -325,8 +325,10 @@ def test_registry_resolves_hunyuan_and_spec_is_offline(tmp_path):
     """`hunyuan_video` resolves for lora and full-finetune; the spec's offline
     components are JAX's fallbacks (the hash encoder of width 4096, 256 slots,
     pooled 768, no template crop, in both slots; `HUNYUAN_VAE_CONFIG` with
-    scaling 0.476986; Euler with shift 7); a local tower, VAE or transformer
-    directory raises naming its ROADMAP.md item."""
+    scaling 0.476986; Euler with shift 7); a local VAE or transformer
+    directory raises naming its ROADMAP.md item, and a local tower directory
+    loads (tests/test_torch_text_towers.py), or where it does not load falls
+    back to the hash encoder in its slot, as in JAX."""
     for training_type in ("lora", "full-finetune"):
         assert get_model_specification_cls("hunyuan_video", training_type) is HunyuanVideoModelSpecification
     spec = HunyuanVideoModelSpecification(device="cpu")
@@ -340,14 +342,20 @@ def test_registry_resolves_hunyuan_and_spec_is_offline(tmp_path):
     scheduler = port_spec().load_diffusion_models()["scheduler"]
     assert isinstance(scheduler, FlowMatchEulerScheduler) and scheduler.shift == 7.0
     assert port_spec().load_latent_models()["vae"].config["scaling_factor"] == 0.476986
-    for sub, item in (("text_encoder", "item 7"), ("text_encoder_2", "item 7"), ("vae", "item 7"),
-                      ("transformer", "item 5")):
+    for sub in ("text_encoder", "text_encoder_2"):
         root = tmp_path / sub
         (root / sub).mkdir(parents=True)
         (root / sub / "config.json").write_text("{}")
         local = HunyuanVideoModelSpecification(pretrained_model_name_or_path=str(root), device="cpu",
                                                transformer_config=TINY)
-        load = {"text_encoder": local.load_condition_models, "text_encoder_2": local.load_condition_models,
-                "vae": local.load_latent_models, "transformer": local.load_diffusion_models}[sub]
+        fallback = local.load_condition_models()[sub]
+        assert isinstance(fallback, HashEncoder) and fallback.supports_template_crop is False
+    for sub, item in (("vae", "item 7"), ("transformer", "item 5")):
+        root = tmp_path / sub
+        (root / sub).mkdir(parents=True)
+        (root / sub / "config.json").write_text("{}")
+        local = HunyuanVideoModelSpecification(pretrained_model_name_or_path=str(root), device="cpu",
+                                               transformer_config=TINY)
+        load = {"vae": local.load_latent_models, "transformer": local.load_diffusion_models}[sub]
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
             load()

@@ -1152,3 +1152,46 @@ def test_int8_linear_on_the_card_matches_the_cpu(dtype, rows):
     ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-22
     for got, ref in zip(results[1], results[0]):
         assert ((got - ref).abs() <= ulp * ref.abs().clamp_min(1e-3)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,kv_heads,kind", [(128, 2, "causal_padding"), (64, 4, "causal"),
+                                                    (128, 4, "block_sparse"), (64, 4, "block_sparse")])
+def test_k1_mask_branch_matches_its_plain_version(head_dim, kv_heads, kind):
+    """K1's mask branch through `attention_dispatch` (`auto`: the GQA repeat, the
+    pre-pass, the branch) against its plain version on the same bf16 inputs:
+    one launch, rows with a live key within K1's tolerance, an empty row 0 with
+    an LSE of -1e30*ln2, and k and v rows of a skipped key tile never read."""
+    from finetrainers_tpu_torch.ops.flash_attention import (flash_attention_masked_reference, flash_forward_masked,
+                                                             flash_forward_masked_core, flash_qk_prep)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(head_dim + kv_heads)
+    b, n, sq, skv = 2, 4, 333, 300
+    q = torch.randn(b, sq, n, head_dim, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, skv, kv_heads, head_dim, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    mask = torch.ones(sq, skv, dtype=torch.bool, device="cuda").tril(skv - sq)[None].repeat(b, 1, 1)
+    if kind == "causal_padding":
+        mask &= (torch.arange(skv, device="cuda") < torch.tensor([[120], [300]], device="cuda"))[:, None]
+    elif kind == "block_sparse":
+        mask = torch.rand(b, sq, skv, generator=g, device="cuda") > 0.5
+        mask[:, :, 128:256] = False
+        mask[0, 9] = False
+    launches = flash_forward_masked.launches
+    out = attention_dispatch(q, k, v, attn_mask=mask[:, None], scale=head_dim**-0.5)
+    assert flash_forward_masked.launches == launches + 1
+    kb, vb = (x.repeat_interleave(n // kv_heads, dim=2).transpose(1, 2) for x in (k, v))
+    ref, ref_lse = flash_attention_masked_reference(q.transpose(1, 2), kb, vb, mask)
+    live = mask.any(-1)[:, None, :, None].expand(b, n, sq, head_dim)
+    err = (out.transpose(1, 2).float() - ref.float()).abs()
+    assert (err / ref.float().abs().clamp_min(1.0))[live].max() <= 2e-2
+    q_s, k_r = flash_qk_prep(q.transpose(1, 2), kb, None, None, 0, head_dim**-0.5)
+    core, lse = flash_forward_masked_core(q_s, k_r, vb, mask)
+    assert (lse - ref_lse).abs()[live[..., 0]].max() <= 1e-2
+    if kind == "block_sparse":
+        assert not core[0, :, 9].any() and (lse[0, :, 9] == torch.tensor(-1e30 * 0.6931471805599453)).all()
+        big_k, big_v = k_r.clone(), vb.clone()
+        big_k[:, :, 128:256], big_v[:, :, 128:256] = 3e4, -3e4
+        big = flash_forward_masked_core(q_s, big_k, big_v, mask)
+        assert torch.equal(big[0], core) and torch.equal(big[1], lse)

@@ -1,8 +1,10 @@
 """Guard: the PyTorch port imports no JAX and builds nothing at import time.
 
 A fresh interpreter blocks `jax`, `flax`, `optax`, `finetrainers_tpu`,
-`triton` and `safetensors` (a `None` entry in `sys.modules` makes their
-import raise; the port writes safetensors files itself) and replaces
+`triton`, `safetensors` and `transformers` (a `None` entry in `sys.modules`
+makes their import raise; the port reads and writes safetensors files
+itself, and imports transformers' tokenizer only inside a tower handle's
+load) and replaces
 `subprocess` launches with a tripwire, then imports every module of
 `finetrainers_tpu_torch`, the training slice's (trainer, optimizer, LoRA,
 remat, diffusion math, the K4 op, checkpoints, the safetensors writer) and
@@ -17,7 +19,8 @@ weights, spec, pipeline, the text processors) and the HunyuanVideo slice's
 config, the control processors, the Wan control spec) and the CogVideoX
 slice's (transformer, weights, spec, DDIM pipeline) and the dummy and
 weight-storage slice's (the dummy family, int8 linear, int8 and fp8
-storage, the 8-bit optimizers) among them. Any
+storage, the 8-bit optimizers) and the checkpoint slice's (the Llama, GLM
+and CLIP text towers and their handles, the 2D AutoencoderKL) among them. Any
 import of a blocked package, any `nvcc` run and any kernel library loaded
 during import fails the test. A second fresh interpreter blocks nothing,
 imports every module and finds neither `jax` nor `finetrainers_tpu` in
@@ -34,7 +37,7 @@ REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
 import importlib, pkgutil, subprocess, sys
-for name in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu", "triton", "safetensors"):
+for name in ("jax", "jaxlib", "flax", "optax", "finetrainers_tpu", "triton", "safetensors", "transformers"):
     sys.modules[name] = None
 
 def _tripwire(*args, **kwargs):
@@ -66,7 +69,8 @@ training = {"finetrainers_tpu_torch." + m for m in (
     "models.cogvideox.base_specification", "models.cogvideox.pipeline",
     "trainer.control_trainer", "trainer.control_trainer.trainer", "trainer.control_trainer.data",
     "trainer.control_trainer.config", "processors.control", "models.dummy", "models.dummy.base_specification",
-    "models.dummy.pipeline", "models.dummy.weights", "ops.int8_linear", "utils.int8", "utils.fp8", "optim8bit")}
+    "models.dummy.pipeline", "models.dummy.weights", "ops.int8_linear", "utils.int8", "utils.fp8", "optim8bit",
+    "models.text_encoders", "models.text_encoders.towers", "models.text_encoders.handles", "models.autoencoder_kl")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
 print(len(names))
 """
