@@ -5253,6 +5253,432 @@ def _checkpoint_runner(root, config, want):
                 written_shape=shape, ok=counts == want and shape == [1024, 1024, 3])
 
 
+# Wan 2.1 and LTX-Video from local diffusers directories written here: the faithful VAEs whole at
+# their published configs, the T5 towers at full width cut to 2 of 24 layers, Wan's transformer whole, LTX's at full
+# width cut to 2 of 28 blocks (the whole depth serves in `serve`). The published latent statistics are not in the
+# repository: Wan's VAE config takes a seeded pair of 16-vectors instead.
+VIDEO_T5_LAYERS, LTX_CKPT_BLOCKS, VIDEO_CKPT_STEPS = 2, 2, 2
+LTX_CKPT_REQUEST = dict(height=512, width=768, num_frames=49, num_inference_steps=VIDEO_CKPT_STEPS, guidance_scale=3.0)
+VAE_REL_L2_TOL = 5e-2  # a bf16 encode against fp32's, relative L2 of the moments' mean half
+
+
+def _word_tokenizer(directory, texts, max_length):
+    """A word-level tokenizer of `texts`' words written to `directory` (neither machine has T5's files): ids
+    <pad> 0, </s> 1, <unk> 2, EOS appended as T5's tokenizer appends it; transformers' `AutoTokenizer` loads it."""
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+
+    words = sorted({w for t in texts for w in re.findall(r"\w+|[^\w\s]+", t)})
+    vocab = {"<pad>": 0, "</s>": 1, "<unk>": 2, **{w: 3 + i for i, w in enumerate(words)}}
+    tokenizer = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tokenizer.pre_tokenizer = pre_tokenizers.Whitespace()
+    tokenizer.post_processor = processors.TemplateProcessing(single="$A </s>", special_tokens=[("</s>", 1)])
+    directory.mkdir(parents=True)
+    tokenizer.save(str(directory / "tokenizer.json"))
+    (directory / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>", "unk_token": "<unk>", "eos_token": "</s>",
+         "model_max_length": max_length}))
+    return directory
+
+
+def _write_component(path, config, module, file, extra=None):
+    """`module`'s state (and `extra` tensors) as `file` beside `config` as config.json; returns the seconds."""
+    from finetrainers_tpu_torch.utils.serialization import safetensors_save_dict
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(config))
+    safetensors_save_dict({**module.state_dict(), **(extra or {})}, str(path / file))
+    return time.perf_counter() - t0
+
+
+def _t5_tower(config, layers, dtype, seed):
+    from finetrainers_tpu_torch.models.text_encoders import T5Config, T5EncoderTower
+
+    cfg = T5Config.from_hf(dict(config, num_layers=layers))
+    with torch.device("cuda"):
+        return init_parameters_(T5EncoderTower(cfg, dtype), torch.Generator("cuda").manual_seed(seed)).eval()
+
+
+def _equal_to_files(module, path, skip=(".lora_",)):
+    """Whether every tensor of the safetensors files under `path` equals `module`'s of that name, and every
+    parameter of `module` (but `skip`'s) is in them."""
+    from finetrainers_tpu_torch.utils.serialization import safetensors_load_dict
+
+    files = {}
+    for f in sorted(path.glob("*.safetensors")):
+        files.update(safetensors_load_dict(str(f)))
+    state = {n: v for n, v in module.state_dict().items() if not any(s in n for s in skip)}
+    return state.keys() <= files.keys() and all(torch.equal(v.cpu(), files[n]) for n, v in state.items())
+
+
+def write_wan_checkpoint(root):
+    """Wan 2.1 T2V-1.3B as a diffusers directory: `transformer/` whole, `vae/` AutoencoderKLWan at its published
+    config with a seeded latent-statistics pair, `text_encoder/` UMT5-XXL at full width cut to VIDEO_T5_LAYERS (with
+    layer 1's own relative-attention table, as a UMT5 checkpoint holds one a layer), `tokenizer/` a word-level
+    tokenizer; bf16, random from seeded generators on the card. Returns the write seconds by component."""
+    from finetrainers_tpu_torch.models.text_encoders import UMT5_XXL_CONFIG
+    from finetrainers_tpu_torch.models.wan import WAN_T2V_1_3B_CONFIG
+    from finetrainers_tpu_torch.models.wan.transformer import WanTransformer3DModel
+    from finetrainers_tpu_torch.models.wan.vae import AutoencoderKLWan, WanVAEConfig
+
+    g = torch.Generator("cuda").manual_seed(11)
+    seconds = {}
+    with torch.device("cuda"):
+        module = init_parameters_(WanTransformer3DModel(**WAN_T2V_1_3B_CONFIG, dtype=torch.bfloat16), g)
+    seconds["transformer"] = _write_component(root / "transformer", dict(
+        WAN_T2V_1_3B_CONFIG, _class_name="WanTransformer3DModel"), module, "diffusion_pytorch_model.safetensors")
+    del module
+    rng = np.random.RandomState(12)
+    vae_config = dict(base_dim=96, z_dim=16, dim_mult=[1, 2, 4, 4], num_res_blocks=2, attn_scales=[],
+                      temperal_downsample=[False, True, True], latents_mean=(rng.randn(16) * 0.5).tolist(),
+                      latents_std=rng.uniform(0.5, 2.5, 16).tolist(), _class_name="AutoencoderKLWan")
+    with torch.device("cuda"):
+        module = init_parameters_(AutoencoderKLWan(WanVAEConfig.from_hf(vae_config), torch.bfloat16), g)
+    seconds["vae"] = _write_component(root / "vae", vae_config, module, "diffusion_pytorch_model.safetensors")
+    del module
+    module = _t5_tower(UMT5_XXL_CONFIG, VIDEO_T5_LAYERS, torch.bfloat16, 13)
+    extra = {f"encoder.block.{i}.layer.0.SelfAttention.relative_attention_bias.weight":
+             torch.randn(32, 64, generator=g, device="cuda").bfloat16() for i in range(1, VIDEO_T5_LAYERS)}
+    seconds["text_encoder"] = _write_component(
+        root / "text_encoder", dict(UMT5_XXL_CONFIG, num_layers=VIDEO_T5_LAYERS), module, "model.safetensors", extra)
+    del module
+    (root / "model_index.json").write_text(json.dumps({"_class_name": "WanPipeline"}))
+    (root / "scheduler").mkdir()  # UniPC bh2 with shift 3, as the published T2V-1.3B scheduler config names it
+    (root / "scheduler" / "scheduler_config.json").write_text(json.dumps(I2V_SCHEDULER_CONFIG))
+    return seconds
+
+
+def _timed_vae(cls):
+    """Wrap `cls.encode` and `cls.decode` to record (method, seconds, input shape) of each call, synchronised."""
+    record, originals = [], (cls.encode, cls.decode)
+
+    def timed(name, fn):
+        def wrapper(self, x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, x)
+            torch.cuda.synchronize()
+            record.append((name, time.perf_counter() - t0, list(x.shape)))
+            return out
+        return wrapper
+
+    cls.encode, cls.decode = timed("encode", originals[0]), timed("decode", originals[1])
+    return record, lambda: setattr(cls, "encode", originals[0]) or setattr(cls, "decode", originals[1])
+
+
+def wan_checkpoint_run(card):
+    """Wan 2.1 T2V-1.3B from a local diffusers directory written here
+    (`write_wan_checkpoint`): the crush_smol_lora train.sh's flags through
+    `python -m finetrainers_tpu_torch.train --pretrained_model_name_or_path
+    <dir> --tokenizer_id <dir>/tokenizer` on `wan_run`'s two videos at
+    49x480x832, precomputed through the faithful VAE (tiled as the example
+    asks) and UMT5 (512 slots), 2 steps, no validation; then one T2V request
+    of 2 steps at the same size through `python -m
+    finetrainers_tpu_torch.inference` with the exported adapter, decoded by the
+    faithful VAE. Checks: the base weights bit-equal to the files at load and
+    after the run, the LoRA factors a fresh model's at load, the adapter that
+    the runner loads bit-equal to the trained factors, each step's launches
+    (K1, the pre-pass, K2, K3: the cross calls take 512 UMT5 slots with
+    `kv_lens`) and the request's, a finite video of the request's shape.
+    Returns the launches by path."""
+    from finetrainers_tpu_torch import inference
+    from finetrainers_tpu_torch import train as train_cli
+    from finetrainers_tpu_torch.models.text_encoders import T5Handle
+    from finetrainers_tpu_torch.models.wan import WanModelSpecification, WanPipeline
+    from finetrainers_tpu_torch.models.wan.vae import AutoencoderKLWan
+
+    root = SMOKE_DIR / "wan_local_checkpoint"
+    write_s = write_wan_checkpoint(root)
+    training_json = SMOKE_DIR / "wan_run_data" / "training.json"
+    captions = [f"The video shows a hydraulic press crushing object {i}." for i in range(WAN_RUN_VIDEOS)]
+    captions.append(PROMPTS[0])
+    tokenizer = _word_tokenizer(root / "tokenizer", captions, 512)
+    out_dir = SMOKE_DIR / "wan_checkpoint_run"
+    argv = train_sh_argv(dataset_config=training_json, output_dir=out_dir, report_to="jsonl",
+                         train_steps=VIDEO_CKPT_STEPS, checkpointing_steps=VIDEO_CKPT_STEPS,
+                         precomputation_items=WAN_RUN_VIDEOS, pretrained_model_name_or_path=root,
+                         tokenizer_id=tokenizer)
+    at = argv.index("--validation_dataset_file")  # no validation: the request below serves the export
+    del argv[at:at + 2]
+
+    loaded, steps, towers = [], [], []
+    orig_load, orig_step, orig_conditions = (WanModelSpecification.load_diffusion_models, SFTTrainer.train_step,
+                                             WanModelSpecification.load_condition_models)
+
+    def recording_load(self):
+        out = orig_load(self)
+        module = out["transformer"].module
+        loaded.append(dict(base_equal=_equal_to_files(module, root / "transformer"),
+                           lora={n: p.detach().clone() for n, p in module.named_parameters() if ".lora_" in n}))
+        return out
+
+    def recording_conditions(self):
+        out = orig_conditions(self)
+        towers.append((type(out["text_encoder"]).__name__, out["text_encoder"].tokenizer is not None))
+        return out
+
+    def counted_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        before, reduce_before, t = _counts(), flash_bwd_dkdv.reduce_launches, time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        out = orig_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        after = _counts()
+        steps.append(dict(seconds=time.perf_counter() - t, launches={k_: after[k_] - before[k_] for k_ in after},
+                          reduce=flash_bwd_dkdv.reduce_launches - reduce_before,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        return out
+
+    vae_calls, restore_vae = _timed_vae(AutoencoderKLWan)
+    WanModelSpecification.load_diffusion_models, SFTTrainer.train_step = recording_load, counted_step
+    WanModelSpecification.load_condition_models = recording_conditions
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        WanModelSpecification.load_diffusion_models, SFTTrainer.train_step = orig_load, orig_step
+        WanModelSpecification.load_condition_models = orig_conditions
+    spec = trainer.model_specification
+    trained = {n: p.detach().clone() for n, p in trainer._trainable.items()}
+    base_after = _equal_to_files(trainer.transformer.module, root / "transformer")
+    encodes = [c for c in vae_calls if c[0] == "encode"]
+    del vae_calls[:]
+    log = _jsonl(out_dir)
+    precompute_s = next(e["timing/precompute"] for e in log if "timing/precompute" in e)
+    losses = [e["train/global_avg_loss"] for e in log if "train/global_avg_loss" in e]
+    del trainer
+    _free_cuda()
+    fresh = WanModelSpecification(pretrained_model_name_or_path=str(root / "absent"), device="cuda",
+                                  lora_rank=spec.lora_rank, lora_alpha=spec.lora_alpha, seed=spec.seed)
+    fresh_lora = {n: p for n, p in fresh.load_diffusion_models()["transformer"].module.named_parameters()
+                  if ".lora_" in n}
+    lora_fresh = bool(loaded) and loaded[0]["lora"].keys() == fresh_lora.keys() and all(
+        torch.equal(v, fresh_lora[n]) for n, v in loaded[0]["lora"].items())
+    del fresh, fresh_lora
+    _free_cuda()
+
+    adapter = sorted((out_dir / "lora_weights").iterdir())[-1]
+    request = dict(prompt=PROMPTS[0], height=WAN_RUN_BUCKET[1], width=WAN_RUN_BUCKET[2], num_frames=WAN_RUN_BUCKET[0])
+    served, call = [], WanPipeline.__call__
+
+    def recording_call(self, **kwargs):
+        lora = {n: p for n, p in self.transformer.module.named_parameters() if ".lora_" in n}
+        served.append(dict(encoder=type(self.text_encoder).__name__, vae=type(self.vae.module).__name__,
+                           adapter_bit_equal=lora.keys() == trained.keys() and all(
+                               torch.equal(p, trained[n].to(p.dtype)) for n, p in lora.items())))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        video = call(self, **kwargs)
+        torch.cuda.synchronize()
+        served[-1].update(seconds=time.perf_counter() - t0, launches=_counts(), shape=list(video.shape),
+                          finite_std=float(video.std()), peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return video
+
+    serve_argv = ["--model_name", "wan", "--pretrained_model_name_or_path", str(root), "--tokenizer_id",
+                  str(tokenizer), "--inference_type", "text_to_video", "--prompt", PROMPTS[0],
+                  "--height", str(request["height"]), "--width", str(request["width"]), "--num_frames",
+                  str(request["num_frames"]), "--num_inference_steps", str(VIDEO_CKPT_STEPS), "--lora_weights",
+                  str(adapter), "--output_dir", str(out_dir / "served")]
+    WanPipeline.__call__ = recording_call
+    try:
+        t0 = time.perf_counter()
+        paths = inference.main(serve_argv)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    finally:
+        WanPipeline.__call__ = call
+        restore_vae()
+    decodes = [c for c in vae_calls if c[0] == "decode"]
+    _free_cuda()
+
+    want_step = {k_: WAN_RUN_STEP_LAUNCHES.get(k_, 0) for k_ in _COUNTED}
+    steps_ok = len(steps) == VIDEO_CKPT_STEPS and all(st["launches"] == want_step and st["reduce"] == WAN_RUN_REDUCE
+                                                      for st in steps)
+    request_want = {k_: (2 * WAN_LAYERS * VIDEO_CKPT_STEPS if k_ in ("k1", "prep") else 0) for k_ in _COUNTED}
+    s = served[0] if served else {}
+    serve_ok = (len(served) == 1 and s["adapter_bit_equal"] and s["launches"] == request_want
+                and s["shape"] == [*WAN_RUN_BUCKET, 3] and s["finite_std"] > 0 and s["encoder"] == "T5Handle"
+                and s["vae"] == "AutoencoderKLWan" and len(paths) == 1 and len(decodes) == 1)
+    checks = dict(base_weights_bit_equal_at_load=bool(loaded) and loaded[0]["base_equal"],
+                  base_weights_bit_equal_after_run=base_after, lora_factors_fresh=lora_fresh,
+                  towers_loaded=towers == [("T5Handle", True)], steps_launches_exact=steps_ok,
+                  losses_finite=len(losses) == VIDEO_CKPT_STEPS and all(np.isfinite(losses)),
+                  vae_encoded=len(encodes) > 0, served=serve_ok, jax_imported="jax" in sys.modules)
+    phase("wan_checkpoint_run", card=card, entry="python -m finetrainers_tpu_torch.train", argv=[str(a) for a in argv],
+          bucket=list(WAN_RUN_BUCKET), write_s=write_s, files_gb=sum(
+              f.stat().st_size for f in root.rglob("*.safetensors")) / 1e9, run_s=run_s, precompute_s=precompute_s,
+          precompute_s_per_item=precompute_s / WAN_RUN_VIDEOS, vae_encode_calls=len(encodes),
+          vae_encode_s=sum(c[1] for c in encodes), vae_encode_input_shapes=sorted({str(c[2]) for c in encodes}),
+          step_seconds=[st["seconds"] for st in steps], step_peak_gb=[st["peak_gb"] for st in steps],
+          step_launches=steps[0]["launches"] if steps else None,
+          step_reduce_passes=steps[0]["reduce"] if steps else None,
+          losses=losses, serve_entry="python -m finetrainers_tpu_torch.inference", serve_argv=serve_argv,
+          serve_s=serve_s, request=served, vae_decode_s=[c[1] for c in decodes],
+          vae_decode_input_shapes=[c[2] for c in decodes], towers=towers, checks=checks)
+    if not all(v for k_, v in checks.items() if k_ != "jax_imported") or checks["jax_imported"]:
+        raise AssertionError(f"the Wan checkpoint run failed its checks: {checks}")
+    shutil.rmtree(root)
+    shutil.rmtree(out_dir)
+    return {"wan_checkpoint_run": {k_: sum(st["launches"][k_] for st in steps) for k_ in _COUNTED},
+            "wan_checkpoint_serve": s["launches"]}
+
+
+def write_ltx_checkpoint(root):
+    """LTX-Video 0.9 as a diffusers directory: `transformer/` at full width cut to LTX_CKPT_BLOCKS of 28 blocks,
+    `vae/` AutoencoderKLLTXVideo at its published 0.9.0 config, `text_encoder/` T5-XXL v1.1 at full width cut to
+    VIDEO_T5_LAYERS; bf16, random from seeded generators on the card. Returns the write seconds by component."""
+    from finetrainers_tpu_torch.models.ltx_video import LTX_TRANSFORMER_CONFIG
+    from finetrainers_tpu_torch.models.ltx_video.transformer import LTXVideoTransformer3DModel
+    from finetrainers_tpu_torch.models.ltx_video.vae import AutoencoderKLLTXVideo, LTXVAEConfig
+    from finetrainers_tpu_torch.models.text_encoders import T5_V1_1_XXL_CONFIG
+
+    g = torch.Generator("cuda").manual_seed(21)
+    config = dict(LTX_TRANSFORMER_CONFIG, num_layers=LTX_CKPT_BLOCKS)
+    seconds = {}
+    with torch.device("cuda"):
+        module = init_parameters_(LTXVideoTransformer3DModel(**config, dtype=torch.bfloat16), g)
+    seconds["transformer"] = _write_component(root / "transformer", dict(
+        config, _class_name="LTXVideoTransformer3DModel"), module, "diffusion_pytorch_model.safetensors")
+    del module
+    vae_config = dict(dataclasses.asdict(LTXVAEConfig()), _class_name="AutoencoderKLLTXVideo")
+    with torch.device("cuda"):
+        module = init_parameters_(AutoencoderKLLTXVideo(LTXVAEConfig.from_hf(vae_config), torch.bfloat16), g)
+    seconds["vae"] = _write_component(root / "vae", vae_config, module, "diffusion_pytorch_model.safetensors")
+    del module
+    module = _t5_tower(T5_V1_1_XXL_CONFIG, VIDEO_T5_LAYERS, torch.bfloat16, 22)
+    seconds["text_encoder"] = _write_component(root / "text_encoder", dict(
+        T5_V1_1_XXL_CONFIG, num_layers=VIDEO_T5_LAYERS), module, "model.safetensors")
+    del module
+    return config, seconds
+
+
+def ltx_checkpoint_serve(card):
+    """LTX-Video from a local diffusers directory (`write_ltx_checkpoint`)
+    through the spec (rank-32 LoRA): base weights bit-equal to the files, the
+    LoRA factors a fresh model's, T5 and the faithful VAE loaded; one
+    49x512x768 CFG request of 2 steps through `LTXPipeline` whose prompt the
+    loaded T5 encodes (stub tokenizer, 128 slots) and whose latents the
+    loaded VAE decodes: K1 2 launches a block a step (self and cross). Returns
+    the launches."""
+    from finetrainers_tpu_torch.models.ltx_video import LTXVideoModelSpecification
+    from finetrainers_tpu_torch.models.ltx_video.vae import AutoencoderKLLTXVideo
+    from finetrainers_tpu_torch.models.text_encoders import T5Handle
+
+    root = SMOKE_DIR / "ltx_local_checkpoint"
+    config, write_s = write_ltx_checkpoint(root)
+
+    def spec_at(path):
+        return LTXVideoModelSpecification(pretrained_model_name_or_path=str(path), transformer_config=config,
+                                          device="cuda", lora_rank=CKPT_RANK, lora_alpha=CKPT_RANK)
+
+    spec, load_s = spec_at(root), {}
+    t0 = time.perf_counter()
+    transformer = spec.load_diffusion_models()["transformer"]
+    vae = spec.load_latent_models()["vae"]
+    text_encoder = spec.load_condition_models()["text_encoder"]
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    base_equal = {"transformer": _equal_to_files(transformer.module, root / "transformer"),
+                  "vae": _equal_to_files(vae.module, root / "vae"),
+                  "text_encoder": isinstance(text_encoder, T5Handle)
+                  and _equal_to_files(text_encoder.module, root / "text_encoder")}
+    fresh = dict(spec_at(root / "absent").load_diffusion_models()["transformer"].module.named_parameters())
+    lora = [n for n, _ in transformer.module.named_parameters() if ".lora_" in n]
+    state = dict(transformer.module.named_parameters())
+    lora_fresh = bool(lora) and all(torch.equal(state[n], fresh[n]) for n in lora)
+    del fresh
+    handles_ok = isinstance(vae.module, AutoencoderKLLTXVideo) and isinstance(text_encoder, T5Handle)
+    text_encoder.tokenizer = StubTokenizer([24], 32128, pad_id=0, eos_id=1)
+    pipe = spec.load_pipeline(transformer=transformer, vae=vae, text_encoder=text_encoder)
+    decodes, restore = _timed_vae(AutoencoderKLLTXVideo)
+    try:
+        pipe(prompt=PROMPTS[0], seed=0, **dict(LTX_CKPT_REQUEST, num_inference_steps=1))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        del decodes[:]
+        _zero_counts()
+        t0 = time.perf_counter()
+        video = pipe(prompt=PROMPTS[0], seed=0, **LTX_CKPT_REQUEST)
+        torch.cuda.synchronize()
+        request_s, counts = time.perf_counter() - t0, _counts()
+    finally:
+        restore()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k_: (2 * LTX_CKPT_BLOCKS * VIDEO_CKPT_STEPS if k_ in ("k1", "prep") else 0) for k_ in counts}
+    video_ok = (video.shape == (49, 512, 768, 3) and video.dtype == np.uint8 and video.std() > 0)
+    phase("ltx_checkpoint_serve", card=card, blocks=LTX_CKPT_BLOCKS, t5_layers=VIDEO_T5_LAYERS, write_s=write_s,
+          files_gb=sum(f.stat().st_size for f in root.rglob("*.safetensors")) / 1e9, load_s=load_s,
+          base_weights_bit_equal=base_equal, lora_factors_fresh=lora_fresh, lora_tensors=len(lora),
+          handles=[type(text_encoder).__name__, type(vae.module).__name__],
+          vae_ratios=[vae.config["spatial_compression_ratio"], vae.config["temporal_compression_ratio"]],
+          request=dict(LTX_CKPT_REQUEST, steps_note="cut from the request's 50"), request_s=request_s,
+          vae_decode_s=[c[1] for c in decodes], vae_decode_input_shapes=[c[2] for c in decodes], peak_gb=peak_gb,
+          launches=counts, launches_exact=counts == want, video_shape=list(video.shape), video_std=float(video.std()),
+          jax_imported="jax" in sys.modules)
+    if not (all(base_equal.values()) and lora_fresh and handles_ok and video_ok and counts == want
+            and len(decodes) == 1 and "jax" not in sys.modules):
+        raise AssertionError(f"the LTX checkpoint path failed its checks: {base_equal}, LoRA fresh {lora_fresh}, "
+                             f"launches {counts}")
+    del pipe, transformer, vae, text_encoder, spec
+    _free_cuda()
+    shutil.rmtree(root)
+    return counts
+
+
+def video_dtype_check(card):
+    """The towers and VAEs this slice loads, in bf16 against the same weights
+    in fp32: UMT5-XXL and T5-XXL v1.1 at full width (2 of 24 layers) on
+    captions padded to Wan's 512 and LTX's 128 slots (relative L2 of the
+    valid states), and the Wan and LTX VAEs' encode at their published
+    configs (relative L2 of the moments' mean half) on a 49-frame clip, Wan's
+    at the example's 256-pixel tile, LTX's at 512x768. Returns the errors."""
+    from finetrainers_tpu_torch.models.ltx_video.vae import AutoencoderKLLTXVideo, LTXVAEConfig
+    from finetrainers_tpu_torch.models.text_encoders import T5_V1_1_XXL_CONFIG, UMT5_XXL_CONFIG
+    from finetrainers_tpu_torch.models.wan.vae import AutoencoderKLWan, WanVAEConfig
+    from finetrainers_tpu_torch.models.weight_utils import load_named_weights
+
+    errors = {}
+    for name, config, slots in (("umt5_xxl", UMT5_XXL_CONFIG, 512), ("t5_v1_1_xxl", T5_V1_1_XXL_CONFIG, 128)):
+        fp32 = _t5_tower(config, VIDEO_T5_LAYERS, torch.float32, 31)
+        with torch.device("cuda"):
+            bf16 = type(fp32)(fp32.config, torch.bfloat16).eval()
+        load_named_weights(bf16, fp32.state_dict())
+        g = torch.Generator("cuda").manual_seed(32)
+        ids = torch.randint(3, config["vocab_size"], (2, slots), generator=g, device="cuda")
+        mask = torch.zeros((2, slots), dtype=torch.int64, device="cuda")
+        mask[0, :40], mask[1, :slots - 7] = 1, 1
+        with torch.no_grad():
+            want, got = fp32(ids, mask)[mask > 0], bf16(ids, mask).float()[mask > 0]
+        errors[name] = ((got - want).norm() / want.norm()).item()
+        del fp32, bf16
+        _free_cuda()
+    for name, cls, cfg, shape in (("wan_vae", AutoencoderKLWan, WanVAEConfig(), (1, 3, 49, 256, 256)),
+                                  ("ltx_vae", AutoencoderKLLTXVideo, LTXVAEConfig(), (1, 3, 49, 512, 768))):
+        with torch.device("cuda"):
+            fp32 = init_parameters_(cls(cfg, torch.float32), torch.Generator("cuda").manual_seed(33)).eval()
+            bf16 = cls(cfg, torch.bfloat16).eval()
+        load_named_weights(bf16, fp32.state_dict())
+        x = torch.rand(shape, generator=torch.Generator("cuda").manual_seed(34), device="cuda") * 2 - 1
+        with torch.no_grad():
+            want = fp32.encode(x).chunk(2, dim=1)[0]
+            got = bf16.encode(x).chunk(2, dim=1)[0]
+        errors[name] = ((got - want).norm() / want.norm()).item()
+        del fp32, bf16, x
+        _free_cuda()
+    ok = all(v <= (VAE_REL_L2_TOL if k_.endswith("vae") else TOWER_REL_L2_TOL) for k_, v in errors.items())
+    phase("video_dtype_check", card=card, rel_l2_bf16_vs_fp32=errors, tower_bound=TOWER_REL_L2_TOL,
+          vae_bound=VAE_REL_L2_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"a bf16 tower or VAE strays from fp32: {errors}")
+    return errors
+
+
 def env_phase():
     """Whether the media codecs the data stage decodes with, and transformers' tokenizers (the towers'
     `AutoTokenizer`), import here (information, not a check)."""
@@ -5370,6 +5796,9 @@ def main():
     raider_serve = cogview4_sft_serve(card, raider["adapter"])
     tower_launches = text_towers(card)
     checkpoint_launches = cogview4_checkpoint_serve(card)
+    video_launches = wan_checkpoint_run(card)
+    video_launches["ltx_checkpoint_serve"] = ltx_checkpoint_serve(card)
+    video_dtype_check(card)
     shutil.rmtree(SMOKE_DIR)
     env_phase()
 
@@ -5417,7 +5846,8 @@ def main():
                                        "hunyuan_run": hunyuan["launches"][key],
                                        "cogview4_control_run": cogview4["launches"][key],
                                        "wan_control_run": wan_control["launches"][key],
-                                       "cogvideox_run": cogvideox["launches"][key]},
+                                       "cogvideox_run": cogvideox["launches"][key],
+                                       "wan_checkpoint_run": video_launches["wan_checkpoint_run"][key]},
                      shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128],
                      i2v_train_in_step_ms={part: i2v_train["in_step"][f"{key}_{part}"] for part in ("self", "cross")},
                      flux_train_in_step_ms=flux["in_step"][key],
@@ -5461,7 +5891,9 @@ def main():
                                 "cogview4_control_run": cogview4["launches"]["k1"],
                                 **{f"cogview4_serve_{name}": r["launches"]["k1"] for name, r in cv_serve.items()},
                                 "wan_control_run": wan_control["launches"]["k1"],
-                                "cogvideox_run": cogvideox["launches"]["k1"], "cogvideox_serve": cx_serve_launches["k1"]},
+                                "cogvideox_run": cogvideox["launches"]["k1"],
+                                "cogvideox_serve": cx_serve_launches["k1"],
+                                **{path: n["k1"] for path, n in video_launches.items()}},
               shape=[2, 32, 2688, 2688, 64], by_case={**k1, **k1_wan, **flux_k1, **hy_k1, **cv_k1, **cx_k1},
               flux_in_step_ms=dict(serve_self=flux_serve_in_step["k1"], train_self=flux["in_step"]["k1"]),
               hunyuan_in_step_ms=dict(serve=dict(zip(("joint", "refiner"), hy_serve_in_step["k1"])),
@@ -5495,7 +5927,8 @@ def main():
                                 **{f"cogview4_serve_{name}": r["launches"]["prep"] for name, r in cv_serve.items()},
                                 "wan_control_run": wan_control["launches"]["prep"],
                                 "cogvideox_run": cogvideox["launches"]["prep"],
-                                "cogvideox_serve": cx_serve_launches["prep"]},
+                                "cogvideox_serve": cx_serve_launches["prep"],
+                                **{path: n["prep"] for path, n in video_launches.items()}},
               flux_by_case={case: dict(ms=r["prep_ms"], plain_ms=r["prep_plain_ms"]) for case, r in flux_k1.items()},
               flux_in_step_ms=dict(serve=flux_serve_in_step["prep"], train=flux["in_step"]["prep"]),
               hunyuan_by_case={case: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r["prep"]))

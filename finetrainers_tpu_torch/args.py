@@ -231,10 +231,14 @@ class BaseArgs:
 
 
 # The tower flags each family's spec reads since its text towers load from a
-# local checkpoint (CogView4's GLM; HunyuanVideo's Llama and CLIP text); for
-# every other family they stay refused below.
+# local checkpoint (CogView4's GLM; HunyuanVideo's Llama and CLIP text; Wan's
+# UMT5, LTX-Video's and CogVideoX's T5); for every other family they stay
+# refused below.
 TOWER_FLAGS = {"cogview4": ("tokenizer_id",),
-               "hunyuan_video": ("tokenizer_id", "tokenizer_2_id", "text_encoder_2_id")}
+               "hunyuan_video": ("tokenizer_id", "tokenizer_2_id", "text_encoder_2_id"),
+               "wan": ("tokenizer_id",),
+               "ltx_video": ("tokenizer_id",),
+               "cogvideox": ("tokenizer_id",)}
 
 # (flags, the ROADMAP.md item of their feature)
 _UNPORTED = (

@@ -423,14 +423,18 @@ def encode_media(vae_handle: ModelHandle, x: torch.Tensor, tile: int = 256, over
 
 def _is_2d(vae_handle: ModelHandle) -> bool:
     """Whether the handle holds the 2D `AutoencoderKL` (a checkpoint's image
-    VAE); else it must hold the 3D VAE, or this raises."""
+    VAE); else it must hold a 3D VAE (the generic one, `AutoencoderKLWan` or
+    `AutoencoderKLLTXVideo`), or this raises."""
     from .autoencoder_kl import AutoencoderKL
+    from .ltx_video.vae import AutoencoderKLLTXVideo
+    from .wan.vae import AutoencoderKLWan
 
     if isinstance(vae_handle.module, AutoencoderKL):
         return True
-    if not isinstance(vae_handle.module, AutoencoderKL3D):
-        raise NotImplementedError(f"{type(vae_handle.module).__name__}: the port's image VAEs are the 3D VAE and the "
-                                  "2D AutoencoderKL; see ROADMAP.md queue 1 item 5 (loading diffusers checkpoints)")
+    if not isinstance(vae_handle.module, (AutoencoderKL3D, AutoencoderKLWan, AutoencoderKLLTXVideo)):
+        raise NotImplementedError(f"{type(vae_handle.module).__name__}: the port's image VAEs are the 3D VAEs and "
+                                  "the 2D AutoencoderKL; see ROADMAP.md queue 1 item 5 (loading diffusers "
+                                  "checkpoints)")
     return False
 
 

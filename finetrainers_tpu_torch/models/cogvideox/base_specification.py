@@ -2,14 +2,14 @@
 forward (port of `finetrainers_tpu/models/cogvideox/base_specification.py`),
 the only family whose objective is not flow matching.
 
-Random weights only: no T5, `AutoencoderKLCogVideoX` or transformer
-checkpoint exists for the port yet, so it runs with the offline components
-the JAX package falls back to: `HashEncoder(4096, max_length=226)` through
-`T5Processor` (:74-87), the generic `AutoencoderKL3D` with
-`COGVIDEOX_VAE_CONFIG` and latent scaling 0.7 (:89-107), and its own
-`CogVideoXDDIMScheduler` (:72; JAX reads no scheduler config for it). A
-local checkpoint directory for any component raises NotImplementedError
-naming its ROADMAP.md item instead of being ignored.
+T5 loads from a local `text_encoder/` (`T5Handle`, :74-87); without one the
+spec takes the offline `HashEncoder(4096, max_length=226)` JAX falls back
+to. The VAE and the transformer are random: the port has no
+`AutoencoderKLCogVideoX` yet, so it runs the generic `AutoencoderKL3D` with
+`COGVIDEOX_VAE_CONFIG` and latent scaling 0.7 (:89-107), and a local `vae/`
+or `transformer/` raises NotImplementedError naming its ROADMAP.md item
+instead of being ignored. It serves with its own `CogVideoXDDIMScheduler`
+(:72; JAX reads no scheduler config for it).
 
 Training (:168-211): DDIM noising at t = int(sigma * 1000), the model
 predicts velocity, pred = sqrt(a) x_t - sqrt(1 - a) v (the x0 estimate),
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ...logging import get_logger
-from ...processors import CaptionTextDropoutProcessor, HashEncoder, T5Processor
+from ...processors import CaptionTextDropoutProcessor, T5Processor
 from ...schedulers import CogVideoXDDIMScheduler
 from ..autoencoders import COGVIDEOX_VAE_CONFIG, AutoencoderConfig, encode_media, generic_vae, media_to_vae_input
 from ..layers import init_parameters_
@@ -86,11 +86,9 @@ class CogVideoXModelSpecification(ModelSpecification):
 
     # ------------------------------------------------------------------ loading
     def load_condition_models(self) -> Dict[str, Any]:
-        self._refuse_checkpoint(self.text_encoder_id, "text_encoder", "the T5 text encoder (ROADMAP.md queue 1 "
-                                "item 7)")
-        logger.warning("T5 is not ported; using the offline hash encoder")
-        return {"tokenizer": None, "text_encoder": HashEncoder(hidden_size=self.transformer_config["text_embed_dim"],
-                                                                max_length=MAX_SEQUENCE_LENGTH)}
+        """T5 from a local directory, else the offline hash encoder (JAX :74-87)."""
+        encoder = self._load_t5(self.transformer_config["text_embed_dim"], max_length=MAX_SEQUENCE_LENGTH)
+        return {"tokenizer": getattr(encoder, "tokenizer", None), "text_encoder": encoder}
 
     def load_latent_models(self) -> Dict[str, Any]:
         vae = generic_vae(self, self.vae_autoencoder_config,

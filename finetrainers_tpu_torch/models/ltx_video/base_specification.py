@@ -1,12 +1,14 @@
 """LTX-Video model specification: serving and the training forward (port of
 `finetrainers_tpu/models/ltx_video/base_specification.py`).
 
-Random weights only: neither a T5 nor an LTX VAE checkpoint exists for the
-port yet, so it serves with the same offline components the JAX package falls
-back to — `HashEncoder` for text and the generic `AutoencoderKL3D` with
-`LTX_VAE_CONFIG`. A local checkpoint directory for any component raises
-NotImplementedError instead of being ignored. `prepare_latents` encodes media
-into VAE moments, and `forward` trains on them.
+From a local diffusers directory (JAX :78-133) the spec loads T5-XXL v1.1
+from `text_encoder/` (`T5Handle`), the faithful `AutoencoderKLLTXVideo` from
+`vae/` (its compression ratios replace the spec's), and the transformer's
+base weights from `transformer/` by name (the LoRA factors stay fresh).
+Without a directory a component falls back as JAX's does: `HashEncoder` for
+text, the generic `AutoencoderKL3D` with `LTX_VAE_CONFIG`, random transformer
+weights. `prepare_latents` encodes media into VAE moments, and `forward`
+trains on them.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from ...functional.diffusion import flow_match_target, flow_match_xt
 from ...logging import get_logger
-from ...processors import CaptionTextDropoutProcessor, HashEncoder, T5Processor
+from ...processors import CaptionTextDropoutProcessor, T5Processor
 from ...schedulers import FlowMatchEulerScheduler, load_scheduler
 from ..autoencoders import (LTX_VAE_CONFIG, AutoencoderConfig, encode_media, generic_vae, media_to_vae_input,
                             sample_from_moments)
@@ -76,24 +78,34 @@ class LTXVideoModelSpecification(ModelSpecification):
 
     # ------------------------------------------------------------------ loading
     def load_condition_models(self) -> Dict[str, Any]:
-        self._refuse_checkpoint(self.text_encoder_id, "text_encoder", "the T5 text encoder")
-        logger.warning("T5 is not ported; using the offline hash encoder")
-        encoder = HashEncoder(hidden_size=self.transformer_config["caption_channels"], max_length=128)
-        return {"tokenizer": None, "text_encoder": encoder}
+        """T5 from a local directory, else the offline hash encoder (JAX :78-89)."""
+        encoder = self._load_t5(self.transformer_config["caption_channels"], max_length=128)
+        return {"tokenizer": getattr(encoder, "tokenizer", None), "text_encoder": encoder}
 
     def load_latent_models(self) -> Dict[str, Any]:
+        """The faithful `AutoencoderKLLTXVideo` from `vae/`, whose compression
+        ratios the spec then takes, else the generic VAE (JAX :91-113)."""
+        from .vae import AutoencoderKLLTXVideo, LTXVAEConfig
+
+        handle = self._load_video_vae(AutoencoderKLLTXVideo, LTXVAEConfig)
+        if handle is not None:
+            self.vae_spatial_compression_ratio = handle.config["spatial_compression_ratio"]
+            self.vae_temporal_compression_ratio = handle.config["temporal_compression_ratio"]
+            return {"vae": handle}
         return {"vae": generic_vae(self, self.vae_autoencoder_config, "the LTX VAE")}
 
     def load_diffusion_models(self) -> Dict[str, Any]:
-        self._refuse_checkpoint(self.transformer_id, "transformer", "transformer weights")
+        """The transformer, random from the spec's generator, its base weights
+        then loaded from a local `transformer/` (JAX :115-133)."""
         with torch.device(self.device):
             module = LTXVideoTransformer3DModel(
                 **self.transformer_config, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
                 dtype=self.transformer_dtype, gradient_checkpointing=self.gradient_checkpointing,
             )
-        init_parameters_(module, self.generator()).eval()
+        init_parameters_(module, self.generator())
+        self._maybe_load_pretrained_transformer(module)
         return {
-            "transformer": ModelHandle(module, dict(self.transformer_config)),
+            "transformer": ModelHandle(module.eval(), dict(self.transformer_config)),
             "scheduler": FlowMatchEulerScheduler(),
         }
 

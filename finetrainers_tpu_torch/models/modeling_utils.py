@@ -6,9 +6,10 @@ package's handle also carries the parameter tree, which here lives inside the
 module). Every spec takes an explicit `device`; its loaders build and
 random-initialise their modules there, from `torch.Generator`s seeded with
 `seed`, and never on an implicit CPU. Where a family loads a component from
-a local checkpoint directory (`_load_text_tower`, `_load_image_vae`,
-`_maybe_load_pretrained_transformer`), the module is built on the device in
-the spec's dtype and its weights are copied in by name.
+a local checkpoint directory (`_load_text_tower`, `_load_t5`,
+`_load_image_vae`, `_load_video_vae`, `_maybe_load_pretrained_transformer`),
+the module is built on the device in the spec's dtype and its weights are
+copied in by name.
 """
 
 from __future__ import annotations
@@ -218,6 +219,63 @@ class ModelSpecification:
             "scaling_factor": hf_cfg.get("scaling_factor", default_scaling),
             "shift_factor": hf_cfg.get("shift_factor", default_shift),
         })
+
+    def _load_video_vae(self, module_cls, config_cls) -> Optional[ModelHandle]:
+        """A family's causal 3D VAE (`AutoencoderKLWan`, `AutoencoderKLLTXVideo`)
+        from a local diffusers `vae/` directory, built on the spec's device in
+        `vae_dtype` and loaded by name (strict on every parameter; entries the
+        module does not hold, such as a checkpoint's latent-statistics buffers,
+        are skipped as JAX's converter skips them), with `scaling_factor` (1.0
+        without it), `latents_mean` and `latents_std` (zeros and ones) from
+        its config; None where no such directory exists (the caller keeps
+        its generic VAE). A directory with a config but no weights gives a
+        random VAE with a warning, as in JAX (modeling_utils.py:272-316)."""
+        vae_dir = self._component_dir(self.vae_id, "vae")
+        if vae_dir is None:
+            return None
+        from .layers import init_parameters_
+        from .weight_utils import load_diffusers_checkpoint_dir, load_diffusers_config, load_named_weights
+
+        hf_cfg = load_diffusers_config(vae_dir)
+        cfg = config_cls.from_hf(hf_cfg)
+        with torch.device(self.device):
+            module = module_cls(cfg, dtype=self.vae_dtype)
+        try:
+            state = load_diffusers_checkpoint_dir(vae_dir)
+            skipped = load_named_weights(module, state, ignore_unexpected=True)
+            logger.info(f"Loaded {module_cls.__name__} weights from {vae_dir} ({len(state)} tensors"
+                        + (f"; {list(skipped)} skipped)" if skipped else ")"))
+        except FileNotFoundError:
+            logger.warning(f"{vae_dir} has a config but no weights; using random-init VAE")
+            init_parameters_(module, self.generator())
+        latent_ch = getattr(cfg, "z_dim", None) or getattr(cfg, "latent_channels", None)
+        mean, std = hf_cfg.get("latents_mean"), hf_cfg.get("latents_std")
+        return ModelHandle(module.eval(), {
+            "latent_channels": latent_ch,
+            "spatial_compression_ratio": cfg.spatial_compression_ratio,
+            "temporal_compression_ratio": cfg.temporal_compression_ratio,
+            "scaling_factor": hf_cfg.get("scaling_factor", 1.0),
+            "latents_mean": np.asarray(mean, np.float32) if mean is not None else np.zeros((latent_ch,), np.float32),
+            "latents_std": np.asarray(std, np.float32) if std is not None else np.ones((latent_ch,), np.float32),
+        })
+
+    def _load_t5(self, hidden_size: int, max_length: int):
+        """The T5 or UMT5 tower from `text_encoder_id` or the pretrained path
+        (a tower's directory, or a pipeline root holding `text_encoder/`:
+        `T5Handle.resolve`), through `_load_text_tower`; else the offline
+        `HashEncoder(hidden_size, max_length)`, with a warning (JAX builds
+        `FlaxT5Handle(text_encoder_id or pretrained)` and falls back to the
+        hash encoder on any failure)."""
+        from ..processors import HashEncoder
+        from .text_encoders import T5Handle
+
+        def offline():
+            logger.warning("No local T5 directory; using the offline hash encoder")
+            return HashEncoder(hidden_size=hidden_size, max_length=max_length)
+
+        explicit = T5Handle.resolve(self.text_encoder_id or self.pretrained_model_name_or_path)
+        return self._load_text_tower(T5Handle, explicit, "text_encoder", offline,
+                                     tokenizer_id=self.tokenizer_id, dtype=self.text_encoder_dtype)
 
     def _maybe_load_pretrained_transformer(self, module: nn.Module, subfolder: str = "transformer") -> bool:
         """Load a local diffusers transformer directory (`transformer_id` or

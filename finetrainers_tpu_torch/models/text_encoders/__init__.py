@@ -1,12 +1,16 @@
-from .handles import CLIPTextHandle, GlmHandle, LlamaHandle
+from .handles import CLIPTextHandle, GlmHandle, LlamaHandle, T5Handle
 from .towers import (
     CLIP_L_TEXT_CONFIG,
     GLM4_9B_CONFIG,
     LLAMA3_8B_CONFIG,
+    T5_V1_1_XXL_CONFIG,
+    UMT5_XXL_CONFIG,
     CLIPTextConfig,
     CLIPTextTower,
     DecoderConfig,
     DecoderTextModel,
+    T5Config,
+    T5EncoderTower,
 )
 
 
@@ -21,4 +25,9 @@ __all__ = [
     "DecoderTextModel",
     "GlmHandle",
     "LlamaHandle",
+    "T5Config",
+    "T5EncoderTower",
+    "T5Handle",
+    "T5_V1_1_XXL_CONFIG",
+    "UMT5_XXL_CONFIG",
 ]

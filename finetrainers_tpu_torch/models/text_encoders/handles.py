@@ -24,7 +24,7 @@ import torch.nn as nn
 
 from ...logging import get_logger
 from ..weight_utils import load_named_weights
-from .towers import CLIPTextConfig, CLIPTextTower, DecoderConfig, DecoderTextModel
+from .towers import CLIPTextConfig, CLIPTextTower, DecoderConfig, DecoderTextModel, T5Config, T5EncoderTower
 
 
 logger = get_logger(__name__)
@@ -202,3 +202,50 @@ class CLIPTextHandle(_Handle):
         batch = self._tokenize(captions, padding="max_length", max_length=77, truncation=True)
         _, pooled = self.module(self._ids(batch["input_ids"]))
         return pooled.float().cpu().numpy()
+
+
+class T5Handle(_Handle):
+    """The T5 or UMT5 encoder (Wan's UMT5, LTX-Video's and CogVideoX's T5;
+    `FlaxT5Handle`, processors/text_encoders.py:57-100): `encode(captions,
+    max_sequence_length)` pads every caption to `max_sequence_length`
+    (truncating), and returns the last hidden state and the tokenizer's mask.
+    `model_dir` is the tower's directory, or a pipeline root holding
+    `text_encoder/` and no config.json of its own (`resolve`). Local files
+    only: JAX's handle would try the Hub.
+
+    JAX loads a UMT5 directory into transformers' Flax T5, which holds one
+    relative-attention table (layer 0's) for every layer, so layers 1..N-1's
+    own tables go unused; the port computes the same function and logs that
+    once (ROADMAP.md section 3, finding 24)."""
+
+    def __init__(self, model_dir: str, tokenizer_id: Optional[str] = None, dtype: torch.dtype = torch.bfloat16,
+                 device: Union[str, torch.device] = "cuda") -> None:
+        super().__init__(device)
+        model_dir = self.resolve(model_dir)
+        config, state = _load_dir(model_dir)
+        self.config = T5Config.from_hf(config)
+        self.module = _build(lambda: T5EncoderTower(self.config, dtype), state, self.device)
+        unused = [k for k in state if k.endswith("relative_attention_bias.weight")
+                  and not k.startswith("encoder.block.0.")]
+        if unused:
+            logger.warning(f"{model_dir}: {len(unused)} layers' relative-attention tables ({self.config.model_type}) "
+                           "go unused: layer 0's serves every layer, as in JAX's Flax T5 (ROADMAP.md section 3, "
+                           "finding 24)")
+        self.tokenizer = _maybe_tokenizer(model_dir, tokenizer_id)
+
+    @staticmethod
+    def resolve(path: Optional[str]) -> Optional[str]:
+        """A pipeline root with `text_encoder/` and no config.json of its own ->
+        its `text_encoder/`; any other path as it is (JAX's resolution)."""
+        if path and os.path.isdir(path):
+            sub = os.path.join(path, "text_encoder")
+            if os.path.isdir(sub) and not os.path.exists(os.path.join(path, "config.json")):
+                return sub
+        return path
+
+    @torch.no_grad()
+    def encode(self, captions: List[str], max_sequence_length: int = 128) -> Tuple[np.ndarray, np.ndarray]:
+        batch = self._tokenize(captions, padding="max_length", max_length=max_sequence_length, truncation=True)
+        mask = self._ids(batch["attention_mask"])
+        states = self.module(self._ids(batch["input_ids"]), attention_mask=mask)
+        return states.float().cpu().numpy(), mask.cpu().numpy().astype(np.int32)

@@ -1,19 +1,27 @@
-"""The text towers: the Llama and GLM decoders and the CLIP text encoder (port
-of the text parts of `finetrainers_tpu/models/text_encoders/towers.py`).
+"""The text towers: the Llama and GLM decoders, the CLIP text encoder (port
+of the text parts of `finetrainers_tpu/models/text_encoders/towers.py`) and
+the T5/UMT5 encoder (the function JAX computes through transformers'
+`FlaxT5EncoderModel`, `processors/text_encoders.py:57-100`).
 
 Module and parameter names are Hugging Face's (`embed_tokens`,
 `layers.{i}.self_attn.q_proj`, `layers.{i}.mlp.gate_up_proj`, `norm`;
 `embeddings.token_embedding`, `encoder.layers.{i}.self_attn.out_proj`,
-`final_layer_norm`, `text_projection`), so a checkpoint loads by name
-(`weight_utils.load_named_weights`). What the diffusion specs consume:
+`final_layer_norm`, `text_projection`; `shared`,
+`encoder.block.{i}.layer.0.SelfAttention.q`, `layer.1.DenseReluDense.wi_0`),
+so a checkpoint loads by name (`weight_utils.load_named_weights`). What the
+diffusion specs consume:
   - Llama: HunyuanVideo's prompt states, `hidden_states[-3]` (the handle's
     `num_layers_to_skip` 2), under a causal and padding mask;
   - GLM: CogView4's prompt states, `hidden_states[-2]`, causal only;
   - CLIP text: the pooled state at the first EOS position, projected where the
-    config has a projection.
-Each attention passes its dense boolean mask to `attention_dispatch`: on the
-card `auto` runs it through K1's mask branch, with GQA's kv heads repeated
-before it; on the CPU through fp32 math, as JAX `auto` sends it to XLA.
+    config has a projection;
+  - T5/UMT5: the last hidden state under a padding mask (Wan, LTX-Video and
+    CogVideoX's prompt states), its attention plain fp32 math with an additive
+    relative bias, which K1 does not take.
+Each decoder and CLIP attention passes its dense boolean mask to
+`attention_dispatch`: on the card `auto` runs it through K1's mask branch,
+with GQA's kv heads repeated before it; on the CPU through fp32 math, as JAX
+`auto` sends it to XLA.
 The towers compute in the dtype they are built with (the spec's
 `text_encoder_dtype`); JAX builds its towers in fp32 whatever that flag says
 (ROADMAP.md section 3, finding 21). CLIP's vision tower is not ported: it needs
@@ -23,6 +31,7 @@ head dim 80 and JAX's main path never runs it (finding 2).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -351,3 +360,194 @@ class CLIPTextTower(nn.Module):
         if self.config.projection_dim:
             pooled = self.text_projection(pooled)
         return x, pooled
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    """T5's and UMT5's encoder (Hugging Face config.json names). JAX encodes
+    both through transformers' `FlaxT5EncoderModel` (`FlaxT5Handle`,
+    `processors/text_encoders.py:57-100`), which builds the relative-attention
+    table in layer 0 only, whatever `model_type` says (finding 24)."""
+
+    vocab_size: int
+    d_model: int
+    d_kv: int
+    d_ff: int
+    num_layers: int
+    num_heads: int
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    feed_forward_proj: str = "relu"
+    model_type: str = "t5"
+
+    @property
+    def is_gated(self) -> bool:
+        return self.feed_forward_proj.split("-")[0] == "gated"
+
+    @property
+    def act(self) -> str:
+        """transformers' `dense_act_fn`: "gated-gelu" runs "gelu_new" (tanh)."""
+        name = self.feed_forward_proj.split("-")[-1]
+        return "gelu_new" if self.feed_forward_proj == "gated-gelu" else name
+
+    @classmethod
+    def from_hf(cls, cfg: dict) -> "T5Config":
+        return cls(
+            vocab_size=cfg["vocab_size"], d_model=cfg["d_model"], d_kv=cfg["d_kv"], d_ff=cfg["d_ff"],
+            num_layers=cfg["num_layers"], num_heads=cfg["num_heads"],
+            relative_attention_num_buckets=cfg.get("relative_attention_num_buckets", 32),
+            relative_attention_max_distance=cfg.get("relative_attention_max_distance", 128),
+            layer_norm_epsilon=cfg.get("layer_norm_epsilon", 1e-6),
+            feed_forward_proj=cfg.get("feed_forward_proj", "relu"), model_type=cfg.get("model_type", "t5"),
+        )
+
+
+# UMT5-XXL, Wan 2.1's text encoder: Hugging Face `google/umt5-xxl`, config.json.
+UMT5_XXL_CONFIG = dict(
+    vocab_size=256384, d_model=4096, d_kv=64, d_ff=10240, num_layers=24, num_heads=64,
+    relative_attention_num_buckets=32, relative_attention_max_distance=128, layer_norm_epsilon=1e-6,
+    feed_forward_proj="gated-gelu", model_type="umt5",
+)
+# T5-XXL v1.1, LTX-Video's (and CogVideoX's) text encoder: Hugging Face `google/t5-v1_1-xxl`, config.json.
+T5_V1_1_XXL_CONFIG = dict(
+    vocab_size=32128, d_model=4096, d_kv=64, d_ff=10240, num_layers=24, num_heads=64,
+    relative_attention_num_buckets=32, relative_attention_max_distance=128, layer_norm_epsilon=1e-6,
+    feed_forward_proj="gated-gelu", model_type="t5",
+)
+
+
+def t5_relative_buckets(q_len: int, k_len: int, num_buckets: int, max_distance: int) -> torch.Tensor:
+    """(q_len, k_len) bidirectional buckets of key position - query position
+    (transformers' `_relative_position_bucket`), computed on the CPU in fp32 so
+    every device indexes the same table entries."""
+    rel = torch.arange(k_len)[None, :] - torch.arange(q_len)[:, None]
+    half = num_buckets // 2
+    buckets = (rel > 0).long() * half
+    rel = rel.abs()
+    max_exact = half // 2
+    large = max_exact + (torch.log(rel.float() / max_exact) / math.log(max_distance / max_exact)
+                         * (half - max_exact)).long()
+    large = torch.clamp(large, max=half - 1)
+    return buckets + torch.where(rel < max_exact, rel, large)
+
+
+def _t5_act(name: str):
+    if name == "relu":
+        return F.relu
+    if name == "gelu_new":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "gelu":
+        return F.gelu
+    if name == "silu":
+        return F.silu
+    raise ValueError(f"Unknown T5 activation {name!r}")
+
+
+class _T5Attention(nn.Module):
+    def __init__(self, cfg: T5Config, dtype: torch.dtype, has_relative_attention_bias: bool) -> None:
+        super().__init__()
+        inner = cfg.num_heads * cfg.d_kv
+        self.num_heads, self.d_kv = cfg.num_heads, cfg.d_kv
+        for name, (i, o) in dict(q=(cfg.d_model, inner), k=(cfg.d_model, inner), v=(cfg.d_model, inner),
+                                 o=(inner, cfg.d_model)).items():
+            setattr(self, name, LoRADense(i, o, bias=False, dtype=dtype))
+        if has_relative_attention_bias:
+            self.relative_attention_bias = Embedding(cfg.relative_attention_num_buckets, cfg.num_heads, dtype)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """Plain fp32 attention with no 1/sqrt(d) scale, `bias` (B or 1, N, S, S)
+        the relative bias plus the padded keys' additive mask, as Flax computes it."""
+        b, s, _ = x.shape
+        q, k, v = (proj(x).reshape(b, s, self.num_heads, self.d_kv).transpose(1, 2).float()
+                   for proj in (self.q, self.k, self.v))
+        probs = torch.softmax(q @ k.transpose(-1, -2) + bias, dim=-1)
+        out = (probs @ v).transpose(1, 2).reshape(b, s, self.num_heads * self.d_kv)
+        return self.o(out.to(self.o.compute_dtype))
+
+
+class _T5LayerSelfAttention(nn.Module):
+    def __init__(self, cfg: T5Config, dtype: torch.dtype, has_relative_attention_bias: bool) -> None:
+        super().__init__()
+        self.SelfAttention = _T5Attention(cfg, dtype, has_relative_attention_bias)
+        self.layer_norm = RMSNorm(cfg.d_model, eps=cfg.layer_norm_epsilon, dtype=dtype)
+
+    def forward(self, x, bias):
+        return x + self.SelfAttention(self.layer_norm(x), bias)
+
+
+class _T5DenseReluDense(nn.Module):
+    """`DenseReluDense`: wi -> act -> wo, or with a gated projection act(wi_0) * wi_1 -> wo."""
+
+    def __init__(self, cfg: T5Config, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.gated = cfg.is_gated
+        if self.gated:
+            self.wi_0 = LoRADense(cfg.d_model, cfg.d_ff, bias=False, dtype=dtype)
+            self.wi_1 = LoRADense(cfg.d_model, cfg.d_ff, bias=False, dtype=dtype)
+        else:
+            self.wi = LoRADense(cfg.d_model, cfg.d_ff, bias=False, dtype=dtype)
+        self.wo = LoRADense(cfg.d_ff, cfg.d_model, bias=False, dtype=dtype)
+        self.act = _t5_act(cfg.act)
+
+    def forward(self, x):
+        if self.gated:
+            return self.wo(self.act(self.wi_0(x)) * self.wi_1(x))
+        return self.wo(self.act(self.wi(x)))
+
+
+class _T5LayerFF(nn.Module):
+    def __init__(self, cfg: T5Config, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.DenseReluDense = _T5DenseReluDense(cfg, dtype)
+        self.layer_norm = RMSNorm(cfg.d_model, eps=cfg.layer_norm_epsilon, dtype=dtype)
+
+    def forward(self, x):
+        return x + self.DenseReluDense(self.layer_norm(x))
+
+
+class _T5Block(nn.Module):
+    def __init__(self, cfg: T5Config, dtype: torch.dtype, has_relative_attention_bias: bool) -> None:
+        super().__init__()
+        self.layer = nn.ModuleList([_T5LayerSelfAttention(cfg, dtype, has_relative_attention_bias),
+                                    _T5LayerFF(cfg, dtype)])
+
+    def forward(self, x, bias):
+        return self.layer[1](self.layer[0](x, bias))
+
+
+class _T5Stack(nn.Module):
+    def __init__(self, cfg: T5Config, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.block = nn.ModuleList([_T5Block(cfg, dtype, i == 0) for i in range(cfg.num_layers)])
+        self.final_layer_norm = RMSNorm(cfg.d_model, eps=cfg.layer_norm_epsilon, dtype=dtype)
+
+
+class T5EncoderTower(nn.Module):
+    """T5EncoderModel as transformers' Flax T5 computes it (`FlaxT5EncoderModel`):
+    `forward(input_ids, attention_mask)` -> the last hidden state. One relative
+    bias, from layer 0's table, is added in every layer, with the padded keys
+    masked by adding float32's lowest value; the norms are RMS without the
+    mean, with fp32 statistics. The attention is plain torch math in fp32: K1
+    takes no additive bias, and JAX's runs in XLA, not in a Pallas kernel."""
+
+    def __init__(self, config: T5Config, dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.config = config
+        self.shared = Embedding(config.vocab_size, config.d_model, dtype)
+        self.encoder = _T5Stack(config, dtype)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.config
+        s = input_ids.shape[1]
+        buckets = t5_relative_buckets(s, s, cfg.relative_attention_num_buckets,
+                                      cfg.relative_attention_max_distance).to(input_ids.device)
+        table = self.encoder.block[0].layer[0].SelfAttention.relative_attention_bias
+        bias = table(buckets).float().permute(2, 0, 1)[None]  # (1, N, S, S)
+        if attention_mask is not None:
+            keep = attention_mask.to(device=input_ids.device)[:, None, None, :] > 0
+            bias = bias + torch.where(keep, 0.0, torch.finfo(torch.float32).min)
+        x = self.shared(input_ids)
+        for block in self.encoder.block:
+            x = block(x, bias)
+        return self.encoder.final_layer_norm(x)

@@ -1,18 +1,21 @@
 """Wan 2.1 model specification, T2V and I2V/FLF2V: serving and the training
 forward (port of `finetrainers_tpu/models/wan/base_specification.py`).
 
-Random weights only: no UMT5, CLIP-vision, Wan VAE or Wan transformer
-checkpoint exists for the port yet, so it serves with the offline components
-the JAX package falls back to: `HashEncoder(4096, max_length=128)` for text
-(:85-88), for I2V the `_OfflineImageEncoder` stand-in for CLIP-vision
-(:90-97, :294-305), the generic `AutoencoderKL3D` with `WAN_VAE_CONFIG` and
-identity latent statistics (:106-120), and flow-match Euler with shift 3
-(:143, :161-163) unless the checkpoint directory's scheduler config names
-another. A local checkpoint directory for any component raises
-NotImplementedError instead of being ignored. `prepare_latents` encodes media
-into VAE moments (for I2V also the masked conditioning video's), and
-`forward` trains on them. The mode is I2V where the transformer config has an
-`image_dim` (`WAN_I2V_14B_CONFIG`).
+From a local diffusers directory (JAX :78-140) the spec loads UMT5 from
+`text_encoder/` (`T5Handle`, layer 0's relative-attention table in every
+layer as JAX's Flax T5 holds it: ROADMAP.md section 3, finding 24), the
+faithful `AutoencoderKLWan` with its latent statistics from `vae/`, and the
+transformer's base weights from `transformer/` by name (the LoRA factors stay
+fresh). Where a component has no directory it falls back as JAX does: the
+offline `HashEncoder(4096, max_length=128)` for text, the generic
+`AutoencoderKL3D` with `WAN_VAE_CONFIG` and identity latent statistics, the
+transformer's random weights. For I2V the `_OfflineImageEncoder` stands in for
+CLIP-vision (:90-97, :294-305); a local `image_encoder/` raises (head dim 80,
+and JAX's main path never runs it: finding 2). Serving uses flow-match Euler
+with shift 3 (:143, :161-163) unless the directory's scheduler config names
+another. `prepare_latents` encodes media into VAE moments (for I2V also the
+masked conditioning video's), and `forward` trains on them. The mode is I2V
+where the transformer config has an `image_dim` (`WAN_I2V_14B_CONFIG`).
 
 As in the JAX package, the image encoder is loaded but never wired in: the
 trainer passes no image to `prepare_conditions`, and `load_pipeline` builds
@@ -31,7 +34,7 @@ import torch
 
 from ...functional.diffusion import flow_match_target, flow_match_xt
 from ...logging import get_logger
-from ...processors import CaptionTextDropoutProcessor, HashEncoder, T5Processor
+from ...processors import CaptionTextDropoutProcessor, T5Processor
 from ...schedulers import FlowMatchEulerScheduler, load_scheduler
 from ..autoencoders import (WAN_VAE_CONFIG, AutoencoderConfig, encode_media, generic_vae, media_to_vae_input,
                             sample_from_moments)
@@ -93,10 +96,9 @@ class WanModelSpecification(ModelSpecification):
 
     # ------------------------------------------------------------------ loading
     def load_condition_models(self) -> Dict[str, Any]:
-        self._refuse_checkpoint(self.text_encoder_id, "text_encoder", "the UMT5 text encoder")
-        logger.warning("UMT5 is not ported; using the offline hash encoder")
-        encoder = HashEncoder(hidden_size=self.transformer_config["text_dim"], max_length=128)
-        out = {"tokenizer": None, "text_encoder": encoder}
+        """UMT5 from a local directory, else the offline hash encoder (JAX :80-90)."""
+        encoder = self._load_t5(self.transformer_config["text_dim"], max_length=128)
+        out = {"tokenizer": getattr(encoder, "tokenizer", None), "text_encoder": encoder}
         if self.is_i2v:
             self._refuse_checkpoint(None, "image_encoder", "the CLIP-vision image encoder")
             out["image_encoder"] = _OfflineImageEncoder(self.transformer_config["image_dim"])
@@ -107,20 +109,34 @@ class WanModelSpecification(ModelSpecification):
         return out
 
     def load_latent_models(self) -> Dict[str, Any]:
+        """The faithful `AutoencoderKLWan` from `vae/`, else the generic VAE (JAX :102-124)."""
+        from .vae import AutoencoderKLWan, WanVAEConfig
+
+        handle = self._load_video_vae(AutoencoderKLWan, WanVAEConfig)
+        if handle is not None:
+            return {"vae": handle}
         return {"vae": generic_vae(self, self.vae_autoencoder_config, "the Wan VAE")}
 
-    def _build_transformer(self, config: Dict[str, Any]) -> ModelHandle:
-        self._refuse_checkpoint(self.transformer_id, "transformer", "transformer weights")
+    def _build_transformer(self, config: Dict[str, Any], pretrained: bool = False) -> ModelHandle:
+        """The transformer at `config`, random from the spec's generator; with
+        `pretrained` its base weights then load from a local `transformer/`
+        (JAX :126-140), else a local one raises (the control spec's widened
+        model, ROADMAP.md section 3 finding 19)."""
+        if not pretrained:
+            self._refuse_checkpoint(self.transformer_id, "transformer", "a control model's transformer weights "
+                                    "(ROADMAP.md section 3 finding 19, queue 1 item 5)")
         with torch.device(self.device):
             module = WanTransformer3DModel(
                 **config, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
                 dtype=self.transformer_dtype, gradient_checkpointing=self.gradient_checkpointing,
             )
-        init_parameters_(module, self.generator()).eval()
-        return ModelHandle(module, dict(config))
+        init_parameters_(module, self.generator())
+        if pretrained:
+            self._maybe_load_pretrained_transformer(module)
+        return ModelHandle(module.eval(), dict(config))
 
     def load_diffusion_models(self) -> Dict[str, Any]:
-        return {"transformer": self._build_transformer(self.transformer_config),
+        return {"transformer": self._build_transformer(self.transformer_config, pretrained=True),
                 "scheduler": FlowMatchEulerScheduler(shift=3.0)}
 
     def load_pipeline(self, transformer: ModelHandle = None, vae: ModelHandle = None,

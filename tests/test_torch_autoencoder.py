@@ -19,6 +19,7 @@ from finetrainers_tpu_torch.models.autoencoders import (
     AutoencoderKL3D,
     load_flax_vae_params,
 )
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -29,7 +30,7 @@ TINY_VAE = AutoencoderConfig(latent_channels=4, block_out_channels=(8, 16), laye
 @pytest.fixture(scope="module")
 def vaes():
     jax_vae = JaxVAE(TINY_VAE, dtype=jnp.float32)
-    params = jax.jit(lambda: jax_vae.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, 2, 2)))["params"])()
+    params = drawn_params(jax_vae, jnp.zeros((1, 3, 1, 2, 2)))
     rng = np.random.RandomState(5)
     flat = {}
     for key, value in flatten_params(jax.device_get(params)).items():

@@ -46,6 +46,7 @@ from finetrainers_tpu_torch.models.cogvideox import CogVideoXModelSpecification,
 from finetrainers_tpu_torch.processors import HashEncoder, T5Processor
 from finetrainers_tpu_torch.schedulers import CogVideoXDDIMScheduler, FlowMatchEulerScheduler, load_scheduler
 from test_torch_cogvideox_transformer import TINY, unflatten
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -69,17 +70,18 @@ def _flat(params):
 
 @functools.lru_cache(maxsize=None)
 def jax_weights():
-    """The tiny transformer's and VAE's JAX inits, jitted, with every bias and norm scale moved off its init."""
+    """The tiny transformer's and VAE's JAX inits (`drawn_params`), with every bias and norm scale moved off
+    its init."""
     module = JaxCogVideoX(**TINY, dtype=jnp.float32, use_scan=False)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 1, 4, 4, 4)), jnp.zeros((1, 8, 32)),
-                                         jnp.zeros((1,)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 1, 4, 4, 4)), jnp.zeros((1, 8, 32)),
+                          jnp.zeros((1,)))
     flat = _flat(params)
     rng = np.random.RandomState(7)
     for key in flat:
         if key.endswith(("bias", "scale")):
             flat[key] = flat[key] + 0.1 * rng.randn(*flat[key].shape).astype(np.float32)
     vae_module = jax_ae.AutoencoderKL3D(jax_ae.AutoencoderConfig(**VAE_KW), dtype=jnp.float32)
-    vae_params = jax.jit(lambda: vae_module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, 2, 2)))["params"])()
+    vae_params = drawn_params(vae_module, jnp.zeros((1, 3, 1, 2, 2)))
     return module, flat, vae_module, vae_params
 
 
@@ -267,8 +269,9 @@ def test_registry_resolves_cogvideox_and_spec_is_offline(tmp_path):
     """`cogvideox` resolves for lora and full-finetune; the spec's offline
     components are JAX's fallbacks (the hash encoder of width 4096 with 226
     slots, `COGVIDEOX_VAE_CONFIG` with scaling 0.7, its own DDIM scheduler);
-    a local tower, VAE or transformer directory raises naming its ROADMAP.md
-    item; the data keys are JAX's."""
+    a local VAE or transformer directory raises naming its ROADMAP.md item,
+    a local T5 directory without weights falls back to the hash encoder; the
+    data keys are JAX's."""
     for training_type in ("lora", "full-finetune"):
         assert get_model_specification_cls("cogvideox", training_type) is CogVideoXModelSpecification
     spec = CogVideoXModelSpecification(device="cpu")
@@ -287,6 +290,9 @@ def test_registry_resolves_cogvideox_and_spec_is_offline(tmp_path):
                                             transformer_config=TINY)
         load = {"text_encoder": local.load_condition_models, "vae": local.load_latent_models,
                 "transformer": local.load_diffusion_models}[sub]
+        if sub == "text_encoder":  # T5 loads from a local directory; one without weights falls back, as in JAX
+            assert isinstance(load()["text_encoder"], HashEncoder)
+            continue
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
             load()
 

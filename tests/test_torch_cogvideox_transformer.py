@@ -43,6 +43,7 @@ from finetrainers_tpu_torch.models.cogvideox import transformer as cogvideox_tra
 from finetrainers_tpu_torch.models.layers import init_parameters_
 from test_torch_cogview4_transformer import jax_embedding as _jax_embedding
 from test_torch_cogview4_transformer import unflatten
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -72,10 +73,10 @@ def inputs(variant):
 
 
 def jax_params(module, variant, seed=7):
-    """JAX's init under jit at the test's shapes, flattened, with nonzero
+    """JAX's init at the test's shapes (`drawn_params`), flattened, with nonzero
     `lora_b` and every bias, norm scale and positional row moved off its init."""
     x = [jnp.asarray(a) for a in inputs(variant)]
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), *x[:3], ofs=x[3])["params"])()
+    params = drawn_params(module, *x[:3], ofs=x[3])
     flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}
     rng = np.random.RandomState(seed)
     for key in flat:

@@ -7,11 +7,12 @@ init's, each handle is the tower's (not the hash encoder); `prepare_conditions`
 through the loaded GLM (one stub tokenizer), the VAE's encode (through
 `prepare_latents`) and decode, and a 2-step CFG request whose prompt the
 loaded GLM encodes and whose latents the loaded VAE decodes agree within
-1e-4 in fp32. JAX's spec is tiny and jits its transformer init (eager flax
-init costs seconds); its checkpoint loading is the package's own. Then the
+1e-4 in fp32. JAX's spec is tiny and draws its transformer init in numpy (`drawn_params`:
+an init compile costs seconds); its checkpoint loading is the package's own. Then the
 components this slice does not load keep refusing a local directory: the
-control spec's transformer, Flux's T5 slot, the T5 and UMT5 towers, and the
-video VAEs."""
+control specs' transformers, Flux's T5 slot, the transformers of Flux,
+CogVideoX and HunyuanVideo, and the VAEs of Flux, HunyuanVideo and CogVideoX
+(the Wan and LTX-Video components load: `test_torch_video_checkpoint.py`)."""
 
 import json
 
@@ -38,6 +39,7 @@ from finetrainers_tpu_torch.models.cogview4.transformer import CogView4Transform
 from finetrainers_tpu_torch.models.layers import init_parameters_
 from finetrainers_tpu_torch.models.text_encoders import DecoderConfig, DecoderTextModel, GlmHandle
 from finetrainers_tpu_torch.utils.serialization import safetensors_save_dict
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 TOL = 1e-4
@@ -98,13 +100,13 @@ def checkpoint(tmp_path_factory):
 
 
 class _JaxSpec(JaxSpec):
-    """JAX's spec with its transformer init jitted; the checkpoint loads through its own path."""
+    """JAX's spec with its transformer init drawn (`drawn_params`); the checkpoint loads through its own path."""
 
     def load_diffusion_models(self):
         module = JaxCogView4(**self.transformer_config, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
                              dtype=self.transformer_dtype)
-        params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 4, 4)), jnp.zeros((1, 8, 32)),
-                                             jnp.zeros((1,)))["params"])()
+        params = drawn_params(module, jnp.zeros((1, 4, 4, 4)), jnp.zeros((1, 8, 32)),
+                              jnp.zeros((1,)))
         params = self._maybe_load_pretrained_transformer(params, load_cogview4_transformer_params, module=module)
         return {"transformer": JaxHandle(module, params, dict(self.transformer_config))}
 
@@ -218,24 +220,24 @@ def test_runner_serves_the_checkpoint_with_its_tokenizer_flag(checkpoint, tmp_pa
     assert isinstance(seen[0], GlmHandle) and seen[0].tokenizer is not None
     assert cv2.imread(paths[0]).shape == (16, 24, 3)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        inference.main(["--model_name", "wan"] + argv[2:] + ["--tokenizer_id", "t"])
+        inference.main(["--model_name", "flux"] + argv[2:] + ["--tokenizer_id", "t"])
 
 
 @pytest.mark.parametrize("model,sub,item", [
     ("cogview4-control", "transformer", "finding 19"),
     ("flux", "text_encoder_2", "item 7"),
-    ("ltx_video", "text_encoder", "T5"),
-    ("wan", "text_encoder", "UMT5"),
-    ("cogvideox", "text_encoder", "item 7"),
-    ("wan", "vae", "VAE"),
-    ("ltx_video", "vae", "VAE"),
+    ("wan-control", "transformer", "finding 19"),
+    ("flux", "transformer", "item 5"),
+    ("cogvideox", "transformer", "item 5"),
+    ("hunyuan_video", "transformer", "item 5"),
+    ("flux", "vae", "item 5"),
     ("hunyuan_video", "vae", "item 7"),
     ("cogvideox", "vae", "item 7"),
 ])
 def test_components_still_to_port_refuse_a_local_directory(model, sub, item, tmp_path):
     (tmp_path / sub).mkdir()
     (tmp_path / sub / "config.json").write_text("{}")
-    name, training_type = ("cogview4", "control-lora") if model == "cogview4-control" else (model, "lora")
+    name, training_type = (model[:-len("-control")], "control-lora") if model.endswith("-control") else (model, "lora")
     spec = get_model_specification_cls(name, training_type)(pretrained_model_name_or_path=str(tmp_path), device="meta")
     load = {"transformer": spec.load_diffusion_models, "vae": spec.load_latent_models,
             "text_encoder": spec.load_condition_models, "text_encoder_2": spec.load_condition_models}[sub]

@@ -55,6 +55,7 @@ from finetrainers_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from finetrainers_tpu_torch.models.cogview4 import pipeline as cogview4_pipeline
 from finetrainers_tpu_torch.processors import HashEncoder
 from finetrainers_tpu_torch.schedulers import FlowMatchEulerScheduler
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -80,11 +81,11 @@ def _flat(params):
 
 @functools.lru_cache(maxsize=None)
 def jax_transformer(in_channels=4, lora_rank=0):
-    """JAX's init of the tiny transformer, jitted, with every LoRA B factor nonzero."""
+    """JAX's init of the tiny transformer (`drawn_params`), with every LoRA B factor nonzero."""
     cfg = dict(TINY, in_channels=in_channels)
     module = JaxCogView4(**cfg, lora_rank=lora_rank, lora_alpha=float(max(lora_rank, 1)), dtype=jnp.float32)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, in_channels, 4, 4)),
-                                         jnp.zeros((1, 8, 32)), jnp.zeros((1,)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, in_channels, 4, 4)),
+                          jnp.zeros((1, 8, 32)), jnp.zeros((1,)))
     flat = _flat(params)
     rng = np.random.RandomState(5)
     flat = {k: (rng.randn(*v.shape) * 0.3).astype(np.float32) if k.endswith("lora_b") else v for k, v in flat.items()}
@@ -94,7 +95,7 @@ def jax_transformer(in_channels=4, lora_rank=0):
 @functools.lru_cache(maxsize=None)
 def jax_vae():
     module = jax_ae.AutoencoderKL3D(jax_ae.AutoencoderConfig(**VAE_KW), dtype=jnp.float32)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, 2, 2)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 3, 1, 2, 2)))
     return module, params
 
 

@@ -41,6 +41,7 @@ from finetrainers_tpu_torch.models.cogview4 import (
 )
 from finetrainers_tpu_torch.models.cogview4 import transformer as cogview4_transformer
 from finetrainers_tpu_torch.models.layers import init_parameters_, sinusoidal_timestep_embedding
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -58,9 +59,9 @@ def _example_inputs(cfg):
 
 
 def jax_params(module, cfg=TINY, seed=7):
-    """JAX's init under jit, flattened, with nonzero `lora_b` and every bias and
+    """JAX's init (`drawn_params`), flattened, with nonzero `lora_b` and every bias and
     norm scale moved off its init."""
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), *_example_inputs(cfg))["params"])()
+    params = drawn_params(module, *_example_inputs(cfg))
     flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}
     rng = np.random.RandomState(seed)
     for key in flat:

@@ -39,6 +39,7 @@ from finetrainers_tpu_torch.args import BaseArgs
 from finetrainers_tpu_torch.models.wan import WanControlModelSpecification, load_flax_params, wan_key_map
 from finetrainers_tpu_torch.models.weight_utils import flax_to_torch_state_dict
 from finetrainers_tpu_torch.trainer.control_trainer import ControlTrainer
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -59,8 +60,8 @@ def _flat(params):
 @functools.lru_cache(maxsize=None)
 def jax_params(in_channels, lora_rank=RANK):
     module = JaxWan(**dict(TINY, in_channels=in_channels), lora_rank=lora_rank, lora_alpha=ALPHA, dtype=jnp.float32)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, in_channels, 1, 4, 4)),
-                                         jnp.zeros((1, 8, 32)), jnp.zeros((1,)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, in_channels, 1, 4, 4)),
+                          jnp.zeros((1, 8, 32)), jnp.zeros((1,)))
     flat = _flat(params)
     rng = np.random.RandomState(7)
     for key in flat:

@@ -43,6 +43,7 @@ from finetrainers_tpu_torch.processors import HashEncoder
 from finetrainers_tpu_torch.trainer.control_trainer import IterableControlDataset
 from finetrainers_tpu_torch.trainer.sft_trainer.trainer import _process_latent
 from test_torch_control_wan import MEAN, STD, TINY, _flat, jax_params, unflatten
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -61,7 +62,7 @@ REQUEST = dict(prompt="a sailboat drifting across a calm bay", height=16, width=
 @functools.lru_cache(maxsize=None)
 def _jax_vae():
     module = JaxVAE(JaxVAEConfig(**VAE_KW), dtype=jnp.float32)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, 2, 2)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 3, 1, 2, 2)))
     return module, params
 
 

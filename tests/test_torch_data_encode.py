@@ -27,6 +27,7 @@ from finetrainers_tpu.models.wan import WanModelSpecification as JaxWan
 from finetrainers_tpu_torch import get_model_specification_cls
 from finetrainers_tpu_torch.models import autoencoders
 from finetrainers_tpu_torch.models.modeling_utils import ModelHandle
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -38,7 +39,7 @@ VAE = autoencoders.AutoencoderConfig(latent_channels=4, block_out_channels=(4, 8
 @pytest.fixture(scope="module")
 def vaes():
     module = jax_ae.AutoencoderKL3D(VAE, dtype=jnp.float32)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, 8, 8)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 3, 1, 8, 8)))
     rng = np.random.RandomState(5)
     flat = {}
     for key, value in flatten_params(jax.device_get(params)).items():

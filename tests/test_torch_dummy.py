@@ -46,6 +46,7 @@ from finetrainers_tpu_torch.models.dummy.base_specification import _hash_embeddi
 from finetrainers_tpu_torch.models.modeling_utils import ModelHandle as PortHandle
 from finetrainers_tpu_torch.models.weight_utils import flax_to_torch_state_dict
 from finetrainers_tpu_torch.trainer import SFTTrainer
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -94,7 +95,7 @@ def jax_model(lora_rank):
     """JAX's weights (flattened, moved off their init) and its output on `_inputs`."""
     module = JaxDummy(lora_rank=lora_rank, lora_alpha=ALPHA, dtype=jnp.float32)
     x, ehs, t, lens = map(jnp.asarray, _inputs())
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), x, ehs, t)["params"])()
+    params = drawn_params(module, x, ehs, t)
     flat = _moved({k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}, 7)
     out = jax.jit(lambda p: module.apply({"params": p}, x, ehs, t, encoder_kv_lens=lens))(unflatten(flat))
     return flat, np.asarray(out)
@@ -134,7 +135,7 @@ def test_transformer_matches_jax(lora_rank, monkeypatch):
 def test_vae_matches_jax():
     module = JaxVAE()
     x = np.random.RandomState(4).uniform(-1, 1, (1, 3, 2, 16, 24)).astype(np.float32)
-    params = module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, 8, 8)))["params"]
+    params = drawn_params(module, jnp.zeros((1, 3, 1, 8, 8)))
     flat = _moved({k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}, 9)
     moments = np.asarray(module.apply({"params": unflatten(flat)}, jnp.asarray(x), method=JaxVAE.encode))
     decoded = np.asarray(module.apply({"params": unflatten(flat)}, jnp.asarray(moments[:, :4]), method=JaxVAE.decode))
@@ -241,7 +242,7 @@ def test_pipeline_matches_jax(monkeypatch):
     jax_spec.transformer_dtype = jnp.float32
     module = JaxDummy(dtype=jnp.float32)
     vae_module = JaxVAE()
-    vae_params = vae_module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, 8, 8)))["params"]
+    vae_params = drawn_params(vae_module, jnp.zeros((1, 3, 1, 8, 8)))
     vae_flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(vae_params)).items()}
     request = dict(prompt="a fox", height=32, width=48, num_frames=2, num_inference_steps=4, seed=5)
     ref = JaxPipeline(spec=jax_spec, transformer=ModelHandle(module, unflatten(flat), {}),

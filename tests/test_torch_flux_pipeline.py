@@ -44,6 +44,7 @@ from finetrainers_tpu_torch.models.flux import pipeline as flux_pipeline
 from finetrainers_tpu_torch.models.flux.pipeline import _flux_shift_mu
 from finetrainers_tpu_torch.processors import HashEncoder
 from finetrainers_tpu_torch.schedulers import FlowMatchEulerScheduler
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -68,13 +69,14 @@ def _flat(params):
 
 @functools.lru_cache(maxsize=None)
 def _jax_weights():
-    """The tiny transformer's and VAE's JAX inits, jitted (eager flax init costs tens of seconds)."""
+    """The tiny transformer's and VAE's JAX inits (`drawn_params`: eager flax init costs tens of seconds, a
+    jitted one a compile)."""
     module = JaxFlux(**TINY, dtype=jnp.float32)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 16)), jnp.zeros((1, 8, 32)),
-                                         jnp.zeros((1, 24)), jnp.zeros((1,)), jnp.zeros((4, 3)),
-                                         jnp.zeros((8, 3)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 4, 16)), jnp.zeros((1, 8, 32)),
+                          jnp.zeros((1, 24)), jnp.zeros((1,)), jnp.zeros((4, 3)),
+                          jnp.zeros((8, 3)))
     vae_module = jax_ae.AutoencoderKL3D(jax_ae.AutoencoderConfig(**VAE_KW), dtype=jnp.float32)
-    vae_params = jax.jit(lambda: vae_module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, 2, 2)))["params"])()
+    vae_params = drawn_params(vae_module, jnp.zeros((1, 3, 1, 2, 2)))
     return module, params, vae_module, vae_params
 
 

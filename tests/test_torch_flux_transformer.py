@@ -54,6 +54,7 @@ from finetrainers_tpu_torch.models.flux import (
 from finetrainers_tpu_torch.models.flux import transformer as flux_transformer
 from finetrainers_tpu_torch.models.layers import init_parameters_, sinusoidal_timestep_embedding
 from finetrainers_tpu_torch.processors import HashEncoder
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -70,9 +71,9 @@ def _example_inputs(cfg):
 
 
 def jax_flux_params(module, seed=7):
-    """JAX's init under jit, flattened, with nonzero `lora_b` and every bias and
+    """JAX's init (`drawn_params`), flattened, with nonzero `lora_b` and every bias and
     norm scale moved off its init."""
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), *_example_inputs(TINY))["params"])()
+    params = drawn_params(module, *_example_inputs(TINY))
     flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}
     rng = np.random.RandomState(seed)
     for key in flat:

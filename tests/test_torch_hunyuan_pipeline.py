@@ -47,6 +47,7 @@ from finetrainers_tpu_torch.models.hunyuan_video import (HunyuanVideoModelSpecif
                                                          load_flax_params)
 from finetrainers_tpu_torch.processors import HashEncoder, LlamaProcessor
 from finetrainers_tpu_torch.schedulers import FlowMatchEulerScheduler
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -73,18 +74,18 @@ def _flat(params):
 
 @functools.lru_cache(maxsize=None)
 def jax_weights():
-    """The tiny transformer's and VAE's JAX inits, jitted (eager flax init costs tens of seconds), with
+    """The tiny transformer's and VAE's JAX inits (`drawn_params`: eager flax init costs tens of seconds), with
     every bias and norm scale moved off its init."""
     module = JaxHunyuan(**TINY, dtype=jnp.float32)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 1, 4, 4)), jnp.zeros((1, 8, 32)),
-                                         jnp.zeros((1,)), jnp.zeros((1, 24)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 4, 1, 4, 4)), jnp.zeros((1, 8, 32)),
+                          jnp.zeros((1,)), jnp.zeros((1, 24)))
     flat = _flat(params)
     rng = np.random.RandomState(7)
     for key in flat:
         if key.endswith(("bias", "scale")):
             flat[key] = flat[key] + 0.1 * rng.randn(*flat[key].shape).astype(np.float32)
     vae_module = jax_ae.AutoencoderKL3D(jax_ae.AutoencoderConfig(**VAE_KW), dtype=jnp.float32)
-    vae_params = jax.jit(lambda: vae_module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, 2, 2)))["params"])()
+    vae_params = drawn_params(vae_module, jnp.zeros((1, 3, 1, 2, 2)))
     return module, flat, vae_module, vae_params
 
 

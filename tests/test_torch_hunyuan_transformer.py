@@ -51,6 +51,7 @@ from finetrainers_tpu_torch.models.hunyuan_video import (
 from finetrainers_tpu_torch.models.hunyuan_video import transformer as hunyuan_transformer
 from finetrainers_tpu_torch.models.hunyuan_video.transformer import TokenRefinerBlock
 from finetrainers_tpu_torch.models.layers import init_parameters_
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -69,9 +70,9 @@ def _example_inputs(cfg):
 
 
 def jax_hunyuan_params(module, seed=7):
-    """JAX's init under jit, flattened, with nonzero `lora_b` and every bias and
+    """JAX's init (`drawn_params`), flattened, with nonzero `lora_b` and every bias and
     norm scale moved off its init."""
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), *_example_inputs(TINY))["params"])()
+    params = drawn_params(module, *_example_inputs(TINY))
     flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}
     rng = np.random.RandomState(seed)
     for key in flat:
@@ -224,8 +225,8 @@ def test_refiner_block_keeps_padded_query_rows_as_jax(monkeypatch):
     x = rng.randn(2, TEXT_LEN, dim).astype(np.float32)
     cond = rng.randn(2, dim).astype(np.float32)
     lens = np.asarray([5, 3], np.int32)
-    params = jax.jit(lambda: jax_block.init(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(cond),
-                                            jnp.asarray(lens))["params"])()
+    params = drawn_params(jax_block, jnp.asarray(x), jnp.asarray(cond),
+                          jnp.asarray(lens), seed=1)
     flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}
     for key in flat:  # at width 128 a B factor of scale 0.5 would give outputs of ~50: keep them ~1
         if key.endswith("lora_b"):

@@ -12,7 +12,7 @@ against the JAX package's (`examples/inference/inference.py`).
   blocks, 2 heads of 64, a VAE of 8-16 channels, fp32); the port gets JAX's
   transformer and VAE weights through the bridge and JAX's initial draw
   `jax.random.normal(PRNGKey(seed), shape)` (JAX's offline model loaders are
-  replaced by the same inits under jit: eager flax init costs ~40 s here). The
+  replaced by the same inits drawn by `drawn_params`: eager flax init costs ~40 s here). The
   uint8 videos the pipelines
   return must agree within 1 level with at least 99% of values equal (fp32
   sums in another order can move a value across a rounding boundary of the
@@ -49,6 +49,7 @@ from finetrainers_tpu_torch.models import autoencoders
 from finetrainers_tpu_torch.models.wan import WanModelSpecification, load_flax_params
 from finetrainers_tpu_torch.models.wan.pipeline import WanPipeline
 from finetrainers_tpu_torch.trainer import SFTTrainer
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -109,12 +110,11 @@ def _flat(params):
 
 @functools.lru_cache(maxsize=None)
 def _jax_vae():
-    """The tiny VAE's module and its init, jitted and made once per process (the
-    init compiles the whole encode and decode)."""
+    """The tiny VAE's module and its init (`drawn_params`), made once per process."""
     cfg = jax_ae.AutoencoderConfig(**VAE_KW)
     module = jax_ae.AutoencoderKL3D(cfg, dtype=jnp.float32)
     ratio = cfg.spatial_compression_ratio
-    return module, jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, ratio, ratio)))["params"])()
+    return module, drawn_params(module, jnp.zeros((1, 3, 1, ratio, ratio)))
 
 
 def _run_both(tmp_path, monkeypatch, config, argv):
@@ -128,16 +128,16 @@ def _run_both(tmp_path, monkeypatch, config, argv):
     port_load_diffusion, port_load_latent = WanModelSpecification.load_diffusion_models, \
         WanModelSpecification.load_latent_models
 
-    def jax_diffusion(self):  # JAX's offline load_diffusion_models (:122-144) with its init jitted
+    def jax_diffusion(self):  # JAX's offline load_diffusion_models (:122-144) with its init drawn
         cfg = self.transformer_config
         module = JaxWan(**cfg, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha, dtype=self.transformer_dtype)
         image = {"encoder_hidden_states_image": jnp.zeros((1, 4, cfg["image_dim"]))} if self.is_i2v else {}
-        params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, cfg["in_channels"], 1, 4, 4)),
-                                             jnp.zeros((1, 8, cfg["text_dim"])), jnp.zeros((1,)), **image)["params"])()
+        params = drawn_params(module, jnp.zeros((1, cfg["in_channels"], 1, 4, 4)),
+                              jnp.zeros((1, 8, cfg["text_dim"])), jnp.zeros((1,)), **image)
         built["transformer"] = _flat(params)
         return {"transformer": JaxHandle(module, params, dict(cfg)), "scheduler": JaxScheduler(shift=3.0)}
 
-    def jax_latent(self):  # JAX's offline load_latent_models (:101-120) with its init jitted
+    def jax_latent(self):  # JAX's offline load_latent_models (:101-120) with its init drawn
         cfg = self.vae_autoencoder_config
         module, params = _jax_vae()
         built["vae"] = _flat(params)
@@ -277,7 +277,7 @@ def test_dataset_file_requests(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--dp_degree", "2"], ["--tp_degree", "2"], ["--cp_degree", "2"], ["--dp_shards", "2"], ["--pp_degree", "2"],
-    ["--dataset_file", "requests.parquet"], ["--revision", "main"], ["--tokenizer_id", "t"],
+    ["--dataset_file", "requests.parquet"], ["--revision", "main"], ["--tokenizer_id", "t", "--model_name", "flux"],
 ], ids=lambda extra: extra[0].lstrip("-"))
 def test_unported_flags_raise_naming_roadmap(extra, monkeypatch):
     monkeypatch.setattr(WanModelSpecification, "load_diffusion_models",

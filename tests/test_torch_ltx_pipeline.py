@@ -27,6 +27,7 @@ from finetrainers_tpu_torch.models.autoencoders import AutoencoderConfig, load_f
 from finetrainers_tpu_torch.models.ltx_video import LTXVideoModelSpecification, load_flax_params
 from finetrainers_tpu_torch.processors import HashEncoder
 from finetrainers_tpu_torch.schedulers import FlowMatchEulerScheduler
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -54,15 +55,15 @@ def _port_pipeline(jax_transformer, jax_vae):
 
 def _jax_handles(spec):
     """The JAX spec's offline `load_diffusion_models` / `load_latent_models`
-    (base_specification.py:100-137), with `init` under jit to keep CPU time down."""
+    (base_specification.py:100-137), with `init` drawn by `drawn_params` to keep CPU time down."""
     module = JaxLTX(**spec.transformer_config, dtype=spec.transformer_dtype)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 4)), jnp.zeros((1, 16, 32)),
-                                         jnp.zeros((1,)), num_frames=2, height=2, width=2)["params"])()
+    params = drawn_params(module, jnp.zeros((1, 8, 4)), jnp.zeros((1, 16, 32)),
+                          jnp.zeros((1,)), num_frames=2, height=2, width=2)
     transformer = ModelHandle(module, params, dict(spec.transformer_config))
     cfg = spec.vae_autoencoder_config
     vae_module = JaxVAE(cfg, dtype=spec.vae_dtype)
     ratio = cfg.spatial_compression_ratio
-    vae_params = jax.jit(lambda: vae_module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, ratio, ratio)))["params"])()
+    vae_params = drawn_params(vae_module, jnp.zeros((1, 3, 1, ratio, ratio)))
     vae = ModelHandle(vae_module, vae_params, {
         "latent_channels": cfg.latent_channels, "spatial_compression_ratio": ratio,
         "temporal_compression_ratio": cfg.temporal_compression_ratio,

@@ -28,6 +28,7 @@ from finetrainers_tpu_torch.models.ltx_video import (
     pack_latents,
     unpack_latents,
 )
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -40,8 +41,8 @@ ROPE_SCALE = (0.32, 32.0, 32.0)
 def _jax_model(lora_rank, use_scan):
     module = JaxLTX(**TINY, lora_rank=lora_rank, lora_alpha=2.0 * max(lora_rank, 1), dtype=jnp.float32,
                     use_scan=use_scan)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 4)), jnp.zeros((1, 16, 32)),
-                                         jnp.zeros((1,)), num_frames=2, height=2, width=2)["params"])()
+    params = drawn_params(module, jnp.zeros((1, 8, 4)), jnp.zeros((1, 16, 32)),
+                          jnp.zeros((1,)), num_frames=2, height=2, width=2)
     flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}
     rng = np.random.RandomState(7)
     for key in flat:

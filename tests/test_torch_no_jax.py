@@ -19,8 +19,9 @@ weights, spec, pipeline, the text processors) and the HunyuanVideo slice's
 config, the control processors, the Wan control spec) and the CogVideoX
 slice's (transformer, weights, spec, DDIM pipeline) and the dummy and
 weight-storage slice's (the dummy family, int8 linear, int8 and fp8
-storage, the 8-bit optimizers) and the checkpoint slice's (the Llama, GLM
-and CLIP text towers and their handles, the 2D AutoencoderKL) among them. Any
+storage, the 8-bit optimizers) and the checkpoint slices' (the Llama, GLM,
+CLIP text and T5/UMT5 towers and their handles, the 2D AutoencoderKL, the
+Wan and LTX-Video VAEs) among them. Any
 import of a blocked package, any `nvcc` run and any kernel library loaded
 during import fails the test. A second fresh interpreter blocks nothing,
 imports every module and finds neither `jax` nor `finetrainers_tpu` in
@@ -70,7 +71,8 @@ training = {"finetrainers_tpu_torch." + m for m in (
     "trainer.control_trainer", "trainer.control_trainer.trainer", "trainer.control_trainer.data",
     "trainer.control_trainer.config", "processors.control", "models.dummy", "models.dummy.base_specification",
     "models.dummy.pipeline", "models.dummy.weights", "ops.int8_linear", "utils.int8", "utils.fp8", "optim8bit",
-    "models.text_encoders", "models.text_encoders.towers", "models.text_encoders.handles", "models.autoencoder_kl")}
+    "models.text_encoders", "models.text_encoders.towers", "models.text_encoders.handles", "models.autoencoder_kl",
+    "models.wan.vae", "models.ltx_video.vae")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
 print(len(names))
 """

@@ -58,6 +58,7 @@ from finetrainers_tpu_torch.models.modeling_utils import ModelHandle
 from finetrainers_tpu_torch.models.wan import WanModelSpecification, load_flax_params, wan_key_map
 from finetrainers_tpu_torch.models.weight_utils import flax_to_torch_state_dict
 from finetrainers_tpu_torch.trainer import SFTTrainer
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -108,8 +109,8 @@ def _unflatten(flat):
 def _weights():
     """The JAX transformer and VAE weights (nonzero lora_b, noisy biases and norms), flattened."""
     module = JaxWan(**TINY, lora_rank=RANK, lora_alpha=RANK, dtype=jnp.float32)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 1, 4, 4)), jnp.zeros((1, 8, 32)),
-                                         jnp.zeros((1,)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 4, 1, 4, 4)), jnp.zeros((1, 8, 32)),
+                          jnp.zeros((1,)))
     rng = np.random.RandomState(7)
     flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}
     for key in flat:
@@ -118,7 +119,7 @@ def _weights():
         elif key.endswith(("bias", "scale", "scale_shift_table")):
             flat[key] = flat[key] + 0.1 * rng.randn(*flat[key].shape).astype(np.float32)
     vae = jax_ae.AutoencoderKL3D(VAE, dtype=jnp.float32)
-    vae_params = jax.jit(lambda: vae.init(jax.random.PRNGKey(1), jnp.zeros((1, 3, 1, 8, 8)))["params"])()
+    vae_params = drawn_params(vae, jnp.zeros((1, 3, 1, 8, 8)), seed=1)
     vae_flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(vae_params)).items()}
     return module, flat, vae, vae_flat
 

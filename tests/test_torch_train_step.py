@@ -50,6 +50,7 @@ from finetrainers_tpu_torch.models.ltx_video.weights import ltx_key_map
 from finetrainers_tpu_torch.models.weight_utils import flax_to_torch_state_dict
 from finetrainers_tpu_torch.schedulers import FlowMatchEulerScheduler
 from finetrainers_tpu_torch.trainer import SFTTrainer
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -71,8 +72,8 @@ def _first_seed_with_coin_up():
 
 
 def _jax_params(module):
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 4)), jnp.zeros((1, 16, 32)),
-                                         jnp.zeros((1,)), num_frames=2, height=2, width=2)["params"])()
+    params = drawn_params(module, jnp.zeros((1, 8, 4)), jnp.zeros((1, 16, 32)),
+                          jnp.zeros((1,)), num_frames=2, height=2, width=2)
     flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}
     rng = np.random.RandomState(7)
     for key in flat:

@@ -22,6 +22,7 @@ from finetrainers_tpu.models import autoencoders as jax_ae
 from finetrainers_tpu.models.modeling_utils import flatten_params
 from finetrainers_tpu_torch.models import autoencoders
 from finetrainers_tpu_torch.models.layers import init_parameters_
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -83,7 +84,7 @@ def test_strips_of_one_row_and_norms_of_one_frame(vae, monkeypatch):
 
 def test_split_pass_matches_jax(monkeypatch):
     module = jax_ae.AutoencoderKL3D(jax_ae.AutoencoderConfig(**CONFIG), dtype=jnp.float32)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, 8, 8)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 3, 1, 8, 8)))
     flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}
     port = autoencoders.load_flax_vae_params(
         autoencoders.AutoencoderKL3D(autoencoders.AutoencoderConfig(**CONFIG), dtype=torch.float32), flat).eval()

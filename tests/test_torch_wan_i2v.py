@@ -49,6 +49,7 @@ from finetrainers_tpu_torch.models.wan.base_specification import _OfflineImageEn
 from finetrainers_tpu_torch.ops import attention_provider
 from finetrainers_tpu_torch.processors import HashEncoder
 from finetrainers_tpu_torch.trainer.sft_trainer.trainer import _process_condition
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -92,9 +93,9 @@ def _unflatten(flat):
 @functools.lru_cache(maxsize=None)
 def _jax_transformer(lora_rank):
     module = JaxWan(**TINY, lora_rank=lora_rank, lora_alpha=2.0 * max(lora_rank, 1), dtype=jnp.float32)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 10, 1, 4, 4)), jnp.zeros((1, 8, 32)),
-                                         jnp.zeros((1,)),
-                                         encoder_hidden_states_image=jnp.zeros((1, 4, IMAGE_DIM)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 10, 1, 4, 4)), jnp.zeros((1, 8, 32)),
+                          jnp.zeros((1,)),
+                          encoder_hidden_states_image=jnp.zeros((1, 4, IMAGE_DIM)))
     return module, _flat(params)
 
 
@@ -108,7 +109,7 @@ def _jax_vae():
     """The tiny JAX VAE (its encode and decode jitted: eager flax costs
     minutes) and its flat parameters."""
     module = jax_ae.AutoencoderKL3D(jax_ae.AutoencoderConfig(**VAE_KW), dtype=jnp.float32)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, 2, 2)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 3, 1, 2, 2)))
     return module, _flat(params, seed=5)
 
 

@@ -29,6 +29,7 @@ from finetrainers_tpu_torch.models.autoencoders import WAN_VAE_CONFIG, Autoencod
 from finetrainers_tpu_torch.models.wan import WanControlModelSpecification, WanModelSpecification, load_flax_params
 from finetrainers_tpu_torch.ops import attention_provider
 from finetrainers_tpu_torch.processors import HashEncoder
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -46,15 +47,15 @@ def _flat(params):
 
 def _jax_handles(spec):
     """The JAX spec's offline `load_diffusion_models` / `load_latent_models`
-    (base_specification.py:106-144), with `init` under jit to keep CPU time down."""
+    (base_specification.py:106-144), with `init` drawn by `drawn_params` to keep CPU time down."""
     module = JaxWan(**spec.transformer_config, dtype=spec.transformer_dtype)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 1, 4, 4)), jnp.zeros((1, 8, 32)),
-                                         jnp.zeros((1,)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 4, 1, 4, 4)), jnp.zeros((1, 8, 32)),
+                          jnp.zeros((1,)))
     transformer = ModelHandle(module, params, dict(spec.transformer_config))
     cfg = spec.vae_autoencoder_config
     vae_module = JaxVAE(cfg, dtype=spec.vae_dtype)
     ratio = cfg.spatial_compression_ratio
-    vae_params = jax.jit(lambda: vae_module.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 1, ratio, ratio)))["params"])()
+    vae_params = drawn_params(vae_module, jnp.zeros((1, 3, 1, ratio, ratio)))
     vae = ModelHandle(vae_module, vae_params, {
         "latent_channels": cfg.latent_channels, "spatial_compression_ratio": ratio,
         "temporal_compression_ratio": cfg.temporal_compression_ratio,

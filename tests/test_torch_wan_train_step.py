@@ -43,6 +43,7 @@ from finetrainers_tpu_torch.args import BaseArgs
 from finetrainers_tpu_torch.models.wan import load_flax_params, wan_key_map
 from finetrainers_tpu_torch.models.weight_utils import flax_to_torch_state_dict
 from finetrainers_tpu_torch.trainer import SFTTrainer
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 flash_ops = importlib.import_module("finetrainers_tpu_torch.ops.flash_attention")
@@ -64,8 +65,8 @@ SWITCHES = {
 
 
 def _jax_params(module):
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 1, 4, 4)), jnp.zeros((1, 8, 32)),
-                                         jnp.zeros((1,)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 4, 1, 4, 4)), jnp.zeros((1, 8, 32)),
+                          jnp.zeros((1,)))
     flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}
     rng = np.random.RandomState(7)
     for key in flat:

@@ -33,6 +33,7 @@ from finetrainers_tpu_torch.models.wan import (
     wan_rope_freqs,
 )
 from finetrainers_tpu_torch.ops import attention_provider
+from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
 
@@ -45,8 +46,8 @@ ATOL = 1e-4
 def _jax_model(lora_rank, use_scan):
     module = JaxWan(**TINY, lora_rank=lora_rank, lora_alpha=2.0 * max(lora_rank, 1), dtype=jnp.float32,
                     use_scan=use_scan)
-    params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 1, 4, 4)), jnp.zeros((1, 8, 32)),
-                                         jnp.zeros((1,)))["params"])()
+    params = drawn_params(module, jnp.zeros((1, 4, 1, 4, 4)), jnp.zeros((1, 8, 32)),
+                          jnp.zeros((1,)))
     flat = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(params)).items()}
     rng = np.random.RandomState(7)
     for key in flat:
