@@ -314,7 +314,19 @@ Phases, each printed on its own line:
      loaded through the spec bit-equal, LoRA fresh, one 1024x1024 request of
      2 steps through the loaded GLM and VAE, then through the runner with a
      word-level tokenizer where `transformers` and `tokenizers` import;
-  22. `env`: whether `cv2`, `PIL`, `transformers` and `tokenizers` import on this
+  22. `wan_checkpoint_run`, `ltx_checkpoint_serve`: Wan 2.1 and LTX-Video
+     from local diffusers directories written here;
+  23. `cogvideox_checkpoint_run`, `hunyuan_checkpoint_run`,
+     `flux_checkpoint_run`: CogVideoX-5B (14 of 42 blocks at full width, in 3
+     shards), HunyuanVideo and FLUX.1-dev (2 dual and 2 single blocks)
+     from local diffusers directories written here with their faithful VAEs
+     and towers: each example's train.sh through `train.main` for 2 steps,
+     base weights bit-equal to the files, LoRA factors fresh, launches exact;
+     CogVideoX then serves a CFG request through the runner with the adapter,
+     HunyuanVideo decodes 49x480x768 untiled and its runner refuses (ROADMAP.md
+     section 3 finding 14), Flux decodes 1280x720; `video_dtype_check`, the
+     towers and the four faithful VAEs in bf16 against fp32;
+  24. `env`: whether `cv2`, `PIL`, `transformers` and `tokenizers` import on this
      machine (information only).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is not
@@ -2470,7 +2482,8 @@ def wan_run_data(root):
 
 
 def _jsonl(output_dir):
-    path = pathlib.Path(output_dir) / "logs" / "finetrainers-tpu-wan.jsonl"
+    """The entries of the run's jsonl tracker log (`<output_dir>/logs/<tracker_name>.jsonl`)."""
+    path = next((pathlib.Path(output_dir) / "logs").glob("*.jsonl"))
     return [json.loads(line) for line in path.read_text().splitlines()]
 
 
@@ -5395,12 +5408,10 @@ def wan_checkpoint_run(card):
     captions.append(PROMPTS[0])
     tokenizer = _word_tokenizer(root / "tokenizer", captions, 512)
     out_dir = SMOKE_DIR / "wan_checkpoint_run"
-    argv = train_sh_argv(dataset_config=training_json, output_dir=out_dir, report_to="jsonl",
-                         train_steps=VIDEO_CKPT_STEPS, checkpointing_steps=VIDEO_CKPT_STEPS,
-                         precomputation_items=WAN_RUN_VIDEOS, pretrained_model_name_or_path=root,
-                         tokenizer_id=tokenizer)
-    at = argv.index("--validation_dataset_file")  # no validation: the request below serves the export
-    del argv[at:at + 2]
+    argv = _strip_validation(train_sh_argv(  # no validation: the request below serves the export
+        dataset_config=training_json, output_dir=out_dir, report_to="jsonl", train_steps=VIDEO_CKPT_STEPS,
+        checkpointing_steps=VIDEO_CKPT_STEPS, precomputation_items=WAN_RUN_VIDEOS, pretrained_model_name_or_path=root,
+        tokenizer_id=tokenizer))
 
     loaded, steps, towers = [], [], []
     orig_load, orig_step, orig_conditions = (WanModelSpecification.load_diffusion_models, SFTTrainer.train_step,
@@ -5631,13 +5642,582 @@ def ltx_checkpoint_serve(card):
     return counts
 
 
+# CogVideoX-5B, HunyuanVideo and FLUX.1-dev from local diffusers directories written here, bf16, seeded: CogVideoX's
+# transformer at full width cut to COGVIDEOX_CKPT_BLOCKS of 42 blocks in FAMILY_CKPT_SHARDS shards with an index (the
+# whole 42, 11.1 GB, took 84 s on an H100 and put the script's last phase past its budget: PERF.md section 4),
+# HunyuanVideo's and Flux's at full width cut to 2 dual and 2 single blocks (HunyuanVideo's refiner whole), the
+# faithful VAEs and Flux's AutoencoderKL whole at their published configs, T5-XXL v1.1 and Llama-3-8B at full width
+# cut to 2 layers, CLIP-L's text tower whole.
+FAMILY_CKPT_SHARDS, FAMILY_CKPT_BLOCKS, FAMILY_CKPT_STEPS, FAMILY_CKPT_ITEMS = 3, 2, 2, 2
+COGVIDEOX_CKPT_BLOCKS = 14
+FLUX_AE_CONFIG = dict(in_channels=3, out_channels=3, latent_channels=16, block_out_channels=[128, 256, 512, 512],
+                      layers_per_block=2, norm_num_groups=32, use_quant_conv=False, use_post_quant_conv=False,
+                      scaling_factor=0.3611, shift_factor=0.1159, _class_name="AutoencoderKL")
+
+
+def _write_sharded(path, config, module, shards):
+    """`module`'s state as `shards` diffusers shards with their index beside `config`; returns the seconds."""
+    from finetrainers_tpu_torch.utils.serialization import safetensors_save_dict
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(config))
+    state = module.state_dict()
+    names, weight_map = list(state), {}
+    per = -(-len(names) // shards)
+    for i in range(shards):
+        file = f"diffusion_pytorch_model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        part = {n: state[n] for n in names[i * per:(i + 1) * per]}
+        safetensors_save_dict(part, str(path / file))
+        weight_map.update({n: file for n in part})
+    (path / "diffusion_pytorch_model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {}, "weight_map": weight_map}))
+    return time.perf_counter() - t0
+
+
+def _tower_module(kind, layers, seed):
+    """A published tower random on the card in bf16: ("llama" cut to `layers`, or "clip_l" whole), its
+    config.json dict and module."""
+    from finetrainers_tpu_torch.models.text_encoders import (CLIP_L_TEXT_CONFIG, LLAMA3_8B_CONFIG, CLIPTextConfig,
+                                                             CLIPTextTower, DecoderConfig, DecoderTextModel)
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    if kind == "llama":
+        config = dict(LLAMA3_8B_CONFIG, num_hidden_layers=layers)
+        with torch.device("cuda"):
+            return config, init_parameters_(DecoderTextModel(DecoderConfig.llama(config), torch.bfloat16), g)
+    with torch.device("cuda"):
+        return CLIP_L_TEXT_CONFIG, init_parameters_(CLIPTextTower(CLIPTextConfig.from_hf(CLIP_L_TEXT_CONFIG),
+                                                                  torch.bfloat16), g)
+
+
+def _csv_captions(root):
+    import csv
+
+    with open(root / "metadata.csv") as f:
+        return [row["caption"] for row in csv.DictReader(f)]
+
+
+def _strip_validation(argv):
+    at = argv.index("--validation_dataset_file")
+    del argv[at:at + 2]
+    return argv
+
+
+def _timed(fn, *args):
+    """(fn(*args), its seconds), synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def recorded_loads(spec_cls, reference, towers_of):
+    """Record what `spec_cls` loads while the block runs: each transformer's base
+    weights against `reference` (a module holding the written weights, compared
+    on the card) or the files under `reference` (a path; None: no check), and its LoRA factors;
+    the handle type of each condition slot in `towers_of` and whether it holds
+    a tokenizer; the seconds of each load by component (lists, one entry a
+    load: the run's, then the runner's)."""
+    loaded, towers, seconds = [], [], {"transformer": [], "vae": [], "text_encoders": []}
+    originals = (spec_cls.load_diffusion_models, spec_cls.load_latent_models, spec_cls.load_condition_models)
+
+    def recording_load(self):
+        out, t = _timed(originals[0], self)
+        seconds["transformer"].append(t)
+        module = out["transformer"].module
+        loaded.append(dict(base_equal=None if reference is None else _base_equal(module, reference),
+                           lora={n: p.detach().clone() for n, p in module.named_parameters() if ".lora_" in n}))
+        return out
+
+    def recording_latents(self):
+        out, t = _timed(originals[1], self)
+        seconds["vae"].append(t)
+        return out
+
+    def recording_conditions(self):
+        out, t = _timed(originals[2], self)
+        seconds["text_encoders"].append(t)
+        towers.append([(type(out[slot]).__name__, getattr(out[slot], "tokenizer", None) is not None)
+                       for slot in towers_of])
+        return out
+
+    spec_cls.load_diffusion_models, spec_cls.load_latent_models = recording_load, recording_latents
+    spec_cls.load_condition_models = recording_conditions
+    try:
+        yield loaded, towers, seconds
+    finally:
+        spec_cls.load_diffusion_models, spec_cls.load_latent_models, spec_cls.load_condition_models = originals
+
+
+def _base_equal(module, reference):
+    """Whether `module`'s base weights are bit-equal to `reference`'s (a module on the card) or to the files under
+    `reference` (a path)."""
+    if isinstance(reference, pathlib.Path):
+        return _equal_to_files(module, reference)
+    want = reference.state_dict()
+    state = {n: v for n, v in module.state_dict().items() if ".lora_" not in n}
+    return state.keys() == want.keys() and all(torch.equal(v, want[n]) for n, v in state.items())
+
+
+def _fresh_lora(spec_cls, root, spec, **kwargs):
+    """The LoRA factors of a fresh model of `spec`'s rank and seed (no directory: its random init)."""
+    fresh = spec_cls(pretrained_model_name_or_path=str(root / "absent"), device="cuda", lora_rank=spec.lora_rank,
+                     lora_alpha=spec.lora_alpha, seed=spec.seed, **kwargs)
+    lora = {n: p.detach().clone() for n, p in fresh.load_diffusion_models()["transformer"].module.named_parameters()
+            if ".lora_" in n}
+    del fresh
+    _free_cuda()
+    return lora
+
+
+def _same(a, b):
+    return a.keys() == b.keys() and all(torch.equal(v, b[n].to(v.dtype)) for n, v in a.items())
+
+
+def _run_record(rec, log):
+    """A checkpoint run's step and precompute figures from `counted_run`'s record and the tracker's log."""
+    steps = rec["steps"]
+    precompute = {k_: rec["launches"][k_] - sum(st["launches"][k_] for st in steps) for k_ in _COUNTED}
+    return dict(run_s=rec["run_s"], precompute_s=next(e["timing/precompute"] for e in log if "timing/precompute" in e),
+                load_and_precompute_peak_gb=rec["peaks"].get("load_and_precompute_gb"),
+                step_seconds=[st["seconds"] for st in steps], step_peak_gb=[st["peak_gb"] for st in steps],
+                step_launches=[st["launches"] for st in steps], step_reduce_passes=[st["reduce"] for st in steps],
+                precompute_launches=precompute,
+                losses=[e["train/global_avg_loss"] for e in log if "train/global_avg_loss" in e])
+
+
+def write_cogvideox_checkpoint(root):
+    """CogVideoX-5B as a diffusers directory: `transformer/` at full width cut to COGVIDEOX_CKPT_BLOCKS of 42 blocks
+    in FAMILY_CKPT_SHARDS shards with an index, `vae/` AutoencoderKLCogVideoX at JAX's `CogVideoXVAEConfig`
+    defaults, `text_encoder/` T5-XXL v1.1 at full width cut to VIDEO_T5_LAYERS; bf16, random from seeded generators
+    on the card. Returns the transformer's config, the written transformer (kept on the card for the bit-equality
+    checks) and the write seconds by component."""
+    from finetrainers_tpu_torch.models.cogvideox import COGVIDEOX_5B_CONFIG
+    from finetrainers_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer3DModel
+    from finetrainers_tpu_torch.models.cogvideox.vae import AutoencoderKLCogVideoX, CogVideoXVAEConfig
+    from finetrainers_tpu_torch.models.text_encoders import T5_V1_1_XXL_CONFIG
+
+    g = torch.Generator("cuda").manual_seed(51)
+    config = dict(COGVIDEOX_5B_CONFIG, num_layers=COGVIDEOX_CKPT_BLOCKS)
+    seconds = {}
+    with torch.device("cuda"):
+        transformer = init_parameters_(CogVideoXTransformer3DModel(**config, dtype=torch.bfloat16), g)
+    seconds["transformer"] = _write_sharded(root / "transformer", dict(
+        config, _class_name="CogVideoXTransformer3DModel"), transformer, FAMILY_CKPT_SHARDS)
+    vae_config = dict(dataclasses.asdict(CogVideoXVAEConfig()), _class_name="AutoencoderKLCogVideoX")
+    with torch.device("cuda"):
+        module = init_parameters_(AutoencoderKLCogVideoX(CogVideoXVAEConfig.from_hf(vae_config), torch.bfloat16), g)
+    seconds["vae"] = _write_component(root / "vae", vae_config, module, "diffusion_pytorch_model.safetensors")
+    del module
+    module = _t5_tower(T5_V1_1_XXL_CONFIG, VIDEO_T5_LAYERS, torch.bfloat16, 52)
+    seconds["text_encoder"] = _write_component(root / "text_encoder", dict(
+        T5_V1_1_XXL_CONFIG, num_layers=VIDEO_T5_LAYERS), module, "model.safetensors")
+    del module
+    return config, transformer.eval(), seconds
+
+
+def cogvideox_checkpoint_run(card):
+    """CogVideoX-5B from a local diffusers directory (`write_cogvideox_checkpoint`):
+    the crush_smol_lora train.sh's flags (under COGVIDEOX_RUN_POLICY, as
+    `cogvideox_run`) through `python -m finetrainers_tpu_torch.train
+    --pretrained_model_name_or_path <dir> --tokenizer_id <dir>/tokenizer` on
+    `cogvideox_run`'s two videos at 81x480x768 (30,466 tokens), precomputed
+    through the faithful VAE (tiled, as the example asks) and T5 (226 slots),
+    FAMILY_CKPT_STEPS steps, no validation; then one CFG request of 2 DDIM
+    steps at the same size through `python -m finetrainers_tpu_torch.inference`
+    with the exported adapter, decoded by the faithful VAE. Checks: the base
+    weights bit-equal to the written model at load and after the run, the LoRA
+    factors a fresh model's, T5 and its tokenizer loaded, the adapter the
+    runner serves bit-equal to the trained factors, each step's launches (K1
+    14, the pre-pass 28, K2 and K3 14, no reduce pass) and the request's (K1
+    and the pre-pass 14 a step, CFG in one batch), no launch in precompute (T5
+    attends in plain fp32), finite losses and a finite video of the request's
+    shape. Returns the launches by path."""
+    from finetrainers_tpu_torch import inference
+    from finetrainers_tpu_torch import train as train_cli
+    from finetrainers_tpu_torch.models.cogvideox import CogVideoXModelSpecification, CogVideoXPipeline
+    from finetrainers_tpu_torch.models.cogvideox.vae import AutoencoderKLCogVideoX
+
+    root = SMOKE_DIR / "cogvideox_local_checkpoint"
+    config, written, write_s = write_cogvideox_checkpoint(root)
+    data = SMOKE_DIR / "cogvideox_run_data"
+    tokenizer = _word_tokenizer(root / "tokenizer", _csv_captions(data) + [PROMPTS[0]], 226)
+    out_dir = SMOKE_DIR / "cogvideox_checkpoint_run"
+    argv = _strip_validation(train_sh_argv(
+        COGVIDEOX_EXAMPLE, dataset_config=data / "training.json", output_dir=out_dir, report_to="jsonl",
+        train_steps=FAMILY_CKPT_STEPS, checkpointing_steps=FAMILY_CKPT_STEPS, precomputation_items=FAMILY_CKPT_ITEMS,
+        gradient_checkpointing_type=COGVIDEOX_RUN_POLICY, pretrained_model_name_or_path=root, tokenizer_id=tokenizer))
+    vae_calls, restore_vae = _timed_vae(AutoencoderKLCogVideoX)
+    try:
+        with recorded_loads(CogVideoXModelSpecification, written, ["text_encoder"]) as (loaded, towers, load_s), \
+                counted_run() as rec:
+            trainer = train_cli.main(argv, transformer_config=config)
+        spec = trainer.model_specification
+        trained = {n: p.detach().clone() for n, p in trainer._trainable.items()}
+        base_after = _base_equal(trainer.transformer.module, written)
+        del trainer
+        _free_cuda()
+        run = _run_record(rec, _jsonl(out_dir))
+        encodes = [c for c in vae_calls if c[0] == "encode"]
+        del vae_calls[:]
+        lora_fresh = bool(loaded) and _same(loaded[0]["lora"], _fresh_lora(CogVideoXModelSpecification, root, spec,
+                                                                             transformer_config=config))
+        del written, spec
+        _free_cuda()
+
+        adapter = sorted((out_dir / "lora_weights").iterdir())[-1]
+        served, call = [], CogVideoXPipeline.__call__
+
+        def recording_call(self, **kwargs):
+            lora = {n: p for n, p in self.transformer.module.named_parameters() if ".lora_" in n}
+            served.append(dict(encoder=type(self.text_encoder).__name__, vae=type(self.vae.module).__name__,
+                               adapter_bit_equal=_same(lora, trained)))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            video = call(self, **kwargs)
+            torch.cuda.synchronize()
+            served[-1].update(seconds=time.perf_counter() - t0, launches=_counts(), shape=list(video.shape),
+                              finite_std=float(video.std()), peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            return video
+
+        frames, height, width = COGVIDEOX_BUCKET
+        serve_argv = ["--model_name", "cogvideox", "--pretrained_model_name_or_path", str(root), "--tokenizer_id",
+                      str(tokenizer), "--inference_type", "text_to_video", "--prompt", PROMPTS[0], "--height",
+                      str(height), "--width", str(width), "--num_frames", str(frames), "--num_inference_steps",
+                      str(FAMILY_CKPT_STEPS), "--lora_weights", str(adapter), "--output_dir", str(out_dir / "served")]
+        CogVideoXPipeline.__call__ = recording_call
+        try:
+            with recorded_loads(CogVideoXModelSpecification, None, []) as (_, _, serve_load_s):
+                t0 = time.perf_counter()
+                paths = inference.main(serve_argv, transformer_config=config)
+                torch.cuda.synchronize()
+                serve_s = time.perf_counter() - t0
+        finally:
+            CogVideoXPipeline.__call__ = call
+    finally:
+        restore_vae()
+    decodes = [c for c in vae_calls if c[0] == "decode"]
+    _free_cuda()
+
+    step_want = dict(k1=COGVIDEOX_CKPT_BLOCKS, prep=2 * COGVIDEOX_CKPT_BLOCKS, k2=COGVIDEOX_CKPT_BLOCKS,
+                     k3=COGVIDEOX_CKPT_BLOCKS)
+    want_step = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
+    request_want = {k_: (COGVIDEOX_CKPT_BLOCKS * FAMILY_CKPT_STEPS if k_ in ("k1", "prep") else 0)
+                    for k_ in _COUNTED}
+    s = served[0] if served else {}
+    checks = dict(
+        base_weights_bit_equal_at_load=bool(loaded) and loaded[0]["base_equal"],
+        base_weights_bit_equal_after_run=base_after, lora_factors_fresh=lora_fresh,
+        towers_loaded=towers == [[("T5Handle", True)]],
+        steps_launches_exact=len(run["step_launches"]) == FAMILY_CKPT_STEPS and all(
+            st == want_step for st in run["step_launches"]) and set(run["step_reduce_passes"]) == {0},
+        precompute_launches_exact=all(v == 0 for v in run["precompute_launches"].values()),
+        losses_finite=len(run["losses"]) == FAMILY_CKPT_STEPS and all(np.isfinite(run["losses"])),
+        vae_encoded=len(encodes) > 0,
+        served=(len(served) == 1 and s["adapter_bit_equal"] and s["launches"] == request_want
+                and s["shape"] == [frames, height, width, 3] and s["finite_std"] > 0 and s["encoder"] == "T5Handle"
+                and s["vae"] == "AutoencoderKLCogVideoX" and len(paths) == 1 and len(decodes) == 1),
+        jax_imported="jax" in sys.modules)
+    phase("cogvideox_checkpoint_run", card=card, entry="python -m finetrainers_tpu_torch.train",
+          argv=[str(a) for a in argv], blocks=COGVIDEOX_CKPT_BLOCKS, bucket=list(COGVIDEOX_BUCKET),
+          tokens=COGVIDEOX_TOKENS, write_s=write_s,
+          files_gb=sum(f.stat().st_size for f in root.rglob("*.safetensors")) / 1e9,
+          transformer_shards=len(list((root / "transformer").glob("*.safetensors"))),
+          precompute_s_per_item=run["precompute_s"] / FAMILY_CKPT_ITEMS, vae_encode_calls=len(encodes),
+          vae_encode_s=sum(c[1] for c in encodes), vae_encode_input_shapes=sorted({str(c[2]) for c in encodes}),
+          load_s=load_s, **run, serve_entry="python -m finetrainers_tpu_torch.inference", serve_argv=serve_argv,
+          serve_s=serve_s, serve_load_s=serve_load_s,
+          request=served, vae_decode_s=[c[1] for c in decodes], vae_decode_input_shapes=[c[2] for c in decodes],
+          towers=towers, checks=checks)
+    if not all(v for k_, v in checks.items() if k_ != "jax_imported") or checks["jax_imported"]:
+        raise AssertionError(f"the CogVideoX checkpoint run failed its checks: {checks}")
+    shutil.rmtree(root)
+    shutil.rmtree(out_dir)
+    steps_total = {k_: sum(st[k_] for st in run["step_launches"]) for k_ in _COUNTED}
+    return {"cogvideox_checkpoint_run": steps_total, "cogvideox_checkpoint_serve": s["launches"]}
+
+
+def write_hunyuan_checkpoint(root):
+    """HunyuanVideo as a diffusers directory: `transformer/` at full width cut to FAMILY_CKPT_BLOCKS dual and
+    single blocks of 20 and 40 (the token refiner whole), `vae/` AutoencoderKLHunyuanVideo at its published config,
+    `text_encoder/` Llama-3-8B cut to 2 of 32 layers, `text_encoder_2/` CLIP-L's text tower whole; bf16, random
+    from seeded generators on the card. Returns the transformer's config and the write seconds by component."""
+    from finetrainers_tpu_torch.models.hunyuan_video import HUNYUAN_VIDEO_CONFIG
+    from finetrainers_tpu_torch.models.hunyuan_video.transformer import HunyuanVideoTransformer3DModel
+    from finetrainers_tpu_torch.models.hunyuan_video.vae import AutoencoderKLHunyuanVideo, HunyuanVAEConfig
+
+    g = torch.Generator("cuda").manual_seed(61)
+    config = dict(HUNYUAN_VIDEO_CONFIG, num_layers=FAMILY_CKPT_BLOCKS, num_single_layers=FAMILY_CKPT_BLOCKS)
+    seconds = {}
+    with torch.device("cuda"):
+        module = init_parameters_(HunyuanVideoTransformer3DModel(**config, dtype=torch.bfloat16), g)
+    seconds["transformer"] = _write_component(root / "transformer", dict(
+        config, _class_name="HunyuanVideoTransformer3DModel"), module, "diffusion_pytorch_model.safetensors")
+    del module
+    vae_config = dict(dataclasses.asdict(HunyuanVAEConfig()), _class_name="AutoencoderKLHunyuanVideo")
+    with torch.device("cuda"):
+        module = init_parameters_(AutoencoderKLHunyuanVideo(HunyuanVAEConfig.from_hf(vae_config), torch.bfloat16), g)
+    seconds["vae"] = _write_component(root / "vae", vae_config, module, "diffusion_pytorch_model.safetensors")
+    del module
+    for slot, kind in (("text_encoder", "llama"), ("text_encoder_2", "clip_l")):
+        tower_config, module = _tower_module(kind, 2, 62)
+        seconds[slot] = _write_component(root / slot, tower_config, module, "model.safetensors")
+        del module
+    (root / "scheduler").mkdir()
+    (root / "scheduler" / "scheduler_config.json").write_text(json.dumps(HUNYUAN_SCHEDULER_CONFIG))
+    return config, seconds
+
+
+def hunyuan_checkpoint_run(card):
+    """HunyuanVideo from a local diffusers directory (`write_hunyuan_checkpoint`):
+    the modal_labs_dissolve train.sh's flags (its own "ops", which fits at this
+    depth) through `python -m finetrainers_tpu_torch.train` with
+    `--tokenizer_id` and `--tokenizer_2_id` (word-level tokenizers written
+    here) on `hunyuan_run`'s two videos at 49x480x768 (18,976 tokens),
+    precomputed through the faithful VAE (tiled, as the example asks), Llama
+    (its template) and CLIP-L, FAMILY_CKPT_STEPS steps, no validation (ROADMAP.md
+    section 3 finding 14); then the run's first latents decoded through the
+    loaded VAE untiled at 49x480x768 (the mid blocks' attention over 74,880
+    tokens in chunks of query rows); then the runner on the directory, which
+    must refuse before loading the transformer (finding 14). Checks: base
+    weights bit-equal to the files at load and after the run, the LoRA factors
+    a fresh model's, both towers and their tokenizers loaded, each step's
+    launches (K1 6, the pre-pass 12, K2 and K3 6: 4 joint and 2 refiner
+    blocks; one reduce pass a refiner block), precompute's (K1's mask branch
+    and its pre-pass 2 + 12 an item), finite losses, a finite decode of 49
+    frames, the refusal. Returns the launches by path."""
+    from finetrainers_tpu_torch import inference
+    from finetrainers_tpu_torch import train as train_cli
+    from finetrainers_tpu_torch.models.hunyuan_video import HunyuanVideoModelSpecification
+    from finetrainers_tpu_torch.models.hunyuan_video.vae import AutoencoderKLHunyuanVideo
+    from finetrainers_tpu_torch.processors.text_encoders import DEFAULT_HUNYUAN_PROMPT_TEMPLATE
+
+    root = SMOKE_DIR / "hunyuan_local_checkpoint"
+    config, write_s = write_hunyuan_checkpoint(root)
+    data = SMOKE_DIR / "hunyuan_run_data"
+    captions = _csv_captions(data) + [PROMPTS[0]]
+    tokenizer = _word_tokenizer(root / "tokenizer", captions + [DEFAULT_HUNYUAN_PROMPT_TEMPLATE], 351)
+    tokenizer_2 = _word_tokenizer(root / "tokenizer_2", captions, 77)
+    out_dir = SMOKE_DIR / "hunyuan_checkpoint_run"
+    argv = _strip_validation(train_sh_argv(
+        HUNYUAN_EXAMPLE, dataset_config=data / "training.json", output_dir=out_dir, report_to="jsonl",
+        train_steps=FAMILY_CKPT_STEPS, checkpointing_steps=FAMILY_CKPT_STEPS, precomputation_items=FAMILY_CKPT_ITEMS,
+        pretrained_model_name_or_path=root, tokenizer_id=tokenizer, tokenizer_2_id=tokenizer_2))
+    vae_calls, restore_vae = _timed_vae(AutoencoderKLHunyuanVideo)
+    try:
+        with recorded_loads(HunyuanVideoModelSpecification, root / "transformer",
+                            ["text_encoder", "text_encoder_2"]) as (loaded, towers, load_s), counted_run() as rec:
+            trainer = train_cli.main(argv, transformer_config=config)
+        spec, vae = trainer.model_specification, trainer.vae
+        base_after = _base_equal(trainer.transformer.module, root / "transformer")
+        del trainer
+        _free_cuda()
+        run = _run_record(rec, _jsonl(out_dir))
+        encodes = [c for c in vae_calls if c[0] == "encode"]
+        lora_fresh = bool(loaded) and _same(loaded[0]["lora"], _fresh_lora(
+            HunyuanVideoModelSpecification, root, spec, transformer_config=config))
+        moments = dict(np.load(out_dir / "precomputed" / PRECOMPUTED_DIR_NAME / "latent-0.npz"))["latents"]
+        mean = torch.as_tensor(moments, device="cuda")[:, :16]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        with torch.no_grad():
+            video = vae.module.decode(mean)  # the moments' mean half: the VAE's own latents, unscaled
+        torch.cuda.synchronize()
+        decode = dict(seconds=vae_calls[-1][1], input_shape=vae_calls[-1][2], shape=list(video.shape),
+                      peak_gb=torch.cuda.max_memory_allocated() / 1e9, resident_gb=base_gb,
+                      finite=bool(torch.isfinite(video).all()))
+        del video, vae, spec
+        _free_cuda()
+    finally:
+        restore_vae()
+
+    refused, orig_load = {}, HunyuanVideoModelSpecification.load_diffusion_models
+
+    def no_load(self):
+        raise AssertionError("the runner loaded the transformer before refusing")
+
+    serve_argv = ["--model_name", "hunyuan_video", "--pretrained_model_name_or_path", str(root), "--tokenizer_id",
+                  str(tokenizer), "--tokenizer_2_id", str(tokenizer_2), "--inference_type", "text_to_video",
+                  "--prompt", PROMPTS[0], "--height", "480", "--width", "768", "--num_frames", "49",
+                  "--num_inference_steps", "2", "--output_dir", str(out_dir / "served")]
+    HunyuanVideoModelSpecification.load_diffusion_models = no_load
+    try:
+        inference.main(serve_argv, transformer_config=config)
+    except ValueError as e:
+        refused["message"] = str(e)
+    finally:
+        HunyuanVideoModelSpecification.load_diffusion_models = orig_load
+    _free_cuda()
+
+    layers = 2 * FAMILY_CKPT_BLOCKS + HUNYUAN_REFINER_LAYERS
+    step_want = dict(k1=layers, prep=2 * layers, k2=layers, k3=layers)
+    want_step = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
+    mask_layers = FAMILY_CKPT_ITEMS * (2 + 12)  # Llama's 2 layers and CLIP-L's 12 an item
+    want_precompute = {k_: (mask_layers if k_ in ("k1_mask", "prep") else 0) for k_ in _COUNTED}
+    checks = dict(
+        base_weights_bit_equal_at_load=bool(loaded) and loaded[0]["base_equal"],
+        base_weights_bit_equal_after_run=base_after, lora_factors_fresh=lora_fresh,
+        towers_loaded=towers == [[("LlamaHandle", True), ("CLIPTextHandle", True)]],
+        steps_launches_exact=len(run["step_launches"]) == FAMILY_CKPT_STEPS and all(
+            st == want_step for st in run["step_launches"])
+        and run["step_reduce_passes"] == [HUNYUAN_REFINER_LAYERS] * FAMILY_CKPT_STEPS,
+        precompute_launches_exact=run["precompute_launches"] == want_precompute,
+        losses_finite=len(run["losses"]) == FAMILY_CKPT_STEPS and all(np.isfinite(run["losses"])),
+        vae_encoded=len(encodes) > 0,
+        decoded=decode["finite"] and decode["shape"] == [1, 3, *HUNYUAN_BUCKET],
+        runner_refused="finding 14" in refused.get("message", ""), jax_imported="jax" in sys.modules)
+    phase("hunyuan_checkpoint_run", card=card, entry="python -m finetrainers_tpu_torch.train",
+          argv=[str(a) for a in argv], blocks=[FAMILY_CKPT_BLOCKS, FAMILY_CKPT_BLOCKS], bucket=list(HUNYUAN_BUCKET),
+          tokens=HUNYUAN_TOKENS, write_s=write_s, files_gb=sum(
+              f.stat().st_size for f in root.rglob("*.safetensors")) / 1e9,
+          precompute_s_per_item=run["precompute_s"] / FAMILY_CKPT_ITEMS, vae_encode_calls=len(encodes),
+          vae_encode_s=sum(c[1] for c in encodes), vae_encode_input_shapes=sorted({str(c[2]) for c in encodes}),
+          load_s=load_s, **run, decode=decode, runner_refusal=refused, towers=towers, checks=checks)
+    if not all(v for k_, v in checks.items() if k_ != "jax_imported") or checks["jax_imported"]:
+        raise AssertionError(f"the HunyuanVideo checkpoint run failed its checks: {checks}")
+    shutil.rmtree(root)
+    shutil.rmtree(out_dir)
+    return {"hunyuan_checkpoint_run": {k_: sum(st[k_] for st in run["step_launches"]) for k_ in _COUNTED},
+            "hunyuan_checkpoint_precompute": run["precompute_launches"],
+            "reduce": sum(run["step_reduce_passes"])}
+
+
+def write_flux_checkpoint(root):
+    """FLUX.1-dev as a diffusers directory: `transformer/` at full width cut to FAMILY_CKPT_BLOCKS dual and single
+    blocks of 19 and 38, `vae/` the AutoencoderKL at FLUX.1's 16-channel config whole, `text_encoder/` CLIP-L's
+    text tower whole, `text_encoder_2/` T5-XXL v1.1 at full width cut to VIDEO_T5_LAYERS; bf16, random from
+    seeded generators on the card. Returns the transformer's config and the write seconds by component."""
+    from finetrainers_tpu_torch.models.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
+    from finetrainers_tpu_torch.models.flux.transformer import FluxTransformer2DModel
+    from finetrainers_tpu_torch.models.text_encoders import T5_V1_1_XXL_CONFIG
+
+    g = torch.Generator("cuda").manual_seed(71)
+    config = dict(FLUX_TRANSFORMER_CONFIG, num_layers=FAMILY_CKPT_BLOCKS, num_single_layers=FAMILY_CKPT_BLOCKS)
+    seconds = {}
+    with torch.device("cuda"):
+        module = init_parameters_(FluxTransformer2DModel(**config, dtype=torch.bfloat16), g)
+    seconds["transformer"] = _write_component(root / "transformer", dict(
+        config, _class_name="FluxTransformer2DModel"), module, "diffusion_pytorch_model.safetensors")
+    del module
+    with torch.device("cuda"):
+        module = init_parameters_(AutoencoderKL(AutoencoderKLConfig.from_hf(FLUX_AE_CONFIG), torch.bfloat16), g)
+    seconds["vae"] = _write_component(root / "vae", FLUX_AE_CONFIG, module, "diffusion_pytorch_model.safetensors")
+    del module
+    tower_config, module = _tower_module("clip_l", None, 72)
+    seconds["text_encoder"] = _write_component(root / "text_encoder", tower_config, module, "model.safetensors")
+    del module
+    module = _t5_tower(T5_V1_1_XXL_CONFIG, VIDEO_T5_LAYERS, torch.bfloat16, 73)
+    seconds["text_encoder_2"] = _write_component(root / "text_encoder_2", dict(
+        T5_V1_1_XXL_CONFIG, num_layers=VIDEO_T5_LAYERS), module, "model.safetensors")
+    del module
+    return config, seconds
+
+
+def flux_checkpoint_run(card):
+    """FLUX.1-dev from a local diffusers directory (`write_flux_checkpoint`):
+    the raider_white_tarot train.sh's flags through `python -m
+    finetrainers_tpu_torch.train` with `--tokenizer_id` and `--tokenizer_2_id`
+    (word-level tokenizers written here) on `flux_run`'s images at 1280x720
+    (4112 tokens), FAMILY_CKPT_ITEMS precomputed through the AutoencoderKL and
+    CLIP-L (pooled) and T5 (512 slots), FAMILY_CKPT_STEPS steps, no validation
+    (ROADMAP.md section 3 finding 14); then the run's first latents decoded
+    through the loaded AutoencoderKL. Checks: base weights bit-equal to the
+    files at load and after the run, the LoRA factors a fresh model's, both
+    towers and their tokenizers loaded, each step's launches (K1 4, the
+    pre-pass 8, K2 and K3 4; no reduce pass), precompute's (K1's mask branch
+    and its pre-pass 12 an item, CLIP-L's), finite losses, a finite image.
+    Returns the launches by path."""
+    from finetrainers_tpu_torch import train as train_cli
+    from finetrainers_tpu_torch.models.autoencoder_kl import AutoencoderKL
+    from finetrainers_tpu_torch.models.autoencoders import decode_image_vae
+    from finetrainers_tpu_torch.models.flux import FluxModelSpecification
+
+    root = SMOKE_DIR / "flux_local_checkpoint"
+    config, write_s = write_flux_checkpoint(root)
+    data = SMOKE_DIR / "flux_run_data"
+    captions = _csv_captions(data) + [PROMPTS[0]]
+    tokenizer = _word_tokenizer(root / "tokenizer", captions, 77)
+    tokenizer_2 = _word_tokenizer(root / "tokenizer_2", captions, 512)
+    out_dir = SMOKE_DIR / "flux_checkpoint_run"
+    argv = _strip_validation(train_sh_argv(
+        FLUX_EXAMPLE, dataset_config=data / "training.json", output_dir=out_dir, report_to="jsonl",
+        train_steps=FAMILY_CKPT_STEPS, checkpointing_steps=FAMILY_CKPT_STEPS, precomputation_items=FAMILY_CKPT_ITEMS,
+        pretrained_model_name_or_path=root, tokenizer_id=tokenizer, tokenizer_2_id=tokenizer_2))
+    vae_calls, restore_vae = _timed_vae(AutoencoderKL)
+    try:
+        with recorded_loads(FluxModelSpecification, root / "transformer",
+                            ["text_encoder", "text_encoder_2"]) as (loaded, towers, load_s), counted_run() as rec:
+            trainer = train_cli.main(argv, transformer_config=config)
+    finally:
+        restore_vae()
+    encodes = [c for c in vae_calls if c[0] == "encode"]
+    spec, vae = trainer.model_specification, trainer.vae
+    base_after = _base_equal(trainer.transformer.module, root / "transformer")
+    del trainer
+    _free_cuda()
+    run = _run_record(rec, _jsonl(out_dir))
+    lora_fresh = bool(loaded) and _same(loaded[0]["lora"], _fresh_lora(FluxModelSpecification, root, spec,
+                                                                         transformer_config=config))
+    moments = dict(np.load(out_dir / "precomputed" / PRECOMPUTED_DIR_NAME / "latent-0.npz"))["latents"]
+    mean = torch.as_tensor(moments, device="cuda")[:, :16]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    image = decode_image_vae(vae, mean)  # the moments' mean half: the VAE's own latents, unscaled
+    torch.cuda.synchronize()
+    decode = dict(seconds=time.perf_counter() - t0, input_shape=list(mean.shape), shape=list(image.shape),
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9, finite=bool(torch.isfinite(image).all()),
+                  vae=type(vae.module).__name__)
+    del image, vae, spec
+    _free_cuda()
+
+    step_want = dict(k1=2 * FAMILY_CKPT_BLOCKS, prep=4 * FAMILY_CKPT_BLOCKS, k2=2 * FAMILY_CKPT_BLOCKS,
+                     k3=2 * FAMILY_CKPT_BLOCKS)
+    want_step = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
+    want_precompute = {k_: (FAMILY_CKPT_ITEMS * 12 if k_ in ("k1_mask", "prep") else 0) for k_ in _COUNTED}
+    checks = dict(
+        base_weights_bit_equal_at_load=bool(loaded) and loaded[0]["base_equal"],
+        base_weights_bit_equal_after_run=base_after, lora_factors_fresh=lora_fresh,
+        towers_loaded=towers == [[("CLIPTextHandle", True), ("T5Handle", True)]],
+        steps_launches_exact=len(run["step_launches"]) == FAMILY_CKPT_STEPS and all(
+            st == want_step for st in run["step_launches"]) and set(run["step_reduce_passes"]) == {0},
+        precompute_launches_exact=run["precompute_launches"] == want_precompute,
+        losses_finite=len(run["losses"]) == FAMILY_CKPT_STEPS and all(np.isfinite(run["losses"])),
+        vae_encoded=len(encodes) == FAMILY_CKPT_ITEMS,
+        decoded=decode["finite"] and decode["shape"] == [1, 3, FLUX_RUN_BUCKET[0], FLUX_RUN_BUCKET[1]]
+        and decode["vae"] == "AutoencoderKL", jax_imported="jax" in sys.modules)
+    phase("flux_checkpoint_run", card=card, entry="python -m finetrainers_tpu_torch.train",
+          argv=[str(a) for a in argv], blocks=[FAMILY_CKPT_BLOCKS, FAMILY_CKPT_BLOCKS], bucket=list(FLUX_RUN_BUCKET),
+          tokens=FLUX_RUN_TOKENS, write_s=write_s, files_gb=sum(
+              f.stat().st_size for f in root.rglob("*.safetensors")) / 1e9,
+          load_s=load_s, precompute_s_per_item=run["precompute_s"] / FAMILY_CKPT_ITEMS, vae_encode_calls=len(encodes),
+          vae_encode_s=sum(c[1] for c in encodes), **run, decode=decode, towers=towers, checks=checks)
+    if not all(v for k_, v in checks.items() if k_ != "jax_imported") or checks["jax_imported"]:
+        raise AssertionError(f"the Flux checkpoint run failed its checks: {checks}")
+    shutil.rmtree(root)
+    shutil.rmtree(out_dir)
+    return {"flux_checkpoint_run": {k_: sum(st[k_] for st in run["step_launches"]) for k_ in _COUNTED},
+            "flux_checkpoint_precompute": run["precompute_launches"]}
+
+
 def video_dtype_check(card):
     """The towers and VAEs this slice loads, in bf16 against the same weights
     in fp32: UMT5-XXL and T5-XXL v1.1 at full width (2 of 24 layers) on
     captions padded to Wan's 512 and LTX's 128 slots (relative L2 of the
     valid states), and the Wan and LTX VAEs' encode at their published
     configs (relative L2 of the moments' mean half) on a 49-frame clip, Wan's
-    at the example's 256-pixel tile, LTX's at 512x768. Returns the errors."""
+    at the example's 256-pixel tile, LTX's at 512x768, and likewise
+    `AutoencoderKLCogVideoX` and `AutoencoderKLHunyuanVideo` at their examples'
+    256-pixel tile. Returns the errors."""
+    from finetrainers_tpu_torch.models.cogvideox.vae import AutoencoderKLCogVideoX, CogVideoXVAEConfig
+    from finetrainers_tpu_torch.models.hunyuan_video.vae import AutoencoderKLHunyuanVideo, HunyuanVAEConfig
     from finetrainers_tpu_torch.models.ltx_video.vae import AutoencoderKLLTXVideo, LTXVAEConfig
     from finetrainers_tpu_torch.models.text_encoders import T5_V1_1_XXL_CONFIG, UMT5_XXL_CONFIG
     from finetrainers_tpu_torch.models.wan.vae import AutoencoderKLWan, WanVAEConfig
@@ -5659,7 +6239,10 @@ def video_dtype_check(card):
         del fp32, bf16
         _free_cuda()
     for name, cls, cfg, shape in (("wan_vae", AutoencoderKLWan, WanVAEConfig(), (1, 3, 49, 256, 256)),
-                                  ("ltx_vae", AutoencoderKLLTXVideo, LTXVAEConfig(), (1, 3, 49, 512, 768))):
+                                  ("ltx_vae", AutoencoderKLLTXVideo, LTXVAEConfig(), (1, 3, 49, 512, 768)),
+                                  ("cogvideox_vae", AutoencoderKLCogVideoX, CogVideoXVAEConfig(), (1, 3, 49, 256, 256)),
+                                  ("hunyuan_vae", AutoencoderKLHunyuanVideo, HunyuanVAEConfig(),
+                                   (1, 3, 49, 256, 256))):
         with torch.device("cuda"):
             fp32 = init_parameters_(cls(cfg, torch.float32), torch.Generator("cuda").manual_seed(33)).eval()
             bf16 = cls(cfg, torch.bfloat16).eval()
@@ -5798,6 +6381,11 @@ def main():
     checkpoint_launches = cogview4_checkpoint_serve(card)
     video_launches = wan_checkpoint_run(card)
     video_launches["ltx_checkpoint_serve"] = ltx_checkpoint_serve(card)
+    video_launches.update(cogvideox_checkpoint_run(card))
+    hy_ckpt = hunyuan_checkpoint_run(card)
+    flux_ckpt = flux_checkpoint_run(card)
+    video_launches.update(hunyuan_checkpoint_run=hy_ckpt["hunyuan_checkpoint_run"],
+                          flux_checkpoint_run=flux_ckpt["flux_checkpoint_run"])
     video_dtype_check(card)
     shutil.rmtree(SMOKE_DIR)
     env_phase()
@@ -5828,6 +6416,7 @@ def main():
         extra = {}
         if key == "k2":  # the reduce pass: its launches on the paths that count them, its records where it ran
             extra = dict(reduce_launches_by_path={"hunyuan_run": hunyuan["reduce"],
+                                                  "hunyuan_checkpoint_run": hy_ckpt["reduce"],
                                                   "cogview4_control_run": cogview4["reduce"],
                                                   "wan_control_run": wan_control["reduce"],
                                                   "cogvideox_run": cogvideox["reduce"]},
@@ -5847,7 +6436,9 @@ def main():
                                        "cogview4_control_run": cogview4["launches"][key],
                                        "wan_control_run": wan_control["launches"][key],
                                        "cogvideox_run": cogvideox["launches"][key],
-                                       "wan_checkpoint_run": video_launches["wan_checkpoint_run"][key]},
+                                       **{path: video_launches[path][key] for path in (
+                                           "wan_checkpoint_run", "cogvideox_checkpoint_run", "hunyuan_checkpoint_run",
+                                           "flux_checkpoint_run")}},
                      shape=[1, 12, WAN_TOKENS, WAN_TOKENS, 128],
                      i2v_train_in_step_ms={part: i2v_train["in_step"][f"{key}_{part}"] for part in ("self", "cross")},
                      flux_train_in_step_ms=flux["in_step"][key],
@@ -5928,7 +6519,9 @@ def main():
                                 "wan_control_run": wan_control["launches"]["prep"],
                                 "cogvideox_run": cogvideox["launches"]["prep"],
                                 "cogvideox_serve": cx_serve_launches["prep"],
-                                **{path: n["prep"] for path, n in video_launches.items()}},
+                                **{path: n["prep"] for path, n in video_launches.items()},
+                                "hunyuan_checkpoint_run_precompute": hy_ckpt["hunyuan_checkpoint_precompute"]["prep"],
+                                "flux_checkpoint_run_precompute": flux_ckpt["flux_checkpoint_precompute"]["prep"]},
               flux_by_case={case: dict(ms=r["prep_ms"], plain_ms=r["prep_plain_ms"]) for case, r in flux_k1.items()},
               flux_in_step_ms=dict(serve=flux_serve_in_step["prep"], train=flux["in_step"]["prep"]),
               hunyuan_by_case={case: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r["prep"]))
@@ -6018,7 +6611,10 @@ def main():
               checkpoint_launches["k1_mask"], k1_mask_err,
               tuple(k1_mask["glm_causal_gqa"][f] for f in fields), shape=[1, 32, 1024, 1024, 128],
               launches_by_path={"cogview4_checkpoint_serve": checkpoint_launches["k1_mask"],
-                                **{f"text_towers_{kind}": n for kind, n in tower_launches.items()}},
+                                **{f"text_towers_{kind}": n for kind, n in tower_launches.items()},
+                                "hunyuan_checkpoint_run_precompute":
+                                    hy_ckpt["hunyuan_checkpoint_precompute"]["k1_mask"],
+                                "flux_checkpoint_run_precompute": flux_ckpt["flux_checkpoint_precompute"]["k1_mask"]},
               by_case={case: {f: r[f] for f in fields} for case, r in k1_mask.items()},
               long_causal_unmasked_k1_ms=k1_mask["long_causal"]["unmasked_k1_ms"],
               also_replaces=["finetrainers_tpu/ops/flash_attention.py:304"],

@@ -231,11 +231,12 @@ class BaseArgs:
 
 
 # The tower flags each family's spec reads since its text towers load from a
-# local checkpoint (CogView4's GLM; HunyuanVideo's Llama and CLIP text; Wan's
-# UMT5, LTX-Video's and CogVideoX's T5); for every other family they stay
-# refused below.
+# local checkpoint (CogView4's GLM; HunyuanVideo's Llama and CLIP text; Flux's
+# CLIP text and T5; Wan's UMT5, LTX-Video's and CogVideoX's T5); for every
+# other family they stay refused below.
 TOWER_FLAGS = {"cogview4": ("tokenizer_id",),
                "hunyuan_video": ("tokenizer_id", "tokenizer_2_id", "text_encoder_2_id"),
+               "flux": ("tokenizer_id", "tokenizer_2_id", "text_encoder_2_id"),
                "wan": ("tokenizer_id",),
                "ltx_video": ("tokenizer_id",),
                "cogvideox": ("tokenizer_id",)}

@@ -167,6 +167,7 @@ class Inference:
             device=args.device,
             **spec_kwargs,
         )
+        self.spec.check_serving_text_encoders()  # before any model loads (ROADMAP.md section 3 finding 14)
         self.tracker = initialize_trackers(args.report_to, args.tracker_name,
                                            log_dir=os.path.join(args.output_dir, "logs"))
         self.pipeline = None

@@ -423,15 +423,19 @@ def encode_media(vae_handle: ModelHandle, x: torch.Tensor, tile: int = 256, over
 
 def _is_2d(vae_handle: ModelHandle) -> bool:
     """Whether the handle holds the 2D `AutoencoderKL` (a checkpoint's image
-    VAE); else it must hold a 3D VAE (the generic one, `AutoencoderKLWan` or
-    `AutoencoderKLLTXVideo`), or this raises."""
+    VAE); else it must hold a 3D VAE (the generic one, `AutoencoderKLWan`,
+    `AutoencoderKLLTXVideo`, `AutoencoderKLCogVideoX` or
+    `AutoencoderKLHunyuanVideo`), or this raises."""
     from .autoencoder_kl import AutoencoderKL
+    from .cogvideox.vae import AutoencoderKLCogVideoX
+    from .hunyuan_video.vae import AutoencoderKLHunyuanVideo
     from .ltx_video.vae import AutoencoderKLLTXVideo
     from .wan.vae import AutoencoderKLWan
 
     if isinstance(vae_handle.module, AutoencoderKL):
         return True
-    if not isinstance(vae_handle.module, (AutoencoderKL3D, AutoencoderKLWan, AutoencoderKLLTXVideo)):
+    if not isinstance(vae_handle.module, (AutoencoderKL3D, AutoencoderKLWan, AutoencoderKLLTXVideo,
+                                          AutoencoderKLCogVideoX, AutoencoderKLHunyuanVideo)):
         raise NotImplementedError(f"{type(vae_handle.module).__name__}: the port's image VAEs are the 3D VAEs and "
                                   "the 2D AutoencoderKL; see ROADMAP.md queue 1 item 5 (loading diffusers "
                                   "checkpoints)")
@@ -476,12 +480,11 @@ def sample_from_moments(moments: torch.Tensor, generator: Optional[torch.Generat
     return mean + torch.exp(0.5 * logvar) * noise.to(device=mean.device, dtype=mean.dtype)
 
 
-def generic_vae(spec: ModelSpecification, config: AutoencoderConfig, what: str) -> ModelHandle:
+def generic_vae(spec: ModelSpecification, config: AutoencoderConfig) -> ModelHandle:
     """The generic `AutoencoderKL3D` with `config` on `spec`'s device, random
     weights from `spec.generator()`, identity latent statistics: the VAE the
-    JAX package serves with when no checkpoint of the family's real VAE
-    (`what`) exists."""
-    spec._refuse_checkpoint(spec.vae_id, "vae", what)
+    JAX package serves with when no local `vae/` directory of the family's
+    real VAE exists (each spec loads one where it does)."""
     with torch.device(spec.device):
         module = AutoencoderKL3D(config, dtype=spec.vae_dtype)
     init_parameters_(module, spec.generator()).eval()

@@ -2,14 +2,15 @@
 forward (port of `finetrainers_tpu/models/cogvideox/base_specification.py`),
 the only family whose objective is not flow matching.
 
-T5 loads from a local `text_encoder/` (`T5Handle`, :74-87); without one the
-spec takes the offline `HashEncoder(4096, max_length=226)` JAX falls back
-to. The VAE and the transformer are random: the port has no
-`AutoencoderKLCogVideoX` yet, so it runs the generic `AutoencoderKL3D` with
-`COGVIDEOX_VAE_CONFIG` and latent scaling 0.7 (:89-107), and a local `vae/`
-or `transformer/` raises NotImplementedError naming its ROADMAP.md item
-instead of being ignored. It serves with its own `CogVideoXDDIMScheduler`
-(:72; JAX reads no scheduler config for it).
+Each component loads from a local diffusers directory, as in JAX: T5 from
+`text_encoder/` (`T5Handle`, :74-87), else the offline `HashEncoder(4096,
+max_length=226)`; the faithful `AutoencoderKLCogVideoX` from `vae/` (its
+config's scaling factor, 1.15258426 without one, on the handle; :89-110),
+else the generic `AutoencoderKL3D` with `COGVIDEOX_VAE_CONFIG` at random;
+the transformer's base weights from `transformer/` by name (:112-131), else
+random. Training and serving scale the latents by 0.7 whichever VAE is loaded,
+as JAX does (:66, :185; pipeline.py:83). It serves with its own
+`CogVideoXDDIMScheduler` (:72; JAX reads no scheduler config for it).
 
 Training (:168-211): DDIM noising at t = int(sigma * 1000), the model
 predicts velocity, pred = sqrt(a) x_t - sqrt(1 - a) v (the x0 estimate),
@@ -91,20 +92,28 @@ class CogVideoXModelSpecification(ModelSpecification):
         return {"tokenizer": getattr(encoder, "tokenizer", None), "text_encoder": encoder}
 
     def load_latent_models(self) -> Dict[str, Any]:
-        vae = generic_vae(self, self.vae_autoencoder_config,
-                          "the AutoencoderKLCogVideoX VAE (ROADMAP.md queue 1 item 7)")
+        """The faithful `AutoencoderKLCogVideoX` from `vae/`, else the generic VAE (JAX :89-110)."""
+        from .vae import AutoencoderKLCogVideoX, CogVideoXVAEConfig
+
+        handle = self._load_video_vae(AutoencoderKLCogVideoX, CogVideoXVAEConfig, default_scaling=1.15258426)
+        if handle is not None:
+            return {"vae": handle}
+        vae = generic_vae(self, self.vae_autoencoder_config)
         vae.config["scaling_factor"] = SCALING_FACTOR
         return {"vae": vae}
 
     def load_diffusion_models(self) -> Dict[str, Any]:
-        self._refuse_checkpoint(self.transformer_id, "transformer", "transformer weights (ROADMAP.md queue 1 item 5)")
+        """The transformer, random from the spec's generator, its base weights then
+        loaded from a local `transformer/` where there is one (JAX :112-131)."""
         with torch.device(self.device):
             module = CogVideoXTransformer3DModel(
                 **self.transformer_config, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
                 dtype=self.transformer_dtype, gradient_checkpointing=self.gradient_checkpointing,
             )
-        init_parameters_(module, self.generator()).eval()
-        return {"transformer": ModelHandle(module, dict(self.transformer_config)), "scheduler": self._scheduler}
+        init_parameters_(module, self.generator())
+        self._maybe_load_pretrained_transformer(module)
+        return {"transformer": ModelHandle(module.eval(), dict(self.transformer_config)),
+                "scheduler": self._scheduler}
 
     def load_pipeline(self, transformer: ModelHandle = None, vae: ModelHandle = None,
                       text_encoder=None, **kwargs):

@@ -94,7 +94,7 @@ class CogView4ModelSpecification(ModelSpecification):
         handle = self._load_image_vae(default_scaling=1.0)
         if handle is not None:
             return {"vae": handle}
-        return {"vae": generic_vae(self, self.vae_autoencoder_config, "the CogView4 AutoencoderKL")}
+        return {"vae": generic_vae(self, self.vae_autoencoder_config)}
 
     def _build_transformer(self, config: Dict[str, Any], pretrained: bool = False) -> ModelHandle:
         """The transformer at `config`, random from the spec's generator; with

@@ -1,21 +1,24 @@
 """Flux model specification, text-to-image: serving and the training forward
 (port of `finetrainers_tpu/models/flux/base_specification.py`).
 
-Random weights only: no CLIP-L, T5-XXL, FLUX.1 VAE or transformer checkpoint
-exists for the port yet, so it runs with the offline components the JAX
-package falls back to: `HashEncoder(4096, max_length=512, pooled_dim=768)` in
-both text slots (:79-83), the generic `AutoencoderKL3D` with `SD_VAE_CONFIG`
-on single frames with Flux's latent scaling 0.3611 and shift 0.1159
-(:105-118), and flow-match Euler with dynamic shifting (:137) unless the
-checkpoint directory's scheduler config names another. A local checkpoint
-directory for any component raises NotImplementedError naming its ROADMAP.md
-item instead of being ignored.
+Each component loads from a local diffusers directory, as in JAX (:74-141):
+CLIP-L's text tower from `text_encoder/` (`CLIPTextHandle`, pooled) and
+T5-XXL from `text_encoder_2/` (`T5Handle`), each else the offline
+`HashEncoder(4096, max_length=512, pooled_dim=768)` (:79-97); the 2D
+`AutoencoderKL` from `vae/` (its config's latent statistics, 0.3611 and
+0.1159 without them), else the generic `AutoencoderKL3D` with `SD_VAE_CONFIG`
+on single frames (:105-118); the transformer's base weights from
+`transformer/` by name (:120-141). Flow-match Euler with dynamic shifting
+(:137) unless the checkpoint directory's scheduler config names another.
 
 As in the JAX package, `prepare_conditions` encodes the T5 slot with the
 CLIP slot's encoder when none is given (:161), and `FluxPipeline` gives it
-none, so serving encodes both slots with one encoder: with real towers the
-T5 states would have CLIP's width (a JAX bug the port reproduces; ROADMAP.md
-section 3).
+none, so serving encodes both slots with one encoder (a JAX bug the port
+reproduces; ROADMAP.md section 3 finding 14). With the offline hash encoder
+that runs; with CLIP-L loaded in the first slot its 768-wide states reach a
+context embedder that takes 4096 and JAX fails, and the port's
+`check_serving_text_encoders` refuses it (`serving_tower_failure`) before
+the runner or a validating trainer loads a model.
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ import numpy as np
 import torch
 
 from ...functional.diffusion import flow_match_target, flow_match_xt
-from ...logging import get_logger
 from ...processors import CaptionTextDropoutProcessor, CLIPPooledProcessor, HashEncoder, T5Processor
 from ...schedulers import FlowMatchEulerScheduler, load_scheduler
 from ..autoencoders import SD_VAE_CONFIG, AutoencoderConfig, encode_image_vae, generic_vae, sample_from_moments
@@ -34,8 +36,6 @@ from ..layers import init_parameters_
 from ..modeling_utils import ModelHandle, ModelSpecification
 from .transformer import FluxTransformer2DModel, pack_flux_latents, prepare_latent_image_ids, unpack_flux_latents
 
-
-logger = get_logger(__name__)
 
 # Copied from `finetrainers_tpu/models/flux/base_specification.py:34-38`.
 FLUX_TRANSFORMER_CONFIG = dict(
@@ -50,6 +50,9 @@ SHIFT_FACTOR = 0.1159
 
 class FluxModelSpecification(ModelSpecification):
     transformer_class_name = "FluxTransformer2DModel"
+    # JAX :161, pipeline.py:43
+    serving_tower_failure = ("serving encodes the T5 slot with that encoder too, whose CLIP-L states (768 wide) reach "
+                             "a context embedder that takes 4096")
 
     @staticmethod
     def transformer_key_map(flax_key: str) -> str:
@@ -88,31 +91,42 @@ class FluxModelSpecification(ModelSpecification):
                            pooled_dim=self.transformer_config["pooled_projection_dim"])
 
     def load_condition_models(self) -> Dict[str, Any]:
-        """CLIP-L pooled (`text_encoder`) and T5-XXL (`text_encoder_2`): both
-        the offline hash encoder, as JAX falls back (:74-103)."""
-        self._refuse_checkpoint(self.text_encoder_id, "text_encoder",
-                                "the CLIP-L text encoder (ROADMAP.md queue 1 item 7)")
-        self._refuse_checkpoint(self.text_encoder_2_id, "text_encoder_2",
-                                "the T5-XXL text encoder (ROADMAP.md queue 1 item 7)")
-        logger.warning("CLIP-L and T5-XXL are not ported; using the offline hash encoder in both slots")
-        return {"tokenizer": None, "tokenizer_2": None, "text_encoder": self._offline_text_encoder(),
-                "text_encoder_2": self._offline_text_encoder()}
+        """CLIP-L pooled (`text_encoder`) and T5-XXL (`text_encoder_2`) from
+        their local directories, each in its slot's dtype, else the offline
+        hash encoder in the slot, as JAX falls back (:74-103)."""
+        from ..text_encoders import CLIPTextHandle, T5Handle
+
+        text_encoder = self._load_text_tower(CLIPTextHandle, self.text_encoder_id, "text_encoder",
+                                             self._offline_text_encoder, tokenizer_id=self.tokenizer_id,
+                                             dtype=self.text_encoder_dtype)
+        text_encoder_2 = self._load_text_tower(T5Handle, self.text_encoder_2_id, "text_encoder_2",
+                                               self._offline_text_encoder, tokenizer_id=self.tokenizer_2_id,
+                                               dtype=self.text_encoder_2_dtype)
+        return {"tokenizer": getattr(text_encoder, "tokenizer", None),
+                "tokenizer_2": getattr(text_encoder_2, "tokenizer", None),
+                "text_encoder": text_encoder, "text_encoder_2": text_encoder_2}
 
     def load_latent_models(self) -> Dict[str, Any]:
-        vae = generic_vae(self, self.vae_autoencoder_config, "the FLUX.1 AutoencoderKL (ROADMAP.md queue 1 item 5)")
+        """The 2D AutoencoderKL from `vae/`, else the generic VAE (JAX :105-118)."""
+        handle = self._load_image_vae(default_scaling=SCALING_FACTOR, default_shift=SHIFT_FACTOR)
+        if handle is not None:
+            return {"vae": handle}
+        vae = generic_vae(self, self.vae_autoencoder_config)
         vae.config.update(scaling_factor=SCALING_FACTOR, shift_factor=SHIFT_FACTOR)
         return {"vae": vae}
 
     def load_diffusion_models(self) -> Dict[str, Any]:
-        self._refuse_checkpoint(self.transformer_id, "transformer", "transformer weights (ROADMAP.md queue 1 item 5)")
+        """The transformer, random from the spec's generator, its base weights then
+        loaded from a local `transformer/` where there is one (JAX :120-141)."""
         with torch.device(self.device):
             module = FluxTransformer2DModel(
                 **self.transformer_config, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
                 dtype=self.transformer_dtype, gradient_checkpointing=self.gradient_checkpointing,
             )
-        init_parameters_(module, self.generator()).eval()
+        init_parameters_(module, self.generator())
+        self._maybe_load_pretrained_transformer(module)
         return {
-            "transformer": ModelHandle(module, dict(self.transformer_config)),
+            "transformer": ModelHandle(module.eval(), dict(self.transformer_config)),
             "scheduler": FlowMatchEulerScheduler(use_dynamic_shifting=True),
         }
 

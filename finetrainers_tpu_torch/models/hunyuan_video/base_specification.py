@@ -5,17 +5,21 @@ The text towers load from local checkpoint directories, as in JAX (:67-91):
 the Llama (LLaVA) tower from `text_encoder/` and CLIP-L's text tower from
 `text_encoder_2/` (`text_encoder_2_id`); without one a slot holds the offline
 `HashEncoder(4096, max_length=256, pooled_dim=768)` with no template crop
-(:70-76). The VAE and the transformer have no port of their checkpoints yet:
-the generic `AutoencoderKL3D` with `HUNYUAN_VAE_CONFIG` and latent scaling
-0.476986 (:93-113) and random weights serve, and a local directory of either
-raises NotImplementedError naming its ROADMAP.md item instead of being
-ignored. Flow-match Euler with shift 7 (:133) unless the checkpoint
+(:70-76). The faithful `AutoencoderKLHunyuanVideo` loads from `vae/` (its
+config's scaling factor, 0.476986 without one; :93-113), else the generic
+`AutoencoderKL3D` with `HUNYUAN_VAE_CONFIG` serves at random; the
+transformer's base weights load from `transformer/` by name (:115-134), else
+they are random. Flow-match Euler with shift 7 (:133) unless the checkpoint
 directory's scheduler config names another.
 
 As in the JAX package, `prepare_conditions` encodes the pooled CLIP slot with
 the Llama slot's encoder when none is given (:156), and `HunyuanVideoPipeline`
 gives it none, so serving encodes both slots with one encoder (a JAX bug the
-port reproduces; ROADMAP.md section 3, finding 14).
+port reproduces; ROADMAP.md section 3, finding 14). With the offline hash
+encoder that runs; with a Llama loaded in the first slot JAX fails (its
+handle has no pooled output), and the port's `check_serving_text_encoders`
+refuses it (`serving_tower_failure`) before the runner or a validating
+trainer loads a model.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ SCALING_FACTOR = 0.476986
 
 class HunyuanVideoModelSpecification(ModelSpecification):
     transformer_class_name = "HunyuanVideoTransformer3DModel"
+    # JAX :156, pipeline.py:43
+    serving_tower_failure = ("serving encodes the pooled CLIP slot with that encoder too, and a Llama tower has no "
+                             "pooled output (JAX's FlaxLlamaHandle has no encode_pooled)")
 
     @staticmethod
     def transformer_key_map(flax_key: str) -> str:
@@ -104,21 +111,28 @@ class HunyuanVideoModelSpecification(ModelSpecification):
                 "text_encoder": text_encoder, "text_encoder_2": text_encoder_2}
 
     def load_latent_models(self) -> Dict[str, Any]:
-        vae = generic_vae(self, self.vae_autoencoder_config,
-                          "the AutoencoderKLHunyuanVideo VAE (ROADMAP.md queue 1 item 7)")
+        """The faithful `AutoencoderKLHunyuanVideo` from `vae/`, else the generic VAE (JAX :93-113)."""
+        from .vae import AutoencoderKLHunyuanVideo, HunyuanVAEConfig
+
+        handle = self._load_video_vae(AutoencoderKLHunyuanVideo, HunyuanVAEConfig, default_scaling=SCALING_FACTOR)
+        if handle is not None:
+            return {"vae": handle}
+        vae = generic_vae(self, self.vae_autoencoder_config)
         vae.config["scaling_factor"] = SCALING_FACTOR
         return {"vae": vae}
 
     def load_diffusion_models(self) -> Dict[str, Any]:
-        self._refuse_checkpoint(self.transformer_id, "transformer", "transformer weights (ROADMAP.md queue 1 item 5)")
+        """The transformer, random from the spec's generator, its base weights then
+        loaded from a local `transformer/` where there is one (JAX :115-134)."""
         with torch.device(self.device):
             module = HunyuanVideoTransformer3DModel(
                 **self.transformer_config, lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
                 dtype=self.transformer_dtype, gradient_checkpointing=self.gradient_checkpointing,
             )
-        init_parameters_(module, self.generator()).eval()
+        init_parameters_(module, self.generator())
+        self._maybe_load_pretrained_transformer(module)
         return {
-            "transformer": ModelHandle(module, dict(self.transformer_config)),
+            "transformer": ModelHandle(module.eval(), dict(self.transformer_config)),
             "scheduler": FlowMatchEulerScheduler(shift=7.0),
         }
 

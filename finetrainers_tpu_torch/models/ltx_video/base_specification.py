@@ -92,7 +92,7 @@ class LTXVideoModelSpecification(ModelSpecification):
             self.vae_spatial_compression_ratio = handle.config["spatial_compression_ratio"]
             self.vae_temporal_compression_ratio = handle.config["temporal_compression_ratio"]
             return {"vae": handle}
-        return {"vae": generic_vae(self, self.vae_autoencoder_config, "the LTX VAE")}
+        return {"vae": generic_vae(self, self.vae_autoencoder_config)}
 
     def load_diffusion_models(self) -> Dict[str, Any]:
         """The transformer, random from the spec's generator, its base weights

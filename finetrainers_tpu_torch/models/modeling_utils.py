@@ -108,6 +108,22 @@ class ModelSpecification:
     def load_pipeline(self, **kwargs) -> Any:
         raise NotImplementedError
 
+    # Why serving fails in JAX with a tower loaded in the `text_encoder` slot, for a family whose serving encodes
+    # a second slot with that slot's encoder (ROADMAP.md section 3 finding 14); None where serving takes any tower.
+    serving_tower_failure: Optional[str] = None
+
+    def check_serving_text_encoders(self) -> None:
+        """Raise a ValueError where serving (the runner, a trainer's
+        validation) would load a tower into the `text_encoder` slot of a family
+        whose serving fails with one there in JAX (`serving_tower_failure`);
+        called before any model loads, as finding 16's refusal is."""
+        path = self._component_dir(self.text_encoder_id, "text_encoder")
+        if self.serving_tower_failure and path is not None:
+            raise ValueError(f"{type(self).__name__} serves with the tower of {path} in the text_encoder slot: "
+                             f"{self.serving_tower_failure}, so JAX fails and the port refuses it (ROADMAP.md "
+                             "section 3 finding 14). Train without --validation_dataset_file, or serve with the "
+                             "offline encoder")
+
     # ------------------------------------------------------------ data prep
     def prepare_conditions(self, **kwargs) -> Dict[str, Any]:
         raise NotImplementedError
@@ -220,16 +236,17 @@ class ModelSpecification:
             "shift_factor": hf_cfg.get("shift_factor", default_shift),
         })
 
-    def _load_video_vae(self, module_cls, config_cls) -> Optional[ModelHandle]:
-        """A family's causal 3D VAE (`AutoencoderKLWan`, `AutoencoderKLLTXVideo`)
-        from a local diffusers `vae/` directory, built on the spec's device in
-        `vae_dtype` and loaded by name (strict on every parameter; entries the
-        module does not hold, such as a checkpoint's latent-statistics buffers,
-        are skipped as JAX's converter skips them), with `scaling_factor` (1.0
-        without it), `latents_mean` and `latents_std` (zeros and ones) from
-        its config; None where no such directory exists (the caller keeps
-        its generic VAE). A directory with a config but no weights gives a
-        random VAE with a warning, as in JAX (modeling_utils.py:272-316)."""
+    def _load_video_vae(self, module_cls, config_cls, default_scaling: float = 1.0) -> Optional[ModelHandle]:
+        """A family's causal 3D VAE (`AutoencoderKLWan`, `AutoencoderKLLTXVideo`,
+        `AutoencoderKLCogVideoX`, `AutoencoderKLHunyuanVideo`) from a local
+        diffusers `vae/` directory, built on the spec's device in `vae_dtype`
+        and loaded by name (strict on every parameter; entries the module does
+        not hold, such as a checkpoint's latent-statistics buffers, are skipped
+        as JAX's converter skips them), with `scaling_factor`
+        (`default_scaling` without it), `latents_mean` and `latents_std` (zeros
+        and ones) from its config; None where no such directory exists (the
+        caller keeps its generic VAE). A directory with a config but no weights
+        gives a random VAE with a warning, as in JAX (modeling_utils.py:272-316)."""
         vae_dir = self._component_dir(self.vae_id, "vae")
         if vae_dir is None:
             return None
@@ -254,7 +271,7 @@ class ModelSpecification:
             "latent_channels": latent_ch,
             "spatial_compression_ratio": cfg.spatial_compression_ratio,
             "temporal_compression_ratio": cfg.temporal_compression_ratio,
-            "scaling_factor": hf_cfg.get("scaling_factor", 1.0),
+            "scaling_factor": hf_cfg.get("scaling_factor", default_scaling),
             "latents_mean": np.asarray(mean, np.float32) if mean is not None else np.zeros((latent_ch,), np.float32),
             "latents_std": np.asarray(std, np.float32) if std is not None else np.ones((latent_ch,), np.float32),
         })

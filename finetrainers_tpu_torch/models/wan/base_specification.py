@@ -115,7 +115,7 @@ class WanModelSpecification(ModelSpecification):
         handle = self._load_video_vae(AutoencoderKLWan, WanVAEConfig)
         if handle is not None:
             return {"vae": handle}
-        return {"vae": generic_vae(self, self.vae_autoencoder_config, "the Wan VAE")}
+        return {"vae": generic_vae(self, self.vae_autoencoder_config)}
 
     def _build_transformer(self, config: Dict[str, Any], pretrained: bool = False) -> ModelHandle:
         """The transformer at `config`, random from the spec's generator; with

@@ -132,6 +132,8 @@ class SFTTrainer(Trainer):
         """The transformer and its scheduler. The VAE and the text encoder load
         with the data stage (`_prepare_dataset`)."""
         spec = self.model_specification
+        if self.args.validation_dataset_file:
+            spec.check_serving_text_encoders()  # validation serves as the runner does (ROADMAP.md section 3 finding 14)
         if self.args.training_type in LORA_TRAINING_TYPES:
             spec.lora_rank = self.args.rank
             spec.lora_alpha = self.args.lora_alpha

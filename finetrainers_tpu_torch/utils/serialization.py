@@ -32,17 +32,19 @@ _NAMES = {dtype: name for name, dtype in _DTYPES.items()}
 
 def safetensors_save_dict(tensors: Dict[str, torch.Tensor], path: str,
                           metadata: Optional[Dict[str, str]] = None) -> None:
-    """Write `tensors` (any device, any layout) and `metadata` to `path`."""
-    header, chunks, offset = {}, [], 0
-    for name in sorted(tensors):
-        tensor = tensors[name].detach()
+    """Write `tensors` (any device, any layout) and `metadata` to `path`: the
+    header from the shapes, then each tensor's bytes as it reaches the host
+    (one host copy at a time, written without a second copy)."""
+    header, offset = {}, 0
+    names = sorted(tensors)
+    for name in names:
+        tensor = tensors[name]
         if tensor.dtype not in _NAMES:
             raise ValueError(f"{name}: dtype {tensor.dtype} is not one of {sorted(_DTYPES)}")
-        data = tensor.to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+        size = tensor.numel() * tensor.element_size()
         header[name] = {"dtype": _NAMES[tensor.dtype], "shape": list(tensor.shape),
-                        "data_offsets": [offset, offset + len(data)]}
-        chunks.append(data)
-        offset += len(data)
+                        "data_offsets": [offset, offset + size]}
+        offset += size
     if metadata is not None:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
     encoded = json.dumps(header, separators=(",", ":")).encode()
@@ -50,8 +52,8 @@ def safetensors_save_dict(tensors: Dict[str, torch.Tensor], path: str,
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(encoded)))
         f.write(encoded)
-        for data in chunks:
-            f.write(data)
+        for name in names:
+            f.write(tensors[name].detach().to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy().data)
 
 
 def _read_header(f, path: str) -> dict:

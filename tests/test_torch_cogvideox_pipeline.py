@@ -269,9 +269,11 @@ def test_registry_resolves_cogvideox_and_spec_is_offline(tmp_path):
     """`cogvideox` resolves for lora and full-finetune; the spec's offline
     components are JAX's fallbacks (the hash encoder of width 4096 with 226
     slots, `COGVIDEOX_VAE_CONFIG` with scaling 0.7, its own DDIM scheduler);
-    a local VAE or transformer directory raises naming its ROADMAP.md item,
-    a local T5 directory without weights falls back to the hash encoder; the
-    data keys are JAX's."""
+    a local T5 directory without weights falls back to the hash encoder, a
+    VAE directory with a config but no weights gives the faithful VAE at
+    random, a transformer directory without shards raises FileNotFoundError,
+    all as in JAX (the directories that load: test_torch_family_checkpoints.py);
+    the data keys are JAX's."""
     for training_type in ("lora", "full-finetune"):
         assert get_model_specification_cls("cogvideox", training_type) is CogVideoXModelSpecification
     spec = CogVideoXModelSpecification(device="cpu")
@@ -282,19 +284,22 @@ def test_registry_resolves_cogvideox_and_spec_is_offline(tmp_path):
     assert isinstance(port_spec().load_diffusion_models()["scheduler"], CogVideoXDDIMScheduler)
     assert port_spec().load_latent_models()["vae"].config["scaling_factor"] == 0.7 == JaxSpec().vae_scaling_factor
     assert spec.cp_plan() == JaxSpec().cp_plan() and spec._resolution_dim_keys == JaxSpec()._resolution_dim_keys
-    for sub, item in (("text_encoder", "item 7"), ("vae", "item 7"), ("transformer", "item 5")):
+    tiny_vae = dict(latent_channels=4, block_out_channels=[8, 8, 16, 16], layers_per_block=1, norm_num_groups=4)
+    for sub in ("text_encoder", "vae", "transformer"):
         root = tmp_path / sub
         (root / sub).mkdir(parents=True)
-        (root / sub / "config.json").write_text("{}")
+        (root / sub / "config.json").write_text(json.dumps(tiny_vae if sub == "vae" else {}))
         local = CogVideoXModelSpecification(pretrained_model_name_or_path=str(root), device="cpu",
                                             transformer_config=TINY)
-        load = {"text_encoder": local.load_condition_models, "vae": local.load_latent_models,
-                "transformer": local.load_diffusion_models}[sub]
         if sub == "text_encoder":  # T5 loads from a local directory; one without weights falls back, as in JAX
-            assert isinstance(load()["text_encoder"], HashEncoder)
-            continue
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-            load()
+            assert isinstance(local.load_condition_models()["text_encoder"], HashEncoder)
+        elif sub == "vae":
+            vae = local.load_latent_models()["vae"]
+            assert type(vae.module).__name__ == "AutoencoderKLCogVideoX" and vae.config["scaling_factor"] == 1.15258426
+            assert local.vae_scaling_factor == 0.7 == JaxSpec().vae_scaling_factor
+        else:
+            with pytest.raises(FileNotFoundError):
+                local.load_diffusion_models()
 
 
 def test_prepare_latents_are_frames_first_moments_of_the_vae():

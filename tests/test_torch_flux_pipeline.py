@@ -278,8 +278,12 @@ def test_t5_slot_takes_the_clip_encoder_as_in_jax():
 
 def test_registry_resolves_flux_and_spec_is_offline(tmp_path):
     """`flux` resolves for lora and full-finetune; the spec's offline components
-    are JAX's fallbacks; a local tower, VAE or transformer directory raises
-    naming its ROADMAP.md item, and so does the 2D AutoencoderKL branch."""
+    are JAX's fallbacks; a local tower directory that does not load falls back
+    to the hash encoder in its slot, a VAE directory with a config but no
+    weights gives a random 2D AutoencoderKL with Flux's statistics, a
+    transformer directory without shards raises FileNotFoundError, all as in
+    JAX (the directories that load: test_torch_family_checkpoints.py); an image
+    VAE the port does not have raises naming its ROADMAP.md item."""
     for training_type in ("lora", "full-finetune"):
         assert get_model_specification_cls("flux", training_type) is FluxModelSpecification
     spec = FluxModelSpecification(device="cpu")
@@ -293,16 +297,21 @@ def test_registry_resolves_flux_and_spec_is_offline(tmp_path):
     assert _port_spec().load_diffusion_models()["scheduler"].use_dynamic_shifting
     vae = _port_spec().load_latent_models()["vae"]
     assert (vae.config["scaling_factor"], vae.config["shift_factor"]) == (0.3611, 0.1159)
-    for sub, item in (("text_encoder", "item 7"), ("text_encoder_2", "item 7"), ("vae", "item 5"),
-                      ("transformer", "item 5")):
+    tiny_vae = dict(latent_channels=4, block_out_channels=[8, 16], layers_per_block=1, norm_num_groups=4)
+    for sub in ("text_encoder", "text_encoder_2", "vae", "transformer"):
         root = tmp_path / sub
         (root / sub).mkdir(parents=True)
-        (root / sub / "config.json").write_text("{}")
+        (root / sub / "config.json").write_text(json.dumps(tiny_vae if sub == "vae" else {}))
         local = FluxModelSpecification(pretrained_model_name_or_path=str(root), device="cpu",
                                        transformer_config=TINY)
-        load = {"text_encoder": local.load_condition_models, "text_encoder_2": local.load_condition_models,
-                "vae": local.load_latent_models, "transformer": local.load_diffusion_models}[sub]
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-            load()
+        if sub.startswith("text_encoder"):
+            assert isinstance(local.load_condition_models()[sub], HashEncoder)
+        elif sub == "vae":
+            vae = local.load_latent_models()["vae"]
+            assert type(vae.module).__name__ == "AutoencoderKL"
+            assert (vae.config["scaling_factor"], vae.config["shift_factor"]) == (0.3611, 0.1159)
+        else:
+            with pytest.raises(FileNotFoundError):
+                local.load_diffusion_models()
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
         autoencoders.encode_image_vae(autoencoders.ModelHandle(torch.nn.Linear(1, 1)), torch.zeros(1, 3, 8, 8))

@@ -326,10 +326,12 @@ def test_registry_resolves_hunyuan_and_spec_is_offline(tmp_path):
     """`hunyuan_video` resolves for lora and full-finetune; the spec's offline
     components are JAX's fallbacks (the hash encoder of width 4096, 256 slots,
     pooled 768, no template crop, in both slots; `HUNYUAN_VAE_CONFIG` with
-    scaling 0.476986; Euler with shift 7); a local VAE or transformer
-    directory raises naming its ROADMAP.md item, and a local tower directory
-    loads (tests/test_torch_text_towers.py), or where it does not load falls
-    back to the hash encoder in its slot, as in JAX."""
+    scaling 0.476986; Euler with shift 7); a local tower directory loads
+    (tests/test_torch_text_towers.py), or where it does not load falls back to
+    the hash encoder in its slot, a VAE directory with a config but no weights
+    gives the faithful VAE at random, a transformer directory without shards
+    raises FileNotFoundError, all as in JAX (the directories that load:
+    test_torch_family_checkpoints.py)."""
     for training_type in ("lora", "full-finetune"):
         assert get_model_specification_cls("hunyuan_video", training_type) is HunyuanVideoModelSpecification
     spec = HunyuanVideoModelSpecification(device="cpu")
@@ -351,12 +353,16 @@ def test_registry_resolves_hunyuan_and_spec_is_offline(tmp_path):
                                                transformer_config=TINY)
         fallback = local.load_condition_models()[sub]
         assert isinstance(fallback, HashEncoder) and fallback.supports_template_crop is False
-    for sub, item in (("vae", "item 7"), ("transformer", "item 5")):
+    tiny_vae = dict(latent_channels=4, block_out_channels=[8, 8, 16, 16], layers_per_block=1, norm_num_groups=4)
+    for sub in ("vae", "transformer"):
         root = tmp_path / sub
         (root / sub).mkdir(parents=True)
-        (root / sub / "config.json").write_text("{}")
+        (root / sub / "config.json").write_text(json.dumps(tiny_vae if sub == "vae" else {}))
         local = HunyuanVideoModelSpecification(pretrained_model_name_or_path=str(root), device="cpu",
                                                transformer_config=TINY)
-        load = {"vae": local.load_latent_models, "transformer": local.load_diffusion_models}[sub]
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-            load()
+        if sub == "vae":
+            vae = local.load_latent_models()["vae"]
+            assert type(vae.module).__name__ == "AutoencoderKLHunyuanVideo" and vae.config["scaling_factor"] == 0.476986
+        else:
+            with pytest.raises(FileNotFoundError):
+                local.load_diffusion_models()

@@ -277,7 +277,7 @@ def test_dataset_file_requests(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--dp_degree", "2"], ["--tp_degree", "2"], ["--cp_degree", "2"], ["--dp_shards", "2"], ["--pp_degree", "2"],
-    ["--dataset_file", "requests.parquet"], ["--revision", "main"], ["--tokenizer_id", "t", "--model_name", "flux"],
+    ["--dataset_file", "requests.parquet"], ["--revision", "main"], ["--tokenizer_id", "t", "--model_name", "dummy"],
 ], ids=lambda extra: extra[0].lstrip("-"))
 def test_unported_flags_raise_naming_roadmap(extra, monkeypatch):
     monkeypatch.setattr(WanModelSpecification, "load_diffusion_models",

@@ -72,7 +72,8 @@ training = {"finetrainers_tpu_torch." + m for m in (
     "trainer.control_trainer.config", "processors.control", "models.dummy", "models.dummy.base_specification",
     "models.dummy.pipeline", "models.dummy.weights", "ops.int8_linear", "utils.int8", "utils.fp8", "optim8bit",
     "models.text_encoders", "models.text_encoders.towers", "models.text_encoders.handles", "models.autoencoder_kl",
-    "models.wan.vae", "models.ltx_video.vae")}
+    "models.wan.vae", "models.ltx_video.vae", "models.causal_vae", "models.cogvideox.vae",
+    "models.hunyuan_video.vae")}
 assert training <= set(names) and len(names) > 20, sorted(training - set(names))
 print(len(names))
 """

@@ -276,7 +276,7 @@ def test_runner_serves_the_checkpoint_with_its_tokenizer_flag(checkpoint, tmp_pa
 
 def test_cogvideox_spec_loads_t5(tmp_path):
     """CogVideoX's `text_encoder/` loads through `T5Handle` (JAX :74-87) and
-    encodes its 226 slots; its VAE and transformer keep refusing."""
+    encodes its 226 slots (its VAE and transformer: test_torch_family_checkpoints.py)."""
     from finetrainers_tpu_torch.models.cogvideox import CogVideoXModelSpecification
 
     _write_t5(tmp_path / "text_encoder", umt5=False)
