@@ -22,8 +22,11 @@ exported adapter, the dummy family on the head-dim-32 instances of K1, the
 pre-pass, K2 and K3 (LoRA and 8-bit-AdamW full-finetune runs, a request), and
 CogView4-6B's raider_white_tarot example trained under int8 weight storage at
 1280x720 and served with `--quantize_int8`, K1's dense-mask branch, the GLM-4,
-Llama-3 and CLIP-L text towers at full width on it, and CogView4 loaded from a
-local diffusers directory (transformer, 2D AutoencoderKL, GLM-4) and served.
+Llama-3 and CLIP-L text towers at full width on it, CogView4 loaded from a
+local diffusers directory (transformer, 2D AutoencoderKL, GLM-4) and served
+(also under the `flex` provider), and the causal, packed-segment and
+dense-mask branches of K1, K2 and K3 through `attention_dispatch` at Wan's,
+Llama-3's and CogView4's widths.
 
     python3 chip_smoke.py
 
@@ -258,16 +261,17 @@ Phases, each printed on its own line:
      and SDPA; `cogvideox_run`, `python -m finetrainers_tpu_torch.train` with
      the crush_smol_lora train.sh's flags (one card, COGVIDEOX_RUN_POLICY for
      the example's `ops`, `transformer:auto`) from 2 videos written with cv2
-     at 81x480x768: 3 DDIM steps with weights 1 / (1 - alpha_bar[t]), K1 42,
-     the pre-pass 84, K2 42 and K3 42 a step and no reduce pass, the final
-     validation of the example's first prompt from the export in a fresh model
-     (2 steps, CFG: K1 and the pre-pass 84), the adapter reloaded
+     at 81x480x768, the transformer at full width cut to COGVIDEOX_RUN_BLOCKS
+     (8) of its 42 blocks: 3 DDIM steps with weights 1 / (1 - alpha_bar[t]),
+     K1 8, the pre-pass 16, K2 8 and K3 8 a step and no reduce pass, the
+     final validation of the example's first prompt from the export in a
+     fresh model (2 steps, CFG: K1 and the pre-pass 16), the adapter reloaded
      bit-equal, step seconds, model TFLOP/s, peaks and a profiled step;
      `cogvideox_serve`, one 81x480x768 request through `inference.main` with
-     cogvideox_text_to_video.sh's flags and that adapter, 2 DDIM steps of 50,
-     CFG 5.0: a finite (81, 480, 768, 3) video, K1 and the pre-pass 42 a
-     step and no other kernel, request, step and decode seconds, the peak and
-     a profiled step;
+     cogvideox_text_to_video.sh's flags and that adapter (8 blocks), 2 DDIM
+     steps of 50, CFG 5.0: a finite (81, 480, 768, 3) video, K1 and the
+     pre-pass 8 a step and no other kernel, request, step and decode
+     seconds, the peak and a profiled step;
   17. head dim 32 and the dummy family (its own width: dim 64 in 2 heads of
      32, 2 blocks, 16 caption slots): `h32_kernel_checks`, K1, the pre-pass,
      K2 (split, with its reduce pass, and unsplit) and K3 at head dim 32
@@ -278,9 +282,10 @@ Phases, each printed on its own line:
      exponentials, and SDPA; `dummy_run`, `python -m finetrainers_tpu_torch.train
      --model_name dummy` from 4 videos written with cv2 at 17x256x256 (4352
      tokens): a LoRA run (4 steps, K1 2, the pre-pass 4, K2 2 with 2 reduce
-     passes and K3 2 a block and step, the final validation) and a
-     full-finetune run under `adamw-bnb-8bit` (int8 moments for the
-     feed-forward kernels); `dummy_serve`, one request through
+     passes and K3 2 a block and step, the final validation), the same LoRA
+     run under `--attn_provider_training transformer:flash_varlen` (losses
+     bit-equal to the default run's) and a full-finetune run under
+     `adamw-bnb-8bit` (int8 moments for the feed-forward kernels); `dummy_serve`, one request through
      `inference.main --model_name dummy` with the LoRA adapter (K1 and the
      pre-pass 2 a block and step);
   18. CogView4-6B's raider_white_tarot SFT example: `cogview4_sft_run`, its
@@ -305,7 +310,19 @@ Phases, each printed on its own line:
      block-sparse masks with an all-zero key tile, empty rows and ragged last
      tiles (skipped tiles' k and v rows filled with large values leave out
      bit-equal), times beside SDPA given the same mask; `k1_mask_long_causal`,
-     (1, 32, 4096, 4096, 128) causal against unmasked K1;
+     (1, 32, 4096, 4096, 128) causal against unmasked K1; then
+     `attention_branches`: the causal, segment and mask branches of K1, K2 and
+     K3 through `attention_dispatch` and autograd in bf16 at the models'
+     widths (BRANCH_CASES: `flash_varlen` over two of Wan 2.1's 480x832 clips
+     packed to 20,352 tokens with their RoPE tables, each clip's rows against
+     the clip run alone; `is_causal` at Llama-3-8B's (1, 32, 4096, 4096, 128)
+     and (1, 32, 1024, 4096, 128), against K1's mask branch under the same
+     causal mask; `flex` at CogView4-6B's (1, 32, 5120, 5120, 128) with the
+     padded GLM slots' keys masked, whose dead key tiles filled with +-3e4
+     leave every output bit-equal, and a block-sparse mask with an empty
+     row): each against its plain version, launch counts exact with no
+     library attention kernel, kernel and device times, bounds over the live
+     pairs, SDPA given the same mask;
   20. `text_towers`: GLM-4-9B, Llama-3-8B and CLIP-L's text tower at their
      published configs, random on the card, one mask-branch launch a layer,
      each encode against the same tower under plain fp32 attention;
@@ -313,11 +330,13 @@ Phases, each printed on its own line:
      (transformer 2 of 28 blocks, the 2D AutoencoderKL, GLM-4 2 of 40 layers)
      loaded through the spec bit-equal, LoRA fresh, one 1024x1024 request of
      2 steps through the loaded GLM and VAE, then through the runner with a
-     word-level tokenizer where `transformers` and `tokenizers` import;
+     word-level tokenizer where `transformers` and `tokenizers` import, once
+     under the default provider and once under `--attn_provider flex`, whose
+     image must be bit-equal;
   22. `wan_checkpoint_run`, `ltx_checkpoint_serve`: Wan 2.1 and LTX-Video
      from local diffusers directories written here;
   23. `cogvideox_checkpoint_run`, `hunyuan_checkpoint_run`,
-     `flux_checkpoint_run`: CogVideoX-5B (14 of 42 blocks at full width, in 3
+     `flux_checkpoint_run`: CogVideoX-5B (6 of 42 blocks at full width, in 3
      shards), HunyuanVideo and FLUX.1-dev (2 dual and 2 single blocks)
      from local diffusers directories written here with their faithful VAEs
      and towers: each example's train.sh through `train.main` for 2 steps,
@@ -392,6 +411,7 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_forward_twopass_reference,
     flash_qk_prep,
     flash_qk_prep_reference,
+    live_pairs,
 )
 from finetrainers_tpu_torch.lora import LORA_WEIGHTS_NAME, apply_lora_state_dict, load_lora_weights
 from finetrainers_tpu_torch.ops.sage_attention import sage_attention_reference, sage_forward, sage_prep, sage_quantize
@@ -550,6 +570,9 @@ COGVIDEOX_SERVE_EXAMPLE = pathlib.Path(__file__).resolve().parent / "examples" /
 COGVIDEOX_PARAMS = 5_569_760_832
 COGVIDEOX_LORA_PARAMS = 74_317_824
 COGVIDEOX_LAYERS = 42
+# The crush_smol_lora run and its request run at full width cut to 8 of the 42 blocks (once trained and served at
+# the whole depth): the script's time limit.
+COGVIDEOX_RUN_BLOCKS = 8
 COGVIDEOX_HEADS = 48
 COGVIDEOX_TEXT = 226
 COGVIDEOX_BUCKET = (81, 480, 768)
@@ -653,7 +676,8 @@ SWITCHES = ("FINETRAINERS_FLASH_FUSED_BWD", "FINETRAINERS_FLASH_TWOPASS", "FINET
 # (their consumers run at 240 and 160 registers).
 NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "bwd_dkdv_sm90_kernel", "bwd_dq_sm90_kernel", "sage_fwd_sm90_kernel",
                     "bwd_fused_sm90_kernel", "flash_fwd_twopass_sm90_kernel", "flash_fwd_two_level_sm90_kernel",
-                    "flash_fwd_skew_sm90_kernel", "flash_fwd_mask_sm90_kernel")
+                    "flash_fwd_skew_sm90_kernel", "flash_fwd_mask_sm90_kernel", "flash_fwd_causal_sm90_kernel",
+                    "flash_fwd_segment_sm90_kernel")
 # H100 SXM dense peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -699,27 +723,39 @@ def timed_call(fn):
     return out, start.elapsed_time(end)
 
 
-def device_ms(fn, kernels, calls=5):
+# Small kernels launched before the timed calls inside each `device_ms` trace: torch.profiler now and then misses
+# the first few kernel records of a trace (`tools/torch_device_ms_probe.py`), and these are the ones it misses.
+DEVICE_MS_PAD = 32
+
+
+def device_ms(fn, kernels, calls=5, tries=3):
     """Device time of one call of `fn` from torch.profiler: over `calls` calls
-    (after one warm-up), the durations of the kernels whose names contain one
-    of `kernels`, summed and divided by the launches of the first (None if
-    no trace holds one). Unlike `cuda_ms` it leaves out the host's time to
-    issue them."""
+    (after one warm-up), the median duration of each kernel whose name
+    contains one of `kernels`, summed over them (a median, as one whole-script
+    trace held a record far below the kernel's bound). DEVICE_MS_PAD small
+    kernels precede the calls inside the trace, so that records missed at its
+    start are theirs. A trace counts only where it holds exactly `calls`
+    launches of every kernel named (each must launch once per call); else
+    another is taken, and None comes back after `tries` traces that fall
+    short. Unlike `cuda_ms` it leaves out the host's time to issue them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    pad = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the trace now and then comes back without the kernels' events: take another
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(DEVICE_MS_PAD):
+                pad.add_(1)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         events = [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA
-                  and not getattr(evt, "is_user_annotation", False) and any(k in evt.name for k in kernels)]
-        launches = sum(kernels[0] in evt.name for evt in events)
-        if launches:
-            return sum(evt.time_range.elapsed_us() for evt in events) / launches / 1e3
+                  and not getattr(evt, "is_user_annotation", False)]
+        by_kernel = [[evt.time_range.elapsed_us() for evt in events if k in evt.name] for k in kernels]
+        if all(len(us) == calls for us in by_kernel):
+            return sum(statistics.median(us) for us in by_kernel) / 1e3
     return None
 
 
@@ -768,6 +804,16 @@ def ltx_train_step_flops(cfg: dict, lora_rank: int, remat_factor: float, B: int,
 # Kernel names of K2 (with its reduce pass) and K3, for `device_ms`.
 K2_KERNELS = ("bwd_dkdv_sm90_kernel", "dkdv_reduce_kernel")
 K3_KERNELS = ("bwd_dq_sm90_kernel",)
+
+
+def k2_kernels(q_s, k_r):
+    """K2's names for `device_ms` on BNSH operands q_s, k_r: the reduce pass's
+    too where `dkdv_splits` cuts the q loop, else K2's alone."""
+    b, n, sq, _ = q_s.shape
+    splits = dkdv_splits(b, n, sq, k_r.shape[2], torch.cuda.get_device_properties(0).multi_processor_count)[0]
+    return K2_KERNELS if splits > 1 else K2_KERNELS[:1]
+
+
 # Profile classes by kernel name; the pre-pass's class counts its forward and backward launches.
 _KERNEL_CLASSES = (("k1", "flash_fwd_sm90_kernel"), ("k2", K2_KERNELS[0]), ("k2_reduce", K2_KERNELS[1]),
                    ("k3", K3_KERNELS[0]), ("prep", "rope_prep_kernel"), ("k6", "sage_fwd_sm90_kernel"),
@@ -1133,7 +1179,7 @@ def check_k2k3(card, cases=None, phase_name="k2k3_check"):
         prep_plain_ms = cuda_ms(lambda: flash_qk_prep_reference(q, k, cos, sin, scale))
         k2_ms = cuda_ms(lambda: flash_bwd_dkdv(*operands, rope_sn))
         k3_ms = cuda_ms(lambda: flash_bwd_dq(*operands, rope_sn, scale))
-        k2_device_ms = device_ms(lambda: flash_bwd_dkdv(*operands, rope_sn), K2_KERNELS)
+        k2_device_ms = device_ms(lambda: flash_bwd_dkdv(*operands, rope_sn), k2_kernels(q_s, k_r))
         k3_device_ms = device_ms(lambda: flash_bwd_dq(*operands, rope_sn, scale), K3_KERNELS)
         backward_ms = cuda_ms(lambda: flash_backward(q, k, v, out, lse, do, lens, cos, sin))
         k2_plain_ms = cuda_ms(plain_k2, iters=plain_iters, warmup=plain_iters - 1)
@@ -4134,11 +4180,13 @@ def cogvideox_run(card):
     floor_bench's joint formula with the policy's remat factor, precompute
     seconds per item, whether the VAE ran in pieces, the validation's seconds
     and launches; the exported adapter reloaded into a fresh model must give
-    the trained model's forward bit for bit; the run's last step profiled.
+    the trained model's forward bit for bit; the run's last step profiled. The
+    transformer runs at full width cut to COGVIDEOX_RUN_BLOCKS of 42 blocks.
     Returns the run's launches, reduce passes, the adapter's directory and
     the in-step times."""
     from finetrainers_tpu_torch import train as train_cli
     from finetrainers_tpu_torch.models import autoencoders
+    from finetrainers_tpu_torch.models.cogvideox import COGVIDEOX_5B_CONFIG
 
     t0 = time.perf_counter()
     training_json, validation_json = cogvideox_run_data(SMOKE_DIR / "cogvideox_run_data")
@@ -4149,14 +4197,17 @@ def cogvideox_run(card):
                          precomputation_items=COGVIDEOX_RUN_VIDEOS, gradient_checkpointing_type=COGVIDEOX_RUN_POLICY)
     with vae_pieces_seen() as vae, recorded_loss_weights() as weights, \
             counted_run(profile_step=COGVIDEOX_RUN_STEPS) as rec:
-        trainer = train_cli.main(argv)
+        trainer = train_cli.main(argv, transformer_config=dict(COGVIDEOX_5B_CONFIG, num_layers=COGVIDEOX_RUN_BLOCKS))
     steps, validations, prof = rec["steps"], rec["validations"], rec["profile"]
     module = trainer.transformer.module
     base_params = sum(p.numel() for n, p in module.named_parameters() if n not in trainer._trainable)
     lora_params = sum(p.numel() for p in trainer._trainable.values())
+    block_params = sum(p.numel() for n, p in module.transformer_blocks[0].named_parameters() if ".lora_" not in n)
     scheduler = trainer.scheduler
-    shape_ok = (base_params == COGVIDEOX_PARAMS and lora_params == COGVIDEOX_LORA_PARAMS
-                and len(module.transformer_blocks) == COGVIDEOX_LAYERS
+    # The published model less the blocks cut away, each block's LoRA factors the published share.
+    shape_ok = (base_params == COGVIDEOX_PARAMS - (COGVIDEOX_LAYERS - COGVIDEOX_RUN_BLOCKS) * block_params
+                and lora_params == COGVIDEOX_LORA_PARAMS // COGVIDEOX_LAYERS * COGVIDEOX_RUN_BLOCKS
+                and len(module.transformer_blocks) == COGVIDEOX_RUN_BLOCKS
                 and module.gradient_checkpointing == COGVIDEOX_RUN_POLICY
                 and type(scheduler).__name__ == "CogVideoXDDIMScheduler"
                 and trainer.attn_provider_training == {"transformer": "auto"})
@@ -4194,23 +4245,24 @@ def cogvideox_run(card):
     # and each backward, K2 and K3 in each backward; 48 heads x 239 kv tiles = 11,472 CTAs, so K2's q loop is not
     # split and no reduce pass runs. Under "full" K1 and the pre-pass run once more in the recompute.
     recompute = 1 if COGVIDEOX_RUN_POLICY == "full" else 0
-    step_want = dict(k1=(1 + recompute) * COGVIDEOX_LAYERS, prep=(2 + recompute) * COGVIDEOX_LAYERS,
-                     k2=COGVIDEOX_LAYERS, k3=COGVIDEOX_LAYERS)
+    step_want = dict(k1=(1 + recompute) * COGVIDEOX_RUN_BLOCKS, prep=(2 + recompute) * COGVIDEOX_RUN_BLOCKS,
+                     k2=COGVIDEOX_RUN_BLOCKS, k3=COGVIDEOX_RUN_BLOCKS)
     want = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
     steps_ok = all(st["launches"] == want and st["reduce"] == 0 for st in steps)
     # 1 request x 2 DDIM steps, CFG in one batch of 2.
-    validation_want = {"k1": 2 * COGVIDEOX_LAYERS, "prep": 2 * COGVIDEOX_LAYERS}
+    validation_want = {"k1": 2 * COGVIDEOX_RUN_BLOCKS, "prep": 2 * COGVIDEOX_RUN_BLOCKS}
     validations_ok = (len(validations) == 1 and validations[0]["final"]
                       and validations[0]["launches"] == validation_want)
     d = COGVIDEOX_HEADS * 64
     per_layer = joint_train_step_flops(1, d, COGVIDEOX_RANK, 0.0, B=1, S=COGVIDEOX_TOKENS) / 2.0
     remat = {"full": 1.0, "ops_attn": 1.0 - 2 * 2 * COGVIDEOX_TOKENS**2 * d / per_layer}.get(COGVIDEOX_RUN_POLICY, 0.0)
-    flops = joint_train_step_flops(COGVIDEOX_LAYERS, d, COGVIDEOX_RANK, remat, B=1, S=COGVIDEOX_TOKENS)
+    flops = joint_train_step_flops(COGVIDEOX_RUN_BLOCKS, d, COGVIDEOX_RANK, remat, B=1, S=COGVIDEOX_TOKENS)
     median_s = statistics.median([st["seconds"] for st in steps[1:] if not st["profiled"]])  # step 2
     in_step = {cls: _median(prof["launches"][cls]) for cls in ("k1", "prep", "k2", "k3")}
     phase("cogvideox_run", card=card, entry="python -m finetrainers_tpu_torch.train", argv=[str(a) for a in argv],
           policy_note=f"{COGVIDEOX_RUN_POLICY} for the example's ops, which does not fit one card at this bucket",
           bucket=list(COGVIDEOX_BUCKET), tokens=COGVIDEOX_TOKENS, latents_shape=latent_shape,
+          blocks=COGVIDEOX_RUN_BLOCKS, blocks_note=f"cut from {COGVIDEOX_LAYERS} at full width",
           published_shape=shape_ok, base_params=base_params, lora_params=lora_params, data_write_s=data_s,
           precompute_s=precompute_s, precompute_s_per_item=precompute_s / COGVIDEOX_RUN_VIDEOS, peaks_gb=rec["peaks"],
           step_seconds=[st["seconds"] for st in steps], median_step_s_2_to_3=median_s,
@@ -4232,7 +4284,7 @@ def cogvideox_run(card):
           top_kernels_ms=prof["top_kernels_ms"], device_events=prof["device_events"])
     if not (shape_ok and steps_ok and validations_ok and weights_ok and reload_bit_equal
             and len(steps) == COGVIDEOX_RUN_STEPS and len(losses) == COGVIDEOX_RUN_STEPS and all(np.isfinite(losses))
-            and len(state) == 2 * 6 * COGVIDEOX_LAYERS and config.get("r") == COGVIDEOX_RANK
+            and len(state) == 2 * 6 * COGVIDEOX_RUN_BLOCKS and config.get("r") == COGVIDEOX_RANK
             and latent_shape == [1, 21, 32, 60, 96] and len(videos) == 1 and rec["reduce"] == 0):
         raise AssertionError("the crush_smol_lora CogVideoX example's run failed its checks")
     del state
@@ -4247,13 +4299,14 @@ def cogvideox_serve(card, adapter):
     batch of 2) and the adapter `cogvideox_run` exported. The VAE decode, each
     denoise step and the request are timed by synced wrappers; the video must
     be finite, (81, 480, 768, 3) uint8, every LoRA factor of the served model
-    the adapter's, K1 and the pre-pass 42 times a step and no other kernel.
-    Then one denoise step profiled."""
+    the adapter's, K1 and the pre-pass once a block and step (the run's
+    COGVIDEOX_RUN_BLOCKS blocks) and no other kernel. Then one denoise step
+    profiled."""
     from finetrainers_tpu_torch import inference
     from finetrainers_tpu_torch.data.utils import load_video
     from finetrainers_tpu_torch.models import autoencoders
     from finetrainers_tpu_torch.models.autoencoders import AutoencoderKL3D
-    from finetrainers_tpu_torch.models.cogvideox import CogVideoXPipeline
+    from finetrainers_tpu_torch.models.cogvideox import COGVIDEOX_5B_CONFIG, CogVideoXPipeline
 
     out_dir = SMOKE_DIR / "cogvideox_serve"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -4292,7 +4345,7 @@ def cogvideox_serve(card, adapter):
                                                     value.to(params[key[len("transformer."):]].device)))
                                    for key, value in adapter_state.items())
         facts["lora_b_nonzero"] = all(bool(adapter_state[f"transformer.{name}.lora_B.weight"].any()) for name in (
-            "transformer_blocks.0.attn1.to_q", "transformer_blocks.41.ff.net.2"))
+            "transformer_blocks.0.attn1.to_q", f"transformer_blocks.{COGVIDEOX_RUN_BLOCKS - 1}.ff.net.2"))
         del adapter_state
         video = request(self, *args, **kwargs)
         facts["video_shape"], facts["video_dtype"] = list(video.shape), str(video.dtype)
@@ -4310,7 +4363,8 @@ def cogvideox_serve(card, adapter):
             torch.cuda.reset_peak_memory_stats()
             _zero_counts()
             t0 = time.perf_counter()
-            paths = inference.main([str(a) for a in argv])
+            paths = inference.main([str(a) for a in argv],
+                                   transformer_config=dict(COGVIDEOX_5B_CONFIG, num_layers=COGVIDEOX_RUN_BLOCKS))
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             launches, peak_gb = _counts(), torch.cuda.max_memory_allocated() / 1e9
@@ -4321,10 +4375,11 @@ def cogvideox_serve(card, adapter):
         prof = profile_device(lambda: originals["denoise_step"](last[0], *last[1], **last[2]))
     del last[:]
     written = load_video(paths[0], to_float=False)
-    expected = {k_: COGVIDEOX_LAYERS * COGVIDEOX_SERVE_STEPS if k_ in ("k1", "prep") else 0 for k_ in launches}
+    expected = {k_: COGVIDEOX_RUN_BLOCKS * COGVIDEOX_SERVE_STEPS if k_ in ("k1", "prep") else 0 for k_ in launches}
     in_step = {cls: _median(prof["launches"][cls]) for cls in ("k1", "prep")}
     phase("cogvideox_serve", card=card, entry="python -m finetrainers_tpu_torch.inference",
           argv=[str(a) for a in argv[:-2]], steps=COGVIDEOX_SERVE_STEPS, steps_note="cut from the request's 50",
+          blocks=COGVIDEOX_RUN_BLOCKS,
           tokens=COGVIDEOX_TOKENS, text_tokens=COGVIDEOX_TEXT, request_s=seconds["request"], step_s=seconds["step"],
           vae_decode_s=seconds["decode"], main_wall_s=wall_s, peak_memory_gb=peak_gb, launches=launches,
           launches_expected=expected, vae_max_elements=vae["max_elements"],
@@ -4339,7 +4394,7 @@ def cogvideox_serve(card, adapter):
     if not (facts.get("video_shape") == [frames, height, width, 3] and facts.get("video_dtype") == "uint8"
             and facts.get("scheduler") == "CogVideoXDDIMScheduler" and facts.get("guidance_scale") == 5.0
             and facts.get("vae_slicing_tiling") == [True, True] and facts.get("lora_loaded")
-            and facts.get("lora_b_nonzero") and facts.get("lora_factors") == 2 * 6 * COGVIDEOX_LAYERS
+            and facts.get("lora_b_nonzero") and facts.get("lora_factors") == 2 * 6 * COGVIDEOX_RUN_BLOCKS
             and launches == expected and len(seconds["step"]) == COGVIDEOX_SERVE_STEPS and len(seconds["decode"]) == 1
             and list(written.shape) == [frames, height, width, 3] and paths[0].endswith(".mp4")):
         raise AssertionError("CogVideoX serving through the runner failed its checks")
@@ -4398,7 +4453,10 @@ def dummy_run(card):
     than the SMs, so both q loops are split); the validation 2 K1 and 2 pre-pass
     launches per block and step. In the full-finetune run every parameter of
     at least 4096 elements (the feed-forward kernels, 64 x 256, among them)
-    keeps int8 moments. Returns the LoRA run's adapter and the runs' launches."""
+    keeps int8 moments. The LoRA run is repeated under `--attn_provider_training
+    transformer:flash_varlen`, which takes the dummy's `kv_lens` calls to K1
+    as `auto` does: its losses must be bit-equal. Returns the LoRA run's
+    adapter and the runs' launches."""
     from finetrainers_tpu_torch import train as train_cli
     from finetrainers_tpu_torch.optim8bit import Adam8bit
 
@@ -4406,8 +4464,11 @@ def dummy_run(card):
     step_want = dict(k1=2 * DUMMY_LAYERS, prep=4 * DUMMY_LAYERS, k2=2 * DUMMY_LAYERS, k3=2 * DUMMY_LAYERS)
     want = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
     records = {}
+    lora_flags = ("--rank", str(DUMMY_RANK), "--lora_alpha", str(DUMMY_RANK))
     for name, training_type, steps, extra in (
-            ("lora", "lora", DUMMY_RUN_STEPS, ("--rank", str(DUMMY_RANK), "--lora_alpha", str(DUMMY_RANK))),
+            ("lora", "lora", DUMMY_RUN_STEPS, lora_flags),
+            ("lora_flash_varlen", "lora", DUMMY_RUN_STEPS,
+             (*lora_flags, "--attn_provider_training", "transformer:flash_varlen")),
             ("full_finetune_adamw_8bit", "full-finetune", DUMMY_FULL_STEPS, ("--optimizer", "adamw-bnb-8bit"))):
         out_dir = SMOKE_DIR / f"dummy_{name}"
         argv = dummy_argv(training_json, validation_json, out_dir, training_type, steps, *extra)
@@ -4423,7 +4484,7 @@ def dummy_run(card):
                      blocks=len(module.blocks), params=sum(p.numel() for p in module.parameters()),
                      trained=sum(p.numel() for p in trainer._trainable.values()))
         eight_bit = None
-        if name != "lora":
+        if training_type != "lora":
             inner = trainer.optimizer.inner
             params = dict(module.named_parameters())
             eight_bit = {n: dict(codes=str(inner.state[p]["mu_codes"].dtype), rows=inner.state[p]["mu_scales"].numel(),
@@ -4435,22 +4496,25 @@ def dummy_run(card):
         validation_want = {"k1": 2 * 2 * DUMMY_LAYERS, "prep": 2 * 2 * DUMMY_LAYERS}  # 2 steps, no CFG
         validations_ok = (len(validations) == 1 and validations[0]["final"]
                           and validations[0]["launches"] == validation_want)
+        # The same LoRA run under `flash_varlen`, which takes the dummy's kv_lens calls to K1 as `auto` does.
+        losses_equal_default = None if name != "lora_flash_varlen" else losses == records["lora"]["losses"]
         phase("dummy_run", card=card, run=name, entry="python -m finetrainers_tpu_torch.train",
               argv=[str(a) for a in argv], bucket=list(DUMMY_BUCKET), tokens=DUMMY_TOKENS, **facts,
               step_seconds=[st["seconds"] for st in steps_rec], step_peaks_gb=[st["peak_gb"] for st in steps_rec],
               step_launches=steps_rec[0]["launches"], step_reduce_passes=[st["reduce"] for st in steps_rec],
               step_launches_all_exact=steps_ok, losses=losses, validations=validations,
               validations_launches_exact=validations_ok, eight_bit_moments=eight_bit, run_s=rec["run_s"],
-              launches=rec["launches"], reduce_passes=rec["reduce"])
+              launches=rec["launches"], reduce_passes=rec["reduce"], losses_bit_equal_to_default=losses_equal_default)
         ff_8bit = eight_bit is None or all(
             eight_bit.get(f"blocks.{i}.ff.{layer}.weight", {}).get("nonzero") for i in range(DUMMY_LAYERS)
             for layer in ("proj_in", "proj_out"))
         if not (steps_ok and validations_ok and len(steps_rec) == steps and len(losses) == steps
                 and all(np.isfinite(losses)) and len(videos) == 1 and ff_8bit
-                and (facts["heads"], facts["head_dim"], facts["blocks"]) == (DUMMY_HEADS, 32, DUMMY_LAYERS)):
+                and (facts["heads"], facts["head_dim"], facts["blocks"]) == (DUMMY_HEADS, 32, DUMMY_LAYERS)
+                and losses_equal_default is not False):
             raise AssertionError(f"the dummy {name} run failed its checks")
         records[name] = dict(launches=rec["launches"], reduce=rec["reduce"],
-                             step_launches=steps_rec[0]["launches"])
+                             step_launches=steps_rec[0]["launches"], losses=losses)
         del trainer, module
         _free_cuda()
     return dict(records, adapter=SMOKE_DIR / "dummy_lora" / "lora_weights" / f"{DUMMY_RUN_STEPS:06d}")
@@ -5007,6 +5071,422 @@ def check_k1_mask(card):
     return worst, records
 
 
+# The attention branches of K1, K2 and K3 (causal, segment ids, a dense mask) at the models' widths, through
+# `attention_dispatch` and autograd in bf16: (name, provider, B, N, Sq, Skv, H, kind). Wan 2.1 T2V-1.3B's
+# self-attention over two clips of the example's 480x832 bucket packed with `pack_sequences` (17 and 29 frames,
+# 7,800 + 12,480 tokens, padded to 20,352 with -1 ids) with each clip's RoPE tables; Llama-3-8B's attention over 8 kv
+# heads repeated, causal, square and with Sq < Skv; CogView4-6B's joint attention over [1024 GLM slots, 4096
+# patches] with the keys of the padded GLM slots past 143 live ones masked for every query (ROADMAP.md section 3,
+# finding 15's shape) and a random block-sparse mask with ragged tiles and an empty row.
+BRANCH_CASES = (
+    ("varlen_wan_packed", "flash_varlen", 1, 12, 20352, 20352, 128, "segment"),
+    ("causal_llama", "auto", 1, 32, 4096, 4096, 128, "causal"),
+    ("causal_llama_q_short", "auto", 1, 32, 1024, 4096, 128, "causal"),
+    ("flex_cogview4_padded_slots", "flex", 1, 32, 5120, 5120, 128, "padded_slots"),
+    ("flex_block_sparse", "flex", 1, 32, 5000, 4900, 128, "sparse"),
+)
+WAN_CLIP_FRAMES, WAN_CLIP_TOKENS = (5, 8), (7800, 12480)  # latent frames of 17 and 29 video frames, at 30 x 52
+COGVIEW4_LIVE_SLOTS = 143
+# The kernels of each branch, by torch.profiler name.
+BRANCH_KERNELS = {"segment": "flash_fwd_segment_sm90_kernel", "causal": "flash_fwd_causal_sm90_kernel",
+                  "mask": "flash_fwd_mask_sm90_kernel"}
+# Library attention kernels, any of which on the branches' path fails the check.
+LIBRARY_ATTENTION = ("fmha", "pytorch_flash", "efficient_attention", "cudnn", "sdpa", "flash::")
+
+
+def _branch_counts():
+    """The branch launches of K1, K2 and K3 besides `_counts()`."""
+    return {f"{key}_{branch}": n for key, fn in (("k1", flash_forward), ("k2", flash_bwd_dkdv), ("k3", flash_bwd_dq))
+            for branch, n in fn.branch_launches.items()}
+
+
+def _zero_branch_counts():
+    for fn in (flash_forward, flash_bwd_dkdv, flash_bwd_dq):
+        for branch in fn.branch_launches:
+            fn.branch_launches[branch] = 0
+    flash_bwd_dkdv.reduce_launches = 0
+
+
+def branch_bounds(b, n, sq, skv, h, live):
+    """K1's, K2's and K3's least times over `live` (query, key) pairs only:
+    K1 4*N*live*H operations against q, k, v, out and the LSE once; K2 8*N*live*H
+    against q_s, dO, LSE, delta, k_r, v read and dk, dv written once; K3
+    6*N*live*H against q_s, dO, LSE, delta, k_r, v read and dq written once."""
+    q_bytes, kv_bytes, rows = b * n * sq * h * 2, b * n * skv * h * 2, b * n * sq * 4
+    return (bound(4 * n * live * h, 2 * q_bytes + 2 * kv_bytes + rows),
+            bound(8 * n * live * h, 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes),
+            bound(6 * n * live * h, 3 * q_bytes + 2 * kv_bytes + 2 * rows))
+
+
+def _branch_inputs(name, b, n, sq, skv, h, kind, g):
+    """BTNH bf16 leaves q, k, v, the upstream gradient, and the branch's inputs:
+    (kwargs for `attention_dispatch`, kwargs for the plain versions, the
+    (B, Sq, Skv) live pairs)."""
+    q = torch.randn(b, sq, n, h, generator=g, device="cuda").to(torch.bfloat16)
+    kv_heads = 8 if kind == "causal" else n
+    k, v = (torch.randn(b, skv, kv_heads, h, generator=g, device="cuda").to(torch.bfloat16)
+            .repeat_interleave(n // kv_heads, dim=2) for _ in range(2))
+    do = torch.randn(b, sq, n, h, generator=g, device="cuda").to(torch.bfloat16)
+    if kind == "segment":  # the two clips packed, each with its own Wan tables, identity on the padding
+        clips = [torch.arange(t, device="cuda") for t in WAN_CLIP_TOKENS]
+        _, ids = attention_ops.pack_sequences(clips, total_len=sq)
+        tables = [wan_tables((f, 30, 52)) for f in WAN_CLIP_FRAMES]
+        pad = sq - sum(WAN_CLIP_TOKENS)
+        cos = torch.cat([t[0] for t in tables] + [torch.ones(pad, h, device="cuda")]).contiguous()
+        sin = torch.cat([t[1] for t in tables] + [torch.zeros(pad, h, device="cuda")]).contiguous()
+        ids = ids.to("cuda")
+        live = ids[:, :, None] == ids[:, None, :]
+        return q, k, v, do, (dict(q_segment_ids=ids, kv_segment_ids=ids, rope_freqs=(cos, sin)),
+                             dict(q_seg=ids, kv_seg=ids, rope=(cos[None], sin[None])), live)
+    if kind == "causal":
+        live = torch.ones(sq, skv, dtype=torch.bool, device="cuda").tril(skv - sq)[None]
+        return q, k, v, do, (dict(is_causal=True), dict(causal=True), live)
+    if kind == "padded_slots":
+        mask = torch.ones(b, sq, skv, dtype=torch.bool, device="cuda")
+        mask[:, :, COGVIEW4_LIVE_SLOTS:COGVIEW4_TEXT] = False
+    else:
+        mask = block_sparse_mask(b, sq, skv, g)
+    return q, k, v, do, (dict(attn_mask=mask[:, None]), dict(mask=mask), mask)
+
+
+def check_attention_branches(card):
+    """The causal, segment and mask branches of K1, K2 and K3 on the card,
+    through `attention_dispatch` and `torch.autograd` in bf16 at the models'
+    widths (BRANCH_CASES): each case's forward and backward once with the
+    counts zeroed just before (the pre-pass twice, the branch's K1, K2 (with
+    its reduce pass where the q loop splits) and K3 once each, no other
+    counted kernel, and no library attention kernel in its torch.profiler
+    trace); out (elementwise and in relative L2) and the LSE against the plain
+    versions within K1's tolerances on rows with a live key (rows without one
+    exactly 0), and bit-equal to `flash_forward`'s, dq, dk and dv within
+    K2/K3's; `flash_varlen`'s packed clips against each clip run alone through
+    K1-K3 (the same tolerances); the causal branch's out against K1's mask
+    branch given the same causal mask, and its CUDA-event and
+    device times over the unmasked kernels' on the same inputs (about 0.5
+    where the diagonal's tiles are skipped; not gated); in the padded-slot case, the dead key
+    tiles 2-7 filled with +-3e4 leaving out, the LSE, dq and the live keys' dk
+    and dv bit-equal and the dead keys' exactly 0. Per branch: CUDA-event ms
+    of each kernel alone on the pre-pass's operands, device ms, the plain
+    version's ms, the bound over live pairs only and torch SDPA's time given
+    the same mask (`is_causal` where Sq = Skv). Returns the worst errors and
+    the records by case and the launches by case."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    empty_lse = float(np.float32(-1e30 * np.log(2.0)))
+    worst, records, launches_by_case = {"k1": 0.0, "k2": 0.0, "k3": 0.0}, {}, {}
+    for name, provider, b, n, sq, skv, h, kind in BRANCH_CASES:
+        branch = {"segment": "segment", "causal": "causal"}.get(kind, "mask")
+        q, k, v, do, (dispatch_kw, plain_kw, live) = _branch_inputs(name, b, n, sq, skv, h, kind, g)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+        def run(leaves=leaves):
+            out = attention_dispatch(*leaves, provider=provider, **dispatch_kw)
+            return (out, *torch.autograd.grad(out, leaves, do))
+
+        torch.cuda.synchronize()
+        _zero_counts()
+        _zero_branch_counts()
+        out, dq, dk, dv = run()
+        torch.cuda.synchronize()
+        counts = {k_: c for k_, c in {**_counts(), **_branch_counts()}.items() if c}
+        splits = dkdv_splits(b, n, sq, skv, sms)[0]
+        k1_key = "k1_mask" if branch == "mask" else "k1"
+        want = {"prep": 2, k1_key: 1, "k2": 1, "k3": 1, f"k2_{branch}": 1, f"k3_{branch}": 1}
+        if branch != "mask":
+            want[f"k1_{branch}"] = 1
+        if splits > 1:
+            want["k2_reduce"] = 1
+        counts_ok = counts == want
+        launches_by_case[name] = counts
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = {evt.name for evt in prof.events() if evt.device_type == DeviceType.CUDA}
+        library = sorted(nm for nm in names if any(t in nm.lower() for t in LIBRARY_ATTENTION))
+
+        # The plain versions, one head at a time, on BNSH views; the backward on the kernel's out and LSE.
+        qb, kb, vb, dob = (x.transpose(1, 2) for x in (q, k, v, do))
+        cos, sin = plain_kw.get("rope", (None, None))
+        branches = dict(causal=plain_kw.get("causal", False), q_seg=plain_kw.get("q_seg"),
+                        kv_seg=plain_kw.get("kv_seg"), mask=plain_kw.get("mask"))
+        k_out, k_lse = flash_forward(qb, kb, vb, None, cos, sin, None, **branches)
+
+        (ref, ref_lse), plain_ms = timed_call(lambda: _by_head(
+            lambda q_, k_, v_: flash_attention_reference(q_, k_, v_, None, cos, sin, None, **branches), n,
+            (qb, kb, vb), ()))
+        (ref_dq, ref_dk, ref_dv), plain_bwd_ms = timed_call(lambda: _by_head(
+            lambda q_, k_, v_, o_, l_, d_: flash_backward_reference(q_, k_, v_, o_, l_, d_, None, cos, sin, None, None,
+                                                                    **branches),
+            n, (qb, kb, vb, k_out, k_lse, dob), ()))
+        live_rows = live.expand(b, sq, skv).any(-1)[:, None, :].expand(b, n, sq)
+        diff = out.transpose(1, 2).float() - ref.float()
+        err = diff.abs()
+        k1_err = dict(max_abs_err=err[live_rows].max().item(),
+                      err_over_max1_ref=(err / ref.float().abs().clamp_min(1.0))[live_rows].max().item(),
+                      rel_l2=(diff[live_rows].norm() / ref.float()[live_rows].norm()).item(),
+                      lse_max_abs_err=(k_lse - ref_lse).abs()[live_rows].max().item())
+        del diff, err
+        empty_ok = None
+        if not live_rows.all():
+            empty_ok = bool(not out.transpose(1, 2)[~live_rows].any() and not dq.transpose(1, 2)[~live_rows].any()
+                            and (k_lse[~live_rows] == empty_lse).all())
+        bwd_err = {nm: rel_errors(got.transpose(1, 2), want_)
+                   for nm, got, want_ in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv))}
+        del ref, ref_lse, ref_dq, ref_dk, ref_dv
+        record = dict(k1_vs_plain=k1_err, bwd_vs_plain={nm: dict(zip(("rel_l2", "max_err_over_max_ref",
+                                                                      "max_abs_err"), e))
+                                                         for nm, e in bwd_err.items()})
+        checks = dict(launches_exact=counts_ok, no_library_kernel=not library, empty_rows_zero=empty_ok,
+                      out_equal_to_k4=bool(torch.equal(k_out, out.transpose(1, 2))))
+
+        if kind == "segment":  # each clip alone through K1-K3 (its own tables), against the packed rows
+            clip_err, lo = {}, 0
+            cos_t, sin_t = dispatch_kw["rope_freqs"]
+            for i, t in enumerate(WAN_CLIP_TOKENS):
+                sl = slice(lo, lo + t)
+                alone = [x[:, sl].detach().clone().requires_grad_() for x in (q, k, v)]
+                a_out = attention_dispatch(*alone, rope_freqs=(cos_t[sl].contiguous(), sin_t[sl].contiguous()))
+                a_grads = torch.autograd.grad(a_out, alone, do[:, sl])
+                e = (out[:, sl].float() - a_out.float()).abs()
+                clip_err[f"clip{i}"] = dict(out_err_over_max1=(e / a_out.float().abs().clamp_min(1.0)).max().item(),
+                                            out_rel_l2=rel_l2(out[:, sl].float(), a_out.float()),
+                                            **{nm: rel_errors(got[:, sl], want_)[:2] for nm, got, want_ in
+                                               zip(("dq", "dk", "dv"), (dq, dk, dv), a_grads)})
+                lo += t
+            record["clips_alone"] = clip_err
+            checks["clips_equal_alone"] = all(
+                c["out_err_over_max1"] <= K1_TOL and c["out_rel_l2"] <= K1_REL_L2_TOL
+                and all(c[nm][0] <= BWD_REL_L2_TOL and c[nm][1] <= BWD_MAX_RATIO_TOL for nm in ("dq", "dk", "dv"))
+                for c in clip_err.values())
+        if kind == "causal":  # against K1's mask branch under the same causal mask
+            m_out, m_lse = flash_forward(qb, kb, vb, mask=live.expand(b, sq, skv))
+            e = (k_out.float() - m_out.float()).abs()
+            record["vs_k1_mask_branch"] = dict(err_over_max1=(e / m_out.float().abs().clamp_min(1.0)).max().item(),
+                                               rel_l2=rel_l2(k_out.float(), m_out.float()),
+                                               bit_equal=bool(torch.equal(k_out, m_out)))
+            checks["equals_mask_branch"] = (record["vs_k1_mask_branch"]["err_over_max1"] <= K1_TOL
+                                            and record["vs_k1_mask_branch"]["rel_l2"] <= K1_REL_L2_TOL)
+        if kind == "padded_slots":  # the dead key tiles 2-7 (keys 256-1023) are never read
+            big = [x.detach().clone() for x in (k, v)]
+            big[0][:, 256:COGVIEW4_TEXT], big[1][:, 256:COGVIEW4_TEXT] = 3e4, -3e4
+            b_leaves = [leaves[0].detach().clone().requires_grad_()] + [x.requires_grad_() for x in big]
+            b_out, b_dq, b_dk, b_dv = run(b_leaves)
+            _, b_lse = flash_forward(qb, big[0].transpose(1, 2), big[1].transpose(1, 2), mask=plain_kw["mask"])
+            dead = slice(COGVIEW4_LIVE_SLOTS, COGVIEW4_TEXT)
+            live_keys = torch.ones(skv, dtype=torch.bool, device="cuda")
+            live_keys[dead] = False
+            checks["dead_tiles_never_read"] = bool(
+                torch.equal(b_out, out) and torch.equal(b_lse, k_lse) and torch.equal(b_dq, dq)
+                and torch.equal(b_dk[:, live_keys], dk[:, live_keys])
+                and torch.equal(b_dv[:, live_keys], dv[:, live_keys])
+                and not b_dk[:, dead].any() and not b_dv[:, dead].any())
+            del b_leaves, b_out, b_dq, b_dk, b_dv, big
+
+        # Each kernel alone on the pre-pass's operands: CUDA-event and device ms.
+        scale = h**-0.5
+        tables = (cos, sin)
+        q_s, k_r = flash_qk_prep(qb, kb, *tables, 0, scale)
+        lse_k = k_lse.contiguous()
+        delta = (dob.float() * k_out.float()).sum(-1)
+        mask = plain_kw.get("mask")
+        if branch == "mask":
+            k1_alone = lambda: flash_forward_masked_core(q_s, k_r, vb, mask)  # noqa: E731
+        else:
+            k1_alone = lambda: flash_forward_core(q_s, k_r, vb, None, branches["causal"], branches["q_seg"],  # noqa
+                                                  branches["kv_seg"])
+        bwd_ops = (q_s, k_r, vb, dob, lse_k, delta, None, *tables, 0)
+        br_kw = dict(causal=branches["causal"], q_seg=branches["q_seg"], kv_seg=branches["kv_seg"], mask=mask)
+        times = dict(k1_ms=cuda_ms(k1_alone), k2_ms=cuda_ms(lambda: flash_bwd_dkdv(*bwd_ops, **br_kw)),
+                     k3_ms=cuda_ms(lambda: flash_bwd_dq(*bwd_ops, scale, **br_kw)),
+                     k1_device_ms=device_ms(k1_alone, (BRANCH_KERNELS[branch],)),
+                     k2_device_ms=device_ms(lambda: flash_bwd_dkdv(*bwd_ops, **br_kw), k2_kernels(q_s, k_r)),
+                     k3_device_ms=device_ms(lambda: flash_bwd_dq(*bwd_ops, scale, **br_kw), K3_KERNELS))
+        if kind == "causal":  # the unmasked kernels on the same operands, for the diagonal skip's ratio
+            unmasked = dict(k1=(lambda: flash_forward_core(q_s, k_r, vb), ("flash_fwd_sm90_kernel",)),
+                            k2=(lambda: flash_bwd_dkdv(*bwd_ops), k2_kernels(q_s, k_r)),
+                            k3=(lambda: flash_bwd_dq(*bwd_ops, scale), K3_KERNELS))
+            un = {k_: (cuda_ms(fn), device_ms(fn, names)) for k_, (fn, names) in unmasked.items()}
+            record["unmasked_ms"] = {k_: v[0] for k_, v in un.items()}
+            record["unmasked_device_ms"] = {k_: v[1] for k_, v in un.items()}
+            record["causal_over_unmasked"] = {k_: times[f"{k_}_ms"] / un[k_][0] for k_ in un}
+            record["causal_over_unmasked_device"] = {k_: times[f"{k_}_device_ms"] / un[k_][1]
+                                                     if un[k_][1] and times[f"{k_}_device_ms"] else None for k_ in un}
+        # torch SDPA given the same mask (is_causal where it means the same diagonal), forward and backward.
+        sdpa_kw = dict(is_causal=True) if kind == "causal" and sq == skv else dict(attn_mask=live[:, None])
+        s_leaves = [x.transpose(1, 2).detach().clone().requires_grad_() for x in (q, k, v)]
+        s_out = F.scaled_dot_product_attention(*s_leaves, **sdpa_kw)
+        times["sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, **sdpa_kw))
+        times["sdpa_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(s_out, s_leaves, dob, retain_graph=True))
+        del s_out, s_leaves
+        live_pairs = int(live.expand(b, sq, skv).sum())
+        bounds = branch_bounds(b, n, sq, skv, h, live_pairs)
+        record.update(times, shape=[b, n, sq, skv, h], plain_ms=plain_ms, plain_backward_ms=plain_bwd_ms,
+                      live_pairs=live_pairs, k1_bound=bounds[0], k2_bound=bounds[1],
+                      k3_bound=bounds[2], k2_splits=splits)
+        phase("attention_branches", case=name, provider=provider, branch=branch, launches=counts,
+              library_kernels=library, checks=checks, **record, card=card)
+        ok = (k1_err["err_over_max1_ref"] <= K1_TOL and k1_err["rel_l2"] <= K1_REL_L2_TOL
+              and k1_err["lse_max_abs_err"] <= LSE_TOL
+              and all(e[0] <= BWD_REL_L2_TOL and e[1] <= BWD_MAX_RATIO_TOL for e in bwd_err.values())
+              and all(v_ is not False for v_ in checks.values()))
+        if not ok:
+            raise AssertionError(f"attention branch case {name} failed: {checks}, {k1_err}, {bwd_err}")
+        worst["k1"] = max(worst["k1"], k1_err["max_abs_err"])
+        worst["k2"] = max(worst["k2"], bwd_err["dk"][2], bwd_err["dv"][2])
+        worst["k3"] = max(worst["k3"], bwd_err["dq"][2])
+        records[name] = dict(branch=branch, **record)
+        del q, k, v, do, leaves, out, dq, dk, dv, q_s, k_r, k_out, k_lse, live
+        torch.cuda.empty_cache()
+    check_branch_switches(card)
+    check_branch_pairs(card)
+    return worst, records, launches_by_case
+
+
+def check_branch_switches(card):
+    """The branches under the kernel switches, as JAX's gates send them
+    (`_flash_forward` :724-733, `_flash_backward` :1432): under
+    FINETRAINERS_FLASH_SKEW or _TWOPASS a causal or masked call launches K1's
+    branch (JAX gates both kernels off it) and K2/K3's; a segmented call there
+    and any branch under _TWOLEVEL (K7a/b/c's branches) or a branch's backward
+    under FINETRAINERS_FLASH_FUSED_BWD (K5's) raises naming ROADMAP.md queue 2
+    item 5 and launches nothing. Small bf16 shapes (2, 2, 300, 300, 128)."""
+    g = torch.Generator(device="cuda").manual_seed(33)
+    q, k, v, do = (torch.randn(2, 2, 300, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    ids = (torch.arange(300, device="cuda") // 100).to(torch.int32)[None].repeat(2, 1)
+    mask = torch.rand(2, 300, 300, generator=g, device="cuda") > 0.5
+    inputs = {"causal": dict(causal=True), "segment": dict(q_seg=ids, kv_seg=ids), "mask": dict(mask=mask)}
+    results, ok = {}, True
+    for sw in ("FINETRAINERS_FLASH_SKEW", "FINETRAINERS_FLASH_TWOPASS", "FINETRAINERS_FLASH_TWOLEVEL",
+               "FINETRAINERS_FLASH_FUSED_BWD"):
+        for branch, kw in inputs.items():
+            fwd_runs = sw == "FINETRAINERS_FLASH_FUSED_BWD" or (sw != "FINETRAINERS_FLASH_TWOLEVEL"
+                                                                 and branch != "segment")
+            bwd_runs = fwd_runs and sw != "FINETRAINERS_FLASH_FUSED_BWD"
+            torch.cuda.synchronize()
+            _zero_counts()
+            _zero_branch_counts()
+            got = {}
+            with switch(sw):
+                for stage in ("forward", "backward"):
+                    try:
+                        if stage == "forward":
+                            out, lse = flash_forward(q, k, v, **kw)
+                        else:
+                            flash_backward(q, k, v, out, lse, do, **kw)
+                        got[stage] = "ran"
+                    except NotImplementedError as e:
+                        got[stage] = "raised" if "queue 2 item 5" in str(e) else str(e)
+                        break
+            torch.cuda.synchronize()
+            counts = {k_: c for k_, c in {**_counts(), **_branch_counts()}.items() if c}
+            want = {"forward": "ran" if fwd_runs else "raised"}
+            if fwd_runs:
+                want["backward"] = "ran" if bwd_runs else "raised"
+            k1_key = "k1_mask" if branch == "mask" else f"k1_{branch}"
+            want_counts = {}
+            if fwd_runs:
+                want_counts.update({"prep": 1, k1_key: 1})
+                if branch != "mask":
+                    want_counts["k1"] = 1
+            if bwd_runs:
+                want_counts.update({"prep": 2, "k2": 1, "k3": 1, f"k2_{branch}": 1, f"k3_{branch}": 1})
+            results[f"{sw}:{branch}"] = dict(stages=got, launches=counts)
+            ok = ok and got == want and counts == want_counts
+    phase("attention_branches_switches", results=results, routing_as_jax=ok, card=card)
+    if not ok:
+        raise AssertionError(f"a branch under a kernel switch went where JAX's gates do not send it: {results}")
+
+
+# K2's and K3's branches pair by pair: (name, B, N, Sq, Skv, branch, kv_lens). Lengths off the tiles, Sq < Skv and
+# Sq > Skv for the causal offset (rows with no key), the q loop split (few CTAs) and whole (N = 72), kv_lens,
+# packed ids with -1 padding, and a block-sparse mask with an empty tile and an empty row. Sq <= 256, so that a count
+# of live q rows per key is exact in bf16.
+PAIR_CASES = (
+    ("causal_self", 1, 2, 256, 256, "causal", None),
+    ("causal_self_whole_q_loop", 1, 72, 256, 256, "causal", None),
+    ("causal_q_short", 1, 2, 200, 330, "causal", [300]),
+    ("causal_q_long", 1, 2, 256, 100, "causal", None),
+    ("segment_packed", 2, 2, 256, 256, "segment", [250, 256]),
+    ("segment_cross_whole_q_loop", 1, 72, 240, 330, "segment", None),
+    ("mask_sparse", 2, 2, 250, 330, "mask", [300, 330]),
+    ("mask_whole_q_loop", 1, 72, 256, 256, "mask", None),
+)
+
+
+def pair_probe_inputs(b, sq, skv, branch):
+    """PAIR_CASES' branch inputs (causal, q_seg, kv_seg, mask): packed ids in
+    runs of 37 rows, the last 9 rows -1 (the keys' runs 61 where Sq != Skv),
+    or `block_sparse_mask`."""
+    g = torch.Generator(device="cuda").manual_seed(sq + skv)
+    if branch == "causal":
+        return True, None, None, None
+    if branch == "segment":
+        def ids(s, run):
+            x = (torch.arange(s, device="cuda") // run).to(torch.int32)[None].repeat(b, 1)
+            x[:, s - 9:] = -1
+            return x
+        return False, ids(sq, 37), ids(skv, 37 if sq == skv else 61), None
+    return False, None, None, block_sparse_mask(b, sq, skv, g)
+
+
+def branch_pair_errors(b, n, sq, skv, h, branch, lens=None):
+    """The pairs K2's and K3's `branch` gets wrong, counted exactly through
+    `flash_backward` on operands whose scores are all 0 (p = 1 where live, with
+    lse = 0, and dp = 1, delta = 0, so ds = 1 where live): for each block of H
+    q rows, q one-hot over the block and k = 0, so that column j of dk is ds at
+    q row q0 + j (K2's selects pair by pair) and column 0 of dv counts each
+    key's live q rows (K2's p); for each block of H keys, k one-hot over the
+    block and q = 0, so that column j of dq is ds at key k0 + j (K3's). Returns
+    {"k2_ds", "k2_p", "k3_ds"}: the pairs (or keys, for "k2_p") that differ
+    from `live_pairs`, 0 where the branch is exact."""
+    causal, q_seg, kv_seg, mask = pair_probe_inputs(b, sq, skv, branch)
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    live = live_pairs(b, sq, skv, "cuda", kv_lens, causal, q_seg, kv_seg, mask)[:, 0]
+    counts = live.sum(1).float()[:, None]  # (B, 1, Skv): each key's live q rows
+    zeros = lambda s: torch.zeros(b, s, n, h, dtype=torch.bfloat16, device="cuda")  # noqa: E731
+    e0 = zeros(max(sq, skv))
+    e0[..., 0] = 1
+    stats = torch.zeros(b, n, sq, device="cuda")
+
+    def grads(q, k):
+        return flash_backward(q.transpose(1, 2), k.transpose(1, 2), e0[:, :skv].transpose(1, 2),
+                              zeros(sq).transpose(1, 2), stats, e0[:, :sq].transpose(1, 2), kv_lens, delta=stats,
+                              causal=causal, q_seg=q_seg, kv_seg=kv_seg, mask=mask)
+
+    wrong = dict(k2_ds=0, k2_p=0, k3_ds=0)
+    for q0 in range(0, sq, h):
+        r = min(h, sq - q0)
+        q = zeros(sq)
+        q[:, q0:q0 + r, :, :r] = torch.eye(r, dtype=torch.bfloat16, device="cuda")[None, :, None]
+        _, dk, dv = grads(q, zeros(skv))
+        wrong["k2_ds"] += int(((dk[..., :r] != 0) != live[:, None, q0:q0 + r].transpose(2, 3)).sum()
+                              + (dk[..., r:] != 0).sum())
+        wrong["k2_p"] += int(((dv[..., 0].float() - counts).abs() > 0.5).sum() + (dv[..., 1:] != 0).sum())
+    for k0 in range(0, skv, h):
+        r = min(h, skv - k0)
+        k = zeros(skv)
+        k[:, k0:k0 + r, :, :r] = torch.eye(r, dtype=torch.bfloat16, device="cuda")[None, :, None]
+        dq, _, _ = grads(zeros(sq), k)
+        wrong["k3_ds"] += int(((dq[..., :r] != 0) != live[:, None, :, k0:k0 + r]).sum() + (dq[..., r:] != 0).sum())
+    return wrong
+
+
+def check_branch_pairs(card):
+    """K2's and K3's causal, segment and mask branches at H 64 and 128 select
+    exactly the live pairs (`branch_pair_errors` over PAIR_CASES): a fault that
+    drops or adds a few pairs stays under the relative-L2 bounds at the models'
+    widths, and shows here."""
+    results = {f"{name}_h{h}": branch_pair_errors(b, n, sq, skv, h, branch, lens)
+               for name, b, n, sq, skv, branch, lens in PAIR_CASES for h in (64, 128)}
+    ok = all(not any(w.values()) for w in results.values())
+    phase("attention_branch_pairs", wrong_pairs=results, exact=ok, card=card)
+    if not ok:
+        raise AssertionError(f"K2's or K3's branch selects pairs that are not the live ones: {results}")
+
+
 # The text towers at their published widths and depths (ROADMAP.md queue 1 item 7), random weights from a seeded
 # generator on the card, bf16, each encode held against the same tower under plain fp32 attention.
 TOWER_REL_L2_TOL = 5e-2
@@ -5129,7 +5609,9 @@ def cogview4_checkpoint_serve(card):
     loaded VAE decodes: K1's mask branch 2 launches per GLM encode (prompt and
     negative), K1 2 per denoise step. The runner's tokenizer waits for
     `transformers` and tokenizer files on the card (`env` says whether it
-    imports). Returns the launches."""
+    imports); its request runs again under `--attn_provider flex` (the GLM's
+    causal mask to the same mask branch, the transformer to the same K1),
+    whose image must be bit-equal. Returns the launches."""
     from finetrainers_tpu_torch.models.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
     from finetrainers_tpu_torch.models.cogview4 import COGVIEW4_TRANSFORMER_CONFIG, CogView4ModelSpecification
     from finetrainers_tpu_torch.models.cogview4.transformer import CogView4Transformer2DModel
@@ -5252,18 +5734,29 @@ def _checkpoint_runner(root, config, want):
          "model_max_length": 1024}))
     argv = ["--model_name", "cogview4", "--pretrained_model_name_or_path", str(root), "--tokenizer_id",
             str(root / "tokenizer"), "--inference_type", "text_to_image", "--prompt", PROMPTS[0], "--height", "1024",
-            "--width", "1024", "--num_inference_steps", str(CKPT_SERVE_STEPS), "--output_dir", str(root / "served")]
-    torch.cuda.synchronize()
-    _zero_counts()
-    t0 = time.perf_counter()
-    paths = inference.main(argv, transformer_config=config)
-    torch.cuda.synchronize()
-    seconds, counts = time.perf_counter() - t0, _counts()
-    written = cv2.imread(paths[0])
+            "--width", "1024", "--num_inference_steps", str(CKPT_SERVE_STEPS)]
+    runs = {}
+    for provider in (None, "flex"):  # the default provider, then `flex`: the GLM's mask branch and K1 as under it
+        flags = [] if provider is None else ["--attn_provider", provider]
+        torch.cuda.synchronize()
+        _zero_counts()
+        _zero_branch_counts()
+        t0 = time.perf_counter()
+        paths = inference.main([*argv, *flags, "--output_dir", str(root / f"served_{provider}")],
+                               transformer_config=config)
+        torch.cuda.synchronize()
+        seconds, counts = time.perf_counter() - t0, _counts()
+        runs[provider] = dict(seconds=seconds, launches=counts, branch_launches=sum(_branch_counts().values()),
+                              image=cv2.imread(paths[0]))
+        _free_cuda()
+    written = runs[None]["image"]
     shape = None if written is None else list(written.shape)
-    _free_cuda()
-    return dict(entry="python -m finetrainers_tpu_torch.inference", argv=argv[:-2], seconds=seconds, launches=counts,
-                written_shape=shape, ok=counts == want and shape == [1024, 1024, 3])
+    flex_equal = written is not None and np.array_equal(written, runs["flex"]["image"])
+    flex_counts_ok = runs["flex"]["launches"] == want and runs["flex"]["branch_launches"] == 0
+    return dict(entry="python -m finetrainers_tpu_torch.inference", argv=argv, seconds=runs[None]["seconds"],
+                launches=runs[None]["launches"], written_shape=shape, flex_seconds=runs["flex"]["seconds"],
+                flex_launches=runs["flex"]["launches"], flex_image_bit_equal=flex_equal,
+                ok=runs[None]["launches"] == want and shape == [1024, 1024, 3] and flex_equal and flex_counts_ok)
 
 
 # Wan 2.1 and LTX-Video from local diffusers directories written here: the faithful VAEs whole at
@@ -5644,12 +6137,13 @@ def ltx_checkpoint_serve(card):
 
 # CogVideoX-5B, HunyuanVideo and FLUX.1-dev from local diffusers directories written here, bf16, seeded: CogVideoX's
 # transformer at full width cut to COGVIDEOX_CKPT_BLOCKS of 42 blocks in FAMILY_CKPT_SHARDS shards with an index (the
-# whole 42, 11.1 GB, took 84 s on an H100 and put the script's last phase past its budget: PERF.md section 4),
+# whole 42, 11.1 GB, took 84 s on an H100 and put the script's last phase past its budget; the cuts are listed in
+# PERF.md section 4),
 # HunyuanVideo's and Flux's at full width cut to 2 dual and 2 single blocks (HunyuanVideo's refiner whole), the
 # faithful VAEs and Flux's AutoencoderKL whole at their published configs, T5-XXL v1.1 and Llama-3-8B at full width
 # cut to 2 layers, CLIP-L's text tower whole.
 FAMILY_CKPT_SHARDS, FAMILY_CKPT_BLOCKS, FAMILY_CKPT_STEPS, FAMILY_CKPT_ITEMS = 3, 2, 2, 2
-COGVIDEOX_CKPT_BLOCKS = 14
+COGVIDEOX_CKPT_BLOCKS = 6
 FLUX_AE_CONFIG = dict(in_channels=3, out_channels=3, latent_channels=16, block_out_channels=[128, 256, 512, 512],
                       layers_per_block=2, norm_num_groups=32, use_quant_conv=False, use_post_quant_conv=False,
                       scaling_factor=0.3611, shift_factor=0.1159, _class_name="AutoencoderKL")
@@ -5832,9 +6326,10 @@ def cogvideox_checkpoint_run(card):
     with the exported adapter, decoded by the faithful VAE. Checks: the base
     weights bit-equal to the written model at load and after the run, the LoRA
     factors a fresh model's, T5 and its tokenizer loaded, the adapter the
-    runner serves bit-equal to the trained factors, each step's launches (K1
-    14, the pre-pass 28, K2 and K3 14, no reduce pass) and the request's (K1
-    and the pre-pass 14 a step, CFG in one batch), no launch in precompute (T5
+    runner serves bit-equal to the trained factors, each step's launches (K1,
+    K2 and K3 once a block, the pre-pass twice, no reduce pass) and the
+    request's (K1 and the pre-pass once a block and step, CFG in one batch),
+    no launch in precompute (T5
     attends in plain fp32), finite losses and a finite video of the request's
     shape. Returns the launches by path."""
     from finetrainers_tpu_torch import inference
@@ -6326,7 +6821,7 @@ def main():
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 
     t0 = time.perf_counter()
-    sources = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd", "sage_fwd_sm90")
+    sources = _build.SOURCES
     _build.load_libraries(sources)
     builds = {name: {"seconds": _build.BUILD_LOG[name]["seconds"], **ptxas_summary(_build.BUILD_LOG[name]["log"])}
               for name in sources}
@@ -6343,6 +6838,7 @@ def main():
     k5_err, k5_wan, k5_ltx = check_k5(card)
     k7_err, k7 = check_k7(card)
     k1_mask_err, k1_mask = check_k1_mask(card)
+    branch_err, branch_records, branch_launches = check_attention_branches(card)
     torch.cuda.empty_cache()
     serve_launches = serve(card)
     torch.cuda.empty_cache()
@@ -6458,6 +6954,44 @@ def main():
             launches["dummy_serve"] = dummy_serve_launches[key]
         return entry(name, source, replaces, launches["dummy_lora_run"], err, record, head_dim=32,
                      shape=[1, DUMMY_HEADS, DUMMY_TOKENS, DUMMY_TOKENS, 32], launches_by_path=launches, **extra)
+
+    def branch_entry(kernel, branch, replaces, also_replaces, headline):
+        """A branch of K1, K2 or K3: timed at its headline case of `check_attention_branches`, its launches
+        there by case."""
+        cases = [c for c, r in branch_records.items() if r["branch"] == branch]
+        key = "k1_mask" if (kernel, branch) == ("k1", "mask") else f"{kernel}_{branch}"
+        errs = [r["k1_vs_plain"]["max_abs_err"] if kernel == "k1" else
+                max(r["bwd_vs_plain"][g]["max_abs_err"] for g in (("dq",) if kernel == "k3" else ("dk", "dv")))
+                for c, r in branch_records.items() if c in cases]
+        r = branch_records[headline]
+        bound_ms, bound_by = r[f"{kernel}_bound"]
+        plain, library = (r["plain_ms"], r["sdpa_ms"]) if kernel == "k1" else (r["plain_backward_ms"],
+                                                                                r["sdpa_backward_ms"])
+        side = "fwd" if kernel == "k1" else "bwd"
+        code = {"causal": 1, "segment": 2, "mask": 3}[branch]
+        kernel_name = {"k1": BRANCH_KERNELS[branch], "k2": f"bwd_dkdv_sm90_kernel<T, H, {code}>",
+                       "k3": f"bwd_dq_sm90_kernel<T, H, {code}>"}[kernel]
+        instances = {n: rec for n, rec in ptxas(f"flash_{side}_branches_sm90", kernel_name.split("<")[0]).items()
+                     if kernel == "k1" or n.endswith(f", {code}>")}
+        return entry(f"{kernel_name} ({kernel.upper()}'s {branch} branch, wgmma + TMA)",
+                     f"finetrainers_tpu_torch/csrc/flash_{side}_branches_sm90.cu",
+                     f"finetrainers_tpu/ops/flash_attention.py:{replaces}", branch_launches[headline].get(key, 0),
+                     max(errs), (r[f"{kernel}_ms"], plain, library, bound_ms, bound_by),
+                     also_replaces=[f"finetrainers_tpu/ops/flash_attention.py:{line}" for line in also_replaces],
+                     kernel_source=f"finetrainers_tpu_torch/csrc/flash_{side}_sm90.cu",
+                     ptxas=instances,
+                     shape=r["shape"], headline_case=headline, device_ms=r[f"{kernel}_device_ms"],
+                     launches_by_path={f"attention_branches_{c}": branch_launches[c].get(key, 0) for c in cases},
+                     by_case={c: dict(ms=branch_records[c][f"{kernel}_ms"],
+                                      device_ms=branch_records[c][f"{kernel}_device_ms"],
+                                      bound_ms=branch_records[c][f"{kernel}_bound"][0],
+                                      library_ms=branch_records[c]["sdpa_ms" if kernel == "k1" else
+                                                                 "sdpa_backward_ms"]) for c in cases},
+                     plain_note=("the plain forward" if kernel == "k1" else
+                                 "the plain backward (K2's and K3's plain versions together)") + ", head by head",
+                     bound_note="over the live (query, key) pairs only",
+                     library_note="torch SDPA " + ("forward" if kernel == "k1" else "backward (dq, dk, dv)")
+                                  + " given the same mask (is_causal where Sq = Skv)")
 
     fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     h32_self = h32_k1["dummy_self"]
@@ -6607,7 +7141,7 @@ def main():
                   by_case={case: dict(zip(fields, r["k3"]), device_ms=r["k3_device_ms"]) for case, r in h32_bwd.items()},
                   library_note="torch SDPA backward (dq, dk, dv in one call)"),
         entry("flash_fwd_mask_sm90 (K1's dense-mask branch, wgmma + TMA, over each q tile's live key tiles)",
-              "finetrainers_tpu_torch/csrc/flash_fwd_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:217",
+              "finetrainers_tpu_torch/csrc/flash_fwd_branches_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:217",
               checkpoint_launches["k1_mask"], k1_mask_err,
               tuple(k1_mask["glm_causal_gqa"][f] for f in fields), shape=[1, 32, 1024, 1024, 128],
               launches_by_path={"cogview4_checkpoint_serve": checkpoint_launches["k1_mask"],
@@ -6617,10 +7151,19 @@ def main():
                                 "flux_checkpoint_run_precompute": flux_ckpt["flux_checkpoint_precompute"]["k1_mask"]},
               by_case={case: {f: r[f] for f in fields} for case, r in k1_mask.items()},
               long_causal_unmasked_k1_ms=k1_mask["long_causal"]["unmasked_k1_ms"],
+              kernel_source="finetrainers_tpu_torch/csrc/flash_fwd_sm90.cu",
               also_replaces=["finetrainers_tpu/ops/flash_attention.py:304"],
-              ptxas=ptxas("flash_fwd_sm90", "flash_fwd_mask_sm90_kernel"),
+              ptxas=ptxas("flash_fwd_branches_sm90", "flash_fwd_mask_sm90_kernel"),
               ms_note="the mask's tile lists built once and cached, as a tower's layers share them",
               library_note="torch SDPA forward given the same boolean mask (the kv heads repeated)"),
+        branch_entry("k1", "causal", 205, (300,), "causal_llama"),
+        branch_entry("k1", "segment", 210, (), "varlen_wan_packed"),
+        branch_entry("k2", "causal", 977, (1012,), "causal_llama"),
+        branch_entry("k2", "segment", 982, (), "varlen_wan_packed"),
+        branch_entry("k2", "mask", 985, (1016,), "flex_cogview4_padded_slots"),
+        branch_entry("k3", "causal", 1284, (1306,), "causal_llama"),
+        branch_entry("k3", "segment", 1289, (), "varlen_wan_packed"),
+        branch_entry("k3", "mask", 1292, (1310,), "flex_cogview4_padded_slots"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -94,6 +94,36 @@
 //  - TMA reads the real rows of k and v between kv_lens[b] and Skv (and fills
 //    rows past S with 0): p and ds there are selected to 0, so they add
 //    nothing, whatever those rows hold.
+// K2's and K3's causal, segment and mask branches (_bwd_dkdv_kernel :977-986
+// with its skips :1012-1016, _bwd_dq_kernel :1284-1293 with :1306-1310) are the
+// kernels above with a select and a shorter loop, built as a library of their
+// own from flash_bwd_branches_sm90.cu (this file with FLASH_BWD_BRANCHES
+// defined: the entry points at the end), so that nvcc compiles them beside
+// the kernels above:
+//  - Each select goes through the `valid` functor that dkdv_p/dkdv_ds and K3's
+//    p and ds take: p and ds of a dead pair (past the diagonal col <= row +
+//    Skv - Sq, of different segment ids, or masked) are selected to 0. A
+//    thread works out its tile's 32 (K2) or 64 (K3) pairs as a bit mask once
+//    the previous tile's gradient products, which read its packed p^T and
+//    ds^T (K3: ds) registers asynchronously, have landed, so no new work runs
+//    beside a product that still reads registers. Tiles the diagonal does not
+//    cross, or that the lists flag, take no bits.
+//  - K2 skips the q tiles with no live pair for its key tile: causal, the q
+//    loop starts at the first q tile on or below the diagonal; segments and
+//    masks walk a per-key-tile list of live q tiles (64 rows) that the wrapper
+//    builds, as K1's mask branch walks its key tiles. The split of the q loop
+//    over CTAs cuts that range or list, and the reduce pass is unchanged. A key
+//    tile with no live q tile is written as zeros and loads nothing.
+//  - K3 skips the key tiles with no live pair for its q tile: causal, its loop
+//    ends at the last row's diagonal (CTAs in reverse, longest first);
+//    segments and masks walk a per-q-tile list of live key tiles.
+//  - The mask branch reads the mask's bytes from device memory, two at a time:
+//    K3 rows of the mask, K2 rows of its transpose (a key's q columns lie
+//    together there), both zero-padded to whole tiles, kv_lens folded in by
+//    the wrapper. The segment branch reads two ids per 8-byte load.
+//  - A row with no live key has an LSE of -1e30*ln2, where exp2(s - lse)
+//    overflows: its p and ds are all selected to 0, so it adds nothing to dk
+//    and dv and gets dq = 0.
 // Tried and left out: ordering the two warpgroups' score products with named
 // barriers (ping-pong) measured 2% slower for K2 and 17% for K3. For K5:
 // holding each dq tile in registers through the next tile's score products
@@ -119,6 +149,12 @@ constexpr int kHalf = 128 * 128;                  // a 64-column half of a 128-r
 // H=128) and the previous tile's p^T and ds^T live while the next tile's s^T
 // and dp^T land, a 128-row tile would not fit the register file.
 constexpr int kBlockQ = 64;
+// The branches of K2 and K3: none (the kernels above), causal, segment ids, a
+// dense mask.
+enum Branch { kNone, kCausal, kSegment, kMask };
+__host__ __device__ constexpr bool listed(int br) { return br == kSegment || br == kMask; }
+// A list entry's flag for a tile that needs no select (as K1's mask branch).
+constexpr int kFullTile = 1 << 30;
 
 struct BwdParams {
   const float* lse;       // (B, N, Sq) natural log
@@ -135,7 +171,25 @@ struct BwdParams {
   int64_t dv_sb, dv_sn, dv_ss;
   int64_t rope_sn;
   float scale;  // K3: the softmax scale, applied to dq at emit
+  // The branches: per batch the q and key ids (int32, padded to whole tiles);
+  // the padded uint8 mask (K2: transposed, a row per key) with its batch and
+  // row strides; per (batch, cell) the list of live tiles and their counts,
+  // cells being K2's key tiles or K3's q tiles.
+  const int* q_seg;
+  const int* kv_seg;
+  int64_t q_seg_len, kv_seg_len;
+  const unsigned char* mask;
+  int64_t mask_sb, mask_ss;
+  const int* tiles;
+  const int* tile_counts;
+  int list_cells, list_len;
 };
+
+// The q tile (K2) or key tile (K3) of step i of a CTA's loop, with the list's
+// flag: `list` entry t0 + i, or tile t0 + i without a list.
+__device__ __forceinline__ int loop_entry(const int* list, int t0, int i) {
+  return list != nullptr ? list[t0 + i] : t0 + i;
+}
 
 __device__ __forceinline__ int kv_length(const BwdParams& p, int b) {
   return p.kv_lens != nullptr ? min(max(p.kv_lens[b], 0), p.seq_kv) : p.seq_kv;
@@ -175,7 +229,7 @@ template <int HD, bool FUSED>
 __device__ __forceinline__ void dkdv_produce(const CUtensorMap* q_map, const CUtensorMap* k_map,
                                              const CUtensorMap* v_map, const CUtensorMap* do_map, const BwdParams& p,
                                              uint32_t base, unsigned char* smem, int kv0, int n, int b, int t0,
-                                             int num_tiles) {
+                                             int num_tiles, const int* list = nullptr) {
   using L = DkdvLayout<HD, FUSED>;
   using R = TileRow<HD>;
   constexpr int kPerLane = L::kBq / 32;
@@ -192,7 +246,7 @@ __device__ __forceinline__ void dkdv_produce(const CUtensorMap* q_map, const CUt
   const int64_t rows = ((int64_t)b * p.heads + n) * p.seq_q;
   for (int i = 0; i < num_tiles; ++i) {
     const int st = i % kDkdvStages;
-    const int q0 = (t0 + i) * L::kBq;
+    const int q0 = (loop_entry(list, t0, i) & (kFullTile - 1)) * L::kBq;
     const uint32_t full = kv_full + 8 * (1 + st), empty = full + 8 * kDkdvStages;
     float lse2[kPerLane], dl[kPerLane];
 #pragma unroll
@@ -315,9 +369,109 @@ __device__ __forceinline__ void dkdv_store(const BwdParams& p, const float* dk, 
 // row0 + 8, in the wgmma accumulator layout: element 4j+e of a fragment is at
 // column 8j + 2*(lane%4) + (e&1) (a q row of s^T, an H column of dk/dv) of row
 // row0 + 8*(e>>1).
-template <typename T, int HD>
+// The causal branch's live pairs in K2's and K3's bit layout, where element
+// pair (kk, e) and its column d sit at bit 4m + 2h + d, m = 2kk + (e >> 1) the
+// fragment's 8-column block and h = e & 1 its row half: per (h, d) the blocks
+// from a first block (from_block) or below an end (its complement) hold the
+// pattern 0x11..1 << (2h + d). Worked out with shifts rather than comparison
+// by comparison as the segment and mask selects are: built that way, K2's
+// causal select dropped each thread's first live pair (kk, 3, 0) on the card,
+// as if shifted one block over (the cause was not found; the mask branch,
+// whose conditions come from loaded bytes, came out right).
+template <typename U>
+__device__ __forceinline__ U from_block(int lo) {
+  constexpr int kBlocks = sizeof(U) * 2;
+  return lo <= 0 ? ~U(0) : lo >= kBlocks ? U(0) : ~U(0) << (4 * lo);
+}
+template <typename U>
+__device__ __forceinline__ U block_pattern(int h, int d) {
+  return (sizeof(U) == 8 ? U(0x1111111111111111ull) : U(0x11111111u)) << (2 * h + d);
+}
+
+// K2 causal: kv row row0 + 8h is live with q column q0 + c + 8m + d iff it is
+// below kv_len, the column below Sq and the row <= the column + Skv - Sq.
+__device__ __forceinline__ uint32_t dkdv_causal_bits(const BwdParams& p, int row0, int q0, int c, int kv_len) {
+  const int off = p.seq_kv - p.seq_q;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row0 + 8 * h >= kv_len) continue;
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const int first = row0 + 8 * h - off - q0 - c - d;  // 8m >= first
+      const int end = p.seq_q - q0 - c - d;                // 8m < end
+      bits |= block_pattern<uint32_t>(h, d) & from_block<uint32_t>((first + 7) >> 3) &
+              ~from_block<uint32_t>((end + 7) >> 3);
+    }
+  }
+  return bits;
+}
+
+// K3 causal: q row row0 + 8h is live with key k0 + c + 8m + d iff the key is
+// below kv_len and at most the row + Skv - Sq.
+__device__ __forceinline__ uint64_t dq_causal_bits(const BwdParams& p, int row0, int k0, int c, int kv_len) {
+  const int off = p.seq_kv - p.seq_q;
+  uint64_t bits = 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const int last = row0 + 8 * h + off - k0 - c - d;  // 8m <= last
+      const int end = kv_len - k0 - c - d;               // 8m < end
+      bits |= block_pattern<uint64_t>(h, d) & ~from_block<uint64_t>(((last + 8) >> 3)) &
+              ~from_block<uint64_t>((end + 7) >> 3);
+    }
+  }
+  return bits;
+}
+
+// The live pairs of a K2 branch's tile as 32 bits, bit 8kk + 2e + d for
+// element pair (kk, e) and its column d (the `valid` layout above): kv rows
+// row0 + 8*(e & 1) < kv_len against q rows q0 + 8*(2kk + (e >> 1)) + c + d <
+// Sq, and the branch's condition.
+template <int BR>
+__device__ __forceinline__ uint32_t dkdv_bits(const BwdParams& p, int b, int row0, int q0, int c, int kv_len) {
+  if constexpr (BR == kCausal) return dkdv_causal_bits(p, row0, q0, c, kv_len);
+  const int* q_ids = p.q_seg + b * p.q_seg_len;
+  int kv_id[2] = {0, 0};
+  const unsigned char* mrow[2] = {nullptr, nullptr};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if constexpr (BR == kSegment) kv_id[r] = p.kv_seg[b * p.kv_seg_len + row0 + 8 * r];
+    if constexpr (BR == kMask) mrow[r] = p.mask + b * p.mask_sb + (row0 + 8 * r) * p.mask_ss;
+  }
+  uint32_t bits = 0;
+#pragma unroll
+  for (int kk = 0; kk < kBlockQ / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + 8 * (e & 1), qc = q0 + 8 * (2 * kk + (e >> 1)) + c;
+      bool l0 = row < kv_len && qc < p.seq_q, l1 = row < kv_len && qc + 1 < p.seq_q;
+      if constexpr (BR == kSegment) {
+        const int2 ids = *reinterpret_cast<const int2*>(q_ids + qc);
+        l0 = l0 && ids.x == kv_id[e & 1];
+        l1 = l1 && ids.y == kv_id[e & 1];
+      } else if constexpr (BR == kMask) {
+        const uint32_t m = *reinterpret_cast<const uint16_t*>(mrow[e & 1] + qc);
+        l0 = l0 && (m & 0xffu);
+        l1 = l1 && (m >> 8);
+      }
+      bits |= (uint32_t)l0 << (8 * kk + 2 * e) | (uint32_t)l1 << (8 * kk + 2 * e + 1);
+    }
+  }
+  return bits;
+}
+
+// A consumer warpgroup of K2 (`cwg` 0 or 1) owning kv rows kv0 + 64*cwg ...
+// Each thread holds two kv rows, row0 = kv0 + 64*cwg + 16*warp + lane/4 and
+// row0 + 8, in the wgmma accumulator layout: element 4j+e of a fragment is at
+// column 8j + 2*(lane%4) + (e&1) (a q row of s^T, an H column of dk/dv) of row
+// row0 + 8*(e>>1). BR: the branch, whose q tiles come from `list` (segments,
+// masks) or from t0 (causal), and whose dead pairs `dkdv_bits` marks.
+template <typename T, int HD, int BR = kNone>
 __device__ __forceinline__ void dkdv_consume(const BwdParams& p, uint32_t base, const unsigned char* smem, int cwg,
-                                             int kv0, int n, int b, int split, int t0, int num_tiles, int kv_len) {
+                                             int kv0, int n, int b, int split, int t0, int num_tiles, int kv_len,
+                                             const int* list = nullptr) {
   using L = DkdvLayout<HD, false>;
   constexpr int kBq = L::kBq;
   constexpr int kS = kBq / 2;   // score floats per thread: 64 x kBq over 128 threads
@@ -343,10 +497,16 @@ __device__ __forceinline__ void dkdv_consume(const BwdParams& p, uint32_t base, 
     const uint32_t q_addr = base + L::kQ + st * L::kQBytes, do_addr = base + L::kDo + st * L::kQBytes;
     const float* lse2 = reinterpret_cast<const float*>(smem + L::kLse) + st * kBq;
     const float* delta = reinterpret_cast<const float*>(smem + L::kDelta) + st * kBq;
-    const int q0 = (t0 + i) * kBq;
+    const int entry = loop_entry(list, t0, i);
+    const int q0 = (entry & (kFullTile - 1)) * kBq;
     const bool all_valid = rows_all_valid && q0 + kBq <= p.seq_q;
+    uint32_t bits = ~0u;  // the branch's live pairs, worked out once the previous tile's products have landed
     auto valid = [&](int kk, int e, int dq) {
-      return all_valid || (row_ok[e & 1] && q0 + 8 * (2 * kk + (e >> 1)) + c + dq < p.seq_q);
+      if constexpr (BR != kNone) {
+        return ((bits >> (8 * kk + 2 * e + dq)) & 1u) != 0u;
+      } else {
+        return all_valid || (row_ok[e & 1] && q0 + 8 * (2 * kk + (e >> 1)) + c + dq < p.seq_q);
+      }
     };
     mbar_wait(full, (i / kDkdvStages) & 1);
 
@@ -366,6 +526,11 @@ __device__ __forceinline__ void dkdv_consume(const BwdParams& p, uint32_t base, 
       fence_regs<kBq / 16>(da);
       __syncwarp();
       if (lane == 0) mbar_arrive(kv_full + 8 * (1 + kDkdvStages + (i - 1) % kDkdvStages));
+    }
+    if constexpr (BR != kNone) {
+      bool select = !all_valid || (listed(BR) && !(entry & kFullTile));
+      if constexpr (BR == kCausal) select = select || kv0 + kBlockRows - 1 > q0 + p.seq_kv - p.seq_q;
+      if (select) bits = dkdv_bits<BR>(p, b, row0, q0, c, kv_len);
     }
     dkdv_p<T>(pa, s, lse2, c, valid);
     fence_regs<kAcc>(dv);
@@ -582,10 +747,32 @@ __device__ __forceinline__ void fused_consume(const CUtensorMap* dq_map, const B
                     blockIdx.z % p.splits);
 }
 
+// Zeros into this CTA's kBlockRows rows of dk and dv (one split), or of split
+// `split`'s fp32 partials, for a key tile that no pair of its q loop reaches.
+template <typename T, int HD>
+__device__ __forceinline__ void dkdv_zero(const BwdParams& p, int kv0, int n, int b, int split) {
+  for (int idx = threadIdx.x; idx < kBlockRows * (HD / 8); idx += kThreads) {
+    const int row = kv0 + idx / (HD / 8), col = (idx % (HD / 8)) * 8;
+    if (row >= p.seq_kv) break;
+    if (p.splits == 1) {
+      T* dk_out = static_cast<T*>(p.dk) + b * p.dk_sb + n * p.dk_sn;
+      T* dv_out = static_cast<T*>(p.dv) + b * p.dv_sb + n * p.dv_sn;
+      *reinterpret_cast<uint4*>(dk_out + row * p.dk_ss + col) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(dv_out + row * p.dv_ss + col) = make_uint4(0, 0, 0, 0);
+    } else {
+      const int64_t at = ((((int64_t)split * p.batch + b) * p.heads + n) * p.seq_kv + row) * HD + col;
+      float4* dk_part = reinterpret_cast<float4*>(static_cast<float*>(p.dk) + at);
+      float4* dv_part = reinterpret_cast<float4*>(static_cast<float*>(p.dv) + at);
+      dk_part[0] = dk_part[1] = dv_part[0] = dv_part[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
 // K2 (FUSED false) and K5: one CTA per (kv tile of kBlockRows rows, head,
 // batch x split); split s takes q tiles [s * q_tiles_per_split, (s + 1) *
-// q_tiles_per_split).
-template <typename T, int HD, bool FUSED>
+// q_tiles_per_split), or with a branch's list those entries of it. BR: K2's
+// branch (K5 has none).
+template <typename T, int HD, bool FUSED, int BR = kNone>
 __device__ __forceinline__ void dkdv_cta(const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map,
                                          const CUtensorMap* do_map, const CUtensorMap* dq_map, const BwdParams& p,
                                          unsigned char* smem_raw) {
@@ -596,21 +783,27 @@ __device__ __forceinline__ void dkdv_cta(const CUtensorMap* q_map, const CUtenso
   const int b = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
   const int kv_len = kv_length(p, b);
   if (kv0 >= kv_len) {  // every key of this tile is masked: dk = dv = 0 (split: the reduce pass writes them)
-    if (p.splits == 1) {
-      T* dk_out = static_cast<T*>(p.dk) + b * p.dk_sb + n * p.dk_sn;
-      T* dv_out = static_cast<T*>(p.dv) + b * p.dv_sb + n * p.dv_sn;
-      for (int idx = threadIdx.x; idx < kBlockRows * (HD / 8); idx += kThreads) {
-        const int row = kv0 + idx / (HD / 8), col = (idx % (HD / 8)) * 8;
-        if (row >= p.seq_kv) break;
-        *reinterpret_cast<uint4*>(dk_out + row * p.dk_ss + col) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(dv_out + row * p.dv_ss + col) = make_uint4(0, 0, 0, 0);
-      }
-    }
+    if (p.splits == 1) dkdv_zero<T, HD>(p, kv0, n, b, split);
     return;
   }
   const int q_tiles = (p.seq_q + L::kBq - 1) / L::kBq;
-  const int t0 = split * p.q_tiles_per_split;
-  const int num_tiles = max(0, min(q_tiles - t0, p.q_tiles_per_split));
+  int t0 = split * p.q_tiles_per_split;
+  int num_tiles = max(0, min(q_tiles - t0, p.q_tiles_per_split));
+  const int* list = nullptr;
+  if constexpr (BR == kCausal) {  // from the first q tile that holds a row on or below this key tile's diagonal
+    const int first = max(0, kv0 - (p.seq_kv - p.seq_q)) / L::kBq;
+    const int end = t0 + num_tiles;
+    t0 = max(t0, first);
+    num_tiles = max(0, end - t0);
+  } else if constexpr (listed(BR)) {  // this split's entries of the key tile's list of live q tiles
+    const int cell = b * p.list_cells + blockIdx.x;
+    list = p.tiles + (int64_t)cell * p.list_len;
+    num_tiles = max(0, min(p.tile_counts[cell] - t0, p.q_tiles_per_split));
+  }
+  if (BR != kNone && num_tiles == 0) {  // no live pair: zeros, nothing loaded
+    dkdv_zero<T, HD>(p, kv0, n, b, split);
+    return;
+  }
 
   const uint32_t kv_full = base + L::kBars;
   if (threadIdx.x == 0) {
@@ -627,24 +820,24 @@ __device__ __forceinline__ void dkdv_cta(const CUtensorMap* q_map, const CUtenso
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x < 32)
-      dkdv_produce<HD, FUSED>(q_map, k_map, v_map, do_map, p, base, smem, kv0, n, b, t0, num_tiles);
+      dkdv_produce<HD, FUSED>(q_map, k_map, v_map, do_map, p, base, smem, kv0, n, b, t0, num_tiles, list);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
     if constexpr (FUSED) {
       fused_consume<T, HD>(dq_map, p, base, threadIdx.x / 128 - 1, t0, num_tiles, kv_len);
     } else {
-      dkdv_consume<T, HD>(p, base, smem, threadIdx.x / 128 - 1, kv0, n, b, split, t0, num_tiles, kv_len);
+      dkdv_consume<T, HD, BR>(p, base, smem, threadIdx.x / 128 - 1, kv0, n, b, split, t0, num_tiles, kv_len, list);
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int BR>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
                          const BwdParams p) {
   extern __shared__ unsigned char smem_raw[];
-  dkdv_cta<T, HD, false>(&q_map, &k_map, &v_map, &do_map, nullptr, p, smem_raw);
+  dkdv_cta<T, HD, false, BR>(&q_map, &k_map, &v_map, &do_map, nullptr, p, smem_raw);
 }
 
 template <typename T, int HD>
@@ -707,12 +900,13 @@ struct DqLayout {
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kDqStages);
 };
 
-// K3's producer, one thread: q_s and dO once, then k_r and v tile t into stage
-// t % kDqStages once the consumers have released it.
+// K3's producer, one thread: q_s and dO once, then k_r and v tile t (or the
+// branch list's entry t) into stage t % kDqStages once the consumers have
+// released it.
 template <int HD>
 __device__ __forceinline__ void dq_produce(const CUtensorMap* q_map, const CUtensorMap* k_map,
                                            const CUtensorMap* v_map, const CUtensorMap* do_map, uint32_t base, int q0,
-                                           int n, int b, int num_tiles) {
+                                           int n, int b, int num_tiles, const int* list) {
   using L = DqLayout<HD>;
   using R = TileRow<HD>;
   const uint32_t q_full = base + L::kBars;
@@ -724,23 +918,60 @@ __device__ __forceinline__ void dq_produce(const CUtensorMap* q_map, const CUten
   }
   for (int t = 0; t < num_tiles; ++t) {
     const int st = t % kDqStages;
+    const int k0 = (loop_entry(list, 0, t) & (kFullTile - 1)) * kBlockKv;
     const uint32_t full = q_full + 8 * (1 + st), empty = full + 8 * kDqStages;
     mbar_wait(empty, ((t / kDqStages) & 1) ^ 1);
     mbar_expect_tx(full, 2 * L::kTileBytes);
 #pragma unroll
     for (int h = 0; h < R::kBoxes; ++h) {
-      tma_load(base + L::kK + st * L::kTileBytes + h * kHalf, k_map, full, h * R::kCols, t * kBlockKv, n, b);
-      tma_load(base + L::kV + st * L::kTileBytes + h * kHalf, v_map, full, h * R::kCols, t * kBlockKv, n, b);
+      tma_load(base + L::kK + st * L::kTileBytes + h * kHalf, k_map, full, h * R::kCols, k0, n, b);
+      tma_load(base + L::kV + st * L::kTileBytes + h * kHalf, v_map, full, h * R::kCols, k0, n, b);
     }
   }
 }
 
+// The live pairs of a K3 branch's tile as 64 bits, bit 8kk + 2e + d for
+// element pair (kk, e) and its column d: q row row0 + 8*(e & 1) against key
+// k0 + 8*(2kk + (e >> 1)) + c + d < kv_len, and the branch's condition (ids
+// id0, id1 of the two rows for segments; `dq_causal_bits` for causal).
+template <int BR>
+__device__ __forceinline__ uint64_t dq_bits(const BwdParams& p, int b, int row0, int k0, int c, int kv_len, int id0,
+                                            int id1) {
+  if constexpr (BR == kCausal) return dq_causal_bits(p, row0, k0, c, kv_len);
+  const int* kv_ids = p.kv_seg + b * p.kv_seg_len;
+  const unsigned char* mrow[2] = {p.mask + b * p.mask_sb + row0 * p.mask_ss,
+                                  p.mask + b * p.mask_sb + (row0 + 8) * p.mask_ss};
+  uint64_t bits = 0;
+#pragma unroll
+  for (int kk = 0; kk < kBlockKv / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + 8 * (2 * kk + (e >> 1)) + c;
+      bool l0 = col < kv_len, l1 = col + 1 < kv_len;
+      if constexpr (BR == kSegment) {
+        const int2 ids = *reinterpret_cast<const int2*>(kv_ids + col);
+        const int id = (e & 1) ? id1 : id0;
+        l0 = l0 && ids.x == id;
+        l1 = l1 && ids.y == id;
+      } else if constexpr (BR == kMask) {
+        const uint32_t m = *reinterpret_cast<const uint16_t*>(mrow[e & 1] + col);
+        l0 = l0 && (m & 0xffu);
+        l1 = l1 && (m >> 8);
+      }
+      bits |= (uint64_t)l0 << (8 * kk + 2 * e) | (uint64_t)l1 << (8 * kk + 2 * e + 1);
+    }
+  }
+  return bits;
+}
+
 // A consumer warpgroup of K3 owning q rows q0 + 64*cwg ...; each thread holds
 // rows row0 = q0 + 64*cwg + 16*warp + lane/4 and row0 + 8 (accumulator layout
-// as in K2, columns being keys of s and H columns of dq).
-template <typename T, int HD>
+// as in K2, columns being keys of s and H columns of dq). BR: the branch,
+// whose key tiles come from `list` (segments, masks) and whose dead pairs
+// `dq_bits` marks.
+template <typename T, int HD, int BR = kNone>
 __device__ __forceinline__ void dq_consume(const BwdParams& p, uint32_t base, int cwg, int q0, int n, int b,
-                                           int kv_len, int num_tiles) {
+                                           int kv_len, int num_tiles, const int* list = nullptr) {
   using L = DqLayout<HD>;
   constexpr int kAcc = HD / 2;
   const int warp = (threadIdx.x % 128) / 32;
@@ -755,6 +986,11 @@ __device__ __forceinline__ void dq_consume(const BwdParams& p, uint32_t base, in
     lse2[r] = row < p.seq_q ? p.lse[at] * kLog2e : 0.f;
     dl[r] = row < p.seq_q ? p.delta[at] : 0.f;
   }
+  int id0 = 0, id1 = 0;
+  if constexpr (BR == kSegment) {
+    id0 = p.q_seg[b * p.q_seg_len + row0];
+    id1 = p.q_seg[b * p.q_seg_len + row0 + 8];
+  }
   const uint32_t q_addr = base + L::kQ + cwg * 64 * TileRow<HD>::kBytes;
   const uint32_t do_addr = base + L::kDo + cwg * 64 * TileRow<HD>::kBytes;
 
@@ -768,10 +1004,18 @@ __device__ __forceinline__ void dq_consume(const BwdParams& p, uint32_t base, in
     const int st = t % kDqStages;
     const uint32_t full = q_full + 8 * (1 + st);
     const uint32_t k_addr = base + L::kK + st * L::kTileBytes, v_addr = base + L::kV + st * L::kTileBytes;
-    const int k0 = t * kBlockKv;
+    const int entry = loop_entry(list, 0, t);
+    const int k0 = (entry & (kFullTile - 1)) * kBlockKv;
     const bool all_valid = k0 + kBlockKv <= kv_len;
+    uint64_t bits = ~0ull;  // the branch's live pairs, worked out once the previous tile's dq product has landed
     // Element pair (8kk + 2e, +1) of a fragment: q row row0 + 8*(e & 1), keys k0 + 8j + c and + 1.
-    auto valid = [&](int kk, int e, int dk) { return all_valid || k0 + 8 * (2 * kk + (e >> 1)) + c + dk < kv_len; };
+    auto valid = [&](int kk, int e, int dk) {
+      if constexpr (BR != kNone) {
+        return ((bits >> (8 * kk + 2 * e + dk)) & 1ull) != 0ull;
+      } else {
+        return all_valid || k0 + 8 * (2 * kk + (e >> 1)) + c + dk < kv_len;
+      }
+    };
     mbar_wait(full, (t / kDqStages) & 1);
 
     float s[64], dp[64];
@@ -788,6 +1032,11 @@ __device__ __forceinline__ void dq_consume(const BwdParams& p, uint32_t base, in
       fence_regs<kBlockKv / 16>(da);
       __syncwarp();
       if (lane == 0) mbar_arrive(q_full + 8 * (1 + kDqStages + (t - 1) % kDqStages));
+    }
+    if constexpr (BR != kNone) {
+      bool select = !all_valid || (listed(BR) && !(entry & kFullTile));
+      if constexpr (BR == kCausal) select = select || k0 + kBlockKv - 1 > q0 + 64 * cwg + p.seq_kv - p.seq_q;
+      if (select) bits = dq_bits<BR>(p, b, row0, k0, c, kv_len, id0, id1);
     }
 #pragma unroll
     for (int kk = 0; kk < kBlockKv / 16; ++kk) {
@@ -842,8 +1091,10 @@ __device__ __forceinline__ void dq_consume(const BwdParams& p, uint32_t base, in
 }
 
 // K3: one CTA per (q tile of kBlockRows rows, head, batch); loops over kv tiles
-// up to kv_lens[b].
-template <typename T, int HD>
+// up to kv_lens[b], or with a branch over its live key tiles: causal, up to
+// the last row's diagonal (the CTAs taken in reverse, longest first),
+// segments and masks, the q tile's list.
+template <typename T, int HD, int BR>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
@@ -851,8 +1102,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + DqLayout<HD>::kBars;
-  const int q0 = blockIdx.x * kBlockRows, n = blockIdx.y, b = blockIdx.z;
-  const int num_tiles = (kv_length(p, b) + kBlockKv - 1) / kBlockKv;
+  const int q_tile = BR == kCausal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = q_tile * kBlockRows, n = blockIdx.y, b = blockIdx.z;
+  const int kv_len = kv_length(p, b);
+  int num_tiles = (kv_len + kBlockKv - 1) / kBlockKv;
+  const int* list = nullptr;
+  if constexpr (BR == kCausal) {
+    const int last = min(q0 + kBlockRows, p.seq_q) - 1 + p.seq_kv - p.seq_q;
+    num_tiles = last < 0 ? 0 : min(num_tiles, last / kBlockKv + 1);
+  } else if constexpr (listed(BR)) {
+    const int cell = b * p.list_cells + q_tile;
+    list = p.tiles + (int64_t)cell * p.list_len;
+    num_tiles = p.tile_counts[cell];
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -866,10 +1128,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) dq_produce<HD>(&q_map, &k_map, &v_map, &do_map, base, q0, n, b, num_tiles);
+    if (threadIdx.x == 0) dq_produce<HD>(&q_map, &k_map, &v_map, &do_map, base, q0, n, b, num_tiles, list);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    dq_consume<T, HD>(p, base, threadIdx.x / 128 - 1, q0, n, b, kv_length(p, b), num_tiles);
+    dq_consume<T, HD, BR>(p, base, threadIdx.x / 128 - 1, q0, n, b, kv_len, num_tiles, list);
   }
 }
 
@@ -905,8 +1167,8 @@ BwdParams make_params(const void* lse, const void* delta, const void* kv_lens, c
   return p;
 }
 
-// K2, or with FUSED K5.
-template <typename T, int HD, bool FUSED>
+// K2 (or its branch BR), or with FUSED K5.
+template <typename T, int HD, bool FUSED, int BR = kNone>
 cudaError_t launch_dkdv(const CUtensorMap* maps, const BwdParams& p, cudaStream_t stream) {
   const dim3 grid((p.seq_kv + kBlockRows - 1) / kBlockRows, p.heads, p.batch * p.splits);
   static std::atomic<uint64_t> attribute_set{0};
@@ -914,16 +1176,16 @@ cudaError_t launch_dkdv(const CUtensorMap* maps, const BwdParams& p, cudaStream_
     return launch_sm90(bwd_fused_sm90_kernel<T, HD>, attribute_set, grid, kThreads,
                        DkdvLayout<HD, true>::kBytes + 1024, stream, maps[0], maps[1], maps[2], maps[3], maps[4], p);
   } else {
-    return launch_sm90(bwd_dkdv_sm90_kernel<T, HD>, attribute_set, grid, kThreads,
+    return launch_sm90(bwd_dkdv_sm90_kernel<T, HD, BR>, attribute_set, grid, kThreads,
                        DkdvLayout<HD, false>::kBytes + 1024, stream, maps[0], maps[1], maps[2], maps[3], p);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int BR = kNone>
 cudaError_t launch_dq(const CUtensorMap* maps, const BwdParams& p, cudaStream_t stream) {
   const dim3 grid((p.seq_q + kBlockRows - 1) / kBlockRows, p.heads, p.batch);
   static std::atomic<uint64_t> attribute_set{0};
-  return launch_sm90(bwd_dq_sm90_kernel<T, HD>, attribute_set, grid, kThreads, DqLayout<HD>::kBytes + 1024, stream,
+  return launch_sm90(bwd_dq_sm90_kernel<T, HD, BR>, attribute_set, grid, kThreads, DqLayout<HD>::kBytes + 1024, stream,
                      maps[0], maps[1], maps[2], maps[3], p);
 }
 
@@ -934,17 +1196,54 @@ cudaError_t launch_reduce(const float* dk_part, const float* dv_part, const BwdP
   return cudaGetLastError();
 }
 
-// K2 and K5's shared host path: the maps, K2 or K5 (writing dk and dv, or with
-// splits > 1 the fp32 partials), then the reduce pass where the q loop is split.
-template <bool FUSED>
+// The branch arguments of the branch entries, checked: the ids (segments), the
+// mask (masks) and the lists (both); every branch at head dims 64 and 128 only.
+struct BranchArgs {
+  int branch;
+  const void* q_seg;
+  const void* kv_seg;
+  int64_t q_seg_len, kv_seg_len;
+  const void* mask;
+  int64_t mask_sb, mask_ss;
+  const void* tiles;
+  const void* tile_counts;
+  int list_cells, list_len;
+};
+
+bool apply_branch(BwdParams* p, const BranchArgs& a, int head_dim) {
+  if (a.branch < kNone || a.branch > kMask || (a.branch != kNone && head_dim == 32)) return false;
+  if (listed(a.branch) && (a.tiles == nullptr || a.tile_counts == nullptr || a.list_cells < 1 || a.list_len < 1))
+    return false;
+  if (a.branch == kSegment && (a.q_seg == nullptr || a.kv_seg == nullptr)) return false;
+  if (a.branch == kMask && (a.mask == nullptr || p->kv_lens != nullptr)) return false;
+  p->q_seg = static_cast<const int*>(a.q_seg);
+  p->kv_seg = static_cast<const int*>(a.kv_seg);
+  p->q_seg_len = a.q_seg_len;
+  p->kv_seg_len = a.kv_seg_len;
+  p->mask = static_cast<const unsigned char*>(a.mask);
+  p->mask_sb = a.mask_sb;
+  p->mask_ss = a.mask_ss;
+  p->tiles = static_cast<const int*>(a.tiles);
+  p->tile_counts = static_cast<const int*>(a.tile_counts);
+  p->list_cells = a.list_cells;
+  p->list_len = a.list_len;
+  return true;
+}
+
+// K2 and K5's shared host path: the maps, K2 (or its branch BR) or K5 (writing
+// dk and dv, or with splits > 1 the fp32 partials), then the reduce pass where
+// the q loop is split.
+template <bool FUSED, int BR>
 int dkdv_entry(const void* q_s, const void* k_r, const void* v, const void* dout, const void* lse, const void* delta,
                const void* kv_lens, const void* rope_cos, const void* rope_sin, void* dk, void* dv, void* partials,
                float* dq_acc, int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype,
-               const int64_t* strides, int64_t rope_sn, int splits, int q_tiles_per_split, void* stream) {
-  // H=32: K2 and its reduce pass only (K5 at H=32 is still to port, ROADMAP.md queue 2 item 5).
-  const bool narrow = head_dim == 32 && !FUSED;
+               const int64_t* strides, int64_t rope_sn, int splits, int q_tiles_per_split, void* stream,
+               const BranchArgs& branch = BranchArgs{}) {
+  // H=32: K2 and its reduce pass only (K5 and the branches at H=32 are still to port, ROADMAP.md queue 2 item 5).
+  const bool narrow = head_dim == 32 && !FUSED && BR == kNone;
   if ((head_dim != 64 && head_dim != 128 && !narrow) || (dtype != 0 && dtype != 1) || splits < 1 ||
-      q_tiles_per_split < 1 || (splits > 1 && partials == nullptr) || (FUSED && dq_acc == nullptr))
+      q_tiles_per_split < 1 || (splits > 1 && partials == nullptr) || (FUSED && dq_acc == nullptr) ||
+      branch.branch != BR)
     return cudaErrorInvalidValue;
   CUtensorMap maps[5];
   if (!encode_maps(maps, q_s, k_r, v, dout, dtype, batch, heads, seq_q, seq_kv, head_dim, kBlockQ, kBlockRows,
@@ -956,6 +1255,7 @@ int dkdv_entry(const void* q_s, const void* k_r, const void* v, const void* dout
                            (int64_t)seq_q * head_dim, head_dim))
     return cudaErrorInvalidValue;
   BwdParams p = make_params(lse, delta, kv_lens, rope_cos, rope_sin, batch, heads, seq_q, seq_kv, rope_sn);
+  if (!apply_branch(&p, branch, head_dim)) return cudaErrorInvalidValue;
   p.dk = dk;
   p.dv = dv;
   p.dq_acc = dq_acc;
@@ -972,7 +1272,7 @@ int dkdv_entry(const void* q_s, const void* k_r, const void* v, const void* dout
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if constexpr (!FUSED) {
+  if constexpr (!FUSED && BR == kNone) {
     if (narrow) {
       err = dtype == 0 ? launch_dkdv<__nv_bfloat16, 32, false>(maps, k2, s) : launch_dkdv<__half, 32, false>(maps, k2, s);
       if (err != cudaSuccess || splits == 1) return err;
@@ -981,16 +1281,44 @@ int dkdv_entry(const void* q_s, const void* k_r, const void* v, const void* dout
                         : launch_reduce<__half, 32>(dk_part, dv_part, p, s);
     }
   }
-  if (dtype == 0 && head_dim == 64) err = launch_dkdv<__nv_bfloat16, 64, FUSED>(maps, k2, s);
-  else if (dtype == 0) err = launch_dkdv<__nv_bfloat16, 128, FUSED>(maps, k2, s);
-  else if (head_dim == 64) err = launch_dkdv<__half, 64, FUSED>(maps, k2, s);
-  else err = launch_dkdv<__half, 128, FUSED>(maps, k2, s);
+  if (dtype == 0 && head_dim == 64) err = launch_dkdv<__nv_bfloat16, 64, FUSED, BR>(maps, k2, s);
+  else if (dtype == 0) err = launch_dkdv<__nv_bfloat16, 128, FUSED, BR>(maps, k2, s);
+  else if (head_dim == 64) err = launch_dkdv<__half, 64, FUSED, BR>(maps, k2, s);
+  else err = launch_dkdv<__half, 128, FUSED, BR>(maps, k2, s);
   if (err != cudaSuccess || splits == 1) return err;
   p.splits = splits;
   if (dtype == 0 && head_dim == 64) return launch_reduce<__nv_bfloat16, 64>(dk_part, dv_part, p, s);
   if (dtype == 0) return launch_reduce<__nv_bfloat16, 128>(dk_part, dv_part, p, s);
   if (head_dim == 64) return launch_reduce<__half, 64>(dk_part, dv_part, p, s);
   return launch_reduce<__half, 128>(dk_part, dv_part, p, s);
+}
+
+// K3's host path: the maps and K3 (or its branch BR).
+template <int BR>
+int dq_entry(const void* q_s, const void* k_r, const void* v, const void* dout, const void* lse, const void* delta,
+             const void* kv_lens, const void* rope_cos, const void* rope_sin, void* dq, int batch, int heads, int seq_q,
+             int seq_kv, int head_dim, int dtype, const int64_t* strides, int64_t rope_sn, float scale, void* stream,
+             const BranchArgs& branch = BranchArgs{}) {
+  const bool narrow = head_dim == 32 && BR == kNone;
+  if ((head_dim != 64 && head_dim != 128 && !narrow) || (dtype != 0 && dtype != 1) || branch.branch != BR)
+    return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  if (!encode_maps(maps, q_s, k_r, v, dout, dtype, batch, heads, seq_q, seq_kv, head_dim, kBlockRows, kBlockKv,
+                   strides))
+    return cudaErrorInvalidValue;
+  BwdParams p = make_params(lse, delta, kv_lens, rope_cos, rope_sin, batch, heads, seq_q, seq_kv, rope_sn);
+  if (!apply_branch(&p, branch, head_dim)) return cudaErrorInvalidValue;
+  p.dk = dq;
+  p.dk_sb = strides[12]; p.dk_sn = strides[13]; p.dk_ss = strides[14];
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (BR == kNone) {
+    if (narrow) return dtype == 0 ? launch_dq<__nv_bfloat16, 32>(maps, p, s) : launch_dq<__half, 32>(maps, p, s);
+  }
+  if (dtype == 0 && head_dim == 64) return launch_dq<__nv_bfloat16, 64, BR>(maps, p, s);
+  if (dtype == 0) return launch_dq<__nv_bfloat16, 128, BR>(maps, p, s);
+  if (head_dim == 64) return launch_dq<__half, 64, BR>(maps, p, s);
+  return launch_dq<__half, 128, BR>(maps, p, s);
 }
 
 }  // namespace
@@ -1007,14 +1335,15 @@ int dkdv_entry(const void* q_s, const void* k_r, const void* v, const void* dout
 // kBlockQ rows and writes fp32 partial dk and dv into `partials` (2 x splits x
 // B x N x Skv x H floats), and the reduce pass then writes dk and dv from them;
 // with splits == 1 `partials` is unused.
+#ifndef FLASH_BWD_BRANCHES
 extern "C" int flash_bwd_dkdv_sm90(const void* q_s, const void* k_r, const void* v, const void* dout,
                                    const void* lse, const void* delta, const void* kv_lens, const void* rope_cos,
                                    const void* rope_sin, void* dk, void* dv, void* partials, int batch, int heads,
                                    int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides,
                                    int64_t rope_sn, int splits, int q_tiles_per_split, void* stream) {
-  return dkdv_entry<false>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dk, dv, partials, nullptr,
-                           batch, heads, seq_q, seq_kv, head_dim, dtype, strides, rope_sn, splits, q_tiles_per_split,
-                           stream);
+  return dkdv_entry<false, kNone>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dk, dv, partials,
+                                  nullptr, batch, heads, seq_q, seq_kv, head_dim, dtype, strides, rope_sn, splits,
+                                  q_tiles_per_split, stream);
 }
 
 // K5: K2's arguments, and dq_acc, the fp32 (B, N, Sq, H) contiguous buffer of
@@ -1025,9 +1354,9 @@ extern "C" int flash_bwd_fused_sm90(const void* q_s, const void* k_r, const void
                                     const void* rope_sin, void* dk, void* dv, void* partials, void* dq_acc, int batch,
                                     int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides,
                                     int64_t rope_sn, int splits, int q_tiles_per_split, void* stream) {
-  return dkdv_entry<true>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dk, dv, partials,
-                          static_cast<float*>(dq_acc), batch, heads, seq_q, seq_kv, head_dim, dtype, strides, rope_sn,
-                          splits, q_tiles_per_split, stream);
+  return dkdv_entry<true, kNone>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dk, dv, partials,
+                                 static_cast<float*>(dq_acc), batch, heads, seq_q, seq_kv, head_dim, dtype, strides,
+                                 rope_sn, splits, q_tiles_per_split, stream);
 }
 
 // K3. strides: q_s, k_r, v, dO, dq, each (batch, head, seq).
@@ -1035,20 +1364,56 @@ extern "C" int flash_bwd_dq_sm90(const void* q_s, const void* k_r, const void* v
                                  const void* delta, const void* kv_lens, const void* rope_cos, const void* rope_sin,
                                  void* dq, int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype,
                                  const int64_t* strides, int64_t rope_sn, float scale, void* stream) {
-  if ((head_dim != 32 && head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1))
-    return cudaErrorInvalidValue;
-  CUtensorMap maps[4];
-  if (!encode_maps(maps, q_s, k_r, v, dout, dtype, batch, heads, seq_q, seq_kv, head_dim, kBlockRows, kBlockKv,
-                   strides))
-    return cudaErrorInvalidValue;
-  BwdParams p = make_params(lse, delta, kv_lens, rope_cos, rope_sin, batch, heads, seq_q, seq_kv, rope_sn);
-  p.dk = dq;
-  p.dk_sb = strides[12]; p.dk_sn = strides[13]; p.dk_ss = strides[14];
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 32) return dtype == 0 ? launch_dq<__nv_bfloat16, 32>(maps, p, s) : launch_dq<__half, 32>(maps, p, s);
-  if (dtype == 0 && head_dim == 64) return launch_dq<__nv_bfloat16, 64>(maps, p, s);
-  if (dtype == 0) return launch_dq<__nv_bfloat16, 128>(maps, p, s);
-  if (head_dim == 64) return launch_dq<__half, 64>(maps, p, s);
-  return launch_dq<__half, 128>(maps, p, s);
+  return dq_entry<kNone>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dq, batch, heads, seq_q,
+                         seq_kv, head_dim, dtype, strides, rope_sn, scale, stream);
 }
+#else
+
+// The branch entries (built from flash_bwd_branches_sm90.cu, which defines
+// FLASH_BWD_BRANCHES): K2's and K3's arguments, then the branch (1 causal, 2
+// segment ids, 3 a dense mask with kv_lens folded in, so kv_lens null), the q
+// and key ids (int32, q_seg_len and kv_seg_len per batch, padded to whole
+// tiles), the padded uint8 mask with its batch and row strides (K2's
+// transposed, a row per key), and the live-tile lists (per batch list_cells
+// cells of list_len entries, K2's per key tile, K3's per 128-row q tile) with
+// their counts. Head dims 64 and 128.
+#define BRANCH_PARAMS                                                                                           \
+  int branch, const void *q_seg, const void *kv_seg, int64_t q_seg_len, int64_t kv_seg_len, const void *mask, \
+      int64_t mask_sb, int64_t mask_ss, const void *tiles, const void *tile_counts, int list_cells, int list_len
+#define BRANCH_ARGS \
+  BranchArgs { branch, q_seg, kv_seg, q_seg_len, kv_seg_len, mask, mask_sb, mask_ss, tiles, tile_counts, list_cells, list_len }
+
+extern "C" int flash_bwd_dkdv_branch_sm90(const void* q_s, const void* k_r, const void* v, const void* dout,
+                                          const void* lse, const void* delta, const void* kv_lens, const void* rope_cos,
+                                          const void* rope_sin, void* dk, void* dv, void* partials, int batch,
+                                          int heads, int seq_q, int seq_kv, int head_dim, int dtype,
+                                          const int64_t* strides, int64_t rope_sn, int splits, int q_tiles_per_split,
+                                          BRANCH_PARAMS, void* stream) {
+#define K2_BRANCH(BR)                                                                                              \
+  dkdv_entry<false, BR>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dk, dv, partials, nullptr, batch, \
+                        heads, seq_q, seq_kv, head_dim, dtype, strides, rope_sn, splits, q_tiles_per_split, stream,   \
+                        BRANCH_ARGS)
+  if (branch == kCausal) return K2_BRANCH(kCausal);
+  if (branch == kSegment) return K2_BRANCH(kSegment);
+  if (branch == kMask) return K2_BRANCH(kMask);
+#undef K2_BRANCH
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int flash_bwd_dq_branch_sm90(const void* q_s, const void* k_r, const void* v, const void* dout,
+                                        const void* lse, const void* delta, const void* kv_lens, const void* rope_cos,
+                                        const void* rope_sin, void* dq, int batch, int heads, int seq_q, int seq_kv,
+                                        int head_dim, int dtype, const int64_t* strides, int64_t rope_sn, float scale,
+                                        BRANCH_PARAMS, void* stream) {
+#define K3_BRANCH(BR)                                                                                              \
+  dq_entry<BR>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dq, batch, heads, seq_q, seq_kv, head_dim, \
+               dtype, strides, rope_sn, scale, stream, BRANCH_ARGS)
+  if (branch == kCausal) return K3_BRANCH(kCausal);
+  if (branch == kSegment) return K3_BRANCH(kSegment);
+  if (branch == kMask) return K3_BRANCH(kMask);
+#undef K3_BRANCH
+  return cudaErrorInvalidValue;
+}
+#undef BRANCH_ARGS
+#undef BRANCH_PARAMS
+#endif  // FLASH_BWD_BRANCHES

@@ -129,6 +129,10 @@
 // three consumers at H=64 (spills 44 bytes; 0.33 ms at LTX's shape
 // [0.38]), and its P V left in flight into the next step (ptxas serializes
 // the wgmmas, C7515; 5.37-5.38 ms [4.74-4.78]).
+// K1's branches are built as a library of their own, from
+// flash_fwd_branches_sm90.cu, which compiles this file with FLASH_FWD_BRANCHES
+// defined (its entry points: the section at the end), so that nvcc compiles
+// them beside the kernels above.
 // K1's dense-mask branch (`flash_fwd_mask_sm90`; _fwd_kernel's `mask_ref`
 // branch, :217-222, with the block map's tile skipping, :304-307) is K1's
 // kernel with a list of live key tiles per q tile and a boolean mask:
@@ -147,6 +151,24 @@
 //  - The CTAs take the last q tiles first, over every (batch, head): under a
 //    causal mask those have the most live tiles, so the longest CTAs start
 //    first and the short ones fill the last wave.
+// K1's causal branch (`flash_fwd_causal_sm90`; _fwd_kernel :205-209, its skip
+// :300-303) keeps key col where col <= row + (Skv - Sq), and its segment branch
+// (`flash_fwd_segment_sm90`; :210-214) where q_seg[row] == kv_seg[col], both
+// beside kv_lens. Each is K1's kernel with a select and a shorter loop:
+//  - Causal: the CTA's loop ends at the key tile holding its last row's
+//    diagonal, so a tile wholly above the diagonal is never loaded; only the
+//    tiles the diagonal (or kv_lens[b]) crosses select their scores, by
+//    comparing column and row indices.
+//  - Segments: the wrapper lists, per q tile, the key tiles whose id range
+//    [min, max] meets the q tile's (no pair can match otherwise, whatever the
+//    layout, so the skip is exact), flagging those where both tiles hold one
+//    id; the producer and the consumers walk that list as in the mask branch.
+//    A consumer compares its two rows' ids with each column's (two ids per
+//    8-byte load), unless the tile is flagged and holds no key past
+//    kv_lens[b].
+//  - Both select to -inf, as the mask branch does, so a row with no live key
+//    (causal with Sq > Skv, or a segment none of whose keys is in range) gives
+//    out 0 and lse -1e30*ln2. CTAs run longest first, as in the mask branch.
 // Not yet used: an enforced ping-pong between the two warpgroups, a
 // persistent grid, or a TMA store of the output. The Hopper helpers (barriers, TMA,
 // wgmma wrappers, descriptors, tensor maps) are in sm90_common.cuh, shared
@@ -160,8 +182,10 @@ constexpr int kBlockN = 128;  // keys per stage
 constexpr int kStages = 2;
 constexpr int kProducerRegs = 24;
 // The kernels of this file: K1, K7a (two-pass), K7c (two-level), K7b (skewed),
-// and K1's dense-mask branch.
-enum Variant { kStraight, kTwoPass, kTwoLevel, kSkew, kMasked };
+// and K1's dense-mask, causal and segment branches.
+enum Variant { kStraight, kTwoPass, kTwoLevel, kSkew, kMasked, kCausal, kSegment };
+// The variants that walk a per-q-tile list of live key tiles.
+__host__ __device__ constexpr bool listed(int v) { return v == kMasked || v == kSegment; }
 // A live key tile's entry in the mask branch's list: its index, with kFullTile
 // set where every mask byte of the (q tile, key tile) block is set.
 constexpr int kFullTile = 1 << 30;
@@ -225,6 +249,11 @@ struct Params {
   const int* tiles;        // (B, q_tiles, kv_tiles)
   const int* tile_counts;  // (B, q_tiles)
   int q_tiles, kv_tiles;
+  // The segment branch (its tile lists as the mask branch's): per batch the
+  // ids of the q rows and of the keys, int32, padded past Sq and Skv.
+  const int* q_seg;
+  const int* kv_seg;
+  int64_t q_seg_len, kv_seg_len;
 };
 
 // The producer: one thread of warpgroup 0 loads the q tile once, then k and v
@@ -312,6 +341,35 @@ __device__ __forceinline__ void mask_select(float* s, const unsigned char* row0,
   }
 }
 
+// The causal branch's select on a landed score tile of 128 keys from k0: a key
+// past this thread's row's diagonal (row0, row0 + 8, plus `off` = Skv - Sq) or
+// at or past kv_len becomes -inf.
+__device__ __forceinline__ void causal_select(float* s, int row0, int off, int k0, int kv_len, int lane) {
+#pragma unroll
+  for (int i = 0; i < kBlockN / 2; ++i) {
+    const int col = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+    if (col > row0 + 8 * ((i >> 1) & 1) + off || col >= kv_len) s[i] = -INFINITY;
+  }
+}
+
+// The segment branch's select on a landed score tile of 128 keys from k0: a
+// key whose id differs from this thread's row's (id0, id1 for its two rows)
+// or at or past kv_len becomes -inf. `kv_ids`: this batch's key ids; each
+// fragment pair's two ids are one 8-byte load.
+__device__ __forceinline__ void segment_select(float* s, const int* kv_ids, int id0, int id1, int k0, int kv_len,
+                                               int lane) {
+  const int c0 = k0 + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < kBlockN / 8; ++j) {
+    const int2 ids = *reinterpret_cast<const int2*>(kv_ids + c0 + 8 * j);
+    const bool in0 = c0 + 8 * j < kv_len, in1 = c0 + 8 * j + 1 < kv_len;
+    if (ids.x != id0 || !in0) s[4 * j] = -INFINITY;
+    if (ids.y != id0 || !in1) s[4 * j + 1] = -INFINITY;
+    if (ids.x != id1 || !in0) s[4 * j + 2] = -INFINITY;
+    if (ids.y != id1 || !in1) s[4 * j + 3] = -INFINITY;
+  }
+}
+
 // out = acc / l in T, lse = m*ln2 + log(l) for a consumer warpgroup's 64 q
 // rows from row0 (l: this thread's partial row sums, reduced over the quad
 // here); a row with no valid key has l = 0: out 0, lse -1e30*ln2.
@@ -344,32 +402,48 @@ __device__ __forceinline__ void store_out(const Params& p, const float* o, const
 // 8j + 2*(lane%4) + (e&1) of row lane/4 + 8*(e>=2) of the warp's 16 rows.
 // Tile t's QK^T is issued together with tile t-1's P V, and tile t's softmax
 // runs while that P V is on the tensor cores.
-// MASKED (the mask branch): tile t is the key tile tiles[t], and its scores
-// pass mask_select first unless the tile is flagged full.
-template <typename T, int HD, bool MASKED = false>
+// V (the branches): in the mask and segment branches tile t is the key tile
+// tiles[t], and its scores pass mask_select or segment_select first unless the
+// tile is flagged (and, for segments, holds no key past kv_len); in the causal
+// branch a tile the diagonal or kv_len crosses passes causal_select. The
+// branches' selects cover kv_len, so softmax_step selects nothing there.
+template <typename T, int HD, int V = kStraight>
 __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg, int q0, int n, int b, int kv_len,
                                         int num_tiles, const int* tiles = nullptr) {
   using L = Layout<HD>;
   constexpr int kOut = HD / 2;  // accumulator floats per thread: 64 rows x HD / 128 threads
   const int lane = threadIdx.x % 32;
+  const int row0 = q0 + cwg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // this thread's first row
   const unsigned char* mask_row = nullptr;
   int64_t mask_stride = 0;
-  if constexpr (MASKED) {
+  if constexpr (V == kMasked) {
     mask_stride = (int64_t)p.kv_tiles * kBlockN;
-    const int row = q0 + cwg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
-    mask_row = p.mask + ((int64_t)b * p.q_tiles * block_m<HD>() + row) * mask_stride;
+    mask_row = p.mask + ((int64_t)b * p.q_tiles * block_m<HD>() + row0) * mask_stride;
   }
-  // Tile t's scores, landed: the mask branch's select (`entry`: its list entry,
+  const int* kv_ids = nullptr;
+  int id0 = 0, id1 = 0;
+  if constexpr (V == kSegment) {
+    kv_ids = p.kv_seg + b * p.kv_seg_len;
+    id0 = p.q_seg[b * p.q_seg_len + row0];
+    id1 = p.q_seg[b * p.q_seg_len + row0 + 8];
+  }
+  const int off = p.seq_kv - p.seq_q;  // the causal diagonal's offset
+  // Tile t's scores, landed: the branch's select (`entry`: its list entry,
   // read before the scores were waited for), then the softmax step.
   auto step = [&](float* s, float* m, float* alpha, float* rowsum, int t, int entry) {
     int k0 = t * kBlockN;
-    if constexpr (MASKED) {
+    if constexpr (V == kMasked) {
       k0 = (entry & (kFullTile - 1)) * kBlockN;
       if (!(entry & kFullTile)) mask_select(s, mask_row, mask_row + 8 * mask_stride, k0, lane);
+    } else if constexpr (V == kSegment) {
+      k0 = (entry & (kFullTile - 1)) * kBlockN;
+      if (!(entry & kFullTile) || k0 + kBlockN > kv_len) segment_select(s, kv_ids, id0, id1, k0, kv_len, lane);
+    } else if constexpr (V == kCausal) {
+      if (k0 + kBlockN - 1 > q0 + cwg * 64 + off || k0 + kBlockN > kv_len) causal_select(s, row0, off, k0, kv_len, lane);
     }
-    softmax_step(s, m, alpha, rowsum, k0, kv_len, lane);
+    softmax_step(s, m, alpha, rowsum, k0, V == kStraight ? kv_len : 0x7fffffff, lane);
   };
-  auto entry_of = [&](int t) { return MASKED ? tiles[t] : 0; };
+  auto entry_of = [&](int t) { return listed(V) ? tiles[t] : 0; };
   const uint32_t q_full = base + L::kBars;
   auto k_full = [&](int st) { return q_full + 8 * (1 + st); };
   auto v_full = [&](int st) { return q_full + 8 * (1 + kStages + st); };
@@ -935,7 +1009,7 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* q_map, const CUtensor
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + Layout<HD, kWgs>::kBars;
   int q_tile = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
-  if constexpr (V == kMasked) {
+  if constexpr (listed(V) || V == kCausal) {
     // Last q tiles first, over every (batch, head), as the CTAs are dispatched
     // in order: under a causal mask they have the most live tiles, so the
     // longest CTAs start first and the short ones fill the last wave.
@@ -950,11 +1024,15 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* q_map, const CUtensor
   if (p.kv_lens != nullptr) kv_len = min(max(p.kv_lens[b], 0), p.seq_kv);
   int num_tiles = (kv_len + kBlockN - 1) / kBlockN;
   const int* tiles = nullptr;
-  if constexpr (V == kMasked) {  // the live key tiles of this (b, q tile); the mask alone selects keys
+  if constexpr (listed(V)) {  // the live key tiles of this (b, q tile)
     const int cell = b * p.q_tiles + q_tile;
     num_tiles = p.tile_counts[cell];
     tiles = p.tiles + (int64_t)cell * p.kv_tiles;
-    kv_len = 0x7fffffff;
+    if (V == kMasked) kv_len = 0x7fffffff;  // the mask alone selects keys
+  }
+  if constexpr (V == kCausal) {  // up to the key tile of the last row's diagonal
+    const int last = min(q0 + block_m<HD, V>(), p.seq_q) - 1 + p.seq_kv - p.seq_q;
+    num_tiles = last < 0 ? 0 : min(num_tiles, last / kBlockN + 1);
   }
 
   if (threadIdx.x == 0) {
@@ -989,10 +1067,8 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* q_map, const CUtensor
       consume_two_level<T, HD>(p, base, cwg, q0, n, b, kv_len, num_tiles);
     } else if constexpr (V == kSkew) {
       consume_skew<T, HD>(p, base, smem, cwg, q0, n, b, kv_len);
-    } else if constexpr (V == kMasked) {
-      consume<T, HD, true>(p, base, cwg, q0, n, b, kv_len, num_tiles, tiles);
     } else {
-      consume<T, HD>(p, base, cwg, q0, n, b, kv_len, num_tiles);
+      consume<T, HD, V>(p, base, cwg, q0, n, b, kv_len, num_tiles, tiles);
     }
   }
 }
@@ -1010,17 +1086,27 @@ FWD_KERNEL(flash_fwd_twopass_sm90_kernel, kTwoPass)
 FWD_KERNEL(flash_fwd_two_level_sm90_kernel, kTwoLevel)
 FWD_KERNEL(flash_fwd_skew_sm90_kernel, kSkew)
 FWD_KERNEL(flash_fwd_mask_sm90_kernel, kMasked)
+FWD_KERNEL(flash_fwd_causal_sm90_kernel, kCausal)
+FWD_KERNEL(flash_fwd_segment_sm90_kernel, kSegment)
 #undef FWD_KERNEL
 
-// Variant V's kernel at (T, HD).
+// Variant V's kernel at (T, HD); only V's is instantiated, so each library
+// compiles the variants its entry points launch.
+template <typename T, int HD, int V>
+constexpr auto kernel_of() {
+  if constexpr (V == kTwoPass) return flash_fwd_twopass_sm90_kernel<T, HD>;
+  else if constexpr (V == kTwoLevel) return flash_fwd_two_level_sm90_kernel<T, HD>;
+  else if constexpr (V == kSkew) return flash_fwd_skew_sm90_kernel<T, HD>;
+  else if constexpr (V == kMasked) return flash_fwd_mask_sm90_kernel<T, HD>;
+  else if constexpr (V == kCausal) return flash_fwd_causal_sm90_kernel<T, HD>;
+  else if constexpr (V == kSegment) return flash_fwd_segment_sm90_kernel<T, HD>;
+  else return flash_fwd_sm90_kernel<T, HD>;
+}
+
 template <typename T, int HD, int V>
 cudaError_t launch(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map, const Params& p,
                    int batch, cudaStream_t stream) {
-  auto kernel = flash_fwd_sm90_kernel<T, HD>;
-  if constexpr (V == kTwoPass) kernel = flash_fwd_twopass_sm90_kernel<T, HD>;
-  if constexpr (V == kTwoLevel) kernel = flash_fwd_two_level_sm90_kernel<T, HD>;
-  if constexpr (V == kSkew) kernel = flash_fwd_skew_sm90_kernel<T, HD>;
-  if constexpr (V == kMasked) kernel = flash_fwd_mask_sm90_kernel<T, HD>;
+  auto kernel = kernel_of<T, HD, V>();
   const dim3 grid((p.seq_q + block_m<HD, V>() - 1) / block_m<HD, V>(), p.heads, batch);
   static std::atomic<uint64_t> attribute_set{0};
   // + 1024 bytes of slack to align the base to 1024 bytes
@@ -1032,8 +1118,9 @@ template <int V>
 int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, int batch,
               int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, float q_scale,
               void* stream, const void* mask = nullptr, const void* tiles = nullptr, const void* tile_counts = nullptr,
-              int q_tiles = 0, int kv_tiles = 0) {
-  // H=32: K1 only (K7a/b/c and the mask branch at H=32 are still to port, ROADMAP.md queue 2 item 5).
+              int q_tiles = 0, int kv_tiles = 0, const void* q_seg = nullptr, const void* kv_seg = nullptr,
+              int64_t q_seg_len = 0, int64_t kv_seg_len = 0) {
+  // H=32: K1 only (K7a/b/c and K1's branches at H=32 are still to port, ROADMAP.md queue 2 item 5).
   const bool narrow = head_dim == 32 && V == kStraight;
   if ((head_dim != 64 && head_dim != 128 && !narrow) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
@@ -1057,8 +1144,17 @@ int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* 
   p.tile_counts = static_cast<const int*>(tile_counts);
   p.q_tiles = q_tiles;
   p.kv_tiles = kv_tiles;
-  if (V == kMasked && (mask == nullptr || tiles == nullptr || tile_counts == nullptr || kv_lens != nullptr ||
-                       q_tiles != (seq_q + q_rows - 1) / q_rows || kv_tiles != (seq_kv + kBlockN - 1) / kBlockN))
+  p.q_seg = static_cast<const int*>(q_seg);
+  p.kv_seg = static_cast<const int*>(kv_seg);
+  p.q_seg_len = q_seg_len;
+  p.kv_seg_len = kv_seg_len;
+  if (listed(V) && (tiles == nullptr || tile_counts == nullptr || q_tiles != (seq_q + q_rows - 1) / q_rows ||
+                    kv_tiles != (seq_kv + kBlockN - 1) / kBlockN))
+    return cudaErrorInvalidValue;
+  if (V == kMasked && (mask == nullptr || kv_lens != nullptr)) return cudaErrorInvalidValue;
+  // The ids are read in whole tiles: q rows up to q_tiles * q_rows, keys up to kv_tiles * 128.
+  if (V == kSegment && (q_seg == nullptr || kv_seg == nullptr || q_seg_len < (int64_t)q_tiles * q_rows ||
+                        kv_seg_len < (int64_t)kv_tiles * kBlockN))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (V == kStraight) {
@@ -1073,6 +1169,7 @@ int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* 
 
 }  // namespace
 
+#ifndef FLASH_FWD_BRANCHES
 // Plain C entry points, loaded with ctypes: K1, K7a, K7c and K7b. q_s and k_r
 // are the pre-pass's operands (k itself when there are no RoPE tables); K7b
 // takes the raw q and k and scales q by `q_scale` (scale * log2(e)) itself.
@@ -1090,9 +1187,40 @@ int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* 
 FWD_ENTRY(flash_fwd_sm90, kStraight)
 FWD_ENTRY(flash_fwd_twopass_sm90, kTwoPass)
 FWD_ENTRY(flash_fwd_two_level_sm90, kTwoLevel)
-#undef FWD_ENTRY
 
-// K1's mask branch: K1's arguments without kv_lens, then the padded mask, the
+extern "C" int flash_fwd_skew_sm90(const void* q, const void* k, const void* v, void* out, void* lse,
+                                   const void* kv_lens, int batch, int heads, int seq_q, int seq_kv, int head_dim,
+                                   int dtype, const int64_t* strides, float q_scale, void* stream) {
+  return fwd_entry<kSkew>(q, k, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides, q_scale,
+                          stream);
+}
+#else
+// K1's branches (built from flash_fwd_branches_sm90.cu, which defines
+// FLASH_FWD_BRANCHES), arguments as K1's above. The causal branch: K1's.
+#define FWD_ENTRY(NAME, V)                                                                                      \
+  extern "C" int NAME(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, \
+                      int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, \
+                      void* stream) {                                                                           \
+    return fwd_entry<V>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides,  \
+                        1.f, stream);                                                                           \
+  }
+FWD_ENTRY(flash_fwd_causal_sm90, kCausal)
+
+// The segment branch: K1's arguments, then the padded q and key ids (int32,
+// q_seg_len and kv_seg_len per batch, at least the q tiles' rows and the key
+// tiles' columns), the live-tile lists and counts (as the mask branch's), and
+// the q and key tile counts.
+extern "C" int flash_fwd_segment_sm90(const void* q_s, const void* k_r, const void* v, void* out, void* lse,
+                                      const void* kv_lens, const void* q_seg, const void* kv_seg, const void* tiles,
+                                      const void* tile_counts, int64_t q_seg_len, int64_t kv_seg_len, int batch,
+                                      int heads, int seq_q, int seq_kv, int head_dim, int dtype,
+                                      const int64_t* strides, int q_tiles, int kv_tiles, void* stream) {
+  return fwd_entry<kSegment>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides,
+                             1.f, stream, nullptr, tiles, tile_counts, q_tiles, kv_tiles, q_seg, kv_seg, q_seg_len,
+                             kv_seg_len);
+}
+
+// The mask branch: K1's arguments without kv_lens, then the padded mask, the
 // live-tile lists and counts, and the q and key tile counts (see Params; the
 // q tile is 128 rows at head dim 128, 192 at 64).
 extern "C" int flash_fwd_mask_sm90(const void* q_s, const void* k_r, const void* v, void* out, void* lse,
@@ -1102,10 +1230,5 @@ extern "C" int flash_fwd_mask_sm90(const void* q_s, const void* k_r, const void*
   return fwd_entry<kMasked>(q_s, k_r, v, out, lse, nullptr, batch, heads, seq_q, seq_kv, head_dim, dtype, strides, 1.f,
                             stream, mask, tiles, tile_counts, q_tiles, kv_tiles);
 }
-
-extern "C" int flash_fwd_skew_sm90(const void* q, const void* k, const void* v, void* out, void* lse,
-                                   const void* kv_lens, int batch, int heads, int seq_q, int seq_kv, int head_dim,
-                                   int dtype, const int64_t* strides, float q_scale, void* stream) {
-  return fwd_entry<kSkew>(q, k, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides, q_scale,
-                          stream);
-}
+#endif  // FLASH_FWD_BRANCHES
+#undef FWD_ENTRY

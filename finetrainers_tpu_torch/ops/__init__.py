@@ -4,6 +4,7 @@ from .attention import (
     attention_provider,
     get_active_provider,
     list_providers,
+    pack_sequences,
 )
 from .flash_attention import flash_attention, flash_attention_reference, flash_forward
 
@@ -14,6 +15,7 @@ __all__ = [
     "attention_provider",
     "get_active_provider",
     "list_providers",
+    "pack_sequences",
     "flash_attention",
     "flash_attention_reference",
     "flash_forward",

@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into a shared library under `_build/` (listed in `.gitignore`) at first use,
-then loaded with `ctypes`. The library name carries a hash of the source, of
-every header in `csrc/` and of the flags, so an edited source or header is
-rebuilt and a stale library is never loaded. `load_libraries` starts one nvcc
-per source at once.
+then loaded with `ctypes`. The library name carries a hash of every file in
+`csrc/` (a source may include another: the branch libraries include their
+kernels' source) and of the flags, so an edited file is rebuilt and a stale
+library is never loaded. `load_libraries` starts one nvcc per source at once;
+`SOURCES` names every library.
 Nothing here runs at import time.
 """
 
@@ -30,6 +31,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
+# Every library: K1 and K7a/b/c; K1's mask, causal and segment branches; K2, K3
+# and K5; K2's and K3's branches; the pre-pass and K5's dq emit; the sage
+# pre-pass and K6.
+SOURCES = ("flash_fwd_sm90", "flash_fwd_branches_sm90", "flash_bwd_sm90", "flash_bwd_branches_sm90", "flash_bwd",
+           "sage_fwd_sm90")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 # name -> {"seconds": build time (0.0 when the library was already built), "log": nvcc stderr}
@@ -47,10 +54,10 @@ def _find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    """The library's path, named by a hash of its source, every header of
-    csrc/ (a shared header may change either kernel) and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh")), *sorted(CSRC_DIR.glob("*.h"))]:
+    """The library's path, named by a hash of its name, every file of csrc/ (a
+    shared header or an included source may change it) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + name.encode())
+    for path in sorted(p for p in CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh", ".h")):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

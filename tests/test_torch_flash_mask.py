@@ -123,27 +123,42 @@ def test_mask_tiles_list_the_live_tiles_at_k1_tiles(head_dim):
 
 def test_k1_takes_masks_and_gqa_on_the_card():
     """On the card (meta tensors stand in): a boolean mask without a head axis
-    at head dim 64 or 128, and GQA, go to K1; causal flags, head-dependent or
-    additive masks and head dim 32 under a mask do not. On the CPU masks and
-    GQA go to fp32 math."""
+    at head dim 64 or 128 (with a causal flag folded into it), a causal call at
+    64 or 128, and GQA, go to K1; head-dependent or additive masks and head dim
+    32 under a mask or a causal flag do not. On the CPU masks, causal calls
+    and GQA go to fp32 math."""
     q = torch.empty(2, 77, 4, 128, dtype=torch.bfloat16, device="meta")
     kv = torch.empty(2, 77, 2, 128, dtype=torch.bfloat16, device="meta")
     mask = torch.empty(2, 1, 77, 77, dtype=torch.bool, device="meta")
     takes = attention_ops._k1_takes
     assert takes(q, kv, None, False) and takes(q, kv, mask, False) and takes(q, q, mask[0, 0], False)
-    assert not takes(q, kv, mask, True)
+    assert takes(q, kv, mask, True) and takes(q, kv, None, True)
     assert not takes(q, kv, mask.expand(2, 4, 77, 77), False)  # depends on the head
     assert not takes(q, kv, torch.empty(2, 1, 77, 77, device="meta"), False)  # additive
     assert not takes(q[..., :32], kv[..., :32], mask, False) and takes(q[..., :32], kv[..., :32], None, False)
+    assert not takes(q[..., :32], kv[..., :32], None, True)
     cpu = torch.zeros(2, 77, 4, 64)
     assert not takes(cpu, cpu[:, :, :2], None, False) and not takes(cpu, cpu, torch.ones(77, 77, dtype=torch.bool),
                                                                     False)
+    assert not takes(cpu, cpu, None, True)
 
 
 def test_masked_flash_attention_is_forward_only():
-    q = torch.zeros(1, 8, 2, 64, requires_grad=True)
-    mask = torch.ones(1, 8, 8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        flash_attention(q, q, q, attn_mask=mask)
-    with torch.no_grad():
-        assert flash_attention(q, q, q, attn_mask=mask).shape == q.shape
+    """No longer forward only: a masked call's gradient runs K2/K3's mask
+    branches (their plain versions here) and equals autograd through plain
+    fp32 attention under the same mask, a row with no live key getting none."""
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(1, s, 2, 64).astype(np.float32)).requires_grad_(True)
+               for s in (24, 40, 40))
+    mask = torch.from_numpy(rng.rand(1, 24, 40) > 0.5)
+    mask[0, 3] = False
+    out = flash_attention(q, k, v, attn_mask=mask)
+    grads = torch.autograd.grad((out * out).sum(), (q, k, v))
+    live = mask.any(-1)[:, :, None, None]
+    # Plain math gives the empty row NaN: it attends every key there and is cut out of the loss.
+    ref = attention_ops._math_attention(q, k, v, (mask | ~live[..., 0])[:, None], False, None, None) * live
+    ref_grads = torch.autograd.grad((ref * ref).sum(), (q, k, v))
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(), atol=ATOL, rtol=RTOL)
+    for got, want in zip(grads, ref_grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
+    assert not grads[0][0, 3].any()

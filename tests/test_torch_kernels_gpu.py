@@ -6,6 +6,10 @@ imports no JAX. On the card:
     python -m pytest tests/test_torch_kernels_gpu.py -q
 """
 
+import importlib.util
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -1195,3 +1199,161 @@ def test_k1_mask_branch_matches_its_plain_version(head_dim, kv_heads, kind):
         big_k[:, :, 128:256], big_v[:, :, 128:256] = 3e4, -3e4
         big = flash_forward_masked_core(q_s, big_k, big_v, mask)
         assert torch.equal(big[0], core) and torch.equal(big[1], lse)
+
+
+# (name, B, N, Sq, Skv, branch, kv_lens, rope): K1's, K2's and K3's causal, segment and mask branches at
+# lengths off every tile boundary, Sq < Skv and Sq > Skv for the causal offset (rows with no key), a key tile
+# split over CTAs (few keys), kv_lens, fused RoPE, and rows with no live key under the mask.
+BRANCH_CASES = [
+    ("causal_self", 2, 3, 333, 333, "causal", None, "shared"),
+    ("causal_q_short", 1, 2, 150, 700, "causal", [650], None),
+    ("causal_q_long", 1, 2, 500, 200, "causal", None, None),
+    ("segment_packed", 2, 2, 400, 400, "segment", [390, 400], "shared"),
+    ("segment_cross_split", 1, 2, 900, 150, "segment", None, None),
+    ("mask_sparse", 2, 2, 300, 450, "mask", [420, 450], None),
+    ("mask_rope_split", 1, 2, 1000, 1000, "mask", None, "per_head"),
+]
+
+
+def _branch_inputs(branch, b, sq, skv, g):
+    """The branch's flag, ids and mask: packed ids with -1 padding, a random
+    block-sparse mask with a key tile off for every row and two empty rows."""
+    causal, q_seg, kv_seg, mask = branch == "causal", None, None, None
+    if branch == "segment":
+        bounds = torch.randint(1, 6, (b, sq), generator=g, device="cuda").cumsum(-1) // 97
+        q_seg = bounds.to(torch.int32)
+        q_seg[:, -13:] = -1
+        kv_seg = q_seg if sq == skv else (torch.arange(skv, device="cuda") // 50).to(torch.int32)[None].repeat(b, 1)
+    if branch == "mask":
+        mask = torch.rand(b, sq, skv, generator=g, device="cuda") > 0.4
+        mask[:, :, 128:256] = False
+        mask[:, 7] = False
+        mask[-1, sq - 1] = False
+    return causal, q_seg, kv_seg, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BRANCH_CASES, ids=[c[0] for c in BRANCH_CASES])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_k2_k3_branches_match_their_plain_versions(dtype, head_dim, case):
+    """K1's, K2's and K3's causal, segment and mask branches (through
+    `flash_forward` and `flash_backward`, the pre-pass included) against
+    `flash_attention_reference` and `flash_backward_reference` with the same
+    branch inputs: out within 2e-2 of max(1, |ref|) and the LSE within 1e-2
+    on rows with a live key, rows without one exactly 0 (out, dq); dq, dk, dv
+    within 1e-2 relative L2 and 2e-2 of max |ref|; each call launches its
+    branch once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    name, b, n, sq, skv, branch, lens, rope = case
+    g = torch.Generator(device="cuda").manual_seed(len(name))
+    q, k, v = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+               for s in (sq, skv, skv))
+    do = torch.randn(b, sq, n, head_dim, device="cuda", generator=g).to(dtype).transpose(1, 2)
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cos, sin = _tables(rope, n, sq, head_dim, g)
+    causal, q_seg, kv_seg, mask = _branch_inputs(branch, b, sq, skv, g)
+    branches = (causal, q_seg, kv_seg, mask)
+    before = [dict(getattr(fn, "branch_launches", {})) for fn in (flash_forward, flash_bwd_dkdv, flash_bwd_dq)]
+    out, lse = flash_forward(q, k, v, kv_lens, cos, sin, None, *branches)
+    dq, dk, dv = flash_backward(q, k, v, out, lse, do, kv_lens, cos, sin, None, None, *branches)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_reference(q, k, v, kv_lens, cos, sin, None, *branches)
+    live = flash_attention_reference(q[..., :1], k[..., :1], v[..., :1].float(), kv_lens, None, None, None,
+                                     *branches)[1] > -1e29  # (B, N, Sq): rows with a live key
+    err = (out.float() - ref.float()).abs()[live]
+    assert (err / ref.float().abs()[live].clamp_min(1.0)).max() <= 2e-2, (case, err.max())
+    assert (lse - ref_lse).abs()[live].max() <= 1e-2, case
+    assert not out[~live].any() and not dq[~live].any(), case
+    refs = flash_backward_reference(q, k, v, out, lse, do, kv_lens, cos, sin, None, None, *branches)
+    for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert torch.isfinite(got).all(), (gname, case)
+        rel_l2, max_ratio = _rel_errors(got, want)
+        assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (gname, case, rel_l2, max_ratio)
+    key = branch if branch != "mask" else None
+    if key is not None:
+        assert flash_forward.branch_launches[key] == before[0][key] + 1
+    assert flash_bwd_dkdv.branch_launches[branch] == before[1][branch] + 1
+    assert flash_bwd_dq.branch_launches[branch] == before[2][branch] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_mask_branches_never_read_dead_key_tiles(head_dim):
+    """Keys no query attends (a 128-key tile off for every row): their k and v
+    rows filled with large values leave out, LSE, dq and the other keys' dk
+    and dv bit-equal, and their own dk and dv are exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, n, sq, skv = 1, 2, 400, 640
+    q, k, v, do = (torch.randn(b, n, s, head_dim, device="cuda", generator=g).to(torch.bfloat16)
+                   for s in (sq, skv, skv, sq))
+    mask = torch.rand(b, sq, skv, generator=g, device="cuda") > 0.5
+    mask[:, :, 256:512] = False
+    results = []
+    for fill in (None, 3e4):
+        kk, vv = k.clone(), v.clone()
+        if fill is not None:
+            kk[:, :, 256:512], vv[:, :, 256:512] = fill, -fill
+        out, lse = flash_forward(q, kk, vv, mask=mask)
+        results.append((out, lse, *flash_backward(q, kk, vv, out, lse, do, mask=mask)))
+    (out, lse, dq, dk, dv), big = results
+    assert all(torch.equal(x, y) for x, y in zip((out, lse, dq), big[:3]))
+    for x, y in zip((dk, dv), big[3:]):
+        assert torch.equal(x[:, :, :256], y[:, :, :256]) and torch.equal(x[:, :, 512:], y[:, :, 512:])
+        assert not y[:, :, 256:512].any()
+
+
+@pytest.mark.gpu
+def test_attention_dispatch_takes_is_causal_flex_and_flash_varlen_on_the_card():
+    """On a CUDA tensor `auto` and `flash` take `is_causal` through the causal
+    branches, `flex` a mask without a head axis through the mask branches (a
+    head-dependent one raises) and segment ids route to `flash_varlen`; each
+    equals `_native_math` (bf16 tolerances)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(2, 300, 4, 128, device="cuda", generator=g).to(torch.bfloat16) for _ in range(3))
+    mask = torch.rand(2, 1, 300, 300, generator=g, device="cuda") > 0.3
+    mask[..., 0] = True
+    ids = (torch.arange(300, device="cuda") // 120).to(torch.int32)[None].repeat(2, 1)
+    seg_mask = (ids[:, None, :, None] == ids[:, None, None, :])
+    for kwargs, ref_kwargs in ((dict(is_causal=True, provider="auto"), dict(is_causal=True)),
+                               (dict(is_causal=True, provider="flash"), dict(is_causal=True)),
+                               (dict(attn_mask=mask, provider="flex"), dict(attn_mask=mask)),
+                               (dict(q_segment_ids=ids, kv_segment_ids=ids), dict(attn_mask=seg_mask))):
+        out = attention_dispatch(q, k, v, **kwargs)
+        ref = attention_dispatch(q, k, v, provider="_native_math", **ref_kwargs)
+        assert (out.float() - ref.float()).abs().max() <= 2e-2, kwargs.get("provider")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        attention_dispatch(q, k, v, attn_mask=mask.expand(2, 4, 300, 300), provider="flex")
+
+
+def _chip_smoke():
+    """`chip_smoke.py` at the repo's root, imported once (it imports no JAX)."""
+    if "chip_smoke" not in sys.modules:
+        path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = module
+        spec.loader.exec_module(module)
+    return sys.modules["chip_smoke"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("branch", ["causal", "segment", "mask"])
+def test_k2_k3_branches_select_exactly_the_live_pairs(branch, head_dim):
+    """K2's and K3's branch selects pair by pair (`chip_smoke.branch_pair_errors`
+    over its PAIR_CASES of this branch): ds at every (q row, key) pair, and each
+    key's count of live q rows through p, equal to `live_pairs`. The gradient
+    bounds of the tests above would let a few dropped pairs through."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    smoke = _chip_smoke()
+    for name, b, n, sq, skv, case_branch, lens in smoke.PAIR_CASES:
+        if case_branch == branch:
+            wrong = smoke.branch_pair_errors(b, n, sq, skv, head_dim, branch, lens)
+            assert not any(wrong.values()), (name, wrong)

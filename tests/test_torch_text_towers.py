@@ -133,3 +133,26 @@ def test_tower_handles_match_jax(kind, tmp_path):
         pooled, want_pooled = ours.encode_pooled(CAPTIONS), np.asarray(theirs.encode_pooled(CAPTIONS))
         assert pooled.shape == (2, CLIP["projection_dim"])
         np.testing.assert_allclose(pooled, want_pooled, atol=ATOL, rtol=RTOL)
+
+
+def test_finding_26_a_tower_under_flash_varlen_loses_causality(tmp_path):
+    """ROADMAP.md section 3, finding 26 (JAX bug, reproduced): the runner
+    (`--attn_provider`) and the trainer's validation (`--attn_provider_inference`)
+    encode prompts inside the inference provider. Under `flash_varlen` (or
+    `sage`) a decoder tower's causal-and-padding mask is read as a padding
+    mask, so each slot also attends the slots after it: both packages' Llama
+    towers give the same states there, and those differ from the causal ones."""
+    from finetrainers_tpu.ops import attention_provider as jax_attention_provider
+    from finetrainers_tpu_torch.ops import attention_provider
+
+    _checkpoint("llama", tmp_path / "llama")
+    path = str(tmp_path / "llama")
+    ours, theirs = LlamaHandle(path, dtype=torch.float32, device="cpu"), FlaxLlamaHandle(path)
+    ours.tokenizer = theirs.tokenizer = StubTokenizer()
+    causal, _ = ours.encode(CAPTIONS, max_sequence_length=16)
+    with attention_provider("flash_varlen"):
+        got, _ = ours.encode(CAPTIONS, max_sequence_length=16)
+    with jax_attention_provider("flash_varlen"):
+        want, _ = theirs.encode(CAPTIONS, max_sequence_length=16)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=RTOL)
+    assert np.abs(got - causal).max() > 1e-2

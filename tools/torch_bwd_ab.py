@@ -180,7 +180,7 @@ def main():
         k2_turns = [chip_smoke.cuda_ms(fn) for fn in (old_k2, new_k2, new_k2, old_k2)]
         k3_turns = [chip_smoke.cuda_ms(fn) for fn in (old_k3, new_k3, new_k3, old_k3)]
         device = {key: chip_smoke.device_ms(fn, kernels) for key, fn, kernels in (
-            ("parent_k2", old_k2, ("bwd_dkdv_kernel",)), ("k2", new_k2, chip_smoke.K2_KERNELS),
+            ("parent_k2", old_k2, ("bwd_dkdv_kernel",)), ("k2", new_k2, chip_smoke.k2_kernels(q_s, k_r)),
             ("parent_k3", old_k3, ("bwd_dq_kernel",)), ("k3", new_k3, chip_smoke.K3_KERNELS))}
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
         mask = None if kv_lens is None else (torch.arange(skv, device="cuda")[None, :]

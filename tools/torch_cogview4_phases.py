@@ -46,7 +46,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 shutil.rmtree(cs.SMOKE_DIR, ignore_errors=True)
 t0 = time.perf_counter()
-_build.load_libraries(("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd", "sage_fwd_sm90"))
+_build.load_libraries(_build.SOURCES)
 phase("build", seconds=time.perf_counter() - t0)
 which = sys.argv[2:] or ["kernels", "run", "serve", "wan_control"]
 run = None

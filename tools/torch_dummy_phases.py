@@ -111,7 +111,7 @@ class Tee(io.TextIOBase):
 
 
 with open(out, "w") as log, contextlib.redirect_stdout(Tee(log)):
-    sources = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd", "sage_fwd_sm90")
+    sources = _build.SOURCES
     _build.load_libraries(sources)
     builds = {name: {"seconds": _build.BUILD_LOG[name]["seconds"], **cs.ptxas_summary(_build.BUILD_LOG[name]["log"])}
               for name in sources}

@@ -76,7 +76,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 shutil.rmtree(cs.SMOKE_DIR, ignore_errors=True)
 t0 = time.perf_counter()
-_build.load_libraries(("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd", "sage_fwd_sm90"))
+_build.load_libraries(_build.SOURCES)
 cs.cogvideox_run_data(cs.SMOKE_DIR / "cogvideox_run_data")
 cs.hunyuan_run_data(cs.SMOKE_DIR / "hunyuan_run_data")
 cs.flux_run_data(cs.SMOKE_DIR / "flux_run_data")

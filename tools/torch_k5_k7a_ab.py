@@ -53,7 +53,7 @@ SHAPES = {
 }
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 PARENT_K5 = ("bwd_fused_kernel",)
-K5 = ("bwd_fused_sm90_kernel", "dkdv_reduce_kernel")
+K5 = ("bwd_fused_sm90_kernel",)  # and K2's reduce pass where the q loop splits (`chip_smoke.k2_kernels`)
 PARENT_K7A = ("flash_fwd_twopass_kernel",)
 K7A = ("flash_fwd_twopass_sm90_kernel",)
 
@@ -196,8 +196,9 @@ def main():
         k5_turns = [chip_smoke.cuda_ms(fn) for fn in (old_k5, new_k5, new_k5, old_k5)]
         device = {key: chip_smoke.device_ms(fn, kernels) for key, fn, kernels in (
             ("parent_k7a", old_k7a, PARENT_K7A), ("k7a", new_k7a, K7A), ("parent_k5", old_k5, PARENT_K5),
-            ("k5", new_k5, K5), ("k1", lambda: fa.flash_forward_core(q_s, k_r, v, kv_lens), ("flash_fwd_sm90_kernel",)),
-            ("k2", lambda: fa.flash_bwd_dkdv(*operands), chip_smoke.K2_KERNELS),
+            ("k5", new_k5, K5 + chip_smoke.k2_kernels(q_s, k_r)[1:]),
+            ("k1", lambda: fa.flash_forward_core(q_s, k_r, v, kv_lens), ("flash_fwd_sm90_kernel",)),
+            ("k2", lambda: fa.flash_bwd_dkdv(*operands), chip_smoke.k2_kernels(q_s, k_r)),
             ("k3", lambda: fa.flash_bwd_dq(*operands, scale), chip_smoke.K3_KERNELS))}
         mask = None if kv_lens is None else (torch.arange(skv, device="cuda")[None, :]
                                              < kv_lens[:, None])[:, None, None, :]
