@@ -159,11 +159,11 @@ Phases, each printed on its own line:
      parameters, built on the card in bf16): `wan_i2v_train`, LoRA rank 32
      (179,568,640 trainable) with the example's optimizer and "full" remat on
      seeded moments, condition moments and mask at 49x480x832 (20280 tokens)
-     and 512 caption tokens, one warm-up and 2 timed steps through `train`
+     and 512 caption tokens, one warm-up and one timed step through `train`
      (K1 160, the pre-pass 240, K2 and K3 80 launches a step and no reduce
      pass: K2 splits its q loop only where a call's kv-tile CTAs are fewer
      than the SMs, and 40 heads give 160), the adapter export and a profiled
-     step; then
+     third step, after which every LoRA factor has moved; then
      `wan_i2v_serve`, one image-to-video request through
      `finetrainers_tpu_torch.inference.main` (a PNG first frame written with
      cv2, CFG 5.0, 2 UniPC steps of 50 read from a scheduler config written
@@ -262,15 +262,15 @@ Phases, each printed on its own line:
      the crush_smol_lora train.sh's flags (one card, COGVIDEOX_RUN_POLICY for
      the example's `ops`, `transformer:auto`) from 2 videos written with cv2
      at 81x480x768, the transformer at full width cut to COGVIDEOX_RUN_BLOCKS
-     (8) of its 42 blocks: 3 DDIM steps with weights 1 / (1 - alpha_bar[t]),
-     K1 8, the pre-pass 16, K2 8 and K3 8 a step and no reduce pass, the
+     (6) of its 42 blocks: 3 DDIM steps with weights 1 / (1 - alpha_bar[t]),
+     K1 6, the pre-pass 12, K2 6 and K3 6 a step and no reduce pass, the
      final validation of the example's first prompt from the export in a
-     fresh model (2 steps, CFG: K1 and the pre-pass 16), the adapter reloaded
+     fresh model (2 steps, CFG: K1 and the pre-pass 12), the adapter reloaded
      bit-equal, step seconds, model TFLOP/s, peaks and a profiled step;
      `cogvideox_serve`, one 81x480x768 request through `inference.main` with
-     cogvideox_text_to_video.sh's flags and that adapter (8 blocks), 2 DDIM
+     cogvideox_text_to_video.sh's flags and that adapter (6 blocks), 2 DDIM
      steps of 50, CFG 5.0: a finite (81, 480, 768, 3) video, K1 and the
-     pre-pass 8 a step and no other kernel, request, step and decode
+     pre-pass 6 a step and no other kernel, request, step and decode
      seconds, the peak and a profiled step;
   17. head dim 32 and the dummy family (its own width: dim 64 in 2 heads of
      32, 2 blocks, 16 caption slots): `h32_kernel_checks`, K1, the pre-pass,
@@ -322,7 +322,14 @@ Phases, each printed on its own line:
      leave every output bit-equal, and a block-sparse mask with an empty
      row): each against its plain version, launch counts exact with no
      library attention kernel, kernel and device times, bounds over the live
-     pairs, SDPA given the same mask;
+     pairs, SDPA given the same mask; at each case `variant_branches`, the
+     branches of K7c, K7a and K7b (segments; K7b without tables) and K5 under
+     the switches that reach them, through the dispatcher with exact launches
+     and no library kernel, each against its plain version, K1's branch or
+     K2+K3's, and the dead-tile fill; `attention_branches_switches`, every
+     (switch, branch) pair at a small shape against the plain versions with
+     exact launches; `attention_branch_pairs`, K2's, K3's and K5's selects
+     pair by pair;
   20. `text_towers`: GLM-4-9B, Llama-3-8B and CLIP-L's text tower at their
      published configs, random on the card, one mask-branch launch a layer,
      each encode against the same tower under plain fp32 attention;
@@ -332,11 +339,13 @@ Phases, each printed on its own line:
      2 steps through the loaded GLM and VAE, then through the runner with a
      word-level tokenizer where `transformers` and `tokenizers` import, once
      under the default provider and once under `--attn_provider flex`, whose
-     image must be bit-equal;
+     image must be bit-equal, and under `flex` with
+     FINETRAINERS_FLASH_TWOLEVEL=1 (K7c's mask branch for the GLM, K7c for
+     the transformer; the latents within TWOLEVEL_LATENT_REL_L2_TOL);
   22. `wan_checkpoint_run`, `ltx_checkpoint_serve`: Wan 2.1 and LTX-Video
      from local diffusers directories written here;
   23. `cogvideox_checkpoint_run`, `hunyuan_checkpoint_run`,
-     `flux_checkpoint_run`: CogVideoX-5B (6 of 42 blocks at full width, in 3
+     `flux_checkpoint_run`: CogVideoX-5B (4 of 42 blocks at full width, in 3
      shards), HunyuanVideo and FLUX.1-dev (2 dual and 2 single blocks)
      from local diffusers directories written here with their faithful VAEs
      and towers: each example's train.sh through `train.main` for 2 steps,
@@ -384,6 +393,7 @@ from finetrainers_tpu_torch.ops import _build, attention_dispatch, attention_pro
 from finetrainers_tpu_torch.ops import attention as attention_ops
 from finetrainers_tpu_torch.ops.flash_attention import (
     _rope_bwd,
+    _variant_branch,
     dkdv_splits,
     flash_attention_reference,
     flash_backward,
@@ -398,10 +408,7 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_forward,
     flash_forward_core,
     flash_forward_core_reference,
-    flash_forward_masked,
     flash_forward_masked_core,
-    flash_forward_masked_core_reference,
-    flash_attention_masked_reference,
     mask_tiles,
     flash_forward_skew,
     flash_forward_skew_reference,
@@ -475,9 +482,10 @@ I2V_IMAGE_TOKENS = 257
 I2V_STEPS = 2  # cut from the pipeline's default 50
 I2V_REQUEST = dict(num_frames=81, height=480, width=832, guidance_scale=5.0, num_inference_steps=I2V_STEPS)
 I2V_TRAIN_MOMENTS = (1, 32, 13, 60, 104)
-# Two timed steps after the warm-up: the warm-up's rate is 0 (the example's warmup schedule) and lora_B starts at
-# 0, so lora_A first moves on the third step, and the check that every factor moved needs it.
-I2V_TRAIN_TIMED_STEPS = 2
+# One timed step after the warm-up; the profiled step is the third: the warm-up's rate is 0 (the example's warmup
+# schedule) and lora_B starts at 0, so lora_A first moves on the third step, and the check that every factor moved
+# follows it.
+I2V_TRAIN_TIMED_STEPS = 1
 # The scheduler config of the public Wan-AI/Wan2.1-I2V-14B-480P-Diffusers checkpoint, the keys JAX
 # `load_scheduler` reads (and the rest of its sampler settings).
 I2V_SCHEDULER_CONFIG = {"_class_name": "UniPCMultistepScheduler", "num_train_timesteps": 1000, "flow_shift": 3.0,
@@ -570,9 +578,9 @@ COGVIDEOX_SERVE_EXAMPLE = pathlib.Path(__file__).resolve().parent / "examples" /
 COGVIDEOX_PARAMS = 5_569_760_832
 COGVIDEOX_LORA_PARAMS = 74_317_824
 COGVIDEOX_LAYERS = 42
-# The crush_smol_lora run and its request run at full width cut to 8 of the 42 blocks (once trained and served at
+# The crush_smol_lora run and its request run at full width cut to 6 of the 42 blocks (once trained and served at
 # the whole depth): the script's time limit.
-COGVIDEOX_RUN_BLOCKS = 8
+COGVIDEOX_RUN_BLOCKS = 6
 COGVIDEOX_HEADS = 48
 COGVIDEOX_TEXT = 226
 COGVIDEOX_BUCKET = (81, 480, 768)
@@ -677,7 +685,9 @@ SWITCHES = ("FINETRAINERS_FLASH_FUSED_BWD", "FINETRAINERS_FLASH_TWOPASS", "FINET
 NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "bwd_dkdv_sm90_kernel", "bwd_dq_sm90_kernel", "sage_fwd_sm90_kernel",
                     "bwd_fused_sm90_kernel", "flash_fwd_twopass_sm90_kernel", "flash_fwd_two_level_sm90_kernel",
                     "flash_fwd_skew_sm90_kernel", "flash_fwd_mask_sm90_kernel", "flash_fwd_causal_sm90_kernel",
-                    "flash_fwd_segment_sm90_kernel")
+                    "flash_fwd_segment_sm90_kernel", "flash_fwd_two_level_causal_sm90_kernel",
+                    "flash_fwd_two_level_segment_sm90_kernel", "flash_fwd_two_level_mask_sm90_kernel",
+                    "flash_fwd_twopass_segment_sm90_kernel", "flash_fwd_skew_segment_sm90_kernel")
 # H100 SXM dense peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -1810,7 +1820,7 @@ def wan_serve(card):
     return sage_launches, auto_launches
 
 
-_COUNTED = dict(k1=flash_forward, k1_mask=flash_forward_masked, prep=flash_qk_prep, k2=flash_bwd_dkdv, k3=flash_bwd_dq, k5=flash_bwd_fused,
+_COUNTED = dict(k1=flash_forward, k1_mask=flash_forward_masked_core, prep=flash_qk_prep, k2=flash_bwd_dkdv, k3=flash_bwd_dq, k5=flash_bwd_fused,
                 k5_emit=flash_bwd_dq_emit, k6=sage_forward, sage_prep=sage_prep, k7a=flash_forward_twopass,
                 k7b=flash_forward_skew, k7c=flash_forward_two_level)
 
@@ -2713,10 +2723,11 @@ def wan_i2v_train(card):
     """Full-width Wan 2.1 I2V-14B LoRA training (rank 32, the example's
     optimizer, per-block "full" remat) on seeded VAE moments at 49x480x832
     (20280 tokens) with condition latents and 512 valid caption tokens: one
-    warm-up and 2 timed steps through `train`, which then saves and exports
-    the adapter; a profiled step. The image-KV branch does not run (the
-    trainer passes no image, as in JAX), so its LoRA B factors stay zero.
-    Returns the launches, the adapter's directory and the profile."""
+    warm-up and I2V_TRAIN_TIMED_STEPS timed steps through `train`, which then
+    saves and exports the adapter; then a profiled step, after which every
+    LoRA factor outside the image-KV branch has moved. The image-KV branch does
+    not run (the trainer passes no image, as in JAX), so its LoRA B factors
+    stay zero. Returns the launches, the adapter's directory and the profile."""
     t0 = time.perf_counter()
     spec = get_model_specification_cls("wan", "lora")(device=torch.device("cuda"), seed=0,
                                                         transformer_config=WAN_I2V_14B_CONFIG)
@@ -2741,6 +2752,7 @@ def wan_i2v_train(card):
     step_s, launches, peak_gb = record["step_s"], record["launches"], record["peak_gb"]
     losses = trainer.state.train_state.global_avg_losses
     finite = all(np.isfinite(losses))
+    prof = profile_device(lambda: trainer.train_step(*batch))  # the third step
     moved = all(not torch.equal(trainer._trainable[n], p) for n, p in lora_before.items())
     image_b_zero = all(not trainer._trainable[n].any() for n in image_branch if n.endswith("lora_B.weight"))
     del lora_before
@@ -2767,7 +2779,6 @@ def wan_i2v_train(card):
         raise AssertionError("Wan I2V training check failed")
     del state
 
-    prof = profile_device(lambda: trainer.train_step(*batch))
     k2_self, k2_cross = _split(prof["launches"]["k2"], by_order=False)
     k3_self, k3_cross = _split(prof["launches"]["k3"], by_order=False)
     k1_self, k1_cross = _split(prof["launches"]["k1"], by_order=False)
@@ -4988,9 +4999,9 @@ def check_k1_mask(card):
     text's causal mask at head dim 64) and random block-sparse masks with an
     all-zero key tile, a row with no live key and ragged last tiles: the
     branch alone (`flash_forward_masked_core`) against
-    `flash_forward_masked_core_reference` on the pre-pass's operands, the
+    `flash_forward_core_reference` with the mask on the pre-pass's operands, the
     pre-pass plus the branch through `flash_attention` (the GQA repeat
-    included) against `flash_attention_masked_reference`; rows with a live
+    included) against `flash_attention_reference` with the mask; rows with a live
     key within K1's tolerance, rows without one exactly 0 with an LSE of
     -1e30*ln2; k and v rows of an all-zero tile filled with large values
     leave out and LSE bit-equal. Then standalone times at (1, 32, 4096, 4096,
@@ -5010,12 +5021,12 @@ def check_k1_mask(card):
         q_s, k_r = flash_qk_prep(qb, kb, None, None, 0, h**-0.5)
         core_out, core_lse = flash_forward_masked_core(q_s, k_r, vb, mask)
         torch.cuda.synchronize()
-        (ref, ref_lse), plain_ms = timed_call(lambda: flash_forward_masked_core_reference(q_s, k_r, vb, mask))
-        full_ref, _ = flash_attention_masked_reference(qb, kb, vb, mask)
+        (ref, ref_lse), plain_ms = timed_call(lambda: flash_forward_core_reference(q_s, k_r, vb, mask=mask))
+        full_ref, _ = flash_attention_reference(qb, kb, vb, mask=mask)
         live_rows = mask.any(dim=-1)  # (B, Sq)
         errs = {}
         for against, got, want, got_lse in (("plain", core_out, ref, core_lse),
-                                             ("flash_attention_masked_reference", out.transpose(1, 2), full_ref,
+                                             ("flash_attention_reference", out.transpose(1, 2), full_ref,
                                               None)):
             err = (got.float() - want.float()).abs()
             rows = live_rows[:, None, :, None].expand_as(err)
@@ -5040,7 +5051,7 @@ def check_k1_mask(card):
         _, tiles, counts = mask_tiles(mask, h)
         phase("k1_mask_check", case=name, shape=[b, n, sq, skv, h], kv_heads=n_kv, mask=kind, lens=lens,
               live_tiles=int(counts.sum()), tiles=int(counts.numel() * tiles.shape[-1]),
-              vs_plain=errs["plain"], vs_flash_attention_masked_reference=errs["flash_attention_masked_reference"],
+              vs_plain=errs["plain"], vs_flash_attention_reference=errs["flash_attention_reference"],
               empty_rows=int(empty.sum()), empty_rows_zero_and_lse=empty_ok, skipped_tile_rows_ignored=skipped_ok,
               ms=ms, mask_tiles_ms=tiles_ms, plain_ms=plain_ms, sdpa_same_mask_ms=sdpa_ms, bound_ms=bound_ms,
               bound_by=bound_by, tflops=4 * n * h * int(mask.sum()) / ms / 1e9, card=card)
@@ -5048,7 +5059,7 @@ def check_k1_mask(card):
                 <= LSE_TOL and empty_ok is not False and skipped_ok is not False):
             raise AssertionError(f"K1's mask branch disagrees with its plain version on {name}: {errs}, empty rows "
                                  f"{empty_ok}, skipped tile {skipped_ok}")
-        worst = max(worst, errs["plain"]["max_abs_err"], errs["flash_attention_masked_reference"]["max_abs_err"])
+        worst = max(worst, errs["plain"]["max_abs_err"], errs["flash_attention_reference"]["max_abs_err"])
         records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by)
         del q, k, v, kb, vb, q_s, k_r, out, core_out, ref, full_ref
     # The long causal shape, timed only: masked against unmasked K1 and SDPA under the same boolean mask.
@@ -5094,28 +5105,35 @@ BRANCH_KERNELS = {"segment": "flash_fwd_segment_sm90_kernel", "causal": "flash_f
 LIBRARY_ATTENTION = ("fmha", "pytorch_flash", "efficient_attention", "cudnn", "sdpa", "flash::")
 
 
+# The kernels with branches, by their `_counts()` key.
+_BRANCHED = dict(k1=flash_forward, k2=flash_bwd_dkdv, k3=flash_bwd_dq, k5=flash_bwd_fused, k7a=flash_forward_twopass,
+                 k7b=flash_forward_skew, k7c=flash_forward_two_level)
+
+
 def _branch_counts():
-    """The branch launches of K1, K2 and K3 besides `_counts()`."""
-    return {f"{key}_{branch}": n for key, fn in (("k1", flash_forward), ("k2", flash_bwd_dkdv), ("k3", flash_bwd_dq))
-            for branch, n in fn.branch_launches.items()}
+    """The branch launches of K1, K2, K3, K5 and K7a/b/c besides `_counts()`."""
+    return {f"{key}_{branch}": n for key, fn in _BRANCHED.items() for branch, n in fn.branch_launches.items()}
 
 
 def _zero_branch_counts():
-    for fn in (flash_forward, flash_bwd_dkdv, flash_bwd_dq):
+    for fn in _BRANCHED.values():
         for branch in fn.branch_launches:
             fn.branch_launches[branch] = 0
     flash_bwd_dkdv.reduce_launches = 0
 
 
 def branch_bounds(b, n, sq, skv, h, live):
-    """K1's, K2's and K3's least times over `live` (query, key) pairs only:
-    K1 4*N*live*H operations against q, k, v, out and the LSE once; K2 8*N*live*H
-    against q_s, dO, LSE, delta, k_r, v read and dk, dv written once; K3
-    6*N*live*H against q_s, dO, LSE, delta, k_r, v read and dq written once."""
+    """K1's, K2's, K3's and K5's least times over `live` (query, key) pairs
+    only: K1 (and K7a/b/c, which compute its function) 4*N*live*H operations
+    against q, k, v, out and the LSE once; K2 8*N*live*H against q_s, dO, LSE,
+    delta, k_r, v read and dk, dv written once; K3 6*N*live*H against q_s, dO,
+    LSE, delta, k_r, v read and dq written once; K5 10*N*live*H against K2's
+    bytes and its fp32 dq accumulator written once."""
     q_bytes, kv_bytes, rows = b * n * sq * h * 2, b * n * skv * h * 2, b * n * sq * 4
     return (bound(4 * n * live * h, 2 * q_bytes + 2 * kv_bytes + rows),
             bound(8 * n * live * h, 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes),
-            bound(6 * n * live * h, 3 * q_bytes + 2 * kv_bytes + 2 * rows))
+            bound(6 * n * live * h, 3 * q_bytes + 2 * kv_bytes + 2 * rows),
+            bound(10 * n * live * h, 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes + 2 * q_bytes))
 
 
 def _branch_inputs(name, b, n, sq, skv, h, kind, g):
@@ -5149,6 +5167,147 @@ def _branch_inputs(name, b, n, sq, skv, h, kind, g):
     return q, k, v, do, (dict(attn_mask=mask[:, None]), dict(mask=mask), mask)
 
 
+# The switches whose kernels' branches each branch case runs (`_flash_forward`'s gates): a segment call reaches
+# K7a, K7b (without RoPE tables, which gate it off) and K7c, a causal or masked one K7c only; every backward K5.
+VARIANT_SWITCHES = {"segment": ("FINETRAINERS_FLASH_TWOLEVEL", "FINETRAINERS_FLASH_TWOPASS", "FINETRAINERS_FLASH_SKEW",
+                                "FINETRAINERS_FLASH_FUSED_BWD"),
+                    "causal": ("FINETRAINERS_FLASH_TWOLEVEL", "FINETRAINERS_FLASH_FUSED_BWD"),
+                    "mask": ("FINETRAINERS_FLASH_TWOLEVEL", "FINETRAINERS_FLASH_FUSED_BWD")}
+# The K7 kernels' names for torch.profiler, by branch.
+VARIANT_KERNELS = {"k7a": "flash_fwd_twopass_{}_sm90_kernel", "k7b": "flash_fwd_skew_{}_sm90_kernel",
+                   "k7c": "flash_fwd_two_level_{}_sm90_kernel"}
+
+
+def check_variant_branches(card, c):
+    """K7c's, K7a's, K7b's and K5's branches at one of `check_attention_branches`'
+    cases, on its inputs (`c`), under each switch JAX sends the case's branch
+    to (VARIANT_SWITCHES): through `attention_dispatch` and autograd once with
+    the counts zeroed just before (exactly `switch_launches`) and once traced
+    (no library attention kernel); the forward's out and LSE (`flash_forward`
+    under the switch, bit-equal to K4's out) against the kernel's plain version
+    within K1's tolerances on rows with a live key (rows without one exactly 0)
+    and against K1's branch; K5's dq, dk and dv against its plain version and
+    against K2+K3's within K2/K3's; in the padded-slot case the dead key tiles
+    filled with +-3e4 leaving out and LSE (K7c), the live keys' dk and dv (K5)
+    bit-equal, the dead keys' exactly 0 and dq within tolerance. The kernel
+    alone on the pre-pass's operands (K7b on q and k): CUDA-event and device
+    ms, the plain version's ms, the bound over the live pairs, beside K1's or
+    K2+K3's branch and SDPA's times on the same case. Returns the records by
+    switch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b, n, sq, skv, h = c["shape"]
+    branch, branches, run, leaves, do = c["branch"], c["branches"], c["run"], c["leaves"], c["do"]
+    qb, kb, vb, dob = (x.detach().transpose(1, 2) for x in (*leaves, do))
+    live_rows = c["live"].expand(b, sq, skv).any(-1)[:, None, :].expand(b, n, sq)
+    live = int(c["live"].expand(b, sq, skv).sum())
+    bounds = branch_bounds(b, n, sq, skv, h, live)
+    times, empty_lse = c["times"], float(np.float32(-1e30 * np.log(2.0)))
+    fwd_plain = {key: ref for key, (_, ref) in K7_KERNELS.items()}
+    mask = branches["mask"]
+    records, failed = {}, []
+    for sw in VARIANT_SWITCHES[branch]:
+        fwd = SWITCH_FORWARD[sw]
+        tables = (None, None) if fwd == "k7b" else c["tables"]
+        kw = {k_: v_ for k_, v_ in c["dispatch_kw"].items() if not (fwd == "k7b" and k_ == "rope_freqs")}
+        want = switch_launches(sw, branch)
+        with switch(sw):
+            torch.cuda.synchronize()
+            _zero_counts()
+            _zero_branch_counts()
+            out, dq, dk, dv = run(leaves, kw)
+            torch.cuda.synchronize()
+            counts = {k_: n_ for k_, n_ in {**_counts(), **_branch_counts()}.items() if n_}
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run(leaves, kw)
+                torch.cuda.synchronize()
+            names = {evt.name for evt in prof.events() if evt.device_type == DeviceType.CUDA}
+            f_out, f_lse = flash_forward(qb, kb, vb, None, *tables, None, **branches)
+        library = sorted(nm for nm in names if any(t in nm.lower() for t in LIBRARY_ATTENTION))
+        checks = dict(launches_exact=counts == want, no_library_kernel=not library,
+                      out_equal_to_k4=bool(torch.equal(f_out, out.transpose(1, 2))))
+        rec = dict(switch=sw, launches=counts, library_kernels=library)
+        if fwd is not None:  # the forward variant's branch
+            (ref, ref_lse), plain_ms = timed_call(lambda: fwd_plain[fwd](qb, kb, vb, None, *tables, None, **branches))
+            diff = f_out.float() - ref.float()
+            rec["vs_plain"] = dict(max_abs_err=diff.abs()[live_rows].max().item(),
+                                   err_over_max1_ref=(diff.abs() / ref.float().abs().clamp_min(1.0))[live_rows].max()
+                                   .item(), rel_l2=(diff[live_rows].norm() / ref.float()[live_rows].norm()).item(),
+                                   lse_max_abs_err=(f_lse - ref_lse).abs()[live_rows].max().item())
+            del diff, ref, ref_lse
+            if fwd != "k7b":  # K1's branch on the same call (K7b's runs without the case's tables)
+                e = (f_out.float() - c["k_out"].float()).abs()
+                rec["vs_k1_branch_err_over_max1"] = (e / c["k_out"].float().abs().clamp_min(1.0))[live_rows].max().item()
+                checks["equals_k1_branch"] = rec["vs_k1_branch_err_over_max1"] <= K1_TOL
+                del e
+            if not live_rows.all():
+                checks["empty_rows_zero"] = bool(not f_out[~live_rows].any() and (f_lse[~live_rows] == empty_lse).all())
+            wrapper = K7_KERNELS[fwd][0]
+            if fwd == "k7b":
+                alone = lambda: wrapper(qb, kb, vb, None, None, None, None, **branches)  # noqa: E731
+            else:
+                alone = lambda: _variant_branch(wrapper.__name__, branch, c["q_s"], c["k_r"], vb, None,  # noqa: E731
+                                                branches["q_seg"], branches["kv_seg"], mask, None)
+            rec.update(ms=cuda_ms(alone), device_ms=device_ms(alone, (VARIANT_KERNELS[fwd].format(branch),)),
+                       plain_ms=plain_ms, bound_ms=bounds[0][0], bound_by=bounds[0][1], library_ms=times["sdpa_ms"],
+                       k1_branch_ms=times["k1_ms"], k1_branch_device_ms=c["record"]["k1_device_ms"])
+            ok = (rec["vs_plain"]["err_over_max1_ref"] <= K1_TOL and rec["vs_plain"]["rel_l2"] <= K1_REL_L2_TOL
+                  and rec["vs_plain"]["lse_max_abs_err"] <= LSE_TOL)
+        else:  # K5's branch
+            (refs), plain_ms = timed_call(lambda: flash_backward_fused_reference(
+                qb, kb, vb, c["k_out"], c["k_lse"], dob, None, *tables, None, None, **branches))
+            grads = (dq, dk, dv)
+            errs = {nm: rel_errors(got.transpose(1, 2), want_) for nm, got, want_ in zip(("dq", "dk", "dv"), grads, refs)}
+            vs_k2k3 = {nm: rel_errors(got, want_) for nm, got, want_ in zip(("dq", "dk", "dv"), grads, c["grads"])}
+            del refs
+            rec["bwd_vs_plain"] = {nm: dict(zip(("rel_l2", "max_err_over_max_ref", "max_abs_err"), e))
+                                   for nm, e in errs.items()}
+            rec["bwd_vs_k2k3"] = {nm: dict(zip(("rel_l2", "max_err_over_max_ref", "max_abs_err"), e))
+                                  for nm, e in vs_k2k3.items()}
+            if not live_rows.all():
+                checks["empty_rows_zero"] = bool(not dq.transpose(1, 2)[~live_rows].any())
+            bwd_ops = (c["q_s"], c["k_r"], vb, dob, c["k_lse"].contiguous(), c["delta"], None, *tables, 0)
+            alone = lambda: flash_bwd_fused(*bwd_ops, **branches)  # noqa: E731
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            k5_names = ("bwd_fused_sm90_kernel",) + (K2_KERNELS[1:] if dkdv_splits(b, n, sq, skv, sms)[0] > 1 else ())
+            rec.update(ms=cuda_ms(alone), device_ms=device_ms(alone, k5_names), plain_ms=plain_ms,
+                       bound_ms=bounds[3][0], bound_by=bounds[3][1], library_ms=times["sdpa_backward_ms"],
+                       k2_k3_branch_ms=times["k2_ms"] + times["k3_ms"],
+                       k2_k3_branch_device_ms=(c["record"]["k2_device_ms"] or 0) + (c["record"]["k3_device_ms"] or 0))
+            ok = all(e[0] <= BWD_REL_L2_TOL and e[1] <= BWD_MAX_RATIO_TOL for e in (*errs.values(), *vs_k2k3.values()))
+        if c["kind"] == "padded_slots":  # the dead key tiles 2-7 (keys 256-1023) are never read
+            big = [x.detach().clone() for x in leaves[1:]]
+            big[0][:, 256:COGVIEW4_TEXT], big[1][:, 256:COGVIEW4_TEXT] = 3e4, -3e4
+            b_leaves = [leaves[0].detach().clone().requires_grad_()] + [x.requires_grad_() for x in big]
+            dead = slice(COGVIEW4_LIVE_SLOTS, COGVIEW4_TEXT)
+            live_keys = torch.ones(skv, dtype=torch.bool, device="cuda")
+            live_keys[dead] = False
+            with switch(sw):
+                b_out, b_dq, b_dk, b_dv = run(b_leaves, kw)
+                _, b_lse = flash_forward(qb, big[0].transpose(1, 2), big[1].transpose(1, 2), mask=mask)
+            if fwd is not None:
+                checks["dead_tiles_never_read"] = bool(torch.equal(b_out, out) and torch.equal(b_lse, f_lse))
+            else:
+                e = rel_errors(b_dq, dq)
+                checks["dead_tiles_never_read"] = bool(
+                    torch.equal(b_dk[:, live_keys], dk[:, live_keys]) and torch.equal(b_dv[:, live_keys], dv[:, live_keys])
+                    and not b_dk[:, dead].any() and not b_dv[:, dead].any() and e[0] <= BWD_REL_L2_TOL
+                    and e[1] <= BWD_MAX_RATIO_TOL)
+            del b_leaves, b_out, b_dq, b_dk, b_dv, big
+        del out, dq, dk, dv, f_out, f_lse
+        rec.update(checks=checks, live_pairs=live)
+        phase("variant_branches", case=c["name"], branch=branch, kernel=fwd or "k5", shape=[b, n, sq, skv, h], **rec,
+              card=card)
+        if not (ok and all(v_ is not False for v_ in checks.values())):
+            failed.append((sw, rec))
+        records[sw] = rec
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"a K5 or K7 branch failed on {c['name']}: {failed}")
+    return records
+
+
 def check_attention_branches(card):
     """The causal, segment and mask branches of K1, K2 and K3 on the card,
     through `attention_dispatch` and `torch.autograd` in bf16 at the models'
@@ -5176,14 +5335,14 @@ def check_attention_branches(card):
     g = torch.Generator(device="cuda").manual_seed(31)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     empty_lse = float(np.float32(-1e30 * np.log(2.0)))
-    worst, records, launches_by_case = {"k1": 0.0, "k2": 0.0, "k3": 0.0}, {}, {}
+    worst, records, launches_by_case, variant_records = {"k1": 0.0, "k2": 0.0, "k3": 0.0}, {}, {}, {}
     for name, provider, b, n, sq, skv, h, kind in BRANCH_CASES:
         branch = {"segment": "segment", "causal": "causal"}.get(kind, "mask")
         q, k, v, do, (dispatch_kw, plain_kw, live) = _branch_inputs(name, b, n, sq, skv, h, kind, g)
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
 
-        def run(leaves=leaves):
-            out = attention_dispatch(*leaves, provider=provider, **dispatch_kw)
+        def run(leaves=leaves, kw=dispatch_kw):
+            out = attention_dispatch(*leaves, provider=provider, **kw)
             return (out, *torch.autograd.grad(out, leaves, do))
 
         torch.cuda.synchronize()
@@ -5338,66 +5497,93 @@ def check_attention_branches(card):
         worst["k2"] = max(worst["k2"], bwd_err["dk"][2], bwd_err["dv"][2])
         worst["k3"] = max(worst["k3"], bwd_err["dq"][2])
         records[name] = dict(branch=branch, **record)
+        variant_records[name] = check_variant_branches(
+            card, dict(name=name, kind=kind, branch=branch, shape=(b, n, sq, skv, h), run=run, leaves=leaves, do=do,
+                       dispatch_kw=dispatch_kw, branches=branches, tables=tables, live=live, k_out=k_out, k_lse=k_lse,
+                       grads=(dq, dk, dv), q_s=q_s, k_r=k_r, delta=delta, times=times, record=record))
         del q, k, v, do, leaves, out, dq, dk, dv, q_s, k_r, k_out, k_lse, live
         torch.cuda.empty_cache()
     check_branch_switches(card)
     check_branch_pairs(card)
-    return worst, records, launches_by_case
+    return worst, records, launches_by_case, variant_records
+
+
+# The switches, and the forward kernels they pick for a branch call (JAX's gates, `forward_variant`): the skewed and
+# two-pass kernels take segment ids only (JAX gates causal and masked calls off both); a causal or masked call
+# under them runs K1's branch.
+SWITCH_FORWARD = {"FINETRAINERS_FLASH_SKEW": "k7b", "FINETRAINERS_FLASH_TWOPASS": "k7a",
+                  "FINETRAINERS_FLASH_TWOLEVEL": "k7c", "FINETRAINERS_FLASH_FUSED_BWD": None}
+
+
+def switch_launches(sw, branch):
+    """The launches of one forward and backward of a `branch` call under the switch `sw`, by `_counts()` and
+    `_branch_counts()` key: the pre-pass before each (but K7b's forward), the forward kernel's branch (K1's
+    where the switch's kernel has none), and K2's and K3's, or K5's and its dq emit."""
+    fwd = SWITCH_FORWARD[sw]
+    if fwd in ("k7a", "k7b") and branch != "segment":
+        fwd = None
+    want = {"prep": 1 if fwd == "k7b" else 2}
+    if fwd is None:
+        want.update({"k1_mask": 1} if branch == "mask" else {"k1": 1, f"k1_{branch}": 1})
+    else:
+        want.update({fwd: 1, f"{fwd}_{branch}": 1})
+    if sw == "FINETRAINERS_FLASH_FUSED_BWD":
+        want.update({"k5": 1, f"k5_{branch}": 1, "k5_emit": 1})
+    else:
+        want.update({"k2": 1, "k3": 1, f"k2_{branch}": 1, f"k3_{branch}": 1})
+    return want
 
 
 def check_branch_switches(card):
-    """The branches under the kernel switches, as JAX's gates send them
-    (`_flash_forward` :724-733, `_flash_backward` :1432): under
-    FINETRAINERS_FLASH_SKEW or _TWOPASS a causal or masked call launches K1's
-    branch (JAX gates both kernels off it) and K2/K3's; a segmented call there
-    and any branch under _TWOLEVEL (K7a/b/c's branches) or a branch's backward
-    under FINETRAINERS_FLASH_FUSED_BWD (K5's) raises naming ROADMAP.md queue 2
-    item 5 and launches nothing. Small bf16 shapes (2, 2, 300, 300, 128)."""
+    """Every (switch, branch) pair on the card, as JAX's gates send it
+    (`_flash_forward` :724-733, `_flash_backward` :1432; `switch_launches`):
+    each pair's forward and backward once with the counts zeroed just before,
+    which must launch exactly the picked kernels' branches; out and the LSE
+    against the picked forward's plain version within K1's tolerances on rows
+    with a live key (rows without one exactly 0), dq, dk and dv against the
+    plain backward (K5's under the fused switch) within K2/K3's. Small bf16
+    shapes (2, 2, 300, 300, 128) with kv_lens; no RoPE tables (JAX gates the
+    skewed kernel off them)."""
     g = torch.Generator(device="cuda").manual_seed(33)
     q, k, v, do = (torch.randn(2, 2, 300, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    lens = torch.tensor([280, 300], dtype=torch.int32, device="cuda")
     ids = (torch.arange(300, device="cuda") // 100).to(torch.int32)[None].repeat(2, 1)
     mask = torch.rand(2, 300, 300, generator=g, device="cuda") > 0.5
+    mask[1, 7] = False  # a row with no live key
     inputs = {"causal": dict(causal=True), "segment": dict(q_seg=ids, kv_seg=ids), "mask": dict(mask=mask)}
+    plain_fwd = {None: flash_attention_reference, **{key: ref for key, (_, ref) in K7_KERNELS.items()}}
     results, ok = {}, True
-    for sw in ("FINETRAINERS_FLASH_SKEW", "FINETRAINERS_FLASH_TWOPASS", "FINETRAINERS_FLASH_TWOLEVEL",
-               "FINETRAINERS_FLASH_FUSED_BWD"):
+    for sw, fwd in SWITCH_FORWARD.items():
         for branch, kw in inputs.items():
-            fwd_runs = sw == "FINETRAINERS_FLASH_FUSED_BWD" or (sw != "FINETRAINERS_FLASH_TWOLEVEL"
-                                                                 and branch != "segment")
-            bwd_runs = fwd_runs and sw != "FINETRAINERS_FLASH_FUSED_BWD"
             torch.cuda.synchronize()
             _zero_counts()
             _zero_branch_counts()
-            got = {}
             with switch(sw):
-                for stage in ("forward", "backward"):
-                    try:
-                        if stage == "forward":
-                            out, lse = flash_forward(q, k, v, **kw)
-                        else:
-                            flash_backward(q, k, v, out, lse, do, **kw)
-                        got[stage] = "ran"
-                    except NotImplementedError as e:
-                        got[stage] = "raised" if "queue 2 item 5" in str(e) else str(e)
-                        break
+                out, lse = flash_forward(q, k, v, lens, **kw)
+                grads = flash_backward(q, k, v, out, lse, do, lens, **kw)
             torch.cuda.synchronize()
             counts = {k_: c for k_, c in {**_counts(), **_branch_counts()}.items() if c}
-            want = {"forward": "ran" if fwd_runs else "raised"}
-            if fwd_runs:
-                want["backward"] = "ran" if bwd_runs else "raised"
-            k1_key = "k1_mask" if branch == "mask" else f"k1_{branch}"
-            want_counts = {}
-            if fwd_runs:
-                want_counts.update({"prep": 1, k1_key: 1})
-                if branch != "mask":
-                    want_counts["k1"] = 1
-            if bwd_runs:
-                want_counts.update({"prep": 2, "k2": 1, "k3": 1, f"k2_{branch}": 1, f"k3_{branch}": 1})
-            results[f"{sw}:{branch}"] = dict(stages=got, launches=counts)
-            ok = ok and got == want and counts == want_counts
+            want = switch_launches(sw, branch)
+            picked = fwd if fwd in want else None
+            ref, ref_lse = plain_fwd[picked](q, k, v, lens, **kw)
+            plain_bwd = flash_backward_fused_reference if sw == "FINETRAINERS_FLASH_FUSED_BWD" else \
+                flash_backward_reference
+            refs = plain_bwd(q, k, v, out, lse, do, lens, **kw)
+            live = live_pairs(2, 300, 300, "cuda", lens, **kw)[:, 0].any(-1)[:, None].expand(2, 2, 300)
+            err = (out.float() - ref.float()).abs()
+            fwd_err = dict(err_over_max1_ref=(err / ref.float().abs().clamp_min(1.0))[live].max().item(),
+                           lse_max_abs_err=(lse - ref_lse).abs()[live].max().item())
+            bwd_err = {nm: rel_errors(got, want_)[:2] for nm, got, want_ in zip(("dq", "dk", "dv"), grads, refs)}
+            empty_zero = bool(not out[~live].any() and not grads[0][~live].any())
+            pair_ok = (counts == want and fwd_err["err_over_max1_ref"] <= K1_TOL and fwd_err["lse_max_abs_err"]
+                       <= LSE_TOL and empty_zero and all(e[0] <= BWD_REL_L2_TOL and e[1] <= BWD_MAX_RATIO_TOL
+                                                         for e in bwd_err.values()))
+            results[f"{sw}:{branch}"] = dict(launches=counts, launches_exact=counts == want, vs_plain=fwd_err,
+                                             bwd_vs_plain=bwd_err, empty_rows_zero=empty_zero, ok=pair_ok)
+            ok = ok and pair_ok
     phase("attention_branches_switches", results=results, routing_as_jax=ok, card=card)
     if not ok:
-        raise AssertionError(f"a branch under a kernel switch went where JAX's gates do not send it: {results}")
+        raise AssertionError(f"a branch under a kernel switch failed its checks: {results}")
 
 
 # K2's and K3's branches pair by pair: (name, B, N, Sq, Skv, branch, kv_lens). Lengths off the tiles, Sq < Skv and
@@ -5432,14 +5618,15 @@ def pair_probe_inputs(b, sq, skv, branch):
     return False, None, None, block_sparse_mask(b, sq, skv, g)
 
 
-def branch_pair_errors(b, n, sq, skv, h, branch, lens=None):
-    """The pairs K2's and K3's `branch` gets wrong, counted exactly through
-    `flash_backward` on operands whose scores are all 0 (p = 1 where live, with
-    lse = 0, and dp = 1, delta = 0, so ds = 1 where live): for each block of H
-    q rows, q one-hot over the block and k = 0, so that column j of dk is ds at
-    q row q0 + j (K2's selects pair by pair) and column 0 of dv counts each
-    key's live q rows (K2's p); for each block of H keys, k one-hot over the
-    block and q = 0, so that column j of dq is ds at key k0 + j (K3's). Returns
+def branch_pair_errors(b, n, sq, skv, h, branch, lens=None, fused=False):
+    """The pairs K2's and K3's `branch` (with `fused`, K5's) gets wrong, counted
+    exactly through `flash_backward` on operands whose scores are all 0 (p = 1
+    where live, with lse = 0, and dp = 1, delta = 0, so ds = 1 where live): for
+    each block of H q rows, q one-hot over the block and k = 0, so that column
+    j of dk is ds at q row q0 + j (K2's or K5's selects pair by pair) and
+    column 0 of dv counts each key's live q rows (their p); for each block of
+    H keys, k one-hot over the block and q = 0, so that column j of dq is ds
+    at key k0 + j (K3's, or the ds^T tile K5's dq product reads). Returns
     {"k2_ds", "k2_p", "k3_ds"}: the pairs (or keys, for "k2_p") that differ
     from `live_pairs`, 0 where the branch is exact."""
     causal, q_seg, kv_seg, mask = pair_probe_inputs(b, sq, skv, branch)
@@ -5452,9 +5639,10 @@ def branch_pair_errors(b, n, sq, skv, h, branch, lens=None):
     stats = torch.zeros(b, n, sq, device="cuda")
 
     def grads(q, k):
-        return flash_backward(q.transpose(1, 2), k.transpose(1, 2), e0[:, :skv].transpose(1, 2),
-                              zeros(sq).transpose(1, 2), stats, e0[:, :sq].transpose(1, 2), kv_lens, delta=stats,
-                              causal=causal, q_seg=q_seg, kv_seg=kv_seg, mask=mask)
+        with switch("FINETRAINERS_FLASH_FUSED_BWD" if fused else None):
+            return flash_backward(q.transpose(1, 2), k.transpose(1, 2), e0[:, :skv].transpose(1, 2),
+                                  zeros(sq).transpose(1, 2), stats, e0[:, :sq].transpose(1, 2), kv_lens, delta=stats,
+                                  causal=causal, q_seg=q_seg, kv_seg=kv_seg, mask=mask)
 
     wrong = dict(k2_ds=0, k2_p=0, k3_ds=0)
     for q0 in range(0, sq, h):
@@ -5475,16 +5663,17 @@ def branch_pair_errors(b, n, sq, skv, h, branch, lens=None):
 
 
 def check_branch_pairs(card):
-    """K2's and K3's causal, segment and mask branches at H 64 and 128 select
-    exactly the live pairs (`branch_pair_errors` over PAIR_CASES): a fault that
-    drops or adds a few pairs stays under the relative-L2 bounds at the models'
-    widths, and shows here."""
-    results = {f"{name}_h{h}": branch_pair_errors(b, n, sq, skv, h, branch, lens)
-               for name, b, n, sq, skv, branch, lens in PAIR_CASES for h in (64, 128)}
+    """K2's and K3's causal, segment and mask branches, and K5's, at H 64 and
+    128 select exactly the live pairs (`branch_pair_errors` over PAIR_CASES; K5's
+    under the fused switch, its cases suffixed `_k5`): a fault that drops or adds
+    a few pairs stays under the relative-L2 bounds at the models' widths, and
+    shows here."""
+    results = {f"{name}_h{h}{'_k5' if fused else ''}": branch_pair_errors(b, n, sq, skv, h, branch, lens, fused)
+               for name, b, n, sq, skv, branch, lens in PAIR_CASES for h in (64, 128) for fused in (False, True)}
     ok = all(not any(w.values()) for w in results.values())
     phase("attention_branch_pairs", wrong_pairs=results, exact=ok, card=card)
     if not ok:
-        raise AssertionError(f"K2's or K3's branch selects pairs that are not the live ones: {results}")
+        raise AssertionError(f"K2's, K3's or K5's branch selects pairs that are not the live ones: {results}")
 
 
 # The text towers at their published widths and depths (ROADMAP.md queue 1 item 7), random weights from a seeded
@@ -5704,7 +5893,15 @@ def cogview4_checkpoint_serve(card):
                              f"launches {counts}, runner {runner}")
     _free_cuda()
     shutil.rmtree(root)
-    return counts
+    return counts, runner
+
+
+# The `flex` request under FINETRAINERS_FLASH_TWOLEVEL=1 against the default one: K7c reorders K1's fp32 softmax
+# arithmetic (the tile's own max, then alpha and beta), which moves a bf16 output by an ulp now and then (K7c's mask
+# branch at the models' widths is within one bf16 ulp of K1's, `variant_branches`); the GLM's 2 layers, the
+# transformer's 2 blocks and 2 CFG steps at random weights carry that to the latents as they carry any bf16
+# attention's rounding: the bound of a step against plain attention (LTX's step, SDPA's own deviation 0.034).
+TWOLEVEL_LATENT_REL_L2_TOL = STEP_REL_L2_TOL
 
 
 def _checkpoint_runner(root, config, want):
@@ -5712,9 +5909,15 @@ def _checkpoint_runner(root, config, want):
     runner (`inference.main --model_name cogview4` on the directory, its
     guidance 5.0 as a CFG batch of 2) with `--tokenizer_id` a word-level
     tokenizer written here (the GLM tokenizer's files are on neither machine),
-    so the runner's own `AutoTokenizer` load feeds the loaded GLM. Returns its
-    record; without those packages, why it did not run."""
+    so the runner's own `AutoTokenizer` load feeds the loaded GLM; then under
+    `--attn_provider flex` (bit-equal, K1's mask branch and K1 as by default),
+    and under `flex` with FINETRAINERS_FLASH_TWOLEVEL=1, where the GLM's mask
+    takes K7c's mask branch (2 launches per layer) and the transformer K7c
+    (one a block and step), with the latents the VAE decodes within
+    TWOLEVEL_LATENT_REL_L2_TOL of the default request's. Returns its record;
+    without those packages, why it did not run."""
     from finetrainers_tpu_torch import inference
+    from finetrainers_tpu_torch.models.cogview4 import pipeline as cogview4_pipeline
 
     import cv2
 
@@ -5735,28 +5938,47 @@ def _checkpoint_runner(root, config, want):
     argv = ["--model_name", "cogview4", "--pretrained_model_name_or_path", str(root), "--tokenizer_id",
             str(root / "tokenizer"), "--inference_type", "text_to_image", "--prompt", PROMPTS[0], "--height", "1024",
             "--width", "1024", "--num_inference_steps", str(CKPT_SERVE_STEPS)]
-    runs = {}
-    for provider in (None, "flex"):  # the default provider, then `flex`: the GLM's mask branch and K1 as under it
+    runs, decode = {}, cogview4_pipeline.decode_image_vae
+    for provider, sw in ((None, None), ("flex", None), ("flex", "FINETRAINERS_FLASH_TWOLEVEL")):
         flags = [] if provider is None else ["--attn_provider", provider]
+        latents = []
+        cogview4_pipeline.decode_image_vae = lambda vae, x, *a, **kw: latents.append(x.float()) or decode(vae, x, *a,
+                                                                                                          **kw)
         torch.cuda.synchronize()
         _zero_counts()
         _zero_branch_counts()
         t0 = time.perf_counter()
-        paths = inference.main([*argv, *flags, "--output_dir", str(root / f"served_{provider}")],
-                               transformer_config=config)
+        try:
+            with switch(sw):
+                paths = inference.main([*argv, *flags, "--output_dir", str(root / f"served_{provider}_{sw}")],
+                                       transformer_config=config)
+        finally:
+            cogview4_pipeline.decode_image_vae = decode
         torch.cuda.synchronize()
         seconds, counts = time.perf_counter() - t0, _counts()
-        runs[provider] = dict(seconds=seconds, launches=counts, branch_launches=sum(_branch_counts().values()),
-                              image=cv2.imread(paths[0]))
+        runs[provider, sw] = dict(seconds=seconds, launches=counts,
+                                  branch_launches={k_: n_ for k_, n_ in _branch_counts().items() if n_},
+                                  image=cv2.imread(paths[0]), latents=latents[0])
         _free_cuda()
-    written = runs[None]["image"]
+    default, flex, two_level = runs[None, None], runs["flex", None], runs["flex", "FINETRAINERS_FLASH_TWOLEVEL"]
+    written = default["image"]
     shape = None if written is None else list(written.shape)
-    flex_equal = written is not None and np.array_equal(written, runs["flex"]["image"])
-    flex_counts_ok = runs["flex"]["launches"] == want and runs["flex"]["branch_launches"] == 0
-    return dict(entry="python -m finetrainers_tpu_torch.inference", argv=argv, seconds=runs[None]["seconds"],
-                launches=runs[None]["launches"], written_shape=shape, flex_seconds=runs["flex"]["seconds"],
-                flex_launches=runs["flex"]["launches"], flex_image_bit_equal=flex_equal,
-                ok=runs[None]["launches"] == want and shape == [1024, 1024, 3] and flex_equal and flex_counts_ok)
+    flex_equal = written is not None and np.array_equal(written, flex["image"])
+    flex_counts_ok = flex["launches"] == want and not flex["branch_launches"]
+    want_two_level = {k_: 0 for k_ in want}
+    want_two_level.update(k7c=want["k1_mask"] + want["k1"], prep=want["prep"])
+    two_level_counts_ok = (two_level["launches"] == want_two_level
+                           and two_level["branch_launches"] == {"k7c_mask": want["k1_mask"]})
+    two_level_rel_l2 = rel_l2(two_level["latents"], default["latents"])
+    return dict(entry="python -m finetrainers_tpu_torch.inference", argv=argv, seconds=default["seconds"],
+                launches=default["launches"], written_shape=shape, flex_seconds=flex["seconds"],
+                flex_launches=flex["launches"], flex_image_bit_equal=flex_equal,
+                flex_two_level_seconds=two_level["seconds"], flex_two_level_launches=two_level["launches"],
+                flex_two_level_branch_launches=two_level["branch_launches"],
+                flex_two_level_launches_exact=two_level_counts_ok, flex_two_level_latent_rel_l2=two_level_rel_l2,
+                flex_two_level_latent_bound=TWOLEVEL_LATENT_REL_L2_TOL,
+                ok=default["launches"] == want and shape == [1024, 1024, 3] and flex_equal and flex_counts_ok
+                and two_level_counts_ok and two_level_rel_l2 <= TWOLEVEL_LATENT_REL_L2_TOL)
 
 
 # Wan 2.1 and LTX-Video from local diffusers directories written here: the faithful VAEs whole at
@@ -6143,7 +6365,7 @@ def ltx_checkpoint_serve(card):
 # faithful VAEs and Flux's AutoencoderKL whole at their published configs, T5-XXL v1.1 and Llama-3-8B at full width
 # cut to 2 layers, CLIP-L's text tower whole.
 FAMILY_CKPT_SHARDS, FAMILY_CKPT_BLOCKS, FAMILY_CKPT_STEPS, FAMILY_CKPT_ITEMS = 3, 2, 2, 2
-COGVIDEOX_CKPT_BLOCKS = 6
+COGVIDEOX_CKPT_BLOCKS = 4
 FLUX_AE_CONFIG = dict(in_channels=3, out_channels=3, latent_channels=16, block_out_channels=[128, 256, 512, 512],
                       layers_per_block=2, norm_num_groups=32, use_quant_conv=False, use_post_quant_conv=False,
                       scaling_factor=0.3611, shift_factor=0.1159, _class_name="AutoencoderKL")
@@ -6838,7 +7060,7 @@ def main():
     k5_err, k5_wan, k5_ltx = check_k5(card)
     k7_err, k7 = check_k7(card)
     k1_mask_err, k1_mask = check_k1_mask(card)
-    branch_err, branch_records, branch_launches = check_attention_branches(card)
+    branch_err, branch_records, branch_launches, variant_records = check_attention_branches(card)
     torch.cuda.empty_cache()
     serve_launches = serve(card)
     torch.cuda.empty_cache()
@@ -6874,7 +7096,7 @@ def main():
     raider = cogview4_sft_run(card)
     raider_serve = cogview4_sft_serve(card, raider["adapter"])
     tower_launches = text_towers(card)
-    checkpoint_launches = cogview4_checkpoint_serve(card)
+    checkpoint_launches, checkpoint_runner = cogview4_checkpoint_serve(card)
     video_launches = wan_checkpoint_run(card)
     video_launches["ltx_checkpoint_serve"] = ltx_checkpoint_serve(card)
     video_launches.update(cogvideox_checkpoint_run(card))
@@ -6991,6 +7213,40 @@ def main():
                                  "the plain backward (K2's and K3's plain versions together)") + ", head by head",
                      bound_note="over the live (query, key) pairs only",
                      library_note="torch SDPA " + ("forward" if kernel == "k1" else "backward (dq, dk, dv)")
+                                  + " given the same mask (is_causal where Sq = Skv)")
+
+    def variant_branch_entry(key, branch, headline, replaces, also_replaces, kernel_name, extra_paths=()):
+        """A branch of K7a, K7b, K7c or K5: timed at its headline case of `check_variant_branches`, its launches
+        there by case (each case's run through the dispatcher under the switch)."""
+        sw = {"k7a": "FINETRAINERS_FLASH_TWOPASS", "k7b": "FINETRAINERS_FLASH_SKEW",
+              "k7c": "FINETRAINERS_FLASH_TWOLEVEL", "k5": "FINETRAINERS_FLASH_FUSED_BWD"}[key]
+        cases = [c for c, r in variant_records.items() if sw in r and branch_records[c]["branch"] == branch]
+        count = f"{key}_{branch}"
+        errs = [variant_records[c][sw]["vs_plain"]["max_abs_err"] if key != "k5" else
+                max(variant_records[c][sw]["bwd_vs_plain"][g]["max_abs_err"] for g in ("dq", "dk", "dv"))
+                for c in cases]
+        r = variant_records[headline][sw]
+        library = "flash_bwd_fused_branches_sm90" if key == "k5" else "flash_fwd_variant_branches_sm90"
+        code = {"causal": 1, "segment": 2, "mask": 3}[branch]
+        instances = {n: rec for n, rec in ptxas(library, kernel_name).items()
+                     if key != "k5" or n.endswith(f", {code}>")}
+        beside = ("k2_k3_branch_ms", "k2_k3_branch_device_ms") if key == "k5" else ("k1_branch_ms",
+                                                                                     "k1_branch_device_ms")
+        return entry(f"{kernel_name} ({key.upper()}'s {branch} branch, wgmma + TMA)",
+                     f"finetrainers_tpu_torch/csrc/{library}.cu", f"finetrainers_tpu/ops/flash_attention.py:{replaces}",
+                     r["launches"].get(count, 0), max(errs), tuple(r[f] for f in fields),
+                     also_replaces=[f"finetrainers_tpu/ops/flash_attention.py:{line}" for line in also_replaces],
+                     kernel_source="finetrainers_tpu_torch/csrc/" + ("flash_bwd_sm90.cu" if key == "k5"
+                                                                     else "flash_fwd_sm90.cu"),
+                     ptxas=instances, switch=sw, shape=branch_records[headline]["shape"], headline_case=headline,
+                     device_ms=r["device_ms"], **{f: r[f] for f in beside},
+                     launches_by_path={**{f"variant_branches_{c}": variant_records[c][sw]["launches"].get(count, 0)
+                                          for c in cases}, **dict(extra_paths)},
+                     by_case={c: {f: variant_records[c][sw][f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                                          "library_ms", *beside)} for c in cases},
+                     plain_note=("its plain version" + ("" if key == "k5" else " (the forward)") + ", whole"),
+                     bound_note="over the live (query, key) pairs only",
+                     library_note="torch SDPA " + ("backward (dq, dk, dv)" if key == "k5" else "forward")
                                   + " given the same mask (is_causal where Sq = Skv)")
 
     fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -7164,6 +7420,18 @@ def main():
         branch_entry("k3", "causal", 1284, (1306,), "causal_llama"),
         branch_entry("k3", "segment", 1289, (), "varlen_wan_packed"),
         branch_entry("k3", "mask", 1292, (1310,), "flex_cogview4_padded_slots"),
+        variant_branch_entry("k7c", "causal", "causal_llama", 205, (229, 266, 300), "flash_fwd_two_level_causal_sm90_kernel"),
+        variant_branch_entry("k7c", "segment", "varlen_wan_packed", 210, (229, 266),
+                             "flash_fwd_two_level_segment_sm90_kernel"),
+        variant_branch_entry("k7c", "mask", "flex_cogview4_padded_slots", 217, (229, 266, 304),
+                             "flash_fwd_two_level_mask_sm90_kernel",
+                             {"cogview4_checkpoint_serve_flex_two_level":
+                              checkpoint_runner.get("flex_two_level_branch_launches", {}).get("k7c_mask", 0)}),
+        variant_branch_entry("k7a", "segment", "varlen_wan_packed", 438, (), "flash_fwd_twopass_segment_sm90_kernel"),
+        variant_branch_entry("k7b", "segment", "varlen_wan_packed", 629, (), "flash_fwd_skew_segment_sm90_kernel"),
+        variant_branch_entry("k5", "causal", "causal_llama", 1137, (1169,), "bwd_fused_sm90_kernel"),
+        variant_branch_entry("k5", "segment", "varlen_wan_packed", 1142, (), "bwd_fused_sm90_kernel"),
+        variant_branch_entry("k5", "mask", "flex_cogview4_padded_slots", 1145, (1173,), "bwd_fused_sm90_kernel"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -124,6 +124,14 @@
 //  - A row with no live key has an LSE of -1e30*ln2, where exp2(s - lse)
 //    overflows: its p and ds are all selected to 0, so it adds nothing to dk
 //    and dv and gets dq = 0.
+// K5's causal, segment and mask branches (_bwd_fused_kernel :1137-1146 with
+// its skips :1169-1175) are K5's kernel with K2's branch machinery, built as a
+// library of their own from flash_bwd_fused_branches_sm90.cu (this file with
+// FLASH_BWD_FUSED_BRANCHES defined): the q loop over K2's range or lists, each
+// tile's live pairs from `dkdv_bits` selecting p and ds, so the ds^T tile the
+// dq product reads carries zeros for dead pairs; a q tile no live pair reaches
+// adds nothing to the accumulator (the wrapper zeroes it, and the emit writes
+// 0 there), a key tile with none writes zeros and loads nothing.
 // Tried and left out: ordering the two warpgroups' score products with named
 // barriers (ping-pong) measured 2% slower for K2 and 17% for K3. For K5:
 // holding each dq tile in registers through the next tile's score products
@@ -600,10 +608,16 @@ __device__ __forceinline__ void reduce_dq_rows(const CUtensorMap* dq_map, uint32
 // reduces have read the slice. MASK: p and ds of keys at or past kv_len (this
 // thread's first row is valid while rows_valid > 0) and of q rows past Sq are
 // selected to 0; without MASK the tile has neither, and no select is compiled.
-template <typename T, int HD, bool MASK>
+// BR (K5's branches): the tile is the loop's entry `entry` (the previous one
+// `list`'s entry t0 + i - 1, or t0 + i - 1 without a list), and `dkdv_bits`
+// marks its live pairs as in K2, worked out where K2 works them out (once the
+// previous tile's dk product, which reads ds^T's registers, has landed); p,
+// and with it ds and the ds^T tile the dq product reads, are 0 elsewhere.
+template <typename T, int HD, bool MASK, int BR = kNone>
 __device__ __forceinline__ void fused_tile(const CUtensorMap* dq_map, const BwdParams& p, uint32_t base, int cwg,
                                            int i, int q0, int rows_valid, float* dk, float* dv, uint32_t (*pa)[4],
-                                           uint32_t (*da)[4]) {
+                                           uint32_t (*da)[4], int entry = 0, int kv_len = 0, const int* list = nullptr,
+                                           int t0 = 0) {
   using L = DkdvLayout<HD, true>;
   constexpr int kBq = L::kBq;
   constexpr int kS = kBq / 2;
@@ -616,8 +630,11 @@ __device__ __forceinline__ void fused_tile(const CUtensorMap* dq_map, const BwdP
   const uint32_t kv_full = base + L::kBars;
   const int st = i % kDkdvStages;
   const uint32_t q_addr = base + L::kQ + st * L::kQBytes, do_addr = base + L::kDo + st * L::kQBytes;
+  uint32_t bits = ~0u;  // a branch's live pairs
   auto valid = [&](int kk, int e, int d) {
-    if constexpr (MASK) {
+    if constexpr (BR != kNone) {
+      return ((bits >> (8 * kk + 2 * e + d)) & 1u) != 0u;
+    } else if constexpr (MASK) {
       return 8 * (e & 1) < rows_valid && q0 + 8 * (2 * kk + (e >> 1)) + c + d < p.seq_q;
     } else {
       return true;
@@ -634,7 +651,10 @@ __device__ __forceinline__ void fused_tile(const CUtensorMap* dq_map, const BwdP
   // This warp's slice of the staging tile (two boxes of 64 rows x 32 fp32 columns, 128-byte rows with
   // TMA's 128-byte swizzle): its 16 rows from 16*warp.
   const uint32_t slice = base + L::kDqStage + cwg * L::kDqStageBytes + 16 * warp * 128;
-  if (i > 0) reduce_dq_rows<HD>(dq_map, slice, cwg, q0 - kBq, p);  // the previous tile's dq rows
+  if (i > 0) {  // the previous tile's dq rows
+    const int prev_q0 = BR == kNone ? q0 - kBq : (loop_entry(list, t0, i - 1) & (kFullTile - 1)) * kBq;
+    reduce_dq_rows<HD>(dq_map, slice, cwg, prev_q0, p);
+  }
   // s^T has landed, and so has the previous tile's dk product: that tile's stage is free.
   wgmma_wait_one();
   fence_regs<kS>(s);
@@ -643,6 +663,12 @@ __device__ __forceinline__ void fused_tile(const CUtensorMap* dq_map, const BwdP
     fence_regs<kBq / 16>(da);
     __syncwarp();
     if (lane == 0) mbar_arrive(kv_full + 8 * (1 + kDkdvStages + (i - 1) % kDkdvStages));
+  }
+  if constexpr (BR != kNone) {
+    const int kv0 = blockIdx.x * kBlockRows;
+    bool select = kv0 + kBlockRows > kv_len || q0 + kBq > p.seq_q || (listed(BR) && !(entry & kFullTile));
+    if constexpr (BR == kCausal) select = select || kv0 + kBlockRows - 1 > q0 + p.seq_kv - p.seq_q;
+    if (select) bits = dkdv_bits<BR>(p, blockIdx.z / p.splits, kv0 + 64 * cwg + 16 * warp + lane / 4, q0, c, kv_len);
   }
   const float* lse2 = reinterpret_cast<const float*>(__cvta_shared_to_generic(base + L::kLse)) + st * kBq;
   dkdv_p<T>(pa, s, lse2, c, valid);
@@ -704,10 +730,11 @@ __device__ __forceinline__ void fused_tile(const CUtensorMap* dq_map, const BwdP
 // at H=128 every tile takes the masked one, whose selects cost less than a
 // second copy of the loop body. The CTA's coordinates are read again from
 // blockIdx where they are needed, not held through the loop (a spill at H=128
-// went with that).
-template <typename T, int HD>
+// went with that). BR: K5's branch, whose q tiles are K2's (from the diagonal,
+// or the key tile's `list`) and whose every tile takes the branch's select.
+template <typename T, int HD, int BR = kNone>
 __device__ __forceinline__ void fused_consume(const CUtensorMap* dq_map, const BwdParams& p, uint32_t base,
-                                              int cwg, int t0, int num_tiles, int kv_len) {
+                                              int cwg, int t0, int num_tiles, int kv_len, const int* list = nullptr) {
   using L = DkdvLayout<HD, true>;
   constexpr int kBq = L::kBq;
   constexpr int kAcc = HD / 2;
@@ -729,16 +756,22 @@ __device__ __forceinline__ void fused_consume(const CUtensorMap* dq_map, const B
     fused_barrier<HD>(cwg);
   }
   for (int i = 0; i < num_tiles; ++i) {
-    const int q0 = (t0 + i) * kBq;
-    if (HD == 64 && rows_all_valid && q0 + kBq <= p.seq_q) {
-      fused_tile<T, HD, false>(dq_map, p, base, cwg, i, q0, rows_valid, dk, dv, pa, da);
+    if constexpr (BR != kNone) {
+      const int entry = loop_entry(list, t0, i);
+      fused_tile<T, HD, true, BR>(dq_map, p, base, cwg, i, (entry & (kFullTile - 1)) * kBq, rows_valid, dk, dv, pa,
+                                  da, entry, kv_len, list, t0);
     } else {
-      fused_tile<T, HD, true>(dq_map, p, base, cwg, i, q0, rows_valid, dk, dv, pa, da);
+      const int q0 = (t0 + i) * kBq;
+      if (HD == 64 && rows_all_valid && q0 + kBq <= p.seq_q) {
+        fused_tile<T, HD, false>(dq_map, p, base, cwg, i, q0, rows_valid, dk, dv, pa, da);
+      } else {
+        fused_tile<T, HD, true>(dq_map, p, base, cwg, i, q0, rows_valid, dk, dv, pa, da);
+      }
     }
   }
   if (num_tiles > 0)  // the last tile's dq rows
     reduce_dq_rows<HD>(dq_map, base + L::kDqStage + cwg * L::kDqStageBytes + 16 * warp * 128, cwg,
-                       (t0 + num_tiles - 1) * kBq, p);
+                       (loop_entry(list, t0, num_tiles - 1) & (kFullTile - 1)) * kBq, p);
   wgmma_wait_all();
   fence_regs<kAcc>(dk);
   fence_regs<kBq / 16>(da);
@@ -771,7 +804,7 @@ __device__ __forceinline__ void dkdv_zero(const BwdParams& p, int kv0, int n, in
 // K2 (FUSED false) and K5: one CTA per (kv tile of kBlockRows rows, head,
 // batch x split); split s takes q tiles [s * q_tiles_per_split, (s + 1) *
 // q_tiles_per_split), or with a branch's list those entries of it. BR: K2's
-// branch (K5 has none).
+// or K5's branch.
 template <typename T, int HD, bool FUSED, int BR = kNone>
 __device__ __forceinline__ void dkdv_cta(const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map,
                                          const CUtensorMap* do_map, const CUtensorMap* dq_map, const BwdParams& p,
@@ -824,7 +857,7 @@ __device__ __forceinline__ void dkdv_cta(const CUtensorMap* q_map, const CUtenso
   } else {
     setmaxnreg_inc<kConsumerRegs>();
     if constexpr (FUSED) {
-      fused_consume<T, HD>(dq_map, p, base, threadIdx.x / 128 - 1, t0, num_tiles, kv_len);
+      fused_consume<T, HD, BR>(dq_map, p, base, threadIdx.x / 128 - 1, t0, num_tiles, kv_len, list);
     } else {
       dkdv_consume<T, HD, BR>(p, base, smem, threadIdx.x / 128 - 1, kv0, n, b, split, t0, num_tiles, kv_len, list);
     }
@@ -840,13 +873,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   dkdv_cta<T, HD, false, BR>(&q_map, &k_map, &v_map, &do_map, nullptr, p, smem_raw);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int BR>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_fused_sm90_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
                           const __grid_constant__ CUtensorMap dq_map, const BwdParams p) {
   extern __shared__ unsigned char smem_raw[];
-  dkdv_cta<T, HD, true>(&q_map, &k_map, &v_map, &do_map, &dq_map, p, smem_raw);
+  dkdv_cta<T, HD, true, BR>(&q_map, &k_map, &v_map, &do_map, &dq_map, p, smem_raw);
 }
 
 // K2's reduce pass after a split q loop: dk = T(rope^T(ln2 * sum of the
@@ -1173,7 +1206,7 @@ cudaError_t launch_dkdv(const CUtensorMap* maps, const BwdParams& p, cudaStream_
   const dim3 grid((p.seq_kv + kBlockRows - 1) / kBlockRows, p.heads, p.batch * p.splits);
   static std::atomic<uint64_t> attribute_set{0};
   if constexpr (FUSED) {
-    return launch_sm90(bwd_fused_sm90_kernel<T, HD>, attribute_set, grid, kThreads,
+    return launch_sm90(bwd_fused_sm90_kernel<T, HD, BR>, attribute_set, grid, kThreads,
                        DkdvLayout<HD, true>::kBytes + 1024, stream, maps[0], maps[1], maps[2], maps[3], maps[4], p);
   } else {
     return launch_sm90(bwd_dkdv_sm90_kernel<T, HD, BR>, attribute_set, grid, kThreads,
@@ -1330,59 +1363,22 @@ int dq_entry(const void* q_s, const void* k_r, const void* v, const void* dout, 
 // Each returns a cudaError_t (cudaErrorInvalidValue also when a
 // tensor map cannot be encoded).
 
-// K2. strides: q_s, k_r, v, dO, dk, dv, each (batch, head, seq). With splits >
-// 1 each of `splits` CTAs per kv tile takes q_tiles_per_split q tiles of
-// kBlockQ rows and writes fp32 partial dk and dv into `partials` (2 x splits x
-// B x N x Skv x H floats), and the reduce pass then writes dk and dv from them;
-// with splits == 1 `partials` is unused.
-#ifndef FLASH_BWD_BRANCHES
-extern "C" int flash_bwd_dkdv_sm90(const void* q_s, const void* k_r, const void* v, const void* dout,
-                                   const void* lse, const void* delta, const void* kv_lens, const void* rope_cos,
-                                   const void* rope_sin, void* dk, void* dv, void* partials, int batch, int heads,
-                                   int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides,
-                                   int64_t rope_sn, int splits, int q_tiles_per_split, void* stream) {
-  return dkdv_entry<false, kNone>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dk, dv, partials,
-                                  nullptr, batch, heads, seq_q, seq_kv, head_dim, dtype, strides, rope_sn, splits,
-                                  q_tiles_per_split, stream);
-}
-
-// K5: K2's arguments, and dq_acc, the fp32 (B, N, Sq, H) contiguous buffer of
-// zeros into which it adds sum_kv ds k_r (before the scale and the transpose
-// rotation, which the dq emit in flash_bwd.cu applies).
-extern "C" int flash_bwd_fused_sm90(const void* q_s, const void* k_r, const void* v, const void* dout,
-                                    const void* lse, const void* delta, const void* kv_lens, const void* rope_cos,
-                                    const void* rope_sin, void* dk, void* dv, void* partials, void* dq_acc, int batch,
-                                    int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides,
-                                    int64_t rope_sn, int splits, int q_tiles_per_split, void* stream) {
-  return dkdv_entry<true, kNone>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dk, dv, partials,
-                                 static_cast<float*>(dq_acc), batch, heads, seq_q, seq_kv, head_dim, dtype, strides,
-                                 rope_sn, splits, q_tiles_per_split, stream);
-}
-
-// K3. strides: q_s, k_r, v, dO, dq, each (batch, head, seq).
-extern "C" int flash_bwd_dq_sm90(const void* q_s, const void* k_r, const void* v, const void* dout, const void* lse,
-                                 const void* delta, const void* kv_lens, const void* rope_cos, const void* rope_sin,
-                                 void* dq, int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype,
-                                 const int64_t* strides, int64_t rope_sn, float scale, void* stream) {
-  return dq_entry<kNone>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dq, batch, heads, seq_q,
-                         seq_kv, head_dim, dtype, strides, rope_sn, scale, stream);
-}
-#else
-
-// The branch entries (built from flash_bwd_branches_sm90.cu, which defines
-// FLASH_BWD_BRANCHES): K2's and K3's arguments, then the branch (1 causal, 2
-// segment ids, 3 a dense mask with kv_lens folded in, so kv_lens null), the q
-// and key ids (int32, q_seg_len and kv_seg_len per batch, padded to whole
-// tiles), the padded uint8 mask with its batch and row strides (K2's
-// transposed, a row per key), and the live-tile lists (per batch list_cells
-// cells of list_len entries, K2's per key tile, K3's per 128-row q tile) with
-// their counts. Head dims 64 and 128.
+// The branch arguments of the branch entries (K2's, K3's and K5's): the branch
+// (1 causal, 2 segment ids, 3 a dense mask with kv_lens folded in, so kv_lens
+// null), the q and key ids (int32, q_seg_len and kv_seg_len per batch, padded
+// to whole tiles), the padded uint8 mask with its batch and row strides (K2's
+// and K5's transposed, a row per key), and the live-tile lists (per batch
+// list_cells cells of list_len entries, K2's and K5's per key tile, K3's per
+// 128-row q tile) with their counts. Head dims 64 and 128.
 #define BRANCH_PARAMS                                                                                           \
   int branch, const void *q_seg, const void *kv_seg, int64_t q_seg_len, int64_t kv_seg_len, const void *mask, \
       int64_t mask_sb, int64_t mask_ss, const void *tiles, const void *tile_counts, int list_cells, int list_len
 #define BRANCH_ARGS \
   BranchArgs { branch, q_seg, kv_seg, q_seg_len, kv_seg_len, mask, mask_sb, mask_ss, tiles, tile_counts, list_cells, list_len }
 
+#if defined(FLASH_BWD_BRANCHES)
+// K2's and K3's branches (built from flash_bwd_branches_sm90.cu, which defines
+// FLASH_BWD_BRANCHES): K2's and K3's arguments, then the branch arguments.
 extern "C" int flash_bwd_dkdv_branch_sm90(const void* q_s, const void* k_r, const void* v, const void* dout,
                                           const void* lse, const void* delta, const void* kv_lens, const void* rope_cos,
                                           const void* rope_sin, void* dk, void* dv, void* partials, int batch,
@@ -1414,6 +1410,63 @@ extern "C" int flash_bwd_dq_branch_sm90(const void* q_s, const void* k_r, const 
 #undef K3_BRANCH
   return cudaErrorInvalidValue;
 }
+#elif defined(FLASH_BWD_FUSED_BRANCHES)
+// K5's branches (built from flash_bwd_fused_branches_sm90.cu, which defines
+// FLASH_BWD_FUSED_BRANCHES): K5's arguments, then the branch arguments, with
+// K2's lists and K2's transposed mask.
+extern "C" int flash_bwd_fused_branch_sm90(const void* q_s, const void* k_r, const void* v, const void* dout,
+                                           const void* lse, const void* delta, const void* kv_lens,
+                                           const void* rope_cos, const void* rope_sin, void* dk, void* dv,
+                                           void* partials, void* dq_acc, int batch, int heads, int seq_q, int seq_kv,
+                                           int head_dim, int dtype, const int64_t* strides, int64_t rope_sn,
+                                           int splits, int q_tiles_per_split, BRANCH_PARAMS, void* stream) {
+#define K5_BRANCH(BR)                                                                                          \
+  dkdv_entry<true, BR>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dk, dv, partials,            \
+                       static_cast<float*>(dq_acc), batch, heads, seq_q, seq_kv, head_dim, dtype, strides, rope_sn, \
+                       splits, q_tiles_per_split, stream, BRANCH_ARGS)
+  if (branch == kCausal) return K5_BRANCH(kCausal);
+  if (branch == kSegment) return K5_BRANCH(kSegment);
+  if (branch == kMask) return K5_BRANCH(kMask);
+#undef K5_BRANCH
+  return cudaErrorInvalidValue;
+}
+#else
+// K2. strides: q_s, k_r, v, dO, dk, dv, each (batch, head, seq). With splits >
+// 1 each of `splits` CTAs per kv tile takes q_tiles_per_split q tiles of
+// kBlockQ rows and writes fp32 partial dk and dv into `partials` (2 x splits x
+// B x N x Skv x H floats), and the reduce pass then writes dk and dv from them;
+// with splits == 1 `partials` is unused.
+extern "C" int flash_bwd_dkdv_sm90(const void* q_s, const void* k_r, const void* v, const void* dout,
+                                   const void* lse, const void* delta, const void* kv_lens, const void* rope_cos,
+                                   const void* rope_sin, void* dk, void* dv, void* partials, int batch, int heads,
+                                   int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides,
+                                   int64_t rope_sn, int splits, int q_tiles_per_split, void* stream) {
+  return dkdv_entry<false, kNone>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dk, dv, partials,
+                                  nullptr, batch, heads, seq_q, seq_kv, head_dim, dtype, strides, rope_sn, splits,
+                                  q_tiles_per_split, stream);
+}
+
+// K5: K2's arguments, and dq_acc, the fp32 (B, N, Sq, H) contiguous buffer of
+// zeros into which it adds sum_kv ds k_r (before the scale and the transpose
+// rotation, which the dq emit in flash_bwd.cu applies).
+extern "C" int flash_bwd_fused_sm90(const void* q_s, const void* k_r, const void* v, const void* dout,
+                                    const void* lse, const void* delta, const void* kv_lens, const void* rope_cos,
+                                    const void* rope_sin, void* dk, void* dv, void* partials, void* dq_acc, int batch,
+                                    int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides,
+                                    int64_t rope_sn, int splits, int q_tiles_per_split, void* stream) {
+  return dkdv_entry<true, kNone>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dk, dv, partials,
+                                 static_cast<float*>(dq_acc), batch, heads, seq_q, seq_kv, head_dim, dtype, strides,
+                                 rope_sn, splits, q_tiles_per_split, stream);
+}
+
+// K3. strides: q_s, k_r, v, dO, dq, each (batch, head, seq).
+extern "C" int flash_bwd_dq_sm90(const void* q_s, const void* k_r, const void* v, const void* dout, const void* lse,
+                                 const void* delta, const void* kv_lens, const void* rope_cos, const void* rope_sin,
+                                 void* dq, int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype,
+                                 const int64_t* strides, int64_t rope_sn, float scale, void* stream) {
+  return dq_entry<kNone>(q_s, k_r, v, dout, lse, delta, kv_lens, rope_cos, rope_sin, dq, batch, heads, seq_q,
+                         seq_kv, head_dim, dtype, strides, rope_sn, scale, stream);
+}
+#endif
 #undef BRANCH_ARGS
 #undef BRANCH_PARAMS
-#endif  // FLASH_BWD_BRANCHES

@@ -169,6 +169,19 @@
 //  - Both select to -inf, as the mask branch does, so a row with no live key
 //    (causal with Sq > Skv, or a segment none of whose keys is in range) gives
 //    out 0 and lse -1e30*ln2. CTAs run longest first, as in the mask branch.
+// K7c's causal, segment and mask branches and K7a's and K7b's segment
+// branches (_fwd_kernel :201-222 with its skips :299-313 under the two-level
+// step, _fwd_kernel_twopass :438-442, _fwd_kernel_skew :629-633), built from
+// flash_fwd_variant_branches_sm90.cu (this file with
+// FLASH_FWD_VARIANT_BRANCHES defined), are the variants' kernels with K1's
+// branch loops: the same key-tile lists or diagonal bound (at each kernel's q
+// tile: 128 rows for K7c and K7b at both head dims), the same selects to -inf
+// (`variant_select`). K7c exponentiates against the tile's own max: a row with
+// no live key in a tile keeps m_cur at -2e30, so its p is exp2(-inf) = 0 and
+// its beta exp2(-2e30 - m) = 0, never a NaN; its branches run a tile's select
+// and step once the previous tile's P V has landed (beside it they spilled).
+// K7a's two passes apply the same select, so no dead key sets a row's max.
+// K7b's score tile w is the (w % 2)-th 64-key half of list entry w / 2.
 // Not yet used: an enforced ping-pong between the two warpgroups, a
 // persistent grid, or a TMA store of the output. The Hopper helpers (barriers, TMA,
 // wgmma wrappers, descriptors, tensor maps) are in sm90_common.cuh, shared
@@ -181,11 +194,14 @@ namespace {
 constexpr int kBlockN = 128;  // keys per stage
 constexpr int kStages = 2;
 constexpr int kProducerRegs = 24;
-// The kernels of this file: K1, K7a (two-pass), K7c (two-level), K7b (skewed),
-// and K1's dense-mask, causal and segment branches.
-enum Variant { kStraight, kTwoPass, kTwoLevel, kSkew, kMasked, kCausal, kSegment };
-// The variants that walk a per-q-tile list of live key tiles.
-__host__ __device__ constexpr bool listed(int v) { return v == kMasked || v == kSegment; }
+// A kernel of this file is a (step, select) pair. The step is the softmax
+// recurrence: K1's, K7a's two passes, K7c's two levels or K7b's skewed one.
+enum Step { kStraight, kTwoPass, kTwoLevel, kSkew };
+// The select is the branch: none (keys past kv_lens only), causal, segment ids
+// or a dense mask (the codes the wrappers pass, as flash_bwd_sm90.cu's Branch).
+enum Select { kNone, kCausal, kSegment, kMasked };
+// The selects that walk a per-q-tile list of live key tiles.
+__host__ __device__ constexpr bool listed(int sel) { return sel == kMasked || sel == kSegment; }
 // A live key tile's entry in the mask branch's list: its index, with kFullTile
 // set where every mask byte of the (q tile, key tile) block is set.
 constexpr int kFullTile = 1 << 30;
@@ -195,25 +211,25 @@ constexpr int kFullTile = 1 << 30;
 // two at H=128, where three sets of accumulators would not fit the register
 // file. K7c and K7b: two at both, as each holds a second score or product
 // fragment that three consumers' 160 registers cannot (see the note above).
-template <int HD, int V = kStraight>
+template <int HD, int S = kStraight>
 __host__ __device__ constexpr int consumer_wgs() {
-  if (V == kTwoLevel) return 2;
-  if (V == kSkew) return 2;
+  if (S == kTwoLevel) return 2;
+  if (S == kSkew) return 2;
   return HD <= 64 ? 3 : 2;
 }
-template <int HD, int V = kStraight>
+template <int HD, int S = kStraight>
 __host__ __device__ constexpr int block_m() {  // q rows per CTA
-  return 64 * consumer_wgs<HD, V>();
+  return 64 * consumer_wgs<HD, S>();
 }
-template <int HD, int V = kStraight>
+template <int HD, int S = kStraight>
 __host__ __device__ constexpr int threads() {  // warpgroup 0 loads; the others compute
-  return 128 * (1 + consumer_wgs<HD, V>());
+  return 128 * (1 + consumer_wgs<HD, S>());
 }
 // The consumers' registers after setmaxnreg: what the producer's 128 threads
 // give up, shared among them (a multiple of 8).
-template <int HD, int V = kStraight>
+template <int HD, int S = kStraight>
 __host__ __device__ constexpr int consumer_regs() {
-  return consumer_wgs<HD, V>() == 3 ? 160 : 240;
+  return consumer_wgs<HD, S>() == 3 ? 160 : 240;
 }
 // A 64-column half of a 128-row tile: 128 rows of 128 bytes, one TMA box (at
 // H=32 the whole 128 x 64-byte tile is one box).
@@ -323,15 +339,16 @@ __device__ __forceinline__ void softmax_step(float* s, float* m, float* alpha, f
   }
 }
 
-// The mask branch's select on a landed score tile of 128 keys from k0: a score
+// The mask branch's select on a landed score tile of N keys from k0: a score
 // whose mask byte is 0 becomes -inf, so its p = exp2(-inf - m) is exactly 0
 // and it never moves the row max (m starts at -1e30). row0/row1: this
 // thread's two mask rows (8 apart); each fragment pair is one 2-byte load.
+template <int N = kBlockN>
 __device__ __forceinline__ void mask_select(float* s, const unsigned char* row0, const unsigned char* row1, int k0,
                                             int lane) {
   const int c0 = k0 + 2 * (lane % 4);
 #pragma unroll
-  for (int j = 0; j < kBlockN / 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     const uint32_t a = *reinterpret_cast<const uint16_t*>(row0 + c0 + 8 * j);
     const uint32_t c = *reinterpret_cast<const uint16_t*>(row1 + c0 + 8 * j);
     if (!(a & 0xffu)) s[4 * j] = -INFINITY;
@@ -341,32 +358,94 @@ __device__ __forceinline__ void mask_select(float* s, const unsigned char* row0,
   }
 }
 
-// The causal branch's select on a landed score tile of 128 keys from k0: a key
+// The causal branch's select on a landed score tile of N keys from k0: a key
 // past this thread's row's diagonal (row0, row0 + 8, plus `off` = Skv - Sq) or
 // at or past kv_len becomes -inf.
+template <int N = kBlockN>
 __device__ __forceinline__ void causal_select(float* s, int row0, int off, int k0, int kv_len, int lane) {
 #pragma unroll
-  for (int i = 0; i < kBlockN / 2; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const int col = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
     if (col > row0 + 8 * ((i >> 1) & 1) + off || col >= kv_len) s[i] = -INFINITY;
   }
 }
 
-// The segment branch's select on a landed score tile of 128 keys from k0: a
+// The segment branch's select on a landed score tile of N keys from k0: a
 // key whose id differs from this thread's row's (id0, id1 for its two rows)
 // or at or past kv_len becomes -inf. `kv_ids`: this batch's key ids; each
 // fragment pair's two ids are one 8-byte load.
+template <int N = kBlockN>
 __device__ __forceinline__ void segment_select(float* s, const int* kv_ids, int id0, int id1, int k0, int kv_len,
                                                int lane) {
   const int c0 = k0 + 2 * (lane % 4);
 #pragma unroll
-  for (int j = 0; j < kBlockN / 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     const int2 ids = *reinterpret_cast<const int2*>(kv_ids + c0 + 8 * j);
     const bool in0 = c0 + 8 * j < kv_len, in1 = c0 + 8 * j + 1 < kv_len;
     if (ids.x != id0 || !in0) s[4 * j] = -INFINITY;
     if (ids.y != id0 || !in1) s[4 * j + 1] = -INFINITY;
     if (ids.x != id1 || !in0) s[4 * j + 2] = -INFINITY;
     if (ids.y != id1 || !in1) s[4 * j + 3] = -INFINITY;
+  }
+}
+
+// Where a CTA is: (q tile, head, batch). A branch's CTAs take the last q tiles
+// first, over every (batch, head), as the CTAs are dispatched in order: under
+// a causal mask those have the most live tiles, so the longest CTAs start
+// first and the short ones fill the last wave.
+struct CtaAt {
+  int q_tile, n, b;
+};
+template <int B>
+__device__ __forceinline__ CtaAt cta_at() {
+  if constexpr (B == kNone) {
+    return {(int)blockIdx.x, (int)blockIdx.y, (int)blockIdx.z};
+  } else {
+    const int cells = gridDim.y * gridDim.z;
+    const int linear = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    return {(int)gridDim.x - 1 - linear / cells, linear % cells % (int)gridDim.y, linear % cells / (int)gridDim.y};
+  }
+}
+
+// Step t's key tile of this CTA: with a listed select, entry t of its q tile's
+// list (the index, with kFullTile where the block needs no select), else t.
+template <int B>
+__device__ __forceinline__ int tile_entry(const Params& p, int t) {
+  if constexpr (listed(B)) {
+    const CtaAt c = cta_at<B>();
+    return p.tiles[(int64_t)(c.b * p.q_tiles + c.q_tile) * p.kv_tiles + t];
+  } else {
+    return t;
+  }
+}
+
+// The select of K7a's, K7b's or K7c's branch B (step S) on a landed score tile
+// of N keys: keys from k0 = the entry's tile + `sub` (K7b's second 64-key half
+// of a 128-key tile), as K1's branches select them (to -inf; a tile flagged
+// full, or that neither the diagonal nor kv_len crosses, selects nothing). A
+// consumer warpgroup `cwg` of these kernels holds two score or product
+// fragments, so the CTA's place, the rows and their ids are worked out again
+// from blockIdx and the parameters on each tile rather than held through the
+// loop.
+template <int HD, int S, int B, int N = kBlockN>
+__device__ __forceinline__ void variant_select(const Params& p, float* s, int entry, int sub, int cwg, int kv_len,
+                                               int lane) {
+  const CtaAt c = cta_at<B>();
+  const int k0 = (entry & (kFullTile - 1)) * kBlockN + sub;
+  const int wg_row = c.q_tile * block_m<HD, S>() + 64 * cwg;  // the warpgroup's first row
+  const int row0 = wg_row + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  if constexpr (B == kMasked) {
+    if (entry & kFullTile) return;
+    const int64_t stride = (int64_t)p.kv_tiles * kBlockN;
+    const unsigned char* row = p.mask + ((int64_t)c.b * p.q_tiles * block_m<HD, S>() + row0) * stride;
+    mask_select<N>(s, row, row + 8 * stride, k0, lane);
+  } else if constexpr (B == kSegment) {
+    if ((entry & kFullTile) && k0 + N <= kv_len) return;
+    const int* q_ids = p.q_seg + c.b * p.q_seg_len;
+    segment_select<N>(s, p.kv_seg + c.b * p.kv_seg_len, q_ids[row0], q_ids[row0 + 8], k0, kv_len, lane);
+  } else if constexpr (B == kCausal) {
+    const int off = p.seq_kv - p.seq_q;
+    if (k0 + N - 1 > wg_row + off || k0 + N > kv_len) causal_select<N>(s, row0, off, k0, kv_len, lane);
   }
 }
 
@@ -402,12 +481,12 @@ __device__ __forceinline__ void store_out(const Params& p, const float* o, const
 // 8j + 2*(lane%4) + (e&1) of row lane/4 + 8*(e>=2) of the warp's 16 rows.
 // Tile t's QK^T is issued together with tile t-1's P V, and tile t's softmax
 // runs while that P V is on the tensor cores.
-// V (the branches): in the mask and segment branches tile t is the key tile
+// B (the branches): in the mask and segment branches tile t is the key tile
 // tiles[t], and its scores pass mask_select or segment_select first unless the
 // tile is flagged (and, for segments, holds no key past kv_len); in the causal
 // branch a tile the diagonal or kv_len crosses passes causal_select. The
 // branches' selects cover kv_len, so softmax_step selects nothing there.
-template <typename T, int HD, int V = kStraight>
+template <typename T, int HD, int B = kNone>
 __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg, int q0, int n, int b, int kv_len,
                                         int num_tiles, const int* tiles = nullptr) {
   using L = Layout<HD>;
@@ -416,13 +495,13 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg,
   const int row0 = q0 + cwg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // this thread's first row
   const unsigned char* mask_row = nullptr;
   int64_t mask_stride = 0;
-  if constexpr (V == kMasked) {
+  if constexpr (B == kMasked) {
     mask_stride = (int64_t)p.kv_tiles * kBlockN;
     mask_row = p.mask + ((int64_t)b * p.q_tiles * block_m<HD>() + row0) * mask_stride;
   }
   const int* kv_ids = nullptr;
   int id0 = 0, id1 = 0;
-  if constexpr (V == kSegment) {
+  if constexpr (B == kSegment) {
     kv_ids = p.kv_seg + b * p.kv_seg_len;
     id0 = p.q_seg[b * p.q_seg_len + row0];
     id1 = p.q_seg[b * p.q_seg_len + row0 + 8];
@@ -432,18 +511,18 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg,
   // read before the scores were waited for), then the softmax step.
   auto step = [&](float* s, float* m, float* alpha, float* rowsum, int t, int entry) {
     int k0 = t * kBlockN;
-    if constexpr (V == kMasked) {
+    if constexpr (B == kMasked) {
       k0 = (entry & (kFullTile - 1)) * kBlockN;
       if (!(entry & kFullTile)) mask_select(s, mask_row, mask_row + 8 * mask_stride, k0, lane);
-    } else if constexpr (V == kSegment) {
+    } else if constexpr (B == kSegment) {
       k0 = (entry & (kFullTile - 1)) * kBlockN;
       if (!(entry & kFullTile) || k0 + kBlockN > kv_len) segment_select(s, kv_ids, id0, id1, k0, kv_len, lane);
-    } else if constexpr (V == kCausal) {
+    } else if constexpr (B == kCausal) {
       if (k0 + kBlockN - 1 > q0 + cwg * 64 + off || k0 + kBlockN > kv_len) causal_select(s, row0, off, k0, kv_len, lane);
     }
-    softmax_step(s, m, alpha, rowsum, k0, V == kStraight ? kv_len : 0x7fffffff, lane);
+    softmax_step(s, m, alpha, rowsum, k0, B == kNone ? kv_len : 0x7fffffff, lane);
   };
-  auto entry_of = [&](int t) { return listed(V) ? tiles[t] : 0; };
+  auto entry_of = [&](int t) { return listed(B) ? tiles[t] : 0; };
   const uint32_t q_full = base + L::kBars;
   auto k_full = [&](int st) { return q_full + 8 * (1 + st); };
   auto v_full = [&](int st) { return q_full + 8 * (1 + kStages + st); };
@@ -525,11 +604,12 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, int cwg,
 constexpr int kSlots = 2 * kStages;
 __device__ __forceinline__ int pass_a_loads(int slot, int num_tiles) { return (num_tiles - slot + kSlots - 1) / kSlots; }
 // K7a's producer: the q tile once, then pass A's k tiles and pass B's k and v
-// tiles; a slot's full barrier always expects one tile's bytes.
+// tiles; a slot's full barrier always expects one tile's bytes. With a listed
+// select, tile t is the list's entry t.
 template <int HD>
 __device__ __forceinline__ void produce_twopass(const CUtensorMap* q_map, const CUtensorMap* k_map,
                                                 const CUtensorMap* v_map, uint32_t base, int q0, int n, int b,
-                                                int num_tiles) {
+                                                int num_tiles, const int* tiles = nullptr) {
   using L = Layout<HD>;
   const uint32_t q_full = base + L::kBars;
   mbar_expect_tx(q_full, L::kQBytes);
@@ -542,7 +622,8 @@ __device__ __forceinline__ void produce_twopass(const CUtensorMap* q_map, const 
     mbar_expect_tx(full, L::kTileBytes);
 #pragma unroll
     for (int h = 0; h < HD / 64; ++h)
-      tma_load(base + L::kK + slot * L::kTileBytes + h * kHalfBytes, map, full, h * 64, t * kBlockN, n, b);
+      tma_load(base + L::kK + slot * L::kTileBytes + h * kHalfBytes, map, full, h * 64,
+               (tiles == nullptr ? t : tiles[t] & (kFullTile - 1)) * kBlockN, n, b);
   };
   for (int t = 0; t < num_tiles; ++t) load(k_map, t % kSlots, t / kSlots, t);
   for (int t = 0; t < num_tiles; ++t) {
@@ -561,10 +642,11 @@ __device__ __forceinline__ void twopass_release(uint32_t empty, int lane) {
 // Pass A's step on tile t, whose scores `cur` were issued before: issue tile
 // t+1's QK^T into `next` (unless t is the LAST tile), wait for `cur`, release
 // its slot, and fold its row maxima into this thread's m. Only the last tile
-// can hold keys at or past kv_len; they are selected out there.
-template <typename T, int HD, bool LAST>
+// can hold keys at or past kv_len; they are selected out there. With a branch
+// B, every tile passes B's select (pass B's, so both passes see the same keys).
+template <typename T, int HD, bool LAST, int B = kNone>
 __device__ __forceinline__ void twopass_max_step(float* cur, float* next, float* m, uint32_t base, uint32_t q_addr,
-                                                 int t, int kv_len, int lane) {
+                                                 int t, int kv_len, int lane, const Params& p, int cwg) {
   using L = Layout<HD>;
   const uint32_t q_full = base + L::kBars;
   if constexpr (LAST) {
@@ -579,7 +661,9 @@ __device__ __forceinline__ void twopass_max_step(float* cur, float* next, float*
   }
   fence_regs<64>(cur);
   twopass_release(q_full + 8 * (1 + kSlots + t % kSlots), lane);
-  if constexpr (LAST) {
+  if constexpr (B != kNone) {
+    variant_select<HD, kTwoPass, B>(p, cur, tile_entry<B>(p, t), 0, cwg, kv_len, lane);
+  } else if constexpr (LAST) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       if (t * kBlockN + 8 * (i / 4) + 2 * (lane % 4) + (i & 1) >= kv_len) cur[i] = kNegInf;
@@ -621,11 +705,12 @@ __device__ __forceinline__ int pass_b_parity(int slot, int t, int num_tiles) {
 
 // Pass B's step on tile t >= 1: tile t's QK^T issued with tile t-1's P V, and
 // tile t's exponentials computed while that P V runs (K1's loop without the
-// rescale); LAST: t is the last tile.
-template <typename T, int HD, bool LAST>
+// rescale); LAST: t is the last tile. B: the branch, whose select tile t's
+// scores pass first.
+template <typename T, int HD, bool LAST, int B = kNone>
 __device__ __forceinline__ void twopass_pv_step(float* s, uint32_t (*pa)[4], float* o, const float* m, float* l,
                                                 uint32_t base, uint32_t q_addr, int t, int num_tiles, int kv_len,
-                                                int lane) {
+                                                int lane, const Params& p, int cwg) {
   using L = Layout<HD>;
   constexpr int kOut = HD / 2;
   const uint32_t q_full = base + L::kBars;
@@ -642,7 +727,12 @@ __device__ __forceinline__ void twopass_pv_step(float* s, uint32_t (*pa)[4], flo
   wgmma_wait_one();  // QK^T of tile t has landed; P V of tile t-1 may still run
   fence_regs<64>(s);
   twopass_release(q_full + 8 * (1 + kSlots + k_slot), lane);
-  twopass_exp_step<LAST>(s, m, rowsum, t * kBlockN, kv_len, lane);
+  if constexpr (B != kNone) {
+    variant_select<HD, kTwoPass, B>(p, s, tile_entry<B>(p, t), 0, cwg, kv_len, lane);
+    twopass_exp_step<false>(s, m, rowsum, 0, kv_len, lane);
+  } else {
+    twopass_exp_step<LAST>(s, m, rowsum, t * kBlockN, kv_len, lane);
+  }
   wgmma_wait_all();
   fence_regs<kOut>(o);
   fence_regs<kBlockN / 16>(pa);
@@ -652,8 +742,9 @@ __device__ __forceinline__ void twopass_pv_step(float* s, uint32_t (*pa)[4], flo
   pack_a<T, kBlockN>(pa, s);
 }
 
-// A consumer warpgroup of K7a (rows and fragments as K1's consumer).
-template <typename T, int HD>
+// A consumer warpgroup of K7a (rows and fragments as K1's consumer). B: the
+// branch (segments), whose select both passes apply to each listed tile.
+template <typename T, int HD, int B = kNone>
 __device__ __forceinline__ void consume_twopass(const Params& p, uint32_t base, unsigned char* smem, int cwg, int q0,
                                                 int n, int b, int kv_len, int num_tiles) {
   using L = Layout<HD>;
@@ -679,14 +770,14 @@ __device__ __forceinline__ void consume_twopass(const Params& p, uint32_t base, 
     wgmma_commit();
     int t = 0;
     for (; t + 2 < num_tiles; t += 2) {
-      twopass_max_step<T, HD, false>(sa, sb, m, base, q_addr, t, kv_len, lane);
-      twopass_max_step<T, HD, false>(sb, sa, m, base, q_addr, t + 1, kv_len, lane);
+      twopass_max_step<T, HD, false, B>(sa, sb, m, base, q_addr, t, kv_len, lane, p, cwg);
+      twopass_max_step<T, HD, false, B>(sb, sa, m, base, q_addr, t + 1, kv_len, lane, p, cwg);
     }
     if (t + 1 < num_tiles) {
-      twopass_max_step<T, HD, false>(sa, sb, m, base, q_addr, t, kv_len, lane);
-      twopass_max_step<T, HD, true>(sb, sa, m, base, q_addr, t + 1, kv_len, lane);
+      twopass_max_step<T, HD, false, B>(sa, sb, m, base, q_addr, t, kv_len, lane, p, cwg);
+      twopass_max_step<T, HD, true, B>(sb, sa, m, base, q_addr, t + 1, kv_len, lane, p, cwg);
     } else {
-      twopass_max_step<T, HD, true>(sa, sb, m, base, q_addr, t, kv_len, lane);
+      twopass_max_step<T, HD, true, B>(sa, sb, m, base, q_addr, t, kv_len, lane, p, cwg);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -708,7 +799,10 @@ __device__ __forceinline__ void consume_twopass(const Params& p, uint32_t base, 
     wgmma_wait_all();
     fence_regs<64>(s);
     twopass_release(empty(k_slot(0)), lane);
-    if (num_tiles == 1) {
+    if constexpr (B != kNone) {
+      variant_select<HD, kTwoPass, B>(p, s, tile_entry<B>(p, 0), 0, cwg, kv_len, lane);
+      twopass_exp_step<false>(s, m, rowsum, 0, kv_len, lane);
+    } else if (num_tiles == 1) {
       twopass_exp_step<true>(s, m, rowsum, 0, kv_len, lane);
     } else {
       twopass_exp_step<false>(s, m, rowsum, 0, kv_len, lane);
@@ -717,11 +811,13 @@ __device__ __forceinline__ void consume_twopass(const Params& p, uint32_t base, 
     l[1] = rowsum[1];
     pack_a<T, kBlockN>(pa, s);
     for (int t = 1; t + 1 < num_tiles; ++t)
-      twopass_pv_step<T, HD, false>(s, pa, o, m, l, base, q_addr, t, num_tiles, kv_len, lane);
-    if (num_tiles > 1) twopass_pv_step<T, HD, true>(s, pa, o, m, l, base, q_addr, num_tiles - 1, num_tiles, kv_len, lane);
+      twopass_pv_step<T, HD, false, B>(s, pa, o, m, l, base, q_addr, t, num_tiles, kv_len, lane, p, cwg);
+    if (num_tiles > 1)
+      twopass_pv_step<T, HD, true, B>(s, pa, o, m, l, base, q_addr, num_tiles - 1, num_tiles, kv_len, lane, p, cwg);
     const int last = num_tiles - 1;
     mbar_wait(full(v_slot(last)), parity(v_slot(last), last));
-    const int valid_rows = kv_len - last * kBlockN;
+    // The last tile's v rows past kv_len (no key tile wholly past kv_len is listed, so only the last holds them).
+    const int valid_rows = kv_len - (tile_entry<B>(p, last) & (kFullTile - 1)) * kBlockN;
     if (valid_rows < kBlockN) {  // rows of v past kv_len: zeroed, so p = 0 meets 0, never a NaN
       zero_tile_rows<HD, kHalfBytes>(smem + L::kK + v_slot(last) * L::kTileBytes, valid_rows, kBlockN,
                                      threadIdx.x - 128, 128 * consumer_wgs<HD>());
@@ -794,10 +890,16 @@ __device__ __forceinline__ void two_level_fold(float* acc, const float* pv, cons
 // lands, folded into acc with tile t's alpha and beta; unless LAST, tile t+1's
 // QK^T is issued first and tile t+1's step runs while the P V is on the tensor
 // cores, then its p is packed into pa and its alpha and beta replace tile t's.
-template <typename T, int HD, bool LAST>
+// B (the branches): tile t+1's step runs after tile t's P V has landed and
+// been folded, its scores passing B's select first: the select's work beside
+// the in-flight product and its registers (s, pv, pa and acc, 224 of 240)
+// spilled at H=128. The select is to -inf: a row with no live key in the tile
+// keeps m_cur at -2e30, so its p is exp2(-inf) = 0 and its beta exp2(-2e30 -
+// m_new) = 0, never a NaN.
+template <typename T, int HD, bool LAST, int B = kNone>
 __device__ __forceinline__ void two_level_pv_step(float* s, float* pv, uint32_t (*pa)[4], float* o, float* m, float* l,
                                                   float* alpha, float* beta, uint32_t base, uint32_t q_addr, int t,
-                                                  int kv_len, int lane) {
+                                                  int kv_len, int lane, const Params& p, int cwg) {
   using L = Layout<HD, consumer_wgs<HD, kTwoLevel>()>;
   const uint32_t q_full = base + L::kBars;
   const int st = t % kStages, next = (t + 1) % kStages;
@@ -814,7 +916,7 @@ __device__ __forceinline__ void two_level_pv_step(float* s, float* pv, uint32_t 
   issue_rs<T, HD, kBlockN, kHalfBytes>(pv, pa, v_tile, true);
   wgmma_commit();
   float alpha_next[2], beta_next[2];
-  if constexpr (!LAST) {
+  if constexpr (!LAST && B == kNone) {
     wgmma_wait_one();  // QK^T of tile t+1 has landed; tile t's P V may still run
     fence_regs<64>(s);
     __syncwarp();
@@ -822,11 +924,19 @@ __device__ __forceinline__ void two_level_pv_step(float* s, float* pv, uint32_t 
     two_level_step(s, m, l, alpha_next, beta_next, (t + 1) * kBlockN, kv_len, lane);
   }
   wgmma_wait_all();
+  if constexpr (!LAST && B != kNone) fence_regs<64>(s);
   fence_regs<HD / 2>(pv);
   fence_regs<kBlockN / 16>(pa);
   __syncwarp();
-  if (lane == 0) mbar_arrive(v_empty);
+  if (lane == 0) {
+    mbar_arrive(v_empty);
+    if (!LAST && B != kNone) mbar_arrive(k_empty);
+  }
   two_level_fold<HD / 2>(o, pv, alpha, beta);
+  if constexpr (!LAST && B != kNone) {
+    variant_select<HD, kTwoLevel, B>(p, s, tile_entry<B>(p, t + 1), 0, cwg, kv_len, lane);
+    two_level_step(s, m, l, alpha_next, beta_next, 0, 0x7fffffff, lane);
+  }
   if constexpr (!LAST) {
     pack_a<T, kBlockN>(pa, s);
 #pragma unroll
@@ -840,8 +950,8 @@ __device__ __forceinline__ void two_level_pv_step(float* s, float* pv, uint32_t 
 // A consumer warpgroup of K7c (rows and fragments as K1's consumer): tile 0's
 // QK^T and step, then two_level_pv_step on each tile. Tile t's p v is a product
 // of its own (pv, overwritten by its first k-step), so it never accumulates
-// into acc.
-template <typename T, int HD>
+// into acc. B: the branch, whose tiles and select are K1's.
+template <typename T, int HD, int B = kNone>
 __device__ __forceinline__ void consume_two_level(const Params& p, uint32_t base, int cwg, int q0, int n, int b,
                                                   int kv_len, int num_tiles) {
   using L = Layout<HD, consumer_wgs<HD, kTwoLevel>()>;
@@ -868,13 +978,19 @@ __device__ __forceinline__ void consume_two_level(const Params& p, uint32_t base
     fence_regs<64>(s);
     __syncwarp();
     if (lane == 0) mbar_arrive(q_full + 8 * (1 + 2 * kStages));  // k_empty of stage 0
-    two_level_step(s, m, l, alpha, beta, 0, kv_len, lane);
+    if constexpr (B != kNone) {
+      variant_select<HD, kTwoLevel, B>(p, s, tile_entry<B>(p, 0), 0, cwg, kv_len, lane);
+      two_level_step(s, m, l, alpha, beta, 0, 0x7fffffff, lane);
+    } else {
+      two_level_step(s, m, l, alpha, beta, 0, kv_len, lane);
+    }
     pack_a<T, kBlockN>(pa, s);
 #pragma unroll
     for (int i = 0; i < kOut; ++i) pv[i] = 0.f;  // overwritten by each product's first k-step
     for (int t = 0; t + 1 < num_tiles; ++t)
-      two_level_pv_step<T, HD, false>(s, pv, pa, o, m, l, alpha, beta, base, q_addr, t, kv_len, lane);
-    two_level_pv_step<T, HD, true>(s, pv, pa, o, m, l, alpha, beta, base, q_addr, num_tiles - 1, kv_len, lane);
+      two_level_pv_step<T, HD, false, B>(s, pv, pa, o, m, l, alpha, beta, base, q_addr, t, kv_len, lane, p, cwg);
+    two_level_pv_step<T, HD, true, B>(s, pv, pa, o, m, l, alpha, beta, base, q_addr, num_tiles - 1, kv_len, lane, p,
+                                      cwg);
   }
   store_out<T, HD>(p, o, m, l, q0 + cwg * 64, n, b);
 }
@@ -916,9 +1032,12 @@ struct SkewRing {
 // is issued into `cur` (unless LAST: u-1 is the last tile), K1's softmax step
 // runs on `prev` while it is on the tensor cores, acc is rescaled, p packed and
 // tile u-1's P V issued; then both are waited for and their stages released.
-template <typename T, int HD, bool LAST>
+// B: the branch (segments), whose select `prev` passes first: score tile w is
+// the (w % 2)-th 64-key half of the list's entry w / 2.
+template <typename T, int HD, bool LAST, int B = kNone>
 __device__ __forceinline__ void skew_step(float* cur, float* prev, uint32_t (*pa)[4], float* o, float* m, float* l,
-                                          const SkewRing& ring, uint32_t q_addr, int u, int kv_len, int lane) {
+                                          const SkewRing& ring, uint32_t q_addr, int u, int kv_len, int lane,
+                                          const Params& p, int cwg) {
   using L = Layout<HD, consumer_wgs<HD, kSkew>()>;
   constexpr int kSub = kSkewKeys;
   const int w = u - 1;
@@ -930,7 +1049,13 @@ __device__ __forceinline__ void skew_step(float* cur, float* prev, uint32_t (*pa
     wgmma_commit();
   }
   float alpha[2], rowsum[2];
-  softmax_step<kSub>(prev, m, alpha, rowsum, w * kSub, kv_len, lane);
+  if constexpr (B != kNone) {
+    variant_select<HD, kSkew, B, kSub>(p, prev, tile_entry<B>(p, w / SkewRing::kPer), w % SkewRing::kPer * kSub, cwg,
+                                       kv_len, lane);
+    softmax_step<kSub>(prev, m, alpha, rowsum, 0, 0x7fffffff, lane);
+  } else {
+    softmax_step<kSub>(prev, m, alpha, rowsum, w * kSub, kv_len, lane);
+  }
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
   l[0] = l[0] * alpha[0] + rowsum[0];
@@ -955,14 +1080,15 @@ __device__ __forceinline__ void skew_step(float* cur, float* prev, uint32_t (*pa
 // in place, then tile 0's QK^T, then the skewed steps over two score arrays
 // used in turn (tile u-1's scores are in `sa` at the top of a trip). The
 // TPU kernel's first step, on a dummy tile of 2*(-1e30), is an identity (p =
-// 0, alpha = 1) and is left out.
-template <typename T, int HD>
+// 0, alpha = 1) and is left out. B: the branch (segments), whose num_tiles
+// listed key tiles give two score tiles each.
+template <typename T, int HD, int B = kNone>
 __device__ __forceinline__ void consume_skew(const Params& p, uint32_t base, unsigned char* smem, int cwg, int q0,
-                                             int n, int b, int kv_len) {
+                                             int n, int b, int kv_len, int num_tiles) {
   using L = Layout<HD, consumer_wgs<HD, kSkew>()>;
   constexpr int kSub = kSkewKeys;
   const int lane = threadIdx.x % 32;
-  const SkewRing ring{base, base + L::kBars, (kv_len + kSub - 1) / kSub};
+  const SkewRing ring{base, base + L::kBars, B == kNone ? (kv_len + kSub - 1) / kSub : SkewRing::kPer * num_tiles};
 
   float o[HD / 2];
 #pragma unroll
@@ -988,50 +1114,42 @@ __device__ __forceinline__ void consume_skew(const Params& p, uint32_t base, uns
     if (lane == 0 && ring.last_in_stage(0)) mbar_arrive(ring.k_empty(0));
     int u = 1;
     for (; u + 1 < num_sub; u += 2) {
-      skew_step<T, HD, false>(sb, sa, pa, o, m, l, ring, q_addr, u, kv_len, lane);
-      skew_step<T, HD, false>(sa, sb, pa, o, m, l, ring, q_addr, u + 1, kv_len, lane);
+      skew_step<T, HD, false, B>(sb, sa, pa, o, m, l, ring, q_addr, u, kv_len, lane, p, cwg);
+      skew_step<T, HD, false, B>(sa, sb, pa, o, m, l, ring, q_addr, u + 1, kv_len, lane, p, cwg);
     }
     if (u < num_sub) {
-      skew_step<T, HD, false>(sb, sa, pa, o, m, l, ring, q_addr, u, kv_len, lane);
-      skew_step<T, HD, true>(sa, sb, pa, o, m, l, ring, q_addr, u + 1, kv_len, lane);
+      skew_step<T, HD, false, B>(sb, sa, pa, o, m, l, ring, q_addr, u, kv_len, lane, p, cwg);
+      skew_step<T, HD, true, B>(sa, sb, pa, o, m, l, ring, q_addr, u + 1, kv_len, lane, p, cwg);
     } else {
-      skew_step<T, HD, true>(sb, sa, pa, o, m, l, ring, q_addr, u, kv_len, lane);
+      skew_step<T, HD, true, B>(sb, sa, pa, o, m, l, ring, q_addr, u, kv_len, lane, p, cwg);
     }
   }
   store_out<T, HD>(p, o, m, l, q0 + cwg * 64, n, b);
 }
 
-// K1, K7a, K7c or K7b: one CTA per (q tile of block_m rows, head, batch).
-template <typename T, int HD, int V>
+// K1, K7a, K7c or K7b (step S) or one of their branches (select B): one CTA
+// per (q tile of block_m rows, head, batch).
+template <typename T, int HD, int S, int B>
 __device__ __forceinline__ void fwd_cta(const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map,
                                         const Params& p, unsigned char* smem_raw) {
-  constexpr int kWgs = consumer_wgs<HD, V>();
+  constexpr int kWgs = consumer_wgs<HD, S>();
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + Layout<HD, kWgs>::kBars;
-  int q_tile = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
-  if constexpr (listed(V) || V == kCausal) {
-    // Last q tiles first, over every (batch, head), as the CTAs are dispatched
-    // in order: under a causal mask they have the most live tiles, so the
-    // longest CTAs start first and the short ones fill the last wave.
-    const int cells = gridDim.y * gridDim.z;
-    const int linear = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-    q_tile = gridDim.x - 1 - linear / cells;
-    n = linear % cells % gridDim.y;
-    b = linear % cells / gridDim.y;
-  }
-  const int q0 = q_tile * block_m<HD, V>();
+  const CtaAt at = cta_at<B>();
+  const int q_tile = at.q_tile, n = at.n, b = at.b;
+  const int q0 = q_tile * block_m<HD, S>();
   int kv_len = p.seq_kv;
   if (p.kv_lens != nullptr) kv_len = min(max(p.kv_lens[b], 0), p.seq_kv);
   int num_tiles = (kv_len + kBlockN - 1) / kBlockN;
   const int* tiles = nullptr;
-  if constexpr (listed(V)) {  // the live key tiles of this (b, q tile)
+  if constexpr (listed(B)) {  // the live key tiles of this (b, q tile)
     const int cell = b * p.q_tiles + q_tile;
     num_tiles = p.tile_counts[cell];
     tiles = p.tiles + (int64_t)cell * p.kv_tiles;
-    if (V == kMasked) kv_len = 0x7fffffff;  // the mask alone selects keys
+    if (B == kMasked) kv_len = 0x7fffffff;  // the mask alone selects keys
   }
-  if constexpr (V == kCausal) {  // up to the key tile of the last row's diagonal
-    const int last = min(q0 + block_m<HD, V>(), p.seq_q) - 1 + p.seq_kv - p.seq_q;
+  if constexpr (B == kCausal) {  // up to the key tile of the last row's diagonal
+    const int last = min(q0 + block_m<HD, S>(), p.seq_q) - 1 + p.seq_kv - p.seq_q;
     num_tiles = last < 0 ? 0 : min(num_tiles, last / kBlockN + 1);
   }
 
@@ -1051,80 +1169,90 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* q_map, const CUtensor
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      if constexpr (V == kTwoPass) {
-        produce_twopass<HD>(q_map, k_map, v_map, base, q0, n, b, num_tiles);
+      if constexpr (S == kTwoPass) {
+        produce_twopass<HD>(q_map, k_map, v_map, base, q0, n, b, num_tiles, tiles);
       } else {
         produce<HD, kWgs>(q_map, k_map, v_map, base, q0, n, b, num_tiles, tiles);
       }
     }
   } else {
-    setmaxnreg_inc<consumer_regs<HD, V>()>();
+    setmaxnreg_inc<consumer_regs<HD, S>()>();
     const int cwg = threadIdx.x / 128 - 1;
     unsigned char* smem = smem_raw + (base - smem_addr(smem_raw));
-    if constexpr (V == kTwoPass) {
-      consume_twopass<T, HD>(p, base, smem, cwg, q0, n, b, kv_len, num_tiles);
-    } else if constexpr (V == kTwoLevel) {
-      consume_two_level<T, HD>(p, base, cwg, q0, n, b, kv_len, num_tiles);
-    } else if constexpr (V == kSkew) {
-      consume_skew<T, HD>(p, base, smem, cwg, q0, n, b, kv_len);
+    if constexpr (S == kTwoPass) {
+      consume_twopass<T, HD, B>(p, base, smem, cwg, q0, n, b, kv_len, num_tiles);
+    } else if constexpr (S == kTwoLevel) {
+      consume_two_level<T, HD, B>(p, base, cwg, q0, n, b, kv_len, num_tiles);
+    } else if constexpr (S == kSkew) {
+      consume_skew<T, HD, B>(p, base, smem, cwg, q0, n, b, kv_len, num_tiles);
     } else {
-      consume<T, HD, V>(p, base, cwg, q0, n, b, kv_len, num_tiles, tiles);
+      consume<T, HD, B>(p, base, cwg, q0, n, b, kv_len, num_tiles, tiles);
     }
   }
 }
 
-#define FWD_KERNEL(NAME, V)                                                                                    \
+#define FWD_KERNEL(NAME, S, B)                                                                                 \
   template <typename T, int HD>                                                                                \
-  __global__ void __launch_bounds__(threads<HD, V>(), 1)                                                       \
+  __global__ void __launch_bounds__(threads<HD, S>(), 1)                                                       \
       NAME(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,               \
            const __grid_constant__ CUtensorMap v_map, const Params p) {                                        \
     extern __shared__ unsigned char smem_raw[];                                                                \
-    fwd_cta<T, HD, V>(&q_map, &k_map, &v_map, p, smem_raw);                                                    \
+    fwd_cta<T, HD, S, B>(&q_map, &k_map, &v_map, p, smem_raw);                                                 \
   }
-FWD_KERNEL(flash_fwd_sm90_kernel, kStraight)
-FWD_KERNEL(flash_fwd_twopass_sm90_kernel, kTwoPass)
-FWD_KERNEL(flash_fwd_two_level_sm90_kernel, kTwoLevel)
-FWD_KERNEL(flash_fwd_skew_sm90_kernel, kSkew)
-FWD_KERNEL(flash_fwd_mask_sm90_kernel, kMasked)
-FWD_KERNEL(flash_fwd_causal_sm90_kernel, kCausal)
-FWD_KERNEL(flash_fwd_segment_sm90_kernel, kSegment)
+FWD_KERNEL(flash_fwd_sm90_kernel, kStraight, kNone)
+FWD_KERNEL(flash_fwd_twopass_sm90_kernel, kTwoPass, kNone)
+FWD_KERNEL(flash_fwd_two_level_sm90_kernel, kTwoLevel, kNone)
+FWD_KERNEL(flash_fwd_skew_sm90_kernel, kSkew, kNone)
+FWD_KERNEL(flash_fwd_mask_sm90_kernel, kStraight, kMasked)
+FWD_KERNEL(flash_fwd_causal_sm90_kernel, kStraight, kCausal)
+FWD_KERNEL(flash_fwd_segment_sm90_kernel, kStraight, kSegment)
+FWD_KERNEL(flash_fwd_two_level_causal_sm90_kernel, kTwoLevel, kCausal)
+FWD_KERNEL(flash_fwd_two_level_segment_sm90_kernel, kTwoLevel, kSegment)
+FWD_KERNEL(flash_fwd_two_level_mask_sm90_kernel, kTwoLevel, kMasked)
+FWD_KERNEL(flash_fwd_twopass_segment_sm90_kernel, kTwoPass, kSegment)
+FWD_KERNEL(flash_fwd_skew_segment_sm90_kernel, kSkew, kSegment)
 #undef FWD_KERNEL
 
-// Variant V's kernel at (T, HD); only V's is instantiated, so each library
-// compiles the variants its entry points launch.
-template <typename T, int HD, int V>
+// The (S, B) kernel at (T, HD); only the pairs a library's entry points launch
+// are instantiated, so each library compiles its own kernels.
+template <typename T, int HD, int S, int B>
 constexpr auto kernel_of() {
-  if constexpr (V == kTwoPass) return flash_fwd_twopass_sm90_kernel<T, HD>;
-  else if constexpr (V == kTwoLevel) return flash_fwd_two_level_sm90_kernel<T, HD>;
-  else if constexpr (V == kSkew) return flash_fwd_skew_sm90_kernel<T, HD>;
-  else if constexpr (V == kMasked) return flash_fwd_mask_sm90_kernel<T, HD>;
-  else if constexpr (V == kCausal) return flash_fwd_causal_sm90_kernel<T, HD>;
-  else if constexpr (V == kSegment) return flash_fwd_segment_sm90_kernel<T, HD>;
-  else return flash_fwd_sm90_kernel<T, HD>;
+  if constexpr (S == kStraight && B == kNone) return flash_fwd_sm90_kernel<T, HD>;
+  else if constexpr (S == kTwoPass && B == kNone) return flash_fwd_twopass_sm90_kernel<T, HD>;
+  else if constexpr (S == kTwoLevel && B == kNone) return flash_fwd_two_level_sm90_kernel<T, HD>;
+  else if constexpr (S == kSkew && B == kNone) return flash_fwd_skew_sm90_kernel<T, HD>;
+  else if constexpr (S == kStraight && B == kMasked) return flash_fwd_mask_sm90_kernel<T, HD>;
+  else if constexpr (S == kStraight && B == kCausal) return flash_fwd_causal_sm90_kernel<T, HD>;
+  else if constexpr (S == kStraight && B == kSegment) return flash_fwd_segment_sm90_kernel<T, HD>;
+  else if constexpr (S == kTwoLevel && B == kCausal) return flash_fwd_two_level_causal_sm90_kernel<T, HD>;
+  else if constexpr (S == kTwoLevel && B == kSegment) return flash_fwd_two_level_segment_sm90_kernel<T, HD>;
+  else if constexpr (S == kTwoLevel && B == kMasked) return flash_fwd_two_level_mask_sm90_kernel<T, HD>;
+  else if constexpr (S == kTwoPass && B == kSegment) return flash_fwd_twopass_segment_sm90_kernel<T, HD>;
+  else return flash_fwd_skew_segment_sm90_kernel<T, HD>;
 }
 
-template <typename T, int HD, int V>
+template <typename T, int HD, int S, int B>
 cudaError_t launch(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map, const Params& p,
                    int batch, cudaStream_t stream) {
-  auto kernel = kernel_of<T, HD, V>();
-  const dim3 grid((p.seq_q + block_m<HD, V>() - 1) / block_m<HD, V>(), p.heads, batch);
+  auto kernel = kernel_of<T, HD, S, B>();
+  const dim3 grid((p.seq_q + block_m<HD, S>() - 1) / block_m<HD, S>(), p.heads, batch);
   static std::atomic<uint64_t> attribute_set{0};
   // + 1024 bytes of slack to align the base to 1024 bytes
-  return launch_sm90(kernel, attribute_set, grid, threads<HD, V>(), Layout<HD, consumer_wgs<HD, V>()>::kBytes + 1024,
+  return launch_sm90(kernel, attribute_set, grid, threads<HD, S>(), Layout<HD, consumer_wgs<HD, S>()>::kBytes + 1024,
                      stream, q_map, k_map, v_map, p);
 }
 
-template <int V>
+template <int S, int B>
 int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, int batch,
               int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, float q_scale,
               void* stream, const void* mask = nullptr, const void* tiles = nullptr, const void* tile_counts = nullptr,
               int q_tiles = 0, int kv_tiles = 0, const void* q_seg = nullptr, const void* kv_seg = nullptr,
               int64_t q_seg_len = 0, int64_t kv_seg_len = 0) {
-  // H=32: K1 only (K7a/b/c and K1's branches at H=32 are still to port, ROADMAP.md queue 2 item 5).
-  const bool narrow = head_dim == 32 && V == kStraight;
+  // H=32: K1 only (K7a/b/c and the branches at H=32 are still to port, ROADMAP.md queue 2 item 5).
+  const bool narrow = head_dim == 32 && S == kStraight && B == kNone;
   if ((head_dim != 64 && head_dim != 128 && !narrow) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
-  const int q_rows = narrow ? block_m<32, V>() : head_dim == 64 ? block_m<64, V>() : block_m<128, V>();
+  const int q_rows = narrow ? block_m<32, S>() : head_dim == 64 ? block_m<64, S>() : block_m<128, S>();
   if (!encode_operand(&q_map, q_s, dtype, head_dim, seq_q, heads, batch, q_rows, strides[0], strides[1], strides[2]) ||
       !encode_operand(&k_map, k_r, dtype, head_dim, seq_kv, heads, batch, kBlockN, strides[3], strides[4],
                       strides[5]) ||
@@ -1148,63 +1276,36 @@ int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* 
   p.kv_seg = static_cast<const int*>(kv_seg);
   p.q_seg_len = q_seg_len;
   p.kv_seg_len = kv_seg_len;
-  if (listed(V) && (tiles == nullptr || tile_counts == nullptr || q_tiles != (seq_q + q_rows - 1) / q_rows ||
+  if (listed(B) && (tiles == nullptr || tile_counts == nullptr || q_tiles != (seq_q + q_rows - 1) / q_rows ||
                     kv_tiles != (seq_kv + kBlockN - 1) / kBlockN))
     return cudaErrorInvalidValue;
-  if (V == kMasked && (mask == nullptr || kv_lens != nullptr)) return cudaErrorInvalidValue;
+  if (B == kMasked && (mask == nullptr || kv_lens != nullptr)) return cudaErrorInvalidValue;
   // The ids are read in whole tiles: q rows up to q_tiles * q_rows, keys up to kv_tiles * 128.
-  if (V == kSegment && (q_seg == nullptr || kv_seg == nullptr || q_seg_len < (int64_t)q_tiles * q_rows ||
+  if (B == kSegment && (q_seg == nullptr || kv_seg == nullptr || q_seg_len < (int64_t)q_tiles * q_rows ||
                         kv_seg_len < (int64_t)kv_tiles * kBlockN))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (V == kStraight) {
-    if (narrow && dtype == 0) return launch<__nv_bfloat16, 32, V>(q_map, k_map, v_map, p, batch, s);
-    if (narrow) return launch<__half, 32, V>(q_map, k_map, v_map, p, batch, s);
+  if constexpr (S == kStraight && B == kNone) {
+    if (narrow && dtype == 0) return launch<__nv_bfloat16, 32, S, B>(q_map, k_map, v_map, p, batch, s);
+    if (narrow) return launch<__half, 32, S, B>(q_map, k_map, v_map, p, batch, s);
   }
-  if (dtype == 0 && head_dim == 64) return launch<__nv_bfloat16, 64, V>(q_map, k_map, v_map, p, batch, s);
-  if (dtype == 0) return launch<__nv_bfloat16, 128, V>(q_map, k_map, v_map, p, batch, s);
-  if (head_dim == 64) return launch<__half, 64, V>(q_map, k_map, v_map, p, batch, s);
-  return launch<__half, 128, V>(q_map, k_map, v_map, p, batch, s);
+  if (dtype == 0 && head_dim == 64) return launch<__nv_bfloat16, 64, S, B>(q_map, k_map, v_map, p, batch, s);
+  if (dtype == 0) return launch<__nv_bfloat16, 128, S, B>(q_map, k_map, v_map, p, batch, s);
+  if (head_dim == 64) return launch<__half, 64, S, B>(q_map, k_map, v_map, p, batch, s);
+  return launch<__half, 128, S, B>(q_map, k_map, v_map, p, batch, s);
 }
 
 }  // namespace
 
-#ifndef FLASH_FWD_BRANCHES
-// Plain C entry points, loaded with ctypes: K1, K7a, K7c and K7b. q_s and k_r
-// are the pre-pass's operands (k itself when there are no RoPE tables); K7b
-// takes the raw q and k and scales q by `q_scale` (scale * log2(e)) itself.
-// dtype: 0 = bf16, 1 = fp16; strides: q_s, k_r, v, out, each (batch, head,
-// seq), in elements; the head dim is contiguous and every operand 16-byte
-// aligned; head_dim 64 or 128, and 32 for K1. Each returns a cudaError_t
-// (cudaErrorInvalidValue also when a tensor map cannot be encoded).
-#define FWD_ENTRY(NAME, V)                                                                                      \
-  extern "C" int NAME(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, \
-                      int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, \
-                      void* stream) {                                                                           \
-    return fwd_entry<V>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides,  \
-                        1.f, stream);                                                                           \
-  }
-FWD_ENTRY(flash_fwd_sm90, kStraight)
-FWD_ENTRY(flash_fwd_twopass_sm90, kTwoPass)
-FWD_ENTRY(flash_fwd_two_level_sm90, kTwoLevel)
-
-extern "C" int flash_fwd_skew_sm90(const void* q, const void* k, const void* v, void* out, void* lse,
-                                   const void* kv_lens, int batch, int heads, int seq_q, int seq_kv, int head_dim,
-                                   int dtype, const int64_t* strides, float q_scale, void* stream) {
-  return fwd_entry<kSkew>(q, k, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides, q_scale,
-                          stream);
-}
-#else
+#if defined(FLASH_FWD_BRANCHES)
 // K1's branches (built from flash_fwd_branches_sm90.cu, which defines
-// FLASH_FWD_BRANCHES), arguments as K1's above. The causal branch: K1's.
-#define FWD_ENTRY(NAME, V)                                                                                      \
-  extern "C" int NAME(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, \
-                      int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, \
-                      void* stream) {                                                                           \
-    return fwd_entry<V>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides,  \
-                        1.f, stream);                                                                           \
-  }
-FWD_ENTRY(flash_fwd_causal_sm90, kCausal)
+// FLASH_FWD_BRANCHES), arguments as K1's below. The causal branch: K1's.
+extern "C" int flash_fwd_causal_sm90(const void* q_s, const void* k_r, const void* v, void* out, void* lse,
+                                     const void* kv_lens, int batch, int heads, int seq_q, int seq_kv, int head_dim,
+                                     int dtype, const int64_t* strides, void* stream) {
+  return fwd_entry<kStraight, kCausal>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype,
+                                       strides, 1.f, stream);
+}
 
 // The segment branch: K1's arguments, then the padded q and key ids (int32,
 // q_seg_len and kv_seg_len per batch, at least the q tiles' rows and the key
@@ -1215,9 +1316,9 @@ extern "C" int flash_fwd_segment_sm90(const void* q_s, const void* k_r, const vo
                                       const void* tile_counts, int64_t q_seg_len, int64_t kv_seg_len, int batch,
                                       int heads, int seq_q, int seq_kv, int head_dim, int dtype,
                                       const int64_t* strides, int q_tiles, int kv_tiles, void* stream) {
-  return fwd_entry<kSegment>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides,
-                             1.f, stream, nullptr, tiles, tile_counts, q_tiles, kv_tiles, q_seg, kv_seg, q_seg_len,
-                             kv_seg_len);
+  return fwd_entry<kStraight, kSegment>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype,
+                                        strides, 1.f, stream, nullptr, tiles, tile_counts, q_tiles, kv_tiles, q_seg,
+                                        kv_seg, q_seg_len, kv_seg_len);
 }
 
 // The mask branch: K1's arguments without kv_lens, then the padded mask, the
@@ -1227,8 +1328,61 @@ extern "C" int flash_fwd_mask_sm90(const void* q_s, const void* k_r, const void*
                                    const void* mask, const void* tiles, const void* tile_counts, int batch, int heads,
                                    int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, int q_tiles,
                                    int kv_tiles, void* stream) {
-  return fwd_entry<kMasked>(q_s, k_r, v, out, lse, nullptr, batch, heads, seq_q, seq_kv, head_dim, dtype, strides, 1.f,
-                            stream, mask, tiles, tile_counts, q_tiles, kv_tiles);
+  return fwd_entry<kStraight, kMasked>(q_s, k_r, v, out, lse, nullptr, batch, heads, seq_q, seq_kv, head_dim, dtype,
+                                       strides, 1.f, stream, mask, tiles, tile_counts, q_tiles, kv_tiles);
 }
-#endif  // FLASH_FWD_BRANCHES
+#elif defined(FLASH_FWD_VARIANT_BRANCHES)
+// The branches of K7a, K7b and K7c (built from
+// flash_fwd_variant_branches_sm90.cu, which defines FLASH_FWD_VARIANT_BRANCHES),
+// one entry for all: `step` 1 K7a, 2 K7c, 3 K7b; `branch` 1 causal, 2 segment
+// ids, 3 a dense mask (kv_lens folded in, so null); K7c takes all three, K7a
+// and K7b segments only. Then K1's arguments, the padded mask (or null), the
+// padded q and key ids with their per-batch lengths (or null), the live-tile
+// lists and counts (segments and masks), the q and key tile counts, and K7b's
+// q_scale (scale * log2(e); the others take the pre-pass's q_s). K7c's q tile
+// is 128 rows at both head dims, K7a's K1's.
+extern "C" int flash_fwd_variant_branch_sm90(int step, int branch, const void* q_s, const void* k_r, const void* v,
+                                             void* out, void* lse, const void* kv_lens, const void* mask,
+                                             const void* q_seg, const void* kv_seg, int64_t q_seg_len,
+                                             int64_t kv_seg_len, const void* tiles, const void* tile_counts, int batch,
+                                             int heads, int seq_q, int seq_kv, int head_dim, int dtype,
+                                             const int64_t* strides, int q_tiles, int kv_tiles, float q_scale,
+                                             void* stream) {
+#define VARIANT_BRANCH(S, B)                                                                                     \
+  fwd_entry<S, B>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides, q_scale, \
+                  stream, mask, tiles, tile_counts, q_tiles, kv_tiles, q_seg, kv_seg, q_seg_len, kv_seg_len)
+  if (step == kTwoLevel && branch == kCausal) return VARIANT_BRANCH(kTwoLevel, kCausal);
+  if (step == kTwoLevel && branch == kSegment) return VARIANT_BRANCH(kTwoLevel, kSegment);
+  if (step == kTwoLevel && branch == kMasked) return VARIANT_BRANCH(kTwoLevel, kMasked);
+  if (step == kTwoPass && branch == kSegment) return VARIANT_BRANCH(kTwoPass, kSegment);
+  if (step == kSkew && branch == kSegment) return VARIANT_BRANCH(kSkew, kSegment);
+#undef VARIANT_BRANCH
+  return cudaErrorInvalidValue;
+}
+#else
+// Plain C entry points, loaded with ctypes: K1, K7a, K7c and K7b. q_s and k_r
+// are the pre-pass's operands (k itself when there are no RoPE tables); K7b
+// takes the raw q and k and scales q by `q_scale` (scale * log2(e)) itself.
+// dtype: 0 = bf16, 1 = fp16; strides: q_s, k_r, v, out, each (batch, head,
+// seq), in elements; the head dim is contiguous and every operand 16-byte
+// aligned; head_dim 64 or 128, and 32 for K1. Each returns a cudaError_t
+// (cudaErrorInvalidValue also when a tensor map cannot be encoded).
+#define FWD_ENTRY(NAME, S)                                                                                      \
+  extern "C" int NAME(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, \
+                      int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, \
+                      void* stream) {                                                                           \
+    return fwd_entry<S, kNone>(q_s, k_r, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype,    \
+                               strides, 1.f, stream);                                                           \
+  }
+FWD_ENTRY(flash_fwd_sm90, kStraight)
+FWD_ENTRY(flash_fwd_twopass_sm90, kTwoPass)
+FWD_ENTRY(flash_fwd_two_level_sm90, kTwoLevel)
 #undef FWD_ENTRY
+
+extern "C" int flash_fwd_skew_sm90(const void* q, const void* k, const void* v, void* out, void* lse,
+                                   const void* kv_lens, int batch, int heads, int seq_q, int seq_kv, int head_dim,
+                                   int dtype, const int64_t* strides, float q_scale, void* stream) {
+  return fwd_entry<kSkew, kNone>(q, k, v, out, lse, kv_lens, batch, heads, seq_q, seq_kv, head_dim, dtype, strides,
+                                 q_scale, stream);
+}
+#endif

@@ -31,11 +31,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-# Every library: K1 and K7a/b/c; K1's mask, causal and segment branches; K2, K3
-# and K5; K2's and K3's branches; the pre-pass and K5's dq emit; the sage
-# pre-pass and K6.
-SOURCES = ("flash_fwd_sm90", "flash_fwd_branches_sm90", "flash_bwd_sm90", "flash_bwd_branches_sm90", "flash_bwd",
-           "sage_fwd_sm90")
+# Every library: K1 and K7a/b/c; K1's mask, causal and segment branches; K7c's
+# branches and K7a's and K7b's segment branches; K2, K3 and K5; K2's and K3's
+# branches; K5's branches; the pre-pass and K5's dq emit; the sage pre-pass and K6.
+SOURCES = ("flash_fwd_sm90", "flash_fwd_branches_sm90", "flash_fwd_variant_branches_sm90", "flash_bwd_sm90",
+           "flash_bwd_branches_sm90", "flash_bwd_fused_branches_sm90", "flash_bwd", "sage_fwd_sm90")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

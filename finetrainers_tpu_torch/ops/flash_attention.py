@@ -44,27 +44,22 @@ are built by `ops/_build.py`.
     package's `flash_attention`, including its RoPE table conventions; it goes
     through K4 on every device, so its backward is K2/K3 or K5 (or their plain
     versions on the CPU), never autograd through the forward's math.
-  - `flash_forward_masked(q, k, v, mask, ...)` is K1's dense-mask branch
-    (`_fwd_kernel`'s `mask_ref` branch with the block map's tile skipping):
-    the pre-pass, then K1 over each q tile's live key tiles only
-    (`mask_tiles`, at K1's own tile sizes), with the mask's bytes selecting
-    scores out, kv_lens folded into the mask. A row with no live key gives 0
-    and an LSE of -1e30*ln2. On a CPU tensor it computes
-    `flash_attention_masked_reference`.
   - The branches (ROADMAP.md queue 2 item 5): `flash_forward` and
     `flash_backward` take `causal` (key j <= i + Skv - Sq), segment ids
     `q_seg`/`kv_seg` (packed sequences; -1 pads) and a dense `mask` (kv_lens,
     the flag and the ids folded into it), as JAX's `_flash_forward` and
-    `_flash_backward` do, and launch K1's, K2's and K3's causal, segment or
-    mask branch (`csrc/flash_fwd_branches_sm90.cu`,
-    `csrc/flash_bwd_branches_sm90.cu`, built from the straight kernels'
-    sources): the same kernels with a select on each score and loops that
-    skip the tiles with no live pair (per-tile id ranges for segments,
+    `_flash_backward` do, and launch the causal, segment or mask branch of
+    the kernel the switches pick, wherever JAX's Pallas kernel has it: K1's,
+    K2's and K3's (`csrc/flash_fwd_branches_sm90.cu`,
+    `csrc/flash_bwd_branches_sm90.cu`), K7c's and the segment branches of K7a
+    and K7b (`csrc/flash_fwd_variant_branches_sm90.cu`), K5's
+    (`csrc/flash_bwd_fused_branches_sm90.cu`), all built from the straight
+    kernels' sources: the same kernels with a select on each score and loops
+    that skip the tiles with no live pair (per-tile id ranges for segments,
     `segment_blocks`; the mask's block map, `mask_tiles`/`mask_tiles_bwd`).
-    On the card at head dim 32 a branch raises (still to port); under the
-    fused-backward switch, and where a forward switch picks K7a/b/c (JAX's
-    gates, `forward_variant`), it raises on every device: JAX runs K5's and
-    K7's branches there, which are still to port.
+    K1's mask branch alone on the pre-pass's operands is
+    `flash_forward_masked_core`. At head dim 32 a branch raises on the card
+    (still to port).
   - `flash_attention_reference` / `flash_backward_reference` are the plain
     fp32 math of the kernels: the same base-2 softmax, cast points, masking and
     natural-log LSE. `flash_attention_reference` is the plain pre-pass
@@ -74,18 +69,19 @@ are built by `ops/_build.py`.
     `flash_bwd_dq_reference`). The `*_twopass`, `*_skew`, `*_two_level`
     and `flash_backward_fused_reference` versions follow their kernel's
     recurrence over kv tiles of the kernel's width (128 keys; K7b's score
-    tiles are 64), so their fp32 sums run in the kernel's tile order.
+    tiles are 64), so their fp32 sums run in the kernel's tile order; they
+    take the branches' inputs as `flash_attention_reference` does.
 
 Each kernel wrapper keeps a `launches` count (`flash_qk_prep`,
 `flash_forward_two_level`, `flash_forward_twopass`, `flash_forward_skew`,
 `flash_bwd_dkdv`, `flash_bwd_dq`, `flash_bwd_fused`, `flash_bwd_dq_emit`; K1's
 launches, from `flash_forward` or `flash_forward_core`, count on
-`flash_forward`, its mask branch's on `flash_forward_masked`) of kernel
+`flash_forward`, its mask branch's on `flash_forward_masked_core`) of kernel
 launches, never of reference calls, so a run can show that its attention went
-through the kernels; `flash_forward`, `flash_bwd_dkdv` and `flash_bwd_dq` also
-count their branches' launches by branch (`branch_launches`, within
-`launches`), and `flash_bwd_dkdv` the launches that ran its reduce pass
-(`reduce_launches`).
+through the kernels; `flash_forward`, the three K7 wrappers, `flash_bwd_dkdv`,
+`flash_bwd_dq` and `flash_bwd_fused` also count their branches' launches by
+branch (`branch_launches`, within `launches`), and `flash_bwd_dkdv` the
+launches that ran its reduce pass (`reduce_launches`).
 """
 
 from __future__ import annotations
@@ -108,8 +104,9 @@ _NEG_INF = -1e30
 K1_HEAD_DIMS = (32, 64, 128)
 WIDE_HEAD_DIMS = (64, 128)
 # K1's mask branch (128 for the GLM and Llama towers, 64 for CLIP-L text), and
-# the causal, segment and mask branches of K1, K2 and K3: 64 and 128 (at 32
-# they are still to port, ROADMAP.md queue 2 item 5).
+# the causal, segment and mask branches of K1, K2, K3, K5 and K7c and the
+# segment branches of K7a and K7b: 64 and 128 (at 32 they are still to port,
+# ROADMAP.md queue 2 item 5).
 BRANCH_HEAD_DIMS = (64, 128)
 # A live key tile's entry in the mask branch's lists carries this bit where
 # its whole (q tile, key tile) block is unmasked (`csrc/flash_fwd_sm90.cu`).
@@ -149,10 +146,6 @@ def branch_of(causal: bool, q_seg, mask) -> Optional[str]:
     if q_seg is not None:
         return "segment"
     return "causal" if causal else None
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is still to port (ROADMAP.md queue 2 item 5)")
 
 
 def _rotate_pairs(x: torch.Tensor) -> torch.Tensor:
@@ -321,14 +314,15 @@ def _mask_blocks(padded: torch.Tensor, block_q: int, block_kv: int):
     return blocks.amax(dim=(2, 4)) > 0, blocks.amin(dim=(2, 4)) > 0
 
 
-def mask_tiles(mask: torch.Tensor, head_dim: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1's mask branch's operands from a (B, Sq, Skv) boolean mask, at K1's
-    tile sizes (`k1_block_m` q rows, 128 keys): the mask as uint8, zero-padded
-    to whole tiles; per (b, q tile) the live key tiles in order, each index
-    with `_MASK_FULL_TILE` set where its block is unmasked throughout, (B, nq,
-    nk) int32, the unused tail after them; and their counts, (B, nq) int32."""
+def mask_tiles(mask: torch.Tensor, head_dim: int, block_m: Optional[int] = None):
+    """The mask branch's operands (K1's, or K7c's with its `block_m` of 128)
+    from a (B, Sq, Skv) boolean mask, at the kernel's tile sizes (`k1_block_m`
+    q rows unless given, 128 keys): the mask as uint8, zero-padded to whole
+    tiles; per (b, q tile) the live key tiles in order, each index with
+    `_MASK_FULL_TILE` set where its block is unmasked throughout, (B, nq, nk)
+    int32, the unused tail after them; and their counts, (B, nq) int32."""
     batch, seq_q, seq_kv = mask.shape
-    block_m = k1_block_m(head_dim)
+    block_m = k1_block_m(head_dim) if block_m is None else block_m
     padded = _padded_mask(mask, -(-seq_q // block_m) * block_m, -(-seq_kv // _SM90_BLOCK_KV) * _SM90_BLOCK_KV)
     return (padded, *_tile_lists(*_mask_blocks(padded, block_m, _SM90_BLOCK_KV)))
 
@@ -381,22 +375,6 @@ def _padded_ids(ids: torch.Tensor, multiple: int) -> torch.Tensor:
     out = torch.zeros((batch, -(-seq // multiple) * multiple), dtype=torch.int32, device=ids.device)
     out[:, :seq] = ids
     return out
-
-
-def flash_forward_masked_core_reference(q_s, k_r, v, mask):
-    """Plain fp32 version of K1's mask branch (`flash_forward_masked_core`)
-    on the pre-pass's operands (as `flash_forward_core_reference` takes them)
-    and a (B, Sq, Skv) boolean mask: the masked scores are left out of the
-    softmax, so a row with no live key gives 0 and an LSE of -1e30*ln2.
-    Returns out in v's dtype and the (B, N, Sq) fp32 natural-log LSE."""
-    return flash_forward_core_reference(q_s, k_r, v, mask=mask)
-
-
-def flash_attention_masked_reference(q, k, v, mask, scale=None, kv_lens=None, rope_cos=None, rope_sin=None):
-    """Plain fp32 version of `flash_forward_masked` (the pre-pass, then K1's
-    mask branch): q (B, N, Sq, H), k, v (B, N, Skv, H), mask (B, Sq, Skv)
-    boolean, True = attend; kv_lens and RoPE tables as `flash_forward`."""
-    return flash_attention_reference(q, k, v, kv_lens, rope_cos, rope_sin, scale, mask=mask)
 
 
 def flash_backward_reference(
@@ -494,14 +472,16 @@ def flash_bwd_dq_reference(q_s, k_r, v, do, lse, delta, kv_lens=None, rope_cos=N
     return dq.to(v.dtype)
 
 
-def _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, block):
-    """(q_s, [(k_r tile, v tile, valid-key tile) for each `block`-key tile]) for
-    the tiled plain versions; the tiles are fp32 except v, kept in its dtype."""
-    batch, _, _, head_dim = q.shape
+def _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, block, causal=False, q_seg=None, kv_seg=None, mask=None):
+    """(q_s, [(k_r tile, v tile, live tile) for each `block`-key tile]) for the
+    tiled plain versions: a live tile is the (B, 1, Sq or 1, block) slice of
+    the branch's `live_pairs` (the valid keys alone without a branch); the
+    tiles are fp32 except v, kept in its dtype."""
+    batch, _, seq_q, head_dim = q.shape
     scale = head_dim**-0.5 if scale is None else scale
     qs, kr = flash_qk_prep_reference(q, k, rope_cos, rope_sin, scale)
-    valid = _valid_keys(kv_lens, batch, k.shape[2], q.device)
-    return qs, [(kr[:, :, k0:k0 + block], v[:, :, k0:k0 + block], valid[..., k0:k0 + block])
+    live = live_pairs(batch, seq_q, k.shape[2], q.device, kv_lens, causal, q_seg, kv_seg, mask)
+    return qs, [(kr[:, :, k0:k0 + block], v[:, :, k0:k0 + block], live[..., k0:k0 + block])
                 for k0 in range(0, k.shape[2], block)]
 
 
@@ -516,12 +496,16 @@ def _running_state(q):
     return m, torch.zeros_like(m), torch.zeros((batch, heads, seq_q, head_dim), device=q.device)
 
 
-def flash_forward_two_level_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
-    """Plain version of K7c (`_fwd_kernel`'s `two_level` branch): per 128-key
-    tile, p = exp2(s - m_cur) against the tile's own max, beta = exp2(m_cur -
-    m_new), l = l*alpha + rowsum(p)*beta, acc = acc*alpha + (p v)*beta.
-    Arguments and result as `flash_attention_reference`."""
-    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SM90_BLOCK_KV)
+def flash_forward_two_level_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None, causal=False,
+                                      q_seg=None, kv_seg=None, mask=None):
+    """Plain version of K7c (`_fwd_kernel`'s `two_level` branch) and its
+    causal, segment and mask branches: per 128-key tile, p = exp2(s - m_cur)
+    against the tile's own max, beta = exp2(m_cur - m_new), l = l*alpha +
+    rowsum(p)*beta, acc = acc*alpha + (p v)*beta, with pairs that are not live
+    selected to s = -1e30 and p = 0 (a row with no live key in a tile then
+    adds nothing; with none at all it gives 0 and -1e30*ln2). Arguments and
+    result as `flash_attention_reference`."""
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SM90_BLOCK_KV, causal, q_seg, kv_seg, mask)
     m, l, acc = _running_state(q)
     for kr, vt, valid in tiles:
         s = (qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF)
@@ -535,12 +519,15 @@ def flash_forward_two_level_reference(q, k, v, kv_lens=None, rope_cos=None, rope
     return _finish(acc, m, l, q.dtype)
 
 
-def flash_forward_twopass_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
-    """Plain version of K7a (`_fwd_kernel_twopass`): a first sweep over the
-    128-key tiles takes the row max; a second accumulates p = exp2(s - m) against
-    that final max with no rescale (a row with no valid key selects p to 0).
-    Arguments and result as `flash_attention_reference`."""
-    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SM90_BLOCK_KV)
+def flash_forward_twopass_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None, causal=False,
+                                    q_seg=None, kv_seg=None, mask=None):
+    """Plain version of K7a (`_fwd_kernel_twopass`) and its segment branch: a
+    first sweep over the 128-key tiles takes the row max over the live pairs;
+    a second accumulates p = exp2(s - m) against that final max with no
+    rescale (p selected to 0 where the pair is not live). Arguments and result
+    as `flash_attention_reference` (JAX gates causal and masked calls off
+    K7a; the plain version takes them all the same)."""
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SM90_BLOCK_KV, causal, q_seg, kv_seg, mask)
     m, l, acc = _running_state(q)
     for kr, _, valid in tiles:
         m = torch.maximum(m, (qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF).amax(dim=-1, keepdim=True))
@@ -552,12 +539,14 @@ def flash_forward_twopass_reference(q, k, v, kv_lens=None, rope_cos=None, rope_s
     return _finish(acc, m, l, q.dtype)
 
 
-def flash_forward_skew_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
-    """Plain version of K7b (`_fwd_kernel_skew`): K1's online-softmax step on
-    each 64-key tile in turn, after a first step on a dummy tile of 2*(-1e30)
-    (p = 0, alpha = 1); masked entries are recovered from the stored scores
-    (`s > 0.5 * -1e30`). Arguments and result as `flash_attention_reference`."""
-    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SKEW_BLOCK_KV)
+def flash_forward_skew_reference(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None, causal=False,
+                                 q_seg=None, kv_seg=None, mask=None):
+    """Plain version of K7b (`_fwd_kernel_skew`) and its segment branch: K1's
+    online-softmax step on each 64-key tile in turn, after a first step on a
+    dummy tile of 2*(-1e30) (p = 0, alpha = 1); pairs that are not live are
+    selected to -1e30 and recovered from the stored scores (`s > 0.5 *
+    -1e30`). Arguments and result as `flash_attention_reference`."""
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SKEW_BLOCK_KV, causal, q_seg, kv_seg, mask)
     m, l, acc = _running_state(q)
     dummy = torch.full(qs.shape[:-1] + (1,), 2.0 * _NEG_INF, device=q.device)
     steps = [(dummy, None)] + [((qs @ kr.transpose(-1, -2)).masked_fill(~valid, _NEG_INF), vt)
@@ -584,14 +573,20 @@ def flash_backward_fused_reference(
     rope_sin: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     delta: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    q_seg: Optional[torch.Tensor] = None,
+    kv_seg: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of K5 (`_bwd_fused_kernel`): `flash_backward_reference`'s
-    quantities at its rounding points, computed once per 128-key tile (a K5
-    CTA's kv rows), with each tile's ds k_r added into an fp32 dq accumulator,
-    as K5 adds them. Arguments and result as `flash_backward_reference`."""
+    """Plain version of K5 (`_bwd_fused_kernel`) and its causal, segment and
+    mask branches: `flash_backward_reference`'s quantities at its rounding
+    points, computed once per 128-key tile (a K5 CTA's kv rows), with each
+    tile's ds k_r added into an fp32 dq accumulator, as K5 adds them; p and
+    ds selected to 0 where the pair is not live. Arguments and result as
+    `flash_backward_reference`."""
     dtype = q.dtype
     scale = q.shape[-1]**-0.5 if scale is None else scale
-    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SM90_BLOCK_KV)
+    qs, tiles = _kv_tiles(q, k, v, kv_lens, rope_cos, rope_sin, scale, _SM90_BLOCK_KV, causal, q_seg, kv_seg, mask)
     dof = do.float()
     if delta is None:
         delta = (dof * out.float()).sum(-1)
@@ -863,29 +858,25 @@ def flash_forward(
     fused RoPE needs Sq == Skv and (N or 1, S, H) fp32 tables. `causal` keeps
     key j <= i + (Skv - Sq) (K1's causal branch), segment ids (B, Sq), (B, Skv)
     keep pairs of equal ids (K1's segment branch), a (B, Sq, Skv) boolean
-    `mask` takes K1's mask branch (`flash_forward_masked`, with kv_lens, the
-    flag and the ids folded in); each branch at H 64 or 128. A branch under a
-    switch whose kernel lacks it (JAX runs K7a/b/c's branches there) raises.
-    `out` is a BNSH view of a BTNH-contiguous buffer, so `out.transpose(1, 2)`
-    is contiguous."""
+    `mask` (True = attend) takes K1's mask branch, with kv_lens, the flag and
+    the ids folded in (key tiles whose mask is all False are not read); each
+    branch at H 64 or 128, and under a switch the picked kernel's branch. A row
+    with no live key gives 0 and an LSE of -1e30*ln2. `out` is a BNSH view of
+    a BTNH-contiguous buffer, so `out.transpose(1, 2)` is contiguous."""
     check_branches(causal, q_seg, kv_seg)
-    branch = branch_of(causal, q_seg, mask)
     variant = forward_variant(rope_cos is not None, causal, mask is not None)
     if variant is not None:
-        if branch is not None:
-            raise _unported(f"{variant.__name__}'s {branch} branch")
-        return variant(q, k, v, kv_lens, rope_cos, rope_sin, scale)
+        return variant(q, k, v, kv_lens, rope_cos, rope_sin, scale, causal, q_seg, kv_seg, mask)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_lens, rope_cos, rope_sin, scale, causal, q_seg, kv_seg, mask)
-    if branch == "mask":
-        return flash_forward_masked(q, k, v, fold_into_mask(mask, kv_lens, causal, q_seg, kv_seg), scale,
-                                    rope_cos=rope_cos, rope_sin=rope_sin)
+    branch = branch_of(causal, q_seg, mask)
     kv_lens, rope_sn = _check_kernel_call("flash_forward", q, k, v, kv_lens, rope_cos, rope_sin,
                                           K1_HEAD_DIMS if branch is None else BRANCH_HEAD_DIMS)
-    if branch == "segment":
-        _check_segments("flash_forward", q_seg, kv_seg, q.shape[0], q.shape[2], k.shape[2], q.device)
+    kv_lens, mask = _check_branch_inputs("flash_forward", q, k, kv_lens, causal, q_seg, kv_seg, mask)
     scale = q.shape[-1]**-0.5 if scale is None else float(scale)
     q_s, k_r = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
+    if branch == "mask":
+        return _k1_masked(q_s, k_r, v, mask)
     if branch == "causal":
         return _k1_causal(q_s, k_r, v, kv_lens)
     if branch == "segment":
@@ -904,10 +895,21 @@ def _check_mask(fn: str, mask: torch.Tensor, q: torch.Tensor, seq_kv: int) -> to
     return mask
 
 
-# The last mask each kind of tile list was built for ("k1" at a head dim,
-# "bwd" for K2 and K3) and its lists: a text tower hands every layer the
-# same mask, and a backward the mask its forward saw. An entry holds the
-# mask, so its storage cannot pass to another tensor while cached; a call
+def _check_branch_inputs(fn, q, k, kv_lens, causal, q_seg, kv_seg, mask):
+    """A kernel call's branch inputs, checked: (kv_lens, mask), with kv_lens,
+    the causal flag and the ids folded into a given mask and kv_lens then
+    None, as the mask branches take them."""
+    if mask is not None:
+        return None, fold_into_mask(_check_mask(fn, mask, q, k.shape[2]), kv_lens, causal, q_seg, kv_seg)
+    if q_seg is not None:
+        _check_segments(fn, q_seg, kv_seg, q.shape[0], q.shape[2], k.shape[2], q.device)
+    return kv_lens, None
+
+
+# The last mask each kind of tile list was built for ("fwd" at a q tile of
+# `block_m` rows, "bwd" for K2, K3 and K5) and its lists: a text tower hands
+# every layer the same mask, and a backward the mask its forward saw. An entry
+# holds the mask, so its storage cannot pass to another tensor while cached; a call
 # reuses the lists where its mask is a view of the same storage, layout and
 # version. An inference tensor keeps no version (an in-place write under
 # inference mode bumps nothing), so one is compared with a copy kept for it
@@ -930,15 +932,15 @@ def _cached_tiles(kind, mask: torch.Tensor, build):
     return tiles
 
 
-def _cached_mask_tiles(mask: torch.Tensor, head_dim: int):
-    return _cached_tiles(("k1", head_dim), mask, lambda m: mask_tiles(m, head_dim))
+def _cached_mask_tiles(mask: torch.Tensor, head_dim: int, block_m: int):
+    return _cached_tiles(("fwd", block_m), mask, lambda m: mask_tiles(m, head_dim, block_m))
 
 
 def _k1_masked(q_s, k_r, v, mask):
     """Launch K1's mask branch on checked operands -> (out, lse); counted on
-    `flash_forward_masked.launches`."""
+    `flash_forward_masked_core.launches`."""
     batch, heads, seq_q, head_dim = q_s.shape
-    padded, tiles, counts = _cached_mask_tiles(mask, head_dim)
+    padded, tiles, counts = _cached_mask_tiles(mask, head_dim, k1_block_m(head_dim))
     out = _btnh_like(q_s)
     lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q_s.device)
     fn = _kernel("flash_fwd_branches_sm90", "flash_fwd_mask_sm90", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
@@ -949,93 +951,129 @@ def _k1_masked(q_s, k_r, v, mask):
             tiles.data_ptr(), counts.data_ptr(), batch, heads, seq_q, k_r.shape[2], head_dim,
             _DTYPE_CODES[q_s.dtype], _strides(q_s, k_r, v, out), tiles.shape[1], tiles.shape[2], _stream(q_s.device),
         )
-    flash_forward_masked.launches += 1
+    flash_forward_masked_core.launches += 1
     return out, lse
 
 
 def flash_forward_masked_core(q_s, k_r, v, mask):
-    """K1's mask branch alone, on the pre-pass's operands (see
-    `flash_forward_masked_core_reference`) -> (out, lse). On a CPU tensor the
-    plain version; on a CUDA tensor the kernel, after the checks of
-    `flash_forward_masked`, or it raises."""
+    """K1's mask branch alone, on the pre-pass's operands (as
+    `flash_forward_core` takes them) and a (B, Sq, Skv) boolean mask -> (out,
+    lse). On a CPU tensor the plain version (`flash_forward_core_reference`
+    with `mask`); on a CUDA tensor the kernel, after the checks of
+    `flash_forward`, or it raises. Its launches, from here or from
+    `flash_forward` with a mask, count on `flash_forward_masked_core.launches`."""
     if q_s.device.type == "cpu":
-        return flash_forward_masked_core_reference(q_s, k_r, v, mask)
+        return flash_forward_core_reference(q_s, k_r, v, mask=mask)
     _check_kernel_call("flash_forward_masked_core", q_s, k_r, v, None, None, None, BRANCH_HEAD_DIMS)
     return _k1_masked(q_s, k_r, v, _check_mask("flash_forward_masked_core", mask, q_s, k_r.shape[2]))
 
 
-def flash_forward_masked(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    mask: torch.Tensor,
-    scale: Optional[float] = None,
-    kv_lens: Optional[torch.Tensor] = None,
-    rope_cos: Optional[torch.Tensor] = None,
-    rope_sin: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The pre-pass and K1's mask branch on BNSH tensors -> (out (B, N, Sq, H)
-    in q's dtype, lse (B, N, Sq) fp32). mask: (B, Sq, Skv) boolean, True =
-    attend; kv_lens is folded into it here, and RoPE tables (as
-    `flash_forward` takes them) go to the pre-pass. The kernel takes bf16 or
-    fp16 at head dim 64 or 128 and any sequence lengths; key tiles whose mask
-    is all False are not read. `out` is a BNSH view of a BTNH-contiguous buffer."""
-    scale = q.shape[-1]**-0.5 if scale is None else float(scale)
-    if q.device.type == "cpu":
-        return flash_attention_masked_reference(q, k, v, mask, scale, kv_lens, rope_cos, rope_sin)
-    kv_lens, rope_sn = _check_kernel_call("flash_forward_masked", q, k, v, kv_lens, rope_cos, rope_sin,
-                                          BRANCH_HEAD_DIMS)
-    mask = fold_into_mask(_check_mask("flash_forward_masked", mask, q, k.shape[2]), kv_lens)
-    q_s, k_r = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
-    return _k1_masked(q_s, k_r, v, mask)
+flash_forward_masked_core.launches = 0
+
+# The C codes of the forward variants' steps (`Step` in csrc/flash_fwd_sm90.cu).
+_STEP_CODES = {"flash_forward_twopass": 1, "flash_forward_two_level": 2, "flash_forward_skew": 3}
 
 
-flash_forward_masked.launches = 0
+def _variant_block_m(name: str, head_dim: int) -> int:
+    """The q rows of a K7 CTA: K7a's are K1's; K7c and K7b run two consumer
+    warpgroups at both head dims."""
+    return k1_block_m(head_dim) if name == "flash_forward_twopass" else 128
 
 
-def _forward_kernel(fn_name, entry, q, k, v, kv_lens, rope_cos, rope_sin, scale):
+def _variant_branch(name, branch, q_s, k_r, v, kv_lens, q_seg, kv_seg, mask, q_scale):
+    """Launch the `branch` of the K7 kernel `name` on checked operands (the
+    pre-pass's, or K7b's raw q and k with its q_scale) -> (out, lse): the
+    tiles and the select of K1's branch, at the kernel's own q tile. The
+    caller counts the launch."""
+    batch, heads, seq_q, head_dim = q_s.shape
+    seq_kv = k_r.shape[2]
+    padded = tiles = counts = q_ids = kv_ids = None
+    block_m = _variant_block_m(name, head_dim)
+    if branch == "mask":
+        padded, tiles, counts = _cached_mask_tiles(mask, head_dim, block_m)
+    elif branch == "segment":
+        tiles, counts = _tile_lists(*segment_blocks(q_seg, kv_seg, kv_lens, block_m))
+        q_ids, kv_ids = _padded_ids(q_seg, _SEG_Q_MULTIPLE), _padded_ids(kv_seg, _SM90_BLOCK_KV)
+    out = _btnh_like(q_s)
+    lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q_s.device)
+    fn = _kernel("flash_fwd_variant_branches_sm90", "flash_fwd_variant_branch_sm90",
+                 [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2
+                 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 2
+                 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q_s.device):
+        _launch(
+            fn, _STEP_CODES[name], _BRANCH_CODES[branch], q_s.data_ptr(), k_r.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), _ptr(kv_lens), _ptr(padded), _ptr(q_ids), _ptr(kv_ids),
+            0 if q_ids is None else q_ids.shape[1], 0 if kv_ids is None else kv_ids.shape[1], _ptr(tiles),
+            _ptr(counts), batch, heads, seq_q, seq_kv, head_dim, _DTYPE_CODES[q_s.dtype], _strides(q_s, k_r, v, out),
+            0 if tiles is None else tiles.shape[1], 0 if tiles is None else tiles.shape[2],
+            1.0 if q_scale is None else q_scale, _stream(q_s.device),
+        )
+    return out, lse
+
+
+def _forward_kernel(name, entry, q, k, v, kv_lens, rope_cos, rope_sin, scale, causal, q_seg, kv_seg, mask):
     """Check a forward call and launch `entry` of `csrc/flash_fwd_sm90.cu`
-    (`_sm90_forward`): K7a and K7c after the pre-pass, on its operands; K7b,
-    which takes no tables, on q and k themselves, scaling q in the kernel."""
-    kv_lens, rope_sn = _check_kernel_call(fn_name, q, k, v, kv_lens, rope_cos, rope_sin, WIDE_HEAD_DIMS)
+    (`_sm90_forward`), or the K7 kernel's branch (`_variant_branch`): K7a and
+    K7c after the pre-pass, on its operands; K7b, which takes no tables, on q
+    and k themselves, scaling q in the kernel."""
+    kv_lens, rope_sn = _check_kernel_call(name, q, k, v, kv_lens, rope_cos, rope_sin, WIDE_HEAD_DIMS)
+    branch = branch_of(causal, q_seg, mask)
+    kv_lens, mask = _check_branch_inputs(name, q, k, kv_lens, causal, q_seg, kv_seg, mask)
     scale = q.shape[-1]**-0.5 if scale is None else float(scale)
+    q_scale = None
     if entry == "flash_fwd_skew_sm90":
-        return _sm90_forward(entry, q, k, v, kv_lens, scale * _LOG2E)
-    q_s, k_r = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
-    return _sm90_forward(entry, q_s, k_r, v, kv_lens)
+        q_s, k_r, q_scale = q, k, scale * _LOG2E
+    else:
+        q_s, k_r = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
+    if branch is not None:
+        return _variant_branch(name, branch, q_s, k_r, v, kv_lens, q_seg, kv_seg, mask, q_scale)
+    return _sm90_forward(entry, q_s, k_r, v, kv_lens, q_scale)
 
 
-def _forward_variant(name: str, entry: str, plain: str, takes_rope: bool, doc: str):
+def _forward_variant(name: str, entry: str, plain: str, takes_rope: bool, branches, doc: str):
     """A K7 wrapper: on a CPU tensor the plain version named `plain` (looked up
-    per call), else the kernel at C entry `entry` (`_forward_kernel`), counted
-    in its own `launches`. Without `takes_rope` it refuses RoPE tables."""
+    per call), else the kernel at C entry `entry` or its branch
+    (`_forward_kernel`), counted in its own `launches` and, for a branch, in
+    `branch_launches`. Without `takes_rope` it refuses RoPE tables; it takes
+    the `branches` JAX sends its Pallas kernel (`forward_variant`'s gates)."""
 
-    def wrapper(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None):
+    def wrapper(q, k, v, kv_lens=None, rope_cos=None, rope_sin=None, scale=None, causal=False, q_seg=None,
+                kv_seg=None, mask=None):
         if rope_cos is not None and not takes_rope:
             raise ValueError(f"{name}: this kernel takes no RoPE tables")
+        check_branches(causal, q_seg, kv_seg)
+        branch = branch_of(causal, q_seg, mask)
+        if branch is not None and branch not in branches:
+            raise ValueError(f"{name}: no {branch} branch (JAX gates such calls off this kernel)")
         if q.device.type == "cpu":
-            return globals()[plain](q, k, v, kv_lens, rope_cos, rope_sin, scale)
-        out = _forward_kernel(name, entry, q, k, v, kv_lens, rope_cos, rope_sin, scale)
+            return globals()[plain](q, k, v, kv_lens, rope_cos, rope_sin, scale, causal, q_seg, kv_seg, mask)
+        out = _forward_kernel(name, entry, q, k, v, kv_lens, rope_cos, rope_sin, scale, causal, q_seg, kv_seg, mask)
         wrapper.launches += 1
+        if branch is not None:
+            wrapper.branch_launches[branch] += 1
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = doc
     wrapper.launches = 0
+    wrapper.branch_launches = dict.fromkeys(branches, 0)  # also counted in `launches`
     return wrapper
 
 
 flash_forward_two_level = _forward_variant(
     "flash_forward_two_level", "flash_fwd_two_level_sm90", "flash_forward_two_level_reference", True,
-    "K7c: `flash_forward`'s function through the two-level recurrence, after the pre-pass. Takes what K1 takes.")
+    ("causal", "segment", "mask"),
+    "K7c: `flash_forward`'s function through the two-level recurrence, after the pre-pass. Takes what K1 takes, "
+    "its causal, segment and mask branches included.")
 flash_forward_twopass = _forward_variant(
-    "flash_forward_twopass", "flash_fwd_twopass_sm90", "flash_forward_twopass_reference", True,
+    "flash_forward_twopass", "flash_fwd_twopass_sm90", "flash_forward_twopass_reference", True, ("segment",),
     "K7a: `flash_forward`'s function in two passes (max, then accumulate), after the pre-pass. Takes what K1 "
-    "takes.")
+    "takes but a causal flag or a mask (JAX gates those off the two-pass kernel).")
 flash_forward_skew = _forward_variant(
-    "flash_forward_skew", "flash_fwd_skew_sm90", "flash_forward_skew_reference", False,
-    "K7b: `flash_forward`'s function, software-pipelined. Takes what K1 takes except RoPE tables "
-    "(the JAX package gates the skewed kernel off RoPE; `flash_forward` sends such calls to K1).")
+    "flash_forward_skew", "flash_fwd_skew_sm90", "flash_forward_skew_reference", False, ("segment",),
+    "K7b: `flash_forward`'s function, software-pipelined. Takes what K1 takes except RoPE tables, a causal flag "
+    "or a mask (the JAX package gates the skewed kernel off them; `flash_forward` sends such calls elsewhere).")
 
 
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9
@@ -1205,34 +1243,49 @@ flash_bwd_dq.launches = 0
 flash_bwd_dq.branch_launches = {"causal": 0, "segment": 0, "mask": 0}  # also counted in `launches`
 
 
-def flash_bwd_fused(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn: int):
-    """K5 on operands `flash_backward` has checked, with q_s/k_r from
-    `flash_qk_prep`: (dq_acc, dk, dv), dq_acc the fp32 (B, N, Sq, H) sum of
-    ds k_r before the scale and the transpose rotation (`flash_bwd_dq_emit`),
-    dk and dv BNSH views of BTNH-contiguous buffers. It launches the wgmma
-    kernel of `csrc/flash_bwd_sm90.cu` and, where `dkdv_splits` cuts its q loop
-    as it cuts K2's, K2's reduce pass; dq_acc is zeroed here, and the kernel
-    adds into it in an order that varies from run to run."""
+def flash_bwd_fused(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn: int, causal=False, q_seg=None,
+                    kv_seg=None, mask=None):
+    """K5 (or its causal, segment or mask branch: K2's q tiles and selects,
+    dead pairs adding nothing to dk, dv or dq) on operands `flash_backward`
+    has checked, with q_s/k_r from `flash_qk_prep`: (dq_acc, dk, dv), dq_acc
+    the fp32 (B, N, Sq, H) sum of ds k_r before the scale and the transpose
+    rotation (`flash_bwd_dq_emit`), dk and dv BNSH views of BTNH-contiguous
+    buffers. It launches the wgmma kernel of `csrc/flash_bwd_sm90.cu` and,
+    where `dkdv_splits` cuts its q loop as it cuts K2's, K2's reduce pass;
+    dq_acc is zeroed here (rows no live pair reaches stay 0), and the kernel
+    adds into it in an order that varies from run to run. The mask branch
+    takes kv_lens folded into the mask."""
     batch, heads, seq_q, head_dim = q_s.shape
     seq_kv = k_r.shape[2]
     dk, dv = _btnh_like(k_r), _btnh_like(v)
     dq_acc = torch.zeros((batch, heads, seq_q, head_dim), dtype=torch.float32, device=q_s.device)
     splits, per, partials = _split_q_loop(q_s, k_r)
-    fn = _kernel("flash_bwd_sm90", "flash_bwd_fused_sm90",
+    branch = branch_of(causal, q_seg, mask)
+    entry, extra, keep = "flash_bwd_fused_sm90", [], None
+    if branch is not None:
+        entry = "flash_bwd_fused_branch_sm90"
+        extra, keep = _branch_args(branch, _bwd_lists(branch, "k2", q_seg, kv_seg, kv_lens, mask), q_seg, kv_seg)
+    fn = _kernel("flash_bwd_sm90" if branch is None else "flash_bwd_fused_branches_sm90", entry,
                  _BWD_ARGTYPES + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+                 + (_BRANCH_ARGTYPES if branch is not None else []) + [ctypes.c_void_p])
     with torch.cuda.device(q_s.device):
         _launch(
             fn, q_s.data_ptr(), k_r.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             _ptr(kv_lens), _ptr(rope_cos), _ptr(rope_sin), dk.data_ptr(), dv.data_ptr(), _ptr(partials),
             dq_acc.data_ptr(), batch, heads, seq_q, seq_kv, head_dim, _DTYPE_CODES[q_s.dtype],
-            _strides(q_s, k_r, v, do, dk, dv), rope_sn, splits, per, _stream(q_s.device),
+            _strides(q_s, k_r, v, do, dk, dv), rope_sn, splits, per, *extra, _stream(q_s.device),
         )
-    flash_bwd_fused.launches += 1
+    del keep
+    if branch is None:
+        flash_bwd_fused.launches += 1
+    else:
+        _count_branch(flash_bwd_fused, branch)
     return dq_acc, dk, dv
 
 
 flash_bwd_fused.launches = 0
+flash_bwd_fused.branch_launches = {"causal": 0, "segment": 0, "mask": 0}  # also counted in `launches`
 
 
 def flash_bwd_dq_emit(dq_acc, rope_cos, rope_sin, rope_sn: int, scale: float, dtype: torch.dtype):
@@ -1278,20 +1331,16 @@ def flash_backward(
     Takes what K1 takes (bf16/fp16, H in {32, 64, 128}, any sequence lengths,
     `kv_lens`, fused RoPE from (N or 1, S, H) fp32 tables with Sq == Skv), and
     the causal flag, segment ids or a dense mask as `flash_forward` takes them
-    (K2's and K3's branches, H 64 or 128; with the fused switch they raise, as
-    K5's branches are still to port). delta = rowsum(dO * out) in fp32 is
-    computed here in plain PyTorch unless given. dq, dk, dv are BNSH views of
+    (K2's and K3's branches, or with the fused switch K5's, H 64 or 128; K5
+    itself takes H 64 or 128). delta = rowsum(dO * out) in fp32 is computed
+    here in plain PyTorch unless given. dq, dk, dv are BNSH views of
     BTNH-contiguous buffers."""
     check_branches(causal, q_seg, kv_seg)
     branch = branch_of(causal, q_seg, mask)
     fused = _switch("FINETRAINERS_FLASH_FUSED_BWD")
-    if fused and branch is not None:
-        raise _unported(f"K5's {branch} branch (FINETRAINERS_FLASH_FUSED_BWD=1)")
     if q.device.type == "cpu":
-        if fused:
-            return flash_backward_fused_reference(q, k, v, out, lse, do, kv_lens, rope_cos, rope_sin, scale, delta)
-        return flash_backward_reference(q, k, v, out, lse, do, kv_lens, rope_cos, rope_sin, scale, delta, causal,
-                                        q_seg, kv_seg, mask)
+        plain = flash_backward_fused_reference if fused else flash_backward_reference
+        return plain(q, k, v, out, lse, do, kv_lens, rope_cos, rope_sin, scale, delta, causal, q_seg, kv_seg, mask)
     kv_lens, rope_sn = _check_kernel_call("flash_backward", q, k, v, kv_lens, rope_cos, rope_sin,
                                           WIDE_HEAD_DIMS if fused else K1_HEAD_DIMS if branch is None
                                           else BRANCH_HEAD_DIMS)
@@ -1306,19 +1355,17 @@ def flash_backward(
                               or not x.is_contiguous() or x.device != q.device):
             raise ValueError(f"flash_backward: {name} must be contiguous fp32 ({batch}, {heads}, {seq_q}) "
                              f"on {q.device}")
-    if branch == "mask":
-        mask = fold_into_mask(_check_mask("flash_backward", mask, q, k.shape[2]), kv_lens, causal, q_seg, kv_seg)
-        kv_lens, causal, q_seg, kv_seg = None, False, None, None
-    elif branch == "segment":
-        _check_segments("flash_backward", q_seg, kv_seg, batch, seq_q, k.shape[2], q.device)
+    kv_lens, mask = _check_branch_inputs("flash_backward", q, k, kv_lens, causal, q_seg, kv_seg, mask)
+    if mask is not None:
+        causal, q_seg, kv_seg = False, None, None
     scale = head_dim**-0.5 if scale is None else float(scale)
     if delta is None:
         delta = (do.float() * out.float()).sum(-1)
     q_s, k_r = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
-    if fused:
-        dq_acc, dk, dv = flash_bwd_fused(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn)
-        return flash_bwd_dq_emit(dq_acc, rope_cos, rope_sin, rope_sn, scale, q.dtype), dk, dv
     branches = dict(causal=causal, q_seg=q_seg, kv_seg=kv_seg, mask=mask)
+    if fused:
+        dq_acc, dk, dv = flash_bwd_fused(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn, **branches)
+        return flash_bwd_dq_emit(dq_acc, rope_cos, rope_sin, rope_sn, scale, q.dtype), dk, dv
     dk, dv = flash_bwd_dkdv(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn, **branches)
     dq = flash_bwd_dq(q_s, k_r, v, do, lse, delta, kv_lens, rope_cos, rope_sin, rope_sn, scale, **branches)
     return dq, dk, dv
@@ -1411,9 +1458,10 @@ def flash_attention(
     need Sq == Skv and no GQA. causal: key j <= i + (Skv - Sq). q_segment_ids
     / kv_segment_ids: (B, Sq) / (B, Skv) ints, both or neither, a query
     attends only keys of its own id (-1 marks padding; not with `causal`).
-    attn_mask: optional (B, Sq, Skv) boolean (True = attend), K1's mask branch
-    forward and K2/K3's backward, with kv_lens, the causal flag and the ids
-    folded in. A row with no live key gives 0 and no gradient."""
+    attn_mask: optional (B, Sq, Skv) boolean (True = attend), the mask
+    branches (K1's forward and K2/K3's backward, or the switched kernels'),
+    with kv_lens, the causal flag and the ids folded in. A row with no live
+    key gives 0 and no gradient."""
     check_branches(causal, q_segment_ids, kv_segment_ids)
     heads, kv_heads = query.shape[2], key.shape[2]
     if kv_heads != heads:

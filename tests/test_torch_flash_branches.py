@@ -1,7 +1,8 @@
 """The causal, segment-id and dense-mask branches of K1, K2 and K3: their plain
 versions against the Pallas kernels' branches (`_flash_forward` and
 `_flash_backward` in interpret mode, Pallas tiles of 64), and the routing of
-branch calls under the kernel switches against JAX's gates.
+branch calls under the kernel switches against JAX's gates (K5's and K7's
+branches against JAX's: `test_torch_flash_variant_branches.py`).
 
 Two shapes, so the JAX side compiles twice per branch: cross (B, N, Sq, Skv,
 H) = (2, 2, 160, 224, 64) for causal with Sq < Skv and the dense mask with
@@ -187,14 +188,19 @@ def _jax_kernel(monkeypatch, fn, *args):
     raise AssertionError("no pallas_call")
 
 
+# The kernel JAX picks -> the port's plain version a CPU call takes for it.
+_FWD_PLAIN = {None: "flash_attention_reference", "flash_forward_two_level": "flash_forward_two_level_reference",
+              "flash_forward_twopass": "flash_forward_twopass_reference",
+              "flash_forward_skew": "flash_forward_skew_reference"}
+
+
 @pytest.mark.parametrize("branch", ["causal", "segment", "mask"])
 @pytest.mark.parametrize("switch", _SWITCHES)
 @pytest.mark.parametrize("rope", [False, True], ids=["no_rope", "rope"])
 def test_branch_routing_follows_jax_gates(monkeypatch, switch, branch, rope):
-    """Under each switch, a branch call goes where JAX's gates send it: to K1's
-    branch where JAX runs `_fwd_kernel` or the split backward (the port
-    launches K1-K3's branch), and where JAX runs an unported K5/K7 branch the
-    port raises naming ROADMAP.md queue 2 item 5."""
+    """Under each switch, a branch call goes where JAX's gates send it: to the
+    branch of the kernel JAX runs (K1's or K7a/b/c's forward, K2/K3's or K5's
+    backward), whose plain version the port's CPU call takes."""
     monkeypatch.setenv(switch, "1")
     s = 128
     q = jnp.zeros((1, 1, s, H), jnp.float32)
@@ -208,31 +214,40 @@ def test_branch_routing_follows_jax_gates(monkeypatch, switch, branch, rope):
     variant = forward_variant(rope, causal, branch == "mask")
     assert (None if variant is None else variant.__name__) == jax_pick
     assert branch_of(causal, seg, mask) == branch
+    calls = []
+    for plain in (*_FWD_PLAIN.values(), "flash_backward_reference", "flash_backward_fused_reference"):
+        fn = getattr(port_fa, plain)
+        monkeypatch.setattr(port_fa, plain, functools.partial(lambda fn, plain, *a, **kw: calls.append(plain)
+                                                              or fn(*a, **kw), fn, plain))
     tq = torch.zeros(1, 1, s, H)
     tseg = torch.ones(1, s, dtype=torch.int32) if branch == "segment" else None
     tmask = torch.ones(1, s, s, dtype=torch.bool) if branch == "mask" else None
     tcos = torch.ones(1, s, H) if rope else None
-    if jax_pick is not None:
-        with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-            flash_forward(tq, tq, tq, None, tcos, tcos, None, causal, tseg, tseg, tmask)
-    else:
-        flash_forward(tq, tq, tq, None, tcos, tcos, None, causal, tseg, tseg, tmask)
+    flash_forward(tq, tq, tq, None, tcos, tcos, None, causal, tseg, tseg, tmask)
+    assert calls == [_FWD_PLAIN[jax_pick]]
     kernel = _jax_kernel(monkeypatch, jax_fa._flash_backward, q, q, q, None, seg, seg, mask, q, q[..., 0], q, 0.125,
                          causal, 64, 64, cos, sin)
     fused = kernel.func.__name__ == "_bwd_fused_kernel"
     assert fused == (switch == "FINETRAINERS_FLASH_FUSED_BWD")
-    if fused:
-        with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-            flash_backward(tq, tq, tq, tq, tq[..., 0], tq, None, tcos, tcos, None, None, causal, tseg, tseg, tmask)
-    else:
-        flash_backward(tq, tq, tq, tq, tq[..., 0], tq, None, tcos, tcos, None, None, causal, tseg, tseg, tmask)
+    flash_backward(tq, tq, tq, tq, tq[..., 0], tq, None, tcos, tcos, None, None, causal, tseg, tseg, tmask)
+    assert calls[1:] == ["flash_backward_fused_reference" if fused else "flash_backward_reference"]
 
 
-def test_k1_k2_k3_branches_refuse_head_dim_32_on_the_card():
-    """The branches have no H=32 instance: meta tensors stand in for the card."""
+def test_k1_k2_k3_branches_refuse_head_dim_32_on_the_card(monkeypatch):
+    """The branches have no H=32 instance, nor have K5's and K7's: meta tensors
+    stand in for the card, with no switch and under each."""
     q = torch.empty(1, 2, 64, 32, dtype=torch.bfloat16, device="meta")
-    for kwargs in (dict(causal=True), dict(q_seg=torch.empty(1, 64, dtype=torch.int32, device="meta"),
-                                            kv_seg=torch.empty(1, 64, dtype=torch.int32, device="meta"))):
-        with pytest.raises(ValueError, match="queue 2 item 5"):
-            flash_forward(q, q, q, **kwargs)
+    lse = torch.empty(1, 2, 64, dtype=torch.float32, device="meta")
+    ids = torch.empty(1, 64, dtype=torch.int32, device="meta")
+    mask = torch.empty(1, 64, 64, dtype=torch.bool, device="meta")
+    for switch in (None, *_SWITCHES):
+        if switch is not None:
+            monkeypatch.setenv(switch, "1")
+        for kwargs in (dict(causal=True), dict(q_seg=ids, kv_seg=ids), dict(mask=mask)):
+            with pytest.raises(ValueError, match="queue 2 item 5"):
+                flash_forward(q, q, q, **kwargs)
+            with pytest.raises(ValueError, match="queue 2 item 5"):
+                flash_backward(q, q, q, q, lse, q, **kwargs)
+        if switch is not None:
+            monkeypatch.delenv(switch)
     assert port_fa.BRANCH_HEAD_DIMS == (64, 128)

@@ -27,8 +27,8 @@ from finetrainers_tpu_torch.ops import attention as attention_ops
 from finetrainers_tpu_torch.ops.flash_attention import (
     _MASK_FULL_TILE,
     flash_attention,
-    flash_attention_masked_reference,
-    flash_forward_masked,
+    flash_attention_reference,
+    flash_forward,
     k1_block_m,
     mask_tiles,
 )
@@ -73,12 +73,12 @@ def test_masked_plain_version_matches_the_pallas_branch(kind):
     q, k, v = (torch.from_numpy(x) for x in _inputs())
     mask = _mask(kind)
     ref_out, ref_lse = _jax(kind)
-    out, lse = flash_attention_masked_reference(q, k, v, torch.from_numpy(mask))
+    out, lse = flash_attention_reference(q, k, v, mask=torch.from_numpy(mask))
     live = mask.any(-1)  # (B, Sq)
     rows = np.broadcast_to(live[:, None, :], lse.shape)
     np.testing.assert_allclose(out.numpy()[rows], ref_out[rows], atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(lse.numpy()[rows], ref_lse[rows], atol=ATOL, rtol=RTOL)
-    wrapped, wrapped_lse = flash_forward_masked(q, k, v, torch.from_numpy(mask))  # the CPU takes the plain version
+    wrapped, wrapped_lse = flash_forward(q, k, v, mask=torch.from_numpy(mask))  # the CPU takes the plain version
     assert torch.equal(wrapped, out) and torch.equal(wrapped_lse, lse)
     if kind == "block_sparse":  # the empty row: 0 and -1e30*ln2 here; block-size dependent in the Pallas fold
         assert not live.all() and not out.numpy()[~rows].any() and (lse.numpy()[~rows] == EMPTY_LSE).all()

@@ -1166,8 +1166,7 @@ def test_k1_mask_branch_matches_its_plain_version(head_dim, kv_heads, kind):
     pre-pass, the branch) against its plain version on the same bf16 inputs:
     one launch, rows with a live key within K1's tolerance, an empty row 0 with
     an LSE of -1e30*ln2, and k and v rows of a skipped key tile never read."""
-    from finetrainers_tpu_torch.ops.flash_attention import (flash_attention_masked_reference, flash_forward_masked,
-                                                             flash_forward_masked_core, flash_qk_prep)
+    from finetrainers_tpu_torch.ops.flash_attention import flash_forward_masked_core, flash_qk_prep
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -1182,11 +1181,11 @@ def test_k1_mask_branch_matches_its_plain_version(head_dim, kv_heads, kind):
         mask = torch.rand(b, sq, skv, generator=g, device="cuda") > 0.5
         mask[:, :, 128:256] = False
         mask[0, 9] = False
-    launches = flash_forward_masked.launches
+    launches = flash_forward_masked_core.launches
     out = attention_dispatch(q, k, v, attn_mask=mask[:, None], scale=head_dim**-0.5)
-    assert flash_forward_masked.launches == launches + 1
+    assert flash_forward_masked_core.launches == launches + 1
     kb, vb = (x.repeat_interleave(n // kv_heads, dim=2).transpose(1, 2) for x in (k, v))
-    ref, ref_lse = flash_attention_masked_reference(q.transpose(1, 2), kb, vb, mask)
+    ref, ref_lse = flash_attention_reference(q.transpose(1, 2), kb, vb, mask=mask)
     live = mask.any(-1)[:, None, :, None].expand(b, n, sq, head_dim)
     err = (out.transpose(1, 2).float() - ref.float()).abs()
     assert (err / ref.float().abs().clamp_min(1.0))[live].max() <= 2e-2
@@ -1278,6 +1277,65 @@ def test_k1_k2_k3_branches_match_their_plain_versions(dtype, head_dim, case):
     assert flash_bwd_dq.branch_launches[branch] == before[2][branch] + 1
 
 
+# (switch, the wrapper whose branch it launches, its plain version, the branches JAX sends it): K7a and K7b take
+# segment ids only (JAX keeps causal and masked calls on K1's branches), K7b no RoPE tables; K5 every branch.
+VARIANT_BRANCHES = [
+    ("FINETRAINERS_FLASH_TWOLEVEL", flash_forward_two_level, flash_forward_two_level_reference,
+     ("causal", "segment", "mask")),
+    ("FINETRAINERS_FLASH_TWOPASS", flash_forward_twopass, flash_forward_twopass_reference, ("segment",)),
+    ("FINETRAINERS_FLASH_SKEW", flash_forward_skew, flash_forward_skew_reference, ("segment",)),
+    ("FINETRAINERS_FLASH_FUSED_BWD", flash_bwd_fused, flash_backward_fused_reference, ("causal", "segment", "mask")),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BRANCH_CASES, ids=[c[0] for c in BRANCH_CASES])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("switch", [v[0] for v in VARIANT_BRANCHES])
+def test_k5_k7_branches_match_their_plain_versions(switch, head_dim, case, monkeypatch):
+    """K7c's branches and K7a's and K7b's segment branches (through
+    `flash_forward` under the switch) against their plain versions, and K5's
+    branches (through `flash_backward` under FINETRAINERS_FLASH_FUSED_BWD) against
+    K5's, with the bounds of the K1-K3 test above; each call launches its
+    branch once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    _, wrapper, reference, branches = next(v for v in VARIANT_BRANCHES if v[0] == switch)
+    name, b, n, sq, skv, branch, lens, rope = case
+    if branch not in branches:
+        pytest.skip(f"JAX sends no {branch} call to the kernel {switch} picks")
+    monkeypatch.setenv(switch, "1")
+    g = torch.Generator(device="cuda").manual_seed(len(name) + head_dim)
+    q, k, v = (torch.randn(b, s, n, head_dim, device="cuda", generator=g).to(torch.bfloat16).transpose(1, 2)
+               for s in (sq, skv, skv))
+    do = torch.randn(b, sq, n, head_dim, device="cuda", generator=g).to(torch.bfloat16).transpose(1, 2)
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cos, sin = (None, None) if wrapper is flash_forward_skew else _tables(rope, n, sq, head_dim, g)
+    causal, q_seg, kv_seg, mask = _branch_inputs(branch, b, sq, skv, g)
+    branch_kw = dict(causal=causal, q_seg=q_seg, kv_seg=kv_seg, mask=mask)
+    before = wrapper.branch_launches[branch]
+    out, lse = flash_forward(q, k, v, kv_lens, cos, sin, None, **branch_kw)
+    live = flash_attention_reference(q[..., :1], k[..., :1], v[..., :1].float(), kv_lens, None, None, None,
+                                     **branch_kw)[1] > -1e29  # (B, N, Sq): rows with a live key
+    if wrapper is flash_bwd_fused:
+        grads = flash_backward(q, k, v, out, lse, do, kv_lens, cos, sin, None, None, **branch_kw)
+        torch.cuda.synchronize()
+        refs = reference(q, k, v, out, lse, do, kv_lens, cos, sin, None, None, **branch_kw)
+        for gname, got, want in zip(("dq", "dk", "dv"), grads, refs):
+            assert torch.isfinite(got).all(), (gname, case)
+            rel_l2, max_ratio = _rel_errors(got, want)
+            assert rel_l2 <= 1e-2 and max_ratio <= 2e-2, (gname, case, rel_l2, max_ratio)
+        assert not grads[0][~live].any(), case
+    else:
+        torch.cuda.synchronize()
+        ref, ref_lse = reference(q, k, v, kv_lens, cos, sin, None, **branch_kw)
+        err = (out.float() - ref.float()).abs()[live]
+        assert (err / ref.float().abs()[live].clamp_min(1.0)).max() <= 2e-2, (case, err.max())
+        assert (lse - ref_lse).abs()[live].max() <= 1e-2, case
+        assert not out[~live].any(), case
+    assert wrapper.branch_launches[branch] == before + 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("head_dim", [64, 128])
 def test_mask_branches_never_read_dead_key_tiles(head_dim):
@@ -1346,14 +1404,16 @@ def _chip_smoke():
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("branch", ["causal", "segment", "mask"])
 def test_k2_k3_branches_select_exactly_the_live_pairs(branch, head_dim):
-    """K2's and K3's branch selects pair by pair (`chip_smoke.branch_pair_errors`
-    over its PAIR_CASES of this branch): ds at every (q row, key) pair, and each
-    key's count of live q rows through p, equal to `live_pairs`. The gradient
-    bounds of the tests above would let a few dropped pairs through."""
+    """K2's and K3's branch selects pair by pair, and K5's under the fused
+    switch (`chip_smoke.branch_pair_errors` over its PAIR_CASES of this
+    branch): ds at every (q row, key) pair, and each key's count of live q rows
+    through p, equal to `live_pairs`. The gradient bounds of the tests above
+    would let a few dropped pairs through."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     smoke = _chip_smoke()
     for name, b, n, sq, skv, case_branch, lens in smoke.PAIR_CASES:
         if case_branch == branch:
-            wrong = smoke.branch_pair_errors(b, n, sq, skv, head_dim, branch, lens)
-            assert not any(wrong.values()), (name, wrong)
+            for fused in (False, True):
+                wrong = smoke.branch_pair_errors(b, n, sq, skv, head_dim, branch, lens, fused)
+                assert not any(wrong.values()), (name, fused, wrong)

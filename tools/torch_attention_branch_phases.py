@@ -7,10 +7,13 @@ Builds the kernels (`_build.load_libraries`, with each kernel's ptxas
 registers and spills), then runs the named phases (all by default) in that
 order: `branches` (`check_attention_branches`: the causal, segment and mask
 branches of K1, K2 and K3 through `attention_dispatch` at Wan's, Llama-3's and
-CogView4's widths), `dummy` (`dummy_run`, whose LoRA run is repeated under
+CogView4's widths, and at each case the branches of K7a/b/c and K5 under the
+switches that reach them, `check_variant_branches`; then every (switch, branch)
+pair at a small shape and the pair-by-pair check of K2's, K3's and K5's
+selects), `dummy` (`dummy_run`, whose LoRA run is repeated under
 `--attn_provider_training transformer:flash_varlen`) and `checkpoint`
 (`cogview4_checkpoint_serve`, whose runner request is repeated under
-`--attn_provider flex`). Prints the card's name and power limit, then one JSON
+`--attn_provider flex`, by default and under FINETRAINERS_FLASH_TWOLEVEL=1). Prints the card's name and power limit, then one JSON
 line per phase (cut at 2000 characters), each also written whole to
 OUT.jsonl. Needs a CUDA card.
 """
