@@ -273,21 +273,27 @@ Phases, each printed on its own line:
      pre-pass 6 a step and no other kernel, request, step and decode
      seconds, the peak and a profiled step;
   17. head dim 32 and the dummy family (its own width: dim 64 in 2 heads of
-     32, 2 blocks, 16 caption slots): `h32_kernel_checks`, K1, the pre-pass,
-     K2 (split, with its reduce pass, and unsplit) and K3 at head dim 32
-     against their plain versions at the dummy's self-attention (1, 2, 4352,
-     4352, 32) and cross-attention (16 keys, kv_lens), a ragged case with an
-     empty row, per-head and shared tables and a long ragged case (1, 24,
-     16400, 16400, 32; kv_lens 16390), with bounds that count the
-     exponentials, and SDPA; `dummy_run`, `python -m finetrainers_tpu_torch.train
+     32, 2 blocks, 16 caption slots): `h32_kernel_checks`, every kernel at
+     head dim 32 (K1, the pre-pass, K2 split, with its reduce pass, and
+     unsplit, K3, K5 and its dq emit, K7a/b/c, the sage pre-pass's codes
+     against the CPU's and K6) against its plain version at the dummy's
+     self-attention (1, 2, 4352, 4352, 32) and cross-attention (16 keys,
+     kv_lens), a ragged case with an empty row, per-head and shared tables
+     and a long ragged case (1, 24, 16400, 16400, 32; kv_lens 16390), with
+     bounds that count the exponentials, and SDPA; `dummy_run`, `python -m finetrainers_tpu_torch.train
      --model_name dummy` from 4 videos written with cv2 at 17x256x256 (4352
      tokens): a LoRA run (4 steps, K1 2, the pre-pass 4, K2 2 with 2 reduce
      passes and K3 2 a block and step, the final validation), the same LoRA
      run under `--attn_provider_training transformer:flash_varlen` (losses
-     bit-equal to the default run's) and a full-finetune run under
-     `adamw-bnb-8bit` (int8 moments for the feed-forward kernels); `dummy_serve`, one request through
-     `inference.main --model_name dummy` with the LoRA adapter (K1 and the
-     pre-pass 2 a block and step);
+     bit-equal to the default run's) and under each kernel switch (K5 and
+     its emit, K7a, K7b or K7c in every step and validation as JAX's gates
+     send the dummy's calls, exact; losses within 1e-3 of the default run's,
+     K5's first bit-equal; no library attention kernel in a traced step), and
+     a full-finetune run under `adamw-bnb-8bit` (int8 moments for the
+     feed-forward kernels); `dummy_serve`, one request through `inference.main
+     --model_name dummy` with the LoRA adapter (K1 and the pre-pass 2 a block
+     and step), then the same under `--attn_provider sage` (the sage pre-pass
+     and K6 2 a block and step, its video within 0.1 of the first's);
   18. CogView4-6B's raider_white_tarot SFT example: `cogview4_sft_run`, its
      train.sh's flags through `python -m finetrainers_tpu_torch.train` (LoRA
      rank 32, `ops`, `transformer:auto`, the frozen weights stored int8 and
@@ -320,16 +326,18 @@ Phases, each printed on its own line:
      causal mask; `flex` at CogView4-6B's (1, 32, 5120, 5120, 128) with the
      padded GLM slots' keys masked, whose dead key tiles filled with +-3e4
      leave every output bit-equal, and a block-sparse mask with an empty
-     row): each against its plain version, launch counts exact with no
+     row), and the same three branches at head dim 32 at the dummy family's
+     width (2 heads, 4352 tokens: two clips packed, causal, block-sparse):
+     each against its plain version, launch counts exact with no
      library attention kernel, kernel and device times, bounds over the live
      pairs, SDPA given the same mask; at each case `variant_branches`, the
      branches of K7c, K7a and K7b (segments; K7b without tables) and K5 under
      the switches that reach them, through the dispatcher with exact launches
      and no library kernel, each against its plain version, K1's branch or
      K2+K3's, and the dead-tile fill; `attention_branches_switches`, every
-     (switch, branch) pair at a small shape against the plain versions with
-     exact launches; `attention_branch_pairs`, K2's, K3's and K5's selects
-     pair by pair;
+     (switch, branch) pair at a small shape at head dims 128 and 32 against
+     the plain versions with exact launches; `attention_branch_pairs`, K2's,
+     K3's and K5's selects pair by pair at head dims 32, 64 and 128;
   20. `text_towers`: GLM-4-9B, Llama-3-8B and CLIP-L's text tower at their
      published configs, random on the card, one mask-branch launch a layer,
      each encode against the same tower under plain fp32 attention;
@@ -884,8 +892,10 @@ def profile_device(fn):
     launches = {cls: [ms for _, ms in sorted(v)] for cls, v in launches.items()}
     busy = sum(classes.values()) + sum(sum(v) for v in launches.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    library = sorted(name for name in kernels if any(t in name.lower() for t in LIBRARY_ATTENTION))
     return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1.0 - busy / wall_ms if busy else None,
-                classes=classes, launches=launches, top_kernels_ms=top, device_events=len(kernels))
+                classes=classes, launches=launches, top_kernels_ms=top, device_events=len(kernels),
+                library_attention=library)
 
 
 def _split(ms_list, by_order):
@@ -1304,14 +1314,17 @@ def prepass_bound(q, k, cos):
     return bound(0, elems * 2 + elems + tokens * 4 + table_bytes)
 
 
-def check_k6(card):
+def check_k6(card, cases=None, phase_name="k6_check"):
     """The pre-pass kernel and K6 against their plain versions: the codes
     `sage_prep` writes on the card against `sage_quantize` on the CPU copy, and
-    K6 against `sage_attention_reference` on the same codes and scales. Returns
-    the worst K6 error, the worst code difference and the Wan self-attention
-    case's records."""
+    K6 against `sage_attention_reference` on the same codes and scales, by
+    default at Wan's and LTX's serving shapes (a case's `rope`: True for Wan's
+    tables at its grid, a (cos, sin) pair of (1, S, H) tables, or False). At
+    H=32 the bounds also count one exponential per score (`exp_bound`).
+    Returns the worst K6 error, the worst code difference and the records by
+    case."""
     g = torch.Generator(device="cuda").manual_seed(6)
-    cases = {
+    cases = cases or {
         "wan_self_rope": dict(b=2, n=12, sq=WAN_TOKENS, skv=WAN_TOKENS, h=128, lens=None, rope=True),
         "wan_cross_kv_lens": dict(b=2, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[1, 9], rope=False),
         "ltx_self": dict(b=2, n=32, sq=2688, skv=2688, h=64, lens=None, rope=False),
@@ -1331,7 +1344,10 @@ def check_k6(card):
         # BTNH, as the model hands them over; k with a per-channel offset, which smooth-K removes.
         q, k, v = (torch.randn(b, s, n, h, generator=g, device="cuda").to(torch.bfloat16) for s in (sq, skv, skv))
         k = k + torch.randn(1, 1, n, h, generator=g, device="cuda").to(torch.bfloat16)
-        cos, sin = (t[None].contiguous() for t in wan_tables(c.get("grid", WAN_GRID))) if c["rope"] else (None, None)
+        if isinstance(c["rope"], tuple):
+            cos, sin = c["rope"]
+        else:
+            cos, sin = (t[None].contiguous() for t in wan_tables(c.get("grid", WAN_GRID))) if c["rope"] else (None, None)
         lens = torch.tensor(c["lens"] or [skv] * b, dtype=torch.int32, device="cuda")
         vt = v.transpose(1, 2)
         codes = sage_prep(q, k, lens, cos, sin)
@@ -1356,8 +1372,10 @@ def check_k6(card):
                                                                  else mask))
         kv_eff = int(lens.sum())
         bound_ms, bound_by = k6_bound(n, sq, kv_eff, h, b * sq)
+        if h == 32:
+            bound_ms, bound_by = exp_bound((bound_ms, bound_by), n * sq * kv_eff)
         prep_bound_ms, _ = prepass_bound(q, k, cos)
-        phase("k6_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
+        phase(phase_name, case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=cos is not None,
               max_abs_err=max_abs, err_over_max1_ref=norm_err, rel_l2=rel_l2, empty_rows_zero=empty_zero,
               prep_max_code_diff=code_diff, prep_k_codes_differing=code_share, prep_k_scale_rel_err=scale_err,
               prep_heads_checked=c.get("prep_heads", "all"),
@@ -1467,13 +1485,14 @@ def _bwd_case_inputs(c, g):
     return q, k, v, do, lens, cos, sin
 
 
-def check_k5(card):
+def check_k5(card, cases=None, phase_name="k5_check"):
     """K5 and its dq emit (after the pre-pass) against K5's plain version and
-    against K2+K3 at the training paths' shapes, including Wan's; returns the
-    worst errors and the records of the Wan case (K5, emit, and K1 at Wan's
-    training shape) and of LTX's self-attention."""
+    against K2+K3, by default at the training paths' shapes, including Wan's
+    (at H=32 the bounds also count one exponential per score); returns the
+    worst errors and the records by case (K5, emit, and K1 at the case's
+    shape)."""
     g = torch.Generator(device="cuda").manual_seed(9)
-    cases = {
+    cases = cases or {
         "ltx_self_rope": dict(b=1, n=32, sq=2688, skv=2688, h=64, lens=None, rope="ltx"),
         "ltx_cross_kv_lens": dict(b=1, n=32, sq=2688, skv=128, h=64, lens=[37], rope=None),
         "ragged_empty_row": dict(b=2, n=32, sq=1000, skv=77, h=64, lens=[77, 0], rope=None),
@@ -1527,10 +1546,12 @@ def check_k5(card):
         kv_eff = sum(c["lens"]) if c["lens"] else b * skv
         q_bytes, table_bytes = b * n * sq * h * 2, 2 * cos.numel() * 4 if cos is not None else 0
         k5_b = k5_bound(b, n, sq, skv, kv_eff, h, cos)
+        if h == 32:
+            k5_b = exp_bound(k5_b, n * sq * kv_eff)
         emit_bound = bound(0, 2 * q_bytes + q_bytes + table_bytes)
         k2_bound, k3_bound = bwd_bounds(b, n, sq, skv, kv_eff, h, cos)
         k1_b = k1_bound(b, n, sq, kv_eff, h)
-        phase("k5_check", case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
+        phase(phase_name, case=name, shape=[b, n, sq, skv, h], kv_lens=c["lens"], rope=c["rope"],
               rel_l2={k_: e[0] for k_, e in errors.items()}, max_err_over_max_ref={k_: e[1] for k_, e in errors.items()},
               max_abs_err={k_: e[2] for k_, e in errors.items()},
               vs_k2k3_rel_l2={k_: e[0] for k_, e in vs_split.items()},
@@ -1556,7 +1577,7 @@ def check_k5(card):
             k5=(k5_ms, plain_ms, sdpa_bwd_ms, *k5_b), k5_emit=(emit_ms, emit_plain_ms, None, *emit_bound),
             k1=(k1_ms, None, sdpa_fwd_ms, *k1_b), fused_backward_ms=fused_backward_ms)
         del q, k, v, do, out, lse, fused, split, q_s, k_r, dq_acc, emitted, refs
-    return worst, records["wan_self_shared_rope"], records["ltx_self_rope"]
+    return worst, records
 
 
 # name: (kernel, plain version). Each computes K1's function, so each bound counts K1's two products
@@ -1568,18 +1589,18 @@ K7_KERNELS = {
 }
 
 
-def check_k7(card):
+def check_k7(card, cases=None, phase_name="k7_check"):
     """K7a, K7b and K7c against their plain versions and against K1, in bf16,
-    at LTX's serving self-attention, Wan's self- and cross-attention at the
-    training path's batch (1) and the serving batch (2), and a ragged case with
-    an empty row (K7b takes no RoPE tables: its self-attention cases run
-    without them, as does the K1 it is held against). Where kv_lens leaves k/v
-    rows out, filling them with large values must leave out and LSE bit-equal
-    to the call with them zeroed (TMA reads those rows). Returns the worst
-    errors and the records of each kernel at the shape the Wan training path
-    gives it (self-attention; cross-attention for K7b)."""
+    by default at LTX's serving self-attention, Wan's self- and
+    cross-attention at the training path's batch (1) and the serving batch
+    (2), and a ragged case with an empty row (K7b takes no RoPE tables: its
+    self-attention cases run without them, as does the K1 it is held against).
+    Where kv_lens leaves k/v rows out, filling them with large values must
+    leave out and LSE bit-equal to the call with them zeroed (TMA reads those
+    rows). At H=32 the bounds also count one exponential per score. Returns
+    the worst errors and each kernel's records by case."""
     g = torch.Generator(device="cuda").manual_seed(10)
-    cases = {
+    cases = cases or {
         "ltx_self_rope": dict(b=2, n=32, sq=2688, skv=2688, h=64, lens=None, rope="ltx"),
         "wan_train_self_shared_rope": dict(b=1, n=12, sq=WAN_TOKENS, skv=WAN_TOKENS, h=128, lens=None, rope="wan"),
         "wan_train_cross_kv_lens": dict(b=1, n=12, sq=WAN_TOKENS, skv=512, h=128, lens=[512], rope=None),
@@ -1627,7 +1648,9 @@ def check_k7(card):
             table_bytes = 2 * cos.numel() * 4 if cos is not None else 0
             bound_ms, bound_by = bound(flops, 2 * b * n * sq * h * 2 + 2 * n * kv_eff * h * 2 + b * n * sq * 4
                                        + table_bytes)
-            phase("k7_check", kernel=name, case=case, shape=[b, n, sq, skv, h], kv_lens=c["lens"],
+            if h == 32:
+                bound_ms, bound_by = exp_bound((bound_ms, bound_by), n * sq * kv_eff)
+            phase(phase_name, kernel=name, case=case, shape=[b, n, sq, skv, h], kv_lens=c["lens"],
                   rope=None if cos is None else c["rope"], vs_plain=errs["plain"], vs_k1=errs["k1"],
                   empty_rows_zero=empty_zero, rows_past_kv_lens_ignored=past_lens_ok, ms=ms, k1_ms=k1_ms,
                   plain_ms=plain_ms, sdpa_forward_ms=sdpa_ms,
@@ -1643,8 +1666,7 @@ def check_k7(card):
                                        bound_by=bound_by)
             del out, lse, ref, ref_lse
         del q, k, v, k1_runs
-    main = {"k7a": "wan_train_self_shared_rope", "k7b": "wan_train_cross_kv_lens", "k7c": "wan_train_self_shared_rope"}
-    return worst, {name: dict(records[name][main[name]], by_case=records[name]) for name in K7_KERNELS}
+    return worst, records
 
 
 def serve(card):
@@ -4075,15 +4097,19 @@ def cogvideox_tables():
 
 
 def check_h32_kernels(card):
-    """K1, the pre-pass, K2 (its q loop split, with the reduce pass, and
-    unsplit) and K3 at head dim 32 against their plain versions: the dummy
-    family's self-attention (1, 2, 4352, 4352, 32: 17x16x16 tokens; K2 split in
-    7, so its reduce pass runs) and cross-attention over its 16 caption slots
-    with kv_lens (K2 split in 8), a ragged case with an empty row, a case with
-    per-head RoPE tables, and a long ragged case (1, 24, 16400, 16400, 32:
-    16-row last tiles, kv_lens 16390, K2 unsplit) held one head at a time. The
-    bounds count one exponential per score at the SFU's rate beside the bytes
-    and the tensor products. Returns the worst errors and the records by case."""
+    """Every kernel at head dim 32 against its plain version: K1, the
+    pre-pass, K2 (its q loop split, with the reduce pass, and unsplit), K3, K5
+    with its dq emit (its q loop split likewise), K7a, K7b, K7c, the sage
+    pre-pass (its codes against the CPU's) and K6. Cases: the dummy family's
+    self-attention (1, 2, 4352, 4352, 32: 17x16x16 tokens; K2 split in 7, so
+    its reduce pass runs) and cross-attention over its 16 caption slots with
+    kv_lens (K2 split in 8), a ragged case with an empty row, a case with RoPE
+    tables (per head, or one shared), and a long ragged case (1, 24, 16400,
+    16400, 32: 16-row last tiles, kv_lens 16390, K2 unsplit; K1's and K2/K3's
+    plain versions held one head at a time, K5's and K7's tiled over keys).
+    The bounds count one exponential per score at the SFU's rate beside the
+    bytes and the tensor products. Returns the worst errors and the records by
+    case, by kernel."""
     g = torch.Generator(device="cuda").manual_seed(32)
     ang = torch.rand(4, 1000, 16, generator=g, device="cuda") * 6.3
     tables = tuple(f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
@@ -4103,7 +4129,27 @@ def check_h32_kernels(card):
         "shared_rope": dict(b=1, n=4, sq=1000, skv=1000, h=32, lens=None, rope="shared"),
         "long_ragged_kv_lens": dict(b=1, n=24, sq=H32_LONG, skv=H32_LONG, h=32, lens=[H32_LONG_VALID], rope=None),
     }, phase_name="h32_kernel_checks")
-    return k1_err, k1, bwd_err, bwd
+    # K5 and K7a/b/c (the fused-backward and forward switches' kernels on the dummy's paths).
+    variant_cases = {
+        "dummy_self": dict(b=1, n=DUMMY_HEADS, sq=DUMMY_TOKENS, skv=DUMMY_TOKENS, h=32, lens=None, rope=None),
+        "dummy_cross_kv_lens": dict(b=1, n=DUMMY_HEADS, sq=DUMMY_TOKENS, skv=DUMMY_CAPTION, h=32,
+                                    lens=[DUMMY_CAPTION], rope=None),
+        "ragged_empty_row": dict(b=2, n=2, sq=1000, skv=77, h=32, lens=[77, 0], rope=None),
+        "shared_rope": dict(b=1, n=4, sq=1000, skv=1000, h=32, lens=None, rope="shared"),
+        "long_ragged_kv_lens": dict(b=1, n=24, sq=H32_LONG, skv=H32_LONG, h=32, lens=[H32_LONG_VALID], rope=None),
+    }
+    k5_err, k5 = check_k5(card, variant_cases, phase_name="h32_kernel_checks")
+    k7_err, k7 = check_k7(card, variant_cases, phase_name="h32_kernel_checks")
+    # The sage pre-pass and K6 (the dummy's serving path under `--attn_provider sage`).
+    k6_err, prep_err, k6 = check_k6(card, {
+        "dummy_self": dict(b=1, n=DUMMY_HEADS, sq=DUMMY_TOKENS, skv=DUMMY_TOKENS, h=32, lens=None, rope=False),
+        "dummy_cross_kv_lens": dict(b=1, n=DUMMY_HEADS, sq=DUMMY_TOKENS, skv=DUMMY_CAPTION, h=32,
+                                    lens=[DUMMY_CAPTION], rope=False),
+        "ragged_empty_row": dict(b=2, n=4, sq=1000, skv=77, h=32, lens=[77, 0], rope=False),
+        "per_head_rope": dict(b=1, n=4, sq=1000, skv=1000, h=32, lens=None, rope=tables),
+        "long_ragged_kv_lens": dict(b=1, n=24, sq=H32_LONG, skv=H32_LONG, h=32, lens=[H32_LONG_VALID], rope=False),
+    }, phase_name="h32_kernel_checks")
+    return dict(k1=(k1_err, k1), bwd=(bwd_err, bwd), k5=(k5_err, k5), k7=(k7_err, k7), k6=(k6_err, prep_err, k6))
 
 
 def check_cogvideox_kernels(card):
@@ -4452,6 +4498,29 @@ def dummy_argv(training_json, validation_json, out_dir, training_type, steps, *e
             "--seed", "0", *extra]
 
 
+# The dummy LoRA run repeated under each kernel switch, by run name.
+DUMMY_SWITCH_RUNS = {"lora_fused_bwd": "FINETRAINERS_FLASH_FUSED_BWD", "lora_two_pass": "FINETRAINERS_FLASH_TWOPASS",
+                     "lora_skew": "FINETRAINERS_FLASH_SKEW", "lora_two_level": "FINETRAINERS_FLASH_TWOLEVEL"}
+
+
+def dummy_launches(sw=None):
+    """A dummy run's launches under switch `sw` (JAX's gates: the dummy's
+    calls carry no RoPE tables, no causal flag and no mask, so every switch
+    takes them): (per train step, per final validation of 2 steps, K2 reduce
+    passes per step). A step runs 2 forwards and 2 backwards a block
+    (self-attention, cross-attention over the caption slots); the pre-pass
+    runs before each forward but K7b's and before each backward."""
+    fwd = {"FINETRAINERS_FLASH_TWOPASS": "k7a", "FINETRAINERS_FLASH_SKEW": "k7b",
+           "FINETRAINERS_FLASH_TWOLEVEL": "k7c"}.get(sw, "k1")
+    preps = 2 if fwd == "k7b" else 4
+    fused = sw == "FINETRAINERS_FLASH_FUSED_BWD"
+    step = {fwd: 2 * DUMMY_LAYERS, "prep": preps * DUMMY_LAYERS,
+            **(dict(k5=2 * DUMMY_LAYERS, k5_emit=2 * DUMMY_LAYERS) if fused
+               else dict(k2=2 * DUMMY_LAYERS, k3=2 * DUMMY_LAYERS))}
+    validation = {fwd: 2 * 2 * DUMMY_LAYERS, **({} if fwd == "k7b" else {"prep": 2 * 2 * DUMMY_LAYERS})}
+    return step, validation, 0 if fused else 2 * DUMMY_LAYERS
+
+
 def dummy_run(card):
     """The dummy family at its own width (dim 64 in 2 heads of 32, 2 blocks)
     through `finetrainers_tpu_torch.train.main` on the card, from 4 videos on
@@ -4466,24 +4535,34 @@ def dummy_run(card):
     at least 4096 elements (the feed-forward kernels, 64 x 256, among them)
     keeps int8 moments. The LoRA run is repeated under `--attn_provider_training
     transformer:flash_varlen`, which takes the dummy's `kv_lens` calls to K1
-    as `auto` does: its losses must be bit-equal. Returns the LoRA run's
+    as `auto` does: its losses must be bit-equal; and under each kernel switch
+    (DUMMY_SWITCH_RUNS), whose kernels take the dummy's calls as JAX's gates
+    send them: FINETRAINERS_FLASH_FUSED_BWD K5 and its dq emit for every
+    backward (no K2 reduce pass), FINETRAINERS_FLASH_TWOPASS and _TWOLEVEL K7a
+    and K7c for every forward after the pre-pass, FINETRAINERS_FLASH_SKEW K7b
+    for every forward without it (the dummy has no RoPE tables), in the steps
+    and the validation alike; each run's launches exact, no library attention
+    kernel in its traced second step, and its losses within
+    VARIANT_LOSS_REL_TOL of the default run's (the fused backward's first
+    loss, a forward of the same weights, bit-equal). Returns the LoRA run's
     adapter and the runs' launches."""
     from finetrainers_tpu_torch import train as train_cli
     from finetrainers_tpu_torch.optim8bit import Adam8bit
 
     training_json, validation_json = dummy_run_data(SMOKE_DIR / "dummy_run_data")
-    step_want = dict(k1=2 * DUMMY_LAYERS, prep=4 * DUMMY_LAYERS, k2=2 * DUMMY_LAYERS, k3=2 * DUMMY_LAYERS)
-    want = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
     records = {}
     lora_flags = ("--rank", str(DUMMY_RANK), "--lora_alpha", str(DUMMY_RANK))
-    for name, training_type, steps, extra in (
-            ("lora", "lora", DUMMY_RUN_STEPS, lora_flags),
-            ("lora_flash_varlen", "lora", DUMMY_RUN_STEPS,
+    runs = [("lora", None, "lora", DUMMY_RUN_STEPS, lora_flags),
+            ("lora_flash_varlen", None, "lora", DUMMY_RUN_STEPS,
              (*lora_flags, "--attn_provider_training", "transformer:flash_varlen")),
-            ("full_finetune_adamw_8bit", "full-finetune", DUMMY_FULL_STEPS, ("--optimizer", "adamw-bnb-8bit"))):
+            ("full_finetune_adamw_8bit", None, "full-finetune", DUMMY_FULL_STEPS, ("--optimizer", "adamw-bnb-8bit"))]
+    runs += [(name, sw, "lora", DUMMY_RUN_STEPS, lora_flags) for name, sw in DUMMY_SWITCH_RUNS.items()]
+    for name, sw, training_type, steps, extra in runs:
+        step_want, validation_want, reduce_want = dummy_launches(sw)
+        want = {k_: step_want.get(k_, 0) for k_ in _COUNTED}
         out_dir = SMOKE_DIR / f"dummy_{name}"
         argv = dummy_argv(training_json, validation_json, out_dir, training_type, steps, *extra)
-        with counted_run() as rec:
+        with counted_run(profile_step=2 if sw else None) as rec, switch(sw):  # a switched run's step 2 traced
             trainer = train_cli.main(argv)
         steps_rec, validations = rec["steps"], rec["validations"]
         module = trainer.transformer.module
@@ -4503,26 +4582,36 @@ def dummy_run(card):
                          for n, p in params.items() if isinstance(inner, Adam8bit) and "mu_codes" in inner.state[p]}
             facts.update(optimizer=type(inner).__name__, moment_bytes=inner.state_bytes(),
                          fp32_moment_bytes=8 * sum(p.numel() for p in params.values()))
-        steps_ok = all(st["launches"] == want and st["reduce"] == 2 * DUMMY_LAYERS for st in steps_rec)
-        validation_want = {"k1": 2 * 2 * DUMMY_LAYERS, "prep": 2 * 2 * DUMMY_LAYERS}  # 2 steps, no CFG
+        steps_ok = all(st["launches"] == want and st["reduce"] == reduce_want for st in steps_rec)
         validations_ok = (len(validations) == 1 and validations[0]["final"]
                           and validations[0]["launches"] == validation_want)
         # The same LoRA run under `flash_varlen`, which takes the dummy's kv_lens calls to K1 as `auto` does.
         losses_equal_default = None if name != "lora_flash_varlen" else losses == records["lora"]["losses"]
+        switch_losses = None
+        if sw is not None:  # the same LoRA run under a kernel switch
+            default = records["lora"]["losses"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, default)]
+            library = rec["profile"]["library_attention"]
+            switch_losses = dict(switch=sw, default_losses=default, rel_diff=rel, bound=VARIANT_LOSS_REL_TOL,
+                                 bit_equal=losses == default, first_bit_equal=losses[:1] == default[:1],
+                                 traced_step_library_attention=library,
+                                 ok=len(rel) == len(default) and max(rel) <= VARIANT_LOSS_REL_TOL and not library
+                                 and (sw != "FINETRAINERS_FLASH_FUSED_BWD" or losses[:1] == default[:1]))
         phase("dummy_run", card=card, run=name, entry="python -m finetrainers_tpu_torch.train",
               argv=[str(a) for a in argv], bucket=list(DUMMY_BUCKET), tokens=DUMMY_TOKENS, **facts,
               step_seconds=[st["seconds"] for st in steps_rec], step_peaks_gb=[st["peak_gb"] for st in steps_rec],
               step_launches=steps_rec[0]["launches"], step_reduce_passes=[st["reduce"] for st in steps_rec],
               step_launches_all_exact=steps_ok, losses=losses, validations=validations,
               validations_launches_exact=validations_ok, eight_bit_moments=eight_bit, run_s=rec["run_s"],
-              launches=rec["launches"], reduce_passes=rec["reduce"], losses_bit_equal_to_default=losses_equal_default)
+              launches=rec["launches"], reduce_passes=rec["reduce"], losses_bit_equal_to_default=losses_equal_default,
+              under_switch=switch_losses)
         ff_8bit = eight_bit is None or all(
             eight_bit.get(f"blocks.{i}.ff.{layer}.weight", {}).get("nonzero") for i in range(DUMMY_LAYERS)
             for layer in ("proj_in", "proj_out"))
         if not (steps_ok and validations_ok and len(steps_rec) == steps and len(losses) == steps
                 and all(np.isfinite(losses)) and len(videos) == 1 and ff_8bit
                 and (facts["heads"], facts["head_dim"], facts["blocks"]) == (DUMMY_HEADS, 32, DUMMY_LAYERS)
-                and losses_equal_default is not False):
+                and losses_equal_default is not False and (switch_losses is None or switch_losses["ok"])):
             raise AssertionError(f"the dummy {name} run failed its checks")
         records[name] = dict(launches=rec["launches"], reduce=rec["reduce"],
                              step_launches=steps_rec[0]["launches"], losses=losses)
@@ -4535,7 +4624,10 @@ def dummy_serve(card, adapter):
     """One 17x256x256 text-to-video request of the dummy family through the
     runner, `inference.main`, with the LoRA run's adapter: 4 Euler steps of K1
     twice per block and step at head dim 32 (no CFG), the VAE decode, a
-    finite (17, 256, 256, 3) video written as .mp4; its seconds and launches."""
+    finite (17, 256, 256, 3) video written as .mp4; then the same request
+    under `--attn_provider sage`: the sage pre-pass and K6 twice per block and
+    step, its video within K6_STEP_REL_L2_TOL (relative L2 over the written
+    frames) of the first. Returns the requests' launches by provider."""
     from finetrainers_tpu_torch import inference
     from finetrainers_tpu_torch.data.utils import load_video
 
@@ -4545,20 +4637,30 @@ def dummy_serve(card, adapter):
             "--prompt", "a red ball rolls", "--num_frames", str(frames), "--height", str(height), "--width", str(width),
             "--num_inference_steps", str(DUMMY_SERVE_STEPS), "--lora_weights", str(adapter), "--output_dir",
             str(out_dir)]
-    torch.cuda.synchronize()
-    _zero_counts()
-    t0 = time.perf_counter()
-    paths = inference.main(argv)
-    torch.cuda.synchronize()
-    wall_s, launches = time.perf_counter() - t0, _counts()
-    written = load_video(paths[0], to_float=False)
-    expected = {k_: 2 * DUMMY_LAYERS * DUMMY_SERVE_STEPS if k_ in ("k1", "prep") else 0 for k_ in launches}
-    phase("dummy_serve", card=card, entry="python -m finetrainers_tpu_torch.inference", argv=argv,
-          steps=DUMMY_SERVE_STEPS, tokens=DUMMY_TOKENS, main_wall_s=wall_s, launches=launches,
-          launches_expected=expected, written=[str(pathlib.Path(p).relative_to(SMOKE_DIR.parent.parent)) for p in paths],
-          written_shape=list(written.shape))
-    if not (launches == expected and list(written.shape) == [frames, height, width, 3]):
-        raise AssertionError("dummy serving through the runner failed its checks")
+    launches, videos = {}, {}
+    for provider, kernels in (("auto", ("k1", "prep")), ("sage", ("k6", "sage_prep"))):
+        request = argv + (["--attn_provider", "sage", "--output_dir", str(out_dir / "sage")] if provider == "sage"
+                          else [])
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        paths = inference.main(request)
+        torch.cuda.synchronize()
+        wall_s, launches[provider] = time.perf_counter() - t0, _counts()
+        videos[provider] = load_video(paths[0], to_float=False)
+        expected = {k_: 2 * DUMMY_LAYERS * DUMMY_SERVE_STEPS if k_ in kernels else 0 for k_ in launches[provider]}
+        vs_auto = None
+        if provider == "sage":
+            a, b = (torch.from_numpy(np.asarray(videos[p], np.float32)) for p in ("sage", "auto"))
+            vs_auto = dict(rel_l2=rel_l2(a, b), bound=K6_STEP_REL_L2_TOL)
+        phase("dummy_serve", card=card, provider=provider, entry="python -m finetrainers_tpu_torch.inference",
+              argv=request, steps=DUMMY_SERVE_STEPS, tokens=DUMMY_TOKENS, main_wall_s=wall_s,
+              launches=launches[provider], launches_expected=expected, video_vs_default_provider=vs_auto,
+              written=[str(pathlib.Path(p).relative_to(SMOKE_DIR.parent.parent)) for p in paths],
+              written_shape=list(videos[provider].shape))
+        if not (launches[provider] == expected and list(videos[provider].shape) == [frames, height, width, 3]
+                and (vs_auto is None or vs_auto["rel_l2"] <= K6_STEP_REL_L2_TOL)):
+            raise AssertionError(f"dummy serving through the runner under {provider} failed its checks")
     return launches
 
 
@@ -5095,8 +5197,14 @@ BRANCH_CASES = (
     ("causal_llama_q_short", "auto", 1, 32, 1024, 4096, 128, "causal"),
     ("flex_cogview4_padded_slots", "flex", 1, 32, 5120, 5120, 128, "padded_slots"),
     ("flex_block_sparse", "flex", 1, 32, 5000, 4900, 128, "sparse"),
+    # Head dim 32 at the dummy family's width (2 heads, 17x16x16 tokens): two clips packed, causal, block-sparse.
+    ("varlen_dummy_packed_h32", "flash_varlen", 1, DUMMY_HEADS, DUMMY_TOKENS, DUMMY_TOKENS, 32, "segment"),
+    ("causal_dummy_h32", "auto", 1, DUMMY_HEADS, DUMMY_TOKENS, DUMMY_TOKENS, 32, "causal"),
+    ("flex_dummy_sparse_h32", "flex", 1, DUMMY_HEADS, DUMMY_TOKENS, DUMMY_TOKENS - 100, 32, "sparse"),
 )
 WAN_CLIP_FRAMES, WAN_CLIP_TOKENS = (5, 8), (7800, 12480)  # latent frames of 17 and 29 video frames, at 30 x 52
+# The dummy's packed clips: 9x16x16 and 7x16x16 tokens (33 and 25 frames at 256x256; no RoPE), 256 of padding.
+DUMMY_CLIP_TOKENS = (2304, 1792)
 COGVIEW4_LIVE_SLOTS = 143
 # The kernels of each branch, by torch.profiler name.
 BRANCH_KERNELS = {"segment": "flash_fwd_segment_sm90_kernel", "causal": "flash_fwd_causal_sm90_kernel",
@@ -5111,8 +5219,10 @@ _BRANCHED = dict(k1=flash_forward, k2=flash_bwd_dkdv, k3=flash_bwd_dq, k5=flash_
 
 
 def _branch_counts():
-    """The branch launches of K1, K2, K3, K5 and K7a/b/c besides `_counts()`."""
-    return {f"{key}_{branch}": n for key, fn in _BRANCHED.items() for branch, n in fn.branch_launches.items()}
+    """The branch launches of K1, K2, K3, K5 and K7a/b/c besides `_counts()`, and K2's launches that ran its
+    reduce pass (`k2_reduce`)."""
+    return {**{f"{key}_{branch}": n for key, fn in _BRANCHED.items() for branch, n in fn.branch_launches.items()},
+            "k2_reduce": flash_bwd_dkdv.reduce_launches}
 
 
 def _zero_branch_counts():
@@ -5128,12 +5238,14 @@ def branch_bounds(b, n, sq, skv, h, live):
     against q, k, v, out and the LSE once; K2 8*N*live*H against q_s, dO, LSE,
     delta, k_r, v read and dk, dv written once; K3 6*N*live*H against q_s, dO,
     LSE, delta, k_r, v read and dq written once; K5 10*N*live*H against K2's
-    bytes and its fp32 dq accumulator written once."""
+    bytes and its fp32 dq accumulator written once. At H=32 each also one
+    exponential per live pair (`exp_bound`)."""
     q_bytes, kv_bytes, rows = b * n * sq * h * 2, b * n * skv * h * 2, b * n * sq * 4
-    return (bound(4 * n * live * h, 2 * q_bytes + 2 * kv_bytes + rows),
-            bound(8 * n * live * h, 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes),
-            bound(6 * n * live * h, 3 * q_bytes + 2 * kv_bytes + 2 * rows),
-            bound(10 * n * live * h, 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes + 2 * q_bytes))
+    bounds = (bound(4 * n * live * h, 2 * q_bytes + 2 * kv_bytes + rows),
+              bound(8 * n * live * h, 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes),
+              bound(6 * n * live * h, 3 * q_bytes + 2 * kv_bytes + 2 * rows),
+              bound(10 * n * live * h, 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes + 2 * q_bytes))
+    return tuple(exp_bound(r, n * live) for r in bounds) if h == 32 else bounds
 
 
 def _branch_inputs(name, b, n, sq, skv, h, kind, g):
@@ -5141,10 +5253,16 @@ def _branch_inputs(name, b, n, sq, skv, h, kind, g):
     (kwargs for `attention_dispatch`, kwargs for the plain versions, the
     (B, Sq, Skv) live pairs)."""
     q = torch.randn(b, sq, n, h, generator=g, device="cuda").to(torch.bfloat16)
-    kv_heads = 8 if kind == "causal" else n
+    kv_heads = min(8, n) if kind == "causal" else n
     k, v = (torch.randn(b, skv, kv_heads, h, generator=g, device="cuda").to(torch.bfloat16)
             .repeat_interleave(n // kv_heads, dim=2) for _ in range(2))
     do = torch.randn(b, sq, n, h, generator=g, device="cuda").to(torch.bfloat16)
+    if kind == "segment" and h == 32:  # the dummy's two clips packed (it has no RoPE), -1 on the padding
+        clips = [torch.arange(t, device="cuda") for t in DUMMY_CLIP_TOKENS]
+        _, ids = attention_ops.pack_sequences(clips, total_len=sq)
+        ids = ids.to("cuda")
+        live = ids[:, :, None] == ids[:, None, :]
+        return q, k, v, do, (dict(q_segment_ids=ids, kv_segment_ids=ids), dict(q_seg=ids, kv_seg=ids), live)
     if kind == "segment":  # the two clips packed, each with its own Wan tables, identity on the padding
         clips = [torch.arange(t, device="cuda") for t in WAN_CLIP_TOKENS]
         _, ids = attention_ops.pack_sequences(clips, total_len=sq)
@@ -5211,7 +5329,8 @@ def check_variant_branches(card, c):
         fwd = SWITCH_FORWARD[sw]
         tables = (None, None) if fwd == "k7b" else c["tables"]
         kw = {k_: v_ for k_, v_ in c["dispatch_kw"].items() if not (fwd == "k7b" and k_ == "rope_freqs")}
-        want = switch_launches(sw, branch)
+        want = switch_launches(sw, branch, dkdv_splits(b, n, sq, skv, torch.cuda.get_device_properties(0)
+                                                       .multi_processor_count)[0])
         with switch(sw):
             torch.cuda.synchronize()
             _zero_counts()
@@ -5308,7 +5427,7 @@ def check_variant_branches(card, c):
     return records
 
 
-def check_attention_branches(card):
+def check_attention_branches(card, cases=BRANCH_CASES):
     """The causal, segment and mask branches of K1, K2 and K3 on the card,
     through `attention_dispatch` and `torch.autograd` in bf16 at the models'
     widths (BRANCH_CASES): each case's forward and backward once with the
@@ -5336,7 +5455,7 @@ def check_attention_branches(card):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     empty_lse = float(np.float32(-1e30 * np.log(2.0)))
     worst, records, launches_by_case, variant_records = {"k1": 0.0, "k2": 0.0, "k3": 0.0}, {}, {}, {}
-    for name, provider, b, n, sq, skv, h, kind in BRANCH_CASES:
+    for name, provider, b, n, sq, skv, h, kind in cases:
         branch = {"segment": "segment", "causal": "causal"}.get(kind, "mask")
         q, k, v, do, (dispatch_kw, plain_kw, live) = _branch_inputs(name, b, n, sq, skv, h, kind, g)
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
@@ -5403,11 +5522,12 @@ def check_attention_branches(card):
 
         if kind == "segment":  # each clip alone through K1-K3 (its own tables), against the packed rows
             clip_err, lo = {}, 0
-            cos_t, sin_t = dispatch_kw["rope_freqs"]
-            for i, t in enumerate(WAN_CLIP_TOKENS):
+            cos_t, sin_t = dispatch_kw.get("rope_freqs", (None, None))
+            for i, t in enumerate(WAN_CLIP_TOKENS if h == 128 else DUMMY_CLIP_TOKENS):
                 sl = slice(lo, lo + t)
                 alone = [x[:, sl].detach().clone().requires_grad_() for x in (q, k, v)]
-                a_out = attention_dispatch(*alone, rope_freqs=(cos_t[sl].contiguous(), sin_t[sl].contiguous()))
+                a_out = attention_dispatch(*alone, rope_freqs=None if cos_t is None else (cos_t[sl].contiguous(),
+                                                                                          sin_t[sl].contiguous()))
                 a_grads = torch.autograd.grad(a_out, alone, do[:, sl])
                 e = (out[:, sl].float() - a_out.float()).abs()
                 clip_err[f"clip{i}"] = dict(out_err_over_max1=(e / a_out.float().abs().clamp_min(1.0)).max().item(),
@@ -5515,10 +5635,11 @@ SWITCH_FORWARD = {"FINETRAINERS_FLASH_SKEW": "k7b", "FINETRAINERS_FLASH_TWOPASS"
                   "FINETRAINERS_FLASH_TWOLEVEL": "k7c", "FINETRAINERS_FLASH_FUSED_BWD": None}
 
 
-def switch_launches(sw, branch):
+def switch_launches(sw, branch, splits):
     """The launches of one forward and backward of a `branch` call under the switch `sw`, by `_counts()` and
     `_branch_counts()` key: the pre-pass before each (but K7b's forward), the forward kernel's branch (K1's
-    where the switch's kernel has none), and K2's and K3's, or K5's and its dq emit."""
+    where the switch's kernel has none), and K2's and K3's (K2 with its reduce pass where `splits`, as
+    `dkdv_splits` cuts its q loop, exceeds 1), or K5's and its dq emit."""
     fwd = SWITCH_FORWARD[sw]
     if fwd in ("k7a", "k7b") and branch != "segment":
         fwd = None
@@ -5530,7 +5651,7 @@ def switch_launches(sw, branch):
     if sw == "FINETRAINERS_FLASH_FUSED_BWD":
         want.update({"k5": 1, f"k5_{branch}": 1, "k5_emit": 1})
     else:
-        want.update({"k2": 1, "k3": 1, f"k2_{branch}": 1, f"k3_{branch}": 1})
+        want.update({"k2": 1, "k3": 1, f"k2_{branch}": 1, f"k3_{branch}": 1, **({"k2_reduce": 1} if splits > 1 else {})})
     return want
 
 
@@ -5542,10 +5663,22 @@ def check_branch_switches(card):
     against the picked forward's plain version within K1's tolerances on rows
     with a live key (rows without one exactly 0), dq, dk and dv against the
     plain backward (K5's under the fused switch) within K2/K3's. Small bf16
-    shapes (2, 2, 300, 300, 128) with kv_lens; no RoPE tables (JAX gates the
-    skewed kernel off them)."""
+    shapes (2, 2, 300, 300, H) at head dims 128 and 32 with kv_lens; no RoPE
+    tables (JAX gates the skewed kernel off them)."""
+    results, ok = {}, True
+    for h in (128, 32):
+        h_results, h_ok = _branch_switches_at(h)
+        results.update({f"h{h}:{key}": r for key, r in h_results.items()})
+        ok = ok and h_ok
+    phase("attention_branches_switches", results=results, routing_as_jax=ok, card=card)
+    if not ok:
+        raise AssertionError(f"a branch under a kernel switch failed its checks: {results}")
+
+
+def _branch_switches_at(h):
+    """`check_branch_switches` at head dim `h` -> (results by "switch:branch", all ok)."""
     g = torch.Generator(device="cuda").manual_seed(33)
-    q, k, v, do = (torch.randn(2, 2, 300, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    q, k, v, do = (torch.randn(2, 2, 300, h, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
     lens = torch.tensor([280, 300], dtype=torch.int32, device="cuda")
     ids = (torch.arange(300, device="cuda") // 100).to(torch.int32)[None].repeat(2, 1)
     mask = torch.rand(2, 300, 300, generator=g, device="cuda") > 0.5
@@ -5563,7 +5696,8 @@ def check_branch_switches(card):
                 grads = flash_backward(q, k, v, out, lse, do, lens, **kw)
             torch.cuda.synchronize()
             counts = {k_: c for k_, c in {**_counts(), **_branch_counts()}.items() if c}
-            want = switch_launches(sw, branch)
+            want = switch_launches(sw, branch, dkdv_splits(2, 2, 300, 300, torch.cuda.get_device_properties(0)
+                                                            .multi_processor_count)[0])
             picked = fwd if fwd in want else None
             ref, ref_lse = plain_fwd[picked](q, k, v, lens, **kw)
             plain_bwd = flash_backward_fused_reference if sw == "FINETRAINERS_FLASH_FUSED_BWD" else \
@@ -5581,9 +5715,7 @@ def check_branch_switches(card):
             results[f"{sw}:{branch}"] = dict(launches=counts, launches_exact=counts == want, vs_plain=fwd_err,
                                              bwd_vs_plain=bwd_err, empty_rows_zero=empty_zero, ok=pair_ok)
             ok = ok and pair_ok
-    phase("attention_branches_switches", results=results, routing_as_jax=ok, card=card)
-    if not ok:
-        raise AssertionError(f"a branch under a kernel switch failed its checks: {results}")
+    return results, ok
 
 
 # K2's and K3's branches pair by pair: (name, B, N, Sq, Skv, branch, kv_lens). Lengths off the tiles, Sq < Skv and
@@ -5663,13 +5795,14 @@ def branch_pair_errors(b, n, sq, skv, h, branch, lens=None, fused=False):
 
 
 def check_branch_pairs(card):
-    """K2's and K3's causal, segment and mask branches, and K5's, at H 64 and
-    128 select exactly the live pairs (`branch_pair_errors` over PAIR_CASES; K5's
+    """K2's and K3's causal, segment and mask branches, and K5's, at H 32, 64
+    and 128 select exactly the live pairs (`branch_pair_errors` over PAIR_CASES; K5's
     under the fused switch, its cases suffixed `_k5`): a fault that drops or adds
     a few pairs stays under the relative-L2 bounds at the models' widths, and
     shows here."""
     results = {f"{name}_h{h}{'_k5' if fused else ''}": branch_pair_errors(b, n, sq, skv, h, branch, lens, fused)
-               for name, b, n, sq, skv, branch, lens in PAIR_CASES for h in (64, 128) for fused in (False, True)}
+               for name, b, n, sq, skv, branch, lens in PAIR_CASES for h in (32, 64, 128)
+               for fused in (False, True)}
     ok = all(not any(w.values()) for w in results.values())
     phase("attention_branch_pairs", wrong_pairs=results, exact=ok, card=card)
     if not ok:
@@ -7057,8 +7190,12 @@ def main():
     bwd_err, bwd = check_k2k3(card)
     k6_err, prep_err, k6 = check_k6(card)
     k1_wan_err, k1_wan = check_k1_wan(card)
-    k5_err, k5_wan, k5_ltx = check_k5(card)
-    k7_err, k7 = check_k7(card)
+    k5_err, k5 = check_k5(card)
+    k5_wan, k5_ltx = k5["wan_self_shared_rope"], k5["ltx_self_rope"]
+    k7_err, k7_by_case = check_k7(card)
+    k7_main = {"k7a": "wan_train_self_shared_rope", "k7b": "wan_train_cross_kv_lens",
+               "k7c": "wan_train_self_shared_rope"}  # each kernel at the shape the Wan training path gives it
+    k7 = {key: dict(k7_by_case[key][case], by_case=k7_by_case[key]) for key, case in k7_main.items()}
     k1_mask_err, k1_mask = check_k1_mask(card)
     branch_err, branch_records, branch_launches, variant_records = check_attention_branches(card)
     torch.cuda.empty_cache()
@@ -7090,7 +7227,8 @@ def main():
     cx_k1_err, cx_k1, cx_bwd_err, cx_bwd = check_cogvideox_kernels(card)
     cogvideox = cogvideox_run(card)
     cx_serve_launches, cx_serve_in_step = cogvideox_serve(card, cogvideox["adapter"])
-    h32_k1_err, h32_k1, h32_bwd_err, h32_bwd = check_h32_kernels(card)
+    h32 = check_h32_kernels(card)
+    (h32_k1_err, h32_k1), (h32_bwd_err, h32_bwd) = h32["k1"], h32["bwd"]
     dummy = dummy_run(card)
     dummy_serve_launches = dummy_serve(card, dummy["adapter"])
     raider = cogview4_sft_run(card)
@@ -7169,18 +7307,23 @@ def main():
                      library_note="torch SDPA backward (dq, dk, dv in one call), without the fused rotation", **extra)
 
     def h32_entry(key, name, source, replaces, err, record, **extra):
-        """A head-dim-32 instance: its launches on the dummy paths, timed at the dummy's self-attention."""
-        launches = {"dummy_lora_run": dummy["lora"]["launches"][key],
-                    "dummy_full_finetune_run": dummy["full_finetune_adamw_8bit"]["launches"][key]}
-        if key in ("k1", "prep"):
-            launches["dummy_serve"] = dummy_serve_launches[key]
-        return entry(name, source, replaces, launches["dummy_lora_run"], err, record, head_dim=32,
+        """A head-dim-32 instance: its launches on the dummy paths that run it (the first of them is the
+        entry's `launches`), timed at the dummy's self-attention."""
+        paths = {f"dummy_{run}_run": dummy[run]["launches"][key]
+                 for run in ("lora", "full_finetune_adamw_8bit", *DUMMY_SWITCH_RUNS)}
+        paths.update({"dummy_serve" + ("" if provider == "auto" else f"_{provider}"): n[key]
+                      for provider, n in dummy_serve_launches.items()})
+        launches = {path: n for path, n in paths.items() if n}
+        return entry(name, source, replaces, next(iter(launches.values()), 0), err, record, head_dim=32,
                      shape=[1, DUMMY_HEADS, DUMMY_TOKENS, DUMMY_TOKENS, 32], launches_by_path=launches, **extra)
 
-    def branch_entry(kernel, branch, replaces, also_replaces, headline):
-        """A branch of K1, K2 or K3: timed at its headline case of `check_attention_branches`, its launches
-        there by case."""
-        cases = [c for c, r in branch_records.items() if r["branch"] == branch]
+    def h32_instances(source, kernel):  # the head-dim-32 instantiations of `kernel`
+        return {n: rec for n, rec in ptxas(source, kernel).items() if re.search(r"<[^,>]+, 32[,>]", n)}
+
+    def branch_entry(kernel, branch, replaces, also_replaces, headline, h=128):
+        """A branch of K1, K2 or K3 (its instances at head dims 64 and 128, or with `h` 32 at 32): timed at its
+        headline case of `check_attention_branches`, its launches there by case."""
+        cases = [c for c, r in branch_records.items() if r["branch"] == branch and (r["shape"][4] == 32) == (h == 32)]
         key = "k1_mask" if (kernel, branch) == ("k1", "mask") else f"{kernel}_{branch}"
         errs = [r["k1_vs_plain"]["max_abs_err"] if kernel == "k1" else
                 max(r["bwd_vs_plain"][g]["max_abs_err"] for g in (("dq",) if kernel == "k3" else ("dk", "dv")))
@@ -7194,15 +7337,16 @@ def main():
         kernel_name = {"k1": BRANCH_KERNELS[branch], "k2": f"bwd_dkdv_sm90_kernel<T, H, {code}>",
                        "k3": f"bwd_dq_sm90_kernel<T, H, {code}>"}[kernel]
         instances = {n: rec for n, rec in ptxas(f"flash_{side}_branches_sm90", kernel_name.split("<")[0]).items()
-                     if kernel == "k1" or n.endswith(f", {code}>")}
-        return entry(f"{kernel_name} ({kernel.upper()}'s {branch} branch, wgmma + TMA)",
+                     if (kernel == "k1" or n.endswith(f", {code}>")) and (", 32" in n) == (h == 32)}
+        return entry(f"{kernel_name} ({kernel.upper()}'s {branch} branch, wgmma + TMA"
+                     + (", head dim 32)" if h == 32 else ")"),
                      f"finetrainers_tpu_torch/csrc/flash_{side}_branches_sm90.cu",
                      f"finetrainers_tpu/ops/flash_attention.py:{replaces}", branch_launches[headline].get(key, 0),
                      max(errs), (r[f"{kernel}_ms"], plain, library, bound_ms, bound_by),
                      also_replaces=[f"finetrainers_tpu/ops/flash_attention.py:{line}" for line in also_replaces],
                      kernel_source=f"finetrainers_tpu_torch/csrc/flash_{side}_sm90.cu",
                      ptxas=instances,
-                     shape=r["shape"], headline_case=headline, device_ms=r[f"{kernel}_device_ms"],
+                     shape=r["shape"], headline_case=headline, device_ms=r[f"{kernel}_device_ms"], head_dim=h,
                      launches_by_path={f"attention_branches_{c}": branch_launches[c].get(key, 0) for c in cases},
                      by_case={c: dict(ms=branch_records[c][f"{kernel}_ms"],
                                       device_ms=branch_records[c][f"{kernel}_device_ms"],
@@ -7215,12 +7359,14 @@ def main():
                      library_note="torch SDPA " + ("forward" if kernel == "k1" else "backward (dq, dk, dv)")
                                   + " given the same mask (is_causal where Sq = Skv)")
 
-    def variant_branch_entry(key, branch, headline, replaces, also_replaces, kernel_name, extra_paths=()):
-        """A branch of K7a, K7b, K7c or K5: timed at its headline case of `check_variant_branches`, its launches
-        there by case (each case's run through the dispatcher under the switch)."""
+    def variant_branch_entry(key, branch, headline, replaces, also_replaces, kernel_name, extra_paths=(), h=128):
+        """A branch of K7a, K7b, K7c or K5 (its instances at head dims 64 and 128, or with `h` 32 at 32): timed
+        at its headline case of `check_variant_branches`, its launches there by case (each case's run through
+        the dispatcher under the switch)."""
         sw = {"k7a": "FINETRAINERS_FLASH_TWOPASS", "k7b": "FINETRAINERS_FLASH_SKEW",
               "k7c": "FINETRAINERS_FLASH_TWOLEVEL", "k5": "FINETRAINERS_FLASH_FUSED_BWD"}[key]
-        cases = [c for c, r in variant_records.items() if sw in r and branch_records[c]["branch"] == branch]
+        cases = [c for c, r in variant_records.items() if sw in r and branch_records[c]["branch"] == branch
+                 and (branch_records[c]["shape"][4] == 32) == (h == 32)]
         count = f"{key}_{branch}"
         errs = [variant_records[c][sw]["vs_plain"]["max_abs_err"] if key != "k5" else
                 max(variant_records[c][sw]["bwd_vs_plain"][g]["max_abs_err"] for g in ("dq", "dk", "dv"))
@@ -7229,16 +7375,18 @@ def main():
         library = "flash_bwd_fused_branches_sm90" if key == "k5" else "flash_fwd_variant_branches_sm90"
         code = {"causal": 1, "segment": 2, "mask": 3}[branch]
         instances = {n: rec for n, rec in ptxas(library, kernel_name).items()
-                     if key != "k5" or n.endswith(f", {code}>")}
+                     if (key != "k5" or n.endswith(f", {code}>")) and (", 32" in n) == (h == 32)}
         beside = ("k2_k3_branch_ms", "k2_k3_branch_device_ms") if key == "k5" else ("k1_branch_ms",
                                                                                      "k1_branch_device_ms")
-        return entry(f"{kernel_name} ({key.upper()}'s {branch} branch, wgmma + TMA)",
+        return entry(f"{kernel_name} ({key.upper()}'s {branch} branch, wgmma + TMA"
+                     + (", head dim 32)" if h == 32 else ")"),
                      f"finetrainers_tpu_torch/csrc/{library}.cu", f"finetrainers_tpu/ops/flash_attention.py:{replaces}",
                      r["launches"].get(count, 0), max(errs), tuple(r[f] for f in fields),
                      also_replaces=[f"finetrainers_tpu/ops/flash_attention.py:{line}" for line in also_replaces],
                      kernel_source="finetrainers_tpu_torch/csrc/" + ("flash_bwd_sm90.cu" if key == "k5"
                                                                      else "flash_fwd_sm90.cu"),
                      ptxas=instances, switch=sw, shape=branch_records[headline]["shape"], headline_case=headline,
+                     head_dim=h,
                      device_ms=r["device_ms"], **{f: r[f] for f in beside},
                      launches_by_path={**{f"variant_branches_{c}": variant_records[c][sw]["launches"].get(count, 0)
                                           for c in cases}, **dict(extra_paths)},
@@ -7396,6 +7544,57 @@ def main():
                   "finetrainers_tpu/ops/flash_attention.py:1199", h32_bwd_err["k3"], h32_bwd["dummy_self"]["k3"],
                   by_case={case: dict(zip(fields, r["k3"]), device_ms=r["k3_device_ms"]) for case, r in h32_bwd.items()},
                   library_note="torch SDPA backward (dq, dk, dv in one call)"),
+        h32_entry("k5", "bwd_fused_sm90 at head dim 32 (K5, wgmma + TMA, a 64 x 32 dq tile a warpgroup)",
+                  "finetrainers_tpu_torch/csrc/flash_bwd_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:1038",
+                  h32["k5"][0]["k5"], h32["k5"][1]["dummy_self"]["k5"],
+                  by_case={case: dict(zip(fields, r["k5"])) for case, r in h32["k5"][1].items()},
+                  ptxas=h32_instances("flash_bwd_sm90", "bwd_fused_sm90_kernel"),
+                  library_note="torch SDPA backward (dq, dk, dv in one call)"),
+        h32_entry("k5_emit", "bwd_fused dq emit at head dim 32", "finetrainers_tpu_torch/csrc/flash_bwd.cu",
+                  "finetrainers_tpu/ops/flash_attention.py:1191", h32["k5"][0]["k5_emit"],
+                  h32["k5"][1]["dummy_self"]["k5_emit"],
+                  by_case={case: dict(zip(fields, r["k5_emit"])) for case, r in h32["k5"][1].items()}),
+        *[h32_entry(key, f"{c_entry} at head dim 32 ({key.upper()}, wgmma + TMA)",
+                    "finetrainers_tpu_torch/csrc/flash_fwd_sm90.cu", f"finetrainers_tpu/ops/flash_attention.py:{line}",
+                    h32["k7"][0][key], tuple(h32["k7"][1][key]["dummy_self"][f] for f in fields),
+                    by_case={case: {f: r[f] for f in fields} for case, r in h32["k7"][1][key].items()},
+                    ptxas=h32_instances("flash_fwd_sm90", f"{c_entry}_kernel"), library_note="torch SDPA forward")
+          for key, c_entry, line in (("k7a", "flash_fwd_twopass_sm90", 337), ("k7b", "flash_fwd_skew_sm90", 491),
+                                     ("k7c", "flash_fwd_two_level_sm90", 229))],
+        h32_entry("k6", "sage_fwd_sm90 at head dim 32 (K6, int8 wgmma on 32-byte code rows under the 32-byte swizzle)",
+                  "finetrainers_tpu_torch/csrc/sage_fwd_sm90.cu", "finetrainers_tpu/ops/sage_attention.py:36",
+                  h32["k6"][0], h32["k6"][2]["dummy_self"]["k6"],
+                  by_case={case: dict(zip(fields, r["k6"])) for case, r in h32["k6"][2].items()},
+                  ptxas=h32_instances("sage_fwd_sm90", "sage_fwd_sm90_kernel"),
+                  library_note="torch SDPA on the unquantized bf16 inputs: a yardstick only"),
+        h32_entry("sage_prep", "sage_prep at head dim 32 (smooth-K and int8 quantization before K6)",
+                  "finetrainers_tpu_torch/csrc/sage_fwd_sm90.cu", "finetrainers_tpu/ops/sage_attention.py:112",
+                  h32["k6"][1], h32["k6"][2]["dummy_self"]["prep"],
+                  by_case={case: dict(zip(fields, r["prep"])) for case, r in h32["k6"][2].items()},
+                  max_abs_err_note="the largest difference of an int8 code from the plain pre-pass on the CPU",
+                  plain_note="the plain pre-pass on the card"),
+        branch_entry("k1", "causal", 205, (300,), "causal_dummy_h32", h=32),
+        branch_entry("k1", "segment", 210, (), "varlen_dummy_packed_h32", h=32),
+        branch_entry("k1", "mask", 217, (304,), "flex_dummy_sparse_h32", h=32),
+        branch_entry("k2", "causal", 977, (1012,), "causal_dummy_h32", h=32),
+        branch_entry("k2", "segment", 982, (), "varlen_dummy_packed_h32", h=32),
+        branch_entry("k2", "mask", 985, (1016,), "flex_dummy_sparse_h32", h=32),
+        branch_entry("k3", "causal", 1284, (1306,), "causal_dummy_h32", h=32),
+        branch_entry("k3", "segment", 1289, (), "varlen_dummy_packed_h32", h=32),
+        branch_entry("k3", "mask", 1292, (1310,), "flex_dummy_sparse_h32", h=32),
+        variant_branch_entry("k7c", "causal", "causal_dummy_h32", 205, (229, 266, 300),
+                             "flash_fwd_two_level_causal_sm90_kernel", h=32),
+        variant_branch_entry("k7c", "segment", "varlen_dummy_packed_h32", 210, (229, 266),
+                             "flash_fwd_two_level_segment_sm90_kernel", h=32),
+        variant_branch_entry("k7c", "mask", "flex_dummy_sparse_h32", 217, (229, 266, 304),
+                             "flash_fwd_two_level_mask_sm90_kernel", h=32),
+        variant_branch_entry("k7a", "segment", "varlen_dummy_packed_h32", 438, (),
+                             "flash_fwd_twopass_segment_sm90_kernel", h=32),
+        variant_branch_entry("k7b", "segment", "varlen_dummy_packed_h32", 629, (), "flash_fwd_skew_segment_sm90_kernel",
+                             h=32),
+        variant_branch_entry("k5", "causal", "causal_dummy_h32", 1137, (1169,), "bwd_fused_sm90_kernel", h=32),
+        variant_branch_entry("k5", "segment", "varlen_dummy_packed_h32", 1142, (), "bwd_fused_sm90_kernel", h=32),
+        variant_branch_entry("k5", "mask", "flex_dummy_sparse_h32", 1145, (1173,), "bwd_fused_sm90_kernel", h=32),
         entry("flash_fwd_mask_sm90 (K1's dense-mask branch, wgmma + TMA, over each q tile's live key tiles)",
               "finetrainers_tpu_torch/csrc/flash_fwd_branches_sm90.cu", "finetrainers_tpu/ops/flash_attention.py:217",
               checkpoint_launches["k1_mask"], k1_mask_err,

@@ -140,18 +140,15 @@ extern "C" int flash_qk_prep(const void* q, const void* k, void* q_out, void* k_
   p.k_sb = k_sb; p.k_sn = k_sn; p.k_ss = k_ss;
   p.rope_sn = rope_sn;
   p.qscale = qscale;
+  if (!takes(dtype, head_dim)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 32) return launch_prep<__nv_bfloat16, 32>(p, s);
-  if (dtype == 1 && head_dim == 32) return launch_prep<__half, 32>(p, s);
-  if (dtype == 0 && head_dim == 64) return launch_prep<__nv_bfloat16, 64>(p, s);
-  if (dtype == 0 && head_dim == 128) return launch_prep<__nv_bfloat16, 128>(p, s);
-  if (dtype == 1 && head_dim == 64) return launch_prep<__half, 64>(p, s);
-  if (dtype == 1 && head_dim == 128) return launch_prep<__half, 128>(p, s);
-  return cudaErrorInvalidValue;
+  return by_type(dtype, head_dim, [&](auto type, auto hd) {
+    return launch_prep<typename decltype(type)::type, decltype(hd)::value>(p, s);
+  });
 }
 
 // K5's emit: dq (strides of dq: batch, head, seq) = T(rope^T(scale * dq_acc))
-// with the (N or 1, Sq, H) tables when given.
+// with the (N or 1, Sq, H) tables when given; head_dim 32, 64 or 128.
 extern "C" int flash_bwd_dq_emit(const void* dq_acc, const void* rope_cos, const void* rope_sin, void* dq, int batch,
                                  int heads, int seq_q, int head_dim, int dtype, int64_t dq_sb, int64_t dq_sn,
                                  int64_t dq_ss, int64_t rope_sn, float scale, void* stream) {
@@ -166,10 +163,9 @@ extern "C" int flash_bwd_dq_emit(const void* dq_acc, const void* rope_cos, const
   p.dq_sb = dq_sb; p.dq_sn = dq_sn; p.dq_ss = dq_ss;
   p.rope_sn = rope_sn;
   p.scale = scale;
+  if (!takes(dtype, head_dim)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_dq_emit<__nv_bfloat16, 64>(p, s);
-  if (dtype == 0 && head_dim == 128) return launch_dq_emit<__nv_bfloat16, 128>(p, s);
-  if (dtype == 1 && head_dim == 64) return launch_dq_emit<__half, 64>(p, s);
-  if (dtype == 1 && head_dim == 128) return launch_dq_emit<__half, 128>(p, s);
-  return cudaErrorInvalidValue;
+  return by_type(dtype, head_dim, [&](auto type, auto hd) {
+    return launch_dq_emit<typename decltype(type)::type, decltype(hd)::value>(p, s);
+  });
 }

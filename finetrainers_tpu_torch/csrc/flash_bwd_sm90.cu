@@ -66,10 +66,12 @@
 //    ds are rounded to T two at a time by the packed conversion that also
 //    makes the A operand: one conversion per pair instead of one per value
 //    and rounding point.
-//  - At H=32 (K2, its reduce pass and K3; not K5) a row of every operand is
-//    64 bytes: one TMA box per tile under the 64-byte swizzle, descriptors of
-//    that layout, the score products two k16 steps, and dk, dv and dq
-//    m64n32k16 products (16 floats a thread each).
+//  - At H=32 a row of every operand is 64 bytes: one TMA box per tile under
+//    the 64-byte swizzle, descriptors of that layout, the score products two
+//    k16 steps, and dk, dv and dq m64n32k16 products (16 floats a thread
+//    each). K5's dq tile is 64 q rows x 32 columns there (m64n32k16 with both
+//    operands in shared memory, k_r read MN-major from its 64-byte rows), one
+//    TMA reduce a warp, and its warpgroups split the keys as at H=64.
 //  - K5 is K2's kernel (producer, ring, kv-major products, split q loop for
 //    cross-attention) with a fifth product per q tile: dq (64 q x H) = ds k_r.
 //    kv is its contraction dim, and ds^T lies kv-major in registers, so each
@@ -572,9 +574,16 @@ __device__ __forceinline__ void fused_barrier(int cwg) {
   }
 }
 
+// The columns of a K5 warpgroup's dq tile: 64 at H=128 (its half of dq's),
+// else all HD.
+template <int HD>
+__host__ __device__ constexpr int dq_tile_cols() {
+  return HD == 128 ? 64 : HD;
+}
+
 // Add a warp's staged 16 rows of the dq tile at q0 into the accumulator: one
-// lane issues two TMA reduces (16 rows x 32 columns each) after the warp's
-// stores are fenced for the async proxy.
+// lane issues a TMA reduce per 32 of the tile's columns (16 rows x 32 columns
+// each) after the warp's stores are fenced for the async proxy.
 template <int HD>
 __device__ __forceinline__ void reduce_dq_rows(const CUtensorMap* dq_map, uint32_t slice, int cwg, int q0,
                                                const BwdParams& p) {
@@ -584,8 +593,9 @@ __device__ __forceinline__ void reduce_dq_rows(const CUtensorMap* dq_map, uint32
   if (threadIdx.x % 32 == 0) {
     const int dq_col0 = HD == 128 ? 64 * cwg : 0;
     const int n = blockIdx.y, b = blockIdx.z / p.splits;
-    tma_reduce_add(dq_map, slice, dq_col0, q0 + 16 * warp, n, b);
-    tma_reduce_add(dq_map, slice + 8192, dq_col0 + 32, q0 + 16 * warp, n, b);
+#pragma unroll
+    for (int box = 0; box < dq_tile_cols<HD>() / 32; ++box)
+      tma_reduce_add(dq_map, slice + box * 8192, dq_col0 + 32 * box, q0 + 16 * warp, n, b);
     bulk_commit();
   }
 }
@@ -599,7 +609,8 @@ __device__ __forceinline__ void reduce_dq_rows(const CUtensorMap* dq_map, uint32
 // columns 64w.. over all 128 keys; at H=64 warpgroup w takes its own 64 keys
 // (its half of the tile) over all 64 columns. The tile is written again two q
 // tiles later, after each warpgroup has waited for the dq product that read it
-// (at H=128, after the next tile's barrier, which both pass only then). Each
+// (at H=128, after the next tile's barrier, which both pass only then); at
+// H=32 as at H=64, over all 32 columns. Each
 // warp adds its 16 rows of the dq tile through its slice of the staging tile:
 // its lanes store them at the end of tile i, and reduce_dq_rows adds them
 // once tile i+1's score products are issued (after the loop for the last
@@ -644,9 +655,10 @@ __device__ __forceinline__ void fused_tile(const CUtensorMap* dq_map, const BwdP
 
   float s[kS], dp[kS];
   wgmma_fence();
-  issue_ss<T, HD, kBq, kHalf, L::kQHalf>(s, base + L::kK + cwg * 64 * 128, q_addr);  // s^T = k_r q_s^T
+  constexpr int kRowBytes = TileRow<HD>::kBytes;
+  issue_ss<T, HD, kBq, kHalf, L::kQHalf>(s, base + L::kK + cwg * 64 * kRowBytes, q_addr);  // s^T = k_r q_s^T
   wgmma_commit();
-  issue_ss<T, HD, kBq, kHalf, L::kQHalf>(dp, base + L::kV + cwg * 64 * 128, do_addr);  // dp^T = v dO^T
+  issue_ss<T, HD, kBq, kHalf, L::kQHalf>(dp, base + L::kV + cwg * 64 * kRowBytes, do_addr);  // dp^T = v dO^T
   wgmma_commit();
   // This warp's slice of the staging tile (two boxes of 64 rows x 32 fp32 columns, 128-byte rows with
   // TMA's 128-byte swizzle): its 16 rows from 16*warp.
@@ -696,20 +708,27 @@ __device__ __forceinline__ void fused_tile(const CUtensorMap* dq_map, const BwdP
   if (lane == 0) bulk_wait_read();  // the previous tile's reduces have read this warp's staging slice
   fused_barrier<HD>(cwg);
 
-  // dq = ds k_r: A = ds (q rows x keys) from the ds^T tile, B = k_r (keys x 64 columns), both MN-major.
-  float dq[32];
+  // dq = ds k_r: A = ds (q rows x keys) from the ds^T tile (128-byte rows), B = k_r (keys x kDqCols
+  // columns, in k_r's own rows), both MN-major.
+  constexpr int kDqCols = dq_tile_cols<HD>();
+  float dq[kDqCols / 2];
   const uint64_t dq_a = mnmajor_desc(ds_tile + (kSplitH ? 0 : cwg * 64 * 128), kHalf);
-  const uint64_t dq_b = mnmajor_desc(base + L::kK + (kSplitH ? cwg * kHalf : cwg * 64 * 128), kHalf);
+  const uint64_t dq_b = mnmajor_desc<HD>(base + L::kK + (kSplitH ? cwg * kHalf : cwg * 64 * kRowBytes), kHalf);
   fence_regs<kAcc>(dk);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kDqKeys / 16; ++kk)
-    Wgmma<T>::ss64_mn(dq, dq_a + mnmajor_step(kk), dq_b + mnmajor_step(kk), kk);
+  for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+    if constexpr (kDqCols == 32) {
+      Wgmma<T>::ss32_mn(dq, dq_a + mnmajor_step(kk), dq_b + mnmajor_step<HD>(kk), kk);
+    } else {
+      Wgmma<T>::ss64_mn(dq, dq_a + mnmajor_step(kk), dq_b + mnmajor_step<HD>(kk), kk);
+    }
+  }
   wgmma_commit();
   issue_rs<T, HD, kBq, L::kQHalf>(dk, da, q_addr);  // dk += ds^T q_s
   wgmma_commit();
   wgmma_wait_one();  // dv and dq have landed; dk runs on
-  fence_regs<32>(dq);
+  fence_regs<kDqCols / 2>(dq);
   fence_regs<kAcc>(dv);
   fence_regs<kBq / 16>(pa);
   // Rows 16*warp + lane/4 (+ 8) of the staging slice; columns 8j + c, + 1 in box j / 4, chunk
@@ -717,7 +736,7 @@ __device__ __forceinline__ void fused_tile(const CUtensorMap* dq_map, const BwdP
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kDqCols / 8; ++j) {
       const int chunk = 2 * (j % 4) + (lane % 4) / 2;
       st_shared(slice + (lane / 4 + 8 * r) * 128 + (j / 4) * 8192 + ((chunk ^ (lane / 4)) << 4) + 8 * (lane & 1),
                 dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
@@ -725,8 +744,8 @@ __device__ __forceinline__ void fused_tile(const CUtensorMap* dq_map, const BwdP
   }
 }
 
-// A consumer warpgroup of K5: its q loop over fused_tile. At H=64 the tiles
-// that need no select take the unmasked instantiation, which is faster there;
+// A consumer warpgroup of K5: its q loop over fused_tile. At H=64 and 32 the
+// tiles that need no select take the unmasked instantiation, which is faster there;
 // at H=128 every tile takes the masked one, whose selects cost less than a
 // second copy of the loop body. The CTA's coordinates are read again from
 // blockIdx where they are needed, not held through the loop (a spill at H=128
@@ -762,7 +781,7 @@ __device__ __forceinline__ void fused_consume(const CUtensorMap* dq_map, const B
                                   da, entry, kv_len, list, t0);
     } else {
       const int q0 = (t0 + i) * kBq;
-      if (HD == 64 && rows_all_valid && q0 + kBq <= p.seq_q) {
+      if (HD != 128 && rows_all_valid && q0 + kBq <= p.seq_q) {
         fused_tile<T, HD, false>(dq_map, p, base, cwg, i, q0, rows_valid, dk, dv, pa, da);
       } else {
         fused_tile<T, HD, true>(dq_map, p, base, cwg, i, q0, rows_valid, dk, dv, pa, da);
@@ -1230,7 +1249,7 @@ cudaError_t launch_reduce(const float* dk_part, const float* dv_part, const BwdP
 }
 
 // The branch arguments of the branch entries, checked: the ids (segments), the
-// mask (masks) and the lists (both); every branch at head dims 64 and 128 only.
+// mask (masks) and the lists (both).
 struct BranchArgs {
   int branch;
   const void* q_seg;
@@ -1243,8 +1262,8 @@ struct BranchArgs {
   int list_cells, list_len;
 };
 
-bool apply_branch(BwdParams* p, const BranchArgs& a, int head_dim) {
-  if (a.branch < kNone || a.branch > kMask || (a.branch != kNone && head_dim == 32)) return false;
+bool apply_branch(BwdParams* p, const BranchArgs& a) {
+  if (a.branch < kNone || a.branch > kMask) return false;
   if (listed(a.branch) && (a.tiles == nullptr || a.tile_counts == nullptr || a.list_cells < 1 || a.list_len < 1))
     return false;
   if (a.branch == kSegment && (a.q_seg == nullptr || a.kv_seg == nullptr)) return false;
@@ -1272,9 +1291,7 @@ int dkdv_entry(const void* q_s, const void* k_r, const void* v, const void* dout
                float* dq_acc, int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype,
                const int64_t* strides, int64_t rope_sn, int splits, int q_tiles_per_split, void* stream,
                const BranchArgs& branch = BranchArgs{}) {
-  // H=32: K2 and its reduce pass only (K5 and the branches at H=32 are still to port, ROADMAP.md queue 2 item 5).
-  const bool narrow = head_dim == 32 && !FUSED && BR == kNone;
-  if ((head_dim != 64 && head_dim != 128 && !narrow) || (dtype != 0 && dtype != 1) || splits < 1 ||
+  if (!takes(dtype, head_dim) || splits < 1 ||
       q_tiles_per_split < 1 || (splits > 1 && partials == nullptr) || (FUSED && dq_acc == nullptr) ||
       branch.branch != BR)
     return cudaErrorInvalidValue;
@@ -1288,7 +1305,7 @@ int dkdv_entry(const void* q_s, const void* k_r, const void* v, const void* dout
                            (int64_t)seq_q * head_dim, head_dim))
     return cudaErrorInvalidValue;
   BwdParams p = make_params(lse, delta, kv_lens, rope_cos, rope_sin, batch, heads, seq_q, seq_kv, rope_sn);
-  if (!apply_branch(&p, branch, head_dim)) return cudaErrorInvalidValue;
+  if (!apply_branch(&p, branch)) return cudaErrorInvalidValue;
   p.dk = dk;
   p.dv = dv;
   p.dq_acc = dq_acc;
@@ -1304,26 +1321,15 @@ int dkdv_entry(const void* q_s, const void* k_r, const void* v, const void* dout
     k2.dv = const_cast<float*>(dv_part);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if constexpr (!FUSED && BR == kNone) {
-    if (narrow) {
-      err = dtype == 0 ? launch_dkdv<__nv_bfloat16, 32, false>(maps, k2, s) : launch_dkdv<__half, 32, false>(maps, k2, s);
-      if (err != cudaSuccess || splits == 1) return err;
-      p.splits = splits;
-      return dtype == 0 ? launch_reduce<__nv_bfloat16, 32>(dk_part, dv_part, p, s)
-                        : launch_reduce<__half, 32>(dk_part, dv_part, p, s);
-    }
-  }
-  if (dtype == 0 && head_dim == 64) err = launch_dkdv<__nv_bfloat16, 64, FUSED, BR>(maps, k2, s);
-  else if (dtype == 0) err = launch_dkdv<__nv_bfloat16, 128, FUSED, BR>(maps, k2, s);
-  else if (head_dim == 64) err = launch_dkdv<__half, 64, FUSED, BR>(maps, k2, s);
-  else err = launch_dkdv<__half, 128, FUSED, BR>(maps, k2, s);
-  if (err != cudaSuccess || splits == 1) return err;
   p.splits = splits;
-  if (dtype == 0 && head_dim == 64) return launch_reduce<__nv_bfloat16, 64>(dk_part, dv_part, p, s);
-  if (dtype == 0) return launch_reduce<__nv_bfloat16, 128>(dk_part, dv_part, p, s);
-  if (head_dim == 64) return launch_reduce<__half, 64>(dk_part, dv_part, p, s);
-  return launch_reduce<__half, 128>(dk_part, dv_part, p, s);
+  // K2 (or K5), then the reduce pass where the q loop is split, at (T, HD).
+  auto run = [&](auto type, auto hd) {
+    using T = typename decltype(type)::type;
+    constexpr int HD = decltype(hd)::value;
+    const cudaError_t err = launch_dkdv<T, HD, FUSED, BR>(maps, k2, s);
+    return err != cudaSuccess || splits == 1 ? err : launch_reduce<T, HD>(dk_part, dv_part, p, s);
+  };
+  return by_type(dtype, head_dim, run);
 }
 
 // K3's host path: the maps and K3 (or its branch BR).
@@ -1332,26 +1338,20 @@ int dq_entry(const void* q_s, const void* k_r, const void* v, const void* dout, 
              const void* kv_lens, const void* rope_cos, const void* rope_sin, void* dq, int batch, int heads, int seq_q,
              int seq_kv, int head_dim, int dtype, const int64_t* strides, int64_t rope_sn, float scale, void* stream,
              const BranchArgs& branch = BranchArgs{}) {
-  const bool narrow = head_dim == 32 && BR == kNone;
-  if ((head_dim != 64 && head_dim != 128 && !narrow) || (dtype != 0 && dtype != 1) || branch.branch != BR)
-    return cudaErrorInvalidValue;
+  if (!takes(dtype, head_dim) || branch.branch != BR) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
   if (!encode_maps(maps, q_s, k_r, v, dout, dtype, batch, heads, seq_q, seq_kv, head_dim, kBlockRows, kBlockKv,
                    strides))
     return cudaErrorInvalidValue;
   BwdParams p = make_params(lse, delta, kv_lens, rope_cos, rope_sin, batch, heads, seq_q, seq_kv, rope_sn);
-  if (!apply_branch(&p, branch, head_dim)) return cudaErrorInvalidValue;
+  if (!apply_branch(&p, branch)) return cudaErrorInvalidValue;
   p.dk = dq;
   p.dk_sb = strides[12]; p.dk_sn = strides[13]; p.dk_ss = strides[14];
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (BR == kNone) {
-    if (narrow) return dtype == 0 ? launch_dq<__nv_bfloat16, 32>(maps, p, s) : launch_dq<__half, 32>(maps, p, s);
-  }
-  if (dtype == 0 && head_dim == 64) return launch_dq<__nv_bfloat16, 64, BR>(maps, p, s);
-  if (dtype == 0) return launch_dq<__nv_bfloat16, 128, BR>(maps, p, s);
-  if (head_dim == 64) return launch_dq<__half, 64, BR>(maps, p, s);
-  return launch_dq<__half, 128, BR>(maps, p, s);
+  return by_type(dtype, head_dim, [&](auto type, auto hd) {
+    return launch_dq<typename decltype(type)::type, decltype(hd)::value, BR>(maps, p, s);
+  });
 }
 
 }  // namespace
@@ -1359,7 +1359,7 @@ int dq_entry(const void* q_s, const void* k_r, const void* v, const void* dout, 
 // Plain C entry points, loaded with ctypes. q_s and k_r are the pre-pass's
 // operands (k itself when there are no RoPE tables); dtype: 0 = bf16, 1 = fp16;
 // strides in elements, the head dim contiguous and every operand 16-byte
-// aligned; head_dim 64 or 128, and 32 for K2 (with its reduce pass) and K3.
+// aligned; head_dim 32, 64 or 128.
 // Each returns a cudaError_t (cudaErrorInvalidValue also when a
 // tensor map cannot be encoded).
 
@@ -1369,7 +1369,7 @@ int dq_entry(const void* q_s, const void* k_r, const void* v, const void* dout, 
 // to whole tiles), the padded uint8 mask with its batch and row strides (K2's
 // and K5's transposed, a row per key), and the live-tile lists (per batch
 // list_cells cells of list_len entries, K2's and K5's per key tile, K3's per
-// 128-row q tile) with their counts. Head dims 64 and 128.
+// 128-row q tile) with their counts.
 #define BRANCH_PARAMS                                                                                           \
   int branch, const void *q_seg, const void *kv_seg, int64_t q_seg_len, int64_t kv_seg_len, const void *mask, \
       int64_t mask_sb, int64_t mask_ss, const void *tiles, const void *tile_counts, int list_cells, int list_len

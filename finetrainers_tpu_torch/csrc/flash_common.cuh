@@ -1,7 +1,8 @@
 // Device helpers shared by the attention kernels (flash_fwd_sm90.cu: K1 and
 // K7a-c, flash_bwd_sm90.cu: K2, K3, K5, flash_bwd.cu: the pre-pass, K5's dq
 // emit, sage_fwd_sm90.cu: K6 and its pre-pass): bf16/fp16 packing and rounding,
-// the base-2 exponential, the fused interleaved-pair RoPE and its transpose.
+// the base-2 exponential, the fused interleaved-pair RoPE and its transpose;
+// host side, the (dtype, head dim) dispatch of the C entries (`by_type`).
 // `ops/_build.py` hashes every header of csrc/ into each library's name, so an
 // edit here rebuilds them all.
 
@@ -11,6 +12,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -45,6 +48,29 @@ struct Ops<__half> {
   }
   static __device__ __forceinline__ float round(float x) { return __half2float(__float2half_rn(x)); }
 };
+
+// Host side: fn(TypeTag<T>{}, std::integral_constant<int, HD>{}) at the
+// (dtype, head_dim) the caller has checked: bf16 (0) or fp16 (1), head dim 32,
+// 64 or 128. The kernels' C entries dispatch through it.
+template <typename T>
+struct TypeTag {
+  using type = T;
+};
+inline bool takes(int dtype, int head_dim) {
+  return (dtype == 0 || dtype == 1) && (head_dim == 32 || head_dim == 64 || head_dim == 128);
+}
+template <typename Fn>
+cudaError_t by_type(int dtype, int head_dim, Fn fn) {
+  using std::integral_constant;
+  if (dtype == 0) {
+    if (head_dim == 32) return fn(TypeTag<__nv_bfloat16>{}, integral_constant<int, 32>{});
+    if (head_dim == 64) return fn(TypeTag<__nv_bfloat16>{}, integral_constant<int, 64>{});
+    return fn(TypeTag<__nv_bfloat16>{}, integral_constant<int, 128>{});
+  }
+  if (head_dim == 32) return fn(TypeTag<__half>{}, integral_constant<int, 32>{});
+  if (head_dim == 64) return fn(TypeTag<__half>{}, integral_constant<int, 64>{});
+  return fn(TypeTag<__half>{}, integral_constant<int, 128>{});
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -57,10 +57,11 @@
 //    (K-major: H is contiguous). The softmax recurrence runs in fp32 registers
 //    on the accumulator fragments; p, rounded to T, stays in registers as the A
 //    operand of P V (m64nHk16, v from shared memory, MN-major).
-//  - At H=32 (K1 only) a row of q, k or v is 64 bytes: TMA writes each tile as
-//    one box under the 64-byte swizzle, the descriptors take that layout (8-row
-//    groups 512 bytes apart), QK^T is two k16 steps and P V is m64n32k16, with
-//    three consumers as at H=64. A score there costs 128 tensor flops but one
+//  - At H=32 a row of q, k or v is 64 bytes: TMA writes each tile as one box
+//    under the 64-byte swizzle, the descriptors take that layout (8-row groups
+//    512 bytes apart; a row offset, as K7b's second 64-key half or a consumer's
+//    q rows, steps 64 bytes a row), QK^T is two k16 steps and P V is m64n32k16,
+//    with K1's and K7a's three consumers as at H=64 (K7c's and K7b's two). A score there costs 128 tensor flops but one
 //    exponential, so the SFU's ~16 exp2 per SM per clock, not the tensor
 //    cores, bound the kernel (PERF.md).
 //  - Inside a warpgroup, tile t's QK^T is issued together with tile t-1's P V,
@@ -611,18 +612,19 @@ __device__ __forceinline__ void produce_twopass(const CUtensorMap* q_map, const 
                                                 const CUtensorMap* v_map, uint32_t base, int q0, int n, int b,
                                                 int num_tiles, const int* tiles = nullptr) {
   using L = Layout<HD>;
+  using R = TileRow<HD>;
   const uint32_t q_full = base + L::kBars;
   mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
-  for (int h = 0; h < HD / 64; ++h) tma_load(base + L::kQ + h * kHalfBytes, q_map, q_full, h * 64, q0, n, b);
+  for (int h = 0; h < R::kBoxes; ++h) tma_load(base + L::kQ + h * kHalfBytes, q_map, q_full, h * R::kCols, q0, n, b);
   // One tile of `map` into `slot` at its `use`-th load, once the consumers have released the slot.
   auto load = [&](const CUtensorMap* map, int slot, int use, int t) {
     const uint32_t full = q_full + 8 * (1 + slot), empty = full + 8 * kSlots;
     mbar_wait(empty, (use & 1) ^ 1);  // the first round finds every slot free
     mbar_expect_tx(full, L::kTileBytes);
 #pragma unroll
-    for (int h = 0; h < HD / 64; ++h)
-      tma_load(base + L::kK + slot * L::kTileBytes + h * kHalfBytes, map, full, h * 64,
+    for (int h = 0; h < R::kBoxes; ++h)
+      tma_load(base + L::kK + slot * L::kTileBytes + h * kHalfBytes, map, full, h * R::kCols,
                (tiles == nullptr ? t : tiles[t] & (kFullTile - 1)) * kBlockN, n, b);
   };
   for (int t = 0; t < num_tiles; ++t) load(k_map, t % kSlots, t / kSlots, t);
@@ -760,7 +762,7 @@ __device__ __forceinline__ void consume_twopass(const Params& p, uint32_t base, 
 
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
-  const uint32_t q_addr = base + L::kQ + cwg * 64 * 128;
+  const uint32_t q_addr = base + L::kQ + cwg * 64 * TileRow<HD>::kBytes;
   mbar_wait(q_full, 0);
   if (num_tiles > 0) {  // pass A: k loads 0 .. num_tiles - 1
     float sa[64], sb[64];  // two score tiles, used in turn: tile t's scores are in sa at the top of a trip
@@ -965,7 +967,7 @@ __device__ __forceinline__ void consume_two_level(const Params& p, uint32_t base
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // this thread's partial row sums; reduced over the quad at the end
 
-  const uint32_t q_addr = base + L::kQ + cwg * 64 * 128;
+  const uint32_t q_addr = base + L::kQ + cwg * 64 * TileRow<HD>::kBytes;
   mbar_wait(q_full, 0);
   if (num_tiles > 0) {
     float s[64], pv[kOut], alpha[2], beta[2];
@@ -1005,22 +1007,26 @@ constexpr int kSkewKeys = 64;
 // chunks inside a row, which an elementwise scale does not see.
 template <typename T, int HD>
 __device__ __forceinline__ void scale_q_rows(unsigned char* q_tile, int cwg, float mul) {
-  for (int i = threadIdx.x % 128; i < HD / 64 * 64 * 8; i += 128) {  // (half, row, 16-byte chunk)
-    uint4* at = reinterpret_cast<uint4*>(q_tile + i / 512 * kHalfBytes + (64 * cwg + i / 8 % 64) * 128 + i % 8 * 16);
+  using R = TileRow<HD>;
+  constexpr int kPerRow = R::kBytes / 16;  // 16-byte chunks of a box row
+  for (int i = threadIdx.x % 128; i < R::kBoxes * 64 * kPerRow; i += 128) {  // (box, row, chunk)
+    const int box = i / (64 * kPerRow), row = i / kPerRow % 64, chunk = i % kPerRow;
+    uint4* at = reinterpret_cast<uint4*>(q_tile + box * kHalfBytes + (64 * cwg + row) * R::kBytes + chunk * 16);
     *at = rope_scale_8<T>(*at, nullptr, nullptr, mul);
   }
 }
 
 // K7b's ring, in score tiles of kSkewKeys keys: tile w lies in stage (w /
-// kPer) % kStages at row (w % kPer) * kSkewKeys; a stage is released after
-// its last tile.
+// kPer) % kStages at row (w % kPer) * kSkewKeys (rows of TileRow<HD>::kBytes);
+// a stage is released after its last tile.
+template <int HD>
 struct SkewRing {
   static constexpr int kPer = kBlockN / kSkewKeys;  // score tiles per stage
   uint32_t base, q_full;
   int num_sub;
   __device__ __forceinline__ int stage(int w) const { return w / kPer % kStages; }
   __device__ __forceinline__ uint32_t parity(int w) const { return (w / kPer / kStages) & 1; }
-  __device__ __forceinline__ uint32_t row(int w) const { return w % kPer * kSkewKeys * 128; }
+  __device__ __forceinline__ uint32_t row(int w) const { return w % kPer * kSkewKeys * TileRow<HD>::kBytes; }
   __device__ __forceinline__ bool last_in_stage(int w) const { return w % kPer == kPer - 1 || w == num_sub - 1; }
   __device__ __forceinline__ uint32_t k_full(int w) const { return q_full + 8 * (1 + stage(w)); }
   __device__ __forceinline__ uint32_t v_full(int w) const { return q_full + 8 * (1 + kStages + stage(w)); }
@@ -1036,7 +1042,7 @@ struct SkewRing {
 // the (w % 2)-th 64-key half of the list's entry w / 2.
 template <typename T, int HD, bool LAST, int B = kNone>
 __device__ __forceinline__ void skew_step(float* cur, float* prev, uint32_t (*pa)[4], float* o, float* m, float* l,
-                                          const SkewRing& ring, uint32_t q_addr, int u, int kv_len, int lane,
+                                          const SkewRing<HD>& ring, uint32_t q_addr, int u, int kv_len, int lane,
                                           const Params& p, int cwg) {
   using L = Layout<HD, consumer_wgs<HD, kSkew>()>;
   constexpr int kSub = kSkewKeys;
@@ -1050,8 +1056,8 @@ __device__ __forceinline__ void skew_step(float* cur, float* prev, uint32_t (*pa
   }
   float alpha[2], rowsum[2];
   if constexpr (B != kNone) {
-    variant_select<HD, kSkew, B, kSub>(p, prev, tile_entry<B>(p, w / SkewRing::kPer), w % SkewRing::kPer * kSub, cwg,
-                                       kv_len, lane);
+    variant_select<HD, kSkew, B, kSub>(p, prev, tile_entry<B>(p, w / SkewRing<HD>::kPer),
+                                       w % SkewRing<HD>::kPer * kSub, cwg, kv_len, lane);
     softmax_step<kSub>(prev, m, alpha, rowsum, 0, 0x7fffffff, lane);
   } else {
     softmax_step<kSub>(prev, m, alpha, rowsum, w * kSub, kv_len, lane);
@@ -1088,14 +1094,15 @@ __device__ __forceinline__ void consume_skew(const Params& p, uint32_t base, uns
   using L = Layout<HD, consumer_wgs<HD, kSkew>()>;
   constexpr int kSub = kSkewKeys;
   const int lane = threadIdx.x % 32;
-  const SkewRing ring{base, base + L::kBars, B == kNone ? (kv_len + kSub - 1) / kSub : SkewRing::kPer * num_tiles};
+  const SkewRing<HD> ring{base, base + L::kBars,
+                          B == kNone ? (kv_len + kSub - 1) / kSub : SkewRing<HD>::kPer * num_tiles};
 
   float o[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
-  const uint32_t q_addr = base + L::kQ + cwg * 64 * 128;
+  const uint32_t q_addr = base + L::kQ + cwg * 64 * TileRow<HD>::kBytes;
   mbar_wait(ring.q_full, 0);
   scale_q_rows<T, HD>(smem + L::kQ, cwg, p.q_scale);
   fence_proxy_async();  // the scaled rows, visible to wgmma
@@ -1248,11 +1255,9 @@ int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* 
               void* stream, const void* mask = nullptr, const void* tiles = nullptr, const void* tile_counts = nullptr,
               int q_tiles = 0, int kv_tiles = 0, const void* q_seg = nullptr, const void* kv_seg = nullptr,
               int64_t q_seg_len = 0, int64_t kv_seg_len = 0) {
-  // H=32: K1 only (K7a/b/c and the branches at H=32 are still to port, ROADMAP.md queue 2 item 5).
-  const bool narrow = head_dim == 32 && S == kStraight && B == kNone;
-  if ((head_dim != 64 && head_dim != 128 && !narrow) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  if (!takes(dtype, head_dim)) return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
-  const int q_rows = narrow ? block_m<32, S>() : head_dim == 64 ? block_m<64, S>() : block_m<128, S>();
+  const int q_rows = head_dim == 32 ? block_m<32, S>() : head_dim == 64 ? block_m<64, S>() : block_m<128, S>();
   if (!encode_operand(&q_map, q_s, dtype, head_dim, seq_q, heads, batch, q_rows, strides[0], strides[1], strides[2]) ||
       !encode_operand(&k_map, k_r, dtype, head_dim, seq_kv, heads, batch, kBlockN, strides[3], strides[4],
                       strides[5]) ||
@@ -1285,14 +1290,9 @@ int fwd_entry(const void* q_s, const void* k_r, const void* v, void* out, void* 
                         kv_seg_len < (int64_t)kv_tiles * kBlockN))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (S == kStraight && B == kNone) {
-    if (narrow && dtype == 0) return launch<__nv_bfloat16, 32, S, B>(q_map, k_map, v_map, p, batch, s);
-    if (narrow) return launch<__half, 32, S, B>(q_map, k_map, v_map, p, batch, s);
-  }
-  if (dtype == 0 && head_dim == 64) return launch<__nv_bfloat16, 64, S, B>(q_map, k_map, v_map, p, batch, s);
-  if (dtype == 0) return launch<__nv_bfloat16, 128, S, B>(q_map, k_map, v_map, p, batch, s);
-  if (head_dim == 64) return launch<__half, 64, S, B>(q_map, k_map, v_map, p, batch, s);
-  return launch<__half, 128, S, B>(q_map, k_map, v_map, p, batch, s);
+  return by_type(dtype, head_dim, [&](auto type, auto hd) {
+    return launch<typename decltype(type)::type, decltype(hd)::value, S, B>(q_map, k_map, v_map, p, batch, s);
+  });
 }
 
 }  // namespace
@@ -1323,7 +1323,7 @@ extern "C" int flash_fwd_segment_sm90(const void* q_s, const void* k_r, const vo
 
 // The mask branch: K1's arguments without kv_lens, then the padded mask, the
 // live-tile lists and counts, and the q and key tile counts (see Params; the
-// q tile is 128 rows at head dim 128, 192 at 64).
+// q tile is 128 rows at head dim 128, 192 at 64 and 32).
 extern "C" int flash_fwd_mask_sm90(const void* q_s, const void* k_r, const void* v, void* out, void* lse,
                                    const void* mask, const void* tiles, const void* tile_counts, int batch, int heads,
                                    int seq_q, int seq_kv, int head_dim, int dtype, const int64_t* strides, int q_tiles,
@@ -1365,7 +1365,7 @@ extern "C" int flash_fwd_variant_branch_sm90(int step, int branch, const void* q
 // takes the raw q and k and scales q by `q_scale` (scale * log2(e)) itself.
 // dtype: 0 = bf16, 1 = fp16; strides: q_s, k_r, v, out, each (batch, head,
 // seq), in elements; the head dim is contiguous and every operand 16-byte
-// aligned; head_dim 64 or 128, and 32 for K1. Each returns a cudaError_t
+// aligned; head_dim 32, 64 or 128. Each returns a cudaError_t
 // (cudaErrorInvalidValue also when a tensor map cannot be encoded).
 #define FWD_ENTRY(NAME, S)                                                                                      \
   extern "C" int NAME(const void* q_s, const void* k_r, const void* v, void* out, void* lse, const void* kv_lens, \

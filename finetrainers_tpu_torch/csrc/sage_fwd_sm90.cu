@@ -59,7 +59,7 @@
 //  - K6 follows K1 (flash_fwd_sm90.cu): warpgroup 0 gives up its registers
 //    (setmaxnreg) and its first warp loads, lane 0 issuing every TMA copy; the
 //    consumer warpgroups own 64 q rows each (two at H=128 with 240 registers,
-//    three at H=64 with 160). The q-code tile is loaded once; a ring of
+//    three at H=64 and H=32 with 160). The q-code tile is loaded once; a ring of
 //    kStages stages holds {k codes, v, k scales} of 128 keys each, up to the
 //    last tile that holds a valid key, so dead tiles are never loaded.
 //  - QK^T is wgmma m64n128k32 s32.s8.s8 with both operands in shared memory,
@@ -67,7 +67,10 @@
 //    k-step of 32 codes is 32 bytes, the byte step of K1's bf16 k16. At H=128
 //    an int8 row is one 128-byte swizzle row, so a tile is one TMA box; at
 //    H=64 it is 64 bytes and takes the 64-byte swizzle (8-row groups 512 bytes
-//    apart).
+//    apart); at H=32 it is 32 bytes, the 32-byte swizzle (8-row groups 256
+//    bytes apart), and one k-step covers the whole contraction. The v tile is
+//    K1's: at H=32 one box of 64-byte rows under the 64-byte swizzle, P V
+//    m64n32k16.
 //  - The s32 accumulator fragment has the register layout of the f32 one: it
 //    is converted in place and multiplied by each column's k scale (the
 //    producer's lanes stage a stage's 128 scales in shared memory beside its
@@ -313,10 +316,11 @@ constexpr int kBlockN = 128;  // keys per stage
 constexpr int kStages = 2;
 constexpr int kProducerRegs = 24;
 // Consumer warpgroups per CTA, each owning 64 q rows, and their registers
-// after setmaxnreg: as K1 (three at H=64 with 160, two at H=128 with 240).
+// after setmaxnreg: as K1 (three at H=64 and H=32 with 160, two at H=128 with
+// 240).
 template <int HD>
 __host__ __device__ constexpr int consumer_wgs() {
-  return HD == 64 ? 3 : 2;
+  return HD <= 64 ? 3 : 2;
 }
 template <int HD>
 __host__ __device__ constexpr int block_m() {
@@ -328,9 +332,9 @@ __host__ __device__ constexpr int threads() {
 }
 template <int HD>
 __host__ __device__ constexpr int consumer_regs() {
-  return HD == 64 ? 160 : 240;
+  return HD <= 64 ? 160 : 240;
 }
-constexpr int kHalfBytes = 128 * 128;  // a 64-column half of a 128-row v tile: one TMA box
+constexpr int kHalfBytes = 128 * 128;  // a 64-column half of a 128-row v tile: one TMA box (H >= 64)
 
 // Byte offsets in shared memory (from a 1024-byte aligned base): the q-code
 // tile, kStages k-code tiles, kStages v tiles, kStages rows of k scales, then
@@ -340,7 +344,7 @@ template <int HD>
 struct Layout {
   static constexpr int kQBytes = block_m<HD>() * HD;
   static constexpr int kKBytes = kBlockN * HD;
-  static constexpr int kVBytes = HD / 64 * kHalfBytes;
+  static constexpr int kVBytes = kBlockN * HD * 2;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kStages * kKBytes;
@@ -352,10 +356,13 @@ struct Layout {
 
 // The descriptor of K-major int8 codes, rows of HD bytes: the 128-byte swizzle
 // at HD=128 (8-row groups 1024 bytes apart), the 64-byte one at HD=64 (512
-// apart). A k-step of 32 codes moves the start 32 bytes inside the row.
+// apart), the 32-byte one at HD=32 (256 apart). A k-step of 32 codes moves the
+// start 32 bytes inside the row.
 template <int HD>
 __device__ __forceinline__ uint64_t code_desc(uint32_t addr) {
-  return HD == 128 ? smem_desc(addr, 16, 1024, 1) : smem_desc(addr, 16, 512, 2);
+  if constexpr (HD == 128) return smem_desc(addr, 16, 1024, 1);
+  if constexpr (HD == 64) return smem_desc(addr, 16, 512, 2);
+  return smem_desc(addr, 16, 256, 3);
 }
 
 // d (64 x 128, s32) = A B^T over HD codes: A's 64 rows at `a_addr`, B's 128
@@ -428,10 +435,11 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map, const CUtensor
     mbar_arrive(k_full);
     mbar_wait(v_empty, parity);
     if (lane == 0) {
+      using R = TileRow<HD>;
       mbar_expect_tx(v_full, L::kVBytes);
 #pragma unroll
-      for (int h = 0; h < HD / 64; ++h)
-        tma_load(base + L::kV + st * L::kVBytes + h * kHalfBytes, v_map, v_full, h * 64, t * kBlockN, n, b);
+      for (int h = 0; h < R::kBoxes; ++h)
+        tma_load(base + L::kV + st * L::kVBytes + h * kHalfBytes, v_map, v_full, h * R::kCols, t * kBlockN, n, b);
     }
   }
 }
@@ -561,8 +569,8 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, const un
       if (lane == 0) mbar_arrive(v_empty(prev));
       // At H=128 the 64 rescales are skipped where neither row's max moved
       // (alpha is exactly 1, so nothing changes): 6-9% faster at Wan's shape.
-      // At H=64 the test costs more than the 32 multiplies it would save.
-      if (HD == 64 || alpha[0] != 1.f || alpha[1] != 1.f) {
+      // At H=64 and 32 the test costs more than the 32 or 16 multiplies it would save.
+      if (HD <= 64 || alpha[0] != 1.f || alpha[1] != 1.f) {
 #pragma unroll
         for (int i = 0; i < kOut; ++i) o[i] *= alpha[(i >> 1) & 1];
       }
@@ -651,9 +659,11 @@ cudaError_t launch_fwd(const CUtensorMap* maps, const Params& p, int batch, cuda
 // swizzle the wgmma descriptor reads (code_desc).
 bool encode_codes(CUtensorMap* map, const void* ptr, int head_dim, int seq, int heads, int batch, int box_rows,
                   const int64_t* strides) {
-  return encode_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, head_dim,
-                    head_dim == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B, head_dim, seq, heads,
-                    batch, box_rows, strides[0], strides[1], strides[2]);
+  const CUtensorMapSwizzle swizzle = head_dim == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : head_dim == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, head_dim, swizzle, head_dim, seq, heads, batch,
+                    box_rows, strides[0], strides[1], strides[2]);
 }
 
 }  // namespace
@@ -671,7 +681,7 @@ extern "C" int sage_prep(const void* q, const void* k, const void* kv_lens, cons
                          const void* rope_sin, void* q_codes, void* k_codes, void* q_scales, void* k_scales,
                          void* scratch, int batch, int heads, int seq_q, int seq_kv, int head_dim, int dtype,
                          const int64_t* strides, int64_t rope_sn, int sum_rows, void* stream) {
-  if ((head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1) || sum_rows < 1 || seq_kv < 1 ||
+  if (!takes(dtype, head_dim) || sum_rows < 1 || seq_kv < 1 ||
       (rope_cos != nullptr && seq_q != seq_kv) ||
       (int64_t)batch * heads * (seq_q > seq_kv ? seq_q : seq_kv) + 32 * kWarpRows >= (int64_t)1 << 31)
     return cudaErrorInvalidValue;
@@ -697,10 +707,9 @@ extern "C" int sage_prep(const void* q, const void* k, const void* kv_lens, cons
   p.k_sb = strides[3]; p.k_sn = strides[4]; p.k_ss = strides[5];
   p.rope_sn = rope_sn;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_prep<__nv_bfloat16, 64>(p, s);
-  if (dtype == 0) return launch_prep<__nv_bfloat16, 128>(p, s);
-  if (head_dim == 64) return launch_prep<__half, 64>(p, s);
-  return launch_prep<__half, 128>(p, s);
+  return by_type(dtype, head_dim, [&](auto type, auto hd) {
+    return launch_prep<typename decltype(type)::type, decltype(hd)::value>(p, s);
+  });
 }
 
 // K6. strides: q codes, k codes, v, out, each (batch, head, seq); the codes'
@@ -709,8 +718,8 @@ extern "C" int sage_prep(const void* q, const void* k, const void* kv_lens, cons
 extern "C" int sage_fwd_sm90(const void* q_codes, const void* k_codes, const void* q_scales, const void* k_scales,
                              const void* v, void* out, const void* kv_lens, int batch, int heads, int seq_q,
                              int seq_kv, int head_dim, int dtype, const int64_t* strides, float qscale, void* stream) {
-  if ((head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
-  const int q_rows = head_dim == 64 ? block_m<64>() : block_m<128>();
+  if (!takes(dtype, head_dim)) return cudaErrorInvalidValue;
+  const int q_rows = head_dim == 128 ? block_m<128>() : block_m<64>();
   CUtensorMap maps[3];
   if (!encode_codes(&maps[0], q_codes, head_dim, seq_q, heads, batch, q_rows, strides) ||
       !encode_codes(&maps[1], k_codes, head_dim, seq_kv, heads, batch, kBlockN, strides + 3) ||
@@ -727,8 +736,7 @@ extern "C" int sage_fwd_sm90(const void* q_codes, const void* k_codes, const voi
   p.o_sb = strides[9]; p.o_sn = strides[10]; p.o_ss = strides[11];
   p.qscale = qscale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_fwd<__nv_bfloat16, 64>(maps, p, batch, s);
-  if (dtype == 0) return launch_fwd<__nv_bfloat16, 128>(maps, p, batch, s);
-  if (head_dim == 64) return launch_fwd<__half, 64>(maps, p, batch, s);
-  return launch_fwd<__half, 128>(maps, p, batch, s);
+  return by_type(dtype, head_dim, [&](auto type, auto hd) {
+    return launch_fwd<typename decltype(type)::type, decltype(hd)::value>(maps, p, batch, s);
+  });
 }

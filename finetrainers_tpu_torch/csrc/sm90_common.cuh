@@ -103,16 +103,33 @@ __device__ __forceinline__ void st_shared(uint32_t addr, float x, float y) {
 // operand reads, TMA), and order them before the proxy's later writes.
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
-// Zero the rows [row_begin, row_end) of a 128-row tile of HD / 64 halves (each
-// 128 rows of 128 bytes, kHalf bytes apart): the swizzle permutes 16-byte
-// chunks inside a row, so whole rows are zeroed wherever they lie. `tid` and
-// `threads` spread the 16-byte stores.
+// The row of an operand tile of HD 2-byte columns in shared memory, as TMA
+// writes it and wgmma reads it: at H >= 64 a 64-column half of the row (128
+// bytes, the 128-byte swizzle; a tile is H / 64 such halves, a half's bytes
+// apart); at H = 32 the whole row (64 bytes, the 64-byte swizzle; one box).
+// kLayout is the descriptor's swizzle field.
+template <int HD>
+struct TileRow {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "the wgmma kernels take head dims 32, 64 and 128");
+  static constexpr int kBytes = HD >= 64 ? 128 : 2 * HD;
+  static constexpr int kCols = kBytes / 2;  // columns of one TMA box
+  static constexpr int kBoxes = HD / kCols;
+  static constexpr uint64_t kLayout = HD >= 64 ? 1 : 2;
+};
+
+// Zero the rows [row_begin, row_end) of a 128-row operand tile of HD columns
+// as TMA writes it (TileRow<HD>: kBoxes boxes, HALF bytes apart, of kBytes-byte
+// rows): the swizzle permutes 16-byte chunks inside a row, so whole rows are
+// zeroed wherever they lie. `tid` and `threads` spread the 16-byte stores.
 template <int HD, int HALF>
 __device__ __forceinline__ void zero_tile_rows(unsigned char* tile, int row_begin, int row_end, int tid, int threads) {
-  constexpr int kChunks = 8 * (HD / 64);  // 16-byte chunks of a row
+  using R = TileRow<HD>;
+  constexpr int kPerRow = R::kBytes / 16;       // 16-byte chunks of a box row
+  constexpr int kChunks = kPerRow * R::kBoxes;  // ... of a tile row
   for (int idx = row_begin * kChunks + tid; idx < row_end * kChunks; idx += threads) {
     const int row = idx / kChunks, chunk = idx % kChunks;
-    *reinterpret_cast<uint4*>(tile + (chunk / 8) * HALF + row * 128 + (chunk % 8) * 16) = make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(tile + (chunk / kPerRow) * HALF + row * R::kBytes + (chunk % kPerRow) * 16) =
+        make_uint4(0, 0, 0, 0);
   }
 }
 
@@ -150,20 +167,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
 }
-
-// The row of an operand tile of HD 2-byte columns in shared memory, as TMA
-// writes it and wgmma reads it: at H >= 64 a 64-column half of the row (128
-// bytes, the 128-byte swizzle; a tile is H / 64 such halves, a half's bytes
-// apart); at H = 32 the whole row (64 bytes, the 64-byte swizzle; one box).
-// kLayout is the descriptor's swizzle field.
-template <int HD>
-struct TileRow {
-  static_assert(HD == 32 || HD == 64 || HD == 128, "the wgmma kernels take head dims 32, 64 and 128");
-  static constexpr int kBytes = HD >= 64 ? 128 : 2 * HD;
-  static constexpr int kCols = kBytes / 2;  // columns of one TMA box
-  static constexpr int kBoxes = HD / kCols;
-  static constexpr uint64_t kLayout = HD >= 64 ? 1 : 2;
-};
 
 // K-major operand (rows are M or N, the columns the contraction dim): 8-row
 // groups are 8 rows apart (1024 bytes under the 128-byte swizzle, 512 under
@@ -220,8 +223,8 @@ __device__ __forceinline__ uint32_t mnmajor_step(int kk) {
 //         registers are outputs only, so their old values need not stay live.
 //  rs32 / rs64 / rs128: d (64 x 32 / 64 / 128) (+)= A (64 x 16, registers) B (16 x N, smem, MN-major);
 //         scale_d 0 overwrites d.
-//  ss64_mn: d (64 x 64) (+)= A (64 x 16, smem) B (16 x 64, smem), both MN-major
-//         (A's 64 rows contiguous along each contraction row).
+//  ss64_mn / ss32_mn: d (64 x 64 / 32) (+)= A (64 x 16, smem) B (16 x N, smem), both
+//         MN-major (A's 64 rows contiguous along each contraction row).
 #define DEFINE_WGMMA(TY)                                                                                         \
   static __device__ __forceinline__ void ss64(float* d, uint64_t a, uint64_t b, int scale_d) {                  \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                    \
@@ -251,6 +254,12 @@ __device__ __forceinline__ uint32_t mnmajor_step(int kk) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                    \
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " REGS32 ", %32, %33, p, 1, 1, 1, 1;\n}\n" \
                  : ACC32                                                                                         \
+                 : "l"(a), "l"(b), "r"(scale_d));                                                                \
+  }                                                                                                              \
+  static __device__ __forceinline__ void ss32_mn(float* d, uint64_t a, uint64_t b, int scale_d) {               \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                                    \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " REGS16 ", %16, %17, p, 1, 1, 1, 1;\n}\n" \
+                 : ACC16                                                                                         \
                  : "l"(a), "l"(b), "r"(scale_d));                                                                \
   }                                                                                                              \
   static __device__ __forceinline__ void rs32(float* d, const uint32_t* a, uint64_t b, int scale_d = 1) {       \

@@ -56,7 +56,7 @@ import torch.nn.functional as F
 
 from ..constants import FINETRAINERS_ATTN_CHECKS, FINETRAINERS_ATTN_PROVIDER
 from ..logging import get_logger
-from .flash_attention import BRANCH_HEAD_DIMS, K1_HEAD_DIMS, _rope_fwd, flash_attention
+from .flash_attention import HEAD_DIMS, _rope_fwd, flash_attention
 from .sage_attention import sage_attention
 
 logger = get_logger(__name__)
@@ -294,17 +294,16 @@ def _k1_takes(query, key, attn_mask, is_causal) -> bool:
     """Whether K1 (or its branches) computes this call. On the CPU: no dense
     mask, not causal, no GQA (the rest goes to `_native_math`, as JAX `auto`
     sends it to XLA). On the card: bf16/fp16, head dim 32, 64 or 128, GQA
-    allowed (the kv heads are repeated before K4); causal at head dim 64 or
-    128 (the causal branch); with a dense mask, a boolean one without a head
-    axis (`_k1_mask`) at head dim 64 or 128 (the causal flag folded into it)."""
+    allowed (the kv heads are repeated before K4); causal (the causal branch);
+    with a dense mask, a boolean one without a head axis (`_k1_mask`; the
+    causal flag folded into it)."""
     if query.device.type == "cpu":
         return attn_mask is None and not is_causal and query.shape[2] == key.shape[2]
     if query.dtype not in (torch.bfloat16, torch.float16):
         return False
-    if attn_mask is None:
-        return query.shape[-1] in (BRANCH_HEAD_DIMS if is_causal else K1_HEAD_DIMS)
-    return (query.shape[-1] in BRANCH_HEAD_DIMS
-            and _k1_mask(attn_mask, query.shape[0], query.shape[1], key.shape[1]) is not None)
+    if query.shape[-1] not in HEAD_DIMS:
+        return False
+    return attn_mask is None or _k1_mask(attn_mask, query.shape[0], query.shape[1], key.shape[1]) is not None
 
 
 @_AttentionProviderRegistry.register("flash")
@@ -317,8 +316,8 @@ def _flash(query, key, value, attn_mask, is_causal, scale, kv_lens, rope_freqs=N
     if not _k1_takes(query, key, attn_mask, is_causal):
         raise NotImplementedError(
             "K1 takes no head-dependent or additive mask, and on the card only bf16/fp16 with head dim 32, 64 or "
-            f"128, and 64 or 128 under a causal flag or a mask (got {query.dtype}, head dim {query.shape[-1]}, "
-            f"causal {is_causal}, mask {None if attn_mask is None else (attn_mask.dtype, tuple(attn_mask.shape))}); "
+            f"128 (got {query.dtype}, head dim {query.shape[-1]}, causal {is_causal}, "
+            f"mask {None if attn_mask is None else (attn_mask.dtype, tuple(attn_mask.shape))}); "
             "see ROADMAP.md queue 2 item 5"
         )
     cos, sin = rope_freqs if rope_freqs is not None else (None, None)

@@ -44,7 +44,7 @@ are built by `ops/_build.py`.
     package's `flash_attention`, including its RoPE table conventions; it goes
     through K4 on every device, so its backward is K2/K3 or K5 (or their plain
     versions on the CPU), never autograd through the forward's math.
-  - The branches (ROADMAP.md queue 2 item 5): `flash_forward` and
+  - The branches: `flash_forward` and
     `flash_backward` take `causal` (key j <= i + Skv - Sq), segment ids
     `q_seg`/`kv_seg` (packed sequences; -1 pads) and a dense `mask` (kv_lens,
     the flag and the ids folded into it), as JAX's `_flash_forward` and
@@ -58,8 +58,8 @@ are built by `ops/_build.py`.
     that skip the tiles with no live pair (per-tile id ranges for segments,
     `segment_blocks`; the mask's block map, `mask_tiles`/`mask_tiles_bwd`).
     K1's mask branch alone on the pre-pass's operands is
-    `flash_forward_masked_core`. At head dim 32 a branch raises on the card
-    (still to port).
+    `flash_forward_masked_core`. Every kernel and branch takes head dims
+    32, 64 and 128 (`HEAD_DIMS`).
   - `flash_attention_reference` / `flash_backward_reference` are the plain
     fp32 math of the kernels: the same base-2 softmax, cast points, masking and
     natural-log LSE. `flash_attention_reference` is the plain pre-pass
@@ -98,16 +98,10 @@ from ._build import load_library
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 _NEG_INF = -1e30
-# The head dims each kernel takes: K1, the pre-pass, K2 (with its reduce pass)
-# and K3 at 32, 64 and 128; K5 and K7a/b/c at 64 and 128 (at 32 they are still
-# to port, ROADMAP.md queue 2 item 5).
-K1_HEAD_DIMS = (32, 64, 128)
-WIDE_HEAD_DIMS = (64, 128)
-# K1's mask branch (128 for the GLM and Llama towers, 64 for CLIP-L text), and
-# the causal, segment and mask branches of K1, K2, K3, K5 and K7c and the
-# segment branches of K7a and K7b: 64 and 128 (at 32 they are still to port,
-# ROADMAP.md queue 2 item 5).
-BRANCH_HEAD_DIMS = (64, 128)
+# The head dims every kernel and branch takes (K1-K3, K5 and its dq emit,
+# K7a/b/c, the pre-pass, and in ops/sage_attention.py K6 and its pre-pass), as
+# the JAX package's BlockSpecs run over them: 32 (the dummy family), 64, 128.
+HEAD_DIMS = (32, 64, 128)
 # A live key tile's entry in the mask branch's lists carries this bit where
 # its whole (q tile, key tile) block is unmasked (`csrc/flash_fwd_sm90.cu`).
 _MASK_FULL_TILE = 1 << 30
@@ -663,18 +657,16 @@ def _check_operand(fn: str, name: str, x: torch.Tensor, device: torch.device, dt
                          f"(strides {x.stride()})")
 
 
-def _check_kernel_call(fn: str, q, k, v, kv_lens, rope_cos, rope_sin, head_dims=K1_HEAD_DIMS):
-    """The checks every flash kernel shares, with the head dims the called
-    kernel takes. Returns kv_lens as contiguous int32 (or None) and the tables'
-    per-head stride (0 for one table shared by every head)."""
+def _check_kernel_call(fn: str, q, k, v, kv_lens, rope_cos, rope_sin):
+    """The checks every flash kernel shares. Returns kv_lens as contiguous
+    int32 (or None) and the tables' per-head stride (0 for one table shared by
+    every head)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"{fn}: q, k, v must be (B, N, S, H)")
     batch, heads, seq_q, head_dim = q.shape
     seq_kv = k.shape[2]
-    if head_dim not in head_dims:
-        raise ValueError(f"{fn}: head dim {head_dim} not in {head_dims}"
-                         + ("" if head_dim not in K1_HEAD_DIMS else
-                            " (this kernel at that head dim is still to port: ROADMAP.md queue 2 item 5)"))
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {head_dim} not in {HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODES:
@@ -828,8 +820,7 @@ def flash_forward_core(
     if q_s.device.type == "cpu":
         return flash_forward_core_reference(q_s, k_r, v, kv_lens, causal, q_seg, kv_seg)
     branch = branch_of(causal, q_seg, None)
-    kv_lens, _ = _check_kernel_call("flash_forward_core", q_s, k_r, v, kv_lens, None, None,
-                                    K1_HEAD_DIMS if branch is None else BRANCH_HEAD_DIMS)
+    kv_lens, _ = _check_kernel_call("flash_forward_core", q_s, k_r, v, kv_lens, None, None)
     if branch == "causal":
         return _k1_causal(q_s, k_r, v, kv_lens)
     if branch == "segment":
@@ -859,10 +850,10 @@ def flash_forward(
     key j <= i + (Skv - Sq) (K1's causal branch), segment ids (B, Sq), (B, Skv)
     keep pairs of equal ids (K1's segment branch), a (B, Sq, Skv) boolean
     `mask` (True = attend) takes K1's mask branch, with kv_lens, the flag and
-    the ids folded in (key tiles whose mask is all False are not read); each
-    branch at H 64 or 128, and under a switch the picked kernel's branch. A row
-    with no live key gives 0 and an LSE of -1e30*ln2. `out` is a BNSH view of
-    a BTNH-contiguous buffer, so `out.transpose(1, 2)` is contiguous."""
+    the ids folded in (key tiles whose mask is all False are not read); under
+    a switch the picked kernel's branch. A row with no live key gives 0 and an
+    LSE of -1e30*ln2. `out` is a BNSH view of a BTNH-contiguous buffer, so
+    `out.transpose(1, 2)` is contiguous."""
     check_branches(causal, q_seg, kv_seg)
     variant = forward_variant(rope_cos is not None, causal, mask is not None)
     if variant is not None:
@@ -870,8 +861,7 @@ def flash_forward(
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_lens, rope_cos, rope_sin, scale, causal, q_seg, kv_seg, mask)
     branch = branch_of(causal, q_seg, mask)
-    kv_lens, rope_sn = _check_kernel_call("flash_forward", q, k, v, kv_lens, rope_cos, rope_sin,
-                                          K1_HEAD_DIMS if branch is None else BRANCH_HEAD_DIMS)
+    kv_lens, rope_sn = _check_kernel_call("flash_forward", q, k, v, kv_lens, rope_cos, rope_sin)
     kv_lens, mask = _check_branch_inputs("flash_forward", q, k, kv_lens, causal, q_seg, kv_seg, mask)
     scale = q.shape[-1]**-0.5 if scale is None else float(scale)
     q_s, k_r = flash_qk_prep(q, k, rope_cos, rope_sin, rope_sn, scale)
@@ -964,7 +954,7 @@ def flash_forward_masked_core(q_s, k_r, v, mask):
     `flash_forward` with a mask, count on `flash_forward_masked_core.launches`."""
     if q_s.device.type == "cpu":
         return flash_forward_core_reference(q_s, k_r, v, mask=mask)
-    _check_kernel_call("flash_forward_masked_core", q_s, k_r, v, None, None, None, BRANCH_HEAD_DIMS)
+    _check_kernel_call("flash_forward_masked_core", q_s, k_r, v, None, None, None)
     return _k1_masked(q_s, k_r, v, _check_mask("flash_forward_masked_core", mask, q_s, k_r.shape[2]))
 
 
@@ -1017,7 +1007,7 @@ def _forward_kernel(name, entry, q, k, v, kv_lens, rope_cos, rope_sin, scale, ca
     (`_sm90_forward`), or the K7 kernel's branch (`_variant_branch`): K7a and
     K7c after the pre-pass, on its operands; K7b, which takes no tables, on q
     and k themselves, scaling q in the kernel."""
-    kv_lens, rope_sn = _check_kernel_call(name, q, k, v, kv_lens, rope_cos, rope_sin, WIDE_HEAD_DIMS)
+    kv_lens, rope_sn = _check_kernel_call(name, q, k, v, kv_lens, rope_cos, rope_sin)
     branch = branch_of(causal, q_seg, mask)
     kv_lens, mask = _check_branch_inputs(name, q, k, kv_lens, causal, q_seg, kv_seg, mask)
     scale = q.shape[-1]**-0.5 if scale is None else float(scale)
@@ -1331,19 +1321,15 @@ def flash_backward(
     Takes what K1 takes (bf16/fp16, H in {32, 64, 128}, any sequence lengths,
     `kv_lens`, fused RoPE from (N or 1, S, H) fp32 tables with Sq == Skv), and
     the causal flag, segment ids or a dense mask as `flash_forward` takes them
-    (K2's and K3's branches, or with the fused switch K5's, H 64 or 128; K5
-    itself takes H 64 or 128). delta = rowsum(dO * out) in fp32 is computed
-    here in plain PyTorch unless given. dq, dk, dv are BNSH views of
-    BTNH-contiguous buffers."""
+    (K2's and K3's branches, or with the fused switch K5's). delta =
+    rowsum(dO * out) in fp32 is computed here in plain PyTorch unless given.
+    dq, dk, dv are BNSH views of BTNH-contiguous buffers."""
     check_branches(causal, q_seg, kv_seg)
-    branch = branch_of(causal, q_seg, mask)
     fused = _switch("FINETRAINERS_FLASH_FUSED_BWD")
     if q.device.type == "cpu":
         plain = flash_backward_fused_reference if fused else flash_backward_reference
         return plain(q, k, v, out, lse, do, kv_lens, rope_cos, rope_sin, scale, delta, causal, q_seg, kv_seg, mask)
-    kv_lens, rope_sn = _check_kernel_call("flash_backward", q, k, v, kv_lens, rope_cos, rope_sin,
-                                          WIDE_HEAD_DIMS if fused else K1_HEAD_DIMS if branch is None
-                                          else BRANCH_HEAD_DIMS)
+    kv_lens, rope_sn = _check_kernel_call("flash_backward", q, k, v, kv_lens, rope_cos, rope_sin)
     if tuple(do.shape) != tuple(q.shape) or do.device != q.device or do.dtype != q.dtype:
         raise ValueError(f"flash_backward: do must match q, got {tuple(do.shape)} {do.dtype} on {do.device}")
     if not _kernel_layout(do):

@@ -49,7 +49,7 @@ from .flash_attention import (
     _rope_fwd,
     _stream,
     _strides,
-    WIDE_HEAD_DIMS,
+    HEAD_DIMS,
     kernel_tables,
 )
 
@@ -115,9 +115,8 @@ def _check_prep_call(query, key, kv_lens, rope_cos, rope_sin):
     if query.ndim != 4 or key.ndim != 4:
         raise ValueError(f"{fn}: q and k must be (B, S, N, H)")
     batch, seq_q, heads, head_dim = query.shape
-    if head_dim not in WIDE_HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {head_dim} not in {WIDE_HEAD_DIMS} (K6 and its pre-pass at other head "
-                         "dims are still to port: ROADMAP.md queue 2 item 5)")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {head_dim} not in {HEAD_DIMS}")
     if device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {device}")
     if query.dtype not in _DTYPE_CODES:
@@ -140,8 +139,8 @@ def sage_prep(
     rope_sin: Optional[torch.Tensor] = None,
 ):
     """The pre-pass (arguments and result as `sage_quantize`). On a CPU tensor
-    the plain version; on a CUDA tensor the kernels (bf16 or fp16, H in {64,
-    128}, strided BTNH q and k with a contiguous H and 16-byte aligned rows),
+    the plain version; on a CUDA tensor the kernels (bf16 or fp16, H in {32,
+    64, 128}, strided BTNH q and k with a contiguous H and 16-byte aligned rows),
     or it raises."""
     if query.device.type == "cpu":
         return sage_quantize(query, key, kv_lens, rope_cos, rope_sin)
@@ -222,9 +221,8 @@ def _check_kernel_call(q_codes, k_codes, q_scales, k_scales, v, kv_lens):
         raise ValueError(f"{fn}: codes and v must be (B, N, S, H)")
     batch, heads, seq_q, head_dim = q_codes.shape
     seq_kv = k_codes.shape[2]
-    if head_dim not in WIDE_HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {head_dim} not in {WIDE_HEAD_DIMS} (K6 and its pre-pass at other head "
-                         "dims are still to port: ROADMAP.md queue 2 item 5)")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {head_dim} not in {HEAD_DIMS}")
     if device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {device}")
     if v.dtype not in _DTYPE_CODES:
@@ -260,7 +258,7 @@ def sage_forward(
     """K6 on BNSH codes and scales (shapes as `sage_attention_reference`) ->
     out (B, N, Sq, H) in v's dtype, a BNSH view of a BTNH-contiguous buffer.
 
-    The kernel takes bf16 or fp16 v with H in {64, 128} and any sequence
+    The kernel takes bf16 or fp16 v with H in {32, 64, 128} and any sequence
     lengths; codes with a contiguous H and strides that are multiples of 16
     (the pre-pass writes them contiguous), contiguous scales, and a strided v
     (last dim contiguous, 16-byte aligned rows)."""

@@ -9,14 +9,27 @@ ulp, test_torch_flux_transformer.py). The latents are (2, 4, 3, 8, 12): 3 x
 4 x 6 = 72 tokens a sample. The JAX step is the trainer's: uniform sigma draw
 (weighting "none"), `DummyModelSpecification.forward` (posterior and noise
 from its key split), the mean squared flow-matching error, optax AdamW
-(clip 1.0, constant rate); its draws are rebuilt with the same keys and handed
-to the port. Compared at atol 1e-4 (the model and VAE outputs, the loss, the
+(clip 1.0, constant rate), compiled at XLA's lowest level (`jax_compiled`);
+its draws are rebuilt with the same keys and handed to the port. Compared at atol 1e-4 (the model and VAE outputs, the loss, the
 gradients and the updated factors) and exactly for the hash embedding and
 the pipeline's uint8 video except where a value sits on a rounding boundary
 (at most one level, in at most 0.1% of the pixels).
+
+At head dim 32 the dummy runs the kernels' plain versions wherever JAX runs
+its Pallas kernels (interpret mode): the LoRA step again under the `flash`
+provider with FINETRAINERS_FLASH_FUSED_BWD=1 and FINETRAINERS_FLASH_TWOLEVEL=1
+(JAX's two-level forward and fused backward; the port's K7c and K5 plain
+versions), at the same atol 1e-4, and a denoise step (one transformer forward)
+under `sage` (JAX's int8 kernel; the port's sage pre-pass and K6 plain
+versions) at atol 1e-3: q codes are equal, but smooth-K's mean is summed in
+another order, so a k code may differ by one (as the pre-pass tests allow),
+and one does, moving the output by ~3e-4.
 """
 
+import contextlib
 import functools
+import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +37,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax_compiled import compiled
 
 from finetrainers_tpu.functional.diffusion import compute_loss_weighting as jax_loss_weighting
 from finetrainers_tpu.lora import lora_mask as jax_lora_mask
@@ -36,6 +50,7 @@ from finetrainers_tpu.models.dummy.pipeline import DummyPipeline as JaxPipeline
 from finetrainers_tpu.models.layers import sinusoidal_timestep_embedding as jax_timestep_embedding
 from finetrainers_tpu.models.modeling_utils import ModelHandle, flatten_params
 from finetrainers_tpu.optimizer import get_lr_scheduler as jax_lr_scheduler
+from finetrainers_tpu.ops import attention_provider as jax_attention_provider
 from finetrainers_tpu.optimizer import get_optimizer as jax_optimizer
 from finetrainers_tpu.schedulers import FlowMatchEulerScheduler as JaxEuler
 from finetrainers_tpu_torch import get_model_specification_cls
@@ -45,14 +60,23 @@ from finetrainers_tpu_torch.models.dummy import DummyModelSpecification, DummyVA
 from finetrainers_tpu_torch.models.dummy.base_specification import _hash_embedding
 from finetrainers_tpu_torch.models.modeling_utils import ModelHandle as PortHandle
 from finetrainers_tpu_torch.models.weight_utils import flax_to_torch_state_dict
+from finetrainers_tpu_torch.ops import attention_provider
 from finetrainers_tpu_torch.trainer import SFTTrainer
 from test_torch_video_vaes import drawn_params
 
 torch.set_num_threads(1)
+port_fa = importlib.import_module("finetrainers_tpu_torch.ops.flash_attention")
+port_sage = importlib.import_module("finetrainers_tpu_torch.ops.sage_attention")
 
 RANK, ALPHA = 4, 8.0
+# The kernel switches of the switched step, and the plain versions the port's CPU calls take under them.
+SWITCHES = {"FINETRAINERS_FLASH_FUSED_BWD": "flash_backward_fused_reference",
+            "FINETRAINERS_FLASH_TWOLEVEL": "flash_forward_two_level_reference"}
 LATENTS = (2, 4, 3, 8, 12)  # (B, C, F, H, W)
 ATOL = 1e-4  # fp32 products summed in another order than XLA sums them
+# Under `sage`: smooth-K's mean is summed in another order, so a k code may differ by one (as the pre-pass
+# tests allow); here one does, and moves the output by ~3e-4.
+SAGE_ATOL = 1e-3
 
 
 def unflatten(flat):
@@ -166,9 +190,25 @@ def _lora_state(tree):
     return flax_to_torch_state_dict(flat, dummy_key_map)
 
 
+@contextlib.contextmanager
+def _switches(names):
+    """The JAX package's kernel switches set while it traces (a cached step outlives a test's monkeypatch)."""
+    old = {name: os.environ.get(name) for name in names}
+    os.environ.update(dict.fromkeys(names, "1"))
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            if value is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = value
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_step():
-    """JAX's LoRA train step: loss, grad norm, gradients, updated factors, draws."""
+def _jax_step(provider=None, switches=()):
+    """JAX's LoRA train step (under attention `provider` and the kernel
+    `switches` where given): loss, grad norm, gradients, updated factors, draws."""
     spec = JaxSpec(lora_rank=RANK, lora_alpha=ALPHA)
     module = JaxDummy(lora_rank=RANK, lora_alpha=ALPHA, dtype=jnp.float32)
     flat, _ = jax_model(RANK)
@@ -182,7 +222,6 @@ def _jax_step():
     optimizer = jax_optimizer("adamw", jax_lr_scheduler("constant", opt["lr"]), beta1=0.9, beta2=0.95, epsilon=1e-8,
                               weight_decay=1e-4, max_grad_norm=1.0)
 
-    @jax.jit
     def step(trainable, rng):
         rng_sigmas, rng_fwd = jax.random.split(rng)
         sigmas = scheduler.training_sigmas(rng_sigmas, LATENTS[0], flow_weighting_scheme="none")
@@ -198,7 +237,8 @@ def _jax_step():
         return loss, optax.global_norm(grads), grads, optax.apply_updates(trainable, updates)
 
     rng = jax.random.PRNGKey(2)
-    loss, grad_norm, grads, updated = step(trainable, rng)
+    with _switches(switches), jax_attention_provider(provider) if provider else contextlib.nullcontext():
+        loss, grad_norm, grads, updated = compiled(step, trainable, rng)
     rng_sigmas, rng_fwd = jax.random.split(rng)
     rng_post, rng_noise = jax.random.split(rng_fwd)
     shape = LATENTS
@@ -209,16 +249,17 @@ def _jax_step():
                 grad_norm=float(grad_norm), grads=_lora_state(grads), updated=_lora_state(updated))
 
 
-def test_lora_train_step_matches_jax(monkeypatch):
-    jax_embedding(monkeypatch)
-    ref = _jax_step()
+def _check_lora_train_step(ref, provider=None):
+    """The port's LoRA step on JAX's weights, draws and batch (under attention
+    `provider` where given) against JAX's `ref` (`_jax_step`)."""
     spec = get_model_specification_cls("dummy", "lora")(device="cpu", transformer_dtype=torch.float32)
     trainer = SFTTrainer(BaseArgs(model_name="dummy", training_type="lora", rank=RANK, lora_alpha=ALPHA, seed=0,
                                   flow_weighting_scheme="none", **_optimizer_args()), spec)
     trainer.prepare()
     load_flax_params(trainer.transformer.module, ref["flat"])
-    out = trainer.train_step({k: torch.from_numpy(v) for k, v in ref["conditions"].items()},
-                             {k: torch.from_numpy(v) for k, v in ref["latents"].items()}, draws=ref["draws"])
+    with attention_provider(provider) if provider else contextlib.nullcontext():
+        out = trainer.train_step({k: torch.from_numpy(v) for k, v in ref["conditions"].items()},
+                                 {k: torch.from_numpy(v) for k, v in ref["latents"].items()}, draws=ref["draws"])
     np.testing.assert_allclose(float(out["loss"]), ref["loss"], atol=ATOL, rtol=0)
     np.testing.assert_allclose(float(out["grad_norm"]), ref["grad_norm"], atol=ATOL * max(1.0, ref["grad_norm"]),
                                rtol=0)
@@ -231,6 +272,50 @@ def test_lora_train_step_matches_jax(monkeypatch):
                                    err_msg=name)
         np.testing.assert_allclose(params[name].detach().numpy(), ref["updated"][name], atol=ATOL, rtol=0,
                                    err_msg=name)
+
+
+def test_lora_train_step_matches_jax(monkeypatch):
+    jax_embedding(monkeypatch)
+    _check_lora_train_step(_jax_step())
+
+
+def test_lora_train_step_under_fused_backward_and_two_level_switches_matches_jax(monkeypatch):
+    """The LoRA step under `flash` with the fused-backward and two-level
+    switches: JAX's Pallas two-level forward and fused backward against the
+    port's K7c and K5 plain versions, each called for every attention (self
+    and cross, in each of the 2 blocks)."""
+    jax_embedding(monkeypatch)
+    ref = _jax_step("flash", tuple(SWITCHES))
+    calls = {}
+    for switch, plain in SWITCHES.items():
+        monkeypatch.setenv(switch, "1")
+        fn = getattr(port_fa, plain)
+        calls[plain] = []
+        monkeypatch.setattr(port_fa, plain, functools.partial(
+            lambda fn, seen, *a, **kw: seen.append(1) or fn(*a, **kw), fn, calls[plain]))
+    _check_lora_train_step(ref, "flash")
+    assert {name: len(seen) for name, seen in calls.items()} == dict.fromkeys(SWITCHES.values(), 2 * 2)
+
+
+def test_sage_denoise_step_matches_jax(monkeypatch):
+    """One denoise step (the transformer at timesteps 700 and 12.5, base
+    weights) under `sage` on both sides: JAX's Pallas int8 kernel against the
+    port's sage pre-pass and K6 plain versions, K6's called for every
+    attention."""
+    jax_embedding(monkeypatch)
+    flat, _ = jax_model(0)
+    module = JaxDummy(dtype=jnp.float32)
+    x, ehs, t, lens = _inputs()
+    apply = jax.jit(lambda p, x, ehs, t, lens: module.apply({"params": p}, x, ehs, t, encoder_kv_lens=lens))
+    with jax_attention_provider("sage"):
+        ref = np.asarray(apply(unflatten(flat), *map(jnp.asarray, (x, ehs, t, lens))))
+    model = port_model(flat, 0)
+    calls, plain = [], port_sage.sage_attention_reference
+    monkeypatch.setattr(port_sage, "sage_attention_reference", lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    with torch.no_grad(), attention_provider("sage"):
+        out = model(*map(torch.from_numpy, (x, ehs, t, lens)))
+    assert len(calls) == 2 * 2 and out.shape == LATENTS
+    np.testing.assert_allclose(out.numpy(), ref, atol=SAGE_ATOL, rtol=0)
 
 
 def test_pipeline_matches_jax(monkeypatch):

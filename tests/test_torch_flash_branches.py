@@ -7,7 +7,9 @@ branches against JAX's: `test_torch_flash_variant_branches.py`).
 Two shapes, so the JAX side compiles twice per branch: cross (B, N, Sq, Skv,
 H) = (2, 2, 160, 224, 64) for causal with Sq < Skv and the dense mask with
 kv_lens, self (2, 2, 160, 160, 64) for causal with Sq = Skv and segment ids
-with -1 padding, kv_lens and shared (S, H) RoPE tables. fp32; out, LSE, dq, dk
+with -1 padding, kv_lens and shared (S, H) RoPE tables; the causal (cross),
+segment and mask cases again at H=32, the dummy family's head dim. JAX
+compiled at XLA's lowest level (`jax_compiled`). fp32; out, LSE, dq, dk
 and dv at atol 2e-5, rtol 1e-5. The port's backward is handed JAX's out and
 LSE. Every row has a live key: the Pallas mask fold gives a row without one a
 value that depends on its block size (ROADMAP.md section 3, finding 22).
@@ -16,11 +18,11 @@ value that depends on its block size (ROADMAP.md section 3, finding 22).
 import functools
 import importlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_compiled import compiled
 
 from finetrainers_tpu_torch.ops.flash_attention import (
     branch_of,
@@ -43,9 +45,9 @@ SQ, SKV = 160, 224
 LENS = np.asarray([200, 224], np.int32)
 
 
-def _qkv(sq, skv, seed):
+def _qkv(sq, skv, seed, h=H):
     rng = np.random.RandomState(seed)
-    return tuple(rng.randn(B, N, s, H).astype(np.float32) for s in (sq, skv, skv, sq))
+    return tuple(rng.randn(B, N, s, h).astype(np.float32) for s in (sq, skv, skv, sq))
 
 
 def _segments(s):
@@ -65,8 +67,8 @@ def _mask():
     return mask
 
 
-def _tables(s):
-    ang = np.random.RandomState(9).uniform(0, 2 * np.pi, (s, H // 2))
+def _tables(s, h=H):
+    ang = np.random.RandomState(9).uniform(0, 2 * np.pi, (s, h // 2))
     return tuple(np.repeat(f(ang), 2, -1)[None].astype(np.float32) for f in (np.cos, np.sin))
 
 
@@ -76,25 +78,27 @@ CASES = {
     "segments_kv_lens_rope": dict(shape=(SQ, SQ), segments=True, lens=np.asarray([150, 160], np.int32), rope=True),
     "mask_kv_lens": dict(shape=(SQ, SKV), mask=True, lens=LENS),
 }
+CASES.update({f"{name}_h32": dict(CASES[name], h=32) for name in ("causal_cross", "segments_kv_lens_rope", "mask_kv_lens")})
 
 
 @functools.lru_cache(maxsize=None)
 def _case(name):
     c = CASES[name]
     sq, skv = c["shape"]
-    q, k, v, do = _qkv(sq, skv, seed=len(name))
+    h = c.get("h", H)
+    q, k, v, do = _qkv(sq, skv, seed=len(name), h=h)
     seg = _segments(sq) if c.get("segments") else None
     mask = _mask() if c.get("mask") else None
-    cos, sin = _tables(sq) if c.get("rope") else (None, None)
+    cos, sin = _tables(sq, h) if c.get("rope") else (None, None)
     lens = c.get("lens")
     causal = c.get("causal", False)
     j = lambda x: None if x is None else jnp.asarray(x)  # noqa: E731
-    fwd = jax.jit(lambda q, k, v, lens, seg, mask, cos, sin: jax_fa._flash_forward(
-        q, k, v, lens, seg, seg, mask, H**-0.5, causal, 64, 64, cos, sin))
-    out, lse = fwd(j(q), j(k), j(v), j(lens), j(seg), j(mask), j(cos), j(sin))
-    bwd = jax.jit(lambda q, k, v, lens, seg, mask, out, lse, do, cos, sin: jax_fa._flash_backward(
-        q, k, v, lens, seg, seg, mask, out, lse, do, H**-0.5, causal, 64, 64, cos, sin))
-    grads = bwd(j(q), j(k), j(v), j(lens), j(seg), j(mask), out, lse, j(do), j(cos), j(sin))
+    def fwd_bwd(q, k, v, lens, seg, mask, do, cos, sin):
+        out, lse = jax_fa._flash_forward(q, k, v, lens, seg, seg, mask, h**-0.5, causal, 64, 64, cos, sin)
+        return out, lse, jax_fa._flash_backward(q, k, v, lens, seg, seg, mask, out, lse, do, h**-0.5, causal, 64, 64,
+                                                cos, sin)
+
+    out, lse, grads = compiled(fwd_bwd, j(q), j(k), j(v), j(lens), j(seg), j(mask), j(do), j(cos), j(sin))
     inputs = dict(q=q, k=k, v=v, do=do, lens=lens, seg=seg, mask=mask, cos=cos, sin=sin, causal=causal)
     return inputs, np.asarray(out), np.asarray(lse), tuple(np.asarray(g) for g in grads)
 
@@ -233,21 +237,23 @@ def test_branch_routing_follows_jax_gates(monkeypatch, switch, branch, rope):
     assert calls[1:] == ["flash_backward_fused_reference" if fused else "flash_backward_reference"]
 
 
-def test_k1_k2_k3_branches_refuse_head_dim_32_on_the_card(monkeypatch):
-    """The branches have no H=32 instance, nor have K5's and K7's: meta tensors
-    stand in for the card, with no switch and under each."""
-    q = torch.empty(1, 2, 64, 32, dtype=torch.bfloat16, device="meta")
+def test_k1_k2_k3_branches_take_head_dim_32_on_the_card(monkeypatch):
+    """Every branch, and K5's and K7's, takes head dim 32 through the one gate
+    (`HEAD_DIMS`) and refuses 48: meta tensors stand in for the card, with no
+    switch and under each, so a head dim taken reaches the device check."""
     lse = torch.empty(1, 2, 64, dtype=torch.float32, device="meta")
     ids = torch.empty(1, 64, dtype=torch.int32, device="meta")
     mask = torch.empty(1, 64, 64, dtype=torch.bool, device="meta")
     for switch in (None, *_SWITCHES):
         if switch is not None:
             monkeypatch.setenv(switch, "1")
-        for kwargs in (dict(causal=True), dict(q_seg=ids, kv_seg=ids), dict(mask=mask)):
-            with pytest.raises(ValueError, match="queue 2 item 5"):
-                flash_forward(q, q, q, **kwargs)
-            with pytest.raises(ValueError, match="queue 2 item 5"):
-                flash_backward(q, q, q, q, lse, q, **kwargs)
+        for head_dim, match in ((32, "unsupported device"), (48, "head dim 48")):
+            q = torch.empty(1, 2, 64, head_dim, dtype=torch.bfloat16, device="meta")
+            for kwargs in (dict(causal=True), dict(q_seg=ids, kv_seg=ids), dict(mask=mask)):
+                with pytest.raises(ValueError, match=match):
+                    flash_forward(q, q, q, **kwargs)
+                with pytest.raises(ValueError, match=match):
+                    flash_backward(q, q, q, q, lse, q, **kwargs)
         if switch is not None:
             monkeypatch.delenv(switch)
-    assert port_fa.BRANCH_HEAD_DIMS == (64, 128)
+    assert port_fa.HEAD_DIMS == (32, 64, 128)

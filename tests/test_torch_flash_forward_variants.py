@@ -3,14 +3,16 @@ JAX Pallas kernels under the same switch.
 
 FINETRAINERS_FLASH_TWOPASS, _SKEW and _TWOLEVEL make the JAX `flash_attention`
 run `_fwd_kernel_twopass`, `_fwd_kernel_skew` or `_fwd_kernel`'s `two_level`
-branch in interpret mode on the CPU (called unjitted, with the switch set by
-`monkeypatch`); under the same switch the port's `flash_attention` takes
+branch in interpret mode on the CPU (traced afresh in each test with the
+switch set by `monkeypatch`, and compiled at XLA's lowest level,
+`jax_compiled`); under the same switch the port's `flash_attention` takes
 `flash_forward_twopass_reference`, `..._skew_reference` or
 `..._two_level_reference` for CPU tensors. Cases as the JAX package's
 `TestForwardKernelVariants`: plain, `kv_lens`, H=128, H=128 with `kv_lens`,
+H=32 (the dummy family's) with `kv_lens` and an empty row,
 over 150 keys (two of K7a's and K7c's 128-key tiles and three of K7b's 64-key
 score tiles, the last ragged; 32-key blocks on the JAX side); then RoPE with
-per-head and shared tables for the two-pass and two-level kernels, the skew
+per-head and shared tables for the two-pass and two-level kernels (at H 32 too), the skew
 gate, and each variant over several of its tiles (ragged last tiles,
 `kv_lens` inside a tile and at a tile boundary with an empty row, per-head
 tables, cross-attention) against JAX at 32- and 128-key blocks. fp32, compared at atol 2e-5, rtol 1e-5, as K1 (the
@@ -24,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_compiled import compiled
 from test_torch_flash_attention import _j, _ltx_tables, _shared_tables, _t
 
 from finetrainers_tpu.ops.flash_attention import flash_attention as jax_flash_attention
@@ -59,9 +62,9 @@ def switch(monkeypatch):
     return set_switch
 
 
-def _run_both(h=64, kv_lens=None, rope=None, s=150, jax_block_kv=32, b=2, s_kv=None):
+def _run_both(h=64, kv_lens=None, rope=None, s=150, jax_block_kv=32, b=2, s_kv=None, with_jax=True):
     """(port, JAX) outputs for one seeded BTNH call: `s` query rows and `s_kv`
-    keys (`s` unless given)."""
+    keys (`s` unless given); without `with_jax`, the port's alone (and None)."""
     rng = np.random.RandomState(7)
     n = 3
     q, k, v = (rng.randn(b, length, n, h).astype(np.float32) for length in (s, s_kv or s, s_kv or s))
@@ -71,15 +74,19 @@ def _run_both(h=64, kv_lens=None, rope=None, s=150, jax_block_kv=32, b=2, s_kv=N
     elif rope == "shared":
         cos, sin = _shared_tables(s, h, rng)
     lens = None if kv_lens is None else np.asarray(kv_lens, np.int32)
-    ref = jax_flash_attention(_j(q), _j(k), _j(v), kv_lens=_j(lens), rope_cos=_j(cos), rope_sin=_j(sin),
-                              block_q=32, block_kv=jax_block_kv)
     out = flash_attention(_t(q), _t(k), _t(v), kv_lens=_t(lens), rope_cos=_t(cos), rope_sin=_t(sin))
+    if not with_jax:
+        return out.numpy(), None
+    ref = compiled(lambda q, k, v, lens, cos, sin: jax_flash_attention(
+        q, k, v, kv_lens=lens, rope_cos=cos, rope_sin=sin, block_q=32, block_kv=jax_block_kv),
+        _j(q), _j(k), _j(v), _j(lens), _j(cos), _j(sin))
     return out.numpy(), np.asarray(ref)
 
 
 @pytest.mark.parametrize("env", sorted(VARIANTS))
-@pytest.mark.parametrize("kw", [{}, {"kv_lens": [133, 17]}, {"h": 128}, {"h": 128, "kv_lens": [133, 0]}],
-                         ids=["plain", "kv_lens", "h128", "h128_kv_lens"])
+@pytest.mark.parametrize("kw", [{}, {"kv_lens": [133, 17]}, {"h": 128}, {"h": 128, "kv_lens": [133, 0]},
+                                {"h": 32, "kv_lens": [150, 0]}],
+                         ids=["plain", "kv_lens", "h128", "h128_kv_lens", "h32_kv_lens"])
 def test_variant_matches_jax(env, kw, switch):
     calls = switch(env)
     out, ref = _run_both(**kw)
@@ -90,7 +97,8 @@ def test_variant_matches_jax(env, kw, switch):
 
 
 @pytest.mark.parametrize("env", ["FINETRAINERS_FLASH_TWOPASS", "FINETRAINERS_FLASH_TWOLEVEL"])
-@pytest.mark.parametrize("rope,h", [("per_head", 64), ("shared", 128)], ids=["per_head_tables", "shared_tables"])
+@pytest.mark.parametrize("rope,h", [("per_head", 64), ("shared", 128), ("shared", 32)],
+                         ids=["per_head_tables", "shared_tables", "shared_tables_h32"])
 def test_variant_with_rope_matches_jax(env, rope, h, switch):
     calls = switch(env)
     out, ref = _run_both(h=h, rope=rope)
@@ -132,12 +140,14 @@ OVER_128 = {
         "kv_lens_across_tiles_empty_row_h64": dict(s=300, kv_lens=[150, 256, 0], b=3),
         "per_head_tables_ragged_h64": dict(s=264, rope="per_head"),
         "cross_attention_empty_row_h64": dict(s=100, s_kv=300, kv_lens=[300, 0]),
+        "kv_lens_across_tiles_empty_row_h32": dict(h=32, s=300, kv_lens=[150, 256, 0], b=3),
     },
     "FINETRAINERS_FLASH_SKEW": {
         "ragged_last_tile_h128": dict(h=128, s=300),
         "kv_lens_across_tiles_empty_row_h64": dict(s=300, kv_lens=[150, 256, 0], b=3),
         "cross_attention_kv_lens_h128": dict(h=128, s=200, s_kv=300, kv_lens=[300, 129]),
         "cross_attention_h64": dict(s=300, s_kv=140),
+        "kv_lens_across_tiles_empty_row_h32": dict(h=32, s=300, kv_lens=[150, 256, 0], b=3),
     },
 }
 
@@ -167,7 +177,7 @@ def test_skew_is_gated_off_rope(rope, switch):
     skewed, ref = _run_both(rope=rope, s=96)
     assert calls == []
     switch(None)
-    straight, _ = _run_both(rope=rope, s=96)
+    straight, _ = _run_both(rope=rope, s=96, with_jax=False)
     np.testing.assert_array_equal(skewed, straight)
     np.testing.assert_allclose(skewed, ref, atol=ATOL, rtol=RTOL)
 

@@ -1,13 +1,16 @@
 """K5 parity: the port's fused flash backward against the JAX Pallas kernel.
 
 With FINETRAINERS_FLASH_FUSED_BWD=1 the JAX `_flash_backward` runs the Pallas
-`_bwd_fused_kernel` in interpret mode on the CPU (called unjitted, with the
-switch set by `monkeypatch`, so no cached trace ignores it); the port's
+`_bwd_fused_kernel` in interpret mode on the CPU (traced afresh in each test
+with the switch set by `monkeypatch`, so no cached trace ignores it, and
+compiled at XLA's lowest level, `jax_compiled`); the port's
 `flash_backward` then takes K5's plain version, `flash_backward_fused_reference`,
 for CPU tensors. Same numpy inputs and the same `out`/LSE from the JAX forward;
 fp32, dq/dk/dv compared at atol 2e-5, rtol 1e-5 (fp32 sums in another order:
 128-key tiles here, the Pallas kernel's blocks there), as for K2/K3. The cases
-over 128 keys run JAX at 32- and 128-key blocks. The K4 glue under
+over 128 keys run JAX at 32- and 128-key blocks. Head dims 32 (the dummy
+family's: 2 heads, its self-attention and its cross-attention over 16 caption
+slots), 64 and 128. The K4 glue under
 the switch is held against `jax.grad` of the JAX `flash_attention`. The on-card
 check of the CUDA kernel against the plain version is in
 `test_torch_kernels_gpu.py`.
@@ -20,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_compiled import compiled
 from test_torch_flash_attention import _bnsh_tables, _j, _ltx_tables, _shared_tables, _t
 
 from finetrainers_tpu.ops.flash_attention import _flash_backward as jax_flash_backward
@@ -48,6 +52,8 @@ CASES = {
     "shared_tables_h128": (1, 2, 80, 80, 128, "shared", None),
     "kv_lens_with_empty_row": (3, 2, 40, 90, 64, None, [90, 7, 0]),
     "cross_sq_ne_skv": (2, 2, 50, 140, 64, None, None),
+    "dummy_self_h32": (1, 2, 72, 72, 32, None, None),
+    "dummy_cross_kv_lens_empty_row_h32": (2, 2, 72, 16, 32, None, [16, 0]),
 }
 # Over 128 keys, so K5's plain version adds dq over more than one of its 128-key
 # tiles: ragged last tiles (300 = 2*128 + 44, 333, 260), kv_lens inside the
@@ -56,6 +62,7 @@ CASES_OVER_128 = {
     "ragged_last_tile_h64": (1, 2, 70, 300, 64, None, None),
     "kv_lens_across_tiles_empty_row_h128": (3, 2, 50, 333, 128, None, [333, 150, 0]),
     "shared_tables_ragged_h64": (1, 2, 260, 260, 64, "shared", None),
+    "shared_tables_kv_lens_ragged_h32": (2, 2, 300, 300, 32, "shared", [290, 131]),
 }
 CASES.update(CASES_OVER_128)
 
@@ -89,10 +96,14 @@ def _check_against_jax(case, jax_block_kv, traces):
     qb, kb, vb = (x.transpose(0, 2, 1, 3).copy() for x in (q, k, v))
     do = np.random.RandomState(3).randn(*qb.shape).astype(np.float32)
     cos_b, sin_b = _bnsh_tables(cos, sin, n, h)
-    args = (_j(qb), _j(kb), _j(vb), _j(kv_lens), None, None, None)
-    out, lse = jax_flash_forward(*args, h**-0.5, False, 32, 32, rope_cos=_j(cos_b), rope_sin=_j(sin_b))
-    ref = jax_flash_backward(*args, out, lse, _j(do), h**-0.5, False, 32, jax_block_kv, rope_cos=_j(cos_b),
-                             rope_sin=_j(sin_b))
+
+    def jax_fwd_bwd(q, k, v, lens, cos, sin, do):
+        out, lse = jax_flash_forward(q, k, v, lens, None, None, None, h**-0.5, False, 32, 32, rope_cos=cos,
+                                     rope_sin=sin)
+        return out, lse, jax_flash_backward(q, k, v, lens, None, None, None, out, lse, do, h**-0.5, False, 32,
+                                            jax_block_kv, rope_cos=cos, rope_sin=sin)
+
+    out, lse, ref = compiled(jax_fwd_bwd, _j(qb), _j(kb), _j(vb), _j(kv_lens), _j(cos_b), _j(sin_b), _j(do))
     assert traces, "the JAX backward did not take its fused kernel"
     before = (flash_bwd_fused.launches, flash_bwd_dq_emit.launches)
     grads = flash_backward(_t(qb), _t(kb), _t(vb), _t(np.asarray(out)), _t(np.asarray(lse)), _t(do),
@@ -130,7 +141,7 @@ def test_k4_backward_takes_the_fused_path(case, fused_kernel_traces, monkeypatch
         out = jax_flash_attention(q, k, v, kv_lens=_j(kv_lens), rope_cos=_j(cos), rope_sin=_j(sin))
         return jnp.sum(out * jnp.asarray(g))
 
-    ref = jax.grad(loss, argnums=(0, 1, 2))(_j(q), _j(k), _j(v))
+    ref = compiled(jax.grad(loss, argnums=(0, 1, 2)), _j(q), _j(k), _j(v))
     assert fused_kernel_traces
     calls = []
     monkeypatch.setattr(port_flash_ops, "flash_backward_fused_reference",

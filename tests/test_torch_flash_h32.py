@@ -2,33 +2,34 @@
 cut as `dkdv_splits` cuts it) and K3's plain versions against the JAX Pallas
 kernels in interpret mode, and the head-dim gate of each kernel wrapper.
 
-The Pallas `_fwd_kernel`, `_bwd_dkdv_kernel` and `_bwd_dq_kernel` take any
-head dim; the port's K1, pre-pass, K2 (with its reduce pass) and K3 take 32,
-64 and 128, and K5, K6 and K7a/b/c 64 and 128 (at 32 they are still to
-port: ROADMAP.md queue 2 item 5). Cases: the dummy's self-attention (72
-tokens) and cross-attention (16 caption slots, kv_lens with an empty row),
-shared RoPE tables off every tile boundary, and a ragged 300-token case.
-fp32, compared at atol 2e-5, rtol 1e-5 (fp32 sums in another order), as the
-other head dims are in test_torch_flash_attention.py and
+The Pallas kernels take any head dim; every kernel of the port (K1-K3, K5
+and its dq emit, K7a/b/c, both pre-passes and K6) and every branch takes 32,
+64 and 128 through one gate (`HEAD_DIMS`). K5's, K7's and K6's plain versions
+at 32 are held against JAX in their own files. Cases: the dummy's
+self-attention (72 tokens) and cross-attention (16 caption slots, kv_lens with
+an empty row), shared RoPE tables off every tile boundary, and a ragged
+300-token case. fp32, compared at atol 2e-5, rtol 1e-5 (fp32 sums in another
+order), as the other head dims are in test_torch_flash_attention.py and
 test_torch_flash_backward.py. The gates are checked on meta tensors: a
-wrapper refuses a head dim it does not take before it looks at the device.
+wrapper refuses a head dim it does not take before it looks at the device,
+so a head dim it takes reaches the device check.
 """
 
 import functools
+import importlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_compiled import compiled
 from test_torch_flash_attention import _shared_tables
 
 from finetrainers_tpu.ops.flash_attention import _flash_backward as jax_flash_backward
 from finetrainers_tpu.ops.flash_attention import _flash_forward as jax_flash_forward
 from finetrainers_tpu_torch.ops import attention as attention_ops
 from finetrainers_tpu_torch.ops.flash_attention import (
-    K1_HEAD_DIMS,
-    WIDE_HEAD_DIMS,
+    HEAD_DIMS,
     flash_backward,
     flash_bwd_dkdv_reference,
     flash_bwd_dq_reference,
@@ -39,6 +40,9 @@ from finetrainers_tpu_torch.ops.flash_attention import (
     flash_qk_prep_reference,
 )
 from finetrainers_tpu_torch.ops.sage_attention import sage_forward, sage_prep
+
+port_fa = importlib.import_module("finetrainers_tpu_torch.ops.flash_attention")
+port_sage = importlib.import_module("finetrainers_tpu_torch.ops.sage_attention")
 
 torch.set_num_threads(1)
 
@@ -75,7 +79,6 @@ def _t(x):
 def _jax(case):
     q, k, v, do, lens, cos, sin = _inputs(case)
 
-    @jax.jit
     def run(q, k, v, lens, cos, sin, do):
         out, lse = jax_flash_forward(q, k, v, lens, None, None, None, 32**-0.5, False, 256, 256,
                                      rope_cos=cos, rope_sin=sin)
@@ -83,7 +86,7 @@ def _jax(case):
                                    rope_cos=cos, rope_sin=sin)
         return out, lse, grads
 
-    out, lse, grads = run(*map(_j, (q, k, v, lens, cos, sin, do)))
+    out, lse, grads = compiled(run, *map(_j, (q, k, v, lens, cos, sin, do)))
     return np.asarray(out), np.asarray(lse), [np.asarray(g) for g in grads]
 
 
@@ -122,21 +125,25 @@ def _meta(b, n, s, h, dtype=torch.bfloat16):
     return torch.empty(b, n, s, h, dtype=dtype, device="meta")
 
 
-def test_head_dim_sets_per_kernel():
-    assert K1_HEAD_DIMS == (32, 64, 128) and WIDE_HEAD_DIMS == (64, 128)
+def test_one_head_dim_set_for_every_kernel():
+    """One gate: no kernel keeps a head-dim set of its own."""
+    assert HEAD_DIMS == (32, 64, 128)
+    for name in ("K1_HEAD_DIMS", "WIDE_HEAD_DIMS", "BRANCH_HEAD_DIMS"):
+        assert not hasattr(port_fa, name)
+        assert not hasattr(port_sage, name)
 
 
 @pytest.mark.parametrize("wrapper", [flash_forward_twopass, flash_forward_two_level, flash_forward_skew],
                          ids=["k7a", "k7c", "k7b"])
-def test_k7_variants_refuse_head_dim_32_naming_the_roadmap(wrapper):
-    q = _meta(1, 2, 64, 32)
-    with pytest.raises(ValueError, match="queue 2 item 5"):
-        wrapper(q, q, q)
-    with pytest.raises(ValueError, match="unsupported device"):  # at 64 the gate passes; the device is next
-        wrapper(*(_meta(1, 2, 64, 64),) * 3)
+def test_k7_variants_take_head_dim_32_and_refuse_48_and_256(wrapper):
+    with pytest.raises(ValueError, match="unsupported device"):  # past the head-dim gate; the device is next
+        wrapper(*(_meta(1, 2, 64, 32),) * 3)
+    for head_dim in (48, 256):
+        with pytest.raises(ValueError, match=f"head dim {head_dim}"):
+            wrapper(*(_meta(1, 2, 64, head_dim),) * 3)
 
 
-def test_k1_k2_k3_take_head_dim_32_and_k5_refuses_it(monkeypatch):
+def test_k1_k2_k3_and_k5_take_head_dim_32(monkeypatch):
     q = _meta(1, 2, 64, 32)
     with pytest.raises(ValueError, match="unsupported device"):  # past the head-dim gate
         flash_forward(q, q, q)
@@ -144,21 +151,26 @@ def test_k1_k2_k3_take_head_dim_32_and_k5_refuses_it(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         flash_backward(q, q, q, q, lse, q)
     monkeypatch.setenv("FINETRAINERS_FLASH_FUSED_BWD", "1")
-    with pytest.raises(ValueError, match="queue 2 item 5"):
+    with pytest.raises(ValueError, match="unsupported device"):
         flash_backward(q, q, q, q, lse, q)
-    with pytest.raises(ValueError, match="head dim 48"):
-        flash_forward(*(_meta(1, 2, 64, 48),) * 3)
+    for head_dim in (48, 256):
+        x = _meta(1, 2, 64, head_dim)
+        with pytest.raises(ValueError, match=f"head dim {head_dim}"):
+            flash_forward(x, x, x)
+        with pytest.raises(ValueError, match=f"head dim {head_dim}"):
+            flash_backward(x, x, x, x, lse, x)
 
 
-def test_k6_and_its_prepass_refuse_head_dim_32():
-    x = torch.empty(1, 64, 2, 32, dtype=torch.bfloat16, device="meta")
+def test_k6_and_its_prepass_take_head_dim_32():
     lens = torch.empty(1, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="queue 2 item 5"):
-        sage_prep(x, x, lens)
-    codes = torch.empty(1, 2, 64, 32, dtype=torch.int8, device="meta")
     scales = torch.empty(1, 2, 64, device="meta")
-    with pytest.raises(ValueError, match="queue 2 item 5"):
-        sage_forward(codes, codes, scales, scales, _meta(1, 2, 64, 32))
+    for head_dim, match in ((32, "unsupported device"), (48, "head dim 48"), (256, "head dim 256")):
+        x = torch.empty(1, 64, 2, head_dim, dtype=torch.bfloat16, device="meta")
+        with pytest.raises(ValueError, match=match):
+            sage_prep(x, x, lens)
+        codes = torch.empty(1, 2, 64, head_dim, dtype=torch.int8, device="meta")
+        with pytest.raises(ValueError, match=match):
+            sage_forward(codes, codes, scales, scales, _meta(1, 2, 64, head_dim))
 
 
 @pytest.mark.parametrize("head_dim,takes", [(32, True), (64, True), (128, True), (48, False), (256, False)])

@@ -123,10 +123,9 @@ def test_mask_tiles_list_the_live_tiles_at_k1_tiles(head_dim):
 
 def test_k1_takes_masks_and_gqa_on_the_card():
     """On the card (meta tensors stand in): a boolean mask without a head axis
-    at head dim 64 or 128 (with a causal flag folded into it), a causal call at
-    64 or 128, and GQA, go to K1; head-dependent or additive masks and head dim
-    32 under a mask or a causal flag do not. On the CPU masks, causal calls
-    and GQA go to fp32 math."""
+    (with a causal flag folded into it), a causal call and GQA go to K1 at head
+    dims 32, 64 and 128; head-dependent or additive masks and head dim 48 do
+    not. On the CPU masks, causal calls and GQA go to fp32 math."""
     q = torch.empty(2, 77, 4, 128, dtype=torch.bfloat16, device="meta")
     kv = torch.empty(2, 77, 2, 128, dtype=torch.bfloat16, device="meta")
     mask = torch.empty(2, 1, 77, 77, dtype=torch.bool, device="meta")
@@ -135,8 +134,9 @@ def test_k1_takes_masks_and_gqa_on_the_card():
     assert takes(q, kv, mask, True) and takes(q, kv, None, True)
     assert not takes(q, kv, mask.expand(2, 4, 77, 77), False)  # depends on the head
     assert not takes(q, kv, torch.empty(2, 1, 77, 77, device="meta"), False)  # additive
-    assert not takes(q[..., :32], kv[..., :32], mask, False) and takes(q[..., :32], kv[..., :32], None, False)
-    assert not takes(q[..., :32], kv[..., :32], None, True)
+    assert takes(q[..., :32], kv[..., :32], mask, False) and takes(q[..., :32], kv[..., :32], None, False)
+    assert takes(q[..., :32], kv[..., :32], None, True) and takes(q[..., :32], kv[..., :32], mask, True)
+    assert not takes(q[..., :48], kv[..., :48], None, False) and not takes(q[..., :48], kv[..., :48], None, True)
     cpu = torch.zeros(2, 77, 4, 64)
     assert not takes(cpu, cpu[:, :, :2], None, False) and not takes(cpu, cpu, torch.ones(77, 77, dtype=torch.bool),
                                                                     False)

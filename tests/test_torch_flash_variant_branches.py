@@ -2,14 +2,15 @@
 port's plain versions against the Pallas kernels' branches under the same
 switch (`_flash_forward` and `_flash_backward` in interpret mode, Pallas tiles
 of 64, each traced once with the switch set, as the JAX package reads it when
-it traces).
+it traces, and compiled at XLA's lowest level, `jax_compiled`).
 
 The eight (switch, branch) pairs JAX runs a variant kernel's branch for, with
 `test_torch_flash_branches.py`'s inputs: cross (B, N, Sq, Skv, H) = (2, 2,
 160, 224, 64) for causal with Sq < Skv and the dense mask with kv_lens, self
 (2, 2, 160, 160, 64) for segment ids with -1 padding and kv_lens, with shared
 (S, H) RoPE tables where the kernel takes them (JAX gates K7b off RoPE); and
-K7c's causal branch once at H=128 (JAX's two-level step differs there). The
+K7c's causal branch once at H=128 (JAX's two-level step differs there); and
+all eight pairs again at H=32, the dummy family's head dim. The
 segment layout leaves rows with no live key in one of K7c's 128-key tiles:
 batch 0's rows of id 1 in the second tile, and its padded rows (id -1, live
 keys 148-149 only under kv_lens 150) in the first. fp32; out and LSE (dq, dk
@@ -23,11 +24,11 @@ import functools
 import importlib
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_compiled import compiled
 
 from finetrainers_tpu_torch.ops.flash_attention import flash_backward, flash_forward, live_pairs
 
@@ -58,6 +59,7 @@ CASES = {
     "fused_bwd_segments_kv_lens_rope": dict(switch=FUSED, shape=(SQ, SQ), segments=True, lens=SEG_LENS, rope=True),
     "fused_bwd_mask_kv_lens": dict(switch=FUSED, shape=(SQ, SKV), mask=True, lens=LENS),
 }
+CASES.update({f"{name}_h32": dict(c, h=32) for name, c in list(CASES.items()) if "h" not in c})
 
 
 @contextlib.contextmanager
@@ -110,17 +112,17 @@ def _case(name):
     lens, causal = c.get("lens"), c.get("causal", False)
     j = lambda x: None if x is None else jnp.asarray(x)  # noqa: E731
     fused = c["switch"] == FUSED
-    with _switch(c["switch"]) if not fused else contextlib.nullcontext():
-        fwd = jax.jit(lambda q, k, v, lens, seg, mask, cos, sin: jax_fa._flash_forward(
-            q, k, v, lens, seg, seg, mask, h**-0.5, causal, 64, 64, cos, sin))
-        out, lse = fwd(j(q), j(k), j(v), j(lens), j(seg), j(mask), j(cos), j(sin))
-    grads = None
-    if fused:
-        with _switch(FUSED):
-            bwd = jax.jit(lambda q, k, v, lens, seg, mask, out, lse, do, cos, sin: jax_fa._flash_backward(
-                q, k, v, lens, seg, seg, mask, out, lse, do, h**-0.5, causal, 64, 64, cos, sin))
-            grads = tuple(np.asarray(g) for g in bwd(j(q), j(k), j(v), j(lens), j(seg), j(mask), out, lse, j(do),
-                                                     j(cos), j(sin)))
+
+    def fwd_bwd(q, k, v, lens, seg, mask, do, cos, sin):  # the forward alone for a forward switch
+        out, lse = jax_fa._flash_forward(q, k, v, lens, seg, seg, mask, h**-0.5, causal, 64, 64, cos, sin)
+        if not fused:
+            return out, lse, None
+        return out, lse, jax_fa._flash_backward(q, k, v, lens, seg, seg, mask, out, lse, do, h**-0.5, causal, 64, 64,
+                                                cos, sin)
+
+    with _switch(c["switch"]):  # the fused switch leaves JAX's forward as it is
+        out, lse, grads = compiled(fwd_bwd, j(q), j(k), j(v), j(lens), j(seg), j(mask), j(do), j(cos), j(sin))
+    grads = None if grads is None else tuple(np.asarray(g) for g in grads)
     inputs = dict(q=q, k=k, v=v, do=do, lens=lens, seg=seg, mask=mask, cos=cos, sin=sin, causal=causal)
     return inputs, np.asarray(out), np.asarray(lse), grads
 

@@ -347,7 +347,7 @@ def test_forward_variant_kernels_match_reference(variant, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["two_level", "skew"])
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 def test_k7b_k7c_ignore_k_and_v_rows_past_kv_lens(variant, head_dim):
     """TMA reads the rows of k and v between kv_lens[b] and the end of their
     128-key tile: filled with large finite values, they must leave K7c's and
@@ -742,7 +742,7 @@ def test_k2_k3_ignore_k_and_v_rows_past_kv_lens(dtype, head_dim):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_k5_k7a_ignore_k_and_v_rows_past_kv_lens(dtype, head_dim, monkeypatch):
     """TMA reads the rows of k and v between kv_lens[b] and the end of their
@@ -840,7 +840,7 @@ def test_sage_kernel_matches_reference(dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_k6_ignores_codes_scales_and_v_past_kv_lens(dtype, head_dim):
     """TMA reads the k codes, k scales and v rows between kv_lens[b] and Skv:
@@ -873,7 +873,7 @@ def test_k6_ignores_codes_scales_and_v_past_kv_lens(dtype, head_dim):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rope", [None, "shared", "per_head"])
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_sage_prep_matches_the_cpu_plain_prepass(dtype, head_dim, rope):
     """The pre-pass kernel against `sage_quantize` on the CPU copy: q codes and
@@ -1233,7 +1233,7 @@ def _branch_inputs(branch, b, sq, skv, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", BRANCH_CASES, ids=[c[0] for c in BRANCH_CASES])
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_k1_k2_k3_branches_match_their_plain_versions(dtype, head_dim, case):
     """K1's, K2's and K3's causal, segment and mask branches (through
@@ -1290,7 +1290,7 @@ VARIANT_BRANCHES = [
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", BRANCH_CASES, ids=[c[0] for c in BRANCH_CASES])
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("switch", [v[0] for v in VARIANT_BRANCHES])
 def test_k5_k7_branches_match_their_plain_versions(switch, head_dim, case, monkeypatch):
     """K7c's branches and K7a's and K7b's segment branches (through
@@ -1337,7 +1337,7 @@ def test_k5_k7_branches_match_their_plain_versions(switch, head_dim, case, monke
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 def test_mask_branches_never_read_dead_key_tiles(head_dim):
     """Keys no query attends (a 128-key tile off for every row): their k and v
     rows filled with large values leave out, LSE, dq and the other keys' dk
@@ -1401,7 +1401,7 @@ def _chip_smoke():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("branch", ["causal", "segment", "mask"])
 def test_k2_k3_branches_select_exactly_the_live_pairs(branch, head_dim):
     """K2's and K3's branch selects pair by pair, and K5's under the fused

@@ -1,9 +1,11 @@
 """K6 parity: the port's plain int8 SageAttention against the JAX package's.
 
 The JAX side runs the Pallas `_sage_fwd_kernel` in interpret mode (as
-`tests/ops/test_attention.py` runs it on the CPU); the port runs K6's plain
-version (`sage_attention_reference`, which a CPU tensor takes). Inputs are
-seeded numpy, k with a channel offset that smooth-K removes.
+`tests/ops/test_attention.py` runs it on the CPU; jitted and compiled at XLA's
+lowest level, `jax_compiled`); the port runs K6's plain version
+(`sage_attention_reference`, which a CPU tensor takes), at head dims 32 (the
+dummy family's), 64 and 128. Inputs are seeded numpy, k with a channel offset
+that smooth-K removes.
 
 Tolerances:
   - fp32: atol 1e-5. The codes are the same (the same fp32 divisions and
@@ -22,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_compiled import compiled
 
 from finetrainers_tpu.ops import attention_dispatch as jax_attention_dispatch
 from finetrainers_tpu.ops.sage_attention import _quantize_per_token as jax_quantize
@@ -43,12 +46,13 @@ def _qkv(b, sq, skv, n, h, seed=0):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 def test_plain_k6_matches_jax_pallas(head_dim, dtype):
     """Self-attention shapes off every block boundary, kv_lens with an empty row."""
     q, k, v = _qkv(3, 70, 70, 2, head_dim)
     lens = np.asarray([70, 33, 0], np.int32)
-    ref = jax_sage_attention(*(jnp.asarray(x, dtype) for x in (q, k, v)), kv_lens=jnp.asarray(lens))
+    ref = compiled(lambda q, k, v, lens: jax_sage_attention(q, k, v, kv_lens=lens),
+                   *(jnp.asarray(x, dtype) for x in (q, k, v)), jnp.asarray(lens))
     tdtype = getattr(torch, dtype)
     before = sage_forward.launches
     out = sage_attention(*(torch.from_numpy(x).to(tdtype) for x in (q, k, v)), kv_lens=torch.from_numpy(lens))
@@ -64,7 +68,8 @@ def test_plain_k6_matches_jax_pallas_cross_attention_gqa():
     q = rng.randn(2, 33, 4, 64).astype(np.float32)
     k, v = (rng.randn(2, 40, 2, 64).astype(np.float32) for _ in range(2))
     lens = np.asarray([9, 40], np.int32)
-    ref = jax_sage_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_lens=jnp.asarray(lens))
+    ref = compiled(lambda q, k, v, lens: jax_sage_attention(q, k, v, kv_lens=lens),
+                   jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens))
     out = sage_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), kv_lens=torch.from_numpy(lens))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOLS["float32"])
 
@@ -106,8 +111,10 @@ def test_dispatch_matches_jax(name):
     ang = np.random.RandomState(3).uniform(0, 2 * np.pi, (48, 32))
     cos, sin = (np.repeat(f(ang), 2, -1).astype(np.float32) for f in (np.cos, np.sin))
     mask = np.arange(48)[None, None, None, :] < np.asarray([48, 17])[:, None, None, None]
-    ref = jax_attention_dispatch(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), attn_mask=jnp.asarray(mask),
-                                 provider=name, rope_freqs=(jnp.asarray(cos), jnp.asarray(sin)))
+    ref = compiled(lambda q, k, v, mask, cos, sin: jax_attention_dispatch(q, k, v, attn_mask=mask, provider=name,
+                                                                           rope_freqs=(cos, sin)),
+                   jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), jnp.asarray(cos),
+                   jnp.asarray(sin))
     out = attention_dispatch(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                              attn_mask=torch.from_numpy(mask), provider=name,
                              rope_freqs=(torch.from_numpy(cos), torch.from_numpy(sin)))

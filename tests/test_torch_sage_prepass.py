@@ -8,7 +8,10 @@ in XLA: the dispatcher's `_rotate_interleaved_4d` before the kernel, then
 port's plain version (`sage_quantize`, which `sage_prep` computes on a CPU
 tensor) takes the tables in the kernel's (N or 1, S, H) form. Inputs are
 seeded numpy at small shapes off the 128-row tile, k with a channel offset
-that smooth-K removes.
+that smooth-K removes, at head dims 32 (the dummy family's), 64 and 128. JAX's
+pre-pass runs eagerly (jitted, XLA turns the division by 127 into a multiply
+and moves a scale by an ulp); its dispatch is jitted and compiled at XLA's
+lowest level (`jax_compiled`).
 
 Tolerances:
   - q codes and scales equal: the rotation is three separately rounded fp32
@@ -27,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_compiled import compiled
 
 from finetrainers_tpu.ops import attention_dispatch as jax_attention_dispatch
 from finetrainers_tpu.ops.attention import _rotate_interleaved_4d as jax_rotate
@@ -70,7 +74,8 @@ def _jax_prepass(q, k, lens, cos, sin, dtype):
     k_mean = jnp.sum(jnp.where(valid, kb.astype(jnp.float32), 0.0), axis=2, keepdims=True) / denom
     q_codes, q_scales = jax_quantize(qb)
     k_codes, k_scales = jax_quantize(kb.astype(jnp.float32) - k_mean)
-    return [np.asarray(x) for x in (q_codes, k_codes, q_scales, k_scales)], np.asarray(qj.astype(jnp.float32))
+    q_rotated = qj.astype(jnp.float32)
+    return [np.asarray(x) for x in (q_codes, k_codes, q_scales, k_scales)], np.asarray(q_rotated)
 
 
 def _assert_codes_match(got, ref):
@@ -82,9 +87,10 @@ def _assert_codes_match(got, ref):
     np.testing.assert_allclose(k_scales, ref[3], rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("per_head", [False, True])
-@pytest.mark.parametrize("head_dim", [64, 128])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype,head_dim,per_head", [
+    *((dtype, head_dim, per_head) for per_head in (False, True) for head_dim in (64, 128)
+      for dtype in ("float32", "bfloat16")),
+    ("float32", 32, True), ("bfloat16", 32, False)])
 def test_plain_prepass_with_tables_matches_jax(dtype, head_dim, per_head):
     """The plain pre-pass with (S, H) or (S, N*H) tables against JAX's rotation,
     smooth-K and quantization; kv_lens of Skv, of part of it and of 0. The
@@ -104,7 +110,7 @@ def test_plain_prepass_with_tables_matches_jax(dtype, head_dim, per_head):
     np.testing.assert_array_equal(sage_ops._rotate(tq, *tables).float().numpy(), q_rotated)
 
 
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 def test_sage_prep_takes_the_plain_prepass_on_the_cpu(head_dim):
     """On a CPU tensor `sage_prep` computes the plain pre-pass, with and
     without tables, and launches nothing."""
@@ -129,8 +135,10 @@ def test_sage_dispatch_with_rope_freqs_matches_jax(dtype, name):
     q, k, v = _inputs(b, s, n, h, seed=11)
     cos, sin = _tables(s, n, h, True, seed=12)
     lens = np.asarray([s, 0], np.int32)
-    ref = jax_attention_dispatch(*(jnp.asarray(x, JNP[dtype]) for x in (q, k, v)), kv_lens=jnp.asarray(lens),
-                                 provider=name, rope_freqs=(jnp.asarray(cos), jnp.asarray(sin)))
+    ref = compiled(lambda q, k, v, lens, cos, sin: jax_attention_dispatch(q, k, v, kv_lens=lens, provider=name,
+                                                                           rope_freqs=(cos, sin)),
+                   *(jnp.asarray(x, JNP[dtype]) for x in (q, k, v)), jnp.asarray(lens), jnp.asarray(cos),
+                   jnp.asarray(sin))
     out = attention_dispatch(*(torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v)),
                              kv_lens=torch.from_numpy(lens), provider=name,
                              rope_freqs=(torch.from_numpy(cos), torch.from_numpy(sin)))

@@ -2,12 +2,17 @@
 int8-storage phases, alone on the card, for debugging them without the
 script's earlier paths.
 
-    python3 tools/torch_dummy_phases.py OUT.jsonl [kernels] [dummy] [cogview4] [diagnose]
+    python3 tools/torch_dummy_phases.py OUT.jsonl [kernels] [branches] [dummy] [cogview4] [diagnose]
 
 Builds the kernels (`_build.load_libraries`, with each kernel's ptxas
 registers and spills), then runs the named phases (all by default) in that
-order: `kernels` (`check_h32_kernels`), `dummy` (`dummy_run`, then
-`dummy_serve` with its adapter) and `cogview4` (`cogview4_sft_run`, then
+order: `kernels` (`check_h32_kernels`: every kernel at head dim 32 against
+its plain version), `branches` (`check_attention_branches` on its head-dim-32
+cases, with K5's and K7's branches under each switch, then every
+(switch, branch) pair and the pair probe, at every head dim), `dummy`
+(`dummy_run`, its LoRA run also under each kernel switch, then
+`dummy_serve` with its adapter, under the default provider and `sage`) and
+`cogview4` (`cogview4_sft_run`, then
 `cogview4_sft_serve` with its adapter). `diagnose` (not run by default) takes
 the raider example's run for one step (its flags, int8 storage, random LoRA
 factors from seed 8, the draws of a generator seeded 7, one batch of seeded
@@ -35,7 +40,7 @@ from finetrainers_tpu_torch.ops import _build  # noqa: E402
 
 out = pathlib.Path(sys.argv[1])
 out.parent.mkdir(parents=True, exist_ok=True)
-wanted = set(sys.argv[2:]) or {"kernels", "dummy", "cogview4"}
+wanted = set(sys.argv[2:]) or {"kernels", "branches", "dummy", "cogview4"}
 
 
 def diagnose():
@@ -121,6 +126,8 @@ with open(out, "w") as log, contextlib.redirect_stdout(Tee(log)):
     print(json.dumps({"phase": "spills", "spilled": spilled}), flush=True)
     if "kernels" in wanted:
         cs.check_h32_kernels(card)
+    if "branches" in wanted:
+        cs.check_attention_branches(card, [c for c in cs.BRANCH_CASES if c[6] == 32])
     if "dummy" in wanted:
         run = cs.dummy_run(card)
         cs.dummy_serve(card, run["adapter"])
